@@ -1,0 +1,406 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``deepspeed_tpu_torch``) on one NVIDIA GPU.
+
+Phases, each fatal on failure:
+
+1. the device: ``nvidia-smi`` name and power limit; no CUDA, no run;
+2. build the CUDA kernels from ``deepspeed_tpu_torch/csrc`` with nvcc;
+3. each kernel against its plain PyTorch version on the card, in bf16, at
+   the shapes Llama-2-7B serving gives it, with its time, its plain
+   version's time, one PyTorch library call's time where one computes the
+   same function, and the least time the card could take (bound);
+4. the serving slice at Llama-2-7B width (random bf16 weights from a seed):
+   ``generate()`` on four prompts (one longer than the 736-token chunk
+   budget) and a ``put()`` round mixing a new prompt with one-token decode
+   rows, with every kernel's launch count; then the engine's next-token
+   logits at prefill and at decode steps held against the dense forward
+   (fp32 yardstick; the engine's bf16 error must be within 2x the dense bf16
+   forward's own), and the prefill and decode token rates.
+
+The last two lines are the kernel table and ``{"ok": true, "device": ...}``
+as JSON. Run from the repository root: ``python3 chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
+# Kernel against plain version: |out - ref| <= RTOL * max|ref| over the same
+# (row, head) + ATOL, elementwise. Attention over n random keys gives
+# outputs of about sqrt(e/n) (0.04 at 2048 keys), so the bound follows each
+# row's own scale: RTOL is 2 to 4 bf16 ulps of the row's largest value; ATOL only
+# admits rounding on rows that are exactly zero in the reference.
+KERNEL_RTOL = 2.0 ** -6
+KERNEL_ATOL = 1e-5
+
+
+def smi_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def bound(nbytes: float, flops: float):
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+# --------------------------------------------------------------------------- #
+# phase 3: kernels against their plain versions
+# --------------------------------------------------------------------------- #
+
+def check_kernels(dev):
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.kernels import (
+        flash_attention_packed, flash_attention_packed_plain,
+        paged_chunk_attention_batched, paged_chunk_attention_batched_plain,
+        paged_decode_attention, paged_decode_attention_plain)
+    g = torch.Generator(device=dev).manual_seed(1234)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def err(out, ref):
+        """Max abs error, its worst share of the (row, head) scale, and its
+        ratio to the typical |ref|; fails where the elementwise bound
+        ``RTOL * rowmax + ATOL`` is broken."""
+        ref = ref.float()
+        d = (out.float() - ref).abs()
+        rowmax = ref.abs().amax(-1, keepdim=True)
+        ok = bool((d <= KERNEL_RTOL * rowmax + KERNEL_ATOL).all())
+        rel = float((d / (rowmax + KERNEL_ATOL)).max())
+        typ = float(ref.abs().mean())
+        return {"max_abs_err": float(d.max()), "max_err_over_rowmax": rel,
+                "max_err_over_mean_abs_ref": float(d.max()) / max(typ, 1e-30),
+                "mean_abs_ref": typ, "ok": ok}
+
+    rows = {}
+
+    def record(name, case, e, row=False, **extra):
+        """Print one check; ``row`` makes its timings the kernel-table row
+        (the main path's shape)."""
+        line = {"kernel": name, "case": case, **e,
+                "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL, **extra}
+        print("kernel-check " + json.dumps(line), flush=True)
+        if not e["ok"]:
+            raise AssertionError(
+                f"{name} {case}: error {e['max_abs_err']} breaks "
+                f"{KERNEL_RTOL} x rowmax + {KERNEL_ATOL}")
+        r = rows.setdefault(name, {"max_abs_err": 0.0})
+        r["max_abs_err"] = max(r["max_abs_err"], e["max_abs_err"])
+        if row:
+            r.update(extra, case=case)
+
+    # ---- K2: packed prefill, R = 768 rows, H = Hkv = 32, D = 128 ---- #
+    R, H, D = 768, 32, 128
+    seg_lens = [300, 200, 150, 100]
+    seg = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    o = 0
+    for i, n in enumerate(seg_lens):
+        seg[o:o + n] = i
+        o += n
+    q, k, v = randn(R, H, D), randn(R, H, D), randn(R, H, D)
+    out = flash_attention_packed(q, k, v, seg)
+    ref = flash_attention_packed_plain(q, k, v, seg)
+    torch.cuda.synchronize()
+    pairs = sum(n * (n + 1) // 2 for n in seg_lens + [R - sum(seg_lens)])
+    mask = (torch.arange(R, device=dev)[:, None] >= torch.arange(R, device=dev)[None]) \
+        & (seg[:, None] == seg[None])
+    qt, kt, vt = (x.transpose(0, 1)[None] for x in (q, k, v))
+    b_ms, b_by = bound(4 * R * H * D * 2 + R * 4, 4 * D * H * pairs)
+    record("flash_packed", f"R={R} H={H} D={D} segs={seg_lens}+pad", err(out, ref),
+           row=True, ms=time_ms(lambda: flash_attention_packed(q, k, v, seg)),
+           plain_ms=time_ms(lambda: flash_attention_packed_plain(q, k, v, seg), 5, 1),
+           library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, attn_mask=mask)),
+           bound_ms=b_ms, bound_by=b_by)
+    # GQA 32/8 at the same rows
+    k8, v8 = randn(R, 8, D), randn(R, 8, D)
+    record("flash_packed", "GQA H=32 Hkv=8", err(
+        flash_attention_packed(q, k8, v8, seg),
+        flash_attention_packed_plain(q, k8, v8, seg)))
+
+    # ---- paged pool shared by K5 and the decode kernel ---- #
+    def make_pool(NB, Hkv, bs, D):
+        return randn(NB, 2, Hkv, bs, D)
+
+    def tables(ctxs, bs, MB, NB):
+        perm = torch.randperm(NB, generator=torch.Generator().manual_seed(7))
+        bt = torch.zeros((len(ctxs), MB), dtype=torch.int32)
+        used = 0
+        for i, c in enumerate(ctxs):
+            n = -(-c // bs)
+            bt[i, :n] = perm[used:used + n].to(torch.int32)
+            used += n
+        return bt.to(dev)
+
+    # ---- K5: 6 slots x 128 rows, bs = 128, ctx up to 2048, one empty ---- #
+    bs, Hkv, MB = 128, 32, 16
+    ctxs = [2048, 1536, 1000, 300, 128, 0]
+    NB = sum(-(-c // bs) for c in ctxs) + 4
+    pool = make_pool(NB, Hkv, bs, D)
+    Cs = 128
+    bt = tables(ctxs, bs, MB, NB)
+    ctx_t = torch.tensor(ctxs, dtype=torch.int32, device=dev)
+    q0 = torch.clamp(ctx_t - Cs, min=0)
+    qc = randn(len(ctxs), Cs, H, D)
+    out = paged_chunk_attention_batched(qc, pool, bt, q0, ctx_t)
+    ref = paged_chunk_attention_batched_plain(qc, pool, bt, q0, ctx_t)
+    torch.cuda.synchronize()
+    if float(out[-1].float().abs().max()) != 0.0:
+        raise AssertionError("paged_chunk: empty slot is not zero")
+    vis = sum(min(c, q + r + 1) for c, q in zip(ctxs, q0.tolist())
+              for r in range(Cs) if c > 0)
+    nbytes = 2 * qc.numel() * 2 + sum(ctxs) * Hkv * D * 2 * 2
+    b_ms, b_by = bound(nbytes, 4 * D * H * vis)
+    record("paged_chunk", f"6x{Cs} rows ctx={ctxs} bs={bs}", err(out, ref),
+           row=True, ms=time_ms(lambda: paged_chunk_attention_batched(qc, pool, bt, q0, ctx_t)),
+           plain_ms=time_ms(lambda: paged_chunk_attention_batched_plain(
+               qc, pool, bt, q0, ctx_t), 5, 1),
+           library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+    # ---- decode kernel: S in {4, 32}, ctx up to 2048, three modes ---- #
+    def decode_case(S, Hq, Hkv, D, C, j, timed=False, row=False):
+        rng = np.random.RandomState(S * 131 + Hkv + D + C)
+        ctxs = [int(x) for x in rng.randint(1, 2049, size=S)]
+        ctxs[0] = 2048
+        ctxs[1] = 0
+        NB = sum(-(-c // bs) for c in ctxs) + 2
+        pool = make_pool(NB, Hkv, bs, D)
+        bt = tables(ctxs, bs, MB, NB)
+        qd = randn(S, Hq, D)
+        lens = torch.tensor(ctxs, dtype=torch.int32, device=dev)
+        side = ()
+        if C:
+            lens = torch.clamp(lens - 1, min=0)
+            side = (randn(S, C * Hkv, D), randn(S, C * Hkv, D))
+        kw = {"j": j} if C else {}
+        out = paged_decode_attention(qd, pool, bt, lens, *side, **kw)
+        ref = paged_decode_attention_plain(qd, pool, bt, lens, *side, **kw)
+        torch.cuda.synchronize()
+        case = f"S={S} H={Hq} Hkv={Hkv} D={D} C={C} j={j}"
+        extra = {}
+        if timed:
+            toks = int(lens.sum()) + (S * (j + 1) if C else 0)
+            nbytes = toks * Hkv * D * 2 * 2 + 2 * qd.numel() * 2
+            b_ms, b_by = bound(nbytes, 4 * D * Hq * toks)
+            extra = dict(
+                ms=time_ms(lambda: paged_decode_attention(qd, pool, bt, lens, *side, **kw)),
+                plain_ms=time_ms(lambda: paged_decode_attention_plain(
+                    qd, pool, bt, lens, *side, **kw), 5, 1),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        record("paged_decode", case, err(out, ref), row=row, **extra)
+
+    for S in (4, 32):
+        decode_case(S, 32, 32, 128, 0, 0)
+        decode_case(S, 32, 32, 128, 1, 0)
+        decode_case(S, 32, 32, 128, 4, 2)
+    decode_case(32, 32, 32, 64, 1, 0)
+    decode_case(32, 32, 8, 128, 1, 0)
+    decode_case(32, 32, 8, 128, 0, 0)
+    # timed at the pipelined decode step's shape (one side row); the kernel
+    # table keeps S = 4, the main path's decode batch, and S = 32 is printed
+    decode_case(4, 32, 32, 128, 1, 0, timed=True, row=True)
+    decode_case(32, 32, 32, 128, 1, 0, timed=True)
+    return rows
+
+
+# --------------------------------------------------------------------------- #
+# phase 4: the serving slice at Llama-2-7B width
+# --------------------------------------------------------------------------- #
+
+def run_slice():
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    # the fp32 yardstick runs in full fp32, never TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LlamaConfig.llama2_7b(dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    print(f"model: Llama-2-7B geometry, {cfg.num_hidden_layers} layers, bf16, random weights "
+          f"(seed 0), init {time.perf_counter() - t0:.1f} s", flush=True)
+    # the default pool sizing (max_tracked_sequences x max_context) would ask
+    # for 4096 pages of 64 MiB: size the pool explicitly
+    econf = {"kv_cache": {"block_size": 128, "num_blocks": 64}, "seed": 0}
+    engine = InferenceEngineV2(model, econf, model.flat_params())
+    V = cfg.vocab_size
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, V, n).astype(np.int32) for n in (900, 300, 120, 40)]
+
+    # ---- the main path: generate(), then a mixed put() round ---- #
+    reset_launches()
+    outs = engine.generate(prompts, max_new_tokens=32)
+    new = [rng.randint(0, V, n).astype(np.int32) for n in (200, 150, 180)]
+    lg = engine.put([100, 101], new[:2])
+    nxt = [np.array([int(np.argmax(r))], np.int32) for r in lg]
+    lg2 = engine.put([100, 101, 102], nxt + [new[2]])
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    engine.flush([100, 101, 102])
+    print("main-path launches " + json.dumps(launches), flush=True)
+    for p, o in zip(prompts, outs):
+        if len(o) != len(p) + 32 or list(o[:len(p)]) != list(p) \
+                or not all(0 <= t < V for t in o):
+            raise AssertionError("generate() returned a malformed stream")
+    if lg2.shape != (3, V) or not np.isfinite(lg2).all():
+        raise AssertionError("put() logits malformed")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    if engine.free_blocks != 64:
+        raise AssertionError(f"free blocks {engine.free_blocks} != 64 after flush")
+
+    # ---- logits against the dense forward; token rates ---- #
+    uids = [10, 11, 12, 13]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = [engine.put(uids, prompts)]                      # prefill logits
+    t_prefill = time.perf_counter() - t0
+    pipe = engine.decode_pipeline(uids)
+    toks = []
+    for _ in range(3):                                     # pipelined steps
+        toks.append(pipe.run(1)[:, 0])
+        engine._materialize(uids)
+        got.append(np.stack([engine._last_logits[u] for u in uids]))
+    last = np.argmax(got[-1], axis=-1).astype(np.int32)    # one decode row each
+    got.append(engine.put(uids, [last[i:i + 1] for i in range(4)]))
+    toks.append(last)
+    e_eng, e_dense, m_eng, m_dense = [], [], 0.0, 0.0
+    for i, p in enumerate(prompts):
+        seq = np.concatenate([p] + [t[i:i + 1] for t in toks])
+        ids = torch.from_numpy(seq).long().cuda()[None]
+        ref32 = model.forward_logits(ids, compute_dtype=torch.float32)[0]
+        ref16 = model.forward_logits(ids, compute_dtype=torch.bfloat16)[0]
+        rows = slice(len(p) - 1, len(p) + 4)
+        eng = torch.from_numpy(np.stack([g[i] for g in got])).cuda()
+        d_eng = (eng - ref32[rows]).float()
+        d_dense = (ref16[rows] - ref32[rows]).float()
+        e_eng.append(float(d_eng.pow(2).mean()))
+        e_dense.append(float(d_dense.pow(2).mean()))
+        m_eng = max(m_eng, float(d_eng.abs().max()))
+        m_dense = max(m_dense, float(d_dense.abs().max()))
+        if not torch.isfinite(eng).all():
+            raise AssertionError("engine logits are not finite")
+    rms_eng, rms_dense = float(np.sqrt(np.mean(e_eng))), float(np.sqrt(np.mean(e_dense)))
+    print(f"logits vs dense fp32 (prefill + 4 decode steps x 4 prompts): engine bf16 "
+          f"rms {rms_eng:.5f} max {m_eng:.4f}; dense bf16 rms {rms_dense:.5f} "
+          f"max {m_dense:.4f}; limit rms <= 2 x dense", flush=True)
+    if not rms_eng <= 2 * rms_dense:
+        raise AssertionError(f"engine logits error {rms_eng} > 2 x dense bf16 {rms_dense}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.run(32)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    n_prompt = sum(len(p) for p in prompts)
+    print(f"prefill {n_prompt} tokens in {t_prefill * 1e3:.1f} ms = "
+          f"{n_prompt / t_prefill:.1f} tok/s; decode 4 x 32 tokens in "
+          f"{t_decode * 1e3:.1f} ms = {128 / t_decode:.1f} tok/s", flush=True)
+    # where the time goes: device kernel time under the CUDA profiler
+    device_breakdown("decode 4 seqs x 8 steps", lambda: pipe.run(8))
+    engine.flush(uids)
+    device_breakdown("prefill 4 prompts (1360 tokens)",
+                     lambda: engine.put([20, 21, 22, 23], prompts))
+    engine.flush([20, 21, 22, 23])
+    return launches
+
+
+def device_breakdown(label: str, fn) -> None:
+    """Run ``fn`` once under the CUDA-only profiler; print wall time, summed
+    device kernel time, the device busy share, the port's attention
+    kernels' time and the six largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            dev[e.key] = us / 1e3
+    busy = sum(dev.values())
+    ours = {n: sum(v for k, v in dev.items() if f"{n}_kernel" in k)
+            for n in ("flash_packed", "paged_chunk", "paged_decode")}
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
+    print("profile " + json.dumps({
+        "phase": label, "wall_ms": wall,
+        "device_ms": busy if busy else "not measured",
+        "device_busy_share": busy / wall if busy else "not measured",
+        "attention_kernels_ms": ours,
+        "top_kernels_ms": [[k[:80], v] for k, v in top]}), flush=True)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deepspeed_tpu_torch.ops.kernels import _loader
+
+    smi = smi_line()
+    print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi}", flush=True)
+    t0 = time.perf_counter()
+    _loader.load_library()
+    print(f"build: {_loader.last_build_seconds:.1f} s (nvcc, sm_90a; "
+          f"{time.perf_counter() - t0:.1f} s with load)", flush=True)
+    rows = check_kernels(torch.device("cuda"))
+    launches = run_slice()
+    mods = {"flash_packed": "flash_packed", "paged_chunk": "paged_chunk",
+            "paged_decode": "paged_decode"}
+    table = []
+    for name, mod in mods.items():
+        m = __import__(f"deepspeed_tpu_torch.ops.kernels.{mod}", fromlist=["x"])
+        r = rows[name]
+        table.append({"name": name, "route": "cuda", "source": m.SOURCE,
+                      "replaces": m.REPLACES, "launches": launches[name],
+                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                      "case": r["case"]})
+    print(smi, flush=True)
+    print(json.dumps({"kernels": table}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

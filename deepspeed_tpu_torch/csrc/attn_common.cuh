@@ -1,0 +1,225 @@
+// Shared device code of the port's attention kernels (sm_90a, bf16 in,
+// f32 accumulate, bf16 out).
+//
+// flash_block<D> is one thread block's flash-attention loop over 64 query
+// rows of ONE head: Q, then 64-key tiles of K and V, staged in shared
+// memory; scores and P.V on CUDA cores with FMAs in f32; online softmax
+// (running max m, sum l, accumulator o) per row. The caller supplies where
+// key rows live (kv_row) and which (row, key) pairs are visible (mask), so
+// the packed-prefill kernel (rows of a packed batch) and the paged chunk
+// kernel (rows gathered through a block table) share this loop.
+//
+// Thread layout (256 threads): thread (ty = tid / 16, tx = tid % 16) owns
+// query rows 4*ty .. 4*ty+3; for the scores it owns key columns tx + 16*c
+// (c < 4), for the output the dims tx + 16*n (n < D/16). A row's 16 owner
+// threads are one half-warp, so row max and row sum reduce with xor
+// shuffles and no barrier.
+//
+// Shared memory: Q and K rows are stored with a stride of D + 2 bf16 (an odd
+// number of 32-bit words), so the 16 threads reading 16 different K rows at
+// the same depth hit 16 different banks. V (read row-broadcast) and P keep
+// dense rows (P padded by one float).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace dstorch {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr float kNegBig = -1e30f;
+constexpr int kBQ = 64;
+constexpr int kBK = 64;
+constexpr int kTileThreads = 256;
+
+__device__ __forceinline__ uint4 load16(const bf16* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+__device__ __forceinline__ void bf16x8_to_float(const uint4& u, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+// 16 bytes into a shared row whose start is only 4-byte aligned
+__device__ __forceinline__ void store8_words(bf16* dst, const uint4& u) {
+  uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+  d[0] = u.x;
+  d[1] = u.y;
+  d[2] = u.z;
+  d[3] = u.w;
+}
+
+struct KVRowPtr {
+  const bf16* k;
+  const bf16* v;
+};
+
+template <int D>
+struct FlashSmem {
+  static constexpr int QS = D + 2;   // padded Q/K row, in bf16
+  static constexpr int PS = kBK + 1; // padded P row, in floats
+  static constexpr size_t q_bytes = (size_t)kBQ * QS * sizeof(bf16);
+  static constexpr size_t k_bytes = (size_t)kBK * QS * sizeof(bf16);
+  static constexpr size_t v_bytes = (size_t)kBK * D * sizeof(bf16);
+  static constexpr size_t p_bytes = (size_t)kBQ * PS * sizeof(float);
+  static constexpr size_t bytes = q_bytes + k_bytes + v_bytes + p_bytes;
+};
+
+// q row r (r < n_q) starts at q_rows + r * row_stride, likewise the output.
+// Keys are 0 .. n_keys-1; kv_row(key) gives their K and V rows;
+// mask(r, key) says whether row r sees key (key < n_keys is implied).
+// Rows that see no key get zeros.
+template <int D, typename KVRow, typename Mask>
+__device__ __forceinline__ void flash_block(const bf16* __restrict__ q_rows,
+                                            bf16* __restrict__ o_rows,
+                                            int row_stride, int n_q, int n_keys,
+                                            KVRow kv_row, Mask mask,
+                                            float scale, char* smem) {
+  static_assert(D % 16 == 0 && D <= 256, "head dim must be a multiple of 16, <= 256");
+  using S = FlashSmem<D>;
+  constexpr int CH = D / 8;   // 16-byte chunks per row
+  constexpr int ND = D / 16;  // output dims per thread
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + S::q_bytes);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + S::q_bytes + S::k_bytes);
+  float* Ps = reinterpret_cast<float*>(smem + S::q_bytes + S::k_bytes + S::v_bytes);
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4;
+  const int tx = tid & 15;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+
+  for (int i = tid; i < kBQ * CH; i += kTileThreads) {
+    const int r = i / CH, c = i - (i / CH) * CH;
+    const uint4 u = r < n_q ? load16(q_rows + (size_t)r * row_stride + c * 8) : zero;
+    store8_words(Qs + r * S::QS + c * 8, u);
+  }
+
+  float o[4][ND];
+  float m[4], l[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m[r] = kNegBig;
+    l[r] = 0.f;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) o[r][n] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < n_keys; k0 += kBK) {
+    __syncthreads();  // the previous tile's readers are done
+    for (int i = tid; i < kBK * CH; i += kTileThreads) {
+      const int kk = i / CH, c = i - (i / CH) * CH;
+      const int key = k0 + kk;
+      uint4 uk = zero, uv = zero;
+      if (key < n_keys) {
+        const KVRowPtr p = kv_row(key);
+        uk = load16(p.k + c * 8);
+        uv = load16(p.v + c * 8);
+      }
+      store8_words(Ks + kk * S::QS + c * 8, uk);
+      *reinterpret_cast<uint4*>(Vs + kk * D + c * 8) = uv;
+    }
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 2) {
+      float2 qv[4], kv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        qv[r] = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(Qs + (ty * 4 + r) * S::QS + d));
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        kv[c] = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(Ks + (tx + 16 * c) * S::QS + d));
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          s[r][c] = fmaf(qv[r].y, kv[c].y, fmaf(qv[r].x, kv[c].x, s[r][c]));
+    }
+
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = ty * 4 + r;
+      bool ok[4];
+      float mx = kNegBig;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int key = k0 + tx + 16 * c;
+        ok[c] = row < n_q && key < n_keys && mask(row, key);
+        s[r][c] = ok[c] ? s[r][c] * scale : kNegBig;
+        mx = fmaxf(mx, s[r][c]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = __expf(m[r] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = ok[c] ? __expf(s[r][c] - m_new) : 0.f;
+        Ps[row * S::PS + tx + 16 * c] = p;
+        sum += p;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[r] = l[r] * alpha + sum;
+      m[r] = m_new;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) o[r][n] *= alpha;
+    }
+    __syncthreads();  // P complete
+
+#pragma unroll 4
+    for (int kk = 0; kk < kBK; ++kk) {
+      float pr[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pr[r] = Ps[(ty * 4 + r) * S::PS + kk];
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        const float vv = __bfloat162float(Vs[kk * D + tx + 16 * n]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) o[r][n] = fmaf(pr[r], vv, o[r][n]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = ty * 4 + r;
+    if (row >= n_q) continue;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    bf16* dst = o_rows + (size_t)row * row_stride;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) dst[tx + 16 * n] = __float2bfloat16(o[r][n] * inv);
+  }
+}
+
+// Dispatch on the head dim (compile-time in flash_block).
+#define DSTORCH_DISPATCH_D(D, FN, ...)      \
+  switch (D) {                              \
+    case 16: return FN<16>(__VA_ARGS__);    \
+    case 32: return FN<32>(__VA_ARGS__);    \
+    case 64: return FN<64>(__VA_ARGS__);    \
+    case 128: return FN<128>(__VA_ARGS__);  \
+    case 256: return FN<256>(__VA_ARGS__);  \
+    default: return -1;                     \
+  }
+
+}  // namespace dstorch

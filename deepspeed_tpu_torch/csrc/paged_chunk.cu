@@ -1,0 +1,90 @@
+// Batched prompt-chunk attention over paged KV, bf16, sm_90a.
+//
+// Replaces deepspeed_tpu/ops/pallas/paged_attention.py:1534
+// paged_chunk_attention_batched (kernel body _chunk_kernel_batched, :1443):
+// several prompt chunks per launch, each slot with its own block-table row,
+// q_start and ctx; query row r of slot sl sits at position q_start + r and
+// sees keys k_pos <= q_pos with k_pos < ctx. An empty slot (ctx 0) gives
+// zeros. Pages are [NB, 2, Hkv, bs, D] (K = 0, V = 1), one layer's view.
+//
+// Bound on the H100 at the continuation shapes of Llama-2-7B (6 slots x
+// 128 rows, 32 heads, D = 128, ctx 2048/1536/1000/300/128/0): the pages
+// read once are 82 MB and q/out 13 MB (28 us at 3.35 TB/s), against
+// ~10 GFLOP of 4*D flops per visible key and head (10 us at 989 TFLOP/s
+// bf16): bytes. Each (q-block, head) block reads its kv head's keys
+// itself, so the kernel reads every page (Cs/64) * (H/Hkv) times (mostly
+// from L2).
+//
+// Design: grid (slot, q-block of 64 rows, head), 256 threads. Each block
+// reads its own block-table row and (q_start, ctx), then walks keys up to
+// min(ctx, q_start + last row + 1) through the shared flash_block loop of
+// attn_common.cuh, gathering each key's K and V row through the block
+// table while staging a 64-key tile, so tiles may straddle pages. f32 FMAs
+// on CUDA cores make it compute-limited far above either bound; tensor-core
+// tiles over all of a kv head's query heads are the next step.
+#include "attn_common.cuh"
+
+namespace dstorch {
+
+template <int D>
+__global__ void __launch_bounds__(kTileThreads)
+paged_chunk_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
+                   const int* __restrict__ bt, const int* __restrict__ q_starts,
+                   const int* __restrict__ ctx_lens, bf16* __restrict__ out, int Cs,
+                   int H, int Hkv, int bs, int MB, float scale) {
+  extern __shared__ __align__(16) char smem[];
+  const int sl = blockIdx.x, qb = blockIdx.y, h = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int q0 = q_starts[sl];
+  const int ctx = ctx_lens[sl];
+  const int r0 = qb * kBQ;
+  const int n_q = min(kBQ, Cs - r0);
+  const int n_keys = max(0, min(ctx, q0 + r0 + n_q));
+  const int* btr = bt + (size_t)sl * MB;
+  const size_t page_elems = (size_t)2 * Hkv * bs * D;
+  auto kv_row = [=](int key) {
+    const int pi = key / bs;
+    const int slot = key - pi * bs;
+    const bf16* page = kv + (size_t)__ldg(btr + pi) * page_elems;
+    KVRowPtr p;
+    p.k = page + ((size_t)hk * bs + slot) * D;
+    p.v = page + ((size_t)(Hkv + hk) * bs + slot) * D;
+    return p;
+  };
+  auto mask = [=](int row, int key) { return key <= q0 + r0 + row; };
+  const size_t off = (((size_t)sl * Cs + r0) * H + h) * D;
+  flash_block<D>(q + off, out + off, H * D, n_q, n_keys, kv_row, mask, scale, smem);
+}
+
+template <int D>
+int launch_paged_chunk(const void* q, const void* kv, const void* bt, const void* q_starts,
+                       const void* ctx_lens, void* out, int NC, int Cs, int H, int Hkv,
+                       int bs, int MB, float scale, cudaStream_t stream) {
+  const size_t smem = FlashSmem<D>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_chunk_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(NC, (Cs + kBQ - 1) / kBQ, H);
+  paged_chunk_kernel<D><<<grid, kTileThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kv),
+      static_cast<const int*>(bt), static_cast<const int*>(q_starts),
+      static_cast<const int*>(ctx_lens), static_cast<bf16*>(out), Cs, H, Hkv, bs, MB,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace dstorch
+
+// q [NC, Cs, H, D] bf16; kv [NB, 2, Hkv, bs, D] bf16; bt [NC, MB],
+// q_starts [NC], ctx_lens [NC] int32; out [NC, Cs, H, D] bf16.
+// Returns the cudaError_t of the launch (0 = success), -1 for an
+// unsupported head dim.
+extern "C" int dstorch_paged_chunk_bf16(const void* q, const void* kv, const void* bt,
+                                        const void* q_starts, const void* ctx_lens,
+                                        void* out, int NC, int Cs, int H, int Hkv, int D,
+                                        int bs, int MB, float scale, void* stream) {
+  if (NC == 0 || Cs == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  DSTORCH_DISPATCH_D(D, dstorch::launch_paged_chunk, q, kv, bt, q_starts, ctx_lens, out,
+                     NC, Cs, H, Hkv, bs, MB, scale, st)
+}

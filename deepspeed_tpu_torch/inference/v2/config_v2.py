@@ -1,0 +1,186 @@
+"""Inference v2 engine configuration.
+
+Same keys and defaults as the JAX package's ``RaggedInferenceEngineConfig``:
+the state manager (tracked-sequence capacity, ragged token budget), KV pool
+sizing, and the feature sections. Sections whose feature the port does not
+carry yet (``kv_quant``, ``spec_decode``, ``prefix_cache``, ``lora``,
+``attention.decode_splits > 1``, ``quantization.weight_bits``,
+``tensor_parallel > 1``, a non-empty ``serving`` section) parse with their
+usual keys and raise ``NotImplementedError`` naming the feature when it is
+switched on.
+
+The ``compile`` section configures XLA's compile cache and AOT warmup in the
+JAX package. PyTorch runs eagerly here, so it has no counterpart yet: it is
+accepted and has no effect.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field, fields
+from typing import Any, Optional
+
+import torch
+
+
+@dataclass
+class DSStateManagerConfig:
+    max_tracked_sequences: int = 64          # sequences with live KV state
+    max_ragged_sequence_count: int = 32      # decode rows per pass
+    max_ragged_batch_size: int = 768         # token budget per pass (chunks + decode)
+    max_context: int = 8192                  # per-sequence KV capacity
+    prefill_chunk_size: int = 128            # tokens per prompt-chunk slot
+
+    @property
+    def chunk_budget(self) -> int:
+        return self.max_ragged_batch_size - self.max_ragged_sequence_count
+
+    @property
+    def chunk_slot_size(self) -> int:
+        """Static tokens per slot: exactly ``prefill_chunk_size`` unless the
+        budget is smaller."""
+        return min(self.prefill_chunk_size, max(1, self.chunk_budget))
+
+    @property
+    def num_chunk_slots(self) -> int:
+        """Prompt-chunk slots per pass: the budget rounded to the NEAREST
+        slot multiple, so realised chunk capacity is within half a slot of
+        ``chunk_budget``."""
+        cs = self.chunk_slot_size
+        return max(1, (self.chunk_budget + cs // 2) // cs)
+
+
+@dataclass
+class KVCacheSizingConfig:
+    block_size: int = 128
+    num_blocks: Optional[int] = None         # explicit pool size
+    memory_fraction: float = 0.8             # not read yet: size explicitly
+
+
+@dataclass
+class QuantizationConfig:
+    weight_bits: Optional[int] = None
+
+
+@dataclass
+class KVQuantConfig:
+    enabled: bool = False
+    bits: int = 8
+
+
+@dataclass
+class PrefixCacheConfig:
+    enabled: bool = False
+    max_cached_blocks: Optional[int] = None
+    eviction: str = "lru"
+
+
+@dataclass
+class CompileConfig:
+    """XLA compile cache and AOT warmup in the JAX package; no effect here."""
+    cache_dir: Optional[str] = None
+    min_compile_time_secs: float = 2.0
+    warmup: bool = False
+    warmup_buckets: Optional[Any] = None
+    warmup_decode_steps: Any = ()
+
+
+@dataclass
+class SpecDecodeConfig:
+    enabled: bool = False
+    k: int = 3
+    min_match: int = 2
+    max_ngram: int = 4
+    adaptive: bool = True
+
+
+@dataclass
+class LoraConfig:
+    enabled: bool = False
+    pool_pages: int = 64
+    max_rank: int = 16
+    targets: Any = ("q", "v")
+    swap_buffers: int = 16
+
+
+@dataclass
+class AttentionConfig:
+    decode_splits: int = 1
+    min_ctx_per_split: int = 512
+
+
+_SECTIONS = {
+    "state_manager": DSStateManagerConfig,
+    "kv_cache": KVCacheSizingConfig,
+    "quantization": QuantizationConfig,
+    "kv_quant": KVQuantConfig,
+    "prefix_cache": PrefixCacheConfig,
+    "compile": CompileConfig,
+    "spec_decode": SpecDecodeConfig,
+    "lora": LoraConfig,
+    "attention": AttentionConfig,
+}
+
+
+@dataclass
+class RaggedInferenceEngineConfig:
+    state_manager: DSStateManagerConfig = field(default_factory=DSStateManagerConfig)
+    kv_cache: KVCacheSizingConfig = field(default_factory=KVCacheSizingConfig)
+    quantization: QuantizationConfig = field(default_factory=QuantizationConfig)
+    kv_quant: KVQuantConfig = field(default_factory=KVQuantConfig)
+    prefix_cache: PrefixCacheConfig = field(default_factory=PrefixCacheConfig)
+    compile: CompileConfig = field(default_factory=CompileConfig)
+    serving: Any = field(default_factory=dict)
+    spec_decode: SpecDecodeConfig = field(default_factory=SpecDecodeConfig)
+    lora: LoraConfig = field(default_factory=LoraConfig)
+    attention: AttentionConfig = field(default_factory=AttentionConfig)
+    tensor_parallel: int = 1
+    dtype: torch.dtype = torch.bfloat16
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.state_manager.chunk_budget <= 0:
+            raise ValueError(
+                "max_ragged_batch_size must exceed max_ragged_sequence_count")
+        self.check_slice()
+
+    def check_slice(self) -> None:
+        """Refuse every feature the port does not carry yet, by name."""
+        off = []
+        if self.kv_quant.enabled:
+            off.append("kv_quant")
+        if self.spec_decode.enabled:
+            off.append("spec_decode")
+        if self.prefix_cache.enabled:
+            off.append("prefix_cache")
+        if self.lora.enabled:
+            off.append("lora")
+        if self.attention.decode_splits > 1:
+            off.append("attention.decode_splits > 1")
+        if self.quantization.weight_bits is not None:
+            off.append("quantization.weight_bits")
+        if self.tensor_parallel > 1:
+            off.append("tensor_parallel > 1")
+        if self.serving:
+            off.append("serving (the serving frontend)")
+        if off:
+            raise NotImplementedError(
+                f"{', '.join(off)}: not ported to deepspeed_tpu_torch yet")
+
+    @classmethod
+    def load(cls, config=None, **overrides) -> "RaggedInferenceEngineConfig":
+        if isinstance(config, cls):
+            if overrides:
+                raise ValueError("pass overrides via a dict config, not on top "
+                                 "of an already-built RaggedInferenceEngineConfig")
+            config.check_slice()
+            return config
+        d = dict(config or {})
+        d.update(overrides)
+        known = {f.name for f in fields(cls)}
+        unknown = set(d) - known
+        if unknown:
+            raise ValueError(f"unknown engine config keys {sorted(unknown)}")
+        for name, section in _SECTIONS.items():
+            if isinstance(d.get(name), dict):
+                d[name] = section(**d[name])
+        return cls(**d)

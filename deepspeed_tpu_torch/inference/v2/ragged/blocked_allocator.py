@@ -1,0 +1,82 @@
+"""KV-block allocator: a host-side reference-counted free list over the
+fixed pool of KV-cache pages (only block *tables* ever reach the device).
+
+``allocate`` hands out pages at refcount 1, ``share`` adds a holder, and
+``free`` drops one reference — a page returns to the free list when its last
+holder releases it.
+"""
+
+from __future__ import annotations
+
+from collections import Counter, deque
+from typing import Dict, Iterable, List
+
+import numpy as np
+
+
+class BlockedAllocator:
+
+    def __init__(self, num_blocks: int):
+        if num_blocks < 1:
+            raise ValueError(f"need at least 1 block, got {num_blocks}")
+        self._num_blocks = num_blocks
+        self._free = deque(range(num_blocks))
+        # block id -> refcount for every block NOT on the free list
+        self._refs: Dict[int, int] = {}
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def total_blocks(self) -> int:
+        return self._num_blocks
+
+    def ref_count(self, block: int) -> int:
+        """Current reference count (0 = on the free list)."""
+        return self._refs.get(int(block), 0)
+
+    def allocate(self, num_blocks: int) -> np.ndarray:
+        """Pop ``num_blocks`` page ids at refcount 1; raises if the pool is
+        exhausted (the scheduler checks ``free_blocks`` first)."""
+        if num_blocks > len(self._free):
+            raise RuntimeError(
+                f"cannot allocate {num_blocks} blocks, only {len(self._free)} free")
+        out = [self._free.popleft() for _ in range(num_blocks)]
+        for b in out:
+            self._refs[b] = 1
+        return np.array(out, dtype=np.int32)
+
+    def share(self, blocks: Iterable[int]) -> None:
+        """Add one reference to each (already-allocated) block."""
+        blocks = [int(b) for b in blocks]
+        for b in blocks:
+            if b not in self._refs:
+                raise ValueError(f"cannot share unallocated block {b}")
+        for b in blocks:
+            self._refs[b] += 1
+
+    def free(self, blocks: Iterable[int]) -> List[int]:
+        """Drop one reference per entry; blocks reaching refcount 0 return to
+        the free list. Returns the ids actually freed.
+
+        All-or-nothing: every id is validated (range, allocation state, and
+        references dropped in this call vs. held) before any state mutates."""
+        blocks = [int(b) for b in blocks]
+        for b in blocks:
+            if not (0 <= b < self._num_blocks):
+                raise ValueError(f"block id {b} out of range")
+        for b, k in Counter(blocks).items():
+            held = self._refs.get(b, 0)
+            if k > held:
+                raise ValueError(
+                    f"double free of block {b}: {k} release(s) in one call, "
+                    f"{held} reference(s) held")
+        freed: List[int] = []
+        for b in blocks:
+            self._refs[b] -= 1
+            if self._refs[b] == 0:
+                del self._refs[b]
+                self._free.append(b)
+                freed.append(b)
+        return freed

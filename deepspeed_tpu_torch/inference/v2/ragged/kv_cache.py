@@ -1,0 +1,46 @@
+"""Blocked (paged) KV cache.
+
+The pool is ONE tensor ``[L, NB, 2, Hkv, bs, D]``: per layer and page, K
+(index 0) and V (index 1) of every kv head, head-major, the same layout as
+the JAX package's pool, so pages can move between the two packages. Each
+pass writes its new K/V rows into the pool IN PLACE (``index_copy_``); the
+kernels read pages through block tables.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+
+@dataclass
+class KVCacheConfig:
+    num_layers: int
+    num_kv_heads: int
+    head_dim: int
+    block_size: int = 128
+    num_blocks: int = 256
+    dtype: torch.dtype = torch.bfloat16
+
+
+class BlockedKVCache:
+    """Owns the combined page tensor ``kv`` [L, NB, 2, Hkv, bs, D] on
+    ``device``."""
+
+    def __init__(self, config: KVCacheConfig, device):
+        self.config = config
+        shape = (config.num_layers, config.num_blocks, 2,
+                 config.num_kv_heads, config.block_size, config.head_dim)
+        self.kv = torch.zeros(shape, dtype=config.dtype, device=device)
+
+    def flat_write_index(self, block_id, slot) -> np.ndarray:
+        """Host-side flat destination ``block * block_size + slot``."""
+        return (np.asarray(block_id, np.int64) * self.config.block_size
+                + np.asarray(slot, np.int64)).astype(np.int32)
+
+    @property
+    def oob_sentinel(self) -> int:
+        """Destination of padding rows: one past the last pool token."""
+        return self.config.num_blocks * self.config.block_size

@@ -1,0 +1,239 @@
+"""Llama-2 in PyTorch: the configuration the serving engine reads, and a plain
+dense forward used as the oracle the engine is held against.
+
+Nothing on the serving path calls :class:`LlamaForCausalLM`'s forward: the
+engine reads its configuration and its parameters. The forward follows the
+JAX package's flax model step for step: RMSNorm computed in f32, rotary
+embedding on INTERLEAVED pairs (``x[..., 0::2]``, ``x[..., 1::2]``, not the
+rotate-half convention), causal attention with f32 scores, and a SwiGLU MLP.
+
+Parameters carry the flax names (``embed_tokens/embedding``,
+``layers_{i}/self_attn/q_proj/kernel``, ..., ``lm_head/kernel``) and the flax
+layout: a projection's ``kernel`` is ``[in, out]`` and computes ``x @
+kernel`` (``nn.Linear`` would be ``[out, in]``). Init matches flax's scale:
+truncated-normal projections with variance 1/fan_in (lecun_normal),
+normal(1/sqrt(hidden)) embeddings, unit norms — drawn from a seeded
+``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from deepspeed_tpu_torch.utils.device import resolve_device
+
+
+@dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 32        # < num_attention_heads => GQA
+    max_position_embeddings: int = 4096
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-5
+    sliding_window: Optional[int] = None  # Mistral; not served by the port yet
+    head_dim_override: Optional[int] = None
+    dtype: torch.dtype = torch.float32
+
+    @property
+    def head_dim(self) -> int:
+        if self.head_dim_override is not None:
+            return self.head_dim_override
+        return self.hidden_size // self.num_attention_heads
+
+    @classmethod
+    def llama2_7b(cls, **kw):
+        return cls(**kw)
+
+    @classmethod
+    def tiny(cls, **kw):
+        """Fixture-sized config, as the JAX package's ``LlamaConfig.tiny``."""
+        defaults = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
+                        num_hidden_layers=2, num_attention_heads=4,
+                        num_key_value_heads=2, max_position_embeddings=128)
+        defaults.update(kw)
+        return cls(**defaults)
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense`` without bias: ``kernel`` [in, out], ``x @ kernel``."""
+
+    def __init__(self, d_in: int, d_out: int, dtype, device):
+        super().__init__()
+        self.kernel = _param((d_in, d_out), dtype, device)
+
+
+class Embed(nn.Module):
+    def __init__(self, vocab: int, hidden: int, dtype, device):
+        super().__init__()
+        self.embedding = _param((vocab, hidden), dtype, device)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, hidden: int, dtype, device):
+        super().__init__()
+        self.weight = _param((hidden,), dtype, device)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device):
+        super().__init__()
+        hid, D = cfg.hidden_size, cfg.head_dim
+        H, Hkv = cfg.num_attention_heads, cfg.num_key_value_heads
+        self.q_proj = Dense(hid, H * D, cfg.dtype, device)
+        self.k_proj = Dense(hid, Hkv * D, cfg.dtype, device)
+        self.v_proj = Dense(hid, Hkv * D, cfg.dtype, device)
+        self.o_proj = Dense(H * D, hid, cfg.dtype, device)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device):
+        super().__init__()
+        hid, ff = cfg.hidden_size, cfg.intermediate_size
+        self.gate_proj = Dense(hid, ff, cfg.dtype, device)
+        self.up_proj = Dense(hid, ff, cfg.dtype, device)
+        self.down_proj = Dense(ff, hid, cfg.dtype, device)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device):
+        super().__init__()
+        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.dtype, device)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.dtype, device)
+        self.self_attn = Attention(cfg, device)
+        self.mlp = MLP(cfg, device)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+             dtype: torch.dtype) -> torch.Tensor:
+    """RMSNorm computed in f32, cast to ``dtype``."""
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (y * weight.float()).to(dtype)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
+    """(cos, sin) [..., head_dim / 2] in f32 for integer ``positions``."""
+    freqs = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                          device=positions.device) / head_dim))
+    ang = positions.float()[..., None] * freqs
+    return ang.cos(), ang.sin()
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotary embedding on interleaved pairs. x [..., T, H, D]; cos/sin
+    [..., T, D / 2]."""
+    x1 = x[..., 0::2].float()
+    x2 = x[..., 1::2].float()
+    c, s = cos.unsqueeze(-2), sin.unsqueeze(-2)
+    out = torch.stack([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).flatten(-2)
+    return out.to(x.dtype)
+
+
+class LlamaForCausalLM(nn.Module):
+    """Llama-2 decoder with flax-named parameters in ``config.dtype`` on
+    ``device`` (default: the CUDA device), initialised from ``seed``."""
+
+    def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
+        super().__init__()
+        self.config = cfg = config
+        device = resolve_device(device)
+        self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size, cfg.dtype, device)
+        for i in range(cfg.num_hidden_layers):
+            self.add_module(f"layers_{i}", Block(cfg, device))
+        self.norm = RMSNorm(cfg.hidden_size, cfg.dtype, device)
+        self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, cfg.dtype, device)
+        self.reset_parameters(seed)
+
+    @property
+    def layers(self):
+        return [getattr(self, f"layers_{i}")
+                for i in range(self.config.num_hidden_layers)]
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int) -> None:
+        gen = torch.Generator(device=self.embed_tokens.embedding.device)
+        gen.manual_seed(seed)
+        # flax lecun_normal: truncated to +-2 std, std corrected so the
+        # variance is 1 / fan_in
+        lo, hi = (1 + math.erf(-2 / math.sqrt(2))) / 2, (1 + math.erf(2 / math.sqrt(2))) / 2
+        for name, p in self.named_parameters():
+            tmp = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+            if name.endswith("kernel"):
+                std = 1.0 / math.sqrt(p.shape[0]) / 0.87962566103423978
+                tmp.uniform_(2 * lo - 1, 2 * hi - 1, generator=gen)
+                tmp.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2 * std, 2 * std)
+            elif name.endswith("embedding"):
+                tmp.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=gen)
+            else:
+                tmp.fill_(1.0)
+            p.copy_(tmp)
+
+    def flat_params(self) -> Dict[str, torch.Tensor]:
+        """Parameters by their flax names (``/``-joined)."""
+        return {n.replace(".", "/"): p.data for n, p in self.named_parameters()}
+
+    @torch.no_grad()
+    def load_flat(self, flat: Dict[str, torch.Tensor]) -> None:
+        """Copy a flax-named tree (see :meth:`flat_params`) into the
+        parameters; names and shapes must match exactly."""
+        own = self.flat_params()
+        if set(own) != set(flat):
+            raise KeyError(f"parameter names differ: missing "
+                           f"{sorted(set(own) - set(flat))[:4]}, unexpected "
+                           f"{sorted(set(flat) - set(own))[:4]}")
+        for name, p in own.items():
+            if tuple(flat[name].shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(flat[name].shape)} != "
+                                 f"{tuple(p.shape)}")
+            p.copy_(flat[name])
+
+    @torch.no_grad()
+    def forward_logits(self, input_ids: torch.Tensor,
+                       positions: Optional[torch.Tensor] = None,
+                       compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """Dense causal forward, ``input_ids`` [B, T] -> f32 logits [B, T, V].
+
+        Runs in ``compute_dtype`` (default ``config.dtype``); each layer's
+        weights are cast as that layer runs, so an f32 pass over bf16
+        parameters holds only one layer's f32 copy at a time."""
+        cfg = self.config
+        dt = compute_dtype or cfg.dtype
+        B, T = input_ids.shape
+        H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        if positions is None:
+            positions = torch.arange(T, device=input_ids.device).expand(B, T)
+        cos, sin = rope_tables(positions, D, cfg.rope_theta)
+        causal = torch.ones(T, T, dtype=torch.bool, device=input_ids.device).tril()
+        x = self.embed_tokens.embedding[input_ids].to(dt)
+        for layer in self.layers:
+            a, m = layer.self_attn, layer.mlp
+            h = rms_norm(x, layer.input_layernorm.weight, cfg.rms_norm_eps, dt)
+            q = apply_rope((h @ a.q_proj.kernel.to(dt)).view(B, T, H, D), cos, sin)
+            k = apply_rope((h @ a.k_proj.kernel.to(dt)).view(B, T, Hkv, D), cos, sin)
+            v = (h @ a.v_proj.kernel.to(dt)).view(B, T, Hkv, D)
+            k = k.repeat_interleave(H // Hkv, dim=2)
+            v = v.repeat_interleave(H // Hkv, dim=2)
+            s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * D ** -0.5
+            s = s.masked_fill(~causal, torch.finfo(torch.float32).min)
+            p = torch.softmax(s, dim=-1).to(dt)
+            o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(B, T, H * D)
+            x = x + o @ a.o_proj.kernel.to(dt)
+            h = rms_norm(x, layer.post_attention_layernorm.weight, cfg.rms_norm_eps, dt)
+            g = torch.nn.functional.silu(h @ m.gate_proj.kernel.to(dt))
+            x = x + (g * (h @ m.up_proj.kernel.to(dt))) @ m.down_proj.kernel.to(dt)
+        x = rms_norm(x, self.norm.weight, cfg.rms_norm_eps, dt)
+        return (x @ self.lm_head.kernel.to(dt)).float()

@@ -1,0 +1,183 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The sources are ``deepspeed_tpu_torch/csrc/*.cu``, each with a plain C entry
+point. At first use :func:`load_library` compiles every source with ``nvcc``
+for ``sm_90a`` (one compiler process per source, all started together),
+links them into ONE shared library under ``_build/<hash of the sources>/``
+and loads it with ``ctypes``. A later process with unchanged sources loads
+the library it finds there. Nothing is built at import time, and a failed
+build raises with nvcc's stderr.
+
+Each kernel wrapper adds one to :data:`LAUNCHES` ``[name]`` when it launches
+its kernel, and nowhere else; :func:`reset_launches` sets every count to 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent / "_build"
+SOURCES = ("flash_packed.cu", "paged_chunk.cu", "paged_decode.cu")
+HEADERS = ("attn_common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: (argtypes), all return the launch's cudaError_t as int
+ENTRY_POINTS = {
+    "dstorch_flash_packed_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "dstorch_paged_chunk_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _I, _F, _P),
+    "dstorch_paged_decode_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _F, _P),
+}
+
+LAUNCHES: Dict[str, int] = {"flash_packed": 0, "paged_chunk": 0,
+                            "paged_decode": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+last_build_seconds: Optional[float] = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``PATH``, then
+    ``/usr/local/cuda/bin``. Raises when there is none."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(which)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and /usr/local/cuda/bin): "
+        "the port's CUDA kernels are built from deepspeed_tpu_torch/csrc at first "
+        "use and need the CUDA toolkit")
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _run_all(cmds):
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    errors = []
+    for cmd, p in zip(cmds, procs):
+        _, err = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"$ {' '.join(cmd)}\n{err}")
+    if errors:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+
+
+def build_library() -> Path:
+    """Compile and link the kernels (if this source hash has no library
+    yet); returns the library's path."""
+    global last_build_seconds
+    import time
+    out_dir = BUILD_ROOT / source_hash()
+    lib_path = out_dir / "libdstorch_kernels.so"
+    if lib_path.exists():
+        last_build_seconds = 0.0
+        return lib_path
+    nvcc = find_nvcc()
+    t0 = time.perf_counter()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [os.path.join(tmp, Path(s).stem + ".o") for s in SOURCES]
+        _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / s),
+                   "-o", o] for s, o in zip(SOURCES, objs)])
+        tmp_lib = os.path.join(tmp, lib_path.name)
+        _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                   "-o", tmp_lib, *objs]])
+        os.replace(tmp_lib, lib_path)
+    last_build_seconds = time.perf_counter() - t0
+    return lib_path
+
+
+def load_library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build_library()))
+            for name, argtypes in ENTRY_POINTS.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
+    """Call C entry ``entry`` on ``device``'s current stream; raise when the
+    launch reports an error, else count one launch of ``kernel``."""
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: kernel launch failed "
+                           f"({'unsupported shape' if rc == -1 else f'cudaError {rc}'})")
+    LAUNCHES[kernel] += 1
+
+
+def check_cuda(kernel: str, dtype: torch.dtype, **tensors: torch.Tensor) -> None:
+    """The kernels take contiguous tensors on one CUDA device: ``dtype`` for
+    the floating ones, int32 for indices. Raise on anything else."""
+    if dtype != torch.bfloat16:
+        raise TypeError(f"{kernel}: the CUDA kernel takes bfloat16, got {dtype}")
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{kernel}: all tensors must lie on one CUDA device, got "
+                         f"{ {k: str(t.device) for k, t in tensors.items()} }")
+    for name, t in tensors.items():
+        want = torch.int32 if not t.is_floating_point() else dtype
+        if t.dtype != want:
+            raise TypeError(f"{kernel}: {name} must be {want}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def on_cpu(kernel: str, *tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU (the plain version runs);
+    False when all lie on CUDA devices; raises on a mix or another device."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"}:
+        return False
+    raise ValueError(f"{kernel}: tensors on {sorted(kinds)}; the kernel runs on "
+                     "CUDA and its plain version on the CPU")
+
+
+def ptr(t: Optional[torch.Tensor]):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())

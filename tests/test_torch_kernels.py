@@ -1,0 +1,138 @@
+"""Each kernel's plain PyTorch version (deepspeed_tpu_torch.ops.kernels)
+against the JAX package's Pallas kernel, run in interpret mode on the CPU as
+the JAX package's own tests run it. Inputs are made with numpy from a seed;
+both sides compute in f32.
+
+Tolerance: 2e-5 absolute on outputs of magnitude <= ~3 — the two sides
+accumulate the same f32 products in a different order (flash blocks vs one
+softmax), a few ulps of f32."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.ops.pallas.flash_attention import flash_attention_packed as jax_packed
+from deepspeed_tpu.ops.pallas.paged_attention import (
+    paged_chunk_attention_batched as jax_chunk,
+    paged_decode_attention as jax_decode,
+    paged_decode_attention_sidebuf as jax_sidebuf,
+    paged_decode_attention_step as jax_step)
+from deepspeed_tpu_torch.inference.v2.attention import AttentionKernelSpec
+from deepspeed_tpu_torch.ops.kernels import (flash_attention_packed_plain,
+                                             paged_chunk_attention_batched_plain,
+                                             paged_decode_attention_plain)
+
+ATOL = 2e-5
+
+
+def _close(port, ref):
+    np.testing.assert_allclose(np.asarray(port), np.asarray(ref), rtol=0, atol=ATOL)
+
+
+def _f(rng, *shape):
+    return rng.randn(*shape).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _pool_and_tables(rng, ctxs, NB, Hkv, bs, D, MB):
+    """A pool of random pages and block tables giving each row its own
+    pages (unused entries 0)."""
+    pool = _f(rng, NB, 2, Hkv, bs, D)
+    perm = rng.permutation(NB)
+    bt = np.zeros((len(ctxs), MB), np.int32)
+    used = 0
+    for i, c in enumerate(ctxs):
+        n = -(-c // bs)
+        bt[i, :n] = perm[used:used + n]
+        used += n
+    return pool, bt
+
+
+@pytest.mark.parametrize("D", [16, 128])
+def test_packed_prefill_matches_k2(D):
+    """GQA 4/2, R = 100 (not a multiple of 128), three segments plus
+    padding rows (segment -1)."""
+    rng = np.random.RandomState(D)
+    R, H, Hkv = 100, 4, 2
+    q, k, v = _f(rng, R, H, D), _f(rng, R, Hkv, D), _f(rng, R, Hkv, D)
+    seg = np.full((R,), -1, np.int32)
+    seg[:40], seg[40:71], seg[71:95] = 0, 1, 2
+    ref = jax_packed(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(seg))
+    port = flash_attention_packed_plain(_t(q), _t(k), _t(v), _t(seg))
+    # padding rows' outputs are never read; compare the segments' rows
+    _close(port[:95], np.asarray(ref)[:95])
+
+
+@pytest.mark.parametrize("D", [16, 128])
+def test_paged_chunk_matches_k5(D):
+    """Several slots with q_start > 0 (continuation chunks), one slot
+    starting at 0, one empty slot (ctx 0 -> zeros)."""
+    rng = np.random.RandomState(D + 1)
+    NC, Cs, H, Hkv, bs, MB = 4, 8, 4, 2, 16, 4
+    ctxs = [40, 8, 21, 0]
+    q0 = np.array([32, 0, 13, 0], np.int32)
+    pool, bt = _pool_and_tables(rng, ctxs, 12, Hkv, bs, D, MB)
+    q = _f(rng, NC, Cs, H, D)
+    ctx = np.array(ctxs, np.int32)
+    ref = jax_chunk(jnp.asarray(q), jnp.asarray(pool), jnp.asarray(bt),
+                    jnp.asarray(q0), jnp.asarray(ctx))
+    port = paged_chunk_attention_batched_plain(_t(q), _t(pool), _t(bt), _t(q0), _t(ctx))
+    _close(port, ref)
+    assert float(port[3].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("D", [16, 128], ids=["smalld-path", "manual-dma-path"])
+def test_paged_decode_matches_k3(D):
+    """ctx-0 rows give zeros; partial last pages."""
+    rng = np.random.RandomState(D + 2)
+    S, H, Hkv, bs, MB = 4, 4, 2, 16, 4
+    ctxs = [37, 0, 16, 5]
+    pool, bt = _pool_and_tables(rng, ctxs, 10, Hkv, bs, D, MB)
+    q = _f(rng, S, H, D)
+    ctx = np.array(ctxs, np.int32)
+    ref = jax_decode(jnp.asarray(q), jnp.asarray(pool), jnp.asarray(bt), jnp.asarray(ctx))
+    port = paged_decode_attention_plain(_t(q), _t(pool), _t(bt), _t(ctx))
+    _close(port, ref)
+    assert float(port[1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("D", [16, 128])
+def test_decode_step_matches_k4(D):
+    """The fused step: output over pages [0, ctx-1) + the current token
+    from registers, and the pool after the current token's write."""
+    rng = np.random.RandomState(D + 3)
+    S, H, Hkv, bs, MB = 3, 4, 2, 16, 4
+    ctxs = [33, 1, 16]
+    pool, bt = _pool_and_tables(rng, ctxs, 8, Hkv, bs, D, MB)
+    q, kn, vn = _f(rng, S, H, D), _f(rng, S, Hkv, D), _f(rng, S, Hkv, D)
+    ctx = np.array(ctxs, np.int32)
+    ref_out, ref_pool = jax_step(jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn),
+                                 jnp.asarray(pool), jnp.asarray(bt), jnp.asarray(ctx))
+    pool_t = _t(pool.copy())
+    port = AttentionKernelSpec(None).decode_step(_t(q), _t(kn), _t(vn), pool_t,
+                                                 _t(bt), _t(ctx))
+    _close(port, ref_out)
+    np.testing.assert_array_equal(pool_t.numpy(), np.asarray(ref_pool))
+
+
+@pytest.mark.parametrize("C, j, H, Hkv", [(1, 0, 16, 8), (4, 0, 4, 2), (4, 2, 4, 2)])
+def test_sidebuf_matches_k6(C, j, H, Hkv):
+    """Frozen prefix pages + side slab rows cc <= j (the slab's rows past
+    j hold garbage that must not be attended)."""
+    rng = np.random.RandomState(C * 10 + j)
+    S, D, bs, MB = 3, 128, 16, 4
+    prefix = [20, 0, 47]
+    pool, bt = _pool_and_tables(rng, prefix, 8, Hkv, bs, D, MB)
+    q = _f(rng, S, H, D)
+    sk, sv = _f(rng, S, C, Hkv, D), _f(rng, S, C, Hkv, D)
+    pl = np.array(prefix, np.int32)
+    ref = jax_sidebuf(jnp.asarray(q), jnp.asarray(pool), jnp.asarray(bt), jnp.asarray(pl),
+                      jnp.asarray(sk), jnp.asarray(sv), j)
+    port = paged_decode_attention_plain(_t(q), _t(pool), _t(bt), _t(pl),
+                                        _t(sk.reshape(S, C * Hkv, D)),
+                                        _t(sv.reshape(S, C * Hkv, D)), j)
+    _close(port, ref)

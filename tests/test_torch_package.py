@@ -1,0 +1,168 @@
+"""Package-level contracts of the PyTorch/CUDA port (deepspeed_tpu_torch):
+no JAX anywhere in it, the card by default, plain versions only for CPU
+tensors, and a named refusal for every feature the port does not carry."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+from deepspeed_tpu_torch.inference.v2.attention import AttentionKernelSpec
+from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
+from deepspeed_tpu_torch.inference.v2.ragged_model import RaggedModelSpec
+from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from deepspeed_tpu_torch.ops import kernels
+from deepspeed_tpu_torch.ops.kernels import _loader
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "deepspeed_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "flax", "deepspeed_tpu"}
+
+
+def test_import_loads_no_jax():
+    code = ("import deepspeed_tpu_torch, sys; "
+            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'deepspeed_tpu') "
+            "or m.startswith(('jax.', 'flax.', 'deepspeed_tpu.'))]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120,
+                   env={**os.environ, "PYTHONPATH": str(ROOT)})
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_no_jax(path):
+    """The module NAME is matched exactly: deepspeed_tpu_torch shares the
+    deepspeed_tpu prefix."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    bad = [n for n in names if n.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def _tiny_engine_args():
+    cfg = LlamaConfig.tiny(vocab_size=64)
+    model = LlamaForCausalLM(cfg, device="cpu", seed=0)
+    econf = {"dtype": torch.float32,
+             "state_manager": {"max_tracked_sequences": 4,
+                               "max_ragged_sequence_count": 4,
+                               "max_ragged_batch_size": 36,
+                               "max_context": 64, "prefill_chunk_size": 16},
+             "kv_cache": {"block_size": 8}}
+    return model, econf
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model, econf = _tiny_engine_args()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceEngineV2(model, econf, model.flat_params())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LlamaForCausalLM(model.config)
+    # asking for the CPU works
+    e = InferenceEngineV2(model, econf, model.flat_params(), device="cpu")
+    assert e.kv.kv.device.type == "cpu"
+
+
+def _kernel_inputs(seed=0):
+    rng = np.random.RandomState(seed)
+    f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32)
+    pool = f(6, 2, 2, 4, 16)
+    return {
+        "flash_packed": lambda: ((f(10, 4, 16), f(10, 2, 16), f(10, 2, 16),
+                                  i32([0] * 6 + [1] * 3 + [-1])), {}),
+        "paged_chunk": lambda: ((f(2, 4, 4, 16), pool, i32([[1, 2], [3, 0]]),
+                                 i32([2, 0]), i32([6, 0])), {}),
+        "paged_decode": lambda: ((f(2, 4, 16), pool, i32([[1, 2], [3, 0]]),
+                                  i32([5, 0]), f(2, 2, 16), f(2, 2, 16)), {"j": 0}),
+    }
+
+
+WRAPPERS = {
+    "flash_packed": (kernels.flash_attention_packed, kernels.flash_attention_packed_plain),
+    "paged_chunk": (kernels.paged_chunk_attention_batched,
+                    kernels.paged_chunk_attention_batched_plain),
+    "paged_decode": (kernels.paged_decode_attention, kernels.paged_decode_attention_plain),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_wrapper_runs_plain_on_cpu_and_counts_nothing(name):
+    kernels.reset_launches()
+    args, kw = _kernel_inputs()[name]()
+    wrapper, plain = WRAPPERS[name]
+    torch.testing.assert_close(wrapper(*args, **kw), plain(*args, **kw), rtol=0, atol=0)
+    assert kernels.LAUNCHES == {k: 0 for k in kernels.LAUNCHES}
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_wrapper_refuses_other_devices(name):
+    args, kw = _kernel_inputs()[name]()
+    meta = tuple(a.to("meta") for a in args)
+    with pytest.raises(ValueError, match="CUDA"):
+        WRAPPERS[name][0](*meta, **kw)
+
+
+def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_loader.shutil, "which", lambda _: None)
+    monkeypatch.setattr(_loader.os.path, "isfile", lambda _: False)
+    monkeypatch.setattr(_loader, "BUILD_ROOT", tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _loader.build_library()
+    assert not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("section, value, feature", [
+    ("kv_quant", {"enabled": True}, "kv_quant"),
+    ("spec_decode", {"enabled": True}, "spec_decode"),
+    ("prefix_cache", {"enabled": True}, "prefix_cache"),
+    ("lora", {"enabled": True}, "lora"),
+    ("attention", {"decode_splits": 2}, "attention.decode_splits"),
+    ("quantization", {"weight_bits": 8}, "quantization.weight_bits"),
+    ("tensor_parallel", 2, "tensor_parallel"),
+    ("serving", {"decode_slice": 4}, "serving"),
+])
+def test_unported_config_feature_raises(section, value, feature):
+    with pytest.raises(NotImplementedError, match=feature):
+        RaggedInferenceEngineConfig.load({section: value})
+
+
+def _spec(**kw):
+    return RaggedModelSpec(family="llama", num_layers=1, hidden_size=32,
+                           num_heads=2, num_kv_heads=2, head_dim=16,
+                           vocab_size=16, **kw)
+
+
+@pytest.mark.parametrize("kw, feature", [
+    ({"window": 64}, "sliding window"),
+    ({"alibi": True}, "ALiBi"),
+    ({"moe": {"num_experts": 4, "top_k": 2}}, "MoE"),
+])
+def test_unported_model_feature_raises(kw, feature):
+    cfg = RaggedInferenceEngineConfig.load()
+    AttentionKernelSpec.validate_engine_build(_spec(), cfg)
+    with pytest.raises(NotImplementedError, match=feature):
+        AttentionKernelSpec.validate_engine_build(_spec(**kw), cfg)
+
+
+def test_sliding_window_model_raises_at_engine_build():
+    model, econf = _tiny_engine_args()
+    model.config.sliding_window = 16      # < max_context: a real window
+    with pytest.raises(NotImplementedError, match="sliding window"):
+        InferenceEngineV2(model, econf, model.flat_params(), device="cpu")
+
+
+def test_compile_section_is_accepted():
+    cfg = RaggedInferenceEngineConfig.load({"compile": {"warmup": True}})
+    assert cfg.compile.warmup is True
