@@ -15,7 +15,19 @@ Phases, each fatal on failure:
    rows, with every kernel's launch count; then the engine's next-token
    logits at prefill and at decode steps held against the dense forward
    (fp32 yardstick; the engine's bf16 error must be within 2x the dense bf16
-   forward's own), and the prefill and decode token rates.
+   forward's own), and the prefill and decode token rates;
+5. the training slice at GPT-2 small's full width (124M, T = 1024, random
+   bf16 weights from a seed): ``initialize`` -> ``train_steps(10)`` on one
+   fixed batch of 16 x 1024 token ids (micro-batch 8, AdamW, WarmupLR,
+   clipping), with the flash attention kernels' launch counts (24 of each
+   per step), the loss stream (finite, falling), step time and tokens/s, a
+   device profile of one step, and the first-step check: the engine's first
+   micro-batch loss and gradient (bf16, K1) against an fp32 forward/backward
+   with plain attention, within 2x the error of a bf16 one plus a floor.
+
+Phase 3 also holds the flash attention kernels (K1 forward, dq, dk/dv)
+against their plain versions at the training shape, at a ragged T = 1000,
+non-causal, and GQA 12/4 at D = 128.
 
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``
 as JSON. Run from the repository root: ``python3 chip_smoke.py``.
@@ -23,6 +35,9 @@ as JSON. Run from the repository root: ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import itertools
 import json
 import os
 import subprocess
@@ -40,6 +55,12 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
 # admits rounding on rows that are exactly zero in the reference.
 KERNEL_RTOL = 2.0 ** -6
 KERNEL_ATOL = 1e-5
+# first training step against the fp32 yardstick: the engine's error may be
+# 2x a bf16 plain-attention pass's own error plus this share of the
+# yardstick's scale (|loss|, or the RMS of the gradient): 2^-10, an eighth
+# of bf16's relative spacing (2^-7), so that a bf16 reference that happens
+# to land very close does not fail an engine that is as exact as bf16 allows
+FIRST_STEP_FLOOR = 2.0 ** -10
 
 
 def smi_line() -> str:
@@ -69,6 +90,44 @@ def bound(nbytes: float, flops: float):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
+def err(*pairs):
+    """Over (out, ref) pairs: max abs error, its worst share of the (row,
+    head) scale (the last dim is a row), and its ratio to the typical |ref|;
+    not ok where the elementwise bound ``RTOL * rowmax + ATOL`` is broken."""
+    out = {"max_abs_err": 0.0, "max_err_over_rowmax": 0.0,
+           "max_err_over_mean_abs_ref": 0.0, "mean_abs_ref": None, "ok": True}
+    for o, ref in pairs:
+        ref = ref.float()
+        d = (o.float() - ref).abs()
+        rowmax = ref.abs().amax(-1, keepdim=True)
+        typ = float(ref.abs().mean())
+        out["ok"] &= bool((d <= KERNEL_RTOL * rowmax + KERNEL_ATOL).all())
+        out["max_abs_err"] = max(out["max_abs_err"], float(d.max()))
+        out["max_err_over_rowmax"] = max(out["max_err_over_rowmax"],
+                                         float((d / (rowmax + KERNEL_ATOL)).max()))
+        out["max_err_over_mean_abs_ref"] = max(out["max_err_over_mean_abs_ref"],
+                                               float(d.max()) / max(typ, 1e-30))
+        if out["mean_abs_ref"] is None:
+            out["mean_abs_ref"] = typ
+    return out
+
+
+def record_check(rows, name, case, e, row=False, **extra):
+    """Print one check and fail on a broken bound; ``row`` makes its timings
+    the kernel-table row (the main path's shape)."""
+    line = {"kernel": name, "case": case, **e,
+            "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL, **extra}
+    print("kernel-check " + json.dumps(line), flush=True)
+    if not e["ok"]:
+        raise AssertionError(
+            f"{name} {case}: error {e['max_abs_err']} breaks "
+            f"{KERNEL_RTOL} x rowmax + {KERNEL_ATOL}")
+    r = rows.setdefault(name, {"max_abs_err": 0.0})
+    r["max_abs_err"] = max(r["max_abs_err"], e["max_abs_err"])
+    if row:
+        r.update(extra, case=case)
+
+
 # --------------------------------------------------------------------------- #
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------- #
@@ -85,36 +144,8 @@ def check_kernels(dev):
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
 
-    def err(out, ref):
-        """Max abs error, its worst share of the (row, head) scale, and its
-        ratio to the typical |ref|; fails where the elementwise bound
-        ``RTOL * rowmax + ATOL`` is broken."""
-        ref = ref.float()
-        d = (out.float() - ref).abs()
-        rowmax = ref.abs().amax(-1, keepdim=True)
-        ok = bool((d <= KERNEL_RTOL * rowmax + KERNEL_ATOL).all())
-        rel = float((d / (rowmax + KERNEL_ATOL)).max())
-        typ = float(ref.abs().mean())
-        return {"max_abs_err": float(d.max()), "max_err_over_rowmax": rel,
-                "max_err_over_mean_abs_ref": float(d.max()) / max(typ, 1e-30),
-                "mean_abs_ref": typ, "ok": ok}
-
     rows = {}
-
-    def record(name, case, e, row=False, **extra):
-        """Print one check; ``row`` makes its timings the kernel-table row
-        (the main path's shape)."""
-        line = {"kernel": name, "case": case, **e,
-                "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL, **extra}
-        print("kernel-check " + json.dumps(line), flush=True)
-        if not e["ok"]:
-            raise AssertionError(
-                f"{name} {case}: error {e['max_abs_err']} breaks "
-                f"{KERNEL_RTOL} x rowmax + {KERNEL_ATOL}")
-        r = rows.setdefault(name, {"max_abs_err": 0.0})
-        r["max_abs_err"] = max(r["max_abs_err"], e["max_abs_err"])
-        if row:
-            r.update(extra, case=case)
+    record = functools.partial(record_check, rows)
 
     # ---- K2: packed prefill, R = 768 rows, H = Hkv = 32, D = 128 ---- #
     R, H, D = 768, 32, 128
@@ -133,7 +164,7 @@ def check_kernels(dev):
         & (seg[:, None] == seg[None])
     qt, kt, vt = (x.transpose(0, 1)[None] for x in (q, k, v))
     b_ms, b_by = bound(4 * R * H * D * 2 + R * 4, 4 * D * H * pairs)
-    record("flash_packed", f"R={R} H={H} D={D} segs={seg_lens}+pad", err(out, ref),
+    record("flash_packed", f"R={R} H={H} D={D} segs={seg_lens}+pad", err((out, ref)),
            row=True, ms=time_ms(lambda: flash_attention_packed(q, k, v, seg)),
            plain_ms=time_ms(lambda: flash_attention_packed_plain(q, k, v, seg), 5, 1),
            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -141,9 +172,9 @@ def check_kernels(dev):
            bound_ms=b_ms, bound_by=b_by)
     # GQA 32/8 at the same rows
     k8, v8 = randn(R, 8, D), randn(R, 8, D)
-    record("flash_packed", "GQA H=32 Hkv=8", err(
+    record("flash_packed", "GQA H=32 Hkv=8", err((
         flash_attention_packed(q, k8, v8, seg),
-        flash_attention_packed_plain(q, k8, v8, seg)))
+        flash_attention_packed_plain(q, k8, v8, seg))))
 
     # ---- paged pool shared by K5 and the decode kernel ---- #
     def make_pool(NB, Hkv, bs, D):
@@ -178,7 +209,7 @@ def check_kernels(dev):
               for r in range(Cs) if c > 0)
     nbytes = 2 * qc.numel() * 2 + sum(ctxs) * Hkv * D * 2 * 2
     b_ms, b_by = bound(nbytes, 4 * D * H * vis)
-    record("paged_chunk", f"6x{Cs} rows ctx={ctxs} bs={bs}", err(out, ref),
+    record("paged_chunk", f"6x{Cs} rows ctx={ctxs} bs={bs}", err((out, ref)),
            row=True, ms=time_ms(lambda: paged_chunk_attention_batched(qc, pool, bt, q0, ctx_t)),
            plain_ms=time_ms(lambda: paged_chunk_attention_batched_plain(
                qc, pool, bt, q0, ctx_t), 5, 1),
@@ -214,7 +245,7 @@ def check_kernels(dev):
                 plain_ms=time_ms(lambda: paged_decode_attention_plain(
                     qd, pool, bt, lens, *side, **kw), 5, 1),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
-        record("paged_decode", case, err(out, ref), row=row, **extra)
+        record("paged_decode", case, err((out, ref)), row=row, **extra)
 
     for S in (4, 32):
         decode_case(S, 32, 32, 128, 0, 0)
@@ -227,7 +258,123 @@ def check_kernels(dev):
     # table keeps S = 4, the main path's decode batch, and S = 32 is printed
     decode_case(4, 32, 32, 128, 1, 0, timed=True, row=True)
     decode_case(32, 32, 32, 128, 1, 0, timed=True)
+    check_flash(randn, record)
     return rows
+
+
+def check_flash_refusals(randn):
+    """On CUDA tensors K1 launches or raises: a non-bf16 or non-contiguous
+    input raises before any launch, and a launch the C side refuses (here
+    an unsupported head dim sent past the wrapper) raises too; none of them
+    counts a launch."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES, _loader, flash_attention_fwd
+    q = randn(1, 64, 2, 64)
+    before = dict(LAUNCHES)
+    cases = {
+        "float32 input": (TypeError, lambda: flash_attention_fwd(
+            q.float(), q.float(), q.float(), True, 0.125)),
+        "non-contiguous input": (ValueError, lambda: flash_attention_fwd(
+            q.transpose(1, 2).contiguous().transpose(1, 2), q, q, True, 0.125)),
+        "refused launch": (RuntimeError, lambda: _loader.launch(
+            "flash_fwd", "dstorch_flash_fwd_bf16", q.device, _loader.ptr(q), _loader.ptr(q),
+            _loader.ptr(q), _loader.ptr(q), _loader.ptr(q), 1, 64, 64, 2, 48, 0.125, 1)),
+    }
+    for what, (exc, fn) in cases.items():
+        try:
+            fn()
+        except exc as e:
+            print(f"refusal ok: {what}: {type(e).__name__}: {e}", flush=True)
+        else:
+            raise AssertionError(f"K1 took a {what} without raising")
+    torch.cuda.synchronize()
+    if dict(LAUNCHES) != before:
+        raise AssertionError("a refused K1 call counted a launch")
+
+
+def check_flash(randn, record):
+    """K1: forward (o, lse), dq and dk/dv kernels against their plain
+    versions on the same inputs (the backward ones fed the kernel forward's
+    o and lse); timed at the training shape, with SDPA as the library
+    yardstick (never called by the port)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from deepspeed_tpu_torch.ops.kernels import (
+        flash_attention, flash_attention_fwd, flash_attention_fwd_plain,
+        flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain,
+        flash_delta)
+
+    def case(B, H, Hkv, T, D, causal, timed=False):
+        name = f"B={B} H={H} Hkv={Hkv} T={T} D={D} {'causal' if causal else 'full'}"
+        scale = D ** -0.5
+        q, do = randn(B, T, H, D), randn(B, T, H, D)
+        k, v = randn(B, T, Hkv, D), randn(B, T, Hkv, D)
+        kr = k.repeat_interleave(H // Hkv, dim=2)
+        vr = v.repeat_interleave(H // Hkv, dim=2)
+        o, lse = flash_attention_fwd(q, kr, vr, causal, scale)
+        o_ref, lse_ref = flash_attention_fwd_plain(q, kr, vr, causal, scale)
+        delta = flash_delta(o, do)
+        dq = flash_bwd_dq(q, kr, vr, do, lse, delta, causal, scale)
+        dq_ref = flash_bwd_dq_plain(q, kr, vr, do, lse, delta, causal, scale)
+        dk, dv = flash_bwd_dkv(q, kr, vr, do, lse, delta, causal, scale)
+        dk_ref, dv_ref = flash_bwd_dkv_plain(q, kr, vr, do, lse, delta, causal, scale)
+        torch.cuda.synchronize()
+        pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+        x, stats = B * T * H * D * 2, B * H * T * 4        # one [B,T,H,D] bf16; lse
+        extra = {}, {}, {}
+        if timed:
+            # the library yardstick: SDPA pinned to its flash backend
+            qs, ks, vs, dos = (t.transpose(1, 2).contiguous() for t in (q, kr, vr, do))
+            qg, kg, vg = (t.clone().requires_grad_() for t in (qs, ks, vs))
+
+            def sdpa_fwd_bwd():
+                out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+                torch.autograd.grad(out, (qg, kg, vg), dos)
+
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                lib_f = time_ms(lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=causal))
+                lib_b = time_ms(sdpa_fwd_bwd) - time_ms(
+                    lambda: F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal))
+            bounds = [bound(4 * x + stats, 4 * D * pairs),
+                      bound(5 * x + 2 * stats, 6 * D * pairs),
+                      bound(6 * x + 2 * stats, 8 * D * pairs)]
+            extra = (
+                dict(ms=time_ms(lambda: flash_attention_fwd(q, kr, vr, causal, scale)),
+                     plain_ms=time_ms(lambda: flash_attention_fwd_plain(
+                         q, kr, vr, causal, scale), 5, 1), library_ms=lib_f),
+                dict(ms=time_ms(lambda: flash_bwd_dq(q, kr, vr, do, lse, delta, causal, scale)),
+                     plain_ms=time_ms(lambda: flash_bwd_dq_plain(
+                         q, kr, vr, do, lse, delta, causal, scale), 5, 1), library_ms=lib_b,
+                     library_covers="SDPA (flash backend) backward: dq, dk and dv together"),
+                dict(ms=time_ms(lambda: flash_bwd_dkv(q, kr, vr, do, lse, delta, causal, scale)),
+                     plain_ms=time_ms(lambda: flash_bwd_dkv_plain(
+                         q, kr, vr, do, lse, delta, causal, scale), 5, 1), library_ms=lib_b,
+                     library_covers="SDPA (flash backend) backward: dq, dk and dv together"))
+            for e, (b_ms, b_by) in zip(extra, bounds):
+                e.update(bound_ms=b_ms, bound_by=b_by)
+        record("flash_fwd", name, err((o, o_ref), (lse[..., None], lse_ref[..., None])),
+               row=timed, **extra[0])
+        record("flash_bwd_dq", name, err((dq, dq_ref)), row=timed, **extra[1])
+        record("flash_bwd_dkv", name, err((dk, dk_ref), (dv, dv_ref)), row=timed, **extra[2])
+        if Hkv != H:
+            # the public autograd path: GQA repeat in the wrapper, dk/dv
+            # reduced over each kv head's query heads by autograd
+            qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+            out = flash_attention(qg, kg, vg, causal=causal)
+            out.backward(do)
+            G = H // Hkv
+            red = lambda t: t.float().view(B, T, Hkv, G, D).sum(3)
+            record("flash_attention (autograd, GQA)", name,
+                   err((out.detach(), o_ref), (qg.grad, dq_ref), (kg.grad, red(dk_ref)),
+                       (vg.grad, red(dv_ref))))
+
+    check_flash_refusals(randn)
+    case(8, 12, 12, 1024, 64, True, timed=True)    # GPT-2 small's training shape
+    case(2, 12, 12, 1000, 64, True)                # ragged edge
+    case(2, 12, 12, 1024, 64, False)               # non-causal
+    case(2, 12, 4, 1024, 128, True)                # GQA 12/4 at D = 128
 
 
 # --------------------------------------------------------------------------- #
@@ -274,6 +421,7 @@ def run_slice():
             raise AssertionError("generate() returned a malformed stream")
     if lg2.shape != (3, V) or not np.isfinite(lg2).all():
         raise AssertionError("put() logits malformed")
+    launches = {k: launches[k] for k in ("flash_packed", "paged_chunk", "paged_decode")}
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
@@ -335,6 +483,148 @@ def run_slice():
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 5: the training slice at GPT-2 small's width
+# --------------------------------------------------------------------------- #
+
+TRAIN_CONFIG = {
+    "train_batch_size": 16, "train_micro_batch_size_per_gpu": 8,
+    "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+    "zero_optimization": {"stage": 0}, "steps_per_print": 0,
+    "optimizer": {"type": "AdamW", "params": {"lr": 6e-4, "betas": [0.9, 0.95],
+                                              "eps": 1e-8, "weight_decay": 0.1}},
+    "scheduler": {"type": "WarmupLR", "params": {"warmup_min_lr": 0, "warmup_max_lr": 6e-4,
+                                                 "warmup_num_steps": 5}},
+}
+K1_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Route the GPT-2 model's attention to the dense reference (the
+    yardstick's path); restored on exit."""
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops.attention import reference_attention
+    kernel_path = gpt2.dot_product_attention
+    gpt2.dot_product_attention = reference_attention
+    try:
+        yield
+    finally:
+        gpt2.dot_product_attention = kernel_path
+
+
+def loss_and_grads(model, micro):
+    """(loss, flat f32 gradient) of one micro-batch through ``model``."""
+    import torch
+    params = list(model.parameters())
+    loss = model(micro)
+    grads = torch.autograd.grad(loss, params)
+    return float(loss.detach()), torch.cat([g.float().flatten() for g in grads])
+
+
+def first_step_check(engine, cfg, micro):
+    """The engine's first micro-batch loss and gradient (bf16, K1) against
+    an fp32 forward/backward with plain attention (TF32 off), beside a bf16
+    one with plain attention; fails unless the engine's error is within 2x
+    the bf16 one's plus FIRST_STEP_FLOOR of the yardstick's scale."""
+    import dataclasses
+
+    import torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    one = torch.ones((), dtype=torch.float32, device="cuda")
+    loss_e, grads_e = engine._grad_fn(micro, one)
+    g_e = torch.cat([g.float().flatten() for g in grads_e])
+    loss_e = float(loss_e)
+    master = engine.state["master"]
+    ref = {}
+    for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        model = GPT2LMHead(dataclasses.replace(cfg, dtype=dt), device="cuda")
+        model.load_flat_params(master)
+        with plain_attention():
+            ref[name] = loss_and_grads(model, micro)
+        del model
+    loss32, g32 = ref["fp32"]
+    rms = lambda t: float(t.pow(2).mean().sqrt())
+    out = {"loss_fp32": loss32, "loss_engine": loss_e, "loss_bf16_plain": ref["bf16"][0],
+           "loss_err_engine": abs(loss_e - loss32),
+           "loss_err_bf16_plain": abs(ref["bf16"][0] - loss32),
+           "grad_rms_fp32": rms(g32), "grad_rms_err_engine": rms(g_e - g32),
+           "grad_rms_err_bf16_plain": rms(ref["bf16"][1] - g32),
+           "floor_share": FIRST_STEP_FLOOR}
+    print("first-step " + json.dumps(out), flush=True)
+    for what, scale in (("loss", abs(loss32)), ("grad_rms", out["grad_rms_fp32"])):
+        limit = 2 * out[f"{what}_err_bf16_plain"] + FIRST_STEP_FLOOR * scale
+        if not out[f"{what}_err_engine"] <= limit:
+            raise AssertionError(f"first step: engine {what} error "
+                                 f"{out[f'{what}_err_engine']} > {limit}")
+
+
+def run_training(steps: int = 10):
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    cfg = GPT2Config(dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = GPT2LMHead(cfg, device="cuda", seed=0)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=TRAIN_CONFIG)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in engine.state["master"].values())
+    print(f"model: GPT-2 small (GPT2Config() defaults: vocab {cfg.vocab_size}, width "
+          f"{cfg.n_embd}, {cfg.n_layer} layers, {cfg.n_head} heads, T {cfg.n_positions}), "
+          f"{n_params} params, bf16 with fp32 master, random weights (seed 0), init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    T, V = cfg.n_positions, cfg.vocab_size
+    batch = {"input_ids": np.random.default_rng(0).integers(0, V, (16, T)).astype(np.int32)}
+    micro = {"input_ids": torch.from_numpy(batch["input_ids"][:8]).cuda()}
+    first_step_check(engine, cfg, micro)
+    torch.cuda.empty_cache()
+
+    # ---- the main path: train_steps on the repeated batch ---- #
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = engine.train_steps(steps, data_iter=itertools.repeat(batch))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    tokens = steps * 16 * T
+    print("main-path launches " + json.dumps(launches), flush=True)
+    print("train " + json.dumps({
+        "steps": steps, "losses": [float(x) for x in losses], "wall_s": wall,
+        "step_ms": wall / steps * 1e3, "tokens_per_s": tokens / wall,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "grad_norm_last": engine.get_global_grad_norm(), "lr_now": engine.get_lr()[0]}),
+        flush=True)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: step 1 {losses[0]}, step {steps} {losses[-1]}")
+    want = 2 * cfg.n_layer * steps       # one of each per layer and micro-batch
+    wrong = {k: launches[k] for k in K1_NAMES if launches[k] != want}
+    if wrong:
+        raise AssertionError(f"K1 launches {wrong}, expected {want} of each")
+    # one step timed in two parts: until train_batch returns (the host's
+    # enqueue) and until the device is done
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.train_batch(batch)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print("train step " + json.dumps({"host_enqueue_ms": (t1 - t0) * 1e3,
+                                      "wall_ms": (t2 - t0) * 1e3}), flush=True)
+    device_breakdown("train step (16 x 1024 tokens, 2 micro-batches)",
+                     lambda: engine.train_batch(batch))
+    t0 = time.perf_counter()
+    ev = engine.eval_loss(batch)
+    print(f"eval_loss {ev:.4f} ({(time.perf_counter() - t0) * 1e3:.1f} ms)", flush=True)
+    return launches
+
+
 def device_breakdown(label: str, fn) -> None:
     """Run ``fn`` once under the CUDA-only profiler; print wall time, summed
     device kernel time, the device busy share, the port's attention
@@ -356,7 +646,7 @@ def device_breakdown(label: str, fn) -> None:
             dev[e.key] = us / 1e3
     busy = sum(dev.values())
     ours = {n: sum(v for k, v in dev.items() if f"{n}_kernel" in k)
-            for n in ("flash_packed", "paged_chunk", "paged_decode")}
+            for n in ("flash_packed", "paged_chunk", "paged_decode") + K1_NAMES}
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
     print("profile " + json.dumps({
         "phase": label, "wall_ms": wall,
@@ -382,18 +672,25 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s with load)", flush=True)
     rows = check_kernels(torch.device("cuda"))
     launches = run_slice()
-    mods = {"flash_packed": "flash_packed", "paged_chunk": "paged_chunk",
-            "paged_decode": "paged_decode"}
-    table = []
-    for name, mod in mods.items():
+    torch.cuda.empty_cache()
+    launches.update({k: v for k, v in run_training().items() if k in K1_NAMES})
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import KERNELS
+    sources = {}
+    for mod in ("flash_packed", "paged_chunk", "paged_decode"):
         m = __import__(f"deepspeed_tpu_torch.ops.kernels.{mod}", fromlist=["x"])
+        sources[mod] = (m.SOURCE, m.REPLACES)
+    sources.update(KERNELS)
+    table = []
+    for name, (source, replaces) in sources.items():
         r = rows[name]
-        table.append({"name": name, "route": "cuda", "source": m.SOURCE,
-                      "replaces": m.REPLACES, "launches": launches[name],
+        table.append({"name": name, "route": "cuda", "source": source,
+                      "replaces": replaces, "launches": launches[name],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                      "case": r["case"]})
+                      "case": r["case"],
+                      **({"library_covers": r["library_covers"]}
+                         if "library_covers" in r else {})})
     print(smi, flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

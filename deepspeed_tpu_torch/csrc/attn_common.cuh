@@ -76,13 +76,16 @@ struct FlashSmem {
 // q row r (r < n_q) starts at q_rows + r * row_stride, likewise the output.
 // Keys are 0 .. n_keys-1; kv_row(key) gives their K and V rows;
 // mask(r, key) says whether row r sees key (key < n_keys is implied).
-// Rows that see no key get zeros.
+// Rows that see no key get zeros. When lse_rows is given, row r's
+// log-sum-exp of its scaled scores (m + log l) goes to lse_rows[r], and
+// kNegBig for a row that sees no key.
 template <int D, typename KVRow, typename Mask>
 __device__ __forceinline__ void flash_block(const bf16* __restrict__ q_rows,
                                             bf16* __restrict__ o_rows,
                                             int row_stride, int n_q, int n_keys,
                                             KVRow kv_row, Mask mask,
-                                            float scale, char* smem) {
+                                            float scale, char* smem,
+                                            float* __restrict__ lse_rows = nullptr) {
   static_assert(D % 16 == 0 && D <= 256, "head dim must be a multiple of 16, <= 256");
   using S = FlashSmem<D>;
   constexpr int CH = D / 8;   // 16-byte chunks per row
@@ -208,6 +211,8 @@ __device__ __forceinline__ void flash_block(const bf16* __restrict__ q_rows,
     bf16* dst = o_rows + (size_t)row * row_stride;
 #pragma unroll
     for (int n = 0; n < ND; ++n) dst[tx + 16 * n] = __float2bfloat16(o[r][n] * inv);
+    if (lse_rows != nullptr && tx == 0)
+      lse_rows[row] = l[r] > 0.f ? m[r] + logf(l[r]) : kNegBig;
   }
 }
 

@@ -1,3 +1,4 @@
 """Model definitions of the port."""
 
+from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
 from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM

@@ -6,6 +6,8 @@ engine reads its configuration and its parameters. The forward follows the
 JAX package's flax model step for step: RMSNorm computed in f32, rotary
 embedding on INTERLEAVED pairs (``x[..., 0::2]``, ``x[..., 1::2]``, not the
 rotate-half convention), causal attention with f32 scores, and a SwiGLU MLP.
+The causal-LM losses the training path shares (:func:`causal_lm_loss`,
+:func:`chunked_causal_lm_loss`) live here too, as in the JAX package.
 
 Parameters carry the flax names (``embed_tokens/embedding``,
 ``layers_{i}/self_attn/q_proj/kernel``, ..., ``lm_head/kernel``) and the flax
@@ -24,6 +26,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.utils.device import resolve_device
 
@@ -237,3 +240,49 @@ class LlamaForCausalLM(nn.Module):
             x = x + (g * (h @ m.up_proj.kernel.to(dt))) @ m.down_proj.kernel.to(dt)
         x = rms_norm(x, self.norm.weight, cfg.rms_norm_eps, dt)
         return (x @ self.lm_head.kernel.to(dt)).float()
+
+
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token NLL with shift-by-one, in the logsumexp form
+    (``logsumexp(logits) - logits[label]``): no second [B, T, V] array."""
+    logits_s = logits[:, :-1, :]
+    labels_s = labels[:, 1:].long()
+    lse = torch.logsumexp(logits_s, dim=-1)
+    picked = torch.gather(logits_s, -1, labels_s[..., None])[..., 0]
+    return (lse - picked).mean()
+
+
+def _chunk_nll_sum(h: torch.Tensor, w: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Sum of one chunk's NLL: ``h`` [c, T-1, C] @ ``w`` [C, V] (both in the
+    matmul type), f32 logits, logsumexp minus the label's logit."""
+    logits = torch.matmul(h, w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, y[..., None])[..., 0]
+    return (lse - picked).sum()
+
+
+def chunked_causal_lm_loss(x: torch.Tensor, vocab_weight: torch.Tensor,
+                           labels: torch.Tensor, batch_chunk: int = 4) -> torch.Tensor:
+    """Fused projection + cross entropy over batch chunks.
+
+    ``x`` [B, T, C] final hidden states; ``vocab_weight`` [V, C] (the tied
+    embedding; the JAX function's ``transpose`` and ``head_bias`` for untied
+    heads come with the first model that trains one). Each chunk's body
+    runs under ``torch.utils.checkpoint`` (the counterpart of the JAX
+    package's ``jax.checkpoint`` scan body), so only one chunk's
+    [chunk, T-1, V] f32 logits live at a time, in the forward and again in
+    the backward. bf16 models project in bf16 (the matmul accumulates in
+    f32; its output is rounded to bf16 before the f32 softmax, where XLA
+    keeps the f32 product); f32 models stay in f32."""
+    B, T, C = x.shape
+    chunk = max(1, min(batch_chunk, B))
+    while B % chunk:
+        chunk -= 1
+    mm_dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    w = vocab_weight.t().to(mm_dtype)
+    y = labels[:, 1:].long()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, B, chunk):
+        total = total + checkpoint(_chunk_nll_sum, x[i:i + chunk, :-1].to(mm_dtype), w,
+                                   y[i:i + chunk], use_reentrant=False)
+    return total / (B * (T - 1))

@@ -1,1 +1,44 @@
-"""Operators of the port: hand-written CUDA kernels under ``ops.kernels``."""
+"""Operators of the port: hand-written CUDA kernels under ``ops.kernels``,
+attention dispatch (``ops.attention``) and the optimizer registry.
+
+``build_optimizer`` reads the config's ``optimizer`` block as the JAX
+package's does. Only the Adam family is ported; every other registered name
+of the JAX package raises ``NotImplementedError`` naming it."""
+
+from typing import Any, Dict
+
+from deepspeed_tpu_torch.ops.adam import FusedAdam
+from deepspeed_tpu_torch.ops.optimizer import TPUOptimizer
+
+OPTIMIZER_REGISTRY = {"adam": FusedAdam, "adamw": FusedAdam, "fusedadam": FusedAdam}
+# registered in the JAX package, not ported yet
+UNPORTED_OPTIMIZERS = ("cpuadam", "deepspeedcpuadam", "lamb", "fusedlamb", "lion",
+                       "fusedlion", "cpulion", "adagrad", "cpuadagrad", "sgd",
+                       "onebitadam", "onebitlamb", "zerooneadam")
+
+
+def build_optimizer(opt_type: str, params: Dict[str, Any]) -> TPUOptimizer:
+    """Build an optimizer from the config ``optimizer`` block."""
+    key = opt_type.lower().replace("_", "")
+    if key in UNPORTED_OPTIMIZERS:
+        raise NotImplementedError(
+            f"optimizer '{opt_type}': not ported to deepspeed_tpu_torch yet "
+            f"(ported: {sorted(OPTIMIZER_REGISTRY)})")
+    if key not in OPTIMIZER_REGISTRY:
+        raise ValueError(
+            f"unknown optimizer type '{opt_type}'; known: {sorted(OPTIMIZER_REGISTRY)}")
+    kwargs = dict(params)
+    # DeepSpeed configs use torch naming; translate the common ones.
+    if "betas" in kwargs:
+        kwargs["betas"] = tuple(float(b) for b in kwargs["betas"])
+    for k in ("lr", "eps", "weight_decay"):
+        if k in kwargs and isinstance(kwargs[k], str):
+            kwargs[k] = float(kwargs[k])
+    if key == "adam" and "adam_w_mode" not in kwargs:
+        # bare "Adam" means classic L2 unless adam_w_mode is set; "AdamW"
+        # always decouples
+        kwargs["adam_w_mode"] = False
+    if key == "adamw":
+        kwargs["adam_w_mode"] = True
+    kwargs.pop("torch_adam", None)
+    return OPTIMIZER_REGISTRY[key](**kwargs)

@@ -22,13 +22,14 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("flash_packed.cu", "paged_chunk.cu", "paged_decode.cu")
+SOURCES = ("flash_packed.cu", "paged_chunk.cu", "paged_decode.cu", "flash_fwd.cu",
+           "flash_bwd.cu")
 HEADERS = ("attn_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -43,10 +44,16 @@ ENTRY_POINTS = {
                                  _I, _I, _F, _P),
     "dstorch_paged_decode_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _F, _P),
+    "dstorch_flash_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    "dstorch_flash_bwd_dq_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _F, _I, _P),
+    "dstorch_flash_bwd_dkv_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _F, _I, _P),
 }
 
 LAUNCHES: Dict[str, int] = {"flash_packed": 0, "paged_chunk": 0,
-                            "paged_decode": 0}
+                            "paged_decode": 0, "flash_fwd": 0,
+                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -150,9 +157,11 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
     LAUNCHES[kernel] += 1
 
 
-def check_cuda(kernel: str, dtype: torch.dtype, **tensors: torch.Tensor) -> None:
+def check_cuda(kernel: str, dtype: torch.dtype, f32: Tuple[str, ...] = (),
+               **tensors: torch.Tensor) -> None:
     """The kernels take contiguous tensors on one CUDA device: ``dtype`` for
-    the floating ones, int32 for indices. Raise on anything else."""
+    the floating ones (float32 for those named in ``f32``), int32 for
+    indices. Raise on anything else."""
     if dtype != torch.bfloat16:
         raise TypeError(f"{kernel}: the CUDA kernel takes bfloat16, got {dtype}")
     devices = {t.device for t in tensors.values()}
@@ -160,7 +169,8 @@ def check_cuda(kernel: str, dtype: torch.dtype, **tensors: torch.Tensor) -> None
         raise ValueError(f"{kernel}: all tensors must lie on one CUDA device, got "
                          f"{ {k: str(t.device) for k, t in tensors.items()} }")
     for name, t in tensors.items():
-        want = torch.int32 if not t.is_floating_point() else dtype
+        want = torch.float32 if name in f32 else (
+            dtype if t.is_floating_point() else torch.int32)
         if t.dtype != want:
             raise TypeError(f"{kernel}: {name} must be {want}, got {t.dtype}")
         if not t.is_contiguous():

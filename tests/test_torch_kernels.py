@@ -5,13 +5,18 @@ both sides compute in f32.
 
 Tolerance: 2e-5 absolute on outputs of magnitude <= ~3 — the two sides
 accumulate the same f32 products in a different order (flash blocks vs one
-softmax), a few ulps of f32."""
+softmax), a few ulps of f32. K1's gradients: 5e-5 (K1_BWD_ATOL)."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu.ops.pallas.flash_attention import _fwd as jax_flash_fwd
+from deepspeed_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
 from deepspeed_tpu.ops.pallas.flash_attention import flash_attention_packed as jax_packed
 from deepspeed_tpu.ops.pallas.paged_attention import (
     paged_chunk_attention_batched as jax_chunk,
@@ -19,7 +24,8 @@ from deepspeed_tpu.ops.pallas.paged_attention import (
     paged_decode_attention_sidebuf as jax_sidebuf,
     paged_decode_attention_step as jax_step)
 from deepspeed_tpu_torch.inference.v2.attention import AttentionKernelSpec
-from deepspeed_tpu_torch.ops.kernels import (flash_attention_packed_plain,
+from deepspeed_tpu_torch.ops.kernels import (flash_attention, flash_attention_fwd_plain,
+                                             flash_attention_packed_plain,
                                              paged_chunk_attention_batched_plain,
                                              paged_decode_attention_plain)
 
@@ -136,3 +142,102 @@ def test_sidebuf_matches_k6(C, j, H, Hkv):
                                         _t(sk.reshape(S, C * Hkv, D)),
                                         _t(sv.reshape(S, C * Hkv, D)), j)
     _close(port, ref)
+
+
+# --------------------------------------------------------------------------- #
+# K1: training flash attention, forward and backward
+# --------------------------------------------------------------------------- #
+
+K1_BWD_ATOL = 5e-5   # gradients sum T products of O(1) terms in both orders
+K1_CASES = {
+    "T256-causal": dict(T=256, H=4, Hkv=4, causal=True),
+    "T256-full": dict(T=256, H=4, Hkv=4, causal=False),
+    # 200 is not a multiple of 128: the JAX wrapper pads to 256
+    "T200-causal": dict(T=200, H=4, Hkv=4, causal=True),
+    "gqa-4-2": dict(T=256, H=4, Hkv=2, causal=True),
+}
+
+
+def _k1_inputs(case):
+    c = K1_CASES[case]
+    rng = np.random.RandomState(sorted(K1_CASES).index(case) + 11)
+    B, D = 2, 64
+    q = _f(rng, B, c["T"], c["H"], D)
+    k, v = _f(rng, B, c["T"], c["Hkv"], D), _f(rng, B, c["T"], c["Hkv"], D)
+    g = _f(rng, B, c["T"], c["H"], D)
+    return c, q, k, v, g
+
+
+def _jax_k1(c, q, k, v):
+    return functools.partial(jax_flash, causal=c["causal"], block_q=64, block_k=64)
+
+
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+def test_flash_forward_matches_k1(case):
+    """o and lse of the plain forward against the Pallas forward (64-row
+    blocks, so its grid has several tiles in each direction)."""
+    c, q, k, v, _ = _k1_inputs(case)
+    ref_o = _jax_k1(c, q, k, v)(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    rep = c["H"] // c["Hkv"]
+    kr, vr = np.repeat(k, rep, axis=2), np.repeat(v, rep, axis=2)
+    T, Tp = c["T"], -(-c["T"] // 64) * 64
+    # the JAX lse: its _fwd on [B, H, T, D], causal rows padded as the
+    # public wrapper pads them (padded keys sit above every real row)
+    pad = lambda a: jnp.swapaxes(jnp.pad(jnp.asarray(a), ((0, 0), (0, Tp - T), (0, 0), (0, 0))),
+                                 1, 2)
+    _, ref_lse = jax_flash_fwd(pad(q), pad(kr), pad(vr), 64 ** -0.5, c["causal"], 64, 64)
+    o, lse = flash_attention_fwd_plain(_t(q), _t(kr), _t(vr), c["causal"], 64 ** -0.5)
+    _close(o, ref_o)
+    _close(lse, np.asarray(ref_lse)[:, :, :T, 0])
+    # the public wrapper (GQA repeat inside) gives the same o
+    _close(flash_attention(_t(q), _t(k), _t(v), causal=c["causal"]).detach(), ref_o)
+
+
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+def test_flash_backward_matches_k1(case):
+    """dq, dk, dv of the port's autograd function (plain backward on the
+    CPU; GQA reduced through the repeat) against jax.vjp of the Pallas
+    kernel, on the same cotangent."""
+    c, q, k, v, g = _k1_inputs(case)
+    _, vjp = jax.vjp(_jax_k1(c, q, k, v), jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref = vjp(jnp.asarray(g))
+    qt, kt, vt = (_t(a).requires_grad_() for a in (q, k, v))
+    flash_attention(qt, kt, vt, causal=c["causal"]).backward(_t(g))
+    for got, want in zip((qt.grad, kt.grad, vt.grad), ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=K1_BWD_ATOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_autograd_gradcheck_f64(causal):
+    """The autograd function's backward (plain versions on the CPU) is the
+    derivative of its forward, in float64 at a tiny shape (GQA 2/1)."""
+    rng = np.random.RandomState(5)
+    q = torch.from_numpy(rng.randn(1, 5, 2, 4)).requires_grad_()
+    k = torch.from_numpy(rng.randn(1, 5, 1, 4)).requires_grad_()
+    v = torch.from_numpy(rng.randn(1, 5, 1, 4)).requires_grad_()
+    assert torch.autograd.gradcheck(lambda a, b, c: flash_attention(a, b, c, causal=causal),
+                                    (q, k, v))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_reference_attention_and_padding_bias_match_jax(causal):
+    """The dense route taken with a bias or segment ids (Tq < Tk: causal is
+    bottom-right aligned there, as in the JAX package)."""
+    from deepspeed_tpu.ops.attention import padding_mask_to_bias as jax_bias
+    from deepspeed_tpu.ops.attention import reference_attention as jax_ref
+    from deepspeed_tpu_torch.ops.attention import dot_product_attention, padding_mask_to_bias
+    rng = np.random.RandomState(21)
+    q, k, v = _f(rng, 2, 6, 3, 16), _f(rng, 2, 9, 3, 16), _f(rng, 2, 9, 3, 16)
+    mask = (rng.rand(2, 9) > 0.3).astype(np.int32)
+    mask[:, 0] = 1
+    bias = padding_mask_to_bias(_t(mask))
+    np.testing.assert_array_equal(bias.numpy(), np.asarray(jax_bias(jnp.asarray(mask))))
+    ref = jax_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                  bias=jnp.asarray(bias.numpy()))
+    _close(dot_product_attention(_t(q), _t(k), _t(v), causal=causal, bias=bias), ref)
+    seg = np.array([[0] * 4 + [1] * 5, [0] * 9], np.int32)
+    qs = _f(rng, 2, 9, 3, 16)
+    ref = jax_ref(jnp.asarray(qs), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                  segment_ids=jnp.asarray(seg))
+    _close(dot_product_attention(_t(qs), _t(k), _t(v), causal=causal,
+                                 segment_ids=_t(seg)), ref)

@@ -85,6 +85,18 @@ def _kernel_inputs(seed=0):
                                  i32([2, 0]), i32([6, 0])), {}),
         "paged_decode": lambda: ((f(2, 4, 16), pool, i32([[1, 2], [3, 0]]),
                                   i32([5, 0]), f(2, 2, 16), f(2, 2, 16)), {"j": 0}),
+        "flash_fwd": lambda: ((f(2, 9, 2, 16), f(2, 9, 2, 16), f(2, 9, 2, 16)),
+                              {"causal": True, "scale": 0.25}),
+        "flash_bwd_dq": lambda: ((f(2, 9, 2, 16), f(2, 9, 2, 16), f(2, 9, 2, 16),
+                                  f(2, 9, 2, 16), f(2, 2, 9), f(2, 2, 9)),
+                                 {"causal": True, "scale": 0.25}),
+        "flash_bwd_dkv": lambda: ((f(2, 9, 2, 16), f(2, 7, 2, 16), f(2, 7, 2, 16),
+                                   f(2, 9, 2, 16), f(2, 2, 9), f(2, 2, 9)),
+                                  {"causal": False, "scale": 0.25}),
+        # the whole backward: q, k, v, o, lse, dO
+        "flash_bwd": lambda: ((f(2, 9, 2, 16), f(2, 9, 2, 16), f(2, 9, 2, 16),
+                               f(2, 9, 2, 16), f(2, 2, 9), f(2, 9, 2, 16)),
+                              {"causal": True, "scale": 0.25}),
     }
 
 
@@ -93,6 +105,10 @@ WRAPPERS = {
     "paged_chunk": (kernels.paged_chunk_attention_batched,
                     kernels.paged_chunk_attention_batched_plain),
     "paged_decode": (kernels.paged_decode_attention, kernels.paged_decode_attention_plain),
+    "flash_fwd": (kernels.flash_attention_fwd, kernels.flash_attention_fwd_plain),
+    "flash_bwd_dq": (kernels.flash_bwd_dq, kernels.flash_bwd_dq_plain),
+    "flash_bwd_dkv": (kernels.flash_bwd_dkv, kernels.flash_bwd_dkv_plain),
+    "flash_bwd": (kernels.flash_attention_bwd, kernels.flash_attention_bwd_plain),
 }
 
 
