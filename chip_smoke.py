@@ -25,12 +25,31 @@ Phases, each fatal on failure:
    micro-batch loss and gradient (bf16, K1) against an fp32 forward/backward
    with plain attention, within 2x the error of a bf16 one plus a floor.
 
+6. memory-lean long-context serving of Llama-2-13B at full width and depth
+   (40 layers; random bf16 weights from seed 0, which the engine quantizes
+   to int8 at build before the caller's bf16 tree is dropped) with
+   ``quantization.weight_bits = 8``, int8 KV pages and the split ladder up
+   to 8: ``generate()`` on prompts of 4200/2000/900/200 tokens (32 new
+   tokens each), a decode step at each pinned rung 1/2/4/8 on one live set,
+   and a ``put()`` round mixing a new prompt with decode rows; every new
+   kernel's launch count (each > 0) and the rung counts; next-token logits
+   at prefill and five decode steps against a dense fp32 forward over the
+   engine's own int8 weights and pool values, streamed layer by layer (RMS
+   error within 2x the same forward's in bf16); rung invariance (rungs 2/4/8
+   against rung 1, same limit); quantize-on-write (a decode step and a
+   ragged pass store the same layer-0 page bytes for the same token);
+   prefill and decode rates, device profiles, peak memory, its own seconds.
+
 Phase 3 also holds the flash attention kernels (K1 forward, dq, dk/dv)
 against their plain versions at the training shape, at a ragged T = 1000,
-non-causal, and GQA 12/4 at D = 128.
+non-causal, and GQA 12/4 at D = 128; and the memory-lean serving kernels
+at Llama-2-13B's shapes: K8 (int8 weight matmul) at M = 4 through every
+projection and the LM head and at M = 736 through gate/up, the int8 decode
+and chunk kernels, K7 split-K decode at 2, 4 and 8 splits (contexts up to
+4264 tokens, one short enough to leave splits empty) and its merge kernel.
 
-The last two lines are the kernel table and ``{"ok": true, "device": ...}``
-as JSON. Run from the repository root: ``python3 chip_smoke.py``.
+The last two lines are the kernel table (14 rows) and ``{"ok": true,
+"device": ...}`` as JSON. Run from the repository root: ``python3 chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -180,15 +199,7 @@ def check_kernels(dev):
     def make_pool(NB, Hkv, bs, D):
         return randn(NB, 2, Hkv, bs, D)
 
-    def tables(ctxs, bs, MB, NB):
-        perm = torch.randperm(NB, generator=torch.Generator().manual_seed(7))
-        bt = torch.zeros((len(ctxs), MB), dtype=torch.int32)
-        used = 0
-        for i, c in enumerate(ctxs):
-            n = -(-c // bs)
-            bt[i, :n] = perm[used:used + n].to(torch.int32)
-            used += n
-        return bt.to(dev)
+    tables = functools.partial(block_tables, dev=dev)
 
     # ---- K5: 6 slots x 128 rows, bs = 128, ctx up to 2048, one empty ---- #
     bs, Hkv, MB = 128, 32, 16
@@ -259,7 +270,22 @@ def check_kernels(dev):
     decode_case(4, 32, 32, 128, 1, 0, timed=True, row=True)
     decode_case(32, 32, 32, 128, 1, 0, timed=True)
     check_flash(randn, record)
+    check_quant_kernels(dev, g, randn, record)
     return rows
+
+
+def block_tables(ctxs, bs, MB, NB, dev):
+    """Block tables [len(ctxs), MB] int32 on ``dev``: each row's pages drawn
+    from one seeded permutation of the NB pages, no page shared."""
+    import torch
+    perm = torch.randperm(NB, generator=torch.Generator().manual_seed(7))
+    bt = torch.zeros((len(ctxs), MB), dtype=torch.int32)
+    used = 0
+    for i, c in enumerate(ctxs):
+        n = -(-c // bs)
+        bt[i, :n] = perm[used:used + n].to(torch.int32)
+        used += n
+    return bt.to(dev)
 
 
 def check_flash_refusals(randn):
@@ -375,6 +401,189 @@ def check_flash(randn, record):
     case(2, 12, 12, 1000, 64, True)                # ragged edge
     case(2, 12, 12, 1024, 64, False)               # non-causal
     case(2, 12, 4, 1024, 128, True)                # GQA 12/4 at D = 128
+
+
+# K8 at Llama-2-13B's projection shapes: M = 4 (the decode batch) through
+# q/k/v/o, gate/up, down and the LM head, and M = 736 (a prefill pass)
+# through gate/up; the kernel table keeps one shape per kernel
+QMM_SHAPES = ((4, 5120, 5120), (4, 5120, 13824), (4, 13824, 5120), (4, 5120, 32000),
+              (736, 5120, 13824))
+QMM_ROWS = {"quantized_matmul_gemv": (4, 5120, 13824),
+            "quantized_matmul_mma": (736, 5120, 13824)}
+# the 13B attention cases: S = 4 sequences, 40 heads (MHA), D = 128, pages of
+# 128, block tables as wide as phase 6's max_context (4608 = 36 pages); the
+# 200-token row leaves splits empty at every split count
+Q_CTXS = [4264, 2000, 900, 200]
+Q_MB = 36
+
+
+def check_quant_kernels(dev, g, randn, record):
+    """K8, the int8 decode and chunk kernels, K7 at 2, 4 and 8 splits and
+    the split-K merge, each against its plain version at Llama-2-13B's
+    shapes; timed, with its bound (int8 values and f32 scales counted as
+    the bytes they are)."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.ragged_model import quantize_weight_int8
+    from deepspeed_tpu_torch.ops.kernels.kv_quant import (kv_quantize_rows,
+                                                          kv_write_dequant,
+                                                          scales_to_tiles)
+    from deepspeed_tpu_torch.ops.kernels.paged_chunk import (
+        paged_chunk_attention_batched, paged_chunk_attention_batched_plain)
+    from deepspeed_tpu_torch.ops.kernels.paged_decode import (
+        paged_decode_attention, paged_decode_attention_plain)
+    from deepspeed_tpu_torch.ops.kernels.paged_splitk import (
+        NEG_INF, merge_splitk_partials, splitk_attention, splitk_attention_plain,
+        splitk_merge)
+    from deepspeed_tpu_torch.ops.kernels.quantized_matmul import (
+        GEMV, GEMV_MAX_M, MMA, quantized_matmul, quantized_matmul_plain)
+
+    # ---- the int8 formats on the card: byte-equal to the CPU's (which the
+    # CPU tests hold byte-equal to the JAX package's), and re-quantizing the
+    # dequantized KV rows stores the same bytes ---- #
+    rows = torch.randn(8192, 128, generator=g, device=dev) \
+        * torch.rand(8192, 1, generator=g, device=dev) * 30
+    qg, sg = kv_quantize_rows(rows)
+    qc, sc_ = kv_quantize_rows(rows.cpu())
+    qr, sr = kv_quantize_rows(kv_write_dequant(rows))
+    w = torch.randn(5120, 1024, generator=g, device=dev) * 0.02
+    wg, wc = quantize_weight_int8(w), quantize_weight_int8(w.cpu())
+    fmt = {"kv_rows_equal_cpu": bool(torch.equal(qg.cpu(), qc) and torch.equal(sg.cpu(), sc_)),
+           "kv_requantize_idempotent": bool(torch.equal(qr, qg) and torch.equal(sr, sg)),
+           "weights_equal_cpu": all(torch.equal(wg[k].cpu(), wc[k]) for k in wg)}
+    print("int8 formats " + json.dumps(fmt), flush=True)
+    if not all(fmt.values()):
+        raise AssertionError(f"int8 formats differ on the card: {fmt}")
+    del rows, qg, sg, qc, sc_, qr, sr, w, wg, wc
+
+    # ---- K8 ---- #
+    for M, K, N in QMM_SHAPES:
+        a = randn(M, K)
+        w = torch.randn(K, N, generator=g, device=dev) * K ** -0.5
+        qd = quantize_weight_int8(w)
+        w8, sc = qd["w8"], qd["scale"]
+        wb = w.to(torch.bfloat16)
+        del w
+        out = quantized_matmul(a, w8, sc)
+        ref = quantized_matmul_plain(a, w8, sc)
+        torch.cuda.synchronize()
+        name = GEMV if M <= GEMV_MAX_M else MMA
+        b_ms, b_by = bound(K * N + 4 * N + 2 * M * K + 2 * M * N, 2 * M * K * N)
+        record(name, f"M={M} K={K} N={N}", err((out, ref)),
+               row=(M, K, N) == QMM_ROWS[name],
+               ms=time_ms(lambda: quantized_matmul(a, w8, sc)),
+               plain_ms=time_ms(lambda: quantized_matmul_plain(a, w8, sc), 5, 1),
+               library_ms=time_ms(lambda: torch.matmul(a, wb)),
+               library_covers="torch.matmul on the bf16 weight of the same shape "
+                              "(twice the weight bytes)",
+               bound_ms=b_ms, bound_by=b_by)
+        del w8, sc, wb
+
+    # ---- one int8 pool (and its bf16 twin) for the attention kernels ---- #
+    S, Hq, Hkv, D, bs = 4, 40, 40, 128, 128
+    NB = sum(-(-c // bs) for c in Q_CTXS) + 2
+    x = torch.randn(NB, 2, Hkv, bs, D, generator=g, device=dev)
+    q8, scl = kv_quantize_rows(x)
+    tiles = scales_to_tiles(scl).contiguous()
+    pool16 = x.to(torch.bfloat16)
+    del x, scl
+    bt = block_tables(Q_CTXS, bs, Q_MB, NB, dev)
+    ctx = torch.tensor(Q_CTXS, dtype=torch.int32, device=dev)
+    qd = randn(S, Hq, D)
+
+    def attn_bytes(toks, side_rows=0, extra=0):
+        """int8 K and V rows + their f32 scales + bf16 q and out + f32 side
+        rows, each once."""
+        return (toks * Hkv * (2 * D + 2 * 4) + 2 * qd.numel() * 2
+                + side_rows * Hkv * D * 2 * 4 + extra)
+
+    # ---- int8 decode: pages only (pass rows), one side row (the step),
+    # and four side rows at j = 2 (the side buffer) ---- #
+    def decode_int8(C, j, timed=False):
+        lens, side, kw = ctx, (), {}
+        if C:
+            lens = torch.clamp(ctx - 1, min=0)
+            side = tuple(kv_write_dequant(randn(S, C * Hkv, D)) for _ in range(2))
+            kw = {"j": j}
+        fn = lambda: paged_decode_attention(qd, q8, bt, lens, *side, kv_scales=tiles, **kw)
+        ref = paged_decode_attention_plain(qd, q8, bt, lens, *side, kv_scales=tiles, **kw)
+        out = fn()
+        torch.cuda.synchronize()
+        extra = {}
+        if timed:
+            toks = int(lens.sum())
+            b_ms, b_by = bound(attn_bytes(toks, S * (j + 1)),
+                               4 * D * Hq * (toks + S * (j + 1)))
+            extra = dict(ms=time_ms(fn), plain_ms=time_ms(lambda: paged_decode_attention_plain(
+                qd, q8, bt, lens, *side, kv_scales=tiles, **kw), 5, 1),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        record("paged_decode_int8", f"S={S} H={Hq} Hkv={Hkv} D={D} ctx={Q_CTXS} C={C} j={j}",
+               err((out, ref)), row=timed, **extra)
+
+    decode_int8(0, 0)
+    decode_int8(4, 2)
+    decode_int8(1, 0, timed=True)
+
+    # ---- int8 chunk: 4 slots x 128 rows at the end of each context ---- #
+    Cs = 128
+    qc = randn(S, Cs, Hq, D)
+    q0 = torch.clamp(ctx - Cs, min=0)
+    out = paged_chunk_attention_batched(qc, q8, bt, q0, ctx, kv_scales=tiles)
+    ref = paged_chunk_attention_batched_plain(qc, q8, bt, q0, ctx, kv_scales=tiles)
+    torch.cuda.synchronize()
+    vis = sum(min(c, q + r + 1) for c, q in zip(Q_CTXS, q0.tolist()) for r in range(Cs))
+    b_ms, b_by = bound(sum(Q_CTXS) * Hkv * (2 * D + 8) + 2 * qc.numel() * 2, 4 * D * Hq * vis)
+    record("paged_chunk_int8", f"{S}x{Cs} rows ctx={Q_CTXS} H={Hq} D={D}", err((out, ref)),
+           row=True, ms=time_ms(lambda: paged_chunk_attention_batched(
+               qc, q8, bt, q0, ctx, kv_scales=tiles)),
+           plain_ms=time_ms(lambda: paged_chunk_attention_batched_plain(
+               qc, q8, bt, q0, ctx, kv_scales=tiles), 5, 1),
+           library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+    # ---- K7 at 2, 4 and 8 splits: int8 with one f32 side row (the decode
+    # step, timed), int8 pages only (pass rows), bf16 pages only ---- #
+    lens1 = torch.clamp(ctx - 1, min=0)
+    side = tuple(kv_write_dequant(randn(S, Hkv, D)) for _ in range(2))
+    for n in (2, 4, 8):
+        name = f"paged_splitk/{n}"
+        fn = lambda: splitk_attention(qd, q8, bt, lens1, n, *side, kv_scales=tiles)
+        out = fn()
+        ref = splitk_attention_plain(qd, q8, bt, lens1, n, *side, kv_scales=tiles)
+        toks = int(lens1.sum())
+        partials = S * (n + 1) * Hq * (D + 1) * 4
+        b_ms, b_by = bound(attn_bytes(toks, S, extra=2 * partials), 4 * D * Hq * (toks + S))
+        record(name, f"S={S} H={Hq} D={D} ctx={Q_CTXS} int8 + 1 f32 side row", err((out, ref)),
+               row=True, ms=time_ms(fn),
+               plain_ms=time_ms(lambda: splitk_attention_plain(
+                   qd, q8, bt, lens1, n, *side, kv_scales=tiles), 5, 1),
+               library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        o, lse = splitk_attention(qd, q8, bt, ctx, n, kv_scales=tiles, with_lse=True)
+        o_ref, lse_ref = splitk_attention_plain(qd, q8, bt, ctx, n, kv_scales=tiles,
+                                                with_lse=True)
+        record(name, "int8 pages only, with lse", err((o, o_ref), (lse[..., None],
+                                                                   lse_ref[..., None])))
+        record(name, "bf16 pages only", err((
+            splitk_attention(qd, pool16, bt, ctx, n),
+            splitk_attention_plain(qd, pool16, bt, ctx, n))))
+
+    # ---- the split-K merge alone: 9 pieces (8 splits + the side piece),
+    # some empty, one row all empty ---- #
+    P = 9
+    out_p = torch.randn(S, P, Hq, D, generator=g, device=dev)
+    lse_p = torch.randn(S, P, Hq, generator=g, device=dev) * 4
+    lse_p[:, 5:8] = NEG_INF
+    lse_p[3, :] = NEG_INF
+    o, lse = splitk_merge(out_p, lse_p, torch.bfloat16, with_lse=True)
+    o_ref, lse_ref = merge_splitk_partials(out_p, lse_p)
+    torch.cuda.synchronize()
+    if float(o[3].float().abs().max()) != 0.0:
+        raise AssertionError("splitk_merge: an all-empty row is not zero")
+    b_ms, b_by = bound(out_p.numel() * 4 + lse_p.numel() * 4 + S * Hq * (D * 2 + 4),
+                       3 * out_p.numel())
+    record("splitk_merge", f"S={S} P={P} H={Hq} D={D}, 3 empty pieces, 1 empty row",
+           err((o, o_ref.to(torch.bfloat16)), (lse[:3, :, None], lse_ref[:3, :, None])),
+           row=True, ms=time_ms(lambda: splitk_merge(out_p, lse_p, torch.bfloat16)),
+           plain_ms=time_ms(lambda: merge_splitk_partials(out_p, lse_p), 5, 1),
+           library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
 # --------------------------------------------------------------------------- #
@@ -625,10 +834,271 @@ def run_training(steps: int = 10):
     return launches
 
 
-def device_breakdown(label: str, fn) -> None:
+# --------------------------------------------------------------------------- #
+# phase 6: memory-lean long-context serving of Llama-2-13B
+# --------------------------------------------------------------------------- #
+
+Q_KERNELS = ("quantized_matmul_gemv", "quantized_matmul_mma", "paged_decode_int8",
+             "paged_chunk_int8", "paged_splitk/2", "paged_splitk/4", "paged_splitk/8",
+             "splitk_merge")
+ENGINE_13B = {"quantization": {"weight_bits": 8}, "kv_quant": {"enabled": True},
+              "attention": {"decode_splits": 8, "min_ctx_per_split": 512},
+              "kv_cache": {"block_size": 128, "num_blocks": 96},
+              "state_manager": {"max_context": Q_MB * 128}, "seed": 0}
+
+
+def dense_quant_logits(engine, cfg, ids, rows, dt, n_full=0):
+    """What the engine computes, as a dense causal forward over one token
+    sequence ``ids`` [T]: every projection is ``_mm``'s function over the
+    engine's own int8 weights (f32 sum, column scale, result in ``dt``),
+    and attention reads K and V at the values the int8 pages store
+    (``kv_write_dequant``), except for the first ``n_full`` positions when
+    the sequence began in a prefill-from-zero pass of that many tokens:
+    that pass attends its own rows at full precision and only writes the
+    pages quantized (as the JAX engine does). Weights dequantize one matmul
+    at a time, so no f32 copy of the model exists. Returns f32 logits at
+    positions ``rows``."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.models.llama import apply_rope, rms_norm, rope_tables
+    from deepspeed_tpu_torch.ops.kernels.kv_quant import kv_write_dequant
+    from deepspeed_tpu_torch.ops.kernels.quantized_matmul import quantized_matmul_plain
+
+    def mm(x, w):
+        return quantized_matmul_plain(x, w["w8"], w["scale"])
+
+    W = engine.weights
+    H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    eps = cfg.rms_norm_eps
+    T = ids.shape[0]
+    cos, sin = rope_tables(torch.arange(T, device=ids.device), D, cfg.rope_theta)
+    causal = torch.ones(T, T, dtype=torch.bool, device=ids.device).tril()
+
+    def attend(q, k, v):
+        n = q.shape[0]
+        k, v = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+        s = torch.einsum("qhd,khd->hqk", q, k).float() * D ** -0.5
+        s.masked_fill_(~causal[:n, :n], torch.finfo(torch.float32).min)
+        p = torch.softmax(s, -1)
+        del s
+        return torch.einsum("hqk,khd->qhd", p.to(dt), v)
+
+    x = W["embed"][ids].to(dt)
+    for w in W["layers"]:
+        h = rms_norm(x, w["ln1"], eps, dt)
+        q = apply_rope(mm(h, w["wq"]).view(T, H, D), cos, sin)
+        k = apply_rope(mm(h, w["wk"]).view(T, Hkv, D), cos, sin)
+        v = mm(h, w["wv"]).view(T, Hkv, D)
+        o = attend(q, kv_write_dequant(k).to(dt), kv_write_dequant(v).to(dt))
+        if n_full:
+            o[:n_full] = attend(q[:n_full], k[:n_full], v[:n_full])
+        x = x + mm(o.reshape(T, H * D), w["wo"])
+        h = rms_norm(x, w["ln2"], eps, dt)
+        x = x + mm(F.silu(mm(h, w["w_gate"])) * mm(h, w["w_up"]), w["w_down"])
+    x = rms_norm(x[rows], W["final_norm"], eps, dt)
+    return mm(x, W["lm_head"]).float()
+
+
+def run_13b():
+    """Phase 6: Llama-2-13B at full width and depth, random bf16 weights from
+    seed 0, served with int8 weights, int8 KV pages and the split ladder up
+    to 8. Returns the main path's launch counts of the new kernels."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.v2.ragged.ragged_batch import to_device
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gib = lambda b: b / 2 ** 30
+    cfg = LlamaConfig.llama2_13b(dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    engine = InferenceEngineV2(model, ENGINE_13B, model.flat_params())
+    del model                     # the caller's bf16 tree: the engine keeps int8
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"model: Llama-2-13B (vocab {cfg.vocab_size}, hidden {cfg.hidden_size}, FFN "
+          f"{cfg.intermediate_size}, {cfg.num_hidden_layers} layers, "
+          f"{cfg.num_attention_heads} heads, head_dim {cfg.head_dim}), random bf16 weights "
+          f"(seed 0) quantized to int8 by the engine, int8 KV pool of "
+          f"{ENGINE_13B['kv_cache']['num_blocks']} pages, ladder {engine.attn_split_ladder}; "
+          f"build {time.perf_counter() - t0:.1f} s; memory after build "
+          f"{gib(torch.cuda.memory_allocated()):.2f} GiB, peak during build "
+          f"{gib(torch.cuda.max_memory_allocated()):.2f} GiB", flush=True)
+    V = cfg.vocab_size
+    rng = np.random.RandomState(13)
+    prompts = [rng.randint(0, V, n).astype(np.int32) for n in (4200, 2000, 900, 200)]
+    uids = [10, 11, 12, 13]
+
+    # ---- the main path ---- #
+    reset_launches()
+    engine.attn_stats.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_new_tokens=32)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    gen_rungs = dict(engine.attn_stats.rungs)
+    for p, o in zip(prompts, outs):
+        if len(o) != len(p) + 32 or list(o[:len(p)]) != list(p) \
+                or not all(0 <= t < V for t in o):
+            raise AssertionError("generate() returned a malformed stream")
+    # note each sequence's prefill-from-zero pass, whose rows attend each
+    # other at full precision (the dense check below follows it)
+    n_full = {}
+    complete = engine.scheduler.complete_pass
+
+    def noting(batch):
+        if batch.pure_prefill:
+            for u in batch.chunk_uids:
+                n_full.setdefault(u, engine.scheduler.seqs[u].in_flight_tokens)
+        return complete(batch)
+
+    engine.scheduler.complete_pass = noting
+    t0 = time.perf_counter()
+    got = [engine.put(uids, prompts)]                       # prefill logits
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    engine.scheduler.complete_pass = complete
+    pipe = engine.decode_pipeline(uids)
+    toks = []
+    for rung in engine.attn_split_ladder:                   # one step at each rung
+        engine.attn_rung_override = rung
+        toks.append(pipe.run(1)[:, 0])
+        engine._materialize(uids)
+        got.append(np.stack([engine._last_logits[u] for u in uids]))
+    engine.attn_rung_override = None
+    nxt = np.argmax(got[-1], axis=-1).astype(np.int32)
+    lg = engine.put(uids + [14], [nxt[i:i + 1] for i in range(4)]
+                    + [rng.randint(0, V, 300).astype(np.int32)])
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES.get(k, 0) for k in Q_KERNELS}
+    rungs = dict(engine.attn_stats.rungs)
+    toks.append(nxt)
+    got.append(lg[:4])
+    print("main-path launches " + json.dumps(launches), flush=True)
+    print("attn_stats rungs " + json.dumps({"generate": gen_rungs, "main_path": rungs}),
+          flush=True)
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    unserved = [r for r in engine.attn_split_ladder if not rungs.get(r)]
+    if unserved:
+        raise AssertionError(f"rungs that served no step: {unserved}")
+    if lg.shape != (5, V) or not np.isfinite(lg).all():
+        raise AssertionError("put() logits malformed")
+
+    # ---- logits against the dense fp32 forward, layer by layer ---- #
+    e_eng, e_dense, m_eng, m_dense = [], [], 0.0, 0.0
+    for i, p in enumerate(prompts):
+        seq = torch.from_numpy(np.concatenate([p] + [t[i:i + 1] for t in toks])).long().cuda()
+        rows = torch.arange(len(p) - 1, len(p) + len(toks), device="cuda")
+        nf = n_full.get(uids[i], 0)
+        ref32 = dense_quant_logits(engine, cfg, seq, rows, torch.float32, nf)
+        ref16 = dense_quant_logits(engine, cfg, seq, rows, torch.bfloat16, nf)
+        eng = torch.from_numpy(np.stack([g_[i] for g_ in got])).cuda()
+        if not torch.isfinite(eng).all():
+            raise AssertionError("engine logits are not finite")
+        d_eng, d_dense = eng - ref32, ref16 - ref32
+        e_eng.append(float(d_eng.pow(2).mean()))
+        e_dense.append(float(d_dense.pow(2).mean()))
+        m_eng = max(m_eng, float(d_eng.abs().max()))
+        m_dense = max(m_dense, float(d_dense.abs().max()))
+        del ref32, ref16
+    rms_eng, rms_dense = float(np.sqrt(np.mean(e_eng))), float(np.sqrt(np.mean(e_dense)))
+    limit = 2 * rms_dense
+    print(f"prefill-from-zero rows per prompt: {[n_full.get(u, 0) for u in uids]}",
+          flush=True)
+    print(f"logits vs dense fp32 over the int8 weights and pool values (prefill + "
+          f"{len(toks)} decode steps x 4 prompts): engine rms {rms_eng:.5f} max {m_eng:.4f}; "
+          f"dense bf16 rms {rms_dense:.5f} max {m_dense:.4f}; limit rms <= {limit:.5f}",
+          flush=True)
+    if not rms_eng <= limit:
+        raise AssertionError(f"engine logits error {rms_eng} > 2 x dense bf16 {rms_dense}")
+
+    # ---- rung invariance and quantize-on-write, on one live step ---- #
+    db = engine.scheduler.decode_batch(uids, 2, engine.scratch_block)
+    ids = engine._sample_device_padded(uids, False, 1.0, 0)
+    bt = to_device(db.block_tables, engine.device)
+    pos = to_device(db.positions, engine.device)
+    step = {}
+    for rung in reversed(engine.attn_split_ladder):         # rung 1 writes last
+        _, lg_r = engine._step_rungs[rung](engine.weights, engine.kv.kv, ids, pos, bt,
+                                           pos + 1, kv_scales=engine.kv.scales)
+        step[rung] = lg_r[:4].float()
+    diffs = {r: float((step[r] - step[1]).pow(2).mean().sqrt()) for r in step}
+    agree = {r: float((step[r].argmax(-1) == step[1].argmax(-1)).float().mean())
+             for r in step}
+    print("rung invariance " + json.dumps({"rms_vs_rung1": diffs, "limit": limit,
+                                           "greedy_agreement_vs_rung1": agree}), flush=True)
+    bad = {r: d for r, d in diffs.items() if not d <= limit}
+    if bad:
+        raise AssertionError(f"rungs {bad} differ from rung 1 by more than {limit}")
+    bs = engine.kv.config.block_size
+    p_ = db.positions[:4].astype(np.int64)
+    page = torch.from_numpy(db.block_tables[np.arange(4), p_ // bs].astype(np.int64)).cuda()
+    slot = torch.from_numpy(p_ % bs).cuda()
+
+    def written():
+        """Each sequence's slot at the step position: values [4, L, 2, Hkv,
+        D] and scales [4, L, 2 * Hkv] (flat tile index kv*Hkv*bs + h*bs + t)."""
+        kv = engine.kv.kv[:, page, :, :, slot]
+        L = engine.kv.scales.shape[0]
+        tiles = engine.kv.scales[:, page].transpose(0, 1).reshape(4, L, -1)
+        idx = torch.arange(2 * engine.spec.num_kv_heads, device="cuda")[None] * bs \
+            + slot[:, None]
+        return kv.clone(), tiles.gather(2, idx[:, None, :].expand(4, L, -1))
+
+    kv_step, sc_step = written()
+    engine.put(uids, [np.asarray(ids[i:i + 1].cpu().numpy(), np.int32) for i in range(4)])
+    kv_pass, sc_pass = written()
+    same0 = bool(torch.equal(kv_step[:, 0], kv_pass[:, 0])
+                 and torch.equal(sc_step[:, 0], sc_pass[:, 0]))
+    share = float((kv_step == kv_pass).float().mean())
+    print("quantize-on-write " + json.dumps({
+        "layer0_bytes_equal": same0, "all_layers_equal_byte_share": share}), flush=True)
+    if not same0:
+        raise AssertionError("the decode step and the ragged pass wrote different bytes "
+                             "for the same token at layer 0")
+
+    # ---- rates and where the time goes ---- #
+    pipe = engine.decode_pipeline(uids)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.run(16)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    n_prompt = sum(len(p) for p in prompts)
+    print(f"generate() 4 prompts x 32 tokens in {t_gen:.2f} s; prefill {n_prompt} tokens in "
+          f"{t_prefill * 1e3:.1f} ms = {n_prompt / t_prefill:.1f} tok/s; decode 4 x 16 tokens "
+          f"at rung {engine._attn_rung()} in {t_decode * 1e3:.1f} ms = "
+          f"{64 / t_decode:.1f} tok/s ({t_decode / 16 * 1e3:.2f} ms/step)", flush=True)
+    device_breakdown("13B decode step (4 seqs, int8, rung 8)", lambda: pipe.run(1), Q_NAMES)
+    engine.flush(uids + [14])
+    device_breakdown("13B prefill pass (736 tokens, int8)", lambda: engine.put(
+        [20], [rng.randint(0, V, 736).astype(np.int32)]), Q_NAMES)
+    engine.flush([20])
+    print(f"phase 6: peak device memory {gib(torch.cuda.max_memory_allocated()):.2f} GiB; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+ATTN_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "flash_fwd", "flash_bwd_dq",
+              "flash_bwd_dkv")
+Q_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk", "splitk_merge",
+           "qmm_gemv", "qmm_mma")
+
+
+def device_breakdown(label: str, fn, names=ATTN_NAMES) -> None:
     """Run ``fn`` once under the CUDA-only profiler; print wall time, summed
-    device kernel time, the device busy share, the port's attention
-    kernels' time and the six largest kernels."""
+    device kernel time, the device busy share, the time of the port's
+    kernels ``names`` (matched as ``<name>_kernel``) and the six largest
+    kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -645,14 +1115,13 @@ def device_breakdown(label: str, fn) -> None:
                 us = e.self_cuda_time_total
             dev[e.key] = us / 1e3
     busy = sum(dev.values())
-    ours = {n: sum(v for k, v in dev.items() if f"{n}_kernel" in k)
-            for n in ("flash_packed", "paged_chunk", "paged_decode") + K1_NAMES}
+    ours = {n: sum(v for k, v in dev.items() if f"{n}_kernel" in k) for n in names}
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
     print("profile " + json.dumps({
         "phase": label, "wall_ms": wall,
         "device_ms": busy if busy else "not measured",
         "device_busy_share": busy / wall if busy else "not measured",
-        "attention_kernels_ms": ours,
+        "port_kernels_ms": ours,
         "top_kernels_ms": [[k[:80], v] for k, v in top]}), flush=True)
 
 
@@ -674,12 +1143,24 @@ def main() -> int:
     launches = run_slice()
     torch.cuda.empty_cache()
     launches.update({k: v for k, v in run_training().items() if k in K1_NAMES})
+    torch.cuda.empty_cache()
+    launches.update(run_13b())
+    # modules by full name: the package re-exports same-named functions
+    from deepspeed_tpu_torch.ops.kernels import paged_chunk, paged_decode, paged_splitk
     from deepspeed_tpu_torch.ops.kernels.flash_attention import KERNELS
+    qmm = sys.modules["deepspeed_tpu_torch.ops.kernels.quantized_matmul"]
     sources = {}
     for mod in ("flash_packed", "paged_chunk", "paged_decode"):
         m = __import__(f"deepspeed_tpu_torch.ops.kernels.{mod}", fromlist=["x"])
         sources[mod] = (m.SOURCE, m.REPLACES)
     sources.update(KERNELS)
+    sources.update({
+        qmm.GEMV: (qmm.SOURCE, qmm.REPLACES), qmm.MMA: (qmm.SOURCE, qmm.REPLACES),
+        paged_decode.NAME_INT8: (paged_decode.SOURCE, paged_decode.REPLACES_INT8),
+        paged_chunk.NAME_INT8: (paged_chunk.SOURCE, paged_chunk.REPLACES_INT8),
+        **{paged_splitk.kernel_name(n): (paged_splitk.SOURCE, paged_splitk.REPLACES)
+           for n in (2, 4, 8)},
+        paged_splitk.MERGE: (paged_splitk.SOURCE, paged_splitk.REPLACES_MERGE)})
     table = []
     for name, (source, replaces) in sources.items():
         r = rows[name]

@@ -19,11 +19,15 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.utils.device import resolve_device
+
 
 def params_from_flat(flat: Mapping[str, np.ndarray], device=None,
                      dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
-    """Flat numpy tree -> flat torch tree on ``device`` (default CPU),
+    """Flat numpy tree -> flat torch tree on ``device`` (default: the CUDA
+    device, raising where there is none, as every entry point of the port),
     optionally cast to ``dtype``."""
+    device = resolve_device(device)
     out = {}
     for name, arr in flat.items():
         arr = np.ascontiguousarray(arr)
@@ -33,7 +37,7 @@ def params_from_flat(flat: Mapping[str, np.ndarray], device=None,
             t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
-        t = t.to(device=device if device is not None else "cpu")
+        t = t.to(device=device)
         if dtype is not None:
             t = t.to(dtype)
         out[name] = t

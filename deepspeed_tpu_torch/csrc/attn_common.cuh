@@ -19,11 +19,20 @@
 // number of 32-bit words), so the 16 threads reading 16 different K rows at
 // the same depth hit 16 different banks. V (read row-broadcast) and P keep
 // dense rows (P padded by one float).
+//
+// int8 pages (kv_row returns a KVRowPtrI8): K and V tiles stay int8 in
+// shared memory (K rows padded to D + 4 bytes, again an odd word count)
+// with each key's f32 K and V scales beside them. The K scale multiplies
+// the key's score column and the V scale its p column before P.V (the
+// fold of the JAX package's _colscale_pages / _chunk_head_scale), so no
+// dequantized tile is stored and the arithmetic stays f32.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace dstorch {
 
@@ -62,15 +71,25 @@ struct KVRowPtr {
   const bf16* v;
 };
 
-template <int D>
+// a key of an int8 page: its K and V rows and their dequant scales
+struct KVRowPtrI8 {
+  const int8_t* k;
+  const int8_t* v;
+  float ks, vs;
+};
+
+template <int D, bool I8 = false>
 struct FlashSmem {
   static constexpr int QS = D + 2;   // padded Q/K row, in bf16
+  static constexpr int KS8 = D + 4;  // padded int8 K row, in bytes
   static constexpr int PS = kBK + 1; // padded P row, in floats
   static constexpr size_t q_bytes = (size_t)kBQ * QS * sizeof(bf16);
-  static constexpr size_t k_bytes = (size_t)kBK * QS * sizeof(bf16);
-  static constexpr size_t v_bytes = (size_t)kBK * D * sizeof(bf16);
+  static constexpr size_t k_bytes =
+      I8 ? (size_t)kBK * KS8 : (size_t)kBK * QS * sizeof(bf16);
+  static constexpr size_t v_bytes = (size_t)kBK * D * (I8 ? 1 : sizeof(bf16));
   static constexpr size_t p_bytes = (size_t)kBQ * PS * sizeof(float);
-  static constexpr size_t bytes = q_bytes + k_bytes + v_bytes + p_bytes;
+  static constexpr size_t s_bytes = I8 ? 2 * kBK * sizeof(float) : 0;
+  static constexpr size_t bytes = q_bytes + k_bytes + v_bytes + p_bytes + s_bytes;
 };
 
 // q row r (r < n_q) starts at q_rows + r * row_stride, likewise the output.
@@ -87,13 +106,20 @@ __device__ __forceinline__ void flash_block(const bf16* __restrict__ q_rows,
                                             float scale, char* smem,
                                             float* __restrict__ lse_rows = nullptr) {
   static_assert(D % 16 == 0 && D <= 256, "head dim must be a multiple of 16, <= 256");
-  using S = FlashSmem<D>;
+  constexpr bool I8 = std::is_same<decltype(kv_row(0)), KVRowPtrI8>::value;
+  using S = FlashSmem<D, I8>;
   constexpr int CH = D / 8;   // 16-byte chunks per row
   constexpr int ND = D / 16;  // output dims per thread
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = reinterpret_cast<bf16*>(smem + S::q_bytes);
   bf16* Vs = reinterpret_cast<bf16*>(smem + S::q_bytes + S::k_bytes);
   float* Ps = reinterpret_cast<float*>(smem + S::q_bytes + S::k_bytes + S::v_bytes);
+  // int8 views of the K/V tiles and the keys' scales (unused for bf16)
+  int8_t* Ks8 = reinterpret_cast<int8_t*>(smem + S::q_bytes);
+  int8_t* Vs8 = reinterpret_cast<int8_t*>(smem + S::q_bytes + S::k_bytes);
+  float* Kscl = reinterpret_cast<float*>(smem + S::q_bytes + S::k_bytes + S::v_bytes +
+                                         S::p_bytes);
+  float* Vscl = Kscl + kBK;
 
   const int tid = threadIdx.x;
   const int ty = tid >> 4;
@@ -118,17 +144,40 @@ __device__ __forceinline__ void flash_block(const bf16* __restrict__ q_rows,
 
   for (int k0 = 0; k0 < n_keys; k0 += kBK) {
     __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < kBK * CH; i += kTileThreads) {
-      const int kk = i / CH, c = i - (i / CH) * CH;
-      const int key = k0 + kk;
-      uint4 uk = zero, uv = zero;
-      if (key < n_keys) {
-        const KVRowPtr p = kv_row(key);
-        uk = load16(p.k + c * 8);
-        uv = load16(p.v + c * 8);
+    if constexpr (I8) {
+      constexpr int CH8 = D / 16;  // 16-byte chunks per int8 row
+      for (int i = tid; i < kBK * CH8; i += kTileThreads) {
+        const int kk = i / CH8, c = i - (i / CH8) * CH8;
+        const int key = k0 + kk;
+        uint4 uk = zero, uv = zero;
+        float ks = 0.f, vs = 0.f;
+        if (key < n_keys) {
+          const KVRowPtrI8 p = kv_row(key);
+          uk = *reinterpret_cast<const uint4*>(p.k + c * 16);
+          uv = *reinterpret_cast<const uint4*>(p.v + c * 16);
+          ks = p.ks;
+          vs = p.vs;
+        }
+        store8_words(reinterpret_cast<bf16*>(Ks8 + kk * S::KS8 + c * 16), uk);
+        *reinterpret_cast<uint4*>(Vs8 + kk * D + c * 16) = uv;
+        if (c == 0) {
+          Kscl[kk] = ks;
+          Vscl[kk] = vs;
+        }
       }
-      store8_words(Ks + kk * S::QS + c * 8, uk);
-      *reinterpret_cast<uint4*>(Vs + kk * D + c * 8) = uv;
+    } else {
+      for (int i = tid; i < kBK * CH; i += kTileThreads) {
+        const int kk = i / CH, c = i - (i / CH) * CH;
+        const int key = k0 + kk;
+        uint4 uk = zero, uv = zero;
+        if (key < n_keys) {
+          const KVRowPtr p = kv_row(key);
+          uk = load16(p.k + c * 8);
+          uv = load16(p.v + c * 8);
+        }
+        store8_words(Ks + kk * S::QS + c * 8, uk);
+        *reinterpret_cast<uint4*>(Vs + kk * D + c * 8) = uv;
+      }
     }
     __syncthreads();
 
@@ -137,22 +186,57 @@ __device__ __forceinline__ void flash_block(const bf16* __restrict__ q_rows,
     for (int r = 0; r < 4; ++r)
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
+    if constexpr (I8) {
+#pragma unroll 2
+      for (int d = 0; d < D; d += 4) {
+        float2 qa[4], qb[4];
+        float kf[4][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const bf16* qr = Qs + (ty * 4 + r) * S::QS + d;
+          qa[r] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qr));
+          qb[r] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qr + 2));
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const char4 k4 =
+              *reinterpret_cast<const char4*>(Ks8 + (tx + 16 * c) * S::KS8 + d);
+          kf[c][0] = (float)k4.x;
+          kf[c][1] = (float)k4.y;
+          kf[c][2] = (float)k4.z;
+          kf[c][3] = (float)k4.w;
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            s[r][c] = fmaf(qb[r].y, kf[c][3], fmaf(qb[r].x, kf[c][2],
+                      fmaf(qa[r].y, kf[c][1], fmaf(qa[r].x, kf[c][0], s[r][c]))));
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float ks = Kscl[tx + 16 * c];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) s[r][c] *= ks;
+      }
+    } else {
 #pragma unroll 4
-    for (int d = 0; d < D; d += 2) {
-      float2 qv[4], kv[4];
+      for (int d = 0; d < D; d += 2) {
+        float2 qv[4], kv[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        qv[r] = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(Qs + (ty * 4 + r) * S::QS + d));
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        kv[c] = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(Ks + (tx + 16 * c) * S::QS + d));
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
+        for (int r = 0; r < 4; ++r)
+          qv[r] = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(Qs + (ty * 4 + r) * S::QS + d));
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          s[r][c] = fmaf(qv[r].y, kv[c].y, fmaf(qv[r].x, kv[c].x, s[r][c]));
+          kv[c] = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(Ks + (tx + 16 * c) * S::QS + d));
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            s[r][c] = fmaf(qv[r].y, kv[c].y, fmaf(qv[r].x, kv[c].x, s[r][c]));
+      }
     }
 
 #pragma unroll
@@ -176,7 +260,8 @@ __device__ __forceinline__ void flash_block(const bf16* __restrict__ q_rows,
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const float p = ok[c] ? __expf(s[r][c] - m_new) : 0.f;
-        Ps[row * S::PS + tx + 16 * c] = p;
+        // int8: the V scale folds into the p column (l sums the bare p)
+        Ps[row * S::PS + tx + 16 * c] = I8 ? p * Vscl[tx + 16 * c] : p;
         sum += p;
       }
 #pragma unroll
@@ -196,7 +281,8 @@ __device__ __forceinline__ void flash_block(const bf16* __restrict__ q_rows,
       for (int r = 0; r < 4; ++r) pr[r] = Ps[(ty * 4 + r) * S::PS + kk];
 #pragma unroll
       for (int n = 0; n < ND; ++n) {
-        const float vv = __bfloat162float(Vs[kk * D + tx + 16 * n]);
+        const float vv = I8 ? (float)Vs8[kk * D + tx + 16 * n]
+                            : __bfloat162float(Vs[kk * D + tx + 16 * n]);
 #pragma unroll
         for (int r = 0; r < 4; ++r) o[r][n] = fmaf(pr[r], vv, o[r][n]);
       }

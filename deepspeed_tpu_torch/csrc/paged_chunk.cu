@@ -22,16 +22,24 @@
 // table while staging a 64-key tile, so tiles may straddle pages. f32 FMAs
 // on CUDA cores make it compute-limited far above either bound; tensor-core
 // tiles over all of a kv head's query heads are the next step.
+//
+// int8 pages (the kv_quant pool; replaces _chunk_kernel_batched_quant,
+// :1528): the same loop over int8 pages and their f32 scale tiles
+// [NB, R8, 128] (flat index kv*Hkv*bs + h*bs + t per page). Each key's K
+// scale multiplies its score column and its V scale its p column
+// (_chunk_head_scale, :1422), in f32. Half the page bytes of bf16.
 #include "attn_common.cuh"
 
 namespace dstorch {
 
-template <int D>
+// KV = bf16 (pages) or int8_t (pages + scale tiles `sc`, R8 rows per page)
+template <int D, typename KV>
 __global__ void __launch_bounds__(kTileThreads)
-paged_chunk_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
-                   const int* __restrict__ bt, const int* __restrict__ q_starts,
-                   const int* __restrict__ ctx_lens, bf16* __restrict__ out, int Cs,
-                   int H, int Hkv, int bs, int MB, float scale) {
+paged_chunk_kernel(const bf16* __restrict__ q, const KV* __restrict__ kv,
+                   const float* __restrict__ sc, int r8, const int* __restrict__ bt,
+                   const int* __restrict__ q_starts, const int* __restrict__ ctx_lens,
+                   bf16* __restrict__ out, int Cs, int H, int Hkv, int bs, int MB,
+                   float scale) {
   extern __shared__ __align__(16) char smem[];
   const int sl = blockIdx.x, qb = blockIdx.y, h = blockIdx.z;
   const int hk = h / (H / Hkv);
@@ -45,32 +53,53 @@ paged_chunk_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
   auto kv_row = [=](int key) {
     const int pi = key / bs;
     const int slot = key - pi * bs;
-    const bf16* page = kv + (size_t)__ldg(btr + pi) * page_elems;
-    KVRowPtr p;
-    p.k = page + ((size_t)hk * bs + slot) * D;
-    p.v = page + ((size_t)(Hkv + hk) * bs + slot) * D;
-    return p;
+    const int pg = __ldg(btr + pi);
+    const KV* page = kv + (size_t)pg * page_elems;
+    if constexpr (std::is_same<KV, int8_t>::value) {
+      const float* ps = sc + (size_t)pg * r8 * 128;
+      KVRowPtrI8 p;
+      p.k = page + ((size_t)hk * bs + slot) * D;
+      p.v = page + ((size_t)(Hkv + hk) * bs + slot) * D;
+      p.ks = __ldg(ps + hk * bs + slot);
+      p.vs = __ldg(ps + (Hkv + hk) * bs + slot);
+      return p;
+    } else {
+      KVRowPtr p;
+      p.k = page + ((size_t)hk * bs + slot) * D;
+      p.v = page + ((size_t)(Hkv + hk) * bs + slot) * D;
+      return p;
+    }
   };
   auto mask = [=](int row, int key) { return key <= q0 + r0 + row; };
   const size_t off = (((size_t)sl * Cs + r0) * H + h) * D;
   flash_block<D>(q + off, out + off, H * D, n_q, n_keys, kv_row, mask, scale, smem);
 }
 
-template <int D>
-int launch_paged_chunk(const void* q, const void* kv, const void* bt, const void* q_starts,
-                       const void* ctx_lens, void* out, int NC, int Cs, int H, int Hkv,
-                       int bs, int MB, float scale, cudaStream_t stream) {
-  const size_t smem = FlashSmem<D>::bytes;
+template <int D, typename KV>
+int launch_paged_chunk(const void* q, const void* kv, const void* sc, int r8,
+                       const void* bt, const void* q_starts, const void* ctx_lens,
+                       void* out, int NC, int Cs, int H, int Hkv, int bs, int MB,
+                       float scale, cudaStream_t stream) {
+  const size_t smem = FlashSmem<D, std::is_same<KV, int8_t>::value>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      paged_chunk_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      paged_chunk_kernel<D, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(NC, (Cs + kBQ - 1) / kBQ, H);
-  paged_chunk_kernel<D><<<grid, kTileThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(kv),
-      static_cast<const int*>(bt), static_cast<const int*>(q_starts),
-      static_cast<const int*>(ctx_lens), static_cast<bf16*>(out), Cs, H, Hkv, bs, MB,
-      scale);
+  paged_chunk_kernel<D, KV><<<grid, kTileThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const KV*>(kv),
+      static_cast<const float*>(sc), r8, static_cast<const int*>(bt),
+      static_cast<const int*>(q_starts), static_cast<const int*>(ctx_lens),
+      static_cast<bf16*>(out), Cs, H, Hkv, bs, MB, scale);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_paged_chunk_bf16(const void* q, const void* kv, const void* bt,
+                            const void* q_starts, const void* ctx_lens, void* out, int NC,
+                            int Cs, int H, int Hkv, int bs, int MB, float scale,
+                            cudaStream_t stream) {
+  return launch_paged_chunk<D, bf16>(q, kv, nullptr, 0, bt, q_starts, ctx_lens, out, NC,
+                                     Cs, H, Hkv, bs, MB, scale, stream);
 }
 
 }  // namespace dstorch
@@ -85,6 +114,28 @@ extern "C" int dstorch_paged_chunk_bf16(const void* q, const void* kv, const voi
                                         int bs, int MB, float scale, void* stream) {
   if (NC == 0 || Cs == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  DSTORCH_DISPATCH_D(D, dstorch::launch_paged_chunk, q, kv, bt, q_starts, ctx_lens, out,
-                     NC, Cs, H, Hkv, bs, MB, scale, st)
+  DSTORCH_DISPATCH_D(D, dstorch::launch_paged_chunk_bf16, q, kv, bt, q_starts, ctx_lens,
+                     out, NC, Cs, H, Hkv, bs, MB, scale, st)
+}
+
+// The same over int8 pages kv [NB, 2, Hkv, bs, D] with f32 scale tiles
+// sc [NB, R8, 128]. Head dims 128 and 256 (the kv_quant gate asks
+// D % 128 == 0); -1 for any other.
+extern "C" int dstorch_paged_chunk_int8(const void* q, const void* kv, const void* sc,
+                                        const void* bt, const void* q_starts,
+                                        const void* ctx_lens, void* out, int NC, int Cs,
+                                        int H, int Hkv, int D, int bs, int MB, int r8,
+                                        float scale, void* stream) {
+  if (NC == 0 || Cs == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 128:
+      return dstorch::launch_paged_chunk<128, int8_t>(q, kv, sc, r8, bt, q_starts, ctx_lens,
+                                                      out, NC, Cs, H, Hkv, bs, MB, scale, st);
+    case 256:
+      return dstorch::launch_paged_chunk<256, int8_t>(q, kv, sc, r8, bt, q_starts, ctx_lens,
+                                                      out, NC, Cs, H, Hkv, bs, MB, scale, st);
+    default:
+      return -1;
+  }
 }

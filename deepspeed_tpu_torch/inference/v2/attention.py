@@ -8,33 +8,56 @@
   - ``decode`` -> the paged decode kernel with pages only;
   - ``sidebuf`` / ``decode_step`` -> the same decode kernel with side rows.
 
+Two things key the kernel at the call or at construction:
+
+  - the pool: every paged method takes ``kv_scales`` (None for a bf16/f32
+    pool; the scale tiles ``[NB, R8, 128]`` of an int8 pool, which routes to
+    the kernel's int8 variant);
+  - the split rung ``n_splits`` (bound once, one spec per rung): above 1,
+    decode and side-buffer attention run the split-K kernel (K7,
+    ``ops/kernels/paged_splitk``) and chunk attention its split path.
+
+int8 write semantics: every path attends a token at the value its int8
+page stores. The ragged pass writes then attends; the decode step attends
+the current token from a side row and writes it after, so its caller hands
+it the ``kv_write_dequant`` rows (f32), whose re-quantization stores the
+same page bytes.
+
 :meth:`AttentionKernelSpec.validate_engine_build` is the build-time
 capability table: it refuses, by name, every model feature the port's
-kernels do not carry yet.
+kernels do not carry yet, and holds the int8 pool's alignment gate.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 from deepspeed_tpu_torch.ops.kernels import (flash_attention_packed,
                                              paged_chunk_attention_batched,
                                              paged_decode_attention)
+from deepspeed_tpu_torch.ops.kernels.kv_quant import (kv_quantize_rows,
+                                                      scale_write_index)
+from deepspeed_tpu_torch.ops.kernels.paged_splitk import (
+    paged_chunk_attention_splitk, paged_decode_attention_splitk,
+    paged_sidebuf_attention_splitk)
 
 
 class AttentionKernelSpec:
-    """Kernel dispatch for one model spec. Every method takes one layer's
-    pool view ``kv_l`` [NB, 2, Hkv, bs, D]."""
+    """Kernel dispatch for one model spec at one split rung. Every paged
+    method takes one layer's pool view ``kv_l`` [NB, 2, Hkv, bs, D] and, for
+    an int8 pool, that layer's scale tiles ``kv_scales`` [NB, R8, 128]."""
 
-    def __init__(self, spec: Any):
+    def __init__(self, spec: Any, n_splits: int = 1):
         self.spec = spec
+        self.n_splits = int(n_splits)
 
     @staticmethod
     def validate_engine_build(spec: Any, cfg: Any) -> None:
         """Raise ``NotImplementedError`` for every model feature the slice
-        lacks (engine-config features are refused by the config itself)."""
+        lacks (engine-config features are refused by the config itself),
+        and ``ValueError`` where an int8 pool's alignment does not hold."""
         off = []
         if spec.window is not None:
             off.append("a sliding window")
@@ -47,43 +70,74 @@ class AttentionKernelSpec:
         if off:
             raise NotImplementedError(
                 f"{', '.join(off)}: not ported to deepspeed_tpu_torch yet")
+        if cfg.kv_quant.enabled and (
+                spec.head_dim % 128 != 0
+                or (spec.num_kv_heads * cfg.kv_cache.block_size) % 128 != 0):
+            raise ValueError(
+                "kv_quant needs head_dim % 128 == 0 and "
+                "num_kv_heads * block_size % 128 == 0 (the kernels' "
+                "scale-tile lane alignment; got head_dim="
+                f"{spec.head_dim}, num_kv_heads={spec.num_kv_heads}, "
+                f"block_size={cfg.kv_cache.block_size})")
 
     def packed(self, q, k, v, seg):
         """Packed segment-masked prefill attention over the pass's own rows
         (no paged reads)."""
         return flash_attention_packed(q, k, v, seg)
 
-    def chunk(self, q, kv_l, block_tables, q_starts, ctx_lens):
+    def chunk(self, q, kv_l, block_tables, q_starts, ctx_lens,
+              kv_scales: Optional[torch.Tensor] = None):
         """Batched prompt-chunk attention: one slot per chunk, causal by
         absolute position."""
+        if self.n_splits > 1:
+            return paged_chunk_attention_splitk(q, kv_l, block_tables, q_starts,
+                                                ctx_lens, kv_scales=kv_scales,
+                                                n_splits=self.n_splits)
         return paged_chunk_attention_batched(q, kv_l, block_tables, q_starts,
-                                             ctx_lens)
+                                             ctx_lens, kv_scales=kv_scales)
 
-    def decode(self, q, kv_l, block_tables, ctx_lens):
+    def decode(self, q, kv_l, block_tables, ctx_lens,
+               kv_scales: Optional[torch.Tensor] = None):
         """One query per sequence over the ``ctx_lens`` tokens in its
         pages."""
-        return paged_decode_attention(q, kv_l, block_tables, ctx_lens)
+        if self.n_splits > 1:
+            return paged_decode_attention_splitk(q, kv_l, block_tables, ctx_lens,
+                                                 kv_scales=kv_scales,
+                                                 n_splits=self.n_splits)
+        return paged_decode_attention(q, kv_l, block_tables, ctx_lens,
+                                      kv_scales=kv_scales)
 
-    def sidebuf(self, q, kv_l, block_tables, prefix_lens, side_k, side_v, j):
+    def sidebuf(self, q, kv_l, block_tables, prefix_lens, side_k, side_v, j,
+                kv_scales: Optional[torch.Tensor] = None):
         """Frozen prefix in pages plus side rows ``cc <= j`` of the slab
-        ``[S, C * Hkv, D]``."""
+        ``[S, C * Hkv, D]`` (f32 ``kv_write_dequant`` rows for an int8
+        pool)."""
+        if self.n_splits > 1:
+            return paged_sidebuf_attention_splitk(
+                q, kv_l, block_tables, prefix_lens, side_k, side_v, j,
+                kv_scales=kv_scales, n_splits=self.n_splits)
         return paged_decode_attention(q, kv_l, block_tables, prefix_lens,
-                                      side_k, side_v, j)
+                                      side_k, side_v, j, kv_scales=kv_scales)
 
-    def decode_step(self, q, k_new, v_new, kv_l, block_tables, ctx_lens):
+    def decode_step(self, q, k_new, v_new, kv_l, block_tables, ctx_lens,
+                    kv_scales: Optional[torch.Tensor] = None):
         """Decode step: attend pages ``[0, ctx - 1)`` plus the current token
         as one side row, then write the current token's K/V into its page at
         position ``ctx - 1`` (in place). Every row needs ``ctx >= 1`` (the
-        decode batch pads with ctx 1 rows on the scratch page)."""
-        out = self.sidebuf(q, kv_l, block_tables, ctx_lens - 1, k_new, v_new, 0)
-        write_token_rows(kv_l, k_new, v_new, block_tables, ctx_lens - 1)
+        decode batch pads with ctx 1 rows on the scratch page). For an int8
+        pool, ``k_new``/``v_new`` are the ``kv_write_dequant`` rows."""
+        out = self.sidebuf(q, kv_l, block_tables, ctx_lens - 1, k_new, v_new, 0,
+                           kv_scales=kv_scales)
+        write_token_rows(kv_l, k_new, v_new, block_tables, ctx_lens - 1, kv_scales)
         return out
 
 
 def write_token_rows(kv_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     block_tables: torch.Tensor, pos: torch.Tensor) -> None:
+                     block_tables: torch.Tensor, pos: torch.Tensor,
+                     kv_scales: Optional[torch.Tensor] = None) -> None:
     """Write each row's K/V [S, Hkv, D] at position ``pos`` [S] (>= 0) of its
-    sequence, through its block table, into the pool view ``kv_l``."""
+    sequence, through its block table, into the pool view ``kv_l``; an int8
+    pool (``kv_scales``) stores the rows quantized and their scales."""
     NB, _, Hkv, bs, D = kv_l.shape
     pos = pos.long()
     page = block_tables.long().gather(1, (pos // bs)[:, None])[:, 0]
@@ -91,5 +145,10 @@ def write_token_rows(kv_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     h = torch.arange(Hkv, device=kv_l.device) * bs
     rows = torch.cat([(base[:, None] + h).reshape(-1),
                       (base[:, None] + Hkv * bs + h).reshape(-1)])
-    new = torch.cat([k.reshape(-1, D), v.reshape(-1, D)]).to(kv_l.dtype)
-    kv_l.view(-1, D).index_copy_(0, rows, new)
+    new = torch.cat([k.reshape(-1, D), v.reshape(-1, D)])
+    if kv_scales is None:
+        kv_l.view(-1, D).index_copy_(0, rows, new.to(kv_l.dtype))
+        return
+    q8, s = kv_quantize_rows(new)
+    kv_l.view(-1, D).index_copy_(0, rows, q8)
+    kv_scales.view(-1).index_copy_(0, scale_write_index(rows, Hkv, bs), s)

@@ -2,12 +2,14 @@
 
 Same keys and defaults as the JAX package's ``RaggedInferenceEngineConfig``:
 the state manager (tracked-sequence capacity, ragged token budget), KV pool
-sizing, and the feature sections. Sections whose feature the port does not
-carry yet (``kv_quant``, ``spec_decode``, ``prefix_cache``, ``lora``,
-``attention.decode_splits > 1``, ``quantization.weight_bits``,
-``tensor_parallel > 1``, a non-empty ``serving`` section) parse with their
-usual keys and raise ``NotImplementedError`` naming the feature when it is
-switched on.
+sizing, and the feature sections, with the JAX package's validation
+messages. Carried: int8 weights (``quantization.weight_bits = 8``), int8 KV
+pages (``kv_quant``) and the flash-decoding split ladder
+(``attention.decode_splits``). Sections whose feature the port does not
+carry yet (``spec_decode``, ``prefix_cache``, ``lora``,
+``quantization.weight_bits = 4``, ``tensor_parallel > 1``, a non-empty
+``serving`` section) parse with their usual keys and raise
+``NotImplementedError`` naming the feature when it is switched on.
 
 The ``compile`` section configures XLA's compile cache and AOT warmup in the
 JAX package. PyTorch runs eagerly here, so it has no counterpart yet: it is
@@ -58,13 +60,27 @@ class KVCacheSizingConfig:
 
 @dataclass
 class QuantizationConfig:
+    """Weight-only quantization of the serving weights: 8 stores every
+    projection and the LM head int8 with per-output-column f32 scales."""
     weight_bits: Optional[int] = None
+
+    def __post_init__(self):
+        if self.weight_bits not in (None, 4, 8):
+            raise ValueError("quantization.weight_bits must be None, 4 or 8, "
+                             f"got {self.weight_bits!r}")
 
 
 @dataclass
 class KVQuantConfig:
+    """int8 KV pages with one f32 scale per (token, kv head) row. Needs
+    head_dim % 128 == 0 and num_kv_heads * block_size % 128 == 0 (checked
+    at engine build)."""
     enabled: bool = False
     bits: int = 8
+
+    def __post_init__(self):
+        if self.bits != 8:
+            raise ValueError(f"kv_quant.bits must be 8, got {self.bits!r}")
 
 
 @dataclass
@@ -104,8 +120,21 @@ class LoraConfig:
 
 @dataclass
 class AttentionConfig:
+    """Flash-decoding split ladder: paged attention runs at a pow2 rung of
+    ``[1, 2, ..., decode_splits]`` picked each step as
+    ``min(decode_splits, pow2_floor(max_live_ctx / min_ctx_per_split))``."""
     decode_splits: int = 1
     min_ctx_per_split: int = 512
+
+    def __post_init__(self):
+        if self.decode_splits < 1 or (
+                self.decode_splits & (self.decode_splits - 1)) != 0:
+            raise ValueError(
+                "attention.decode_splits must be a power of two >= 1 (the "
+                f"warmed pow2 split ladder), got {self.decode_splits}")
+        if self.min_ctx_per_split < 1:
+            raise ValueError("attention.min_ctx_per_split must be >= 1, "
+                             f"got {self.min_ctx_per_split}")
 
 
 _SECTIONS = {
@@ -146,18 +175,14 @@ class RaggedInferenceEngineConfig:
     def check_slice(self) -> None:
         """Refuse every feature the port does not carry yet, by name."""
         off = []
-        if self.kv_quant.enabled:
-            off.append("kv_quant")
         if self.spec_decode.enabled:
             off.append("spec_decode")
         if self.prefix_cache.enabled:
             off.append("prefix_cache")
         if self.lora.enabled:
             off.append("lora")
-        if self.attention.decode_splits > 1:
-            off.append("attention.decode_splits > 1")
-        if self.quantization.weight_bits is not None:
-            off.append("quantization.weight_bits")
+        if self.quantization.weight_bits == 4:
+            off.append("quantization.weight_bits = 4 (packed int4)")
         if self.tensor_parallel > 1:
             off.append("tensor_parallel > 1")
         if self.serving:

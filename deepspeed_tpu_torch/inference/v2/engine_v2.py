@@ -15,6 +15,14 @@ Steady-state decode runs through ``DecodePipeline`` (``pipeline.py``): one
 decode step per token with on-device sampling, and one int32 row per step
 crossing back to the host, drained one step late.
 
+Memory-lean serving, as in the JAX package: ``quantization.weight_bits = 8``
+quantizes the weight tree at build (the caller's bf16 tensors are dropped
+by the engine; free them by dropping the caller's references too);
+``kv_quant`` keeps the pool int8 with its scale tiles; and
+``attention.decode_splits`` builds one pass and one decode step per rung of
+the pow2 split ladder, the rung picked every step from the longest live
+context (:meth:`InferenceEngineV2._attn_rung`).
+
 The engine runs on the card unless the caller asks for the CPU:
 ``device=None`` means ``cuda``, and on a machine without CUDA the
 constructor raises. On the CPU every kernel wrapper runs its plain PyTorch
@@ -23,6 +31,7 @@ version.
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -34,10 +43,24 @@ from deepspeed_tpu_torch.inference.v2.ragged.blocked_allocator import BlockedAll
 from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import BlockedKVCache, KVCacheConfig
 from deepspeed_tpu_torch.inference.v2.ragged_model import (
     PAGED_PASS_KEYS, PREFILL_PASS_KEYS, _sample_logits, adapt_llama,
-    build_decode_step, build_prefill_forward, build_ragged_forward)
+    build_decode_step, build_prefill_forward, build_ragged_forward,
+    quantize_weights_int8)
 from deepspeed_tpu_torch.inference.v2.scheduler import DynamicSplitFuseScheduler
 from deepspeed_tpu_torch.utils.caching import next_pow2
 from deepspeed_tpu_torch.utils.device import resolve_device
+
+
+@dataclass
+class AttnSplitStats:
+    """How many passes and decode steps each split rung served (``rungs``:
+    rung -> count), pinned choices (``attn_rung_override``) included."""
+    rungs: Dict[int, int] = field(default_factory=dict)
+
+    def record(self, rung: int) -> None:
+        self.rungs[rung] = self.rungs.get(rung, 0) + 1
+
+    def reset(self) -> None:
+        self.rungs.clear()
 
 
 class InferenceEngineV2:
@@ -71,8 +94,12 @@ class InferenceEngineV2:
                   for k, v in model_parameters.items()}
         self.spec, self.weights = adapt_llama(
             params, model_config, max_context=cfg.state_manager.max_context)
+        del params
         self.spec.dtype = cfg.dtype
         AttentionKernelSpec.validate_engine_build(self.spec, cfg)
+        if cfg.quantization.weight_bits == 8:
+            # build in the model dtype, then quantize (the JAX order)
+            quantize_weights_int8(self.weights)
 
         sm = cfg.state_manager
         nb = cfg.kv_cache.num_blocks
@@ -89,15 +116,22 @@ class InferenceEngineV2:
             head_dim=self.spec.head_dim,
             block_size=cfg.kv_cache.block_size,
             num_blocks=nb + 1,
-            dtype=cfg.dtype)
+            dtype=cfg.dtype,
+            quantized=cfg.kv_quant.enabled)
         self.scratch_block = nb
         self.kv = BlockedKVCache(kv_cfg, self.device)
         self.allocator = BlockedAllocator(nb)
         self.scheduler = DynamicSplitFuseScheduler(sm, self.kv, self.allocator)
 
-        self._pass = build_ragged_forward(self.spec)
+        # one paged pass and one decode step per rung of the split ladder
+        self._pass_rungs = {r: build_ragged_forward(self.spec, n_splits=r)
+                            for r in self.attn_split_ladder}
+        self._step_rungs = {r: build_decode_step(self.spec, n_splits=r)
+                            for r in self.attn_split_ladder}
         self._pass_prefill = build_prefill_forward(self.spec)
-        self._decode_step = build_decode_step(self.spec)
+        # pin the dispatched rung (None = picked from the live context)
+        self.attn_rung_override: Optional[int] = None
+        self.attn_stats = AttnSplitStats()
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
         self._last_logits: Dict[int, np.ndarray] = {}
@@ -154,11 +188,11 @@ class InferenceEngineV2:
         if batch.pure_prefill:
             arrays = batch.device_arrays(self.device, PREFILL_PASS_KEYS)
             chunk_logits, decode_logits = self._pass_prefill(
-                self.weights, self.kv.kv, arrays)
+                self.weights, self.kv.kv, arrays, self.kv.scales)
         else:
             arrays = batch.device_arrays(self.device, PAGED_PASS_KEYS)
-            chunk_logits, decode_logits = self._pass(self.weights, self.kv.kv,
-                                                     arrays)
+            chunk_logits, decode_logits = self._pass_rungs[self._attn_rung()](
+                self.weights, self.kv.kv, arrays, self.kv.scales)
         finished = self.scheduler.complete_pass(batch)
         for uid in finished:
             if uid in batch.slot_uid:
@@ -185,6 +219,41 @@ class InferenceEngineV2:
     @property
     def free_blocks(self) -> int:
         return self.allocator.free_blocks
+
+    # ------------------------------------------------------------------ #
+    # flash-decoding split ladder
+    # ------------------------------------------------------------------ #
+
+    @property
+    def attn_split_ladder(self) -> List[int]:
+        """The pow2 rungs paged attention dispatches over: ``[1, 2, 4, ...,
+        config.attention.decode_splits]``. Rung 1 is the base decode and
+        chunk kernels; a higher rung cuts every sequence's pages into that
+        many split-K partials."""
+        top = self.config.attention.decode_splits
+        return [1 << i for i in range(top.bit_length())]
+
+    def _attn_rung(self) -> int:
+        """The rung for THIS dispatch: the largest pow2 rung such that the
+        longest live context keeps ``min_ctx_per_split`` tokens per split,
+        clamped to the ladder; ``attn_rung_override`` pins it (clamped the
+        same way). Each choice is counted in ``attn_stats``."""
+        top = self.config.attention.decode_splits
+        if top <= 1:
+            return 1
+        if self.attn_rung_override is not None:
+            rung = max(1, min(int(self.attn_rung_override), top))
+        else:
+            live = max((s.seen_tokens for s in self.scheduler.seqs.values()), default=0)
+            want = max(1, live // self.config.attention.min_ctx_per_split)
+            rung = min(top, 1 << (want.bit_length() - 1))
+        self.attn_stats.record(rung)
+        return rung
+
+    def _decode_step_fn(self):
+        """The decode step at this step's rung (the pipeline asks every
+        step)."""
+        return self._step_rungs[self._attn_rung()]
 
     # ------------------------------------------------------------------ #
     # decode support

@@ -12,6 +12,8 @@
   records a CUDA event behind it; it then waits only for the event of token
   N's copy, queued one iteration earlier. Two pinned buffers alternate, and a
   buffer is refilled only after its previous row has been read out.
+- **The split rung is picked every step** (``engine._attn_rung``): the
+  step runs at the engine's rung for the current live context.
 - **Descriptors are bucketed** (``DecodeBatch``) and KV blocks are
   pre-reserved for the whole run: block tables go to the device once per
   run, and step N+1's positions are the run's first positions plus N+1,
@@ -132,12 +134,14 @@ class DecodePipeline:
         steps_drained = 0
         try:
             for j in range(n_steps):
-                # launch step j: consumes the device row `ids` (token j),
-                # writes its KV, samples token j+1
+                # launch step j at this step's split rung: consumes the
+                # device row `ids` (token j), writes its KV (and scales, for
+                # an int8 pool), samples token j+1
                 pos = positions0 + j
-                nxt, logits = e._decode_step(
+                nxt, logits = e._decode_step_fn()(
                     e.weights, e.kv.kv, ids, pos, block_tables, pos + 1,
-                    e.generator, self.do_sample, self.top_k, self.temperature)
+                    e.generator, self.do_sample, self.top_k, self.temperature,
+                    kv_scales=e.kv.scales)
                 drain.start((j + 1) % 2, nxt)
                 # drain token j's row (its copy was queued an iteration ago)
                 row = drain.wait(j % 2)

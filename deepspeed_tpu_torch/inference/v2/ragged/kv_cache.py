@@ -5,14 +5,21 @@ The pool is ONE tensor ``[L, NB, 2, Hkv, bs, D]``: per layer and page, K
 the JAX package's pool, so pages can move between the two packages. Each
 pass writes its new K/V rows into the pool IN PLACE (``index_copy_``); the
 kernels read pages through block tables.
+
+A quantized pool (``kv_quant``) holds int8 values in the same layout and
+one f32 scale per (token, kv head) row beside it, stored at rest in the
+kernels' tile layout ``[L, NB, R8, 128]`` (``ops/kernels/kv_quant.py``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
+
+from deepspeed_tpu_torch.ops.kernels.kv_quant import kv_scale_tiles_shape
 
 
 @dataclass
@@ -23,17 +30,26 @@ class KVCacheConfig:
     block_size: int = 128
     num_blocks: int = 256
     dtype: torch.dtype = torch.bfloat16
+    quantized: bool = False
 
 
 class BlockedKVCache:
     """Owns the combined page tensor ``kv`` [L, NB, 2, Hkv, bs, D] on
-    ``device``."""
+    ``device`` (int8 when quantized, with its scale tiles ``scales``
+    [L, NB, R8, 128] f32; ``scales`` is None otherwise)."""
 
     def __init__(self, config: KVCacheConfig, device):
         self.config = config
         shape = (config.num_layers, config.num_blocks, 2,
                  config.num_kv_heads, config.block_size, config.head_dim)
-        self.kv = torch.zeros(shape, dtype=config.dtype, device=device)
+        dtype = torch.int8 if config.quantized else config.dtype
+        self.kv = torch.zeros(shape, dtype=dtype, device=device)
+        self.scales: Optional[torch.Tensor] = None
+        if config.quantized:
+            self.scales = torch.zeros(
+                (config.num_layers,) + kv_scale_tiles_shape(
+                    config.num_blocks, config.num_kv_heads, config.block_size),
+                dtype=torch.float32, device=device)
 
     def flat_write_index(self, block_id, slot) -> np.ndarray:
         """Host-side flat destination ``block * block_size + slot``."""

@@ -14,10 +14,16 @@ rows, then whole-page writes. The pipelined decode step
 writes it into its page afterwards.
 
 A Python loop over layers takes the place of the JAX package's ``lax.scan``,
-and each layer indexes its own pool view ``kv[l]``, so no layer offset enters
-the block tables or the write destinations. Projections are plain matrix
-products (``x @ kernel``, kernels ``[in, out]``); only attention runs in the
-port's kernels.
+and each layer indexes its own pool view ``kv[l]`` (and, for an int8 pool,
+its scale tiles ``kv_scales[l]``), so no layer offset enters the block
+tables or the write destinations.
+
+Projections go through :func:`_mm`: a plain matrix product (``x @
+kernel``, kernels ``[in, out]``), or, for a weight tree quantized by
+:func:`quantize_weights_int8`, the int8 matmul kernel (K8). With an int8 KV
+pool every page write quantizes its rows (``_kv_page_write_quant``,
+``_kv_page_write_pages_quant``); the packed prefill still attends its
+in-flight rows at full precision.
 """
 
 from __future__ import annotations
@@ -30,6 +36,11 @@ import torch.nn.functional as F
 
 from deepspeed_tpu_torch.inference.v2.attention import AttentionKernelSpec
 from deepspeed_tpu_torch.models.llama import apply_rope, rms_norm, rope_tables
+from deepspeed_tpu_torch.ops.kernels.kv_quant import (kv_quantize_rows,
+                                                      kv_write_dequant,
+                                                      scale_tile_rows,
+                                                      scale_write_index)
+from deepspeed_tpu_torch.ops.kernels.quantized_matmul import quantized_matmul
 
 
 @dataclass
@@ -105,6 +116,48 @@ def _rope_flat(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return apply_rope(x, cos, sin)
 
 
+def _mm(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` where ``w`` is a plain ``[K, N]`` tensor OR a weight-only
+    int8 dict ``{"w8" [K, N] int8, "scale" [1, N] f32}``: the int8 matmul
+    kernel (K8) sums ``x @ w8`` in f32 and scales the sum once per column,
+    in x's dtype."""
+    if isinstance(w, dict):
+        return quantized_matmul(x, w["w8"], w["scale"])
+    return x @ w
+
+
+_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def quantize_weight_int8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Symmetric per-output-column int8 of one ``[K, N]`` kernel:
+    ``scale = absmax_K / 127`` (1 for an all-zero column), ``w8 =
+    clip(round_half_even(w / scale), -127, 127)``; scale ``[1, N]`` f32."""
+    wf = w.float()
+    absmax = wf.abs().amax(dim=-2, keepdim=True)
+    # a tensor divisor: an IEEE quotient on CUDA too (kv_quant.py)
+    scale = torch.where(absmax > 0, absmax / torch.full_like(absmax, 127.0),
+                        torch.ones_like(absmax))
+    w8 = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+    return {"w8": w8, "scale": scale}
+
+
+def quantize_weights_int8(weights: Dict) -> Dict:
+    """Weight-only int8 for the serving weight tree (in place, returns it):
+    every layer's projections and the untied ``lm_head`` become
+    :func:`quantize_weight_int8` dicts; embeddings and norms stay in the
+    model dtype. Each layer quantizes on its own, which gives the same
+    bytes as the JAX package's stacked ``[L, K, N]`` tree (its absmax runs
+    along K)."""
+    for layer in weights["layers"]:
+        for key in _QUANT_KEYS:
+            if key in layer and not isinstance(layer[key], dict):
+                layer[key] = quantize_weight_int8(layer[key])
+    if not isinstance(weights["lm_head"], dict):
+        weights["lm_head"] = quantize_weight_int8(weights["lm_head"])
+    return weights
+
+
 def _transformer_layer(spec: RaggedModelSpec, w: Dict, x: torch.Tensor, cos, sin,
                        attend: Callable) -> torch.Tensor:
     """One pre-norm Llama layer over ragged rows ``x`` [T, hidden].
@@ -112,12 +165,12 @@ def _transformer_layer(spec: RaggedModelSpec, w: Dict, x: torch.Tensor, cos, sin
     attends, in the shape of its pass."""
     H, Hkv, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
     h1 = _norm(x, w["ln1"], spec)
-    q = _rope_flat((h1 @ w["wq"]).view(-1, H, D), cos, sin)
-    k = _rope_flat((h1 @ w["wk"]).view(-1, Hkv, D), cos, sin)
-    v = (h1 @ w["wv"]).view(-1, Hkv, D)
-    x = x + attend(q, k, v).reshape(-1, H * D) @ w["wo"]
+    q = _rope_flat(_mm(h1, w["wq"]).view(-1, H, D), cos, sin)
+    k = _rope_flat(_mm(h1, w["wk"]).view(-1, Hkv, D), cos, sin)
+    v = _mm(h1, w["wv"]).view(-1, Hkv, D)
+    x = x + _mm(attend(q, k, v).reshape(-1, H * D), w["wo"])
     m = _norm(x, w["ln2"], spec)
-    return x + (F.silu(m @ w["w_gate"]) * (m @ w["w_up"])) @ w["w_down"]
+    return x + _mm(F.silu(_mm(m, w["w_gate"])) * _mm(m, w["w_up"]), w["w_down"])
 
 
 def _embed_in(spec: RaggedModelSpec, weights, tokens: torch.Tensor) -> torch.Tensor:
@@ -126,7 +179,7 @@ def _embed_in(spec: RaggedModelSpec, weights, tokens: torch.Tensor) -> torch.Ten
 
 def _unembed(spec: RaggedModelSpec, weights, xs: torch.Tensor) -> torch.Tensor:
     """Final-hidden rows -> f32 logits."""
-    return (xs @ weights["lm_head"]).float()
+    return _mm(xs, weights["lm_head"]).float()
 
 
 def _kv_write_rows(dest: torch.Tensor, Hkv: int, bs: int) -> torch.Tensor:
@@ -150,6 +203,34 @@ def _kv_page_write(kv_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_l.view(-1, D).index_copy_(0, rows, new.to(kv_l.dtype))
 
 
+def _kv_page_write_quant(kv_l: torch.Tensor, sc_l: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor, src: torch.Tensor, rows: torch.Tensor) -> None:
+    """int8 variant of :func:`_kv_page_write`: the new rows quantize per
+    (token, kv head) and their scales go to the layer's scale tiles
+    ``sc_l`` [NB, R8, 128]."""
+    _, _, Hkv, bs, D = kv_l.shape
+    q8, s = kv_quantize_rows(torch.cat([k[src].reshape(-1, D), v[src].reshape(-1, D)]))
+    kv_l.view(-1, D).index_copy_(0, rows, q8)
+    sc_l.view(-1).index_copy_(0, scale_write_index(rows, Hkv, bs), s)
+
+
+def _page_plan_windows(k: torch.Tensor, v: torch.Tensor, bs: int,
+                       page_rows: torch.Tensor, page_fill: torch.Tensor):
+    """The page plan's token windows as K and V ``[PW, Hkv, bs, D]``:
+    entry i holds pass rows ``page_rows[i] ..`` for ``page_fill[i]``
+    tokens, zeros past the fill."""
+    CT = k.shape[0]
+    j = torch.arange(bs, device=k.device)
+    rows = (page_rows.long()[:, None] + j[None]).clamp_max(CT - 1)   # [PW, bs]
+    valid = (j[None] < page_fill.long()[:, None])[..., None, None]
+
+    def window(x):
+        return torch.where(valid, x[rows], torch.zeros((), dtype=x.dtype,
+                                                        device=x.device)).transpose(1, 2)
+
+    return window(k), window(v)
+
+
 def _kv_page_write_pages(kv_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          page_ids: torch.Tensor, page_rows: torch.Tensor,
                          page_fill: torch.Tensor) -> None:
@@ -157,18 +238,27 @@ def _kv_page_write_pages(kv_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     page ``page_ids[i]`` from pass rows ``page_rows[i] ..`` for
     ``page_fill[i]`` tokens; slots past the fill are zeroed (every reader
     bounds keys by ctx, so they are never read)."""
-    bs = kv_l.shape[3]
-    CT = k.shape[0]
-    j = torch.arange(bs, device=k.device)
-    rows = (page_rows.long()[:, None] + j[None]).clamp_max(CT - 1)   # [PW, bs]
-    valid = (j[None] < page_fill.long()[:, None])[..., None, None]
+    kw, vw = _page_plan_windows(k, v, kv_l.shape[3], page_rows, page_fill)
+    kv_l.index_copy_(0, page_ids.long(), torch.stack([kw, vw], dim=1).to(kv_l.dtype))
 
-    def window(x):                                   # -> [PW, Hkv, bs, D]
-        return torch.where(valid, x[rows], torch.zeros((), dtype=x.dtype,
-                                                        device=x.device)).transpose(1, 2)
 
-    new = torch.stack([window(k), window(v)], dim=1)
-    kv_l.index_copy_(0, page_ids.long(), new.to(kv_l.dtype))
+def _kv_page_write_pages_quant(kv_l: torch.Tensor, sc_l: torch.Tensor,
+                               k: torch.Tensor, v: torch.Tensor, page_ids: torch.Tensor,
+                               page_rows: torch.Tensor, page_fill: torch.Tensor) -> None:
+    """int8 variant of :func:`_kv_page_write_pages`: the page windows
+    quantize per (token, kv head) row, and each written page's scale tile
+    ``[R8, 128]`` (flat order kv*Hkv*bs + h*bs + t, zero padded) is written
+    whole."""
+    NB, _, Hkv, bs, D = kv_l.shape
+    kw, vw = _page_plan_windows(k, v, bs, page_rows, page_fill)
+    q8, s = kv_quantize_rows(torch.stack([kw, vw], dim=1))   # [PW, 2, Hkv, bs(, D)]
+    ids = page_ids.long()
+    kv_l.index_copy_(0, ids, q8)
+    PW = ids.shape[0]
+    tiles = torch.zeros((PW, scale_tile_rows(Hkv, bs) * 128), dtype=torch.float32,
+                        device=s.device)
+    tiles[:, :2 * Hkv * bs] = s.reshape(PW, -1)
+    sc_l.index_copy_(0, ids, tiles.view(PW, -1, 128))
 
 
 # keys each pass forward reads (RaggedBatch.device_arrays ships only these)
@@ -187,16 +277,17 @@ def _last_rows(b, Cs: int) -> torch.Tensor:
     return torch.arange(ntok.shape[0], device=ntok.device) * Cs + (ntok - 1).clamp_min(0)
 
 
-def build_ragged_forward(spec: RaggedModelSpec) -> Callable:
-    """Returns ``fwd(weights, kv, b) -> (chunk_logits [NC, V], decode_logits
-    [S, V])`` over the filled slots and decode rows of ``b``
+def build_ragged_forward(spec: RaggedModelSpec, n_splits: int = 1) -> Callable:
+    """Returns ``fwd(weights, kv, b, kv_scales=None) -> (chunk_logits [NC, V],
+    decode_logits [S, V])`` over the filled slots and decode rows of ``b``
     (``RaggedBatch.device_arrays(device, PAGED_PASS_KEYS)``); ``chunk_logits[j]``
-    are the logits after slot j's last token. ``kv`` [L, NB, 2, Hkv, bs, D] is
-    written in place."""
+    are the logits after slot j's last token. ``kv`` [L, NB, 2, Hkv, bs, D]
+    (int8 with its scale tiles ``kv_scales`` [L, NB, R8, 128]) is written in
+    place. ``n_splits`` is the split rung the paged attention runs at."""
     H, Hkv, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
-    ak = AttentionKernelSpec(spec)
+    ak = AttentionKernelSpec(spec, n_splits=n_splits)
 
-    def fwd(weights, kv, b):
+    def fwd(weights, kv, b, kv_scales=None):
         bs = kv.shape[4]
         NC = b["chunk_ntok"].shape[0]
         CT = b["chunk_tokens"].shape[0]
@@ -211,17 +302,22 @@ def build_ragged_forward(spec: RaggedModelSpec) -> Callable:
 
         for l, w in enumerate(weights["layers"]):
             kv_l = kv[l]
+            sc_l = None if kv_scales is None else kv_scales[l]
 
-            def attend(q, k, v, kv_l=kv_l):
-                _kv_page_write(kv_l, k, v, src, rows)
+            def attend(q, k, v, kv_l=kv_l, sc_l=sc_l):
+                if sc_l is None:
+                    _kv_page_write(kv_l, k, v, src, rows)
+                else:
+                    _kv_page_write_quant(kv_l, sc_l, k, v, src, rows)
                 outs = []
                 if NC:
                     outs.append(ak.chunk(q[:CT].view(NC, Cs, H, D), kv_l,
                                          b["chunk_block_tables"], b["chunk_q0"],
-                                         b["chunk_ctx_lens"]).reshape(CT, H, D))
+                                         b["chunk_ctx_lens"],
+                                         kv_scales=sc_l).reshape(CT, H, D))
                 if S:
                     outs.append(ak.decode(q[CT:], kv_l, b["decode_block_tables"],
-                                          b["decode_ctx_lens"]))
+                                          b["decode_ctx_lens"], kv_scales=sc_l))
                 return torch.cat(outs) if len(outs) > 1 else outs[0]
 
             x = _transformer_layer(spec, w, x, cos, sin, attend)
@@ -240,10 +336,11 @@ def build_prefill_forward(spec: RaggedModelSpec) -> Callable:
     pass's own Q/K/V (no paged reads), and the page write happens after
     attention. Same signature as :func:`build_ragged_forward` over
     ``PREFILL_PASS_KEYS``; decode_logits is empty (a pure-prefill pass has no
-    decode rows)."""
+    decode rows). With an int8 pool the attention still reads the in-flight
+    rows at full precision; only the page write quantizes."""
     ak = AttentionKernelSpec(spec)
 
-    def fwd(weights, kv, b):
+    def fwd(weights, kv, b, kv_scales=None):
         NC = b["chunk_ntok"].shape[0]
         CT = b["chunk_tokens"].shape[0]
         Cs = CT // NC
@@ -253,11 +350,16 @@ def build_prefill_forward(spec: RaggedModelSpec) -> Callable:
 
         for l, w in enumerate(weights["layers"]):
             kv_l = kv[l]
+            sc_l = None if kv_scales is None else kv_scales[l]
 
-            def attend(q, k, v, kv_l=kv_l):
+            def attend(q, k, v, kv_l=kv_l, sc_l=sc_l):
                 out = ak.packed(q, k, v, seg)
-                _kv_page_write_pages(kv_l, k, v, b["page_ids"], b["page_rows"],
-                                     b["page_fill"])
+                if sc_l is None:
+                    _kv_page_write_pages(kv_l, k, v, b["page_ids"], b["page_rows"],
+                                         b["page_fill"])
+                else:
+                    _kv_page_write_pages_quant(kv_l, sc_l, k, v, b["page_ids"],
+                                               b["page_rows"], b["page_fill"])
                 return out
 
             x = _transformer_layer(spec, w, x, cos, sin, attend)
@@ -283,26 +385,33 @@ def _sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator],
     return ids[:, 0].to(torch.int32)
 
 
-def build_decode_step(spec: RaggedModelSpec) -> Callable:
+def build_decode_step(spec: RaggedModelSpec, n_splits: int = 1) -> Callable:
     """One decode step for the pipelined serving loop: consume ``ids`` [S]
     (this step's tokens), attend and write their KV, and sample the NEXT
     token row on the device.
 
     Returns ``fwd(weights, kv, ids [S], positions [S], block_tables [S, MB],
-    ctx [S], generator, do_sample, top_k, temperature) -> (next_ids [S]
-    int32, logits [S, V] f32)``; ``ctx`` counts tokens INCLUDING the current
-    one (>= 1 on every row)."""
-    ak = AttentionKernelSpec(spec)
+    ctx [S], generator, do_sample, top_k, temperature, kv_scales=None) ->
+    (next_ids [S] int32, logits [S, V] f32)``; ``ctx`` counts tokens
+    INCLUDING the current one (>= 1 on every row). With an int8 pool the
+    current token is attended at its pool value (``kv_write_dequant``, f32
+    side rows) and written quantized after."""
+    ak = AttentionKernelSpec(spec, n_splits=n_splits)
 
     def fwd(weights, kv, ids, positions, block_tables, ctx, generator=None,
-            do_sample: bool = False, top_k: int = 0, temperature: float = 1.0):
+            do_sample: bool = False, top_k: int = 0, temperature: float = 1.0,
+            kv_scales=None):
         x = _embed_in(spec, weights, ids)
         cos, sin = rope_tables(positions, spec.head_dim, spec.rope_theta)
         for l, w in enumerate(weights["layers"]):
             kv_l = kv[l]
+            sc_l = None if kv_scales is None else kv_scales[l]
 
-            def attend(q, k, v, kv_l=kv_l):
-                return ak.decode_step(q, k, v, kv_l, block_tables, ctx)
+            def attend(q, k, v, kv_l=kv_l, sc_l=sc_l):
+                if sc_l is not None:
+                    k, v = kv_write_dequant(k), kv_write_dequant(v)
+                return ak.decode_step(q, k, v, kv_l, block_tables, ctx,
+                                      kv_scales=sc_l)
 
             x = _transformer_layer(spec, w, x, cos, sin, attend)
         x = _norm(x, weights["final_norm"], spec)

@@ -57,6 +57,14 @@ class LlamaConfig:
         return cls(**kw)
 
     @classmethod
+    def llama2_13b(cls, **kw):
+        defaults = dict(hidden_size=5120, intermediate_size=13824,
+                        num_hidden_layers=40, num_attention_heads=40,
+                        num_key_value_heads=40)
+        defaults.update(kw)
+        return cls(**defaults)
+
+    @classmethod
     def tiny(cls, **kw):
         """Fixture-sized config, as the JAX package's ``LlamaConfig.tiny``."""
         defaults = dict(vocab_size=256, hidden_size=64, intermediate_size=128,

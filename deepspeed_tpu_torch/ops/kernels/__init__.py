@@ -15,3 +15,7 @@ from deepspeed_tpu_torch.ops.kernels.paged_chunk import (
     paged_chunk_attention_batched, paged_chunk_attention_batched_plain)
 from deepspeed_tpu_torch.ops.kernels.paged_decode import (
     paged_decode_attention, paged_decode_attention_plain)
+from deepspeed_tpu_torch.ops.kernels.paged_splitk import (
+    merge_splitk_partials, splitk_attention, splitk_attention_plain)
+from deepspeed_tpu_torch.ops.kernels.quantized_matmul import (
+    quantized_matmul, quantized_matmul_plain)

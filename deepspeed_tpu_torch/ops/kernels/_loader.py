@@ -10,6 +10,8 @@ build raises with nvcc's stderr.
 
 Each kernel wrapper adds one to :data:`LAUNCHES` ``[name]`` when it launches
 its kernel, and nowhere else; :func:`reset_launches` sets every count to 0.
+A kernel that runs at several split counts (K7) counts each under its own
+name (``paged_splitk/8``).
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("flash_packed.cu", "paged_chunk.cu", "paged_decode.cu", "flash_fwd.cu",
-           "flash_bwd.cu")
-HEADERS = ("attn_common.cuh",)
+           "flash_bwd.cu", "paged_splitk.cu", "quantized_matmul.cu")
+HEADERS = ("attn_common.cuh", "decode_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -49,11 +51,25 @@ ENTRY_POINTS = {
                                   _F, _I, _P),
     "dstorch_flash_bwd_dkv_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _F, _I, _P),
+    "dstorch_paged_chunk_int8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _F, _P),
+    "dstorch_paged_decode_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _F, _P),
+    "dstorch_paged_splitk_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _F, _P),
+    "dstorch_paged_splitk_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "dstorch_splitk_merge": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "dstorch_qmm_gemv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "dstorch_qmm_mma": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 LAUNCHES: Dict[str, int] = {"flash_packed": 0, "paged_chunk": 0,
                             "paged_decode": 0, "flash_fwd": 0,
-                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                            "paged_chunk_int8": 0, "paged_decode_int8": 0,
+                            "splitk_merge": 0, "quantized_matmul_gemv": 0,
+                            "quantized_matmul_mma": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -154,14 +170,15 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel}: kernel launch failed "
                            f"({'unsupported shape' if rc == -1 else f'cudaError {rc}'})")
-    LAUNCHES[kernel] += 1
+    LAUNCHES[kernel] = LAUNCHES.get(kernel, 0) + 1
 
 
 def check_cuda(kernel: str, dtype: torch.dtype, f32: Tuple[str, ...] = (),
-               **tensors: torch.Tensor) -> None:
-    """The kernels take contiguous tensors on one CUDA device: ``dtype`` for
-    the floating ones (float32 for those named in ``f32``), int32 for
-    indices. Raise on anything else."""
+               i8: Tuple[str, ...] = (), **tensors: torch.Tensor) -> None:
+    """The kernels take contiguous, 16-byte aligned tensors on one CUDA
+    device: ``dtype`` for the floating ones (float32 for those named in
+    ``f32``), int8 for those named in ``i8``, int32 for indices. Raise on
+    anything else."""
     if dtype != torch.bfloat16:
         raise TypeError(f"{kernel}: the CUDA kernel takes bfloat16, got {dtype}")
     devices = {t.device for t in tensors.values()}
@@ -169,12 +186,14 @@ def check_cuda(kernel: str, dtype: torch.dtype, f32: Tuple[str, ...] = (),
         raise ValueError(f"{kernel}: all tensors must lie on one CUDA device, got "
                          f"{ {k: str(t.device) for k, t in tensors.items()} }")
     for name, t in tensors.items():
-        want = torch.float32 if name in f32 else (
+        want = torch.float32 if name in f32 else torch.int8 if name in i8 else (
             dtype if t.is_floating_point() else torch.int32)
         if t.dtype != want:
             raise TypeError(f"{kernel}: {name} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must start on a 16-byte boundary")
 
 
 def on_cpu(kernel: str, *tensors: torch.Tensor) -> bool:

@@ -6,6 +6,11 @@ Counterpart of the JAX package's ``ops/pallas/paged_attention.py``
 own block-table row, ``q_start`` and ``ctx``; row r of a slot sits at
 position ``q_start + r`` and sees keys ``k_pos <= q_pos`` with
 ``k_pos < ctx``. An empty slot (ctx 0) gives zeros.
+
+int8 pages (``kv_scales``, the kv_quant pool): ``kv_pages`` is int8 with
+its f32 scale tiles ``[NB, R8, 128]`` (``kv_quant``), the int8 body of the
+same kernel (``_chunk_kernel_batched_quant`` :1528, with the per-head scale
+fold ``_chunk_head_scale`` :1422).
 """
 
 from __future__ import annotations
@@ -16,23 +21,30 @@ import torch
 
 from deepspeed_tpu_torch.ops.kernels import _loader
 from deepspeed_tpu_torch.ops.kernels._plain import masked_softmax_av
+from deepspeed_tpu_torch.ops.kernels.kv_quant import scale_tile_rows
+from deepspeed_tpu_torch.ops.kernels.paged_decode import gather_rows
 
 NAME = "paged_chunk"
+NAME_INT8 = "paged_chunk_int8"
 SOURCE = "deepspeed_tpu_torch/csrc/paged_chunk.cu"
 REPLACES = "deepspeed_tpu/ops/pallas/paged_attention.py:1534"
+REPLACES_INT8 = ("deepspeed_tpu/ops/pallas/paged_attention.py:1528 "
+                 "_chunk_kernel_batched_quant (K5; scale fold _chunk_head_scale :1422)")
 
 
 def paged_chunk_attention_batched(q: torch.Tensor, kv_pages: torch.Tensor,
                                   block_tables: torch.Tensor,
                                   q_starts: torch.Tensor, ctx_lens: torch.Tensor,
-                                  softmax_scale: Optional[float] = None
+                                  softmax_scale: Optional[float] = None,
+                                  kv_scales: Optional[torch.Tensor] = None
                                   ) -> torch.Tensor:
     """q [NC, Cs, H, D]; kv_pages [NB, 2, Hkv, bs, D] (one layer);
-    block_tables [NC, MB], q_starts [NC], ctx_lens [NC] int32 ->
-    [NC, Cs, H, D].
+    block_tables [NC, MB], q_starts [NC], ctx_lens [NC] int32; ``kv_scales``
+    [NB, R8, 128] f32 for int8 pages -> [NC, Cs, H, D].
 
     CPU tensors run :func:`paged_chunk_attention_batched_plain`; CUDA tensors
-    launch the kernel (bf16, contiguous) or raise."""
+    launch the kernel (bf16 q; bf16 pages, or int8 pages with their scale
+    tiles; contiguous) or raise."""
     NC, Cs, H, D = q.shape
     NB, two, Hkv, bs, Dk = kv_pages.shape
     MB = block_tables.shape[1]
@@ -40,18 +52,32 @@ def paged_chunk_attention_batched(q: torch.Tensor, kv_pages: torch.Tensor,
             or q_starts.shape != (NC,) or ctx_lens.shape != (NC,):
         raise ValueError(f"{NAME}: bad shapes q {tuple(q.shape)} kv "
                          f"{tuple(kv_pages.shape)} bt {tuple(block_tables.shape)}")
+    quant = kv_scales is not None
+    if quant and tuple(kv_scales.shape) != (NB, scale_tile_rows(Hkv, bs), 128):
+        raise ValueError(f"{NAME}: scale tiles {tuple(kv_scales.shape)} do not fit "
+                         f"pages {tuple(kv_pages.shape)}")
+    name = NAME_INT8 if quant else NAME
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
-    if _loader.on_cpu(NAME, q, kv_pages, block_tables, q_starts, ctx_lens):
+    extra = (kv_scales,) if quant else ()
+    if _loader.on_cpu(name, q, kv_pages, block_tables, q_starts, ctx_lens, *extra):
         return paged_chunk_attention_batched_plain(q, kv_pages, block_tables,
-                                                   q_starts, ctx_lens, scale)
-    _loader.check_cuda(NAME, q.dtype, q=q, kv_pages=kv_pages,
-                       block_tables=block_tables, q_starts=q_starts,
-                       ctx_lens=ctx_lens)
-    if kv_pages.dtype != q.dtype:
-        raise TypeError(f"{NAME}: kv_pages {kv_pages.dtype} != q {q.dtype}")
+                                                   q_starts, ctx_lens, scale, kv_scales)
     out = torch.empty_like(q)
     P = _loader.ptr
-    _loader.launch(NAME, "dstorch_paged_chunk_bf16", q.device,
+    if quant:
+        _loader.check_cuda(name, q.dtype, f32=("kv_scales",), i8=("kv_pages",), q=q,
+                           kv_pages=kv_pages, kv_scales=kv_scales,
+                           block_tables=block_tables, q_starts=q_starts,
+                           ctx_lens=ctx_lens)
+        _loader.launch(name, "dstorch_paged_chunk_int8", q.device,
+                       P(q), P(kv_pages), P(kv_scales), P(block_tables), P(q_starts),
+                       P(ctx_lens), P(out), NC, Cs, H, Hkv, D, bs, MB,
+                       kv_scales.shape[1], scale)
+        return out
+    _loader.check_cuda(name, q.dtype, q=q, kv_pages=kv_pages,
+                       block_tables=block_tables, q_starts=q_starts,
+                       ctx_lens=ctx_lens)
+    _loader.launch(name, "dstorch_paged_chunk_bf16", q.device,
                    P(q), P(kv_pages), P(block_tables), P(q_starts), P(ctx_lens),
                    P(out), NC, Cs, H, Hkv, D, bs, MB, scale)
     return out
@@ -59,7 +85,8 @@ def paged_chunk_attention_batched(q: torch.Tensor, kv_pages: torch.Tensor,
 
 def paged_chunk_attention_batched_plain(q, kv_pages, block_tables, q_starts,
                                         ctx_lens,
-                                        softmax_scale: Optional[float] = None):
+                                        softmax_scale: Optional[float] = None,
+                                        kv_scales: Optional[torch.Tensor] = None):
     """The same function in plain PyTorch, computed in f32; returns q's
     dtype."""
     NC, Cs, H, D = q.shape
@@ -69,17 +96,12 @@ def paged_chunk_attention_batched_plain(q, kv_pages, block_tables, q_starts,
     n_pages = -(-int(ctx_lens.max()) // bs) if NC else 0
     if n_pages == 0:
         return torch.zeros_like(q)
-    pages = kv_pages[block_tables[:, :n_pages].long()]     # [NC, P, 2, Hkv, bs, D]
     T = n_pages * bs
-
-    def side(i):
-        x = pages[:, :, i].float().permute(0, 2, 1, 3, 4).reshape(NC, Hkv, T, D)
-        return x.repeat_interleave(G, dim=1)               # [NC, H, T, D]
-
-    s = torch.einsum("nqhd,nhkd->nhqk", q.float(), side(0)) * scale
+    k, v = (x.repeat_interleave(G, dim=1)                  # [NC, H, T, D]
+            for x in gather_rows(kv_pages, block_tables, n_pages, kv_scales))
+    s = torch.einsum("nqhd,nhkd->nhqk", q.float(), k) * scale
     q_pos = q_starts.long()[:, None] + torch.arange(Cs, device=q.device)[None]
     k_pos = torch.arange(T, device=q.device)
     mask = ((k_pos[None, None, :] <= q_pos[:, :, None])
             & (k_pos[None, None, :] < ctx_lens.long()[:, None, None]))
-    return masked_softmax_av(s, mask[:, None], side(1),
-                             "nhqk,nhkd->nqhd").to(q.dtype)
+    return masked_softmax_av(s, mask[:, None], v, "nhqk,nhkd->nqhd").to(q.dtype)

@@ -14,6 +14,14 @@ Pallas kernels share one body (``_decode_body``):
     ``cc <= j`` are attended.
 
 A row that sees no token gives zeros.
+
+int8 pages (``kv_scales``, the kv_quant pool): ``kv_pages`` is int8 with
+its f32 scale tiles ``[NB, R8, 128]`` (``kv_quant``), the int8 bodies of
+the same three entry points (``_decode_kernel_quant`` :561,
+``_decode_step_kernel_quant`` :1217, ``_decode_kernel_sidebuf_quant`` :772,
+``_sidebuf_batched_kernel_quant`` :792). The side rows are then f32: they
+hold ``kv_write_dequant`` values, which a bf16 copy would round away from
+what the pages store.
 """
 
 from __future__ import annotations
@@ -24,61 +32,118 @@ import torch
 
 from deepspeed_tpu_torch.ops.kernels import _loader
 from deepspeed_tpu_torch.ops.kernels._plain import masked_softmax_av
+from deepspeed_tpu_torch.ops.kernels.kv_quant import (scale_tile_rows,
+                                                      scales_from_tiles)
 
 NAME = "paged_decode"
+NAME_INT8 = "paged_decode_int8"
 SOURCE = "deepspeed_tpu_torch/csrc/paged_decode.cu"
 REPLACES = ("deepspeed_tpu/ops/pallas/paged_attention.py:1088 (K3), "
             ":1249 (K4), :809 (K6); body _decode_body :280")
+REPLACES_INT8 = ("deepspeed_tpu/ops/pallas/paged_attention.py:561 "
+                 "_decode_kernel_quant (K3), :1217 (K4), :772 and :792 (K6)")
+
+
+def check_paged_inputs(name: str, q, kv_pages, block_tables, lens, side_k, side_v,
+                       j: int, kv_scales) -> int:
+    """Validate the decode kernels' shapes (q [S, H, D], pages
+    [NB, 2, Hkv, bs, D], tables [S, MB], lens [S], side rows
+    [S, C * Hkv, D], scale tiles [NB, R8, 128]); returns C (0 without side
+    rows)."""
+    S, H, D = q.shape
+    NB, two, Hkv, bs, Dk = kv_pages.shape
+    MB = block_tables.shape[1]
+    if two != 2 or Dk != D or H % Hkv or block_tables.shape != (S, MB) \
+            or lens.shape != (S,):
+        raise ValueError(f"{name}: bad shapes q {tuple(q.shape)} kv "
+                         f"{tuple(kv_pages.shape)} bt {tuple(block_tables.shape)} "
+                         f"lens {tuple(lens.shape)}")
+    if kv_scales is not None and tuple(kv_scales.shape) != (
+            NB, scale_tile_rows(Hkv, bs), 128):
+        raise ValueError(f"{name}: scale tiles {tuple(kv_scales.shape)} do not "
+                         f"fit pages {tuple(kv_pages.shape)}")
+    if side_k is None:
+        return 0
+    if side_v is None or side_k.shape != side_v.shape or side_k.ndim != 3 \
+            or side_k.shape[0] != S or side_k.shape[2] != D \
+            or side_k.shape[1] % Hkv:
+        raise ValueError(f"{name}: side rows must be [S, C*Hkv, D] pairs")
+    C = side_k.shape[1] // Hkv
+    if not 0 <= j < C:
+        raise ValueError(f"{name}: step j={j} outside [0, {C})")
+    return C
 
 
 def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
                            block_tables: torch.Tensor, lens: torch.Tensor,
                            side_k: Optional[torch.Tensor] = None,
                            side_v: Optional[torch.Tensor] = None, j: int = 0,
-                           softmax_scale: Optional[float] = None) -> torch.Tensor:
+                           softmax_scale: Optional[float] = None,
+                           kv_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q [S, H, D]; kv_pages [NB, 2, Hkv, bs, D] (one layer); block_tables
     [S, MB], lens [S] int32 (page tokens attended per sequence); optional
-    side_k/side_v [S, C * Hkv, D] with step ``j`` -> [S, H, D].
+    side_k/side_v [S, C * Hkv, D] with step ``j``; ``kv_scales`` [NB, R8,
+    128] f32 for int8 pages -> [S, H, D].
 
     CPU tensors run :func:`paged_decode_attention_plain`; CUDA tensors launch
-    the kernel (bf16, contiguous) or raise."""
+    the kernel (bf16 q; bf16 pages and side rows, or int8 pages with f32
+    side rows; contiguous) or raise."""
     S, H, D = q.shape
-    NB, two, Hkv, bs, Dk = kv_pages.shape
+    NB, _, Hkv, bs, _ = kv_pages.shape
     MB = block_tables.shape[1]
-    if two != 2 or Dk != D or H % Hkv or block_tables.shape != (S, MB) \
-            or lens.shape != (S,):
-        raise ValueError(f"{NAME}: bad shapes q {tuple(q.shape)} kv "
-                         f"{tuple(kv_pages.shape)} bt {tuple(block_tables.shape)} "
-                         f"lens {tuple(lens.shape)}")
-    C = 0
-    sides = ()
-    if side_k is not None:
-        if side_v is None or side_k.shape != side_v.shape or side_k.ndim != 3 \
-                or side_k.shape[0] != S or side_k.shape[2] != D \
-                or side_k.shape[1] % Hkv:
-            raise ValueError(f"{NAME}: side rows must be [S, C*Hkv, D] pairs")
-        C = side_k.shape[1] // Hkv
-        if not 0 <= j < C:
-            raise ValueError(f"{NAME}: step j={j} outside [0, {C})")
-        sides = (side_k, side_v)
+    quant = kv_scales is not None
+    name = NAME_INT8 if quant else NAME
+    C = check_paged_inputs(name, q, kv_pages, block_tables, lens, side_k, side_v,
+                           j, kv_scales)
+    sides = () if side_k is None else (side_k, side_v)
+    extra = (kv_scales,) if quant else ()
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
-    if _loader.on_cpu(NAME, q, kv_pages, block_tables, lens, *sides):
+    if _loader.on_cpu(name, q, kv_pages, block_tables, lens, *sides, *extra):
         return paged_decode_attention_plain(q, kv_pages, block_tables, lens,
-                                            side_k, side_v, j, scale)
-    _loader.check_cuda(NAME, q.dtype, q=q, kv_pages=kv_pages,
-                       block_tables=block_tables, lens=lens,
-                       **dict(zip(("side_k", "side_v"), sides)))
+                                            side_k, side_v, j, scale, kv_scales)
+    side_kw = dict(zip(("side_k", "side_v"), sides))
     out = torch.empty_like(q)
     P = _loader.ptr
-    _loader.launch(NAME, "dstorch_paged_decode_bf16", q.device,
+    if quant:
+        _loader.check_cuda(name, q.dtype, f32=("kv_scales", "side_k", "side_v"),
+                           i8=("kv_pages",), q=q, kv_pages=kv_pages,
+                           kv_scales=kv_scales, block_tables=block_tables, lens=lens,
+                           **side_kw)
+        _loader.launch(name, "dstorch_paged_decode_int8", q.device,
+                       P(q), P(kv_pages), P(kv_scales), P(block_tables), P(lens),
+                       P(side_k), P(side_v), P(out), S, H, Hkv, D, bs, MB,
+                       kv_scales.shape[1], C, int(j), scale)
+        return out
+    _loader.check_cuda(name, q.dtype, q=q, kv_pages=kv_pages,
+                       block_tables=block_tables, lens=lens, **side_kw)
+    _loader.launch(name, "dstorch_paged_decode_bf16", q.device,
                    P(q), P(kv_pages), P(block_tables), P(lens), P(side_k),
                    P(side_v), P(out), S, H, Hkv, D, bs, MB, C, int(j), scale)
     return out
 
 
+def gather_rows(kv_pages, block_tables, n_pages: int,
+                kv_scales: Optional[torch.Tensor] = None):
+    """Each row's first ``n_pages`` pages as f32 K and V ``[R, Hkv, T, D]``
+    (T = n_pages * bs), dequantized when ``kv_scales`` is given."""
+    R = block_tables.shape[0]
+    _, _, Hkv, bs, D = kv_pages.shape
+    T = n_pages * bs
+    idx = block_tables[:, :n_pages].long()
+    pages = kv_pages[idx].float()                          # [R, P, 2, Hkv, bs, D]
+    if kv_scales is not None:
+        pages = pages * scales_from_tiles(kv_scales, Hkv, bs)[idx][..., None]
+
+    def rows(i):
+        return pages[:, :, i].permute(0, 2, 1, 3, 4).reshape(R, Hkv, T, D)
+
+    return rows(0), rows(1)
+
+
 def paged_decode_attention_plain(q, kv_pages, block_tables, lens, side_k=None,
                                  side_v=None, j: int = 0,
-                                 softmax_scale: Optional[float] = None):
+                                 softmax_scale: Optional[float] = None,
+                                 kv_scales: Optional[torch.Tensor] = None):
     """The same function in plain PyTorch, computed in f32; returns q's
     dtype."""
     S, H, D = q.shape
@@ -87,12 +152,7 @@ def paged_decode_attention_plain(q, kv_pages, block_tables, lens, side_k=None,
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
     n_pages = -(-int(lens.max()) // bs) if S else 0
     T = n_pages * bs
-    pages = kv_pages[block_tables[:, :n_pages].long()]     # [S, P, 2, Hkv, bs, D]
-
-    def rows(i):
-        return pages[:, :, i].float().permute(0, 2, 1, 3, 4).reshape(S, Hkv, T, D)
-
-    k, v = rows(0), rows(1)
+    k, v = gather_rows(kv_pages, block_tables, n_pages, kv_scales)
     mask = torch.arange(T, device=q.device)[None] < lens.long()[:, None]
     if side_k is not None:
         C = side_k.shape[1] // Hkv

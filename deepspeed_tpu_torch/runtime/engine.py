@@ -125,7 +125,7 @@ class DeepSpeedTPUEngine:
         if src is None:
             src = {n: p.detach() for n, p in named.items()}
         elif any(isinstance(v, np.ndarray) for v in src.values()):
-            src = params_from_flat(src)
+            src = params_from_flat(src, device=self.device)
         if set(src) != set(named):
             raise KeyError(f"model_parameters names differ from the model's: missing "
                            f"{sorted(set(named) - set(src))[:4]}, unexpected "

@@ -52,7 +52,7 @@ def _flax(name):
 def _port_model(cfg, flat):
     pcfg = LlamaConfig.tiny(**CONFIGS[cfg])
     model = LlamaForCausalLM(pcfg, device="cpu", seed=1)
-    model.load_flat(params_from_flat(flat))
+    model.load_flat(params_from_flat(flat, device="cpu"))
     return model
 
 
@@ -82,7 +82,7 @@ def _prompts(seed, lengths, vocab=128):
 def test_weight_carrier_round_trip_is_byte_equal(dtype):
     _, _, params = _flax("d16")
     flat = {k: np.asarray(v.astype(dtype)) for k, v in flatten_tree(params).items()}
-    back = params_to_flat(params_from_flat(flat))
+    back = params_to_flat(params_from_flat(flat, device="cpu"))
     assert set(back) == set(flat)
     for k, a in flat.items():
         assert back[k].dtype == a.dtype and back[k].shape == a.shape, k

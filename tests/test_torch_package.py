@@ -140,18 +140,27 @@ def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("section, value, feature", [
-    ("kv_quant", {"enabled": True}, "kv_quant"),
     ("spec_decode", {"enabled": True}, "spec_decode"),
     ("prefix_cache", {"enabled": True}, "prefix_cache"),
     ("lora", {"enabled": True}, "lora"),
-    ("attention", {"decode_splits": 2}, "attention.decode_splits"),
-    ("quantization", {"weight_bits": 8}, "quantization.weight_bits"),
+    ("quantization", {"weight_bits": 4}, "quantization.weight_bits"),
     ("tensor_parallel", 2, "tensor_parallel"),
     ("serving", {"decode_slice": 4}, "serving"),
 ])
 def test_unported_config_feature_raises(section, value, feature):
     with pytest.raises(NotImplementedError, match=feature):
         RaggedInferenceEngineConfig.load({section: value})
+
+
+@pytest.mark.parametrize("section, value", [
+    ("kv_quant", {"enabled": True}),
+    ("attention", {"decode_splits": 8, "min_ctx_per_split": 512}),
+    ("quantization", {"weight_bits": 8}),
+])
+def test_ported_config_feature_loads(section, value):
+    cfg = RaggedInferenceEngineConfig.load({section: value})
+    for k, v in value.items():
+        assert getattr(getattr(cfg, section), k) == v
 
 
 def _spec(**kw):

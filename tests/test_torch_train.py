@@ -69,7 +69,7 @@ def _flat(tree):
 def _port_gpt2(name, flat, dtype=torch.float32):
     kw, _, _ = GPT2_CASES[name]
     model = GPT2LMHead(GPT2Config.tiny(dtype=dtype, **kw), device="cpu", seed=1)
-    model.load_flat_params(params_from_flat(flat))
+    model.load_flat_params(params_from_flat(flat, device="cpu"))
     return model
 
 
@@ -83,7 +83,7 @@ def test_gpt2_weight_carrier_round_trip_is_byte_equal(dtype):
     flat = {k: v.astype(dtype) for k, v in _flat(params).items()}
     model = GPT2LMHead(GPT2Config.tiny(dtype=torch.float32 if dtype == jnp.float32
                                        else torch.bfloat16), device="cpu")
-    model.load_flat_params(params_from_flat(flat))
+    model.load_flat_params(params_from_flat(flat, device="cpu"))
     back = params_to_flat(model.flat_params())
     assert set(back) == set(flat)
     for k, a in flat.items():
