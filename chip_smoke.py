@@ -48,7 +48,17 @@ projection and the LM head and at M = 736 through gate/up, the int8 decode
 and chunk kernels, K7 split-K decode at 2, 4 and 8 splits (contexts up to
 4264 tokens, one short enough to leave splits empty) and its merge kernel.
 
-The last two lines are the kernel table (14 rows) and ``{"ok": true,
+7. block-sparse attention (K9) at BERT-large's attention geometry (16
+   heads, D = 64), B = 2, S = 4096, bf16, through the op's entry point
+   ``sparse_self_attention`` forward and ``.backward``, under three layouts
+   (A: DeepSpeed's documented fixed config, per head with 4 global
+   patterns; B: fixed unidirectional, causal; C: BigBird defaults) and two
+   ragged shapes at D = 128 (S = 1040 in blocks of 16, S = 1056 in blocks
+   of 32); each kernel (forward, dq, dk/dv) against its plain version, one
+   launch of each per op call, the op against its plain route, the op's
+   and kernels' times with SDPA over the boolean token mask as yardstick.
+
+The last two lines are the kernel table (17 rows) and ``{"ok": true,
 "device": ...}`` as JSON. Run from the repository root: ``python3 chip_smoke.py``.
 """
 
@@ -262,7 +272,7 @@ def check_kernels(dev):
         decode_case(S, 32, 32, 128, 0, 0)
         decode_case(S, 32, 32, 128, 1, 0)
         decode_case(S, 32, 32, 128, 4, 2)
-    decode_case(32, 32, 32, 64, 1, 0)
+    decode_case(32, 32, 32, 64, 1, 0, timed=True)   # K3s's small-D path in JAX
     decode_case(32, 32, 8, 128, 1, 0)
     decode_case(32, 32, 8, 128, 0, 0)
     # timed at the pipelined decode step's shape (one side row); the kernel
@@ -1088,6 +1098,226 @@ def run_13b():
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 7: block-sparse attention (K9) through sparse_self_attention
+# --------------------------------------------------------------------------- #
+
+K9_NAMES = ("block_sparse_fwd", "block_sparse_dq", "block_sparse_dkv")
+SPARSE_B, SPARSE_H = 2, 16      # BERT-large's attention: 16 heads of D = 64
+
+
+def sparse_cases():
+    """(label, config, S, D, timed): the three layouts at S = 4096, D = 64
+    (A, DeepSpeed's documented fixed config, is the kernel table's row),
+    then two untimed ragged shapes at D = 128 (no 64-tile divides S)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig,
+                                                          FixedSparsityConfig)
+    H = SPARSE_H
+    return [
+        ("A fixed bidirectional, per head, 4 global patterns",
+         FixedSparsityConfig(num_heads=H, block=16, different_layout_per_head=True,
+                             num_local_blocks=4, num_global_blocks=1,
+                             attention="bidirectional", num_different_global_patterns=4),
+         4096, 64, True),
+        ("B fixed unidirectional (causal)",
+         FixedSparsityConfig(num_heads=H, block=16, num_local_blocks=4, num_global_blocks=1,
+                             attention="unidirectional"), 4096, 64, True),
+        ("C BigBird defaults", BigBirdSparsityConfig(num_heads=H, block=16), 4096, 64, True),
+        ("S=1040 block 16, fixed per head", FixedSparsityConfig(
+            num_heads=H, block=16, different_layout_per_head=True,
+            num_different_global_patterns=4), 1040, 128, False),
+        ("S=1056 block 32, BigBird unidirectional", BigBirdSparsityConfig(
+            num_heads=H, block=32, attention="unidirectional"), 1056, 128, False),
+    ]
+
+
+def head_masks(tables, H: int):
+    """[H, S, S] bool: the pairs each of the H heads sees (head h reads
+    layout head h % Hl)."""
+    import torch
+    return tables.token_mask("cuda")[torch.arange(H, device="cuda") % tables.num_layout_heads]
+
+
+def check_sparse_kernels(label, cfg, S, D, timed, randn, record):
+    """K9's three kernels against their plain versions (the backward ones
+    fed the kernel forward's o and lse); timed for the S = 4096 layouts,
+    with SDPA over the boolean token mask as the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from deepspeed_tpu_torch.ops.kernels import (
+        block_sparse_delta, block_sparse_dkv, block_sparse_dkv_plain, block_sparse_dq,
+        block_sparse_dq_plain, block_sparse_fwd, block_sparse_fwd_plain, get_tables)
+    B, H = SPARSE_B, SPARSE_H
+    causal = cfg.attention == "unidirectional"
+    layout = cfg.make_layout(S)
+    tables = get_tables(layout, cfg.block, causal, S, "cuda")
+    scale = D ** -0.5
+    q, k, v, do = (randn(B, H, S, D) for _ in range(4))
+    o, lse = block_sparse_fwd(q, k, v, tables, scale)
+    o_ref, lse_ref = block_sparse_fwd_plain(q, k, v, tables, scale)
+    delta = block_sparse_delta(o, do)
+    dq = block_sparse_dq(q, k, v, do, lse, delta, tables, scale)
+    dq_ref = block_sparse_dq_plain(q, k, v, do, lse, delta, tables, scale)
+    dk, dv = block_sparse_dkv(q, k, v, do, lse, delta, tables, scale)
+    dk_ref, dv_ref = block_sparse_dkv_plain(q, k, v, do, lse, delta, tables, scale)
+    torch.cuda.synchronize()
+    mask = head_masks(tables, H)
+    pairs = B * int(mask.sum())
+    shares = {"layout": label, "S": S, "D": D, "block": cfg.block,
+              "layout_heads": tables.num_layout_heads,
+              "active_16_block_share": float(np.kron(
+                  layout, np.ones((cfg.block // 16,) * 2, layout.dtype)).mean()),
+              "active_64_tile_share": tables.active_tiles / (
+                  tables.num_layout_heads * tables.num_tiles ** 2),
+              "visible_pairs": pairs, "visible_pair_share": pairs / (B * H * S * S)}
+    print("sparse-layout " + json.dumps(shares), flush=True)
+    case = f"{label}: B={B} H={H} S={S} D={D}"
+    extra = ({}, {}, {})
+    if timed:
+        x, stats = B * H * S * D * 2, B * H * S * 4     # one [B,H,S,D] bf16; lse
+        bounds = [bound(4 * x + stats, 4 * D * pairs),
+                  bound(5 * x + 2 * stats, 6 * D * pairs),
+                  bound(6 * x + 2 * stats, 8 * D * pairs)]
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask[None])
+            torch.autograd.grad(out, (qg, kg, vg), do)
+
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            lib_f = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask[None]))
+            lib_fb = time_ms(sdpa_fwd_bwd)
+        lib_b = lib_fb - lib_f
+        covers = "SDPA (efficient backend, bool token mask) backward: dq, dk and dv together"
+        extra = (
+            dict(ms=time_ms(lambda: block_sparse_fwd(q, k, v, tables, scale), 10),
+                 plain_ms=time_ms(lambda: block_sparse_fwd_plain(q, k, v, tables, scale),
+                                  3, 1), library_ms=lib_f),
+            dict(ms=time_ms(lambda: block_sparse_dq(q, k, v, do, lse, delta, tables, scale),
+                            10),
+                 plain_ms=time_ms(lambda: block_sparse_dq_plain(
+                     q, k, v, do, lse, delta, tables, scale), 3, 1),
+                 library_ms=lib_b, library_covers=covers),
+            dict(ms=time_ms(lambda: block_sparse_dkv(q, k, v, do, lse, delta, tables, scale),
+                            10),
+                 plain_ms=time_ms(lambda: block_sparse_dkv_plain(
+                     q, k, v, do, lse, delta, tables, scale), 3, 1),
+                 library_ms=lib_b, library_covers=covers))
+        for e, (b_ms, b_by) in zip(extra, bounds):
+            e.update(bound_ms=b_ms, bound_by=b_by)
+        print("sparse-library " + json.dumps({"layout": label, "sdpa_fwd_ms": lib_f,
+                                              "sdpa_fwd_bwd_ms": lib_fb}), flush=True)
+    row = label.startswith("A ")
+    record("block_sparse_fwd", case, err((o, o_ref), (lse[..., None], lse_ref[..., None])),
+           row=row, **extra[0])
+    record("block_sparse_dq", case, err((dq, dq_ref)), row=row, **extra[1])
+    record("block_sparse_dkv", case, err((dk, dk_ref), (dv, dv_ref)), row=row, **extra[2])
+    return q, k, v, do
+
+
+def check_op(case, op, plain_bf16, exact):
+    """The op's (o, dq, dk, dv) against its plain route in f32: for each
+    tensor, the worst error share of the row scale (``err``) may be the
+    kernel rule's 2^-6 or, where bf16 arithmetic itself cannot do that
+    well, twice the plain route's own share in bf16. Rows of dk and dv for
+    keys few queries see, and rows whose dp - delta cancels, are where a
+    bf16 backward loses digits whatever the kernel does."""
+    shares = []
+    for name, a, b, ref in zip(("o", "dq", "dk", "dv"), op, plain_bf16, exact):
+        e_op = err((a, ref))["max_err_over_rowmax"]
+        e_bf = err((b, ref))["max_err_over_rowmax"]
+        limit = max(KERNEL_RTOL, 2 * e_bf)
+        shares.append({"tensor": name, "op_share": e_op, "plain_bf16_share": e_bf,
+                       "limit": limit, "ok": e_op <= limit})
+    print("op-check " + json.dumps({"op": "sparse_self_attention (autograd)", "case": case,
+                                    "vs": "plain route in f32", "tensors": shares}),
+          flush=True)
+    bad = [x for x in shares if not x["ok"]]
+    if bad:
+        raise AssertionError(f"sparse_self_attention {case}: {bad}")
+
+
+def run_sparse(rows):
+    """Phase 7: the kernel checks, then the main path (one forward and one
+    backward of ``sparse_self_attention`` per layout, each launching every
+    K9 kernel once), held against the op's plain route (``check_op``);
+    then the op's times at the S = 4096 layouts."""
+    import torch
+    from deepspeed_tpu_torch.ops import sparse_self_attention
+    from deepspeed_tpu_torch.ops.kernels import (LAUNCHES, block_sparse_bwd_plain,
+                                                 block_sparse_fwd_plain, get_tables,
+                                                 reset_launches)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device="cuda").manual_seed(4321)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    record = functools.partial(record_check, rows)
+    cases = sparse_cases()
+    inputs = [check_sparse_kernels(*c, randn, record) for c in cases]
+    torch.cuda.empty_cache()
+
+    # ---- the main path: the op's entry point, forward and backward ---- #
+    torch.cuda.synchronize()
+    reset_launches()
+    for (label, cfg, S, D, _), (q, k, v, do) in zip(cases, inputs):
+        before = {n: LAUNCHES[n] for n in K9_NAMES}
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        out = sparse_self_attention(qg, kg, vg, cfg)
+        out.backward(do)
+        torch.cuda.synchronize()
+        per_call = {n: LAUNCHES[n] - before[n] for n in K9_NAMES}
+        if per_call != {n: 1 for n in K9_NAMES}:
+            raise AssertionError(f"{label}: one op call launched {per_call}, "
+                                 "expected one of each K9 kernel")
+        if out.shape != q.shape or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{label}: the op's output is malformed")
+        # the same op on the plain route, in bf16 and in f32 from the same
+        # bf16 values; the op is held to the f32 route
+        tables = get_tables(cfg.make_layout(S), cfg.block, cfg.attention == "unidirectional",
+                            S, "cuda")
+        routes = {}
+        for name, ins in (("bf16", (q, k, v, do)),
+                          ("f32", tuple(t.float() for t in (q, k, v, do)))):
+            o_p, lse_p = block_sparse_fwd_plain(*ins[:3], tables, D ** -0.5)
+            routes[name] = (o_p, *block_sparse_bwd_plain(*ins[:3], o_p, lse_p, ins[3], tables,
+                                                         D ** -0.5))
+        check_op(f"{label}: S={S} D={D}",
+                 (out.detach(), qg.grad, kg.grad, vg.grad), routes["bf16"], routes["f32"])
+        del routes, o_p, lse_p
+        del out, qg, kg, vg
+    torch.cuda.synchronize()
+    launches = {n: LAUNCHES[n] for n in K9_NAMES}
+    print("main-path launches " + json.dumps(launches), flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- the op's times (host layout build and table lookup included) ---- #
+    for (label, cfg, S, D, timed), (q, k, v, do) in zip(cases, inputs):
+        if not timed:
+            continue
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+
+        def fwd_bwd():
+            sparse_self_attention(qg, kg, vg, cfg).backward(do)
+
+        print("sparse-op " + json.dumps({
+            "layout": label,
+            "op_fwd_ms": time_ms(lambda: sparse_self_attention(q, k, v, cfg), 10),
+            "op_fwd_bwd_ms": time_ms(fwd_bwd, 10),
+            "make_layout_ms": time_ms(lambda: cfg.make_layout(S), 3, 1)}), flush=True)
+        if label.startswith("A "):
+            # three calls: the profiler has dropped the window's first kernel
+            device_breakdown(f"sparse_self_attention fwd+bwd x 3, {label}",
+                             lambda: [fwd_bwd() for _ in range(3)], K9_NAMES)
+    print(f"phase 7: peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+          f"GiB; {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 ATTN_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "flash_fwd", "flash_bwd_dq",
               "flash_bwd_dkv")
 Q_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk", "splitk_merge",
@@ -1145,8 +1375,11 @@ def main() -> int:
     launches.update({k: v for k, v in run_training().items() if k in K1_NAMES})
     torch.cuda.empty_cache()
     launches.update(run_13b())
+    torch.cuda.empty_cache()
+    launches.update(run_sparse(rows))
     # modules by full name: the package re-exports same-named functions
     from deepspeed_tpu_torch.ops.kernels import paged_chunk, paged_decode, paged_splitk
+    from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import KERNELS as K9_KERNELS
     from deepspeed_tpu_torch.ops.kernels.flash_attention import KERNELS
     qmm = sys.modules["deepspeed_tpu_torch.ops.kernels.quantized_matmul"]
     sources = {}
@@ -1161,6 +1394,7 @@ def main() -> int:
         **{paged_splitk.kernel_name(n): (paged_splitk.SOURCE, paged_splitk.REPLACES)
            for n in (2, 4, 8)},
         paged_splitk.MERGE: (paged_splitk.SOURCE, paged_splitk.REPLACES_MERGE)})
+    sources.update(K9_KERNELS)
     table = []
     for name, (source, replaces) in sources.items():
         r = rows[name]

@@ -1,5 +1,6 @@
 """Operators of the port: hand-written CUDA kernels under ``ops.kernels``,
-attention dispatch (``ops.attention``) and the optimizer registry.
+attention dispatch (``ops.attention``), block-sparse self-attention
+(``ops.sparse_attention``) and the optimizer registry.
 
 ``build_optimizer`` reads the config's ``optimizer`` block as the JAX
 package's does. Only the Adam family is ported; every other registered name
@@ -8,7 +9,13 @@ of the JAX package raises ``NotImplementedError`` naming it."""
 from typing import Any, Dict
 
 from deepspeed_tpu_torch.ops.adam import FusedAdam
+from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import (
+    block_sparse_attention, block_sparse_attention_bhsd)
 from deepspeed_tpu_torch.ops.optimizer import TPUOptimizer
+from deepspeed_tpu_torch.ops.sparse_attention import (
+    BigBirdSparsityConfig, BSLongformerSparsityConfig, DenseSparsityConfig,
+    FixedSparsityConfig, SparsityConfig, VariableSparsityConfig, layout_to_mask,
+    sparse_self_attention, sparsity_ratio)
 
 OPTIMIZER_REGISTRY = {"adam": FusedAdam, "adamw": FusedAdam, "fusedadam": FusedAdam}
 # registered in the JAX package, not ported yet

@@ -1,10 +1,19 @@
 """The port's hand-written CUDA kernels (``deepspeed_tpu_torch/csrc``), each
 with a wrapper, its plain PyTorch version and a launch count
 (``_loader.LAUNCHES``). A wrapper runs the plain version only for tensors on
-the CPU; for CUDA tensors it launches the kernel or raises."""
+the CPU; for CUDA tensors it launches the kernel or raises.
+
+K9's [B, T, H, D] entry ``block_sparse_attention`` is exported by
+``deepspeed_tpu_torch.ops``, so that the module of the same name stays
+reachable here."""
 
 from deepspeed_tpu_torch.ops.kernels._loader import (LAUNCHES, load_library,
                                                       reset_launches)
+from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import (
+    BlockSparseAttention, block_sparse_attention_bhsd,
+    block_sparse_bwd, block_sparse_bwd_plain, block_sparse_delta, block_sparse_dkv,
+    block_sparse_dkv_plain, block_sparse_dq, block_sparse_dq_plain, block_sparse_fwd,
+    block_sparse_fwd_plain, get_tables)
 from deepspeed_tpu_torch.ops.kernels.flash_attention import (
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_fwd_plain, flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq,

@@ -31,8 +31,9 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("flash_packed.cu", "paged_chunk.cu", "paged_decode.cu", "flash_fwd.cu",
-           "flash_bwd.cu", "paged_splitk.cu", "quantized_matmul.cu")
-HEADERS = ("attn_common.cuh", "decode_common.cuh")
+           "flash_bwd.cu", "paged_splitk.cu", "quantized_matmul.cu",
+           "block_sparse_fwd.cu", "block_sparse_bwd.cu")
+HEADERS = ("attn_common.cuh", "decode_common.cuh", "tile_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -62,6 +63,12 @@ ENTRY_POINTS = {
     "dstorch_splitk_merge": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "dstorch_qmm_gemv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "dstorch_qmm_mma": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "dstorch_block_sparse_fwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _F, _I, _P),
+    "dstorch_block_sparse_dq_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _I, _I, _F, _I, _P),
+    "dstorch_block_sparse_dkv_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                      _I, _I, _I, _F, _I, _P),
 }
 
 LAUNCHES: Dict[str, int] = {"flash_packed": 0, "paged_chunk": 0,
@@ -69,7 +76,8 @@ LAUNCHES: Dict[str, int] = {"flash_packed": 0, "paged_chunk": 0,
                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                             "paged_chunk_int8": 0, "paged_decode_int8": 0,
                             "splitk_merge": 0, "quantized_matmul_gemv": 0,
-                            "quantized_matmul_mma": 0}
+                            "quantized_matmul_mma": 0, "block_sparse_fwd": 0,
+                            "block_sparse_dq": 0, "block_sparse_dkv": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()

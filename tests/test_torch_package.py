@@ -19,6 +19,7 @@ from deepspeed_tpu_torch.inference.v2.ragged_model import RaggedModelSpec
 from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from deepspeed_tpu_torch.ops import kernels
 from deepspeed_tpu_torch.ops.kernels import _loader
+from deepspeed_tpu_torch.ops.kernels.paged_splitk import merge_splitk_partials, splitk_merge
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "deepspeed_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -78,6 +79,14 @@ def _kernel_inputs(seed=0):
     f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
     i32 = lambda a: torch.tensor(a, dtype=torch.int32)
     pool = f(6, 2, 2, 4, 16)
+    w8 = torch.from_numpy(rng.randint(-127, 128, (32, 16)).astype(np.int8))
+    lse_p = f(2, 3, 4)
+    lse_p[0, 1] = -1e30                     # an empty split
+    # K9: per-head layouts in blocks of 16 over S = 48 (a ragged 64-tile)
+    bsa = lambda causal: {"tables": kernels.get_tables(
+        np.array([[[1, 0, 0], [1, 1, 0], [0, 1, 1]], [[1, 1, 1], [0, 1, 0], [1, 0, 1]]]),
+        16, causal, 48, "cpu"), "scale": 0.25}
+    x = lambda: f(1, 2, 48, 16)
     return {
         "flash_packed": lambda: ((f(10, 4, 16), f(10, 2, 16), f(10, 2, 16),
                                   i32([0] * 6 + [1] * 3 + [-1])), {}),
@@ -97,6 +106,20 @@ def _kernel_inputs(seed=0):
         "flash_bwd": lambda: ((f(2, 9, 2, 16), f(2, 9, 2, 16), f(2, 9, 2, 16),
                                f(2, 9, 2, 16), f(2, 2, 9), f(2, 9, 2, 16)),
                               {"causal": True, "scale": 0.25}),
+        "quantized_matmul": lambda: ((f(3, 32), w8, f(16).abs()), {}),
+        "splitk_attention": lambda: ((f(2, 4, 16), pool, i32([[1, 2], [3, 0]]),
+                                      i32([5, 0])),
+                                     {"n_splits": 2, "side_k": f(2, 2, 16),
+                                      "side_v": f(2, 2, 16), "j": 0}),
+        "splitk_merge": lambda: ((f(2, 3, 4, 16), lse_p),
+                                 {"dtype": torch.float32, "with_lse": True}),
+        "block_sparse_fwd": lambda: ((x(), x(), x()), bsa(True)),
+        "block_sparse_dq": lambda: ((x(), x(), x(), x(), f(1, 2, 48), f(1, 2, 48)),
+                                    bsa(False)),
+        "block_sparse_dkv": lambda: ((x(), x(), x(), x(), f(1, 2, 48), f(1, 2, 48)),
+                                     bsa(True)),
+        # the whole backward: q, k, v, o, lse, dO
+        "block_sparse_bwd": lambda: ((x(), x(), x(), x(), f(1, 2, 48), x()), bsa(True)),
     }
 
 
@@ -109,6 +132,15 @@ WRAPPERS = {
     "flash_bwd_dq": (kernels.flash_bwd_dq, kernels.flash_bwd_dq_plain),
     "flash_bwd_dkv": (kernels.flash_bwd_dkv, kernels.flash_bwd_dkv_plain),
     "flash_bwd": (kernels.flash_attention_bwd, kernels.flash_attention_bwd_plain),
+    "quantized_matmul": (kernels.quantized_matmul, kernels.quantized_matmul_plain),
+    "splitk_attention": (kernels.splitk_attention, kernels.splitk_attention_plain),
+    # the merge kernel's wrapper; merge_splitk_partials is its plain version
+    "splitk_merge": (splitk_merge, lambda out_p, lse_p, dtype, with_lse:
+                     merge_splitk_partials(out_p, lse_p)),
+    "block_sparse_fwd": (kernels.block_sparse_fwd, kernels.block_sparse_fwd_plain),
+    "block_sparse_dq": (kernels.block_sparse_dq, kernels.block_sparse_dq_plain),
+    "block_sparse_dkv": (kernels.block_sparse_dkv, kernels.block_sparse_dkv_plain),
+    "block_sparse_bwd": (kernels.block_sparse_bwd, kernels.block_sparse_bwd_plain),
 }
 
 
