@@ -58,7 +58,20 @@ and chunk kernels, K7 split-K decode at 2, 4 and 8 splits (contexts up to
    launch of each per op call, the op against its plain route, the op's
    and kernels' times with SDPA over the boolean token mask as yardstick.
 
-The last two lines are the kernel table (17 rows) and ``{"ok": true,
+8. Evoformer pair-bias attention (K10) at AlphaFold 2's fine-tuning
+   Evoformer widths (crop 384 residues, 512 MSA clusters, B = 1; MSA row
+   attention 8 heads x 32, triangle attention 4 heads x 32), bf16, through
+   ``DS4Sci_EvoformerAttention`` (MSA row attention with ``fused=True``,
+   the -1e9 mask bias and the pair bias; and ``fused=None`` with the pair
+   bias alone) and both triangle attentions, forward and ``.backward``;
+   each kernel (forward, dq, dk/dv, d(pair)) against its plain version at
+   the MSA row shape and at a ragged S = 300 (R = 4, D = 16 and 64, f32
+   pair bias), one launch of each per op call, the op's output and four
+   gradients against its plain route, ``msa_col_attention`` once (plain
+   torch, no kernel), and the op's and kernels' times with SDPA over the
+   float bias as yardstick.
+
+The last two lines are the kernel table (21 rows) and ``{"ok": true,
 "device": ...}`` as JSON. Run from the repository root: ``python3 chip_smoke.py``.
 """
 
@@ -1217,26 +1230,27 @@ def check_sparse_kernels(label, cfg, S, D, timed, randn, record):
     return q, k, v, do
 
 
-def check_op(case, op, plain_bf16, exact):
-    """The op's (o, dq, dk, dv) against its plain route in f32: for each
+def check_op(case, op, plain_bf16, exact, names=("o", "dq", "dk", "dv"),
+             label="sparse_self_attention (autograd)"):
+    """The op's (o, dq, dk, dv, ...) against its plain route in f32: for each
     tensor, the worst error share of the row scale (``err``) may be the
     kernel rule's 2^-6 or, where bf16 arithmetic itself cannot do that
     well, twice the plain route's own share in bf16. Rows of dk and dv for
     keys few queries see, and rows whose dp - delta cancels, are where a
     bf16 backward loses digits whatever the kernel does."""
     shares = []
-    for name, a, b, ref in zip(("o", "dq", "dk", "dv"), op, plain_bf16, exact):
+    for name, a, b, ref in zip(names, op, plain_bf16, exact):
         e_op = err((a, ref))["max_err_over_rowmax"]
         e_bf = err((b, ref))["max_err_over_rowmax"]
         limit = max(KERNEL_RTOL, 2 * e_bf)
         shares.append({"tensor": name, "op_share": e_op, "plain_bf16_share": e_bf,
                        "limit": limit, "ok": e_op <= limit})
-    print("op-check " + json.dumps({"op": "sparse_self_attention (autograd)", "case": case,
+    print("op-check " + json.dumps({"op": label, "case": case,
                                     "vs": "plain route in f32", "tensors": shares}),
           flush=True)
     bad = [x for x in shares if not x["ok"]]
     if bad:
-        raise AssertionError(f"sparse_self_attention {case}: {bad}")
+        raise AssertionError(f"{label} {case}: {bad}")
 
 
 def run_sparse(rows):
@@ -1318,6 +1332,256 @@ def run_sparse(rows):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 8: Evoformer pair-bias attention (K10) through DS4Sci_EvoformerAttention
+# --------------------------------------------------------------------------- #
+
+K10_NAMES = ("evoformer_fwd", "evoformer_dq", "evoformer_dkv", "evoformer_dbias")
+# AlphaFold 2's fine-tuning Evoformer (Jumper et al. 2021, Supplementary
+# Algorithms 7, 13 and 14 and the training-stage table; OpenFold's
+# model.evoformer_stack): a crop of 384 residues, 512 MSA clusters, batch 1;
+# MSA row attention 8 heads x 32 (c_m = 256), triangle attention 4 heads x
+# 32 (c_z = 128)
+EVO_RES, EVO_CLUST, EVO_D = 384, 512, 32
+EVO_MSA_H, EVO_TRI_H = 8, 4
+
+
+def keep_mask(g, shape, full_row):
+    """[.., S] float 1 = keep, 0 = masked: about 3% of keys masked at
+    random, and every key of the row ``full_row`` (a leading index)."""
+    import torch
+    keep = (torch.rand(*shape, generator=g, device="cuda") > 0.03).float()
+    keep[full_row] = 0.0
+    return keep
+
+
+def evo_routes(q, k, v, mask, pair, do, R):
+    """The op's plain route (forward and backward plain versions) in bf16
+    and in f32 from the same bf16 values: (o, dq, dk, dv, dpair) each."""
+    from deepspeed_tpu_torch.ops.kernels import evoformer_bwd_plain, evoformer_fwd_plain
+    scale = q.shape[-1] ** -0.5
+    routes = {}
+    for name, conv in (("bf16", lambda t: t), ("f32", lambda t: t.float())):
+        ins = [None if t is None else conv(t) for t in (q, k, v, mask, pair, do)]
+        o, lse = evoformer_fwd_plain(*ins[:5], scale, R)
+        routes[name] = (o, *evoformer_bwd_plain(*ins[:5], o, lse, ins[5], scale, R))
+    return routes
+
+
+def check_evo_kernels(label, L, S, H, D, R, pair_dtype, timed, randn, g, record):
+    """K10's four kernels against their plain versions (the backward ones
+    fed the kernel forward's o and lse) on [L, S, H, D] rows with a mask
+    (3% of keys, and row 1's every key) and a pair bias [L / R, H, S, S];
+    timed at the MSA row shape, with SDPA over the float bias as the
+    library yardstick. Returns the inputs."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from deepspeed_tpu_torch.ops.kernels import (
+        evoformer_dbias, evoformer_dbias_plain, evoformer_delta, evoformer_dkv,
+        evoformer_dkv_plain, evoformer_dq, evoformer_dq_plain, evoformer_fwd,
+        evoformer_fwd_plain)
+    G = L // R
+    scale = D ** -0.5
+    q, k, v, do = (randn(L, S, H, D) for _ in range(4))
+    pair = randn(G, H, S, S).to(pair_dtype)
+    mask = torch.where(keep_mask(g, (L, S), 1) > 0, 0.0, -1e9)
+    o, lse = evoformer_fwd(q, k, v, mask, pair, scale, R)
+    o_ref, lse_ref = evoformer_fwd_plain(q, k, v, mask, pair, scale, R)
+    delta = evoformer_delta(o, do)
+    args = (q, k, v, mask, pair, do, lse, delta, scale, R)
+    dq, dq_ref = evoformer_dq(*args), evoformer_dq_plain(*args)
+    (dk, dv), (dk_ref, dv_ref) = evoformer_dkv(*args), evoformer_dkv_plain(*args)
+    dpair, dpair_ref = evoformer_dbias(*args), evoformer_dbias_plain(*args)
+    torch.cuda.synchronize()
+    case = f"{label}: L={L} S={S} H={H} D={D} R={R} pair {str(pair_dtype)[6:]}"
+    extra = ({}, {}, {}, {})
+    if timed:
+        pairs = L * H * S * S
+        x, stats = L * S * H * D * 2, L * H * S * 4     # one [L,S,H,D] bf16; lse
+        biases = L * S * 4 + pair.numel() * pair.element_size()   # mask + pair read once
+        bounds = [bound(4 * x + stats + biases, 4 * D * pairs),
+                  bound(5 * x + 2 * stats + biases, 6 * D * pairs),
+                  bound(6 * x + 2 * stats + biases, 8 * D * pairs),
+                  bound(4 * x + 2 * stats + biases + pair.numel() * pair.element_size(),
+                        4 * D * pairs)]
+        # the yardstick: SDPA on [L, H, S, D] views with the bias mask[l] +
+        # pair[l // R] materialised as one [L, H, S, S] bf16 tensor (the
+        # efficient backend takes no broadcast of two biases); fwd+bwd
+        # includes the bias's sum and its gradient's reduction to d(pair)
+        bhsd = lambda t: t.transpose(1, 2)
+        mask_bf = mask.to(torch.bfloat16).view(G, R, 1, 1, S)
+        bias = (pair.to(torch.bfloat16)[:, None] + mask_bf).view(L, H, S, S)
+        qg, kg, vg = (bhsd(t).detach().requires_grad_() for t in (q, k, v))
+        pg = pair.to(torch.bfloat16).detach().requires_grad_()
+
+        def sdpa_fwd_bwd():
+            b = (pg[:, None] + mask_bf).view(L, H, S, S)
+            out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=b)
+            torch.autograd.grad(out, (qg, kg, vg, pg), bhsd(do))
+
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            lib_f = time_ms(lambda: F.scaled_dot_product_attention(
+                bhsd(q), bhsd(k), bhsd(v), attn_mask=bias), 10, 2)
+            lib_fb = time_ms(sdpa_fwd_bwd, 5, 1)
+        lib_b = lib_fb - lib_f
+        covers = ("SDPA (efficient backend, float bias [L, H, S, S] bf16) backward: dq, dk, "
+                  "dv and d(bias) together, with the bias's reduction to d(pair)")
+        del bias, qg, kg, vg, pg
+        extra = (
+            dict(ms=time_ms(lambda: evoformer_fwd(q, k, v, mask, pair, scale, R), 10, 2),
+                 plain_ms=time_ms(lambda: evoformer_fwd_plain(q, k, v, mask, pair, scale, R),
+                                  3, 1),
+                 library_ms=lib_f,
+                 library_covers="SDPA (efficient backend, float bias [L, H, S, S] bf16) "
+                                "forward"),
+            dict(ms=time_ms(lambda: evoformer_dq(*args), 10, 2),
+                 plain_ms=time_ms(lambda: evoformer_dq_plain(*args), 3, 1),
+                 library_ms=lib_b, library_covers=covers),
+            dict(ms=time_ms(lambda: evoformer_dkv(*args), 10, 2),
+                 plain_ms=time_ms(lambda: evoformer_dkv_plain(*args), 3, 1),
+                 library_ms=lib_b, library_covers=covers),
+            dict(ms=time_ms(lambda: evoformer_dbias(*args), 10, 2),
+                 plain_ms=time_ms(lambda: evoformer_dbias_plain(*args), 3, 1),
+                 library_ms=lib_b, library_covers=covers))
+        for e, (b_ms, b_by) in zip(extra, bounds):
+            e.update(bound_ms=b_ms, bound_by=b_by)
+        print("evoformer-library " + json.dumps({"case": case, "sdpa_fwd_ms": lib_f,
+                                                 "sdpa_fwd_bwd_ms": lib_fb}), flush=True)
+    record("evoformer_fwd", case, err((o, o_ref), (lse[..., None], lse_ref[..., None])),
+           row=timed, **extra[0])
+    record("evoformer_dq", case, err((dq, dq_ref)), row=timed, **extra[1])
+    record("evoformer_dkv", case, err((dk, dk_ref), (dv, dv_ref)), row=timed, **extra[2])
+    # d(pair)'s rows are rows of its [S, S] tiles
+    record("evoformer_dbias", case, err((dpair, dpair_ref)), row=timed, **extra[3])
+    return q, k, v, do, pair
+
+
+def evo_call(label, fn, grads_of, do, fold, routes_args, R, shape):
+    """One op call on the main path: forward and backward through ``fn``,
+    one launch of each K10 kernel, a finite output of ``shape``, and the
+    output and gradients (``fold`` maps each to the kernels' [L, S, H, D] or
+    [G, H, S, S] frame) held to the plain route in f32."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES
+    before = {n: LAUNCHES[n] for n in K10_NAMES}
+    out = fn()
+    out.backward(do)
+    torch.cuda.synchronize()
+    per_call = {n: LAUNCHES[n] - before[n] for n in K10_NAMES}
+    if per_call != {n: 1 for n in K10_NAMES}:
+        raise AssertionError(f"{label}: one op call launched {per_call}, "
+                             "expected one of each K10 kernel")
+    if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{label}: the op's output is malformed")
+    routes = evo_routes(*routes_args, R)
+    op = [fold[0](out.detach())] + [f(t.grad) for f, t in zip(fold[1:], grads_of)]
+    check_op(label, op, routes["bf16"], routes["f32"],
+             names=("o", "dq", "dk", "dv", "dpair"), label="evoformer attention (autograd)")
+
+
+def run_evoformer(rows):
+    """Phase 8: the kernel checks, then the main path at AlphaFold 2's
+    widths (MSA row attention through ``DS4Sci_EvoformerAttention`` with
+    ``fused=True`` and both biases, and with ``fused=None`` and the pair
+    bias alone; both triangle attentions; each launching every K10 kernel
+    once per call, held against the op's plain route; ``msa_col_attention``
+    once, plain torch); then the op's times."""
+    import torch
+    from deepspeed_tpu_torch.ops import (DS4Sci_EvoformerAttention, msa_col_attention,
+                                         msa_row_attention_mask_bias,
+                                         triangle_attention_ending_node,
+                                         triangle_attention_starting_node)
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from deepspeed_tpu_torch.ops.kernels.evoformer_attention import _mask_to_bias
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device="cuda").manual_seed(8765)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    record = functools.partial(record_check, rows)
+    Nr, Nc, D, Hm, Ht = EVO_RES, EVO_CLUST, EVO_D, EVO_MSA_H, EVO_TRI_H
+    q, k, v, do, pair = check_evo_kernels("MSA row attention", Nc, Nr, Hm, D, Nc,
+                                          torch.bfloat16, True, randn, g, record)
+    for d in (16, 64):
+        check_evo_kernels("ragged S, f32 pair", 8, 300, 4, d, 4, torch.float32, False,
+                          randn, g, record)
+    torch.cuda.empty_cache()
+
+    # ---- the main path: the entry points, forward and backward ---- #
+    B, msa_shape = 1, (1, Nc, Nr, Hm, D)
+    msa_mask = keep_mask(g, (B, Nc, Nr), (0, 1))
+    bias1 = msa_row_attention_mask_bias(msa_mask)                 # [1, N, 1, 1, S]
+    Q, K, V, dO = (t.view(msa_shape) for t in (q, k, v, do))
+    fold_msa = lambda t: t.reshape(Nc, Nr, Hm, D)
+    fold_pair = lambda t: t.reshape(B, Hm, Nr, Nr)
+    z_q, z_k, z_v, dz = (randn(B, Nr, Nr, Ht, D) for _ in range(4))
+    tri_pair = randn(B, Ht, Nr, Nr)
+    pair_mask = keep_mask(g, (B, Nr, Nr), (0, 1))
+    fold_start = lambda t: t.reshape(Nr, Nr, Ht, D)
+    fold_end = lambda t: t.transpose(1, 2).reshape(Nr, Nr, Ht, D)
+    torch.cuda.synchronize()
+    reset_launches()
+    for label, fused, b1 in (("MSA row, fused=True, mask + pair bias", True, bias1),
+                             ("MSA row, fused=None, pair bias only", None, None)):
+        Qg, Kg, Vg = (t.detach().clone().requires_grad_() for t in (Q, K, V))
+        b2 = pair.view(B, 1, Hm, Nr, Nr).detach().clone().requires_grad_()
+        evo_call(label, lambda: DS4Sci_EvoformerAttention(Qg, Kg, Vg, [b1, b2], fused=fused),
+                 (Qg, Kg, Vg, b2), dO, (fold_msa,) * 4 + (fold_pair,),
+                 (q, k, v, None if b1 is None else b1.reshape(Nc, Nr), pair, do), Nc,
+                 msa_shape)
+        del Qg, Kg, Vg, b2
+    for label, fn, fold in (("triangle, starting node", triangle_attention_starting_node,
+                             fold_start),
+                            ("triangle, ending node", triangle_attention_ending_node,
+                             fold_end)):
+        zq, zk, zv = (t.detach().clone().requires_grad_() for t in (z_q, z_k, z_v))
+        pb = tri_pair.detach().clone().requires_grad_()
+        pm = pair_mask if fold is fold_start else pair_mask.transpose(1, 2)
+        evo_call(label, lambda: fn(zq, zk, zv, pb, pair_mask), (zq, zk, zv, pb), dz,
+                 (fold,) * 4 + (lambda t: t,),
+                 (fold(z_q), fold(z_k), fold(z_v), _mask_to_bias(pm).reshape(Nr, Nr),
+                  tri_pair, fold(dz)), Nr, (B, Nr, Nr, Ht, D))
+        del zq, zk, zv, pb
+    # MSA column attention: plain torch (as the JAX package), no kernel
+    before = dict(LAUNCHES)
+    col = msa_col_attention(Q, K, V, msa_mask)
+    torch.cuda.synchronize()
+    if dict(LAUNCHES) != before or tuple(col.shape) != msa_shape \
+            or not bool(torch.isfinite(col).all()):
+        raise AssertionError("msa_col_attention: launched a kernel or gave a malformed output")
+    del col
+    launches = {n: LAUNCHES[n] for n in K10_NAMES}
+    print("main-path launches " + json.dumps(launches), flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- the op's times ---- #
+    Qg, Kg, Vg = (t.detach().clone().requires_grad_() for t in (Q, K, V))
+    b2 = pair.view(B, 1, Hm, Nr, Nr).detach().clone().requires_grad_()
+    zq, zk, zv = (t.detach().clone().requires_grad_() for t in (z_q, z_k, z_v))
+    pb = tri_pair.detach().clone().requires_grad_()
+    msa = lambda: DS4Sci_EvoformerAttention(Qg, Kg, Vg, [bias1, b2], fused=True)
+    tri = lambda: triangle_attention_starting_node(zq, zk, zv, pb, pair_mask)
+
+    def msa_fwd_bwd():
+        torch.autograd.grad(msa(), (Qg, Kg, Vg, b2), dO)
+
+    def tri_fwd_bwd():
+        torch.autograd.grad(tri(), (zq, zk, zv, pb), dz)
+
+    print("evoformer-op " + json.dumps({
+        "msa_row_fwd_ms": time_ms(msa, 5, 1), "msa_row_fwd_bwd_ms": time_ms(msa_fwd_bwd, 5, 1),
+        "triangle_start_fwd_ms": time_ms(tri, 5, 1),
+        "triangle_start_fwd_bwd_ms": time_ms(tri_fwd_bwd, 5, 1)}), flush=True)
+    device_breakdown("DS4Sci_EvoformerAttention MSA row fwd+bwd x 3",
+                     lambda: [msa_fwd_bwd() for _ in range(3)], K10_NAMES)
+    print(f"phase 8: peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+          f"GiB; {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 ATTN_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "flash_fwd", "flash_bwd_dq",
               "flash_bwd_dkv")
 Q_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk", "splitk_merge",
@@ -1377,9 +1641,12 @@ def main() -> int:
     launches.update(run_13b())
     torch.cuda.empty_cache()
     launches.update(run_sparse(rows))
+    torch.cuda.empty_cache()
+    launches.update(run_evoformer(rows))
     # modules by full name: the package re-exports same-named functions
     from deepspeed_tpu_torch.ops.kernels import paged_chunk, paged_decode, paged_splitk
     from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import KERNELS as K9_KERNELS
+    from deepspeed_tpu_torch.ops.kernels.evoformer_attention import KERNELS as K10_KERNELS
     from deepspeed_tpu_torch.ops.kernels.flash_attention import KERNELS
     qmm = sys.modules["deepspeed_tpu_torch.ops.kernels.quantized_matmul"]
     sources = {}
@@ -1395,6 +1662,7 @@ def main() -> int:
            for n in (2, 4, 8)},
         paged_splitk.MERGE: (paged_splitk.SOURCE, paged_splitk.REPLACES_MERGE)})
     sources.update(K9_KERNELS)
+    sources.update(K10_KERNELS)
     table = []
     for name, (source, replaces) in sources.items():
         r = rows[name]

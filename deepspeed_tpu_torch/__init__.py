@@ -12,6 +12,11 @@ each with its attention in hand-written CUDA kernels for ``sm_90a``
   ``train_steps`` / ``eval_loss`` on one device, training GPT-2
   (``models.gpt2.GPT2LMHead``) with AdamW, bf16 mixed precision and the
   flash attention kernels K1 (forward, dq and dk/dv).
+
+``ops`` also carries two attention ops of their own, forward and backward:
+block-sparse self-attention (``sparse_self_attention``, kernels K9) and
+Evoformer attention (``DS4Sci_EvoformerAttention`` and the four AlphaFold
+modes, kernels K10).
 """
 
 from deepspeed_tpu_torch.config import ConfigError, DeepSpeedTPUConfig

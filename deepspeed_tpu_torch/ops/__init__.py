@@ -1,6 +1,8 @@
 """Operators of the port: hand-written CUDA kernels under ``ops.kernels``,
 attention dispatch (``ops.attention``), block-sparse self-attention
-(``ops.sparse_attention``) and the optimizer registry.
+(``ops.sparse_attention``), Evoformer attention (``ops.evoformer``:
+``DS4Sci_EvoformerAttention`` over the fused pair-bias op K10, and the four
+AlphaFold attention modes) and the optimizer registry.
 
 ``build_optimizer`` reads the config's ``optimizer`` block as the JAX
 package's does. Only the Adam family is ported; every other registered name
@@ -9,6 +11,12 @@ of the JAX package raises ``NotImplementedError`` naming it."""
 from typing import Any, Dict
 
 from deepspeed_tpu_torch.ops.adam import FusedAdam
+from deepspeed_tpu_torch.ops.evoformer import (DS4Sci_EvoformerAttention, evoformer_attention,
+                                               msa_row_attention_mask_bias,
+                                               triangle_pair_bias)
+from deepspeed_tpu_torch.ops.kernels.evoformer_attention import (
+    evoformer_flash_attention, msa_col_attention, msa_row_attention,
+    triangle_attention_ending_node, triangle_attention_starting_node)
 from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import (
     block_sparse_attention, block_sparse_attention_bhsd)
 from deepspeed_tpu_torch.ops.optimizer import TPUOptimizer

@@ -32,8 +32,10 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("flash_packed.cu", "paged_chunk.cu", "paged_decode.cu", "flash_fwd.cu",
            "flash_bwd.cu", "paged_splitk.cu", "quantized_matmul.cu",
-           "block_sparse_fwd.cu", "block_sparse_bwd.cu")
-HEADERS = ("attn_common.cuh", "decode_common.cuh", "tile_common.cuh")
+           "block_sparse_fwd.cu", "block_sparse_bwd.cu", "evoformer_fwd.cu",
+           "evoformer_bwd.cu")
+HEADERS = ("attn_common.cuh", "decode_common.cuh", "tile_common.cuh",
+           "evoformer_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -69,6 +71,14 @@ ENTRY_POINTS = {
                                      _I, _I, _F, _I, _P),
     "dstorch_block_sparse_dkv_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                       _I, _I, _I, _F, _I, _P),
+    "dstorch_evoformer_fwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                                   _P),
+    "dstorch_evoformer_dq_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _F, _I, _P),
+    "dstorch_evoformer_dkv_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _F, _I, _P),
+    "dstorch_evoformer_dbias_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                     _I, _F, _I, _P),
 }
 
 LAUNCHES: Dict[str, int] = {"flash_packed": 0, "paged_chunk": 0,
@@ -77,7 +87,9 @@ LAUNCHES: Dict[str, int] = {"flash_packed": 0, "paged_chunk": 0,
                             "paged_chunk_int8": 0, "paged_decode_int8": 0,
                             "splitk_merge": 0, "quantized_matmul_gemv": 0,
                             "quantized_matmul_mma": 0, "block_sparse_fwd": 0,
-                            "block_sparse_dq": 0, "block_sparse_dkv": 0}
+                            "block_sparse_dq": 0, "block_sparse_dkv": 0,
+                            "evoformer_fwd": 0, "evoformer_dq": 0, "evoformer_dkv": 0,
+                            "evoformer_dbias": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()

@@ -87,6 +87,10 @@ def _kernel_inputs(seed=0):
         np.array([[[1, 0, 0], [1, 1, 0], [0, 1, 1]], [[1, 1, 1], [0, 1, 0], [1, 0, 1]]]),
         16, causal, 48, "cpu"), "scale": 0.25}
     x = lambda: f(1, 2, 48, 16)
+    # K10: L = 4 rows in groups of R = 2, a ragged S = 9, H = 2, D = 16
+    e = lambda: f(4, 9, 2, 16)
+    evo = lambda: (e(), e(), e(), torch.where(f(4, 9) > 1, -1e9, 0.0), f(2, 2, 9, 9))
+    evo_kw = {"scale": 0.25, "R": 2}
     return {
         "flash_packed": lambda: ((f(10, 4, 16), f(10, 2, 16), f(10, 2, 16),
                                   i32([0] * 6 + [1] * 3 + [-1])), {}),
@@ -120,6 +124,12 @@ def _kernel_inputs(seed=0):
                                      bsa(True)),
         # the whole backward: q, k, v, o, lse, dO
         "block_sparse_bwd": lambda: ((x(), x(), x(), x(), f(1, 2, 48), x()), bsa(True)),
+        "evoformer_fwd": lambda: (evo(), evo_kw),
+        "evoformer_dq": lambda: ((*evo(), e(), f(4, 2, 9), f(4, 2, 9)), evo_kw),
+        "evoformer_dkv": lambda: ((*evo(), e(), f(4, 2, 9), f(4, 2, 9)), evo_kw),
+        "evoformer_dbias": lambda: ((*evo(), e(), f(4, 2, 9), f(4, 2, 9)), evo_kw),
+        # the whole backward: q, k, v, mask, pair, o, lse, dO
+        "evoformer_bwd": lambda: ((*evo(), e(), f(4, 2, 9), e()), evo_kw),
     }
 
 
@@ -141,6 +151,11 @@ WRAPPERS = {
     "block_sparse_dq": (kernels.block_sparse_dq, kernels.block_sparse_dq_plain),
     "block_sparse_dkv": (kernels.block_sparse_dkv, kernels.block_sparse_dkv_plain),
     "block_sparse_bwd": (kernels.block_sparse_bwd, kernels.block_sparse_bwd_plain),
+    "evoformer_fwd": (kernels.evoformer_fwd, kernels.evoformer_fwd_plain),
+    "evoformer_dq": (kernels.evoformer_dq, kernels.evoformer_dq_plain),
+    "evoformer_dkv": (kernels.evoformer_dkv, kernels.evoformer_dkv_plain),
+    "evoformer_dbias": (kernels.evoformer_dbias, kernels.evoformer_dbias_plain),
+    "evoformer_bwd": (kernels.evoformer_bwd, kernels.evoformer_bwd_plain),
 }
 
 
