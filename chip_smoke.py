@@ -71,7 +71,27 @@ and chunk kernels, K7 split-K decode at 2, 4 and 8 splits (contexts up to
    torch, no kernel), and the op's and kernels' times with SDPA over the
    float bias as yardstick.
 
-The last two lines are the kernel table (21 rows) and ``{"ok": true,
+9. sliding-window serving of Mistral-7B at full width and depth (32
+   layers, 32 query heads over 8 KV heads, window 4096; random bf16 weights
+   from seed 0): the engine with pages of 128, a chunk budget of 8192 (take
+   cap 4224, page ring 66 pages), max_context 16384, 160 pages and the
+   split ladder up to 4; ``generate()`` on prompts of 12000/5000/2000/300
+   tokens (32 new tokens each; the 12000-token one wraps the ring), a
+   decode step at each pinned rung 1/2/4 and a ``put()`` mixing a 180-token
+   prompt with decode rows (at rung 1); ``spec.window == 4096``, launches
+   of the windowed K2, K5, decode kernel, K7 and the merge; next-token
+   logits at prefill and four decode steps against a dense fp32 forward
+   with the window, streamed over layers and query blocks (RMS within 2x
+   the same forward's in bf16); rung invariance; the 12032-token sequence
+   holding exactly 66 physical pages; rates, profiles, peak memory.
+
+Phase 3 also holds the window branch of K2, K5, the decode kernel and K7
+(2 and 4 splits) against their plain versions at Mistral-7B's shapes
+(windows 4096 and 200, ring tables), and checks that pages wholly below
+every row's window start are never read (filled with NaN, the outputs stay
+bitwise equal).
+
+The last two lines are the kernel table (26 rows) and ``{"ok": true,
 "device": ...}`` as JSON. Run from the repository root: ``python3 chip_smoke.py``.
 """
 
@@ -294,6 +314,7 @@ def check_kernels(dev):
     decode_case(32, 32, 32, 128, 1, 0, timed=True)
     check_flash(randn, record)
     check_quant_kernels(dev, g, randn, record)
+    check_window_kernels(dev, randn, record)
     return rows
 
 
@@ -607,6 +628,230 @@ def check_quant_kernels(dev, g, randn, record):
            row=True, ms=time_ms(lambda: splitk_merge(out_p, lse_p, torch.bfloat16)),
            plain_ms=time_ms(lambda: merge_splitk_partials(out_p, lse_p), 5, 1),
            library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+# Mistral-7B's attention at its serving shapes (phase 9): 32 query heads over
+# 8 KV heads (G = 4), D = 128, pages of 128, block tables as wide as phase
+# 9's max_context (16384 = 128 pages), the page ring of 66 pages; contexts
+# past the ring (12032 wraps it), past the window (5032) and inside it (332)
+MISTRAL_WINDOW = 4096
+W_HEADS, W_BS = (32, 8, 128), 128      # query heads, KV heads, head dim; page size
+W_CTXS = [12032, 5032, 2032, 332]
+W_MB, W_RING = 128, 66
+W_SEGS = [4224, 300, 100]             # K2: the take cap's segment and two short ones
+W_SHORT = 200                         # the second window: starts mid-tile, mid-page
+
+
+def ring_tables(ctxs, bs, MB, ring, dev):
+    """Block tables [len(ctxs), MB] int32 as the scheduler's page ring makes
+    them: row i owns ``ring`` pages of its own and logical page p reads
+    physical page ``own[p % ring]``; returns (tables, pages in the pool)."""
+    import torch
+    NB = len(ctxs) * ring
+    perm = torch.randperm(NB, generator=torch.Generator().manual_seed(11)).to(torch.int32)
+    bt = torch.zeros((len(ctxs), MB), dtype=torch.int32)
+    for i, c in enumerate(ctxs):
+        own = perm[i * ring:(i + 1) * ring]
+        for p in range(-(-c // bs)):
+            bt[i, p] = own[p % ring]
+    return bt.to(dev), NB
+
+
+def poison_below(pool, bt, ctxs, starts, bs):
+    """A copy of ``pool`` whose pages wholly below each row's first visible
+    token ``starts[i]`` hold NaN (tables without repeated pages): a kernel
+    that reads such a page, even masked, gives NaN."""
+    import torch
+    out = pool.clone()
+    for i, lo in enumerate(starts):
+        dead = [int(bt[i, p]) for p in range(-(-ctxs[i] // bs)) if (p + 1) * bs <= lo]
+        if dead:
+            out[torch.tensor(dead, device=pool.device)] = float("nan")
+    return out
+
+
+def check_window_kernels(dev, randn, record):
+    """The window branch of K2, K5, the decode kernel (K3/K4/K6) and K7 with
+    its merge, each against its plain version at Mistral-7B's shapes with
+    the window of 4096 (the kernel-table rows) and of 200 (a start mid-tile
+    and mid-page), through ring tables; then the poison check: pages wholly
+    below every row's window start filled with NaN (tables without repeated
+    pages) leave each kernel's output bitwise unchanged, so those pages are
+    skipped, not read and masked."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.kernels import (
+        flash_attention_packed, flash_attention_packed_plain,
+        paged_chunk_attention_batched, paged_chunk_attention_batched_plain,
+        paged_decode_attention, paged_decode_attention_plain,
+        splitk_attention, splitk_attention_plain)
+    (H, Hkv, D), bs = W_HEADS, W_BS
+    W = MISTRAL_WINDOW
+
+    # ---- K2: one 4224-row segment (the take cap) plus two short ones ---- #
+    seg_lens = W_SEGS
+    R = sum(seg_lens) + 16                          # 16 padding rows
+    seg = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    o = 0
+    for i, n in enumerate(seg_lens):
+        seg[o:o + n] = i
+        o += n
+    q, k, v = randn(R, H, D), randn(R, Hkv, D), randn(R, Hkv, D)
+    idx = torch.arange(R, device=dev)
+    for w in (W, W_SHORT):
+        out = flash_attention_packed(q, k, v, seg, window=w)
+        ref = flash_attention_packed_plain(q, k, v, seg, window=w)
+        torch.cuda.synchronize()
+        case = f"R={R} H={H} Hkv={Hkv} D={D} segs={seg_lens}+pad window={w}"
+        extra = {}
+        if w == W:
+            pairs = sum(sum(min(r + 1, w) for r in range(n)) for n in seg_lens + [16])
+            mask = (idx[:, None] >= idx[None]) & (idx[:, None] - idx[None] < w) \
+                & (seg[:, None] == seg[None])
+            qt = q.transpose(0, 1)[None]
+            kt, vt = (x.repeat_interleave(H // Hkv, dim=1).transpose(0, 1)[None]
+                      for x in (k, v))
+            b_ms, b_by = bound((2 * R * H + 2 * R * Hkv) * D * 2 + R * 4, 4 * D * H * pairs)
+            extra = dict(ms=time_ms(lambda: flash_attention_packed(q, k, v, seg, window=w)),
+                         plain_ms=time_ms(lambda: flash_attention_packed_plain(
+                             q, k, v, seg, window=w), 3, 1),
+                         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                             qt, kt, vt, attn_mask=mask)),
+                         library_covers="SDPA over the same boolean mask (K and V "
+                                        "repeated to 32 heads)",
+                         bound_ms=b_ms, bound_by=b_by)
+            del mask, qt, kt, vt
+        rows_ = slice(0, sum(seg_lens))
+        record("flash_packed_window", case, err((out[rows_], ref[rows_])), row=w == W,
+               **extra)
+    del q, k, v, out, ref
+    torch.cuda.empty_cache()
+
+    # ---- one ring pool for K5, the decode kernel and K7 ---- #
+    bt, NB = ring_tables(W_CTXS, bs, W_MB, W_RING, dev)
+    pool = randn(NB, 2, Hkv, bs, D)
+    ctx = torch.tensor(W_CTXS, dtype=torch.int32, device=dev)
+    S = len(W_CTXS)
+
+    # K5: 4 slots x 128 rows at the end of each context (window starts
+    # mid-page: 12032 - 128 - 4096 + 1 = 7809 = 61 pages + 1)
+    Cs = 128
+    qc = randn(S, Cs, H, D)
+    q0 = torch.clamp(ctx - Cs, min=0)
+    for w in (W, W_SHORT):
+        out = paged_chunk_attention_batched(qc, pool, bt, q0, ctx, window=w)
+        ref = paged_chunk_attention_batched_plain(qc, pool, bt, q0, ctx, window=w)
+        torch.cuda.synchronize()
+        extra = {}
+        if w == W:
+            vis = sum(min(c, qs + r + 1) - max(0, qs + r + 1 - w)
+                      for c, qs in zip(W_CTXS, q0.tolist()) for r in range(Cs)
+                      if qs + r < c)
+            toks = sum(c - max(0, qs - w + 1) for c, qs in zip(W_CTXS, q0.tolist()))
+            b_ms, b_by = bound(toks * Hkv * D * 2 * 2 + 2 * qc.numel() * 2, 4 * D * H * vis)
+            extra = dict(ms=time_ms(lambda: paged_chunk_attention_batched(
+                qc, pool, bt, q0, ctx, window=w)),
+                plain_ms=time_ms(lambda: paged_chunk_attention_batched_plain(
+                    qc, pool, bt, q0, ctx, window=w), 3, 1),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        record("paged_chunk_window", f"{S}x{Cs} rows ctx={W_CTXS} ring {W_RING} window={w}",
+               err((out, ref)), row=w == W, **extra)
+
+    # the decode kernel: pages only (decode rows of a pass), one side row
+    # (the decode step, the table's row) and four side rows at j = 2
+    qd = randn(S, H, D)
+    for w in (W, W_SHORT):
+        for C, j in ((0, 0), (1, 0), (4, 2)):
+            lens, side, kw = ctx, (), {}
+            if C:
+                lens = torch.clamp(ctx - 1 - j, min=0)
+                side = (randn(S, C * Hkv, D), randn(S, C * Hkv, D))
+                kw = {"j": j}
+            out = paged_decode_attention(qd, pool, bt, lens, *side, window=w, **kw)
+            ref = paged_decode_attention_plain(qd, pool, bt, lens, *side, window=w, **kw)
+            torch.cuda.synchronize()
+            timed = w == W and C == 1
+            extra = {}
+            if timed:
+                toks = sum(min(w - 1, n) for n in lens.tolist()) + S
+                b_ms, b_by = bound(toks * Hkv * D * 2 * 2 + 2 * qd.numel() * 2,
+                                   4 * D * H * toks)
+                extra = dict(ms=time_ms(lambda: paged_decode_attention(
+                    qd, pool, bt, lens, *side, window=w, **kw)),
+                    plain_ms=time_ms(lambda: paged_decode_attention_plain(
+                        qd, pool, bt, lens, *side, window=w, **kw), 3, 1),
+                    library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            record("paged_decode_window",
+                   f"S={S} H={H} Hkv={Hkv} ctx={W_CTXS} ring {W_RING} C={C} j={j} window={w}",
+                   err((out, ref)), row=timed, **extra)
+
+    # K7 at 2 and 4 splits with one side row (the decode step at rungs 2
+    # and 4, the table's rows) and pages only with lse; split 0 lies wholly
+    # below the window start (4 splits of 4096 tokens at ctx 12032 and
+    # window 4096; 2 splits of 8192 at window 200)
+    lens1 = torch.clamp(ctx - 1, min=0)
+    side = (randn(S, Hkv, D), randn(S, Hkv, D))
+    for n in (2, 4):
+        name = f"paged_splitk_window/{n}"
+        for w in (W, W_SHORT):
+            fn = lambda: splitk_attention(qd, pool, bt, lens1, n, *side, window=w)
+            out = fn()
+            ref = splitk_attention_plain(qd, pool, bt, lens1, n, *side, window=w)
+            extra = {}
+            if w == W:
+                toks = sum(min(w - 1, n_) for n_ in lens1.tolist()) + S
+                partials = S * (n + 1) * H * (D + 1) * 4
+                b_ms, b_by = bound(toks * Hkv * D * 2 * 2 + 2 * qd.numel() * 2 + 2 * partials,
+                                   4 * D * H * toks)
+                extra = dict(ms=time_ms(fn), plain_ms=time_ms(lambda: splitk_attention_plain(
+                    qd, pool, bt, lens1, n, *side, window=w), 3, 1),
+                    library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            record(name, f"S={S} H={H} Hkv={Hkv} ctx={W_CTXS} ring {W_RING} 1 side row "
+                   f"window={w}", err((out, ref)), row=w == W, **extra)
+            o, lse = splitk_attention(qd, pool, bt, ctx, n, with_lse=True, window=w)
+            o_ref, lse_ref = splitk_attention_plain(qd, pool, bt, ctx, n, with_lse=True,
+                                                    window=w)
+            record(name, f"pages only, with lse, window={w}",
+                   err((o, o_ref), (lse[..., None], lse_ref[..., None])))
+    del pool
+    torch.cuda.empty_cache()
+
+    # ---- the poison check: tables without repeated pages ---- #
+    NBp = sum(-(-c // bs) for c in W_CTXS) + 1
+    bt_p = block_tables(W_CTXS, bs, W_MB, NBp, dev)
+    clean = randn(NBp, 2, Hkv, bs, D)
+    poisoned = {}
+    for w in (W, W_SHORT):
+        def check(label, starts, fn):
+            key = (w, tuple(starts))
+            if key not in poisoned:
+                poisoned[key] = poison_below(clean, bt_p, W_CTXS, starts, bs)
+            a, b = fn(clean), fn(poisoned[key])
+            torch.cuda.synchronize()
+            same = bool(torch.equal(a, b))
+            dead = sum((max(0, lo) // bs) for lo in starts)
+            print("poison-check " + json.dumps({"kernel": label, "window": w,
+                                                "pages_poisoned": dead,
+                                                "output_unchanged": same}), flush=True)
+            if not same or not dead:
+                raise AssertionError(f"{label} window={w}: a page below the window start "
+                                     f"was read (or none was poisoned: {dead})")
+
+        starts = [max(0, c - w) for c in W_CTXS]
+        check("paged_decode_window (pages only)", starts,
+              lambda p: paged_decode_attention(qd, p, bt_p, ctx, window=w))
+        side4 = (randn(S, 4 * Hkv, D), randn(S, 4 * Hkv, D))
+        lens3 = torch.clamp(ctx - 3, min=0)
+        check("paged_decode_window (side rows, j = 2)",
+              [max(0, int(n) + 3 - w) for n in lens3.tolist()],
+              lambda p: paged_decode_attention(qd, p, bt_p, lens3, *side4, j=2, window=w))
+        for n in (2, 4):
+            check(f"paged_splitk_window/{n}", starts,
+                  lambda p, n=n: splitk_attention(qd, p, bt_p, ctx, n, window=w))
+        check("paged_chunk_window", [max(0, qs - w + 1) for qs in q0.tolist()],
+              lambda p: paged_chunk_attention_batched(qc, p, bt_p, q0, ctx, window=w))
+    del clean, poisoned
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------- #
@@ -1582,6 +1827,250 @@ def run_evoformer(rows):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 9: sliding-window serving of Mistral-7B
+# --------------------------------------------------------------------------- #
+
+W_KERNELS = ("flash_packed_window", "paged_chunk_window", "paged_decode_window",
+             "paged_splitk_window/2", "paged_splitk_window/4", "splitk_merge")
+W_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk", "splitk_merge")
+# chunk budget 8224 - 32 = 8192 tokens: a windowed sequence takes at most
+# window + block = 4224 tokens a pass, so the page ring is 66 pages
+ENGINE_MISTRAL = {"kv_cache": {"block_size": 128, "num_blocks": 160},
+                  "state_manager": {"max_ragged_sequence_count": 32,
+                                    "max_ragged_batch_size": 8224, "max_context": 16384},
+                  "attention": {"decode_splits": 4}, "seed": 0}
+# prompts (the 12000-token one reaches W_CTXS[0] = 12032 tokens at the ring
+# check), the oracle's self-check length and the profiled prefill pass
+W_PROMPTS, W_ORACLE_T, W_PREFILL = (12000, 5000, 2000, 300), 4600, 4224
+
+
+def dense_window_logits(weights, cfg, ids, rows, dt, q_block: int = 1024):
+    """The dense causal forward with the sliding window over one token
+    sequence ``ids`` [T] in ``dt``, from the engine's weights (each cast as
+    its matmul runs, so no second copy of the model exists): each block of
+    ``q_block`` query rows attends only the keys its window reaches, so no
+    [T, T] score tensor exists. Returns f32 logits at positions ``rows``."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.models.llama import apply_rope, rms_norm, rope_tables, window_mask
+    W = weights
+    H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    eps, win = cfg.rms_norm_eps, cfg.sliding_window
+    T = ids.shape[0]
+    pos = torch.arange(T, device=ids.device)
+    cos, sin = rope_tables(pos, D, cfg.rope_theta)
+
+    def mm(x, w):
+        return x @ w.to(dt)
+
+    def attend(q, k, v):
+        out = torch.empty_like(q)
+        for a in range(0, T, q_block):
+            b = min(T, a + q_block)
+            lo = max(0, a - win + 1)
+            kk, vv = (t[lo:b].repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+            s = torch.einsum("qhd,khd->hqk", q[a:b], kk).float() * D ** -0.5
+            s.masked_fill_(~window_mask(pos[None, a:b], pos[None, lo:b], win),
+                           torch.finfo(torch.float32).min)
+            out[a:b] = torch.einsum("hqk,khd->qhd", torch.softmax(s, -1).to(dt), vv)
+            del s
+        return out
+
+    x = W["embed"][ids].to(dt)
+    for w in W["layers"]:
+        h = rms_norm(x, w["ln1"], eps, dt)
+        q = apply_rope(mm(h, w["wq"]).view(T, H, D), cos, sin)
+        k = apply_rope(mm(h, w["wk"]).view(T, Hkv, D), cos, sin)
+        v = mm(h, w["wv"]).view(T, Hkv, D)
+        x = x + mm(attend(q, k, v).reshape(T, H * D), w["wo"])
+        h = rms_norm(x, w["ln2"], eps, dt)
+        x = x + mm(F.silu(mm(h, w["w_gate"])) * mm(h, w["w_up"]), w["w_down"])
+    x = rms_norm(x[rows], W["final_norm"], eps, dt)
+    return mm(x, W["lm_head"]).float()
+
+
+def run_mistral():
+    """Phase 9: Mistral-7B at full width and depth (32 layers, GQA 32/8,
+    window 4096), random bf16 weights from seed 0, served with its sliding
+    window through the page ring and the split ladder up to 4. Returns the
+    main path's launch counts of the windowed kernels."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.v2.ragged.ragged_batch import to_device
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gib = lambda b: b / 2 ** 30
+    cfg = LlamaConfig.mistral_7b(dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    engine = InferenceEngineV2(model, ENGINE_MISTRAL, model.flat_params())
+    sched = engine.scheduler
+    torch.cuda.synchronize()
+    nb = ENGINE_MISTRAL["kv_cache"]["num_blocks"]
+    print(f"model: Mistral-7B (LlamaConfig.mistral_7b: vocab {cfg.vocab_size}, hidden "
+          f"{cfg.hidden_size}, FFN {cfg.intermediate_size}, {cfg.num_hidden_layers} layers, "
+          f"{cfg.num_attention_heads} heads over {cfg.num_key_value_heads} KV heads, head_dim "
+          f"{cfg.head_dim}, rope_theta {cfg.rope_theta:g}, sliding_window "
+          f"{cfg.sliding_window}), random bf16 weights (seed 0); pool {nb} pages; spec.window "
+          f"{engine.spec.window}, take cap {sched._pass_take_cap}, ring {sched.ring_pages} "
+          f"pages, ladder {engine.attn_split_ladder}; build {time.perf_counter() - t0:.1f} s, "
+          f"memory {gib(torch.cuda.memory_allocated()):.2f} GiB", flush=True)
+    if engine.spec.window != MISTRAL_WINDOW or sched.ring_pages != W_RING:
+        raise AssertionError(f"window {engine.spec.window} / ring {sched.ring_pages}: "
+                             f"expected {MISTRAL_WINDOW} / {W_RING}")
+
+    # ---- the oracle against the model's own dense forward (window rule),
+    # on 4600 tokens: the streamed blocks compute the same function ---- #
+    rng = np.random.RandomState(7)
+    V = cfg.vocab_size
+    ids = torch.from_numpy(rng.randint(0, V, W_ORACLE_T)).long().cuda()
+    tail = torch.arange(W_ORACLE_T - 10, W_ORACLE_T, device="cuda")
+    a = model.forward_logits(ids[None], compute_dtype=torch.float32)[0, tail]
+    b = dense_window_logits(engine.weights, cfg, ids, tail, torch.float32, q_block=512)
+    d_oracle = float((a - b).abs().max())
+    print(f"oracle: streamed window forward vs forward_logits, {W_ORACLE_T} tokens fp32: max diff "
+          f"{d_oracle:.3g} (limit 1e-3; |logit| max {float(a.abs().max()):.3g})", flush=True)
+    if not d_oracle <= 1e-3:
+        raise AssertionError(f"the streamed oracle differs from forward_logits by {d_oracle}")
+    del a, b, model
+    torch.cuda.empty_cache()
+
+    prompts = [rng.randint(0, V, n).astype(np.int32) for n in W_PROMPTS]
+    uids = [10, 11, 12, 13]
+
+    # ---- the main path ---- #
+    reset_launches()
+    engine.attn_stats.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_new_tokens=32)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    gen_rungs = dict(engine.attn_stats.rungs)
+    for p, o in zip(prompts, outs):
+        if len(o) != len(p) + 32 or list(o[:len(p)]) != list(p) \
+                or not all(0 <= t < V for t in o):
+            raise AssertionError("generate() returned a malformed stream")
+    if engine.free_blocks != nb:
+        raise AssertionError(f"free blocks {engine.free_blocks} != {nb} after generate()")
+    t0 = time.perf_counter()
+    got = [engine.put(uids, prompts)]                       # prefill logits
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    pipe = engine.decode_pipeline(uids)
+    toks = []
+    for rung in engine.attn_split_ladder:                   # one step at each rung
+        engine.attn_rung_override = rung
+        toks.append(pipe.run(1)[:, 0])
+        engine._materialize(uids)
+        got.append(np.stack([engine._last_logits[u] for u in uids]))
+    # decode rows and a new 180-token prompt in one pass, at rung 1: the
+    # windowed chunk and decode kernels (rungs above 1 take the split paths)
+    engine.attn_rung_override = 1
+    nxt = np.argmax(got[-1], axis=-1).astype(np.int32)
+    lg = engine.put(uids + [14], [nxt[i:i + 1] for i in range(4)]
+                    + [rng.randint(0, V, 180).astype(np.int32)])
+    engine.attn_rung_override = None
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES.get(k, 0) for k in W_KERNELS}
+    rungs = dict(engine.attn_stats.rungs)
+    toks.append(nxt)
+    got.append(lg[:4])
+    print("main-path launches " + json.dumps(launches), flush=True)
+    print("attn_stats rungs " + json.dumps({"generate": gen_rungs, "main_path": rungs}),
+          flush=True)
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    unserved = [r for r in engine.attn_split_ladder if not rungs.get(r)]
+    if unserved:
+        raise AssertionError(f"rungs that served no step: {unserved}")
+    if lg.shape != (5, V) or not np.isfinite(lg).all():
+        raise AssertionError("put() logits malformed")
+
+    # ---- logits against the dense fp32 forward with the window ---- #
+    e_eng, e_dense, m_eng, m_dense = [], [], 0.0, 0.0
+    for i, p in enumerate(prompts):
+        seq = torch.from_numpy(np.concatenate([p] + [t[i:i + 1] for t in toks])).long().cuda()
+        rows = torch.arange(len(p) - 1, len(p) + len(toks), device="cuda")
+        ref32 = dense_window_logits(engine.weights, cfg, seq, rows, torch.float32)
+        ref16 = dense_window_logits(engine.weights, cfg, seq, rows, torch.bfloat16)
+        eng = torch.from_numpy(np.stack([g_[i] for g_ in got])).cuda()
+        if not torch.isfinite(eng).all():
+            raise AssertionError("engine logits are not finite")
+        d_eng, d_dense = eng - ref32, ref16 - ref32
+        e_eng.append(float(d_eng.pow(2).mean()))
+        e_dense.append(float(d_dense.pow(2).mean()))
+        m_eng = max(m_eng, float(d_eng.abs().max()))
+        m_dense = max(m_dense, float(d_dense.abs().max()))
+        del ref32, ref16
+    rms_eng, rms_dense = float(np.sqrt(np.mean(e_eng))), float(np.sqrt(np.mean(e_dense)))
+    limit = 2 * rms_dense
+    print(f"logits vs dense fp32 with the window (prefill + {len(toks)} decode steps x 4 "
+          f"prompts): engine bf16 rms {rms_eng:.5f} max {m_eng:.4f}; dense bf16 rms "
+          f"{rms_dense:.5f} max {m_dense:.4f}; limit rms <= {limit:.5f}", flush=True)
+    if not rms_eng <= limit:
+        raise AssertionError(f"engine logits error {rms_eng} > 2 x dense bf16 {rms_dense}")
+
+    # ---- rung invariance on one live step ---- #
+    db = sched.decode_batch(uids, 2, engine.scratch_block)
+    ids = engine._sample_device_padded(uids, False, 1.0, 0)
+    bt = to_device(db.block_tables, engine.device)
+    pos = to_device(db.positions, engine.device)
+    step = {}
+    for rung in reversed(engine.attn_split_ladder):         # each writes the same token
+        _, lg_r = engine._step_rungs[rung](engine.weights, engine.kv.kv, ids, pos, bt, pos + 1)
+        step[rung] = lg_r[:4].float()
+    diffs = {r: float((step[r] - step[1]).pow(2).mean().sqrt()) for r in step}
+    agree = {r: float((step[r].argmax(-1) == step[1].argmax(-1)).float().mean())
+             for r in step}
+    print("rung invariance " + json.dumps({"rms_vs_rung1": diffs, "limit": limit,
+                                           "greedy_agreement_vs_rung1": agree}), flush=True)
+    bad = {r: d for r, d in diffs.items() if not d <= limit}
+    if bad:
+        raise AssertionError(f"rungs {bad} differ from rung 1 by more than {limit}")
+
+    # ---- decode rate, then the ring at 12032 tokens ---- #
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.run(28)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    seq0 = sched.seqs[uids[0]]
+    held = set()
+    for s in sched.seqs.values():
+        held.update(s.blocks)
+    ring = {"seen_tokens": seq0.seen_tokens, "logical_pages": len(seq0.blocks),
+            "physical_pages": len(set(seq0.blocks)), "ring_pages": sched.ring_pages,
+            "pool_free": engine.free_blocks, "pool_held": len(held), "pool": nb}
+    print("page ring " + json.dumps(ring), flush=True)
+    if seq0.seen_tokens != W_CTXS[0] or ring["physical_pages"] != W_RING \
+            or ring["logical_pages"] <= W_RING or engine.free_blocks != nb - len(held):
+        raise AssertionError(f"page ring: {ring}")
+    n_prompt = sum(len(p) for p in prompts)
+    print(f"generate() 4 prompts x 32 tokens in {t_gen:.2f} s; prefill {n_prompt} tokens in "
+          f"{t_prefill * 1e3:.1f} ms = {n_prompt / t_prefill:.1f} tok/s; decode 4 x 28 tokens "
+          f"at rung {engine._attn_rung()} in {t_decode * 1e3:.1f} ms = "
+          f"{112 / t_decode:.1f} tok/s ({t_decode / 28 * 1e3:.2f} ms/step)", flush=True)
+    device_breakdown(f"Mistral decode step (4 seqs, ctx <= {W_CTXS[0] + 1}, rung "
+                     f"{engine._attn_rung()})", lambda: pipe.run(1), W_NAMES)
+    engine.flush(uids + [14])
+    device_breakdown(f"Mistral prefill pass ({W_PREFILL} tokens from 0, window)",
+                     lambda: engine.put([20], [rng.randint(0, V, W_PREFILL).astype(np.int32)]),
+                     W_NAMES)
+    engine.flush([20])
+    print(f"phase 9: peak device memory {gib(torch.cuda.max_memory_allocated()):.2f} GiB; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 ATTN_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "flash_fwd", "flash_bwd_dq",
               "flash_bwd_dkv")
 Q_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk", "splitk_merge",
@@ -1643,6 +2132,9 @@ def main() -> int:
     launches.update(run_sparse(rows))
     torch.cuda.empty_cache()
     launches.update(run_evoformer(rows))
+    torch.cuda.empty_cache()
+    # the merge kernel's row keeps phase 6's count; phase 9 checks its own
+    launches.update({k: v for k, v in run_mistral().items() if k != "splitk_merge"})
     # modules by full name: the package re-exports same-named functions
     from deepspeed_tpu_torch.ops.kernels import paged_chunk, paged_decode, paged_splitk
     from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import KERNELS as K9_KERNELS
@@ -1661,6 +2153,14 @@ def main() -> int:
         **{paged_splitk.kernel_name(n): (paged_splitk.SOURCE, paged_splitk.REPLACES)
            for n in (2, 4, 8)},
         paged_splitk.MERGE: (paged_splitk.SOURCE, paged_splitk.REPLACES_MERGE)})
+    fp = sys.modules["deepspeed_tpu_torch.ops.kernels.flash_packed"]
+    sources.update({
+        fp.NAME_WINDOW: (fp.SOURCE, fp.REPLACES_WINDOW),
+        paged_chunk.NAME_WINDOW: (paged_chunk.SOURCE, paged_chunk.REPLACES_WINDOW),
+        paged_decode.NAME_WINDOW: (paged_decode.SOURCE, paged_decode.REPLACES_WINDOW),
+        **{paged_splitk.kernel_name(n, MISTRAL_WINDOW): (paged_splitk.SOURCE,
+                                                         paged_splitk.REPLACES_WINDOW)
+           for n in (2, 4)}})
     sources.update(K9_KERNELS)
     sources.update(K10_KERNELS)
     table = []

@@ -7,7 +7,8 @@ each with its attention in hand-written CUDA kernels for ``sm_90a``
 (``ops.kernels``, sources in ``csrc/``):
 
 - serving: the v2 ragged engine (``inference.v2.InferenceEngineV2``)
-  serving Llama-2 (kernels K2, K5 and the paged decode kernel);
+  serving Llama-2 and Mistral with its sliding window (kernels K2, K5, the
+  paged decode kernel and split-K);
 - training: :func:`initialize` -> ``engine.train_batch`` /
   ``train_steps`` / ``eval_loss`` on one device, training GPT-2
   (``models.gpt2.GPT2LMHead``) with AdamW, bf16 mixed precision and the

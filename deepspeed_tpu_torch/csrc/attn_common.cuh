@@ -97,14 +97,17 @@ struct FlashSmem {
 // mask(r, key) says whether row r sees key (key < n_keys is implied).
 // Rows that see no key get zeros. When lse_rows is given, row r's
 // log-sum-exp of its scaled scores (m + log l) goes to lse_rows[r], and
-// kNegBig for a row that sees no key.
+// kNegBig for a row that sees no key. Keys below k_lo are neither read nor
+// computed (a sliding window's start: no row of the block sees them); the
+// key tiles start at k_lo.
 template <int D, typename KVRow, typename Mask>
 __device__ __forceinline__ void flash_block(const bf16* __restrict__ q_rows,
                                             bf16* __restrict__ o_rows,
                                             int row_stride, int n_q, int n_keys,
                                             KVRow kv_row, Mask mask,
                                             float scale, char* smem,
-                                            float* __restrict__ lse_rows = nullptr) {
+                                            float* __restrict__ lse_rows = nullptr,
+                                            int k_lo = 0) {
   static_assert(D % 16 == 0 && D <= 256, "head dim must be a multiple of 16, <= 256");
   constexpr bool I8 = std::is_same<decltype(kv_row(0)), KVRowPtrI8>::value;
   using S = FlashSmem<D, I8>;
@@ -142,7 +145,7 @@ __device__ __forceinline__ void flash_block(const bf16* __restrict__ q_rows,
     for (int n = 0; n < ND; ++n) o[r][n] = 0.f;
   }
 
-  for (int k0 = 0; k0 < n_keys; k0 += kBK) {
+  for (int k0 = k_lo; k0 < n_keys; k0 += kBK) {
     __syncthreads();  // the previous tile's readers are done
     if constexpr (I8) {
       constexpr int CH8 = D / 16;  // 16-byte chunks per int8 row

@@ -3,7 +3,9 @@
 // block of 128 threads per (sequence [, split], kv head).
 //
 // decode_attend<G, LPR, KV, SIDE> walks page tokens [t_lo, t_hi) of one
-// sequence, then (optionally) side rows cc <= j of its slab, and leaves the
+// sequence, then (optionally) side rows c_lo <= cc <= j of its slab (a
+// sliding window sets t_lo and c_lo; pages and side rows outside those
+// ranges are neither read nor computed), and leaves the
 // block's merged online-softmax state in shared memory: per query head g of
 // the kv head's group, the max m, the sum l and the unnormalised
 // accumulator acc[D]. The caller's epilogue normalises it.
@@ -135,7 +137,8 @@ __device__ __forceinline__ void decode_attend(const bf16* __restrict__ qrow,
                                               const DecodePage pg, int hk, int t_lo,
                                               int t_hi, const SIDE* __restrict__ side_k,
                                               const SIDE* __restrict__ side_v,
-                                              int n_side, float scale, char* smem) {
+                                              int n_side, float scale, char* smem,
+                                              int c_lo = 0) {
   constexpr int NGROUP = kDecThreads / LPR;
   constexpr int U = G <= 2 ? 4 : 2;
   constexpr bool I8 = std::is_same<KV, int8_t>::value;
@@ -199,8 +202,8 @@ __device__ __forceinline__ void decode_attend(const bf16* __restrict__ qrow,
       decode_update<G, LPR, KV>(qf, kr[u], vr[u], ks[u], vs[u], ok[u], m, l, acc);
   }
 
-  // side rows cc < n_side (row cc*Hkv + hk of this sequence's slab)
-  for (int c0 = 0; c0 < n_side; c0 += NGROUP) {
+  // side rows c_lo <= cc < n_side (row cc*Hkv + hk of this sequence's slab)
+  for (int c0 = c_lo; c0 < n_side; c0 += NGROUP) {
     const int cc = c0 + grp;
     const bool ok = cc < n_side;
     Raw8<SIDE> kr = zero8<SIDE>(), vr = zero8<SIDE>();

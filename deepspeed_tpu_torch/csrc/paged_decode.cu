@@ -12,6 +12,16 @@
 // It also covers _paged_decode_smalld (:1053): any D that is a multiple of
 // 8 up to 256 runs here.
 //
+// Sliding window (window > 0; _decode_body's window, :303-349, and the
+// side rows' mask, :487-488): without side rows the query sits at ctx - 1
+// and sees page tokens from max(ctx - window, 0); with side rows it sits
+// at prefix + j, so the first visible page token is max(prefix + j + 1 -
+// window, 0) and the side rows need cc >= j + 1 - window. Pages outside
+// [first visible token, ctx) are neither read nor computed. Tokens are
+// addressed by logical position through the block table, so a table that
+// repeats physical pages (the scheduler's page ring) reads the right
+// tokens. window = 0 is the unwindowed kernel.
+//
 // Bound on the H100: bytes. A decode step reads every visible token's K and
 // V row once (2 * D * 2 bytes per kv head) and does 4*D flops per query
 // head on it, ~1 flop per byte at MHA, two orders of magnitude below the
@@ -39,16 +49,22 @@ __global__ void __launch_bounds__(kDecThreads)
 paged_decode_kernel(const bf16* __restrict__ q, DecodePage pg, const int* __restrict__ bt,
                     const int* __restrict__ lens, const SIDE* __restrict__ side_k,
                     const SIDE* __restrict__ side_v, int C, int j, bf16* __restrict__ out,
-                    int MB, float scale) {
+                    int MB, int window, float scale) {
   extern __shared__ __align__(16) char smem[];
   const int s = blockIdx.x, hk = blockIdx.y;
   const int D = pg.D, H = pg.Hkv * G;
   pg.btr = bt + (size_t)s * MB;
   const size_t slab = (size_t)s * C * pg.Hkv * D;
-  decode_attend<G, LPR, KV, SIDE>(q + ((size_t)s * H + hk * G) * D, pg, hk, 0, lens[s],
+  const int len = lens[s];
+  int t_lo = 0, c_lo = 0;
+  if (window > 0) {
+    t_lo = max(side_k ? len + j + 1 - window : len - window, 0);
+    c_lo = max(j + 1 - window, 0);
+  }
+  decode_attend<G, LPR, KV, SIDE>(q + ((size_t)s * H + hk * G) * D, pg, hk, t_lo, len,
                                   side_k ? side_k + slab : nullptr,
                                   side_v ? side_v + slab : nullptr,
-                                  side_k ? j + 1 : 0, scale, smem);
+                                  side_k ? j + 1 : 0, scale, smem, c_lo);
   for (int idx = threadIdx.x; idx < G * D; idx += kDecThreads) {
     const int g = idx / D, d = idx - (idx / D) * D;
     float M, L, A;
@@ -61,7 +77,7 @@ struct DecodeLaunch {
   const void *q, *bt, *lens, *side_k, *side_v;
   void* out;
   DecodePage pg;
-  int S, MB, C, j;
+  int S, MB, C, j, window;
   float scale;
 };
 
@@ -77,7 +93,7 @@ int launch_paged_decode(const DecodeLaunch& a, cudaStream_t stream) {
       static_cast<const bf16*>(a.q), a.pg, static_cast<const int*>(a.bt),
       static_cast<const int*>(a.lens), static_cast<const SIDE*>(a.side_k),
       static_cast<const SIDE*>(a.side_v), a.C, a.j, static_cast<bf16*>(a.out), a.MB,
-      a.scale);
+      a.window, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -116,23 +132,25 @@ int dispatch_group(int G, const DecodeLaunch& a, cudaStream_t st) {
 // q [S, H, D] bf16; kv [NB, 2, Hkv, bs, D] bf16 (one layer); bt [S, MB] and
 // lens [S] int32 (page tokens attended per sequence); side_k/side_v
 // [S, C*Hkv, D] bf16 or null, rows cc <= j attended after the pages;
-// out [S, H, D] bf16. Returns the cudaError_t of the launch (0 = success),
+// window > 0 is the sliding window (0: none); out [S, H, D] bf16. Returns the cudaError_t of the launch (0 = success),
 // -1 for an unsupported head dim or group size.
 extern "C" int dstorch_paged_decode_bf16(const void* q, const void* kv, const void* bt,
                                          const void* lens, const void* side_k,
                                          const void* side_v, void* out, int S, int H,
                                          int Hkv, int D, int bs, int MB, int C, int j,
-                                         float scale, void* stream) {
+                                         int window, float scale, void* stream) {
   if (S == 0) return 0;
   if (D % 8 != 0 || D > 256 || H % Hkv != 0) return -1;
   dstorch::DecodeLaunch a{q, bt, lens, side_k, side_v, out,
-                          {kv, nullptr, 0, nullptr, Hkv, bs, D}, S, MB, C, j, scale};
+                          {kv, nullptr, 0, nullptr, Hkv, bs, D}, S, MB, C, j, window,
+                          scale};
   return dstorch::dispatch_group<dstorch::bf16, dstorch::bf16>(
       H / Hkv, a, static_cast<cudaStream_t>(stream));
 }
 
 // The same over int8 pages kv with f32 scale tiles sc [NB, R8, 128]; the
-// side rows are f32. D must be 128 or 256.
+// side rows are f32. D must be 128 or 256. No sliding window over int8
+// pages yet.
 extern "C" int dstorch_paged_decode_int8(const void* q, const void* kv, const void* sc,
                                          const void* bt, const void* lens,
                                          const void* side_k, const void* side_v, void* out,
@@ -142,7 +160,7 @@ extern "C" int dstorch_paged_decode_int8(const void* q, const void* kv, const vo
   if ((D != 128 && D != 256) || H % Hkv != 0) return -1;
   dstorch::DecodeLaunch a{q, bt, lens, side_k, side_v, out,
                           {kv, static_cast<const float*>(sc), r8, nullptr, Hkv, bs, D},
-                          S, MB, C, j, scale};
+                          S, MB, C, j, 0, scale};
   return dstorch::dispatch_group<int8_t, float>(H / Hkv, a,
                                                 static_cast<cudaStream_t>(stream));
 }

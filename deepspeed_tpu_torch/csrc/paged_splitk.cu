@@ -13,6 +13,14 @@
 // piece per sequence attends the side rows cc <= j alone, so the merge
 // combines n_splits + 1 pieces, as the JAX dispatcher does.
 //
+// Sliding window (window > 0; _splitk_body's window, :324-377): the splits
+// still cut the whole [0, MB) page range; each walks only its tokens at or
+// above the first visible one (max(ctx - window, 0), or max(prefix + j + 1
+// - window, 0) with side rows, as the decode kernel), so a split wholly
+// below the window start reads nothing and writes its empty partial (0,
+// -1e30), which the merge drops. The side piece needs cc >= j + 1 -
+// window. window = 0 is the unwindowed kernel.
+//
 // The merge (merge_splitk_partials :84, XLA outside Pallas in JAX) is the
 // second kernel here: one block per (sequence, head) weighs the pieces by
 // exp(lse_p - max lse) (0 for an empty piece) and writes the bf16 output,
@@ -34,7 +42,7 @@ paged_splitk_kernel(const bf16* __restrict__ q, DecodePage pg, const int* __rest
                     const int* __restrict__ lens, const SIDE* __restrict__ side_k,
                     const SIDE* __restrict__ side_v, int C, int j, int n_splits,
                     int split_tokens, float* __restrict__ out_p,
-                    float* __restrict__ lse_p, int MB, float scale) {
+                    float* __restrict__ lse_p, int MB, int window, float scale) {
   extern __shared__ __align__(16) char smem[];
   const int P = n_splits + (side_k != nullptr ? 1 : 0);
   const int s = blockIdx.x / P, piece = blockIdx.x - (blockIdx.x / P) * P;
@@ -42,15 +50,21 @@ paged_splitk_kernel(const bf16* __restrict__ q, DecodePage pg, const int* __rest
   const int D = pg.D, H = pg.Hkv * G;
   pg.btr = bt + (size_t)s * MB;
   const bf16* qrow = q + ((size_t)s * H + hk * G) * D;
+  const int len = lens[s];
+  int w_lo = 0, c_lo = 0;
+  if (window > 0) {
+    w_lo = max(side_k != nullptr ? len + j + 1 - window : len - window, 0);
+    c_lo = max(j + 1 - window, 0);
+  }
   if (piece < n_splits) {
-    const int t_lo = piece * split_tokens;
-    const int t_hi = min(t_lo + split_tokens, lens[s]);
+    const int t_lo = max(piece * split_tokens, w_lo);
+    const int t_hi = min(piece * split_tokens + split_tokens, len);
     decode_attend<G, LPR, KV, SIDE>(qrow, pg, hk, t_lo, t_hi, nullptr, nullptr, 0, scale,
                                     smem);
   } else {
     const size_t slab = (size_t)s * C * pg.Hkv * D;
     decode_attend<G, LPR, KV, SIDE>(qrow, pg, hk, 0, 0, side_k + slab, side_v + slab,
-                                    j + 1, scale, smem);
+                                    j + 1, scale, smem, c_lo);
   }
   const size_t row0 = ((size_t)s * P + piece) * H + hk * G;
   for (int idx = threadIdx.x; idx < G * D; idx += kDecThreads) {
@@ -94,7 +108,7 @@ struct SplitLaunch {
   const void *q, *bt, *lens, *side_k, *side_v;
   float *out_p, *lse_p;
   DecodePage pg;
-  int S, MB, C, j, n_splits, split_tokens;
+  int S, MB, C, j, n_splits, split_tokens, window;
   float scale;
 };
 
@@ -111,7 +125,7 @@ int launch_splitk(const SplitLaunch& a, cudaStream_t stream) {
       static_cast<const bf16*>(a.q), a.pg, static_cast<const int*>(a.bt),
       static_cast<const int*>(a.lens), static_cast<const SIDE*>(a.side_k),
       static_cast<const SIDE*>(a.side_v), a.C, a.j, a.n_splits, a.split_tokens, a.out_p,
-      a.lse_p, a.MB, a.scale);
+      a.lse_p, a.MB, a.window, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -151,26 +165,26 @@ int dispatch_splitk(int G, const SplitLaunch& a, cudaStream_t st) {
 // q [S, H, D] bf16; kv [NB, 2, Hkv, bs, D] bf16; bt [S, MB], lens [S] int32;
 // side_k/side_v [S, C*Hkv, D] bf16 or null (one more piece: rows cc <= j);
 // out_p [S, P, H, D] and lse_p [S, P, H] f32 with P = n_splits (+ 1 with
-// side rows); split p covers tokens [p * split_tokens, (p+1) * split_tokens).
-// Returns the launch's cudaError_t, -1 for an unsupported shape.
+// side rows); split p covers tokens [p * split_tokens, (p+1) * split_tokens);
+// window > 0 is the sliding window (0: none). Returns the launch's cudaError_t, -1 for an unsupported shape.
 extern "C" int dstorch_paged_splitk_bf16(const void* q, const void* kv, const void* bt,
                                          const void* lens, const void* side_k,
                                          const void* side_v, void* out_p, void* lse_p,
                                          int S, int H, int Hkv, int D, int bs, int MB,
                                          int C, int j, int n_splits, int split_tokens,
-                                         float scale, void* stream) {
+                                         int window, float scale, void* stream) {
   if (S == 0) return 0;
   if (D % 8 != 0 || D > 256 || H % Hkv != 0 || n_splits < 1) return -1;
   dstorch::SplitLaunch a{q, bt, lens, side_k, side_v,
                          static_cast<float*>(out_p), static_cast<float*>(lse_p),
                          {kv, nullptr, 0, nullptr, Hkv, bs, D},
-                         S, MB, C, j, n_splits, split_tokens, scale};
+                         S, MB, C, j, n_splits, split_tokens, window, scale};
   return dstorch::dispatch_splitk<dstorch::bf16, dstorch::bf16>(
       H / Hkv, a, static_cast<cudaStream_t>(stream));
 }
 
 // The same over int8 pages with f32 scale tiles sc [NB, R8, 128]; side rows
-// are f32.
+// are f32. No sliding window over int8 pages yet.
 extern "C" int dstorch_paged_splitk_int8(const void* q, const void* kv, const void* sc,
                                          const void* bt, const void* lens,
                                          const void* side_k, const void* side_v,
@@ -183,7 +197,7 @@ extern "C" int dstorch_paged_splitk_int8(const void* q, const void* kv, const vo
   dstorch::SplitLaunch a{q, bt, lens, side_k, side_v,
                          static_cast<float*>(out_p), static_cast<float*>(lse_p),
                          {kv, static_cast<const float*>(sc), r8, nullptr, Hkv, bs, D},
-                         S, MB, C, j, n_splits, split_tokens, scale};
+                         S, MB, C, j, n_splits, split_tokens, 0, scale};
   return dstorch::dispatch_splitk<int8_t, float>(H / Hkv, a,
                                                  static_cast<cudaStream_t>(stream));
 }

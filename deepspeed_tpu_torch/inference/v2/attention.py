@@ -8,14 +8,17 @@
   - ``decode`` -> the paged decode kernel with pages only;
   - ``sidebuf`` / ``decode_step`` -> the same decode kernel with side rows.
 
-Two things key the kernel at the call or at construction:
+Three things key the kernel at the call or at construction:
 
   - the pool: every paged method takes ``kv_scales`` (None for a bf16/f32
     pool; the scale tiles ``[NB, R8, 128]`` of an int8 pool, which routes to
     the kernel's int8 variant);
   - the split rung ``n_splits`` (bound once, one spec per rung): above 1,
     decode and side-buffer attention run the split-K kernel (K7,
-    ``ops/kernels/paged_splitk``) and chunk attention its split path.
+    ``ops/kernels/paged_splitk``) and chunk attention its split path;
+  - the model's sliding window ``spec.window`` (bound once, as in the JAX
+    package): every kernel masks keys more than ``window - 1`` positions
+    behind its query and skips the pages below the window start.
 
 int8 write semantics: every path attends a token at the value its int8
 page stores. The ragged pass writes then attends; the decode step attends
@@ -41,7 +44,7 @@ from deepspeed_tpu_torch.ops.kernels.kv_quant import (kv_quantize_rows,
                                                       scale_write_index)
 from deepspeed_tpu_torch.ops.kernels.paged_splitk import (
     paged_chunk_attention_splitk, paged_decode_attention_splitk,
-    paged_sidebuf_attention_splitk)
+    paged_decode_attention_splitk_step, paged_sidebuf_attention_splitk)
 
 
 class AttentionKernelSpec:
@@ -52,6 +55,7 @@ class AttentionKernelSpec:
     def __init__(self, spec: Any, n_splits: int = 1):
         self.spec = spec
         self.n_splits = int(n_splits)
+        self.window = None if spec is None else spec.window
 
     @staticmethod
     def validate_engine_build(spec: Any, cfg: Any) -> None:
@@ -59,8 +63,8 @@ class AttentionKernelSpec:
         lacks (engine-config features are refused by the config itself),
         and ``ValueError`` where an int8 pool's alignment does not hold."""
         off = []
-        if spec.window is not None:
-            off.append("a sliding window")
+        if spec.window is not None and cfg.kv_quant.enabled:
+            off.append("kv_quant with a sliding window (int8 pages)")
         if spec.alibi:
             off.append("ALiBi")
         if spec.moe is not None:
@@ -83,7 +87,7 @@ class AttentionKernelSpec:
     def packed(self, q, k, v, seg):
         """Packed segment-masked prefill attention over the pass's own rows
         (no paged reads)."""
-        return flash_attention_packed(q, k, v, seg)
+        return flash_attention_packed(q, k, v, seg, window=self.window)
 
     def chunk(self, q, kv_l, block_tables, q_starts, ctx_lens,
               kv_scales: Optional[torch.Tensor] = None):
@@ -92,9 +96,11 @@ class AttentionKernelSpec:
         if self.n_splits > 1:
             return paged_chunk_attention_splitk(q, kv_l, block_tables, q_starts,
                                                 ctx_lens, kv_scales=kv_scales,
-                                                n_splits=self.n_splits)
+                                                n_splits=self.n_splits,
+                                                window=self.window)
         return paged_chunk_attention_batched(q, kv_l, block_tables, q_starts,
-                                             ctx_lens, kv_scales=kv_scales)
+                                             ctx_lens, kv_scales=kv_scales,
+                                             window=self.window)
 
     def decode(self, q, kv_l, block_tables, ctx_lens,
                kv_scales: Optional[torch.Tensor] = None):
@@ -103,9 +109,10 @@ class AttentionKernelSpec:
         if self.n_splits > 1:
             return paged_decode_attention_splitk(q, kv_l, block_tables, ctx_lens,
                                                  kv_scales=kv_scales,
-                                                 n_splits=self.n_splits)
+                                                 n_splits=self.n_splits,
+                                                 window=self.window)
         return paged_decode_attention(q, kv_l, block_tables, ctx_lens,
-                                      kv_scales=kv_scales)
+                                      kv_scales=kv_scales, window=self.window)
 
     def sidebuf(self, q, kv_l, block_tables, prefix_lens, side_k, side_v, j,
                 kv_scales: Optional[torch.Tensor] = None):
@@ -115,9 +122,10 @@ class AttentionKernelSpec:
         if self.n_splits > 1:
             return paged_sidebuf_attention_splitk(
                 q, kv_l, block_tables, prefix_lens, side_k, side_v, j,
-                kv_scales=kv_scales, n_splits=self.n_splits)
+                kv_scales=kv_scales, n_splits=self.n_splits, window=self.window)
         return paged_decode_attention(q, kv_l, block_tables, prefix_lens,
-                                      side_k, side_v, j, kv_scales=kv_scales)
+                                      side_k, side_v, j, kv_scales=kv_scales,
+                                      window=self.window)
 
     def decode_step(self, q, k_new, v_new, kv_l, block_tables, ctx_lens,
                     kv_scales: Optional[torch.Tensor] = None):
@@ -130,6 +138,20 @@ class AttentionKernelSpec:
                            kv_scales=kv_scales)
         write_token_rows(kv_l, k_new, v_new, block_tables, ctx_lens - 1, kv_scales)
         return out
+
+    def decode_step_write(self, q, k_new, v_new, kv_l, block_tables, ctx_lens,
+                          kv_scales: Optional[torch.Tensor] = None):
+        """The per-step write path (K4's order, ``paged_decode_attention_step``
+        and its split-K dispatcher): write the current token's K/V at
+        position ``ctx - 1`` first, then attend pages ``[0, ctx)``. A
+        windowed decode step takes it when the scheduler's page ring does
+        not cover the side-buffer schedule (``ring_covers``)."""
+        if self.n_splits > 1:
+            return paged_decode_attention_splitk_step(
+                q, k_new, v_new, kv_l, block_tables, ctx_lens, kv_scales=kv_scales,
+                n_splits=self.n_splits, window=self.window)
+        write_token_rows(kv_l, k_new, v_new, block_tables, ctx_lens - 1, kv_scales)
+        return self.decode(q, kv_l, block_tables, ctx_lens, kv_scales=kv_scales)
 
 
 def write_token_rows(kv_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -23,6 +23,13 @@ by the engine; free them by dropping the caller's references too);
 the pow2 split ladder, the rung picked every step from the longest live
 context (:meth:`InferenceEngineV2._attn_rung`).
 
+Sliding-window serving (Mistral, ``LlamaConfig.sliding_window``) binds the
+window into every attention kernel, and the scheduler keeps each
+sequence's KV in a page ring of ``scheduler.ring_pages`` blocks, as in the
+JAX package. A ``max_context`` at or below the window drops it (full
+attention is then the same function). The split rung still follows the
+longest live context, not the window.
+
 The engine runs on the card unless the caller asks for the CPU:
 ``device=None`` means ``cuda``, and on a machine without CUDA the
 constructor raises. On the CPU every kernel wrapper runs its plain PyTorch
@@ -122,11 +129,16 @@ class InferenceEngineV2:
         self.kv = BlockedKVCache(kv_cfg, self.device)
         self.allocator = BlockedAllocator(nb)
         self.scheduler = DynamicSplitFuseScheduler(sm, self.kv, self.allocator)
+        # sliding-window serving (Mistral): the scheduler ring-reuses each
+        # sequence's pages beyond the window, so its KV stays bounded
+        self.scheduler.window = self.spec.window
 
         # one paged pass and one decode step per rung of the split ladder
         self._pass_rungs = {r: build_ragged_forward(self.spec, n_splits=r)
                             for r in self.attn_split_ladder}
-        self._step_rungs = {r: build_decode_step(self.spec, n_splits=r)
+        ring_ok = self.scheduler.ring_covers(2)
+        self._step_rungs = {r: build_decode_step(self.spec, n_splits=r,
+                                                 window_ring_ok=ring_ok)
                             for r in self.attn_split_ladder}
         self._pass_prefill = build_prefill_forward(self.spec)
         # pin the dispatched rung (None = picked from the live context)

@@ -14,6 +14,8 @@ import numpy as np
 class DSSequenceDescriptor:
     uid: int
     seen_tokens: int = 0                      # tokens whose KV is in the cache
+    # logical page i -> physical block; under a sliding window's page ring
+    # (scheduler.ring_pages) later pages repeat earlier physical ids
     blocks: List[int] = field(default_factory=list)
     pending: np.ndarray = field(default_factory=lambda: np.zeros((0,), np.int32))
     in_flight_tokens: int = 0                 # tokens scheduled in the current pass

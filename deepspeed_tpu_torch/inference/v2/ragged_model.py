@@ -13,6 +13,11 @@ rows, then whole-page writes. The pipelined decode step
 (:func:`build_decode_step`) attends the current token as a side row and
 writes it into its page afterwards.
 
+A sliding window (``spec.window``, Mistral) is bound into every attention
+dispatch (``AttentionKernelSpec``): the packed, chunk and decode kernels and
+the split-K rungs all mask by it and skip the pages below its start, so
+the scheduler's page ring may reuse those pages.
+
 A Python loop over layers takes the place of the JAX package's ``lax.scan``,
 and each layer indexes its own pool view ``kv[l]`` (and, for an int8 pool,
 its scale tiles ``kv_scales[l]``), so no layer offset enters the block
@@ -54,7 +59,7 @@ class RaggedModelSpec:
     vocab_size: int
     rope_theta: float = 10000.0
     eps: float = 1e-5
-    window: Optional[int] = None      # sliding-window span; not ported yet
+    window: Optional[int] = None      # sliding-window span (Mistral); None = full
     alibi: bool = False               # not ported yet
     moe: Optional[Dict[str, int]] = None  # not ported yet
     dtype: torch.dtype = torch.bfloat16
@@ -385,10 +390,19 @@ def _sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator],
     return ids[:, 0].to(torch.int32)
 
 
-def build_decode_step(spec: RaggedModelSpec, n_splits: int = 1) -> Callable:
+def build_decode_step(spec: RaggedModelSpec, n_splits: int = 1,
+                      window_ring_ok: bool = False) -> Callable:
     """One decode step for the pipelined serving loop: consume ``ids`` [S]
     (this step's tokens), attend and write their KV, and sample the NEXT
     token row on the device.
+
+    The step attends the current token as a side row and writes it after
+    (the side-buffer schedule). Under a sliding window that schedule reads
+    frozen pages while the write lands ahead, so it runs only when the
+    caller has checked that the scheduler's page ring covers it
+    (``window_ring_ok = scheduler.ring_covers(2)``); otherwise the step
+    takes the per-step write path (write, then attend), as the JAX package
+    does.
 
     Returns ``fwd(weights, kv, ids [S], positions [S], block_tables [S, MB],
     ctx [S], generator, do_sample, top_k, temperature, kv_scales=None) ->
@@ -397,6 +411,8 @@ def build_decode_step(spec: RaggedModelSpec, n_splits: int = 1) -> Callable:
     current token is attended at its pool value (``kv_write_dequant``, f32
     side rows) and written quantized after."""
     ak = AttentionKernelSpec(spec, n_splits=n_splits)
+    sidebuf = spec.window is None or window_ring_ok
+    step = ak.decode_step if sidebuf else ak.decode_step_write
 
     def fwd(weights, kv, ids, positions, block_tables, ctx, generator=None,
             do_sample: bool = False, top_k: int = 0, temperature: float = 1.0,
@@ -410,8 +426,7 @@ def build_decode_step(spec: RaggedModelSpec, n_splits: int = 1) -> Callable:
             def attend(q, k, v, kv_l=kv_l, sc_l=sc_l):
                 if sc_l is not None:
                     k, v = kv_write_dequant(k), kv_write_dequant(v)
-                return ak.decode_step(q, k, v, kv_l, block_tables, ctx,
-                                      kv_scales=sc_l)
+                return step(q, k, v, kv_l, block_tables, ctx, kv_scales=sc_l)
 
             x = _transformer_layer(spec, w, x, cos, sin, attend)
         x = _norm(x, weights["final_norm"], spec)

@@ -7,6 +7,12 @@ decode tokens (one per active sequence, up to ``max_ragged_sequence_count``)
 Attention splits per section in ``ragged_model.py``: the paged chunk kernel
 for the slots, the paged decode kernel for the rest, or the packed prefill
 kernel when the whole pass prefills from position 0.
+
+Sliding-window models (``window``, set by the engine from the model spec)
+keep each sequence's KV in a PAGE RING, copied from the JAX package:
+logical page i beyond ``ring_pages`` reuses ``blocks[i - ring_pages]``, so
+the logical block list repeats physical ids (each freed once) and a
+sequence's footprint is bounded by the window however long it runs.
 """
 
 from __future__ import annotations
@@ -33,6 +39,41 @@ class DynamicSplitFuseScheduler:
         self.seqs: Dict[int, DSSequenceDescriptor] = {}
         bs = cache.config.block_size
         self.max_blocks = -(-config.max_context // bs)
+        # sliding-window span (set by the engine from the model spec); with
+        # a window, per-sequence physical KV is a page ring of ring_pages
+        # blocks: dead tokens are overwritten in place
+        self.window: Optional[int] = None
+
+    @property
+    def _pass_take_cap(self) -> int:
+        """Max prompt tokens one sequence may take in one pass under a
+        window (also bounds the live span the ring must cover)."""
+        cfg = self.config
+        return min(self.window + self.cache.config.block_size,
+                   cfg.num_chunk_slots * cfg.chunk_slot_size)
+
+    @property
+    def ring_pages(self) -> Optional[int]:
+        """Physical pages per sequence under a window. The live span during
+        a pass is [earliest_query - window + 1, write_head]: a chunked
+        continuation pass of T tokens still needs ``window`` tokens behind
+        its FIRST query row while writing T ahead, so the ring covers
+        window + T (+1 page of slack). Aliased logical pages are then >=
+        ring*bs > window + T tokens apart: no pass reads or overwrites a
+        page it still needs."""
+        if self.window is None:
+            return None
+        bs = self.cache.config.block_size
+        return -(-(self.window + self._pass_take_cap) // bs) + 1
+
+    def ring_covers(self, n_tokens: int) -> bool:
+        """True iff a consumer may freeze page reads while writing
+        ``n_tokens`` ahead (the side-buffer decode schedule): the ring spans
+        window + _pass_take_cap live tokens. Without a window there is no
+        ring: always True."""
+        if self.window is None:
+            return True
+        return n_tokens <= self._pass_take_cap
 
     # ------------------------------------------------------------------ #
     # sequence admission
@@ -54,7 +95,8 @@ class DynamicSplitFuseScheduler:
         seq.extend_pending(tokens)
 
     def flush(self, uid: int) -> None:
-        """Release a sequence's KV blocks."""
+        """Release a sequence's KV blocks (ring reuse repeats physical ids in
+        the logical list: each is freed once)."""
         seq = self.seqs.pop(uid, None)
         if seq is None or not seq.blocks:
             return
@@ -64,22 +106,33 @@ class DynamicSplitFuseScheduler:
     # capacity queries
     # ------------------------------------------------------------------ #
 
+    def _new_blocks_needed(self, seq: DSSequenceDescriptor, new_tokens: int) -> int:
+        """Fresh allocator blocks required for ``new_tokens`` more tokens;
+        under a window, capped by the ring (pages beyond it are reuses)."""
+        need = seq.kv_blocks_needed(new_tokens, self.cache.config.block_size)
+        ring = self.ring_pages
+        if ring is not None:
+            need = min(need, max(0, ring - len(seq.blocks)))
+        return need
+
     def query(self, uid: int, max_request_tokens: int) -> Tuple[int, int]:
         """(max new tokens fundable by free blocks, available blocks).
         Accounts for queued-but-unprocessed pending tokens."""
         seq = self.seqs.get(uid, DSSequenceDescriptor(uid=uid))
         bs = self.cache.config.block_size
         avail = self.allocator.free_blocks
+        if self.ring_pages is not None and len(seq.blocks) >= self.ring_pages:
+            # ring complete: any request fits in place (up to max_context)
+            return max_request_tokens, avail
         slack = len(seq.blocks) * bs - seq.seen_tokens - len(seq.pending)
         fundable = max(0, slack + avail * bs)
         return min(max_request_tokens, fundable), avail
 
     def can_schedule(self, uids: List[int], lengths: List[int]) -> bool:
-        bs = self.cache.config.block_size
         needed = 0
         for uid, n in zip(uids, lengths):
             seq = self.seqs.get(uid, DSSequenceDescriptor(uid=uid))
-            needed += seq.kv_blocks_needed(len(seq.pending) + n, bs)
+            needed += self._new_blocks_needed(seq, len(seq.pending) + n)
         if needed > self.allocator.free_blocks:
             return False
         new = sum(1 for u in uids if u not in self.seqs)
@@ -140,9 +193,20 @@ class DynamicSplitFuseScheduler:
     # ------------------------------------------------------------------ #
 
     def _ensure_blocks(self, seq: DSSequenceDescriptor, new_tokens: int) -> None:
-        need = seq.kv_blocks_needed(new_tokens, self.cache.config.block_size)
-        if need:
-            seq.blocks.extend(int(b) for b in self.allocator.allocate(need))
+        bs = self.cache.config.block_size
+        ring = self.ring_pages
+        if ring is None:
+            need = seq.kv_blocks_needed(new_tokens, bs)
+            if need:
+                seq.blocks.extend(int(b) for b in self.allocator.allocate(need))
+            return
+        target = -(-(seq.seen_tokens + new_tokens) // bs)   # logical pages
+        fresh = min(max(0, target - len(seq.blocks)),
+                    max(0, ring - len(seq.blocks)))
+        if fresh:
+            seq.blocks.extend(int(b) for b in self.allocator.allocate(fresh))
+        while len(seq.blocks) < target:                      # ring reuse
+            seq.blocks.append(seq.blocks[len(seq.blocks) - ring])
 
     def schedule_pass(self) -> Optional[RaggedBatch]:
         """Build the next pass, or None when no pending work exists."""
@@ -191,6 +255,11 @@ class DynamicSplitFuseScheduler:
             if sl >= NC:
                 break
             take = min(len(seq.pending), (NC - sl) * Cs)
+            if self.window is not None:
+                # the ring covers window + _pass_take_cap tokens of live
+                # span; taking more in one pass would overwrite pages the
+                # pass's own queries still need (the rest prefills next pass)
+                take = min(take, self._pass_take_cap)
             self._ensure_blocks(seq, take)
             blocks = np.asarray(seq.blocks, np.int32)
             batch.chunk_uids.append(seq.uid)
@@ -199,9 +268,15 @@ class DynamicSplitFuseScheduler:
                 from_zero = False
             else:
                 # from position 0, tokens fill pages in order: one plan entry
-                # per touched page, rows contiguous from this seq's first row
+                # per touched page, rows contiguous from this seq's first row.
+                # Under a window, pages wholly dead by the end of the take are
+                # skipped: their tokens are never attended again, and writing
+                # them could collide with a ring-reused live page
                 r0_seq = sl * Cs
                 for p in range(-(-take // bs)):
+                    if (self.window is not None
+                            and (p + 1) * bs <= take - self.window):
+                        continue
                     batch.page_ids[pw] = blocks[p]
                     batch.page_rows[pw] = r0_seq + p * bs
                     batch.page_fill[pw] = min(bs, take - p * bs)

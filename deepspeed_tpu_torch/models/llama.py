@@ -5,7 +5,8 @@ Nothing on the serving path calls :class:`LlamaForCausalLM`'s forward: the
 engine reads its configuration and its parameters. The forward follows the
 JAX package's flax model step for step: RMSNorm computed in f32, rotary
 embedding on INTERLEAVED pairs (``x[..., 0::2]``, ``x[..., 1::2]``, not the
-rotate-half convention), causal attention with f32 scores, and a SwiGLU MLP.
+rotate-half convention), causal attention with f32 scores (restricted to the sliding window
+``[q - window + 1, q]`` when the config has one), and a SwiGLU MLP.
 The causal-LM losses the training path shares (:func:`causal_lm_loss`,
 :func:`chunked_causal_lm_loss`) live here too, as in the JAX package.
 
@@ -42,7 +43,7 @@ class LlamaConfig:
     max_position_embeddings: int = 4096
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-5
-    sliding_window: Optional[int] = None  # Mistral; not served by the port yet
+    sliding_window: Optional[int] = None  # Mistral: keys at most window-1 back
     head_dim_override: Optional[int] = None
     dtype: torch.dtype = torch.float32
 
@@ -61,6 +62,18 @@ class LlamaConfig:
         defaults = dict(hidden_size=5120, intermediate_size=13824,
                         num_hidden_layers=40, num_attention_heads=40,
                         num_key_value_heads=40)
+        defaults.update(kw)
+        return cls(**defaults)
+
+    @classmethod
+    def mistral_7b(cls, **kw):
+        """The JAX package's preset as it stands: Mistral-7B's geometry with
+        GQA 32/8, ``sliding_window=4096`` (v0.1) and ``rope_theta=1e6``
+        (v0.2's value)."""
+        defaults = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+                        num_hidden_layers=32, num_attention_heads=32,
+                        num_key_value_heads=8, max_position_embeddings=32768,
+                        rope_theta=1e6, sliding_window=4096)
         defaults.update(kw)
         return cls(**defaults)
 
@@ -154,6 +167,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.to(x.dtype)
 
 
+def window_mask(q_positions: torch.Tensor, k_positions: torch.Tensor,
+                window: Optional[int]) -> torch.Tensor:
+    """[B, Tq, Tk] bool: key position <= query position, and within the
+    sliding window ``[q - window + 1, q]`` when one is given (the JAX
+    package's ``_window_bias`` rule)."""
+    delta = q_positions[:, :, None] - k_positions[:, None, :]
+    ok = delta >= 0
+    if window is not None:
+        ok = ok & (delta < window)
+    return ok
+
+
 class LlamaForCausalLM(nn.Module):
     """Llama-2 decoder with flax-named parameters in ``config.dtype`` on
     ``device`` (default: the CUDA device), initialised from ``seed``."""
@@ -228,7 +253,7 @@ class LlamaForCausalLM(nn.Module):
         if positions is None:
             positions = torch.arange(T, device=input_ids.device).expand(B, T)
         cos, sin = rope_tables(positions, D, cfg.rope_theta)
-        causal = torch.ones(T, T, dtype=torch.bool, device=input_ids.device).tril()
+        visible = window_mask(positions, positions, cfg.sliding_window)[:, None]
         x = self.embed_tokens.embedding[input_ids].to(dt)
         for layer in self.layers:
             a, m = layer.self_attn, layer.mlp
@@ -239,7 +264,7 @@ class LlamaForCausalLM(nn.Module):
             k = k.repeat_interleave(H // Hkv, dim=2)
             v = v.repeat_interleave(H // Hkv, dim=2)
             s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * D ** -0.5
-            s = s.masked_fill(~causal, torch.finfo(torch.float32).min)
+            s = s.masked_fill(~visible, torch.finfo(torch.float32).min)
             p = torch.softmax(s, dim=-1).to(dt)
             o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(B, T, H * D)
             x = x + o @ a.o_proj.kernel.to(dt)

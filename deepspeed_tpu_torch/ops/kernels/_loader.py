@@ -11,7 +11,9 @@ build raises with nvcc's stderr.
 Each kernel wrapper adds one to :data:`LAUNCHES` ``[name]`` when it launches
 its kernel, and nowhere else; :func:`reset_launches` sets every count to 0.
 A kernel that runs at several split counts (K7) counts each under its own
-name (``paged_splitk/8``).
+name (``paged_splitk/8``); a launch with a sliding window counts under the
+kernel's ``_window`` name (``flash_packed_window``,
+``paged_splitk_window/4``).
 """
 
 from __future__ import annotations
@@ -44,11 +46,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: (argtypes), all return the launch's cudaError_t as int
 ENTRY_POINTS = {
-    "dstorch_flash_packed_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "dstorch_flash_packed_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "dstorch_paged_chunk_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _I, _I, _F, _P),
+                                 _I, _I, _I, _F, _P),
     "dstorch_paged_decode_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _F, _P),
+                                  _I, _I, _I, _I, _I, _F, _P),
     "dstorch_flash_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "dstorch_flash_bwd_dq_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _F, _I, _P),
@@ -59,7 +61,7 @@ ENTRY_POINTS = {
     "dstorch_paged_decode_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _F, _P),
     "dstorch_paged_splitk_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _I, _F, _P),
+                                  _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "dstorch_paged_splitk_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "dstorch_splitk_merge": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -82,7 +84,9 @@ ENTRY_POINTS = {
 }
 
 LAUNCHES: Dict[str, int] = {"flash_packed": 0, "paged_chunk": 0,
-                            "paged_decode": 0, "flash_fwd": 0,
+                            "paged_decode": 0, "flash_packed_window": 0,
+                            "paged_chunk_window": 0, "paged_decode_window": 0,
+                            "flash_fwd": 0,
                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                             "paged_chunk_int8": 0, "paged_decode_int8": 0,
                             "splitk_merge": 0, "quantized_matmul_gemv": 0,
@@ -226,6 +230,16 @@ def on_cpu(kernel: str, *tensors: torch.Tensor) -> bool:
         return False
     raise ValueError(f"{kernel}: tensors on {sorted(kinds)}; the kernel runs on "
                      "CUDA and its plain version on the CPU")
+
+
+def window_arg(window: Optional[int]) -> int:
+    """The kernels' ``window`` argument: the sliding window's span (>= 1),
+    or 0 for none."""
+    if window is None:
+        return 0
+    if int(window) < 1:
+        raise ValueError(f"sliding window must be >= 1, got {window}")
+    return int(window)
 
 
 def ptr(t: Optional[torch.Tensor]):

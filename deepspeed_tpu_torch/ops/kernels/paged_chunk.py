@@ -5,7 +5,11 @@ Counterpart of the JAX package's ``ops/pallas/paged_attention.py``
 ``paged_chunk_attention_batched``: one slot per prompt chunk, each with its
 own block-table row, ``q_start`` and ``ctx``; row r of a slot sits at
 position ``q_start + r`` and sees keys ``k_pos <= q_pos`` with
-``k_pos < ctx``. An empty slot (ctx 0) gives zeros.
+``k_pos < ctx``. An empty slot (ctx 0) gives zeros. A sliding ``window``
+also needs ``k_pos > q_pos - window`` (by logical position, so tables that
+repeat physical pages under the scheduler's page ring read the right
+tokens); pages wholly below a q-block's lowest visible key are not read. A
+windowed launch counts as ``paged_chunk_window``.
 
 int8 pages (``kv_scales``, the kv_quant pool): ``kv_pages`` is int8 with
 its f32 scale tiles ``[NB, R8, 128]`` (``kv_quant``), the int8 body of the
@@ -26,8 +30,11 @@ from deepspeed_tpu_torch.ops.kernels.paged_decode import gather_rows
 
 NAME = "paged_chunk"
 NAME_INT8 = "paged_chunk_int8"
+NAME_WINDOW = "paged_chunk_window"
 SOURCE = "deepspeed_tpu_torch/csrc/paged_chunk.cu"
 REPLACES = "deepspeed_tpu/ops/pallas/paged_attention.py:1534"
+REPLACES_WINDOW = ("deepspeed_tpu/ops/pallas/paged_attention.py:1534 window= "
+                   "(_chunk_kernel_batched :1443; window :1466-1478)")
 REPLACES_INT8 = ("deepspeed_tpu/ops/pallas/paged_attention.py:1528 "
                  "_chunk_kernel_batched_quant (K5; scale fold _chunk_head_scale :1422)")
 
@@ -36,11 +43,12 @@ def paged_chunk_attention_batched(q: torch.Tensor, kv_pages: torch.Tensor,
                                   block_tables: torch.Tensor,
                                   q_starts: torch.Tensor, ctx_lens: torch.Tensor,
                                   softmax_scale: Optional[float] = None,
-                                  kv_scales: Optional[torch.Tensor] = None
-                                  ) -> torch.Tensor:
+                                  kv_scales: Optional[torch.Tensor] = None,
+                                  window: Optional[int] = None) -> torch.Tensor:
     """q [NC, Cs, H, D]; kv_pages [NB, 2, Hkv, bs, D] (one layer);
     block_tables [NC, MB], q_starts [NC], ctx_lens [NC] int32; ``kv_scales``
-    [NB, R8, 128] f32 for int8 pages -> [NC, Cs, H, D].
+    [NB, R8, 128] f32 for int8 pages; ``window`` (None: none; not over int8
+    pages yet) -> [NC, Cs, H, D].
 
     CPU tensors run :func:`paged_chunk_attention_batched_plain`; CUDA tensors
     launch the kernel (bf16 q; bf16 pages, or int8 pages with their scale
@@ -56,12 +64,16 @@ def paged_chunk_attention_batched(q: torch.Tensor, kv_pages: torch.Tensor,
     if quant and tuple(kv_scales.shape) != (NB, scale_tile_rows(Hkv, bs), 128):
         raise ValueError(f"{NAME}: scale tiles {tuple(kv_scales.shape)} do not fit "
                          f"pages {tuple(kv_pages.shape)}")
-    name = NAME_INT8 if quant else NAME
+    if quant and window is not None:
+        raise NotImplementedError(f"{NAME_INT8}: a sliding window over int8 pages "
+                                  "is not ported to deepspeed_tpu_torch yet")
+    name = NAME_INT8 if quant else NAME if window is None else NAME_WINDOW
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
     extra = (kv_scales,) if quant else ()
     if _loader.on_cpu(name, q, kv_pages, block_tables, q_starts, ctx_lens, *extra):
         return paged_chunk_attention_batched_plain(q, kv_pages, block_tables,
-                                                   q_starts, ctx_lens, scale, kv_scales)
+                                                   q_starts, ctx_lens, scale, kv_scales,
+                                                   window)
     out = torch.empty_like(q)
     P = _loader.ptr
     if quant:
@@ -79,14 +91,15 @@ def paged_chunk_attention_batched(q: torch.Tensor, kv_pages: torch.Tensor,
                        ctx_lens=ctx_lens)
     _loader.launch(name, "dstorch_paged_chunk_bf16", q.device,
                    P(q), P(kv_pages), P(block_tables), P(q_starts), P(ctx_lens),
-                   P(out), NC, Cs, H, Hkv, D, bs, MB, scale)
+                   P(out), NC, Cs, H, Hkv, D, bs, MB, _loader.window_arg(window), scale)
     return out
 
 
 def paged_chunk_attention_batched_plain(q, kv_pages, block_tables, q_starts,
                                         ctx_lens,
                                         softmax_scale: Optional[float] = None,
-                                        kv_scales: Optional[torch.Tensor] = None):
+                                        kv_scales: Optional[torch.Tensor] = None,
+                                        window: Optional[int] = None):
     """The same function in plain PyTorch, computed in f32; returns q's
     dtype."""
     NC, Cs, H, D = q.shape
@@ -104,4 +117,6 @@ def paged_chunk_attention_batched_plain(q, kv_pages, block_tables, q_starts,
     k_pos = torch.arange(T, device=q.device)
     mask = ((k_pos[None, None, :] <= q_pos[:, :, None])
             & (k_pos[None, None, :] < ctx_lens.long()[:, None, None]))
+    if window is not None:
+        mask &= k_pos[None, None, :] > q_pos[:, :, None] - window
     return masked_softmax_av(s, mask[:, None], v, "nhqk,nhkd->nqhd").to(q.dtype)

@@ -15,6 +15,15 @@ Pallas kernels share one body (``_decode_body``):
 
 A row that sees no token gives zeros.
 
+Sliding ``window`` (``_decode_body``'s window, :303-349 and :487-488): the
+query of a row without side rows sits at ``lens - 1`` and sees page tokens
+from ``max(lens - window, 0)``; with side rows it sits at ``prefix + j``,
+so page tokens from ``max(prefix + j + 1 - window, 0)`` and side rows
+``cc >= j + 1 - window``. Pages below that start are not read, and tokens
+are masked by logical position, so tables that repeat physical pages under
+the scheduler's page ring read the right tokens. A windowed launch counts
+as ``paged_decode_window``.
+
 int8 pages (``kv_scales``, the kv_quant pool): ``kv_pages`` is int8 with
 its f32 scale tiles ``[NB, R8, 128]`` (``kv_quant``), the int8 bodies of
 the same three entry points (``_decode_kernel_quant`` :561,
@@ -37,9 +46,13 @@ from deepspeed_tpu_torch.ops.kernels.kv_quant import (scale_tile_rows,
 
 NAME = "paged_decode"
 NAME_INT8 = "paged_decode_int8"
+NAME_WINDOW = "paged_decode_window"
 SOURCE = "deepspeed_tpu_torch/csrc/paged_decode.cu"
 REPLACES = ("deepspeed_tpu/ops/pallas/paged_attention.py:1088 (K3), "
             ":1249 (K4), :809 (K6); body _decode_body :280")
+REPLACES_WINDOW = ("deepspeed_tpu/ops/pallas/paged_attention.py:1088 (K3), :1249 (K4), "
+                   ":809 (K6) window=; _decode_body :280 (window :303-349, side rows "
+                   ":487-488), _sidebuf_batched_body :569 (:594-612, :744-745)")
 REPLACES_INT8 = ("deepspeed_tpu/ops/pallas/paged_attention.py:561 "
                  "_decode_kernel_quant (K3), :1217 (K4), :772 and :792 (K6)")
 
@@ -74,16 +87,28 @@ def check_paged_inputs(name: str, q, kv_pages, block_tables, lens, side_k, side_
     return C
 
 
+def window_starts(lens: torch.Tensor, j: int, window: Optional[int], side: bool):
+    """Each row's first visible page token [S] (long) and first visible side
+    row under a sliding ``window``; (0s, 0) without one."""
+    lens = lens.long()
+    if window is None:
+        return torch.zeros_like(lens), 0
+    q_next = lens + j + 1 if side else lens        # query position + 1
+    return (q_next - window).clamp_min(0), max(j + 1 - window, 0)
+
+
 def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
                            block_tables: torch.Tensor, lens: torch.Tensor,
                            side_k: Optional[torch.Tensor] = None,
                            side_v: Optional[torch.Tensor] = None, j: int = 0,
                            softmax_scale: Optional[float] = None,
-                           kv_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+                           kv_scales: Optional[torch.Tensor] = None,
+                           window: Optional[int] = None) -> torch.Tensor:
     """q [S, H, D]; kv_pages [NB, 2, Hkv, bs, D] (one layer); block_tables
     [S, MB], lens [S] int32 (page tokens attended per sequence); optional
     side_k/side_v [S, C * Hkv, D] with step ``j``; ``kv_scales`` [NB, R8,
-    128] f32 for int8 pages -> [S, H, D].
+    128] f32 for int8 pages; ``window`` (None: none; not over int8 pages
+    yet) -> [S, H, D].
 
     CPU tensors run :func:`paged_decode_attention_plain`; CUDA tensors launch
     the kernel (bf16 q; bf16 pages and side rows, or int8 pages with f32
@@ -92,7 +117,10 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     NB, _, Hkv, bs, _ = kv_pages.shape
     MB = block_tables.shape[1]
     quant = kv_scales is not None
-    name = NAME_INT8 if quant else NAME
+    if quant and window is not None:
+        raise NotImplementedError(f"{NAME_INT8}: a sliding window over int8 pages "
+                                  "is not ported to deepspeed_tpu_torch yet")
+    name = NAME_INT8 if quant else NAME if window is None else NAME_WINDOW
     C = check_paged_inputs(name, q, kv_pages, block_tables, lens, side_k, side_v,
                            j, kv_scales)
     sides = () if side_k is None else (side_k, side_v)
@@ -100,7 +128,7 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
     if _loader.on_cpu(name, q, kv_pages, block_tables, lens, *sides, *extra):
         return paged_decode_attention_plain(q, kv_pages, block_tables, lens,
-                                            side_k, side_v, j, scale, kv_scales)
+                                            side_k, side_v, j, scale, kv_scales, window)
     side_kw = dict(zip(("side_k", "side_v"), sides))
     out = torch.empty_like(q)
     P = _loader.ptr
@@ -118,7 +146,8 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
                        block_tables=block_tables, lens=lens, **side_kw)
     _loader.launch(name, "dstorch_paged_decode_bf16", q.device,
                    P(q), P(kv_pages), P(block_tables), P(lens), P(side_k),
-                   P(side_v), P(out), S, H, Hkv, D, bs, MB, C, int(j), scale)
+                   P(side_v), P(out), S, H, Hkv, D, bs, MB, C, int(j),
+                   _loader.window_arg(window), scale)
     return out
 
 
@@ -143,7 +172,8 @@ def gather_rows(kv_pages, block_tables, n_pages: int,
 def paged_decode_attention_plain(q, kv_pages, block_tables, lens, side_k=None,
                                  side_v=None, j: int = 0,
                                  softmax_scale: Optional[float] = None,
-                                 kv_scales: Optional[torch.Tensor] = None):
+                                 kv_scales: Optional[torch.Tensor] = None,
+                                 window: Optional[int] = None):
     """The same function in plain PyTorch, computed in f32; returns q's
     dtype."""
     S, H, D = q.shape
@@ -153,14 +183,17 @@ def paged_decode_attention_plain(q, kv_pages, block_tables, lens, side_k=None,
     n_pages = -(-int(lens.max()) // bs) if S else 0
     T = n_pages * bs
     k, v = gather_rows(kv_pages, block_tables, n_pages, kv_scales)
-    mask = torch.arange(T, device=q.device)[None] < lens.long()[:, None]
+    t_lo, c_lo = window_starts(lens, j, window, side_k is not None)
+    pos = torch.arange(T, device=q.device)[None]
+    mask = (pos < lens.long()[:, None]) & (pos >= t_lo[:, None])
     if side_k is not None:
         C = side_k.shape[1] // Hkv
         sk = side_k.view(S, C, Hkv, D)[:, :j + 1].float().transpose(1, 2)
         sv = side_v.view(S, C, Hkv, D)[:, :j + 1].float().transpose(1, 2)
         k = torch.cat([k, sk], dim=2)
         v = torch.cat([v, sv], dim=2)
-        mask = torch.cat([mask, mask.new_ones((S, j + 1))], dim=1)
+        side_ok = torch.arange(j + 1, device=q.device) >= c_lo
+        mask = torch.cat([mask, side_ok[None].expand(S, j + 1)], dim=1)
     s = torch.einsum("shgd,shtd->shgt", q.float().view(S, Hkv, G, D), k) * scale
     out = masked_softmax_av(s, mask[:, None, None, :], v, "shgt,shtd->shgd")
     return out.reshape(S, H, D).to(q.dtype)

@@ -30,6 +30,14 @@ logsumexp weights (:func:`merge_splitk_partials`):
 int8 pages (``kv_scales``) dequantize each gathered row (``k * s``), the
 algebra the kernels fold into their score and p columns. A split count
 above 1 always runs split-K; ``n_splits <= 1`` is the base kernel.
+
+A sliding ``window`` (``_splitk_body`` :324-377, the dispatchers :597-725)
+leaves the splits where they are (the whole ``[0, MB)`` page range); each
+split attends only its tokens at or above the first visible one (as the
+decode kernel: ``max(ctx - window, 0)``, or ``max(prefix + j + 1 - window,
+0)`` with side rows, whose piece needs ``cc >= j + 1 - window``), so a
+split wholly below the window start gives the empty partial the merge
+drops. A windowed partials launch counts as ``paged_splitk_window/<n>``.
 """
 
 from __future__ import annotations
@@ -43,20 +51,24 @@ from deepspeed_tpu_torch.ops.kernels.kv_quant import kv_quantize_rows
 from deepspeed_tpu_torch.ops.kernels.paged_chunk import paged_chunk_attention_batched
 from deepspeed_tpu_torch.ops.kernels.paged_decode import (check_paged_inputs,
                                                           gather_rows,
-                                                          paged_decode_attention)
+                                                          paged_decode_attention,
+                                                          window_starts)
 
 NAME = "paged_splitk"          # counted per split count: paged_splitk/<n>
+NAME_WINDOW = "paged_splitk_window"
 MERGE = "splitk_merge"
 SOURCE = "deepspeed_tpu_torch/csrc/paged_splitk.cu"
 REPLACES = ("deepspeed_tpu/ops/pallas/paged_splitk.py:499 "
             "paged_decode_attention_splitk_pallas (K7; _splitk_kernel :485, "
             "_splitk_kernel_quant :491, body _splitk_body :324)")
+REPLACES_WINDOW = ("deepspeed_tpu/ops/pallas/paged_splitk.py:499 window= (_splitk_body "
+                   ":324; window :345-377; dispatchers :597-725)")
 REPLACES_MERGE = "deepspeed_tpu/ops/pallas/paged_splitk.py:84 merge_splitk_partials"
 NEG_INF = -1e30
 
 
-def kernel_name(n_splits: int) -> str:
-    return f"{NAME}/{int(n_splits)}"
+def kernel_name(n_splits: int, window: Optional[int] = None) -> str:
+    return f"{NAME if window is None else NAME_WINDOW}/{int(n_splits)}"
 
 
 def split_pages(max_blocks: int, n_splits: int) -> int:
@@ -138,13 +150,14 @@ def splitk_attention(q: torch.Tensor, kv_pages: torch.Tensor,
                      side_v: Optional[torch.Tensor] = None, j: int = 0,
                      softmax_scale: Optional[float] = None,
                      kv_scales: Optional[torch.Tensor] = None,
-                     with_lse: bool = False):
+                     with_lse: bool = False, window: Optional[int] = None):
     """Split-K decode attention: q [S, H, D] over the first ``lens[s]``
     tokens of each row's pages, cut into ``n_splits`` splits, plus (with
     ``side_k/side_v`` [S, C * Hkv, D]) the side rows ``cc <= j`` as one more
     piece; merged -> [S, H, D] in q's dtype (and the merged lse [S, H] f32
     with ``with_lse``). Pages are bf16, or int8 with ``kv_scales`` [NB, R8,
-    128] and then f32 side rows.
+    128] and then f32 side rows. ``window``: the sliding window (None:
+    none; not over int8 pages yet).
 
     CPU tensors run :func:`splitk_attention_plain`; CUDA tensors launch the
     partials kernel (counted as ``paged_splitk/<n_splits>``) and the merge
@@ -155,16 +168,20 @@ def splitk_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     n_splits = int(n_splits)
     if n_splits < 1:
         raise ValueError(f"{NAME}: n_splits must be >= 1, got {n_splits}")
-    name = kernel_name(n_splits)
+    quant = kv_scales is not None
+    if quant and window is not None:
+        raise NotImplementedError(f"{NAME}: a sliding window over int8 pages is not "
+                                  "ported to deepspeed_tpu_torch yet")
+    name = kernel_name(n_splits, window)
     C = check_paged_inputs(name, q, kv_pages, block_tables, lens, side_k, side_v, j,
                            kv_scales)
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
     sides = () if side_k is None else (side_k, side_v)
-    quant = kv_scales is not None
     extra = (kv_scales,) if quant else ()
     if _loader.on_cpu(name, q, kv_pages, block_tables, lens, *sides, *extra):
         return splitk_attention_plain(q, kv_pages, block_tables, lens, n_splits,
-                                      side_k, side_v, j, scale, kv_scales, with_lse)
+                                      side_k, side_v, j, scale, kv_scales, with_lse,
+                                      window)
     side_kw = dict(zip(("side_k", "side_v"), sides))
     P = n_splits + (1 if sides else 0)
     out_p = torch.empty((S, P, H, D), dtype=torch.float32, device=q.device)
@@ -186,7 +203,7 @@ def splitk_attention(q: torch.Tensor, kv_pages: torch.Tensor,
         _loader.launch(name, "dstorch_paged_splitk_bf16", q.device,
                        ptr(q), ptr(kv_pages), ptr(block_tables), ptr(lens), ptr(side_k),
                        ptr(side_v), ptr(out_p), ptr(lse_p), S, H, Hkv, D, bs, MB, C,
-                       int(j), n_splits, split_tokens, scale)
+                       int(j), n_splits, split_tokens, _loader.window_arg(window), scale)
     return splitk_merge(out_p, lse_p, q.dtype, with_lse)
 
 
@@ -194,7 +211,7 @@ def splitk_attention_plain(q, kv_pages, block_tables, lens, n_splits: int,
                            side_k=None, side_v=None, j: int = 0,
                            softmax_scale: Optional[float] = None,
                            kv_scales: Optional[torch.Tensor] = None,
-                           with_lse: bool = False):
+                           with_lse: bool = False, window: Optional[int] = None):
     """The same function in plain PyTorch: each split's partial in f32,
     then :func:`merge_splitk_partials`."""
     S, H, D = q.shape
@@ -205,11 +222,13 @@ def splitk_attention_plain(q, kv_pages, block_tables, lens, n_splits: int,
     TL = per * bs
     bt = _padded_tables(block_tables, per * n_splits)
     qg = q.float().view(S, Hkv, G, D)
+    t_lo, c_lo = window_starts(lens, j, window, side_k is not None)
     outs, lses = [], []
     for p in range(n_splits):
         k, v = gather_rows(kv_pages, bt[:, p * per:(p + 1) * per], per, kv_scales)
         pos = p * TL + torch.arange(TL, device=q.device)
-        mask = (pos[None] < lens.long()[:, None])[:, None, None, :]
+        mask = ((pos[None] < lens.long()[:, None])
+                & (pos[None] >= t_lo[:, None]))[:, None, None, :]
         s = torch.einsum("shgd,shtd->shgt", qg, k) * scale
         o, lse = _partial(s, mask, v, "shgt,shtd->shgd")
         outs.append(o.reshape(S, H, D))
@@ -219,8 +238,8 @@ def splitk_attention_plain(q, kv_pages, block_tables, lens, n_splits: int,
         sk = side_k.view(S, C, Hkv, D)[:, :j + 1].float().transpose(1, 2)
         sv = side_v.view(S, C, Hkv, D)[:, :j + 1].float().transpose(1, 2)
         s = torch.einsum("shgd,shtd->shgt", qg, sk) * scale
-        o, lse = _partial(s, torch.ones_like(s, dtype=torch.bool), sv,
-                          "shgt,shtd->shgd")
+        side_ok = torch.arange(j + 1, device=q.device) >= c_lo
+        o, lse = _partial(s, side_ok.expand(s.shape), sv, "shgt,shtd->shgd")
         outs.append(o.reshape(S, H, D))
         lses.append(lse.reshape(S, H))
     out, lse = merge_splitk_partials(torch.stack(outs, 1), torch.stack(lses, 1))
@@ -236,36 +255,38 @@ def paged_decode_attention_splitk(q, kv_pages, block_tables, ctx_lens,
                                   softmax_scale: Optional[float] = None,
                                   with_lse: bool = False,
                                   kv_scales: Optional[torch.Tensor] = None,
-                                  n_splits: int = 1):
+                                  n_splits: int = 1, window: Optional[int] = None):
     """Decode attention at a split count: ``n_splits <= 1`` without lse is
     the base decode kernel; otherwise split-K (the base kernel has no lse
     output, so ``with_lse`` at one split runs the split-K pair at 1)."""
     if n_splits <= 1 and not with_lse:
         return paged_decode_attention(q, kv_pages, block_tables, ctx_lens,
-                                      softmax_scale=softmax_scale, kv_scales=kv_scales)
+                                      softmax_scale=softmax_scale, kv_scales=kv_scales,
+                                      window=window)
     return splitk_attention(q, kv_pages, block_tables, ctx_lens, max(1, n_splits),
                             softmax_scale=softmax_scale, kv_scales=kv_scales,
-                            with_lse=with_lse)
+                            with_lse=with_lse, window=window)
 
 
 def paged_sidebuf_attention_splitk(q, kv_pages, block_tables, prefix_lens, side_k,
                                    side_v, j: int,
                                    softmax_scale: Optional[float] = None,
                                    kv_scales: Optional[torch.Tensor] = None,
-                                   n_splits: int = 2):
+                                   n_splits: int = 2, window: Optional[int] = None):
     """Frozen prefix in pages, split ``n_splits`` ways, plus the side rows
     ``cc <= j`` of the slab ``[S, C * Hkv, D]`` as one more piece, merged
     as ``n_splits + 1`` pieces (int8 pools: the slab holds f32
-    ``kv_write_dequant`` rows)."""
+    ``kv_write_dequant`` rows). Under a ``window`` the query sits at
+    ``prefix + j``, so the pages' window start moves with ``j``."""
     return splitk_attention(q, kv_pages, block_tables, prefix_lens, n_splits,
                             side_k, side_v, j, softmax_scale=softmax_scale,
-                            kv_scales=kv_scales)
+                            kv_scales=kv_scales, window=window)
 
 
 def paged_decode_attention_splitk_step(q, k_new, v_new, kv_pages, block_tables,
                                        ctx_lens, softmax_scale: Optional[float] = None,
                                        kv_scales: Optional[torch.Tensor] = None,
-                                       n_splits: int = 2):
+                                       n_splits: int = 2, window: Optional[int] = None):
     """Scatter-first decode step: write the current token's K/V ([S, Hkv,
     D], position ``ctx - 1``; int8 pools quantize the rows and their
     scales) into the pages IN PLACE, then split-K decode over the full
@@ -274,31 +295,33 @@ def paged_decode_attention_splitk_step(q, k_new, v_new, kv_pages, block_tables,
     write_token_rows(kv_pages, k_new, v_new, block_tables, ctx_lens - 1, kv_scales)
     return paged_decode_attention_splitk(q, kv_pages, block_tables, ctx_lens,
                                          softmax_scale=softmax_scale,
-                                         kv_scales=kv_scales, n_splits=n_splits)
+                                         kv_scales=kv_scales, n_splits=n_splits,
+                                         window=window)
 
 
 def paged_chunk_attention_splitk(q, kv_pages, block_tables, q_starts, ctx_lens,
                                  softmax_scale: Optional[float] = None,
                                  kv_scales: Optional[torch.Tensor] = None,
-                                 n_splits: int = 1):
+                                 n_splits: int = 1, window: Optional[int] = None):
     """Chunk attention at a split count: ``n_splits <= 1`` is the batched
     chunk kernel; higher counts take :func:`paged_chunk_attention_xla`."""
     if n_splits <= 1:
         return paged_chunk_attention_batched(q, kv_pages, block_tables, q_starts,
                                              ctx_lens, softmax_scale=softmax_scale,
-                                             kv_scales=kv_scales)
+                                             kv_scales=kv_scales, window=window)
     return paged_chunk_attention_xla(q, kv_pages, block_tables, q_starts, ctx_lens,
                                      softmax_scale=softmax_scale, kv_scales=kv_scales,
-                                     n_splits=n_splits)
+                                     n_splits=n_splits, window=window)
 
 
 def paged_chunk_attention_xla(q, kv_pages, block_tables, q_starts, ctx_lens,
                               softmax_scale: Optional[float] = None,
                               kv_scales: Optional[torch.Tensor] = None,
-                              n_splits: int = 1):
+                              n_splits: int = 1, window: Optional[int] = None):
     """Split-K batched chunk attention in PyTorch ops: q [N, Cs, H, D], slot
     n's row i at position ``q_starts[n] + i`` sees keys ``k_pos <= q_pos``
-    with ``k_pos < ctx``; one partial per split, merged -> [N, Cs, H, D]."""
+    with ``k_pos < ctx`` (and ``k_pos > q_pos - window`` under a sliding
+    window); one partial per split, merged -> [N, Cs, H, D]."""
     N, Cs, H, D = q.shape
     _, _, Hkv, bs, _ = kv_pages.shape
     G = H // Hkv
@@ -314,6 +337,8 @@ def paged_chunk_attention_xla(q, kv_pages, block_tables, q_starts, ctx_lens,
         pos = p * TL + torch.arange(TL, device=q.device)
         mask = ((pos[None, None] <= q_pos[:, :, None])
                 & (pos[None, None] < ctx_lens.long()[:, None, None]))   # [N, Cs, T]
+        if window is not None:
+            mask &= pos[None, None] > q_pos[:, :, None] - window
         s = torch.einsum("nchgd,nhtd->nchgt", qg, k) * scale
         o, lse = _partial(s, mask[:, :, None, None], v, "nchgt,nhtd->nchgd")
         outs.append(o.reshape(N * Cs, H, D))
