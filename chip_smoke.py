@@ -91,7 +91,27 @@ Phase 3 also holds the window branch of K2, K5, the decode kernel and K7
 every row's window start are never read (filled with NaN, the outputs stay
 bitwise equal).
 
-The last two lines are the kernel table (26 rows) and ``{"ok": true,
+10. ALiBi serving of BLOOM-560M at full width and depth (24 layers, 1024
+   wide, 16 heads, D = 64, FFN 4096, vocab 250880, tied head, embedding
+   LayerNorm; random bf16 weights from seed 0): pages of 128, max_context
+   2048, 72 pages, the default chunk budget (736), the split ladder up to 4
+   (``min_ctx_per_split`` 512); ``generate()`` on prompts of
+   1900/1000/400/60 tokens (32 new tokens each), a decode step at each
+   pinned rung 1/2/4 and a ``put()`` mixing a 180-token prompt with decode
+   rows (at rung 1); launches of the ALiBi K5, decode kernel, K7 at 2 and 4
+   splits and the merge, and none of the packed prefill kernel (an ALiBi
+   model prefills through the paged pass); next-token logits at prefill
+   and four decode steps against the port's dense ``DecoderLM`` forward in
+   fp32 with ``alibi_bias`` (RMS within 2x the same forward's in bf16);
+   rung invariance; rates, profiles, peak memory.
+
+Phase 3 also holds the ALiBi branch of K5, the decode kernel (pages only
+and one side row) and K7 (2 and 4 splits, with the merge and its lse)
+against their plain versions at BLOOM-560M's shapes (ctx
+1932/1032/432/92), plus one launch of the decode kernel and K5 at 112
+heads, D = 128 (the slopes' interpolation branch).
+
+The last two lines are the kernel table (30 rows) and ``{"ok": true,
 "device": ...}`` as JSON. Run from the repository root: ``python3 chip_smoke.py``.
 """
 
@@ -315,6 +335,7 @@ def check_kernels(dev):
     check_flash(randn, record)
     check_quant_kernels(dev, g, randn, record)
     check_window_kernels(dev, randn, record)
+    check_alibi_kernels(dev, randn, record)
     return rows
 
 
@@ -851,6 +872,117 @@ def check_window_kernels(dev, randn, record):
         check("paged_chunk_window", [max(0, qs - w + 1) for qs in q0.tolist()],
               lambda p: paged_chunk_attention_batched(qc, p, bt_p, q0, ctx, window=w))
     del clean, poisoned
+    torch.cuda.empty_cache()
+
+
+# BLOOM-560M's attention at its serving shapes (phase 10): 16 heads over 16
+# KV heads (G = 1), D = 64, pages of 128, block tables as wide as phase
+# 10's max_context (2048 = 16 pages); contexts at phase 10's prompts' ends
+# (the 1900-token prompt reaches 1932 tokens: ALiBi biases up to 0.707 x
+# 1931 = 1365 against scores of order 1)
+A_HEADS, A_BS, A_MB = (16, 16, 64), 128, 16   # query heads, KV heads, head dim
+A_CTXS = [1932, 1032, 432, 92]
+A_WIDE = (112, 112, 128)                      # BLOOM-176B's heads: the interpolated slopes
+A_WIDE_CTXS = [700, 92]
+
+
+def check_alibi_kernels(dev, randn, record):
+    """The ALiBi branch of K5, the decode kernel (K3/K4/K6) and K7 with its
+    merge, each against its plain version at BLOOM-560M's shapes (the
+    kernel-table rows), plus one untimed launch of the decode kernel and K5
+    at 112 heads, D = 128, whose head count takes the slopes' interpolation
+    branch."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels import (
+        paged_chunk_attention_batched, paged_chunk_attention_batched_plain,
+        paged_decode_attention, paged_decode_attention_plain,
+        splitk_attention, splitk_attention_plain)
+    (H, Hkv, D), bs = A_HEADS, A_BS
+    S = len(A_CTXS)
+    NB = sum(-(-c // bs) for c in A_CTXS) + 1
+    bt = block_tables(A_CTXS, bs, A_MB, NB, dev)
+    pool = randn(NB, 2, Hkv, bs, D)
+    ctx = torch.tensor(A_CTXS, dtype=torch.int32, device=dev)
+
+    # K5: 4 slots x 128 rows at the end of each context (the prefill
+    # passes' continuation chunks at rung 1)
+    Cs = 128
+    qc = randn(S, Cs, H, D)
+    q0 = torch.clamp(ctx - Cs, min=0)
+    out = paged_chunk_attention_batched(qc, pool, bt, q0, ctx, alibi=True)
+    ref = paged_chunk_attention_batched_plain(qc, pool, bt, q0, ctx, alibi=True)
+    torch.cuda.synchronize()
+    vis = sum(min(c, qs + r + 1) for c, qs in zip(A_CTXS, q0.tolist()) for r in range(Cs))
+    b_ms, b_by = bound(sum(A_CTXS) * Hkv * D * 2 * 2 + 2 * qc.numel() * 2, 4 * D * H * vis)
+    record("paged_chunk_alibi", f"{S}x{Cs} rows H={H} Hkv={Hkv} D={D} ctx={A_CTXS} bs={bs}",
+           err((out, ref)), row=True,
+           ms=time_ms(lambda: paged_chunk_attention_batched(qc, pool, bt, q0, ctx, alibi=True)),
+           plain_ms=time_ms(lambda: paged_chunk_attention_batched_plain(
+               qc, pool, bt, q0, ctx, alibi=True), 3, 1),
+           library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+    # the decode kernel: pages only (decode rows of a pass) and one side
+    # row at prefix + 0 (the decode step at rung 1, the table's row)
+    qd = randn(S, H, D)
+    lens1 = torch.clamp(ctx - 1, min=0)
+    side = (randn(S, Hkv, D), randn(S, Hkv, D))
+    for C in (0, 1):
+        lens, sd = (lens1, side) if C else (ctx, ())
+        fn = lambda: paged_decode_attention(qd, pool, bt, lens, *sd, alibi=True)
+        out = fn()
+        ref = paged_decode_attention_plain(qd, pool, bt, lens, *sd, alibi=True)
+        torch.cuda.synchronize()
+        extra = {}
+        if C:
+            toks = sum(A_CTXS)
+            b_ms, b_by = bound(toks * Hkv * D * 2 * 2 + 2 * qd.numel() * 2, 4 * D * H * toks)
+            extra = dict(ms=time_ms(fn), plain_ms=time_ms(
+                lambda: paged_decode_attention_plain(qd, pool, bt, lens, *sd, alibi=True), 3, 1),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        record("paged_decode_alibi", f"S={S} H={H} Hkv={Hkv} D={D} ctx={A_CTXS} C={C}",
+               err((out, ref)), row=bool(C), **extra)
+
+    # K7 at 2 and 4 splits: one side row (the decode step at rungs 2 and 4,
+    # the table's rows), and pages only with the merged lse
+    for n in (2, 4):
+        name = f"paged_splitk_alibi/{n}"
+        fn = lambda: splitk_attention(qd, pool, bt, lens1, n, *side, alibi=True)
+        out = fn()
+        ref = splitk_attention_plain(qd, pool, bt, lens1, n, *side, alibi=True)
+        toks = sum(A_CTXS)
+        partials = S * (n + 1) * H * (D + 1) * 4
+        b_ms, b_by = bound(toks * Hkv * D * 2 * 2 + 2 * qd.numel() * 2 + 2 * partials,
+                           4 * D * H * toks)
+        record(name, f"S={S} H={H} Hkv={Hkv} D={D} ctx={A_CTXS} 1 side row",
+               err((out, ref)), row=True, ms=time_ms(fn),
+               plain_ms=time_ms(lambda: splitk_attention_plain(
+                   qd, pool, bt, lens1, n, *side, alibi=True), 3, 1),
+               library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        o, lse = splitk_attention(qd, pool, bt, ctx, n, with_lse=True, alibi=True)
+        o_ref, lse_ref = splitk_attention_plain(qd, pool, bt, ctx, n, with_lse=True,
+                                                alibi=True)
+        record(name, "pages only, with lse", err((o, o_ref), (lse[..., None],
+                                                              lse_ref[..., None])))
+    del pool
+
+    # one untimed launch each at 112 heads, D = 128 (interpolated slopes)
+    H, Hkv, D = A_WIDE
+    ctxs = A_WIDE_CTXS
+    NBw = sum(-(-c // bs) for c in ctxs) + 1
+    btw = block_tables(ctxs, bs, A_MB, NBw, dev)
+    poolw = randn(NBw, 2, Hkv, bs, D)
+    cw = torch.tensor(ctxs, dtype=torch.int32, device=dev)
+    qw = randn(2, H, D)
+    record("paged_decode_alibi", f"S=2 H={H} Hkv={Hkv} D={D} ctx={ctxs} (interpolated slopes)",
+           err((paged_decode_attention(qw, poolw, btw, cw, alibi=True),
+                paged_decode_attention_plain(qw, poolw, btw, cw, alibi=True))))
+    qcw = randn(2, 64, H, D)
+    q0w = torch.clamp(cw - 64, min=0)
+    record("paged_chunk_alibi", f"2x64 rows H={H} Hkv={Hkv} D={D} ctx={ctxs} "
+           "(interpolated slopes)",
+           err((paged_chunk_attention_batched(qcw, poolw, btw, q0w, cw, alibi=True),
+                paged_chunk_attention_batched_plain(qcw, poolw, btw, q0w, cw, alibi=True))))
+    del poolw
     torch.cuda.empty_cache()
 
 
@@ -2071,6 +2203,182 @@ def run_mistral():
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 10: ALiBi serving of BLOOM-560M
+# --------------------------------------------------------------------------- #
+
+A_KERNELS = ("paged_chunk_alibi", "paged_decode_alibi", "paged_splitk_alibi/2",
+             "paged_splitk_alibi/4", "splitk_merge")
+A_NAMES = ("paged_chunk", "paged_decode", "paged_splitk", "splitk_merge")
+ENGINE_BLOOM = {"kv_cache": {"block_size": 128, "num_blocks": 72},
+                "state_manager": {"max_context": 2048},
+                "attention": {"decode_splits": 4, "min_ctx_per_split": 512}, "seed": 0}
+A_PROMPTS = (1900, 1000, 400, 60)     # the 1900-token one ends at A_CTXS[0] = 1932
+
+
+def run_bloom():
+    """Phase 10: BLOOM-560M at full width and depth (24 layers, 16 heads,
+    D = 64, vocab 250880, tied head, ALiBi, embedding LayerNorm), random
+    bf16 weights from seed 0, served through the paged pass (no packed
+    prefill) and the split ladder up to 4. Returns the main path's launch
+    counts of the ALiBi kernels."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.v2.ragged.ragged_batch import to_device
+    from deepspeed_tpu_torch.models.decoder import DecoderConfig, DecoderLM
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gib = lambda b: b / 2 ** 30
+    cfg = DecoderConfig.bloom_560m(dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, device="cuda", seed=0)
+    engine = InferenceEngineV2(model, ENGINE_BLOOM, model.flat_params())
+    spec = engine.spec
+    torch.cuda.synchronize()
+    nb = ENGINE_BLOOM["kv_cache"]["num_blocks"]
+    print(f"model: BLOOM-560M (DecoderConfig.bloom_560m: vocab {cfg.vocab_size}, hidden "
+          f"{cfg.hidden_size}, FFN {cfg.intermediate_size}, {cfg.num_hidden_layers} layers, "
+          f"{cfg.num_attention_heads} heads, head_dim {cfg.head_dim}, alibi, embed_norm, "
+          f"tied head), random bf16 weights (seed 0); family {engine.family}; pool {nb} "
+          f"pages; chunk budget {engine.config.state_manager.chunk_budget}; ladder "
+          f"{engine.attn_split_ladder}; build {time.perf_counter() - t0:.1f} s, memory "
+          f"{gib(torch.cuda.memory_allocated()):.2f} GiB (the tied head's f32 embedding "
+          f"{gib(engine.weights['embed_f32'].numel() * 4):.2f} GiB)", flush=True)
+    if not (spec.alibi and spec.tied_lm_head and spec.embed_norm) \
+            or engine._pass_prefill is not None:
+        raise AssertionError(f"BLOOM spec {spec}: expected ALiBi, a tied head, the "
+                             "embedding norm and no packed prefill pass")
+
+    rng = np.random.RandomState(10)
+    V = cfg.vocab_size
+    prompts = [rng.randint(0, V, n).astype(np.int32) for n in A_PROMPTS]
+    uids = [10, 11, 12, 13]
+
+    # ---- the main path ---- #
+    reset_launches()
+    engine.attn_stats.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_new_tokens=32)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    gen_rungs = dict(engine.attn_stats.rungs)
+    for p, o in zip(prompts, outs):
+        if len(o) != len(p) + 32 or list(o[:len(p)]) != list(p) \
+                or not all(0 <= t < V for t in o):
+            raise AssertionError("generate() returned a malformed stream")
+    if engine.free_blocks != nb:
+        raise AssertionError(f"free blocks {engine.free_blocks} != {nb} after generate()")
+    t0 = time.perf_counter()
+    got = [engine.put(uids, prompts)]                       # prefill logits
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    pipe = engine.decode_pipeline(uids)
+    toks = []
+    for rung in engine.attn_split_ladder:                   # one step at each rung
+        engine.attn_rung_override = rung
+        toks.append(pipe.run(1)[:, 0])
+        engine._materialize(uids)
+        got.append(np.stack([engine._last_logits[u] for u in uids]))
+    # decode rows and a new 180-token prompt in one pass, at rung 1
+    engine.attn_rung_override = 1
+    nxt = np.argmax(got[-1], axis=-1).astype(np.int32)
+    lg = engine.put(uids + [14], [nxt[i:i + 1] for i in range(4)]
+                    + [rng.randint(0, V, 180).astype(np.int32)])
+    engine.attn_rung_override = None
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES.get(k, 0) for k in A_KERNELS}
+    packed = {k: LAUNCHES.get(k, 0) for k in ("flash_packed", "flash_packed_window")}
+    rungs = dict(engine.attn_stats.rungs)
+    toks.append(nxt)
+    got.append(lg[:4])
+    print("main-path launches " + json.dumps({**launches, **packed}), flush=True)
+    print("attn_stats rungs " + json.dumps({"generate": gen_rungs, "main_path": rungs}),
+          flush=True)
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    if any(packed.values()):
+        raise AssertionError(f"the packed prefill kernel ran for an ALiBi model: {packed}")
+    unserved = [r for r in engine.attn_split_ladder if not rungs.get(r)]
+    if unserved:
+        raise AssertionError(f"rungs that served no step: {unserved}")
+    if lg.shape != (5, V) or not np.isfinite(lg).all():
+        raise AssertionError("put() logits malformed")
+
+    # ---- logits against the dense fp32 forward with alibi_bias ---- #
+    e_eng, e_dense, m_eng, m_dense = [], [], 0.0, 0.0
+    for i, p in enumerate(prompts):
+        seq = torch.from_numpy(np.concatenate([p] + [t[i:i + 1] for t in toks])).long()
+        rows = torch.arange(len(p) - 1, len(p) + len(toks), device="cuda")
+        ids = seq.cuda()[None]
+        ref32 = model.head(model.hidden(ids, compute_dtype=torch.float32)[0, rows])
+        ref16 = model.head(model.hidden(ids, compute_dtype=torch.bfloat16)[0, rows])
+        eng = torch.from_numpy(np.stack([g_[i] for g_ in got])).cuda()
+        if not torch.isfinite(eng).all():
+            raise AssertionError("engine logits are not finite")
+        d_eng, d_dense = eng - ref32, ref16 - ref32
+        e_eng.append(float(d_eng.pow(2).mean()))
+        e_dense.append(float(d_dense.pow(2).mean()))
+        m_eng = max(m_eng, float(d_eng.abs().max()))
+        m_dense = max(m_dense, float(d_dense.abs().max()))
+        del ref32, ref16
+    rms_eng, rms_dense = float(np.sqrt(np.mean(e_eng))), float(np.sqrt(np.mean(e_dense)))
+    limit = 2 * rms_dense
+    print(f"logits vs dense fp32 with alibi_bias (prefill + {len(toks)} decode steps x 4 "
+          f"prompts): engine bf16 rms {rms_eng:.5f} max {m_eng:.4f}; dense bf16 rms "
+          f"{rms_dense:.5f} max {m_dense:.4f}; limit rms <= {limit:.5f}", flush=True)
+    if not rms_eng <= limit:
+        raise AssertionError(f"engine logits error {rms_eng} > 2 x dense bf16 {rms_dense}")
+
+    # ---- rung invariance on one live step ---- #
+    db = engine.scheduler.decode_batch(uids, 2, engine.scratch_block)
+    ids = engine._sample_device_padded(uids, False, 1.0, 0)
+    bt = to_device(db.block_tables, engine.device)
+    pos = to_device(db.positions, engine.device)
+    step = {}
+    for rung in reversed(engine.attn_split_ladder):         # each writes the same token
+        _, lg_r = engine._step_rungs[rung](engine.weights, engine.kv.kv, ids, pos, bt, pos + 1)
+        step[rung] = lg_r[:4].float()
+    diffs = {r: float((step[r] - step[1]).pow(2).mean().sqrt()) for r in step}
+    agree = {r: float((step[r].argmax(-1) == step[1].argmax(-1)).float().mean())
+             for r in step}
+    print("rung invariance " + json.dumps({"rms_vs_rung1": diffs, "limit": limit,
+                                           "greedy_agreement_vs_rung1": agree}), flush=True)
+    bad = {r: d for r, d in diffs.items() if not d <= limit}
+    if bad:
+        raise AssertionError(f"rungs {bad} differ from rung 1 by more than {limit}")
+
+    # ---- decode rate and where the time goes ---- #
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.run(24)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    n_prompt = sum(len(p) for p in prompts)
+    print(f"generate() 4 prompts x 32 tokens in {t_gen:.2f} s; prefill {n_prompt} tokens in "
+          f"{t_prefill * 1e3:.1f} ms = {n_prompt / t_prefill:.1f} tok/s; decode 4 x 24 tokens "
+          f"at rung {engine._attn_rung()} in {t_decode * 1e3:.1f} ms = "
+          f"{96 / t_decode:.1f} tok/s ({t_decode / 24 * 1e3:.2f} ms/step)", flush=True)
+    live = max(s.seen_tokens for s in engine.scheduler.seqs.values())
+    device_breakdown(f"BLOOM decode step (4 seqs, ctx <= {live + 1}, rung "
+                     f"{engine._attn_rung()})", lambda: pipe.run(1), A_NAMES)
+    engine.flush(uids + [14])
+    chunk = engine.config.state_manager.chunk_budget
+    device_breakdown(f"BLOOM prefill pass ({chunk} tokens from 0, paged pass, rung 1)",
+                     lambda: engine.put([20], [rng.randint(0, V, chunk).astype(np.int32)]),
+                     A_NAMES)
+    engine.flush([20])
+    print(f"phase 10: peak device memory {gib(torch.cuda.max_memory_allocated()):.2f} GiB; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 ATTN_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "flash_fwd", "flash_bwd_dq",
               "flash_bwd_dkv")
 Q_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk", "splitk_merge",
@@ -2135,6 +2443,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the merge kernel's row keeps phase 6's count; phase 9 checks its own
     launches.update({k: v for k, v in run_mistral().items() if k != "splitk_merge"})
+    torch.cuda.empty_cache()
+    # likewise phase 10
+    launches.update({k: v for k, v in run_bloom().items() if k != "splitk_merge"})
     # modules by full name: the package re-exports same-named functions
     from deepspeed_tpu_torch.ops.kernels import paged_chunk, paged_decode, paged_splitk
     from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import KERNELS as K9_KERNELS
@@ -2160,6 +2471,11 @@ def main() -> int:
         paged_decode.NAME_WINDOW: (paged_decode.SOURCE, paged_decode.REPLACES_WINDOW),
         **{paged_splitk.kernel_name(n, MISTRAL_WINDOW): (paged_splitk.SOURCE,
                                                          paged_splitk.REPLACES_WINDOW)
+           for n in (2, 4)},
+        paged_chunk.NAME_ALIBI: (paged_chunk.SOURCE, paged_chunk.REPLACES_ALIBI),
+        paged_decode.NAME_ALIBI: (paged_decode.SOURCE, paged_decode.REPLACES_ALIBI),
+        **{paged_splitk.kernel_name(n, alibi=True): (paged_splitk.SOURCE,
+                                                     paged_splitk.REPLACES_ALIBI)
            for n in (2, 4)}})
     sources.update(K9_KERNELS)
     sources.update(K10_KERNELS)

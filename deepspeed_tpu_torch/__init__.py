@@ -7,8 +7,10 @@ each with its attention in hand-written CUDA kernels for ``sm_90a``
 (``ops.kernels``, sources in ``csrc/``):
 
 - serving: the v2 ragged engine (``inference.v2.InferenceEngineV2``)
-  serving Llama-2 and Mistral with its sliding window (kernels K2, K5, the
-  paged decode kernel and split-K);
+  serving Llama-2, Mistral with its sliding window, and the generic
+  decoder families (``models.decoder``: OPT, Falcon, Phi, GPT-NeoX, GPT-J,
+  BLOOM with ALiBi) and GPT-2 (kernels K2, K5, the paged decode kernel and
+  split-K);
 - training: :func:`initialize` -> ``engine.train_batch`` /
   ``train_steps`` / ``eval_loss`` on one device, training GPT-2
   (``models.gpt2.GPT2LMHead``) with AdamW, bf16 mixed precision and the
@@ -23,6 +25,7 @@ modes, kernels K10).
 from deepspeed_tpu_torch.config import ConfigError, DeepSpeedTPUConfig
 from deepspeed_tpu_torch.inference.v2 import (DecodePipeline, InferenceEngineV2,
                                               RaggedInferenceEngineConfig)
+from deepspeed_tpu_torch.models.decoder import DecoderConfig, DecoderLM
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
 from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from deepspeed_tpu_torch.runtime.engine import DeepSpeedTPUEngine

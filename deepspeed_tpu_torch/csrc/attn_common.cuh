@@ -20,6 +20,11 @@
 // the same depth hit 16 different banks. V (read row-broadcast) and P keep
 // dense rows (P padded by one float).
 //
+// An optional per-key additive score bias (the Bias functor; ALiBi's
+// slope * k_pos) is a compile-time flag: NoBias leaves the loop's
+// arithmetic as it is, a biased block adds bias(key) to each visible
+// scaled score in f32 before the running max (masked keys stay kNegBig).
+//
 // int8 pages (kv_row returns a KVRowPtrI8): K and V tiles stay int8 in
 // shared memory (K rows padded to D + 4 bytes, again an odd word count)
 // with each key's f32 K and V scales beside them. The K scale multiplies
@@ -78,6 +83,22 @@ struct KVRowPtrI8 {
   float ks, vs;
 };
 
+// no score bias: flash_block's loop compiles as it does without the hook
+struct NoBias {
+  static constexpr bool kOn = false;
+  __device__ __forceinline__ float operator()(int) const { return 0.f; }
+};
+
+// ALiBi: slope * k_pos, the key's absolute position (the -slope * q_pos
+// term is constant along a softmax row and dropped, as in the JAX package)
+struct AlibiBias {
+  static constexpr bool kOn = true;
+  float slope;
+  __device__ __forceinline__ float operator()(int key) const {
+    return slope * (float)key;
+  }
+};
+
 template <int D, bool I8 = false>
 struct FlashSmem {
   static constexpr int QS = D + 2;   // padded Q/K row, in bf16
@@ -99,15 +120,16 @@ struct FlashSmem {
 // log-sum-exp of its scaled scores (m + log l) goes to lse_rows[r], and
 // kNegBig for a row that sees no key. Keys below k_lo are neither read nor
 // computed (a sliding window's start: no row of the block sees them); the
-// key tiles start at k_lo.
-template <int D, typename KVRow, typename Mask>
+// key tiles start at k_lo. `bias` (Bias::kOn) adds bias(key) to every
+// visible key's scaled score, score * scale + bias(key) in f32.
+template <int D, typename KVRow, typename Mask, typename Bias = NoBias>
 __device__ __forceinline__ void flash_block(const bf16* __restrict__ q_rows,
                                             bf16* __restrict__ o_rows,
                                             int row_stride, int n_q, int n_keys,
                                             KVRow kv_row, Mask mask,
                                             float scale, char* smem,
                                             float* __restrict__ lse_rows = nullptr,
-                                            int k_lo = 0) {
+                                            int k_lo = 0, Bias bias = Bias()) {
   static_assert(D % 16 == 0 && D <= 256, "head dim must be a multiple of 16, <= 256");
   constexpr bool I8 = std::is_same<decltype(kv_row(0)), KVRowPtrI8>::value;
   using S = FlashSmem<D, I8>;
@@ -242,6 +264,9 @@ __device__ __forceinline__ void flash_block(const bf16* __restrict__ q_rows,
       }
     }
 
+    float kb[4];  // the keys' score bias (unused without one)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) kb[c] = Bias::kOn ? bias(k0 + tx + 16 * c) : 0.f;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int row = ty * 4 + r;
@@ -251,7 +276,10 @@ __device__ __forceinline__ void flash_block(const bf16* __restrict__ q_rows,
       for (int c = 0; c < 4; ++c) {
         const int key = k0 + tx + 16 * c;
         ok[c] = row < n_q && key < n_keys && mask(row, key);
-        s[r][c] = ok[c] ? s[r][c] * scale : kNegBig;
+        if constexpr (Bias::kOn)
+          s[r][c] = ok[c] ? fmaf(s[r][c], scale, kb[c]) : kNegBig;
+        else
+          s[r][c] = ok[c] ? s[r][c] * scale : kNegBig;
         mx = fmaxf(mx, s[r][c]);
       }
 #pragma unroll

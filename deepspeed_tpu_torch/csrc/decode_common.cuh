@@ -25,6 +25,13 @@
 // bf16 copy would round away from what the pages store). For int8 pages
 // each token's K scale multiplies its score and its V scale its p before
 // the p.V update (the fold of the JAX package's _colscale_pages), in f32.
+//
+// ALiBi (slopes != null): each token's score for query head g gets
+// slopes[hk * G + g] * pos added after the scale (and the K scale), before
+// the running max; pos is the token's absolute position: t for page
+// tokens, side_pos0 + cc for side row cc. Without slopes the slope is 0,
+// and fmaf(0, pos, score) leaves every score bit for bit as it was. Tokens
+// outside the walked ranges are neither read nor biased.
 #pragma once
 
 #include "attn_common.cuh"
@@ -84,11 +91,12 @@ __device__ __forceinline__ void to_float8(const Raw8<T>& r, float (&f)[8]) {
 }
 
 // one token into the row group's running state; ks/vs are the token's
-// dequant scales (1 for bf16 and f32 rows)
+// dequant scales (1 for bf16 and f32 rows), sl[g] * pos its ALiBi bias
 template <int G, int LPR, typename T>
 __device__ __forceinline__ void decode_update(const float (&qf)[G][8], const Raw8<T>& kr,
                                               const Raw8<T>& vr, float ks, float vs,
-                                              bool ok, float (&m)[G], float (&l)[G],
+                                              bool ok, const float (&sl)[G], float pos,
+                                              float (&m)[G], float (&l)[G],
                                               float (&acc)[G][8]) {
   float kf[8], vf[8];
   to_float8<T>(kr, kf);
@@ -101,7 +109,7 @@ __device__ __forceinline__ void decode_update(const float (&qf)[G][8], const Raw
 #pragma unroll
     for (int off = LPR / 2; off > 0; off >>= 1)
       sc += __shfl_xor_sync(0xffffffffu, sc, off);
-    sc *= ks;
+    sc = fmaf(sl[g], pos, sc * ks);
     if (ok) {
       const float m_new = fmaxf(m[g], sc);
       const float alpha = __expf(m[g] - m_new);
@@ -131,14 +139,16 @@ struct DecodePage {
   int Hkv, bs, D;
 };
 
-// q row `qrow` [G*D] (the kv head's query heads) is pre-scaled by `scale`.
+// q row `qrow` [G*D] (the kv head's query heads) is pre-scaled by `scale`;
+// `slopes` [H] (ALiBi) or null, side row cc at position side_pos0 + cc.
 template <int G, int LPR, typename KV, typename SIDE>
 __device__ __forceinline__ void decode_attend(const bf16* __restrict__ qrow,
                                               const DecodePage pg, int hk, int t_lo,
                                               int t_hi, const SIDE* __restrict__ side_k,
                                               const SIDE* __restrict__ side_v,
                                               int n_side, float scale, char* smem,
-                                              int c_lo = 0) {
+                                              int c_lo, const float* __restrict__ slopes,
+                                              int side_pos0) {
   constexpr int NGROUP = kDecThreads / LPR;
   constexpr int U = G <= 2 ? 4 : 2;
   constexpr bool I8 = std::is_same<KV, int8_t>::value;
@@ -150,9 +160,10 @@ __device__ __forceinline__ void decode_attend(const bf16* __restrict__ qrow,
   const bool act = d0 < D;
   const uint4 zero = make_uint4(0, 0, 0, 0);
 
-  float qf[G][8], m[G], l[G], acc[G][8];
+  float qf[G][8], m[G], l[G], acc[G][8], sl[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
+    sl[g] = slopes != nullptr ? __ldg(slopes + hk * G + g) : 0.f;
     const uint4 u = act ? load16(qrow + (size_t)g * D + d0) : zero;
     bf16x8_to_float(u, qf[g]);
 #pragma unroll
@@ -199,7 +210,8 @@ __device__ __forceinline__ void decode_attend(const bf16* __restrict__ qrow,
     }
 #pragma unroll
     for (int u = 0; u < U; ++u)
-      decode_update<G, LPR, KV>(qf, kr[u], vr[u], ks[u], vs[u], ok[u], m, l, acc);
+      decode_update<G, LPR, KV>(qf, kr[u], vr[u], ks[u], vs[u], ok[u], sl,
+                                (float)(t0 + u * NGROUP + grp), m, l, acc);
   }
 
   // side rows c_lo <= cc < n_side (row cc*Hkv + hk of this sequence's slab)
@@ -212,7 +224,8 @@ __device__ __forceinline__ void decode_attend(const bf16* __restrict__ qrow,
       kr = load8<SIDE>(side_k + row * D + d0);
       vr = load8<SIDE>(side_v + row * D + d0);
     }
-    decode_update<G, LPR, SIDE>(qf, kr, vr, 1.f, 1.f, ok, m, l, acc);
+    decode_update<G, LPR, SIDE>(qf, kr, vr, 1.f, 1.f, ok, sl, (float)(side_pos0 + cc), m,
+                                l, acc);
   }
 
   // merge the row groups of each warp (same lane_in_group, xor over groups)

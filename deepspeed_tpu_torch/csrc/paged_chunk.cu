@@ -15,6 +15,12 @@
 // pages (the scheduler's page ring) read the right tokens. window = 0 is
 // the unwindowed kernel.
 //
+// ALiBi (slopes != null; the Pallas kernel's alibi, :1493-1498): each
+// visible score of q-head h (kv head * G + g) gets slopes[h] * k_pos, the
+// key's absolute position, added in f32 after the scale and before the
+// running max (flash_block's compile-time bias hook, so the unbiased
+// kernel's arithmetic is unchanged). Masked keys are never biased.
+//
 // Bound on the H100 at the continuation shapes of Llama-2-7B (6 slots x
 // 128 rows, 32 heads, D = 128, ctx 2048/1536/1000/300/128/0): the pages
 // read once are 82 MB and q/out 13 MB (28 us at 3.35 TB/s), against
@@ -40,14 +46,15 @@
 
 namespace dstorch {
 
-// KV = bf16 (pages) or int8_t (pages + scale tiles `sc`, R8 rows per page)
-template <int D, typename KV>
+// KV = bf16 (pages) or int8_t (pages + scale tiles `sc`, R8 rows per page);
+// ALIBI reads the q heads' slopes [H]
+template <int D, typename KV, bool ALIBI>
 __global__ void __launch_bounds__(kTileThreads)
 paged_chunk_kernel(const bf16* __restrict__ q, const KV* __restrict__ kv,
                    const float* __restrict__ sc, int r8, const int* __restrict__ bt,
                    const int* __restrict__ q_starts, const int* __restrict__ ctx_lens,
-                   bf16* __restrict__ out, int Cs, int H, int Hkv, int bs, int MB,
-                   int window, float scale) {
+                   const float* __restrict__ slopes, bf16* __restrict__ out, int Cs,
+                   int H, int Hkv, int bs, int MB, int window, float scale) {
   extern __shared__ __align__(16) char smem[];
   const int sl = blockIdx.x, qb = blockIdx.y, h = blockIdx.z;
   const int hk = h / (H / Hkv);
@@ -84,58 +91,70 @@ paged_chunk_kernel(const bf16* __restrict__ q, const KV* __restrict__ kv,
   };
   const int k_lo = window > 0 ? max(0, q0 + r0 - window + 1) : 0;
   const size_t off = (((size_t)sl * Cs + r0) * H + h) * D;
-  flash_block<D>(q + off, out + off, H * D, n_q, n_keys, kv_row, mask, scale, smem,
-                 nullptr, k_lo);
+  if constexpr (ALIBI)
+    flash_block<D>(q + off, out + off, H * D, n_q, n_keys, kv_row, mask, scale, smem,
+                   nullptr, k_lo, AlibiBias{__ldg(slopes + h)});
+  else
+    flash_block<D>(q + off, out + off, H * D, n_q, n_keys, kv_row, mask, scale, smem,
+                   nullptr, k_lo);
 }
 
-template <int D, typename KV>
+template <int D, typename KV, bool ALIBI = false>
 int launch_paged_chunk(const void* q, const void* kv, const void* sc, int r8,
                        const void* bt, const void* q_starts, const void* ctx_lens,
-                       void* out, int NC, int Cs, int H, int Hkv, int bs, int MB,
-                       int window, float scale, cudaStream_t stream) {
+                       const void* slopes, void* out, int NC, int Cs, int H, int Hkv,
+                       int bs, int MB, int window, float scale, cudaStream_t stream) {
   const size_t smem = FlashSmem<D, std::is_same<KV, int8_t>::value>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_chunk_kernel<D, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kern = paged_chunk_kernel<D, KV, ALIBI>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(NC, (Cs + kBQ - 1) / kBQ, H);
-  paged_chunk_kernel<D, KV><<<grid, kTileThreads, smem, stream>>>(
+  kern<<<grid, kTileThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const KV*>(kv),
       static_cast<const float*>(sc), r8, static_cast<const int*>(bt),
       static_cast<const int*>(q_starts), static_cast<const int*>(ctx_lens),
-      static_cast<bf16*>(out), Cs, H, Hkv, bs, MB, window, scale);
+      static_cast<const float*>(slopes), static_cast<bf16*>(out), Cs, H, Hkv, bs, MB,
+      window, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_paged_chunk_bf16(const void* q, const void* kv, const void* bt,
-                            const void* q_starts, const void* ctx_lens, void* out, int NC,
-                            int Cs, int H, int Hkv, int bs, int MB, int window,
-                            float scale, cudaStream_t stream) {
-  return launch_paged_chunk<D, bf16>(q, kv, nullptr, 0, bt, q_starts, ctx_lens, out, NC,
-                                     Cs, H, Hkv, bs, MB, window, scale, stream);
+                            const void* q_starts, const void* ctx_lens, const void* slopes,
+                            void* out, int NC, int Cs, int H, int Hkv, int bs, int MB,
+                            int window, float scale, cudaStream_t stream) {
+  if (slopes != nullptr)
+    return launch_paged_chunk<D, bf16, true>(q, kv, nullptr, 0, bt, q_starts, ctx_lens,
+                                             slopes, out, NC, Cs, H, Hkv, bs, MB, window,
+                                             scale, stream);
+  return launch_paged_chunk<D, bf16>(q, kv, nullptr, 0, bt, q_starts, ctx_lens, nullptr,
+                                     out, NC, Cs, H, Hkv, bs, MB, window, scale, stream);
 }
 
 }  // namespace dstorch
 
 // q [NC, Cs, H, D] bf16; kv [NB, 2, Hkv, bs, D] bf16; bt [NC, MB],
-// q_starts [NC], ctx_lens [NC] int32; out [NC, Cs, H, D] bf16; window > 0
-// also hides keys at or below q_pos - window (0: no window).
+// q_starts [NC], ctx_lens [NC] int32; slopes [H] f32 (ALiBi) or null;
+// out [NC, Cs, H, D] bf16; window > 0 also hides keys at or below
+// q_pos - window (0: no window).
 // Returns the cudaError_t of the launch (0 = success), -1 for an
 // unsupported head dim.
 extern "C" int dstorch_paged_chunk_bf16(const void* q, const void* kv, const void* bt,
                                         const void* q_starts, const void* ctx_lens,
-                                        void* out, int NC, int Cs, int H, int Hkv, int D,
-                                        int bs, int MB, int window, float scale,
-                                        void* stream) {
+                                        const void* slopes, void* out, int NC, int Cs,
+                                        int H, int Hkv, int D, int bs, int MB, int window,
+                                        float scale, void* stream) {
   if (NC == 0 || Cs == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   DSTORCH_DISPATCH_D(D, dstorch::launch_paged_chunk_bf16, q, kv, bt, q_starts, ctx_lens,
-                     out, NC, Cs, H, Hkv, bs, MB, window, scale, st)
+                     slopes, out, NC, Cs, H, Hkv, bs, MB, window, scale, st)
 }
 
 // The same over int8 pages kv [NB, 2, Hkv, bs, D] with f32 scale tiles
 // sc [NB, R8, 128]. Head dims 128 and 256 (the kv_quant gate asks
-// D % 128 == 0); -1 for any other. No sliding window over int8 pages yet.
+// D % 128 == 0); -1 for any other. No sliding window or ALiBi over int8
+// pages yet.
 extern "C" int dstorch_paged_chunk_int8(const void* q, const void* kv, const void* sc,
                                         const void* bt, const void* q_starts,
                                         const void* ctx_lens, void* out, int NC, int Cs,
@@ -146,12 +165,12 @@ extern "C" int dstorch_paged_chunk_int8(const void* q, const void* kv, const voi
   switch (D) {
     case 128:
       return dstorch::launch_paged_chunk<128, int8_t>(q, kv, sc, r8, bt, q_starts, ctx_lens,
-                                                      out, NC, Cs, H, Hkv, bs, MB, 0, scale,
-                                                      st);
+                                                      nullptr, out, NC, Cs, H, Hkv, bs, MB,
+                                                      0, scale, st);
     case 256:
       return dstorch::launch_paged_chunk<256, int8_t>(q, kv, sc, r8, bt, q_starts, ctx_lens,
-                                                      out, NC, Cs, H, Hkv, bs, MB, 0, scale,
-                                                      st);
+                                                      nullptr, out, NC, Cs, H, Hkv, bs, MB,
+                                                      0, scale, st);
     default:
       return -1;
   }

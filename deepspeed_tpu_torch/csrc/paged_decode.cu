@@ -22,6 +22,14 @@
 // repeats physical pages (the scheduler's page ring) reads the right
 // tokens. window = 0 is the unwindowed kernel.
 //
+// ALiBi (slopes != null; _decode_body's alibi, :461-465 for pages, :493-496
+// for side rows, :529-531 for the K4 step's current token; the small-D
+// kernel's, :1028-1032): query head hk * G + g adds slopes[hk * G + g] *
+// pos to each visible score, pos the key's absolute position: t for page
+// token t, prefix + cc for side row cc (so the decode step's current token,
+// one side row over a prefix of ctx - 1, sits at ctx - 1). A runtime flag:
+// without slopes the kernel adds 0 * pos, leaving its scores as they were.
+//
 // Bound on the H100: bytes. A decode step reads every visible token's K and
 // V row once (2 * D * 2 bytes per kv head) and does 4*D flops per query
 // head on it, ~1 flop per byte at MHA, two orders of magnitude below the
@@ -48,8 +56,9 @@ template <int G, int LPR, typename KV, typename SIDE>
 __global__ void __launch_bounds__(kDecThreads)
 paged_decode_kernel(const bf16* __restrict__ q, DecodePage pg, const int* __restrict__ bt,
                     const int* __restrict__ lens, const SIDE* __restrict__ side_k,
-                    const SIDE* __restrict__ side_v, int C, int j, bf16* __restrict__ out,
-                    int MB, int window, float scale) {
+                    const SIDE* __restrict__ side_v, int C, int j,
+                    const float* __restrict__ slopes, bf16* __restrict__ out, int MB,
+                    int window, float scale) {
   extern __shared__ __align__(16) char smem[];
   const int s = blockIdx.x, hk = blockIdx.y;
   const int D = pg.D, H = pg.Hkv * G;
@@ -64,7 +73,7 @@ paged_decode_kernel(const bf16* __restrict__ q, DecodePage pg, const int* __rest
   decode_attend<G, LPR, KV, SIDE>(q + ((size_t)s * H + hk * G) * D, pg, hk, t_lo, len,
                                   side_k ? side_k + slab : nullptr,
                                   side_v ? side_v + slab : nullptr,
-                                  side_k ? j + 1 : 0, scale, smem, c_lo);
+                                  side_k ? j + 1 : 0, scale, smem, c_lo, slopes, len);
   for (int idx = threadIdx.x; idx < G * D; idx += kDecThreads) {
     const int g = idx / D, d = idx - (idx / D) * D;
     float M, L, A;
@@ -74,7 +83,7 @@ paged_decode_kernel(const bf16* __restrict__ q, DecodePage pg, const int* __rest
 }
 
 struct DecodeLaunch {
-  const void *q, *bt, *lens, *side_k, *side_v;
+  const void *q, *bt, *lens, *side_k, *side_v, *slopes;
   void* out;
   DecodePage pg;
   int S, MB, C, j, window;
@@ -92,8 +101,8 @@ int launch_paged_decode(const DecodeLaunch& a, cudaStream_t stream) {
   kern<<<grid, kDecThreads, smem, stream>>>(
       static_cast<const bf16*>(a.q), a.pg, static_cast<const int*>(a.bt),
       static_cast<const int*>(a.lens), static_cast<const SIDE*>(a.side_k),
-      static_cast<const SIDE*>(a.side_v), a.C, a.j, static_cast<bf16*>(a.out), a.MB,
-      a.window, a.scale);
+      static_cast<const SIDE*>(a.side_v), a.C, a.j, static_cast<const float*>(a.slopes),
+      static_cast<bf16*>(a.out), a.MB, a.window, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -132,16 +141,18 @@ int dispatch_group(int G, const DecodeLaunch& a, cudaStream_t st) {
 // q [S, H, D] bf16; kv [NB, 2, Hkv, bs, D] bf16 (one layer); bt [S, MB] and
 // lens [S] int32 (page tokens attended per sequence); side_k/side_v
 // [S, C*Hkv, D] bf16 or null, rows cc <= j attended after the pages;
-// window > 0 is the sliding window (0: none); out [S, H, D] bf16. Returns the cudaError_t of the launch (0 = success),
-// -1 for an unsupported head dim or group size.
+// slopes [H] f32 (ALiBi) or null; window > 0 is the sliding window (0:
+// none); out [S, H, D] bf16. Returns the cudaError_t of the launch (0 =
+// success), -1 for an unsupported head dim or group size.
 extern "C" int dstorch_paged_decode_bf16(const void* q, const void* kv, const void* bt,
                                          const void* lens, const void* side_k,
-                                         const void* side_v, void* out, int S, int H,
-                                         int Hkv, int D, int bs, int MB, int C, int j,
-                                         int window, float scale, void* stream) {
+                                         const void* side_v, const void* slopes, void* out,
+                                         int S, int H, int Hkv, int D, int bs, int MB,
+                                         int C, int j, int window, float scale,
+                                         void* stream) {
   if (S == 0) return 0;
   if (D % 8 != 0 || D > 256 || H % Hkv != 0) return -1;
-  dstorch::DecodeLaunch a{q, bt, lens, side_k, side_v, out,
+  dstorch::DecodeLaunch a{q, bt, lens, side_k, side_v, slopes, out,
                           {kv, nullptr, 0, nullptr, Hkv, bs, D}, S, MB, C, j, window,
                           scale};
   return dstorch::dispatch_group<dstorch::bf16, dstorch::bf16>(
@@ -149,8 +160,8 @@ extern "C" int dstorch_paged_decode_bf16(const void* q, const void* kv, const vo
 }
 
 // The same over int8 pages kv with f32 scale tiles sc [NB, R8, 128]; the
-// side rows are f32. D must be 128 or 256. No sliding window over int8
-// pages yet.
+// side rows are f32. D must be 128 or 256. No sliding window or ALiBi over
+// int8 pages yet.
 extern "C" int dstorch_paged_decode_int8(const void* q, const void* kv, const void* sc,
                                          const void* bt, const void* lens,
                                          const void* side_k, const void* side_v, void* out,
@@ -158,7 +169,7 @@ extern "C" int dstorch_paged_decode_int8(const void* q, const void* kv, const vo
                                          int r8, int C, int j, float scale, void* stream) {
   if (S == 0) return 0;
   if ((D != 128 && D != 256) || H % Hkv != 0) return -1;
-  dstorch::DecodeLaunch a{q, bt, lens, side_k, side_v, out,
+  dstorch::DecodeLaunch a{q, bt, lens, side_k, side_v, nullptr, out,
                           {kv, static_cast<const float*>(sc), r8, nullptr, Hkv, bs, D},
                           S, MB, C, j, 0, scale};
   return dstorch::dispatch_group<int8_t, float>(H / Hkv, a,

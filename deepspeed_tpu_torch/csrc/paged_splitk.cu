@@ -21,6 +21,13 @@
 // -1e30), which the merge drops. The side piece needs cc >= j + 1 -
 // window. window = 0 is the unwindowed kernel.
 //
+// ALiBi (slopes != null; _splitk_body's alibi, :467-471, and the side-slab
+// piece of paged_sidebuf_attention_splitk, :800-805): each split's partial
+// biases its scores by slopes[h] * k_pos with k_pos the key's ABSOLUTE
+// position (not its offset in the split), the side piece by prefix + cc,
+// so every partial's lse carries the same row constant and the merge is
+// unchanged.
+//
 // The merge (merge_splitk_partials :84, XLA outside Pallas in JAX) is the
 // second kernel here: one block per (sequence, head) weighs the pieces by
 // exp(lse_p - max lse) (0 for an empty piece) and writes the bf16 output,
@@ -41,7 +48,8 @@ __global__ void __launch_bounds__(kDecThreads)
 paged_splitk_kernel(const bf16* __restrict__ q, DecodePage pg, const int* __restrict__ bt,
                     const int* __restrict__ lens, const SIDE* __restrict__ side_k,
                     const SIDE* __restrict__ side_v, int C, int j, int n_splits,
-                    int split_tokens, float* __restrict__ out_p,
+                    int split_tokens, const float* __restrict__ slopes,
+                    float* __restrict__ out_p,
                     float* __restrict__ lse_p, int MB, int window, float scale) {
   extern __shared__ __align__(16) char smem[];
   const int P = n_splits + (side_k != nullptr ? 1 : 0);
@@ -60,11 +68,11 @@ paged_splitk_kernel(const bf16* __restrict__ q, DecodePage pg, const int* __rest
     const int t_lo = max(piece * split_tokens, w_lo);
     const int t_hi = min(piece * split_tokens + split_tokens, len);
     decode_attend<G, LPR, KV, SIDE>(qrow, pg, hk, t_lo, t_hi, nullptr, nullptr, 0, scale,
-                                    smem);
+                                    smem, 0, slopes, 0);
   } else {
     const size_t slab = (size_t)s * C * pg.Hkv * D;
     decode_attend<G, LPR, KV, SIDE>(qrow, pg, hk, 0, 0, side_k + slab, side_v + slab,
-                                    j + 1, scale, smem, c_lo);
+                                    j + 1, scale, smem, c_lo, slopes, len);
   }
   const size_t row0 = ((size_t)s * P + piece) * H + hk * G;
   for (int idx = threadIdx.x; idx < G * D; idx += kDecThreads) {
@@ -105,7 +113,7 @@ splitk_merge_kernel(const float* __restrict__ out_p, const float* __restrict__ l
 }
 
 struct SplitLaunch {
-  const void *q, *bt, *lens, *side_k, *side_v;
+  const void *q, *bt, *lens, *side_k, *side_v, *slopes;
   float *out_p, *lse_p;
   DecodePage pg;
   int S, MB, C, j, n_splits, split_tokens, window;
@@ -124,8 +132,8 @@ int launch_splitk(const SplitLaunch& a, cudaStream_t stream) {
   kern<<<grid, kDecThreads, smem, stream>>>(
       static_cast<const bf16*>(a.q), a.pg, static_cast<const int*>(a.bt),
       static_cast<const int*>(a.lens), static_cast<const SIDE*>(a.side_k),
-      static_cast<const SIDE*>(a.side_v), a.C, a.j, a.n_splits, a.split_tokens, a.out_p,
-      a.lse_p, a.MB, a.window, a.scale);
+      static_cast<const SIDE*>(a.side_v), a.C, a.j, a.n_splits, a.split_tokens,
+      static_cast<const float*>(a.slopes), a.out_p, a.lse_p, a.MB, a.window, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -166,16 +174,18 @@ int dispatch_splitk(int G, const SplitLaunch& a, cudaStream_t st) {
 // side_k/side_v [S, C*Hkv, D] bf16 or null (one more piece: rows cc <= j);
 // out_p [S, P, H, D] and lse_p [S, P, H] f32 with P = n_splits (+ 1 with
 // side rows); split p covers tokens [p * split_tokens, (p+1) * split_tokens);
-// window > 0 is the sliding window (0: none). Returns the launch's cudaError_t, -1 for an unsupported shape.
+// slopes [H] f32 (ALiBi) or null; window > 0 is the sliding window (0:
+// none). Returns the launch's cudaError_t, -1 for an unsupported shape.
 extern "C" int dstorch_paged_splitk_bf16(const void* q, const void* kv, const void* bt,
                                          const void* lens, const void* side_k,
-                                         const void* side_v, void* out_p, void* lse_p,
-                                         int S, int H, int Hkv, int D, int bs, int MB,
-                                         int C, int j, int n_splits, int split_tokens,
-                                         int window, float scale, void* stream) {
+                                         const void* side_v, const void* slopes,
+                                         void* out_p, void* lse_p, int S, int H, int Hkv,
+                                         int D, int bs, int MB, int C, int j, int n_splits,
+                                         int split_tokens, int window, float scale,
+                                         void* stream) {
   if (S == 0) return 0;
   if (D % 8 != 0 || D > 256 || H % Hkv != 0 || n_splits < 1) return -1;
-  dstorch::SplitLaunch a{q, bt, lens, side_k, side_v,
+  dstorch::SplitLaunch a{q, bt, lens, side_k, side_v, slopes,
                          static_cast<float*>(out_p), static_cast<float*>(lse_p),
                          {kv, nullptr, 0, nullptr, Hkv, bs, D},
                          S, MB, C, j, n_splits, split_tokens, window, scale};
@@ -184,7 +194,7 @@ extern "C" int dstorch_paged_splitk_bf16(const void* q, const void* kv, const vo
 }
 
 // The same over int8 pages with f32 scale tiles sc [NB, R8, 128]; side rows
-// are f32. No sliding window over int8 pages yet.
+// are f32. No sliding window or ALiBi over int8 pages yet.
 extern "C" int dstorch_paged_splitk_int8(const void* q, const void* kv, const void* sc,
                                          const void* bt, const void* lens,
                                          const void* side_k, const void* side_v,
@@ -194,7 +204,7 @@ extern "C" int dstorch_paged_splitk_int8(const void* q, const void* kv, const vo
                                          void* stream) {
   if (S == 0) return 0;
   if ((D != 128 && D != 256) || H % Hkv != 0 || n_splits < 1) return -1;
-  dstorch::SplitLaunch a{q, bt, lens, side_k, side_v,
+  dstorch::SplitLaunch a{q, bt, lens, side_k, side_v, nullptr,
                          static_cast<float*>(out_p), static_cast<float*>(lse_p),
                          {kv, static_cast<const float*>(sc), r8, nullptr, Hkv, bs, D},
                          S, MB, C, j, n_splits, split_tokens, 0, scale};

@@ -18,7 +18,11 @@ Three things key the kernel at the call or at construction:
     ``ops/kernels/paged_splitk``) and chunk attention its split path;
   - the model's sliding window ``spec.window`` (bound once, as in the JAX
     package): every kernel masks keys more than ``window - 1`` positions
-    behind its query and skips the pages below the window start.
+    behind its query and skips the pages below the window start;
+  - the model's ALiBi flag ``spec.alibi`` (bound once, as in the JAX
+    package): every paged kernel adds ``slope[h] * k_pos`` to its scores.
+    The packed prefill kernel has no position bias, so an ALiBi model never
+    calls :meth:`packed`.
 
 int8 write semantics: every path attends a token at the value its int8
 page stores. The ragged pass writes then attends; the decode step attends
@@ -56,17 +60,25 @@ class AttentionKernelSpec:
         self.spec = spec
         self.n_splits = int(n_splits)
         self.window = None if spec is None else spec.window
+        self.alibi = False if spec is None else bool(spec.alibi)
 
     @staticmethod
     def validate_engine_build(spec: Any, cfg: Any) -> None:
         """Raise ``NotImplementedError`` for every model feature the slice
         lacks (engine-config features are refused by the config itself),
-        and ``ValueError`` where an int8 pool's alignment does not hold."""
+        and ``ValueError`` where an int8 pool's alignment does not hold.
+        ALiBi over int8 pages is refused after the alignment gate, which a
+        model with ``head_dim % 128 != 0`` (BLOOM-560M's 64) fails first,
+        as in the JAX package."""
+        if spec.alibi and cfg.tensor_parallel > 1:
+            # the JAX package's refusal (engine_v2.py:216-226)
+            raise NotImplementedError(
+                "ALiBi models with tensor_parallel > 1 are not wired in the "
+                "ragged engine (shard-local slope schedules would be wrong); "
+                "run tp=1 or serve through init_inference")
         off = []
         if spec.window is not None and cfg.kv_quant.enabled:
             off.append("kv_quant with a sliding window (int8 pages)")
-        if spec.alibi:
-            off.append("ALiBi")
         if spec.moe is not None:
             off.append("MoE")
         if cfg.tensor_parallel > 1:
@@ -83,6 +95,9 @@ class AttentionKernelSpec:
                 "scale-tile lane alignment; got head_dim="
                 f"{spec.head_dim}, num_kv_heads={spec.num_kv_heads}, "
                 f"block_size={cfg.kv_cache.block_size})")
+        if cfg.kv_quant.enabled and spec.alibi:
+            raise NotImplementedError("kv_quant with ALiBi (int8 pages): not ported "
+                                      "to deepspeed_tpu_torch yet")
 
     def packed(self, q, k, v, seg):
         """Packed segment-masked prefill attention over the pass's own rows
@@ -97,10 +112,10 @@ class AttentionKernelSpec:
             return paged_chunk_attention_splitk(q, kv_l, block_tables, q_starts,
                                                 ctx_lens, kv_scales=kv_scales,
                                                 n_splits=self.n_splits,
-                                                window=self.window)
+                                                window=self.window, alibi=self.alibi)
         return paged_chunk_attention_batched(q, kv_l, block_tables, q_starts,
                                              ctx_lens, kv_scales=kv_scales,
-                                             window=self.window)
+                                             window=self.window, alibi=self.alibi)
 
     def decode(self, q, kv_l, block_tables, ctx_lens,
                kv_scales: Optional[torch.Tensor] = None):
@@ -110,9 +125,10 @@ class AttentionKernelSpec:
             return paged_decode_attention_splitk(q, kv_l, block_tables, ctx_lens,
                                                  kv_scales=kv_scales,
                                                  n_splits=self.n_splits,
-                                                 window=self.window)
+                                                 window=self.window, alibi=self.alibi)
         return paged_decode_attention(q, kv_l, block_tables, ctx_lens,
-                                      kv_scales=kv_scales, window=self.window)
+                                      kv_scales=kv_scales, window=self.window,
+                                      alibi=self.alibi)
 
     def sidebuf(self, q, kv_l, block_tables, prefix_lens, side_k, side_v, j,
                 kv_scales: Optional[torch.Tensor] = None):
@@ -122,10 +138,11 @@ class AttentionKernelSpec:
         if self.n_splits > 1:
             return paged_sidebuf_attention_splitk(
                 q, kv_l, block_tables, prefix_lens, side_k, side_v, j,
-                kv_scales=kv_scales, n_splits=self.n_splits, window=self.window)
+                kv_scales=kv_scales, n_splits=self.n_splits, window=self.window,
+                alibi=self.alibi)
         return paged_decode_attention(q, kv_l, block_tables, prefix_lens,
                                       side_k, side_v, j, kv_scales=kv_scales,
-                                      window=self.window)
+                                      window=self.window, alibi=self.alibi)
 
     def decode_step(self, q, k_new, v_new, kv_l, block_tables, ctx_lens,
                     kv_scales: Optional[torch.Tensor] = None):
@@ -149,7 +166,7 @@ class AttentionKernelSpec:
         if self.n_splits > 1:
             return paged_decode_attention_splitk_step(
                 q, k_new, v_new, kv_l, block_tables, ctx_lens, kv_scales=kv_scales,
-                n_splits=self.n_splits, window=self.window)
+                n_splits=self.n_splits, window=self.window, alibi=self.alibi)
         write_token_rows(kv_l, k_new, v_new, block_tables, ctx_lens - 1, kv_scales)
         return self.decode(q, kv_l, block_tables, ctx_lens, kv_scales=kv_scales)
 

@@ -23,6 +23,13 @@ by the engine; free them by dropping the caller's references too);
 the pow2 split ladder, the rung picked every step from the longest live
 context (:meth:`InferenceEngineV2._attn_rung`).
 
+Model families resolve as in the JAX package (``model.config.family``, else
+the model's class name) and adapt through ``ragged_model.adapt_model``:
+Llama/Mistral, GPT-2 and the generic decoder (OPT, Falcon, Phi, GPT-NeoX,
+GPT-J, BLOOM). An ALiBi model (BLOOM) binds its bias into every paged
+kernel and never takes the packed prefill pass: its pure-prefill passes run
+the paged pass at the current rung, as in the JAX package.
+
 Sliding-window serving (Mistral, ``LlamaConfig.sliding_window``) binds the
 window into every attention kernel, and the scheduler keeps each
 sequence's KV in a page ring of ``scheduler.ring_pages`` blocks, as in the
@@ -49,7 +56,7 @@ from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConf
 from deepspeed_tpu_torch.inference.v2.ragged.blocked_allocator import BlockedAllocator
 from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import BlockedKVCache, KVCacheConfig
 from deepspeed_tpu_torch.inference.v2.ragged_model import (
-    PAGED_PASS_KEYS, PREFILL_PASS_KEYS, _sample_logits, adapt_llama,
+    PAGED_PASS_KEYS, PREFILL_PASS_KEYS, _sample_logits, adapt_model,
     build_decode_step, build_prefill_forward, build_ragged_forward,
     quantize_weights_int8)
 from deepspeed_tpu_torch.inference.v2.scheduler import DynamicSplitFuseScheduler
@@ -78,29 +85,26 @@ class InferenceEngineV2:
                  model_parameters: Optional[Dict[str, torch.Tensor]] = None,
                  family: Optional[str] = None,
                  device=None):
-        """``model``: anything with ``.config`` (a ``LlamaConfig``);
-        ``model_parameters``: its flax-named tensor tree
-        (``LlamaForCausalLM.flat_params()`` or
+        """``model``: anything with ``.config`` (a ``LlamaConfig``,
+        ``DecoderConfig`` or ``GPT2Config``); ``model_parameters``: its
+        flax-named tensor tree (``model.flat_params()`` or
         ``checkpoint.params_from_flat``), moved to ``device`` and cast to
-        ``config.dtype`` (no copy when they already match)."""
+        ``config.dtype`` (no copy when they already match); ``family``
+        overrides the one guessed from the model."""
         self.device = resolve_device(device)
         self.config = RaggedInferenceEngineConfig.load(config)
         cfg = self.config
         model_config = getattr(model, "config", None)
         if model_config is None:
             raise ValueError("InferenceEngineV2 needs a model with .config")
-        family = family or getattr(model_config, "family", "llama")
-        if family != "llama":
-            raise NotImplementedError(f"model family '{family}': only llama is "
-                                      "ported to deepspeed_tpu_torch yet")
-        self.family = family
+        self.family = family = family or _guess_family(model)
         self.model_config = model_config
         if model_parameters is None:
             raise ValueError("InferenceEngineV2 needs model_parameters")
         params = {k: v.to(device=self.device, dtype=cfg.dtype)
                   for k, v in model_parameters.items()}
-        self.spec, self.weights = adapt_llama(
-            params, model_config, max_context=cfg.state_manager.max_context)
+        self.spec, self.weights = adapt_model(
+            family, params, model_config, max_context=cfg.state_manager.max_context)
         del params
         self.spec.dtype = cfg.dtype
         AttentionKernelSpec.validate_engine_build(self.spec, cfg)
@@ -140,7 +144,8 @@ class InferenceEngineV2:
         self._step_rungs = {r: build_decode_step(self.spec, n_splits=r,
                                                  window_ring_ok=ring_ok)
                             for r in self.attn_split_ladder}
-        self._pass_prefill = build_prefill_forward(self.spec)
+        # ALiBi models never take the packed prefill pass (no position bias)
+        self._pass_prefill = None if self.spec.alibi else build_prefill_forward(self.spec)
         # pin the dispatched rung (None = picked from the live context)
         self.attn_rung_override: Optional[int] = None
         self.attn_stats = AttnSplitStats()
@@ -197,7 +202,8 @@ class InferenceEngineV2:
         if batch is None:
             return
         # prefill-from-zero passes need no paged reads: packed fast path
-        if batch.pure_prefill:
+        # (not for ALiBi models: the paged pass carries their bias)
+        if batch.pure_prefill and self._pass_prefill is not None:
             arrays = batch.device_arrays(self.device, PREFILL_PASS_KEYS)
             chunk_logits, decode_logits = self._pass_prefill(
                 self.weights, self.kv.kv, arrays, self.kv.scales)
@@ -358,3 +364,17 @@ class InferenceEngineV2:
                 self.flush([u])     # retired mid-run: recycle KV blocks now
         self.flush(pipe.uids)
         return outs
+
+
+def _guess_family(model) -> str:
+    """``model.config.family``, else a family named in the model's class
+    name (the JAX package's rule)."""
+    fam = getattr(getattr(model, "config", None), "family", None)
+    if fam:
+        return fam
+    name = type(model).__name__.lower()
+    for fam in ("mixtral", "mistral", "llama", "gpt2", "opt", "falcon", "phi"):
+        if fam in name:
+            return fam
+    raise ValueError(f"cannot infer model family from {type(model).__name__}; "
+                     f"pass family=")

@@ -1,4 +1,12 @@
-"""The ragged Llama forward of the v2 engine, in eager PyTorch.
+"""The ragged forward of the v2 engine, in eager PyTorch.
+
+One forward serves every family the adapters map onto
+:class:`RaggedModelSpec`: the Llama lineage (``adapt_llama``: RMSNorm,
+SwiGLU, RoPE, untied head), GPT-2 (``adapt_gpt2``) and the generic decoder
+(``adapt_decoder``: OPT, Falcon, Phi, GPT-NeoX, GPT-J and BLOOM), whose
+structural flags (norm, activation, full or partial rotary or none, learned
+positions, parallel blocks, biases, tied head, head bias, embedding norm,
+ALiBi) follow the JAX package's ``ragged_model.py``.
 
 Pass structure (see ``ragged/ragged_batch.py``): tokens = [filled prompt-chunk
 slots | decode rows]. Each layer writes the pass's K/V into the paged pool
@@ -9,19 +17,28 @@ slots | decode rows]. Each layer writes the pass's K/V into the paged pool
 
 A pass that prefills every sequence from position 0 takes
 :func:`build_prefill_forward` instead: packed attention over the pass's own
-rows, then whole-page writes. The pipelined decode step
-(:func:`build_decode_step`) attends the current token as a side row and
-writes it into its page afterwards.
+rows, then whole-page writes; an ALiBi model never does (the packed kernel
+has no position bias), so its prefill runs the paged pass. The pipelined
+decode step (:func:`build_decode_step`) attends the current token as a side
+row and writes it into its page afterwards.
 
-A sliding window (``spec.window``, Mistral) is bound into every attention
-dispatch (``AttentionKernelSpec``): the packed, chunk and decode kernels and
-the split-K rungs all mask by it and skip the pages below its start, so
-the scheduler's page ring may reuse those pages.
+A sliding window (``spec.window``, Mistral) and ALiBi (``spec.alibi``,
+BLOOM) are bound into every attention dispatch (``AttentionKernelSpec``).
 
 A Python loop over layers takes the place of the JAX package's ``lax.scan``,
 and each layer indexes its own pool view ``kv[l]`` (and, for an int8 pool,
 its scale tiles ``kv_scales[l]``), so no layer offset enters the block
 tables or the write destinations.
+
+The serving weight tree: ``weights["layers"]`` is a list of per-layer dicts
+(``ln1``, ``ln2`` norm scales with ``ln1_bias``/``ln2_bias`` for LayerNorm;
+``wq``/``wk``/``wv``/``wo`` with optional ``bq``/``bk``/``bv``/``bo``;
+``w_gate``/``w_up``/``w_down`` with optional ``b_up``/``b_down``), beside
+``embed``, ``final_norm`` (and ``final_norm_bias``), optional ``pos_embed``,
+``embed_norm``/``embed_norm_bias``, ``lm_head`` and ``lm_head_bias``. A tied
+head keeps ``embed_f32``, one f32 copy of the embedding made at build (the
+head computes ``x.f32 @ embed.f32.T``, as the JAX package; a per-step
+conversion would allocate the whole f32 table each step).
 
 Projections go through :func:`_mm`: a plain matrix product (``x @
 kernel``, kernels ``[in, out]``), or, for a weight tree quantized by
@@ -40,7 +57,8 @@ import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.inference.v2.attention import AttentionKernelSpec
-from deepspeed_tpu_torch.models.llama import apply_rope, rms_norm, rope_tables
+from deepspeed_tpu_torch.models.decoder import PLAIN_ACTS, layer_norm
+from deepspeed_tpu_torch.models.llama import apply_rope, rope_tables
 from deepspeed_tpu_torch.ops.kernels.kv_quant import (kv_quantize_rows,
                                                       kv_write_dequant,
                                                       scale_tile_rows,
@@ -57,10 +75,20 @@ class RaggedModelSpec:
     num_kv_heads: int
     head_dim: int
     vocab_size: int
-    rope_theta: float = 10000.0
+    norm: str = "rms"                 # "rms" | "ln"
+    activation: str = "swiglu"        # gated "swiglu"; plain: see PLAIN_ACTS
+    rope_theta: Optional[float] = 10000.0   # None -> no rotary
+    rotary_dim: Optional[int] = None        # partial rotary (phi); None = full head
+    learned_pos: bool = False         # gpt2/opt learned position embeddings
+    pos_offset: int = 0               # opt: positions are offset by 2 in the table
+    parallel_block: bool = False      # falcon/phi: attn + mlp both from the same norm
+    parallel_dual_norm: bool = False  # gpt_neox: parallel, but MLP from ln2(x)
+    tied_lm_head: bool = False        # logits = x.f32 @ embed.f32.T
+    head_bias: bool = False           # phi/gpt-j: bias added to the logits
     eps: float = 1e-5
     window: Optional[int] = None      # sliding-window span (Mistral); None = full
-    alibi: bool = False               # not ported yet
+    alibi: bool = False               # BLOOM: per-head linear position bias
+    embed_norm: bool = False          # BLOOM: a norm right after the embedding
     moe: Optional[Dict[str, int]] = None  # not ported yet
     dtype: torch.dtype = torch.bfloat16
 
@@ -85,6 +113,7 @@ def adapt_llama(params: Dict[str, torch.Tensor], config,
         num_kv_heads=config.num_key_value_heads,
         head_dim=config.head_dim,
         vocab_size=config.vocab_size,
+        norm="rms", activation="swiglu",
         rope_theta=config.rope_theta,
         eps=config.rms_norm_eps, moe=moe, window=window)
     layers = []
@@ -112,13 +141,185 @@ def adapt_llama(params: Dict[str, torch.Tensor], config,
     return spec, weights
 
 
-def _norm(x, scale, spec: RaggedModelSpec):
-    return rms_norm(x, scale, spec.eps, spec.dtype)
+def _tie_head(weights: Dict) -> Dict:
+    """A tied head's f32 embedding, made once at build (the same tensor
+    when the embedding is already f32)."""
+    weights["embed_f32"] = weights["embed"].float()
+    return weights
 
 
-def _rope_flat(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Rotary embedding on [T, H, D] rows with per-token tables [T, D/2]."""
-    return apply_rope(x, cos, sin)
+def adapt_gpt2(params: Dict[str, torch.Tensor], config,
+               max_context: Optional[int] = None) -> Tuple[RaggedModelSpec, Dict]:
+    """The port's ``GPT2LMHead`` flat tree (``wte/embedding``,
+    ``h_{i}/attn/c_attn/kernel`` ...): the fused c_attn qkv is cut into
+    wq/wk/wv views, LayerNorm, tanh gelu, learned positions, tied head."""
+    E = config.n_embd
+    spec = RaggedModelSpec(
+        family="gpt2",
+        num_layers=config.n_layer,
+        hidden_size=E,
+        num_heads=config.n_head,
+        num_kv_heads=config.n_head,
+        head_dim=E // config.n_head,
+        vocab_size=config.vocab_size,
+        norm="ln", activation="gelu", rope_theta=None, learned_pos=True,
+        tied_lm_head=True, eps=1e-5)
+    layers = []
+    for i in range(config.n_layer):
+        p = f"h_{i}/"
+        wqkv = params[p + "attn/c_attn/kernel"]            # [E, 3E]
+        bqkv = params[p + "attn/c_attn/bias"]
+        layers.append({
+            "ln1": params[p + "ln_1/scale"], "ln1_bias": params[p + "ln_1/bias"],
+            "ln2": params[p + "ln_2/scale"], "ln2_bias": params[p + "ln_2/bias"],
+            "wq": wqkv[:, :E], "wk": wqkv[:, E:2 * E], "wv": wqkv[:, 2 * E:],
+            "bq": bqkv[:E], "bk": bqkv[E:2 * E], "bv": bqkv[2 * E:],
+            "wo": params[p + "attn/c_proj/kernel"], "bo": params[p + "attn/c_proj/bias"],
+            "w_up": params[p + "mlp/c_fc/kernel"], "b_up": params[p + "mlp/c_fc/bias"],
+            "w_down": params[p + "mlp/c_proj/kernel"],
+            "b_down": params[p + "mlp/c_proj/bias"],
+        })
+    weights = {
+        "embed": params["wte/embedding"],
+        "pos_embed": params["wpe/embedding"],
+        "layers": layers,
+        "final_norm": params["ln_f/scale"],
+        "final_norm_bias": params["ln_f/bias"],
+    }
+    return spec, _tie_head(weights)
+
+
+def _decoder_key(rest: str) -> str:
+    """A generic-decoder layer parameter's key in the serving tree:
+    ``ln1/scale`` -> ``ln1``, ``ln1/bias`` -> ``ln1_bias``, ``mlp/w_up`` ->
+    ``w_up``; ``wq``, ``bq`` ... stay."""
+    rest = rest[len("mlp/"):] if rest.startswith("mlp/") else rest
+    return rest.replace("/scale", "").replace("/bias", "_bias")
+
+
+def adapt_decoder(params: Dict[str, torch.Tensor], config,
+                  max_context: Optional[int] = None) -> Tuple[RaggedModelSpec, Dict]:
+    """``models/decoder.py`` (``DecoderLM``: opt/falcon/phi/gpt_neox/gptj/
+    gpt_bigcode/bloom) flat tree -> (spec, weights). Guards on the FEATURES
+    the ragged path cannot carry (not family names), in the JAX package's
+    words."""
+    unsupported = []
+    if getattr(config, "local_window", None) is not None:
+        unsupported.append("local_window")
+    if any(k == "local" for k in getattr(config, "attention_layers", None) or ()):
+        unsupported.append("attention_layers with 'local' entries")
+    if getattr(config, "attn_scale", None) is not None:
+        unsupported.append("attn_scale")
+    if unsupported:
+        raise ValueError(
+            f"config features {unsupported} are not supported by the ragged "
+            "(paged) attention path — serve through deepspeed_tpu."
+            "init_inference (v1 dense engine) instead")
+    spec = RaggedModelSpec(
+        family=config.family,
+        num_layers=config.num_hidden_layers,
+        hidden_size=config.hidden_size,
+        num_heads=config.num_attention_heads,
+        num_kv_heads=config.kv_heads,
+        head_dim=config.head_dim,
+        vocab_size=config.vocab_size,
+        norm=config.norm, activation=config.activation,
+        rope_theta=config.rope_theta, rotary_dim=config.rotary_dim,
+        learned_pos=config.learned_pos, pos_offset=config.pos_offset,
+        parallel_block=config.parallel_block,
+        parallel_dual_norm=config.parallel_dual_norm,
+        tied_lm_head=config.tied_lm_head, head_bias=config.head_bias,
+        alibi=getattr(config, "alibi", False),
+        embed_norm=getattr(config, "embed_norm", False),
+        eps=config.eps)
+    layers = []
+    for i in range(config.num_hidden_layers):
+        p = f"layers_{i}/"
+        layers.append({_decoder_key(k[len(p):]): v for k, v in params.items()
+                       if k.startswith(p)})
+    weights = {"embed": params["embed/embedding"], "layers": layers,
+               "final_norm": params["final_norm/scale"]}
+    optional = {"final_norm_bias": "final_norm/bias", "lm_head": "lm_head",
+                "lm_head_bias": "lm_head_bias", "pos_embed": "pos_embed/embedding",
+                "embed_norm": "embed_norm/scale", "embed_norm_bias": "embed_norm/bias"}
+    weights.update({k: params[n] for k, n in optional.items() if n in params})
+    return spec, _tie_head(weights) if spec.tied_lm_head else weights
+
+
+ADAPTERS: Dict[str, Callable] = {
+    # llama lineage (the JAX package's qwen2 and gemma ride adapt_llama on
+    # LlamaConfig flags the port's LlamaConfig does not carry yet)
+    "llama": adapt_llama,
+    "mistral": adapt_llama,
+    "mixtral": adapt_llama,
+    "gpt2": adapt_gpt2,
+    # generic-decoder lineage (canonical parameter names; re-rooting only)
+    "opt": adapt_decoder,
+    "falcon": adapt_decoder,
+    "phi": adapt_decoder,
+    "gpt_neox": adapt_decoder,
+    "gptj": adapt_decoder,
+    "gpt_bigcode": adapt_decoder,
+    "bloom": adapt_decoder,   # ALiBi carried by the paged kernels
+}
+
+#: families whose attention needs a bias the ragged kernels don't carry
+_UNSUPPORTED = {
+    # gpt_neo alternates GLOBAL and LOCAL attention layers; the ragged spec
+    # carries one window for all layers
+    "gpt_neo": "per-layer alternating local-window attention",
+}
+
+
+def adapt_model(family: str, params: Dict[str, torch.Tensor], config,
+                max_context: Optional[int] = None) -> Tuple[RaggedModelSpec, Dict]:
+    """The family's adapter, refusing unsupported families in the JAX
+    package's words."""
+    if family in _UNSUPPORTED:
+        raise ValueError(
+            f"family '{family}' uses {_UNSUPPORTED[family]}, which the ragged "
+            "(paged) attention path does not support — serve it through "
+            "deepspeed_tpu.init_inference (v1 dense engine) instead")
+    if family not in ADAPTERS:
+        raise ValueError(f"no ragged adapter for family '{family}' "
+                         f"(have {sorted(ADAPTERS)})")
+    return ADAPTERS[family](params, config, max_context=max_context)
+
+
+def _norm(x, w: Dict, key: str, spec: RaggedModelSpec):
+    """Norm ``key`` of tree ``w`` (its scale, and ``key + "_bias"`` for
+    LayerNorm), statistics in f32, in the model dtype."""
+    return layer_norm(x, w[key], w.get(key + "_bias"), spec.norm, spec.eps, spec.dtype)
+
+
+def _plain_act(name: str) -> Callable:
+    """Non-gated MLP activation. Raising on unknown names (rather than a relu
+    fallback) keeps a new activation from silently serving garbage."""
+    try:
+        return PLAIN_ACTS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown MLP activation '{name}' for the ragged path "
+            f"(gated: swiglu; plain: {sorted(PLAIN_ACTS)})") from None
+
+
+def _rope(spec: RaggedModelSpec, positions: torch.Tensor):
+    """(cos, sin) tables [T, rd / 2] over the rotary dims, or None without
+    rotary."""
+    if spec.rope_theta is None:
+        return None
+    return rope_tables(positions, spec.rotary_dim or spec.head_dim, spec.rope_theta)
+
+
+def _rope_flat(x: torch.Tensor, rope, rotary_dim: Optional[int]) -> torch.Tensor:
+    """Rotary embedding on [T, H, D] rows with per-token tables (``rope``
+    from :func:`_rope`) over the first ``rotary_dim`` dims (all without
+    one)."""
+    cos, sin = rope
+    rd = rotary_dim or x.shape[-1]
+    if rd == x.shape[-1]:
+        return apply_rope(x, cos, sin)
+    return torch.cat([apply_rope(x[..., :rd], cos, sin), x[..., rd:]], dim=-1)
 
 
 def _mm(x: torch.Tensor, w) -> torch.Tensor:
@@ -149,42 +350,78 @@ def quantize_weight_int8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 def quantize_weights_int8(weights: Dict) -> Dict:
     """Weight-only int8 for the serving weight tree (in place, returns it):
-    every layer's projections and the untied ``lm_head`` become
-    :func:`quantize_weight_int8` dicts; embeddings and norms stay in the
-    model dtype. Each layer quantizes on its own, which gives the same
-    bytes as the JAX package's stacked ``[L, K, N]`` tree (its absmax runs
-    along K)."""
+    every layer's projections and an untied ``lm_head`` (a tied head has
+    none: it stays the embedding) become :func:`quantize_weight_int8`
+    dicts; embeddings, norms and biases stay in the model dtype. Each layer
+    quantizes on its own, which gives the same bytes as the JAX package's
+    stacked ``[L, K, N]`` tree (its absmax runs along K)."""
     for layer in weights["layers"]:
         for key in _QUANT_KEYS:
             if key in layer and not isinstance(layer[key], dict):
                 layer[key] = quantize_weight_int8(layer[key])
-    if not isinstance(weights["lm_head"], dict):
+    if "lm_head" in weights and not isinstance(weights["lm_head"], dict):
         weights["lm_head"] = quantize_weight_int8(weights["lm_head"])
     return weights
 
 
-def _transformer_layer(spec: RaggedModelSpec, w: Dict, x: torch.Tensor, cos, sin,
+def _transformer_layer(spec: RaggedModelSpec, w: Dict, x: torch.Tensor, rope,
                        attend: Callable) -> torch.Tensor:
-    """One pre-norm Llama layer over ragged rows ``x`` [T, hidden].
-    ``attend(q, k, v) -> [T, H, D]`` writes the pass's K/V into the pool and
-    attends, in the shape of its pass."""
+    """One layer over ragged rows ``x`` [T, hidden], as the JAX package's
+    ``_transformer_layer``: biased q/k/v/o, full or partial rotary (``rope``
+    from :func:`_rope`, None without), sequential or parallel blocks, a
+    gated or plain MLP with biases. ``attend(q, k, v) -> [T, H, D]`` writes
+    the pass's K/V into the pool and attends, in the shape of its pass."""
     H, Hkv, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
-    h1 = _norm(x, w["ln1"], spec)
-    q = _rope_flat(_mm(h1, w["wq"]).view(-1, H, D), cos, sin)
-    k = _rope_flat(_mm(h1, w["wk"]).view(-1, Hkv, D), cos, sin)
-    v = _mm(h1, w["wv"]).view(-1, Hkv, D)
-    x = x + _mm(attend(q, k, v).reshape(-1, H * D), w["wo"])
-    m = _norm(x, w["ln2"], spec)
-    return x + _mm(F.silu(_mm(m, w["w_gate"])) * _mm(m, w["w_up"]), w["w_down"])
+    h1 = _norm(x, w, "ln1", spec)
+    q, k, v = _mm(h1, w["wq"]), _mm(h1, w["wk"]), _mm(h1, w["wv"])
+    if "bq" in w:
+        q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
+    q, k, v = q.view(-1, H, D), k.view(-1, Hkv, D), v.view(-1, Hkv, D)
+    if rope is not None:
+        q = _rope_flat(q, rope, spec.rotary_dim)
+        k = _rope_flat(k, rope, spec.rotary_dim)
+    attn_out = _mm(attend(q, k, v).reshape(-1, H * D), w["wo"])
+    if "bo" in w:
+        attn_out = attn_out + w["bo"]
+    if spec.parallel_block:
+        mlp_in = _norm(x, w, "ln2", spec) if spec.parallel_dual_norm else h1
+    else:
+        x = x + attn_out
+        mlp_in = _norm(x, w, "ln2", spec)
+    if spec.activation == "swiglu":
+        hmid = F.silu(_mm(mlp_in, w["w_gate"])) * _mm(mlp_in, w["w_up"])
+    else:
+        hmid = _mm(mlp_in, w["w_up"])
+        if "b_up" in w:
+            hmid = hmid + w["b_up"]
+        hmid = _plain_act(spec.activation)(hmid)
+    mlp_out = _mm(hmid, w["w_down"])
+    if "b_down" in w:
+        mlp_out = mlp_out + w["b_down"]
+    return x + attn_out + mlp_out if spec.parallel_block else x + mlp_out
 
 
-def _embed_in(spec: RaggedModelSpec, weights, tokens: torch.Tensor) -> torch.Tensor:
-    return weights["embed"][tokens.long()].to(spec.dtype)
+def _embed_in(spec: RaggedModelSpec, weights, tokens: torch.Tensor,
+              positions: torch.Tensor) -> torch.Tensor:
+    """Token (+ learned position) embedding, then the embedding norm."""
+    x = weights["embed"][tokens.long()]
+    if spec.learned_pos:
+        x = x + weights["pos_embed"][positions.long() + spec.pos_offset]
+    if spec.embed_norm:
+        x = _norm(x.to(spec.dtype), weights, "embed_norm", spec)
+    return x.to(spec.dtype)
 
 
 def _unembed(spec: RaggedModelSpec, weights, xs: torch.Tensor) -> torch.Tensor:
-    """Final-hidden rows -> f32 logits."""
-    return _mm(xs, weights["lm_head"]).float()
+    """Final-hidden rows -> f32 logits (tied head in f32, or untied; plus
+    the head bias)."""
+    if spec.tied_lm_head:
+        logits = xs.float() @ weights["embed_f32"].t()
+    else:
+        logits = _mm(xs, weights["lm_head"]).float()
+    if spec.head_bias:
+        logits = logits + weights["lm_head_bias"].float()
+    return logits
 
 
 def _kv_write_rows(dest: torch.Tensor, Hkv: int, bs: int) -> torch.Tensor:
@@ -300,8 +537,8 @@ def build_ragged_forward(spec: RaggedModelSpec, n_splits: int = 1) -> Callable:
         S = b["decode_tokens"].shape[0]
         tokens = torch.cat([b["chunk_tokens"], b["decode_tokens"]])
         positions = torch.cat([b["chunk_positions"], b["decode_positions"]])
-        x = _embed_in(spec, weights, tokens)
-        cos, sin = rope_tables(positions, D, spec.rope_theta)
+        x = _embed_in(spec, weights, tokens, positions)
+        rope = _rope(spec, positions)
         src = b["kv_src"].long()
         rows = _kv_write_rows(b["kv_dest"], Hkv, bs)
 
@@ -325,9 +562,9 @@ def build_ragged_forward(spec: RaggedModelSpec, n_splits: int = 1) -> Callable:
                                           b["decode_ctx_lens"], kv_scales=sc_l))
                 return torch.cat(outs) if len(outs) > 1 else outs[0]
 
-            x = _transformer_layer(spec, w, x, cos, sin, attend)
+            x = _transformer_layer(spec, w, x, rope, attend)
 
-        x = _norm(x, weights["final_norm"], spec)
+        x = _norm(x, weights, "final_norm", spec)
         xs = torch.cat([x[_last_rows(b, Cs)], x[CT:]])
         logits = _unembed(spec, weights, xs)
         return logits[:NC], logits[NC:]
@@ -342,7 +579,12 @@ def build_prefill_forward(spec: RaggedModelSpec) -> Callable:
     attention. Same signature as :func:`build_ragged_forward` over
     ``PREFILL_PASS_KEYS``; decode_logits is empty (a pure-prefill pass has no
     decode rows). With an int8 pool the attention still reads the in-flight
-    rows at full precision; only the page write quantizes."""
+    rows at full precision; only the page write quantizes. An ALiBi model
+    has no packed pass (the packed kernel carries no position bias)."""
+    if spec.alibi:
+        raise ValueError("an ALiBi model prefills through the paged pass "
+                         "(build_ragged_forward): the packed prefill kernel has no "
+                         "position bias")
     ak = AttentionKernelSpec(spec)
 
     def fwd(weights, kv, b, kv_scales=None):
@@ -350,8 +592,8 @@ def build_prefill_forward(spec: RaggedModelSpec) -> Callable:
         CT = b["chunk_tokens"].shape[0]
         Cs = CT // NC
         seg = b["row_seg"]
-        x = _embed_in(spec, weights, b["chunk_tokens"])
-        cos, sin = rope_tables(b["chunk_positions"], spec.head_dim, spec.rope_theta)
+        x = _embed_in(spec, weights, b["chunk_tokens"], b["chunk_positions"])
+        rope = _rope(spec, b["chunk_positions"])
 
         for l, w in enumerate(weights["layers"]):
             kv_l = kv[l]
@@ -367,9 +609,9 @@ def build_prefill_forward(spec: RaggedModelSpec) -> Callable:
                                                b["page_rows"], b["page_fill"])
                 return out
 
-            x = _transformer_layer(spec, w, x, cos, sin, attend)
+            x = _transformer_layer(spec, w, x, rope, attend)
 
-        x = _norm(x, weights["final_norm"], spec)
+        x = _norm(x, weights, "final_norm", spec)
         logits = _unembed(spec, weights, x[_last_rows(b, Cs)])
         return logits, logits[:0]
 
@@ -417,8 +659,8 @@ def build_decode_step(spec: RaggedModelSpec, n_splits: int = 1,
     def fwd(weights, kv, ids, positions, block_tables, ctx, generator=None,
             do_sample: bool = False, top_k: int = 0, temperature: float = 1.0,
             kv_scales=None):
-        x = _embed_in(spec, weights, ids)
-        cos, sin = rope_tables(positions, spec.head_dim, spec.rope_theta)
+        x = _embed_in(spec, weights, ids, positions)
+        rope = _rope(spec, positions)
         for l, w in enumerate(weights["layers"]):
             kv_l = kv[l]
             sc_l = None if kv_scales is None else kv_scales[l]
@@ -428,8 +670,8 @@ def build_decode_step(spec: RaggedModelSpec, n_splits: int = 1,
                     k, v = kv_write_dequant(k), kv_write_dequant(v)
                 return step(q, k, v, kv_l, block_tables, ctx, kv_scales=sc_l)
 
-            x = _transformer_layer(spec, w, x, cos, sin, attend)
-        x = _norm(x, weights["final_norm"], spec)
+            x = _transformer_layer(spec, w, x, rope, attend)
+        x = _norm(x, weights, "final_norm", spec)
         logits = _unembed(spec, weights, x)
         return _sample_logits(logits, generator, do_sample, top_k, temperature), logits
 

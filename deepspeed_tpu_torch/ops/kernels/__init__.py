@@ -11,6 +11,7 @@ under their own names; the module keeps its name here."""
 
 from deepspeed_tpu_torch.ops.kernels._loader import (LAUNCHES, load_library,
                                                       reset_launches)
+from deepspeed_tpu_torch.ops.kernels.alibi import alibi_slope, alibi_slopes
 from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import (
     BlockSparseAttention, block_sparse_attention_bhsd,
     block_sparse_bwd, block_sparse_bwd_plain, block_sparse_delta, block_sparse_dkv,

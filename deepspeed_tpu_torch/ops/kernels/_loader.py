@@ -13,7 +13,9 @@ its kernel, and nowhere else; :func:`reset_launches` sets every count to 0.
 A kernel that runs at several split counts (K7) counts each under its own
 name (``paged_splitk/8``); a launch with a sliding window counts under the
 kernel's ``_window`` name (``flash_packed_window``,
-``paged_splitk_window/4``).
+``paged_splitk_window/4``), one with ALiBi under its ``_alibi`` name
+(``paged_decode_alibi``, ``paged_splitk_alibi/2``; both:
+``paged_decode_window_alibi``).
 """
 
 from __future__ import annotations
@@ -47,10 +49,10 @@ _F = ctypes.c_float
 # C entry points: (argtypes), all return the launch's cudaError_t as int
 ENTRY_POINTS = {
     "dstorch_flash_packed_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
-    "dstorch_paged_chunk_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _I, _I, _I, _F, _P),
-    "dstorch_paged_decode_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _F, _P),
+    "dstorch_paged_chunk_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _F, _P),
+    "dstorch_paged_decode_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _F, _P),
     "dstorch_flash_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "dstorch_flash_bwd_dq_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _F, _I, _P),
@@ -60,8 +62,8 @@ ENTRY_POINTS = {
                                  _I, _I, _I, _F, _P),
     "dstorch_paged_decode_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _F, _P),
-    "dstorch_paged_splitk_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "dstorch_paged_splitk_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "dstorch_paged_splitk_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "dstorch_splitk_merge": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -86,6 +88,7 @@ ENTRY_POINTS = {
 LAUNCHES: Dict[str, int] = {"flash_packed": 0, "paged_chunk": 0,
                             "paged_decode": 0, "flash_packed_window": 0,
                             "paged_chunk_window": 0, "paged_decode_window": 0,
+                            "paged_chunk_alibi": 0, "paged_decode_alibi": 0,
                             "flash_fwd": 0,
                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                             "paged_chunk_int8": 0, "paged_decode_int8": 0,
@@ -240,6 +243,12 @@ def window_arg(window: Optional[int]) -> int:
     if int(window) < 1:
         raise ValueError(f"sliding window must be >= 1, got {window}")
     return int(window)
+
+
+def variant(name: str, window: Optional[int], alibi: bool) -> str:
+    """A kernel's launch-count name for its branches: ``name`` plus
+    ``_window`` under a sliding window and ``_alibi`` with ALiBi."""
+    return name + ("_window" if window is not None else "") + ("_alibi" if alibi else "")
 
 
 def ptr(t: Optional[torch.Tensor]):

@@ -11,6 +11,11 @@ repeat physical pages under the scheduler's page ring read the right
 tokens); pages wholly below a q-block's lowest visible key are not read. A
 windowed launch counts as ``paged_chunk_window``.
 
+ALiBi (``alibi=True``; ``_chunk_kernel_batched`` :1493-1498): each visible
+score of q-head ``h`` (``kv_head * G + g``) gets ``slope[h] * k_pos``, the
+key's absolute position (``ops/kernels/alibi.py``), after the scale and
+before the softmax. An ALiBi launch counts as ``paged_chunk_alibi``.
+
 int8 pages (``kv_scales``, the kv_quant pool): ``kv_pages`` is int8 with
 its f32 scale tiles ``[NB, R8, 128]`` (``kv_quant``), the int8 body of the
 same kernel (``_chunk_kernel_batched_quant`` :1528, with the per-head scale
@@ -25,16 +30,20 @@ import torch
 
 from deepspeed_tpu_torch.ops.kernels import _loader
 from deepspeed_tpu_torch.ops.kernels._plain import masked_softmax_av
+from deepspeed_tpu_torch.ops.kernels.alibi import alibi_slopes
 from deepspeed_tpu_torch.ops.kernels.kv_quant import scale_tile_rows
-from deepspeed_tpu_torch.ops.kernels.paged_decode import gather_rows
+from deepspeed_tpu_torch.ops.kernels.paged_decode import check_int8_branches, gather_rows
 
 NAME = "paged_chunk"
 NAME_INT8 = "paged_chunk_int8"
 NAME_WINDOW = "paged_chunk_window"
+NAME_ALIBI = "paged_chunk_alibi"
 SOURCE = "deepspeed_tpu_torch/csrc/paged_chunk.cu"
 REPLACES = "deepspeed_tpu/ops/pallas/paged_attention.py:1534"
 REPLACES_WINDOW = ("deepspeed_tpu/ops/pallas/paged_attention.py:1534 window= "
                    "(_chunk_kernel_batched :1443; window :1466-1478)")
+REPLACES_ALIBI = ("deepspeed_tpu/ops/pallas/paged_attention.py:1534 alibi=True "
+                  "(_chunk_kernel_batched :1443; alibi :1493-1498; slope _alibi_slope :204)")
 REPLACES_INT8 = ("deepspeed_tpu/ops/pallas/paged_attention.py:1528 "
                  "_chunk_kernel_batched_quant (K5; scale fold _chunk_head_scale :1422)")
 
@@ -44,11 +53,12 @@ def paged_chunk_attention_batched(q: torch.Tensor, kv_pages: torch.Tensor,
                                   q_starts: torch.Tensor, ctx_lens: torch.Tensor,
                                   softmax_scale: Optional[float] = None,
                                   kv_scales: Optional[torch.Tensor] = None,
-                                  window: Optional[int] = None) -> torch.Tensor:
+                                  window: Optional[int] = None,
+                                  alibi: bool = False) -> torch.Tensor:
     """q [NC, Cs, H, D]; kv_pages [NB, 2, Hkv, bs, D] (one layer);
     block_tables [NC, MB], q_starts [NC], ctx_lens [NC] int32; ``kv_scales``
-    [NB, R8, 128] f32 for int8 pages; ``window`` (None: none; not over int8
-    pages yet) -> [NC, Cs, H, D].
+    [NB, R8, 128] f32 for int8 pages; ``window`` (None: none) and
+    ``alibi`` (neither over int8 pages yet) -> [NC, Cs, H, D].
 
     CPU tensors run :func:`paged_chunk_attention_batched_plain`; CUDA tensors
     launch the kernel (bf16 q; bf16 pages, or int8 pages with their scale
@@ -64,16 +74,14 @@ def paged_chunk_attention_batched(q: torch.Tensor, kv_pages: torch.Tensor,
     if quant and tuple(kv_scales.shape) != (NB, scale_tile_rows(Hkv, bs), 128):
         raise ValueError(f"{NAME}: scale tiles {tuple(kv_scales.shape)} do not fit "
                          f"pages {tuple(kv_pages.shape)}")
-    if quant and window is not None:
-        raise NotImplementedError(f"{NAME_INT8}: a sliding window over int8 pages "
-                                  "is not ported to deepspeed_tpu_torch yet")
-    name = NAME_INT8 if quant else NAME if window is None else NAME_WINDOW
+    check_int8_branches(NAME_INT8, quant, window, alibi)
+    name = NAME_INT8 if quant else _loader.variant(NAME, window, alibi)
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
     extra = (kv_scales,) if quant else ()
     if _loader.on_cpu(name, q, kv_pages, block_tables, q_starts, ctx_lens, *extra):
         return paged_chunk_attention_batched_plain(q, kv_pages, block_tables,
                                                    q_starts, ctx_lens, scale, kv_scales,
-                                                   window)
+                                                   window, alibi)
     out = torch.empty_like(q)
     P = _loader.ptr
     if quant:
@@ -86,12 +94,14 @@ def paged_chunk_attention_batched(q: torch.Tensor, kv_pages: torch.Tensor,
                        P(ctx_lens), P(out), NC, Cs, H, Hkv, D, bs, MB,
                        kv_scales.shape[1], scale)
         return out
-    _loader.check_cuda(name, q.dtype, q=q, kv_pages=kv_pages,
+    slopes = alibi_slopes(H, q.device) if alibi else None
+    _loader.check_cuda(name, q.dtype, f32=("slopes",), q=q, kv_pages=kv_pages,
                        block_tables=block_tables, q_starts=q_starts,
-                       ctx_lens=ctx_lens)
+                       ctx_lens=ctx_lens, **({"slopes": slopes} if alibi else {}))
     _loader.launch(name, "dstorch_paged_chunk_bf16", q.device,
                    P(q), P(kv_pages), P(block_tables), P(q_starts), P(ctx_lens),
-                   P(out), NC, Cs, H, Hkv, D, bs, MB, _loader.window_arg(window), scale)
+                   P(slopes), P(out), NC, Cs, H, Hkv, D, bs, MB,
+                   _loader.window_arg(window), scale)
     return out
 
 
@@ -99,7 +109,8 @@ def paged_chunk_attention_batched_plain(q, kv_pages, block_tables, q_starts,
                                         ctx_lens,
                                         softmax_scale: Optional[float] = None,
                                         kv_scales: Optional[torch.Tensor] = None,
-                                        window: Optional[int] = None):
+                                        window: Optional[int] = None,
+                                        alibi: bool = False):
     """The same function in plain PyTorch, computed in f32; returns q's
     dtype."""
     NC, Cs, H, D = q.shape
@@ -115,6 +126,8 @@ def paged_chunk_attention_batched_plain(q, kv_pages, block_tables, q_starts,
     s = torch.einsum("nqhd,nhkd->nhqk", q.float(), k) * scale
     q_pos = q_starts.long()[:, None] + torch.arange(Cs, device=q.device)[None]
     k_pos = torch.arange(T, device=q.device)
+    if alibi:
+        s = s + alibi_slopes(H, q.device)[:, None, None] * k_pos.float()
     mask = ((k_pos[None, None, :] <= q_pos[:, :, None])
             & (k_pos[None, None, :] < ctx_lens.long()[:, None, None]))
     if window is not None:

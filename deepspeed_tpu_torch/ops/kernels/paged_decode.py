@@ -24,6 +24,14 @@ are masked by logical position, so tables that repeat physical pages under
 the scheduler's page ring read the right tokens. A windowed launch counts
 as ``paged_decode_window``.
 
+ALiBi (``alibi=True``; ``_decode_body`` :461-465 and :493-496, the step's
+current token :529-531, ``_decode_kernel_smalld`` :1028-1032): query head
+``h`` adds ``slope[h] * pos`` to each visible score, ``pos`` the key's
+absolute position: ``t`` for page token ``t``, ``lens + cc`` for side row
+``cc`` (so the decode step's current token, one side row over ``ctx - 1``
+page tokens, sits at ``ctx - 1``). An ALiBi launch counts as
+``paged_decode_alibi``.
+
 int8 pages (``kv_scales``, the kv_quant pool): ``kv_pages`` is int8 with
 its f32 scale tiles ``[NB, R8, 128]`` (``kv_quant``), the int8 bodies of
 the same three entry points (``_decode_kernel_quant`` :561,
@@ -41,18 +49,24 @@ import torch
 
 from deepspeed_tpu_torch.ops.kernels import _loader
 from deepspeed_tpu_torch.ops.kernels._plain import masked_softmax_av
+from deepspeed_tpu_torch.ops.kernels.alibi import alibi_slopes
 from deepspeed_tpu_torch.ops.kernels.kv_quant import (scale_tile_rows,
                                                       scales_from_tiles)
 
 NAME = "paged_decode"
 NAME_INT8 = "paged_decode_int8"
 NAME_WINDOW = "paged_decode_window"
+NAME_ALIBI = "paged_decode_alibi"
 SOURCE = "deepspeed_tpu_torch/csrc/paged_decode.cu"
 REPLACES = ("deepspeed_tpu/ops/pallas/paged_attention.py:1088 (K3), "
             ":1249 (K4), :809 (K6); body _decode_body :280")
 REPLACES_WINDOW = ("deepspeed_tpu/ops/pallas/paged_attention.py:1088 (K3), :1249 (K4), "
                    ":809 (K6) window=; _decode_body :280 (window :303-349, side rows "
                    ":487-488), _sidebuf_batched_body :569 (:594-612, :744-745)")
+REPLACES_ALIBI = ("deepspeed_tpu/ops/pallas/paged_attention.py:1088 (K3), :1053 (K3s), "
+                  ":1249 (K4), :809 (K6) alibi=True; _decode_body :461-465, :493-496, "
+                  ":529-531; _sidebuf_batched_body :722-726, :750-752; "
+                  "_decode_kernel_smalld :1028-1032")
 REPLACES_INT8 = ("deepspeed_tpu/ops/pallas/paged_attention.py:561 "
                  "_decode_kernel_quant (K3), :1217 (K4), :772 and :792 (K6)")
 
@@ -87,6 +101,30 @@ def check_paged_inputs(name: str, q, kv_pages, block_tables, lens, side_k, side_
     return C
 
 
+def check_int8_branches(name: str, quant: bool, window: Optional[int],
+                        alibi: bool) -> None:
+    """Refuse, by name, the branches the int8 kernels do not carry yet: a
+    sliding window and ALiBi over int8 pages."""
+    if quant and window is not None:
+        raise NotImplementedError(f"{name}: a sliding window over int8 pages "
+                                  "is not ported to deepspeed_tpu_torch yet")
+    if quant and alibi:
+        raise NotImplementedError(f"{name}: ALiBi over int8 pages is not ported "
+                                  "to deepspeed_tpu_torch yet")
+
+
+def alibi_positions(S: int, T: int, lens: torch.Tensor, j: int, side: bool,
+                    device) -> torch.Tensor:
+    """Absolute key positions [S, T (+ j + 1)] f32 of the plain decode
+    versions' key axis: page tokens ``0 .. T-1``, then (with side rows) side
+    row ``cc`` at ``lens + cc``."""
+    pos = torch.arange(T, device=device, dtype=torch.float32)[None].expand(S, T)
+    if not side:
+        return pos
+    cc = torch.arange(j + 1, device=device)
+    return torch.cat([pos, (lens.long()[:, None] + cc[None]).float()], dim=1)
+
+
 def window_starts(lens: torch.Tensor, j: int, window: Optional[int], side: bool):
     """Each row's first visible page token [S] (long) and first visible side
     row under a sliding ``window``; (0s, 0) without one."""
@@ -103,12 +141,13 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
                            side_v: Optional[torch.Tensor] = None, j: int = 0,
                            softmax_scale: Optional[float] = None,
                            kv_scales: Optional[torch.Tensor] = None,
-                           window: Optional[int] = None) -> torch.Tensor:
+                           window: Optional[int] = None,
+                           alibi: bool = False) -> torch.Tensor:
     """q [S, H, D]; kv_pages [NB, 2, Hkv, bs, D] (one layer); block_tables
     [S, MB], lens [S] int32 (page tokens attended per sequence); optional
     side_k/side_v [S, C * Hkv, D] with step ``j``; ``kv_scales`` [NB, R8,
-    128] f32 for int8 pages; ``window`` (None: none; not over int8 pages
-    yet) -> [S, H, D].
+    128] f32 for int8 pages; ``window`` (None: none) and ``alibi``
+    (neither over int8 pages yet) -> [S, H, D].
 
     CPU tensors run :func:`paged_decode_attention_plain`; CUDA tensors launch
     the kernel (bf16 q; bf16 pages and side rows, or int8 pages with f32
@@ -117,10 +156,8 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     NB, _, Hkv, bs, _ = kv_pages.shape
     MB = block_tables.shape[1]
     quant = kv_scales is not None
-    if quant and window is not None:
-        raise NotImplementedError(f"{NAME_INT8}: a sliding window over int8 pages "
-                                  "is not ported to deepspeed_tpu_torch yet")
-    name = NAME_INT8 if quant else NAME if window is None else NAME_WINDOW
+    check_int8_branches(NAME_INT8, quant, window, alibi)
+    name = NAME_INT8 if quant else _loader.variant(NAME, window, alibi)
     C = check_paged_inputs(name, q, kv_pages, block_tables, lens, side_k, side_v,
                            j, kv_scales)
     sides = () if side_k is None else (side_k, side_v)
@@ -128,7 +165,8 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
     if _loader.on_cpu(name, q, kv_pages, block_tables, lens, *sides, *extra):
         return paged_decode_attention_plain(q, kv_pages, block_tables, lens,
-                                            side_k, side_v, j, scale, kv_scales, window)
+                                            side_k, side_v, j, scale, kv_scales, window,
+                                            alibi)
     side_kw = dict(zip(("side_k", "side_v"), sides))
     out = torch.empty_like(q)
     P = _loader.ptr
@@ -142,11 +180,13 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
                        P(side_k), P(side_v), P(out), S, H, Hkv, D, bs, MB,
                        kv_scales.shape[1], C, int(j), scale)
         return out
-    _loader.check_cuda(name, q.dtype, q=q, kv_pages=kv_pages,
-                       block_tables=block_tables, lens=lens, **side_kw)
+    slopes = alibi_slopes(H, q.device) if alibi else None
+    _loader.check_cuda(name, q.dtype, f32=("slopes",), q=q, kv_pages=kv_pages,
+                       block_tables=block_tables, lens=lens, **side_kw,
+                       **({"slopes": slopes} if alibi else {}))
     _loader.launch(name, "dstorch_paged_decode_bf16", q.device,
                    P(q), P(kv_pages), P(block_tables), P(lens), P(side_k),
-                   P(side_v), P(out), S, H, Hkv, D, bs, MB, C, int(j),
+                   P(side_v), P(slopes), P(out), S, H, Hkv, D, bs, MB, C, int(j),
                    _loader.window_arg(window), scale)
     return out
 
@@ -173,7 +213,7 @@ def paged_decode_attention_plain(q, kv_pages, block_tables, lens, side_k=None,
                                  side_v=None, j: int = 0,
                                  softmax_scale: Optional[float] = None,
                                  kv_scales: Optional[torch.Tensor] = None,
-                                 window: Optional[int] = None):
+                                 window: Optional[int] = None, alibi: bool = False):
     """The same function in plain PyTorch, computed in f32; returns q's
     dtype."""
     S, H, D = q.shape
@@ -195,5 +235,8 @@ def paged_decode_attention_plain(q, kv_pages, block_tables, lens, side_k=None,
         side_ok = torch.arange(j + 1, device=q.device) >= c_lo
         mask = torch.cat([mask, side_ok[None].expand(S, j + 1)], dim=1)
     s = torch.einsum("shgd,shtd->shgt", q.float().view(S, Hkv, G, D), k) * scale
+    if alibi:
+        pos = alibi_positions(S, T, lens, j, side_k is not None, q.device)
+        s = s + alibi_slopes(H, q.device).view(1, Hkv, G, 1) * pos[:, None, None]
     out = masked_softmax_av(s, mask[:, None, None, :], v, "shgt,shtd->shgd")
     return out.reshape(S, H, D).to(q.dtype)

@@ -38,6 +38,13 @@ decode kernel: ``max(ctx - window, 0)``, or ``max(prefix + j + 1 - window,
 0)`` with side rows, whose piece needs ``cc >= j + 1 - window``), so a
 split wholly below the window start gives the empty partial the merge
 drops. A windowed partials launch counts as ``paged_splitk_window/<n>``.
+
+ALiBi (``alibi=True``; ``_splitk_body`` :467-471, the XLA split paths
+:174-175/:200 and :266-267/:295, the side-slab piece :800-805): each
+split's partial biases its scores by ``slope[h] * k_pos`` with ``k_pos``
+the key's ABSOLUTE position, and the side piece by ``prefix + cc``, so
+every partial's lse carries the same row constant and the merge is
+unchanged. An ALiBi partials launch counts as ``paged_splitk_alibi/<n>``.
 """
 
 from __future__ import annotations
@@ -47,9 +54,12 @@ from typing import Optional
 import torch
 
 from deepspeed_tpu_torch.ops.kernels import _loader
+from deepspeed_tpu_torch.ops.kernels.alibi import alibi_slopes
 from deepspeed_tpu_torch.ops.kernels.kv_quant import kv_quantize_rows
 from deepspeed_tpu_torch.ops.kernels.paged_chunk import paged_chunk_attention_batched
-from deepspeed_tpu_torch.ops.kernels.paged_decode import (check_paged_inputs,
+from deepspeed_tpu_torch.ops.kernels.paged_decode import (alibi_positions,
+                                                          check_int8_branches,
+                                                          check_paged_inputs,
                                                           gather_rows,
                                                           paged_decode_attention,
                                                           window_starts)
@@ -63,12 +73,14 @@ REPLACES = ("deepspeed_tpu/ops/pallas/paged_splitk.py:499 "
             "_splitk_kernel_quant :491, body _splitk_body :324)")
 REPLACES_WINDOW = ("deepspeed_tpu/ops/pallas/paged_splitk.py:499 window= (_splitk_body "
                    ":324; window :345-377; dispatchers :597-725)")
+REPLACES_ALIBI = ("deepspeed_tpu/ops/pallas/paged_splitk.py:499 alibi=True (_splitk_body "
+                  ":324; alibi :467-471; side-slab piece :800-805)")
 REPLACES_MERGE = "deepspeed_tpu/ops/pallas/paged_splitk.py:84 merge_splitk_partials"
 NEG_INF = -1e30
 
 
-def kernel_name(n_splits: int, window: Optional[int] = None) -> str:
-    return f"{NAME if window is None else NAME_WINDOW}/{int(n_splits)}"
+def kernel_name(n_splits: int, window: Optional[int] = None, alibi: bool = False) -> str:
+    return f"{_loader.variant(NAME, window, alibi)}/{int(n_splits)}"
 
 
 def split_pages(max_blocks: int, n_splits: int) -> int:
@@ -150,14 +162,15 @@ def splitk_attention(q: torch.Tensor, kv_pages: torch.Tensor,
                      side_v: Optional[torch.Tensor] = None, j: int = 0,
                      softmax_scale: Optional[float] = None,
                      kv_scales: Optional[torch.Tensor] = None,
-                     with_lse: bool = False, window: Optional[int] = None):
+                     with_lse: bool = False, window: Optional[int] = None,
+                     alibi: bool = False):
     """Split-K decode attention: q [S, H, D] over the first ``lens[s]``
     tokens of each row's pages, cut into ``n_splits`` splits, plus (with
     ``side_k/side_v`` [S, C * Hkv, D]) the side rows ``cc <= j`` as one more
     piece; merged -> [S, H, D] in q's dtype (and the merged lse [S, H] f32
     with ``with_lse``). Pages are bf16, or int8 with ``kv_scales`` [NB, R8,
     128] and then f32 side rows. ``window``: the sliding window (None:
-    none; not over int8 pages yet).
+    none) and ``alibi`` (neither over int8 pages yet).
 
     CPU tensors run :func:`splitk_attention_plain`; CUDA tensors launch the
     partials kernel (counted as ``paged_splitk/<n_splits>``) and the merge
@@ -169,10 +182,8 @@ def splitk_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     if n_splits < 1:
         raise ValueError(f"{NAME}: n_splits must be >= 1, got {n_splits}")
     quant = kv_scales is not None
-    if quant and window is not None:
-        raise NotImplementedError(f"{NAME}: a sliding window over int8 pages is not "
-                                  "ported to deepspeed_tpu_torch yet")
-    name = kernel_name(n_splits, window)
+    check_int8_branches(NAME, quant, window, alibi)
+    name = kernel_name(n_splits, window, alibi)
     C = check_paged_inputs(name, q, kv_pages, block_tables, lens, side_k, side_v, j,
                            kv_scales)
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
@@ -181,7 +192,7 @@ def splitk_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     if _loader.on_cpu(name, q, kv_pages, block_tables, lens, *sides, *extra):
         return splitk_attention_plain(q, kv_pages, block_tables, lens, n_splits,
                                       side_k, side_v, j, scale, kv_scales, with_lse,
-                                      window)
+                                      window, alibi)
     side_kw = dict(zip(("side_k", "side_v"), sides))
     P = n_splits + (1 if sides else 0)
     out_p = torch.empty((S, P, H, D), dtype=torch.float32, device=q.device)
@@ -198,12 +209,15 @@ def splitk_attention(q: torch.Tensor, kv_pages: torch.Tensor,
                        bs, MB, kv_scales.shape[1], C, int(j), n_splits, split_tokens,
                        scale)
     else:
-        _loader.check_cuda(name, q.dtype, q=q, kv_pages=kv_pages,
-                           block_tables=block_tables, lens=lens, **side_kw)
+        slopes = alibi_slopes(H, q.device) if alibi else None
+        _loader.check_cuda(name, q.dtype, f32=("slopes",), q=q, kv_pages=kv_pages,
+                           block_tables=block_tables, lens=lens, **side_kw,
+                           **({"slopes": slopes} if alibi else {}))
         _loader.launch(name, "dstorch_paged_splitk_bf16", q.device,
                        ptr(q), ptr(kv_pages), ptr(block_tables), ptr(lens), ptr(side_k),
-                       ptr(side_v), ptr(out_p), ptr(lse_p), S, H, Hkv, D, bs, MB, C,
-                       int(j), n_splits, split_tokens, _loader.window_arg(window), scale)
+                       ptr(side_v), ptr(slopes), ptr(out_p), ptr(lse_p), S, H, Hkv, D, bs,
+                       MB, C, int(j), n_splits, split_tokens, _loader.window_arg(window),
+                       scale)
     return splitk_merge(out_p, lse_p, q.dtype, with_lse)
 
 
@@ -211,7 +225,8 @@ def splitk_attention_plain(q, kv_pages, block_tables, lens, n_splits: int,
                            side_k=None, side_v=None, j: int = 0,
                            softmax_scale: Optional[float] = None,
                            kv_scales: Optional[torch.Tensor] = None,
-                           with_lse: bool = False, window: Optional[int] = None):
+                           with_lse: bool = False, window: Optional[int] = None,
+                           alibi: bool = False):
     """The same function in plain PyTorch: each split's partial in f32,
     then :func:`merge_splitk_partials`."""
     S, H, D = q.shape
@@ -223,6 +238,7 @@ def splitk_attention_plain(q, kv_pages, block_tables, lens, n_splits: int,
     bt = _padded_tables(block_tables, per * n_splits)
     qg = q.float().view(S, Hkv, G, D)
     t_lo, c_lo = window_starts(lens, j, window, side_k is not None)
+    slope = alibi_slopes(H, q.device).view(1, Hkv, G, 1) if alibi else None
     outs, lses = [], []
     for p in range(n_splits):
         k, v = gather_rows(kv_pages, bt[:, p * per:(p + 1) * per], per, kv_scales)
@@ -230,6 +246,8 @@ def splitk_attention_plain(q, kv_pages, block_tables, lens, n_splits: int,
         mask = ((pos[None] < lens.long()[:, None])
                 & (pos[None] >= t_lo[:, None]))[:, None, None, :]
         s = torch.einsum("shgd,shtd->shgt", qg, k) * scale
+        if alibi:
+            s = s + slope * pos.float()
         o, lse = _partial(s, mask, v, "shgt,shtd->shgd")
         outs.append(o.reshape(S, H, D))
         lses.append(lse.reshape(S, H))
@@ -238,6 +256,8 @@ def splitk_attention_plain(q, kv_pages, block_tables, lens, n_splits: int,
         sk = side_k.view(S, C, Hkv, D)[:, :j + 1].float().transpose(1, 2)
         sv = side_v.view(S, C, Hkv, D)[:, :j + 1].float().transpose(1, 2)
         s = torch.einsum("shgd,shtd->shgt", qg, sk) * scale
+        if alibi:
+            s = s + slope * alibi_positions(S, 0, lens, j, True, q.device)[:, None, None]
         side_ok = torch.arange(j + 1, device=q.device) >= c_lo
         o, lse = _partial(s, side_ok.expand(s.shape), sv, "shgt,shtd->shgd")
         outs.append(o.reshape(S, H, D))
@@ -255,38 +275,42 @@ def paged_decode_attention_splitk(q, kv_pages, block_tables, ctx_lens,
                                   softmax_scale: Optional[float] = None,
                                   with_lse: bool = False,
                                   kv_scales: Optional[torch.Tensor] = None,
-                                  n_splits: int = 1, window: Optional[int] = None):
+                                  n_splits: int = 1, window: Optional[int] = None,
+                                  alibi: bool = False):
     """Decode attention at a split count: ``n_splits <= 1`` without lse is
     the base decode kernel; otherwise split-K (the base kernel has no lse
     output, so ``with_lse`` at one split runs the split-K pair at 1)."""
     if n_splits <= 1 and not with_lse:
         return paged_decode_attention(q, kv_pages, block_tables, ctx_lens,
                                       softmax_scale=softmax_scale, kv_scales=kv_scales,
-                                      window=window)
+                                      window=window, alibi=alibi)
     return splitk_attention(q, kv_pages, block_tables, ctx_lens, max(1, n_splits),
                             softmax_scale=softmax_scale, kv_scales=kv_scales,
-                            with_lse=with_lse, window=window)
+                            with_lse=with_lse, window=window, alibi=alibi)
 
 
 def paged_sidebuf_attention_splitk(q, kv_pages, block_tables, prefix_lens, side_k,
                                    side_v, j: int,
                                    softmax_scale: Optional[float] = None,
                                    kv_scales: Optional[torch.Tensor] = None,
-                                   n_splits: int = 2, window: Optional[int] = None):
+                                   n_splits: int = 2, window: Optional[int] = None,
+                                   alibi: bool = False):
     """Frozen prefix in pages, split ``n_splits`` ways, plus the side rows
     ``cc <= j`` of the slab ``[S, C * Hkv, D]`` as one more piece, merged
     as ``n_splits + 1`` pieces (int8 pools: the slab holds f32
     ``kv_write_dequant`` rows). Under a ``window`` the query sits at
-    ``prefix + j``, so the pages' window start moves with ``j``."""
+    ``prefix + j``, so the pages' window start moves with ``j``; under
+    ALiBi side row ``cc`` sits at ``prefix + cc``."""
     return splitk_attention(q, kv_pages, block_tables, prefix_lens, n_splits,
                             side_k, side_v, j, softmax_scale=softmax_scale,
-                            kv_scales=kv_scales, window=window)
+                            kv_scales=kv_scales, window=window, alibi=alibi)
 
 
 def paged_decode_attention_splitk_step(q, k_new, v_new, kv_pages, block_tables,
                                        ctx_lens, softmax_scale: Optional[float] = None,
                                        kv_scales: Optional[torch.Tensor] = None,
-                                       n_splits: int = 2, window: Optional[int] = None):
+                                       n_splits: int = 2, window: Optional[int] = None,
+                                       alibi: bool = False):
     """Scatter-first decode step: write the current token's K/V ([S, Hkv,
     D], position ``ctx - 1``; int8 pools quantize the rows and their
     scales) into the pages IN PLACE, then split-K decode over the full
@@ -296,32 +320,36 @@ def paged_decode_attention_splitk_step(q, k_new, v_new, kv_pages, block_tables,
     return paged_decode_attention_splitk(q, kv_pages, block_tables, ctx_lens,
                                          softmax_scale=softmax_scale,
                                          kv_scales=kv_scales, n_splits=n_splits,
-                                         window=window)
+                                         window=window, alibi=alibi)
 
 
 def paged_chunk_attention_splitk(q, kv_pages, block_tables, q_starts, ctx_lens,
                                  softmax_scale: Optional[float] = None,
                                  kv_scales: Optional[torch.Tensor] = None,
-                                 n_splits: int = 1, window: Optional[int] = None):
+                                 n_splits: int = 1, window: Optional[int] = None,
+                                 alibi: bool = False):
     """Chunk attention at a split count: ``n_splits <= 1`` is the batched
     chunk kernel; higher counts take :func:`paged_chunk_attention_xla`."""
     if n_splits <= 1:
         return paged_chunk_attention_batched(q, kv_pages, block_tables, q_starts,
                                              ctx_lens, softmax_scale=softmax_scale,
-                                             kv_scales=kv_scales, window=window)
+                                             kv_scales=kv_scales, window=window,
+                                             alibi=alibi)
     return paged_chunk_attention_xla(q, kv_pages, block_tables, q_starts, ctx_lens,
                                      softmax_scale=softmax_scale, kv_scales=kv_scales,
-                                     n_splits=n_splits, window=window)
+                                     n_splits=n_splits, window=window, alibi=alibi)
 
 
 def paged_chunk_attention_xla(q, kv_pages, block_tables, q_starts, ctx_lens,
                               softmax_scale: Optional[float] = None,
                               kv_scales: Optional[torch.Tensor] = None,
-                              n_splits: int = 1, window: Optional[int] = None):
+                              n_splits: int = 1, window: Optional[int] = None,
+                              alibi: bool = False):
     """Split-K batched chunk attention in PyTorch ops: q [N, Cs, H, D], slot
     n's row i at position ``q_starts[n] + i`` sees keys ``k_pos <= q_pos``
     with ``k_pos < ctx`` (and ``k_pos > q_pos - window`` under a sliding
-    window); one partial per split, merged -> [N, Cs, H, D]."""
+    window; ``alibi`` adds ``slope[h] * k_pos``); one partial per split,
+    merged -> [N, Cs, H, D]."""
     N, Cs, H, D = q.shape
     _, _, Hkv, bs, _ = kv_pages.shape
     G = H // Hkv
@@ -331,6 +359,7 @@ def paged_chunk_attention_xla(q, kv_pages, block_tables, q_starts, ctx_lens,
     bt = _padded_tables(block_tables, per * n_splits)
     qg = q.float().view(N, Cs, Hkv, G, D)
     q_pos = q_starts.long()[:, None] + torch.arange(Cs, device=q.device)[None]
+    slope = alibi_slopes(H, q.device).view(1, 1, Hkv, G, 1) if alibi else None
     outs, lses = [], []
     for p in range(n_splits):
         k, v = gather_rows(kv_pages, bt[:, p * per:(p + 1) * per], per, kv_scales)
@@ -340,6 +369,8 @@ def paged_chunk_attention_xla(q, kv_pages, block_tables, q_starts, ctx_lens,
         if window is not None:
             mask &= pos[None, None] > q_pos[:, :, None] - window
         s = torch.einsum("nchgd,nhtd->nchgt", qg, k) * scale
+        if alibi:
+            s = s + slope * pos.float()
         o, lse = _partial(s, mask[:, :, None, None], v, "nchgt,nhtd->nchgd")
         outs.append(o.reshape(N * Cs, H, D))
         lses.append(lse.reshape(N * Cs, H))

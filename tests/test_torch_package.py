@@ -56,6 +56,35 @@ def test_window_serving_modules_import_without_jax():
                    env={**os.environ, "PYTHONPATH": str(ROOT)})
 
 
+ALIBI_MODULES = ("deepspeed_tpu_torch.models.decoder",
+                 "deepspeed_tpu_torch.ops.kernels.alibi")
+
+
+def test_alibi_serving_modules_import_without_jax():
+    """The generic decoder and the slope module, each imported by its own
+    name in a fresh interpreter, load no JAX."""
+    code = ("import importlib, sys; "
+            f"[importlib.import_module(m) for m in {ALIBI_MODULES!r}]; "
+            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'deepspeed_tpu') "
+            "or m.startswith(('jax.', 'flax.', 'deepspeed_tpu.'))]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120,
+                   env={**os.environ, "PYTHONPATH": str(ROOT)})
+
+
+@pytest.mark.parametrize("module, names", [
+    ("deepspeed_tpu_torch", ("DecoderConfig", "DecoderLM")),
+    ("deepspeed_tpu_torch.models", ("DecoderConfig", "DecoderLM", "alibi_bias",
+                                    "alibi_slopes")),
+    ("deepspeed_tpu_torch.inference.v2", ("ADAPTERS", "RaggedModelSpec", "adapt_model")),
+    ("deepspeed_tpu_torch.ops.kernels", ("alibi_slope", "alibi_slopes")),
+])
+def test_alibi_slice_exports(module, names):
+    import importlib
+    mod = importlib.import_module(module)
+    assert all(hasattr(mod, n) for n in names), [n for n in names if not hasattr(mod, n)]
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_file_imports_no_jax(path):
     """The module NAME is matched exactly: deepspeed_tpu_torch shares the
@@ -132,6 +161,16 @@ def _kernel_inputs(seed=0):
                                              i32([6, 0])),
                                             {"n_splits": 2, "side_k": f(2, 2, 16),
                                              "side_v": f(2, 2, 16), "j": 0, "window": 3}),
+        # the ALiBi branches: side rows at positions lens + cc
+        "paged_chunk_alibi": lambda: ((f(2, 4, 4, 16), pool, i32([[1, 2], [3, 0]]),
+                                       i32([2, 0]), i32([6, 0])), {"alibi": True}),
+        "paged_decode_alibi": lambda: ((f(2, 4, 16), pool, i32([[1, 2], [3, 0]]),
+                                        i32([6, 0]), f(2, 4, 16), f(2, 4, 16)),
+                                       {"j": 1, "alibi": True}),
+        "splitk_attention_alibi": lambda: ((f(2, 4, 16), pool, i32([[1, 2], [3, 0]]),
+                                            i32([6, 0])),
+                                           {"n_splits": 2, "side_k": f(2, 2, 16),
+                                            "side_v": f(2, 2, 16), "j": 0, "alibi": True}),
         "flash_fwd": lambda: ((f(2, 9, 2, 16), f(2, 9, 2, 16), f(2, 9, 2, 16)),
                               {"causal": True, "scale": 0.25}),
         "flash_bwd_dq": lambda: ((f(2, 9, 2, 16), f(2, 9, 2, 16), f(2, 9, 2, 16),
@@ -179,6 +218,11 @@ WRAPPERS = {
     "paged_decode_window": (kernels.paged_decode_attention,
                             kernels.paged_decode_attention_plain),
     "splitk_attention_window": (kernels.splitk_attention, kernels.splitk_attention_plain),
+    "paged_chunk_alibi": (kernels.paged_chunk_attention_batched,
+                          kernels.paged_chunk_attention_batched_plain),
+    "paged_decode_alibi": (kernels.paged_decode_attention,
+                           kernels.paged_decode_attention_plain),
+    "splitk_attention_alibi": (kernels.splitk_attention, kernels.splitk_attention_plain),
     "flash_fwd": (kernels.flash_attention_fwd, kernels.flash_attention_fwd_plain),
     "flash_bwd_dq": (kernels.flash_bwd_dq, kernels.flash_bwd_dq_plain),
     "flash_bwd_dkv": (kernels.flash_bwd_dkv, kernels.flash_bwd_dkv_plain),

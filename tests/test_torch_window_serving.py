@@ -487,8 +487,10 @@ def test_decode_step_schedules_agree_under_window(engines):
 
 
 def test_window_refusals_and_max_context_rule(engines):
-    """kv_quant with a window is refused by name, ALiBi still is, and a
-    max_context at or below the window drops the window (as in JAX)."""
+    """kv_quant with a window is refused by name, ALiBi over int8 pages
+    still is (ALiBi over bf16 pages is served:
+    tests/test_torch_alibi_serving.py), and a max_context at or below the
+    window drops the window (as in JAX)."""
     jmodel, jparams, model, _, _ = engines
     econf = {**ENGINE, "dtype": torch.float32}
     with pytest.raises(NotImplementedError, match="kv_quant with a sliding window"):
@@ -497,8 +499,10 @@ def test_window_refusals_and_max_context_rule(engines):
     spec = _spec(None)
     spec.alibi = True
     from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
+    AttentionKernelSpec.validate_engine_build(spec, RaggedInferenceEngineConfig.load())
     with pytest.raises(NotImplementedError, match="ALiBi"):
-        AttentionKernelSpec.validate_engine_build(spec, RaggedInferenceEngineConfig.load())
+        AttentionKernelSpec.validate_engine_build(
+            spec, RaggedInferenceEngineConfig.load({"kv_quant": {"enabled": True}}))
     short = {**econf, "state_manager": {**STATE, "max_context": 24}}
     e = InferenceEngineV2(model, short, model.flat_params(), device="cpu")
     assert e.spec.window is None and e.scheduler.ring_pages is None
