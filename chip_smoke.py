@@ -111,7 +111,30 @@ against their plain versions at BLOOM-560M's shapes (ctx
 1932/1032/432/92), plus one launch of the decode kernel and K5 at 112
 heads, D = 128 (the slopes' interpolation branch).
 
-The last two lines are the kernel table (30 rows) and ``{"ok": true,
+Burst decode (``decode_steps``) and the page fabric. Phase 3's
+``check_side_kernels`` holds the decode kernel (K6) and K7's side piece
+(2/4/8 splits) over a side slab of C = 16 rows against their plain
+versions at steps j = 0, 7 and 15: Llama-2-7B (bf16), Llama-2-13B (int8
+pages, f32 slab), Mistral-7B's heads through ring tables (windows of 8,
+so that j >= window, and 4096) and BLOOM-560M (ALiBi, D = 64). Phase 4
+then runs greedy 16-step bursts over four live sequences at rung 1 and
+pinned rungs 2 and 4 (one sequence crosses a page inside the burst), a
+burst built with ``max_side_bytes=0`` (the per-step-write loop), a
+sampled burst (top_k 50), ``sample_next`` against a ``put()`` of the same
+tokens, the bursts' final logits against the dense fp32 forward (RMS
+within 2x the dense bf16 forward's), a ``fetch=False`` burst under
+``torch.cuda.set_sync_debug_mode("error")``, and an ``export_kv`` ->
+``import_kv`` handoff whose pages come back byte for byte and whose
+greedy burst equals the original's. Two greedy streams must be equal, or
+first differ where the dense fp32 forward's top-2 logit gap is below
+twice the dense bf16 forward's largest logit error. Phase 6 runs a burst
+at each pinned rung 1/2/4/8 and hands off a sequence's packed int8 pages;
+phase 9 bursts at rungs 4 and 1 (the side-buffer schedule:
+``ring_covers(17)``; no sequence holds more than the ring); phase 10 at
+rungs 1 and 2. Each burst prints its wall and device ms per step beside
+the phase's pipeline step, with the card's name and power limit.
+
+The last two lines are the kernel table (39 rows) and ``{"ok": true,
 "device": ...}`` as JSON. Run from the repository root: ``python3 chip_smoke.py``.
 """
 
@@ -336,6 +359,7 @@ def check_kernels(dev):
     check_quant_kernels(dev, g, randn, record)
     check_window_kernels(dev, randn, record)
     check_alibi_kernels(dev, randn, record)
+    check_side_kernels(dev, randn, record)
     return rows
 
 
@@ -986,6 +1010,121 @@ def check_alibi_kernels(dev, randn, record):
     torch.cuda.empty_cache()
 
 
+# The side buffer of a decode_steps burst (K6 and K7's side piece at C > 1):
+# C = 16 side rows, steps j = 0, 7 and 15, at each main path's shapes.
+# Llama-2-7B (32/32 heads, D = 128) at phase 4's burst prefixes; Llama-2-13B
+# int8 pages with an f32 slab at phase 6's; Mistral-7B's head shape (G = 4)
+# through its ring tables with a window of 8 (so j >= window occurs) and of
+# 4096 (the table's row); BLOOM-560M (16/16 heads, D = 64) with ALiBi
+SIDE_C, SIDE_STEPS = 16, (0, 7, 15)
+SIDE_PREFIX_7B = [905, 305, 125, 45]
+SIDE_WINDOW = 8
+
+
+def check_side_kernels(dev, randn, record):
+    """The decode kernel (K6) and K7's side piece at 2/4/8 splits over a side
+    slab of C = 16 rows, each against its plain version at j = 0, 7, 15;
+    the table rows time j = 15 (the most side rows)."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels.kv_quant import (kv_quantize_rows,
+                                                          kv_write_dequant,
+                                                          scales_to_tiles)
+    from deepspeed_tpu_torch.ops.kernels.paged_decode import (
+        launch_name, paged_decode_attention, paged_decode_attention_plain)
+    from deepspeed_tpu_torch.ops.kernels.paged_splitk import (
+        kernel_name, splitk_attention, splitk_attention_plain)
+    C = SIDE_C
+    g = torch.Generator(device=dev).manual_seed(4321)
+
+    def case(label, H, Hkv, D, pool, bt, prefix, side, splits, toks_of, kv_bytes,
+             timed_splits=(), **kw):
+        """Each kernel (splits 0: the decode kernel) at each step j against
+        its plain version; ``toks_of(j)`` counts the visible page tokens,
+        ``kv_bytes`` the bytes of one visible token's K and V."""
+        S = prefix.shape[0]
+        qd = randn(S, H, D)
+        quant = "kv_scales" in kw
+        for n in splits:
+            for j in SIDE_STEPS:
+                if n:
+                    fn = lambda: splitk_attention(qd, pool, bt, prefix, n, *side, j=j, **kw)
+                    plain = lambda: splitk_attention_plain(qd, pool, bt, prefix, n, *side,
+                                                           j=j, **kw)
+                    name = kernel_name(n, kw.get("window"), kw.get("alibi", False), side=True)
+                else:
+                    fn = lambda: paged_decode_attention(qd, pool, bt, prefix, *side, j=j, **kw)
+                    plain = lambda: paged_decode_attention_plain(qd, pool, bt, prefix, *side,
+                                                                 j=j, **kw)
+                    name = launch_name(quant, kw.get("window"), kw.get("alibi", False), C)
+                out, ref = fn(), plain()
+                torch.cuda.synchronize()
+                timed = j == SIDE_STEPS[-1] and n in timed_splits
+                extra = {}
+                if timed:
+                    toks, rows = toks_of(j), S * (j + 1)
+                    side_bytes = rows * Hkv * D * side[0].element_size() * 2
+                    partials = 2 * S * (n + 1) * H * (D + 1) * 4 if n else 0
+                    b_ms, b_by = bound(toks * kv_bytes + side_bytes + 2 * qd.numel() * 2
+                                       + partials, 4 * D * H * (toks + rows))
+                    extra = dict(ms=time_ms(fn), plain_ms=time_ms(plain, 3, 1),
+                                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
+                record(name, f"{label} C={C} j={j}", err((out, ref)), row=timed, **extra)
+
+    # ---- Llama-2-7B, bf16 ---- #
+    H, Hkv, D, bs, MB = 32, 32, 128, 128, 16
+    NB = sum(-(-(p + C) // bs) for p in SIDE_PREFIX_7B) + 2
+    bt = block_tables([p + C for p in SIDE_PREFIX_7B], bs, MB, NB, dev)
+    pool = randn(NB, 2, Hkv, bs, D)
+    prefix = torch.tensor(SIDE_PREFIX_7B, dtype=torch.int32, device=dev)
+    side = (randn(4, C * Hkv, D), randn(4, C * Hkv, D))
+    case(f"Llama-2-7B S=4 H={H} D={D} prefix={SIDE_PREFIX_7B}", H, Hkv, D, pool, bt, prefix,
+         side, (0, 2, 4, 8), lambda j: sum(SIDE_PREFIX_7B), Hkv * D * 2 * 2, timed_splits=(0,))
+    del pool, side
+
+    # ---- Llama-2-13B, int8 pages, f32 slab (timed at 2/4/8 splits) ---- #
+    H, Hkv = 40, 40
+    pre13 = [c - 1 for c in Q_CTXS]
+    NB = sum(-(-(p + C) // bs) for p in pre13) + 2
+    x = torch.randn(NB, 2, Hkv, bs, D, generator=g, device=dev)
+    q8, scl = kv_quantize_rows(x)
+    tiles = scales_to_tiles(scl).contiguous()
+    del x, scl
+    bt = block_tables([p + C for p in pre13], bs, Q_MB, NB, dev)
+    prefix = torch.tensor(pre13, dtype=torch.int32, device=dev)
+    side = tuple(kv_write_dequant(randn(4, C * Hkv, D)) for _ in range(2))
+    case(f"Llama-2-13B int8 S=4 H={H} D={D} prefix={pre13}", H, Hkv, D, q8, bt, prefix, side,
+         (0, 2, 4, 8), lambda j: sum(pre13), Hkv * (2 * D + 8), timed_splits=(0, 2, 4, 8),
+         kv_scales=tiles)
+    del q8, tiles, side
+
+    # ---- Mistral-7B's heads, ring tables, windows of 8 and 4096 ---- #
+    (H, Hkv, D), bs = W_HEADS, W_BS
+    preW = [c - 1 - C for c in W_CTXS]
+    bt, NB = ring_tables(W_CTXS, bs, W_MB, W_RING, dev)
+    pool = randn(NB, 2, Hkv, bs, D)
+    prefix = torch.tensor(preW, dtype=torch.int32, device=dev)
+    side = (randn(4, C * Hkv, D), randn(4, C * Hkv, D))
+    for w in (SIDE_WINDOW, MISTRAL_WINDOW):
+        case(f"Mistral-7B heads S=4 H={H} Hkv={Hkv} prefix={preW} ring {W_RING} window={w}",
+             H, Hkv, D, pool, bt, prefix, side, (0, 4),
+             lambda j, w=w: sum(min(max(w - 1 - j, 0), p) for p in preW), Hkv * D * 2 * 2,
+             timed_splits=(0, 4) if w == MISTRAL_WINDOW else (), window=w)
+    del pool, side
+
+    # ---- BLOOM-560M, ALiBi, D = 64 ---- #
+    (H, Hkv, D), bs = A_HEADS, A_BS
+    preA = [c - 1 - C for c in A_CTXS]
+    NB = sum(-(-(p + C) // bs) for p in preA) + 1
+    bt = block_tables([p + C for p in preA], bs, A_MB, NB, dev)
+    pool = randn(NB, 2, Hkv, bs, D)
+    prefix = torch.tensor(preA, dtype=torch.int32, device=dev)
+    side = (randn(4, C * Hkv, D), randn(4, C * Hkv, D))
+    case(f"BLOOM-560M S=4 H={H} D={D} prefix={preA}", H, Hkv, D, pool, bt, prefix, side,
+         (0, 2), lambda j: sum(preA), Hkv * D * 2 * 2, timed_splits=(0, 2), alibi=True)
+    del pool, side
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------------------- #
 # phase 4: the serving slice at Llama-2-7B width
 # --------------------------------------------------------------------------- #
@@ -1007,7 +1146,10 @@ def run_slice():
           f"(seed 0), init {time.perf_counter() - t0:.1f} s", flush=True)
     # the default pool sizing (max_tracked_sequences x max_context) would ask
     # for 4096 pages of 64 MiB: size the pool explicitly
-    econf = {"kv_cache": {"block_size": 128, "num_blocks": 64}, "seed": 0}
+    # the split ladder up to 4 serves decode_steps bursts at pinned rungs 2
+    # and 4; every earlier step stays at rung 1 (contexts below 1024)
+    econf = {"kv_cache": {"block_size": 128, "num_blocks": 64},
+             "attention": {"decode_splits": 4}, "seed": 0}
     engine = InferenceEngineV2(model, econf, model.flat_params())
     V = cfg.vocab_size
     rng = np.random.RandomState(0)
@@ -1084,11 +1226,256 @@ def run_slice():
           f"{n_prompt / t_prefill:.1f} tok/s; decode 4 x 32 tokens in "
           f"{t_decode * 1e3:.1f} ms = {128 / t_decode:.1f} tok/s", flush=True)
     # where the time goes: device kernel time under the CUDA profiler
-    device_breakdown("decode 4 seqs x 8 steps", lambda: pipe.run(8))
+    prof = device_breakdown("decode 4 seqs x 8 steps", lambda: pipe.run(8))
     engine.flush(uids)
     device_breakdown("prefill 4 prompts (1360 tokens)",
                      lambda: engine.put([20, 21, 22, 23], prompts))
     engine.flush([20, 21, 22, 23])
+    pipe_step = {"wall_ms": t_decode / 32 * 1e3, "device_ms": prof["device_ms"] / 8}
+    launches.update(run_bursts_7b(engine, model, prompts, 2 * m_dense, pipe_step))
+    return launches
+
+
+# decode_steps bursts: 16 steps each, the side-buffer schedule unless built
+# with max_side_bytes = 0 (the per-step-write loop)
+BURST = 16
+BURST_PROFILED = 8          # the profiled burst after each timed one
+B_KERNELS_7B = ("paged_decode_side", "paged_splitk_side/2", "paged_splitk_side/4")
+B_NAMES = ("paged_decode", "paged_splitk", "splitk_merge", "qmm_gemv", "qmm_mma")
+
+
+def device_time(fn, names=()) -> dict:
+    """Run ``fn`` once under the CUDA-only profiler and sum its device
+    activity straight from the trace's events (the per-name tables of
+    :func:`device_breakdown` cost seconds of host time for a burst's ~10^5
+    kernels): device ms in all, and of the port's kernels ``names``
+    (matched as ``<name>_kernel``). Returns ``fn``'s result too."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    total, ours = 0, {n: 0 for n in names}
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA"):
+            ns = e.duration_ns()
+            total += ns
+            for n in names:
+                if f"{n}_kernel" in e.name():
+                    ours[n] += ns
+    return {"device_ms": total / 1e6 if total else float("nan"),
+            "port_kernels_ms": {n: v / 1e6 for n, v in ours.items()}, "result": out}
+
+
+def burst_line(label, engine, uids, n, pipe_step, names=B_NAMES, profiled_steps=None,
+               **extra):
+    """One greedy burst of ``n`` steps timed on the host clock, then one of
+    ``profiled_steps`` (default ``n``) under the profiler; prints wall and
+    device ms per step beside the pipeline's step of the same phase, with
+    the card's name and power limit. Returns both bursts' ids."""
+    import torch
+    m = profiled_steps or n
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = engine.decode_steps(uids, n)
+    wall = (time.perf_counter() - t0) * 1e3
+    prof = device_time(lambda: engine.decode_steps(uids, m), names)
+    ids = np.concatenate([ids, prof["result"]], axis=1)
+    print("burst " + json.dumps({
+        "phase": label, "steps": n, "rows": len(uids), "wall_ms_per_step": wall / n,
+        "device_ms_per_step": prof["device_ms"] / m, "profiled_steps": m,
+        "port_kernels_ms_per_step": {k: v / m for k, v in prof["port_kernels_ms"].items()},
+        "pipeline_wall_ms_per_step": pipe_step["wall_ms"],
+        "pipeline_device_ms_per_step": pipe_step["device_ms"], "nvidia_smi": smi_line(),
+        **extra}), flush=True)
+    if ids.shape != (len(uids), n + m) or not ((ids >= 0) & (ids < engine.spec.vocab_size)).all():
+        raise AssertionError(f"{label}: malformed burst ids {ids.shape}")
+    return ids
+
+
+def same_or_near_tie(label, a, b, gap_at, limit):
+    """Greedy streams ``a`` and ``b`` [S, n] agree, or each row's first
+    difference sits where the reference's top-2 logit gap (``gap_at(row,
+    step)``) is below ``limit``: twice the largest logit error of the
+    phase's dense bf16 forward against fp32. Two bf16 paths whose logits
+    each lie that close to fp32 may order two logits closer than twice it
+    either way."""
+    ties = []
+    for i in range(a.shape[0]):
+        diff = np.flatnonzero(a[i] != b[i])
+        if diff.size:
+            gap = gap_at(i, int(diff[0]))
+            ties.append({"row": i, "step": int(diff[0]), "top2_gap": gap})
+            if not gap < limit:
+                raise AssertionError(f"{label}: row {i} differs at step {diff[0]} where the "
+                                     f"top-2 gap {gap} >= the limit {limit}")
+    print("greedy-compare " + json.dumps({"case": label, "equal": not ties,
+                                          "first_differences": ties, "limit": limit}),
+          flush=True)
+
+
+def run_bursts_7b(engine, model, prompts, tie, pipe_step):
+    """Phase 4's bursts: greedy at rung 1 and pinned rungs 2 and 4, a
+    sampled one (top_k 50), one built with max_side_bytes = 0 (the
+    per-step-write loop), sample_next against a put() of the same tokens,
+    final logits against the dense fp32 forward, a fetch=False burst with
+    no host sync, and a page handoff (export_kv -> import_kv). Returns the
+    side kernels' launch counts over these bursts."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    V = engine.spec.vocab_size
+    uid = itertools.count(40)
+
+    def fresh():
+        """Four new uids holding the prompts' prefill (deterministic, so
+        every burst below starts from the same pages and logits)."""
+        u = [next(uid) for _ in prompts]
+        engine.put(u, prompts)
+        return u
+
+    def dense(seq, dt):
+        ids = torch.from_numpy(np.asarray(seq, np.int64)).cuda()[None]
+        return model.forward_logits(ids, compute_dtype=dt)[0].float()
+
+    def final_logits_check(label, uids_, streams_):
+        """The burst's final logits against the dense fp32 forward of prompt
+        + generated tokens: RMS within 2x the same forward's in bf16."""
+        engine._materialize(uids_)
+        e_eng, e_dense = [], []
+        for i, u_ in enumerate(uids_):
+            seq = np.concatenate([prompts[i], streams_[i]])
+            ref32, ref16 = dense(seq, torch.float32)[-1], dense(seq, torch.bfloat16)[-1]
+            eng = torch.from_numpy(engine._last_logits[u_]).cuda()
+            if not torch.isfinite(eng).all():
+                raise AssertionError(f"{label}: final logits are not finite")
+            e_eng.append(float((eng - ref32).pow(2).mean()))
+            e_dense.append(float((ref16 - ref32).pow(2).mean()))
+        rms_eng, rms_dense = float(np.sqrt(np.mean(e_eng))), float(np.sqrt(np.mean(e_dense)))
+        print(f"burst final logits vs dense fp32 ({label} x 4 prompts): engine rms "
+              f"{rms_eng:.5f}; dense bf16 rms {rms_dense:.5f}; limit rms <= 2 x dense",
+              flush=True)
+        if not rms_eng <= 2 * rms_dense:
+            raise AssertionError(f"{label}: logits error {rms_eng} > 2 x dense bf16 {rms_dense}")
+
+    def gap_of(rows_of):
+        def gap(i, step):
+            top = torch.topk(dense(rows_of(i, step), torch.float32)[-1], 2).values
+            return float(top[0] - top[1])
+        return gap
+
+    bs = engine.kv.config.block_size
+    crossing = [i for i, p in enumerate(prompts) if len(p) // bs != (len(p) + BURST - 1) // bs]
+    if not crossing:
+        raise AssertionError("no sequence crosses a page boundary inside the burst")
+    reset_launches()
+    engine.attn_stats.reset()
+    streams = {}
+    for rung in (1, 2, 4):
+        engine.attn_rung_override = rung
+        u = fresh()
+        streams[rung] = burst_line(f"Llama-2-7B burst rung {rung}", engine, u, BURST,
+                                   pipe_step, profiled_steps=BURST_PROFILED,
+                                   crossing_page_rows=crossing)
+        if rung == 1:
+            base_uids = u
+        else:
+            engine.flush(u)
+    engine.attn_rung_override = 1
+    launches = {k: LAUNCHES.get(k, 0) for k in B_KERNELS_7B}
+    rungs = dict(engine.attn_stats.rungs)
+    print("burst launches " + json.dumps({"launches": launches, "rungs": rungs}), flush=True)
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the bursts: {missing}")
+    toks = streams[1]
+
+    def burst_rows(i, step):
+        return np.concatenate([prompts[i], toks[i, :step]])
+
+    for rung in (2, 4):
+        same_or_near_tie(f"burst rung {rung} vs rung 1", streams[rung], toks,
+                         gap_of(burst_rows), tie)
+
+    # ---- the per-step-write loop: the same tokens ---- #
+    u = fresh()
+    cache = type(engine._multistep)
+    engine._multistep = cache(maxsize=8)       # the next burst's key: built anew
+    engine._multistep.get_or_create(
+        (BURST, 4, False, 0, 1),
+        lambda: engine._build_multistep(BURST, False, 0, 1, max_side_bytes=0))
+    reset_launches()
+    general = engine.decode_steps(u, BURST)
+    side_free = not any(LAUNCHES.get(k, 0) for k in B_KERNELS_7B)
+    print("per-step-write burst " + json.dumps({
+        "side_launches_none": side_free, "paged_decode": LAUNCHES.get("paged_decode", 0)}),
+        flush=True)
+    if not side_free or not LAUNCHES.get("paged_decode", 0):
+        raise AssertionError("the max_side_bytes=0 burst did not run the per-step-write loop")
+    final_logits_check("per-step-write burst, 16 steps", u, general)
+    same_or_near_tie("per-step-write loop vs side buffer", general, toks[:, :BURST],
+                     gap_of(burst_rows), tie)
+    engine._multistep = cache(maxsize=8)
+    engine.flush(u)
+
+    final_logits_check(f"side-buffer bursts, {BURST} + {BURST_PROFILED} steps", base_uids, toks)
+
+    # ---- sample_next after the burst against a put() of the same tokens ---- #
+    nxt = engine.sample_next(base_uids)
+    u = fresh()
+    lg = engine.put(u, [toks[i] for i in range(4)])
+    ref_nxt = np.argmax(lg, axis=-1)
+
+    def put_gap(i, _):
+        top = np.sort(lg[i])[-2:]
+        return float(top[1] - top[0])
+
+    same_or_near_tie("sample_next after a burst vs put() of the same tokens",
+                     nxt[:, None], ref_nxt[:, None], put_gap, tie)
+    engine.flush(u)
+
+    # ---- a sampled burst ---- #
+    sampled = engine.decode_steps(base_uids, BURST, do_sample=True, temperature=0.8, top_k=50)
+    if sampled.shape != (4, BURST) or not ((sampled >= 0) & (sampled < V)).all():
+        raise AssertionError("sampled burst malformed")
+    print(f"sampled burst (top_k 50, temperature 0.8): {sampled[:, :8].tolist()}", flush=True)
+
+    # ---- fetch=False: no host sync inside the burst ---- #
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dev_ids = engine.decode_steps(base_uids, BURST, fetch=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not (dev_ids.is_cuda and tuple(dev_ids.shape) == (4, BURST)):
+        raise AssertionError(f"fetch=False burst returned {dev_ids.device} {dev_ids.shape}")
+    print("fetch=False burst under set_sync_debug_mode('error'): no sync", flush=True)
+    engine.flush(base_uids)
+
+    # ---- a page handoff: two twins, one exported and imported anew ---- #
+    a, b = next(uid), next(uid)
+    engine.put([a], [prompts[1]])
+    engine.put([b], [prompts[1]])
+    sched = engine.scheduler
+    twins_equal = bool((engine.fetch_pages(sched.seqs[a].blocks)
+                        == engine.fetch_pages(sched.seqs[b].blocks)).all())
+    pages, lg_b = engine.export_kv(b)
+    c = next(uid)
+    ids = engine.import_kv(c, prompts[1], pages, lg_b)
+    copy_equal = bool((engine.fetch_pages(ids) == pages).all())
+    both = engine.decode_steps([a, c], BURST)
+    if both.shape != (2, BURST):
+        raise AssertionError(f"burst on the handoff pair returned {both.shape}")
+    print("page handoff " + json.dumps({
+        "payload": [list(pages.shape), str(pages.dtype)], "twins_bytes_equal": twins_equal,
+        "imported_bytes_equal": copy_equal, "pages": len(ids)}), flush=True)
+    if not copy_equal:
+        raise AssertionError("fetch_pages of the imported pages differs from the export")
+    same_or_near_tie("burst on the imported copy vs the original", both[1:], both[:1],
+                     gap_of(lambda i, step: np.concatenate([prompts[1], both[0, :step]])),
+                     tie)
+    engine.flush([a, c])
+    engine.attn_rung_override = None
     return launches
 
 
@@ -1478,13 +1865,58 @@ def run_13b():
           f"{t_prefill * 1e3:.1f} ms = {n_prompt / t_prefill:.1f} tok/s; decode 4 x 16 tokens "
           f"at rung {engine._attn_rung()} in {t_decode * 1e3:.1f} ms = "
           f"{64 / t_decode:.1f} tok/s ({t_decode / 16 * 1e3:.2f} ms/step)", flush=True)
-    device_breakdown("13B decode step (4 seqs, int8, rung 8)", lambda: pipe.run(1), Q_NAMES)
+    prof = device_breakdown("13B decode step (4 seqs, int8, rung 8)", lambda: pipe.run(1),
+                            Q_NAMES)
+    launches.update(run_bursts_13b(engine, uids, {"wall_ms": t_decode / 16 * 1e3,
+                                                  "device_ms": prof["device_ms"]}))
     engine.flush(uids + [14])
     device_breakdown("13B prefill pass (736 tokens, int8)", lambda: engine.put(
         [20], [rng.randint(0, V, 736).astype(np.int32)]), Q_NAMES)
     engine.flush([20])
     print(f"phase 6: peak device memory {gib(torch.cuda.max_memory_allocated()):.2f} GiB; "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+B_KERNELS_13B = ("paged_decode_int8_side", "paged_splitk_side/2", "paged_splitk_side/4",
+                 "paged_splitk_side/8")
+
+
+def run_bursts_13b(engine, uids, pipe_step):
+    """Phase 6's bursts: one greedy burst pair at each pinned rung 1/2/4/8
+    over the int8 pages (f32 slab), then a page handoff of packed uint8
+    rows. Returns the side kernels' launch counts over the bursts."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    reset_launches()
+    engine.attn_stats.reset()
+    for rung in engine.attn_split_ladder:
+        engine.attn_rung_override = rung
+        burst_line(f"13B int8 burst rung {rung}", engine, uids, BURST, pipe_step, B_NAMES,
+                   profiled_steps=BURST_PROFILED)
+    engine.attn_rung_override = None
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES.get(k, 0) for k in B_KERNELS_13B}
+    print("burst launches " + json.dumps({"launches": launches,
+                                          "rungs": dict(engine.attn_stats.rungs)}), flush=True)
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the bursts: {missing}")
+    # the handoff: the port's scheduler keeps a sequence's token count, not
+    # its ids, so the history handed to import_kv is that many placeholders
+    u = uids[-1]
+    n_seen = engine.scheduler.seqs[u].seen_tokens
+    pages, lg = engine.export_kv(u)
+    ids = engine.import_kv(u, np.zeros(n_seen, np.int32), pages, lg)
+    spec_shape, spec_dtype = engine.page_payload_spec
+    equal = bool((engine.fetch_pages(ids) == pages).all())
+    print("page handoff " + json.dumps({
+        "payload": [list(pages.shape), str(pages.dtype)],
+        "page_payload_spec": [list(spec_shape), np.dtype(spec_dtype).name],
+        "bytes_per_block": engine.kv.config.bytes_per_block(), "imported_bytes_equal": equal}),
+        flush=True)
+    if not equal or pages.dtype != np.uint8 or tuple(pages.shape[1:]) != spec_shape:
+        raise AssertionError("the packed int8 page handoff is not byte-exact")
     return launches
 
 
@@ -1966,6 +2398,7 @@ def run_evoformer(rows):
 W_KERNELS = ("flash_packed_window", "paged_chunk_window", "paged_decode_window",
              "paged_splitk_window/2", "paged_splitk_window/4", "splitk_merge")
 W_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk", "splitk_merge")
+W_SIDE_KERNELS = ("paged_splitk_side_window/4", "paged_decode_side_window")
 # chunk budget 8224 - 32 = 8192 tokens: a windowed sequence takes at most
 # window + block = 4224 tokens a pass, so the page ring is 66 pages
 ENGINE_MISTRAL = {"kv_cache": {"block_size": 128, "num_blocks": 160},
@@ -2030,6 +2463,7 @@ def run_mistral():
     import torch
     from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
     from deepspeed_tpu_torch.inference.v2.ragged.ragged_batch import to_device
+    from deepspeed_tpu_torch.inference.v2.ragged_model import multistep_schedule
     from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     from deepspeed_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
@@ -2191,8 +2625,28 @@ def run_mistral():
           f"{t_prefill * 1e3:.1f} ms = {n_prompt / t_prefill:.1f} tok/s; decode 4 x 28 tokens "
           f"at rung {engine._attn_rung()} in {t_decode * 1e3:.1f} ms = "
           f"{112 / t_decode:.1f} tok/s ({t_decode / 28 * 1e3:.2f} ms/step)", flush=True)
-    device_breakdown(f"Mistral decode step (4 seqs, ctx <= {W_CTXS[0] + 1}, rung "
-                     f"{engine._attn_rung()})", lambda: pipe.run(1), W_NAMES)
+    prof = device_breakdown(f"Mistral decode step (4 seqs, ctx <= {W_CTXS[0] + 1}, rung "
+                            f"{engine._attn_rung()})", lambda: pipe.run(1), W_NAMES)
+    # ---- bursts at rungs 4 and 1: the window's side rows through the ring ---- #
+    covers = sched.ring_covers(BURST + 1)
+    schedule = multistep_schedule(engine.spec, BURST, 4, covers)
+    reset_launches()
+    for rung in (4, 1):
+        engine.attn_rung_override = rung
+        burst_line(f"Mistral-7B burst rung {rung}", engine, uids, BURST,
+                   {"wall_ms": t_decode / 28 * 1e3, "device_ms": prof["device_ms"]}, W_NAMES,
+                   profiled_steps=BURST_PROFILED, ring_covers_17=covers, schedule=schedule)
+    engine.attn_rung_override = None
+    torch.cuda.synchronize()
+    side = {k: LAUNCHES.get(k, 0) for k in W_SIDE_KERNELS}
+    held = {u: len(set(sched.seqs[u].blocks)) for u in uids}
+    print("burst ring " + json.dumps({"launches": side, "physical_pages": held,
+                                      "ring_pages": sched.ring_pages}), flush=True)
+    if schedule != "sidebuf" or not all(side.values()):
+        raise AssertionError(f"the Mistral bursts ran {schedule} with side launches {side}")
+    if max(held.values()) > sched.ring_pages:
+        raise AssertionError(f"a sequence holds more than the ring after the bursts: {held}")
+    launches.update(side)
     engine.flush(uids + [14])
     device_breakdown(f"Mistral prefill pass ({W_PREFILL} tokens from 0, window)",
                      lambda: engine.put([20], [rng.randint(0, V, W_PREFILL).astype(np.int32)]),
@@ -2210,6 +2664,7 @@ def run_mistral():
 A_KERNELS = ("paged_chunk_alibi", "paged_decode_alibi", "paged_splitk_alibi/2",
              "paged_splitk_alibi/4", "splitk_merge")
 A_NAMES = ("paged_chunk", "paged_decode", "paged_splitk", "splitk_merge")
+A_SIDE_KERNELS = ("paged_decode_side_alibi", "paged_splitk_side_alibi/2")
 ENGINE_BLOOM = {"kv_cache": {"block_size": 128, "num_blocks": 72},
                 "state_manager": {"max_context": 2048},
                 "attention": {"decode_splits": 4, "min_ctx_per_split": 512}, "seed": 0}
@@ -2366,8 +2821,22 @@ def run_bloom():
           f"at rung {engine._attn_rung()} in {t_decode * 1e3:.1f} ms = "
           f"{96 / t_decode:.1f} tok/s ({t_decode / 24 * 1e3:.2f} ms/step)", flush=True)
     live = max(s.seen_tokens for s in engine.scheduler.seqs.values())
-    device_breakdown(f"BLOOM decode step (4 seqs, ctx <= {live + 1}, rung "
-                     f"{engine._attn_rung()})", lambda: pipe.run(1), A_NAMES)
+    prof = device_breakdown(f"BLOOM decode step (4 seqs, ctx <= {live + 1}, rung "
+                            f"{engine._attn_rung()})", lambda: pipe.run(1), A_NAMES)
+    # ---- bursts at rungs 1 and 2: ALiBi side rows at D = 64 ---- #
+    reset_launches()
+    pipe_step = {"wall_ms": t_decode / 24 * 1e3, "device_ms": prof["device_ms"]}
+    for rung in (1, 2):
+        engine.attn_rung_override = rung
+        burst_line(f"BLOOM-560M burst rung {rung}", engine, uids, BURST, pipe_step, A_NAMES,
+                   profiled_steps=BURST_PROFILED)
+    engine.attn_rung_override = None
+    torch.cuda.synchronize()
+    side = {k: LAUNCHES.get(k, 0) for k in A_SIDE_KERNELS}
+    print("burst launches " + json.dumps(side), flush=True)
+    if not all(side.values()):
+        raise AssertionError(f"ALiBi side kernels never launched by the bursts: {side}")
+    launches.update(side)
     engine.flush(uids + [14])
     chunk = engine.config.state_manager.chunk_budget
     device_breakdown(f"BLOOM prefill pass ({chunk} tokens from 0, paged pass, rung 1)",
@@ -2385,11 +2854,12 @@ Q_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk", "split
            "qmm_gemv", "qmm_mma")
 
 
-def device_breakdown(label: str, fn, names=ATTN_NAMES) -> None:
+def device_breakdown(label: str, fn, names=ATTN_NAMES) -> dict:
     """Run ``fn`` once under the CUDA-only profiler; print wall time, summed
     device kernel time, the device busy share, the time of the port's
     kernels ``names`` (matched as ``<name>_kernel``) and the six largest
-    kernels."""
+    kernels. Returns the wall and device ms (NaN where the profiler saw no
+    device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2414,6 +2884,7 @@ def device_breakdown(label: str, fn, names=ATTN_NAMES) -> None:
         "device_busy_share": busy / wall if busy else "not measured",
         "port_kernels_ms": ours,
         "top_kernels_ms": [[k[:80], v] for k, v in top]}), flush=True)
+    return {"wall_ms": wall, "device_ms": busy if busy else float("nan")}
 
 
 def main() -> int:
@@ -2430,12 +2901,21 @@ def main() -> int:
     _loader.load_library()
     print(f"build: {_loader.last_build_seconds:.1f} s (nvcc, sm_90a; "
           f"{time.perf_counter() - t0:.1f} s with load)", flush=True)
+    t_phase = time.perf_counter()
     rows = check_kernels(torch.device("cuda"))
+    print(f"phase 3: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
     launches = run_slice()
+    print(f"phase 4: {time.perf_counter() - t_phase:.1f} s", flush=True)
     torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
     launches.update({k: v for k, v in run_training().items() if k in K1_NAMES})
+    print(f"phase 5: {time.perf_counter() - t_phase:.1f} s", flush=True)
     torch.cuda.empty_cache()
-    launches.update(run_13b())
+    q_launches = run_13b()
+    for k in B_KERNELS_7B[1:]:       # K7's side piece ran at rungs 2 and 4 in both phases
+        q_launches[k] += launches[k]
+    launches.update(q_launches)
     torch.cuda.empty_cache()
     launches.update(run_sparse(rows))
     torch.cuda.empty_cache()
@@ -2477,6 +2957,21 @@ def main() -> int:
         **{paged_splitk.kernel_name(n, alibi=True): (paged_splitk.SOURCE,
                                                      paged_splitk.REPLACES_ALIBI)
            for n in (2, 4)}})
+    # the side buffer of decode_steps bursts (C = 16)
+    sources.update({
+        paged_decode.NAME_SIDE: (paged_decode.SOURCE, paged_decode.REPLACES_SIDE),
+        paged_decode.NAME_INT8_SIDE: (paged_decode.SOURCE, paged_decode.REPLACES_INT8_SIDE),
+        paged_decode.launch_name(False, MISTRAL_WINDOW, False, SIDE_C): (
+            paged_decode.SOURCE, paged_decode.REPLACES_WINDOW),
+        paged_decode.launch_name(False, None, True, SIDE_C): (
+            paged_decode.SOURCE, paged_decode.REPLACES_ALIBI),
+        **{paged_splitk.kernel_name(n, side=True): (paged_splitk.SOURCE,
+                                                    paged_splitk.REPLACES_SIDE)
+           for n in (2, 4, 8)},
+        paged_splitk.kernel_name(4, MISTRAL_WINDOW, side=True): (
+            paged_splitk.SOURCE, paged_splitk.REPLACES_WINDOW),
+        paged_splitk.kernel_name(2, alibi=True, side=True): (
+            paged_splitk.SOURCE, paged_splitk.REPLACES_ALIBI)})
     sources.update(K9_KERNELS)
     sources.update(K10_KERNELS)
     table = []
@@ -2490,6 +2985,7 @@ def main() -> int:
                       "case": r["case"],
                       **({"library_covers": r["library_covers"]}
                          if "library_covers" in r else {})})
+    print(f"chip_smoke.py: {time.perf_counter() - t0:.1f} s from the build on", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

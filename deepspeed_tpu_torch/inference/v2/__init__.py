@@ -5,4 +5,6 @@ from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConf
 from deepspeed_tpu_torch.inference.v2.engine_v2 import InferenceEngineV2
 from deepspeed_tpu_torch.inference.v2.pipeline import DecodePipeline
 from deepspeed_tpu_torch.inference.v2.ragged_model import (ADAPTERS, RaggedModelSpec,
-                                                           adapt_model)
+                                                           adapt_model,
+                                                           build_multistep_decode,
+                                                           multistep_schedule)

@@ -171,19 +171,27 @@ class AttentionKernelSpec:
         return self.decode(q, kv_l, block_tables, ctx_lens, kv_scales=kv_scales)
 
 
-def write_token_rows(kv_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     block_tables: torch.Tensor, pos: torch.Tensor,
-                     kv_scales: Optional[torch.Tensor] = None) -> None:
-    """Write each row's K/V [S, Hkv, D] at position ``pos`` [S] (>= 0) of its
-    sequence, through its block table, into the pool view ``kv_l``; an int8
-    pool (``kv_scales``) stores the rows quantized and their scales."""
-    NB, _, Hkv, bs, D = kv_l.shape
-    pos = pos.long()
-    page = block_tables.long().gather(1, (pos // bs)[:, None])[:, 0]
-    base = page * (2 * Hkv * bs) + pos % bs                       # [S]
-    h = torch.arange(Hkv, device=kv_l.device) * bs
-    rows = torch.cat([(base[:, None] + h).reshape(-1),
+def token_write_rows(block_tables: torch.Tensor, pos: torch.Tensor, Hkv: int,
+                     bs: int) -> torch.Tensor:
+    """Flat rows of one layer's pool view ``[NB * 2 * Hkv * bs, D]`` for the
+    tokens at positions ``pos`` ([S] or [S, C], >= 0) of each row's
+    sequence, through its block table: all K rows, then all V rows, each in
+    (row, position, kv head) order."""
+    S = block_tables.shape[0]
+    pos = pos.long().reshape(S, -1)
+    page = block_tables.long().gather(1, pos // bs)                # [S, C]
+    base = (page * (2 * Hkv * bs) + pos % bs).reshape(-1)
+    h = torch.arange(Hkv, device=block_tables.device) * bs
+    return torch.cat([(base[:, None] + h).reshape(-1),
                       (base[:, None] + Hkv * bs + h).reshape(-1)])
+
+
+def write_rows(kv_l: torch.Tensor, rows: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               kv_scales: Optional[torch.Tensor] = None) -> None:
+    """Write K/V rows (any shape ending in D, in :func:`token_write_rows`'
+    order) at pool rows ``rows`` of the pool view ``kv_l``; an int8 pool
+    (``kv_scales``) stores them quantized and their scales."""
+    _, _, Hkv, bs, D = kv_l.shape
     new = torch.cat([k.reshape(-1, D), v.reshape(-1, D)])
     if kv_scales is None:
         kv_l.view(-1, D).index_copy_(0, rows, new.to(kv_l.dtype))
@@ -191,3 +199,13 @@ def write_token_rows(kv_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q8, s = kv_quantize_rows(new)
     kv_l.view(-1, D).index_copy_(0, rows, q8)
     kv_scales.view(-1).index_copy_(0, scale_write_index(rows, Hkv, bs), s)
+
+
+def write_token_rows(kv_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     block_tables: torch.Tensor, pos: torch.Tensor,
+                     kv_scales: Optional[torch.Tensor] = None) -> None:
+    """Write each row's K/V [S, Hkv, D] at position ``pos`` [S] (>= 0) of its
+    sequence, through its block table, into the pool view ``kv_l``; an int8
+    pool (``kv_scales``) stores the rows quantized and their scales."""
+    _, _, Hkv, bs, _ = kv_l.shape
+    write_rows(kv_l, token_write_rows(block_tables, pos, Hkv, bs), k, v, kv_scales)

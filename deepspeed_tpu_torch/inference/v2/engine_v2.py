@@ -13,7 +13,16 @@ Per pass:
 
 Steady-state decode runs through ``DecodePipeline`` (``pipeline.py``): one
 decode step per token with on-device sampling, and one int32 row per step
-crossing back to the host, drained one step late.
+crossing back to the host, drained one step late. ``decode_steps`` runs a
+burst of steps with no host sync between them (the side-buffer schedule of
+``ragged_model.build_multistep_decode``), and ``sample_next`` samples one
+token from each sequence's last logits on the device.
+
+The page fabric moves KV pages to the host and back (``fetch_pages`` /
+``put_pages``, bucketed to powers of two) and hands a sequence to another
+engine (``export_kv`` / ``import_kv``); its payload
+(``page_payload_spec``) is the JAX package's, byte for byte (a bf16 page
+as uint16 bytes).
 
 Memory-lean serving, as in the JAX package: ``quantization.weight_bits = 8``
 quantizes the weight tree at build (the caller's bf16 tensors are dropped
@@ -55,12 +64,14 @@ from deepspeed_tpu_torch.inference.v2.attention import AttentionKernelSpec
 from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
 from deepspeed_tpu_torch.inference.v2.ragged.blocked_allocator import BlockedAllocator
 from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import BlockedKVCache, KVCacheConfig
+from deepspeed_tpu_torch.inference.v2.ragged.ragged_batch import host_to_device, to_device
 from deepspeed_tpu_torch.inference.v2.ragged_model import (
     PAGED_PASS_KEYS, PREFILL_PASS_KEYS, _sample_logits, adapt_model,
-    build_decode_step, build_prefill_forward, build_ragged_forward,
-    quantize_weights_int8)
+    build_decode_step, build_multistep_decode, build_prefill_forward,
+    build_ragged_forward, quantize_weights_int8)
 from deepspeed_tpu_torch.inference.v2.scheduler import DynamicSplitFuseScheduler
-from deepspeed_tpu_torch.utils.caching import next_pow2
+from deepspeed_tpu_torch.ops.kernels.kv_quant import kv_scale_tiles_shape
+from deepspeed_tpu_torch.utils.caching import LRUCache, next_pow2
 from deepspeed_tpu_torch.utils.device import resolve_device
 
 
@@ -146,6 +157,8 @@ class InferenceEngineV2:
                             for r in self.attn_split_ladder}
         # ALiBi models never take the packed prefill pass (no position bias)
         self._pass_prefill = None if self.spec.alibi else build_prefill_forward(self.spec)
+        # decode_steps bursts: (n_steps, bucket, do_sample, top_k, rung) -> fn
+        self._multistep: LRUCache = LRUCache(maxsize=8)
         # pin the dispatched rung (None = picked from the live context)
         self.attn_rung_override: Optional[int] = None
         self.attn_stats = AttnSplitStats()
@@ -287,14 +300,76 @@ class InferenceEngineV2:
             ref = self._last_ref.get(int(uid))
             if ref is None:
                 # logits were materialised to host (a prior put()); re-upload
-                rows.append(torch.from_numpy(self._last_logits[int(uid)])
-                            .to(self.device)[None])
+                rows.append(host_to_device(torch.from_numpy(
+                    np.array(self._last_logits[int(uid)], np.float32)), self.device)[None])
             else:
                 arr, row = ref
                 rows.append(arr[row:row + 1])
         rows += rows[:1] * (next_pow2(len(uids)) - len(uids))
         return _sample_logits(torch.cat(rows), self.generator, do_sample, top_k,
                               temperature)
+
+    def sample_next(self, uids: Sequence[int], do_sample: bool = False,
+                    temperature: float = 1.0, top_k: int = 0) -> np.ndarray:
+        """The next token of each uid, sampled on the device from its last
+        logits; only the int32 ids cross to the host."""
+        uids = [int(u) for u in uids]
+        if not uids:
+            return np.zeros((0,), np.int32)
+        ids = self._sample_device_padded(uids, do_sample, temperature, top_k)
+        return ids.cpu().numpy()[:len(uids)]
+
+    def decode_steps(self, uids: Sequence[int], n_steps: int, do_sample: bool = False,
+                     temperature: float = 1.0, top_k: int = 0, fetch: bool = True):
+        """Generate ``n_steps`` tokens for every uid in one burst
+        (:func:`build_multistep_decode`: the sample -> forward -> sample
+        loop stays on the device, with no host sync between its steps).
+        Every uid must be in steady decode state (no pending tokens, last
+        logits available). Returns the generated ids ``[len(uids),
+        n_steps]``; ``fetch=False`` returns them as the device tensor, so
+        bursts chain without a host round trip. The engine's last-logits
+        refs advance, so ``put``, ``sample_next``, the pipeline or another
+        burst carry on.
+
+        The burst runs at ``next_pow2(len(uids))`` rows (pad rows decode on
+        the scratch page) and at this dispatch's split rung; its function
+        is cached per ``(n_steps, bucket, do_sample, top_k, rung)``, as the
+        JAX package's compiled programs are."""
+        uids = [int(u) for u in uids]
+        S = len(uids)
+        if n_steps < 1:
+            raise ValueError(f"decode_steps needs n_steps >= 1, got {n_steps}")
+        if self.scheduler.has_pending():
+            raise RuntimeError("decode_steps requires a drained scheduler")
+        db = self.scheduler.decode_batch(uids, n_steps + 1, self.scratch_block)
+        sp = self._attn_rung()
+        fn = self._multistep.get_or_create(
+            (n_steps, db.bucket, bool(do_sample), int(top_k), sp),
+            lambda: self._build_multistep(n_steps, do_sample, top_k, sp))
+        # bucket-padded: pad entries re-sample row 0's logits but decode on
+        # the scratch page, so they cannot touch live KV
+        ids0 = self._sample_device_padded(uids, do_sample, temperature, top_k)
+        block_tables = to_device(db.block_tables, self.device)
+        positions = to_device(db.positions, self.device)
+        out_ids, final_logits = fn(self.weights, self.kv.kv, ids0, positions, block_tables,
+                                   positions + 1, self.generator, float(temperature),
+                                   kv_scales=self.kv.scales)
+        for i, u in enumerate(uids):
+            self.scheduler.advance(u, n_steps)
+            self._last_ref[u] = (final_logits, i)
+            self._last_logits.pop(u, None)
+        ids = out_ids.t()[:S]                          # [S, n_steps]
+        return ids if not fetch else ids.cpu().numpy()
+
+    def _build_multistep(self, n_steps: int, do_sample: bool, top_k: int, sp: int,
+                         max_side_bytes: Optional[int] = None):
+        """One burst function at split rung ``sp``, the function
+        ``decode_steps`` caches; ``max_side_bytes`` as
+        :func:`build_multistep_decode`'s."""
+        return build_multistep_decode(
+            self.spec, n_steps, do_sample=do_sample, top_k=top_k,
+            window_ring_ok=self.scheduler.ring_covers(n_steps + 1),
+            max_side_bytes=max_side_bytes, n_splits=sp)
 
     def decode_pipeline(self, uids: Sequence[int], do_sample: bool = False,
                         temperature: float = 1.0, top_k: int = 0):
@@ -304,6 +379,150 @@ class InferenceEngineV2:
         from deepspeed_tpu_torch.inference.v2.pipeline import DecodePipeline
         return DecodePipeline(self, uids, do_sample=do_sample,
                               temperature=temperature, top_k=top_k)
+
+    # ------------------------------------------------------------------ #
+    # KV page fabric: pages to the host and back, and page handoffs
+    # ------------------------------------------------------------------ #
+
+    @property
+    def page_payload_spec(self) -> Tuple[Tuple[int, ...], Any]:
+        """(shape, numpy dtype) of ONE page as it travels the host fabric, as
+        in the JAX package: a plain pool ships the page itself ``[L, 2,
+        Hkv, bs, D]`` (f32 as float32; bf16 as uint16 holding the same
+        bytes, numpy having no bfloat16); an int8 pool ships one flat byte
+        row per page, the int8 values then the f32 scale tiles
+        (``bytes_per_block`` bytes)."""
+        cfg = self.kv.config
+        if cfg.quantized:
+            return (cfg.bytes_per_block(),), np.uint8
+        return ((cfg.num_layers, 2, cfg.num_kv_heads, cfg.block_size, cfg.head_dim),
+                _PAYLOAD_DTYPES[cfg.dtype])
+
+    def _pack_pages(self, vals: np.ndarray, scales: np.ndarray) -> np.ndarray:
+        """(int8 values [n, L, 2, Hkv, bs, D], f32 scale tiles [n, L, R8,
+        128]) -> packed [n, bytes_per_block] uint8 rows."""
+        n = vals.shape[0]
+        return np.concatenate(
+            [np.ascontiguousarray(vals).reshape(n, -1).view(np.uint8),
+             np.ascontiguousarray(scales).reshape(n, -1).view(np.uint8)], axis=1)
+
+    def _unpack_pages(self, pages: np.ndarray):
+        """Inverse of :meth:`_pack_pages`: packed uint8 rows -> (int8 values,
+        f32 scale tiles)."""
+        cfg = self.kv.config
+        n = pages.shape[0]
+        L, Hkv, bs, D = cfg.num_layers, cfg.num_kv_heads, cfg.block_size, cfg.head_dim
+        vbytes = L * 2 * Hkv * bs * D
+        vals = np.ascontiguousarray(pages[:, :vbytes]).view(np.int8)
+        scales = np.ascontiguousarray(pages[:, vbytes:]).view(np.float32)
+        _, r8, lanes = kv_scale_tiles_shape(1, Hkv, bs)
+        return vals.reshape(n, L, 2, Hkv, bs, D), scales.reshape(n, L, r8, lanes)
+
+    def _page_index(self, ids: List[int]) -> torch.Tensor:
+        """Page ids padded to a power of two with the scratch page, on the
+        device."""
+        idx = np.full((next_pow2(len(ids)),), self.scratch_block, np.int32)
+        idx[:len(ids)] = ids
+        return to_device(idx, self.device).long()
+
+    def fetch_pages(self, blocks: Sequence[int]) -> np.ndarray:
+        """KV pages to the host in one bucketed gather (pad slots read the
+        scratch page): ``[n, L, 2, Hkv, bs, D]`` for a plain pool (bf16 as
+        uint16 bytes), packed ``[n, bytes_per_block]`` uint8 rows for an
+        int8 one (:attr:`page_payload_spec`)."""
+        ids = [int(b) for b in blocks]
+        n = len(ids)
+        idx = self._page_index(ids)
+        vals = self.kv.kv.index_select(1, idx).transpose(0, 1)[:n]
+        if self.kv.config.quantized:
+            scales = self.kv.scales.index_select(1, idx).transpose(0, 1)[:n]
+            return self._pack_pages(vals.cpu().numpy(), scales.cpu().numpy())
+        return _to_payload(vals)
+
+    def put_pages(self, pages: np.ndarray, blocks: Sequence[int]) -> None:
+        """Scatter host pages ``[n, ...]`` (:attr:`page_payload_spec`) into
+        pool slots ``blocks`` in one bucketed dispatch, byte-exact with
+        :meth:`fetch_pages`; pad slots write zeros into the scratch page."""
+        ids = [int(b) for b in blocks]
+        if not ids:
+            return
+        pages = self._payload_array(pages)
+        n, bucket = len(ids), next_pow2(len(ids))
+        if bucket != n:
+            pages = np.concatenate(
+                [pages, np.zeros((bucket - n,) + pages.shape[1:], pages.dtype)])
+        idx = self._page_index(ids)
+        if self.kv.config.quantized:
+            vals, scales = self._unpack_pages(pages)
+            self.kv.kv.index_copy_(1, idx, _from_host(vals, self.device).transpose(0, 1))
+            self.kv.scales.index_copy_(1, idx,
+                                       _from_host(scales, self.device).transpose(0, 1))
+            return
+        t = _from_host(pages, self.device)
+        if self.kv.kv.dtype == torch.bfloat16:
+            t = t.view(torch.bfloat16)
+        self.kv.kv.index_copy_(1, idx, t.transpose(0, 1))
+
+    def _payload_array(self, pages) -> np.ndarray:
+        """A host payload as this pool's payload dtype; a bf16 pool takes
+        uint16 or bfloat16 arrays (the JAX package's) by their bytes."""
+        _, dtype = self.page_payload_spec
+        pages = np.asarray(pages)
+        if dtype is np.uint16 and pages.dtype != np.uint16:
+            if pages.dtype.name != "bfloat16":
+                raise TypeError(f"a bf16 pool's pages travel as uint16 or bfloat16 "
+                                f"bytes, got {pages.dtype}")
+            return pages.view(np.uint16)
+        return np.asarray(pages, dtype)
+
+    def export_kv(self, uid: int) -> Tuple[np.ndarray, np.ndarray]:
+        """``(pages, logits)``: the whole logical KV of a drained sequence
+        fetched to the host in one bucketed gather, and its last logits row;
+        then the sequence is flushed here. The export half of a page
+        handoff: :meth:`import_kv` on another engine (or under another uid)
+        restores it."""
+        uid = int(uid)
+        seq = self.scheduler.seqs.get(uid)
+        if seq is None:
+            raise KeyError(f"sequence {uid} is not tracked")
+        if len(seq.pending):
+            raise RuntimeError(f"sequence {uid} still has pending prefill "
+                               "tokens — export_kv needs a drained sequence")
+        self._materialize([uid])
+        logits = self._last_logits.pop(uid)
+        pages = self.fetch_pages(list(seq.blocks))
+        self.flush([uid])
+        return pages, logits
+
+    def import_kv(self, uid: int, tokens: Sequence[int], pages: np.ndarray,
+                  logits: np.ndarray) -> List[int]:
+        """Adopt a sequence whose KV ``pages`` were computed elsewhere (this
+        package's or the JAX package's ``export_kv``): allocate fresh pages
+        (``scheduler.adopt_sequence``), scatter the content in with
+        :meth:`put_pages` (byte-exact), and seed its last logits row. The
+        sequence is then in steady decode state. Returns the allocated
+        block ids."""
+        uid = int(uid)
+        page_shape, _ = self.page_payload_spec
+        pages = self._payload_array(pages)
+        if tuple(pages.shape[1:]) != page_shape:
+            raise ValueError(
+                f"handoff page shape {tuple(pages.shape[1:])} does not match "
+                f"this engine's KV page layout {page_shape} — cross-engine "
+                "handoff needs an identical model + block_size")
+        ids = self.scheduler.adopt_sequence(uid, tokens, len(pages))
+        if ids:
+            self.put_pages(pages, ids)
+        self._last_logits[uid] = np.array(logits, np.float32)
+        return ids
+
+    def fetch_page(self, block: int) -> np.ndarray:
+        """One KV page (``page_payload_spec``-shaped) to the host."""
+        return self.fetch_pages([block])[0]
+
+    def put_page(self, page: np.ndarray, block: int) -> None:
+        """Scatter one host page into pool slot ``block``."""
+        self.put_pages(np.asarray(page)[None], [block])
 
     # ------------------------------------------------------------------ #
     # continuous-batching generation loop
@@ -364,6 +583,29 @@ class InferenceEngineV2:
                 self.flush([u])     # retired mid-run: recycle KV blocks now
         self.flush(pipe.uids)
         return outs
+
+
+# a plain pool's page payload dtype on the host (numpy has no bfloat16)
+_PAYLOAD_DTYPES = {torch.float32: np.float32, torch.bfloat16: np.uint16,
+                   torch.float16: np.float16}
+
+
+def _to_payload(t: torch.Tensor) -> np.ndarray:
+    """Pool values -> host payload array; bf16 as its uint16 bytes."""
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).cpu().numpy().view(np.uint16)
+    return t.contiguous().cpu().numpy()
+
+
+def _from_host(a: np.ndarray, device) -> torch.Tensor:
+    """Host payload array -> tensor on ``device`` (uint16 bytes as int16,
+    which the caller views as bf16)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint16:
+        a = a.view(np.int16)
+    if not a.flags.writeable:
+        a = a.copy()
+    return host_to_device(torch.from_numpy(a), device)
 
 
 def _guess_family(model) -> str:

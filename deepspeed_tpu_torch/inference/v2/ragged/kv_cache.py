@@ -32,6 +32,17 @@ class KVCacheConfig:
     dtype: torch.dtype = torch.bfloat16
     quantized: bool = False
 
+    def bytes_per_block(self) -> int:
+        """At-rest bytes of one pool page across all layers, as the JAX
+        package counts them; for an int8 pool also the page payload
+        (``engine.page_payload_spec``): the int8 values, then the f32 scale
+        tile in its padded layout."""
+        values = 2 * self.num_kv_heads * self.block_size * self.head_dim
+        if self.quantized:
+            _, r8, lanes = kv_scale_tiles_shape(1, self.num_kv_heads, self.block_size)
+            return self.num_layers * (values + r8 * lanes * 4)
+        return self.num_layers * values * torch.empty((), dtype=self.dtype).element_size()
+
 
 class BlockedKVCache:
     """Owns the combined page tensor ``kv`` [L, NB, 2, Hkv, bs, D] on

@@ -150,11 +150,21 @@ class RaggedBatch:
 
 
 def to_device(a: np.ndarray, device) -> torch.Tensor:
-    """Host int32 array -> tensor on ``device``. The copy from pageable
-    memory has consumed the host buffer when it returns, so the caller may
-    reuse the array at once."""
-    t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
-    return t.to(device)
+    """Host int32 array -> tensor on ``device``. On CUDA the array is staged
+    in pinned memory and copied without a host sync (the caching host
+    allocator keeps the staging buffer until the copy has run); on the CPU
+    it is a copy. Either way the caller may reuse the array at once."""
+    return host_to_device(torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)),
+                          device)
+
+
+def host_to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device`` without a host sync: pinned staging and
+    a non-blocking copy on CUDA, a copy on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device, copy=True)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 @dataclass

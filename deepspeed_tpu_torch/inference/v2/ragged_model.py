@@ -20,7 +20,10 @@ A pass that prefills every sequence from position 0 takes
 rows, then whole-page writes; an ALiBi model never does (the packed kernel
 has no position bias), so its prefill runs the paged pass. The pipelined
 decode step (:func:`build_decode_step`) attends the current token as a side
-row and writes it into its page afterwards.
+row and writes it into its page afterwards. A burst of decode steps
+(:func:`build_multistep_decode`, the engine's ``decode_steps``) keeps its
+new rows in a side slab and flushes them into the pages at its end, or
+writes each step's row first where the slab does not fit.
 
 A sliding window (``spec.window``, Mistral) and ALiBi (``spec.alibi``,
 BLOOM) are bound into every attention dispatch (``AttentionKernelSpec``).
@@ -50,13 +53,15 @@ in-flight rows at full precision.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch.inference.v2.attention import AttentionKernelSpec
+from deepspeed_tpu_torch.inference.v2.attention import (AttentionKernelSpec,
+                                                       token_write_rows, write_rows)
 from deepspeed_tpu_torch.models.decoder import PLAIN_ACTS, layer_norm
 from deepspeed_tpu_torch.models.llama import apply_rope, rope_tables
 from deepspeed_tpu_torch.ops.kernels.kv_quant import (kv_quantize_rows,
@@ -632,6 +637,29 @@ def _sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator],
     return ids[:, 0].to(torch.int32)
 
 
+def _step_logits(spec: RaggedModelSpec, weights, kv, ids, positions, kv_scales,
+                 attend_layer: Callable) -> torch.Tensor:
+    """One decode step's forward over the rows ``ids`` at ``positions``:
+    layer ``l`` attends through ``attend_layer(l, q, k, v, kv_l, sc_l)``
+    (``kv_l``/``sc_l``: the layer's pool view and scale tiles), which also
+    places the rows' K/V; with an int8 pool it gets the ``kv_write_dequant``
+    rows (f32), the values the pages store. Returns f32 logits [S, V]."""
+    x = _embed_in(spec, weights, ids, positions)
+    rope = _rope(spec, positions)
+    for l, w in enumerate(weights["layers"]):
+        kv_l = kv[l]
+        sc_l = None if kv_scales is None else kv_scales[l]
+
+        def attend(q, k, v, l=l, kv_l=kv_l, sc_l=sc_l):
+            if sc_l is not None:
+                k, v = kv_write_dequant(k), kv_write_dequant(v)
+            return attend_layer(l, q, k, v, kv_l, sc_l)
+
+        x = _transformer_layer(spec, w, x, rope, attend)
+    x = _norm(x, weights, "final_norm", spec)
+    return _unembed(spec, weights, x)
+
+
 def build_decode_step(spec: RaggedModelSpec, n_splits: int = 1,
                       window_ring_ok: bool = False) -> Callable:
     """One decode step for the pipelined serving loop: consume ``ids`` [S]
@@ -659,20 +687,152 @@ def build_decode_step(spec: RaggedModelSpec, n_splits: int = 1,
     def fwd(weights, kv, ids, positions, block_tables, ctx, generator=None,
             do_sample: bool = False, top_k: int = 0, temperature: float = 1.0,
             kv_scales=None):
-        x = _embed_in(spec, weights, ids, positions)
-        rope = _rope(spec, positions)
-        for l, w in enumerate(weights["layers"]):
-            kv_l = kv[l]
-            sc_l = None if kv_scales is None else kv_scales[l]
-
-            def attend(q, k, v, kv_l=kv_l, sc_l=sc_l):
-                if sc_l is not None:
-                    k, v = kv_write_dequant(k), kv_write_dequant(v)
-                return step(q, k, v, kv_l, block_tables, ctx, kv_scales=sc_l)
-
-            x = _transformer_layer(spec, w, x, rope, attend)
-        x = _norm(x, weights, "final_norm", spec)
-        logits = _unembed(spec, weights, x)
+        logits = _step_logits(spec, weights, kv, ids, positions, kv_scales,
+                              lambda l, q, k, v, kv_l, sc_l: step(
+                                  q, k, v, kv_l, block_tables, ctx, kv_scales=sc_l))
         return _sample_logits(logits, generator, do_sample, top_k, temperature), logits
+
+    return fwd
+
+
+def _build_multistep_sidebuf(spec: RaggedModelSpec, n_steps: int, do_sample: bool,
+                             top_k: int, n_splits: int = 1) -> Callable:
+    """The side-buffer burst (the JAX package's ``_build_multistep_sidebuf``
+    :1007): the pools stay frozen for the whole burst. Each layer's new K/V
+    rows go into a sequence-major slab ``[L, S, C * Hkv, D]`` (row ``cc *
+    Hkv + h``; ``C = n_steps``, not padded: the padding of JAX's ``Cb``
+    aligns TPU sublanes); step ``j`` of layer ``l`` attends the frozen
+    prefix ``[0, prefix)`` plus slab rows ``cc <= j`` through
+    ``AttentionKernelSpec.sidebuf`` (the decode kernel, or K7 with its side
+    piece at rungs above 1), handed the layer's slab ``side_k[l]`` as a
+    view. At the burst's end one flush writes slab rows ``[0, C)`` into pool
+    positions ``[prefix, prefix + C)`` through the block tables.
+
+    With an int8 pool the slab is f32 and holds the ``kv_write_dequant``
+    rows; the flush re-quantizes them to the bytes and scales a per-step
+    write stores (the format is value-idempotent)."""
+    Hkv, D, C = spec.num_kv_heads, spec.head_dim, n_steps
+    ak = AttentionKernelSpec(spec, n_splits=n_splits)
+
+    def fwd(weights, kv, ids0, positions0, block_tables, ctx0, generator=None,
+            temperature: float = 1.0, kv_scales=None):
+        L, S = kv.shape[0], ids0.shape[0]
+        side_dtype = spec.dtype if kv_scales is None else torch.float32
+        side_k = torch.zeros((L, S, C * Hkv, D), dtype=side_dtype, device=kv.device)
+        side_v = torch.zeros_like(side_k)
+        # the pages hold only the frozen prefix; the current token and every
+        # later one live in the slab
+        prefix = (ctx0 - 1).clamp_min(0)
+        out_ids = torch.empty((C, S), dtype=torch.int32, device=ids0.device)
+        ids, pos = ids0, positions0
+        logits = None
+        for j in range(C):
+            span = slice(j * Hkv, (j + 1) * Hkv)
+
+            def attend(l, q, k, v, kv_l, sc_l):
+                side_k[l, :, span] = k
+                side_v[l, :, span] = v
+                return ak.sidebuf(q, kv_l, block_tables, prefix, side_k[l], side_v[l], j,
+                                  kv_scales=sc_l)
+
+            logits = _step_logits(spec, weights, kv, ids, pos, kv_scales, attend)
+            out_ids[j] = ids
+            ids = _sample_logits(logits, generator, do_sample, top_k, temperature)
+            pos = pos + 1
+        flush_side_slab(kv, side_k, side_v, block_tables, prefix, kv_scales)
+        return out_ids, logits
+
+    return fwd
+
+
+def flush_side_slab(kv: torch.Tensor, side_k: torch.Tensor, side_v: torch.Tensor,
+                    block_tables: torch.Tensor, prefix: torch.Tensor,
+                    kv_scales: Optional[torch.Tensor] = None) -> None:
+    """The side-buffer burst's flush (JAX :1142-1192): slab rows ``[0, C)``
+    of every layer (``side_k``/``side_v`` ``[L, S, C * Hkv, D]``) into pool
+    positions ``[prefix, prefix + C)`` of each row's sequence, through its
+    block table, one ``index_copy_`` a layer; an int8 pool re-quantizes the
+    f32 rows and writes their scales into the tiles ``kv_scales``."""
+    L, _, _, Hkv, bs, _ = kv.shape
+    C = side_k.shape[2] // Hkv
+    cc = torch.arange(C, device=prefix.device)
+    rows = token_write_rows(block_tables, prefix.long()[:, None] + cc, Hkv, bs)
+    for l in range(L):
+        write_rows(kv[l], rows, side_k[l], side_v[l],
+                   None if kv_scales is None else kv_scales[l])
+
+
+def _build_multistep_general(spec: RaggedModelSpec, n_steps: int, do_sample: bool,
+                             top_k: int, n_splits: int = 1) -> Callable:
+    """The per-step-write burst (the JAX package's
+    ``_build_multistep_general`` :1505): each layer of each step writes the
+    current token's K/V into its page, then attends, through
+    ``AttentionKernelSpec.decode_step_write`` (K4's order and its split-K
+    dispatcher)."""
+    ak = AttentionKernelSpec(spec, n_splits=n_splits)
+
+    def fwd(weights, kv, ids0, positions0, block_tables, ctx0, generator=None,
+            temperature: float = 1.0, kv_scales=None):
+        out_ids = torch.empty((n_steps, ids0.shape[0]), dtype=torch.int32,
+                              device=ids0.device)
+        ids, pos, ctx = ids0, positions0, ctx0
+        logits = None
+        for j in range(n_steps):
+            logits = _step_logits(spec, weights, kv, ids, pos, kv_scales,
+                                  lambda l, q, k, v, kv_l, sc_l: ak.decode_step_write(
+                                      q, k, v, kv_l, block_tables, ctx, kv_scales=sc_l))
+            out_ids[j] = ids
+            ids = _sample_logits(logits, generator, do_sample, top_k, temperature)
+            pos, ctx = pos + 1, ctx + 1
+        return out_ids, logits
+
+    return fwd
+
+
+def multistep_schedule(spec: RaggedModelSpec, n_steps: int, n_rows: int,
+                       window_ring_ok: bool = False,
+                       max_side_bytes: Optional[int] = None) -> str:
+    """Which burst schedule :func:`build_multistep_decode` runs for
+    ``n_rows`` rows: ``"sidebuf"``, or ``"general"`` (the per-step-write
+    loop) under a window whose page ring does not cover the burst
+    (``window_ring_ok = scheduler.ring_covers(n_steps + 1)``) or when the
+    slab's ``2 * L * S * n_steps * Hkv * D * esize`` bytes exceed
+    ``max_side_bytes`` (default ``DSTPU_SIDEBUF_MAX_MB``, 6144 MB), as in
+    the JAX package (:1262-1281). The JAX package also sends ``head_dim %
+    128 != 0`` to the per-step loop, for TPU lane alignment; the CUDA
+    kernels need none, so the port keeps the slab at every head dim."""
+    if spec.window is not None and not window_ring_ok:
+        return "general"
+    if max_side_bytes is None:
+        max_side_bytes = int(float(os.environ.get("DSTPU_SIDEBUF_MAX_MB", "6144")) * 1e6)
+    esize = torch.empty((), dtype=spec.dtype).element_size()
+    side_bytes = (2 * spec.num_layers * n_rows * n_steps * spec.num_kv_heads
+                  * spec.head_dim * esize)
+    return "sidebuf" if side_bytes <= max_side_bytes else "general"
+
+
+def build_multistep_decode(spec: RaggedModelSpec, n_steps: int, do_sample: bool = False,
+                           top_k: int = 0, window_ring_ok: bool = False,
+                           max_side_bytes: Optional[int] = None,
+                           n_splits: int = 1) -> Callable:
+    """A burst of ``n_steps`` decode steps with on-device sampling between
+    them (the JAX package's ``build_multistep_decode`` :1214): the
+    sample -> embed -> forward -> sample loop runs on the device with no
+    host round trip, on the schedule :func:`multistep_schedule` picks from
+    static conditions.
+
+    Returns ``fwd(weights, kv, ids0 [S], positions0 [S], block_tables [S,
+    MB], ctx0 [S], generator, temperature, kv_scales=None) -> (out_ids
+    [n_steps, S] int32, final_logits [S, V] f32)``, the pool written in
+    place; ``ctx0`` counts tokens INCLUDING the first current token;
+    ``out_ids[j]`` is the token *consumed* by step ``j`` (``ids0`` first),
+    and ``final_logits`` predict the token after the last one generated."""
+    general = _build_multistep_general(spec, n_steps, do_sample, top_k, n_splits)
+    sidebuf = _build_multistep_sidebuf(spec, n_steps, do_sample, top_k, n_splits)
+
+    def fwd(weights, kv, ids0, *rest, **kw):
+        impl = sidebuf if multistep_schedule(spec, n_steps, ids0.shape[0], window_ring_ok,
+                                             max_side_bytes) == "sidebuf" else general
+        return impl(weights, kv, ids0, *rest, **kw)
 
     return fwd

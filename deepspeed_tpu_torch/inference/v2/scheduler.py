@@ -179,6 +179,46 @@ class DynamicSplitFuseScheduler:
         return DecodeBatch(uids=[int(u) for u in uids], bucket=bucket,
                            positions=pos, block_tables=bt)
 
+    def adopt_sequence(self, uid: int, tokens: np.ndarray,
+                       n_blocks: int) -> List[int]:
+        """Create a sequence whose KV was computed elsewhere (the import half
+        of a page handoff, ``engine.import_kv``): allocate ``n_blocks`` fresh
+        pages in logical order and mark all ``tokens`` as seen; the caller
+        scatters the page content in (``engine.put_pages``) before the
+        sequence decodes. Returns the allocated ids. JAX's checks, in its
+        words."""
+        if self.window is not None:
+            raise NotImplementedError(
+                "cross-engine KV adoption with a sliding-window page ring "
+                "is not wired (the logical block list aliases physical "
+                "pages)")
+        tokens = np.asarray(tokens, np.int32)
+        if uid in self.seqs:
+            raise ValueError(f"sequence {uid} is already tracked")
+        if len(tokens) < 1:
+            raise ValueError("adopt_sequence needs at least one token")
+        if len(tokens) > self.config.max_context:
+            raise ValueError(f"sequence {uid}: {len(tokens)} tokens > "
+                             f"max_context {self.config.max_context}")
+        bs = self.cache.config.block_size
+        if n_blocks * bs < len(tokens):
+            raise ValueError(
+                f"{n_blocks} pages cannot hold {len(tokens)} tokens at "
+                f"block_size {bs}")
+        if len(self.seqs) >= self.config.max_tracked_sequences:
+            raise RuntimeError(
+                f"max_tracked_sequences={self.config.max_tracked_sequences} "
+                "exceeded")
+        if n_blocks > self.allocator.free_blocks:
+            raise RuntimeError(
+                f"cannot adopt sequence {uid}: needs {n_blocks} KV blocks, "
+                f"{self.allocator.free_blocks} obtainable")
+        seq = self.seqs[uid] = DSSequenceDescriptor(uid=uid)
+        ids = [int(b) for b in self.allocator.allocate(n_blocks)] if n_blocks else []
+        seq.blocks.extend(ids)
+        seq.seen_tokens = len(tokens)
+        return ids
+
     def advance(self, uid: int, n_tokens: int) -> None:
         """Record ``n_tokens`` device-generated tokens (their KV was written
         by the decode step; no pending compute remains)."""

@@ -15,7 +15,9 @@ name (``paged_splitk/8``); a launch with a sliding window counts under the
 kernel's ``_window`` name (``flash_packed_window``,
 ``paged_splitk_window/4``), one with ALiBi under its ``_alibi`` name
 (``paged_decode_alibi``, ``paged_splitk_alibi/2``; both:
-``paged_decode_window_alibi``).
+``paged_decode_window_alibi``), and a decode launch with more than one
+side row (a burst's side buffer) under its ``_side`` name first
+(``paged_decode_side``, ``paged_splitk_side_window/4``).
 """
 
 from __future__ import annotations

@@ -39,6 +39,12 @@ the same three entry points (``_decode_kernel_quant`` :561,
 ``_sidebuf_batched_kernel_quant`` :792). The side rows are then f32: they
 hold ``kv_write_dequant`` values, which a bf16 copy would round away from
 what the pages store.
+
+A launch with more than one side row (``C > 1``: the side buffer of a
+``decode_steps`` burst, ``_sidebuf_batched_kernel(_quant)`` :783/:792)
+counts under the ``_side`` names (``paged_decode_side``,
+``paged_decode_int8_side``, ``paged_decode_side_window``,
+``paged_decode_side_alibi``), apart from the one-row decode step.
 """
 
 from __future__ import annotations
@@ -57,6 +63,8 @@ NAME = "paged_decode"
 NAME_INT8 = "paged_decode_int8"
 NAME_WINDOW = "paged_decode_window"
 NAME_ALIBI = "paged_decode_alibi"
+NAME_SIDE = "paged_decode_side"
+NAME_INT8_SIDE = "paged_decode_int8_side"
 SOURCE = "deepspeed_tpu_torch/csrc/paged_decode.cu"
 REPLACES = ("deepspeed_tpu/ops/pallas/paged_attention.py:1088 (K3), "
             ":1249 (K4), :809 (K6); body _decode_body :280")
@@ -69,6 +77,10 @@ REPLACES_ALIBI = ("deepspeed_tpu/ops/pallas/paged_attention.py:1088 (K3), :1053 
                   "_decode_kernel_smalld :1028-1032")
 REPLACES_INT8 = ("deepspeed_tpu/ops/pallas/paged_attention.py:561 "
                  "_decode_kernel_quant (K3), :1217 (K4), :772 and :792 (K6)")
+REPLACES_SIDE = ("deepspeed_tpu/ops/pallas/paged_attention.py:809 (K6, C > 1) -> "
+                 "_sidebuf_batched_kernel :783 (body _sidebuf_batched_body :569)")
+REPLACES_INT8_SIDE = ("deepspeed_tpu/ops/pallas/paged_attention.py:809 (K6, C > 1) -> "
+                      "_sidebuf_batched_kernel_quant :792 (body :569)")
 
 
 def check_paged_inputs(name: str, q, kv_pages, block_tables, lens, side_k, side_v,
@@ -111,6 +123,14 @@ def check_int8_branches(name: str, quant: bool, window: Optional[int],
     if quant and alibi:
         raise NotImplementedError(f"{name}: ALiBi over int8 pages is not ported "
                                   "to deepspeed_tpu_torch yet")
+
+
+def launch_name(quant: bool, window: Optional[int], alibi: bool, C: int) -> str:
+    """The decode kernel's launch-count name: ``paged_decode`` or
+    ``paged_decode_int8``, with ``_side`` for more than one side row, then
+    the window and ALiBi suffixes."""
+    base = (NAME_INT8 if quant else NAME) + ("_side" if C > 1 else "")
+    return _loader.variant(base, window, alibi)
 
 
 def alibi_positions(S: int, T: int, lens: torch.Tensor, j: int, side: bool,
@@ -157,9 +177,9 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     MB = block_tables.shape[1]
     quant = kv_scales is not None
     check_int8_branches(NAME_INT8, quant, window, alibi)
-    name = NAME_INT8 if quant else _loader.variant(NAME, window, alibi)
-    C = check_paged_inputs(name, q, kv_pages, block_tables, lens, side_k, side_v,
-                           j, kv_scales)
+    C = check_paged_inputs(NAME_INT8 if quant else NAME, q, kv_pages, block_tables, lens,
+                           side_k, side_v, j, kv_scales)
+    name = launch_name(quant, window, alibi, C)
     sides = () if side_k is None else (side_k, side_v)
     extra = (kv_scales,) if quant else ()
     scale = softmax_scale if softmax_scale is not None else D ** -0.5

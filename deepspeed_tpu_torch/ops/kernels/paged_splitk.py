@@ -45,6 +45,11 @@ split's partial biases its scores by ``slope[h] * k_pos`` with ``k_pos``
 the key's ABSOLUTE position, and the side piece by ``prefix + cc``, so
 every partial's lse carries the same row constant and the merge is
 unchanged. An ALiBi partials launch counts as ``paged_splitk_alibi/<n>``.
+
+A partials launch whose side piece holds more than one side row (``C >
+1``: a ``decode_steps`` burst's side buffer, the dispatcher :725) counts
+under the ``_side`` names (``paged_splitk_side/<n>``,
+``paged_splitk_side_window/<n>``, ``paged_splitk_side_alibi/<n>``).
 """
 
 from __future__ import annotations
@@ -75,12 +80,18 @@ REPLACES_WINDOW = ("deepspeed_tpu/ops/pallas/paged_splitk.py:499 window= (_split
                    ":324; window :345-377; dispatchers :597-725)")
 REPLACES_ALIBI = ("deepspeed_tpu/ops/pallas/paged_splitk.py:499 alibi=True (_splitk_body "
                   ":324; alibi :467-471; side-slab piece :800-805)")
+REPLACES_SIDE = ("deepspeed_tpu/ops/pallas/paged_splitk.py:499 with the side piece at "
+                 "C > 1 (paged_sidebuf_attention_splitk :725; side slab :800-805)")
 REPLACES_MERGE = "deepspeed_tpu/ops/pallas/paged_splitk.py:84 merge_splitk_partials"
 NEG_INF = -1e30
 
 
-def kernel_name(n_splits: int, window: Optional[int] = None, alibi: bool = False) -> str:
-    return f"{_loader.variant(NAME, window, alibi)}/{int(n_splits)}"
+def kernel_name(n_splits: int, window: Optional[int] = None, alibi: bool = False,
+                side: bool = False) -> str:
+    """The partials kernel's launch-count name; ``side``: a side piece of
+    more than one side row."""
+    base = NAME + ("_side" if side else "")
+    return f"{_loader.variant(base, window, alibi)}/{int(n_splits)}"
 
 
 def split_pages(max_blocks: int, n_splits: int) -> int:
@@ -183,9 +194,9 @@ def splitk_attention(q: torch.Tensor, kv_pages: torch.Tensor,
         raise ValueError(f"{NAME}: n_splits must be >= 1, got {n_splits}")
     quant = kv_scales is not None
     check_int8_branches(NAME, quant, window, alibi)
-    name = kernel_name(n_splits, window, alibi)
-    C = check_paged_inputs(name, q, kv_pages, block_tables, lens, side_k, side_v, j,
-                           kv_scales)
+    C = check_paged_inputs(kernel_name(n_splits, window, alibi), q, kv_pages, block_tables,
+                           lens, side_k, side_v, j, kv_scales)
+    name = kernel_name(n_splits, window, alibi, side=C > 1)
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
     sides = () if side_k is None else (side_k, side_v)
     extra = (kv_scales,) if quant else ()

@@ -85,6 +85,76 @@ def test_alibi_slice_exports(module, names):
     assert all(hasattr(mod, n) for n in names), [n for n in names if not hasattr(mod, n)]
 
 
+BURST_MODULES = ("deepspeed_tpu_torch.inference.v2.engine_v2",
+                 "deepspeed_tpu_torch.inference.v2.ragged_model",
+                 "deepspeed_tpu_torch.inference.v2.scheduler",
+                 "deepspeed_tpu_torch.inference.v2.ragged.kv_cache",
+                 "deepspeed_tpu_torch.inference.v2.ragged.ragged_batch")
+BURST_ENTRY_POINTS = ("decode_steps", "sample_next", "fetch_pages", "put_pages",
+                      "fetch_page", "put_page", "export_kv", "import_kv")
+
+
+def test_burst_and_page_fabric_modules_import_without_jax():
+    """The modules that hold decode_steps, sample_next and the page movers,
+    each imported by its own name in a fresh interpreter, load no JAX."""
+    code = ("import importlib, sys; "
+            f"mods = [importlib.import_module(m) for m in {BURST_MODULES!r}]; "
+            "e = mods[0].InferenceEngineV2; "
+            f"assert all(callable(getattr(e, n)) for n in {BURST_ENTRY_POINTS!r}); "
+            "assert isinstance(e.page_payload_spec, property); "
+            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'deepspeed_tpu') "
+            "or m.startswith(('jax.', 'flax.', 'deepspeed_tpu.'))]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120,
+                   env={**os.environ, "PYTHONPATH": str(ROOT)})
+
+
+@pytest.mark.parametrize("module, names", [
+    ("deepspeed_tpu_torch.inference.v2", ("InferenceEngineV2", "build_multistep_decode",
+                                          "multistep_schedule")),
+    ("deepspeed_tpu_torch.inference.v2.ragged_model", ("build_multistep_decode",
+                                                       "multistep_schedule",
+                                                       "flush_side_slab")),
+    ("deepspeed_tpu_torch.inference.v2.scheduler",
+     ("DynamicSplitFuseScheduler.adopt_sequence",)),
+])
+def test_burst_slice_exports(module, names):
+    """Dotted names resolve attribute by attribute."""
+    import functools
+    import importlib
+    mod = importlib.import_module(module)
+
+    def has(name):
+        try:
+            functools.reduce(getattr, name.split("."), mod)
+            return True
+        except AttributeError:
+            return False
+
+    assert all(has(n) for n in names), [n for n in names if not has(n)]
+
+
+def test_burst_entry_points_follow_the_engine_device(monkeypatch):
+    """The burst and the page movers take no device of their own: they run
+    where the engine runs, which is the card unless the caller asks for the
+    CPU; a CUDA upload stages through pinned memory, which this CPU-only
+    build refuses."""
+    import inspect
+    from deepspeed_tpu_torch.inference.v2.ragged.ragged_batch import host_to_device, to_device
+    for name in BURST_ENTRY_POINTS:
+        assert "device" not in inspect.signature(getattr(InferenceEngineV2, name)).parameters
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model, econf = _tiny_engine_args()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceEngineV2(model, econf, model.flat_params())
+    with pytest.raises(RuntimeError):
+        host_to_device(torch.zeros(2), "cuda")
+    a = np.arange(3, dtype=np.int32)
+    t = to_device(a, "cpu")
+    a[0] = 7                                   # the caller may reuse its array
+    assert t.tolist() == [0, 1, 2]
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_file_imports_no_jax(path):
     """The module NAME is matched exactly: deepspeed_tpu_torch shares the
@@ -164,6 +234,13 @@ def _kernel_inputs(seed=0):
         # the ALiBi branches: side rows at positions lens + cc
         "paged_chunk_alibi": lambda: ((f(2, 4, 4, 16), pool, i32([[1, 2], [3, 0]]),
                                        i32([2, 0]), i32([6, 0])), {"alibi": True}),
+        # the side buffer of a burst (C > 1 side rows; counted under _side)
+        "paged_decode_side": lambda: ((f(2, 4, 16), pool, i32([[1, 2], [3, 0]]),
+                                       i32([5, 0]), f(2, 6, 16), f(2, 6, 16)), {"j": 2}),
+        "splitk_attention_side": lambda: ((f(2, 4, 16), pool, i32([[1, 2], [3, 0]]),
+                                           i32([5, 0])),
+                                          {"n_splits": 2, "side_k": f(2, 6, 16),
+                                           "side_v": f(2, 6, 16), "j": 1}),
         "paged_decode_alibi": lambda: ((f(2, 4, 16), pool, i32([[1, 2], [3, 0]]),
                                         i32([6, 0]), f(2, 4, 16), f(2, 4, 16)),
                                        {"j": 1, "alibi": True}),
@@ -223,6 +300,9 @@ WRAPPERS = {
     "paged_decode_alibi": (kernels.paged_decode_attention,
                            kernels.paged_decode_attention_plain),
     "splitk_attention_alibi": (kernels.splitk_attention, kernels.splitk_attention_plain),
+    "paged_decode_side": (kernels.paged_decode_attention,
+                          kernels.paged_decode_attention_plain),
+    "splitk_attention_side": (kernels.splitk_attention, kernels.splitk_attention_plain),
     "flash_fwd": (kernels.flash_attention_fwd, kernels.flash_attention_fwd_plain),
     "flash_bwd_dq": (kernels.flash_bwd_dq, kernels.flash_bwd_dq_plain),
     "flash_bwd_dkv": (kernels.flash_bwd_dkv, kernels.flash_bwd_dkv_plain),
