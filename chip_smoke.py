@@ -111,6 +111,40 @@ against their plain versions at BLOOM-560M's shapes (ctx
 1932/1032/432/92), plus one launch of the decode kernel and K5 at 112
 heads, D = 128 (the slopes' interpolation branch).
 
+11. memory-lean serving of Mistral-7B at full width and depth: phase 9's
+   engine with ``quantization.weight_bits = 4`` (the engine packs the
+   random bf16 weights of seed 0 to int4, two values a byte) and
+   ``kv_quant`` (int8 pages under the window, through the page ring);
+   ``generate()`` on prompts of 12000/5000/2000/300 tokens, a step at each
+   pinned rung 1/2/4, a mixed ``put()`` at rung 1 and 16-step bursts at
+   rungs 4 and 1; launches of the int8 window branch of K5, the decode
+   kernel (C = 1 and 16) and K7 (2 and 4 splits, the side piece at 4), and
+   of K8 on the unpacked int4 weights; next-token logits at prefill and
+   four decode steps against the dense fp32 forward with the window over
+   the engine's own int4 weights and int8 pool values (RMS within 2x the
+   same forward's in bf16); rung invariance; the 12032-token sequence on
+   exactly 66 physical pages; rates, a device profile, peak memory.
+
+12. int8-KV serving of BLOOM-7b1 at full width and depth
+   (``DecoderConfig.bloom_560m`` at hidden 4096, FFN 16384, 30 layers, 32
+   heads, so D = 128; random bf16 weights of seed 0) with ``kv_quant``:
+   pages of 128, max_context 2048, the ladder to 4; prompts
+   1900/1000/400/60, a step per pinned rung, a mixed ``put()`` and
+   16-step bursts at rungs 1 and 2; launches of the int8 ALiBi branch of
+   K5, the decode kernel and K7, none of K2; logits against the port's
+   dense ``DecoderLM`` in fp32 with ``alibi_bias`` over the pool's values
+   (RMS within 2x the same forward's in bf16); rung invariance; rates,
+   a device profile, peak memory.
+
+Phase 3 also holds the int8 pool's window branch of the decode kernel
+(pages only, one side row, C = 16 at j = 0/7/15), K5 and K7 (2 and 4
+splits, the side piece at 4) at Mistral-7B's shapes (windows 4096, 8 and
+200) and checks that the scale tiles of pages wholly below every row's
+window start are never read (filled with NaN, the outputs stay bitwise
+equal); the same kernels' ALiBi branch at BLOOM-7b1's shapes (the side
+piece at 2 splits); and ``_mm`` over packed int4 weights (the unpack and
+K8, each timed) at Mistral-7B's gate/up projection.
+
 Burst decode (``decode_steps``) and the page fabric. Phase 3's
 ``check_side_kernels`` holds the decode kernel (K6) and K7's side piece
 (2/4/8 splits) over a side slab of C = 16 rows against their plain
@@ -134,7 +168,7 @@ phase 9 bursts at rungs 4 and 1 (the side-buffer schedule:
 rungs 1 and 2. Each burst prints its wall and device ms per step beside
 the phase's pipeline step, with the card's name and power limit.
 
-The last two lines are the kernel table (39 rows) and ``{"ok": true,
+The last two lines are the kernel table (53 rows) and ``{"ok": true,
 "device": ...}`` as JSON. Run from the repository root: ``python3 chip_smoke.py``.
 """
 
@@ -360,6 +394,9 @@ def check_kernels(dev):
     check_window_kernels(dev, randn, record)
     check_alibi_kernels(dev, randn, record)
     check_side_kernels(dev, randn, record)
+    check_quant_window_kernels(dev, g, randn, record)
+    check_quant_alibi_kernels(dev, g, randn, record)
+    check_int4_matmul(dev, g, randn, record)
     return rows
 
 
@@ -633,7 +670,7 @@ def check_quant_kernels(dev, g, randn, record):
     lens1 = torch.clamp(ctx - 1, min=0)
     side = tuple(kv_write_dequant(randn(S, Hkv, D)) for _ in range(2))
     for n in (2, 4, 8):
-        name = f"paged_splitk/{n}"
+        name = f"paged_splitk_int8/{n}"
         fn = lambda: splitk_attention(qd, q8, bt, lens1, n, *side, kv_scales=tiles)
         out = fn()
         ref = splitk_attention_plain(qd, q8, bt, lens1, n, *side, kv_scales=tiles)
@@ -650,7 +687,7 @@ def check_quant_kernels(dev, g, randn, record):
                                                 with_lse=True)
         record(name, "int8 pages only, with lse", err((o, o_ref), (lse[..., None],
                                                                    lse_ref[..., None])))
-        record(name, "bf16 pages only", err((
+        record(f"paged_splitk/{n}", "bf16 pages only", err((
             splitk_attention(qd, pool16, bt, ctx, n),
             splitk_attention_plain(qd, pool16, bt, ctx, n))))
 
@@ -1050,7 +1087,8 @@ def check_side_kernels(dev, randn, record):
                     fn = lambda: splitk_attention(qd, pool, bt, prefix, n, *side, j=j, **kw)
                     plain = lambda: splitk_attention_plain(qd, pool, bt, prefix, n, *side,
                                                            j=j, **kw)
-                    name = kernel_name(n, kw.get("window"), kw.get("alibi", False), side=True)
+                    name = kernel_name(n, kw.get("window"), kw.get("alibi", False), side=True,
+                                       quant=quant)
                 else:
                     fn = lambda: paged_decode_attention(qd, pool, bt, prefix, *side, j=j, **kw)
                     plain = lambda: paged_decode_attention_plain(qd, pool, bt, prefix, *side,
@@ -1078,7 +1116,8 @@ def check_side_kernels(dev, randn, record):
     prefix = torch.tensor(SIDE_PREFIX_7B, dtype=torch.int32, device=dev)
     side = (randn(4, C * Hkv, D), randn(4, C * Hkv, D))
     case(f"Llama-2-7B S=4 H={H} D={D} prefix={SIDE_PREFIX_7B}", H, Hkv, D, pool, bt, prefix,
-         side, (0, 2, 4, 8), lambda j: sum(SIDE_PREFIX_7B), Hkv * D * 2 * 2, timed_splits=(0,))
+         side, (0, 2, 4, 8), lambda j: sum(SIDE_PREFIX_7B), Hkv * D * 2 * 2,
+         timed_splits=(0, 2, 4))
     del pool, side
 
     # ---- Llama-2-13B, int8 pages, f32 slab (timed at 2/4/8 splits) ---- #
@@ -1238,6 +1277,261 @@ def run_slice():
 
 # decode_steps bursts: 16 steps each, the side-buffer schedule unless built
 # with max_side_bytes = 0 (the per-step-write loop)
+# The int8 pool's window and ALiBi branches (phases 11 and 12): Mistral-7B's
+# heads through its ring tables (phase 3's window shapes) and BLOOM-7b1's
+# (32/32 heads, D = 128, pages of 128, block tables as wide as phase 12's
+# max_context of 2048) at phase 12's prompts' ends
+Q_SIDE_WINDOW = 8                     # the side buffer's j >= window case
+B7_HEADS, B7_CTXS, B7_MB = (32, 32, 128), [1932, 1032, 432, 92], 16
+
+
+def int8_pool(g, NB, Hkv, bs, D, dev):
+    """An int8 pool [NB, 2, Hkv, bs, D] and its f32 scale tiles from one
+    seeded f32 draw (rows of different magnitudes)."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels.kv_quant import kv_quantize_rows, scales_to_tiles
+    x = torch.randn(NB, 2, Hkv, bs, D, generator=g, device=dev) \
+        * (0.25 + 2 * torch.rand(NB, 2, Hkv, bs, 1, generator=g, device=dev))
+    q8, scl = kv_quantize_rows(x)
+    return q8, scales_to_tiles(scl).contiguous()
+
+
+def page_tokens(lens, j, side, window):
+    """Visible page tokens of one decode row: its query sits at lens - 1
+    (pages only) or lens + j (side rows), and sees tokens from the window
+    start on."""
+    q_next = lens + j + 1 if side else lens
+    return lens - (max(q_next - window, 0) if window else 0)
+
+
+def int8_branch_checks(label, H, Hkv, D, q8, tiles, bt, ctxs, randn, record, kw,
+                       timed, splits, side_splits, dev):
+    """The int8 decode kernel (pages only, one side row, C = 16 side rows at
+    j = 0/7/15), K5 (4 slots x 128 rows at each context's end) and K7
+    (``splits`` with one side row, pages only with the merged lse; its side
+    piece at ``side_splits`` over C = 16 rows), each against its plain
+    version under ``kw`` (``window=`` or ``alibi=True``); ``timed`` makes
+    the one-side-row, C = 16 j = 15 and K5 cases the kernel-table rows."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels.kv_quant import kv_write_dequant
+    from deepspeed_tpu_torch.ops.kernels.paged_chunk import (
+        paged_chunk_attention_batched, paged_chunk_attention_batched_plain)
+    from deepspeed_tpu_torch.ops.kernels.paged_decode import (
+        launch_name, paged_decode_attention, paged_decode_attention_plain)
+    from deepspeed_tpu_torch.ops.kernels.paged_splitk import (
+        kernel_name, splitk_attention, splitk_attention_plain)
+    S, C = len(ctxs), SIDE_C
+    w, alibi = kw.get("window"), kw.get("alibi", False)
+    ctx = torch.tensor(ctxs, dtype=torch.int32, device=dev)
+    qd = randn(S, H, D)
+    tok_bytes = Hkv * (2 * D + 8)                 # int8 K and V rows + two f32 scales
+    case = f"{label} S={S} H={H} Hkv={Hkv} D={D} ctx={ctxs} {kw}"
+
+    def timing(fn, plain, toks, rows, extra_bytes=0):
+        side_bytes = rows * Hkv * D * 2 * 4
+        b_ms, b_by = bound(toks * tok_bytes + side_bytes + 2 * qd.numel() * 2 + extra_bytes,
+                           4 * D * H * (toks + rows))
+        return dict(ms=time_ms(fn), plain_ms=time_ms(plain, 3, 1), library_ms=None,
+                    bound_ms=b_ms, bound_by=b_by)
+
+    # the decode kernel: pages only, one side row (the decode step), and
+    # the side buffer's C = 16 rows at j = 0/7/15
+    for c, steps in ((0, (0,)), (1, (0,)), (C, SIDE_STEPS)):
+        lens = torch.clamp(ctx - 1 - (c - 1 if c else 0), min=0) if c else ctx
+        side = tuple(kv_write_dequant(randn(S, c * Hkv, D)) for _ in range(2)) if c else ()
+        for j in steps:
+            jk = {"j": j} if c else {}
+            fn = lambda: paged_decode_attention(qd, q8, bt, lens, *side, kv_scales=tiles,
+                                                **jk, **kw)
+            plain = lambda: paged_decode_attention_plain(qd, q8, bt, lens, *side,
+                                                         kv_scales=tiles, **jk, **kw)
+            out, ref = fn(), plain()
+            torch.cuda.synchronize()
+            row = timed and c and j == steps[-1]
+            extra = timing(fn, plain, sum(page_tokens(n, j, bool(c), w) for n in
+                                          lens.tolist()), S * (j + 1) if c else 0) \
+                if row else {}
+            record(launch_name(True, w, alibi, c), f"{case} C={c} j={j}", err((out, ref)),
+                   row=row, **extra)
+
+    # K5: 4 slots x 128 rows at the end of each context
+    Cs = 128
+    qc = randn(S, Cs, H, D)
+    q0 = torch.clamp(ctx - Cs, min=0)
+    fn = lambda: paged_chunk_attention_batched(qc, q8, bt, q0, ctx, kv_scales=tiles, **kw)
+    plain = lambda: paged_chunk_attention_batched_plain(qc, q8, bt, q0, ctx,
+                                                        kv_scales=tiles, **kw)
+    out, ref = fn(), plain()
+    torch.cuda.synchronize()
+    extra = {}
+    if timed:
+        lo = lambda qs: max(0, qs - w + 1) if w else 0
+        toks = sum(c - lo(qs) for c, qs in zip(ctxs, q0.tolist()))
+        vis = sum(min(c, qs + r + 1) - (max(0, qs + r + 1 - w) if w else 0)
+                  for c, qs in zip(ctxs, q0.tolist()) for r in range(Cs) if qs + r < c)
+        b_ms, b_by = bound(toks * tok_bytes + 2 * qc.numel() * 2, 4 * D * H * vis)
+        extra = dict(ms=time_ms(fn), plain_ms=time_ms(plain, 3, 1), library_ms=None,
+                     bound_ms=b_ms, bound_by=b_by)
+    record(f"paged_chunk_int8{'_window' if w else ''}{'_alibi' if alibi else ''}",
+           f"{label} {S}x{Cs} rows H={H} Hkv={Hkv} ctx={ctxs} {kw}", err((out, ref)),
+           row=timed, **extra)
+
+    # K7: one side row (the decode step at rungs above 1), pages only with
+    # lse, and the side piece over C = 16 rows
+    lens1 = torch.clamp(ctx - 1, min=0)
+    side1 = tuple(kv_write_dequant(randn(S, Hkv, D)) for _ in range(2))
+    for n in splits:
+        name = kernel_name(n, w, alibi, quant=True)
+        fn = lambda: splitk_attention(qd, q8, bt, lens1, n, *side1, kv_scales=tiles, **kw)
+        plain = lambda: splitk_attention_plain(qd, q8, bt, lens1, n, *side1,
+                                               kv_scales=tiles, **kw)
+        out, ref = fn(), plain()
+        torch.cuda.synchronize()
+        extra = timing(fn, plain, sum(page_tokens(x, 0, True, w) for x in lens1.tolist()),
+                       S, 2 * S * (n + 1) * H * (D + 1) * 4) if timed else {}
+        record(name, f"{case} 1 side row", err((out, ref)), row=timed, **extra)
+        o, lse = splitk_attention(qd, q8, bt, ctx, n, kv_scales=tiles, with_lse=True, **kw)
+        o_ref, lse_ref = splitk_attention_plain(qd, q8, bt, ctx, n, kv_scales=tiles,
+                                                with_lse=True, **kw)
+        record(name, f"{case} pages only, with lse",
+               err((o, o_ref), (lse[..., None], lse_ref[..., None])))
+    preC = torch.clamp(ctx - 1 - C, min=0)
+    sideC = tuple(kv_write_dequant(randn(S, C * Hkv, D)) for _ in range(2))
+    for n in side_splits:
+        for j in SIDE_STEPS:
+            fn = lambda: splitk_attention(qd, q8, bt, preC, n, *sideC, j=j, kv_scales=tiles,
+                                          **kw)
+            plain = lambda: splitk_attention_plain(qd, q8, bt, preC, n, *sideC, j=j,
+                                                   kv_scales=tiles, **kw)
+            out, ref = fn(), plain()
+            torch.cuda.synchronize()
+            row = timed and j == SIDE_STEPS[-1]
+            extra = timing(fn, plain, sum(page_tokens(x, j, True, w) for x in preC.tolist()),
+                           S * (j + 1), 2 * S * (n + 1) * H * (D + 1) * 4) if row else {}
+            record(kernel_name(n, w, alibi, side=True, quant=True), f"{case} C={C} j={j}",
+                   err((out, ref)), row=row, **extra)
+
+
+def check_quant_window_kernels(dev, g, randn, record):
+    """The int8 pool's window branch of the decode kernel (K3/K4/K6), K5 and
+    K7 (2 and 4 splits, the side piece at 4) at Mistral-7B's shapes through
+    its ring tables, windows 4096 (the table's rows), 8 (side rows with
+    j >= window) and 200 (a start mid-tile and mid-page); then the int8
+    poison check: the scale tiles of every page wholly below each row's
+    window start hold NaN (int8 values cannot), and each kernel's output
+    stays bitwise equal, so neither those pages nor their scales are
+    read."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels.kv_quant import kv_write_dequant
+    from deepspeed_tpu_torch.ops.kernels.paged_chunk import paged_chunk_attention_batched
+    from deepspeed_tpu_torch.ops.kernels.paged_decode import paged_decode_attention
+    from deepspeed_tpu_torch.ops.kernels.paged_splitk import splitk_attention
+    (H, Hkv, D), bs = W_HEADS, W_BS
+    bt, NB = ring_tables(W_CTXS, bs, W_MB, W_RING, dev)
+    q8, tiles = int8_pool(g, NB, Hkv, bs, D, dev)
+    int8_branch_checks("Mistral-7B ring", H, Hkv, D, q8, tiles, bt, W_CTXS, randn, record,
+                       {"window": MISTRAL_WINDOW}, True, (2, 4), (4,), dev)
+    for w in (Q_SIDE_WINDOW, W_SHORT):
+        int8_branch_checks("Mistral-7B ring", H, Hkv, D, q8, tiles, bt, W_CTXS, randn,
+                           record, {"window": w}, False, (2, 4), (4,), dev)
+    del q8, tiles
+    torch.cuda.empty_cache()
+
+    # ---- the poison check: tables without repeated pages ---- #
+    NBp = sum(-(-c // bs) for c in W_CTXS) + 1
+    bt_p = block_tables(W_CTXS, bs, W_MB, NBp, dev)
+    q8, clean = int8_pool(g, NBp, Hkv, bs, D, dev)
+    ctx = torch.tensor(W_CTXS, dtype=torch.int32, device=dev)
+    S = len(W_CTXS)
+    qd = randn(S, H, D)
+    qc = randn(S, 128, H, D)
+    q0 = torch.clamp(ctx - 128, min=0)
+    side4 = tuple(kv_write_dequant(randn(S, 4 * Hkv, D)) for _ in range(2))
+    lens3 = torch.clamp(ctx - 3, min=0)
+    for w in (MISTRAL_WINDOW, W_SHORT):
+        def check(label, starts, fn):
+            poisoned = poison_below(clean, bt_p, W_CTXS, starts, bs)
+            a, b = fn(clean), fn(poisoned)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(a, b))
+            dead = sum(lo // bs for lo in starts)
+            print("poison-check " + json.dumps({"kernel": label, "window": w,
+                                                "scale_tiles_poisoned": dead,
+                                                "output_unchanged": same}), flush=True)
+            if not same or not dead:
+                raise AssertionError(f"{label} window={w}: a scale tile below the window "
+                                     f"start was read (or none was poisoned: {dead})")
+
+        starts = [max(0, c - w) for c in W_CTXS]
+        check("paged_decode_int8_window (pages only)", starts,
+              lambda t: paged_decode_attention(qd, q8, bt_p, ctx, kv_scales=t, window=w))
+        check("paged_decode_int8_side_window (side rows, j = 2)",
+              [max(0, int(n) + 3 - w) for n in lens3.tolist()],
+              lambda t: paged_decode_attention(qd, q8, bt_p, lens3, *side4, j=2,
+                                               kv_scales=t, window=w))
+        for n in (2, 4):
+            check(f"paged_splitk_int8_window/{n}", starts,
+                  lambda t, n=n: splitk_attention(qd, q8, bt_p, ctx, n, kv_scales=t,
+                                                  window=w))
+        check("paged_chunk_int8_window", [max(0, qs - w + 1) for qs in q0.tolist()],
+              lambda t: paged_chunk_attention_batched(qc, q8, bt_p, q0, ctx, kv_scales=t,
+                                                      window=w))
+    del q8, clean
+    torch.cuda.empty_cache()
+
+
+def check_quant_alibi_kernels(dev, g, randn, record):
+    """The int8 pool's ALiBi branch of the decode kernel (K3/K4/K6), K5 and
+    K7 (2 and 4 splits, the side piece at 2) at BLOOM-7b1's shapes (32/32
+    heads, D = 128, contexts 1932/1032/432/92)."""
+    import torch
+    (H, Hkv, D), bs = B7_HEADS, A_BS
+    NB = sum(-(-c // bs) for c in B7_CTXS) + 1
+    bt = block_tables(B7_CTXS, bs, B7_MB, NB, dev)
+    q8, tiles = int8_pool(g, NB, Hkv, bs, D, dev)
+    int8_branch_checks("BLOOM-7b1", H, Hkv, D, q8, tiles, bt, B7_CTXS, randn, record,
+                       {"alibi": True}, True, (2, 4), (2,), dev)
+    del q8, tiles
+    torch.cuda.empty_cache()
+
+
+# K8 over int4-unpacked weights at Mistral-7B's gate/up projection: M = 4
+# (the decode batch, gemv) and M = 4224 (the windowed prefill pass, mma)
+QMM4_SHAPES = ((4, 4096, 14336), (4224, 4096, 14336))
+
+
+def check_int4_matmul(dev, g, randn, record):
+    """``_mm`` over a packed int4 weight: the unpack (torch ops) and K8 on
+    the unpacked values, each timed, against the plain version; the bound
+    counts the packed weight's K*N/2 bytes (what a fused int4 body would
+    stream)."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.ragged_model import _mm, quantize_weight_int4
+    from deepspeed_tpu_torch.ops.kernels.quantized_matmul import (
+        GEMV, GEMV_MAX_M, quantized_matmul, quantized_matmul_plain)
+    from deepspeed_tpu_torch.ops.quantizer import unpack_int4
+    for M, K, N in QMM4_SHAPES:
+        a = randn(M, K)
+        w = torch.randn(K, N, generator=g, device=dev) * K ** -0.5
+        qd = quantize_weight_int4(w)
+        wb = w.to(torch.bfloat16)
+        del w
+        w8 = unpack_int4(qd["w4"])
+        out, ref = _mm(a, qd), quantized_matmul_plain(a, w8, qd["scale"])
+        torch.cuda.synchronize()
+        name = GEMV if M <= GEMV_MAX_M else "quantized_matmul_mma"
+        b_ms, b_by = bound(K * N // 2 + 4 * N + 2 * M * K + 2 * M * N, 2 * M * K * N)
+        record(name, f"int4 unpacked M={M} K={K} N={N}", err((out, ref)),
+               mm_ms=time_ms(lambda: _mm(a, qd)),
+               unpack_ms=time_ms(lambda: unpack_int4(qd["w4"])),
+               k8_ms=time_ms(lambda: quantized_matmul(a, w8, qd["scale"])),
+               plain_ms_int4=time_ms(lambda: quantized_matmul_plain(
+                   a, unpack_int4(qd["w4"]), qd["scale"]), 5, 1),
+               library_ms_bf16=time_ms(lambda: torch.matmul(a, wb)),
+               bound_ms_int4=b_ms, bound_by_int4=b_by)
+        del qd, wb, w8
+
+
 BURST = 16
 BURST_PROFILED = 8          # the profiled burst after each timed one
 B_KERNELS_7B = ("paged_decode_side", "paged_splitk_side/2", "paged_splitk_side/4")
@@ -1626,8 +1920,8 @@ def run_training(steps: int = 10):
 # --------------------------------------------------------------------------- #
 
 Q_KERNELS = ("quantized_matmul_gemv", "quantized_matmul_mma", "paged_decode_int8",
-             "paged_chunk_int8", "paged_splitk/2", "paged_splitk/4", "paged_splitk/8",
-             "splitk_merge")
+             "paged_chunk_int8", "paged_splitk_int8/2", "paged_splitk_int8/4",
+             "paged_splitk_int8/8", "splitk_merge")
 ENGINE_13B = {"quantization": {"weight_bits": 8}, "kv_quant": {"enabled": True},
               "attention": {"decode_splits": 8, "min_ctx_per_split": 512},
               "kv_cache": {"block_size": 128, "num_blocks": 96},
@@ -1878,8 +2172,8 @@ def run_13b():
     return launches
 
 
-B_KERNELS_13B = ("paged_decode_int8_side", "paged_splitk_side/2", "paged_splitk_side/4",
-                 "paged_splitk_side/8")
+B_KERNELS_13B = ("paged_decode_int8_side", "paged_splitk_int8_side/2",
+                 "paged_splitk_int8_side/4", "paged_splitk_int8_side/8")
 
 
 def run_bursts_13b(engine, uids, pipe_step):
@@ -2410,15 +2704,24 @@ ENGINE_MISTRAL = {"kv_cache": {"block_size": 128, "num_blocks": 160},
 W_PROMPTS, W_ORACLE_T, W_PREFILL = (12000, 5000, 2000, 300), 4600, 4224
 
 
-def dense_window_logits(weights, cfg, ids, rows, dt, q_block: int = 1024):
+def dense_window_logits(weights, cfg, ids, rows, dt, q_block: int = 1024,
+                        kv_pool: bool = False, n_full: int = 0):
     """The dense causal forward with the sliding window over one token
     sequence ``ids`` [T] in ``dt``, from the engine's weights (each cast as
-    its matmul runs, so no second copy of the model exists): each block of
-    ``q_block`` query rows attends only the keys its window reaches, so no
-    [T, T] score tensor exists. Returns f32 logits at positions ``rows``."""
+    its matmul runs, so no second copy of the model exists; a quantized
+    weight goes through ``_mm``'s function, plain: unpacked, f32 sum,
+    column scale): each block of ``q_block`` query rows attends only the
+    keys its window reaches, so no [T, T] score tensor exists. With
+    ``kv_pool`` attention reads K and V at the values an int8 page stores
+    (``kv_write_dequant``), except for the first ``n_full`` positions,
+    which a prefill-from-zero pass attends at full precision (phase 6's
+    rule). Returns f32 logits at positions ``rows``."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.models.llama import apply_rope, rms_norm, rope_tables, window_mask
+    from deepspeed_tpu_torch.ops.kernels.kv_quant import kv_write_dequant
+    from deepspeed_tpu_torch.ops.kernels.quantized_matmul import quantized_matmul_plain
+    from deepspeed_tpu_torch.ops.quantizer import unpack_int4
     W = weights
     H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     eps, win = cfg.rms_norm_eps, cfg.sliding_window
@@ -2427,12 +2730,16 @@ def dense_window_logits(weights, cfg, ids, rows, dt, q_block: int = 1024):
     cos, sin = rope_tables(pos, D, cfg.rope_theta)
 
     def mm(x, w):
+        if isinstance(w, dict):
+            return quantized_matmul_plain(x, unpack_int4(w["w4"]) if "w4" in w else w["w8"],
+                                          w["scale"])
         return x @ w.to(dt)
 
     def attend(q, k, v):
         out = torch.empty_like(q)
-        for a in range(0, T, q_block):
-            b = min(T, a + q_block)
+        n = q.shape[0]
+        for a in range(0, n, q_block):
+            b = min(n, a + q_block)
             lo = max(0, a - win + 1)
             kk, vv = (t[lo:b].repeat_interleave(H // Hkv, dim=1) for t in (k, v))
             s = torch.einsum("qhd,khd->hqk", q[a:b], kk).float() * D ** -0.5
@@ -2448,7 +2755,13 @@ def dense_window_logits(weights, cfg, ids, rows, dt, q_block: int = 1024):
         q = apply_rope(mm(h, w["wq"]).view(T, H, D), cos, sin)
         k = apply_rope(mm(h, w["wk"]).view(T, Hkv, D), cos, sin)
         v = mm(h, w["wv"]).view(T, Hkv, D)
-        x = x + mm(attend(q, k, v).reshape(T, H * D), w["wo"])
+        if kv_pool:
+            o = attend(q, kv_write_dequant(k).to(dt), kv_write_dequant(v).to(dt))
+            if n_full:
+                o[:n_full] = attend(q[:n_full], k[:n_full], v[:n_full])
+        else:
+            o = attend(q, k, v)
+        x = x + mm(o.reshape(T, H * D), w["wo"])
         h = rms_norm(x, w["ln2"], eps, dt)
         x = x + mm(F.silu(mm(h, w["w_gate"])) * mm(h, w["w_up"]), w["w_down"])
     x = rms_norm(x[rows], W["final_norm"], eps, dt)
@@ -2462,7 +2775,6 @@ def run_mistral():
     main path's launch counts of the windowed kernels."""
     import torch
     from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
-    from deepspeed_tpu_torch.inference.v2.ragged.ragged_batch import to_device
     from deepspeed_tpu_torch.inference.v2.ragged_model import multistep_schedule
     from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     from deepspeed_tpu_torch.ops.kernels import LAUNCHES, reset_launches
@@ -2510,98 +2822,12 @@ def run_mistral():
 
     prompts = [rng.randint(0, V, n).astype(np.int32) for n in W_PROMPTS]
     uids = [10, 11, 12, 13]
-
-    # ---- the main path ---- #
-    reset_launches()
-    engine.attn_stats.reset()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    outs = engine.generate(prompts, max_new_tokens=32)
-    torch.cuda.synchronize()
-    t_gen = time.perf_counter() - t0
-    gen_rungs = dict(engine.attn_stats.rungs)
-    for p, o in zip(prompts, outs):
-        if len(o) != len(p) + 32 or list(o[:len(p)]) != list(p) \
-                or not all(0 <= t < V for t in o):
-            raise AssertionError("generate() returned a malformed stream")
-    if engine.free_blocks != nb:
-        raise AssertionError(f"free blocks {engine.free_blocks} != {nb} after generate()")
-    t0 = time.perf_counter()
-    got = [engine.put(uids, prompts)]                       # prefill logits
-    torch.cuda.synchronize()
-    t_prefill = time.perf_counter() - t0
-    pipe = engine.decode_pipeline(uids)
-    toks = []
-    for rung in engine.attn_split_ladder:                   # one step at each rung
-        engine.attn_rung_override = rung
-        toks.append(pipe.run(1)[:, 0])
-        engine._materialize(uids)
-        got.append(np.stack([engine._last_logits[u] for u in uids]))
-    # decode rows and a new 180-token prompt in one pass, at rung 1: the
-    # windowed chunk and decode kernels (rungs above 1 take the split paths)
-    engine.attn_rung_override = 1
-    nxt = np.argmax(got[-1], axis=-1).astype(np.int32)
-    lg = engine.put(uids + [14], [nxt[i:i + 1] for i in range(4)]
-                    + [rng.randint(0, V, 180).astype(np.int32)])
-    engine.attn_rung_override = None
-    torch.cuda.synchronize()
-    launches = {k: LAUNCHES.get(k, 0) for k in W_KERNELS}
-    rungs = dict(engine.attn_stats.rungs)
-    toks.append(nxt)
-    got.append(lg[:4])
-    print("main-path launches " + json.dumps(launches), flush=True)
-    print("attn_stats rungs " + json.dumps({"generate": gen_rungs, "main_path": rungs}),
-          flush=True)
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
-    unserved = [r for r in engine.attn_split_ladder if not rungs.get(r)]
-    if unserved:
-        raise AssertionError(f"rungs that served no step: {unserved}")
-    if lg.shape != (5, V) or not np.isfinite(lg).all():
-        raise AssertionError("put() logits malformed")
-
-    # ---- logits against the dense fp32 forward with the window ---- #
-    e_eng, e_dense, m_eng, m_dense = [], [], 0.0, 0.0
-    for i, p in enumerate(prompts):
-        seq = torch.from_numpy(np.concatenate([p] + [t[i:i + 1] for t in toks])).long().cuda()
-        rows = torch.arange(len(p) - 1, len(p) + len(toks), device="cuda")
-        ref32 = dense_window_logits(engine.weights, cfg, seq, rows, torch.float32)
-        ref16 = dense_window_logits(engine.weights, cfg, seq, rows, torch.bfloat16)
-        eng = torch.from_numpy(np.stack([g_[i] for g_ in got])).cuda()
-        if not torch.isfinite(eng).all():
-            raise AssertionError("engine logits are not finite")
-        d_eng, d_dense = eng - ref32, ref16 - ref32
-        e_eng.append(float(d_eng.pow(2).mean()))
-        e_dense.append(float(d_dense.pow(2).mean()))
-        m_eng = max(m_eng, float(d_eng.abs().max()))
-        m_dense = max(m_dense, float(d_dense.abs().max()))
-        del ref32, ref16
-    rms_eng, rms_dense = float(np.sqrt(np.mean(e_eng))), float(np.sqrt(np.mean(e_dense)))
-    limit = 2 * rms_dense
-    print(f"logits vs dense fp32 with the window (prefill + {len(toks)} decode steps x 4 "
-          f"prompts): engine bf16 rms {rms_eng:.5f} max {m_eng:.4f}; dense bf16 rms "
-          f"{rms_dense:.5f} max {m_dense:.4f}; limit rms <= {limit:.5f}", flush=True)
-    if not rms_eng <= limit:
-        raise AssertionError(f"engine logits error {rms_eng} > 2 x dense bf16 {rms_dense}")
-
-    # ---- rung invariance on one live step ---- #
-    db = sched.decode_batch(uids, 2, engine.scratch_block)
-    ids = engine._sample_device_padded(uids, False, 1.0, 0)
-    bt = to_device(db.block_tables, engine.device)
-    pos = to_device(db.positions, engine.device)
-    step = {}
-    for rung in reversed(engine.attn_split_ladder):         # each writes the same token
-        _, lg_r = engine._step_rungs[rung](engine.weights, engine.kv.kv, ids, pos, bt, pos + 1)
-        step[rung] = lg_r[:4].float()
-    diffs = {r: float((step[r] - step[1]).pow(2).mean().sqrt()) for r in step}
-    agree = {r: float((step[r].argmax(-1) == step[1].argmax(-1)).float().mean())
-             for r in step}
-    print("rung invariance " + json.dumps({"rms_vs_rung1": diffs, "limit": limit,
-                                           "greedy_agreement_vs_rung1": agree}), flush=True)
-    bad = {r: d for r, d in diffs.items() if not d <= limit}
-    if bad:
-        raise AssertionError(f"rungs {bad} differ from rung 1 by more than {limit}")
+    launches, _, got, toks, _, t_gen, t_prefill, pipe = serve_main_path(
+        engine, prompts, uids, W_KERNELS, rng)
+    limit = logits_check("with the window", prompts, got, toks,
+                         lambda i, seq, rows, dt: dense_window_logits(engine.weights, cfg, seq,
+                                                                      rows, dt))
+    rung_invariance(engine, uids, limit)
 
     # ---- decode rate, then the ring at 12032 tokens ---- #
     torch.cuda.synchronize()
@@ -2679,7 +2905,6 @@ def run_bloom():
     counts of the ALiBi kernels."""
     import torch
     from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
-    from deepspeed_tpu_torch.inference.v2.ragged.ragged_batch import to_device
     from deepspeed_tpu_torch.models.decoder import DecoderConfig, DecoderLM
     from deepspeed_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
@@ -2713,101 +2938,14 @@ def run_bloom():
     V = cfg.vocab_size
     prompts = [rng.randint(0, V, n).astype(np.int32) for n in A_PROMPTS]
     uids = [10, 11, 12, 13]
-
-    # ---- the main path ---- #
-    reset_launches()
-    engine.attn_stats.reset()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    outs = engine.generate(prompts, max_new_tokens=32)
-    torch.cuda.synchronize()
-    t_gen = time.perf_counter() - t0
-    gen_rungs = dict(engine.attn_stats.rungs)
-    for p, o in zip(prompts, outs):
-        if len(o) != len(p) + 32 or list(o[:len(p)]) != list(p) \
-                or not all(0 <= t < V for t in o):
-            raise AssertionError("generate() returned a malformed stream")
-    if engine.free_blocks != nb:
-        raise AssertionError(f"free blocks {engine.free_blocks} != {nb} after generate()")
-    t0 = time.perf_counter()
-    got = [engine.put(uids, prompts)]                       # prefill logits
-    torch.cuda.synchronize()
-    t_prefill = time.perf_counter() - t0
-    pipe = engine.decode_pipeline(uids)
-    toks = []
-    for rung in engine.attn_split_ladder:                   # one step at each rung
-        engine.attn_rung_override = rung
-        toks.append(pipe.run(1)[:, 0])
-        engine._materialize(uids)
-        got.append(np.stack([engine._last_logits[u] for u in uids]))
-    # decode rows and a new 180-token prompt in one pass, at rung 1
-    engine.attn_rung_override = 1
-    nxt = np.argmax(got[-1], axis=-1).astype(np.int32)
-    lg = engine.put(uids + [14], [nxt[i:i + 1] for i in range(4)]
-                    + [rng.randint(0, V, 180).astype(np.int32)])
-    engine.attn_rung_override = None
-    torch.cuda.synchronize()
-    launches = {k: LAUNCHES.get(k, 0) for k in A_KERNELS}
-    packed = {k: LAUNCHES.get(k, 0) for k in ("flash_packed", "flash_packed_window")}
-    rungs = dict(engine.attn_stats.rungs)
-    toks.append(nxt)
-    got.append(lg[:4])
-    print("main-path launches " + json.dumps({**launches, **packed}), flush=True)
-    print("attn_stats rungs " + json.dumps({"generate": gen_rungs, "main_path": rungs}),
-          flush=True)
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    launches, packed, got, toks, _, t_gen, t_prefill, pipe = serve_main_path(
+        engine, prompts, uids, A_KERNELS, rng)
     if any(packed.values()):
         raise AssertionError(f"the packed prefill kernel ran for an ALiBi model: {packed}")
-    unserved = [r for r in engine.attn_split_ladder if not rungs.get(r)]
-    if unserved:
-        raise AssertionError(f"rungs that served no step: {unserved}")
-    if lg.shape != (5, V) or not np.isfinite(lg).all():
-        raise AssertionError("put() logits malformed")
-
-    # ---- logits against the dense fp32 forward with alibi_bias ---- #
-    e_eng, e_dense, m_eng, m_dense = [], [], 0.0, 0.0
-    for i, p in enumerate(prompts):
-        seq = torch.from_numpy(np.concatenate([p] + [t[i:i + 1] for t in toks])).long()
-        rows = torch.arange(len(p) - 1, len(p) + len(toks), device="cuda")
-        ids = seq.cuda()[None]
-        ref32 = model.head(model.hidden(ids, compute_dtype=torch.float32)[0, rows])
-        ref16 = model.head(model.hidden(ids, compute_dtype=torch.bfloat16)[0, rows])
-        eng = torch.from_numpy(np.stack([g_[i] for g_ in got])).cuda()
-        if not torch.isfinite(eng).all():
-            raise AssertionError("engine logits are not finite")
-        d_eng, d_dense = eng - ref32, ref16 - ref32
-        e_eng.append(float(d_eng.pow(2).mean()))
-        e_dense.append(float(d_dense.pow(2).mean()))
-        m_eng = max(m_eng, float(d_eng.abs().max()))
-        m_dense = max(m_dense, float(d_dense.abs().max()))
-        del ref32, ref16
-    rms_eng, rms_dense = float(np.sqrt(np.mean(e_eng))), float(np.sqrt(np.mean(e_dense)))
-    limit = 2 * rms_dense
-    print(f"logits vs dense fp32 with alibi_bias (prefill + {len(toks)} decode steps x 4 "
-          f"prompts): engine bf16 rms {rms_eng:.5f} max {m_eng:.4f}; dense bf16 rms "
-          f"{rms_dense:.5f} max {m_dense:.4f}; limit rms <= {limit:.5f}", flush=True)
-    if not rms_eng <= limit:
-        raise AssertionError(f"engine logits error {rms_eng} > 2 x dense bf16 {rms_dense}")
-
-    # ---- rung invariance on one live step ---- #
-    db = engine.scheduler.decode_batch(uids, 2, engine.scratch_block)
-    ids = engine._sample_device_padded(uids, False, 1.0, 0)
-    bt = to_device(db.block_tables, engine.device)
-    pos = to_device(db.positions, engine.device)
-    step = {}
-    for rung in reversed(engine.attn_split_ladder):         # each writes the same token
-        _, lg_r = engine._step_rungs[rung](engine.weights, engine.kv.kv, ids, pos, bt, pos + 1)
-        step[rung] = lg_r[:4].float()
-    diffs = {r: float((step[r] - step[1]).pow(2).mean().sqrt()) for r in step}
-    agree = {r: float((step[r].argmax(-1) == step[1].argmax(-1)).float().mean())
-             for r in step}
-    print("rung invariance " + json.dumps({"rms_vs_rung1": diffs, "limit": limit,
-                                           "greedy_agreement_vs_rung1": agree}), flush=True)
-    bad = {r: d for r, d in diffs.items() if not d <= limit}
-    if bad:
-        raise AssertionError(f"rungs {bad} differ from rung 1 by more than {limit}")
+    limit = logits_check("with alibi_bias", prompts, got, toks,
+                         lambda i, seq, rows, dt: model.head(
+                             model.hidden(seq[None], compute_dtype=dt)[0, rows]))
+    rung_invariance(engine, uids, limit)
 
     # ---- decode rate and where the time goes ---- #
     torch.cuda.synchronize()
@@ -2844,6 +2982,341 @@ def run_bloom():
                      A_NAMES)
     engine.flush([20])
     print(f"phase 10: peak device memory {gib(torch.cuda.max_memory_allocated()):.2f} GiB; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# phases 11 and 12: memory-lean serving under a window (Mistral-7B, int4
+# weights + int8 pages) and under ALiBi (BLOOM-7b1, int8 pages)
+# --------------------------------------------------------------------------- #
+
+def serve_main_path(engine, prompts, uids, names, rng):
+    """``generate()`` (32 new tokens each), then ``put()`` of the prompts
+    (noting each sequence's prefill-from-zero rows, which attend each other
+    at full precision), one pipelined step at each rung of the ladder, and
+    a ``put()`` mixing the decode rows with a 180-token prompt at rung 1
+    (the chunk and decode kernels; rungs above 1 take the split paths).
+    Fails on a malformed stream, a kernel of ``names`` never launched or a
+    rung that served no step. Returns (launches, engine logits per step,
+    tokens per step, prefill-from-zero rows per uid, generate s, prefill s,
+    the pipeline)."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    V = engine.spec.vocab_size
+    nb = engine.free_blocks
+    reset_launches()
+    engine.attn_stats.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_new_tokens=32)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    gen_rungs = dict(engine.attn_stats.rungs)
+    for p, o in zip(prompts, outs):
+        if len(o) != len(p) + 32 or list(o[:len(p)]) != list(p) \
+                or not all(0 <= t < V for t in o):
+            raise AssertionError("generate() returned a malformed stream")
+    if engine.free_blocks != nb:
+        raise AssertionError(f"free blocks {engine.free_blocks} != {nb} after generate()")
+    n_full = {}
+    complete = engine.scheduler.complete_pass
+
+    def noting(batch):
+        if batch.pure_prefill:
+            for u in batch.chunk_uids:
+                n_full.setdefault(u, engine.scheduler.seqs[u].in_flight_tokens)
+        return complete(batch)
+
+    engine.scheduler.complete_pass = noting
+    t0 = time.perf_counter()
+    got = [engine.put(uids, prompts)]                       # prefill logits
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    engine.scheduler.complete_pass = complete
+    pipe = engine.decode_pipeline(uids)
+    toks = []
+    for rung in engine.attn_split_ladder:                   # one step at each rung
+        engine.attn_rung_override = rung
+        toks.append(pipe.run(1)[:, 0])
+        engine._materialize(uids)
+        got.append(np.stack([engine._last_logits[u] for u in uids]))
+    engine.attn_rung_override = 1
+    nxt = np.argmax(got[-1], axis=-1).astype(np.int32)
+    lg = engine.put(uids + [14], [nxt[i:i + 1] for i in range(len(uids))]
+                    + [rng.randint(0, V, 180).astype(np.int32)])
+    engine.attn_rung_override = None
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES.get(k, 0) for k in names}
+    packed = {k: LAUNCHES.get(k, 0) for k in ("flash_packed", "flash_packed_window")}
+    rungs = dict(engine.attn_stats.rungs)
+    toks.append(nxt)
+    got.append(lg[:len(uids)])
+    print("main-path launches " + json.dumps({**launches, **packed}), flush=True)
+    print("attn_stats rungs " + json.dumps({"generate": gen_rungs, "main_path": rungs}),
+          flush=True)
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    unserved = [r for r in engine.attn_split_ladder if not rungs.get(r)]
+    if unserved:
+        raise AssertionError(f"rungs that served no step: {unserved}")
+    if lg.shape != (len(uids) + 1, V) or not np.isfinite(lg).all():
+        raise AssertionError("put() logits malformed")
+    return launches, packed, got, toks, n_full, t_gen, t_prefill, pipe
+
+
+def logits_check(label, prompts, got, toks, dense):
+    """The engine's logits at prefill and each decode step against
+    ``dense(i, seq, rows, dt)`` in fp32: RMS within 2x the same forward's
+    in bf16 (phase 6's rule). Returns the limit."""
+    import torch
+    e_eng, e_dense, m_eng, m_dense = [], [], 0.0, 0.0
+    for i, p in enumerate(prompts):
+        seq = torch.from_numpy(np.concatenate([p] + [t[i:i + 1] for t in toks])).long().cuda()
+        rows = torch.arange(len(p) - 1, len(p) + len(toks), device="cuda")
+        ref32 = dense(i, seq, rows, torch.float32)
+        ref16 = dense(i, seq, rows, torch.bfloat16)
+        eng = torch.from_numpy(np.stack([g_[i] for g_ in got])).cuda()
+        if not torch.isfinite(eng).all():
+            raise AssertionError("engine logits are not finite")
+        d_eng, d_dense = eng - ref32, ref16 - ref32
+        e_eng.append(float(d_eng.pow(2).mean()))
+        e_dense.append(float(d_dense.pow(2).mean()))
+        m_eng = max(m_eng, float(d_eng.abs().max()))
+        m_dense = max(m_dense, float(d_dense.abs().max()))
+        del ref32, ref16
+    rms_eng, rms_dense = float(np.sqrt(np.mean(e_eng))), float(np.sqrt(np.mean(e_dense)))
+    limit = 2 * rms_dense
+    print(f"logits vs dense fp32 {label} (prefill + {len(toks)} decode steps x "
+          f"{len(prompts)} prompts): engine rms {rms_eng:.5f} max {m_eng:.4f}; dense bf16 "
+          f"rms {rms_dense:.5f} max {m_dense:.4f}; limit rms <= {limit:.5f}", flush=True)
+    if not rms_eng <= limit:
+        raise AssertionError(f"engine logits error {rms_eng} > 2 x dense bf16 {rms_dense}")
+    return limit
+
+
+def rung_invariance(engine, uids, limit):
+    """One live decode step at every rung (rung 1 writes last) against rung
+    1: RMS within ``limit``."""
+    from deepspeed_tpu_torch.inference.v2.ragged.ragged_batch import to_device
+    db = engine.scheduler.decode_batch(uids, 2, engine.scratch_block)
+    ids = engine._sample_device_padded(uids, False, 1.0, 0)
+    bt = to_device(db.block_tables, engine.device)
+    pos = to_device(db.positions, engine.device)
+    step = {}
+    for rung in reversed(engine.attn_split_ladder):
+        _, lg_r = engine._step_rungs[rung](engine.weights, engine.kv.kv, ids, pos, bt,
+                                           pos + 1, kv_scales=engine.kv.scales)
+        step[rung] = lg_r[:len(uids)].float()
+    diffs = {r: float((step[r] - step[1]).pow(2).mean().sqrt()) for r in step}
+    agree = {r: float((step[r].argmax(-1) == step[1].argmax(-1)).float().mean())
+             for r in step}
+    print("rung invariance " + json.dumps({"rms_vs_rung1": diffs, "limit": limit,
+                                           "greedy_agreement_vs_rung1": agree}), flush=True)
+    bad = {r: d for r, d in diffs.items() if not d <= limit}
+    if bad:
+        raise AssertionError(f"rungs {bad} differ from rung 1 by more than {limit}")
+
+
+def lean_rates_and_bursts(label, engine, uids, prompts, t_gen, t_prefill, names, side_names,
+                          burst_rungs, n_decode=24):
+    """Decode rate on the pipeline, a device profile of one step, and
+    greedy bursts at ``burst_rungs`` whose side kernels ``side_names`` must
+    launch. Returns their launch counts."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    pipe = engine.decode_pipeline(uids)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.run(n_decode)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    n_prompt = sum(len(p) for p in prompts)
+    rows = len(uids)
+    print(f"{label}: generate() {rows} prompts x 32 tokens in {t_gen:.2f} s; prefill "
+          f"{n_prompt} tokens in {t_prefill * 1e3:.1f} ms = {n_prompt / t_prefill:.1f} tok/s; "
+          f"decode {rows} x {n_decode} tokens at rung {engine._attn_rung()} in "
+          f"{t_decode * 1e3:.1f} ms = {rows * n_decode / t_decode:.1f} tok/s "
+          f"({t_decode / n_decode * 1e3:.2f} ms/step); {smi_line()}", flush=True)
+    live = max(s.seen_tokens for s in engine.scheduler.seqs.values())
+    prof = device_breakdown(f"{label} decode step ({rows} seqs, ctx <= {live + 1}, rung "
+                            f"{engine._attn_rung()})", lambda: pipe.run(1), names)
+    reset_launches()
+    pipe_step = {"wall_ms": t_decode / n_decode * 1e3, "device_ms": prof["device_ms"]}
+    for rung in burst_rungs:
+        engine.attn_rung_override = rung
+        burst_line(f"{label} burst rung {rung}", engine, uids, BURST, pipe_step, names,
+                   profiled_steps=BURST_PROFILED)
+    engine.attn_rung_override = None
+    torch.cuda.synchronize()
+    side = {k: LAUNCHES.get(k, 0) for k in side_names}
+    print("burst launches " + json.dumps(side), flush=True)
+    if not all(side.values()):
+        raise AssertionError(f"{label}: side kernels never launched by the bursts: {side}")
+    return side
+
+
+M8_KERNELS = ("flash_packed_window", "paged_chunk_int8_window", "paged_decode_int8_window",
+              "paged_splitk_int8_window/2", "paged_splitk_int8_window/4", "splitk_merge",
+              "quantized_matmul_gemv", "quantized_matmul_mma")
+M8_SIDE_KERNELS = ("paged_splitk_int8_side_window/4", "paged_decode_int8_side_window")
+M8_NAMES = W_NAMES + ("qmm_gemv", "qmm_mma")
+ENGINE_MISTRAL_LEAN = {**ENGINE_MISTRAL, "kv_quant": {"enabled": True},
+                       "quantization": {"weight_bits": 4}}
+
+
+def run_mistral_lean():
+    """Phase 11: Mistral-7B at full width and depth (phase 9's engine) with
+    packed int4 weights (quantized by the engine from random bf16 weights of
+    seed 0) and int8 KV pages through the page ring. Returns the main
+    path's launch counts."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gib = lambda b: b / 2 ** 30
+    cfg = LlamaConfig.mistral_7b(dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    engine = InferenceEngineV2(model, ENGINE_MISTRAL_LEAN, model.flat_params())
+    del model                     # the caller's bf16 tree: the engine keeps int4
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sched = engine.scheduler
+    nb = ENGINE_MISTRAL_LEAN["kv_cache"]["num_blocks"]
+    w4 = engine.weights["layers"][0]["w_up"]
+    print(f"model: Mistral-7B (LlamaConfig.mistral_7b, {cfg.num_hidden_layers} layers, "
+          f"{cfg.num_attention_heads}/{cfg.num_key_value_heads} heads, window "
+          f"{cfg.sliding_window}), random bf16 weights (seed 0) packed to int4 by the engine "
+          f"(w_up {list(w4['w4'].shape)} {w4['w4'].dtype}); int8 KV pool of {nb} pages; "
+          f"ring {sched.ring_pages} pages; ladder {engine.attn_split_ladder}; build "
+          f"{time.perf_counter() - t0:.1f} s; memory after build "
+          f"{gib(torch.cuda.memory_allocated()):.2f} GiB, peak during build "
+          f"{gib(torch.cuda.max_memory_allocated()):.2f} GiB", flush=True)
+    if engine.spec.window != MISTRAL_WINDOW or sched.ring_pages != W_RING \
+            or engine.kv.kv.dtype != torch.int8 or set(w4) != {"w4", "scale"}:
+        raise AssertionError("phase 11's engine is not windowed int4 + int8 as configured")
+
+    rng = np.random.RandomState(11)
+    V = cfg.vocab_size
+    prompts = [rng.randint(0, V, n).astype(np.int32) for n in W_PROMPTS]
+    uids = [10, 11, 12, 13]
+    launches, _, got, toks, n_full, t_gen, t_prefill, _ = serve_main_path(
+        engine, prompts, uids, M8_KERNELS, rng)
+    print(f"prefill-from-zero rows per prompt: {[n_full.get(u, 0) for u in uids]}",
+          flush=True)
+    limit = logits_check(
+        "with the window over the int4 weights and int8 pool values", prompts, got, toks,
+        lambda i, seq, rows, dt: dense_window_logits(
+            engine.weights, cfg, seq, rows, dt, kv_pool=True, n_full=n_full.get(uids[i], 0)))
+    rung_invariance(engine, uids, limit)
+
+    # ---- the ring at 12032 tokens after 28 more steps, rates, bursts ---- #
+    side = lean_rates_and_bursts("Mistral-7B int4 + int8 KV", engine, uids, prompts, t_gen,
+                                 t_prefill, M8_NAMES, M8_SIDE_KERNELS, (4, 1), n_decode=28)
+    seq0 = sched.seqs[uids[0]]
+    ring = {"seen_tokens": seq0.seen_tokens, "logical_pages": len(seq0.blocks),
+            "physical_pages": len(set(seq0.blocks)), "ring_pages": sched.ring_pages}
+    print("page ring " + json.dumps(ring), flush=True)
+    if ring["physical_pages"] != W_RING or ring["logical_pages"] <= W_RING \
+            or seq0.seen_tokens < W_CTXS[0]:
+        raise AssertionError(f"page ring: {ring}")
+    launches.update(side)
+    engine.flush(uids + [14])
+    print(f"phase 11: peak device memory {gib(torch.cuda.max_memory_allocated()):.2f} GiB; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+B8_KERNELS = ("paged_chunk_int8_alibi", "paged_decode_int8_alibi",
+              "paged_splitk_int8_alibi/2", "paged_splitk_int8_alibi/4", "splitk_merge")
+B8_SIDE_KERNELS = ("paged_decode_int8_side_alibi", "paged_splitk_int8_side_alibi/2")
+ENGINE_BLOOM_7B1 = {**ENGINE_BLOOM, "kv_quant": {"enabled": True}}
+
+
+def bloom_pool_logits(model, ids, rows, dt):
+    """The port's dense ``DecoderLM`` forward (``alibi_bias``) with every
+    layer's K and V projections at the values an int8 page stores
+    (``kv_write_dequant``): what an ALiBi engine over an int8 pool computes,
+    whose every pass writes its rows before attending them. f32 logits at
+    ``rows``."""
+    from deepspeed_tpu_torch.models import decoder
+    from deepspeed_tpu_torch.ops.kernels.kv_quant import kv_write_dequant
+    kv_w = {id(layer.wk) for layer in model.layers} | {id(layer.wv) for layer in model.layers}
+    D = model.config.head_dim
+    proj = decoder._proj
+
+    def pooled(x, w, b, dt_):
+        y = proj(x, w, b, dt_)
+        if id(w) not in kv_w:
+            return y
+        return kv_write_dequant(y.unflatten(-1, (-1, D))).flatten(-2).to(dt_)
+
+    decoder._proj = pooled
+    try:
+        return model.head(model.hidden(ids[None], compute_dtype=dt)[0, rows])
+    finally:
+        decoder._proj = proj
+
+
+def run_bloom_7b1():
+    """Phase 12: BLOOM-7b1 at full width and depth (30 layers, hidden 4096,
+    32 heads, D = 128, FFN 16384, vocab 250880, tied head, ALiBi), random
+    bf16 weights from seed 0, served with int8 KV pages through the paged
+    pass and the split ladder up to 4. Returns the main path's launch
+    counts."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models.decoder import DecoderConfig, DecoderLM
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gib = lambda b: b / 2 ** 30
+    cfg = DecoderConfig.bloom_560m(hidden_size=4096, intermediate_size=16384,
+                                   num_hidden_layers=30, num_attention_heads=32,
+                                   dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, device="cuda", seed=0)
+    engine = InferenceEngineV2(model, ENGINE_BLOOM_7B1, model.flat_params())
+    spec = engine.spec
+    torch.cuda.synchronize()
+    nb = ENGINE_BLOOM_7B1["kv_cache"]["num_blocks"]
+    print(f"model: BLOOM-7b1 (DecoderConfig.bloom_560m(hidden_size={cfg.hidden_size}, "
+          f"intermediate_size={cfg.intermediate_size}, num_hidden_layers="
+          f"{cfg.num_hidden_layers}, num_attention_heads={cfg.num_attention_heads}): vocab "
+          f"{cfg.vocab_size}, head_dim {cfg.head_dim}, alibi, embed_norm, tied head), random "
+          f"bf16 weights (seed 0); int8 KV pool of {nb} pages; ladder "
+          f"{engine.attn_split_ladder}; build {time.perf_counter() - t0:.1f} s, memory "
+          f"{gib(torch.cuda.memory_allocated()):.2f} GiB", flush=True)
+    if not (spec.alibi and spec.head_dim == 128) or engine._pass_prefill is not None \
+            or engine.kv.kv.dtype != torch.int8:
+        raise AssertionError(f"BLOOM-7b1 spec {spec}: expected ALiBi at D = 128 over an "
+                             "int8 pool and no packed prefill pass")
+
+    rng = np.random.RandomState(12)
+    V = cfg.vocab_size
+    prompts = [rng.randint(0, V, n).astype(np.int32) for n in A_PROMPTS]
+    uids = [10, 11, 12, 13]
+    launches, packed, got, toks, _, t_gen, t_prefill, _ = serve_main_path(
+        engine, prompts, uids, B8_KERNELS, rng)
+    if any(packed.values()):
+        raise AssertionError(f"the packed prefill kernel ran for an ALiBi model: {packed}")
+    limit = logits_check("with alibi_bias over the int8 pool values", prompts, got, toks,
+                              lambda i, seq, rows, dt: bloom_pool_logits(model, seq, rows, dt))
+    rung_invariance(engine, uids, limit)
+    launches.update(lean_rates_and_bursts("BLOOM-7b1 int8 KV", engine, uids, prompts, t_gen,
+                                          t_prefill, A_NAMES, B8_SIDE_KERNELS, (1, 2)))
+    engine.flush(uids + [14])
+    print(f"phase 12: peak device memory {gib(torch.cuda.max_memory_allocated()):.2f} GiB; "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
 
@@ -2912,10 +3385,7 @@ def main() -> int:
     launches.update({k: v for k, v in run_training().items() if k in K1_NAMES})
     print(f"phase 5: {time.perf_counter() - t_phase:.1f} s", flush=True)
     torch.cuda.empty_cache()
-    q_launches = run_13b()
-    for k in B_KERNELS_7B[1:]:       # K7's side piece ran at rungs 2 and 4 in both phases
-        q_launches[k] += launches[k]
-    launches.update(q_launches)
+    launches.update(run_13b())
     torch.cuda.empty_cache()
     launches.update(run_sparse(rows))
     torch.cuda.empty_cache()
@@ -2926,6 +3396,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     # likewise phase 10
     launches.update({k: v for k, v in run_bloom().items() if k != "splitk_merge"})
+    torch.cuda.empty_cache()
+    # phases 11 and 12: the K2 and K8 rows keep phases 9's and 6's counts
+    shared = ("splitk_merge", "flash_packed_window", "quantized_matmul_gemv",
+              "quantized_matmul_mma")
+    launches.update({k: v for k, v in run_mistral_lean().items() if k not in shared})
+    torch.cuda.empty_cache()
+    launches.update({k: v for k, v in run_bloom_7b1().items() if k not in shared})
     # modules by full name: the package re-exports same-named functions
     from deepspeed_tpu_torch.ops.kernels import paged_chunk, paged_decode, paged_splitk
     from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import KERNELS as K9_KERNELS
@@ -2941,7 +3418,8 @@ def main() -> int:
         qmm.GEMV: (qmm.SOURCE, qmm.REPLACES), qmm.MMA: (qmm.SOURCE, qmm.REPLACES),
         paged_decode.NAME_INT8: (paged_decode.SOURCE, paged_decode.REPLACES_INT8),
         paged_chunk.NAME_INT8: (paged_chunk.SOURCE, paged_chunk.REPLACES_INT8),
-        **{paged_splitk.kernel_name(n): (paged_splitk.SOURCE, paged_splitk.REPLACES)
+        **{paged_splitk.kernel_name(n, quant=True): (paged_splitk.SOURCE,
+                                                     paged_splitk.REPLACES)
            for n in (2, 4, 8)},
         paged_splitk.MERGE: (paged_splitk.SOURCE, paged_splitk.REPLACES_MERGE)})
     fp = sys.modules["deepspeed_tpu_torch.ops.kernels.flash_packed"]
@@ -2967,11 +3445,34 @@ def main() -> int:
             paged_decode.SOURCE, paged_decode.REPLACES_ALIBI),
         **{paged_splitk.kernel_name(n, side=True): (paged_splitk.SOURCE,
                                                     paged_splitk.REPLACES_SIDE)
+           for n in (2, 4)},
+        **{paged_splitk.kernel_name(n, side=True, quant=True): (paged_splitk.SOURCE,
+                                                                paged_splitk.REPLACES_SIDE)
            for n in (2, 4, 8)},
         paged_splitk.kernel_name(4, MISTRAL_WINDOW, side=True): (
             paged_splitk.SOURCE, paged_splitk.REPLACES_WINDOW),
         paged_splitk.kernel_name(2, alibi=True, side=True): (
             paged_splitk.SOURCE, paged_splitk.REPLACES_ALIBI)})
+    # the int8 pool's window and ALiBi branches (phases 11 and 12)
+    sources.update({
+        paged_decode.launch_name(True, MISTRAL_WINDOW, False, 1): (
+            paged_decode.SOURCE, paged_decode.REPLACES_INT8_WINDOW),
+        paged_decode.launch_name(True, MISTRAL_WINDOW, False, SIDE_C): (
+            paged_decode.SOURCE, paged_decode.REPLACES_INT8_WINDOW),
+        paged_decode.launch_name(True, None, True, 1): (
+            paged_decode.SOURCE, paged_decode.REPLACES_INT8_ALIBI),
+        paged_decode.launch_name(True, None, True, SIDE_C): (
+            paged_decode.SOURCE, paged_decode.REPLACES_INT8_ALIBI),
+        "paged_chunk_int8_window": (paged_chunk.SOURCE, paged_chunk.REPLACES_INT8_WINDOW),
+        "paged_chunk_int8_alibi": (paged_chunk.SOURCE, paged_chunk.REPLACES_INT8_ALIBI),
+        **{paged_splitk.kernel_name(n, MISTRAL_WINDOW, quant=True): (
+            paged_splitk.SOURCE, paged_splitk.REPLACES_INT8_WINDOW) for n in (2, 4)},
+        paged_splitk.kernel_name(4, MISTRAL_WINDOW, side=True, quant=True): (
+            paged_splitk.SOURCE, paged_splitk.REPLACES_INT8_WINDOW),
+        **{paged_splitk.kernel_name(n, alibi=True, quant=True): (
+            paged_splitk.SOURCE, paged_splitk.REPLACES_INT8_ALIBI) for n in (2, 4)},
+        paged_splitk.kernel_name(2, alibi=True, side=True, quant=True): (
+            paged_splitk.SOURCE, paged_splitk.REPLACES_INT8_ALIBI)})
     sources.update(K9_KERNELS)
     sources.update(K10_KERNELS)
     table = []

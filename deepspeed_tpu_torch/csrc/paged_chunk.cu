@@ -41,7 +41,11 @@
 // :1528): the same loop over int8 pages and their f32 scale tiles
 // [NB, R8, 128] (flat index kv*Hkv*bs + h*bs + t per page). Each key's K
 // scale multiplies its score column and its V scale its p column
-// (_chunk_head_scale, :1422), in f32. Half the page bytes of bf16.
+// (_chunk_head_scale, :1422), in f32. Half the page bytes of bf16. The
+// window and ALiBi branches are the bf16 kernel's (:1466-1478, :1493-1498):
+// under a window the key walk starts at the q-block's first row's window
+// start, so pages wholly below it are not read and neither are their
+// scale-tile entries (kv_row reads a key's scales only with its row).
 #include "attn_common.cuh"
 
 namespace dstorch {
@@ -119,17 +123,28 @@ int launch_paged_chunk(const void* q, const void* kv, const void* sc, int r8,
   return (int)cudaGetLastError();
 }
 
+// ALIBI is a compile-time branch (flash_block's bias hook), picked here by
+// slopes != null for either page type
+template <int D, typename KV>
+int launch_paged_chunk_any(const void* q, const void* kv, const void* sc, int r8,
+                           const void* bt, const void* q_starts, const void* ctx_lens,
+                           const void* slopes, void* out, int NC, int Cs, int H, int Hkv,
+                           int bs, int MB, int window, float scale, cudaStream_t stream) {
+  if (slopes != nullptr)
+    return launch_paged_chunk<D, KV, true>(q, kv, sc, r8, bt, q_starts, ctx_lens, slopes,
+                                           out, NC, Cs, H, Hkv, bs, MB, window, scale,
+                                           stream);
+  return launch_paged_chunk<D, KV>(q, kv, sc, r8, bt, q_starts, ctx_lens, nullptr, out, NC,
+                                   Cs, H, Hkv, bs, MB, window, scale, stream);
+}
+
 template <int D>
 int launch_paged_chunk_bf16(const void* q, const void* kv, const void* bt,
                             const void* q_starts, const void* ctx_lens, const void* slopes,
                             void* out, int NC, int Cs, int H, int Hkv, int bs, int MB,
                             int window, float scale, cudaStream_t stream) {
-  if (slopes != nullptr)
-    return launch_paged_chunk<D, bf16, true>(q, kv, nullptr, 0, bt, q_starts, ctx_lens,
-                                             slopes, out, NC, Cs, H, Hkv, bs, MB, window,
-                                             scale, stream);
-  return launch_paged_chunk<D, bf16>(q, kv, nullptr, 0, bt, q_starts, ctx_lens, nullptr,
-                                     out, NC, Cs, H, Hkv, bs, MB, window, scale, stream);
+  return launch_paged_chunk_any<D, bf16>(q, kv, nullptr, 0, bt, q_starts, ctx_lens, slopes,
+                                         out, NC, Cs, H, Hkv, bs, MB, window, scale, stream);
 }
 
 }  // namespace dstorch
@@ -152,25 +167,25 @@ extern "C" int dstorch_paged_chunk_bf16(const void* q, const void* kv, const voi
 }
 
 // The same over int8 pages kv [NB, 2, Hkv, bs, D] with f32 scale tiles
-// sc [NB, R8, 128]. Head dims 128 and 256 (the kv_quant gate asks
-// D % 128 == 0); -1 for any other. No sliding window or ALiBi over int8
-// pages yet.
+// sc [NB, R8, 128], with the same slopes and window. Head dims 128 and 256
+// (the kv_quant gate asks D % 128 == 0); -1 for any other.
 extern "C" int dstorch_paged_chunk_int8(const void* q, const void* kv, const void* sc,
                                         const void* bt, const void* q_starts,
-                                        const void* ctx_lens, void* out, int NC, int Cs,
-                                        int H, int Hkv, int D, int bs, int MB, int r8,
-                                        float scale, void* stream) {
+                                        const void* ctx_lens, const void* slopes, void* out,
+                                        int NC, int Cs, int H, int Hkv, int D, int bs,
+                                        int MB, int r8, int window, float scale,
+                                        void* stream) {
   if (NC == 0 || Cs == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 128:
-      return dstorch::launch_paged_chunk<128, int8_t>(q, kv, sc, r8, bt, q_starts, ctx_lens,
-                                                      nullptr, out, NC, Cs, H, Hkv, bs, MB,
-                                                      0, scale, st);
+      return dstorch::launch_paged_chunk_any<128, int8_t>(q, kv, sc, r8, bt, q_starts,
+                                                          ctx_lens, slopes, out, NC, Cs, H,
+                                                          Hkv, bs, MB, window, scale, st);
     case 256:
-      return dstorch::launch_paged_chunk<256, int8_t>(q, kv, sc, r8, bt, q_starts, ctx_lens,
-                                                      nullptr, out, NC, Cs, H, Hkv, bs, MB,
-                                                      0, scale, st);
+      return dstorch::launch_paged_chunk_any<256, int8_t>(q, kv, sc, r8, bt, q_starts,
+                                                          ctx_lens, slopes, out, NC, Cs, H,
+                                                          Hkv, bs, MB, window, scale, st);
     default:
       return -1;
   }

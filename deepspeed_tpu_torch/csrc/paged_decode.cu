@@ -47,7 +47,9 @@
 // _sidebuf_batched_kernel_quant :792): the same kernel over int8 pages with
 // f32 scale tiles, each token's scales folded into its score and p; the
 // side rows are then f32 (kv_write_dequant values). Half the page bytes of
-// bf16, so half the bound.
+// bf16, so half the bound. The window and ALiBi branches are the same
+// runtime arguments as over bf16 pages (the int8 bodies take window= and
+// alibi= in the Pallas kernels too, e.g. :1134-1140).
 #include "decode_common.cuh"
 
 namespace dstorch {
@@ -160,18 +162,21 @@ extern "C" int dstorch_paged_decode_bf16(const void* q, const void* kv, const vo
 }
 
 // The same over int8 pages kv with f32 scale tiles sc [NB, R8, 128]; the
-// side rows are f32. D must be 128 or 256. No sliding window or ALiBi over
-// int8 pages yet.
+// side rows are f32. D must be 128 or 256. slopes and window as for bf16
+// pages: the window sets t_lo/c_lo (page tokens and side rows below the
+// first visible one, and their scale-tile entries, are not read), and the
+// ALiBi term is added after the softmax scale and the token's K scale.
 extern "C" int dstorch_paged_decode_int8(const void* q, const void* kv, const void* sc,
                                          const void* bt, const void* lens,
-                                         const void* side_k, const void* side_v, void* out,
-                                         int S, int H, int Hkv, int D, int bs, int MB,
-                                         int r8, int C, int j, float scale, void* stream) {
+                                         const void* side_k, const void* side_v,
+                                         const void* slopes, void* out, int S, int H,
+                                         int Hkv, int D, int bs, int MB, int r8, int C,
+                                         int j, int window, float scale, void* stream) {
   if (S == 0) return 0;
   if ((D != 128 && D != 256) || H % Hkv != 0) return -1;
-  dstorch::DecodeLaunch a{q, bt, lens, side_k, side_v, nullptr, out,
+  dstorch::DecodeLaunch a{q, bt, lens, side_k, side_v, slopes, out,
                           {kv, static_cast<const float*>(sc), r8, nullptr, Hkv, bs, D},
-                          S, MB, C, j, 0, scale};
+                          S, MB, C, j, window, scale};
   return dstorch::dispatch_group<int8_t, float>(H / Hkv, a,
                                                 static_cast<cudaStream_t>(stream));
 }

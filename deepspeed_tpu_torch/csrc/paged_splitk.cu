@@ -194,20 +194,23 @@ extern "C" int dstorch_paged_splitk_bf16(const void* q, const void* kv, const vo
 }
 
 // The same over int8 pages with f32 scale tiles sc [NB, R8, 128]; side rows
-// are f32. No sliding window or ALiBi over int8 pages yet.
+// are f32. slopes and window as for bf16 pages: under a window a split
+// wholly below the first visible token reads no page and no scale and
+// writes the empty partial, which the merge weighs 0.
 extern "C" int dstorch_paged_splitk_int8(const void* q, const void* kv, const void* sc,
                                          const void* bt, const void* lens,
                                          const void* side_k, const void* side_v,
-                                         void* out_p, void* lse_p, int S, int H, int Hkv,
-                                         int D, int bs, int MB, int r8, int C, int j,
-                                         int n_splits, int split_tokens, float scale,
+                                         const void* slopes, void* out_p, void* lse_p,
+                                         int S, int H, int Hkv, int D, int bs, int MB,
+                                         int r8, int C, int j, int n_splits,
+                                         int split_tokens, int window, float scale,
                                          void* stream) {
   if (S == 0) return 0;
   if ((D != 128 && D != 256) || H % Hkv != 0 || n_splits < 1) return -1;
-  dstorch::SplitLaunch a{q, bt, lens, side_k, side_v, nullptr,
+  dstorch::SplitLaunch a{q, bt, lens, side_k, side_v, slopes,
                          static_cast<float*>(out_p), static_cast<float*>(lse_p),
                          {kv, static_cast<const float*>(sc), r8, nullptr, Hkv, bs, D},
-                         S, MB, C, j, n_splits, split_tokens, 0, scale};
+                         S, MB, C, j, n_splits, split_tokens, window, scale};
   return dstorch::dispatch_splitk<int8_t, float>(H / Hkv, a,
                                                  static_cast<cudaStream_t>(stream));
 }

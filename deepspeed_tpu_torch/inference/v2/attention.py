@@ -8,7 +8,7 @@
   - ``decode`` -> the paged decode kernel with pages only;
   - ``sidebuf`` / ``decode_step`` -> the same decode kernel with side rows.
 
-Three things key the kernel at the call or at construction:
+Four things key the kernel at the call or at construction:
 
   - the pool: every paged method takes ``kv_scales`` (None for a bf16/f32
     pool; the scale tiles ``[NB, R8, 128]`` of an int8 pool, which routes to
@@ -18,9 +18,11 @@ Three things key the kernel at the call or at construction:
     ``ops/kernels/paged_splitk``) and chunk attention its split path;
   - the model's sliding window ``spec.window`` (bound once, as in the JAX
     package): every kernel masks keys more than ``window - 1`` positions
-    behind its query and skips the pages below the window start;
+    behind its query and skips the pages below the window start, over
+    bf16 and int8 pools alike;
   - the model's ALiBi flag ``spec.alibi`` (bound once, as in the JAX
-    package): every paged kernel adds ``slope[h] * k_pos`` to its scores.
+    package): every paged kernel adds ``slope[h] * k_pos`` to its scores,
+    over either pool.
     The packed prefill kernel has no position bias, so an ALiBi model never
     calls :meth:`packed`.
 
@@ -31,8 +33,9 @@ it the ``kv_write_dequant`` rows (f32), whose re-quantization stores the
 same page bytes.
 
 :meth:`AttentionKernelSpec.validate_engine_build` is the build-time
-capability table: it refuses, by name, every model feature the port's
-kernels do not carry yet, and holds the int8 pool's alignment gate.
+capability table: it holds the int8 pool's alignment gate and the JAX
+package's refusals in its words, and refuses, by name, every model
+feature the port's kernels do not carry yet.
 """
 
 from __future__ import annotations
@@ -64,12 +67,25 @@ class AttentionKernelSpec:
 
     @staticmethod
     def validate_engine_build(spec: Any, cfg: Any) -> None:
-        """Raise ``NotImplementedError`` for every model feature the slice
-        lacks (engine-config features are refused by the config itself),
-        and ``ValueError`` where an int8 pool's alignment does not hold.
-        ALiBi over int8 pages is refused after the alignment gate, which a
-        model with ``head_dim % 128 != 0`` (BLOOM-560M's 64) fails first,
-        as in the JAX package."""
+        """The build-time capability table, in the JAX package's order and
+        words (its ``validate_engine_build``, then its engine's ALiBi
+        refusal): int8 KV pages with ``tensor_parallel > 1`` and the int8
+        pool's alignment gate (``ValueError``), then ALiBi with
+        ``tensor_parallel > 1``. What is absent composes: int8 pages under a
+        sliding window and under ALiBi. Last, ``NotImplementedError`` names
+        every model feature the port lacks (MoE, ``tensor_parallel > 1``;
+        engine-config features are refused by the config itself)."""
+        if cfg.kv_quant.enabled:
+            if cfg.tensor_parallel > 1:
+                raise NotImplementedError("kv_quant with tensor_parallel > 1 is not wired")
+            if (spec.head_dim % 128 != 0
+                    or (spec.num_kv_heads * cfg.kv_cache.block_size) % 128 != 0):
+                raise ValueError(
+                    "kv_quant needs head_dim % 128 == 0 and "
+                    "num_kv_heads * block_size % 128 == 0 (the kernels' "
+                    "scale-tile lane alignment; got head_dim="
+                    f"{spec.head_dim}, num_kv_heads={spec.num_kv_heads}, "
+                    f"block_size={cfg.kv_cache.block_size})")
         if spec.alibi and cfg.tensor_parallel > 1:
             # the JAX package's refusal (engine_v2.py:216-226)
             raise NotImplementedError(
@@ -77,8 +93,6 @@ class AttentionKernelSpec:
                 "ragged engine (shard-local slope schedules would be wrong); "
                 "run tp=1 or serve through init_inference")
         off = []
-        if spec.window is not None and cfg.kv_quant.enabled:
-            off.append("kv_quant with a sliding window (int8 pages)")
         if spec.moe is not None:
             off.append("MoE")
         if cfg.tensor_parallel > 1:
@@ -86,18 +100,6 @@ class AttentionKernelSpec:
         if off:
             raise NotImplementedError(
                 f"{', '.join(off)}: not ported to deepspeed_tpu_torch yet")
-        if cfg.kv_quant.enabled and (
-                spec.head_dim % 128 != 0
-                or (spec.num_kv_heads * cfg.kv_cache.block_size) % 128 != 0):
-            raise ValueError(
-                "kv_quant needs head_dim % 128 == 0 and "
-                "num_kv_heads * block_size % 128 == 0 (the kernels' "
-                "scale-tile lane alignment; got head_dim="
-                f"{spec.head_dim}, num_kv_heads={spec.num_kv_heads}, "
-                f"block_size={cfg.kv_cache.block_size})")
-        if cfg.kv_quant.enabled and spec.alibi:
-            raise NotImplementedError("kv_quant with ALiBi (int8 pages): not ported "
-                                      "to deepspeed_tpu_torch yet")
 
     def packed(self, q, k, v, seg):
         """Packed segment-masked prefill attention over the pass's own rows

@@ -3,11 +3,11 @@
 Same keys and defaults as the JAX package's ``RaggedInferenceEngineConfig``:
 the state manager (tracked-sequence capacity, ragged token budget), KV pool
 sizing, and the feature sections, with the JAX package's validation
-messages. Carried: int8 weights (``quantization.weight_bits = 8``), int8 KV
-pages (``kv_quant``) and the flash-decoding split ladder
-(``attention.decode_splits``). Sections whose feature the port does not
-carry yet (``spec_decode``, ``prefix_cache``, ``lora``,
-``quantization.weight_bits = 4``, ``tensor_parallel > 1``, a non-empty
+messages. Carried: int8 and packed int4 weights (``quantization.weight_bits
+= 8`` or ``4``), int8 KV pages (``kv_quant``, under a sliding window and
+ALiBi too) and the flash-decoding split ladder (``attention.decode_splits``).
+Sections whose feature the port does not carry yet (``spec_decode``,
+``prefix_cache``, ``lora``, ``tensor_parallel > 1``, a non-empty
 ``serving`` section) parse with their usual keys and raise
 ``NotImplementedError`` naming the feature when it is switched on.
 
@@ -61,7 +61,8 @@ class KVCacheSizingConfig:
 @dataclass
 class QuantizationConfig:
     """Weight-only quantization of the serving weights: 8 stores every
-    projection and the LM head int8 with per-output-column f32 scales."""
+    projection and the LM head int8 with per-output-column f32 scales, 4
+    stores them int4 in [-7, 7], packed two per byte along the input axis."""
     weight_bits: Optional[int] = None
 
     def __post_init__(self):
@@ -181,8 +182,6 @@ class RaggedInferenceEngineConfig:
             off.append("prefix_cache")
         if self.lora.enabled:
             off.append("lora")
-        if self.quantization.weight_bits == 4:
-            off.append("quantization.weight_bits = 4 (packed int4)")
         if self.tensor_parallel > 1:
             off.append("tensor_parallel > 1")
         if self.serving:

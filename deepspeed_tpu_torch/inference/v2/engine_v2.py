@@ -25,9 +25,10 @@ engine (``export_kv`` / ``import_kv``); its payload
 as uint16 bytes).
 
 Memory-lean serving, as in the JAX package: ``quantization.weight_bits = 8``
-quantizes the weight tree at build (the caller's bf16 tensors are dropped
-by the engine; free them by dropping the caller's references too);
-``kv_quant`` keeps the pool int8 with its scale tiles; and
+(int8) or ``4`` (int4, packed two per byte) quantizes the weight tree at
+build (the caller's bf16 tensors are dropped by the engine; free them by
+dropping the caller's references too); ``kv_quant`` keeps the pool int8
+with its scale tiles, under a sliding window and ALiBi too; and
 ``attention.decode_splits`` builds one pass and one decode step per rung of
 the pow2 split ladder, the rung picked every step from the longest live
 context (:meth:`InferenceEngineV2._attn_rung`).
@@ -68,7 +69,7 @@ from deepspeed_tpu_torch.inference.v2.ragged.ragged_batch import host_to_device,
 from deepspeed_tpu_torch.inference.v2.ragged_model import (
     PAGED_PASS_KEYS, PREFILL_PASS_KEYS, _sample_logits, adapt_model,
     build_decode_step, build_multistep_decode, build_prefill_forward,
-    build_ragged_forward, quantize_weights_int8)
+    build_ragged_forward, quantize_weights_int4, quantize_weights_int8)
 from deepspeed_tpu_torch.inference.v2.scheduler import DynamicSplitFuseScheduler
 from deepspeed_tpu_torch.ops.kernels.kv_quant import kv_scale_tiles_shape
 from deepspeed_tpu_torch.utils.caching import LRUCache, next_pow2
@@ -119,9 +120,10 @@ class InferenceEngineV2:
         del params
         self.spec.dtype = cfg.dtype
         AttentionKernelSpec.validate_engine_build(self.spec, cfg)
-        if cfg.quantization.weight_bits == 8:
+        if cfg.quantization.weight_bits in (4, 8):
             # build in the model dtype, then quantize (the JAX order)
-            quantize_weights_int8(self.weights)
+            (quantize_weights_int8 if cfg.quantization.weight_bits == 8
+             else quantize_weights_int4)(self.weights)
 
         sm = cfg.state_manager
         nb = cfg.kv_cache.num_blocks

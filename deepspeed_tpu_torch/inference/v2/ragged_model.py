@@ -45,7 +45,8 @@ conversion would allocate the whole f32 table each step).
 
 Projections go through :func:`_mm`: a plain matrix product (``x @
 kernel``, kernels ``[in, out]``), or, for a weight tree quantized by
-:func:`quantize_weights_int8`, the int8 matmul kernel (K8). With an int8 KV
+:func:`quantize_weights_int8` or :func:`quantize_weights_int4` (packed two
+per byte, unpacked at each matmul), the int8 matmul kernel (K8). With an int8 KV
 pool every page write quantizes its rows (``_kv_page_write_quant``,
 ``_kv_page_write_pages_quant``); the packed prefill still attends its
 in-flight rows at full precision.
@@ -69,6 +70,7 @@ from deepspeed_tpu_torch.ops.kernels.kv_quant import (kv_quantize_rows,
                                                       scale_tile_rows,
                                                       scale_write_index)
 from deepspeed_tpu_torch.ops.kernels.quantized_matmul import quantized_matmul
+from deepspeed_tpu_torch.ops.quantizer import pack_int4, unpack_int4
 
 
 @dataclass
@@ -329,15 +331,28 @@ def _rope_flat(x: torch.Tensor, rope, rotary_dim: Optional[int]) -> torch.Tensor
 
 def _mm(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w`` where ``w`` is a plain ``[K, N]`` tensor OR a weight-only
-    int8 dict ``{"w8" [K, N] int8, "scale" [1, N] f32}``: the int8 matmul
-    kernel (K8) sums ``x @ w8`` in f32 and scales the sum once per column,
-    in x's dtype."""
+    dict with a ``[1, N]`` f32 column scale: int8 ``{"w8" [K, N], "scale"}``
+    or packed int4 ``{"w4" [K/2, N], "scale"}``, which unpacks
+    (``ops/quantizer.unpack_int4``) to its int8 values first. Either way
+    the int8 matmul kernel (K8) sums ``x @ w8`` in f32 and scales the sum
+    once per column, in x's dtype: the JAX package's ``_mm`` (:409) for
+    both, whose int4 branch is an f32 dot over the unpacked values."""
     if isinstance(w, dict):
-        return quantized_matmul(x, w["w8"], w["scale"])
+        w8 = unpack_int4(w["w4"], axis=-2) if "w4" in w else w["w8"]
+        return quantized_matmul(x, w8, w["scale"])
     return x @ w
 
 
 _QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def _column_scale(wf: torch.Tensor, qmax: float) -> torch.Tensor:
+    """Per-output-column scale ``absmax_K / qmax`` of ``[K, N]`` f32 (1 for
+    an all-zero column), ``[1, N]``; a tensor divisor: an IEEE quotient on
+    CUDA too (kv_quant.py)."""
+    absmax = wf.abs().amax(dim=-2, keepdim=True)
+    return torch.where(absmax > 0, absmax / torch.full_like(absmax, qmax),
+                       torch.ones_like(absmax))
 
 
 def quantize_weight_int8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -345,28 +360,50 @@ def quantize_weight_int8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     ``scale = absmax_K / 127`` (1 for an all-zero column), ``w8 =
     clip(round_half_even(w / scale), -127, 127)``; scale ``[1, N]`` f32."""
     wf = w.float()
-    absmax = wf.abs().amax(dim=-2, keepdim=True)
-    # a tensor divisor: an IEEE quotient on CUDA too (kv_quant.py)
-    scale = torch.where(absmax > 0, absmax / torch.full_like(absmax, 127.0),
-                        torch.ones_like(absmax))
+    scale = _column_scale(wf, 127.0)
     w8 = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return {"w8": w8, "scale": scale}
 
 
-def quantize_weights_int8(weights: Dict) -> Dict:
-    """Weight-only int8 for the serving weight tree (in place, returns it):
-    every layer's projections and an untied ``lm_head`` (a tied head has
-    none: it stays the embedding) become :func:`quantize_weight_int8`
-    dicts; embeddings, norms and biases stay in the model dtype. Each layer
+def quantize_weight_int4(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Symmetric per-output-column int4 of one ``[K, N]`` kernel (K even),
+    packed two per byte along K: ``scale = absmax_K / 7`` (1 for an
+    all-zero column), values ``clip(round_half_even(w / scale), -7, 7)``;
+    ``{"w4" [K/2, N] int8, "scale" [1, N] f32}`` (the JAX package's
+    ``quantize_weights_int4`` :540)."""
+    wf = w.float()
+    scale = _column_scale(wf, 7.0)
+    q = torch.clamp(torch.round(wf / scale), -7, 7).to(torch.int8)
+    return {"w4": pack_int4(q, axis=-2), "scale": scale}
+
+
+def _quantize_weight_tree(weights: Dict, q: Callable) -> Dict:
+    """Every layer's projections and an untied ``lm_head`` (a tied head has
+    none: it stays the embedding) become ``q(w)`` dicts, in place;
+    embeddings, norms and biases stay in the model dtype. Each layer
     quantizes on its own, which gives the same bytes as the JAX package's
     stacked ``[L, K, N]`` tree (its absmax runs along K)."""
     for layer in weights["layers"]:
         for key in _QUANT_KEYS:
             if key in layer and not isinstance(layer[key], dict):
-                layer[key] = quantize_weight_int8(layer[key])
+                layer[key] = q(layer[key])
     if "lm_head" in weights and not isinstance(weights["lm_head"], dict):
-        weights["lm_head"] = quantize_weight_int8(weights["lm_head"])
+        weights["lm_head"] = q(weights["lm_head"])
     return weights
+
+
+def quantize_weights_int8(weights: Dict) -> Dict:
+    """Weight-only int8 for the serving weight tree (in place, returns it):
+    :func:`quantize_weight_int8` over :func:`_quantize_weight_tree`."""
+    return _quantize_weight_tree(weights, quantize_weight_int8)
+
+
+def quantize_weights_int4(weights: Dict) -> Dict:
+    """Weight-only packed int4 for the serving weight tree (in place,
+    returns it): :func:`quantize_weight_int4` over the same tree walk, the
+    head included, as the JAX package's (:540, :600-601). At rest the
+    weights take K*N/2 bytes, a quarter of bf16."""
+    return _quantize_weight_tree(weights, quantize_weight_int4)
 
 
 def _transformer_layer(spec: RaggedModelSpec, w: Dict, x: torch.Tensor, rope,

@@ -11,13 +11,16 @@ build raises with nvcc's stderr.
 Each kernel wrapper adds one to :data:`LAUNCHES` ``[name]`` when it launches
 its kernel, and nowhere else; :func:`reset_launches` sets every count to 0.
 A kernel that runs at several split counts (K7) counts each under its own
-name (``paged_splitk/8``); a launch with a sliding window counts under the
-kernel's ``_window`` name (``flash_packed_window``,
-``paged_splitk_window/4``), one with ALiBi under its ``_alibi`` name
-(``paged_decode_alibi``, ``paged_splitk_alibi/2``; both:
+name (``paged_splitk/8``); a launch over an int8 pool counts under the
+kernel's ``_int8`` name (``paged_decode_int8``, ``paged_splitk_int8/4``);
+a launch with a sliding window under its ``_window`` name
+(``flash_packed_window``, ``paged_splitk_window/4``,
+``paged_chunk_int8_window``), one with ALiBi under its ``_alibi`` name
+(``paged_decode_alibi``, ``paged_splitk_int8_alibi/2``; both:
 ``paged_decode_window_alibi``), and a decode launch with more than one
-side row (a burst's side buffer) under its ``_side`` name first
-(``paged_decode_side``, ``paged_splitk_side_window/4``).
+side row (a burst's side buffer) under its ``_side`` name before those
+(``paged_decode_side``, ``paged_decode_int8_side_window``,
+``paged_splitk_side_window/4``).
 """
 
 from __future__ import annotations
@@ -60,14 +63,14 @@ ENTRY_POINTS = {
                                   _F, _I, _P),
     "dstorch_flash_bwd_dkv_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _F, _I, _P),
-    "dstorch_paged_chunk_int8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _I, _I, _I, _F, _P),
-    "dstorch_paged_decode_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _F, _P),
+    "dstorch_paged_chunk_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _F, _P),
+    "dstorch_paged_decode_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "dstorch_paged_splitk_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
-    "dstorch_paged_splitk_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "dstorch_paged_splitk_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "dstorch_splitk_merge": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "dstorch_qmm_gemv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "dstorch_qmm_mma": (_P, _P, _P, _P, _I, _I, _I, _P),

@@ -19,7 +19,9 @@ before the softmax. An ALiBi launch counts as ``paged_chunk_alibi``.
 int8 pages (``kv_scales``, the kv_quant pool): ``kv_pages`` is int8 with
 its f32 scale tiles ``[NB, R8, 128]`` (``kv_quant``), the int8 body of the
 same kernel (``_chunk_kernel_batched_quant`` :1528, with the per-head scale
-fold ``_chunk_head_scale`` :1422).
+fold ``_chunk_head_scale`` :1422), with the window and ALiBi as over bf16
+pages: its launches count as ``paged_chunk_int8``,
+``paged_chunk_int8_window`` and ``paged_chunk_int8_alibi``.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from deepspeed_tpu_torch.ops.kernels import _loader
 from deepspeed_tpu_torch.ops.kernels._plain import masked_softmax_av
 from deepspeed_tpu_torch.ops.kernels.alibi import alibi_slopes
 from deepspeed_tpu_torch.ops.kernels.kv_quant import scale_tile_rows
-from deepspeed_tpu_torch.ops.kernels.paged_decode import check_int8_branches, gather_rows
+from deepspeed_tpu_torch.ops.kernels.paged_decode import gather_rows
 
 NAME = "paged_chunk"
 NAME_INT8 = "paged_chunk_int8"
@@ -46,6 +48,12 @@ REPLACES_ALIBI = ("deepspeed_tpu/ops/pallas/paged_attention.py:1534 alibi=True "
                   "(_chunk_kernel_batched :1443; alibi :1493-1498; slope _alibi_slope :204)")
 REPLACES_INT8 = ("deepspeed_tpu/ops/pallas/paged_attention.py:1528 "
                  "_chunk_kernel_batched_quant (K5; scale fold _chunk_head_scale :1422)")
+REPLACES_INT8_WINDOW = ("deepspeed_tpu/ops/pallas/paged_attention.py:1528 "
+                        "_chunk_kernel_batched_quant window= (bound at :1574-1577; "
+                        "window :1466-1478)")
+REPLACES_INT8_ALIBI = ("deepspeed_tpu/ops/pallas/paged_attention.py:1528 "
+                       "_chunk_kernel_batched_quant alibi=True (bound at :1574-1577; "
+                       "alibi :1493-1498)")
 
 
 def paged_chunk_attention_batched(q: torch.Tensor, kv_pages: torch.Tensor,
@@ -58,7 +66,7 @@ def paged_chunk_attention_batched(q: torch.Tensor, kv_pages: torch.Tensor,
     """q [NC, Cs, H, D]; kv_pages [NB, 2, Hkv, bs, D] (one layer);
     block_tables [NC, MB], q_starts [NC], ctx_lens [NC] int32; ``kv_scales``
     [NB, R8, 128] f32 for int8 pages; ``window`` (None: none) and
-    ``alibi`` (neither over int8 pages yet) -> [NC, Cs, H, D].
+    ``alibi``, over either pool -> [NC, Cs, H, D].
 
     CPU tensors run :func:`paged_chunk_attention_batched_plain`; CUDA tensors
     launch the kernel (bf16 q; bf16 pages, or int8 pages with their scale
@@ -74,8 +82,7 @@ def paged_chunk_attention_batched(q: torch.Tensor, kv_pages: torch.Tensor,
     if quant and tuple(kv_scales.shape) != (NB, scale_tile_rows(Hkv, bs), 128):
         raise ValueError(f"{NAME}: scale tiles {tuple(kv_scales.shape)} do not fit "
                          f"pages {tuple(kv_pages.shape)}")
-    check_int8_branches(NAME_INT8, quant, window, alibi)
-    name = NAME_INT8 if quant else _loader.variant(NAME, window, alibi)
+    name = _loader.variant(NAME_INT8 if quant else NAME, window, alibi)
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
     extra = (kv_scales,) if quant else ()
     if _loader.on_cpu(name, q, kv_pages, block_tables, q_starts, ctx_lens, *extra):
@@ -84,20 +91,21 @@ def paged_chunk_attention_batched(q: torch.Tensor, kv_pages: torch.Tensor,
                                                    window, alibi)
     out = torch.empty_like(q)
     P = _loader.ptr
+    slopes = alibi_slopes(H, q.device) if alibi else None
+    slope_kw = {"slopes": slopes} if alibi else {}
     if quant:
-        _loader.check_cuda(name, q.dtype, f32=("kv_scales",), i8=("kv_pages",), q=q,
-                           kv_pages=kv_pages, kv_scales=kv_scales,
+        _loader.check_cuda(name, q.dtype, f32=("kv_scales", "slopes"), i8=("kv_pages",),
+                           q=q, kv_pages=kv_pages, kv_scales=kv_scales,
                            block_tables=block_tables, q_starts=q_starts,
-                           ctx_lens=ctx_lens)
+                           ctx_lens=ctx_lens, **slope_kw)
         _loader.launch(name, "dstorch_paged_chunk_int8", q.device,
                        P(q), P(kv_pages), P(kv_scales), P(block_tables), P(q_starts),
-                       P(ctx_lens), P(out), NC, Cs, H, Hkv, D, bs, MB,
-                       kv_scales.shape[1], scale)
+                       P(ctx_lens), P(slopes), P(out), NC, Cs, H, Hkv, D, bs, MB,
+                       kv_scales.shape[1], _loader.window_arg(window), scale)
         return out
-    slopes = alibi_slopes(H, q.device) if alibi else None
     _loader.check_cuda(name, q.dtype, f32=("slopes",), q=q, kv_pages=kv_pages,
                        block_tables=block_tables, q_starts=q_starts,
-                       ctx_lens=ctx_lens, **({"slopes": slopes} if alibi else {}))
+                       ctx_lens=ctx_lens, **slope_kw)
     _loader.launch(name, "dstorch_paged_chunk_bf16", q.device,
                    P(q), P(kv_pages), P(block_tables), P(q_starts), P(ctx_lens),
                    P(slopes), P(out), NC, Cs, H, Hkv, D, bs, MB,

@@ -38,7 +38,10 @@ the same three entry points (``_decode_kernel_quant`` :561,
 ``_decode_step_kernel_quant`` :1217, ``_decode_kernel_sidebuf_quant`` :772,
 ``_sidebuf_batched_kernel_quant`` :792). The side rows are then f32: they
 hold ``kv_write_dequant`` values, which a bf16 copy would round away from
-what the pages store.
+what the pages store. The window and ALiBi apply over int8 pages as over
+bf16 ones (the Pallas int8 bodies are built with ``window=`` and
+``alibi=`` too, :1134-1140): their launches count as
+``paged_decode_int8_window``, ``paged_decode_int8_alibi`` and so on.
 
 A launch with more than one side row (``C > 1``: the side buffer of a
 ``decode_steps`` burst, ``_sidebuf_batched_kernel(_quant)`` :783/:792)
@@ -77,6 +80,14 @@ REPLACES_ALIBI = ("deepspeed_tpu/ops/pallas/paged_attention.py:1088 (K3), :1053 
                   "_decode_kernel_smalld :1028-1032")
 REPLACES_INT8 = ("deepspeed_tpu/ops/pallas/paged_attention.py:561 "
                  "_decode_kernel_quant (K3), :1217 (K4), :772 and :792 (K6)")
+REPLACES_INT8_WINDOW = ("deepspeed_tpu/ops/pallas/paged_attention.py:561 "
+                        "_decode_kernel_quant (K3), :1217 (K4), :772 and :792 (K6) "
+                        "window= (bound at :1134-1140; _decode_body window :303-349, "
+                        "side rows :487-488)")
+REPLACES_INT8_ALIBI = ("deepspeed_tpu/ops/pallas/paged_attention.py:561 "
+                       "_decode_kernel_quant (K3), :1217 (K4), :772 and :792 (K6) "
+                       "alibi=True (_decode_body :461-465, :493-496; "
+                       "_sidebuf_batched_body :722-726, :750-752)")
 REPLACES_SIDE = ("deepspeed_tpu/ops/pallas/paged_attention.py:809 (K6, C > 1) -> "
                  "_sidebuf_batched_kernel :783 (body _sidebuf_batched_body :569)")
 REPLACES_INT8_SIDE = ("deepspeed_tpu/ops/pallas/paged_attention.py:809 (K6, C > 1) -> "
@@ -111,18 +122,6 @@ def check_paged_inputs(name: str, q, kv_pages, block_tables, lens, side_k, side_
     if not 0 <= j < C:
         raise ValueError(f"{name}: step j={j} outside [0, {C})")
     return C
-
-
-def check_int8_branches(name: str, quant: bool, window: Optional[int],
-                        alibi: bool) -> None:
-    """Refuse, by name, the branches the int8 kernels do not carry yet: a
-    sliding window and ALiBi over int8 pages."""
-    if quant and window is not None:
-        raise NotImplementedError(f"{name}: a sliding window over int8 pages "
-                                  "is not ported to deepspeed_tpu_torch yet")
-    if quant and alibi:
-        raise NotImplementedError(f"{name}: ALiBi over int8 pages is not ported "
-                                  "to deepspeed_tpu_torch yet")
 
 
 def launch_name(quant: bool, window: Optional[int], alibi: bool, C: int) -> str:
@@ -166,8 +165,8 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     """q [S, H, D]; kv_pages [NB, 2, Hkv, bs, D] (one layer); block_tables
     [S, MB], lens [S] int32 (page tokens attended per sequence); optional
     side_k/side_v [S, C * Hkv, D] with step ``j``; ``kv_scales`` [NB, R8,
-    128] f32 for int8 pages; ``window`` (None: none) and ``alibi``
-    (neither over int8 pages yet) -> [S, H, D].
+    128] f32 for int8 pages; ``window`` (None: none) and ``alibi``, over
+    either pool -> [S, H, D].
 
     CPU tensors run :func:`paged_decode_attention_plain`; CUDA tensors launch
     the kernel (bf16 q; bf16 pages and side rows, or int8 pages with f32
@@ -176,7 +175,6 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     NB, _, Hkv, bs, _ = kv_pages.shape
     MB = block_tables.shape[1]
     quant = kv_scales is not None
-    check_int8_branches(NAME_INT8, quant, window, alibi)
     C = check_paged_inputs(NAME_INT8 if quant else NAME, q, kv_pages, block_tables, lens,
                            side_k, side_v, j, kv_scales)
     name = launch_name(quant, window, alibi, C)
@@ -190,20 +188,20 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     side_kw = dict(zip(("side_k", "side_v"), sides))
     out = torch.empty_like(q)
     P = _loader.ptr
+    slopes = alibi_slopes(H, q.device) if alibi else None
+    slope_kw = {"slopes": slopes} if alibi else {}
     if quant:
-        _loader.check_cuda(name, q.dtype, f32=("kv_scales", "side_k", "side_v"),
+        _loader.check_cuda(name, q.dtype, f32=("kv_scales", "side_k", "side_v", "slopes"),
                            i8=("kv_pages",), q=q, kv_pages=kv_pages,
                            kv_scales=kv_scales, block_tables=block_tables, lens=lens,
-                           **side_kw)
+                           **side_kw, **slope_kw)
         _loader.launch(name, "dstorch_paged_decode_int8", q.device,
                        P(q), P(kv_pages), P(kv_scales), P(block_tables), P(lens),
-                       P(side_k), P(side_v), P(out), S, H, Hkv, D, bs, MB,
-                       kv_scales.shape[1], C, int(j), scale)
+                       P(side_k), P(side_v), P(slopes), P(out), S, H, Hkv, D, bs, MB,
+                       kv_scales.shape[1], C, int(j), _loader.window_arg(window), scale)
         return out
-    slopes = alibi_slopes(H, q.device) if alibi else None
     _loader.check_cuda(name, q.dtype, f32=("slopes",), q=q, kv_pages=kv_pages,
-                       block_tables=block_tables, lens=lens, **side_kw,
-                       **({"slopes": slopes} if alibi else {}))
+                       block_tables=block_tables, lens=lens, **side_kw, **slope_kw)
     _loader.launch(name, "dstorch_paged_decode_bf16", q.device,
                    P(q), P(kv_pages), P(block_tables), P(lens), P(side_k),
                    P(side_v), P(slopes), P(out), S, H, Hkv, D, bs, MB, C, int(j),

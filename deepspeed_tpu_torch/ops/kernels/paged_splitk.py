@@ -28,8 +28,11 @@ logsumexp weights (:func:`merge_splitk_partials`):
   nothing); here it is plain PyTorch on every device, likewise.
 
 int8 pages (``kv_scales``) dequantize each gathered row (``k * s``), the
-algebra the kernels fold into their score and p columns. A split count
-above 1 always runs split-K; ``n_splits <= 1`` is the base kernel.
+algebra the kernels fold into their score and p columns; an int8 partials
+launch counts under the ``_int8`` names (``paged_splitk_int8/<n>``,
+``paged_splitk_int8_window/<n>``, ``paged_splitk_int8_side_alibi/<n>``),
+with the window and ALiBi as over bf16 pages. A split count above 1 always
+runs split-K; ``n_splits <= 1`` is the base kernel.
 
 A sliding ``window`` (``_splitk_body`` :324-377, the dispatchers :597-725)
 leaves the splits where they are (the whole ``[0, MB)`` page range); each
@@ -63,7 +66,6 @@ from deepspeed_tpu_torch.ops.kernels.alibi import alibi_slopes
 from deepspeed_tpu_torch.ops.kernels.kv_quant import kv_quantize_rows
 from deepspeed_tpu_torch.ops.kernels.paged_chunk import paged_chunk_attention_batched
 from deepspeed_tpu_torch.ops.kernels.paged_decode import (alibi_positions,
-                                                          check_int8_branches,
                                                           check_paged_inputs,
                                                           gather_rows,
                                                           paged_decode_attention,
@@ -82,15 +84,20 @@ REPLACES_ALIBI = ("deepspeed_tpu/ops/pallas/paged_splitk.py:499 alibi=True (_spl
                   ":324; alibi :467-471; side-slab piece :800-805)")
 REPLACES_SIDE = ("deepspeed_tpu/ops/pallas/paged_splitk.py:499 with the side piece at "
                  "C > 1 (paged_sidebuf_attention_splitk :725; side slab :800-805)")
+REPLACES_INT8_WINDOW = ("deepspeed_tpu/ops/pallas/paged_splitk.py:491 _splitk_kernel_quant "
+                        "window= (bound at :544; _splitk_body :324, window :345-377; "
+                        "dispatchers :597-725)")
+REPLACES_INT8_ALIBI = ("deepspeed_tpu/ops/pallas/paged_splitk.py:491 _splitk_kernel_quant "
+                       "alibi=True (_splitk_body :467-471; side-slab piece :800-805)")
 REPLACES_MERGE = "deepspeed_tpu/ops/pallas/paged_splitk.py:84 merge_splitk_partials"
 NEG_INF = -1e30
 
 
 def kernel_name(n_splits: int, window: Optional[int] = None, alibi: bool = False,
-                side: bool = False) -> str:
+                side: bool = False, quant: bool = False) -> str:
     """The partials kernel's launch-count name; ``side``: a side piece of
-    more than one side row."""
-    base = NAME + ("_side" if side else "")
+    more than one side row; ``quant``: int8 pages."""
+    base = NAME + ("_int8" if quant else "") + ("_side" if side else "")
     return f"{_loader.variant(base, window, alibi)}/{int(n_splits)}"
 
 
@@ -181,11 +188,12 @@ def splitk_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     piece; merged -> [S, H, D] in q's dtype (and the merged lse [S, H] f32
     with ``with_lse``). Pages are bf16, or int8 with ``kv_scales`` [NB, R8,
     128] and then f32 side rows. ``window``: the sliding window (None:
-    none) and ``alibi`` (neither over int8 pages yet).
+    none) and ``alibi``, over either pool.
 
     CPU tensors run :func:`splitk_attention_plain`; CUDA tensors launch the
-    partials kernel (counted as ``paged_splitk/<n_splits>``) and the merge
-    kernel or raise."""
+    partials kernel (counted as :func:`kernel_name`, e.g.
+    ``paged_splitk/<n_splits>`` or ``paged_splitk_int8_window/<n_splits>``)
+    and the merge kernel or raise."""
     S, H, D = q.shape
     NB, _, Hkv, bs, _ = kv_pages.shape
     MB = block_tables.shape[1]
@@ -193,10 +201,9 @@ def splitk_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     if n_splits < 1:
         raise ValueError(f"{NAME}: n_splits must be >= 1, got {n_splits}")
     quant = kv_scales is not None
-    check_int8_branches(NAME, quant, window, alibi)
-    C = check_paged_inputs(kernel_name(n_splits, window, alibi), q, kv_pages, block_tables,
-                           lens, side_k, side_v, j, kv_scales)
-    name = kernel_name(n_splits, window, alibi, side=C > 1)
+    C = check_paged_inputs(kernel_name(n_splits, window, alibi, quant=quant), q, kv_pages,
+                           block_tables, lens, side_k, side_v, j, kv_scales)
+    name = kernel_name(n_splits, window, alibi, side=C > 1, quant=quant)
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
     sides = () if side_k is None else (side_k, side_v)
     extra = (kv_scales,) if quant else ()
@@ -210,20 +217,20 @@ def splitk_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     lse_p = torch.empty((S, P, H), dtype=torch.float32, device=q.device)
     split_tokens = split_pages(MB, n_splits) * bs
     ptr = _loader.ptr
+    slopes = alibi_slopes(H, q.device) if alibi else None
+    slope_kw = {"slopes": slopes} if alibi else {}
     if quant:
-        _loader.check_cuda(name, q.dtype, f32=("kv_scales", "side_k", "side_v"),
+        _loader.check_cuda(name, q.dtype, f32=("kv_scales", "side_k", "side_v", "slopes"),
                            i8=("kv_pages",), q=q, kv_pages=kv_pages, kv_scales=kv_scales,
-                           block_tables=block_tables, lens=lens, **side_kw)
+                           block_tables=block_tables, lens=lens, **side_kw, **slope_kw)
         _loader.launch(name, "dstorch_paged_splitk_int8", q.device,
                        ptr(q), ptr(kv_pages), ptr(kv_scales), ptr(block_tables), ptr(lens),
-                       ptr(side_k), ptr(side_v), ptr(out_p), ptr(lse_p), S, H, Hkv, D,
-                       bs, MB, kv_scales.shape[1], C, int(j), n_splits, split_tokens,
-                       scale)
+                       ptr(side_k), ptr(side_v), ptr(slopes), ptr(out_p), ptr(lse_p), S, H,
+                       Hkv, D, bs, MB, kv_scales.shape[1], C, int(j), n_splits,
+                       split_tokens, _loader.window_arg(window), scale)
     else:
-        slopes = alibi_slopes(H, q.device) if alibi else None
         _loader.check_cuda(name, q.dtype, f32=("slopes",), q=q, kv_pages=kv_pages,
-                           block_tables=block_tables, lens=lens, **side_kw,
-                           **({"slopes": slopes} if alibi else {}))
+                           block_tables=block_tables, lens=lens, **side_kw, **slope_kw)
         _loader.launch(name, "dstorch_paged_splitk_bf16", q.device,
                        ptr(q), ptr(kv_pages), ptr(block_tables), ptr(lens), ptr(side_k),
                        ptr(side_v), ptr(slopes), ptr(out_p), ptr(lse_p), S, H, Hkv, D, bs,

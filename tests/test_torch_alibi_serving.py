@@ -271,7 +271,8 @@ def test_splitk_alibi_dispatchers_match_jax():
 
 def test_alibi_wrappers_count_nothing_on_cpu_and_refuse_int8():
     """On the CPU the ALiBi wrappers run their plain versions and count no
-    launch; int8 pages with ALiBi are refused by name."""
+    launch, over int8 pages too (their ALiBi branch is ported:
+    tests/test_torch_int8_window_alibi.py)."""
     rng = np.random.RandomState(13)
     kernels.reset_launches()
     pool, bt = _t(_f(rng, NB, 2, HKV, BS, D)), _t(_tables(rng, [90, 5]))
@@ -283,16 +284,23 @@ def test_alibi_wrappers_count_nothing_on_cpu_and_refuse_int8():
     qc, q0 = _t(_f(rng, 2, 8, H, D)), _t(np.array([82, 0], np.int32))
     assert torch.equal(kernels.paged_chunk_attention_batched(qc, pool, bt, q0, cl, alibi=True),
                        paged_chunk_attention_batched_plain(qc, pool, bt, q0, cl, alibi=True))
+    # an int8 pool needs Hkv * bs % 128 == 0: pages of 64 here
+    g = torch.Generator().manual_seed(13)
+    pool8 = torch.randint(-127, 128, (4, 2, HKV, 64, D), generator=g, dtype=torch.int8)
+    tiles = torch.rand(4, scale_tile_rows(HKV, 64), 128, generator=g)
+    bt = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
+    assert torch.equal(
+        kernels.paged_decode_attention(q, pool8, bt, cl, kv_scales=tiles, alibi=True),
+        paged_decode_attention_plain(q, pool8, bt, cl, kv_scales=tiles, alibi=True))
+    assert torch.equal(
+        kernels.splitk_attention(q, pool8, bt, cl, 2, kv_scales=tiles, alibi=True),
+        psk.splitk_attention_plain(q, pool8, bt, cl, 2, kv_scales=tiles, alibi=True))
+    assert torch.equal(
+        kernels.paged_chunk_attention_batched(qc, pool8, bt, q0, cl, kv_scales=tiles,
+                                              alibi=True),
+        paged_chunk_attention_batched_plain(qc, pool8, bt, q0, cl, kv_scales=tiles,
+                                            alibi=True))
     assert all(n == 0 for n in kernels.LAUNCHES.values())
-    pool8, tiles = pool.to(torch.int8), torch.zeros(NB, scale_tile_rows(HKV, BS), 128)
-    for call in (lambda: kernels.paged_decode_attention(q, pool8, bt, cl, kv_scales=tiles,
-                                                        alibi=True),
-                 lambda: kernels.splitk_attention(q, pool8, bt, cl, 2, kv_scales=tiles,
-                                                  alibi=True),
-                 lambda: kernels.paged_chunk_attention_batched(qc, pool8, bt, q0, cl,
-                                                               kv_scales=tiles, alibi=True)):
-        with pytest.raises(NotImplementedError, match="ALiBi over int8 pages"):
-            call()
 
 
 # --------------------------------------------------------------------- #
@@ -510,7 +518,7 @@ def test_unsupported_decoders_refused_in_jax_words(family, kw):
 def test_alibi_refusals_match_jax():
     """ALiBi with tensor_parallel > 1 (the JAX engine's words); kv_quant at
     BLOOM-560M's D = 64 fails the alignment gate (the JAX ValueError, word
-    for word); at D = 128 the port refuses ALiBi over int8 pages by name."""
+    for word); at D = 128 both packages validate ALiBi over int8 pages."""
     cfg = RaggedInferenceEngineConfig.load()
     cfg.tensor_parallel = 2
     with pytest.raises(NotImplementedError,
@@ -522,9 +530,9 @@ def test_alibi_refusals_match_jax():
     port = _message(lambda: AttentionKernelSpec.validate_engine_build(
         spec, RaggedInferenceEngineConfig.load(conf)))
     assert port == jax_ and port[0] is ValueError
-    with pytest.raises(NotImplementedError, match="kv_quant with ALiBi"):
-        AttentionKernelSpec.validate_engine_build(
-            _spec(), RaggedInferenceEngineConfig.load({"kv_quant": {"enabled": True}}))
+    spec.head_dim = 128
+    JaxSpec.validate_engine_build(spec, JaxEngineConfig.load(conf))
+    AttentionKernelSpec.validate_engine_build(spec, RaggedInferenceEngineConfig.load(conf))
 
 
 def test_unported_decoder_pieces_raise_by_name():

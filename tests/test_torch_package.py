@@ -355,9 +355,9 @@ def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
     ("spec_decode", {"enabled": True}, "spec_decode"),
     ("prefix_cache", {"enabled": True}, "prefix_cache"),
     ("lora", {"enabled": True}, "lora"),
-    ("quantization", {"weight_bits": 4}, "quantization.weight_bits"),
     ("tensor_parallel", 2, "tensor_parallel"),
-    ("serving", {"decode_slice": 4}, "serving"),
+    # the id this case had while a fourth one preceded it
+    pytest.param("serving", {"decode_slice": 4}, "serving", id="serving-value5-serving"),
 ])
 def test_unported_config_feature_raises(section, value, feature):
     with pytest.raises(NotImplementedError, match=feature):
@@ -368,6 +368,7 @@ def test_unported_config_feature_raises(section, value, feature):
     ("kv_quant", {"enabled": True}),
     ("attention", {"decode_splits": 8, "min_ctx_per_split": 512}),
     ("quantization", {"weight_bits": 8}),
+    ("quantization", {"weight_bits": 4}),
 ])
 def test_ported_config_feature_loads(section, value):
     cfg = RaggedInferenceEngineConfig.load({section: value})
@@ -387,22 +388,31 @@ def _spec(**kw):
     ({"moe": {"num_experts": 4, "top_k": 2}}, "MoE"),
 ])
 def test_unported_model_feature_raises(kw, feature):
-    """Refused by name; the sliding window only over an int8 pool, whose
-    window branch is not ported yet (the window itself is served)."""
+    """MoE is refused by name; a sliding window and ALiBi over an int8 pool
+    validate (their int8 branches are ported)."""
     cfg = RaggedInferenceEngineConfig.load({"kv_quant": {"enabled": True}})
     AttentionKernelSpec.validate_engine_build(_spec(), cfg)
-    with pytest.raises(NotImplementedError, match=feature):
+    if feature == "MoE":
+        with pytest.raises(NotImplementedError, match=feature):
+            AttentionKernelSpec.validate_engine_build(_spec(**kw), cfg)
+    else:
         AttentionKernelSpec.validate_engine_build(_spec(**kw), cfg)
 
 
 def test_sliding_window_model_raises_at_engine_build():
-    """A windowed model with int8 KV pages (the window over bf16 pages is
-    served: tests/test_torch_window_serving.py)."""
-    model, econf = _tiny_engine_args()
-    model.config.sliding_window = 16      # < max_context: a real window
+    """A windowed model with int8 KV pages builds (D = 128, Hkv * bs =
+    128): the window is bound into its kernels and the pool is int8 with
+    its scale tiles (served against the JAX engine:
+    tests/test_torch_int8_window_alibi.py)."""
+    cfg = LlamaConfig.tiny(vocab_size=64, hidden_size=256, num_attention_heads=2,
+                           num_key_value_heads=2, sliding_window=16)
+    model = LlamaForCausalLM(cfg, device="cpu", seed=0)
+    _, econf = _tiny_engine_args()
+    econf["kv_cache"] = {"block_size": 64}
     econf["kv_quant"] = {"enabled": True}
-    with pytest.raises(NotImplementedError, match="sliding window"):
-        InferenceEngineV2(model, econf, model.flat_params(), device="cpu")
+    engine = InferenceEngineV2(model, econf, model.flat_params(), device="cpu")
+    assert engine.spec.window == 16 and engine.scheduler.ring_pages is not None
+    assert engine.kv.kv.dtype == torch.int8 and engine.kv.scales is not None
 
 
 def test_compile_section_is_accepted():

@@ -362,8 +362,17 @@ def test_kv_quant_alignment_gate_matches_jax():
 
 
 def test_weight_bits_4_still_raises_by_name():
-    with pytest.raises(NotImplementedError, match="weight_bits = 4"):
-        RaggedInferenceEngineConfig.load({"quantization": {"weight_bits": 4}})
+    """Packed int4 weights load (served against the JAX engine:
+    tests/test_torch_int4_weights.py); another bit width is refused in the
+    JAX package's words."""
+    cfg = RaggedInferenceEngineConfig.load({"quantization": {"weight_bits": 4}})
+    assert cfg.quantization.weight_bits == 4
+    conf = {"quantization": {"weight_bits": 3}}
+    with pytest.raises(ValueError) as jax_err:
+        JaxEngineConfig.load(conf)
+    with pytest.raises(ValueError) as port_err:
+        RaggedInferenceEngineConfig.load(conf)
+    assert str(port_err.value) == str(jax_err.value)
 
 
 def test_weight_carrier_defaults_to_cuda_and_raises_here():

@@ -53,6 +53,7 @@ from deepspeed_tpu_torch.ops import kernels
 from deepspeed_tpu_torch.ops.kernels import _loader
 from deepspeed_tpu_torch.ops.kernels import paged_splitk as psk
 from deepspeed_tpu_torch.ops.kernels.flash_packed import flash_attention_packed_plain
+from deepspeed_tpu_torch.ops.kernels.kv_quant import scale_tile_rows
 from deepspeed_tpu_torch.ops.kernels.paged_chunk import paged_chunk_attention_batched_plain
 from deepspeed_tpu_torch.ops.kernels.paged_decode import paged_decode_attention_plain
 
@@ -261,7 +262,8 @@ def test_splitk_window_dispatchers_match_jax(window):
 
 def test_windowed_wrappers_count_nothing_on_cpu_and_refuse_int8():
     """On the CPU the windowed wrappers run their plain versions and count
-    no launch; an int8 pool with a window is refused by name."""
+    no launch, over an int8 pool too (its window branch is ported:
+    tests/test_torch_int8_window_alibi.py); a window below 1 is refused."""
     rng = np.random.RandomState(13)
     kernels.reset_launches()
     pool, bt = _f(rng, NB, 2, HKV, BS, D), _ring_tables(rng, [90, 5])
@@ -270,11 +272,16 @@ def test_windowed_wrappers_count_nothing_on_cpu_and_refuse_int8():
                        paged_decode_attention_plain(q, _t(pool), _t(bt), cl, window=21))
     assert torch.equal(kernels.splitk_attention(q, _t(pool), _t(bt), cl, 2, window=21),
                        psk.splitk_attention_plain(q, _t(pool), _t(bt), cl, 2, window=21))
+    # an int8 pool needs Hkv * bs % 128 == 0: pages of 64 here
+    g = torch.Generator().manual_seed(13)
+    pool8 = torch.randint(-127, 128, (4, 2, HKV, 64, D), generator=g, dtype=torch.int8)
+    tiles = torch.rand(4, scale_tile_rows(HKV, 64), 128, generator=g)
+    bt8 = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
+    assert torch.equal(kernels.paged_decode_attention(q, pool8, bt8, cl, kv_scales=tiles,
+                                                      window=21),
+                       paged_decode_attention_plain(q, pool8, bt8, cl, kv_scales=tiles,
+                                                    window=21))
     assert all(n == 0 for n in kernels.LAUNCHES.values())
-    tiles = torch.zeros(NB, 1, 128)
-    with pytest.raises(NotImplementedError, match="sliding window over int8"):
-        kernels.paged_decode_attention(q, _t(pool).to(torch.int8), _t(bt), cl,
-                                       kv_scales=tiles, window=21)
     with pytest.raises(ValueError, match="window must be >= 1"):
         _loader.window_arg(0)
 
@@ -487,22 +494,24 @@ def test_decode_step_schedules_agree_under_window(engines):
 
 
 def test_window_refusals_and_max_context_rule(engines):
-    """kv_quant with a window is refused by name, ALiBi over int8 pages
-    still is (ALiBi over bf16 pages is served:
-    tests/test_torch_alibi_serving.py), and a max_context at or below the
-    window drops the window (as in JAX)."""
+    """kv_quant with a window and ALiBi over int8 pages validate (both
+    branches are ported: tests/test_torch_int8_window_alibi.py), a window
+    with tensor_parallel > 1 is refused by name, and a max_context at or
+    below the window drops the window (as in JAX)."""
     jmodel, jparams, model, _, _ = engines
     econf = {**ENGINE, "dtype": torch.float32}
-    with pytest.raises(NotImplementedError, match="kv_quant with a sliding window"):
-        InferenceEngineV2(model, {**econf, "kv_quant": {"enabled": True}},
-                          model.flat_params(), device="cpu")
+    from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
+    int8 = RaggedInferenceEngineConfig.load({"kv_quant": {"enabled": True},
+                                             "kv_cache": {"block_size": 64}})
+    AttentionKernelSpec.validate_engine_build(_spec(24), int8)
     spec = _spec(None)
     spec.alibi = True
-    from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
     AttentionKernelSpec.validate_engine_build(spec, RaggedInferenceEngineConfig.load())
-    with pytest.raises(NotImplementedError, match="ALiBi"):
-        AttentionKernelSpec.validate_engine_build(
-            spec, RaggedInferenceEngineConfig.load({"kv_quant": {"enabled": True}}))
+    AttentionKernelSpec.validate_engine_build(spec, int8)
+    tp = RaggedInferenceEngineConfig.load()
+    tp.tensor_parallel = 2
+    with pytest.raises(NotImplementedError, match="tensor_parallel > 1"):
+        AttentionKernelSpec.validate_engine_build(_spec(24), tp)
     short = {**econf, "state_manager": {**STATE, "max_context": 24}}
     e = InferenceEngineV2(model, short, model.flat_params(), device="cpu")
     assert e.spec.window is None and e.scheduler.ring_pages is None
