@@ -40,9 +40,13 @@ Phases, each fatal on failure:
    ragged pass store the same layer-0 page bytes for the same token);
    prefill and decode rates, device profiles, peak memory, its own seconds.
 
-Phase 3 also holds the flash attention kernels (K1 forward, dq, dk/dv)
-against their plain versions at the training shape, at a ragged T = 1000,
-non-causal, and GQA 12/4 at D = 128; and the memory-lean serving kernels
+Phase 3 also holds the flash attention kernels (K1 forward, dq, dk/dv;
+tensor cores) against their plain versions at the training shape, at a
+ragged T = 1000, non-causal, GQA 12/4 at D = 128, D = 16 and 32, and Tq !=
+Tk both ways (top-left causal and full), each backward run twice and
+required bitwise equal; prints the ``k1-kernels`` line (registers, spill
+bytes and shared memory per kernel and head dim, achieved TFLOP/s at the
+training shape) and fails on a spill; and the memory-lean serving kernels
 at Llama-2-13B's shapes: K8 (int8 weight matmul) at M = 4 through every
 projection and the LM head and at M = 736 through gate/up, the int8 decode
 and chunk kernels, K7 split-K decode at 2, 4 and 8 splits (contexts up to
@@ -444,11 +448,38 @@ def check_flash_refusals(randn):
         raise AssertionError("a refused K1 call counted a launch")
 
 
+K1_HEAD_DIMS = (16, 32, 64, 128)
+K1_ATTRS = ("registers", "local_bytes", "static_smem", "dynamic_smem", "threads",
+            "blocks_per_sm")
+
+
+def k1_attributes() -> dict:
+    """K1's three kernels as compiled, at each head dim:
+    ``cudaFuncGetAttributes`` (registers, local spill bytes, shared memory)
+    and resident blocks per SM, through ``dstorch_flash_kernel_attrs``."""
+    import ctypes
+    from deepspeed_tpu_torch.ops.kernels import _loader
+    lib = _loader.load_library()
+    out = {}
+    for i, name in enumerate(K1_NAMES):
+        for D in K1_HEAD_DIMS:
+            buf = (ctypes.c_int * len(K1_ATTRS))()
+            rc = lib.dstorch_flash_kernel_attrs(i, D, ctypes.cast(buf, ctypes.c_void_p))
+            if rc != 0:
+                raise RuntimeError(f"dstorch_flash_kernel_attrs({name}, D={D}): {rc}")
+            out[f"{name}/D{D}"] = dict(zip(K1_ATTRS, list(buf)))
+    return out
+
+
 def check_flash(randn, record):
     """K1: forward (o, lse), dq and dk/dv kernels against their plain
     versions on the same inputs (the backward ones fed the kernel forward's
-    o and lse); timed at the training shape, with SDPA as the library
-    yardstick (never called by the port)."""
+    o and lse), at D = 16/32/64/128, a ragged T, Tq != Tk (top-left causal
+    and full) and GQA; each backward run twice and required bitwise equal;
+    timed at the training shape, with SDPA as the library yardstick (never
+    called by the port; its backward timed alone, on a retained graph).
+    Prints the ``k1-kernels`` line (registers, spills, shared memory,
+    achieved TFLOP/s) and fails on a spill."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -457,11 +488,14 @@ def check_flash(randn, record):
         flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain,
         flash_delta)
 
-    def case(B, H, Hkv, T, D, causal, timed=False):
-        name = f"B={B} H={H} Hkv={Hkv} T={T} D={D} {'causal' if causal else 'full'}"
+    timed_rows = {}
+
+    def case(B, H, Hkv, Tq, Tk, D, causal, timed=False):
+        name = (f"B={B} H={H} Hkv={Hkv} Tq={Tq} Tk={Tk} D={D} "
+                f"{'causal' if causal else 'full'}")
         scale = D ** -0.5
-        q, do = randn(B, T, H, D), randn(B, T, H, D)
-        k, v = randn(B, T, Hkv, D), randn(B, T, Hkv, D)
+        q, do = randn(B, Tq, H, D), randn(B, Tq, H, D)
+        k, v = randn(B, Tk, Hkv, D), randn(B, Tk, Hkv, D)
         kr = k.repeat_interleave(H // Hkv, dim=2)
         vr = v.repeat_interleave(H // Hkv, dim=2)
         o, lse = flash_attention_fwd(q, kr, vr, causal, scale)
@@ -471,27 +505,39 @@ def check_flash(randn, record):
         dq_ref = flash_bwd_dq_plain(q, kr, vr, do, lse, delta, causal, scale)
         dk, dv = flash_bwd_dkv(q, kr, vr, do, lse, delta, causal, scale)
         dk_ref, dv_ref = flash_bwd_dkv_plain(q, kr, vr, do, lse, delta, causal, scale)
+        # no atomics: a second backward on the same inputs gives the same bits
+        dq2 = flash_bwd_dq(q, kr, vr, do, lse, delta, causal, scale)
+        dk2, dv2 = flash_bwd_dkv(q, kr, vr, do, lse, delta, causal, scale)
         torch.cuda.synchronize()
-        pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
-        x, stats = B * T * H * D * 2, B * H * T * 4        # one [B,T,H,D] bf16; lse
+        same = {n: bool(torch.equal(a, b2)) for n, a, b2 in
+                (("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2))}
+        print("k1-rerun " + json.dumps({"case": name, "bitwise_equal": same}), flush=True)
+        if not all(same.values()):
+            raise AssertionError(f"K1 backward is not deterministic at {name}: {same}")
+        if causal:   # top-left: query i sees keys 0 .. min(i, Tk - 1)
+            pairs = B * H * sum(min(i + 1, Tk) for i in range(Tq))
+        else:
+            pairs = B * H * Tq * Tk
+        xq, xk = B * Tq * H * D * 2, B * Tk * H * D * 2   # one q-side / k-side tensor
+        stats = B * H * Tq * 4                             # lse or delta
         extra = {}, {}, {}
         if timed:
-            # the library yardstick: SDPA pinned to its flash backend
+            # the library yardstick: SDPA pinned to its flash backend; its
+            # backward timed alone on one forward's retained graph
             qs, ks, vs, dos = (t.transpose(1, 2).contiguous() for t in (q, kr, vr, do))
             qg, kg, vg = (t.clone().requires_grad_() for t in (qs, ks, vs))
-
-            def sdpa_fwd_bwd():
-                out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
-                torch.autograd.grad(out, (qg, kg, vg), dos)
-
             with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
                 lib_f = time_ms(lambda: F.scaled_dot_product_attention(
                     qs, ks, vs, is_causal=causal))
-                lib_b = time_ms(sdpa_fwd_bwd) - time_ms(
-                    lambda: F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal))
-            bounds = [bound(4 * x + stats, 4 * D * pairs),
-                      bound(5 * x + 2 * stats, 6 * D * pairs),
-                      bound(6 * x + 2 * stats, 8 * D * pairs)]
+                out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+                lib_b = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), dos,
+                                                            retain_graph=True))
+            del out, qg, kg, vg
+            covers = "SDPA (flash backend) backward alone: dq, dk and dv together"
+            flops = [4 * D * pairs, 6 * D * pairs, 8 * D * pairs]
+            bounds = [bound(2 * xq + 2 * xk + stats, flops[0]),
+                      bound(3 * xq + 2 * xk + 2 * stats, flops[1]),
+                      bound(2 * xq + 4 * xk + 2 * stats, flops[2])]
             extra = (
                 dict(ms=time_ms(lambda: flash_attention_fwd(q, kr, vr, causal, scale)),
                      plain_ms=time_ms(lambda: flash_attention_fwd_plain(
@@ -499,13 +545,14 @@ def check_flash(randn, record):
                 dict(ms=time_ms(lambda: flash_bwd_dq(q, kr, vr, do, lse, delta, causal, scale)),
                      plain_ms=time_ms(lambda: flash_bwd_dq_plain(
                          q, kr, vr, do, lse, delta, causal, scale), 5, 1), library_ms=lib_b,
-                     library_covers="SDPA (flash backend) backward: dq, dk and dv together"),
+                     library_covers=covers),
                 dict(ms=time_ms(lambda: flash_bwd_dkv(q, kr, vr, do, lse, delta, causal, scale)),
                      plain_ms=time_ms(lambda: flash_bwd_dkv_plain(
                          q, kr, vr, do, lse, delta, causal, scale), 5, 1), library_ms=lib_b,
-                     library_covers="SDPA (flash backend) backward: dq, dk and dv together"))
-            for e, (b_ms, b_by) in zip(extra, bounds):
+                     library_covers=covers))
+            for kname, e, (b_ms, b_by), fl in zip(K1_NAMES, extra, bounds, flops):
                 e.update(bound_ms=b_ms, bound_by=b_by)
+                timed_rows[kname] = {"ms": e["ms"], "tflops": fl / e["ms"] / 1e9}
         record("flash_fwd", name, err((o, o_ref), (lse[..., None], lse_ref[..., None])),
                row=timed, **extra[0])
         record("flash_bwd_dq", name, err((dq, dq_ref)), row=timed, **extra[1])
@@ -517,16 +564,28 @@ def check_flash(randn, record):
             out = flash_attention(qg, kg, vg, causal=causal)
             out.backward(do)
             G = H // Hkv
-            red = lambda t: t.float().view(B, T, Hkv, G, D).sum(3)
+            red = lambda t: t.float().view(B, Tk, Hkv, G, D).sum(3)
             record("flash_attention (autograd, GQA)", name,
                    err((out.detach(), o_ref), (qg.grad, dq_ref), (kg.grad, red(dk_ref)),
                        (vg.grad, red(dv_ref))))
 
     check_flash_refusals(randn)
-    case(8, 12, 12, 1024, 64, True, timed=True)    # GPT-2 small's training shape
-    case(2, 12, 12, 1000, 64, True)                # ragged edge
-    case(2, 12, 12, 1024, 64, False)               # non-causal
-    case(2, 12, 4, 1024, 128, True)                # GQA 12/4 at D = 128
+    case(8, 12, 12, 1024, 1024, 64, True, timed=True)    # GPT-2 small's training shape
+    case(2, 12, 12, 1000, 1000, 64, True)                # ragged edge
+    case(2, 12, 12, 1024, 1024, 64, False)               # non-causal
+    case(2, 12, 4, 1024, 1024, 128, True)                # GQA 12/4 at D = 128
+    case(2, 12, 12, 1024, 1024, 16, True)                # D = 16
+    case(2, 12, 12, 1000, 1000, 32, False)               # D = 32, ragged, full
+    case(2, 12, 12, 384, 1000, 64, True)                 # Tq < Tk, top-left causal
+    case(2, 12, 12, 384, 1000, 128, False)               # Tq < Tk, full
+    case(2, 12, 12, 1000, 384, 32, True)                 # Tq > Tk, top-left causal
+    case(2, 12, 12, 1000, 384, 16, False)                # Tq > Tk, full
+    attrs = k1_attributes()
+    print("k1-kernels " + json.dumps({"attributes": attrs, "training_shape": timed_rows,
+                                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    spills = {k: a["local_bytes"] for k, a in attrs.items() if a["local_bytes"]}
+    if spills:
+        raise AssertionError(f"K1 kernels spill to local memory: {spills}")
 
 
 # K8 at Llama-2-13B's projection shapes: M = 4 (the decode batch) through
@@ -2297,16 +2356,16 @@ def check_sparse_kernels(label, cfg, S, D, timed, randn, record):
                   bound(6 * x + 2 * stats, 8 * D * pairs)]
         qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
 
-        def sdpa_fwd_bwd():
-            out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask[None])
-            torch.autograd.grad(out, (qg, kg, vg), do)
-
         with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
             lib_f = time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask[None]))
-            lib_fb = time_ms(sdpa_fwd_bwd)
-        lib_b = lib_fb - lib_f
-        covers = "SDPA (efficient backend, bool token mask) backward: dq, dk and dv together"
+            # the backward alone, on one forward's retained graph
+            out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask[None])
+            lib_b = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                                        retain_graph=True))
+        del out
+        covers = ("SDPA (efficient backend, bool token mask) backward alone: dq, dk and dv "
+                  "together")
         extra = (
             dict(ms=time_ms(lambda: block_sparse_fwd(q, k, v, tables, scale), 10),
                  plain_ms=time_ms(lambda: block_sparse_fwd_plain(q, k, v, tables, scale),
@@ -2324,7 +2383,7 @@ def check_sparse_kernels(label, cfg, S, D, timed, randn, record):
         for e, (b_ms, b_by) in zip(extra, bounds):
             e.update(bound_ms=b_ms, bound_by=b_by)
         print("sparse-library " + json.dumps({"layout": label, "sdpa_fwd_ms": lib_f,
-                                              "sdpa_fwd_bwd_ms": lib_fb}), flush=True)
+                                              "sdpa_bwd_ms": lib_b}), flush=True)
     row = label.startswith("A ")
     record("block_sparse_fwd", case, err((o, o_ref), (lse[..., None], lse_ref[..., None])),
            row=row, **extra[0])
@@ -2510,27 +2569,25 @@ def check_evo_kernels(label, L, S, H, D, R, pair_dtype, timed, randn, g, record)
                         4 * D * pairs)]
         # the yardstick: SDPA on [L, H, S, D] views with the bias mask[l] +
         # pair[l // R] materialised as one [L, H, S, S] bf16 tensor (the
-        # efficient backend takes no broadcast of two biases); fwd+bwd
-        # includes the bias's sum and its gradient's reduction to d(pair)
+        # efficient backend takes no broadcast of two biases); the backward
+        # includes the bias gradient's reduction to d(pair)
         bhsd = lambda t: t.transpose(1, 2)
         mask_bf = mask.to(torch.bfloat16).view(G, R, 1, 1, S)
         bias = (pair.to(torch.bfloat16)[:, None] + mask_bf).view(L, H, S, S)
         qg, kg, vg = (bhsd(t).detach().requires_grad_() for t in (q, k, v))
         pg = pair.to(torch.bfloat16).detach().requires_grad_()
 
-        def sdpa_fwd_bwd():
-            b = (pg[:, None] + mask_bf).view(L, H, S, S)
-            out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=b)
-            torch.autograd.grad(out, (qg, kg, vg, pg), bhsd(do))
-
         with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
             lib_f = time_ms(lambda: F.scaled_dot_product_attention(
                 bhsd(q), bhsd(k), bhsd(v), attn_mask=bias), 10, 2)
-            lib_fb = time_ms(sdpa_fwd_bwd, 5, 1)
-        lib_b = lib_fb - lib_f
-        covers = ("SDPA (efficient backend, float bias [L, H, S, S] bf16) backward: dq, dk, "
-                  "dv and d(bias) together, with the bias's reduction to d(pair)")
-        del bias, qg, kg, vg, pg
+            # the backward alone, on one forward's retained graph
+            out = F.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=(pg[:, None] + mask_bf).view(L, H, S, S))
+            lib_b = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg, pg), bhsd(do),
+                                                        retain_graph=True), 5, 1)
+        covers = ("SDPA (efficient backend, float bias [L, H, S, S] bf16) backward alone: dq, "
+                  "dk, dv and d(bias) together, with the bias's reduction to d(pair)")
+        del bias, qg, kg, vg, pg, out
         extra = (
             dict(ms=time_ms(lambda: evoformer_fwd(q, k, v, mask, pair, scale, R), 10, 2),
                  plain_ms=time_ms(lambda: evoformer_fwd_plain(q, k, v, mask, pair, scale, R),
@@ -2550,7 +2607,7 @@ def check_evo_kernels(label, L, S, H, D, R, pair_dtype, timed, randn, g, record)
         for e, (b_ms, b_by) in zip(extra, bounds):
             e.update(bound_ms=b_ms, bound_by=b_by)
         print("evoformer-library " + json.dumps({"case": case, "sdpa_fwd_ms": lib_f,
-                                                 "sdpa_fwd_bwd_ms": lib_fb}), flush=True)
+                                                    "sdpa_bwd_ms": lib_b}), flush=True)
     record("evoformer_fwd", case, err((o, o_ref), (lse[..., None], lse_ref[..., None])),
            row=timed, **extra[0])
     record("evoformer_dq", case, err((dq, dq_ref)), row=timed, **extra[1])

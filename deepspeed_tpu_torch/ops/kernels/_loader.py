@@ -44,7 +44,7 @@ SOURCES = ("flash_packed.cu", "paged_chunk.cu", "paged_decode.cu", "flash_fwd.cu
            "block_sparse_fwd.cu", "block_sparse_bwd.cu", "evoformer_fwd.cu",
            "evoformer_bwd.cu")
 HEADERS = ("attn_common.cuh", "decode_common.cuh", "tile_common.cuh",
-           "evoformer_common.cuh")
+           "evoformer_common.cuh", "mma_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -88,6 +88,7 @@ ENTRY_POINTS = {
                                    _I, _F, _I, _P),
     "dstorch_evoformer_dbias_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _I, _F, _I, _P),
+    "dstorch_flash_kernel_attrs": (_I, _I, _P),
 }
 
 LAUNCHES: Dict[str, int] = {"flash_packed": 0, "paged_chunk": 0,

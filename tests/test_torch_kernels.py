@@ -8,6 +8,7 @@ accumulate the same f32 products in a different order (flash blocks vs one
 softmax), a few ulps of f32. K1's gradients: 5e-5 (K1_BWD_ATOL)."""
 
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -149,21 +150,29 @@ def test_sidebuf_matches_k6(C, j, H, Hkv):
 # --------------------------------------------------------------------------- #
 
 K1_BWD_ATOL = 5e-5   # gradients sum T products of O(1) terms in both orders
-K1_CASES = {
+K1_CASES = {   # D = 64 and Tk = T unless given
     "T256-causal": dict(T=256, H=4, Hkv=4, causal=True),
     "T256-full": dict(T=256, H=4, Hkv=4, causal=False),
     # 200 is not a multiple of 128: the JAX wrapper pads to 256
     "T200-causal": dict(T=200, H=4, Hkv=4, causal=True),
     "gqa-4-2": dict(T=256, H=4, Hkv=2, causal=True),
+    # the other head dims of the CUDA kernels
+    "hd128-causal": dict(T=128, H=2, Hkv=2, causal=True, D=128),
+    "hd32-full": dict(T=192, H=4, Hkv=4, causal=False, D=32),
+    # Tq != Tk: causal stays top-left (query i sees keys 0..i), as in Pallas
+    "tq128-tk256-causal": dict(T=128, Tk=256, H=2, Hkv=2, causal=True),
+    "tq256-tk128-full": dict(T=256, Tk=128, H=2, Hkv=2, causal=False),
 }
 
 
 def _k1_inputs(case):
-    c = K1_CASES[case]
+    c = dict(K1_CASES[case])
+    c.setdefault("D", 64)
+    c.setdefault("Tk", c["T"])
     rng = np.random.RandomState(sorted(K1_CASES).index(case) + 11)
-    B, D = 2, 64
+    B, D = 2, c["D"]
     q = _f(rng, B, c["T"], c["H"], D)
-    k, v = _f(rng, B, c["T"], c["Hkv"], D), _f(rng, B, c["T"], c["Hkv"], D)
+    k, v = _f(rng, B, c["Tk"], c["Hkv"], D), _f(rng, B, c["Tk"], c["Hkv"], D)
     g = _f(rng, B, c["T"], c["H"], D)
     return c, q, k, v, g
 
@@ -180,13 +189,13 @@ def test_flash_forward_matches_k1(case):
     ref_o = _jax_k1(c, q, k, v)(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     rep = c["H"] // c["Hkv"]
     kr, vr = np.repeat(k, rep, axis=2), np.repeat(v, rep, axis=2)
-    T, Tp = c["T"], -(-c["T"] // 64) * 64
+    T, scale = c["T"], c["D"] ** -0.5
     # the JAX lse: its _fwd on [B, H, T, D], causal rows padded as the
     # public wrapper pads them (padded keys sit above every real row)
-    pad = lambda a: jnp.swapaxes(jnp.pad(jnp.asarray(a), ((0, 0), (0, Tp - T), (0, 0), (0, 0))),
-                                 1, 2)
-    _, ref_lse = jax_flash_fwd(pad(q), pad(kr), pad(vr), 64 ** -0.5, c["causal"], 64, 64)
-    o, lse = flash_attention_fwd_plain(_t(q), _t(kr), _t(vr), c["causal"], 64 ** -0.5)
+    pad = lambda a: jnp.swapaxes(jnp.pad(jnp.asarray(a), (
+        (0, 0), (0, -(-a.shape[1] // 64) * 64 - a.shape[1]), (0, 0), (0, 0))), 1, 2)
+    _, ref_lse = jax_flash_fwd(pad(q), pad(kr), pad(vr), scale, c["causal"], 64, 64)
+    o, lse = flash_attention_fwd_plain(_t(q), _t(kr), _t(vr), c["causal"], scale)
     _close(o, ref_o)
     _close(lse, np.asarray(ref_lse)[:, :, :T, 0])
     # the public wrapper (GQA repeat inside) gives the same o
@@ -205,6 +214,25 @@ def test_flash_backward_matches_k1(case):
     flash_attention(qt, kt, vt, causal=c["causal"]).backward(_t(g))
     for got, want in zip((qt.grad, kt.grad, vt.grad), ref):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=K1_BWD_ATOL)
+
+
+def test_every_csrc_include_is_hashed():
+    """Each ``#include "..."`` of each file under csrc/ names a header in
+    ``_loader.HEADERS``, and each .cu file is in ``_loader.SOURCES``: the
+    source hash, and with it the rebuild, covers every file the kernels
+    compile from."""
+    from deepspeed_tpu_torch.ops.kernels import _loader
+    included = {}
+    for path in sorted(_loader.CSRC.iterdir()):
+        if path.suffix == ".cu":
+            assert path.name in _loader.SOURCES, path.name
+        for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"', path.read_text(), re.M):
+            included.setdefault(name, []).append(path.name)
+    assert "mma_common.cuh" in included
+    missing = {h: files for h, files in included.items() if h not in _loader.HEADERS}
+    assert not missing, f"headers outside the source hash: {missing}"
+    for name in _loader.SOURCES + _loader.HEADERS:
+        assert (_loader.CSRC / name).is_file(), name
 
 
 @pytest.mark.parametrize("causal", [True, False])
