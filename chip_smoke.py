@@ -172,7 +172,33 @@ phase 9 bursts at rungs 4 and 1 (the side-buffer schedule:
 rungs 1 and 2. Each burst prints its wall and device ms per step beside
 the phase's pipeline step, with the card's name and power limit.
 
-The last two lines are the kernel table (53 rows) and ``{"ok": true,
+13. serving phi-2 at full width and depth (32 layers, 2560 wide, 32 heads
+   of D = 80, partial rotary 0.4, parallel blocks, vocab 51200; random bf16
+   weights from seed 0): pages of 128, max_context 2048, 40 pages, the
+   default chunk budget (736), the split ladder up to 2; ``generate()`` on
+   prompts of 1500/600/200/40 tokens (32 new tokens each), a step at each
+   pinned rung 1/2 and a mixed ``put()`` at rung 1; launches of K2, K5, the
+   decode kernel and K7 at D = 80; next-token logits at prefill and three
+   decode steps against the port's dense fp32 ``DecoderLM`` (RMS within 2x
+   the same forward's in bf16); rung invariance; rates, a device profile,
+   peak memory.
+
+Phase 3 also holds K2 (on the tensor cores) against its plain version at
+Llama-2-7B's prefill pass (768 rows) at D = 16, 32 and 64, phi-2's D = 80,
+GPT-NeoX-20B's D = 96 (64 heads), GPT-J-6B's D = 256 (16 heads) and
+Falcon-7B's 71/1 heads, each timed beside SDPA; the engine's slot layout
+(padding rows between segments, all rows compared, with and without a
+window); its lse output (the
+``flash_packed_lse`` row; |lse - ref| <= 2^-10 x max(1, |ref|)) without
+and under the window of 4096; two NaN poison checks (the K and V rows of a
+first segment ending on a 64-row boundary, and keys below a window of
+200: the other rows' outputs stay bitwise equal, so the tiles K2 skips are
+never read); prints the ``k2-kernels`` line (registers, spill bytes and
+shared memory per head dim, times) and fails on a spill. ``check_head_dims``
+holds K5, the decode kernel and K7 at D = 80 (32 heads) and D = 96 (64
+heads) against their plain versions.
+
+The last two lines are the kernel table (54 rows) and ``{"ok": true,
 "device": ...}`` as JSON. Run from the repository root: ``python3 chip_smoke.py``.
 """
 
@@ -213,13 +239,23 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# GPU clock cycles that time_ms sleeps on the stream per timed launch
+# (~0.15 ms at the H100's ~2 GHz): the host enqueues the launches meanwhile,
+# so a kernel shorter than its host launch (~0.03-0.05 ms through a
+# wrapper) is timed on the device, not at the host's launch rate
+SLEEP_CYCLES_PER_ITER = 300_000
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device ms per call of ``fn``: CUDA events around ``iters`` calls
+    queued behind a GPU sleep, so they run back to back."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_ITER * iters)
     t0.record()
     for _ in range(iters):
         fn()
@@ -291,18 +327,14 @@ def check_kernels(dev):
     record = functools.partial(record_check, rows)
 
     # ---- K2: packed prefill, R = 768 rows, H = Hkv = 32, D = 128 ---- #
-    R, H, D = 768, 32, 128
-    seg_lens = [300, 200, 150, 100]
-    seg = torch.full((R,), -1, dtype=torch.int32, device=dev)
-    o = 0
-    for i, n in enumerate(seg_lens):
-        seg[o:o + n] = i
-        o += n
+    R, H, D = K2_R, 32, 128
+    seg_lens = K2_SEGS
+    seg = packed_segments(R, seg_lens, dev)
     q, k, v = randn(R, H, D), randn(R, H, D), randn(R, H, D)
     out = flash_attention_packed(q, k, v, seg)
     ref = flash_attention_packed_plain(q, k, v, seg)
     torch.cuda.synchronize()
-    pairs = sum(n * (n + 1) // 2 for n in seg_lens + [R - sum(seg_lens)])
+    pairs = packed_pairs(R, seg_lens)
     mask = (torch.arange(R, device=dev)[:, None] >= torch.arange(R, device=dev)[None]) \
         & (seg[:, None] == seg[None])
     qt, kt, vt = (x.transpose(0, 1)[None] for x in (q, k, v))
@@ -318,6 +350,8 @@ def check_kernels(dev):
     record("flash_packed", "GQA H=32 Hkv=8", err((
         flash_attention_packed(q, k8, v8, seg),
         flash_attention_packed_plain(q, k8, v8, seg))))
+    del q, k, v, k8, v8, mask, qt, kt, vt
+    check_packed(dev, randn, record, {"Llama-2-7B": rows["flash_packed"]})
 
     # ---- paged pool shared by K5 and the decode kernel ---- #
     def make_pool(NB, Hkv, bs, D):
@@ -397,6 +431,7 @@ def check_kernels(dev):
     check_quant_kernels(dev, g, randn, record)
     check_window_kernels(dev, randn, record)
     check_alibi_kernels(dev, randn, record)
+    check_head_dims(dev, randn, record)
     check_side_kernels(dev, randn, record)
     check_quant_window_kernels(dev, g, randn, record)
     check_quant_alibi_kernels(dev, g, randn, record)
@@ -416,6 +451,233 @@ def block_tables(ctxs, bs, MB, NB, dev):
         bt[i, :n] = perm[used:used + n].to(torch.int32)
         used += n
     return bt.to(dev)
+
+
+# K2 beside its table row (phase 3): Llama-2-7B's prefill pass of 768 rows
+# (segments 300/200/150/100 + 18 padding rows) at every head dim the kernel
+# takes, with the head counts of the models that have it
+K2_R, K2_SEGS = 768, [300, 200, 150, 100]
+K2_CASES = (("D=16", 32, 32, 16), ("D=32", 32, 32, 32), ("D=64", 32, 32, 64),
+            ("phi-2", 32, 32, 80), ("GPT-NeoX-20B", 64, 64, 96),
+            ("GPT-J-6B", 16, 16, 256), ("Falcon-7B", 71, 1, 64))
+K2_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
+# K2's lse against its plain version: |lse - ref| <= LSE_RTOL x max(1, |ref|)
+LSE_RTOL = 2.0 ** -10
+
+
+def packed_segments(R, seg_lens, dev):
+    """Segment ids [R] int32 on ``dev``: ``seg_lens`` rows of segments 0,
+    1, ... in order, then padding rows (-1)."""
+    import torch
+    seg = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    o = 0
+    for i, n in enumerate(seg_lens):
+        seg[o:o + n] = i
+        o += n
+    return seg
+
+
+def slot_segments(slot, lens, n_slots, dev):
+    """Segment ids of the engine's packed layout: ``n_slots`` slots of
+    ``slot`` rows, each prompt's chunks from a slot's start (a prompt longer
+    than a slot takes consecutive slots), padding (-1) to each slot's end."""
+    import torch
+    seg = torch.full((slot * n_slots,), -1, dtype=torch.int32, device=dev)
+    s = 0
+    for i, n in enumerate(lens):
+        for c in range(0, n, slot):
+            seg[s * slot:s * slot + min(slot, n - c)] = i
+            s += 1
+    return seg
+
+
+def packed_pairs(R, seg_lens, window=None):
+    """Visible (row, key) pairs of one head: each segment's causal pairs,
+    the padding rows' among themselves, within ``window`` if given."""
+    w = window or R
+    return sum(sum(min(r + 1, w) for r in range(n)) for n in seg_lens + [R - sum(seg_lens)])
+
+
+def lse_err(lse, ref):
+    """K2's lse against its plain version: ok where |lse - ref| <=
+    LSE_RTOL x max(1, |ref|) everywhere."""
+    d = (lse.float() - ref.float()).abs()
+    lim = LSE_RTOL * ref.float().abs().clamp(min=1.0)
+    return {"lse_max_abs_err": float(d.max()), "lse_max_err_over_limit": float((d / lim).max()),
+            "lse_rtol": LSE_RTOL, "lse_ok": bool((d <= lim).all())}
+
+
+def with_lse_check(e, le):
+    """err()'s result for o with the lse check folded into ``ok``."""
+    return {**e, **le, "ok": e["ok"] and le["lse_ok"]}
+
+
+def k2_attributes() -> dict:
+    """K2 as compiled at each head dim, through ``dstorch_flash_packed_attrs``."""
+    return {f"flash_packed/D{D}": read_attributes("dstorch_flash_packed_attrs", D)
+            for D in K2_HEAD_DIMS}
+
+
+def check_packed(dev, randn, record, timed):
+    """K2 against its plain version beyond the table's row: D = 16/32/64,
+    phi-2's D = 80 at 32 heads, GPT-NeoX-20B's D = 96 at 64 heads, GPT-J-6B's
+    D = 256 at 16 heads and Falcon-7B's 71/1 heads at D = 64, each timed
+    beside SDPA over the same boolean mask; the engine's slot layout
+    (padding rows between segments, every row compared; also windowed);
+    the lse output (the
+    ``flash_packed_lse`` row, timed beside the efficient SDPA kernel that
+    returns its log-sum-exp); the poison checks: K and V rows of tiles that
+    no row of a q-block sees (a first segment ending on a 64-row boundary,
+    and keys below a window of 200) filled with NaN leave the other rows'
+    outputs bitwise equal, so the skipped tiles are not read. Prints the
+    ``k2-kernels`` line (registers, spills, shared memory per head dim;
+    times) and fails on a spill. ``timed`` holds the table row's case."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.kernels import (flash_attention_packed,
+                                                 flash_attention_packed_plain)
+    R, seg_lens = K2_R, K2_SEGS
+    seg = packed_segments(R, seg_lens, dev)
+    idx = torch.arange(R, device=dev)
+    mask = (idx[:, None] >= idx[None]) & (seg[:, None] == seg[None])
+    pairs = packed_pairs(R, seg_lens)
+    timed = {k: {"ms": r["ms"], "sdpa_ms": r["library_ms"], "bound_ms": r["bound_ms"]}
+             for k, r in timed.items()}
+    for label, H, Hkv, D in K2_CASES:
+        q, k, v = randn(R, H, D), randn(R, Hkv, D), randn(R, Hkv, D)
+        out = flash_attention_packed(q, k, v, seg)
+        ref = flash_attention_packed_plain(q, k, v, seg)
+        torch.cuda.synchronize()
+        qt = q.transpose(0, 1)[None]
+        kt, vt = (x.repeat_interleave(H // Hkv, dim=1).transpose(0, 1)[None] for x in (k, v))
+        b_ms, b_by = bound((2 * R * H + 2 * R * Hkv) * D * 2 + R * 4, 4 * D * H * pairs)
+        ms = time_ms(lambda: flash_attention_packed(q, k, v, seg))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        timed[label] = {"ms": ms, "sdpa_ms": lib, "bound_ms": b_ms}
+        record("flash_packed", f"{label}: R={R} H={H} Hkv={Hkv} D={D} segs={seg_lens}+pad",
+               err((out, ref)), ms=ms, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+        del q, k, v, qt, kt, vt, out, ref
+
+    # the engine's slot layout (6 slots of 128 rows): padding rows between
+    # segments, every row compared (padding sees all earlier padding)
+    sg = slot_segments(128, [300, 120, 40], 6, dev)
+    q, k, v = randn(len(sg), 32, 128), randn(len(sg), 8, 128), randn(len(sg), 8, 128)
+    for w in (None, 200):
+        record("flash_packed" if w is None else "flash_packed_window",
+               f"slots of 128, segs [300, 120, 40] + padding between, H=32 Hkv=8 D=128 "
+               f"window={w} (all rows)",
+               err((flash_attention_packed(q, k, v, sg, window=w),
+                    flash_attention_packed_plain(q, k, v, sg, window=w))))
+    del q, k, v
+
+    # the lse output at the table's shape (32 heads, D = 128)
+    H, D = 32, 128
+    q, k, v = randn(R, H, D), randn(R, H, D), randn(R, H, D)
+    o, lse = flash_attention_packed(q, k, v, seg, with_lse=True)
+    o_ref, lse_ref = flash_attention_packed_plain(q, k, v, seg, with_lse=True)
+    torch.cuda.synchronize()
+    b_ms, b_by = bound(4 * R * H * D * 2 + R * 4 + R * H * 4, 4 * D * H * pairs)
+    qt, kt, vt = (x.transpose(0, 1)[None] for x in (q, k, v))
+    bias = torch.zeros(mask.shape, dtype=q.dtype, device=dev).masked_fill(~mask, -torch.inf)
+    bias = bias[None, None].expand(1, H, R, R)
+    try:   # a private op: the yardstick is null where this build lacks it
+        lib = time_ms(lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+            qt, kt, vt, bias, True))
+    except (RuntimeError, AttributeError) as exc:
+        print(f"flash_packed_lse: no library yardstick ({type(exc).__name__}: "
+              f"{str(exc).splitlines()[0][:200]})", flush=True)
+        lib = None
+    record("flash_packed_lse", f"R={R} H={H} D={D} segs={seg_lens}+pad",
+           with_lse_check(err((o, o_ref)), lse_err(lse, lse_ref)), row=True,
+           ms=time_ms(lambda: flash_attention_packed(q, k, v, seg, with_lse=True)),
+           plain_ms=time_ms(lambda: flash_attention_packed_plain(q, k, v, seg, with_lse=True),
+                            5, 1),
+           library_ms=lib, library_covers="aten._scaled_dot_product_efficient_attention "
+           "(o and lse) with the mask as a -inf float bias",
+           bound_ms=b_ms, bound_by=b_by)
+    del q, k, v, qt, kt, vt, bias, o, lse, o_ref, lse_ref
+
+    # the poison checks: tiles no row of a q-block sees are never read
+    def poisoned(seg_lens, window, dead, rows):
+        H, Hkv, D = 32, 8, 128
+        sg = packed_segments(R, seg_lens, dev)
+        q, k, v = randn(R, H, D), randn(R, Hkv, D), randn(R, Hkv, D)
+        clean = flash_attention_packed(q, k, v, sg, window=window)
+        k[dead], v[dead] = float("nan"), float("nan")
+        dirty = flash_attention_packed(q, k, v, sg, window=window)
+        torch.cuda.synchronize()
+        same = torch.equal(clean[rows].view(torch.int16), dirty[rows].view(torch.int16))
+        case = (f"segs={seg_lens}+pad window={window}: K/V rows {dead.start}..{dead.stop - 1} "
+                f"NaN, rows {rows.start}..{rows.stop - 1} bitwise equal")
+        print("k2-poison " + json.dumps({"case": case, "bitwise_equal": same,
+                                         "finite": bool(torch.isfinite(dirty[rows]).all())}),
+              flush=True)
+        if not same:
+            raise AssertionError(f"flash_packed read tiles it should skip: {case}")
+
+    # segment 0 ends at row 128: later segments' warps start at its end, and
+    # the warps with padding rows (from row 728) at the first padding key
+    poisoned([128, 300, 200, 100], None, slice(0, 128), slice(128, 728))
+    # one 700-row segment, window 200: q-blocks from row 512 start at key 256
+    poisoned([700], 200, slice(0, 256), slice(512, 700))
+
+    attrs = k2_attributes()
+    print("k2-kernels " + json.dumps({"attributes": attrs, "timed": timed,
+                                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    spills = {k: a["local_bytes"] for k, a in attrs.items() if a["local_bytes"]}
+    if spills:
+        raise AssertionError(f"K2 spills to local memory: {spills}")
+
+
+# K5, the decode kernel and K7 at phi-2's head dim (32/32 heads, D = 80) and
+# GPT-NeoX-20B's (64/64, D = 96): pages of 128, contexts at phase 13's
+# prompts' ends
+HD_CASES = (("phi-2", 32, 32, 80), ("GPT-NeoX-20B", 64, 64, 96))
+HD_CTXS = [1532, 632, 232, 72]
+HD_BS, HD_MB = 128, 16
+
+
+def check_head_dims(dev, randn, record):
+    """K5 (4 slots x 128 rows), the decode kernel (pages only and one side
+    row) and K7 (2 splits with one side row; pages only with the merged
+    lse) against their plain versions at head dims 80 and 96."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels import (
+        paged_chunk_attention_batched, paged_chunk_attention_batched_plain,
+        paged_decode_attention, paged_decode_attention_plain,
+        splitk_attention, splitk_attention_plain)
+    bs, S = HD_BS, len(HD_CTXS)
+    for label, H, Hkv, D in HD_CASES:
+        NB = sum(-(-c // bs) for c in HD_CTXS) + 1
+        bt = block_tables(HD_CTXS, bs, HD_MB, NB, dev)
+        pool = randn(NB, 2, Hkv, bs, D)
+        ctx = torch.tensor(HD_CTXS, dtype=torch.int32, device=dev)
+        case = f"{label}: S={S} H={H} Hkv={Hkv} D={D} ctx={HD_CTXS} bs={bs}"
+        Cs = 128
+        qc = randn(S, Cs, H, D)
+        q0 = torch.clamp(ctx - Cs, min=0)
+        fn = lambda: paged_chunk_attention_batched(qc, pool, bt, q0, ctx)
+        out = fn()
+        ref = paged_chunk_attention_batched_plain(qc, pool, bt, q0, ctx)
+        torch.cuda.synchronize()
+        record("paged_chunk", f"{case} {S}x{Cs} rows", err((out, ref)), ms=time_ms(fn))
+        qd = randn(S, H, D)
+        lens1 = torch.clamp(ctx - 1, min=0)
+        side = (randn(S, Hkv, D), randn(S, Hkv, D))
+        for C in (0, 1):
+            lens, sd = (lens1, side) if C else (ctx, ())
+            record("paged_decode", f"{case} C={C}", err((
+                paged_decode_attention(qd, pool, bt, lens, *sd),
+                paged_decode_attention_plain(qd, pool, bt, lens, *sd))))
+        record("paged_splitk/2", f"{case} 1 side row", err((
+            splitk_attention(qd, pool, bt, lens1, 2, *side),
+            splitk_attention_plain(qd, pool, bt, lens1, 2, *side))))
+        o, lse = splitk_attention(qd, pool, bt, ctx, 2, with_lse=True)
+        o_ref, lse_ref = splitk_attention_plain(qd, pool, bt, ctx, 2, with_lse=True)
+        record("paged_splitk/2", f"{case} pages only, with lse",
+               err((o, o_ref), (lse[..., None], lse_ref[..., None])))
+        del pool
+    torch.cuda.empty_cache()
 
 
 def check_flash_refusals(randn):
@@ -453,22 +715,24 @@ K1_ATTRS = ("registers", "local_bytes", "static_smem", "dynamic_smem", "threads"
             "blocks_per_sm")
 
 
-def k1_attributes() -> dict:
-    """K1's three kernels as compiled, at each head dim:
-    ``cudaFuncGetAttributes`` (registers, local spill bytes, shared memory)
-    and resident blocks per SM, through ``dstorch_flash_kernel_attrs``."""
+def read_attributes(entry: str, *args) -> dict:
+    """One kernel's ``cudaFuncGetAttributes`` (registers, local spill bytes,
+    shared memory) and resident blocks per SM, through the C entry
+    ``entry(*args, int[6])``."""
     import ctypes
     from deepspeed_tpu_torch.ops.kernels import _loader
-    lib = _loader.load_library()
-    out = {}
-    for i, name in enumerate(K1_NAMES):
-        for D in K1_HEAD_DIMS:
-            buf = (ctypes.c_int * len(K1_ATTRS))()
-            rc = lib.dstorch_flash_kernel_attrs(i, D, ctypes.cast(buf, ctypes.c_void_p))
-            if rc != 0:
-                raise RuntimeError(f"dstorch_flash_kernel_attrs({name}, D={D}): {rc}")
-            out[f"{name}/D{D}"] = dict(zip(K1_ATTRS, list(buf)))
-    return out
+    buf = (ctypes.c_int * len(K1_ATTRS))()
+    rc = getattr(_loader.load_library(), entry)(*args, ctypes.cast(buf, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"{entry}{args}: {rc}")
+    return dict(zip(K1_ATTRS, list(buf)))
+
+
+def k1_attributes() -> dict:
+    """K1's three kernels as compiled, at each head dim, through
+    ``dstorch_flash_kernel_attrs``."""
+    return {f"{name}/D{D}": read_attributes("dstorch_flash_kernel_attrs", i, D)
+            for i, name in enumerate(K1_NAMES) for D in K1_HEAD_DIMS}
 
 
 def check_flash(randn, record):
@@ -832,11 +1096,7 @@ def check_window_kernels(dev, randn, record):
     # ---- K2: one 4224-row segment (the take cap) plus two short ones ---- #
     seg_lens = W_SEGS
     R = sum(seg_lens) + 16                          # 16 padding rows
-    seg = torch.full((R,), -1, dtype=torch.int32, device=dev)
-    o = 0
-    for i, n in enumerate(seg_lens):
-        seg[o:o + n] = i
-        o += n
+    seg = packed_segments(R, seg_lens, dev)
     q, k, v = randn(R, H, D), randn(R, Hkv, D), randn(R, Hkv, D)
     idx = torch.arange(R, device=dev)
     for w in (W, W_SHORT):
@@ -846,7 +1106,7 @@ def check_window_kernels(dev, randn, record):
         case = f"R={R} H={H} Hkv={Hkv} D={D} segs={seg_lens}+pad window={w}"
         extra = {}
         if w == W:
-            pairs = sum(sum(min(r + 1, w) for r in range(n)) for n in seg_lens + [16])
+            pairs = packed_pairs(R, seg_lens, w)
             mask = (idx[:, None] >= idx[None]) & (idx[:, None] - idx[None] < w) \
                 & (seg[:, None] == seg[None])
             qt = q.transpose(0, 1)[None]
@@ -865,7 +1125,13 @@ def check_window_kernels(dev, randn, record):
         rows_ = slice(0, sum(seg_lens))
         record("flash_packed_window", case, err((out[rows_], ref[rows_])), row=w == W,
                **extra)
-    del q, k, v, out, ref
+    # the lse output under the window of 4096 (counts as flash_packed_window_lse)
+    out, lse = flash_attention_packed(q, k, v, seg, window=W, with_lse=True)
+    ref, lse_ref = flash_attention_packed_plain(q, k, v, seg, window=W, with_lse=True)
+    torch.cuda.synchronize()
+    record("flash_packed_lse", f"R={R} H={H} Hkv={Hkv} D={D} segs={seg_lens}+pad window={W}",
+           with_lse_check(err((out[rows_], ref[rows_])), lse_err(lse[rows_], lse_ref[rows_])))
+    del q, k, v, out, ref, lse, lse_ref
     torch.cuda.empty_cache()
 
     # ---- one ring pool for K5, the decode kernel and K7 ---- #
@@ -1270,10 +1536,13 @@ def run_slice():
             raise AssertionError("generate() returned a malformed stream")
     if lg2.shape != (3, V) or not np.isfinite(lg2).all():
         raise AssertionError("put() logits malformed")
+    lse_launches = launches["flash_packed_lse"]
     launches = {k: launches[k] for k in ("flash_packed", "paged_chunk", "paged_decode")}
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
+    # no caller in the engine asks K2 for its lse: 0 launches on the main path
+    launches["flash_packed_lse"] = lse_launches
     if engine.free_blocks != 64:
         raise AssertionError(f"free blocks {engine.free_blocks} != 64 after flush")
 
@@ -3378,6 +3647,82 @@ def run_bloom_7b1():
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 13: serving phi-2 (head dim 80) at full width and depth
+# --------------------------------------------------------------------------- #
+
+P_KERNELS = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk/2", "splitk_merge")
+P_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk", "splitk_merge")
+ENGINE_PHI2 = {"kv_cache": {"block_size": HD_BS, "num_blocks": 40},
+               "state_manager": {"max_context": 2048},
+               "attention": {"decode_splits": 2, "min_ctx_per_split": 512}, "seed": 0}
+P_PROMPTS = (1500, 600, 200, 40)     # they end at HD_CTXS (+32 new tokens each)
+
+
+def run_phi2():
+    """Phase 13: phi-2 at full width and depth (32 layers, 2560 wide, 32
+    heads of D = 80, partial rotary 0.4, parallel blocks, vocab 51200),
+    random bf16 weights from seed 0, through the packed prefill (K2), the
+    chunk kernel (K5), the decode kernel and K7 at 2 splits, all at D = 80.
+    Returns the main path's launch counts."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models.decoder import DecoderConfig, DecoderLM
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gib = lambda b: b / 2 ** 30
+    cfg = DecoderConfig.phi_2(dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, device="cuda", seed=0)
+    engine = InferenceEngineV2(model, ENGINE_PHI2, model.flat_params())
+    spec = engine.spec
+    torch.cuda.synchronize()
+    print(f"model: phi-2 (DecoderConfig.phi_2: vocab {cfg.vocab_size}, hidden "
+          f"{cfg.hidden_size}, FFN {cfg.intermediate_size}, {cfg.num_hidden_layers} layers, "
+          f"{cfg.num_attention_heads} heads, head_dim {cfg.head_dim}, rotary_dim "
+          f"{spec.rotary_dim}, parallel block), random bf16 weights (seed 0); family "
+          f"{engine.family}; pool {ENGINE_PHI2['kv_cache']['num_blocks']} pages; chunk budget "
+          f"{engine.config.state_manager.chunk_budget}; ladder {engine.attn_split_ladder}; "
+          f"build {time.perf_counter() - t0:.1f} s, memory "
+          f"{gib(torch.cuda.memory_allocated()):.2f} GiB", flush=True)
+    if spec.head_dim != 80 or spec.alibi or engine._pass_prefill is None:
+        raise AssertionError(f"phi-2 spec {spec}: expected D = 80, rotary and the packed "
+                             "prefill pass")
+
+    rng = np.random.RandomState(13)
+    V = cfg.vocab_size
+    prompts = [rng.randint(0, V, n).astype(np.int32) for n in P_PROMPTS]
+    uids = [10, 11, 12, 13]
+    launches, _, got, toks, _, t_gen, t_prefill, pipe = serve_main_path(
+        engine, prompts, uids, P_KERNELS, rng)
+    limit = logits_check("phi-2, D = 80", prompts, got, toks,
+                         lambda i, seq, rows, dt: model.head(
+                             model.hidden(seq[None], compute_dtype=dt)[0, rows]))
+    rung_invariance(engine, uids, limit)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.run(8)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    n_prompt = sum(len(p) for p in prompts)
+    print(f"generate() 4 prompts x 32 tokens in {t_gen:.2f} s; prefill {n_prompt} tokens in "
+          f"{t_prefill * 1e3:.1f} ms = {n_prompt / t_prefill:.1f} tok/s; decode 4 x 8 tokens "
+          f"in {t_decode * 1e3:.1f} ms = {32 / t_decode:.1f} tok/s", flush=True)
+    engine.flush(uids + [14])
+    chunk = engine.config.state_manager.chunk_budget
+    device_breakdown(f"phi-2 prefill pass ({chunk} tokens from 0, packed prefill)",
+                     lambda: engine.put([20], [rng.randint(0, V, chunk).astype(np.int32)]),
+                     P_NAMES)
+    engine.flush([20])
+    print(f"phase 13: peak device memory {gib(torch.cuda.max_memory_allocated()):.2f} GiB; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 ATTN_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "flash_fwd", "flash_bwd_dq",
               "flash_bwd_dkv")
 Q_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk", "splitk_merge",
@@ -3460,6 +3805,9 @@ def main() -> int:
     launches.update({k: v for k, v in run_mistral_lean().items() if k not in shared})
     torch.cuda.empty_cache()
     launches.update({k: v for k, v in run_bloom_7b1().items() if k not in shared})
+    torch.cuda.empty_cache()
+    # phase 13: its K2, K5, decode and K7 rows keep phases 4's and 6's counts
+    run_phi2()
     # modules by full name: the package re-exports same-named functions
     from deepspeed_tpu_torch.ops.kernels import paged_chunk, paged_decode, paged_splitk
     from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import KERNELS as K9_KERNELS
@@ -3482,6 +3830,7 @@ def main() -> int:
     fp = sys.modules["deepspeed_tpu_torch.ops.kernels.flash_packed"]
     sources.update({
         fp.NAME_WINDOW: (fp.SOURCE, fp.REPLACES_WINDOW),
+        fp.NAME_LSE: (fp.SOURCE, fp.REPLACES_LSE),
         paged_chunk.NAME_WINDOW: (paged_chunk.SOURCE, paged_chunk.REPLACES_WINDOW),
         paged_decode.NAME_WINDOW: (paged_decode.SOURCE, paged_decode.REPLACES_WINDOW),
         **{paged_splitk.kernel_name(n, MISTRAL_WINDOW): (paged_splitk.SOURCE,

@@ -5,9 +5,10 @@
 // rows of ONE head: Q, then 64-key tiles of K and V, staged in shared
 // memory; scores and P.V on CUDA cores with FMAs in f32; online softmax
 // (running max m, sum l, accumulator o) per row. The caller supplies where
-// key rows live (kv_row) and which (row, key) pairs are visible (mask), so
-// the packed-prefill kernel (rows of a packed batch) and the paged chunk
-// kernel (rows gathered through a block table) share this loop.
+// key rows live (kv_row) and which (row, key) pairs are visible (mask).
+// Its user is the paged chunk kernel (rows gathered through a block
+// table); the packed-prefill kernel runs on the tensor cores
+// (flash_packed.cu on mma_common.cuh).
 //
 // Thread layout (256 threads): thread (ty = tid / 16, tx = tid % 16) owns
 // query rows 4*ty .. 4*ty+3; for the scores it owns key columns tx + 16*c
@@ -333,12 +334,16 @@ __device__ __forceinline__ void flash_block(const bf16* __restrict__ q_rows,
   }
 }
 
-// Dispatch on the head dim (compile-time in flash_block).
+// Dispatch on the head dim (compile-time in flash_block): 80 and 96 are
+// phi-2's and GPT-NeoX-20B's (FlashSmem's padded rows stay an odd number
+// of words: 41 and 49).
 #define DSTORCH_DISPATCH_D(D, FN, ...)      \
   switch (D) {                              \
     case 16: return FN<16>(__VA_ARGS__);    \
     case 32: return FN<32>(__VA_ARGS__);    \
     case 64: return FN<64>(__VA_ARGS__);    \
+    case 80: return FN<80>(__VA_ARGS__);    \
+    case 96: return FN<96>(__VA_ARGS__);    \
     case 128: return FN<128>(__VA_ARGS__);  \
     case 256: return FN<256>(__VA_ARGS__);  \
     default: return -1;                     \

@@ -4,10 +4,11 @@
 //
 // Shared-memory tiles. A tile is `rows` x D bf16, row-major, with no
 // padding: each row is D / 8 chunks of 16 bytes, and chunk c of row r is
-// stored at chunk position c ^ f(r) (an XOR swizzle). ldmatrix reads one
-// 16-byte chunk from each of 8 rows at once; the swizzle puts those 8
-// chunks in 8 different 16-byte bank groups for every D in {16, 32, 64,
-// 128}, so no ldmatrix and no cp.async store conflicts on banks. Tiles are
+// stored at chunk position c ^ f(r) (an XOR swizzle that keeps the chunk in
+// its row). ldmatrix reads one 16-byte chunk from each of 8 rows at once
+// (rows 8i .. 8i + 7); the swizzle puts those 8 chunks in 8 different
+// 16-byte bank groups for every D in {16, 32, 64, 80, 96, 128, 256}, so no
+// ldmatrix and no cp.async store conflicts on banks. Tiles are
 // filled by cp.async (16 bytes a thread, zero-filled past the last valid
 // row, so a ragged edge holds zeros and never NaN garbage) in commit
 // groups, two stages deep in the kernels that stream.
@@ -43,10 +44,23 @@ constexpr float kLog2e = 1.4426950408889634f;
 // element offset of 16-byte chunk `chunk` of row `row` in a [rows][D] tile
 template <int D>
 __device__ __forceinline__ int swz(int row, int chunk) {
-  constexpr int C = D / 8;                 // chunks per row
-  constexpr int R = C >= 8 ? 1 : 8 / C;    // rows per 128-byte line
-  constexpr int M = C >= 8 ? 7 : C - 1;
-  return row * D + ((chunk ^ ((row / R) & M)) << 3);
+  constexpr int C = D / 8;  // chunks per row
+  if constexpr (C % 8 == 0 || 8 % C == 0) {
+    constexpr int R = C >= 8 ? 1 : 8 / C;  // rows per 128-byte line
+    constexpr int M = C >= 8 ? 7 : C - 1;
+    return row * D + ((chunk ^ ((row / R) & M)) << 3);
+  } else if constexpr (C % 4 == 0) {
+    // 12 chunks (D = 96): row r starts 4r bank groups (mod 8) on, so rows
+    // 2i and 2i + 1 fill both halves of a line and the low two chunk bits
+    // XOR (r / 2) & 3
+    return row * D + ((chunk ^ ((row >> 1) & 3)) << 3);
+  } else {
+    // 10 chunks (D = 80): row r starts 2r bank groups (mod 8) on, so rows
+    // 0..3 take the even groups and rows 4..7 the odd ones: the low chunk
+    // bit XORs (r / 4) & 1
+    static_assert(C % 2 == 0, "head dim must be a multiple of 16");
+    return row * D + ((chunk ^ ((row >> 2) & 1)) << 3);
+  }
 }
 
 // ---- cp.async ------------------------------------------------------------ //

@@ -13,7 +13,7 @@ Sections whose feature the port does not carry yet (``spec_decode``,
 
 The ``compile`` section configures XLA's compile cache and AOT warmup in the
 JAX package. PyTorch runs eagerly here, so it has no counterpart yet: it is
-accepted and has no effect.
+accepted, validated as in the JAX package, and has no effect.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ from dataclasses import dataclass, field, fields
 from typing import Any, Optional
 
 import torch
+
+from deepspeed_tpu_torch.utils.caching import next_pow2
 
 
 @dataclass
@@ -93,12 +95,25 @@ class PrefixCacheConfig:
 
 @dataclass
 class CompileConfig:
-    """XLA compile cache and AOT warmup in the JAX package; no effect here."""
+    """XLA compile cache and AOT warmup in the JAX package; no effect here.
+    The values are validated and normalised as the JAX package does:
+    ``warmup_buckets`` must be ints >= 1 and is rounded up to the pow2 grid
+    (sorted, without repeats), ``warmup_decode_steps`` must be ints >= 1."""
     cache_dir: Optional[str] = None
     min_compile_time_secs: float = 2.0
     warmup: bool = False
     warmup_buckets: Optional[Any] = None
     warmup_decode_steps: Any = ()
+
+    def __post_init__(self):
+        if self.warmup_buckets is not None:
+            if any(not isinstance(b, int) or b < 1 for b in self.warmup_buckets):
+                raise ValueError("compile.warmup_buckets must be ints >= 1, "
+                                 f"got {self.warmup_buckets!r}")
+            self.warmup_buckets = sorted({next_pow2(b) for b in self.warmup_buckets})
+        if any(not isinstance(n, int) or n < 1 for n in self.warmup_decode_steps):
+            raise ValueError("compile.warmup_decode_steps must be ints >= 1, "
+                             f"got {self.warmup_decode_steps!r}")
 
 
 @dataclass

@@ -15,7 +15,8 @@ name (``paged_splitk/8``); a launch over an int8 pool counts under the
 kernel's ``_int8`` name (``paged_decode_int8``, ``paged_splitk_int8/4``);
 a launch with a sliding window under its ``_window`` name
 (``flash_packed_window``, ``paged_splitk_window/4``,
-``paged_chunk_int8_window``), one with ALiBi under its ``_alibi`` name
+``paged_chunk_int8_window``), one of K2 with its lse output under its
+``_lse`` name (``flash_packed_lse``, ``flash_packed_window_lse``), one with ALiBi under its ``_alibi`` name
 (``paged_decode_alibi``, ``paged_splitk_int8_alibi/2``; both:
 ``paged_decode_window_alibi``), and a decode launch with more than one
 side row (a burst's side buffer) under its ``_side`` name before those
@@ -53,7 +54,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: (argtypes), all return the launch's cudaError_t as int
 ENTRY_POINTS = {
-    "dstorch_flash_packed_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "dstorch_flash_packed_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "dstorch_flash_packed_attrs": (_I, _P),
     "dstorch_paged_chunk_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _I, _I, _I, _I, _F, _P),
     "dstorch_paged_decode_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -93,6 +95,7 @@ ENTRY_POINTS = {
 
 LAUNCHES: Dict[str, int] = {"flash_packed": 0, "paged_chunk": 0,
                             "paged_decode": 0, "flash_packed_window": 0,
+                            "flash_packed_lse": 0, "flash_packed_window_lse": 0,
                             "paged_chunk_window": 0, "paged_decode_window": 0,
                             "paged_chunk_alibi": 0, "paged_decode_alibi": 0,
                             "flash_fwd": 0,

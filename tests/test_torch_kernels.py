@@ -59,7 +59,7 @@ def _pool_and_tables(rng, ctxs, NB, Hkv, bs, D, MB):
     return pool, bt
 
 
-@pytest.mark.parametrize("D", [16, 128])
+@pytest.mark.parametrize("D", [16, 96, 128])
 def test_packed_prefill_matches_k2(D):
     """GQA 4/2, R = 100 (not a multiple of 128), three segments plus
     padding rows (segment -1)."""
@@ -74,7 +74,7 @@ def test_packed_prefill_matches_k2(D):
     _close(port[:95], np.asarray(ref)[:95])
 
 
-@pytest.mark.parametrize("D", [16, 128])
+@pytest.mark.parametrize("D", [16, 96, 128])
 def test_paged_chunk_matches_k5(D):
     """Several slots with q_start > 0 (continuation chunks), one slot
     starting at 0, one empty slot (ctx 0 -> zeros)."""

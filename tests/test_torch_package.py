@@ -222,6 +222,11 @@ def _kernel_inputs(seed=0):
         # window start (logical page 0 of row 0)
         "flash_packed_window": lambda: ((f(10, 4, 16), f(10, 2, 16), f(10, 2, 16),
                                          i32([0] * 6 + [1] * 3 + [-1])), {"window": 3}),
+        "flash_packed_lse": lambda: ((f(10, 4, 16), f(10, 2, 16), f(10, 2, 16),
+                                      i32([0] * 6 + [1] * 3 + [-1])), {"with_lse": True}),
+        "flash_packed_window_lse": lambda: ((f(10, 4, 16), f(10, 2, 16), f(10, 2, 16),
+                                             i32([0] * 6 + [1] * 3 + [-1])),
+                                            {"window": 3, "with_lse": True}),
         "paged_chunk_window": lambda: ((f(2, 4, 4, 16), pool, i32([[1, 2], [3, 0]]),
                                         i32([2, 0]), i32([6, 0])), {"window": 3}),
         "paged_decode_window": lambda: ((f(2, 4, 16), pool, i32([[1, 2], [3, 0]]),
@@ -290,6 +295,9 @@ WRAPPERS = {
     "paged_decode": (kernels.paged_decode_attention, kernels.paged_decode_attention_plain),
     "flash_packed_window": (kernels.flash_attention_packed,
                             kernels.flash_attention_packed_plain),
+    "flash_packed_lse": (kernels.flash_attention_packed, kernels.flash_attention_packed_plain),
+    "flash_packed_window_lse": (kernels.flash_attention_packed,
+                                kernels.flash_attention_packed_plain),
     "paged_chunk_window": (kernels.paged_chunk_attention_batched,
                            kernels.paged_chunk_attention_batched_plain),
     "paged_decode_window": (kernels.paged_decode_attention,
