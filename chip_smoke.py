@@ -48,7 +48,12 @@ required bitwise equal; prints the ``k1-kernels`` line (registers, spill
 bytes and shared memory per kernel and head dim, achieved TFLOP/s at the
 training shape) and fails on a spill; and the memory-lean serving kernels
 at Llama-2-13B's shapes: K8 (int8 weight matmul) at M = 4 through every
-projection and the LM head and at M = 736 through gate/up, the int8 decode
+projection and the LM head, ``qmm_mma`` at every projection a prefill
+pass gives it (13B at M = 736, Mistral-7B's unpacked int4 weights at M =
+4224, BLOOM-7b1's and phi-2's at M = 736; M = 9, 63 and 130, and K =
+4128, which 64 does not divide), each rerun and required bitwise equal,
+both of its token tiles timed, its registers printed (the ``k8-kernels``
+line; a spill fails) and its refusals (K % 32, N % 16), the int8 decode
 and chunk kernels, K7 split-K decode at 2, 4 and 8 splits (contexts up to
 4264 tokens, one short enough to leave splits empty) and its merge kernel.
 
@@ -60,7 +65,12 @@ and chunk kernels, K7 split-K decode at 2, 4 and 8 splits (contexts up to
    ragged shapes at D = 128 (S = 1040 in blocks of 16, S = 1056 in blocks
    of 32); each kernel (forward, dq, dk/dv) against its plain version, one
    launch of each per op call, the op against its plain route, the op's
-   and kernels' times with SDPA over the boolean token mask as yardstick.
+   and kernels' times with SDPA over the boolean token mask as yardstick;
+   then K9's dq and dk/dv at D 16/32/64/128, causal and not, on those five
+   layouts at B = 1 and on a hand-made layout (a 64-tile with a
+   single active 16-block, a query band and a key band that see nothing:
+   their gradients must be exactly 0), each rerun and required bitwise
+   equal, and the ``k9-kernels`` line (registers, spills; a spill fails).
 
 8. Evoformer pair-bias attention (K10) at AlphaFold 2's fine-tuning
    Evoformer widths (crop 384 residues, 512 MSA clusters, B = 1; MSA row
@@ -853,12 +863,22 @@ def check_flash(randn, record):
 
 
 # K8 at Llama-2-13B's projection shapes: M = 4 (the decode batch) through
-# q/k/v/o, gate/up, down and the LM head, and M = 736 (a prefill pass)
-# through gate/up; the kernel table keeps one shape per kernel
+# q/k/v/o, gate/up, down and the LM head; then qmm_mma at every projection
+# a prefill pass gives it: 13B's q/k/v/o, gate/up and down at M = 736, the
+# unpacked int4 weights of Mistral-7B (q/o, k/v, gate/up, down) at M = 4224,
+# BLOOM-7b1's (qkv, o, fc1, fc2) and phi-2's (q/k/v/dense, fc1, fc2) at M =
+# 736; M = 9, 63 and 130, and a K (4128) that 64 does not divide. The
+# kernel table keeps one shape per kernel.
 QMM_SHAPES = ((4, 5120, 5120), (4, 5120, 13824), (4, 13824, 5120), (4, 5120, 32000),
-              (736, 5120, 13824))
+              (736, 5120, 5120), (736, 5120, 13824), (736, 13824, 5120),
+              (4224, 4096, 4096), (4224, 4096, 1024), (4224, 4096, 14336),
+              (4224, 14336, 4096),
+              (736, 4096, 12288), (736, 4096, 4096), (736, 4096, 16384), (736, 16384, 4096),
+              (736, 2560, 2560), (736, 2560, 10240), (736, 10240, 2560),
+              (9, 5120, 5120), (63, 5120, 13824), (130, 5120, 13824), (736, 4128, 5120))
 QMM_ROWS = {"quantized_matmul_gemv": (4, 5120, 13824),
             "quantized_matmul_mma": (736, 5120, 13824)}
+QMM_TILES = (128, 256)     # qmm_mma's token tiles, both timed at the row's shape
 # the 13B attention cases: S = 4 sequences, 40 heads (MHA), D = 128, pages of
 # 128, block tables as wide as phase 6's max_context (4608 = 36 pages); the
 # 200-token row leaves splits empty at every split count
@@ -914,19 +934,25 @@ def check_quant_kernels(dev, g, randn, record):
         del w
         out = quantized_matmul(a, w8, sc)
         ref = quantized_matmul_plain(a, w8, sc)
+        again = quantized_matmul(a, w8, sc)
         torch.cuda.synchronize()
         name = GEMV if M <= GEMV_MAX_M else MMA
+        if not torch.equal(out, again):
+            raise AssertionError(f"{name} M={M} K={K} N={N}: two runs differ")
+        row = (M, K, N) == QMM_ROWS[name]
         b_ms, b_by = bound(K * N + 4 * N + 2 * M * K + 2 * M * N, 2 * M * K * N)
-        record(name, f"M={M} K={K} N={N}", err((out, ref)),
-               row=(M, K, N) == QMM_ROWS[name],
+        record(name, f"M={M} K={K} N={N}", err((out, ref)), row=row,
                ms=time_ms(lambda: quantized_matmul(a, w8, sc)),
-               plain_ms=time_ms(lambda: quantized_matmul_plain(a, w8, sc), 5, 1),
+               plain_ms=(time_ms(lambda: quantized_matmul_plain(a, w8, sc), 5, 1)
+                         if row else None),
                library_ms=time_ms(lambda: torch.matmul(a, wb)),
                library_covers="torch.matmul on the bf16 weight of the same shape "
                               "(twice the weight bytes)",
-               bound_ms=b_ms, bound_by=b_by)
+               bound_ms=b_ms, bound_by=b_by, bitwise_equal_rerun=True)
+        if row and name == MMA:
+            qmm_tiles(a, w8, sc, out)
         del w8, sc, wb
-
+    qmm_refusals(dev)
     # ---- one int8 pool (and its bf16 twin) for the attention kernels ---- #
     S, Hq, Hkv, D, bs = 4, 40, 40, 128, 128
     NB = sum(-(-c // bs) for c in Q_CTXS) + 2
@@ -1033,6 +1059,59 @@ def check_quant_kernels(dev, g, randn, record):
            row=True, ms=time_ms(lambda: splitk_merge(out_p, lse_p, torch.bfloat16)),
            plain_ms=time_ms(lambda: merge_splitk_partials(out_p, lse_p), 5, 1),
            library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def qmm_tiles(a, w8, sc, want):
+    """qmm_mma at each token tile (``dstorch_qmm_mma_tiled``) on the kernel
+    row's inputs: the same bits as the entry's pick, each tile's time, and
+    the kernel's registers and spills (a spill fails the run)."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels import _loader
+    lib, P = _loader.load_library(), _loader.ptr
+    M, K = a.shape
+    N = w8.shape[1]
+    s = sc.reshape(N)
+    line = {}
+    for tm in QMM_TILES:
+        out = torch.empty_like(want)
+
+        def run():
+            rc = lib.dstorch_qmm_mma_tiled(P(a), P(w8), P(s), P(out), M, K, N, tm,
+                                           torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"qmm_mma tile {tm}: {rc}")
+
+        run()
+        torch.cuda.synchronize()
+        line[f"tile_{tm}"] = {"same_as_entry": bool(torch.equal(out, want)) if tm == (
+            128 if M <= 128 else 256) else None, "ms": time_ms(run),
+            "attributes": read_attributes("dstorch_qmm_mma_attrs", tm)}
+    print("k8-kernels " + json.dumps({"shape": [M, K, N], **line}), flush=True)
+    if any(v["same_as_entry"] is False for v in line.values()):
+        raise AssertionError("qmm_mma: the tiled entry differs from dstorch_qmm_mma")
+    spills = {k: v["attributes"]["local_bytes"] for k, v in line.items()
+              if v["attributes"]["local_bytes"]}
+    if spills:
+        raise AssertionError(f"qmm_mma spills to local memory: {spills}")
+
+
+def qmm_refusals(dev):
+    """The shapes qmm_mma refuses (K % 32, N % 16) raise and count nothing."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES
+    from deepspeed_tpu_torch.ops.kernels.quantized_matmul import quantized_matmul
+    before = dict(LAUNCHES)
+    for M, K, N in ((64, 48, 128), (64, 64, 40)):
+        a = torch.zeros(M, K, dtype=torch.bfloat16, device=dev)
+        w8 = torch.zeros(K, N, dtype=torch.int8, device=dev)
+        try:
+            quantized_matmul(a, w8, torch.ones(N, device=dev))
+        except RuntimeError as e:
+            print(f"refusal ok: qmm_mma M={M} K={K} N={N}: {e}", flush=True)
+        else:
+            raise AssertionError(f"qmm_mma took K={K} N={N} without raising")
+    if dict(LAUNCHES) != before:
+        raise AssertionError("a refused K8 call counted a launch")
 
 
 # Mistral-7B's attention at its serving shapes (phase 9): 32 query heads over
@@ -2605,7 +2684,8 @@ def check_sparse_kernels(label, cfg, S, D, timed, randn, record):
     dq_ref = block_sparse_dq_plain(q, k, v, do, lse, delta, tables, scale)
     dk, dv = block_sparse_dkv(q, k, v, do, lse, delta, tables, scale)
     dk_ref, dv_ref = block_sparse_dkv_plain(q, k, v, do, lse, delta, tables, scale)
-    torch.cuda.synchronize()
+    same_bits(label, (dq, dk, dv), (block_sparse_dq(q, k, v, do, lse, delta, tables, scale),
+                                    *block_sparse_dkv(q, k, v, do, lse, delta, tables, scale)))
     mask = head_masks(tables, H)
     pairs = B * int(mask.sum())
     shares = {"layout": label, "S": S, "D": D, "block": cfg.block,
@@ -2661,6 +2741,90 @@ def check_sparse_kernels(label, cfg, S, D, timed, randn, record):
     return q, k, v, do
 
 
+def same_bits(label, first, second):
+    """K9's backward is deterministic: a rerun gives the same bits."""
+    import torch
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{label}: two runs of K9's backward differ")
+
+
+# K9's backward per head dim and mask: the layouts of sparse_cases (A, B and
+# C at S = 4096, the two ragged shapes) at B = 1, D 16/32/64/128, with and
+# without causal (the layout's own tables with the flag flipped), and a
+# hand-made layout (S = 256, blocks of 16) where one 64-tile holds a single
+# active 16-block and one query band, and the keys of one band, see
+# nothing at all
+K9_BWD_DIMS = (16, 32, 64, 128)
+
+
+def handmade_layout():
+    """[1, 16, 16]: the diagonal but block 6; one block (5, 11) in tile
+    (1, 2); row 12 over blocks 0-3; block (0, 15) above the diagonal. Band
+    2 of q-tile 1 (queries 96-111) sees no key, and no query sees keys
+    96-111."""
+    layout = np.eye(16, dtype=np.int64)
+    layout[6, 6] = 0
+    layout[5, 11] = 1
+    layout[12, 0:4] = 1
+    layout[0, 15] = 1
+    return layout[None]
+
+
+def check_sparse_bwd(randn, record):
+    """K9's dq and dk/dv against their plain versions (fed the kernel
+    forward's lse) at every head dim, causal and not, on phase 7's layouts
+    and the hand-made one (whose empty rows and keys must get exactly zero
+    gradients); each rerun and required bitwise equal. Prints the
+    ``k9-kernels`` line (registers, spills, shared memory) and fails on a
+    spill."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels import (
+        block_sparse_delta, block_sparse_dkv, block_sparse_dkv_plain, block_sparse_dq,
+        block_sparse_dq_plain, block_sparse_fwd, get_tables)
+    H = SPARSE_H
+    layouts = [(label, cfg.make_layout(S), cfg.block) for label, cfg, S, _, _ in sparse_cases()]
+    layouts.append(("hand-made", np.repeat(handmade_layout(), H, 0), 16))
+    for label, layout, block in layouts:
+        S = layout.shape[1] * block
+        for causal, D in itertools.product((False, True), K9_BWD_DIMS):
+            if label == "hand-made" and D not in (64, 128):
+                continue
+            tables = get_tables(layout, block, causal, S, "cuda")
+            scale = D ** -0.5
+            q, k, v, do = (randn(1, H, S, D) for _ in range(4))
+            o, lse = block_sparse_fwd(q, k, v, tables, scale)
+            delta = block_sparse_delta(o, do)
+            dq = block_sparse_dq(q, k, v, do, lse, delta, tables, scale)
+            dk, dv = block_sparse_dkv(q, k, v, do, lse, delta, tables, scale)
+            case = f"{label}: B=1 H={H} S={S} D={D} {'causal' if causal else 'full'}"
+            same_bits(case, (dq, dk, dv), (
+                block_sparse_dq(q, k, v, do, lse, delta, tables, scale),
+                *block_sparse_dkv(q, k, v, do, lse, delta, tables, scale)))
+            record("block_sparse_dq", case, err((dq, block_sparse_dq_plain(
+                q, k, v, do, lse, delta, tables, scale))))
+            record("block_sparse_dkv", case, err(*zip(
+                (dk, dv), block_sparse_dkv_plain(q, k, v, do, lse, delta, tables, scale))))
+            if label == "hand-made":
+                zero = (float(dq[:, :, 96:112].abs().max()), float(dk[:, :, 96:112].abs().max()),
+                        float(dv[:, :, 96:112].abs().max()))
+                print("k9-empty-rows " + json.dumps({"case": case, "max_abs_dq_dk_dv": zero}),
+                      flush=True)
+                if any(zero):
+                    raise AssertionError(f"{case}: rows or keys that see nothing got "
+                                         f"gradients {zero}")
+            del q, k, v, do, o, lse, delta, dq, dk, dv
+    attrs = {f"{name}/D{D}": read_attributes("dstorch_block_sparse_bwd_attrs", i, D)
+             for i, name in ((1, "block_sparse_dq"), (3, "block_sparse_dq_causal"),
+                             (2, "block_sparse_dkv"))
+             for D in K9_BWD_DIMS}
+    print("k9-kernels " + json.dumps({"attributes": attrs,
+                                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    spills = {k: a["local_bytes"] for k, a in attrs.items() if a["local_bytes"]}
+    if spills:
+        raise AssertionError(f"K9's backward kernels spill to local memory: {spills}")
+
+
 def check_op(case, op, plain_bf16, exact, names=("o", "dq", "dk", "dv"),
              label="sparse_self_attention (autograd)"):
     """The op's (o, dq, dk, dv, ...) against its plain route in f32: for each
@@ -2704,6 +2868,8 @@ def run_sparse(rows):
     record = functools.partial(record_check, rows)
     cases = sparse_cases()
     inputs = [check_sparse_kernels(*c, randn, record) for c in cases]
+    torch.cuda.empty_cache()
+    check_sparse_bwd(randn, record)
     torch.cuda.empty_cache()
 
     # ---- the main path: the op's entry point, forward and backward ---- #

@@ -20,16 +20,29 @@
 // same sums in the same order every time.
 //
 // qmm_mma (M > 8, the prefill passes): bound by operations at M = 736
-// (2*M*K*N flops against K*N + 2*M*(K+N) bytes). 128x128 output tiles, 8
-// warps of 64x32, bf16 tensor cores through mma.sync m16n8k16 with f32
-// accumulators. Each K step of 32 stages a's tile and the int8 weight tile
-// in shared memory, the weights converted to bf16 (exact: |w8| <= 127) and
-// stored column-major so a fragment pair is one 32-bit read; the next
-// step's global loads are issued before this step's mma. No TMA, wgmma or
-// multi-stage pipeline yet.
+// (2*M*K*N flops against K*N + 2*M*(K+N) bytes: 104 GFLOP = 105 us at 989
+// TFLOP/s against 99 MB = 29 us at Llama-2-13B's gate/up, 5120 -> 13824).
+// Hopper's warp-specialised GEMM: a block of three warpgroups owns 128
+// output columns and TM = 128 or 256 tokens. A producer thread keeps a
+// 4-stage ring of TMA loads in flight (a's bf16 [TM][64] tile and w8's
+// int8 [64][128] tile, both with the 128-byte swizzle, completing on
+// mbarriers; TMA zero-fills rows past M and columns past K). Two consumer
+// warpgroups of 64 columns each run wgmma m64n128k16 (bf16 x bf16 -> f32)
+// with the weight as the A operand from registers: each stage's int8 tile
+// is read from shared memory, its k pairs gathered with byte permutes and
+// converted to bf16 exactly (|w8| <= 127) on the way (wgmma takes no mixed
+// types, and no bf16 copy of the weight is stored), and a's tile is the B
+// operand, K-major in shared memory (out^T = w8^T . a^T). A consumer
+// converts the next stage's tile while the current stage's products run
+// (two fragment buffers; wgmma.wait_group 1 releases a stage). The epilogue
+// scales in f32, rounds to bf16, stages the tile in shared memory and
+// stores 16-byte rows.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_common.cuh"  // kernel_attributes
 
 namespace dstorch {
 
@@ -144,117 +157,332 @@ qmm_gemv_kernel(const bf16* __restrict__ a, const int8_t* __restrict__ w8,
 }
 
 // ---------------------------------------------------------------------- //
-// tensor-core tiles: M > 8
+// tensor-core tiles: M > 8 (wgmma fed by a TMA ring)
 // ---------------------------------------------------------------------- //
+//
+// The block computes out^T[n][m] = sum_k w8[k][n] a[m][k] for 128 columns n
+// and TM tokens m: the weight is wgmma's A operand (64 rows n a consumer
+// warpgroup, from registers: int8 cannot be a bf16 operand in shared
+// memory) and a's tile is its B operand, read by wgmma from shared memory
+// where TMA put it K-major with the 128-byte swizzle (b-descriptor below).
+//
+// A-fragment rows are permuted: row 16 w + g of consumer warpgroup c holds
+// column n = 64 c + 16 w + 2 g and row 16 w + g + 8 holds n + 1, so that
+// a thread's two rows are one 16-bit pair of the [k][n] int8 tile; four
+// 16-bit reads (k = 2t, 2t + 1, 2t + 8, 2t + 9 of a 16-deep step) and two
+// byte permutes gather the k pairs of both rows, and each byte becomes an
+// exact bf16 through f32 (2^23 + (b + 128) has b + 128 in its low byte).
+// The accumulator then holds, for token m, the column pair (n, n + 1).
 
-constexpr int kBM = 128, kBN = 128, kBK = 32;
-constexpr int kAS = kBK + 8;      // padded smem row (bf16): conflict-free fragments
-constexpr int kMmaThreads = 256;
+constexpr int kQmmBN = 128;       // output columns a block
+constexpr int kQmmBK = 64;        // K depth of a stage: one 128-byte bf16 row of a
+constexpr int kQmmStages = 4;
+constexpr int kQmmThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kQmmEpiRow = 72;    // bf16 row of the epilogue's [TM][64] tile (padded)
 
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
-                                               const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+template <int TM>
+struct QmmCfg {
+  static constexpr int a_bytes = TM * kQmmBK * 2;      // bf16 [TM][64]
+  static constexpr int w_bytes = kQmmBK * kQmmBN;      // int8 [64][128]
+  static constexpr int stage_bytes = a_bytes + w_bytes;
+  static constexpr int ring_bytes = kQmmStages * stage_bytes;
+  // 1024 bytes of slack to align the ring (the swizzle's period), then the
+  // full and empty barriers
+  static constexpr size_t smem_bytes = 1024 + ring_bytes + 2 * kQmmStages * 8;
+  static_assert(2 * TM * kQmmEpiRow * 2 <= ring_bytes, "epilogue tile exceeds the ring");
+  static_assert(TM % 128 == 0 && TM <= 256, "TM is 128 or 256");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(kMmaThreads)
-qmm_mma_kernel(const bf16* __restrict__ a, const int8_t* __restrict__ w8,
-               const float* __restrict__ scale, bf16* __restrict__ out, int M, int K,
-               int N) {
-  __shared__ __align__(16) bf16 As[kBM * kAS];   // [m][k]
-  __shared__ __align__(16) bf16 Bs[kBN * kAS];   // [n][k] (transposed)
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int g = lane >> 2, t = lane & 3;
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
 
-  // global -> register staging: 2 chunks of 8 bf16 of a, 16 int8 of w8
-  uint4 ar[2];
-  uint4 wr;
-  const int b_k = lane, b_n = warp * 16;          // this thread's w8 chunk
-  auto load_tiles = [&](int k0) {
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// wait until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box at (c0 inner, c1 outer) of `map` into dst, completing on bar
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile with 128-byte rows and
+// the 128-byte swizzle (8-row groups 1024 bytes apart)
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// keep the compiler from moving accumulator registers across wgmma
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int chunk = tid + i * kMmaThreads;
-      const int r = chunk >> 2, c = (chunk & 3) * 8;
-      ar[i] = (m0 + r < M)
-                  ? *reinterpret_cast<const uint4*>(a + (size_t)(m0 + r) * K + k0 + c)
-                  : make_uint4(0, 0, 0, 0);
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d [64 x 128] += A [64 x 16] (registers) . B [16 x 128] (shared, desc)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// bytes 2 HALF and 2 HALF + 1 of `u` (int8 values + 128, as unsigned) as a
+// bf16 pair, low half first; exact for |b| <= 128
+template <int HALF>
+__device__ __forceinline__ uint32_t biased_i8x2_to_bf16x2(uint32_t u) {
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + 2 * HALF));
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541 + 2 * HALF));
+  __nv_bfloat162 v = __floats2bfloat162_rn(f0 - 8388736.f, f1 - 8388736.f);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int TM>
+__global__ void __launch_bounds__(kQmmThreads, 1)
+qmm_mma_kernel(const __grid_constant__ CUtensorMap a_map,
+               const __grid_constant__ CUtensorMap w_map, const float* __restrict__ scale,
+               bf16* __restrict__ out, int M, int K, int N) {
+  using Cfg = QmmCfg<TM>;
+  constexpr int NSUB = TM / 128;  // m64n128 products a 16-deep step
+  extern __shared__ uint8_t qmm_smem[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(qmm_smem) + 1023) & ~(uintptr_t)1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + Cfg::ring_bytes);
+  uint64_t* empty = full + kQmmStages;
+  auto a_tile = [=](int s) { return ring + s * Cfg::stage_bytes; };
+  auto w_tile = [=](int s) { return ring + s * Cfg::stage_bytes + Cfg::a_bytes; };
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int m0 = blockIdx.x * TM, n0 = blockIdx.y * kQmmBN;
+  const int n_k = (K + kQmmBK - 1) / kQmmBK;
+  if (tid == 0) {
+    for (int s = 0; s < kQmmStages; ++s) {
+      mbar_init(full + s, 1);   // the producer's arrive; the bytes complete it
+      mbar_init(empty + s, 8);  // one arrive per consumer warp
     }
-    wr = (n0 + b_n < N)
-             ? __ldg(reinterpret_cast<const uint4*>(w8 + (size_t)(k0 + b_k) * N + n0 + b_n))
-             : make_uint4(0, 0, 0, 0);
-  };
-  auto store_tiles = [&]() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int chunk = tid + i * kMmaThreads;
-      const int r = chunk >> 2, c = (chunk & 3) * 8;
-      *reinterpret_cast<uint4*>(As + r * kAS + c) = ar[i];
-    }
-    const int8_t* wb = reinterpret_cast<const int8_t*>(&wr);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) Bs[(b_n + i) * kAS + b_k] = __float2bfloat16((float)wb[i]);
-  };
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-
-  load_tiles(0);
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    __syncthreads();   // the previous step's fragment reads are done
-    store_tiles();
-    __syncthreads();
-    if (k0 + kBK < K) load_tiles(k0 + kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bf16* p0 = As + (wm + i * 16 + g) * kAS + kk + t * 2;
-        const bf16* p1 = p0 + 8 * kAS;
-        af[i][0] = *reinterpret_cast<const uint32_t*>(p0);
-        af[i][1] = *reinterpret_cast<const uint32_t*>(p1);
-        af[i][2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
-        af[i][3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
+  if (wg == 0) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      for (int i = 0; i < n_k; ++i) {
+        const int s = i % kQmmStages;
+        mbar_wait(empty + s, ((i / kQmmStages) & 1) ^ 1);
+        mbar_expect_tx(full + s, Cfg::stage_bytes);
+        tma_load_2d(a_tile(s), &a_map, full + s, i * kQmmBK, m0);
+        tma_load_2d(w_tile(s), &w_map, full + s, n0, i * kQmmBK);
       }
+    }
+    return;
+  }
+
+  // consumers: warpgroup c owns columns n0 + 64 c .. + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = wg - 1, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nl = 64 * c + 16 * warp + 2 * g;  // the thread's column pair in the block
+  // acc[j]: tokens 128 j + 8 q + 2 t + e, column n at [4 q + e], n + 1 at
+  // [4 q + 2 + e]
+  float acc[NSUB][64];
+#pragma unroll
+  for (int j = 0; j < NSUB; ++j)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[j][i] = 0.f;
+
+  // stage s's weight tile as the A fragments of its four 16-deep steps
+  auto convert = [&](uint32_t (&af)[4][4], int s) {
+    const uint8_t* wt = w_tile(s);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t x[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const bf16* p = Bs + (wn + j * 8 + g) * kAS + kk + t * 2;
-        bfr[j][0] = *reinterpret_cast<const uint32_t*>(p);
-        bfr[j][1] = *reinterpret_cast<const uint32_t*>(p + 8);
+        const int kr = 16 * kk + 2 * t + (j & 1) + 8 * (j >> 1);
+        // the 128-byte swizzle: chunk nl / 16 of row kr sits at chunk
+        // (nl / 16) ^ (kr % 8)
+        x[j] = *reinterpret_cast<const uint16_t*>(
+            wt + kr * kQmmBN + ((((nl >> 4) ^ (kr & 7)) << 4) | (nl & 15)));
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16_16816(acc[i][j], af[i], bfr[j]);
+      // bytes (n k, n k+1, n+1 k, n+1 k+1) for k = 2t and k = 2t + 8
+      const uint32_t lo = __byte_perm(x[0], x[1], 0x5140) ^ 0x80808080u;
+      const uint32_t hi = __byte_perm(x[2], x[3], 0x5140) ^ 0x80808080u;
+      af[kk][0] = biased_i8x2_to_bf16x2<0>(lo);  // row g (n), k 2t, 2t + 1
+      af[kk][1] = biased_i8x2_to_bf16x2<1>(lo);  // row g + 8 (n + 1)
+      af[kk][2] = biased_i8x2_to_bf16x2<0>(hi);  // row g, k 2t + 8, 2t + 9
+      af[kk][3] = biased_i8x2_to_bf16x2<1>(hi);
     }
+  };
+  // k-step i: its products go out on fragments `cur`; while they run, step
+  // i - 1's stage is released (its products are done) and step i + 1's
+  // fragments are converted into `nxt`, the registers step i - 1 read
+  auto step = [&](int i, uint32_t (&cur)[4][4], uint32_t (&nxt)[4][4]) {
+    const int s = i % kQmmStages;
+#pragma unroll
+    for (int j = 0; j < NSUB; ++j) fence_regs(acc[j]);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < NSUB; ++j)
+        wgmma_m64n128k16(acc[j], cur[kk], desc_sw128(a_tile(s) + j * 128 * 128 + kk * 32));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    if (i > 0) {
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+#pragma unroll
+      for (int j = 0; j < NSUB; ++j) fence_regs(acc[j]);
+      if (lane == 0) mbar_arrive(empty + (i - 1) % kQmmStages);
+    }
+    if (i + 1 < n_k) {
+      mbar_wait(full + (i + 1) % kQmmStages, ((i + 1) / kQmmStages) & 1);
+      convert(nxt, (i + 1) % kQmmStages);
+    }
+  };
+  uint32_t fa[4][4], fb[4][4];
+  mbar_wait(full, 0);
+  convert(fa, 0);
+  for (int i = 0; i < n_k; i += 2) {
+    step(i, fa, fb);
+    if (i + 1 < n_k) step(i + 1, fb, fa);
   }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int j = 0; j < NSUB; ++j) fence_regs(acc[j]);
 
+  // epilogue: scale, round, stage [TM][64] bf16 in the ring (free once both
+  // consumer warpgroups are past their last product), store 16-byte rows
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  bf16* epi = reinterpret_cast<bf16*>(ring) + c * TM * kQmmEpiRow;
+  const int n = n0 + nl;
+  const float s0 = n < N ? scale[n] : 0.f, s1 = n < N ? scale[n + 1] : 0.f;
+  const int wl = 16 * warp + 2 * g;  // the column pair inside the warpgroup's 64
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = n0 + wn + j * 8 + t * 2;
-    if (n >= N) continue;
-    const float s0 = scale[n], s1 = scale[n + 1];
+  for (int j = 0; j < NSUB; ++j)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int q = 0; q < 16; ++q)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm + i * 16 + g + h * 8;
-        if (m < M)
-          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * N + n) =
-              __floats2bfloat162_rn(acc[i][j][2 * h] * s0, acc[i][j][2 * h + 1] * s1);
+      for (int e = 0; e < 2; ++e) {
+        const int ml = 128 * j + 8 * q + 2 * t + e;
+        *reinterpret_cast<__nv_bfloat162*>(epi + ml * kQmmEpiRow + wl) =
+            __floats2bfloat162_rn(acc[j][4 * q + e] * s0, acc[j][4 * q + 2 + e] * s1);
       }
-    }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + c) : "memory");
+  const int tc = tid & 127, col = n0 + 64 * c;
+#pragma unroll 4
+  for (int idx = tc; idx < TM * 8; idx += 128) {
+    const int ml = idx >> 3, ch = idx & 7;
+    if (m0 + ml < M && col + 8 * ch < N)
+      *reinterpret_cast<uint4*>(out + (size_t)(m0 + ml) * N + col + 8 * ch) =
+          *reinterpret_cast<const uint4*>(epi + ml * kQmmEpiRow + 8 * ch);
   }
+}
+
+typedef CUresult (*TensorMapEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                         const cuuint64_t*, const cuuint64_t*,
+                                         const cuuint32_t*, const cuuint32_t*,
+                                         CUtensorMapInterleave, CUtensorMapSwizzle,
+                                         CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, fetched through the runtime (the
+// library links no libcuda); null when the driver has none
+static TensorMapEncodeTiled tensor_map_encoder() {
+  static TensorMapEncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<TensorMapEncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 2-D TMA map over a row-major [rows][cols] matrix of `elem` bytes, box
+// [box_rows][box_cols], 128-byte swizzle; out-of-range elements read as 0
+static bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base,
+                       int rows, int cols, int box_rows, int box_cols) {
+  TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int TM>
+int launch_qmm_mma(const void* a, const void* w8, const void* scale, void* out, int M, int K,
+                   int N, cudaStream_t st) {
+  CUtensorMap a_map, w_map;
+  if (!encode_map(&a_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, M, K, TM, kQmmBK) ||
+      !encode_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w8, K, N, kQmmBK, kQmmBN))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = QmmCfg<TM>::smem_bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      qmm_mma_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((M + TM - 1) / TM, (N + kQmmBN - 1) / kQmmBN);
+  qmm_mma_kernel<TM><<<grid, kQmmThreads, smem, st>>>(
+      a_map, w_map, static_cast<const float*>(scale), static_cast<bf16*>(out), M, K, N);
+  return (int)cudaGetLastError();
 }
 
 template <int M>
@@ -298,16 +526,41 @@ extern "C" int dstorch_qmm_gemv(const void* a, const void* w8, const void* scale
   }
 }
 
-// The same for any M >= 1 through tensor cores; needs K % 32 == 0 and
-// N % 16 == 0.
+// The same for any M >= 1 through tensor cores (wgmma); needs K % 32 == 0
+// and N % 16 == 0 (a K that 64 does not divide is zero-filled by TMA).
+// Tiles of 128 tokens for M <= 128, else 256.
+extern "C" int dstorch_qmm_mma_tiled(const void* a, const void* w8, const void* scale,
+                                     void* out, int M, int K, int N, int tile_m,
+                                     void* stream);
+
 extern "C" int dstorch_qmm_mma(const void* a, const void* w8, const void* scale, void* out,
                                int M, int K, int N, void* stream) {
+  return dstorch_qmm_mma_tiled(a, w8, scale, out, M, K, N, M <= 128 ? 128 : 256, stream);
+}
+
+// dstorch_qmm_mma at a given token tile (128 or 256; -1 for another).
+extern "C" int dstorch_qmm_mma_tiled(const void* a, const void* w8, const void* scale,
+                                     void* out, int M, int K, int N, int tile_m,
+                                     void* stream) {
   if (M == 0 || N == 0) return 0;
-  if (K % dstorch::kBK != 0 || N % 16 != 0) return -1;
-  dim3 grid((N + dstorch::kBN - 1) / dstorch::kBN, (M + dstorch::kBM - 1) / dstorch::kBM);
-  dstorch::qmm_mma_kernel<<<grid, dstorch::kMmaThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const dstorch::bf16*>(a), static_cast<const int8_t*>(w8),
-      static_cast<const float*>(scale), static_cast<dstorch::bf16*>(out), M, K, N);
-  return (int)cudaGetLastError();
+  if (K % 32 != 0 || N % 16 != 0 || K < 0) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K == 0) return (int)cudaMemsetAsync(out, 0, (size_t)M * N * sizeof(dstorch::bf16), st);
+  if (tile_m == 128) return dstorch::launch_qmm_mma<128>(a, w8, scale, out, M, K, N, st);
+  if (tile_m == 256) return dstorch::launch_qmm_mma<256>(a, w8, scale, out, M, K, N, st);
+  return -1;
+}
+
+// qmm_mma_kernel<tile_m> as compiled: out [6] int32 as
+// dstorch_flash_kernel_attrs gives them (registers, local spill bytes,
+// static and dynamic shared bytes, threads, blocks per SM).
+extern "C" int dstorch_qmm_mma_attrs(int tile_m, void* out) {
+  int* o = static_cast<int*>(out);
+  if (tile_m == 128)
+    return dstorch::mma::kernel_attributes(dstorch::qmm_mma_kernel<128>, dstorch::kQmmThreads,
+                                           dstorch::QmmCfg<128>::smem_bytes, o);
+  if (tile_m == 256)
+    return dstorch::mma::kernel_attributes(dstorch::qmm_mma_kernel<256>, dstorch::kQmmThreads,
+                                           dstorch::QmmCfg<256>::smem_bytes, o);
+  return -1;
 }

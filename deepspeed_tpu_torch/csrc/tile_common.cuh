@@ -1,12 +1,13 @@
-// Tile helpers shared by the backward kernels of flash attention
-// (flash_bwd.cu) and the block-sparse kernels (block_sparse_fwd.cu,
-// block_sparse_bwd.cu): 64-row bf16 tiles staged in shared memory with
-// padded rows (D + 2 bf16, an odd number of words, so the 16 threads
-// reading 16 different rows at one depth hit 16 banks), 64 x 64 products
-// with f32 FMAs on CUDA cores, and accumulation of an f32 64 x 64 tile into
-// a thread's 4 rows x D/16 dims. Thread layout of attn_common.cuh's
-// flash_block: thread (ty = tid / 16, tx = tid % 16) owns tile rows
-// 4ty..4ty+3 and, for the 64 x 64 products, columns tx + 16c.
+// Tile helpers of the kernels that run on the CUDA cores: the block-sparse
+// forward (block_sparse_fwd.cu) and the Evoformer kernels (through
+// evoformer_common.cuh: evoformer_fwd.cu, evoformer_bwd.cu). 64-row bf16
+// tiles staged in shared memory with padded rows (D + 2 bf16, an odd
+// number of words, so the 16 threads reading 16 different rows at one
+// depth hit 16 banks), 64 x 64 products with f32 FMAs on CUDA cores, and
+// accumulation of an f32 64 x 64 tile into a thread's 4 rows x D/16 dims.
+// Thread layout of attn_common.cuh's flash_block: thread (ty = tid / 16, tx
+// = tid % 16) owns tile rows 4ty..4ty+3 and, for the 64 x 64 products,
+// columns tx + 16c. (The tensor-core kernels use mma_common.cuh.)
 #pragma once
 
 #include "attn_common.cuh"
@@ -107,7 +108,8 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, size_t stride
   }
 }
 
-// Block-sparse tiles (block_sparse_fwd.cu, block_sparse_bwd.cu): one bit per
+// Block-sparse tiles (block_sparse_fwd.cu; block_sparse_bwd.cu reads the
+// same bits per 16-row band): one bit per
 // 16 x 16 sub-block of a 64 x 64 (query, key) tile, bit (row / 16) * 4 +
 // key / 16 for tile-local row and key. Is the pair inside the fine layout?
 __device__ __forceinline__ bool fine_bit(int bits, int row, int key) {

@@ -76,6 +76,8 @@ ENTRY_POINTS = {
     "dstorch_splitk_merge": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "dstorch_qmm_gemv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "dstorch_qmm_mma": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "dstorch_qmm_mma_tiled": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "dstorch_qmm_mma_attrs": (_I, _P),
     "dstorch_block_sparse_fwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _F, _I, _P),
     "dstorch_block_sparse_dq_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -91,6 +93,7 @@ ENTRY_POINTS = {
     "dstorch_evoformer_dbias_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _I, _F, _I, _P),
     "dstorch_flash_kernel_attrs": (_I, _I, _P),
+    "dstorch_block_sparse_bwd_attrs": (_I, _I, _P),
 }
 
 LAUNCHES: Dict[str, int] = {"flash_packed": 0, "paged_chunk": 0,

@@ -8,8 +8,9 @@ are copies of the JAX package's numpy code: the same config and seed give a
 byte-equal ``[H, nb, nb]`` layout (BigBird and Variable draw their random
 blocks from ``np.random.default_rng(seed)``).
 
-:func:`sparse_self_attention` takes torch tensors ``[B, H, S, D]``. With no
-mask it runs block-sparse attention (K9, ``ops.kernels.block_sparse_attention``:
+:func:`sparse_self_attention` takes torch tensors ``[B, H, S, D]`` and
+builds its layout and K9's tables once per config and S
+(:func:`cached_layout`). With no mask it runs block-sparse attention (K9, ``ops.kernels.block_sparse_attention``:
 the CUDA kernels for CUDA tensors, their plain versions for CPU tensors);
 with a ``key_padding_mask`` or an ``attn_mask`` it takes the dense
 additive-mask route in plain torch on either device, as the JAX package
@@ -24,7 +25,8 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import (
-    block_sparse_attention_bhsd)
+    BlockSparseAttention, get_tables)
+from deepspeed_tpu_torch.utils.caching import LRUCache
 
 
 class SparsityConfig:
@@ -260,6 +262,41 @@ class BSLongformerSparsityConfig(SparsityConfig):
         return layout
 
 
+_LAYOUTS: LRUCache = LRUCache(maxsize=32)
+_TABLES: LRUCache = LRUCache(maxsize=32)
+
+
+def _layout_key(config: SparsityConfig, seq_len: int) -> tuple:
+    """The config's class and fields (``seed`` and ``block`` among them)
+    and S."""
+    return (type(config).__qualname__, repr(sorted(vars(config).items())), int(seq_len))
+
+
+def cached_layout(config: SparsityConfig, seq_len: int) -> np.ndarray:
+    """``config.make_layout(seq_len)``, built once per (the config's class
+    and fields, ``seed`` and ``block`` among them; ``seq_len``) and kept
+    read-only in an ``LRUCache(32)``. The builders are deterministic in
+    those (the random blocks come from ``default_rng(seed)``), so a cached
+    layout is the one a fresh call would build; the JAX op builds it once
+    per trace for the same reason."""
+
+    def build():
+        layout = config.make_layout(seq_len)
+        layout.setflags(write=False)
+        return layout
+
+    return _LAYOUTS.get_or_create(_layout_key(config, seq_len), build)
+
+
+def _cached_tables(config: SparsityConfig, seq_len: int, causal: bool, device):
+    """K9's tables of the cached layout, looked up by the same key (what
+    ``get_tables`` keys by, the layout's bytes, costs milliseconds to hash
+    at S = 4096)."""
+    key = (_layout_key(config, seq_len), bool(causal), str(torch.device(device)))
+    return _TABLES.get_or_create(key, lambda: get_tables(
+        cached_layout(config, seq_len), config.block, causal, seq_len, device))
+
+
 def layout_to_mask(layout: np.ndarray, block: int) -> np.ndarray:
     """[H, nb, nb] block layout -> [H, S, S] additive fp32 mask (0 / -inf)."""
     token = np.kron(layout, np.ones((block, block), layout.dtype))
@@ -280,14 +317,13 @@ def sparse_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     select the dense route.
     """
     B, H, S, D = q.shape
-    layout = sparsity_config.make_layout(S)
     if key_padding_mask is None and attn_mask is None:
         causal = (sparsity_config.attention == "unidirectional"
                   and causal_within_block)
-        return block_sparse_attention_bhsd(q, k, v, layout, sparsity_config.block,
-                                           causal=causal)
+        tables = _cached_tables(sparsity_config, S, causal, q.device)
+        return BlockSparseAttention.apply(q, k, v, tables, 1.0 / (D ** 0.5))
 
-    mask = layout_to_mask(layout, sparsity_config.block)  # [H, S, S]
+    mask = layout_to_mask(cached_layout(sparsity_config, S), sparsity_config.block)
     if sparsity_config.attention == "unidirectional" and causal_within_block:
         causal = np.triu(np.full((S, S), -1e9, np.float32), k=1)
         mask = mask + causal[None]
