@@ -2742,20 +2742,19 @@ def check_sparse_kernels(label, cfg, S, D, timed, randn, record):
 
 
 def same_bits(label, first, second):
-    """K9's backward is deterministic: a rerun gives the same bits."""
+    """The K9 and K10 kernels are deterministic: a rerun gives the same bits."""
     import torch
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(first, second)):
-        raise AssertionError(f"{label}: two runs of K9's backward differ")
+        raise AssertionError(f"{label}: two runs of the kernels differ")
 
 
-# K9's backward per head dim and mask: the layouts of sparse_cases (A, B and
-# C at S = 4096, the two ragged shapes) at B = 1, D 16/32/64/128, with and
-# without causal (the layout's own tables with the flag flipped), and a
-# hand-made layout (S = 256, blocks of 16) where one 64-tile holds a single
-# active 16-block and one query band, and the keys of one band, see
-# nothing at all
-K9_BWD_DIMS = (16, 32, 64, 128)
+# K9 per head dim and mask: the layouts of sparse_cases (A, B and C at S =
+# 4096, the two ragged shapes) at B = 1, D 16/32/64/128, with and without
+# causal (the layout's own tables with the flag flipped), and a hand-made
+# layout (S = 256, blocks of 16) where one 64-tile holds a single active
+# 16-block and one query band, and the keys of one band, see nothing at all
+K9_DIMS = (16, 32, 64, 128)
 
 
 def handmade_layout():
@@ -2771,33 +2770,45 @@ def handmade_layout():
     return layout[None]
 
 
-def check_sparse_bwd(randn, record):
-    """K9's dq and dk/dv against their plain versions (fed the kernel
-    forward's lse) at every head dim, causal and not, on phase 7's layouts
-    and the hand-made one (whose empty rows and keys must get exactly zero
-    gradients); each rerun and required bitwise equal. Prints the
-    ``k9-kernels`` line (registers, spills, shared memory) and fails on a
-    spill."""
+def check_sparse_dims(randn, record):
+    """K9's forward (o, lse), dq and dk/dv against their plain versions (the
+    backward ones fed the kernel forward's lse) at every head dim, causal
+    and not, on phase 7's layouts and the hand-made one (whose empty rows
+    must get exactly o = 0 and lse = -1e30, and whose empty rows and keys
+    exactly zero gradients); each rerun and required bitwise equal. Prints
+    the ``k9-kernels`` line (registers, spills, shared memory) and fails on
+    a spill."""
     import torch
     from deepspeed_tpu_torch.ops.kernels import (
         block_sparse_delta, block_sparse_dkv, block_sparse_dkv_plain, block_sparse_dq,
-        block_sparse_dq_plain, block_sparse_fwd, get_tables)
+        block_sparse_dq_plain, block_sparse_fwd, block_sparse_fwd_plain, get_tables)
     H = SPARSE_H
     layouts = [(label, cfg.make_layout(S), cfg.block) for label, cfg, S, _, _ in sparse_cases()]
     layouts.append(("hand-made", np.repeat(handmade_layout(), H, 0), 16))
     for label, layout, block in layouts:
         S = layout.shape[1] * block
-        for causal, D in itertools.product((False, True), K9_BWD_DIMS):
+        for causal, D in itertools.product((False, True), K9_DIMS):
             if label == "hand-made" and D not in (64, 128):
                 continue
             tables = get_tables(layout, block, causal, S, "cuda")
             scale = D ** -0.5
             q, k, v, do = (randn(1, H, S, D) for _ in range(4))
             o, lse = block_sparse_fwd(q, k, v, tables, scale)
+            case = f"{label}: B=1 H={H} S={S} D={D} {'causal' if causal else 'full'}"
+            same_bits(case, (o, lse), block_sparse_fwd(q, k, v, tables, scale))
+            o_ref, lse_ref = block_sparse_fwd_plain(q, k, v, tables, scale)
+            record("block_sparse_fwd", case, err((o, o_ref), (lse[..., None], lse_ref[..., None])))
+            if label == "hand-made":
+                empty = o[:, :, 96:112]
+                dead = {"max_abs_o": float(empty.abs().max()),
+                        "lse": sorted({float(x) for x in lse[:, :, 96:112].flatten()})}
+                print("k9-empty-rows " + json.dumps({"case": case, "forward": dead}),
+                      flush=True)
+                if dead["max_abs_o"] != 0.0 or dead["lse"] != [float(np.float32(-1e30))]:
+                    raise AssertionError(f"{case}: rows that see nothing got {dead}")
             delta = block_sparse_delta(o, do)
             dq = block_sparse_dq(q, k, v, do, lse, delta, tables, scale)
             dk, dv = block_sparse_dkv(q, k, v, do, lse, delta, tables, scale)
-            case = f"{label}: B=1 H={H} S={S} D={D} {'causal' if causal else 'full'}"
             same_bits(case, (dq, dk, dv), (
                 block_sparse_dq(q, k, v, do, lse, delta, tables, scale),
                 *block_sparse_dkv(q, k, v, do, lse, delta, tables, scale)))
@@ -2813,16 +2824,18 @@ def check_sparse_bwd(randn, record):
                 if any(zero):
                     raise AssertionError(f"{case}: rows or keys that see nothing got "
                                          f"gradients {zero}")
-            del q, k, v, do, o, lse, delta, dq, dk, dv
-    attrs = {f"{name}/D{D}": read_attributes("dstorch_block_sparse_bwd_attrs", i, D)
-             for i, name in ((1, "block_sparse_dq"), (3, "block_sparse_dq_causal"),
-                             (2, "block_sparse_dkv"))
-             for D in K9_BWD_DIMS}
+            del q, k, v, do, o, lse, o_ref, lse_ref, delta, dq, dk, dv
+    attrs = {f"block_sparse_fwd/D{D}": read_attributes("dstorch_block_sparse_fwd_attrs", D)
+             for D in K9_DIMS}
+    attrs.update({f"{name}/D{D}": read_attributes("dstorch_block_sparse_bwd_attrs", i, D)
+                  for i, name in ((1, "block_sparse_dq"), (3, "block_sparse_dq_causal"),
+                                  (2, "block_sparse_dkv"))
+                  for D in K9_DIMS})
     print("k9-kernels " + json.dumps({"attributes": attrs,
                                       "device": torch.cuda.get_device_name(0)}), flush=True)
     spills = {k: a["local_bytes"] for k, a in attrs.items() if a["local_bytes"]}
     if spills:
-        raise AssertionError(f"K9's backward kernels spill to local memory: {spills}")
+        raise AssertionError(f"K9's kernels spill to local memory: {spills}")
 
 
 def check_op(case, op, plain_bf16, exact, names=("o", "dq", "dk", "dv"),
@@ -2869,7 +2882,7 @@ def run_sparse(rows):
     cases = sparse_cases()
     inputs = [check_sparse_kernels(*c, randn, record) for c in cases]
     torch.cuda.empty_cache()
-    check_sparse_bwd(randn, record)
+    check_sparse_dims(randn, record)
     torch.cuda.empty_cache()
 
     # ---- the main path: the op's entry point, forward and backward ---- #
@@ -2965,11 +2978,37 @@ def evo_routes(q, k, v, mask, pair, do, R):
     return routes
 
 
-def check_evo_kernels(label, L, S, H, D, R, pair_dtype, timed, randn, g, record):
+# K10 per head dim, pair-bias type and mask (3% of keys and every key of row
+# 1, or none): (label, L, S, H, R, D, pair dtype name, masked, timed). A
+# ragged S = 300 (no 64-tile divides it) at every combination; the MSA row
+# shape at each head dim, its D = 32, bf16, masked case the kernel table's
+# row; an odd S and one row a group
+EVO_DIMS = (16, 32, 64, 128)
+
+
+def evo_cases():
+    Nr, Nc, Hm = EVO_RES, EVO_CLUST, EVO_MSA_H
+    msa = [("MSA row attention", Nc, Nr, Hm, Nc, EVO_D, "bfloat16", True, True),
+           ("MSA row attention", Nc, Nr, Hm, Nc, 16, "float32", True, False),
+           ("MSA row attention", Nc, Nr, Hm, Nc, 32, "float32", False, False),
+           ("MSA row attention", Nc, Nr, Hm, Nc, 64, "bfloat16", False, False),
+           ("MSA row attention", Nc, Nr, Hm, Nc, 128, "bfloat16", True, False)]
+    ragged = [("ragged S", 8, 300, 4, 4, D, pt, masked, False)
+              for D, pt, masked in itertools.product(EVO_DIMS, ("bfloat16", "float32"),
+                                                     (True, False))]
+    # an odd S: a bf16 pair-bias row starts 2-byte aligned (no cp.async);
+    # R = 1: one chunk a group in d(pair)
+    odd = [("odd S", 8, 301, 4, 4, 32, "bfloat16", True, False),
+           ("one row a group", 4, 200, 4, 1, 64, "float32", False, False)]
+    return msa + ragged + odd
+
+
+def check_evo_kernels(label, L, S, H, R, D, pair_dtype, masked, timed, randn, g, record):
     """K10's four kernels against their plain versions (the backward ones
     fed the kernel forward's o and lse) on [L, S, H, D] rows with a mask
-    (3% of keys, and row 1's every key) and a pair bias [L / R, H, S, S];
-    timed at the MSA row shape, with SDPA over the float bias as the
+    (3% of keys, and row 1's every key) or none and a pair bias [L / R, H,
+    S, S] of ``pair_dtype``; the backward run twice and required bitwise
+    equal; timed at the MSA row shape, with SDPA over the float bias as the
     library yardstick. Returns the inputs."""
     import torch
     import torch.nn.functional as F
@@ -2982,16 +3021,20 @@ def check_evo_kernels(label, L, S, H, D, R, pair_dtype, timed, randn, g, record)
     scale = D ** -0.5
     q, k, v, do = (randn(L, S, H, D) for _ in range(4))
     pair = randn(G, H, S, S).to(pair_dtype)
-    mask = torch.where(keep_mask(g, (L, S), 1) > 0, 0.0, -1e9)
+    mask = torch.where(keep_mask(g, (L, S), 1) > 0, 0.0, -1e9) if masked else None
     o, lse = evoformer_fwd(q, k, v, mask, pair, scale, R)
     o_ref, lse_ref = evoformer_fwd_plain(q, k, v, mask, pair, scale, R)
     delta = evoformer_delta(o, do)
     args = (q, k, v, mask, pair, do, lse, delta, scale, R)
-    dq, dq_ref = evoformer_dq(*args), evoformer_dq_plain(*args)
-    (dk, dv), (dk_ref, dv_ref) = evoformer_dkv(*args), evoformer_dkv_plain(*args)
-    dpair, dpair_ref = evoformer_dbias(*args), evoformer_dbias_plain(*args)
+    dq, (dk, dv), dpair = evoformer_dq(*args), evoformer_dkv(*args), evoformer_dbias(*args)
+    case = (f"{label}: L={L} S={S} H={H} D={D} R={R} pair {str(pair_dtype)[6:]} "
+            f"{'masked' if masked else 'no mask'}")
+    same_bits(case, (dq, dk, dv, dpair),
+              (evoformer_dq(*args), *evoformer_dkv(*args), evoformer_dbias(*args)))
+    dq_ref = evoformer_dq_plain(*args)
+    dk_ref, dv_ref = evoformer_dkv_plain(*args)
+    dpair_ref = evoformer_dbias_plain(*args)
     torch.cuda.synchronize()
-    case = f"{label}: L={L} S={S} H={H} D={D} R={R} pair {str(pair_dtype)[6:]}"
     extra = ({}, {}, {}, {})
     if timed:
         pairs = L * H * S * S
@@ -3098,12 +3141,21 @@ def run_evoformer(rows):
 
     record = functools.partial(record_check, rows)
     Nr, Nc, D, Hm, Ht = EVO_RES, EVO_CLUST, EVO_D, EVO_MSA_H, EVO_TRI_H
-    q, k, v, do, pair = check_evo_kernels("MSA row attention", Nc, Nr, Hm, D, Nc,
-                                          torch.bfloat16, True, randn, g, record)
-    for d in (16, 64):
-        check_evo_kernels("ragged S, f32 pair", 8, 300, 4, d, 4, torch.float32, False,
-                          randn, g, record)
-    torch.cuda.empty_cache()
+    for c in evo_cases():
+        ins = check_evo_kernels(*c[:6], getattr(torch, c[6]), *c[7:], randn, g, record)
+        if c[8]:
+            q, k, v, do, pair = ins
+        del ins
+        torch.cuda.empty_cache()
+    attrs = {f"{name}/D{d}/pair {pt}": read_attributes("dstorch_evoformer_bwd_attrs", i, d,
+                                                       int(pt == "f32"))
+             for i, name in ((1, "evoformer_dq"), (2, "evoformer_dkv"), (3, "evoformer_dbias"))
+             for d in EVO_DIMS for pt in ("bf16", "f32")}
+    print("k10-kernels " + json.dumps({"attributes": attrs,
+                                       "device": torch.cuda.get_device_name(0)}), flush=True)
+    spills = {k: a["local_bytes"] for k, a in attrs.items() if a["local_bytes"]}
+    if spills:
+        raise AssertionError(f"K10's backward kernels spill to local memory: {spills}")
 
     # ---- the main path: the entry points, forward and backward ---- #
     B, msa_shape = 1, (1, Nc, Nr, Hm, D)

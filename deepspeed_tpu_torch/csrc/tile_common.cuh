@@ -1,13 +1,14 @@
-// Tile helpers of the kernels that run on the CUDA cores: the block-sparse
-// forward (block_sparse_fwd.cu) and the Evoformer kernels (through
-// evoformer_common.cuh: evoformer_fwd.cu, evoformer_bwd.cu). 64-row bf16
-// tiles staged in shared memory with padded rows (D + 2 bf16, an odd
-// number of words, so the 16 threads reading 16 different rows at one
-// depth hit 16 banks), 64 x 64 products with f32 FMAs on CUDA cores, and
-// accumulation of an f32 64 x 64 tile into a thread's 4 rows x D/16 dims.
-// Thread layout of attn_common.cuh's flash_block: thread (ty = tid / 16, tx
-// = tid % 16) owns tile rows 4ty..4ty+3 and, for the 64 x 64 products,
-// columns tx + 16c. (The tensor-core kernels use mma_common.cuh.)
+// Tile helpers of the Evoformer forward, the one kernel still on the CUDA
+// cores that stages 64-row tiles (evoformer_fwd.cu, through
+// evoformer_common.cuh). 64-row bf16 tiles staged in shared memory with
+// padded rows (D + 2 bf16, an odd number of words, so the 16 threads
+// reading 16 different rows at one depth hit 16 banks), 64 x 64 products
+// with f32 FMAs on CUDA cores, and accumulation of an f32 64 x 64 tile into
+// a thread's 4 rows x D/16 dims. Thread layout of attn_common.cuh's
+// flash_block: thread (ty = tid / 16, tx = tid % 16) owns tile rows
+// 4ty..4ty+3 and, for the 64 x 64 products, columns tx + 16c. (The
+// tensor-core kernels, the Evoformer backward among them, use
+// mma_common.cuh.)
 #pragma once
 
 #include "attn_common.cuh"
@@ -20,11 +21,6 @@ struct BwdSmem {
   static constexpr int PS = kBK + 1;  // padded f32 row of a 64 x 64 tile
   static constexpr size_t tile_bytes = (size_t)kBQ * QS * sizeof(bf16);
   static constexpr size_t f32_tile_bytes = (size_t)kBQ * PS * sizeof(float);
-  static constexpr size_t row_bytes = (size_t)kBQ * sizeof(float);
-  // dq: Q, dO, K, V tiles + ds + lse, delta
-  static constexpr size_t dq_bytes = 4 * tile_bytes + f32_tile_bytes + 2 * row_bytes;
-  // dkv: K, V, Q, dO tiles + p, ds + lse, delta
-  static constexpr size_t dkv_bytes = 4 * tile_bytes + 2 * f32_tile_bytes + 2 * row_bytes;
 };
 
 // Stage 64 rows (row r < n valid, else zeros) of D bf16 each, row r at
@@ -90,30 +86,6 @@ __device__ __forceinline__ void tile_accumulate(const float* W, const bf16* X,
       for (int r = 0; r < 4; ++r) acc[r][n] = fmaf(w[r], x, acc[r][n]);
     }
   }
-}
-
-// Write the thread's 4 rows x D/16 dims of acc as bf16 to rows r < n of
-// dst (row r at dst + r * stride).
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, size_t stride, int n,
-                                           const float (&acc)[4][D / 16]) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = ty * 4 + r;
-    if (row >= n) continue;
-#pragma unroll
-    for (int n2 = 0; n2 < D / 16; ++n2)
-      dst[row * stride + tx + 16 * n2] = __float2bfloat16(acc[r][n2]);
-  }
-}
-
-// Block-sparse tiles (block_sparse_fwd.cu; block_sparse_bwd.cu reads the
-// same bits per 16-row band): one bit per
-// 16 x 16 sub-block of a 64 x 64 (query, key) tile, bit (row / 16) * 4 +
-// key / 16 for tile-local row and key. Is the pair inside the fine layout?
-__device__ __forceinline__ bool fine_bit(int bits, int row, int key) {
-  return (bits >> (((row >> 4) << 2) + (key >> 4))) & 1;
 }
 
 // x rounded to bf16 and back: the probabilities and their gradients enter

@@ -90,10 +90,12 @@ ENTRY_POINTS = {
                                   _F, _I, _P),
     "dstorch_evoformer_dkv_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _F, _I, _P),
-    "dstorch_evoformer_dbias_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                     _I, _F, _I, _P),
+    "dstorch_evoformer_dbias_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _I, _I, _I, _F, _I, _P),
     "dstorch_flash_kernel_attrs": (_I, _I, _P),
+    "dstorch_block_sparse_fwd_attrs": (_I, _P),
     "dstorch_block_sparse_bwd_attrs": (_I, _I, _P),
+    "dstorch_evoformer_bwd_attrs": (_I, _I, _I, _P),
 }
 
 LAUNCHES: Dict[str, int] = {"flash_packed": 0, "paged_chunk": 0,

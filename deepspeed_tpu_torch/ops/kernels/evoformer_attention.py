@@ -20,11 +20,16 @@ as JAX's (:362).
 
 The kernels read q, k, v and dO in the caller's ``[L, S, H, D]`` layout (the
 JAX wrapper transposes to ``[L, H, S, D]`` first); lse and delta are ``[L,
-H, S]``. CPU tensors run the plain versions (dense f32, or f64 for f64
-input; p and ds rounded to the inputs' type before their products, as the
-Pallas kernels cast them); CUDA tensors launch the kernels (bf16 q, k, v,
-contiguous; head dims 16, 32, 64 and 128; the pair bias bf16 or f32, read
-and its gradient written in its own type; the mask cast to f32) or raise.
+H, S]``. The d(pair) kernel sums each group's R rows in :func:`dbias_chunks`
+contiguous chunks, one block per (k-tile, q-tile, group, head, chunk), into
+f32 partials in scratch that the wrapper allocates; a second kernel of the
+same launch adds them in chunk order.
+
+CPU tensors run the plain versions (dense f32, or f64 for f64 input; p and
+ds rounded to the inputs' type before their products, as the Pallas kernels
+cast them); CUDA tensors launch the kernels (bf16 q, k, v, contiguous; head
+dims 16, 32, 64 and 128; the pair bias bf16 or f32, read and its gradient
+written in its own type; the mask cast to f32) or raise.
 """
 
 from __future__ import annotations
@@ -204,6 +209,19 @@ def evoformer_dkv(q, k, v, mask, pair, do, lse, delta, scale: float, R: int):
     return dk, dv
 
 
+# the d(pair) kernel's target grid: enough (k-tile, q-tile, group, head,
+# chunk) blocks for several waves of resident blocks on an H100's 132 SMs
+DBIAS_BLOCKS = 2048
+
+
+def dbias_chunks(S: int, H: int, G: int, R: int) -> int:
+    """How many contiguous chunks the d(pair) kernel cuts each group's R rows
+    into: the fewest that give the grid ``DBIAS_BLOCKS`` blocks, at most R.
+    Chunk c holds rows ``[R * c // C, R * (c + 1) // C)``."""
+    nt = -(-S // 64)
+    return max(1, min(R, -(-DBIAS_BLOCKS // (nt * nt * G * H))))
+
+
 def evoformer_dbias(q, k, v, mask, pair, do, lse, delta, scale: float, R: int):
     """d(pair) [G, H, S, S] in pair's dtype."""
     _check_shapes(DBIAS, q, mask, pair, R, k, v, do)
@@ -212,11 +230,13 @@ def evoformer_dbias(q, k, v, mask, pair, do, lse, delta, scale: float, R: int):
     mask, pair_f32 = _kernel_args(DBIAS, q, mask, pair, k=k, v=v, do=do, lse=lse,
                                   delta=delta)
     L, S, H, D = q.shape
+    chunks = dbias_chunks(S, H, L // R, R)
     dpair = torch.empty_like(pair)
+    partials = torch.empty((chunks, *pair.shape), dtype=torch.float32, device=q.device)
     P = _loader.ptr
     _loader.launch(DBIAS, "dstorch_evoformer_dbias_bf16", q.device, P(q), P(k), P(v), P(do),
-                   P(mask), P(pair), P(lse), P(delta), P(dpair), L, S, H, D, R, scale,
-                   pair_f32)
+                   P(mask), P(pair), P(lse), P(delta), P(dpair), P(partials), L, S, H, D, R,
+                   chunks, scale, pair_f32)
     return dpair
 
 

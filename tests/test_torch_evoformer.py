@@ -7,6 +7,9 @@ JAX package, on the CPU.
   grid plus a ragged S = 40. Both sides compute in f32; o and lse at
   2e-5, the gradients at 2e-4 (the same products summed in another order:
   online softmax over tiles against one softmax; d(pair) sums R rows).
+  The CUDA d(pair)'s order (R rows in contiguous chunks, then the chunks'
+  partials in order) against the plain version at 1e-5 and the Pallas
+  kernel at 2e-4.
 - ``evoformer_flash_attention``'s autograd against ``jax.grad`` of JAX's,
   d(pair) included and a zero mask cotangent; the four AlphaFold modes and
   ``DS4Sci_EvoformerAttention``'s routing against JAX's outputs and
@@ -105,6 +108,42 @@ def test_plain_versions_match_pallas(S, H, D, R, masked):
     for got, want in zip(k10.evoformer_bwd(tq, tk, tv, tmask, tpair, o, lse, tdo, scale, R),
                          (dq, dk, dv, dpair)):
         assert torch.equal(got, want)
+
+
+def _dbias_in_chunks(q, k, v, mask, pair, do, lse, delta, scale, R, chunks):
+    """d(pair) in the CUDA kernel's order: each of ``chunks`` contiguous
+    chunks of a group's rows summed in row order from zero, then the chunks'
+    partials added in chunk order (``evoformer_dbias`` with
+    ``dbias_chunks`` chunks; the plain version sums the R rows in one
+    reduction)."""
+    L, S, H, _ = q.shape
+    p, dp = k10._probs_dp(q, k, v, mask, pair, do, lse, scale, R)
+    db = p.mul_(dp.sub_(delta[..., None])).view(L // R, R, H, S, S)
+    total = None
+    for c in range(chunks):
+        part = torch.zeros_like(db[:, 0])
+        for r in range(R * c // chunks, R * (c + 1) // chunks):
+            part = part + db[:, r]
+        total = part if total is None else total + part
+    return total
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 4])
+def test_dbias_chunk_order_matches_plain_and_pallas(chunks):
+    """The chunked order against the plain version at 1e-5 (f32: the same
+    terms, another order of their sum) and against the Pallas kernel at the
+    gradients' tolerance, on GRID's masked R = 4 case."""
+    S, H, D, R, masked = GRID[1]
+    L = 2 * R
+    q, k, v, do, pair, mask = _inputs(L, S, H, D, R, masked, seed=S + D)
+    ref = _jax_fwd_bwd(q, k, v, do, pair, mask, R)
+    scale = D ** -0.5
+    tq, tk, tv, tdo, tpair, tmask = map(_t, (q, k, v, do, pair, mask))
+    o, lse = k10.evoformer_fwd_plain(tq, tk, tv, tmask, tpair, scale, R)
+    args = (tq, tk, tv, tmask, tpair, tdo, lse, k10.evoformer_delta(o, tdo), scale, R)
+    got = _dbias_in_chunks(*args, chunks)
+    _close(got, k10.evoformer_dbias_plain(*args), 1e-5)
+    _close(got, ref[5], BWD_TOL)
 
 
 @pytest.mark.parametrize("fill", [-1e30, -1e9])

@@ -1,6 +1,7 @@
-"""What the tensor-core redesigns of K9's backward and K8's ``qmm_mma``
-rely on, checked on the CPU (the kernels themselves run only on the card,
-where ``chip_smoke.py`` holds them against their plain versions).
+"""What the tensor-core redesigns of K9 (forward and backward), K10's
+backward and K8's ``qmm_mma`` rely on, checked on the CPU (the kernels
+themselves run only on the card, where ``chip_smoke.py`` holds them against
+their plain versions).
 
 - K9's per-warp 16-block skip: a numpy model of the kernels' rule (dq:
   warp w of a q-tile reads bits ``(bits >> 4w) & 0xF`` of each entry of
@@ -11,6 +12,13 @@ where ``chip_smoke.py`` holds them against their plain versions).
   pairs of
   ``tables.token_mask``, over random layouts (block 16 and 32, causal and
   not, S that 64 does not divide).
+- K9's forward walks the dq kernel's list with the same per-warp rule and
+  copies only the 16-key chunks some band of an entry uses: every chunk a
+  warp computes was copied, and every pair of ``tables.token_mask`` is
+  computed exactly once.
+- K10's d(pair) chunks (``dbias_chunks``) cover a group's rows once, in
+  order, and fill the grid; the K9 and K10 wrappers count one launch per
+  call under their names, d(pair) with its chunks and f32 scratch.
 - ``quantized_matmul`` routes M <= 8 to ``qmm_gemv`` and larger M to
   ``qmm_mma`` with the same arguments as before, and refuses the shapes it
   refused.
@@ -19,7 +27,9 @@ where ``chip_smoke.py`` holds them against their plain versions).
   entries; K9's tables are cached under the same key.
 """
 
+import contextlib
 import importlib
+import types
 
 import numpy as np
 import pytest
@@ -33,6 +43,7 @@ from deepspeed_tpu_torch.ops.kernels import _loader
 # the modules by full name: the package re-exports same-named functions
 k9 = importlib.import_module("deepspeed_tpu_torch.ops.kernels.block_sparse_attention")
 k8 = importlib.import_module("deepspeed_tpu_torch.ops.kernels.quantized_matmul")
+k10 = importlib.import_module("deepspeed_tpu_torch.ops.kernels.evoformer_attention")
 
 T, F = k9.TILE, k9.FINE
 
@@ -89,6 +100,107 @@ def test_k9_band_bits_decode_to_token_mask(block, nb, heads, causal, density, se
     for hl in range(tables.num_layout_heads):
         np.testing.assert_array_equal(_dq_pairs(tables, hl), want[hl])
         np.testing.assert_array_equal(_dkv_pairs(tables, hl), want[hl])
+
+
+def _fwd_counts(tables, hl):
+    """[S, S] int: how often the forward kernel's warps compute each pair
+    for layout head hl (warp w of a q-tile takes the chunks c with bit 4w +
+    c of each entry); asserts that each was among the entry's copied
+    chunks (the union of its four bands' bits)."""
+    S, nt = tables.seq_len, tables.num_tiles
+    ptr, ent = tables.row_ptr.numpy()[hl], tables.row_ent.numpy()
+    counts = np.zeros((S, S), np.int64)
+    for it in range(nt):
+        for kt, bits in ent[ptr[it]:ptr[it + 1]]:
+            bits = int(bits)
+            copied = (bits | bits >> 4 | bits >> 8 | bits >> 12) & 0xF
+            for w in range(4):
+                band = (bits >> (4 * w)) & 0xF
+                for c in range(4):
+                    if (band >> c) & 1:
+                        assert (copied >> c) & 1, "a computed chunk was not copied"
+                        once = np.zeros((S, S), bool)
+                        _chunk_pairs(once, it * T + F * w, kt * T + F * c, tables.causal)
+                        counts += once
+    return counts
+
+
+@settings(max_examples=40, deadline=None, database=None, derandomize=True)
+@given(block=st.sampled_from([16, 32]), nb=st.integers(1, 11), heads=st.integers(1, 3),
+       causal=st.booleans(), density=st.floats(0.05, 1.0), seed=st.integers(0, 2 ** 31 - 1))
+def test_k9_forward_computes_each_pair_once(block, nb, heads, causal, density, seed):
+    rng = np.random.default_rng(seed)
+    layout = (rng.random((heads, nb, nb)) < density).astype(np.uint8)
+    S = nb * block
+    tables = k9.get_tables(layout, block, causal, S, "cpu")
+    want = tables.token_mask("cpu").numpy().astype(np.int64)
+    for hl in range(tables.num_layout_heads):
+        np.testing.assert_array_equal(_fwd_counts(tables, hl), want[hl])
+
+
+@pytest.mark.parametrize("S, H, G, R", [(384, 8, 1, 512), (384, 4, 1, 384), (300, 4, 2, 4),
+                                        (40, 2, 1, 6), (64, 1, 1, 1), (1000, 16, 4, 2)])
+def test_dbias_chunks_cover_the_rows_and_fill_the_grid(S, H, G, R):
+    C = k10.dbias_chunks(S, H, G, R)
+    nt = -(-S // 64)
+    blocks = nt * nt * G * H
+    assert 1 <= C <= R
+    # the fewest chunks that reach the target grid, or one a row
+    assert C == R or blocks * C >= k10.DBIAS_BLOCKS
+    assert C == 1 or blocks * (C - 1) < k10.DBIAS_BLOCKS
+    rows = [r for c in range(C) for r in range(R * c // C, R * (c + 1) // C)]
+    assert rows == list(range(R))
+    if (S, H, G, R) == (384, 8, 1, 512):   # AlphaFold 2's MSA row attention
+        assert C == 8
+
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    """The wrappers' CUDA route on CPU tensors through the real
+    ``_loader.launch`` (which counts the launch): a stand-in library records
+    each C call and returns 0."""
+    calls = []
+
+    class Library:
+        def __getattr__(self, entry):
+            return lambda *args: calls.append((entry, args)) or 0
+
+    monkeypatch.setattr(_loader, "load_library", Library)
+    monkeypatch.setattr(_loader, "on_cpu", lambda *a: False)
+    monkeypatch.setattr(_loader, "check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    return calls
+
+
+@pytest.mark.parametrize("R", [1, 2])
+def test_k9_k10_wrappers_count_one_launch_per_call(fake_library, R):
+    L, S, H, D = 2 * R, 80, 2, 32
+    bf = torch.bfloat16
+    q, k, v, do = (torch.zeros(L, S, H, D, dtype=bf) for _ in range(4))
+    pair, mask = torch.zeros(L // R, H, S, S, dtype=bf), torch.zeros(L, S)
+    lse, delta = torch.zeros(L, H, S), torch.zeros(L, H, S)
+    tables = k9.get_tables(np.ones((1, 5, 5), np.uint8), 16, False, S, "cpu")
+    qb = torch.zeros(1, H, S, D, dtype=bf)
+    names = (k10.FWD, k10.DQ, k10.DKV, k10.DBIAS, k9.FWD)
+    before = {n: _loader.LAUNCHES[n] for n in names}
+    k10.evoformer_fwd(q, k, v, mask, pair, 0.125, R)
+    args = (q, k, v, mask, pair, do, lse, delta, 0.125, R)
+    k10.evoformer_dq(*args)
+    k10.evoformer_dkv(*args)
+    dpair = k10.evoformer_dbias(*args)
+    k9.block_sparse_fwd(qb, qb, qb, tables, 0.125)
+    assert {n: _loader.LAUNCHES[n] - before[n] for n in names} == {n: 1 for n in names}
+    assert [entry for entry, _ in fake_library] == [
+        "dstorch_evoformer_fwd_bf16", "dstorch_evoformer_dq_bf16", "dstorch_evoformer_dkv_bf16",
+        "dstorch_evoformer_dbias_bf16", "dstorch_block_sparse_fwd_bf16"]
+    # d(pair): dpair, then the f32 scratch of C partials, L, S, H, D, R and C
+    dbias_args = fake_library[3][1]
+    C = k10.dbias_chunks(S, H, L // R, R)
+    assert C == R and dbias_args[10:16] == (L, S, H, D, R, C)
+    assert dbias_args[8].value == dpair.data_ptr() and dpair.shape == pair.shape
+    assert dbias_args[9] is not None
 
 
 @pytest.fixture
