@@ -48,7 +48,10 @@ required bitwise equal; prints the ``k1-kernels`` line (registers, spill
 bytes and shared memory per kernel and head dim, achieved TFLOP/s at the
 training shape) and fails on a spill; and the memory-lean serving kernels
 at Llama-2-13B's shapes: K8 (int8 weight matmul) at M = 4 through every
-projection and the LM head, ``qmm_mma`` at every projection a prefill
+projection and the LM head, gate/up at M = 1, 2, 3, 5 and 8 and GPT-J's
+LM head (50400 columns, not a multiple of 128), ``qmm_gemv``'s registers,
+spills and shared memory at every M and weight type (a gemv ``k8-kernels``
+line; a spill fails), ``qmm_mma`` at every projection a prefill
 pass gives it (13B at M = 736, Mistral-7B's unpacked int4 weights at M =
 4224, BLOOM-7b1's and phi-2's at M = 736; M = 9, 63 and 130, and K =
 4128, which 64 does not divide), each rerun and required bitwise equal,
@@ -79,8 +82,10 @@ and chunk kernels, K7 split-K decode at 2, 4 and 8 splits (contexts up to
    the -1e9 mask bias and the pair bias; and ``fused=None`` with the pair
    bias alone) and both triangle attentions, forward and ``.backward``;
    each kernel (forward, dq, dk/dv, d(pair)) against its plain version at
-   the MSA row shape and at a ragged S = 300 (R = 4, D = 16 and 64, f32
-   pair bias), one launch of each per op call, the op's output and four
+   the MSA row shape and at a ragged S = 300 (R = 4, D 16 to 128, bf16 and
+   f32 pair bias, mask or none), an odd S = 301 and R = 1, each rerun and
+   required bitwise equal (the ``k10-kernels`` line: registers, spills),
+   one launch of each per op call, the op's output and four
    gradients against its plain route, ``msa_col_attention`` once (plain
    torch, no kernel), and the op's and kernels' times with SDPA over the
    float bias as yardstick.
@@ -132,8 +137,9 @@ heads, D = 128 (the slopes' interpolation branch).
    ``generate()`` on prompts of 12000/5000/2000/300 tokens, a step at each
    pinned rung 1/2/4, a mixed ``put()`` at rung 1 and 16-step bursts at
    rungs 4 and 1; launches of the int8 window branch of K5, the decode
-   kernel (C = 1 and 16) and K7 (2 and 4 splits, the side piece at 4), and
-   of K8 on the unpacked int4 weights; next-token logits at prefill and
+   kernel (C = 1 and 16) and K7 (2 and 4 splits, the side piece at 4), of
+   K8's gemv on the packed int4 bytes (decode) and of ``qmm_mma`` on the
+   unpacked weights (prefill); next-token logits at prefill and
    four decode steps against the dense fp32 forward with the window over
    the engine's own int4 weights and int8 pool values (RMS within 2x the
    same forward's in bf16); rung invariance; the 12032-token sequence on
@@ -156,8 +162,10 @@ splits, the side piece at 4) at Mistral-7B's shapes (windows 4096, 8 and
 200) and checks that the scale tiles of pages wholly below every row's
 window start are never read (filled with NaN, the outputs stay bitwise
 equal); the same kernels' ALiBi branch at BLOOM-7b1's shapes (the side
-piece at 2 splits); and ``_mm`` over packed int4 weights (the unpack and
-K8, each timed) at Mistral-7B's gate/up projection.
+piece at 2 splits); and ``_mm`` over packed int4 weights at Mistral-7B's
+gate/up projection: at M = 4 K8's gemv reads the packed bytes and must
+give the bits of unpack + ``qmm_gemv``, at M = 4224 unpack + ``qmm_mma``,
+each timed beside the unpack and K8 on the unpacked values.
 
 Burst decode (``decode_steps``) and the page fabric. Phase 3's
 ``check_side_kernels`` holds the decode kernel (K6) and K7's side piece
@@ -863,13 +871,17 @@ def check_flash(randn, record):
 
 
 # K8 at Llama-2-13B's projection shapes: M = 4 (the decode batch) through
-# q/k/v/o, gate/up, down and the LM head; then qmm_mma at every projection
+# q/k/v/o, gate/up, down and the LM head, and gate/up at M = 1, 2, 3, 5 and
+# 8; GPT-J's LM head (4096 -> 50400: 50400 columns are not a multiple of
+# the gemv's 128-column blocks); then qmm_mma at every projection
 # a prefill pass gives it: 13B's q/k/v/o, gate/up and down at M = 736, the
 # unpacked int4 weights of Mistral-7B (q/o, k/v, gate/up, down) at M = 4224,
 # BLOOM-7b1's (qkv, o, fc1, fc2) and phi-2's (q/k/v/dense, fc1, fc2) at M =
 # 736; M = 9, 63 and 130, and a K (4128) that 64 does not divide. The
 # kernel table keeps one shape per kernel.
 QMM_SHAPES = ((4, 5120, 5120), (4, 5120, 13824), (4, 13824, 5120), (4, 5120, 32000),
+              (1, 5120, 13824), (2, 5120, 13824), (3, 5120, 13824), (5, 5120, 13824),
+              (8, 5120, 13824), (4, 4096, 50400),
               (736, 5120, 5120), (736, 5120, 13824), (736, 13824, 5120),
               (4224, 4096, 4096), (4224, 4096, 1024), (4224, 4096, 14336),
               (4224, 14336, 4096),
@@ -952,6 +964,7 @@ def check_quant_kernels(dev, g, randn, record):
         if row and name == MMA:
             qmm_tiles(a, w8, sc, out)
         del w8, sc, wb
+    gemv_attributes(dev)
     qmm_refusals(dev)
     # ---- one int8 pool (and its bf16 twin) for the attention kernels ---- #
     S, Hq, Hkv, D, bs = 4, 40, 40, 128, 128
@@ -1086,13 +1099,31 @@ def qmm_tiles(a, w8, sc, want):
         line[f"tile_{tm}"] = {"same_as_entry": bool(torch.equal(out, want)) if tm == (
             128 if M <= 128 else 256) else None, "ms": time_ms(run),
             "attributes": read_attributes("dstorch_qmm_mma_attrs", tm)}
-    print("k8-kernels " + json.dumps({"shape": [M, K, N], **line}), flush=True)
+    print("k8-kernels " + json.dumps({"kernel": "qmm_mma", "shape": [M, K, N], **line}),
+          flush=True)
     if any(v["same_as_entry"] is False for v in line.values()):
         raise AssertionError("qmm_mma: the tiled entry differs from dstorch_qmm_mma")
     spills = {k: v["attributes"]["local_bytes"] for k, v in line.items()
               if v["attributes"]["local_bytes"]}
     if spills:
         raise AssertionError(f"qmm_mma spills to local memory: {spills}")
+
+
+def gemv_attributes(dev):
+    """The ``k8-kernels`` line of qmm_gemv: every instance's attributes
+    (int8 and packed int4 at M 1..8, with the split plan at the kernel
+    row's K and N); a spill fails the run."""
+    from deepspeed_tpu_torch.ops.kernels.quantized_matmul import (
+        GEMV, GEMV_MAX_M, _sm_count, gemv_splits)
+    _, K, N = QMM_ROWS[GEMV]
+    attrs = {f"M={M}/{v}": read_attributes("dstorch_qmm_gemv_attrs", M, int4)
+             for M in range(1, GEMV_MAX_M + 1) for v, int4 in (("int8", 0), ("int4", 1))}
+    print("k8-kernels " + json.dumps({"kernel": "qmm_gemv", "shape": [K, N],
+                                      "splits": list(gemv_splits(K, N, _sm_count(dev))),
+                                      "attributes": attrs}), flush=True)
+    spills = {k: a["local_bytes"] for k, a in attrs.items() if a["local_bytes"]}
+    if spills:
+        raise AssertionError(f"qmm_gemv spills to local memory: {spills}")
 
 
 def qmm_refusals(dev):
@@ -1902,20 +1933,25 @@ def check_quant_alibi_kernels(dev, g, randn, record):
     torch.cuda.empty_cache()
 
 
-# K8 over int4-unpacked weights at Mistral-7B's gate/up projection: M = 4
-# (the decode batch, gemv) and M = 4224 (the windowed prefill pass, mma)
+# K8 over packed int4 weights at Mistral-7B's gate/up projection: M = 4
+# (the decode batch: qmm_gemv reads the packed bytes) and M = 4224 (the
+# windowed prefill pass: unpack, then qmm_mma)
 QMM4_SHAPES = ((4, 4096, 14336), (4224, 4096, 14336))
 
 
 def check_int4_matmul(dev, g, randn, record):
-    """``_mm`` over a packed int4 weight: the unpack (torch ops) and K8 on
-    the unpacked values, each timed, against the plain version; the bound
-    counts the packed weight's K*N/2 bytes (what a fused int4 body would
-    stream)."""
+    """``_mm`` over a packed int4 weight against the plain version, timed
+    beside the unpack (torch ops), K8 on the unpacked values and both
+    together. At M = 4 the kernel reads the packed bytes
+    (``quantized_matmul_int4``, the kernel table's row), and must give the
+    bits of unpack + ``qmm_gemv`` and of its own rerun; at M = 4224 it is
+    unpack + ``qmm_mma``. The bound counts the packed weight's K*N/2
+    bytes."""
     import torch
     from deepspeed_tpu_torch.inference.v2.ragged_model import _mm, quantize_weight_int4
     from deepspeed_tpu_torch.ops.kernels.quantized_matmul import (
-        GEMV, GEMV_MAX_M, quantized_matmul, quantized_matmul_plain)
+        GEMV_INT4, GEMV_MAX_M, MMA, quantized_matmul, quantized_matmul_int4_plain,
+        quantized_matmul_plain)
     from deepspeed_tpu_torch.ops.quantizer import unpack_int4
     for M, K, N in QMM4_SHAPES:
         a = randn(M, K)
@@ -1923,20 +1959,29 @@ def check_int4_matmul(dev, g, randn, record):
         qd = quantize_weight_int4(w)
         wb = w.to(torch.bfloat16)
         del w
-        w8 = unpack_int4(qd["w4"])
-        out, ref = _mm(a, qd), quantized_matmul_plain(a, w8, qd["scale"])
+        w4, sc = qd["w4"], qd["scale"]
+        w8 = unpack_int4(w4)
+        out, ref = _mm(a, qd), quantized_matmul_plain(a, w8, sc)
+        unpacked, again = quantized_matmul(a, w8, sc), _mm(a, qd)
         torch.cuda.synchronize()
-        name = GEMV if M <= GEMV_MAX_M else "quantized_matmul_mma"
+        fused = M <= GEMV_MAX_M
+        same = bool(torch.equal(out, unpacked) and torch.equal(out, again))
+        if fused and not same:
+            raise AssertionError(f"int4 gemv M={M} K={K} N={N}: not the bits of unpack + "
+                                 "qmm_gemv and of its own rerun")
         b_ms, b_by = bound(K * N // 2 + 4 * N + 2 * M * K + 2 * M * N, 2 * M * K * N)
-        record(name, f"int4 unpacked M={M} K={K} N={N}", err((out, ref)),
-               mm_ms=time_ms(lambda: _mm(a, qd)),
-               unpack_ms=time_ms(lambda: unpack_int4(qd["w4"])),
-               k8_ms=time_ms(lambda: quantized_matmul(a, w8, qd["scale"])),
-               plain_ms_int4=time_ms(lambda: quantized_matmul_plain(
-                   a, unpack_int4(qd["w4"]), qd["scale"]), 5, 1),
-               library_ms_bf16=time_ms(lambda: torch.matmul(a, wb)),
-               bound_ms_int4=b_ms, bound_by_int4=b_by)
-        del qd, wb, w8
+        record(GEMV_INT4 if fused else MMA,
+               f"int4 M={M} K={K} N={N} " + ("packed, in the kernel" if fused else "unpacked"),
+               err((out, ref)), row=fused, ms=time_ms(lambda: _mm(a, qd)),
+               plain_ms=time_ms(lambda: quantized_matmul_int4_plain(a, w4, sc), 5, 1),
+               library_ms=time_ms(lambda: torch.matmul(a, wb)),
+               library_covers="torch.matmul on the bf16 weight of the same shape (four "
+                              "times the packed weight's bytes)",
+               bound_ms=b_ms, bound_by=b_by, bitwise_equal_unpacked_route=same,
+               unpack_ms=time_ms(lambda: unpack_int4(w4)),
+               k8_unpacked_ms=time_ms(lambda: quantized_matmul(a, w8, sc)),
+               unpack_then_k8_ms=time_ms(lambda: quantized_matmul(a, unpack_int4(w4), sc)))
+        del qd, wb, w8, w4
 
 
 BURST = 16
@@ -3007,8 +3052,8 @@ def check_evo_kernels(label, L, S, H, R, D, pair_dtype, masked, timed, randn, g,
     """K10's four kernels against their plain versions (the backward ones
     fed the kernel forward's o and lse) on [L, S, H, D] rows with a mask
     (3% of keys, and row 1's every key) or none and a pair bias [L / R, H,
-    S, S] of ``pair_dtype``; the backward run twice and required bitwise
-    equal; timed at the MSA row shape, with SDPA over the float bias as the
+    S, S] of ``pair_dtype``; all four run twice and required bitwise equal;
+    timed at the MSA row shape, with SDPA over the float bias as the
     library yardstick. Returns the inputs."""
     import torch
     import torch.nn.functional as F
@@ -3029,8 +3074,9 @@ def check_evo_kernels(label, L, S, H, R, D, pair_dtype, masked, timed, randn, g,
     dq, (dk, dv), dpair = evoformer_dq(*args), evoformer_dkv(*args), evoformer_dbias(*args)
     case = (f"{label}: L={L} S={S} H={H} D={D} R={R} pair {str(pair_dtype)[6:]} "
             f"{'masked' if masked else 'no mask'}")
-    same_bits(case, (dq, dk, dv, dpair),
-              (evoformer_dq(*args), *evoformer_dkv(*args), evoformer_dbias(*args)))
+    same_bits(case, (o, lse, dq, dk, dv, dpair),
+              (*evoformer_fwd(q, k, v, mask, pair, scale, R), evoformer_dq(*args),
+               *evoformer_dkv(*args), evoformer_dbias(*args)))
     dq_ref = evoformer_dq_plain(*args)
     dk_ref, dv_ref = evoformer_dkv_plain(*args)
     dpair_ref = evoformer_dbias_plain(*args)
@@ -3147,15 +3193,19 @@ def run_evoformer(rows):
             q, k, v, do, pair = ins
         del ins
         torch.cuda.empty_cache()
-    attrs = {f"{name}/D{d}/pair {pt}": read_attributes("dstorch_evoformer_bwd_attrs", i, d,
-                                                       int(pt == "f32"))
-             for i, name in ((1, "evoformer_dq"), (2, "evoformer_dkv"), (3, "evoformer_dbias"))
-             for d in EVO_DIMS for pt in ("bf16", "f32")}
+    attrs = {f"evoformer_fwd/D{d}/pair {pt}": read_attributes(
+        "dstorch_evoformer_fwd_attrs", d, int(pt == "f32"))
+        for d in EVO_DIMS for pt in ("bf16", "f32")}
+    attrs.update({f"{name}/D{d}/pair {pt}": read_attributes("dstorch_evoformer_bwd_attrs", i, d,
+                                                            int(pt == "f32"))
+                  for i, name in ((1, "evoformer_dq"), (2, "evoformer_dkv"),
+                                  (3, "evoformer_dbias"))
+                  for d in EVO_DIMS for pt in ("bf16", "f32")})
     print("k10-kernels " + json.dumps({"attributes": attrs,
                                        "device": torch.cuda.get_device_name(0)}), flush=True)
     spills = {k: a["local_bytes"] for k, a in attrs.items() if a["local_bytes"]}
     if spills:
-        raise AssertionError(f"K10's backward kernels spill to local memory: {spills}")
+        raise AssertionError(f"K10's kernels spill to local memory: {spills}")
 
     # ---- the main path: the entry points, forward and backward ---- #
     B, msa_shape = 1, (1, Nc, Nr, Hm, D)
@@ -3703,7 +3753,7 @@ def lean_rates_and_bursts(label, engine, uids, prompts, t_gen, t_prefill, names,
 
 M8_KERNELS = ("flash_packed_window", "paged_chunk_int8_window", "paged_decode_int8_window",
               "paged_splitk_int8_window/2", "paged_splitk_int8_window/4", "splitk_merge",
-              "quantized_matmul_gemv", "quantized_matmul_mma")
+              "quantized_matmul_gemv_int4", "quantized_matmul_mma")
 M8_SIDE_KERNELS = ("paged_splitk_int8_side_window/4", "paged_decode_int8_side_window")
 M8_NAMES = W_NAMES + ("qmm_gemv", "qmm_mma")
 ENGINE_MISTRAL_LEAN = {**ENGINE_MISTRAL, "kv_quant": {"enabled": True},
@@ -4039,6 +4089,7 @@ def main() -> int:
     sources.update(KERNELS)
     sources.update({
         qmm.GEMV: (qmm.SOURCE, qmm.REPLACES), qmm.MMA: (qmm.SOURCE, qmm.REPLACES),
+        qmm.GEMV_INT4: (qmm.SOURCE, qmm.REPLACES_INT4),
         paged_decode.NAME_INT8: (paged_decode.SOURCE, paged_decode.REPLACES_INT8),
         paged_chunk.NAME_INT8: (paged_chunk.SOURCE, paged_chunk.REPLACES_INT8),
         **{paged_splitk.kernel_name(n, quant=True): (paged_splitk.SOURCE,

@@ -9,15 +9,22 @@
 // Two kernels, by M:
 //
 // qmm_gemv (M <= 8, the decode step): bound by the weight stream, K*N bytes
-// (half of bf16). A block of 8 warps owns 128 columns; each lane reads 4
-// columns (one 32-bit word) of a weight row, so a warp reads 128 contiguous
-// bytes per row, and the warps take rows k = w, w + 8, ... of the block's K
-// range, 8 rows in flight per lane. a's rows for that range sit in shared
-// memory as f32. To put enough blocks on 132 SMs the K range is cut into
-// splits (grid.y): each block writes its f32 partial sums, and the last
-// block of a column group to finish (a counter per column group) adds the
-// partials in split order, scales and writes bf16 — one launch, and the
-// same sums in the same order every time.
+// (half of bf16's; a quarter with packed int4, which the same body reads
+// in the kernel): 70.8 MB at Llama-2-13B's gate/up (5120 -> 13824), 0.021
+// ms at 3.35 TB/s, against 2*M*K*N = 0.57 GFLOP at M = 4. A block of 8
+// warps owns 128 columns and one split of K; the grid is one wave of about
+// two blocks an SM (the wrapper's gemv_splits, from the SM count). Each
+// lane keeps 8 16-byte weight loads in flight (two 16-row steps of int8,
+// four of int4; 32 KB a block), issued first, with a's few words read
+// beside them from L1/L2: no prologue stages a. Weight bytes become exact
+// bf16 by byte permutes (int8 through f32: 2^23 + (b + 128); int4 as 0x4300
+// | n in bf16, less 136), not I2F, and feed mma.sync m16n8k16 as the A
+// operand, with a's <= 8 rows, zero-padded, as the n8 B operand. The K
+// splits' f32 partial sums go to `work`, and the last block of each column
+// group to finish (a counter per column group) adds them in split order,
+// scales and writes bf16: one launch, no value atomics, the same sums in
+// the same order on every run, and the same for packed int4 as for its
+// unpacked int8 values.
 //
 // qmm_mma (M > 8, the prefill passes): bound by operations at M = 736
 // (2*M*K*N flops against K*N + 2*M*(K+N) bytes: 104 GFLOP = 105 us at 989
@@ -42,7 +49,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_common.cuh"  // kernel_attributes
+#include "mma_common.cuh"  // mma16816, kernel_attributes
 
 namespace dstorch {
 
@@ -53,91 +60,166 @@ typedef __nv_bfloat16 bf16;
 // ---------------------------------------------------------------------- //
 
 constexpr int kGvWarps = 8;
-constexpr int kGvCols = 128;      // columns per block (4 per lane)
-constexpr int kGvUnroll = 8;      // weight rows in flight per lane
-constexpr int kGvMaxRows = 512;   // K rows per split (a's tile in shared memory)
+constexpr int kGvCols = 128;     // columns a block: 16 per lane group g
+constexpr int kGvStep = 16;      // K rows a warp step: one m16n8k16 product's depth
+constexpr int kGvInFlight = 8;   // 16-byte weight loads in flight a thread
 
-template <int M>
-__global__ void __launch_bounds__(kGvWarps * 32)
-qmm_gemv_kernel(const bf16* __restrict__ a, const int8_t* __restrict__ w8,
+// bytes 2 HALF and 2 HALF + 1 of `u` (int8 values + 128, as unsigned) as a
+// bf16 pair, low half first; exact for |b| <= 128
+template <int HALF>
+__device__ __forceinline__ uint32_t biased_i8x2_to_bf16x2(uint32_t u) {
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + 2 * HALF));
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541 + 2 * HALF));
+  __nv_bfloat162 v = __floats2bfloat162_rn(f0 - 8388736.f, f1 - 8388736.f);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// the low nibbles of bytes 0 and 2 of `u` (int4 values + 8, as unsigned)
+// as a bf16 pair, low half first: 128 + n in bf16 is 0x4300 | n, less 136
+// (0x4308); exact
+__device__ __forceinline__ uint32_t biased_i4x2_to_bf16x2(uint32_t u) {
+  const uint32_t x = (u & 0x000F000Fu) | 0x43004300u, bias = 0x43084308u;
+  __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&x),
+                             *reinterpret_cast<const __nv_bfloat162*>(&bias));
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 16 weight bytes, streamed: read once, kept out of L1
+__device__ __forceinline__ uint4 ld_stream16(const void* p) {
+  uint4 r;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(p));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// a's two bf16 at columns k, k + 1 of row m (0 past the split's end)
+__device__ __forceinline__ uint32_t a_pair(const bf16* a, int m, int K, int k, int k_hi) {
+  return k < k_hi ? __ldg(reinterpret_cast<const unsigned int*>(a + (size_t)m * K + k)) : 0u;
+}
+
+// out[M, N] = bf16((a . w) * scale) for M <= 8, w int8 [K][N] or packed
+// int4 [K/2][N] (INT4). A block owns 128 columns and one split of K (grid
+// y); its 8 warps take the split's 16-row steps in turn (warp w: steps w,
+// w + 8, ...). A step is one m16n8k16 product per 16 columns with the
+// weight as A and a as B (tokens as n, zero past M), its k order permuted
+// so that each A register pairs rows k and k + 8 of one column: lane (g, t)
+// loads rows 2t, 2t + 1, 2t + 8, 2t + 9 (int4: packed rows t and t + 4,
+// whose low and high nibbles are those four rows) of columns 16g .. 16g +
+// 15 with 16-byte loads, and A fragment j (columns 16g + 2j, + 1 as rows g,
+// g + 8) takes bytes 2j and 2j + 1 of them; B pairs a's k and k + 8 the
+// same way. The warps' sums meet in shared memory (added in warp order), a
+// split's sums in `work`, added in split order by the column group's last
+// block.
+template <int M, bool INT4>
+__global__ void __launch_bounds__(kGvWarps * 32, 2)
+qmm_gemv_kernel(const bf16* __restrict__ a, const int8_t* __restrict__ w,
                 const float* __restrict__ scale, bf16* __restrict__ out,
                 float* __restrict__ work, int* __restrict__ counters, int K, int N,
                 int rows_per_split, int n_splits) {
-  // a's rows [rows][M] f32 during the loop; the warps' partial sums
-  // [warps][M][cols] after it
-  __shared__ __align__(16) float smem[kGvWarps * M * kGvCols];
+  constexpr int NL = INT4 ? 2 : 4;          // 16-byte loads a step
+  constexpr int U = kGvInFlight / NL;       // steps loaded together
+  __shared__ __align__(16) float red[kGvWarps * M * kGvCols];
   __shared__ int is_last;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n0 = blockIdx.x * kGvCols;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * kGvCols, col = n0 + 16 * g;
+  const bool col_ok = col < N;  // N % 16 == 0: a lane's 16 columns are all in or out
   const int split = blockIdx.y;
   const int k_lo = split * rows_per_split;
   const int k_hi = min(K, k_lo + rows_per_split);
-  const int nrows = k_hi - k_lo;
+  const int n_steps = (k_hi - k_lo + kGvStep - 1) / kGvStep;
 
-  for (int i = tid; i < nrows * M; i += kGvWarps * 32) {
-    const int r = i / M, m = i - (i / M) * M;
-    smem[i] = __bfloat162float(a[(size_t)m * K + k_lo + r]);
-  }
-  __syncthreads();
+  // [j][0..3]: columns 16g + 2j (0, 1) and + 1 (2, 3), tokens 2t, 2t + 1
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-  const int col = n0 + lane * 4;
-  const bool col_ok = col < N;
-  float acc[M][4];
+  for (int s0 = warp; s0 < n_steps; s0 += kGvWarps * U) {
+    uint4 wv[U][NL];
+    uint32_t av[U][2];
 #pragma unroll
-  for (int m = 0; m < M; ++m)
+    for (int u = 0; u < U; ++u) {
+      const int k0 = k_lo + kGvStep * (s0 + kGvWarps * u);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
-
-  for (int r0 = warp; r0 < nrows; r0 += kGvWarps * kGvUnroll) {
-    uint32_t wv[kGvUnroll];
-#pragma unroll
-    for (int u = 0; u < kGvUnroll; ++u) {
-      const int r = r0 + u * kGvWarps;
-      wv[u] = (col_ok && r < nrows)
-                  ? __ldg(reinterpret_cast<const uint32_t*>(w8 + (size_t)(k_lo + r) * N + col))
-                  : 0u;
+      for (int r = 0; r < NL; ++r) {
+        // int8: rows 2t, 2t + 1, 2t + 8, 2t + 9; int4: packed rows t, t + 4
+        const int row = INT4 ? k0 / 2 + t + 4 * r : k0 + 2 * t + (r & 1) + 8 * (r >> 1);
+        const bool ok = col_ok && (INT4 ? 2 * row : row) < k_hi;
+        wv[u][r] = ok ? ld_stream16(w + (size_t)row * N + col) : make_uint4(0, 0, 0, 0);
+      }
+      av[u][0] = g < M ? a_pair(a, g, K, k0 + 2 * t, k_hi) : 0u;
+      av[u][1] = g < M ? a_pair(a, g, K, k0 + 2 * t + 8, k_hi) : 0u;
     }
 #pragma unroll
-    for (int u = 0; u < kGvUnroll; ++u) {
-      const int r = r0 + u * kGvWarps;
-      if (r >= nrows) break;
-      const char4 w4 = *reinterpret_cast<const char4*>(&wv[u]);
-      const float wf[4] = {(float)w4.x, (float)w4.y, (float)w4.z, (float)w4.w};
+    for (int u = 0; u < U; ++u) {
+      if (s0 + kGvWarps * u >= n_steps) break;
+      // B: a's k pairs (2t, 2t + 8) and (2t + 1, 2t + 9)
+      const uint32_t b0 = __byte_perm(av[u][0], av[u][1], 0x5410);
+      const uint32_t b1 = __byte_perm(av[u][0], av[u][1], 0x7632);
 #pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const float av = smem[r * M + m];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[m][c] = fmaf(av, wf[c], acc[m][c]);
+      for (int j = 0; j < 8; ++j) {
+        const int q = j >> 1, b = 2 * (j & 1);
+        uint32_t af[4];
+        if constexpr (INT4) {
+          // [lo row t, lo row t + 4 | hi ...] of columns 2j, 2j + 1
+          const uint32_t x = __byte_perm(word(wv[u][0], q), word(wv[u][1], q),
+                                         b | (b + 1) << 4 | (b + 4) << 8 | (b + 5) << 12) ^
+                             0x88888888u;
+          af[0] = biased_i4x2_to_bf16x2(x);        // column 2j: rows 2t, 2t + 8
+          af[1] = biased_i4x2_to_bf16x2(x >> 8);   // column 2j + 1
+          af[2] = biased_i4x2_to_bf16x2(x >> 4);   // column 2j: rows 2t + 1, 2t + 9
+          af[3] = biased_i4x2_to_bf16x2(x >> 12);  // column 2j + 1
+        } else {
+          const int sel = b | (b + 4) << 4 | (b + 1) << 8 | (b + 5) << 12;
+          // bytes of columns 2j, 2j + 1: [row 2t, row 2t + 8, ...] and
+          // [row 2t + 1, row 2t + 9, ...]
+          const uint32_t lo = __byte_perm(word(wv[u][0], q), word(wv[u][2], q), sel) ^
+                              0x80808080u;
+          const uint32_t hi = __byte_perm(word(wv[u][1], q), word(wv[u][3], q), sel) ^
+                              0x80808080u;
+          af[0] = biased_i8x2_to_bf16x2<0>(lo);
+          af[1] = biased_i8x2_to_bf16x2<1>(lo);
+          af[2] = biased_i8x2_to_bf16x2<0>(hi);
+          af[3] = biased_i8x2_to_bf16x2<1>(hi);
+        }
+        mma::mma16816(acc[j], af, b0, b1);
       }
     }
   }
-  __syncthreads();  // a's tile is dead; the region takes the warps' sums
-#pragma unroll
-  for (int m = 0; m < M; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) smem[(warp * M + m) * kGvCols + lane * 4 + c] = acc[m][c];
-  __syncthreads();
 
-  // each thread sums the warps for some (m, column) of the block
-  for (int i = tid; i < M * kGvCols; i += kGvWarps * 32) {
-    const int m = i / kGvCols, c = i - (i / kGvCols) * kGvCols;
-    float sum = 0.f;
+  // the warps' sums, [warp][m][column], then added in warp order
 #pragma unroll
-    for (int w = 0; w < kGvWarps; ++w) sum += smem[(w * M + m) * kGvCols + c];
-    smem[i] = sum;   // row w = 0 of the region: read back only by this thread
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = 2 * t + (e & 1), c = 16 * g + 2 * j + (e >> 1);
+      if (m < M) red[(warp * M + m) * kGvCols + c] = acc[j][e];
+    }
+  __syncthreads();
+  for (int i = tid; i < M * kGvCols; i += kGvWarps * 32) {
+    float sum = red[i];
+#pragma unroll
+    for (int wi = 1; wi < kGvWarps; ++wi) sum += red[wi * M * kGvCols + i];
+    red[i] = sum;   // warp 0's slot: read back only by this thread
   }
   const int n_cols = min(kGvCols, N - n0);
   if (n_splits == 1) {
     for (int i = tid; i < M * kGvCols; i += kGvWarps * 32) {
       const int m = i / kGvCols, c = i - (i / kGvCols) * kGvCols;
-      if (c < n_cols)
-        out[(size_t)m * N + n0 + c] = __float2bfloat16(smem[i] * scale[n0 + c]);
+      if (c < n_cols) out[(size_t)m * N + n0 + c] = __float2bfloat16(red[i] * scale[n0 + c]);
     }
     return;
   }
   for (int i = tid; i < M * kGvCols; i += kGvWarps * 32) {
     const int m = i / kGvCols, c = i - (i / kGvCols) * kGvCols;
-    if (c < n_cols) work[((size_t)split * M + m) * N + n0 + c] = smem[i];
+    if (c < n_cols) work[((size_t)split * M + m) * N + n0 + c] = red[i];
   }
   __threadfence();
   __syncthreads();
@@ -272,16 +354,6 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t 
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-// bytes 2 HALF and 2 HALF + 1 of `u` (int8 values + 128, as unsigned) as a
-// bf16 pair, low half first; exact for |b| <= 128
-template <int HALF>
-__device__ __forceinline__ uint32_t biased_i8x2_to_bf16x2(uint32_t u) {
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + 2 * HALF));
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541 + 2 * HALF));
-  __nv_bfloat162 v = __floats2bfloat162_rn(f0 - 8388736.f, f1 - 8388736.f);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 template <int TM>
@@ -485,45 +557,94 @@ int launch_qmm_mma(const void* a, const void* w8, const void* scale, void* out, 
   return (int)cudaGetLastError();
 }
 
-template <int M>
-int launch_gemv(const void* a, const void* w8, const void* scale, void* out, void* work,
+template <int M, bool INT4>
+int launch_gemv(const void* a, const void* w, const void* scale, void* out, void* work,
                 void* counters, int K, int N, int rows_per_split, int n_splits,
                 cudaStream_t st) {
   dim3 grid((N + kGvCols - 1) / kGvCols, n_splits);
-  qmm_gemv_kernel<M><<<grid, kGvWarps * 32, 0, st>>>(
-      static_cast<const bf16*>(a), static_cast<const int8_t*>(w8),
+  qmm_gemv_kernel<M, INT4><<<grid, kGvWarps * 32, 0, st>>>(
+      static_cast<const bf16*>(a), static_cast<const int8_t*>(w),
       static_cast<const float*>(scale), static_cast<bf16*>(out),
       static_cast<float*>(work), static_cast<int*>(counters), K, N, rows_per_split,
       n_splits);
   return (int)cudaGetLastError();
 }
 
+template <int M, bool INT4>
+int gemv_attributes(int* out) {
+  return mma::kernel_attributes(qmm_gemv_kernel<M, INT4>, kGvWarps * 32, 0, out);
+}
+
 }  // namespace dstorch
 
-// a [M, K] bf16, w8 [K, N] int8, scale [N] f32 -> out [M, N] bf16, for
-// 1 <= M <= 8. work: [n_splits, M, N] f32 scratch; counters:
-// [ceil(N / 128)] int32, all 0 before the launch and left 0 after it.
-// Needs N % 4 == 0 and rows_per_split <= 512. Returns the launch's
-// cudaError_t, -1 for an unsupported shape.
+// Dispatch on the token count M (1..8) of qmm_gemv_kernel<M, INT4>
+#define DSTORCH_GEMV_DISPATCH(M, INT4, FN, ...) \
+  switch (M) {                                  \
+    case 1: return FN<1, INT4>(__VA_ARGS__);    \
+    case 2: return FN<2, INT4>(__VA_ARGS__);    \
+    case 3: return FN<3, INT4>(__VA_ARGS__);    \
+    case 4: return FN<4, INT4>(__VA_ARGS__);    \
+    case 5: return FN<5, INT4>(__VA_ARGS__);    \
+    case 6: return FN<6, INT4>(__VA_ARGS__);    \
+    case 7: return FN<7, INT4>(__VA_ARGS__);    \
+    case 8: return FN<8, INT4>(__VA_ARGS__);    \
+    default: return -1;                         \
+  }
+
+namespace dstorch {
+
+// a [M, K] bf16, w [K, N] int8 (int4 false) or packed int4 [K / 2, N]
+// (int4 true: byte [i][n] holds row 2i in its low nibble, 2i + 1 in its high
+// one), scale [N] f32 -> out [M, N] bf16, for 1 <= M <= 8. K's rows are cut
+// into n_splits splits of rows_per_split (a multiple of 16). work:
+// [n_splits, M, N] f32 scratch; counters: [ceil(N / 128)] int32, all 0
+// before the launch and left 0 after it. Needs even K, N % 16 == 0, w
+// 16-byte and a 4-byte aligned. Returns the launch's cudaError_t, -1 for an
+// unsupported shape.
+static int qmm_gemv(const void* a, const void* w, const void* scale, void* out, void* work,
+                    void* counters, int M, int K, int N, int rows_per_split, int n_splits,
+                    bool int4, void* stream) {
+  if (M == 0 || N == 0) return 0;
+  if (K % 2 != 0 || N % 16 != 0 || rows_per_split < 1 || rows_per_split % kGvStep != 0 ||
+      n_splits < 1 || (long)rows_per_split * n_splits < K ||
+      (reinterpret_cast<uintptr_t>(w) & 15) != 0 || (reinterpret_cast<uintptr_t>(a) & 3) != 0)
+    return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (int4) {
+    DSTORCH_GEMV_DISPATCH(M, true, launch_gemv, a, w, scale, out, work, counters, K, N,
+                          rows_per_split, n_splits, st)
+  }
+  DSTORCH_GEMV_DISPATCH(M, false, launch_gemv, a, w, scale, out, work, counters, K, N,
+                        rows_per_split, n_splits, st)
+}
+
+}  // namespace dstorch
+
+// The int8 weight: the route of quantized_matmul at M <= 8.
 extern "C" int dstorch_qmm_gemv(const void* a, const void* w8, const void* scale,
                                 void* out, void* work, void* counters, int M, int K, int N,
                                 int rows_per_split, int n_splits, void* stream) {
-  if (M == 0 || N == 0) return 0;
-  if (N % 4 != 0 || rows_per_split > dstorch::kGvMaxRows || rows_per_split < 1 ||
-      n_splits < 1 || (long)rows_per_split * n_splits < K)
-    return -1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (M) {
-    case 1: return dstorch::launch_gemv<1>(a, w8, scale, out, work, counters, K, N, rows_per_split, n_splits, st);
-    case 2: return dstorch::launch_gemv<2>(a, w8, scale, out, work, counters, K, N, rows_per_split, n_splits, st);
-    case 3: return dstorch::launch_gemv<3>(a, w8, scale, out, work, counters, K, N, rows_per_split, n_splits, st);
-    case 4: return dstorch::launch_gemv<4>(a, w8, scale, out, work, counters, K, N, rows_per_split, n_splits, st);
-    case 5: return dstorch::launch_gemv<5>(a, w8, scale, out, work, counters, K, N, rows_per_split, n_splits, st);
-    case 6: return dstorch::launch_gemv<6>(a, w8, scale, out, work, counters, K, N, rows_per_split, n_splits, st);
-    case 7: return dstorch::launch_gemv<7>(a, w8, scale, out, work, counters, K, N, rows_per_split, n_splits, st);
-    case 8: return dstorch::launch_gemv<8>(a, w8, scale, out, work, counters, K, N, rows_per_split, n_splits, st);
-    default: return -1;
-  }
+  return dstorch::qmm_gemv(a, w8, scale, out, work, counters, M, K, N, rows_per_split,
+                           n_splits, false, stream);
+}
+
+// The packed int4 weight w4 [K / 2, N] (K the unpacked depth): the route of
+// quantized_matmul_int4, the same sums in the same order as dstorch_qmm_gemv
+// on the unpacked weight.
+extern "C" int dstorch_qmm_gemv_int4(const void* a, const void* w4, const void* scale,
+                                     void* out, void* work, void* counters, int M, int K,
+                                     int N, int rows_per_split, int n_splits, void* stream) {
+  return dstorch::qmm_gemv(a, w4, scale, out, work, counters, M, K, N, rows_per_split,
+                           n_splits, true, stream);
+}
+
+// qmm_gemv_kernel<M, int4> as compiled: out [6] int32 as
+// dstorch_flash_kernel_attrs gives them. Returns a cudaError_t, -1 for an
+// unsupported M.
+extern "C" int dstorch_qmm_gemv_attrs(int M, int int4, void* out) {
+  int* o = static_cast<int*>(out);
+  if (int4) { DSTORCH_GEMV_DISPATCH(M, true, dstorch::gemv_attributes, o) }
+  DSTORCH_GEMV_DISPATCH(M, false, dstorch::gemv_attributes, o)
 }
 
 // The same for any M >= 1 through tensor cores (wgmma); needs K % 32 == 0

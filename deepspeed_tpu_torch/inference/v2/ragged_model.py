@@ -69,8 +69,9 @@ from deepspeed_tpu_torch.ops.kernels.kv_quant import (kv_quantize_rows,
                                                       kv_write_dequant,
                                                       scale_tile_rows,
                                                       scale_write_index)
-from deepspeed_tpu_torch.ops.kernels.quantized_matmul import quantized_matmul
-from deepspeed_tpu_torch.ops.quantizer import pack_int4, unpack_int4
+from deepspeed_tpu_torch.ops.kernels.quantized_matmul import (quantized_matmul,
+                                                              quantized_matmul_int4)
+from deepspeed_tpu_torch.ops.quantizer import pack_int4
 
 
 @dataclass
@@ -332,14 +333,17 @@ def _rope_flat(x: torch.Tensor, rope, rotary_dim: Optional[int]) -> torch.Tensor
 def _mm(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w`` where ``w`` is a plain ``[K, N]`` tensor OR a weight-only
     dict with a ``[1, N]`` f32 column scale: int8 ``{"w8" [K, N], "scale"}``
-    or packed int4 ``{"w4" [K/2, N], "scale"}``, which unpacks
-    (``ops/quantizer.unpack_int4``) to its int8 values first. Either way
-    the int8 matmul kernel (K8) sums ``x @ w8`` in f32 and scales the sum
-    once per column, in x's dtype: the JAX package's ``_mm`` (:409) for
-    both, whose int4 branch is an f32 dot over the unpacked values."""
+    or packed int4 ``{"w4" [K/2, N], "scale"}``. Either way the int8 matmul
+    kernel (K8) sums ``x @ w8`` in f32 and scales the sum once per column,
+    in x's dtype: the JAX package's ``_mm`` (:409) for both, whose int4
+    branch is an f32 dot over the unpacked values. Packed int4 goes through
+    ``quantized_matmul_int4``: at most 8 rows of x read the packed bytes in
+    K8's ``qmm_gemv``; more rows unpack the weight
+    (``ops/quantizer.unpack_int4``) for ``qmm_mma``."""
     if isinstance(w, dict):
-        w8 = unpack_int4(w["w4"], axis=-2) if "w4" in w else w["w8"]
-        return quantized_matmul(x, w8, w["scale"])
+        if "w4" in w:
+            return quantized_matmul_int4(x, w["w4"], w["scale"])
+        return quantized_matmul(x, w["w8"], w["scale"])
     return x @ w
 
 

@@ -44,7 +44,7 @@ SOURCES = ("flash_packed.cu", "paged_chunk.cu", "paged_decode.cu", "flash_fwd.cu
            "flash_bwd.cu", "paged_splitk.cu", "quantized_matmul.cu",
            "block_sparse_fwd.cu", "block_sparse_bwd.cu", "evoformer_fwd.cu",
            "evoformer_bwd.cu")
-HEADERS = ("attn_common.cuh", "decode_common.cuh", "tile_common.cuh",
+HEADERS = ("attn_common.cuh", "decode_common.cuh",
            "evoformer_common.cuh", "mma_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -75,6 +75,8 @@ ENTRY_POINTS = {
                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "dstorch_splitk_merge": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "dstorch_qmm_gemv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "dstorch_qmm_gemv_int4": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "dstorch_qmm_gemv_attrs": (_I, _I, _P),
     "dstorch_qmm_mma": (_P, _P, _P, _P, _I, _I, _I, _P),
     "dstorch_qmm_mma_tiled": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "dstorch_qmm_mma_attrs": (_I, _P),
@@ -95,6 +97,7 @@ ENTRY_POINTS = {
     "dstorch_flash_kernel_attrs": (_I, _I, _P),
     "dstorch_block_sparse_fwd_attrs": (_I, _P),
     "dstorch_block_sparse_bwd_attrs": (_I, _I, _P),
+    "dstorch_evoformer_fwd_attrs": (_I, _I, _P),
     "dstorch_evoformer_bwd_attrs": (_I, _I, _I, _P),
 }
 
@@ -107,6 +110,7 @@ LAUNCHES: Dict[str, int] = {"flash_packed": 0, "paged_chunk": 0,
                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                             "paged_chunk_int8": 0, "paged_decode_int8": 0,
                             "splitk_merge": 0, "quantized_matmul_gemv": 0,
+                            "quantized_matmul_gemv_int4": 0,
                             "quantized_matmul_mma": 0, "block_sparse_fwd": 0,
                             "block_sparse_dq": 0, "block_sparse_dkv": 0,
                             "evoformer_fwd": 0, "evoformer_dq": 0, "evoformer_dkv": 0,

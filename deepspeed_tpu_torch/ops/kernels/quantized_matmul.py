@@ -9,10 +9,19 @@ Every projection and the LM head of an engine built with
 ``quantization.weight_bits = 8`` runs here.
 
 Two kernels, picked by M: ``qmm_gemv`` for M <= 8 (the decode step; bound
-by the K*N weight bytes it streams, with the K range split across blocks
-and the partial sums added by the last block of each column group), and
-``qmm_mma`` for larger M (the prefill passes; bf16 tensor-core tiles with
-the int8 tile converted in shared memory).
+by the K*N weight bytes it streams, its K range split across one wave of
+blocks sized from the SM count and the partial sums added in split order
+by the last block of each column group), and ``qmm_mma`` for larger M (the
+prefill passes; bf16 tensor-core tiles with the int8 tile converted in
+shared memory).
+
+Packed int4 weights (``quantization.weight_bits = 4``: ``w4 [K/2, N]``, two
+values a byte as ``ops/quantizer.pack_int4`` stores them) go through
+:func:`quantized_matmul_int4`: at M <= 8 the same ``qmm_gemv`` body reads
+the packed bytes in the kernel (launches counted as
+``quantized_matmul_gemv_int4``; the same sums in the same order, so the same
+bits, as ``qmm_gemv`` on the unpacked weight); at larger M the weight is
+unpacked in torch ops and ``qmm_mma`` runs on it.
 """
 
 from __future__ import annotations
@@ -22,20 +31,26 @@ from typing import Dict
 import torch
 
 from deepspeed_tpu_torch.ops.kernels import _loader
+from deepspeed_tpu_torch.ops.quantizer import unpack_int4
 
 NAME = "quantized_matmul"
 GEMV = "quantized_matmul_gemv"
+GEMV_INT4 = "quantized_matmul_gemv_int4"
 MMA = "quantized_matmul_mma"
 SOURCE = "deepspeed_tpu_torch/csrc/quantized_matmul.cu"
 REPLACES = "deepspeed_tpu/ops/pallas/quantized_matmul.py:82 (body _qmm_kernel :64)"
+REPLACES_INT4 = ("deepspeed_tpu/inference/v2/ragged_model.py:427-436 (_mm's w4 branch: "
+                 "unpack_int4, then the int8 dot of quantized_matmul.py:82)")
 GEMV_MAX_M = 8
 _GEMV_COLS = 128         # columns per gemv block
-_GEMV_MAX_ROWS = 512     # K rows per gemv split
-_TARGET_BLOCKS = 264     # two blocks per SM of an H100
+_GEMV_ROWS = 128         # a split's K rows are a multiple of this: 16 per warp step x 8 warps
+_GEMV_BLOCKS_PER_SM = 2  # resident gemv blocks an SM (its launch bounds)
+H100_SMS = 132
 
 # per-device column-group counters of the gemv split-K reduction; each
 # launch leaves them at 0 for the next
 _counters: Dict[torch.device, torch.Tensor] = {}
+_sms: Dict[torch.device, int] = {}
 
 
 def _gemv_counters(device: torch.device, n: int) -> torch.Tensor:
@@ -46,15 +61,38 @@ def _gemv_counters(device: torch.device, n: int) -> torch.Tensor:
     return c
 
 
-def gemv_splits(K: int, N: int):
-    """(rows per split, splits) of the gemv kernel's K range: at most 512
-    rows a split, and enough splits for about two blocks per SM (eight per
-    SM measured slower on an H100: the split partials' extra traffic)."""
+def _sm_count(device: torch.device) -> int:
+    if device.type != "cuda":
+        return H100_SMS
+    if device not in _sms:
+        _sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sms[device]
+
+
+def gemv_splits(K: int, N: int, sms: int = H100_SMS):
+    """(rows per split, splits) of the gemv kernel's K range: one wave of
+    at most ``2 * sms`` blocks (128-column groups x splits), each split a
+    multiple of 128 rows (16 a warp step, 8 warps), the last one ragged.
+    Split s covers rows ``[s * rows, min(K, (s + 1) * rows))``."""
     col_blocks = -(-N // _GEMV_COLS)
-    n = max(-(-K // _GEMV_MAX_ROWS), -(-_TARGET_BLOCKS // col_blocks))
-    n = min(n, max(1, K // 32))
-    rows = -(-K // n)
-    return rows, -(-K // rows)
+    units = max(1, -(-K // _GEMV_ROWS))
+    n = max(1, min(units, (_GEMV_BLOCKS_PER_SM * sms) // col_blocks))
+    rows = _GEMV_ROWS * -(-units // n)
+    return rows, max(1, -(-K // rows))
+
+
+def _launch_gemv(kernel: str, entry: str, a2, w, s, K: int, N: int) -> torch.Tensor:
+    """One qmm_gemv launch (int8 ``w`` or packed int4) on [M <= 8, K] a."""
+    M = a2.shape[0]
+    out = torch.empty((M, N), dtype=a2.dtype, device=a2.device)
+    rows, n_splits = gemv_splits(K, N, _sm_count(a2.device))
+    work = torch.empty((n_splits, M, N) if n_splits > 1 else (1,),
+                       dtype=torch.float32, device=a2.device)
+    counters = _gemv_counters(a2.device, -(-N // _GEMV_COLS))
+    P = _loader.ptr
+    _loader.launch(kernel, entry, a2.device, P(a2), P(w), P(s), P(out), P(work),
+                   P(counters), M, K, N, rows, n_splits)
+    return out
 
 
 def quantized_matmul(a: torch.Tensor, w8: torch.Tensor,
@@ -75,25 +113,57 @@ def quantized_matmul(a: torch.Tensor, w8: torch.Tensor,
     if _loader.on_cpu(NAME, a2, w8, s):
         return quantized_matmul_plain(a2, w8, s).reshape(*lead, N)
     a2 = a2.contiguous()
-    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     if M == 0:
-        return out.reshape(*lead, N)
-    P = _loader.ptr
+        return torch.empty((0, N), dtype=a.dtype, device=a.device).reshape(*lead, N)
     if M <= GEMV_MAX_M:
         _loader.check_cuda(GEMV, a2.dtype, f32=("scale",), i8=("w8",), a=a2, w8=w8,
                            scale=s)
-        rows, n_splits = gemv_splits(K, N)
-        work = torch.empty((n_splits, M, N) if n_splits > 1 else (1,),
-                           dtype=torch.float32, device=a.device)
-        counters = _gemv_counters(a.device, -(-N // _GEMV_COLS))
-        _loader.launch(GEMV, "dstorch_qmm_gemv", a.device, P(a2), P(w8), P(s), P(out),
-                       P(work), P(counters), M, K, N, rows, n_splits)
+        out = _launch_gemv(GEMV, "dstorch_qmm_gemv", a2, w8, s, K, N)
     else:
         _loader.check_cuda(MMA, a2.dtype, f32=("scale",), i8=("w8",), a=a2, w8=w8,
                            scale=s)
+        out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+        P = _loader.ptr
         _loader.launch(MMA, "dstorch_qmm_mma", a.device, P(a2), P(w8), P(s), P(out),
                        M, K, N)
     return out.reshape(*lead, N)
+
+
+def quantized_matmul_int4(a: torch.Tensor, w4: torch.Tensor,
+                          scale: torch.Tensor) -> torch.Tensor:
+    """``a [..., K]`` @ the packed int4 weight ``w4 [K/2, N]`` (int8 bytes,
+    row 2i in byte i's low nibble, 2i + 1 in its high one) with column scales
+    ``scale`` ([N] or [1, N] f32) -> ``[..., N]`` in a's dtype: the function
+    of ``quantized_matmul(a, unpack_int4(w4), scale)``.
+
+    CPU tensors run :func:`quantized_matmul_int4_plain`; CUDA tensors at M
+    <= 8 launch ``qmm_gemv`` on the packed bytes (bf16 a, contiguous), at
+    larger M unpack the weight and run :func:`quantized_matmul`."""
+    Kh, N = w4.shape
+    K = a.shape[-1]
+    if w4.dtype != torch.int8 or K % 2 or K != 2 * Kh or scale.numel() != N:
+        raise ValueError(f"{GEMV_INT4}: bad shapes a {tuple(a.shape)} w4 "
+                         f"{tuple(w4.shape)} {w4.dtype} scale {tuple(scale.shape)}")
+    lead = a.shape[:-1]
+    a2 = a.reshape(-1, K)
+    M = a2.shape[0]
+    s = scale.reshape(N)
+    if _loader.on_cpu(GEMV_INT4, a2, w4, s):
+        return quantized_matmul_int4_plain(a2, w4, s).reshape(*lead, N)
+    if M == 0 or M > GEMV_MAX_M:
+        return quantized_matmul(a2, unpack_int4(w4, axis=-2), s).reshape(*lead, N)
+    a2 = a2.contiguous()
+    _loader.check_cuda(GEMV_INT4, a2.dtype, f32=("scale",), i8=("w4",), a=a2, w4=w4,
+                       scale=s)
+    return _launch_gemv(GEMV_INT4, "dstorch_qmm_gemv_int4", a2, w4, s, K, N).reshape(
+        *lead, N)
+
+
+def quantized_matmul_int4_plain(a: torch.Tensor, w4: torch.Tensor,
+                                scale: torch.Tensor) -> torch.Tensor:
+    """The same function in plain PyTorch: the weight unpacked, then
+    :func:`quantized_matmul_plain`."""
+    return quantized_matmul_plain(a, unpack_int4(w4, axis=-2), scale)
 
 
 def quantized_matmul_plain(a: torch.Tensor, w8: torch.Tensor,

@@ -4,8 +4,10 @@ one axis, byte i holding value 2i in its low nibble and 2i+1 in its high
 nibble. The bytes are the JAX package's for the same input, so a packed
 weight tree moves between the two packages unchanged.
 
-Plain PyTorch ops on any device: the v2 engine's ``_mm`` unpacks a packed
-weight before the int8 matmul kernel (K8) runs on the unpacked values.
+Plain PyTorch ops on any device. The v2 engine's ``_mm`` unpacks a packed
+weight before the int8 matmul kernel (K8) runs on the unpacked values at
+more than 8 rows; at most 8 rows, K8's ``qmm_gemv`` reads the packed bytes
+itself (``ops/kernels/quantized_matmul.quantized_matmul_int4``).
 """
 
 from __future__ import annotations

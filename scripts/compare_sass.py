@@ -3,14 +3,14 @@
 kernel library share.
 
 Each kernel function of the OLD library is matched by its demangled name,
-template arguments included, to the NEW library's (a template flag the new
-build appends with value ``false`` is dropped from its name first, so an
-old ``paged_chunk_kernel<64, __nv_bfloat16>`` matches the new
-``paged_chunk_kernel<64, __nv_bfloat16, false>``). The two instruction
-streams are compared with addresses and encodings stripped and, with
-``--any-param-offsets``, constant-bank operands (``c[0x0][...]``, the
-kernel parameters) masked, so a kernel whose parameter list grew but whose
-instructions did not counts as unchanged.
+template arguments included, to the NEW library's, with trailing template
+flags of value ``false`` dropped from both names first: an old
+``paged_chunk_kernel<64, __nv_bfloat16>`` matches the new
+``paged_chunk_kernel<64, __nv_bfloat16, false>``, and the other way round.
+The two instruction streams are compared with addresses and encodings
+stripped and, with ``--any-param-offsets``, constant-bank operands
+(``c[0x0][...]``, the kernel parameters) masked, so a kernel whose
+parameter list grew but whose instructions did not counts as unchanged.
 
 Run on a machine with the CUDA toolkit (``cuobjdump``, ``cu++filt``), from
 the repository root:
@@ -67,8 +67,8 @@ def sass_by_function(lib: str) -> Dict[str, List[str]]:
 
 def kernel_key(demangled: str) -> str:
     """``void ns::name<(int)64, T, false>(params)`` -> ``ns::name<(int)64, T>``:
-    the name with its template arguments (a trailing ``false`` or
-    ``(bool)0`` flag dropped), without the return type and parameter
+    the name with its template arguments (trailing ``false`` or
+    ``(bool)0`` flags dropped), without the return type and parameter
     list."""
     name = demangled.split(" ", 1)[1] if demangled.startswith("void ") else demangled
     depth = 0
@@ -78,7 +78,7 @@ def kernel_key(demangled: str) -> str:
         elif ch == ">":
             depth -= 1
             if depth == 0:
-                return re.sub(r", (false|\(bool\)0)>$", ">", name[:i + 1])
+                return re.sub(r"(, (false|\(bool\)0))+>$", ">", name[:i + 1])
         elif ch == "(" and depth == 0:
             return name[:i]
     return name

@@ -59,6 +59,8 @@ from deepspeed_tpu_torch.ops.kernels.kv_quant import scale_tile_rows
 from deepspeed_tpu_torch.ops.kernels.paged_chunk import paged_chunk_attention_batched_plain
 from deepspeed_tpu_torch.ops.kernels.paged_decode import paged_decode_attention_plain
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 ATOL = 2e-5
 F32 = dict(rtol=1e-5, atol=1e-5)
 LOGITS_ATOL = 1e-4

@@ -27,6 +27,8 @@ from deepspeed_tpu_torch.checkpoint import params_from_flat, params_to_flat
 from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
 from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 LOGITS_ATOL = 1e-4
 
 CONFIGS = {

@@ -33,6 +33,8 @@ from deepspeed_tpu.ops.pallas import evoformer_attention as jk10
 from deepspeed_tpu_torch.ops import evoformer as tevo
 from deepspeed_tpu_torch.ops.kernels import evoformer_attention as k10
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 FWD_TOL = 2e-5
 BWD_TOL = 2e-4
 

@@ -36,6 +36,8 @@ from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from deepspeed_tpu_torch.ops import kernels
 from deepspeed_tpu_torch.ops.quantizer import pack_int4, unpack_int4
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)
 LOGITS_ATOL = 1e-4
@@ -122,6 +124,28 @@ def test_int4_mm_matches_jax(dtype):
     qd = prm.quantize_weight_int4(_t(w))
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     a = jnp.asarray(rng.randn(7, 512).astype(np.float32)).astype(jdt)
+    at = _t(np.asarray(a.astype(jnp.float32))).to(tdt)
+    ref = jrm._mm(a, {"w4": jnp.asarray(qd["w4"].numpy()),
+                      "scale": jnp.asarray(qd["scale"].numpy())})
+    kernels.reset_launches()
+    got = prm._mm(at, qd)
+    assert got.dtype == tdt and all(n == 0 for n in kernels.LAUNCHES.values())
+    assert torch.equal(got, kernels.quantized_matmul_plain(at, unpack_int4(qd["w4"]),
+                                                           qd["scale"]))
+    np.testing.assert_allclose(_np(got), np.asarray(ref.astype(jnp.float32)),
+                               **(F32 if dtype == "float32" else BF16))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int4_mm_above_the_gemv_rows_matches_jax(dtype):
+    """``_mm`` over a packed weight at M = 9, one row past K8's gemv: the
+    route that unpacks the weight for ``qmm_mma`` (on the CPU, its plain
+    version), against the JAX package's ``_mm`` w4 branch."""
+    rng = np.random.RandomState(4)
+    w = rng.randn(512, 384).astype(np.float32) * 0.05
+    qd = prm.quantize_weight_int4(_t(w))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    a = jnp.asarray(rng.randn(9, 512).astype(np.float32)).astype(jdt)
     at = _t(np.asarray(a.astype(jnp.float32))).to(tdt)
     ref = jrm._mm(a, {"w4": jnp.asarray(qd["w4"].numpy()),
                       "scale": jnp.asarray(qd["scale"].numpy())})

@@ -50,6 +50,8 @@ from deepspeed_tpu_torch.ops.kernels import paged_splitk as psk
 from deepspeed_tpu_torch.ops.kernels.paged_chunk import paged_chunk_attention_batched_plain
 from deepspeed_tpu_torch.ops.kernels.paged_decode import paged_decode_attention_plain
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 F32 = dict(rtol=1e-5, atol=1e-5)
 # int8 pages: the two engines' K/V rows agree to f32 rounding, which may
 # cross an int8 rounding edge; inside a 24-token window one such crossing

@@ -21,7 +21,14 @@ their plain versions).
   call under their names, d(pair) with its chunks and f32 scratch.
 - ``quantized_matmul`` routes M <= 8 to ``qmm_gemv`` and larger M to
   ``qmm_mma`` with the same arguments as before, and refuses the shapes it
-  refused.
+  refused; the engine's ``_mm`` sends a packed int4 weight at M <= 8 to
+  ``qmm_gemv``'s int4 entry (the packed bytes read in the kernel) and at
+  larger M to unpack + ``qmm_mma``; ``quantized_matmul_int4`` refuses odd
+  K, a weight that is not int8, and a K/2 or N that does not match.
+- The gemv split plan (``gemv_splits``) and the kernel's walk over it
+  (warp w of a split takes 16-row steps w, w + 8, ...; lane quad t reads
+  rows 2t, 2t + 1, 2t + 8, 2t + 9 of a step, or packed int4 rows t and
+  t + 4) read every k exactly once, in one wave of blocks.
 - The sparse op's layout cache: a cached layout is byte-equal to a fresh
   ``make_layout``; configs that differ only in ``seed`` get their own
   entries; K9's tables are cached under the same key.
@@ -34,11 +41,13 @@ import types
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, settings
+from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
 from deepspeed_tpu_torch.ops import sparse_attention as tsa
 from deepspeed_tpu_torch.ops.kernels import _loader
+
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 # the modules by full name: the package re-exports same-named functions
 k9 = importlib.import_module("deepspeed_tpu_torch.ops.kernels.block_sparse_attention")
@@ -242,6 +251,89 @@ def test_quantized_matmul_refuses_bad_shapes(launches, a_shape, w_shape, w_dtype
         k8.quantized_matmul(torch.zeros(a_shape, dtype=torch.bfloat16),
                             torch.zeros(w_shape, dtype=w_dtype), torch.ones(n_scale))
     assert not launches
+
+
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 64])
+def test_mm_routes_packed_int4_by_m(fake_library, M):
+    from deepspeed_tpu_torch.inference.v2.ragged_model import _mm, quantize_weight_int4
+    K, N = 96, 48
+    qd = quantize_weight_int4(torch.randn(K, N, generator=torch.Generator().manual_seed(M)))
+    a = torch.zeros(M, K, dtype=torch.bfloat16)
+    names = (k8.GEMV, k8.GEMV_INT4, k8.MMA)
+    before = {n: _loader.LAUNCHES[n] for n in names}
+    out = _mm(a, qd)
+    assert out.shape == (M, N) and out.dtype == torch.bfloat16
+    fused = M <= k8.GEMV_MAX_M
+    assert {n: _loader.LAUNCHES[n] - before[n] for n in names} == {
+        k8.GEMV: 0, k8.GEMV_INT4: int(fused), k8.MMA: int(not fused)}
+    (entry, args), = fake_library
+    if fused:
+        rows, n_splits = k8.gemv_splits(K, N)
+        assert entry == "dstorch_qmm_gemv_int4"
+        assert args[1].value == qd["w4"].data_ptr() and args[6:11] == (M, K, N, rows, n_splits)
+    else:
+        assert entry == "dstorch_qmm_mma" and args[4:7] == (M, K, N)
+
+
+@pytest.mark.parametrize("K, w_shape, w_dtype, n_scale", [
+    (95, (47, 48), torch.int8, 48),       # an odd K
+    (96, (48, 48), torch.uint8, 48),      # the packed weight is not int8
+    (96, (96, 48), torch.int8, 48),       # K/2 rows expected, K given
+    (96, (48, 48), torch.int8, 40),       # a scale per column, not 40
+])
+def test_quantized_matmul_int4_refuses_bad_shapes(launches, K, w_shape, w_dtype, n_scale):
+    with pytest.raises(ValueError):
+        k8.quantized_matmul_int4(torch.zeros(4, K, dtype=torch.bfloat16),
+                                 torch.zeros(w_shape, dtype=w_dtype), torch.ones(n_scale))
+    assert not launches
+
+
+def _gemv_reads(K, rows, n_splits, int4):
+    """How often the gemv kernel's lanes read each k (numpy model of its
+    walk: split s covers [s * rows, min(K, (s + 1) * rows)); warp w takes
+    16-row steps w, w + 8, ...; lane quad t reads rows 2t, 2t + 1, 2t + 8,
+    2t + 9, or packed rows t and t + 4, each of whose bytes holds rows 2p
+    and 2p + 1; rows at or past the split's end are not read)."""
+    counts = np.zeros(K, np.int64)
+    for sp in range(n_splits):
+        k_lo, k_hi = sp * rows, min(K, (sp + 1) * rows)
+        n_steps = -(-(k_hi - k_lo) // 16)
+        for w in range(8):
+            for step in range(w, n_steps, 8):
+                k0 = k_lo + 16 * step
+                for t in range(4):
+                    if int4:
+                        ks = [2 * p + e for p in (k0 // 2 + t, k0 // 2 + t + 4) for e in (0, 1)
+                              if 2 * p < k_hi]
+                    else:
+                        ks = [k for k in (k0 + 2 * t, k0 + 2 * t + 1, k0 + 2 * t + 8,
+                                          k0 + 2 * t + 9) if k < k_hi]
+                    counts[ks] += 1
+    return counts
+
+
+@settings(max_examples=40, deadline=None, database=None, derandomize=True,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(K2=st.integers(1, 4096), n16=st.integers(1, 64), M=st.integers(1, 8),
+       sms=st.sampled_from([132, 114, 78, 1]), int4=st.booleans())
+def test_gemv_split_plan_reads_every_k_once(launches, monkeypatch, K2, n16, M, sms, int4):
+    K, N = 2 * K2, 16 * n16
+    rows, n_splits = k8.gemv_splits(K, N, sms)
+    assert rows % 128 == 0 and n_splits >= 1 and (n_splits - 1) * rows < K <= n_splits * rows
+    col_blocks = -(-N // 128)
+    assert col_blocks * n_splits <= max(2 * sms, col_blocks)     # one wave
+    np.testing.assert_array_equal(_gemv_reads(K, rows, n_splits, int4), np.ones(K, np.int64))
+    # the wrappers launch that plan, with split-K scratch for M rows
+    monkeypatch.setattr(k8, "_sm_count", lambda device: sms)
+    a = torch.zeros(M, K, dtype=torch.bfloat16)
+    if int4:
+        k8.quantized_matmul_int4(a, torch.zeros(K // 2, N, dtype=torch.int8), torch.ones(N))
+    else:
+        k8.quantized_matmul(a, torch.zeros(K, N, dtype=torch.int8), torch.ones(N))
+    (name, entry, args), = launches
+    assert name == (k8.GEMV_INT4 if int4 else k8.GEMV)
+    assert args[6:] == (M, K, N, rows, n_splits)
+    launches.clear()
 
 
 def test_layout_cache_is_byte_equal_and_keyed_by_seed():

@@ -30,6 +30,8 @@ from deepspeed_tpu_torch.ops.kernels import (flash_attention, flash_attention_fw
                                              paged_chunk_attention_batched_plain,
                                              paged_decode_attention_plain)
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 ATOL = 2e-5
 
 

@@ -44,6 +44,8 @@ from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from deepspeed_tpu_torch.ops.kernels.kv_quant import kv_write_dequant, scale_tile_rows
 from deepspeed_tpu_torch.utils.caching import LRUCache
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 LOGITS_ATOL = 1e-4
 INT8_LOGITS_ATOL = 1e-3
 LLAMA = dict(vocab_size=128, hidden_size=256, intermediate_size=256, num_hidden_layers=2,

@@ -21,6 +21,8 @@ from deepspeed_tpu_torch.ops import kernels
 from deepspeed_tpu_torch.ops.kernels import _loader
 from deepspeed_tpu_torch.ops.kernels.paged_splitk import merge_splitk_partials, splitk_merge
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "deepspeed_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "flax", "deepspeed_tpu"}
@@ -266,6 +268,9 @@ def _kernel_inputs(seed=0):
                                f(2, 9, 2, 16), f(2, 2, 9), f(2, 9, 2, 16)),
                               {"causal": True, "scale": 0.25}),
         "quantized_matmul": lambda: ((f(3, 32), w8, f(16).abs()), {}),
+        # packed int4 [K/2, N]: every byte value, so every nibble pair
+        "quantized_matmul_int4": lambda: ((f(3, 32), torch.from_numpy(
+            rng.randint(-128, 128, (16, 16)).astype(np.int8)), f(16).abs()), {}),
         "splitk_attention": lambda: ((f(2, 4, 16), pool, i32([[1, 2], [3, 0]]),
                                       i32([5, 0])),
                                      {"n_splits": 2, "side_k": f(2, 2, 16),
@@ -316,6 +321,8 @@ WRAPPERS = {
     "flash_bwd_dkv": (kernels.flash_bwd_dkv, kernels.flash_bwd_dkv_plain),
     "flash_bwd": (kernels.flash_attention_bwd, kernels.flash_attention_bwd_plain),
     "quantized_matmul": (kernels.quantized_matmul, kernels.quantized_matmul_plain),
+    "quantized_matmul_int4": (kernels.quantized_matmul_int4,
+                              kernels.quantized_matmul_int4_plain),
     "splitk_attention": (kernels.splitk_attention, kernels.splitk_attention_plain),
     # the merge kernel's wrapper; merge_splitk_partials is its plain version
     "splitk_merge": (splitk_merge, lambda out_p, lse_p, dtype, with_lse:

@@ -27,6 +27,8 @@ from deepspeed_tpu_torch.ops.kernels import flash_attention_packed, flash_attent
 from deepspeed_tpu_torch.ops.kernels._loader import CSRC
 from deepspeed_tpu_torch.ops.kernels.flash_packed import KERNEL_HEAD_DIMS
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 ATOL = 2e-5
 R, H, HKV, N_SEG_ROWS = 100, 4, 2, 95
 

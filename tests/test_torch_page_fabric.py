@@ -39,6 +39,8 @@ from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import BlockedKVCache, KVC
 from deepspeed_tpu_torch.inference.v2.scheduler import DynamicSplitFuseScheduler
 from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 LLAMA = dict(vocab_size=128, hidden_size=256, intermediate_size=256, num_hidden_layers=2,
              num_attention_heads=2, num_key_value_heads=2, max_position_embeddings=256)
 STATE = {"max_tracked_sequences": 6, "max_ragged_sequence_count": 4,

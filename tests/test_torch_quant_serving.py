@@ -47,6 +47,8 @@ from deepspeed_tpu_torch.ops.kernels.paged_decode import paged_decode_attention
 from deepspeed_tpu_torch.ops.kernels.quantized_matmul import (quantized_matmul,
                                                               quantized_matmul_plain)
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)
 LOGITS_ATOL = 1e-4

@@ -32,6 +32,8 @@ from deepspeed_tpu_torch.ops import sparse_attention as tsa
 from deepspeed_tpu_torch.ops import block_sparse_attention
 from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as k9
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 TOL = 2e-5
 
 

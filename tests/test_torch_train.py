@@ -46,6 +46,8 @@ from deepspeed_tpu_torch.runtime import loss_scaler
 from deepspeed_tpu_torch.runtime.lr_schedules import build_lr_schedule
 from deepspeed_tpu_torch.utils.tree import global_norm, tree_cast
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 # name -> (GPT2Config overrides, batch rows, T)
 GPT2_CASES = {
     "tiny-D16": (dict(), 2, 32),
