@@ -216,6 +216,15 @@ shared memory per head dim, times) and fails on a spill. ``check_head_dims``
 holds K5, the decode kernel and K7 at D = 80 (32 heads) and D = 96 (64
 heads) against their plain versions.
 
+Phase 3 runs every call of the paged decode kernel's and K7's wrappers
+twice and requires the same bits (``bitwise_reruns``); holds both kernels
+at pages of 16 and 64, at G = 8 with D = 256 and at D = 40, over bf16 and
+int8 pages, under a window of 200 and ALiBi, with one and 16 side rows
+(``check_paged_shapes``); and prints the ``paged-kernels`` line: each
+instance's registers, spill bytes and shared memory, the decode kernel's
+cluster size at each main path's shape, and the count of bitwise reruns (a
+spill fails the run).
+
 The last two lines are the kernel table (54 rows) and ``{"ok": true,
 "device": ...}`` as JSON. Run from the repository root: ``python3 chip_smoke.py``.
 """
@@ -268,18 +277,71 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Device ms per call of ``fn``: CUDA events around ``iters`` calls
     queued behind a GPU sleep, so they run back to back."""
     import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES_PER_ITER * iters)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
+    RERUNS["timing"] = True
+    try:
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES_PER_ITER * iters)
+        t0.record()
+        for _ in range(iters):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+    finally:
+        RERUNS["timing"] = False
     return t0.elapsed_time(t1) / iters
+
+
+# Phase 3 runs every call of the decode kernel's and K7's wrappers twice
+# (outside time_ms) and requires the same bits (bitwise_reruns)
+RERUNS = {"timing": False, "checked": 0}
+
+
+def _bits(x):
+    import torch
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+@contextlib.contextmanager
+def bitwise_reruns():
+    """Within the block, each call of ``paged_decode_attention`` and
+    ``splitk_attention`` (through the package or their modules) outside
+    ``time_ms`` runs twice and fails unless both give the same bits."""
+    import torch
+    import deepspeed_tpu_torch.ops.kernels as pkg
+    mods = {"paged_decode_attention": sys.modules["deepspeed_tpu_torch.ops.kernels.paged_decode"],
+            "splitk_attention": sys.modules["deepspeed_tpu_torch.ops.kernels.paged_splitk"]}
+    saved = {name: getattr(mod, name) for name, mod in mods.items()}
+
+    def twice(name, fn):
+        @functools.wraps(fn)
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            if RERUNS["timing"]:
+                return out
+            again = fn(*args, **kw)
+            torch.cuda.synchronize()
+            outs = out if isinstance(out, tuple) else (out,)
+            agains = again if isinstance(again, tuple) else (again,)
+            if not all(torch.equal(_bits(a), _bits(b)) for a, b in zip(outs, agains)):
+                raise AssertionError(f"{name}: two runs on the same inputs differ")
+            RERUNS["checked"] += 1
+            return out
+        return run
+
+    for name, mod in mods.items():
+        wrapped = twice(name, saved[name])
+        setattr(mod, name, wrapped)
+        setattr(pkg, name, wrapped)
+    try:
+        yield
+    finally:
+        for name, mod in mods.items():
+            setattr(mod, name, saved[name])
+            setattr(pkg, name, saved[name])
 
 
 def bound(nbytes: float, flops: float):
@@ -454,6 +516,8 @@ def check_kernels(dev):
     check_quant_window_kernels(dev, g, randn, record)
     check_quant_alibi_kernels(dev, g, randn, record)
     check_int4_matmul(dev, g, randn, record)
+    check_paged_shapes(dev, g, randn, record)
+    paged_attributes(dev)
     return rows
 
 
@@ -696,6 +760,113 @@ def check_head_dims(dev, randn, record):
                err((o, o_ref), (lse[..., None], lse_ref[..., None])))
         del pool
     torch.cuda.empty_cache()
+
+
+# The decode kernel and K7's partials at shapes no main path gives them:
+# pages of 16 and 64 (the CPU tests' engines) at Mistral-7B's heads (GQA
+# 32/8, D = 128; bf16 and int8 pages), G = 8 at D = 256 (64 query heads
+# over 8 kv heads; bf16 and int8) and D = 40 (padded to 64 in the
+# kernels), each with a window of 200 and with ALiBi, pages only, one side
+# row and C = 16 side rows; contexts with a row of one page and an empty row
+PR_CTXS = [2000, 777, 130, 0]
+PR_CASES = (("bs=16", 32, 8, 128, 16, False), ("bs=16 int8", 32, 8, 128, 16, True),
+            ("bs=64", 32, 8, 128, 64, False), ("bs=64 int8", 32, 8, 128, 64, True),
+            ("G=8 D=256", 64, 8, 256, 128, False), ("G=8 D=256 int8", 64, 8, 256, 128, True),
+            ("D=40", 8, 4, 40, 64, False))
+PR_WINDOW = 200
+PR_MODES = (({}, 0, 0), ({}, 1, 0), ({"window": PR_WINDOW}, 0, 0),
+            ({"window": PR_WINDOW}, 16, 7), ({"alibi": True}, 0, 0),
+            ({"alibi": True}, 16, 15))
+PR_SPLITS = (2, 4, 8)
+# block-table entries the paged-kernels line's attributes stage (phase 9's
+# 128 pages at one piece)
+PAGED_ATTR_CAP = 130
+PAGED_DIMS = {0: (16, 32, 64, 80, 96, 128, 256), 1: (128, 256)}
+
+
+def check_paged_shapes(dev, g, randn, record):
+    """The decode kernel and K7 (2/4/8 splits) on PR_CASES x PR_MODES
+    against their plain versions."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels.kv_quant import (kv_quantize_rows,
+                                                          kv_write_dequant,
+                                                          scales_to_tiles)
+    from deepspeed_tpu_torch.ops.kernels.paged_decode import (
+        launch_name, paged_decode_attention, paged_decode_attention_plain)
+    from deepspeed_tpu_torch.ops.kernels.paged_splitk import (
+        kernel_name, splitk_attention, splitk_attention_plain)
+    S = len(PR_CTXS)
+    for label, H, Hkv, D, bs, quant in PR_CASES:
+        MB = -(-max(PR_CTXS) // bs) + 1
+        NB = sum(-(-c // bs) for c in PR_CTXS) + 2
+        bt = block_tables(PR_CTXS, bs, MB, NB, dev)
+        kw = {}
+        if quant:
+            x = torch.randn(NB, 2, Hkv, bs, D, generator=g, device=dev)
+            pool, scl = kv_quantize_rows(x)
+            kw["kv_scales"] = scales_to_tiles(scl).contiguous()
+            del x, scl
+        else:
+            pool = randn(NB, 2, Hkv, bs, D)
+        qd = randn(S, H, D)
+        for mode, C, j in PR_MODES:
+            lens = torch.tensor([max(c - C, 0) for c in PR_CTXS], dtype=torch.int32,
+                                device=dev)
+            side = ()
+            if C:
+                side = tuple(randn(S, C * Hkv, D) for _ in range(2))
+                if quant:
+                    side = tuple(kv_write_dequant(t.float()) for t in side)
+            args = (qd, pool, bt, lens)
+            case = (f"{label}: S={S} H={H} Hkv={Hkv} D={D} bs={bs} ctx={PR_CTXS} C={C} j={j} "
+                    f"{mode}")
+            name = launch_name(quant, mode.get("window"), mode.get("alibi", False), C)
+            record(name, case, err((
+                paged_decode_attention(*args, *side, j=j, **mode, **kw),
+                paged_decode_attention_plain(*args, *side, j=j, **mode, **kw))))
+            for n in PR_SPLITS:
+                name = kernel_name(n, mode.get("window"), mode.get("alibi", False),
+                                   side=C > 1, quant=quant)
+                if C:
+                    e = err((splitk_attention(*args, n, *side, j=j, **mode, **kw),
+                             splitk_attention_plain(*args, n, *side, j=j, **mode, **kw)))
+                else:
+                    o, lse = splitk_attention(*args, n, with_lse=True, **mode, **kw)
+                    o_ref, lse_ref = splitk_attention_plain(*args, n, with_lse=True, **mode,
+                                                            **kw)
+                    keep = lens > 0
+                    e = err((o, o_ref), (lse[keep][..., None], lse_ref[keep][..., None]))
+                record(name, case, e)
+        del pool
+    torch.cuda.empty_cache()
+
+
+def paged_attributes(dev):
+    """The ``paged-kernels`` line: each instance of the decode kernel and of
+    K7's partials kernel (registers, spill bytes, shared memory, blocks an
+    SM at PAGED_ATTR_CAP table entries), the decode kernel's cluster size at
+    each main path's shape, and the bitwise reruns phase 3 made; a spill
+    fails the run."""
+    from deepspeed_tpu_torch.ops.kernels import _loader
+    from deepspeed_tpu_torch.ops.kernels.paged_decode import cluster_ranks
+    attrs = {}
+    for kind in ("decode", "splitk"):
+        for int8, dims in PAGED_DIMS.items():
+            for D in dims:
+                attrs[f"{kind}/{'int8' if int8 else 'bf16'}/D{D}"] = read_attributes(
+                    f"dstorch_paged_{kind}_attrs", int8, D, PAGED_ATTR_CAP)
+    sms = _loader.sm_count(dev)
+    shapes = (("Llama-2-7B", 4, 32, False), ("Llama-2-13B int8", 4, 40, True),
+              ("Mistral-7B", 4, 8, False), ("Mistral-7B int8", 4, 8, True),
+              ("BLOOM-560M", 4, 16, False), ("BLOOM-7b1 int8", 4, 32, True),
+              ("phi-2", 4, 32, False), ("S=32", 32, 32, False), ("G=8 D=256", 4, 8, False))
+    print("paged-kernels " + json.dumps({
+        "sms": sms, "cluster_ranks": {f"{k} S={S} Hkv={Hkv}": cluster_ranks(S, Hkv, sms, q8)
+                                      for k, S, Hkv, q8 in shapes},
+        "bitwise_reruns": RERUNS["checked"], "attributes": attrs}), flush=True)
+    spills = {k: a["local_bytes"] for k, a in attrs.items() if a["local_bytes"]}
+    if spills:
+        raise AssertionError(f"paged decode kernels spill to local memory: {spills}")
 
 
 def check_flash_refusals(randn):
@@ -1113,13 +1284,14 @@ def gemv_attributes(dev):
     """The ``k8-kernels`` line of qmm_gemv: every instance's attributes
     (int8 and packed int4 at M 1..8, with the split plan at the kernel
     row's K and N); a spill fails the run."""
+    from deepspeed_tpu_torch.ops.kernels import _loader
     from deepspeed_tpu_torch.ops.kernels.quantized_matmul import (
-        GEMV, GEMV_MAX_M, _sm_count, gemv_splits)
+        GEMV, GEMV_MAX_M, gemv_splits)
     _, K, N = QMM_ROWS[GEMV]
     attrs = {f"M={M}/{v}": read_attributes("dstorch_qmm_gemv_attrs", M, int4)
              for M in range(1, GEMV_MAX_M + 1) for v, int4 in (("int8", 0), ("int4", 1))}
     print("k8-kernels " + json.dumps({"kernel": "qmm_gemv", "shape": [K, N],
-                                      "splits": list(gemv_splits(K, N, _sm_count(dev))),
+                                      "splits": list(gemv_splits(K, N, _loader.sm_count(dev))),
                                       "attributes": attrs}), flush=True)
     spills = {k: a["local_bytes"] for k, a in attrs.items() if a["local_bytes"]}
     if spills:
@@ -4045,7 +4217,8 @@ def main() -> int:
     print(f"build: {_loader.last_build_seconds:.1f} s (nvcc, sm_90a; "
           f"{time.perf_counter() - t0:.1f} s with load)", flush=True)
     t_phase = time.perf_counter()
-    rows = check_kernels(torch.device("cuda"))
+    with bitwise_reruns():
+        rows = check_kernels(torch.device("cuda"))
     print(f"phase 3: {time.perf_counter() - t_phase:.1f} s", flush=True)
     t_phase = time.perf_counter()
     launches = run_slice()

@@ -4,22 +4,24 @@
 // Replaces deepspeed_tpu/ops/pallas/paged_splitk.py
 // paged_decode_attention_splitk_pallas (:499; kernels _splitk_kernel :485 and
 // _splitk_kernel_quant :491, body _splitk_body :324). Each sequence's
-// block-table range is cut into n_splits splits of ceil(MB / n_splits)
-// pages; one block per (sequence x piece, kv head) walks only its split's
-// tokens (decode_attend of decode_common.cuh) and writes an f32 partial
-// (out = acc / l, lse = m + log l). A split past the sequence's context
-// writes (0, -1e30), which the merge weights 0. With side rows (the decode
-// step and the side buffer, paged_sidebuf_attention_splitk :725) one more
-// piece per sequence attends the side rows cc <= j alone, so the merge
-// combines n_splits + 1 pieces, as the JAX dispatcher does.
+// VISIBLE page range [lo, len) (lo = 0, or the sliding window's first
+// visible token: max(ctx - window, 0), or max(prefix + j + 1 - window, 0)
+// with side rows, as the decode kernel) is cut on the device into n_splits
+// pieces of ceil((len - lo) / n_splits) tokens (decode_piece); one block
+// per (sequence x piece, kv head) walks its piece (decode_pages of
+// decode_common.cuh: the table slice in shared memory, a 3-stage cp.async
+// ring, mma.sync products) and writes an f32 partial (out = acc / l, lse =
+// m + log l). An empty piece writes (0, -1e30), which the merge weights 0.
+// With side rows (the decode step and the side buffer,
+// paged_sidebuf_attention_splitk :725) one more piece per sequence attends
+// the side rows cc <= j alone (cc >= j + 1 - window under a window), so the
+// merge combines n_splits + 1 pieces, as the JAX dispatcher does.
 //
-// Sliding window (window > 0; _splitk_body's window, :324-377): the splits
-// still cut the whole [0, MB) page range; each walks only its tokens at or
-// above the first visible one (max(ctx - window, 0), or max(prefix + j + 1
-// - window, 0) with side rows, as the decode kernel), so a split wholly
-// below the window start reads nothing and writes its empty partial (0,
-// -1e30), which the merge drops. The side piece needs cc >= j + 1 -
-// window. window = 0 is the unwindowed kernel.
+// The JAX kernel cuts the table's width [0, MB) instead (its grid runs in
+// order on one core); on the H100 the busiest block sets the time, so the
+// cut follows each sequence's own range: a window of 4096 at 4 splits gives
+// four blocks of 1024 tokens, not one of 3808 and one of 288. The merged
+// output and lse do not depend on the cut beyond rounding.
 //
 // ALiBi (slopes != null; _splitk_body's alibi, :467-471, and the side-slab
 // piece of paged_sidebuf_attention_splitk, :800-805): each split's partial
@@ -36,51 +38,49 @@
 // Bound on the H100: bytes, as for the decode kernel (every visible token's
 // K and V row read once, plus the f32 partials written and read back:
 // pieces x H x (D + 1) x 4 bytes per sequence, small beside the pages at
-// long context). The point of the split: at S = 4 and 40 kv heads the
-// decode kernel runs 160 blocks on 132 SMs, each walking the whole
-// context; n_splits = 8 gives 1280 shorter blocks.
+// long context). The point of the split: at S = 4 and 40 kv heads one
+// block per (sequence, kv head) gives 160 blocks on 132 SMs, each walking
+// the whole context; n_splits = 8 gives 1280 shorter blocks.
 #include "decode_common.cuh"
 
 namespace dstorch {
 
-template <int G, int LPR, typename KV, typename SIDE>
-__global__ void __launch_bounds__(kDecThreads)
+template <int DP, typename KV, typename SIDE>
+__global__ void __launch_bounds__(kDecThreads, 1)
 paged_splitk_kernel(const bf16* __restrict__ q, DecodePage pg, const int* __restrict__ bt,
                     const int* __restrict__ lens, const SIDE* __restrict__ side_k,
                     const SIDE* __restrict__ side_v, int C, int j, int n_splits,
-                    int split_tokens, const float* __restrict__ slopes,
-                    float* __restrict__ out_p,
-                    float* __restrict__ lse_p, int MB, int window, float scale) {
+                    const float* __restrict__ slopes, float* __restrict__ out_p,
+                    float* __restrict__ lse_p, int MB, int window, float scale, int G,
+                    int tbl_cap) {
   extern __shared__ __align__(16) char smem[];
   const int P = n_splits + (side_k != nullptr ? 1 : 0);
-  const int s = blockIdx.x / P, piece = blockIdx.x - (blockIdx.x / P) * P;
   const int hk = blockIdx.y;
   const int D = pg.D, H = pg.Hkv * G;
+  const int s = blockIdx.x / P, piece = blockIdx.x - (blockIdx.x / P) * P;
   pg.btr = bt + (size_t)s * MB;
+  const int len = min(lens[s], MB * pg.bs);
   const bf16* qrow = q + ((size_t)s * H + hk * G) * D;
-  const int len = lens[s];
-  int w_lo = 0, c_lo = 0;
-  if (window > 0) {
-    w_lo = max(side_k != nullptr ? len + j + 1 - window : len - window, 0);
-    c_lo = max(j + 1 - window, 0);
-  }
-  if (piece < n_splits) {
-    const int t_lo = max(piece * split_tokens, w_lo);
-    const int t_hi = min(piece * split_tokens + split_tokens, len);
-    decode_attend<G, LPR, KV, SIDE>(qrow, pg, hk, t_lo, t_hi, nullptr, nullptr, 0, scale,
-                                    smem, 0, slopes, 0);
-  } else {
+  int lo, c_lo, b_lo = 0, b_hi = 0;
+  decode_visible(len, side_k != nullptr, j, window, lo, c_lo);
+  if (piece < n_splits) decode_piece(lo, len, n_splits, piece, b_lo, b_hi);
+  const float scale_log2 = scale * kDecLog2e;
+  decode_pages<DP, KV>(qrow, G, pg, hk, b_lo, b_hi, scale_log2, slopes, smem, tbl_cap);
+  char* body = smem + DecodeSmem<DP, KV>::table_bytes(tbl_cap);
+  const bool side = piece == n_splits;
+  if (side) {
     const size_t slab = (size_t)s * C * pg.Hkv * D;
-    decode_attend<G, LPR, KV, SIDE>(qrow, pg, hk, 0, 0, side_k + slab, side_v + slab,
-                                    j + 1, scale, smem, c_lo, slopes, len);
+    decode_side<DP, SIDE>(qrow, G, D, side_k + slab, side_v + slab, pg.Hkv, hk, c_lo, j + 1,
+                          len, scale_log2, slopes, body);
   }
+  decode_merge<DP>(body, side ? kDecSlots : kDecWarps);
+  DecodeStates<DP> sts(body);
   const size_t row0 = ((size_t)s * P + piece) * H + hk * G;
   for (int idx = threadIdx.x; idx < G * D; idx += kDecThreads) {
-    const int g = idx / D, d = idx - (idx / D) * D;
-    float M, L, A;
-    decode_final<G>(smem, D, g, d, M, L, A);
-    out_p[(row0 + g) * D + d] = L > 0.f ? A / L : 0.f;
-    if (d == 0) lse_p[row0 + g] = L > 0.f ? M + logf(L) : kNegBig;
+    const int h = idx / D, d = idx - (idx / D) * D;
+    const float L = sts.fin_l[h];
+    out_p[(row0 + h) * D + d] = L > 0.f ? __fdividef(sts.fin_acc[h * DP + d], L) : 0.f;
+    if (d == 0) lse_p[row0 + h] = L > 0.f ? (sts.fin_m[h] + __log2f(L)) * kDecLn2 : kNegBig;
   }
 }
 
@@ -116,14 +116,15 @@ struct SplitLaunch {
   const void *q, *bt, *lens, *side_k, *side_v, *slopes;
   float *out_p, *lse_p;
   DecodePage pg;
-  int S, MB, C, j, n_splits, split_tokens, window;
+  int S, G, MB, C, j, n_splits, split_tokens, window;
   float scale;
 };
 
-template <typename KV, typename SIDE, int G, int LPR>
+template <int DP, typename KV, typename SIDE>
 int launch_splitk(const SplitLaunch& a, cudaStream_t stream) {
-  const size_t smem = decode_smem_bytes<G>(a.pg.D);
-  auto kern = paged_splitk_kernel<G, LPR, KV, SIDE>;
+  const int cap = decode_table_cap(a.MB, a.split_tokens, a.pg.bs);
+  const size_t smem = DecodeSmem<DP, KV>::bytes(cap);
+  auto kern = paged_splitk_kernel<DP, KV, SIDE>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -132,40 +133,45 @@ int launch_splitk(const SplitLaunch& a, cudaStream_t stream) {
   kern<<<grid, kDecThreads, smem, stream>>>(
       static_cast<const bf16*>(a.q), a.pg, static_cast<const int*>(a.bt),
       static_cast<const int*>(a.lens), static_cast<const SIDE*>(a.side_k),
-      static_cast<const SIDE*>(a.side_v), a.C, a.j, a.n_splits, a.split_tokens,
-      static_cast<const float*>(a.slopes), a.out_p, a.lse_p, a.MB, a.window, a.scale);
+      static_cast<const SIDE*>(a.side_v), a.C, a.j, a.n_splits,
+      static_cast<const float*>(a.slopes), a.out_p, a.lse_p, a.MB, a.window, a.scale, a.G,
+      cap);
   return (int)cudaGetLastError();
 }
 
-// lanes per row as the decode kernel picks them (decode_lpr); int8 pages
-// need D % 128 == 0 (the kv_quant gate): 16 or 32 lanes
-template <typename KV, typename SIDE, int G>
-int dispatch_splitk_lpr(const SplitLaunch& a, cudaStream_t st) {
-  switch (decode_lpr(a.pg.D)) {
-    case 16: return launch_splitk<KV, SIDE, G, 16>(a, st);
-    case 32: return launch_splitk<KV, SIDE, G, 32>(a, st);
-    default: break;
-  }
-  if constexpr (std::is_same<KV, bf16>::value) {
-    switch (decode_lpr(a.pg.D)) {
-      case 2: return launch_splitk<KV, SIDE, G, 2>(a, st);
-      case 4: return launch_splitk<KV, SIDE, G, 4>(a, st);
-      case 8: return launch_splitk<KV, SIDE, G, 8>(a, st);
-      default: break;
+// bf16 pages at the padded head dims (decode_dp); int8 pages at D 128 and
+// 256 (the kv_quant gate)
+template <typename KV, typename SIDE>
+int dispatch_splitk(const SplitLaunch& a, cudaStream_t st) {
+  if constexpr (std::is_same<KV, int8_t>::value) {
+    switch (a.pg.D) {
+      case 128: return launch_splitk<128, KV, SIDE>(a, st);
+      case 256: return launch_splitk<256, KV, SIDE>(a, st);
+      default: return -1;
+    }
+  } else {
+    switch (decode_dp(a.pg.D)) {
+      case 16: return launch_splitk<16, KV, SIDE>(a, st);
+      case 32: return launch_splitk<32, KV, SIDE>(a, st);
+      case 64: return launch_splitk<64, KV, SIDE>(a, st);
+      case 80: return launch_splitk<80, KV, SIDE>(a, st);
+      case 96: return launch_splitk<96, KV, SIDE>(a, st);
+      case 128: return launch_splitk<128, KV, SIDE>(a, st);
+      case 256: return launch_splitk<256, KV, SIDE>(a, st);
+      default: return -1;
     }
   }
-  return -1;
 }
 
-template <typename KV, typename SIDE>
-int dispatch_splitk(int G, const SplitLaunch& a, cudaStream_t st) {
-  switch (G) {
-    case 1: return dispatch_splitk_lpr<KV, SIDE, 1>(a, st);
-    case 2: return dispatch_splitk_lpr<KV, SIDE, 2>(a, st);
-    case 4: return dispatch_splitk_lpr<KV, SIDE, 4>(a, st);
-    case 8: return dispatch_splitk_lpr<KV, SIDE, 8>(a, st);
-    default: return -1;
-  }
+template <int DP, typename KV, typename SIDE>
+int splitk_attrs(int cap, int* out) {
+  return mma::kernel_attributes(paged_splitk_kernel<DP, KV, SIDE>, kDecThreads,
+                                DecodeSmem<DP, KV>::bytes(cap), out);
+}
+
+inline bool splitk_shape_ok(int H, int Hkv, int n_splits, int split_tokens) {
+  return Hkv > 0 && H % Hkv == 0 && H / Hkv <= kDecHeads && n_splits >= 1
+         && split_tokens >= 0;
 }
 
 }  // namespace dstorch
@@ -173,9 +179,13 @@ int dispatch_splitk(int G, const SplitLaunch& a, cudaStream_t st) {
 // q [S, H, D] bf16; kv [NB, 2, Hkv, bs, D] bf16; bt [S, MB], lens [S] int32;
 // side_k/side_v [S, C*Hkv, D] bf16 or null (one more piece: rows cc <= j);
 // out_p [S, P, H, D] and lse_p [S, P, H] f32 with P = n_splits (+ 1 with
-// side rows); split p covers tokens [p * split_tokens, (p+1) * split_tokens);
-// slopes [H] f32 (ALiBi) or null; window > 0 is the sliding window (0:
-// none). Returns the launch's cudaError_t, -1 for an unsupported shape.
+// side rows); piece p of sequence s covers its visible tokens [lo + p c,
+// min(lo + (p + 1) c, lens[s])), c = ceil((lens[s] - lo) / n_splits), cut
+// on the device; split_tokens = ceil(MB / n_splits) * bs, the most tokens
+// a piece can hold, sizes each block's staged block-table slice (a shape,
+// so the launch's host scalars do not depend on lens); slopes [H] f32
+// (ALiBi) or null; window > 0 is the sliding window (0: none). Returns the
+// launch's cudaError_t, -1 for an unsupported shape.
 extern "C" int dstorch_paged_splitk_bf16(const void* q, const void* kv, const void* bt,
                                          const void* lens, const void* side_k,
                                          const void* side_v, const void* slopes,
@@ -183,20 +193,21 @@ extern "C" int dstorch_paged_splitk_bf16(const void* q, const void* kv, const vo
                                          int D, int bs, int MB, int C, int j, int n_splits,
                                          int split_tokens, int window, float scale,
                                          void* stream) {
+  if (D % 8 != 0 || D > 256 || !dstorch::splitk_shape_ok(H, Hkv, n_splits, split_tokens))
+    return -1;
   if (S == 0) return 0;
-  if (D % 8 != 0 || D > 256 || H % Hkv != 0 || n_splits < 1) return -1;
   dstorch::SplitLaunch a{q, bt, lens, side_k, side_v, slopes,
                          static_cast<float*>(out_p), static_cast<float*>(lse_p),
                          {kv, nullptr, 0, nullptr, Hkv, bs, D},
-                         S, MB, C, j, n_splits, split_tokens, window, scale};
+                         S, H / Hkv, MB, C, j, n_splits, split_tokens, window, scale};
   return dstorch::dispatch_splitk<dstorch::bf16, dstorch::bf16>(
-      H / Hkv, a, static_cast<cudaStream_t>(stream));
+      a, static_cast<cudaStream_t>(stream));
 }
 
 // The same over int8 pages with f32 scale tiles sc [NB, R8, 128]; side rows
-// are f32. slopes and window as for bf16 pages: under a window a split
-// wholly below the first visible token reads no page and no scale and
-// writes the empty partial, which the merge weighs 0.
+// are f32. slopes and window as for bf16 pages: under a window the pieces
+// cut the visible range, so no page or scale below the first visible token
+// is read.
 extern "C" int dstorch_paged_splitk_int8(const void* q, const void* kv, const void* sc,
                                          const void* bt, const void* lens,
                                          const void* side_k, const void* side_v,
@@ -205,14 +216,14 @@ extern "C" int dstorch_paged_splitk_int8(const void* q, const void* kv, const vo
                                          int r8, int C, int j, int n_splits,
                                          int split_tokens, int window, float scale,
                                          void* stream) {
+  if ((D != 128 && D != 256) || !dstorch::splitk_shape_ok(H, Hkv, n_splits, split_tokens))
+    return -1;
   if (S == 0) return 0;
-  if ((D != 128 && D != 256) || H % Hkv != 0 || n_splits < 1) return -1;
   dstorch::SplitLaunch a{q, bt, lens, side_k, side_v, slopes,
                          static_cast<float*>(out_p), static_cast<float*>(lse_p),
                          {kv, static_cast<const float*>(sc), r8, nullptr, Hkv, bs, D},
-                         S, MB, C, j, n_splits, split_tokens, window, scale};
-  return dstorch::dispatch_splitk<int8_t, float>(H / Hkv, a,
-                                                 static_cast<cudaStream_t>(stream));
+                         S, H / Hkv, MB, C, j, n_splits, split_tokens, window, scale};
+  return dstorch::dispatch_splitk<int8_t, float>(a, static_cast<cudaStream_t>(stream));
 }
 
 // out_p [S, P, H, D], lse_p [S, P, H] f32 -> out [S, H, D] bf16, and
@@ -226,4 +237,29 @@ extern "C" int dstorch_splitk_merge(const void* out_p, const void* lse_p, void* 
       static_cast<const float*>(out_p), static_cast<const float*>(lse_p), P, H, D,
       static_cast<dstorch::bf16*>(out), static_cast<float*>(lse_out));
   return (int)cudaGetLastError();
+}
+
+// Attributes of the partials kernel's instance for int8 pages (int8 != 0)
+// or bf16 pages at head dim D, staging `cap` block-table entries: out[0..5]
+// as mma::kernel_attributes. Returns the cudaError_t, -1 for no such
+// instance.
+extern "C" int dstorch_paged_splitk_attrs(int int8, int D, int cap, int* out) {
+  using dstorch::bf16;
+  if (int8) {
+    switch (D) {
+      case 128: return dstorch::splitk_attrs<128, int8_t, float>(cap, out);
+      case 256: return dstorch::splitk_attrs<256, int8_t, float>(cap, out);
+      default: return -1;
+    }
+  }
+  switch (D) {
+    case 16: return dstorch::splitk_attrs<16, bf16, bf16>(cap, out);
+    case 32: return dstorch::splitk_attrs<32, bf16, bf16>(cap, out);
+    case 64: return dstorch::splitk_attrs<64, bf16, bf16>(cap, out);
+    case 80: return dstorch::splitk_attrs<80, bf16, bf16>(cap, out);
+    case 96: return dstorch::splitk_attrs<96, bf16, bf16>(cap, out);
+    case 128: return dstorch::splitk_attrs<128, bf16, bf16>(cap, out);
+    case 256: return dstorch::splitk_attrs<256, bf16, bf16>(cap, out);
+    default: return -1;
+  }
 }

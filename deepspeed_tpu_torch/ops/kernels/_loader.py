@@ -59,7 +59,7 @@ ENTRY_POINTS = {
     "dstorch_paged_chunk_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _I, _I, _I, _I, _F, _P),
     "dstorch_paged_decode_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _I, _F, _P),
+                                  _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "dstorch_flash_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "dstorch_flash_bwd_dq_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _F, _I, _P),
@@ -68,7 +68,9 @@ ENTRY_POINTS = {
     "dstorch_paged_chunk_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _I, _I, _I, _I, _I, _F, _P),
     "dstorch_paged_decode_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _I, _I, _F, _P),
+                                  _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "dstorch_paged_decode_attrs": (_I, _I, _I, _P),
+    "dstorch_paged_splitk_attrs": (_I, _I, _I, _P),
     "dstorch_paged_splitk_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "dstorch_paged_splitk_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -119,11 +121,22 @@ LAUNCHES: Dict[str, int] = {"flash_packed": 0, "paged_chunk": 0,
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 last_build_seconds: Optional[float] = None
+H100_SMS = 132
+_sms: Dict[torch.device, int] = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def sm_count(device: torch.device) -> int:
+    """The device's SM count (cached); the H100's 132 for a CPU device."""
+    if device.type != "cuda":
+        return H100_SMS
+    if device not in _sms:
+        _sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sms[device]
 
 
 def find_nvcc() -> str:

@@ -48,6 +48,12 @@ A launch with more than one side row (``C > 1``: the side buffer of a
 counts under the ``_side`` names (``paged_decode_side``,
 ``paged_decode_int8_side``, ``paged_decode_side_window``,
 ``paged_decode_side_alibi``), apart from the one-row decode step.
+
+The kernel runs each (sequence, kv head) as a thread-block cluster of
+:func:`cluster_ranks` blocks, each walking one slice of the sequence's
+visible range; the ranks' states merge inside the cluster (one launch, no
+scratch). The host picks the cluster size from the shapes and the card's
+SM count only, never from ``lens``.
 """
 
 from __future__ import annotations
@@ -92,6 +98,23 @@ REPLACES_SIDE = ("deepspeed_tpu/ops/pallas/paged_attention.py:809 (K6, C > 1) ->
                  "_sidebuf_batched_kernel :783 (body _sidebuf_batched_body :569)")
 REPLACES_INT8_SIDE = ("deepspeed_tpu/ops/pallas/paged_attention.py:809 (K6, C > 1) -> "
                       "_sidebuf_batched_kernel_quant :792 (body :569)")
+
+
+CLUSTER_MAX = {False: 4, True: 8}   # bf16 / int8 pages (PERF.md §6: clusters of 8
+                                    # lost over bf16 pages, won over int8)
+
+
+def cluster_ranks(S: int, Hkv: int, sms: int, quant: bool = False) -> int:
+    """Blocks a (sequence, kv head) cluster of the decode kernel: the
+    smallest power of two up to ``CLUSTER_MAX[quant]`` for which the
+    launch's ``S * Hkv * n`` blocks fill one block an SM over bf16 pages,
+    two over int8 pages (``quant``: half the bytes a token, so a block
+    streams them at its compute's pace and more blocks keep the card
+    busy)."""
+    n, want = 1, (2 if quant else 1) * sms
+    while n < CLUSTER_MAX[quant] and S * Hkv * n < want:
+        n *= 2
+    return n
 
 
 def check_paged_inputs(name: str, q, kv_pages, block_tables, lens, side_k, side_v,
@@ -170,7 +193,7 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
 
     CPU tensors run :func:`paged_decode_attention_plain`; CUDA tensors launch
     the kernel (bf16 q; bf16 pages and side rows, or int8 pages with f32
-    side rows; contiguous) or raise."""
+    side rows; contiguous; at most 8 query heads a kv head) or raise."""
     S, H, D = q.shape
     NB, _, Hkv, bs, _ = kv_pages.shape
     MB = block_tables.shape[1]
@@ -187,6 +210,7 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
                                             alibi)
     side_kw = dict(zip(("side_k", "side_v"), sides))
     out = torch.empty_like(q)
+    n_cl = cluster_ranks(S, Hkv, _loader.sm_count(q.device), quant)
     P = _loader.ptr
     slopes = alibi_slopes(H, q.device) if alibi else None
     slope_kw = {"slopes": slopes} if alibi else {}
@@ -198,14 +222,14 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
         _loader.launch(name, "dstorch_paged_decode_int8", q.device,
                        P(q), P(kv_pages), P(kv_scales), P(block_tables), P(lens),
                        P(side_k), P(side_v), P(slopes), P(out), S, H, Hkv, D, bs, MB,
-                       kv_scales.shape[1], C, int(j), _loader.window_arg(window), scale)
+                       kv_scales.shape[1], C, int(j), _loader.window_arg(window), scale, n_cl)
         return out
     _loader.check_cuda(name, q.dtype, f32=("slopes",), q=q, kv_pages=kv_pages,
                        block_tables=block_tables, lens=lens, **side_kw, **slope_kw)
     _loader.launch(name, "dstorch_paged_decode_bf16", q.device,
                    P(q), P(kv_pages), P(block_tables), P(lens), P(side_k),
                    P(side_v), P(slopes), P(out), S, H, Hkv, D, bs, MB, C, int(j),
-                   _loader.window_arg(window), scale)
+                   _loader.window_arg(window), scale, n_cl)
     return out
 
 

@@ -2,13 +2,20 @@
 ``csrc/paged_splitk.cu`` and their plain PyTorch versions.
 
 Counterpart of the JAX package's ``ops/pallas/paged_splitk.py``. Each
-sequence's block-table range ``[0, MB)`` is cut into ``n_splits`` splits of
-``ceil(MB / n_splits)`` pages; each split yields an f32 partial ``(out,
-lse)`` over its own tokens (``out`` normalised by its own sum, ``lse = m +
-log l``; an empty split gives ``(0, -1e30)``), and the partials merge with
-logsumexp weights (:func:`merge_splitk_partials`):
+sequence's visible token range (``[0, lens)``, or from the sliding
+window's first visible token) is cut into ``n_splits`` pieces of
+``ceil(range / n_splits)`` tokens (:func:`piece_bounds`; the kernel cuts it
+so on the device); each piece yields an f32 partial ``(out, lse)`` over its
+own tokens (``out`` normalised by its own sum, ``lse = m + log l``; an
+empty piece gives ``(0, -1e30)``), and the partials merge with logsumexp
+weights (:func:`merge_splitk_partials`):
 
     m = max_p lse_p;  w_p = exp(lse_p - m);  out = sum_p w_p out_p / sum_p w_p
+
+The JAX package cuts the block table's width ``[0, MB)`` into splits of
+``ceil(MB / n_splits)`` pages instead; the merged output and lse are the
+same function either way (up to rounding), and the tests hold the plain
+version against the Pallas kernel.
 
 - :func:`splitk_attention` is the kernel pair: the partials kernel (one
   block per (sequence x piece, kv head); with side rows one more piece per
@@ -35,12 +42,11 @@ with the window and ALiBi as over bf16 pages. A split count above 1 always
 runs split-K; ``n_splits <= 1`` is the base kernel.
 
 A sliding ``window`` (``_splitk_body`` :324-377, the dispatchers :597-725)
-leaves the splits where they are (the whole ``[0, MB)`` page range); each
-split attends only its tokens at or above the first visible one (as the
-decode kernel: ``max(ctx - window, 0)``, or ``max(prefix + j + 1 - window,
-0)`` with side rows, whose piece needs ``cc >= j + 1 - window``), so a
-split wholly below the window start gives the empty partial the merge
-drops. A windowed partials launch counts as ``paged_splitk_window/<n>``.
+moves the start of the range the pieces cut to the first visible token
+(as the decode kernel: ``max(ctx - window, 0)``, or ``max(prefix + j + 1 -
+window, 0)`` with side rows, whose piece needs ``cc >= j + 1 - window``),
+so no piece reads a page below it. A windowed partials launch counts as
+``paged_splitk_window/<n>``.
 
 ALiBi (``alibi=True``; ``_splitk_body`` :467-471, the XLA split paths
 :174-175/:200 and :266-267/:295, the side-slab piece :800-805): each
@@ -104,6 +110,21 @@ def kernel_name(n_splits: int, window: Optional[int] = None, alibi: bool = False
 def split_pages(max_blocks: int, n_splits: int) -> int:
     """Pages per split: ``ceil(MB / n_splits)``."""
     return -(-max_blocks // n_splits)
+
+
+def piece_bounds(lens: torch.Tensor, j: int, window: Optional[int], side: bool,
+                 n_splits: int):
+    """Each sequence's visible page tokens cut into ``n_splits`` pieces, as
+    the partials kernel cuts them on the device: ``(lo, hi)`` long ``[S,
+    n_splits]``, piece p = ``[lo0 + p c, min(lo0 + (p + 1) c, lens))`` with
+    ``lo0`` the first visible token (:func:`window_starts`) and ``c =
+    ceil((lens - lo0) / n_splits)``; empty pieces have ``lo == hi``."""
+    start, _ = window_starts(lens, j, window, side)
+    end = torch.maximum(lens.long(), start)
+    c = -(-(end - start) // n_splits)
+    p = torch.arange(n_splits, device=lens.device)
+    lo = torch.minimum(start[:, None] + p[None] * c[:, None], end[:, None])
+    return lo, torch.minimum(lo + c[:, None], end[:, None])
 
 
 # --------------------------------------------------------------------- #
@@ -192,8 +213,9 @@ def splitk_attention(q: torch.Tensor, kv_pages: torch.Tensor,
 
     CPU tensors run :func:`splitk_attention_plain`; CUDA tensors launch the
     partials kernel (counted as :func:`kernel_name`, e.g.
-    ``paged_splitk/<n_splits>`` or ``paged_splitk_int8_window/<n_splits>``)
-    and the merge kernel or raise."""
+    ``paged_splitk/<n_splits>`` or ``paged_splitk_int8_window/<n_splits>``;
+    it cuts each sequence's visible range as :func:`piece_bounds` does) and
+    the merge kernel or raise."""
     S, H, D = q.shape
     NB, _, Hkv, bs, _ = kv_pages.shape
     MB = block_tables.shape[1]
@@ -245,27 +267,25 @@ def splitk_attention_plain(q, kv_pages, block_tables, lens, n_splits: int,
                            kv_scales: Optional[torch.Tensor] = None,
                            with_lse: bool = False, window: Optional[int] = None,
                            alibi: bool = False):
-    """The same function in plain PyTorch: each split's partial in f32,
-    then :func:`merge_splitk_partials`."""
+    """The same function in plain PyTorch: each piece's partial
+    (:func:`piece_bounds`) in f32, then :func:`merge_splitk_partials`."""
     S, H, D = q.shape
     _, _, Hkv, bs, _ = kv_pages.shape
     G = H // Hkv
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
-    per = split_pages(block_tables.shape[1], n_splits)
-    TL = per * bs
-    bt = _padded_tables(block_tables, per * n_splits)
+    n_pages = max(1, -(-int(lens.max()) // bs)) if S else 1
+    k, v = gather_rows(kv_pages, _padded_tables(block_tables, n_pages), n_pages, kv_scales)
     qg = q.float().view(S, Hkv, G, D)
-    t_lo, c_lo = window_starts(lens, j, window, side_k is not None)
+    lo, hi = piece_bounds(lens, j, window, side_k is not None, n_splits)
+    _, c_lo = window_starts(lens, j, window, side_k is not None)
     slope = alibi_slopes(H, q.device).view(1, Hkv, G, 1) if alibi else None
+    pos = torch.arange(n_pages * bs, device=q.device)
+    s = torch.einsum("shgd,shtd->shgt", qg, k) * scale
+    if alibi:
+        s = s + slope * pos.float()
     outs, lses = [], []
     for p in range(n_splits):
-        k, v = gather_rows(kv_pages, bt[:, p * per:(p + 1) * per], per, kv_scales)
-        pos = p * TL + torch.arange(TL, device=q.device)
-        mask = ((pos[None] < lens.long()[:, None])
-                & (pos[None] >= t_lo[:, None]))[:, None, None, :]
-        s = torch.einsum("shgd,shtd->shgt", qg, k) * scale
-        if alibi:
-            s = s + slope * pos.float()
+        mask = ((pos[None] >= lo[:, p:p + 1]) & (pos[None] < hi[:, p:p + 1]))[:, None, None, :]
         o, lse = _partial(s, mask, v, "shgt,shtd->shgd")
         outs.append(o.reshape(S, H, D))
         lses.append(lse.reshape(S, H))

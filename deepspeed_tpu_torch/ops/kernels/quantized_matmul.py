@@ -45,12 +45,11 @@ GEMV_MAX_M = 8
 _GEMV_COLS = 128         # columns per gemv block
 _GEMV_ROWS = 128         # a split's K rows are a multiple of this: 16 per warp step x 8 warps
 _GEMV_BLOCKS_PER_SM = 2  # resident gemv blocks an SM (its launch bounds)
-H100_SMS = 132
+H100_SMS = _loader.H100_SMS
 
 # per-device column-group counters of the gemv split-K reduction; each
 # launch leaves them at 0 for the next
 _counters: Dict[torch.device, torch.Tensor] = {}
-_sms: Dict[torch.device, int] = {}
 
 
 def _gemv_counters(device: torch.device, n: int) -> torch.Tensor:
@@ -59,14 +58,6 @@ def _gemv_counters(device: torch.device, n: int) -> torch.Tensor:
         c = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
         _counters[device] = c
     return c
-
-
-def _sm_count(device: torch.device) -> int:
-    if device.type != "cuda":
-        return H100_SMS
-    if device not in _sms:
-        _sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
-    return _sms[device]
 
 
 def gemv_splits(K: int, N: int, sms: int = H100_SMS):
@@ -85,7 +76,7 @@ def _launch_gemv(kernel: str, entry: str, a2, w, s, K: int, N: int) -> torch.Ten
     """One qmm_gemv launch (int8 ``w`` or packed int4) on [M <= 8, K] a."""
     M = a2.shape[0]
     out = torch.empty((M, N), dtype=a2.dtype, device=a2.device)
-    rows, n_splits = gemv_splits(K, N, _sm_count(a2.device))
+    rows, n_splits = gemv_splits(K, N, _loader.sm_count(a2.device))
     work = torch.empty((n_splits, M, N) if n_splits > 1 else (1,),
                        dtype=torch.float32, device=a2.device)
     counters = _gemv_counters(a2.device, -(-N // _GEMV_COLS))

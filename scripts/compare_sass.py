@@ -19,8 +19,14 @@ the repository root:
         flash_fwd_kernel paged_chunk_kernel --any-param-offsets
 
 Prints one JSON line per compared kernel whose name contains one of the
-given substrings, and a summary line; exits 1 when one of them differs or
-has no counterpart.
+given substrings (every kernel when none is given), and a summary line;
+exits 1 when one of them differs or has no counterpart. Kernels whose name
+contains a ``--changed=SUBSTR`` substring are the ones a change redesigned:
+they are listed (with the instances only the new library has) and may
+differ, so one call shows that only those changed:
+
+    python3 scripts/compare_sass.py OLD.so NEW.so --changed=paged_decode_kernel \\
+        --changed=paged_splitk_kernel
 """
 
 from __future__ import annotations
@@ -86,9 +92,11 @@ def kernel_key(demangled: str) -> str:
 
 def main(argv: List[str]) -> int:
     mask_params = "--any-param-offsets" in argv
+    changed = [a.split("=", 1)[1] for a in argv if a.startswith("--changed=")]
     args = [a for a in argv if not a.startswith("--")]
-    old_lib, new_lib, wanted = args[0], args[1], args[2:]
+    old_lib, new_lib, wanted = args[0], args[1], args[2:] or [""]
     old, new = sass_by_function(old_lib), sass_by_function(new_lib)
+    redesigned = lambda key: any(c in key for c in changed)
 
     def norm(lines):
         if not mask_params:
@@ -100,6 +108,10 @@ def main(argv: List[str]) -> int:
     for key in sorted(old):
         if not any(w in key for w in wanted):
             continue
+        if redesigned(key):
+            print(json.dumps({"kernel": key, "status": "redesigned",
+                              "in_new": key in new}))
+            continue
         compared += 1
         if key not in new:
             print(json.dumps({"kernel": key, "status": "missing in new"}))
@@ -109,8 +121,13 @@ def main(argv: List[str]) -> int:
         bad += not same
         print(json.dumps({"kernel": key, "instructions_old": len(old[key]),
                           "instructions_new": len(new[key]), "identical": same}))
+    for key in sorted(set(new) - set(old)):
+        if any(w in key for w in wanted):
+            print(json.dumps({"kernel": key, "status": "new only",
+                              "redesigned": redesigned(key)}))
+            bad += not redesigned(key)
     print(json.dumps({"compared": compared, "differ_or_missing": bad,
-                      "param_offsets_masked": mask_params}))
+                      "param_offsets_masked": mask_params, "redesigned": changed}))
     return 1 if bad or not compared else 0
 
 

@@ -324,7 +324,7 @@ def test_gemv_split_plan_reads_every_k_once(launches, monkeypatch, K2, n16, M, s
     assert col_blocks * n_splits <= max(2 * sms, col_blocks)     # one wave
     np.testing.assert_array_equal(_gemv_reads(K, rows, n_splits, int4), np.ones(K, np.int64))
     # the wrappers launch that plan, with split-K scratch for M rows
-    monkeypatch.setattr(k8, "_sm_count", lambda device: sms)
+    monkeypatch.setattr(_loader, "sm_count", lambda device: sms)
     a = torch.zeros(M, K, dtype=torch.bfloat16)
     if int4:
         k8.quantized_matmul_int4(a, torch.zeros(K // 2, N, dtype=torch.int8), torch.ones(N))
