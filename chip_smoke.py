@@ -216,16 +216,27 @@ shared memory per head dim, times) and fails on a spill. ``check_head_dims``
 holds K5, the decode kernel and K7 at D = 80 (32 heads) and D = 96 (64
 heads) against their plain versions.
 
-Phase 3 runs every call of the paged decode kernel's and K7's wrappers
-twice and requires the same bits (``bitwise_reruns``); holds both kernels
-at pages of 16 and 64, at G = 8 with D = 256 and at D = 40, over bf16 and
-int8 pages, under a window of 200 and ALiBi, with one and 16 side rows
-(``check_paged_shapes``); and prints the ``paged-kernels`` line: each
-instance's registers, spill bytes and shared memory, the decode kernel's
-cluster size at each main path's shape, and the count of bitwise reruns (a
-spill fails the run).
+Phase 3 runs every call of the paged chunk kernel's (K5), the paged
+decode kernel's and K7's wrappers twice and requires the same bits
+(``bitwise_reruns``); holds the decode kernel and K7 at pages of 16 and
+64, at G = 8 with D = 256 and at D = 40, over bf16 and int8 pages, under a
+window of 200 and ALiBi, with one and 16 side rows
+(``check_paged_shapes``); holds K5 at pages of 16, 64 and 128, at every
+head dim it is built for (bf16 16 to 256, int8 128 and 256), at G = 1, 2,
+4, 8 and Falcon-7B's 71, over bf16 and int8 pages, with no window, a
+window of 200 over ring tables and ALiBi, on slots whose rows straddle
+pages, a slot whose rows run past its context and an empty slot
+(``check_chunk_shapes``); and prints the ``paged-kernels`` line: each
+instance's registers, spill bytes and shared memory (K5's too), the decode
+kernel's cluster size and K5's block count at each main path's shape, and
+the count of bitwise reruns (a spill fails the run).
 
-The last two lines are the kernel table (54 rows) and ``{"ok": true,
+Every serving phase (4, 6 and 9 to 13) also prints a ``continuation pass``
+line: the device and wall ms of one paged pass made only of continuation
+chunks (a prompt of two passes' take, its second pass) at each rung of the
+phase's ladder, with the port kernels' share (``continuation_pass``).
+
+The last two lines are the kernel table (55 rows) and ``{"ok": true,
 "device": ...}`` as JSON. Run from the repository root: ``python3 chip_smoke.py``.
 """
 
@@ -295,8 +306,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-# Phase 3 runs every call of the decode kernel's and K7's wrappers twice
-# (outside time_ms) and requires the same bits (bitwise_reruns)
+# Phase 3 runs every call of K5's, the decode kernel's and K7's wrappers
+# twice (outside time_ms) and requires the same bits (bitwise_reruns)
 RERUNS = {"timing": False, "checked": 0}
 
 
@@ -307,13 +318,16 @@ def _bits(x):
 
 @contextlib.contextmanager
 def bitwise_reruns():
-    """Within the block, each call of ``paged_decode_attention`` and
-    ``splitk_attention`` (through the package or their modules) outside
-    ``time_ms`` runs twice and fails unless both give the same bits."""
+    """Within the block, each call of ``paged_chunk_attention_batched``,
+    ``paged_decode_attention`` and ``splitk_attention`` (through the
+    package or their modules) outside ``time_ms`` runs twice and fails
+    unless both give the same bits."""
     import torch
     import deepspeed_tpu_torch.ops.kernels as pkg
-    mods = {"paged_decode_attention": sys.modules["deepspeed_tpu_torch.ops.kernels.paged_decode"],
-            "splitk_attention": sys.modules["deepspeed_tpu_torch.ops.kernels.paged_splitk"]}
+    kernels = "deepspeed_tpu_torch.ops.kernels."
+    mods = {"paged_chunk_attention_batched": sys.modules[kernels + "paged_chunk"],
+            "paged_decode_attention": sys.modules[kernels + "paged_decode"],
+            "splitk_attention": sys.modules[kernels + "paged_splitk"]}
     saved = {name: getattr(mod, name) for name, mod in mods.items()}
 
     def twice(name, fn):
@@ -517,6 +531,7 @@ def check_kernels(dev):
     check_quant_alibi_kernels(dev, g, randn, record)
     check_int4_matmul(dev, g, randn, record)
     check_paged_shapes(dev, g, randn, record)
+    check_chunk_shapes(dev, g, randn, record)
     paged_attributes(dev)
     return rows
 
@@ -841,20 +856,98 @@ def check_paged_shapes(dev, g, randn, record):
     torch.cuda.empty_cache()
 
 
-def paged_attributes(dev):
-    """The ``paged-kernels`` line: each instance of the decode kernel and of
-    K7's partials kernel (registers, spill bytes, shared memory, blocks an
-    SM at PAGED_ATTR_CAP table entries), the decode kernel's cluster size at
-    each main path's shape, and the bitwise reruns phase 3 made; a spill
-    fails the run."""
+# K5 at shapes beside the main paths': pages of 16, 64 and 128, every head
+# dim it is built for, G = 1, 2, 4, 8 and 71 (Falcon-7B's heads over one kv
+# head), bf16 and int8 pages. Chunks of 96 rows (a q-tile of 64 (row, head)
+# pairs does not divide them): slot 0 ends at its context, slot 1's rows run
+# 56 past its context (a pass's unfilled slot), slot 2 starts at 34 (its
+# rows straddle pages at every bs), slot 3 is empty. Each case runs with no
+# window, a window of 200 over ring tables, and ALiBi.
+CH_CTXS = [2000, 777, 130, 0]
+CH_Q0 = [1904, 737, 34, 0]
+CH_CS = 96
+CH_CASES = (("bs=16 G=4", 32, 8, 128, 16, False), ("bs=16 G=4 int8", 32, 8, 128, 16, True),
+            ("bs=64 G=4", 32, 8, 128, 64, False), ("bs=64 G=4 int8", 32, 8, 128, 64, True),
+            ("D=16", 8, 8, 16, 16, False), ("D=32 G=4", 8, 2, 32, 16, False),
+            ("D=64 G=71", 71, 1, 64, 64, False), ("D=80 G=4", 16, 4, 80, 16, False),
+            ("D=96 G=2", 16, 8, 96, 64, False), ("G=8 D=256", 64, 8, 256, 128, False),
+            ("G=8 D=256 int8", 64, 8, 256, 128, True),
+            ("D=256 int8 bs=16 G=2", 16, 8, 256, 16, True))
+CH_WINDOW = 200
+CH_MODES = ({}, {"window": CH_WINDOW}, {"alibi": True})
+
+
+def check_chunk_shapes(dev, g, randn, record):
+    """K5 on CH_CASES x CH_MODES against its plain version (the windowed
+    mode through ring tables that repeat physical pages), and the empty
+    slot's rows exactly zero."""
+    import torch
     from deepspeed_tpu_torch.ops.kernels import _loader
+    from deepspeed_tpu_torch.ops.kernels.kv_quant import kv_quantize_rows, scales_to_tiles
+    from deepspeed_tpu_torch.ops.kernels.paged_chunk import (
+        NAME, NAME_INT8, paged_chunk_attention_batched, paged_chunk_attention_batched_plain)
+    S, Cs = len(CH_CTXS), CH_CS
+    ctx = torch.tensor(CH_CTXS, dtype=torch.int32, device=dev)
+    q0 = torch.tensor(CH_Q0, dtype=torch.int32, device=dev)
+    for label, H, Hkv, D, bs, quant in CH_CASES:
+        MB = -(-max(CH_CTXS) // bs) + 1
+        ring = -(-(CH_WINDOW + Cs) // bs) + 1
+        plain_bt = block_tables(CH_CTXS, bs, MB, sum(-(-c // bs) for c in CH_CTXS) + 2, dev)
+        ring_bt, ring_nb = ring_tables(CH_CTXS, bs, MB, ring, dev)
+        NB = max(int(plain_bt.max()), ring_nb) + 1
+        kw = {}
+        if quant:
+            x = torch.randn(NB, 2, Hkv, bs, D, generator=g, device=dev)
+            pool, scl = kv_quantize_rows(x)
+            kw["kv_scales"] = scales_to_tiles(scl).contiguous()
+            del x, scl
+        else:
+            pool = randn(NB, 2, Hkv, bs, D)
+        qc = randn(S, Cs, H, D)
+        for mode in CH_MODES:
+            bt = ring_bt if "window" in mode else plain_bt
+            args = (qc, pool, bt, q0, ctx)
+            out = paged_chunk_attention_batched(*args, **mode, **kw)
+            ref = paged_chunk_attention_batched_plain(*args, **mode, **kw)
+            torch.cuda.synchronize()
+            if float(out[-1].float().abs().max()) != 0.0:
+                raise AssertionError(f"paged_chunk {label} {mode}: the empty slot is not zero")
+            name = _loader.variant(NAME_INT8 if quant else NAME, mode.get("window"),
+                                   mode.get("alibi", False))
+            record(name, f"{label}: S={S}x{Cs} rows H={H} Hkv={Hkv} D={D} bs={bs} "
+                         f"ctx={CH_CTXS} q0={CH_Q0} {mode}", err((out, ref)))
+        del pool, kw
+    torch.cuda.empty_cache()
+
+
+def paged_attributes(dev):
+    """The ``paged-kernels`` line: each instance of K5 (with and without
+    ALiBi), the decode kernel and K7's partials kernel (registers, spill
+    bytes, shared memory, blocks an SM at PAGED_ATTR_CAP table entries),
+    the decode kernel's cluster size and K5's block count at each main
+    path's shape, and the bitwise reruns phase 3 made; a spill fails the
+    run."""
+    from deepspeed_tpu_torch.ops.kernels import _loader
+    from deepspeed_tpu_torch.ops.kernels.paged_chunk import chunk_grid
     from deepspeed_tpu_torch.ops.kernels.paged_decode import cluster_ranks
     attrs = {}
+    for int8, dims in PAGED_DIMS.items():
+        for D in dims:
+            for alibi in (0, 1):
+                attrs[f"chunk/{'int8' if int8 else 'bf16'}/D{D}{'/alibi' if alibi else ''}"] = \
+                    read_attributes("dstorch_paged_chunk_attrs", int8, D, alibi,
+                                    PAGED_ATTR_CAP)
     for kind in ("decode", "splitk"):
         for int8, dims in PAGED_DIMS.items():
             for D in dims:
                 attrs[f"{kind}/{'int8' if int8 else 'bf16'}/D{D}"] = read_attributes(
                     f"dstorch_paged_{kind}_attrs", int8, D, PAGED_ATTR_CAP)
+    # K5's blocks at each main path's pass: (slots, rows a slot, H, Hkv)
+    passes = (("Llama-2-7B", 6, 128, 32, 32), ("Llama-2-13B int8", 6, 128, 40, 40),
+              ("Mistral-7B", 64, 128, 32, 8), ("BLOOM-560M", 6, 128, 16, 16),
+              ("BLOOM-7b1 int8", 6, 128, 32, 32), ("phi-2", 6, 128, 32, 32))
+    blocks = {f"{k} {NC}x{Cs} H={H} Hkv={Hkv}": int(np.prod(chunk_grid(NC, Cs, H, Hkv)))
+              for k, NC, Cs, H, Hkv in passes}
     sms = _loader.sm_count(dev)
     shapes = (("Llama-2-7B", 4, 32, False), ("Llama-2-13B int8", 4, 40, True),
               ("Mistral-7B", 4, 8, False), ("Mistral-7B int8", 4, 8, True),
@@ -863,10 +956,11 @@ def paged_attributes(dev):
     print("paged-kernels " + json.dumps({
         "sms": sms, "cluster_ranks": {f"{k} S={S} Hkv={Hkv}": cluster_ranks(S, Hkv, sms, q8)
                                       for k, S, Hkv, q8 in shapes},
-        "bitwise_reruns": RERUNS["checked"], "attributes": attrs}), flush=True)
+        "chunk_blocks": blocks, "bitwise_reruns": RERUNS["checked"],
+        "attributes": attrs}), flush=True)
     spills = {k: a["local_bytes"] for k, a in attrs.items() if a["local_bytes"]}
     if spills:
-        raise AssertionError(f"paged decode kernels spill to local memory: {spills}")
+        raise AssertionError(f"paged kernels spill to local memory: {spills}")
 
 
 def check_flash_refusals(randn):
@@ -1880,6 +1974,7 @@ def run_slice():
     device_breakdown("prefill 4 prompts (1360 tokens)",
                      lambda: engine.put([20, 21, 22, 23], prompts))
     engine.flush([20, 21, 22, 23])
+    continuation_pass(engine, "Llama-2-7B", P_NAMES)
     pipe_step = {"wall_ms": t_decode / 32 * 1e3, "device_ms": prof["device_ms"] / 8}
     launches.update(run_bursts_7b(engine, model, prompts, 2 * m_dense, pipe_step))
     return launches
@@ -2791,6 +2886,7 @@ def run_13b():
     device_breakdown("13B prefill pass (736 tokens, int8)", lambda: engine.put(
         [20], [rng.randint(0, V, 736).astype(np.int32)]), Q_NAMES)
     engine.flush([20])
+    continuation_pass(engine, "Llama-2-13B int8", Q_NAMES)
     print(f"phase 6: peak device memory {gib(torch.cuda.max_memory_allocated()):.2f} GiB; "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
@@ -3644,6 +3740,7 @@ def run_mistral():
                      lambda: engine.put([20], [rng.randint(0, V, W_PREFILL).astype(np.int32)]),
                      W_NAMES)
     engine.flush([20])
+    continuation_pass(engine, "Mistral-7B", W_NAMES)
     print(f"phase 9: peak device memory {gib(torch.cuda.max_memory_allocated()):.2f} GiB; "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
@@ -3747,6 +3844,7 @@ def run_bloom():
                      lambda: engine.put([20], [rng.randint(0, V, chunk).astype(np.int32)]),
                      A_NAMES)
     engine.flush([20])
+    continuation_pass(engine, "BLOOM-560M", A_NAMES)
     print(f"phase 10: peak device memory {gib(torch.cuda.max_memory_allocated()):.2f} GiB; "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
@@ -3756,6 +3854,59 @@ def run_bloom():
 # phases 11 and 12: memory-lean serving under a window (Mistral-7B, int4
 # weights + int8 pages) and under ALiBi (BLOOM-7b1, int8 pages)
 # --------------------------------------------------------------------------- #
+
+CONT_UID = 9999
+
+
+def continuation_pass(engine, label, names):
+    """One paged pass made only of continuation chunks, at each rung of the
+    engine's ladder: a prompt of two passes' take (the chunk budget, or the
+    take cap under a window) from an empty sequence, its first pass run,
+    its second timed (wall, with a device sync) and profiled (device ms in
+    all and of the port's kernels ``names``), the rest drained and the
+    sequence flushed. Prints one ``continuation pass`` line; a rung the
+    pool cannot hold is "not measured". Needs no live sequence."""
+    import torch
+    sched, sm = engine.scheduler, engine.config.state_manager
+    take = sm.num_chunk_slots * sm.chunk_slot_size
+    if sched.window is not None:
+        take = min(take, sched._pass_take_cap)
+    n = min(2 * take, sm.max_context - 1)
+    rng = np.random.RandomState(n)
+
+    def second_pass(measure):
+        """The prompt's first pass, ``measure(engine._run_pass)`` on its
+        second, then the rest drained and the sequence flushed."""
+        sched.add_tokens(CONT_UID, rng.randint(0, engine.spec.vocab_size, n).astype(np.int32))
+        engine._run_pass()
+        torch.cuda.synchronize()
+        out = measure(engine._run_pass)
+        while sched.has_pending():
+            engine._run_pass()
+        engine.flush([CONT_UID])
+        return out
+
+    def wall_ms(fn):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    rungs = {}
+    for rung in engine.attn_split_ladder:
+        if not engine.can_schedule([CONT_UID], [n]):
+            rungs[rung] = "not measured"
+            continue
+        engine.attn_rung_override = rung
+        wall = second_pass(wall_ms)
+        r = second_pass(lambda fn: device_time(fn, names))
+        rungs[rung] = {"wall_ms": wall, "device_ms": r["device_ms"],
+                       "port_kernels_ms": r["port_kernels_ms"]}
+    engine.attn_rung_override = None
+    print("continuation pass " + json.dumps({
+        "phase": label, "prompt_tokens": n, "rows": n - take, "q_start": take,
+        "rungs": rungs}), flush=True)
+
 
 def serve_main_path(engine, prompts, uids, names, rng):
     """``generate()`` (32 new tokens each), then ``put()`` of the prompts
@@ -3995,6 +4146,7 @@ def run_mistral_lean():
         raise AssertionError(f"page ring: {ring}")
     launches.update(side)
     engine.flush(uids + [14])
+    continuation_pass(engine, "Mistral-7B int4 + int8 KV", M8_NAMES)
     print(f"phase 11: peak device memory {gib(torch.cuda.max_memory_allocated()):.2f} GiB; "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
@@ -4082,6 +4234,7 @@ def run_bloom_7b1():
     launches.update(lean_rates_and_bursts("BLOOM-7b1 int8 KV", engine, uids, prompts, t_gen,
                                           t_prefill, A_NAMES, B8_SIDE_KERNELS, (1, 2)))
     engine.flush(uids + [14])
+    continuation_pass(engine, "BLOOM-7b1 int8 KV", A_NAMES)
     print(f"phase 12: peak device memory {gib(torch.cuda.max_memory_allocated()):.2f} GiB; "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
@@ -4158,6 +4311,7 @@ def run_phi2():
                      lambda: engine.put([20], [rng.randint(0, V, chunk).astype(np.int32)]),
                      P_NAMES)
     engine.flush([20])
+    continuation_pass(engine, "phi-2", P_NAMES)
     print(f"phase 13: peak device memory {gib(torch.cuda.max_memory_allocated()):.2f} GiB; "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches

@@ -15,7 +15,11 @@ Four things key the kernel at the call or at construction:
     the kernel's int8 variant);
   - the split rung ``n_splits`` (bound once, one spec per rung): above 1,
     decode and side-buffer attention run the split-K kernel (K7,
-    ``ops/kernels/paged_splitk``) and chunk attention its split path;
+    ``ops/kernels/paged_splitk``); chunk attention runs the chunk kernel at
+    every rung (JAX runs its split path there, so that verify streams keep
+    the decode rung's compiled program; eager torch has none to keep, and
+    the chunk kernel beats the split path at rungs 2, 4 and 8 on the H100:
+    ``scripts/k5_timing.py``);
   - the model's sliding window ``spec.window`` (bound once, as in the JAX
     package): every kernel masks keys more than ``window - 1`` positions
     behind its query and skips the pages below the window start, over
@@ -50,8 +54,8 @@ from deepspeed_tpu_torch.ops.kernels import (flash_attention_packed,
 from deepspeed_tpu_torch.ops.kernels.kv_quant import (kv_quantize_rows,
                                                       scale_write_index)
 from deepspeed_tpu_torch.ops.kernels.paged_splitk import (
-    paged_chunk_attention_splitk, paged_decode_attention_splitk,
-    paged_decode_attention_splitk_step, paged_sidebuf_attention_splitk)
+    paged_decode_attention_splitk, paged_decode_attention_splitk_step,
+    paged_sidebuf_attention_splitk)
 
 
 class AttentionKernelSpec:
@@ -109,12 +113,7 @@ class AttentionKernelSpec:
     def chunk(self, q, kv_l, block_tables, q_starts, ctx_lens,
               kv_scales: Optional[torch.Tensor] = None):
         """Batched prompt-chunk attention: one slot per chunk, causal by
-        absolute position."""
-        if self.n_splits > 1:
-            return paged_chunk_attention_splitk(q, kv_l, block_tables, q_starts,
-                                                ctx_lens, kv_scales=kv_scales,
-                                                n_splits=self.n_splits,
-                                                window=self.window, alibi=self.alibi)
+        absolute position, through the chunk kernel at every rung."""
         return paged_chunk_attention_batched(q, kv_l, block_tables, q_starts,
                                              ctx_lens, kv_scales=kv_scales,
                                              window=self.window, alibi=self.alibi)

@@ -69,6 +69,7 @@ ENTRY_POINTS = {
                                  _I, _I, _I, _I, _I, _F, _P),
     "dstorch_paged_decode_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "dstorch_paged_chunk_attrs": (_I, _I, _I, _I, _P),
     "dstorch_paged_decode_attrs": (_I, _I, _I, _P),
     "dstorch_paged_splitk_attrs": (_I, _I, _I, _P),
     "dstorch_paged_splitk_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

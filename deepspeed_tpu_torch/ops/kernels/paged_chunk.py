@@ -22,6 +22,13 @@ same kernel (``_chunk_kernel_batched_quant`` :1528, with the per-head scale
 fold ``_chunk_head_scale`` :1422), with the window and ALiBi as over bf16
 pages: its launches count as ``paged_chunk_int8``,
 ``paged_chunk_int8_window`` and ``paged_chunk_int8_alibi``.
+
+The kernel runs on the tensor cores: one block of ``CHUNK_ROWS`` mma rows a
+(q-tile, kv head, slot), the rows being a slot's (row, query head) pairs
+``r * G + g``, so each K/V tile it reads (and over int8 pages converts)
+serves all G query heads of its kv head. :func:`chunk_grid` and
+:func:`chunk_table_cap` are its launch plan from shapes alone (the C
+launcher computes the same).
 """
 
 from __future__ import annotations
@@ -54,6 +61,24 @@ REPLACES_INT8_WINDOW = ("deepspeed_tpu/ops/pallas/paged_attention.py:1528 "
 REPLACES_INT8_ALIBI = ("deepspeed_tpu/ops/pallas/paged_attention.py:1528 "
                        "_chunk_kernel_batched_quant alibi=True (bound at :1574-1577; "
                        "alibi :1493-1498)")
+
+# (row, head) pairs a block takes: the kernel's kChRows (4 warps of 16 mma rows)
+CHUNK_ROWS = 64
+
+
+def chunk_grid(NC: int, Cs: int, H: int, Hkv: int):
+    """The kernel's grid: (q-tiles of ``CHUNK_ROWS`` (row, head) pairs of a
+    slot, kv heads, slots)."""
+    return (-(-Cs * (H // Hkv) // CHUNK_ROWS), Hkv, NC)
+
+
+def chunk_table_cap(MB: int, bs: int, window: Optional[int]) -> int:
+    """Block-table entries a block stages in shared memory: under a window
+    its key range spans at most ``window + CHUNK_ROWS - 1`` keys (the
+    decode walk's ``decode_table_cap``), else the whole row."""
+    if window:
+        return min((window + CHUNK_ROWS) // bs + 2, MB)
+    return MB
 
 
 def paged_chunk_attention_batched(q: torch.Tensor, kv_pages: torch.Tensor,

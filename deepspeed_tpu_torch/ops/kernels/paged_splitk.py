@@ -32,7 +32,9 @@ version against the Pallas kernel.
 - :func:`paged_chunk_attention_xla` (:228) is the multi-query split path of
   the chunk dispatcher. The JAX package computes it outside any Pallas
   kernel on every backend (split-K buys the compute-bound chunk attention
-  nothing); here it is plain PyTorch on every device, likewise.
+  nothing); here it is plain PyTorch on every device, likewise. The
+  engine's chunk attention does not take it: ``AttentionKernelSpec.chunk``
+  runs the chunk kernel (K5) at every rung.
 
 int8 pages (``kv_scales``) dequantize each gathered row (``k * s``), the
 algebra the kernels fold into their score and p columns; an int8 partials
