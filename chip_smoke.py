@@ -231,19 +231,57 @@ instance's registers, spill bytes and shared memory (K5's too), the decode
 kernel's cluster size and K5's block count at each main path's shape, and
 the count of bitwise reruns (a spill fails the run).
 
-Every serving phase (4, 6 and 9 to 13) also prints a ``continuation pass``
+Every serving phase (4, 6 and 9 to 14) also prints a ``continuation pass``
 line: the device and wall ms of one paged pass made only of continuation
 chunks (a prompt of two passes' take, its second pass) at each rung of the
 phase's ladder, with the port kernels' share (``continuation_pass``).
 
-The last two lines are the kernel table (55 rows) and ``{"ok": true,
+14. MoE serving of Mixtral-8x7B at full width and depth (32 layers, 8
+   experts, top-2; 46.7B parameters, 93.4 GB in bf16) on one card with
+   ``quantization.weight_bits = 8`` and bf16 KV pages: the parameters are
+   made on the card from seed 0 one tensor at a time as the engine reads
+   them (``SeededParams``), each projection and expert stack quantized as
+   it lands, so no bf16 copy of the model exists; ``_moe_ffn`` at a
+   prefill pass's and a decode step's rows under
+   ``torch.cuda.set_sync_debug_mode("error")``; the main path
+   (``generate()`` on prompts of 2000/900/300/60 tokens, a step at each
+   pinned rung 1/2/4, a mixed ``put()``) with K8's grouped entries among
+   its launches; next-token logits against a dense fp32 forward over the
+   engine's own int8 experts (RMS within 2x the same forward's in bf16),
+   and the share of (layer, token) top-2 sets that the engine and the
+   dense bf16 forward route as the fp32 one does; rung invariance; rates,
+   a profiled decode step beside its bound (the routed experts' bytes),
+   bursts at rungs 1 and 4, a profiled prefill pass, a continuation pass;
+   peak device memory under 80 GiB.
+
+15. Qwen2-7B (biased q/k/v, 28 query heads over 4 kv heads: G = 7) and
+16. Gemma-7B (head dim 256, GeGLU, RMSNorm by 1 + weight, the embedding
+   scaled by sqrt(hidden)) at full width and depth in bf16, their weights
+   made on the card from seed 0 (random nonzero biases, norm weights
+   around 0): prompts of 1500/600/200/40 tokens through the main path,
+   logits against the dense fp32 ``LlamaForCausalLM`` forward (RMS within
+   2x its bf16 pass's), rung invariance, rates, a profiled step and bursts
+   at rungs 1 and 2.
+
+Phase 3 also holds K8's grouped entries (``quantized_matmul_grouped``: the
+grouped gemv and the grouped ``qmm_mma``) against their plain version at
+Mixtral-8x7B's expert shapes (decode steps of 4 and 1 sequences, 32 rows
+in one expert, 11 and 33 rows, a 736-token prefill pass, skewed and all
+in one expert, a K that 64 does not divide), each rerun bitwise, timed at
+the table's rows beside ``torch._grouped_mm`` over bf16 experts (the
+``k8-grouped`` line: registers and spills; a spill fails); and K5 and the
+decode kernel at Qwen2-7B's G = 7 and Gemma-7B's D = 256 on pages of 128.
+
+The last two lines are the kernel table (57 rows) and ``{"ok": true,
 "device": ...}`` as JSON. Run from the repository root: ``python3 chip_smoke.py``.
 """
 
 from __future__ import annotations
 
+import collections.abc
 import contextlib
 import functools
+import gc
 import itertools
 import json
 import os
@@ -530,6 +568,7 @@ def check_kernels(dev):
     check_quant_window_kernels(dev, g, randn, record)
     check_quant_alibi_kernels(dev, g, randn, record)
     check_int4_matmul(dev, g, randn, record)
+    check_grouped_matmul(dev, g, randn, record)
     check_paged_shapes(dev, g, randn, record)
     check_chunk_shapes(dev, g, randn, record)
     paged_attributes(dev)
@@ -782,12 +821,15 @@ def check_head_dims(dev, randn, record):
 # 32/8, D = 128; bf16 and int8 pages), G = 8 at D = 256 (64 query heads
 # over 8 kv heads; bf16 and int8) and D = 40 (padded to 64 in the
 # kernels), each with a window of 200 and with ALiBi, pages only, one side
-# row and C = 16 side rows; contexts with a row of one page and an empty row
+# row and C = 16 side rows; contexts with a row of one page and an empty
+# row; and phases 15's and 16's heads (Qwen2-7B's G = 7 of the kernel's n =
+# 8 columns, Gemma-7B's D = 256 at G = 1) on their pages of 128
 PR_CTXS = [2000, 777, 130, 0]
 PR_CASES = (("bs=16", 32, 8, 128, 16, False), ("bs=16 int8", 32, 8, 128, 16, True),
             ("bs=64", 32, 8, 128, 64, False), ("bs=64 int8", 32, 8, 128, 64, True),
             ("G=8 D=256", 64, 8, 256, 128, False), ("G=8 D=256 int8", 64, 8, 256, 128, True),
-            ("D=40", 8, 4, 40, 64, False))
+            ("D=40", 8, 4, 40, 64, False), ("G=7 (Qwen2-7B)", 28, 4, 128, 128, False),
+            ("D=256 G=1 (Gemma-7B)", 16, 16, 256, 128, False))
 PR_WINDOW = 200
 PR_MODES = (({}, 0, 0), ({}, 1, 0), ({"window": PR_WINDOW}, 0, 0),
             ({"window": PR_WINDOW}, 16, 7), ({"alibi": True}, 0, 0),
@@ -862,7 +904,9 @@ def check_paged_shapes(dev, g, randn, record):
 # pairs does not divide them): slot 0 ends at its context, slot 1's rows run
 # 56 past its context (a pass's unfilled slot), slot 2 starts at 34 (its
 # rows straddle pages at every bs), slot 3 is empty. Each case runs with no
-# window, a window of 200 over ring tables, and ALiBi.
+# window, a window of 200 over ring tables, and ALiBi. The last two are
+# phases 15's and 16's heads on their pages of 128: Qwen2-7B's G = 7 (16 /
+# G is no whole number of positions a warp) and Gemma-7B's D = 256.
 CH_CTXS = [2000, 777, 130, 0]
 CH_Q0 = [1904, 737, 34, 0]
 CH_CS = 96
@@ -872,7 +916,9 @@ CH_CASES = (("bs=16 G=4", 32, 8, 128, 16, False), ("bs=16 G=4 int8", 32, 8, 128,
             ("D=64 G=71", 71, 1, 64, 64, False), ("D=80 G=4", 16, 4, 80, 16, False),
             ("D=96 G=2", 16, 8, 96, 64, False), ("G=8 D=256", 64, 8, 256, 128, False),
             ("G=8 D=256 int8", 64, 8, 256, 128, True),
-            ("D=256 int8 bs=16 G=2", 16, 8, 256, 16, True))
+            ("D=256 int8 bs=16 G=2", 16, 8, 256, 16, True),
+            ("G=7 (Qwen2-7B)", 28, 4, 128, 128, False),
+            ("D=256 G=1 (Gemma-7B)", 16, 16, 256, 128, False))
 CH_WINDOW = 200
 CH_MODES = ({}, {"window": CH_WINDOW}, {"alibi": True})
 
@@ -2251,6 +2297,90 @@ def check_int4_matmul(dev, g, randn, record):
         del qd, wb, w8, w4
 
 
+# K8's grouped entries at Mixtral-8x7B's expert shapes (hidden 4096, FFN
+# 14336, 8 experts): rows per expert (sorted by expert) as a decode step of
+# 4 sequences routes them top-2 (5 experts routed, 3 with none), one
+# sequence (2 rows), 32 rows in one expert (four passes of 8), 11 rows over
+# two experts, and a prefill pass of 736 tokens (1472 rows, skewed, one
+# expert with none; one expert with all); 33 rows (the first past the
+# gemv); a K that 64 does not divide. The kernel table keeps the decode
+# step's gate/up for the gemv and the prefill pass's gate/up for qmm_mma.
+MOE_HID, MOE_FF, MOE_E = 4096, 14336, 8
+GROUPED_CASES = (
+    ("decode S=4 gate/up", (2, 0, 1, 1, 3, 0, 1, 0), MOE_HID, MOE_FF),
+    ("decode S=4 down", (2, 0, 1, 1, 3, 0, 1, 0), MOE_FF, MOE_HID),
+    ("decode S=1 gate/up", (0, 0, 1, 0, 0, 0, 1, 0), MOE_HID, MOE_FF),
+    ("decode S=1 down", (0, 0, 1, 0, 0, 0, 1, 0), MOE_FF, MOE_HID),
+    ("32 rows in one expert", (0, 0, 0, 32, 0, 0, 0, 0), MOE_HID, MOE_FF),
+    ("11 rows", (3, 0, 8, 0, 0, 0, 0, 0), MOE_FF, MOE_HID),
+    ("33 rows", (1, 0, 0, 32, 0, 0, 0, 0), MOE_HID, MOE_FF),
+    ("prefill 736 gate/up", (400, 0, 300, 172, 100, 250, 150, 100), MOE_HID, MOE_FF),
+    ("prefill 736 down", (400, 0, 300, 172, 100, 250, 150, 100), MOE_FF, MOE_HID),
+    ("prefill all in one expert", (0, 0, 0, 0, 0, 0, 0, 1472), MOE_FF, MOE_HID),
+    ("K=4128 (64 does not divide)", (100, 0, 200, 3), 4128, 256),
+)
+GROUPED_ROWS = {"quantized_matmul_grouped_gemv": "decode S=4 gate/up",
+                "quantized_matmul_grouped_mma": "prefill 736 gate/up"}
+
+
+def check_grouped_matmul(dev, g, randn, record):
+    """K8's grouped entries against their plain version (each expert's rows
+    through ``quantized_matmul_plain``) at GROUPED_CASES, each rerun and
+    required bitwise equal; timed at the table's rows beside
+    ``torch._grouped_mm`` on the bf16 weights, with the bound counted over
+    the routed experts' bytes; the ``k8-grouped`` attributes line (a spill
+    fails the run)."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.ragged_model import quantize_weight_int8
+    from deepspeed_tpu_torch.ops.kernels.quantized_matmul import (
+        GROUPED_GEMV, GROUPED_GEMV_MAX_R, GROUPED_MMA, quantized_matmul_grouped,
+        quantized_matmul_grouped_plain)
+    weights = {}
+    for label, counts, K, N in GROUPED_CASES:
+        E, R = len(counts), sum(counts)
+        if (E, K, N) not in weights:
+            weights.clear()
+            torch.cuda.empty_cache()
+            w = torch.randn(E, K, N, generator=g, device=dev) * K ** -0.5
+            weights[(E, K, N)] = (quantize_weight_int8(w), w.to(torch.bfloat16))
+            del w
+        qd, wb = weights[(E, K, N)]
+        w8, sc = qd["w8"], qd["scale"]
+        a = randn(R, K)
+        ends = torch.tensor(np.cumsum(counts), dtype=torch.int32, device=dev)
+        out = quantized_matmul_grouped(a, ends, w8, sc)
+        again = quantized_matmul_grouped(a, ends, w8, sc)
+        ref = quantized_matmul_grouped_plain(a, ends, w8, sc)
+        torch.cuda.synchronize()
+        name = GROUPED_GEMV if R <= GROUPED_GEMV_MAX_R else GROUPED_MMA
+        if not torch.equal(out, again):
+            raise AssertionError(f"{name} {label}: two runs differ")
+        row = GROUPED_ROWS[name] == label
+        routed = sum(1 for c in counts if c)
+        b_ms, b_by = bound(routed * (K * N + 4 * N) + 2 * R * K + 2 * R * N + 4 * E,
+                           2 * R * K * N)
+        extra = {}
+        if row:
+            extra = dict(ms=time_ms(lambda: quantized_matmul_grouped(a, ends, w8, sc)),
+                         plain_ms=time_ms(lambda: quantized_matmul_grouped_plain(
+                             a, ends, w8, sc), 5, 1),
+                         library_ms=time_ms(lambda: torch._grouped_mm(a, wb, offs=ends)),
+                         library_covers="torch._grouped_mm on the bf16 expert weights "
+                                        "(twice the weight bytes)",
+                         bound_ms=b_ms, bound_by=b_by)
+        record(name, f"{label}: R={R} K={K} N={N} rows per expert {list(counts)}",
+               err((out, ref)), row=row, routed_experts=routed, bitwise_equal_rerun=True,
+               **extra)
+    weights.clear()
+    attrs = {n: read_attributes("dstorch_qmm_grouped_attrs", k)
+             for k, n in enumerate((GROUPED_GEMV, GROUPED_MMA))}
+    print("k8-grouped " + json.dumps({"gemv_max_rows": GROUPED_GEMV_MAX_R,
+                                      "attributes": attrs}), flush=True)
+    spills = {k: a_["local_bytes"] for k, a_ in attrs.items() if a_["local_bytes"]}
+    if spills:
+        raise AssertionError(f"K8's grouped kernels spill to local memory: {spills}")
+
+
 BURST = 16
 BURST_PROFILED = 8          # the profiled burst after each timed one
 B_KERNELS_7B = ("paged_decode_side", "paged_splitk_side/2", "paged_splitk_side/4")
@@ -2647,17 +2777,23 @@ ENGINE_13B = {"quantization": {"weight_bits": 8}, "kv_quant": {"enabled": True},
               "state_manager": {"max_context": Q_MB * 128}, "seed": 0}
 
 
-def dense_quant_logits(engine, cfg, ids, rows, dt, n_full=0):
+def dense_quant_logits(engine, cfg, ids, rows, dt, n_full=0, kv_int8=True, routes=None,
+                       forced=None):
     """What the engine computes, as a dense causal forward over one token
     sequence ``ids`` [T]: every projection is ``_mm``'s function over the
     engine's own int8 weights (f32 sum, column scale, result in ``dt``),
     and attention reads K and V at the values the int8 pages store
-    (``kv_write_dequant``), except for the first ``n_full`` positions when
+    (``kv_write_dequant``; at full precision with ``kv_int8=False``, a
+    model-dtype pool), except for the first ``n_full`` positions when
     the sequence began in a prefill-from-zero pass of that many tokens:
     that pass attends its own rows at full precision and only writes the
-    pages quantized (as the JAX engine does). Weights dequantize one matmul
-    at a time, so no f32 copy of the model exists. Returns f32 logits at
-    positions ``rows``."""
+    pages quantized (as the JAX engine does). An MoE layer routes each
+    token to its top-k experts by f32 router logits (softmax over the k)
+    and adds their FFNs over the engine's own int8 expert stacks, one
+    expert at a time (:func:`dense_moe`; ``forced`` [L, T, k], the experts
+    to use instead, and ``routes`` as there). Weights dequantize one
+    matmul at a time, so no f32 copy of the model exists. Returns f32
+    logits at positions ``rows``."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.models.llama import apply_rope, rms_norm, rope_tables
@@ -2684,19 +2820,54 @@ def dense_quant_logits(engine, cfg, ids, rows, dt, n_full=0):
         return torch.einsum("hqk,khd->qhd", p.to(dt), v)
 
     x = W["embed"][ids].to(dt)
-    for w in W["layers"]:
+    for l, w in enumerate(W["layers"]):
         h = rms_norm(x, w["ln1"], eps, dt)
         q = apply_rope(mm(h, w["wq"]).view(T, H, D), cos, sin)
         k = apply_rope(mm(h, w["wk"]).view(T, Hkv, D), cos, sin)
         v = mm(h, w["wv"]).view(T, Hkv, D)
-        o = attend(q, kv_write_dequant(k).to(dt), kv_write_dequant(v).to(dt))
-        if n_full:
-            o[:n_full] = attend(q[:n_full], k[:n_full], v[:n_full])
+        if kv_int8:
+            o = attend(q, kv_write_dequant(k).to(dt), kv_write_dequant(v).to(dt))
+            if n_full:
+                o[:n_full] = attend(q[:n_full], k[:n_full], v[:n_full])
+        else:
+            o = attend(q, k, v)
         x = x + mm(o.reshape(T, H * D), w["wo"])
         h = rms_norm(x, w["ln2"], eps, dt)
-        x = x + mm(F.silu(mm(h, w["w_gate"])) * mm(h, w["w_up"]), w["w_down"])
+        if "moe" in w:
+            x = x + dense_moe(h, w["moe"], cfg.num_experts_per_tok, mm, routes,
+                              None if forced is None else forced[l])
+        else:
+            x = x + mm(F.silu(mm(h, w["w_gate"])) * mm(h, w["w_up"]), w["w_down"])
     x = rms_norm(x[rows], W["final_norm"], eps, dt)
     return mm(x, W["lm_head"]).float()
+
+
+def dense_moe(h, m, k, mm, routes=None, forced=None):
+    """One MoE layer over rows ``h`` [T, hidden] in h's dtype: f32 router
+    logits, the top ``k`` (or the experts ``forced`` [T, k]) with a
+    softmax over their logits, each expert's rows through ``mm`` over its
+    int8 weights ``m[key]["w8"][e]``, weighted in h's dtype and added per
+    token. ``routes``, a list, gets this layer's own choice: ``{"own": top
+    k ids [T, k], "margin": the k-th logit less the next [T]}``."""
+    import torch
+    import torch.nn.functional as F
+    logits = h.float() @ m["router"].float()
+    top = torch.topk(logits, min(k + 1, logits.shape[-1]), dim=-1)
+    ids = top.indices[:, :k] if forced is None else forced
+    gates = torch.softmax(logits.gather(1, ids), dim=-1)
+    if routes is not None:
+        routes.append({"own": top.indices[:, :k],
+                       "margin": top.values[:, k - 1] - top.values[:, -1]})
+    out = torch.zeros_like(h)
+    for e in range(m["w_gate"]["w8"].shape[0]):
+        tok, slot = (ids == e).nonzero(as_tuple=True)
+        if tok.numel():
+            ex = {key: {"w8": m[key]["w8"][e], "scale": m[key]["scale"][e]}
+                  for key in ("w_gate", "w_up", "w_down")}
+            xe = h[tok]
+            y = mm(F.silu(mm(xe, ex["w_gate"])) * mm(xe, ex["w_up"]), ex["w_down"])
+            out.index_add_(0, tok, y * gates[tok, slot, None].to(h.dtype))
+    return out
 
 
 def run_13b():
@@ -3908,10 +4079,11 @@ def continuation_pass(engine, label, names):
         "rungs": rungs}), flush=True)
 
 
-def serve_main_path(engine, prompts, uids, names, rng):
+def serve_main_path(engine, prompts, uids, names, rng, step_probe=None):
     """``generate()`` (32 new tokens each), then ``put()`` of the prompts
     (noting each sequence's prefill-from-zero rows, which attend each other
-    at full precision), one pipelined step at each rung of the ladder, and
+    at full precision), one pipelined step at each rung of the ladder
+    (inside ``step_probe()``, a context manager, when one is given), and
     a ``put()`` mixing the decode rows with a 180-token prompt at rung 1
     (the chunk and decode kernels; rungs above 1 take the split paths).
     Fails on a malformed stream, a kernel of ``names`` never launched or a
@@ -3955,7 +4127,8 @@ def serve_main_path(engine, prompts, uids, names, rng):
     toks = []
     for rung in engine.attn_split_ladder:                   # one step at each rung
         engine.attn_rung_override = rung
-        toks.append(pipe.run(1)[:, 0])
+        with step_probe() if step_probe else contextlib.nullcontext():
+            toks.append(pipe.run(1)[:, 0])
         engine._materialize(uids)
         got.append(np.stack([engine._last_logits[u] for u in uids]))
     engine.attn_rung_override = 1
@@ -3986,9 +4159,12 @@ def serve_main_path(engine, prompts, uids, names, rng):
 def logits_check(label, prompts, got, toks, dense):
     """The engine's logits at prefill and each decode step against
     ``dense(i, seq, rows, dt)`` in fp32: RMS within 2x the same forward's
-    in bf16 (phase 6's rule). Returns the limit."""
+    in bf16 (phase 6's rule). Two controls must fail that limit, or the
+    check could not tell a wrong engine: zero logits, and the engine's
+    logits a row late (another position's). Returns the limit."""
     import torch
     e_eng, e_dense, m_eng, m_dense = [], [], 0.0, 0.0
+    e_ref, e_late = [], []
     for i, p in enumerate(prompts):
         seq = torch.from_numpy(np.concatenate([p] + [t[i:i + 1] for t in toks])).long().cuda()
         rows = torch.arange(len(p) - 1, len(p) + len(toks), device="cuda")
@@ -3998,33 +4174,51 @@ def logits_check(label, prompts, got, toks, dense):
         if not torch.isfinite(eng).all():
             raise AssertionError("engine logits are not finite")
         d_eng, d_dense = eng - ref32, ref16 - ref32
+        e_ref.append(float(ref32.pow(2).mean()))
+        e_late.append(float((eng.roll(1, 0) - ref32).pow(2).mean()))
         e_eng.append(float(d_eng.pow(2).mean()))
         e_dense.append(float(d_dense.pow(2).mean()))
         m_eng = max(m_eng, float(d_eng.abs().max()))
         m_dense = max(m_dense, float(d_dense.abs().max()))
         del ref32, ref16
     rms_eng, rms_dense = float(np.sqrt(np.mean(e_eng))), float(np.sqrt(np.mean(e_dense)))
+    rms_ref, rms_late = float(np.sqrt(np.mean(e_ref))), float(np.sqrt(np.mean(e_late)))
     limit = 2 * rms_dense
     print(f"logits vs dense fp32 {label} (prefill + {len(toks)} decode steps x "
           f"{len(prompts)} prompts): engine rms {rms_eng:.5f} max {m_eng:.4f}; dense bf16 "
-          f"rms {rms_dense:.5f} max {m_dense:.4f}; limit rms <= {limit:.5f}", flush=True)
+          f"rms {rms_dense:.5f} max {m_dense:.4f}; limit rms <= {limit:.5f}; logits rms "
+          f"{rms_ref:.5f}; controls (must exceed the limit): zero logits {rms_ref:.5f}, "
+          f"a row late {rms_late:.5f}", flush=True)
     if not rms_eng <= limit:
         raise AssertionError(f"engine logits error {rms_eng} > 2 x dense bf16 {rms_dense}")
+    if not min(rms_ref, rms_late) > limit:
+        raise AssertionError(f"the logits check cannot fail: a control ({rms_ref}, "
+                             f"{rms_late}) is within its limit {limit}")
     return limit
 
 
 def rung_invariance(engine, uids, limit):
     """One live decode step at every rung (rung 1 writes last) against rung
-    1: RMS within ``limit``."""
+    1: RMS within ``limit``. An MoE model's rung 1 runs first as well, and
+    every rung follows its expert choices (:func:`moe_routes`), so what is
+    compared is the attention at each rung, not a routing near-tie's
+    flip."""
     from deepspeed_tpu_torch.inference.v2.ragged.ragged_batch import to_device
     db = engine.scheduler.decode_batch(uids, 2, engine.scratch_block)
     ids = engine._sample_device_padded(uids, False, 1.0, 0)
     bt = to_device(db.block_tables, engine.device)
     pos = to_device(db.positions, engine.device)
-    step = {}
-    for rung in reversed(engine.attn_split_ladder):
-        _, lg_r = engine._step_rungs[rung](engine.weights, engine.kv.kv, ids, pos, bt,
-                                           pos + 1, kv_scales=engine.kv.scales)
+    step, rung1_routes = {}, []
+    order = list(reversed(engine.attn_split_ladder))
+    if engine.spec.moe is not None:
+        order = [1] + order
+    for j, rung in enumerate(order):
+        routing = (contextlib.nullcontext() if engine.spec.moe is None
+                   else moe_routes(record=rung1_routes) if j == 0
+                   else moe_routes(force=rung1_routes))
+        with routing:
+            _, lg_r = engine._step_rungs[rung](engine.weights, engine.kv.kv, ids, pos, bt,
+                                               pos + 1, kv_scales=engine.kv.scales)
         step[rung] = lg_r[:len(uids)].float()
     diffs = {r: float((step[r] - step[1]).pow(2).mean().sqrt()) for r in step}
     agree = {r: float((step[r].argmax(-1) == step[1].argmax(-1)).float().mean())
@@ -4317,6 +4511,452 @@ def run_phi2():
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 14: Mixtral-8x7B MoE serving with int8 weights on one card
+# --------------------------------------------------------------------------- #
+
+MX_KERNELS = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk/2",
+              "paged_splitk/4", "splitk_merge", "quantized_matmul_gemv",
+              "quantized_matmul_mma", "quantized_matmul_grouped_gemv",
+              "quantized_matmul_grouped_mma")
+MX_SIDE_KERNELS = ("paged_decode_side", "paged_splitk_side/4")
+MX_NAMES = P_NAMES + ("qmm_gemv", "qmm_gemv_grouped", "qmm_mma")
+ENGINE_MIXTRAL = {"quantization": {"weight_bits": 8},
+                  "kv_cache": {"block_size": 128, "num_blocks": 64},
+                  "state_manager": {"max_context": 4096},
+                  "attention": {"decode_splits": 4, "min_ctx_per_split": 512}, "seed": 0}
+MX_PROMPTS = (2000, 900, 300, 60)
+CARD_BYTES = 80 * 2 ** 30          # the H100's device memory
+
+
+class SeededParams(collections.abc.Mapping):
+    """A flat parameter tree whose tensors are made on the card from a seed
+    one at a time as they are read, in ``dtype``: norm weights 1 (or, with
+    ``norm_plus_one``, normal(0.1) around 0), embeddings normal(1 /
+    sqrt(hidden)), kernels normal(1 / sqrt(fan_in)), MoE expert stacks
+    normal(0.02) (the JAX package's initialiser), biases normal(0.5)
+    (nonzero: a dropped bias shows). Nothing is kept: the engine quantizes
+    each projection as it lands, so no bf16 copy of the model exists."""
+
+    def __init__(self, shapes, dtype, seed, norm_plus_one=False):
+        self.shapes, self.dtype, self.seed, self.p1 = shapes, dtype, seed, norm_plus_one
+        self.index = {n: i for i, n in enumerate(sorted(shapes))}
+
+    def __getitem__(self, name):
+        import torch
+        shape = self.shapes[name]
+        g = torch.Generator(device="cuda").manual_seed(self.seed * 100003 + self.index[name])
+        t = torch.randn(shape, generator=g, device="cuda", dtype=self.dtype)
+        if name.endswith("weight"):
+            return t.mul_(0.1) if self.p1 else t.fill_(1.0)
+        if name.endswith("bias"):
+            return t.mul_(0.5)
+        if name.endswith("embedding"):
+            return t.mul_(shape[1] ** -0.5)
+        if name.endswith(("w_gate", "w_up", "w_down")):
+            return t.mul_(0.02)
+        return t.mul_(shape[-2] ** -0.5)
+
+    def __contains__(self, name):      # Mapping's would make the tensor
+        return name in self.shapes
+
+    def __iter__(self):
+        return iter(self.shapes)
+
+    def __len__(self):
+        return len(self.shapes)
+
+
+def moe_sync_free(engine):
+    """``_moe_ffn`` over the engine's first layer at a prefill pass's rows
+    (the chunk budget) and a decode step's (4) under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing in it waits on the
+    device."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.ragged_model import _moe_ffn
+    moe = engine.weights["layers"][0]["moe"]
+    hid, k = engine.spec.hidden_size, engine.spec.moe["top_k"]
+    rows = {}
+    for label, T in (("prefill", engine.config.state_manager.chunk_budget), ("decode", 4)):
+        x = torch.randn(T, hid, device="cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = _moe_ffn(x, moe, k, torch.bfloat16)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        if out.shape != x.shape or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"_moe_ffn at {label}: malformed output")
+        rows[label] = T
+    print("moe sync-free " + json.dumps({"rows": rows, "sync_debug_mode": "error",
+                                         "raised": False}), flush=True)
+
+
+@contextlib.contextmanager
+def moe_routes(record=None, force=None):
+    """Within the block every MoE layer's routing
+    (``ragged_model._moe_route``) appends its expert ids [T, k] to
+    ``record``; or, given ``force`` (one step's ids, a layer each), the
+    l-th call routes its rows to ``force[l % len(force)]``, gated by their
+    own f32 router logits as the engine gates its choice."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import ragged_model as prm
+    inner, calls = prm._moe_route, itertools.count()
+
+    def route(x, router, top_k):
+        if force is not None:
+            ids = force[next(calls) % len(force)]
+            return torch.softmax((x.float() @ router.float()).gather(1, ids), dim=-1), ids
+        gates, ids = inner(x, router, top_k)
+        record.append(ids)
+        return gates, ids
+
+    prm._moe_route = route
+    try:
+        yield
+    finally:
+        prm._moe_route = inner
+
+
+class EngineRoutes:
+    """The engine's top-k experts at every (uid, layer, position) it
+    computes inside :meth:`recording`: a pass's rows through its batch
+    (chunk slots, then decode rows), a pipelined step's (inside
+    :meth:`step`) through the uids and positions given."""
+
+    def __init__(self, engine):
+        self.engine, self.calls, self.log, self.table = engine, [], [], {}
+
+    @contextlib.contextmanager
+    def recording(self):
+        eng = self.engine
+        schedule, run_pass, batches = eng.scheduler.schedule_pass, eng._run_pass, []
+
+        def scheduled():
+            batches.append(schedule())
+            return batches[-1]
+
+        def recorded_pass():
+            batches.clear()
+            self.calls.clear()
+            run_pass()
+            b = batches[0] if batches else None
+            if b is not None:
+                NC, Cs = len(b.slot_uid), b.slot_size
+                for s, u in enumerate(b.slot_uid):
+                    r = np.arange(s * Cs, s * Cs + int(b.chunk_ntok[s]))
+                    self._put(u, r, b.chunk_positions[r])
+                for i, u in enumerate(b.decode_uids):
+                    self._put(u, [NC * Cs + i], b.decode_positions[i:i + 1])
+
+        eng.scheduler.schedule_pass, eng._run_pass = scheduled, recorded_pass
+        try:
+            with moe_routes(record=self.calls):
+                yield
+        finally:
+            del eng.scheduler.schedule_pass, eng._run_pass
+
+    @contextlib.contextmanager
+    def step(self, uids, positions):
+        self.calls.clear()
+        yield
+        for i, (u, p) in enumerate(zip(uids, positions)):
+            self._put(u, [i], [p])
+
+    def _put(self, uid, rows, positions):
+        """Notes which rows of this forward's calls are ``uid``'s positions;
+        the table is filled when first read, so serving does no extra
+        device work."""
+        L = self.engine.spec.num_layers
+        if len(self.calls) != L:
+            raise AssertionError(f"{len(self.calls)} MoE calls in a forward of {L} layers")
+        self.log.append((uid, np.asarray(rows), np.asarray(positions), list(self.calls)))
+
+    def ids(self, uid, T):
+        """[L, T, k]: the experts of positions 0..T-1 (each recorded; a
+        later forward over a position overwrites an earlier one)."""
+        import torch
+        for u, rows, pos, calls in self.log:
+            t = self.table.get(u)
+            if t is None:
+                t = self.table[u] = torch.full(
+                    (len(calls), self.engine.config.state_manager.max_context,
+                     calls[0].shape[1]), -1, dtype=torch.long, device=self.engine.device)
+            r, p = (torch.as_tensor(a, dtype=torch.long, device=t.device) for a in (rows, pos))
+            for l, c in enumerate(calls):
+                t[l, p] = c[r].long()
+        self.log.clear()
+        t = self.table[uid][:, :T]
+        if bool((t < 0).any()):
+            raise AssertionError(f"uid {uid}: positions with no recorded routing")
+        return t
+
+
+def run_mixtral():
+    """Phase 14: Mixtral-8x7B at full width and depth (32 layers, 8 experts,
+    top-2) with int8 weights and bf16 KV pages on one card: the parameters
+    are made on the card from seed 0 as the engine reads them, each
+    projection and expert stack quantized as it lands. Returns the main
+    path's launch counts."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models.mixtral import MixtralConfig, MixtralForCausalLM
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gib = lambda b: b / 2 ** 30
+    cfg = MixtralConfig.mixtral_8x7b(dtype=torch.bfloat16)
+    meta = MixtralForCausalLM(cfg, device="meta")
+    shapes = {n.replace(".", "/"): tuple(p.shape) for n, p in meta.named_parameters()}
+    n_params = sum(int(np.prod(sh)) for sh in shapes.values())
+    t0 = time.perf_counter()
+    engine = InferenceEngineV2(meta, ENGINE_MIXTRAL, SeededParams(shapes, torch.bfloat16, 0))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak_build = torch.cuda.max_memory_allocated()
+    w_up = engine.weights["layers"][0]["moe"]["w_up"]
+    print(f"model: Mixtral-8x7B (MixtralConfig.mixtral_8x7b: vocab {cfg.vocab_size}, hidden "
+          f"{cfg.hidden_size}, FFN {cfg.intermediate_size}, {cfg.num_hidden_layers} layers, "
+          f"{cfg.num_attention_heads}/{cfg.num_key_value_heads} heads, "
+          f"{cfg.num_local_experts} experts top-{cfg.num_experts_per_tok}; {n_params / 1e9:.2f}B "
+          f"parameters = {n_params * 2 / 1e9:.1f} GB in bf16), random weights (seed 0) made on "
+          f"the card as the engine reads them and quantized to int8 as they land (w_up "
+          f"{list(w_up['w8'].shape)} {w_up['w8'].dtype}, scale {list(w_up['scale'].shape)}); "
+          f"bf16 KV pool of {ENGINE_MIXTRAL['kv_cache']['num_blocks']} pages; ladder "
+          f"{engine.attn_split_ladder}; build {build_s:.1f} s; memory after build "
+          f"{gib(torch.cuda.memory_allocated()):.2f} GiB, peak during build "
+          f"{gib(peak_build):.2f} GiB; {smi_line()}", flush=True)
+    if engine.spec.moe != {"num_experts": 8, "top_k": 2} or w_up["w8"].dtype != torch.int8 \
+            or tuple(w_up["w8"].shape) != (8, cfg.hidden_size, cfg.intermediate_size):
+        raise AssertionError("phase 14's engine is not Mixtral-8x7B with int8 experts")
+    rng = np.random.RandomState(14)
+    moe_sync_free(engine)
+
+    V, L = cfg.vocab_size, cfg.num_hidden_layers
+    prompts = [rng.randint(0, V, n).astype(np.int32) for n in MX_PROMPTS]
+    uids = [10, 11, 12, 13]
+    routes, steps = EngineRoutes(engine), itertools.count()
+
+    def probe():
+        j = next(steps)
+        return routes.step(uids, [len(p) + j for p in prompts])
+
+    with routes.recording():
+        launches, _, got, toks, _, t_gen, t_prefill, _ = serve_main_path(
+            engine, prompts, uids, MX_KERNELS, rng, step_probe=probe)
+    # the dense forwards follow the engine's experts at every (layer,
+    # position), so a near-tie that the engine breaks one way and fp32 the
+    # other moves neither the logits compared nor what comes after; each
+    # forward's own top-2 is kept to see where it would have routed
+    own = {torch.float32: {}, torch.bfloat16: {}}
+
+    def dense(i, seq, rows, dt):
+        layers = []
+        out = dense_quant_logits(engine, cfg, seq, rows, dt, kv_int8=False, routes=layers,
+                                 forced=routes.ids(uids[i], len(seq)))
+        own[dt][i] = layers
+        return out
+
+    limit = logits_check("of Mixtral-8x7B over the int8 weights, routed as the engine "
+                         "routed", prompts, got, toks, dense)
+    # routing: the engine's top-2 set at every (layer, position) against
+    # the fp32 forward's own choice on those inputs, beside the dense bf16
+    # forward's; where they differ, the fp32 margin between the 2nd and 3rd
+    # logits shows whether it was a near-tie
+    same = lambda a, b: (a.sort(-1).values == b.sort(-1).values).all(-1)
+    differ = {"engine": 0, "dense_bf16": 0}
+    margins, differ_margins, total = [], [], 0
+    for i, p in enumerate(prompts):
+        T = len(p) + len(toks)
+        eng_ids = routes.ids(uids[i], T)
+        for l in range(L):
+            ref = own[torch.float32][i][l]
+            ok_eng = same(eng_ids[l], ref["own"])
+            differ["engine"] += int((~ok_eng).sum())
+            differ["dense_bf16"] += int((~same(own[torch.bfloat16][i][l]["own"],
+                                               ref["own"])).sum())
+            margins.append(ref["margin"])
+            differ_margins.append(ref["margin"][~ok_eng])
+            total += T
+    margins, differ_margins = torch.cat(margins), torch.cat(differ_margins)
+    q = lambda t: ({f"p{int(f * 100)}": float(t.quantile(f)) for f in (0.5, 0.9, 1.0)}
+                   if t.numel() else {})
+    print("routing vs dense fp32 " + json.dumps({
+        "layer_position_top2_sets": total, "differing": differ,
+        "share_agreeing": {k: 1 - v / total for k, v in differ.items()},
+        "fp32_margin_2nd_3rd": q(margins), "fp32_margin_where_engine_differs":
+        q(differ_margins), "limit": "engine differs <= 2 x max(dense bf16's, 1)"}),
+        flush=True)
+    if not differ["engine"] <= 2 * max(differ["dense_bf16"], 1):
+        raise AssertionError(f"the engine routes {differ['engine']} of {total} top-2 sets "
+                             f"off the fp32 choice; the dense bf16 forward "
+                             f"{differ['dense_bf16']}")
+    rung_invariance(engine, uids, limit)
+
+    # ---- rates, a profiled step beside its bound, bursts ---- #
+    side = lean_rates_and_bursts("Mixtral-8x7B int8", engine, uids, prompts, t_gen, t_prefill,
+                                 MX_NAMES, MX_SIDE_KERNELS, (1, 4))
+    step_ids = []
+    pipe = engine.decode_pipeline(uids)
+    with moe_routes(record=step_ids):
+        pipe.run(1)
+    torch.cuda.synchronize()
+    routed = [len(set(ids[:len(uids)].reshape(-1).tolist())) for ids in step_ids]
+    H, Hkv, D, hid = (cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim,
+                      cfg.hidden_size)
+    ctx = sum(engine.scheduler.seqs[u].seen_tokens for u in uids)
+    attn_w = hid * (H + 2 * Hkv) * D + H * D * hid
+    ff = cfg.intermediate_size
+    # int8 weights and their f32 column scales, each read once: the routed
+    # experts' stacks, every layer's attention projections, the head; the
+    # bf16 KV of every live token
+    step_bytes = (sum(r * (3 * hid * ff + 4 * (2 * ff + hid)) for r in routed)
+                  + cfg.num_hidden_layers * (attn_w + 4 * (H * D + 2 * Hkv * D + hid))
+                  + hid * V + 4 * V + ctx * cfg.num_hidden_layers * 2 * Hkv * D * 2)
+    step = device_time(lambda: pipe.run(1), MX_NAMES)
+    print("moe decode step " + json.dumps({
+        "rows": len(uids), "routed_experts_per_layer_mean": float(np.mean(routed)),
+        "bytes_read": step_bytes, "bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+        "device_ms": step["device_ms"], "port_kernels_ms": step["port_kernels_ms"],
+        "nvidia_smi": smi_line()}), flush=True)
+    launches.update(side)
+    engine.flush(uids + [14])
+    chunk = engine.config.state_manager.chunk_budget
+    device_breakdown(f"Mixtral-8x7B prefill pass ({chunk} tokens from 0, int8)",
+                     lambda: engine.put([20], [rng.randint(0, V, chunk).astype(np.int32)]),
+                     MX_NAMES)
+    engine.flush([20])
+    continuation_pass(engine, "Mixtral-8x7B int8", MX_NAMES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 14: peak device memory {gib(peak):.2f} GiB (build {gib(peak_build):.2f} "
+          f"GiB; the card's 80 GiB); {time.perf_counter() - t_phase:.1f} s; {smi_line()}",
+          flush=True)
+    if not peak < CARD_BYTES:
+        raise AssertionError(f"phase 14 peak memory {gib(peak):.2f} GiB >= 80 GiB")
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# phases 15 and 16: Qwen2-7B and Gemma-7B through the Llama adapter's flags
+# --------------------------------------------------------------------------- #
+
+LF_KERNELS = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk/2",
+              "splitk_merge")
+LF_SIDE_KERNELS = ("paged_decode_side", "paged_splitk_side/2")
+ENGINE_LLAMA_FLAGS = {"kv_cache": {"block_size": 128, "num_blocks": 48},
+                      "state_manager": {"max_context": 4096},
+                      "attention": {"decode_splits": 2, "min_ctx_per_split": 512}, "seed": 0}
+LF_PROMPTS = (1500, 600, 200, 40)
+
+
+def run_llama_flags(phase, label, cfg, check):
+    """One bf16 Llama-lineage model at full width and depth, its weights
+    made on the card from seed 0 (``SeededParams``: random nonzero biases,
+    norm weights around 0 under ``norm_plus_one``): ``put``/``generate``
+    through the main path, the logits check against the dense forward,
+    rung invariance, rates, a profiled step and bursts at rungs 1 and 2.
+    ``check(engine)`` fails on a spec that lost the lineage's flags.
+    Returns the main path's launch counts."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gib = lambda b: b / 2 ** 30
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="meta")
+    shapes = {n.replace(".", "/"): tuple(p.shape) for n, p in model.named_parameters()}
+    model = model.to_empty(device="cuda")
+    flat = model.flat_params()
+    src = SeededParams(shapes, torch.bfloat16, 0, cfg.norm_plus_one)
+    with torch.no_grad():
+        for n in shapes:
+            flat[n].copy_(src[n])
+    engine = InferenceEngineV2(model, ENGINE_LLAMA_FLAGS, model.flat_params())
+    torch.cuda.synchronize()
+    n_params = sum(int(np.prod(sh)) for sh in shapes.values())
+    print(f"model: {label} (vocab {cfg.vocab_size}, hidden {cfg.hidden_size}, FFN "
+          f"{cfg.intermediate_size}, {cfg.num_hidden_layers} layers, "
+          f"{cfg.num_attention_heads}/{cfg.num_key_value_heads} heads, head_dim {cfg.head_dim}, "
+          f"{n_params / 1e9:.2f}B parameters), random bf16 weights (seed 0); spec activation "
+          f"{engine.spec.activation}, norm_plus_one {engine.spec.norm_plus_one}, embed scale "
+          f"{engine.spec.embed_scale_by_sqrt_dim}, q/k/v biases "
+          f"{'bq' in engine.weights['layers'][0]}; pool "
+          f"{ENGINE_LLAMA_FLAGS['kv_cache']['num_blocks']} pages; ladder "
+          f"{engine.attn_split_ladder}; build {time.perf_counter() - t0:.1f} s, memory "
+          f"{gib(torch.cuda.memory_allocated()):.2f} GiB; {smi_line()}", flush=True)
+    check(engine)
+    rng = np.random.RandomState(phase)
+    V = cfg.vocab_size
+    prompts = [rng.randint(0, V, n).astype(np.int32) for n in LF_PROMPTS]
+    uids = [10, 11, 12, 13]
+    launches, _, got, toks, _, t_gen, t_prefill, _ = serve_main_path(
+        engine, prompts, uids, LF_KERNELS, rng)
+    limit = logits_check(label, prompts, got, toks, lambda i, seq, rows, dt: model.lm_head(
+        model.hidden(seq[None], compute_dtype=dt)[0, rows], dt).float())
+    rung_invariance(engine, uids, limit)
+    launches.update(lean_rates_and_bursts(label, engine, uids, prompts, t_gen, t_prefill,
+                                          P_NAMES, LF_SIDE_KERNELS, (1, 2)))
+    engine.flush(uids + [14])
+    print(f"phase {phase}: peak device memory {gib(torch.cuda.max_memory_allocated()):.2f} GiB; "
+          f"{time.perf_counter() - t_phase:.1f} s; {smi_line()}", flush=True)
+    return launches
+
+
+# Qwen/Qwen2-7B's config.json (no sliding window: use_sliding_window false)
+QWEN2_7B = dict(vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+                num_hidden_layers=28, num_attention_heads=28, num_key_value_heads=4,
+                max_position_embeddings=32768, rope_theta=1e6, rms_norm_eps=1e-6,
+                qkv_bias=True)
+# google/gemma-7b's config.json, with a separate head (the JAX package's
+# adapter reads one)
+GEMMA_7B = dict(vocab_size=256000, hidden_size=3072, intermediate_size=24576,
+                num_hidden_layers=28, num_attention_heads=16, num_key_value_heads=16,
+                head_dim_override=256, max_position_embeddings=8192, rope_theta=10000.0,
+                rms_norm_eps=1e-6, embed_scale_by_sqrt_dim=True, norm_plus_one=True,
+                mlp_act="gelu")
+
+
+def run_qwen2():
+    """Phase 15: Qwen2-7B (biased q/k/v, 28 query heads over 4 kv heads:
+    G = 7)."""
+    import torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    cfg = LlamaConfig(**QWEN2_7B, dtype=torch.bfloat16)
+
+    def check(engine):
+        b = engine.weights["layers"][0].get("bk")
+        if b is None or not bool(b.abs().max() > 0) or \
+                engine.spec.num_heads // engine.spec.num_kv_heads != 7:
+            raise AssertionError("phase 15's engine lost Qwen2's q/k/v biases or its G = 7")
+
+    return run_llama_flags(15, "Qwen2-7B", cfg, check)
+
+
+def run_gemma():
+    """Phase 16: Gemma-7B (head dim 256, GeGLU (tanh), RMSNorm by 1 +
+    weight, the embedding scaled by sqrt(hidden))."""
+    import torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    cfg = LlamaConfig(**GEMMA_7B, dtype=torch.bfloat16)
+
+    def check(engine):
+        sp = engine.spec
+        if not (sp.head_dim == cfg.head_dim and sp.activation == "geglu" and sp.norm_plus_one
+                and sp.embed_scale_by_sqrt_dim):
+            raise AssertionError(f"phase 16's engine lost Gemma's flags: {sp}")
+
+    return run_llama_flags(16, "Gemma-7B", cfg, check)
+
+
 ATTN_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "flash_fwd", "flash_bwd_dq",
               "flash_bwd_dkv")
 Q_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk", "splitk_merge",
@@ -4403,6 +5043,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 13: its K2, K5, decode and K7 rows keep phases 4's and 6's counts
     run_phi2()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 14: the grouped K8 rows take its counts; the others keep theirs
+    grouped = ("quantized_matmul_grouped_gemv", "quantized_matmul_grouped_mma")
+    launches.update({k: v for k, v in run_mixtral().items() if k in grouped})
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_qwen2()
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_gemma()
     # modules by full name: the package re-exports same-named functions
     from deepspeed_tpu_torch.ops.kernels import paged_chunk, paged_decode, paged_splitk
     from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import KERNELS as K9_KERNELS
@@ -4417,6 +5068,8 @@ def main() -> int:
     sources.update({
         qmm.GEMV: (qmm.SOURCE, qmm.REPLACES), qmm.MMA: (qmm.SOURCE, qmm.REPLACES),
         qmm.GEMV_INT4: (qmm.SOURCE, qmm.REPLACES_INT4),
+        qmm.GROUPED_GEMV: (qmm.SOURCE, qmm.REPLACES_GROUPED),
+        qmm.GROUPED_MMA: (qmm.SOURCE, qmm.REPLACES_GROUPED),
         paged_decode.NAME_INT8: (paged_decode.SOURCE, paged_decode.REPLACES_INT8),
         paged_chunk.NAME_INT8: (paged_chunk.SOURCE, paged_chunk.REPLACES_INT8),
         **{paged_splitk.kernel_name(n, quant=True): (paged_splitk.SOURCE,

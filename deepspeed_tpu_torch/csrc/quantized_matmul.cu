@@ -102,45 +102,24 @@ __device__ __forceinline__ uint32_t a_pair(const bf16* a, int m, int K, int k, i
   return k < k_hi ? __ldg(reinterpret_cast<const unsigned int*>(a + (size_t)m * K + k)) : 0u;
 }
 
-// out[M, N] = bf16((a . w) * scale) for M <= 8, w int8 [K][N] or packed
-// int4 [K/2][N] (INT4). A block owns 128 columns and one split of K (grid
-// y); its 8 warps take the split's 16-row steps in turn (warp w: steps w,
-// w + 8, ...). A step is one m16n8k16 product per 16 columns with the
-// weight as A and a as B (tokens as n, zero past M), its k order permuted
-// so that each A register pairs rows k and k + 8 of one column: lane (g, t)
-// loads rows 2t, 2t + 1, 2t + 8, 2t + 9 (int4: packed rows t and t + 4,
-// whose low and high nibbles are those four rows) of columns 16g .. 16g +
-// 15 with 16-byte loads, and A fragment j (columns 16g + 2j, + 1 as rows g,
-// g + 8) takes bytes 2j and 2j + 1 of them; B pairs a's k and k + 8 the
-// same way. The warps' sums meet in shared memory (added in warp order), a
-// split's sums in `work`, added in split order by the column group's last
-// block.
-template <int M, bool INT4>
-__global__ void __launch_bounds__(kGvWarps * 32, 2)
-qmm_gemv_kernel(const bf16* __restrict__ a, const int8_t* __restrict__ w,
-                const float* __restrict__ scale, bf16* __restrict__ out,
-                float* __restrict__ work, int* __restrict__ counters, int K, int N,
-                int rows_per_split, int n_splits) {
+// One warp's share of a block's K split [k_lo, k_hi) for 128 columns:
+// the 16-row steps w, w + 8, ... as m16n8k16 products with the weight as A
+// and a's first m_rows (<= 8) rows as B (tokens as n, zero from m_rows on),
+// its k order permuted so that each A register pairs rows k and k + 8 of
+// one column: lane (g, t) loads rows 2t, 2t + 1, 2t + 8, 2t + 9 (int4:
+// packed rows t and t + 4, whose low and high nibbles are those four rows)
+// of columns 16g .. 16g + 15 with 16-byte loads, and A fragment j (columns
+// 16g + 2j, + 1 as rows g, g + 8) takes bytes 2j and 2j + 1 of them; B
+// pairs a's k and k + 8 the same way. acc [j][0..3]: columns 16g + 2j (0,
+// 1) and + 1 (2, 3), tokens 2t, 2t + 1.
+template <bool INT4>
+__device__ __forceinline__ void gemv_steps(float (&acc)[8][4], const bf16* __restrict__ a,
+                                           int m_rows, const int8_t* __restrict__ w, int K,
+                                           int N, int col, bool col_ok, int k_lo, int k_hi,
+                                           int warp, int g, int t) {
   constexpr int NL = INT4 ? 2 : 4;          // 16-byte loads a step
   constexpr int U = kGvInFlight / NL;       // steps loaded together
-  __shared__ __align__(16) float red[kGvWarps * M * kGvCols];
-  __shared__ int is_last;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * kGvCols, col = n0 + 16 * g;
-  const bool col_ok = col < N;  // N % 16 == 0: a lane's 16 columns are all in or out
-  const int split = blockIdx.y;
-  const int k_lo = split * rows_per_split;
-  const int k_hi = min(K, k_lo + rows_per_split);
   const int n_steps = (k_hi - k_lo + kGvStep - 1) / kGvStep;
-
-  // [j][0..3]: columns 16g + 2j (0, 1) and + 1 (2, 3), tokens 2t, 2t + 1
-  float acc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
   for (int s0 = warp; s0 < n_steps; s0 += kGvWarps * U) {
     uint4 wv[U][NL];
     uint32_t av[U][2];
@@ -154,8 +133,8 @@ qmm_gemv_kernel(const bf16* __restrict__ a, const int8_t* __restrict__ w,
         const bool ok = col_ok && (INT4 ? 2 * row : row) < k_hi;
         wv[u][r] = ok ? ld_stream16(w + (size_t)row * N + col) : make_uint4(0, 0, 0, 0);
       }
-      av[u][0] = g < M ? a_pair(a, g, K, k0 + 2 * t, k_hi) : 0u;
-      av[u][1] = g < M ? a_pair(a, g, K, k0 + 2 * t + 8, k_hi) : 0u;
+      av[u][0] = g < m_rows ? a_pair(a, g, K, k0 + 2 * t, k_hi) : 0u;
+      av[u][1] = g < m_rows ? a_pair(a, g, K, k0 + 2 * t + 8, k_hi) : 0u;
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -193,6 +172,36 @@ qmm_gemv_kernel(const bf16* __restrict__ a, const int8_t* __restrict__ w,
       }
     }
   }
+}
+
+// out[M, N] = bf16((a . w) * scale) for M <= 8, w int8 [K][N] or packed
+// int4 [K/2][N] (INT4). A block owns 128 columns and one split of K (grid
+// y); its 8 warps take the split's 16-row steps in turn (gemv_steps). The
+// warps' sums meet in shared memory (added in warp order), a split's sums
+// in `work`, added in split order by the column group's last block.
+template <int M, bool INT4>
+__global__ void __launch_bounds__(kGvWarps * 32, 2)
+qmm_gemv_kernel(const bf16* __restrict__ a, const int8_t* __restrict__ w,
+                const float* __restrict__ scale, bf16* __restrict__ out,
+                float* __restrict__ work, int* __restrict__ counters, int K, int N,
+                int rows_per_split, int n_splits) {
+  __shared__ __align__(16) float red[kGvWarps * M * kGvCols];
+  __shared__ int is_last;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * kGvCols, col = n0 + 16 * g;
+  const bool col_ok = col < N;  // N % 16 == 0: a lane's 16 columns are all in or out
+  const int split = blockIdx.y;
+  const int k_lo = split * rows_per_split;
+  const int k_hi = min(K, k_lo + rows_per_split);
+
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  gemv_steps<INT4>(acc, a, M, w, K, N, col, col_ok, k_lo, k_hi, warp, g, t);
 
   // the warps' sums, [warp][m][column], then added in warp order
 #pragma unroll
@@ -236,6 +245,88 @@ qmm_gemv_kernel(const bf16* __restrict__ a, const int8_t* __restrict__ w,
     out[(size_t)m * N + n0 + c] = __float2bfloat16(sum * scale[n0 + c]);
   }
   if (tid == 0) counters[blockIdx.x] = 0;   // ready for the next launch
+}
+
+// The grouped gemv (an MoE layer's expert products at decode sizes): rows
+// of a [R, K] sorted by expert, expert e's rows [ends[e - 1], ends[e]),
+// each times its expert's weight w [E][K][N] int8 and scale [E][N]. A
+// block owns (128 columns, one K split, expert e) (grid x, y, z) and reads
+// that expert's weight columns once for up to 8 of its rows (gemv_steps),
+// looping over them in groups of 8; a block whose expert has no rows exits
+// before it reads a byte, so a decode step streams only the routed
+// experts' weights. Split sums go to `work` [n_splits][R][N] and the
+// (expert, column group)'s last block adds them in split order (counters
+// [E][gridDim.x], left 0), as qmm_gemv_kernel does.
+__global__ void __launch_bounds__(kGvWarps * 32, 2)
+qmm_gemv_grouped_kernel(const bf16* __restrict__ a, const int8_t* __restrict__ w,
+                        const float* __restrict__ scale, const int* __restrict__ ends,
+                        bf16* __restrict__ out, float* __restrict__ work,
+                        int* __restrict__ counters, int R, int K, int N, int rows_per_split,
+                        int n_splits) {
+  constexpr int MG = 8;   // rows a pass over the weight
+  __shared__ __align__(16) float red[kGvWarps * MG * kGvCols];
+  __shared__ int is_last;
+  const int e = blockIdx.z;
+  const int r0 = e == 0 ? 0 : ends[e - 1], r1 = ends[e];
+  if (r0 >= r1) return;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * kGvCols, col = n0 + 16 * g;
+  const bool col_ok = col < N;
+  const int split = blockIdx.y;
+  const int k_lo = split * rows_per_split;
+  const int k_hi = min(K, k_lo + rows_per_split);
+  const int n_cols = min(kGvCols, N - n0);
+  const int8_t* we = w + (size_t)e * K * N;
+  const float* se = scale + (size_t)e * N;
+
+  for (int rg = r0; rg < r1; rg += MG) {
+    const int m_rows = min(MG, r1 - rg);
+    float acc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+    gemv_steps<false>(acc, a + (size_t)rg * K, m_rows, we, K, N, col, col_ok, k_lo, k_hi,
+                      warp, g, t);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int m = 2 * t + (q & 1), c = 16 * g + 2 * j + (q >> 1);
+        if (m < m_rows) red[(warp * MG + m) * kGvCols + c] = acc[j][q];
+      }
+    __syncthreads();
+    for (int i = tid; i < m_rows * kGvCols; i += kGvWarps * 32) {
+      const int m = i / kGvCols, c = i - m * kGvCols;
+      float sum = red[i];
+#pragma unroll
+      for (int wi = 1; wi < kGvWarps; ++wi) sum += red[wi * MG * kGvCols + i];
+      if (c >= n_cols) continue;
+      if (n_splits == 1)
+        out[(size_t)(rg + m) * N + n0 + c] = __float2bfloat16(sum * se[n0 + c]);
+      else
+        work[((size_t)split * R + rg + m) * N + n0 + c] = sum;
+    }
+    __syncthreads();   // red is the next group's
+  }
+  if (n_splits == 1) return;
+  __threadfence();
+  __syncthreads();
+  int* counter = counters + (size_t)e * gridDim.x + blockIdx.x;
+  if (tid == 0) is_last = atomicAdd(counter, 1) == n_splits - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  for (int i = tid; i < (r1 - r0) * kGvCols; i += kGvWarps * 32) {
+    const int m = r0 + i / kGvCols, c = i % kGvCols;
+    if (c >= n_cols) continue;
+    float sum = 0.f;
+    for (int sp = 0; sp < n_splits; ++sp)
+      sum += __ldcg(work + ((size_t)sp * R + m) * N + n0 + c);
+    out[(size_t)m * N + n0 + c] = __float2bfloat16(sum * se[n0 + c]);
+  }
+  if (tid == 0) *counter = 0;   // ready for the next launch
 }
 
 // ---------------------------------------------------------------------- //
@@ -356,12 +447,45 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-template <int TM>
+// TMA: the box at (c0, c1, c2) of a 3-D `map` into dst, completing on bar
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// GROUPED (an MoE layer's expert products at prefill sizes): a's rows are
+// sorted by expert, expert e's rows [ends[e - 1], ends[e]) of M, w_map is
+// 3-D over w8 [E][K][N] and scale is [E][N]. Block x takes tile x of the
+// schedule that the block reads from `ends` itself: each expert's rows in
+// tiles of TM, experts in order; the grid is its upper bound ceil(M / TM)
+// + E, and blocks past the schedule's end exit at once. A tile's rows past
+// its expert's end belong to the next expert (or lie past M, zero-filled
+// by TMA): they are computed and not stored.
+template <int TM, bool GROUPED>
 __global__ void __launch_bounds__(kQmmThreads, 1)
 qmm_mma_kernel(const __grid_constant__ CUtensorMap a_map,
                const __grid_constant__ CUtensorMap w_map, const float* __restrict__ scale,
-               bf16* __restrict__ out, int M, int K, int N) {
+               bf16* __restrict__ out, int M, int K, int N, const int* __restrict__ ends,
+               int E) {
   using Cfg = QmmCfg<TM>;
+  int m0 = blockIdx.x * TM, m_end = M, e = 0;
+  if constexpr (GROUPED) {
+    int tile = blockIdx.x, start = 0;
+    for (e = 0; e < E; ++e) {
+      const int end = ends[e], n = (end - start + TM - 1) / TM;
+      if (tile < n) break;
+      tile -= n;
+      start = end;
+    }
+    if (e == E) return;
+    m0 = start + tile * TM;
+    m_end = ends[e];
+    scale += (size_t)e * N;
+  }
   constexpr int NSUB = TM / 128;  // m64n128 products a 16-deep step
   extern __shared__ uint8_t qmm_smem[];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
@@ -372,7 +496,7 @@ qmm_mma_kernel(const __grid_constant__ CUtensorMap a_map,
   auto w_tile = [=](int s) { return ring + s * Cfg::stage_bytes + Cfg::a_bytes; };
 
   const int tid = threadIdx.x, wg = tid >> 7;
-  const int m0 = blockIdx.x * TM, n0 = blockIdx.y * kQmmBN;
+  const int n0 = blockIdx.y * kQmmBN;
   const int n_k = (K + kQmmBK - 1) / kQmmBK;
   if (tid == 0) {
     for (int s = 0; s < kQmmStages; ++s) {
@@ -392,7 +516,10 @@ qmm_mma_kernel(const __grid_constant__ CUtensorMap a_map,
         mbar_wait(empty + s, ((i / kQmmStages) & 1) ^ 1);
         mbar_expect_tx(full + s, Cfg::stage_bytes);
         tma_load_2d(a_tile(s), &a_map, full + s, i * kQmmBK, m0);
-        tma_load_2d(w_tile(s), &w_map, full + s, n0, i * kQmmBK);
+        if constexpr (GROUPED)
+          tma_load_3d(w_tile(s), &w_map, full + s, n0, i * kQmmBK, e);
+        else
+          tma_load_2d(w_tile(s), &w_map, full + s, n0, i * kQmmBK);
       }
     }
     return;
@@ -492,7 +619,7 @@ qmm_mma_kernel(const __grid_constant__ CUtensorMap a_map,
 #pragma unroll 4
   for (int idx = tc; idx < TM * 8; idx += 128) {
     const int ml = idx >> 3, ch = idx & 7;
-    if (m0 + ml < M && col + 8 * ch < N)
+    if (m0 + ml < m_end && col + 8 * ch < N)
       *reinterpret_cast<uint4*>(out + (size_t)(m0 + ml) * N + col + 8 * ch) =
           *reinterpret_cast<const uint4*>(epi + ml * kQmmEpiRow + 8 * ch);
   }
@@ -540,20 +667,41 @@ static bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem, con
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int TM>
+// the same over an [E][K][N] int8 stack as one 3-D map (box [1][64][128]):
+// a box never crosses into the next expert, and rows past K read as 0
+static bool encode_map_experts(CUtensorMap* map, const void* base, int E, int K, int N) {
+  TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)E};
+  const cuuint64_t strides[2] = {(cuuint64_t)N, (cuuint64_t)K * N};
+  const cuuint32_t box[3] = {(cuuint32_t)kQmmBN, (cuuint32_t)kQmmBK, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// GROUPED: the grouped product (ends [E] on the device, w8 [E][K][N]); a
+// template parameter, so each entry instantiates only the kernel it launches
+template <int TM, bool GROUPED>
 int launch_qmm_mma(const void* a, const void* w8, const void* scale, void* out, int M, int K,
-                   int N, cudaStream_t st) {
+                   int N, const void* ends, int E, cudaStream_t st) {
   CUtensorMap a_map, w_map;
   if (!encode_map(&a_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, M, K, TM, kQmmBK) ||
-      !encode_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w8, K, N, kQmmBK, kQmmBN))
+      !(GROUPED ? encode_map_experts(&w_map, w8, E, K, N)
+                : encode_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w8, K, N, kQmmBK,
+                             kQmmBN)))
     return (int)cudaErrorInvalidValue;
   const size_t smem = QmmCfg<TM>::smem_bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      qmm_mma_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = qmm_mma_kernel<TM, GROUPED>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((M + TM - 1) / TM, (N + kQmmBN - 1) / kQmmBN);
-  qmm_mma_kernel<TM><<<grid, kQmmThreads, smem, st>>>(
-      a_map, w_map, static_cast<const float*>(scale), static_cast<bf16*>(out), M, K, N);
+  dim3 grid((M + TM - 1) / TM + (GROUPED ? E : 0), (N + kQmmBN - 1) / kQmmBN);
+  kernel<<<grid, kQmmThreads, smem, st>>>(a_map, w_map, static_cast<const float*>(scale),
+                                          static_cast<bf16*>(out), M, K, N,
+                                          static_cast<const int*>(ends), E);
   return (int)cudaGetLastError();
 }
 
@@ -667,8 +815,10 @@ extern "C" int dstorch_qmm_mma_tiled(const void* a, const void* w8, const void* 
   if (K % 32 != 0 || N % 16 != 0 || K < 0) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (K == 0) return (int)cudaMemsetAsync(out, 0, (size_t)M * N * sizeof(dstorch::bf16), st);
-  if (tile_m == 128) return dstorch::launch_qmm_mma<128>(a, w8, scale, out, M, K, N, st);
-  if (tile_m == 256) return dstorch::launch_qmm_mma<256>(a, w8, scale, out, M, K, N, st);
+  if (tile_m == 128)
+    return dstorch::launch_qmm_mma<128, false>(a, w8, scale, out, M, K, N, nullptr, 0, st);
+  if (tile_m == 256)
+    return dstorch::launch_qmm_mma<256, false>(a, w8, scale, out, M, K, N, nullptr, 0, st);
   return -1;
 }
 
@@ -678,10 +828,65 @@ extern "C" int dstorch_qmm_mma_tiled(const void* a, const void* w8, const void* 
 extern "C" int dstorch_qmm_mma_attrs(int tile_m, void* out) {
   int* o = static_cast<int*>(out);
   if (tile_m == 128)
-    return dstorch::mma::kernel_attributes(dstorch::qmm_mma_kernel<128>, dstorch::kQmmThreads,
+    return dstorch::mma::kernel_attributes(dstorch::qmm_mma_kernel<128, false>,
+                                           dstorch::kQmmThreads,
                                            dstorch::QmmCfg<128>::smem_bytes, o);
   if (tile_m == 256)
-    return dstorch::mma::kernel_attributes(dstorch::qmm_mma_kernel<256>, dstorch::kQmmThreads,
+    return dstorch::mma::kernel_attributes(dstorch::qmm_mma_kernel<256, false>,
+                                           dstorch::kQmmThreads,
                                            dstorch::QmmCfg<256>::smem_bytes, o);
+  return -1;
+}
+
+// The grouped entries of an MoE layer: a [R, K] bf16 with rows sorted by
+// expert, ends [E] int32 on the device (expert e's rows end at ends[e],
+// ends[E - 1] == R), w8 [E, K, N] int8, scale [E, N] f32 -> out [R, N]
+// bf16, row r of expert e = bf16((a[r] . w8[e]) * scale[e]).
+//
+// qmm_gemv_grouped_kernel, for a few rows (the decode step): K's rows cut
+// into n_splits splits of rows_per_split (a multiple of 16); work [n_splits,
+// R, N] f32; counters [E * ceil(N / 128)] int32, 0 before and after. Needs
+// even K, N % 16 == 0, w8 16-byte and a 4-byte aligned.
+extern "C" int dstorch_qmm_gemv_grouped(const void* a, const void* w8, const void* scale,
+                                        const void* ends, void* out, void* work,
+                                        void* counters, int R, int K, int N, int E,
+                                        int rows_per_split, int n_splits, void* stream) {
+  using namespace dstorch;
+  if (R == 0 || N == 0) return 0;
+  if (E < 1 || K % 2 != 0 || N % 16 != 0 || rows_per_split < 1 ||
+      rows_per_split % kGvStep != 0 || n_splits < 1 || (long)rows_per_split * n_splits < K ||
+      (reinterpret_cast<uintptr_t>(w8) & 15) != 0 || (reinterpret_cast<uintptr_t>(a) & 3) != 0)
+    return -1;
+  dim3 grid((N + kGvCols - 1) / kGvCols, n_splits, E);
+  qmm_gemv_grouped_kernel<<<grid, kGvWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(a), static_cast<const int8_t*>(w8),
+      static_cast<const float*>(scale), static_cast<const int*>(ends), static_cast<bf16*>(out),
+      static_cast<float*>(work), static_cast<int*>(counters), R, K, N, rows_per_split,
+      n_splits);
+  return (int)cudaGetLastError();
+}
+
+// qmm_mma_kernel<128, grouped>, for many rows (the prefill passes): tiles of
+// 128 rows, each inside one expert's rows. Needs K % 32 == 0 and N % 16 ==
+// 0.
+extern "C" int dstorch_qmm_mma_grouped(const void* a, const void* w8, const void* scale,
+                                       const void* ends, void* out, int R, int K, int N, int E,
+                                       void* stream) {
+  if (R == 0 || N == 0) return 0;
+  if (E < 1 || K % 32 != 0 || N % 16 != 0 || K < 32) return -1;
+  return dstorch::launch_qmm_mma<128, true>(a, w8, scale, out, R, K, N, ends, E,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+// The grouped kernels as compiled: kernel 0 = qmm_gemv_grouped_kernel, 1 =
+// qmm_mma_kernel<128, grouped>; out [6] int32 as dstorch_flash_kernel_attrs
+// gives them. Returns a cudaError_t, -1 for another kernel.
+extern "C" int dstorch_qmm_grouped_attrs(int kernel, void* out) {
+  using namespace dstorch;
+  int* o = static_cast<int*>(out);
+  if (kernel == 0) return mma::kernel_attributes(qmm_gemv_grouped_kernel, kGvWarps * 32, 0, o);
+  if (kernel == 1)
+    return mma::kernel_attributes(qmm_mma_kernel<128, true>, kQmmThreads,
+                                  QmmCfg<128>::smem_bytes, o);
   return -1;
 }

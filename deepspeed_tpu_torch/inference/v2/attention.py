@@ -76,8 +76,10 @@ class AttentionKernelSpec:
         refusal): int8 KV pages with ``tensor_parallel > 1`` and the int8
         pool's alignment gate (``ValueError``), then ALiBi with
         ``tensor_parallel > 1``. What is absent composes: int8 pages under a
-        sliding window and under ALiBi. Last, ``NotImplementedError`` names
-        every model feature the port lacks (MoE, ``tensor_parallel > 1``;
+        sliding window and under ALiBi. Then MoE with packed int4 weights
+        (``NotImplementedError``: the grouped expert products take int8 or
+        model-dtype stacks). Last, ``NotImplementedError`` names every
+        feature the port lacks (``tensor_parallel > 1``, MoE under it;
         engine-config features are refused by the config itself)."""
         if cfg.kv_quant.enabled:
             if cfg.tensor_parallel > 1:
@@ -96,9 +98,15 @@ class AttentionKernelSpec:
                 "ALiBi models with tensor_parallel > 1 are not wired in the "
                 "ragged engine (shard-local slope schedules would be wrong); "
                 "run tp=1 or serve through init_inference")
+        if spec.moe is not None and cfg.quantization.weight_bits == 4:
+            # the JAX engine packs the expert stacks to int4 and then fails
+            # in its _moe_ffn, whose grouped product reads only int8 stacks
+            raise NotImplementedError(
+                "MoE with quantization.weight_bits = 4: the grouped expert "
+                "products take int8 or model-dtype stacks; use weight_bits 8")
         off = []
-        if spec.moe is not None:
-            off.append("MoE")
+        if spec.moe is not None and cfg.tensor_parallel > 1:
+            off.append("MoE with tensor_parallel > 1")
         if cfg.tensor_parallel > 1:
             off.append("tensor_parallel > 1")
         if off:

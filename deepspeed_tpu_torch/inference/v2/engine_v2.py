@@ -26,8 +26,14 @@ as uint16 bytes).
 
 Memory-lean serving, as in the JAX package: ``quantization.weight_bits = 8``
 (int8) or ``4`` (int4, packed two per byte) quantizes the weight tree at
-build (the caller's bf16 tensors are dropped by the engine; free them by
-dropping the caller's references too); ``kv_quant`` keeps the pool int8
+build. The build is refused before any tensor is read; then the
+parameters land on the device one tensor at a time
+(``ragged_model.LandingParams``) and every family's projections, expert
+stacks and head quantize as they land (``ragged_model.adapt_model``), so
+Mixtral-8x7B builds in its int8 size plus one bf16 expert stack. The bytes
+are the JAX engine's, which quantizes after its build. The caller's
+tensors are not kept: pass a mapping that makes each tensor when it is
+read, or drop the caller's references. ``kv_quant`` keeps the pool int8
 with its scale tiles, under a sliding window and ALiBi too; and
 ``attention.decode_splits`` builds one pass and one decode step per rung of
 the pow2 split ladder, the rung picked every step from the longest live
@@ -35,8 +41,9 @@ context (:meth:`InferenceEngineV2._attn_rung`).
 
 Model families resolve as in the JAX package (``model.config.family``, else
 the model's class name) and adapt through ``ragged_model.adapt_model``:
-Llama/Mistral, GPT-2 and the generic decoder (OPT, Falcon, Phi, GPT-NeoX,
-GPT-J, BLOOM). An ALiBi model (BLOOM) binds its bias into every paged
+the Llama lineage (Llama, Mistral, Mixtral's MoE, Qwen2 and Gemma through
+their config flags), GPT-2 and the generic decoder (OPT, Falcon, Phi,
+GPT-NeoX, GPT-J, BLOOM). An ALiBi model (BLOOM) binds its bias into every paged
 kernel and never takes the packed prefill pass: its pure-prefill passes run
 the paged pass at the current rung, as in the JAX package.
 
@@ -67,9 +74,9 @@ from deepspeed_tpu_torch.inference.v2.ragged.blocked_allocator import BlockedAll
 from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import BlockedKVCache, KVCacheConfig
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_batch import host_to_device, to_device
 from deepspeed_tpu_torch.inference.v2.ragged_model import (
-    PAGED_PASS_KEYS, PREFILL_PASS_KEYS, _sample_logits, adapt_model,
-    build_decode_step, build_multistep_decode, build_prefill_forward,
-    build_ragged_forward, quantize_weights_int4, quantize_weights_int8)
+    PAGED_PASS_KEYS, PREFILL_PASS_KEYS, LandingParams, _sample_logits, adapt_model,
+    build_decode_step, build_multistep_decode, build_prefill_forward, build_ragged_forward,
+    quantize_weight_int4, quantize_weight_int8)
 from deepspeed_tpu_torch.inference.v2.scheduler import DynamicSplitFuseScheduler
 from deepspeed_tpu_torch.ops.kernels.kv_quant import kv_scale_tiles_shape
 from deepspeed_tpu_torch.utils.caching import LRUCache, next_pow2
@@ -113,17 +120,20 @@ class InferenceEngineV2:
         self.model_config = model_config
         if model_parameters is None:
             raise ValueError("InferenceEngineV2 needs model_parameters")
-        params = {k: v.to(device=self.device, dtype=cfg.dtype)
-                  for k, v in model_parameters.items()}
+        quantize = {8: quantize_weight_int8, 4: quantize_weight_int4}.get(
+            cfg.quantization.weight_bits)
+
+        def check(spec):
+            spec.dtype = cfg.dtype
+            AttentionKernelSpec.validate_engine_build(spec, cfg)
+
+        # refused before any tensor lands; then tensors land on the device
+        # one at a time as the adapter reads them, projections, expert
+        # stacks and the head quantizing as they land, so the model-dtype
+        # tree never exists whole
         self.spec, self.weights = adapt_model(
-            family, params, model_config, max_context=cfg.state_manager.max_context)
-        del params
-        self.spec.dtype = cfg.dtype
-        AttentionKernelSpec.validate_engine_build(self.spec, cfg)
-        if cfg.quantization.weight_bits in (4, 8):
-            # build in the model dtype, then quantize (the JAX order)
-            (quantize_weights_int8 if cfg.quantization.weight_bits == 8
-             else quantize_weights_int4)(self.weights)
+            family, LandingParams(model_parameters, self.device, cfg.dtype), model_config,
+            max_context=cfg.state_manager.max_context, quantize=quantize, check=check)
 
         sm = cfg.state_manager
         nb = cfg.kv_cache.num_blocks

@@ -1,9 +1,11 @@
 """The ragged forward of the v2 engine, in eager PyTorch.
 
 One forward serves every family the adapters map onto
-:class:`RaggedModelSpec`: the Llama lineage (``adapt_llama``: RMSNorm,
-SwiGLU, RoPE, untied head), GPT-2 (``adapt_gpt2``) and the generic decoder
-(``adapt_decoder``: OPT, Falcon, Phi, GPT-NeoX, GPT-J and BLOOM), whose
+:class:`RaggedModelSpec` (an :class:`Adapter` each): the Llama lineage
+(``LLAMA``: RMSNorm, SwiGLU, RoPE, untied head; Qwen2's biased q/k/v,
+Gemma's scaled embedding, ``1 + weight`` norms and GeGLU, Mixtral's routed
+experts through :func:`_moe_ffn`), GPT-2 (``GPT2``) and the generic decoder
+(``DECODER``: OPT, Falcon, Phi, GPT-NeoX, GPT-J and BLOOM), whose
 structural flags (norm, activation, full or partial rotary or none, learned
 positions, parallel blocks, biases, tied head, head bias, embedding norm,
 ALiBi) follow the JAX package's ``ragged_model.py``.
@@ -36,7 +38,9 @@ tables or the write destinations.
 The serving weight tree: ``weights["layers"]`` is a list of per-layer dicts
 (``ln1``, ``ln2`` norm scales with ``ln1_bias``/``ln2_bias`` for LayerNorm;
 ``wq``/``wk``/``wv``/``wo`` with optional ``bq``/``bk``/``bv``/``bo``;
-``w_gate``/``w_up``/``w_down`` with optional ``b_up``/``b_down``), beside
+``w_gate``/``w_up``/``w_down`` with optional ``b_up``/``b_down``, or, for
+an MoE layer, ``moe``: ``{"router" [hidden, E], "w_gate", "w_up" [E, hidden,
+ff], "w_down" [E, ff, hidden]}``), beside
 ``embed``, ``final_norm`` (and ``final_norm_bias``), optional ``pos_embed``,
 ``embed_norm``/``embed_norm_bias``, ``lm_head`` and ``lm_head_bias``. A tied
 head keeps ``embed_f32``, one f32 copy of the embedding made at build (the
@@ -44,9 +48,12 @@ head computes ``x.f32 @ embed.f32.T``, as the JAX package; a per-step
 conversion would allocate the whole f32 table each step).
 
 Projections go through :func:`_mm`: a plain matrix product (``x @
-kernel``, kernels ``[in, out]``), or, for a weight tree quantized by
-:func:`quantize_weights_int8` or :func:`quantize_weights_int4` (packed two
-per byte, unpacked at each matmul), the int8 matmul kernel (K8). With an int8 KV
+kernel``, kernels ``[in, out]``), or, for a weight tree quantized as it
+lands (:func:`adapt_model` with ``quantize``; the bytes of
+:func:`quantize_weights_int8` or :func:`quantize_weights_int4`, packed two
+per byte), the int8 matmul kernel (K8); an MoE
+layer's expert products go through K8's grouped entries
+(``quantized_matmul_grouped``), each row with its expert's weight. With an int8 KV
 pool every page write quantizes its rows (``_kv_page_write_quant``,
 ``_kv_page_write_pages_quant``); the packed prefill still attends its
 in-flight rows at full precision.
@@ -55,6 +62,7 @@ in-flight rows at full precision.
 from __future__ import annotations
 
 import os
+from collections.abc import Mapping
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
@@ -64,12 +72,13 @@ import torch.nn.functional as F
 from deepspeed_tpu_torch.inference.v2.attention import (AttentionKernelSpec,
                                                        token_write_rows, write_rows)
 from deepspeed_tpu_torch.models.decoder import PLAIN_ACTS, layer_norm
-from deepspeed_tpu_torch.models.llama import apply_rope, rope_tables
+from deepspeed_tpu_torch.models.llama import apply_rope, mlp_gate_act, rope_tables
 from deepspeed_tpu_torch.ops.kernels.kv_quant import (kv_quantize_rows,
                                                       kv_write_dequant,
                                                       scale_tile_rows,
                                                       scale_write_index)
 from deepspeed_tpu_torch.ops.kernels.quantized_matmul import (quantized_matmul,
+                                                              quantized_matmul_grouped,
                                                               quantized_matmul_int4)
 from deepspeed_tpu_torch.ops.quantizer import pack_int4
 
@@ -84,7 +93,9 @@ class RaggedModelSpec:
     head_dim: int
     vocab_size: int
     norm: str = "rms"                 # "rms" | "ln"
-    activation: str = "swiglu"        # gated "swiglu"; plain: see PLAIN_ACTS
+    # gated: "swiglu" (silu gate) | "geglu" (tanh-gelu gate, Gemma); plain:
+    # see PLAIN_ACTS
+    activation: str = "swiglu"
     rope_theta: Optional[float] = 10000.0   # None -> no rotary
     rotary_dim: Optional[int] = None        # partial rotary (phi); None = full head
     learned_pos: bool = False         # gpt2/opt learned position embeddings
@@ -93,27 +104,30 @@ class RaggedModelSpec:
     parallel_dual_norm: bool = False  # gpt_neox: parallel, but MLP from ln2(x)
     tied_lm_head: bool = False        # logits = x.f32 @ embed.f32.T
     head_bias: bool = False           # phi/gpt-j: bias added to the logits
+    embed_scale_by_sqrt_dim: bool = False  # gemma: x *= sqrt(hidden) after embed
+    norm_plus_one: bool = False       # gemma: RMSNorm scales by (1 + weight)
     eps: float = 1e-5
     window: Optional[int] = None      # sliding-window span (Mistral); None = full
     alibi: bool = False               # BLOOM: per-head linear position bias
     embed_norm: bool = False          # BLOOM: a norm right after the embedding
-    moe: Optional[Dict[str, int]] = None  # not ported yet
+    moe: Optional[Dict[str, int]] = None  # {"num_experts": E, "top_k": k}
     dtype: torch.dtype = torch.bfloat16
 
 
-def adapt_llama(params: Dict[str, torch.Tensor], config,
-                max_context: Optional[int] = None) -> Tuple[RaggedModelSpec, Dict]:
-    """Flax-named Llama tree (``checkpoint/convert.py``) -> (spec, weights):
-    ``weights["layers"]`` is a list of per-layer dicts referencing the same
-    tensors (no stacking, so no copy)."""
+def _llama_spec(config, max_context: Optional[int] = None) -> RaggedModelSpec:
+    """The Llama lineage's spec from its config alone (Llama, Mistral,
+    Mixtral, Qwen2, Gemma: the JAX package's ``adapt_llama`` :99-173):
+    Gemma's flags and activation, Mixtral's experts, Mistral's window."""
     moe = None
     if hasattr(config, "num_local_experts"):
         moe = {"num_experts": config.num_local_experts,
                "top_k": config.num_experts_per_tok}
+    mlp_act = getattr(config, "mlp_act", "silu")
+    mlp_gate_act(mlp_act)            # refuses an activation with no gated mapping
     window = getattr(config, "sliding_window", None)
     if window is not None and max_context is not None and max_context <= window:
         window = None   # no position can see past the window: full attention
-    spec = RaggedModelSpec(
+    return RaggedModelSpec(
         family="mixtral" if moe else "llama",
         num_layers=config.num_hidden_layers,
         hidden_size=config.hidden_size,
@@ -121,32 +135,56 @@ def adapt_llama(params: Dict[str, torch.Tensor], config,
         num_kv_heads=config.num_key_value_heads,
         head_dim=config.head_dim,
         vocab_size=config.vocab_size,
-        norm="rms", activation="swiglu",
+        norm="rms", activation="swiglu" if mlp_act == "silu" else "geglu",
         rope_theta=config.rope_theta,
+        embed_scale_by_sqrt_dim=getattr(config, "embed_scale_by_sqrt_dim", False),
+        norm_plus_one=getattr(config, "norm_plus_one", False),
         eps=config.rms_norm_eps, moe=moe, window=window)
+
+
+#: the Llama lineage's flat names (a layer's after ``layers_{i}/``) and the
+#: serving keys they land under: attention and norms, Qwen2's q/k/v biases,
+#: a dense MLP or an MoE layer's router and expert stacks (``moe``)
+_LLAMA_ATTN = {"input_layernorm/weight": "ln1", "post_attention_layernorm/weight": "ln2",
+               **{f"self_attn/{p}_proj/kernel": f"w{p}" for p in "qkvo"}}
+_LLAMA_QKV_BIAS = {f"self_attn/{p}_proj/bias": f"b{p}" for p in "qkv"}
+_LLAMA_MLP = {f"mlp/{p}_proj/kernel": f"w_{p}" for p in ("gate", "up", "down")}
+_LLAMA_MOE = {"block_sparse_moe/gate/kernel": "router",
+              **{f"block_sparse_moe/{k}": k for k in ("w_gate", "w_up", "w_down")}}
+_LLAMA_LAYER = {**_LLAMA_ATTN, **_LLAMA_QKV_BIAS, **_LLAMA_MLP, **_LLAMA_MOE}
+_LLAMA_TOP = {"embed_tokens/embedding": "embed", "norm/weight": "final_norm",
+              "lm_head/kernel": "lm_head"}
+
+
+def _llama_weights(params: Mapping[str, torch.Tensor], config) -> Dict:
+    """Flax-named Llama-lineage tree (``checkpoint/convert.py``) -> the
+    serving tree: ``weights["layers"]`` is a list of per-layer dicts
+    referencing the same tensors (no stacking, so no copy)."""
+    moe = hasattr(config, "num_local_experts")
     layers = []
     for i in range(config.num_hidden_layers):
         p = f"layers_{i}/"
-        layer = {
-            "ln1": params[p + "input_layernorm/weight"],
-            "ln2": params[p + "post_attention_layernorm/weight"],
-            "wq": params[p + "self_attn/q_proj/kernel"],
-            "wk": params[p + "self_attn/k_proj/kernel"],
-            "wv": params[p + "self_attn/v_proj/kernel"],
-            "wo": params[p + "self_attn/o_proj/kernel"],
-        }
-        if moe is None:
-            layer.update(w_gate=params[p + "mlp/gate_proj/kernel"],
-                         w_up=params[p + "mlp/up_proj/kernel"],
-                         w_down=params[p + "mlp/down_proj/kernel"])
+        names = dict(_LLAMA_ATTN)
+        if p + "self_attn/q_proj/bias" in params:     # Qwen2 lineage: biased q/k/v
+            names.update(_LLAMA_QKV_BIAS)
+        layer = {k: params[p + n] for n, k in names.items()}
+        mlp = {k: params[p + n] for n, k in (_LLAMA_MOE if moe else _LLAMA_MLP).items()}
+        layer.update({"moe": mlp} if moe else mlp)
         layers.append(layer)
-    weights = {
-        "embed": params["embed_tokens/embedding"],
-        "layers": layers,
-        "final_norm": params["norm/weight"],
-        "lm_head": params["lm_head/kernel"],
-    }
-    return spec, weights
+    return {"layers": layers, **{k: params[n] for n, k in _LLAMA_TOP.items()}}
+
+
+def _layer_key(name: str, prefix: str, table: Callable) -> Optional[str]:
+    """The serving key of flat ``name``: a layer's (``{prefix}{i}/rest``)
+    through ``table(rest)``, else None."""
+    head, _, rest = name.partition("/")
+    if head.startswith(prefix) and head[len(prefix):].isdigit():
+        return table(rest)
+    return None
+
+
+def _llama_key(name: str) -> Optional[str]:
+    return _layer_key(name, "layers_", _LLAMA_LAYER.get) or _LLAMA_TOP.get(name)
 
 
 def _tie_head(weights: Dict) -> Dict:
@@ -156,13 +194,20 @@ def _tie_head(weights: Dict) -> Dict:
     return weights
 
 
-def adapt_gpt2(params: Dict[str, torch.Tensor], config,
-               max_context: Optional[int] = None) -> Tuple[RaggedModelSpec, Dict]:
-    """The port's ``GPT2LMHead`` flat tree (``wte/embedding``,
-    ``h_{i}/attn/c_attn/kernel`` ...): the fused c_attn qkv is cut into
-    wq/wk/wv views, LayerNorm, tanh gelu, learned positions, tied head."""
+def _columns(w, start: int, stop: int):
+    """Columns ``[start, stop)`` of a ``[K, N]`` kernel: a view of a plain
+    tensor, or a quantized dict's weight and scale columns (contiguous, as
+    the matmul kernel reads them; per-column quantization makes them the
+    bytes of quantizing the columns alone)."""
+    if isinstance(w, dict):
+        return {k: v[..., start:stop].contiguous() for k, v in w.items()}
+    return w[:, start:stop]
+
+
+def _gpt2_spec(config, max_context: Optional[int] = None) -> RaggedModelSpec:
+    """GPT-2: LayerNorm, tanh gelu, learned positions, tied head."""
     E = config.n_embd
-    spec = RaggedModelSpec(
+    return RaggedModelSpec(
         family="gpt2",
         num_layers=config.n_layer,
         hidden_size=E,
@@ -172,29 +217,39 @@ def adapt_gpt2(params: Dict[str, torch.Tensor], config,
         vocab_size=config.vocab_size,
         norm="ln", activation="gelu", rope_theta=None, learned_pos=True,
         tied_lm_head=True, eps=1e-5)
+
+
+#: the port's ``GPT2LMHead`` flat names after ``h_{i}/`` and their serving
+#: keys; the fused c_attn (``wqkv``, ``bqkv``) is cut into q/k/v columns
+_GPT2_LAYER = {"ln_1/scale": "ln1", "ln_1/bias": "ln1_bias",
+               "ln_2/scale": "ln2", "ln_2/bias": "ln2_bias",
+               "attn/c_attn/kernel": "wqkv", "attn/c_attn/bias": "bqkv",
+               "attn/c_proj/kernel": "wo", "attn/c_proj/bias": "bo",
+               "mlp/c_fc/kernel": "w_up", "mlp/c_fc/bias": "b_up",
+               "mlp/c_proj/kernel": "w_down", "mlp/c_proj/bias": "b_down"}
+_GPT2_TOP = {"wte/embedding": "embed", "wpe/embedding": "pos_embed",
+             "ln_f/scale": "final_norm", "ln_f/bias": "final_norm_bias"}
+
+
+def _gpt2_weights(params: Mapping[str, torch.Tensor], config) -> Dict:
+    """The port's ``GPT2LMHead`` flat tree (``wte/embedding``,
+    ``h_{i}/attn/c_attn/kernel`` ...): the fused c_attn qkv is cut into
+    wq/wk/wv columns."""
+    E = config.n_embd
     layers = []
     for i in range(config.n_layer):
-        p = f"h_{i}/"
-        wqkv = params[p + "attn/c_attn/kernel"]            # [E, 3E]
-        bqkv = params[p + "attn/c_attn/bias"]
-        layers.append({
-            "ln1": params[p + "ln_1/scale"], "ln1_bias": params[p + "ln_1/bias"],
-            "ln2": params[p + "ln_2/scale"], "ln2_bias": params[p + "ln_2/bias"],
-            "wq": wqkv[:, :E], "wk": wqkv[:, E:2 * E], "wv": wqkv[:, 2 * E:],
-            "bq": bqkv[:E], "bk": bqkv[E:2 * E], "bv": bqkv[2 * E:],
-            "wo": params[p + "attn/c_proj/kernel"], "bo": params[p + "attn/c_proj/bias"],
-            "w_up": params[p + "mlp/c_fc/kernel"], "b_up": params[p + "mlp/c_fc/bias"],
-            "w_down": params[p + "mlp/c_proj/kernel"],
-            "b_down": params[p + "mlp/c_proj/bias"],
-        })
-    weights = {
-        "embed": params["wte/embedding"],
-        "pos_embed": params["wpe/embedding"],
-        "layers": layers,
-        "final_norm": params["ln_f/scale"],
-        "final_norm_bias": params["ln_f/bias"],
-    }
-    return spec, _tie_head(weights)
+        layer = {k: params[f"h_{i}/{n}"] for n, k in _GPT2_LAYER.items()}
+        wqkv, bqkv = layer.pop("wqkv"), layer.pop("bqkv")     # [E, 3E], [3E]
+        for j, n in enumerate("qkv"):
+            layer["w" + n] = _columns(wqkv, j * E, (j + 1) * E)
+            layer["b" + n] = bqkv[j * E:(j + 1) * E]
+        layers.append(layer)
+    weights = {k: params[n] for n, k in _GPT2_TOP.items()}
+    return _tie_head({**weights, "layers": layers})
+
+
+def _gpt2_key(name: str) -> Optional[str]:
+    return _layer_key(name, "h_", _GPT2_LAYER.get) or _GPT2_TOP.get(name)
 
 
 def _decoder_key(rest: str) -> str:
@@ -205,12 +260,10 @@ def _decoder_key(rest: str) -> str:
     return rest.replace("/scale", "").replace("/bias", "_bias")
 
 
-def adapt_decoder(params: Dict[str, torch.Tensor], config,
-                  max_context: Optional[int] = None) -> Tuple[RaggedModelSpec, Dict]:
+def _decoder_spec(config, max_context: Optional[int] = None) -> RaggedModelSpec:
     """``models/decoder.py`` (``DecoderLM``: opt/falcon/phi/gpt_neox/gptj/
-    gpt_bigcode/bloom) flat tree -> (spec, weights). Guards on the FEATURES
-    the ragged path cannot carry (not family names), in the JAX package's
-    words."""
+    gpt_bigcode/bloom). Guards on the FEATURES the ragged path cannot
+    carry (not family names), in the JAX package's words."""
     unsupported = []
     if getattr(config, "local_window", None) is not None:
         unsupported.append("local_window")
@@ -223,7 +276,7 @@ def adapt_decoder(params: Dict[str, torch.Tensor], config,
             f"config features {unsupported} are not supported by the ragged "
             "(paged) attention path — serve through deepspeed_tpu."
             "init_inference (v1 dense engine) instead")
-    spec = RaggedModelSpec(
+    return RaggedModelSpec(
         family=config.family,
         num_layers=config.num_hidden_layers,
         hidden_size=config.hidden_size,
@@ -240,35 +293,67 @@ def adapt_decoder(params: Dict[str, torch.Tensor], config,
         alibi=getattr(config, "alibi", False),
         embed_norm=getattr(config, "embed_norm", False),
         eps=config.eps)
+
+
+_DECODER_TOP = {"embed/embedding": "embed", "final_norm/scale": "final_norm",
+                "final_norm/bias": "final_norm_bias", "lm_head": "lm_head",
+                "lm_head_bias": "lm_head_bias", "pos_embed/embedding": "pos_embed",
+                "embed_norm/scale": "embed_norm", "embed_norm/bias": "embed_norm_bias"}
+_DECODER_REQUIRED = ("embed", "final_norm")
+
+
+def _decoder_weights(params: Mapping[str, torch.Tensor], config) -> Dict:
+    """The generic decoder's flat tree, re-rooted: each layer's names
+    through :func:`_decoder_key`, the optional top-level ones where
+    present."""
     layers = []
     for i in range(config.num_hidden_layers):
         p = f"layers_{i}/"
-        layers.append({_decoder_key(k[len(p):]): v for k, v in params.items()
+        layers.append({_decoder_key(k[len(p):]): params[k] for k in params
                        if k.startswith(p)})
-    weights = {"embed": params["embed/embedding"], "layers": layers,
-               "final_norm": params["final_norm/scale"]}
-    optional = {"final_norm_bias": "final_norm/bias", "lm_head": "lm_head",
-                "lm_head_bias": "lm_head_bias", "pos_embed": "pos_embed/embedding",
-                "embed_norm": "embed_norm/scale", "embed_norm_bias": "embed_norm/bias"}
-    weights.update({k: params[n] for k, n in optional.items() if n in params})
-    return spec, _tie_head(weights) if spec.tied_lm_head else weights
+    weights = {k: params[n] for n, k in _DECODER_TOP.items()
+               if k in _DECODER_REQUIRED or n in params}
+    weights["layers"] = layers
+    return _tie_head(weights) if config.tied_lm_head else weights
 
 
-ADAPTERS: Dict[str, Callable] = {
-    # llama lineage (the JAX package's qwen2 and gemma ride adapt_llama on
-    # LlamaConfig flags the port's LlamaConfig does not carry yet)
-    "llama": adapt_llama,
-    "mistral": adapt_llama,
-    "mixtral": adapt_llama,
-    "gpt2": adapt_gpt2,
+def _decoder_key_of(name: str) -> Optional[str]:
+    return _layer_key(name, "layers_", _decoder_key) or _DECODER_TOP.get(name)
+
+
+@dataclass(frozen=True)
+class Adapter:
+    """A lineage's map from its flat parameter tree to the serving tree:
+    ``spec(config, max_context)`` reads no tensor (so a build is refused
+    before any lands), ``weights(params, config)`` reads each name once
+    and places it, and ``key(name)`` names the serving key a flat name
+    lands under (how the landing knows what to quantize)."""
+    spec: Callable
+    weights: Callable
+    key: Callable
+
+
+LLAMA = Adapter(_llama_spec, _llama_weights, _llama_key)
+GPT2 = Adapter(_gpt2_spec, _gpt2_weights, _gpt2_key)
+DECODER = Adapter(_decoder_spec, _decoder_weights, _decoder_key_of)
+
+ADAPTERS: Dict[str, Adapter] = {
+    # llama lineage (qwen2 = biased qkv; gemma = structural flags: both are
+    # LlamaConfig features the adapter reads)
+    "llama": LLAMA,
+    "mistral": LLAMA,
+    "mixtral": LLAMA,
+    "qwen2": LLAMA,
+    "gemma": LLAMA,
+    "gpt2": GPT2,
     # generic-decoder lineage (canonical parameter names; re-rooting only)
-    "opt": adapt_decoder,
-    "falcon": adapt_decoder,
-    "phi": adapt_decoder,
-    "gpt_neox": adapt_decoder,
-    "gptj": adapt_decoder,
-    "gpt_bigcode": adapt_decoder,
-    "bloom": adapt_decoder,   # ALiBi carried by the paged kernels
+    "opt": DECODER,
+    "falcon": DECODER,
+    "phi": DECODER,
+    "gpt_neox": DECODER,
+    "gptj": DECODER,
+    "gpt_bigcode": DECODER,
+    "bloom": DECODER,   # ALiBi carried by the paged kernels
 }
 
 #: families whose attention needs a bias the ragged kernels don't carry
@@ -279,10 +364,18 @@ _UNSUPPORTED = {
 }
 
 
-def adapt_model(family: str, params: Dict[str, torch.Tensor], config,
-                max_context: Optional[int] = None) -> Tuple[RaggedModelSpec, Dict]:
-    """The family's adapter, refusing unsupported families in the JAX
-    package's words."""
+def adapt_model(family: str, params: Mapping[str, torch.Tensor], config,
+                max_context: Optional[int] = None, quantize: Optional[Callable] = None,
+                check: Optional[Callable] = None) -> Tuple[RaggedModelSpec, Dict]:
+    """(spec, serving weights) through the family's adapter, refusing
+    unsupported families in the JAX package's words. ``check(spec)`` runs
+    before any tensor is read. With ``quantize`` (``quantize_weight_int8``
+    or ``_int4``), each tensor whose serving key weight-only quantization
+    replaces (:data:`_QUANTIZED`) is read as ``quantize(tensor)``: over a
+    :class:`LandingParams` its model-dtype copy is gone before the next
+    name lands. The bytes are :func:`quantize_weights_int8`'s (``_int4``)
+    over the unquantized tree: each tensor quantizes on its own either
+    way."""
     if family in _UNSUPPORTED:
         raise ValueError(
             f"family '{family}' uses {_UNSUPPORTED[family]}, which the ragged "
@@ -291,13 +384,63 @@ def adapt_model(family: str, params: Dict[str, torch.Tensor], config,
     if family not in ADAPTERS:
         raise ValueError(f"no ragged adapter for family '{family}' "
                          f"(have {sorted(ADAPTERS)})")
-    return ADAPTERS[family](params, config, max_context=max_context)
+    adapter = ADAPTERS[family]
+    spec = adapter.spec(config, max_context)
+    if check is not None:
+        check(spec)
+    if quantize is not None:
+        params = _QuantizingParams(params, quantize, adapter.key)
+    return spec, adapter.weights(params, config)
+
+
+class _ParamsView(Mapping):
+    """A flat parameter tree read through ``src``, name by name."""
+
+    src: Mapping[str, torch.Tensor]
+
+    def __contains__(self, name) -> bool:
+        return name in self.src
+
+    def __iter__(self):
+        return iter(self.src)
+
+    def __len__(self) -> int:
+        return len(self.src)
+
+
+class LandingParams(_ParamsView):
+    """A flat parameter tree whose tensors land on ``device`` in ``dtype``
+    one at a time, as an adapter reads them (each name is read once), so
+    the tree is never on the device whole before the adapter has placed
+    (and :func:`adapt_model` quantized) each tensor."""
+
+    def __init__(self, src: Mapping[str, torch.Tensor], device: torch.device,
+                 dtype: torch.dtype):
+        self.src, self.device, self.dtype = src, device, dtype
+
+    def __getitem__(self, name: str):
+        return self.src[name].to(device=self.device, dtype=self.dtype)
+
+
+class _QuantizingParams(_ParamsView):
+    """``src`` with every tensor whose serving key (``key(name)``) is in
+    :data:`_QUANTIZED` read as ``quantize(tensor)``."""
+
+    def __init__(self, src: Mapping[str, torch.Tensor], quantize: Callable,
+                 key: Callable):
+        self.src, self.quantize, self.key = src, quantize, key
+
+    def __getitem__(self, name: str):
+        t = self.src[name]
+        return self.quantize(t) if self.key(name) in _QUANTIZED else t
 
 
 def _norm(x, w: Dict, key: str, spec: RaggedModelSpec):
-    """Norm ``key`` of tree ``w`` (its scale, and ``key + "_bias"`` for
-    LayerNorm), statistics in f32, in the model dtype."""
-    return layer_norm(x, w[key], w.get(key + "_bias"), spec.norm, spec.eps, spec.dtype)
+    """Norm ``key`` of tree ``w`` (its scale, ``1 + scale`` in the scale's
+    dtype under ``norm_plus_one``, and ``key + "_bias"`` for LayerNorm),
+    statistics in f32, in the model dtype."""
+    scale = 1 + w[key] if spec.norm_plus_one else w[key]
+    return layer_norm(x, scale, w.get(key + "_bias"), spec.norm, spec.eps, spec.dtype)
 
 
 def _plain_act(name: str) -> Callable:
@@ -308,7 +451,7 @@ def _plain_act(name: str) -> Callable:
     except KeyError:
         raise ValueError(
             f"unknown MLP activation '{name}' for the ragged path "
-            f"(gated: swiglu; plain: {sorted(PLAIN_ACTS)})") from None
+            f"(gated: swiglu/geglu; plain: {sorted(PLAIN_ACTS)})") from None
 
 
 def _rope(spec: RaggedModelSpec, positions: torch.Tensor):
@@ -348,6 +491,12 @@ def _mm(x: torch.Tensor, w) -> torch.Tensor:
 
 
 _QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+_QUANT_MLP_KEYS = ("w_gate", "w_up", "w_down")
+#: the serving keys whose tensors weight-only quantization replaces by
+#: ``q(w)`` dicts as they land (:func:`adapt_model`): the layers'
+#: projections and expert stacks (:data:`_QUANT_KEYS`), GPT-2's fused qkv
+#: before it is cut (:func:`_columns`), an untied head
+_QUANTIZED = frozenset(_QUANT_KEYS + ("wqkv", "lm_head"))
 
 
 def _column_scale(wf: torch.Tensor, qmax: float) -> torch.Tensor:
@@ -382,15 +531,18 @@ def quantize_weight_int4(w: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 
 def _quantize_weight_tree(weights: Dict, q: Callable) -> Dict:
-    """Every layer's projections and an untied ``lm_head`` (a tied head has
-    none: it stays the embedding) become ``q(w)`` dicts, in place;
-    embeddings, norms and biases stay in the model dtype. Each layer
-    quantizes on its own, which gives the same bytes as the JAX package's
-    stacked ``[L, K, N]`` tree (its absmax runs along K)."""
+    """Every layer's projections, an MoE layer's expert stacks (one scale
+    per expert and output column: ``[E, 1, N]``) and an untied ``lm_head``
+    (a tied head has none: it stays the embedding) become ``q(w)`` dicts,
+    in place; embeddings, norms, biases and the router stay in the model
+    dtype. Each layer quantizes on its own, which gives the same bytes as
+    the JAX package's stacked ``[L, K, N]`` tree (its absmax runs along
+    K)."""
     for layer in weights["layers"]:
-        for key in _QUANT_KEYS:
-            if key in layer and not isinstance(layer[key], dict):
-                layer[key] = q(layer[key])
+        for tree, keys in ((layer, _QUANT_KEYS), (layer.get("moe", {}), _QUANT_MLP_KEYS)):
+            for key in keys:
+                if key in tree and not isinstance(tree[key], dict):
+                    tree[key] = q(tree[key])
     if "lm_head" in weights and not isinstance(weights["lm_head"], dict):
         weights["lm_head"] = q(weights["lm_head"])
     return weights
@@ -410,13 +562,65 @@ def quantize_weights_int4(weights: Dict) -> Dict:
     return _quantize_weight_tree(weights, quantize_weight_int4)
 
 
+def _grouped_mm(x: torch.Tensor, w, ends: torch.Tensor) -> torch.Tensor:
+    """Rows ``x`` [R, K] sorted by expert (expert e's rows end at
+    ``ends[e]``) times their expert's weight: int8 stacks ``{"w8" [E, K,
+    N], "scale" [E, 1, N]}`` through K8's grouped entries, model-dtype
+    stacks ``[E, K, N]`` through ``torch._grouped_mm`` (the JAX package's
+    ``gg`` :382-393: int8 sums in f32 times the row's expert's column
+    scale, in x's dtype; a plain grouped product, which the JAX package
+    leaves to XLA)."""
+    if isinstance(w, dict):
+        return quantized_matmul_grouped(x, ends, w["w8"], w["scale"])
+    return torch._grouped_mm(x, w, offs=ends)
+
+
+def _moe_route(x: torch.Tensor, router: torch.Tensor, top_k: int):
+    """Rows ``x`` [T, hidden] to their experts: f32 router logits, the top
+    k, a softmax over their k logits. Returns (gates [T, k] f32, expert ids
+    [T, k])."""
+    gates, ids = torch.topk(x.float() @ router.float(), top_k, dim=-1)
+    return torch.softmax(gates, dim=-1), ids
+
+
+def _moe_ffn(x: torch.Tensor, w: Dict, top_k: int, dtype: torch.dtype) -> torch.Tensor:
+    """Sort-based token dispatch and grouped products over ragged rows ``x``
+    [T, hidden], step for step the JAX package's ``_moe_ffn`` (:364-405):
+    the routing (:func:`_moe_route`); the T * k (token, choice) rows stably
+    sorted by expert and gathered; grouped gate/up, silu(gate) * up
+    (gelu(up) for a plain gated MLP), grouped down; each row times its gate
+    in the model dtype, the sort inverted and the k choices summed. Rows
+    are counted per expert with ``scatter_add_`` and a cumsum, and the
+    grouped entries pick their kernel from the row count, a shape: nothing
+    here waits on the device."""
+    T = x.shape[0]
+    E = w["router"].shape[-1]
+    gates, ids = _moe_route(x, w["router"], top_k)
+    expert_ids = ids.reshape(-1)
+    order = torch.argsort(expert_ids, stable=True)
+    xs = x[order // top_k]
+    counts = torch.zeros(E, dtype=torch.int32, device=x.device).scatter_add_(
+        0, expert_ids, torch.ones_like(expert_ids, dtype=torch.int32))
+    ends = counts.cumsum(0, dtype=torch.int32)
+    if "w_gate" in w:
+        h = F.silu(_grouped_mm(xs, w["w_gate"], ends)) * _grouped_mm(xs, w["w_up"], ends)
+    else:
+        h = PLAIN_ACTS["gelu"](_grouped_mm(xs, w["w_up"], ends))
+    ys = _grouped_mm(h, w["w_down"], ends)
+    scale = gates.reshape(-1)[order].to(ys.dtype)
+    out = (ys * scale[:, None])[torch.argsort(order)].reshape(T, top_k, -1).sum(1)
+    return out.to(dtype)
+
+
 def _transformer_layer(spec: RaggedModelSpec, w: Dict, x: torch.Tensor, rope,
                        attend: Callable) -> torch.Tensor:
     """One layer over ragged rows ``x`` [T, hidden], as the JAX package's
     ``_transformer_layer``: biased q/k/v/o, full or partial rotary (``rope``
     from :func:`_rope`, None without), sequential or parallel blocks, a
-    gated or plain MLP with biases. ``attend(q, k, v) -> [T, H, D]`` writes
-    the pass's K/V into the pool and attends, in the shape of its pass."""
+    gated (SwiGLU or GeGLU) or plain MLP with biases, or the routed experts
+    of an MoE layer (:func:`_moe_ffn`). ``attend(q, k, v) -> [T, H, D]``
+    writes the pass's K/V into the pool and attends, in the shape of its
+    pass."""
     H, Hkv, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
     h1 = _norm(x, w, "ln1", spec)
     q, k, v = _mm(h1, w["wq"]), _mm(h1, w["wk"]), _mm(h1, w["wv"])
@@ -434,27 +638,34 @@ def _transformer_layer(spec: RaggedModelSpec, w: Dict, x: torch.Tensor, rope,
     else:
         x = x + attn_out
         mlp_in = _norm(x, w, "ln2", spec)
-    if spec.activation == "swiglu":
-        hmid = F.silu(_mm(mlp_in, w["w_gate"])) * _mm(mlp_in, w["w_up"])
+    if spec.moe is not None:
+        mlp_out = _moe_ffn(mlp_in, w["moe"], spec.moe["top_k"], spec.dtype)
     else:
-        hmid = _mm(mlp_in, w["w_up"])
-        if "b_up" in w:
-            hmid = hmid + w["b_up"]
-        hmid = _plain_act(spec.activation)(hmid)
-    mlp_out = _mm(hmid, w["w_down"])
-    if "b_down" in w:
-        mlp_out = mlp_out + w["b_down"]
+        if spec.activation in ("swiglu", "geglu"):
+            act = mlp_gate_act("silu" if spec.activation == "swiglu" else "gelu")
+            hmid = act(_mm(mlp_in, w["w_gate"])) * _mm(mlp_in, w["w_up"])
+        else:
+            hmid = _mm(mlp_in, w["w_up"])
+            if "b_up" in w:
+                hmid = hmid + w["b_up"]
+            hmid = _plain_act(spec.activation)(hmid)
+        mlp_out = _mm(hmid, w["w_down"])
+        if "b_down" in w:
+            mlp_out = mlp_out + w["b_down"]
     return x + attn_out + mlp_out if spec.parallel_block else x + mlp_out
 
 
 def _embed_in(spec: RaggedModelSpec, weights, tokens: torch.Tensor,
               positions: torch.Tensor) -> torch.Tensor:
-    """Token (+ learned position) embedding, then the embedding norm."""
+    """Token (+ learned position) embedding, then the embedding norm, then
+    Gemma's sqrt(hidden) scale in f32 (the JAX package's ``_embed_in``)."""
     x = weights["embed"][tokens.long()]
     if spec.learned_pos:
         x = x + weights["pos_embed"][positions.long() + spec.pos_offset]
     if spec.embed_norm:
         x = _norm(x.to(spec.dtype), weights, "embed_norm", spec)
+    if spec.embed_scale_by_sqrt_dim:
+        x = x.float() * spec.hidden_size ** 0.5
     return x.to(spec.dtype)
 
 

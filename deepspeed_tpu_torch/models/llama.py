@@ -6,7 +6,12 @@ engine reads its configuration and its parameters. The forward follows the
 JAX package's flax model step for step: RMSNorm computed in f32, rotary
 embedding on INTERLEAVED pairs (``x[..., 0::2]``, ``x[..., 1::2]``, not the
 rotate-half convention), causal attention with f32 scores (restricted to the sliding window
-``[q - window + 1, q]`` when the config has one), and a SwiGLU MLP.
+``[q - window + 1, q]`` when the config has one), and a SwiGLU MLP. The
+JAX package's lineage flags ride the same model: biased q/k/v (``qkv_bias``,
+Qwen2) and Gemma's embedding scaled by sqrt(hidden) in f32
+(``embed_scale_by_sqrt_dim``), RMSNorm by ``1 + weight`` (``norm_plus_one``,
+weights initialised at 0) and a tanh-GELU gate (``mlp_act="gelu"``, flax's
+``nn.gelu`` default).
 The causal-LM losses the training path shares (:func:`causal_lm_loss`,
 :func:`chunked_causal_lm_loss`) live here too, as in the JAX package.
 
@@ -26,6 +31,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -44,7 +50,11 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-5
     sliding_window: Optional[int] = None  # Mistral: keys at most window-1 back
-    head_dim_override: Optional[int] = None
+    qkv_bias: bool = False               # Qwen2 lineage: biased q/k/v projections
+    head_dim_override: Optional[int] = None  # Gemma: head_dim apart from hidden/heads
+    embed_scale_by_sqrt_dim: bool = False    # Gemma: x *= sqrt(hidden) after embedding
+    norm_plus_one: bool = False              # Gemma: RMSNorm scales by (1 + weight)
+    mlp_act: str = "silu"                    # "silu" | "gelu" (tanh) gate activation
     dtype: torch.dtype = torch.float32
 
     @property
@@ -93,11 +103,19 @@ def _param(shape, dtype, device) -> nn.Parameter:
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense`` without bias: ``kernel`` [in, out], ``x @ kernel``."""
+    """flax ``nn.Dense``: ``kernel`` [in, out] and, with ``bias``, ``bias``
+    [out]; ``x @ kernel + bias``."""
 
-    def __init__(self, d_in: int, d_out: int, dtype, device):
+    def __init__(self, d_in: int, d_out: int, dtype, device, bias: bool = False):
         super().__init__()
         self.kernel = _param((d_in, d_out), dtype, device)
+        if bias:
+            self.bias = _param((d_out,), dtype, device)
+
+    def forward(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+        """``x @ kernel (+ bias)`` with the parameters cast to ``dt``."""
+        y = x @ self.kernel.to(dt)
+        return y + self.bias.to(dt) if hasattr(self, "bias") else y
 
 
 class Embed(nn.Module):
@@ -117,9 +135,10 @@ class Attention(nn.Module):
         super().__init__()
         hid, D = cfg.hidden_size, cfg.head_dim
         H, Hkv = cfg.num_attention_heads, cfg.num_key_value_heads
-        self.q_proj = Dense(hid, H * D, cfg.dtype, device)
-        self.k_proj = Dense(hid, Hkv * D, cfg.dtype, device)
-        self.v_proj = Dense(hid, Hkv * D, cfg.dtype, device)
+        qb = cfg.qkv_bias
+        self.q_proj = Dense(hid, H * D, cfg.dtype, device, qb)
+        self.k_proj = Dense(hid, Hkv * D, cfg.dtype, device, qb)
+        self.v_proj = Dense(hid, Hkv * D, cfg.dtype, device, qb)
         self.o_proj = Dense(H * D, hid, cfg.dtype, device)
 
 
@@ -142,11 +161,33 @@ class Block(nn.Module):
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
-             dtype: torch.dtype) -> torch.Tensor:
-    """RMSNorm computed in f32, cast to ``dtype``."""
+             dtype: torch.dtype, plus_one: bool = False) -> torch.Tensor:
+    """RMSNorm computed in f32, cast to ``dtype``; ``plus_one`` scales by
+    ``1 + weight`` (Gemma), the sum taken in the weight's dtype as the JAX
+    engine's ``_norm`` takes it."""
     xf = x.float()
     y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-    return (y * weight.float()).to(dtype)
+    return (y * (1 + weight if plus_one else weight).float()).to(dtype)
+
+
+def embed_scale(x: torch.Tensor, cfg) -> torch.Tensor:
+    """Gemma's embedding normaliser: ``x * sqrt(hidden)`` in f32, back to
+    x's dtype (the JAX package's f32 round trip); x unchanged without
+    ``embed_scale_by_sqrt_dim``."""
+    if not getattr(cfg, "embed_scale_by_sqrt_dim", False):
+        return x
+    return (x.float() * cfg.hidden_size ** 0.5).to(x.dtype)
+
+
+def mlp_gate_act(name: str):
+    """The gated MLP's gate activation: SiLU, or the tanh GELU (flax's
+    ``nn.gelu`` default) for ``mlp_act="gelu"``."""
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(f"llama-lineage mlp_act '{name}' has no gated-MLP mapping "
+                     "(expected 'silu' or 'gelu')")
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
@@ -181,7 +222,11 @@ def window_mask(q_positions: torch.Tensor, k_positions: torch.Tensor,
 
 class LlamaForCausalLM(nn.Module):
     """Llama-2 decoder with flax-named parameters in ``config.dtype`` on
-    ``device`` (default: the CUDA device), initialised from ``seed``."""
+    ``device`` (default: the CUDA device), initialised from ``seed``. On the
+    ``meta`` device the parameters have names and shapes only (no values):
+    a caller that makes the weights itself reads them from there."""
+
+    block_cls = Block
 
     def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
@@ -189,10 +234,11 @@ class LlamaForCausalLM(nn.Module):
         device = resolve_device(device)
         self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size, cfg.dtype, device)
         for i in range(cfg.num_hidden_layers):
-            self.add_module(f"layers_{i}", Block(cfg, device))
+            self.add_module(f"layers_{i}", self.block_cls(cfg, device))
         self.norm = RMSNorm(cfg.hidden_size, cfg.dtype, device)
         self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, cfg.dtype, device)
-        self.reset_parameters(seed)
+        if device.type != "meta":
+            self.reset_parameters(seed)
 
     @property
     def layers(self):
@@ -214,8 +260,12 @@ class LlamaForCausalLM(nn.Module):
                 tmp.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2 * std, 2 * std)
             elif name.endswith("embedding"):
                 tmp.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=gen)
+            elif name.endswith(("w_gate", "w_up", "w_down")):
+                tmp.normal_(0.0, 0.02, generator=gen)      # MoE expert stacks
             else:
-                tmp.fill_(1.0)
+                # norm weights (zero-centred under norm_plus_one) and biases
+                tmp.fill_(0.0 if name.endswith("bias") or self.config.norm_plus_one
+                          else 1.0)
             p.copy_(tmp)
 
     def flat_params(self) -> Dict[str, torch.Tensor]:
@@ -241,38 +291,51 @@ class LlamaForCausalLM(nn.Module):
     def forward_logits(self, input_ids: torch.Tensor,
                        positions: Optional[torch.Tensor] = None,
                        compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        """Dense causal forward, ``input_ids`` [B, T] -> f32 logits [B, T, V].
+        """Dense causal forward, ``input_ids`` [B, T] -> f32 logits [B, T, V]
+        (:meth:`hidden`, then the head)."""
+        dt = compute_dtype or self.config.dtype
+        return self.lm_head(self.hidden(input_ids, positions, dt), dt).float()
 
-        Runs in ``compute_dtype`` (default ``config.dtype``); each layer's
-        weights are cast as that layer runs, so an f32 pass over bf16
-        parameters holds only one layer's f32 copy at a time."""
+    @torch.no_grad()
+    def hidden(self, input_ids: torch.Tensor, positions: Optional[torch.Tensor] = None,
+               compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """The final normed hidden states [B, T, hidden] of the dense causal
+        forward, in ``compute_dtype`` (default ``config.dtype``); each
+        layer's weights are cast as that layer runs, so an f32 pass over
+        bf16 parameters holds only one layer's f32 copy at a time."""
         cfg = self.config
         dt = compute_dtype or cfg.dtype
         B, T = input_ids.shape
         H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        eps, p1 = cfg.rms_norm_eps, cfg.norm_plus_one
         if positions is None:
             positions = torch.arange(T, device=input_ids.device).expand(B, T)
         cos, sin = rope_tables(positions, D, cfg.rope_theta)
         visible = window_mask(positions, positions, cfg.sliding_window)[:, None]
-        x = self.embed_tokens.embedding[input_ids].to(dt)
+        x = embed_scale(self.embed_tokens.embedding[input_ids], cfg).to(dt)
         for layer in self.layers:
-            a, m = layer.self_attn, layer.mlp
-            h = rms_norm(x, layer.input_layernorm.weight, cfg.rms_norm_eps, dt)
-            q = apply_rope((h @ a.q_proj.kernel.to(dt)).view(B, T, H, D), cos, sin)
-            k = apply_rope((h @ a.k_proj.kernel.to(dt)).view(B, T, Hkv, D), cos, sin)
-            v = (h @ a.v_proj.kernel.to(dt)).view(B, T, Hkv, D)
+            a = layer.self_attn
+            h = rms_norm(x, layer.input_layernorm.weight, eps, dt, p1)
+            q = apply_rope(a.q_proj(h, dt).view(B, T, H, D), cos, sin)
+            k = apply_rope(a.k_proj(h, dt).view(B, T, Hkv, D), cos, sin)
+            v = a.v_proj(h, dt).view(B, T, Hkv, D)
             k = k.repeat_interleave(H // Hkv, dim=2)
             v = v.repeat_interleave(H // Hkv, dim=2)
             s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * D ** -0.5
             s = s.masked_fill(~visible, torch.finfo(torch.float32).min)
             p = torch.softmax(s, dim=-1).to(dt)
+            del s
             o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(B, T, H * D)
-            x = x + o @ a.o_proj.kernel.to(dt)
-            h = rms_norm(x, layer.post_attention_layernorm.weight, cfg.rms_norm_eps, dt)
-            g = torch.nn.functional.silu(h @ m.gate_proj.kernel.to(dt))
-            x = x + (g * (h @ m.up_proj.kernel.to(dt))) @ m.down_proj.kernel.to(dt)
-        x = rms_norm(x, self.norm.weight, cfg.rms_norm_eps, dt)
-        return (x @ self.lm_head.kernel.to(dt)).float()
+            x = x + a.o_proj(o, dt)
+            h = rms_norm(x, layer.post_attention_layernorm.weight, eps, dt, p1)
+            x = x + self.ffn(layer, h, dt)
+        return rms_norm(x, self.norm.weight, eps, dt, p1)
+
+    def ffn(self, layer: nn.Module, h: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+        """One layer's gated MLP on its normed input ``h`` in ``dt``."""
+        m = layer.mlp
+        return (mlp_gate_act(self.config.mlp_act)(m.gate_proj(h, dt))
+                * m.up_proj(h, dt)) @ m.down_proj.kernel.to(dt)
 
 
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

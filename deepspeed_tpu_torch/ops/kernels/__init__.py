@@ -36,5 +36,5 @@ from deepspeed_tpu_torch.ops.kernels.paged_decode import (
 from deepspeed_tpu_torch.ops.kernels.paged_splitk import (
     merge_splitk_partials, splitk_attention, splitk_attention_plain)
 from deepspeed_tpu_torch.ops.kernels.quantized_matmul import (
-    quantized_matmul, quantized_matmul_int4, quantized_matmul_int4_plain,
-    quantized_matmul_plain)
+    quantized_matmul, quantized_matmul_grouped, quantized_matmul_grouped_plain,
+    quantized_matmul_int4, quantized_matmul_int4_plain, quantized_matmul_plain)

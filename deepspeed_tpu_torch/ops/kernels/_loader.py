@@ -83,6 +83,9 @@ ENTRY_POINTS = {
     "dstorch_qmm_mma": (_P, _P, _P, _P, _I, _I, _I, _P),
     "dstorch_qmm_mma_tiled": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "dstorch_qmm_mma_attrs": (_I, _P),
+    "dstorch_qmm_gemv_grouped": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "dstorch_qmm_mma_grouped": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "dstorch_qmm_grouped_attrs": (_I, _P),
     "dstorch_block_sparse_fwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _F, _I, _P),
     "dstorch_block_sparse_dq_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -114,7 +117,9 @@ LAUNCHES: Dict[str, int] = {"flash_packed": 0, "paged_chunk": 0,
                             "paged_chunk_int8": 0, "paged_decode_int8": 0,
                             "splitk_merge": 0, "quantized_matmul_gemv": 0,
                             "quantized_matmul_gemv_int4": 0,
-                            "quantized_matmul_mma": 0, "block_sparse_fwd": 0,
+                            "quantized_matmul_mma": 0,
+                            "quantized_matmul_grouped_gemv": 0,
+                            "quantized_matmul_grouped_mma": 0, "block_sparse_fwd": 0,
                             "block_sparse_dq": 0, "block_sparse_dkv": 0,
                             "evoformer_fwd": 0, "evoformer_dq": 0, "evoformer_dkv": 0,
                             "evoformer_dbias": 0}

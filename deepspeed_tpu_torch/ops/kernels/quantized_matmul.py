@@ -22,6 +22,18 @@ the packed bytes in the kernel (launches counted as
 ``quantized_matmul_gemv_int4``; the same sums in the same order, so the same
 bits, as ``qmm_gemv`` on the unpacked weight); at larger M the weight is
 unpacked in torch ops and ``qmm_mma`` runs on it.
+
+An MoE layer's int8 expert products go through
+:func:`quantized_matmul_grouped`: rows sorted by expert, the groups' ends on
+the device, each row times its expert's weight and scale (the int8 branch
+of the JAX package's ``_moe_ffn`` ``gg``). Its two entries are grouped
+forms of the same kernels, picked from the row count R (a shape, never
+from the group sizes, which live on the device): ``qmm_gemv_grouped``
+(``quantized_matmul_grouped_gemv``) for R <= 32, a block per (128 columns,
+K split, expert) that exits at once when its expert has no rows, so a
+decode step reads only the routed experts' weights; and ``qmm_mma`` on a
+tile schedule that each block reads from the ends
+(``quantized_matmul_grouped_mma``) above.
 """
 
 from __future__ import annotations
@@ -37,11 +49,17 @@ NAME = "quantized_matmul"
 GEMV = "quantized_matmul_gemv"
 GEMV_INT4 = "quantized_matmul_gemv_int4"
 MMA = "quantized_matmul_mma"
+GROUPED_GEMV = "quantized_matmul_grouped_gemv"
+GROUPED_MMA = "quantized_matmul_grouped_mma"
 SOURCE = "deepspeed_tpu_torch/csrc/quantized_matmul.cu"
 REPLACES = "deepspeed_tpu/ops/pallas/quantized_matmul.py:82 (body _qmm_kernel :64)"
 REPLACES_INT4 = ("deepspeed_tpu/inference/v2/ragged_model.py:427-436 (_mm's w4 branch: "
                  "unpack_int4, then the int8 dot of quantized_matmul.py:82)")
+REPLACES_GROUPED = ("deepspeed_tpu/inference/v2/ragged_model.py:382-393 (_moe_ffn's gg, int8 "
+                    "branch: ragged_dot over w8 times the row's expert's scale) with "
+                    "deepspeed_tpu/ops/pallas/quantized_matmul.py:82")
 GEMV_MAX_M = 8
+GROUPED_GEMV_MAX_R = 32  # rows up to which the grouped gemv runs (4 passes a weight at most)
 _GEMV_COLS = 128         # columns per gemv block
 _GEMV_ROWS = 128         # a split's K rows are a multiple of this: 16 per warp step x 8 warps
 _GEMV_BLOCKS_PER_SM = 2  # resident gemv blocks an SM (its launch bounds)
@@ -148,6 +166,81 @@ def quantized_matmul_int4(a: torch.Tensor, w4: torch.Tensor,
                        scale=s)
     return _launch_gemv(GEMV_INT4, "dstorch_qmm_gemv_int4", a2, w4, s, K, N).reshape(
         *lead, N)
+
+
+def quantized_matmul_grouped(a: torch.Tensor, ends: torch.Tensor, w8: torch.Tensor,
+                             scale: torch.Tensor) -> torch.Tensor:
+    """Rows ``a [R, K]`` sorted by expert times their expert's int8 weight:
+    expert e's rows are ``[ends[e - 1], ends[e])`` (``ends [E]`` int32, the
+    cumulative row counts, ``ends[E - 1] == R``), ``w8 [E, K, N]`` int8 and
+    ``scale [E, 1, N]`` f32 -> ``[R, N]`` in a's dtype, row r of expert e
+    ``(a[r] @ w8[e]) * scale[e]`` with the sum in f32.
+
+    CPU tensors run :func:`quantized_matmul_grouped_plain`; CUDA tensors
+    launch a kernel (bf16 a, contiguous), chosen from R alone: nothing
+    here reads ``ends`` on the host."""
+    E, K, N = w8.shape
+    R = a.shape[0]
+    if (a.dim() != 2 or a.shape[1] != K or scale.numel() != E * N or ends.numel() != E
+            or w8.dtype != torch.int8):
+        raise ValueError(f"{GROUPED_MMA}: bad shapes a {tuple(a.shape)} ends "
+                         f"{tuple(ends.shape)} w8 {tuple(w8.shape)} {w8.dtype} scale "
+                         f"{tuple(scale.shape)}")
+    s = scale.reshape(E, N)
+    if _loader.on_cpu(GROUPED_MMA, a, ends, w8, s):
+        return quantized_matmul_grouped_plain(a, ends, w8, s)
+    return (_grouped_gemv if R <= GROUPED_GEMV_MAX_R else _grouped_mma)(a.contiguous(), ends,
+                                                                        w8, s)
+
+
+def _grouped_gemv(a, ends, w8, s) -> torch.Tensor:
+    """The grouped gemv over CUDA tensors (a contiguous, ``s`` [E, N])."""
+    E, K, N = w8.shape
+    R = a.shape[0]
+    out = torch.empty((R, N), dtype=a.dtype, device=a.device)
+    if R == 0:
+        return out
+    _loader.check_cuda(GROUPED_GEMV, a.dtype, f32=("scale",), i8=("w8",), a=a, ends=ends,
+                       w8=w8, scale=s)
+    # the split count assumes every row in its own expert (at most min(E,
+    # R) experts have rows)
+    rows, n_splits = gemv_splits(K, N * min(E, R), _loader.sm_count(a.device))
+    work = torch.empty((n_splits, R, N) if n_splits > 1 else (1,), dtype=torch.float32,
+                       device=a.device)
+    counters = _gemv_counters(a.device, E * -(-N // _GEMV_COLS))
+    P = _loader.ptr
+    _loader.launch(GROUPED_GEMV, "dstorch_qmm_gemv_grouped", a.device, P(a), P(w8), P(s),
+                   P(ends), P(out), P(work), P(counters), R, K, N, E, rows, n_splits)
+    return out
+
+
+def _grouped_mma(a, ends, w8, s) -> torch.Tensor:
+    """The grouped ``wgmma`` product over CUDA tensors (a contiguous, ``s``
+    [E, N])."""
+    E, K, N = w8.shape
+    R = a.shape[0]
+    out = torch.empty((R, N), dtype=a.dtype, device=a.device)
+    if R == 0:
+        return out
+    _loader.check_cuda(GROUPED_MMA, a.dtype, f32=("scale",), i8=("w8",), a=a, ends=ends,
+                       w8=w8, scale=s)
+    P = _loader.ptr
+    _loader.launch(GROUPED_MMA, "dstorch_qmm_mma_grouped", a.device, P(a), P(w8), P(s),
+                   P(ends), P(out), R, K, N, E)
+    return out
+
+
+def quantized_matmul_grouped_plain(a: torch.Tensor, ends: torch.Tensor, w8: torch.Tensor,
+                                   scale: torch.Tensor) -> torch.Tensor:
+    """The same function in plain PyTorch: each expert's rows through
+    :func:`quantized_matmul_plain` (the group bounds read on the host; rows
+    past ``ends[E - 1]`` are 0, as ``ragged_dot`` leaves them)."""
+    out = torch.zeros((a.shape[0], w8.shape[-1]), dtype=a.dtype, device=a.device)
+    start = 0
+    for e, end in enumerate(ends.tolist()):
+        out[start:end] = quantized_matmul_plain(a[start:end], w8[e], scale[e])
+        start = end
+    return out
 
 
 def quantized_matmul_int4_plain(a: torch.Tensor, w4: torch.Tensor,

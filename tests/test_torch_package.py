@@ -403,15 +403,16 @@ def _spec(**kw):
     ({"moe": {"num_experts": 4, "top_k": 2}}, "MoE"),
 ])
 def test_unported_model_feature_raises(kw, feature):
-    """MoE is refused by name; a sliding window and ALiBi over an int8 pool
-    validate (their int8 branches are ported)."""
+    """A sliding window, ALiBi and MoE over an int8 pool validate (their
+    branches are ported); MoE with packed int4 weights is refused by
+    name."""
     cfg = RaggedInferenceEngineConfig.load({"kv_quant": {"enabled": True}})
     AttentionKernelSpec.validate_engine_build(_spec(), cfg)
+    AttentionKernelSpec.validate_engine_build(_spec(**kw), cfg)
     if feature == "MoE":
+        int4 = RaggedInferenceEngineConfig.load({"quantization": {"weight_bits": 4}})
         with pytest.raises(NotImplementedError, match=feature):
-            AttentionKernelSpec.validate_engine_build(_spec(**kw), cfg)
-    else:
-        AttentionKernelSpec.validate_engine_build(_spec(**kw), cfg)
+            AttentionKernelSpec.validate_engine_build(_spec(**kw), int4)
 
 
 def test_sliding_window_model_raises_at_engine_build():
