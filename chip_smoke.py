@@ -272,7 +272,31 @@ the table's rows beside ``torch._grouped_mm`` over bf16 experts (the
 ``k8-grouped`` line: registers and spills; a spill fails); and K5 and the
 decode kernel at Qwen2-7B's G = 7 and Gemma-7B's D = 256 on pages of 128.
 
-The last two lines are the kernel table (57 rows) and ``{"ok": true,
+17. the prefix cache and speculative decoding on Llama-2-7B at full width
+   and depth (random bf16 weights from seed 0), over bf16 and then int8 KV
+   pages, the engines built one after another. Prefix cache on and off:
+   ``generate()`` (64 new tokens each) of a 1024-token prefix + 128-token
+   tail, then 7 requests sharing the prefix, a request ending mid-page and
+   one extending it (a copy-on-write adoption whose page must equal its
+   source byte for byte, the int8 values and the scale tile); prefill
+   tokens computed, hit rate, tokens saved, COW copies, the 7 requests'
+   prefill ms; streams equal or parting at a near-tie; a fully cached
+   prompt prefilling >= 1 token; (bf16) the hits' continuation logits
+   against the dense fp32 forward (RMS within 2x the dense bf16
+   forward's). Spec decode at k = 3 and 7: 4 prompts repeating a 64-token
+   span 8 times and 4 random ones, 128 new tokens through ``generate()``
+   against the plain pipeline (streams equal or parting at a near-tie;
+   K5's launches from the verify steps; the pool at its baseline), one
+   ``decode_pipeline`` run with an oracle proposer replaying the plain
+   streams (every draft accepted up to a row's first near-tie), a
+   reject-heavy run, and a verify step (under
+   ``set_sync_debug_mode("error")`` once) beside a plain step, wall and
+   device ms with K5's share. Phase 3 holds K5 at the verify step's shapes
+   (8 slots of 2, 4 and 8 rows, Hkv 32 and 8, bf16 and int8, one slot
+   across a page edge; the ``k5-verify`` line times k = 3 beside k = 2).
+
+The last two lines are the kernel table (58 rows, K5 at the verify step's
+shape among them) and ``{"ok": true,
 "device": ...}`` as JSON. Run from the repository root: ``python3 chip_smoke.py``.
 """
 
@@ -571,6 +595,7 @@ def check_kernels(dev):
     check_grouped_matmul(dev, g, randn, record)
     check_paged_shapes(dev, g, randn, record)
     check_chunk_shapes(dev, g, randn, record)
+    check_verify_shapes(dev, g, randn, record)
     paged_attributes(dev)
     return rows
 
@@ -966,6 +991,76 @@ def check_chunk_shapes(dev, g, randn, record):
     torch.cuda.empty_cache()
 
 
+# K5 at the verify step's shapes (phase 17): S = 8 sequences of k + 1 rows
+# (Cs = 2, 4, 8: k = 1, 3, 7), 32 query heads over 32 or 8 kv heads, pages of
+# 128, bf16 and int8. Slot 1 starts mid-page with its rows across the page
+# boundary at 128; the others sit at the contexts of phase 17's sequences.
+# The k = 3 case (Hkv = 32, bf16) is the kernel table's verify row; Cs = 3
+# (k = 2) is timed beside it, the k + 1 that is no power of two.
+V_Q0 = [575, None, 1090, 1250, 700, 513, 1023, 640]
+V_CS = (2, 4, 8)
+V_BS = 128
+
+
+def verify_starts(Cs):
+    return [q if q is not None else V_BS - Cs // 2 for q in V_Q0]
+
+
+def check_verify_shapes(dev, g, randn, record):
+    """K5 over verify-shaped slots against its plain version (each rerun
+    bitwise under ``bitwise_reruns``); times the k = 3 row and Cs = 3 beside
+    it, and prints the ``k5-verify`` line."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels.kv_quant import kv_quantize_rows, scales_to_tiles
+    from deepspeed_tpu_torch.ops.kernels.paged_chunk import (
+        paged_chunk_attention_batched, paged_chunk_attention_batched_plain)
+    H, D, S = 32, 128, len(V_Q0)
+    times = {}
+    for Hkv in (32, 8):
+        for quant in (False, True):
+            for Cs in V_CS + ((3,) if Hkv == 32 and not quant else ()):
+                q0 = verify_starts(Cs)
+                ctxs = [q + Cs for q in q0]
+                MB = -(-max(ctxs) // V_BS) + 1
+                NB = sum(-(-c // V_BS) for c in ctxs) + 2
+                bt = block_tables(ctxs, V_BS, MB, NB, dev)
+                kw = {}
+                if quant:
+                    x = torch.randn(NB, 2, Hkv, V_BS, D, generator=g, device=dev)
+                    pool, scl = kv_quantize_rows(x)
+                    kw["kv_scales"] = scales_to_tiles(scl).contiguous()
+                    del x, scl
+                else:
+                    pool = randn(NB, 2, Hkv, V_BS, D)
+                qc = randn(S, Cs, H, D)
+                args = (qc, pool, bt, torch.tensor(q0, dtype=torch.int32, device=dev),
+                        torch.tensor(ctxs, dtype=torch.int32, device=dev))
+                out = paged_chunk_attention_batched(*args, **kw)
+                ref = paged_chunk_attention_batched_plain(*args, **kw)
+                torch.cuda.synchronize()
+                name = "paged_chunk_int8" if quant else "paged_chunk"
+                case = (f"verify k={Cs - 1}: S={S}x{Cs} rows H={H} Hkv={Hkv} D={D} bs={V_BS} "
+                        f"q0={q0}")
+                timed = Hkv == 32 and not quant and Cs in (3, 4)
+                extra = {}
+                if timed:
+                    vis = sum(q + r + 1 for q in q0 for r in range(Cs))
+                    nbytes = 2 * qc.numel() * 2 + sum(ctxs) * Hkv * D * 2 * 2 \
+                        + bt.numel() * 4 + 2 * S * 4
+                    b_ms, b_by = bound(nbytes, 4 * D * H * vis)
+                    extra = dict(ms=time_ms(lambda: paged_chunk_attention_batched(*args)),
+                                 plain_ms=time_ms(lambda: paged_chunk_attention_batched_plain(
+                                     *args), 5, 1),
+                                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
+                    times[f"Cs={Cs}"] = extra
+                if Cs == 4 and timed:
+                    record("paged_chunk_verify", case, err((out, ref)), row=True, **extra)
+                record(name, case, err((out, ref)))
+                del pool, kw
+    print("k5-verify " + json.dumps({"cases": times, "nvidia_smi": smi_line()}), flush=True)
+    torch.cuda.empty_cache()
+
+
 def paged_attributes(dev):
     """The ``paged-kernels`` line: each instance of K5 (with and without
     ALiBi), the decode kernel and K7's partials kernel (registers, spill
@@ -989,7 +1084,8 @@ def paged_attributes(dev):
                 attrs[f"{kind}/{'int8' if int8 else 'bf16'}/D{D}"] = read_attributes(
                     f"dstorch_paged_{kind}_attrs", int8, D, PAGED_ATTR_CAP)
     # K5's blocks at each main path's pass: (slots, rows a slot, H, Hkv)
-    passes = (("Llama-2-7B", 6, 128, 32, 32), ("Llama-2-13B int8", 6, 128, 40, 40),
+    passes = (("Llama-2-7B", 6, 128, 32, 32), ("Llama-2-7B verify k=3", 8, 4, 32, 32),
+              ("Llama-2-7B verify k=7", 8, 8, 32, 32), ("Llama-2-13B int8", 6, 128, 40, 40),
               ("Mistral-7B", 64, 128, 32, 8), ("BLOOM-560M", 6, 128, 16, 16),
               ("BLOOM-7b1 int8", 6, 128, 32, 32), ("phi-2", 6, 128, 32, 32))
     blocks = {f"{k} {NC}x{Cs} H={H} Hkv={Hkv}": int(np.prod(chunk_grid(NC, Cs, H, Hkv)))
@@ -2781,7 +2877,8 @@ def dense_quant_logits(engine, cfg, ids, rows, dt, n_full=0, kv_int8=True, route
                        forced=None):
     """What the engine computes, as a dense causal forward over one token
     sequence ``ids`` [T]: every projection is ``_mm``'s function over the
-    engine's own int8 weights (f32 sum, column scale, result in ``dt``),
+    engine's own weights (int8: f32 sum, column scale, result in ``dt``; a
+    plain weight cast to ``dt`` as its matmul runs),
     and attention reads K and V at the values the int8 pages store
     (``kv_write_dequant``; at full precision with ``kv_int8=False``, a
     model-dtype pool), except for the first ``n_full`` positions when
@@ -2801,7 +2898,9 @@ def dense_quant_logits(engine, cfg, ids, rows, dt, n_full=0, kv_int8=True, route
     from deepspeed_tpu_torch.ops.kernels.quantized_matmul import quantized_matmul_plain
 
     def mm(x, w):
-        return quantized_matmul_plain(x, w["w8"], w["scale"])
+        if isinstance(w, dict):
+            return quantized_matmul_plain(x, w["w8"], w["scale"])
+        return x @ w.to(dt)
 
     W = engine.weights
     H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -4957,6 +5056,521 @@ def run_gemma():
     return run_llama_flags(16, "Gemma-7B", cfg, check)
 
 
+# --------------------------------------------------------------------------- #
+# phase 17: the prefix cache and speculative decoding on Llama-2-7B
+# --------------------------------------------------------------------------- #
+
+# phase 4's pages of 128 (they meet the int8 pool's alignment gate at Hkv 32);
+# 80 pages hold the cache-off engine's seven 1216-token sequences at once
+P17_POOL = {"kv_cache": {"block_size": 128, "num_blocks": 80}, "seed": 0}
+P17_PREFIX, P17_TAIL, P17_NEW = 1024, 128, 64
+P17_SHARED = 7            # requests after the first that share its prefix
+P17_SEED_TAIL = 64        # a request ending mid-page: its flush files a partial page
+P17_COW_TAIL = 100        # the COW request: the seed's tokens, then its own
+P17_DENSE = 3             # cache hits whose continuation logits meet the dense forward
+SPEC_KS = (3, 7)
+SPEC_SPAN, SPEC_REPEATS, SPEC_NEW = 64, 8, 128
+P17_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk", "splitk_merge")
+
+
+class OracleProposer:
+    """Drafts that replay known greedy streams (prompt + stream): while a
+    row's history is a prefix of its stream, every draft is right."""
+
+    def __init__(self, prompts, streams):
+        self.fulls = [np.concatenate([p, np.asarray(s, np.int32)]) for p, s in zip(prompts, streams)]
+
+    def propose(self, history, k):
+        h = np.asarray(history, np.int32)
+        for full in self.fulls:
+            if len(full) >= len(h) and np.array_equal(full[:len(h)], h):
+                return full[len(h):len(h) + k]
+        return h[:0]
+
+
+@contextlib.contextmanager
+def put_timer(engine, reset=False):
+    """Within the block, each prefill of ``generate`` (the engine's
+    ``_put_nofetch``) is timed on the host clock between two device syncs,
+    its wall ms appended to the yielded list; ``reset`` zeroes the launch
+    counts after it, so they hold the decode's launches only."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels import reset_launches
+    put = engine._put_nofetch
+    times = []
+
+    def timed(uids, toks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        put(uids, toks)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if reset:
+            reset_launches()
+
+    engine._put_nofetch = timed
+    try:
+        yield times
+    finally:
+        del engine._put_nofetch
+
+
+@contextlib.contextmanager
+def noting_full(engine):
+    """Within the block, each sequence's prefill-from-zero pass is noted in
+    the yielded dict, uid -> that pass's rows, which attend each other at
+    full precision (phase 6's rule for :func:`dense_quant_logits`)."""
+    n_full = {}
+    complete = engine.scheduler.complete_pass
+
+    def noting(batch):
+        if batch.pure_prefill:
+            for u in batch.chunk_uids:
+                n_full.setdefault(u, engine.scheduler.seqs[u].in_flight_tokens)
+        return complete(batch)
+
+    engine.scheduler.complete_pass = noting
+    try:
+        yield n_full
+    finally:
+        del engine.scheduler.complete_pass
+
+
+def dense_rows(engine, model, seq, rows, int8, n_full=0):
+    """The dense fp32 and bf16 forwards' logits [len(rows), V] at ``rows``
+    of the token sequence ``seq``: the model's own forward for bf16 pages;
+    :func:`dense_quant_logits` over the engine's int8 pages, ``n_full``
+    the rows of the sequence's prefill-from-zero pass."""
+    import torch
+    ids = torch.from_numpy(np.asarray(seq, np.int64)).cuda()
+    r = torch.as_tensor(rows, device="cuda")
+    if int8:
+        return tuple(dense_quant_logits(engine, model.config, ids, r, dt, n_full)
+                     for dt in (torch.float32, torch.bfloat16))
+    return tuple(model.forward_logits(ids[None], compute_dtype=dt)[0, r]
+                 for dt in (torch.float32, torch.bfloat16))
+
+
+def rows_vs_dense(label, engine, model, seqs, rows, eng, int8, n_full):
+    """Engine logits ``eng`` [N, V], row ``rows[i]`` of sequence ``seqs[i]``
+    each, against the dense forward (:func:`dense_rows`, ``n_full[i]``):
+    rms within 2x the dense bf16 forward's own against fp32. A control,
+    the same logits held one row late (against the fp32 row before), must
+    break that limit. Returns the numbers to print."""
+    import torch
+    if not torch.isfinite(eng).all():
+        raise AssertionError(f"{label}: logits are not finite")
+    r32, r16, late = [], [], []
+    for seq, r, nf in zip(seqs, rows, n_full):
+        a, b = dense_rows(engine, model, seq, [r - 1, r], int8, nf)
+        r32.append(a[1])
+        r16.append(b[1])
+        late.append(a[0])
+        del a, b
+    r32, r16, late = torch.stack(r32), torch.stack(r16), torch.stack(late)
+
+    def rms(d):
+        return float(d.pow(2).mean().sqrt())
+
+    out = {"engine_rms": rms(eng - r32), "dense_bf16_rms": rms(r16 - r32),
+           "dense_bf16_max": float((r16 - r32).abs().max()),
+           "one_row_late_rms": rms(eng - late), "n_full": list(n_full)}
+    out["limit"] = 2 * out["dense_bf16_rms"]
+    if not out["engine_rms"] <= out["limit"]:
+        raise AssertionError(f"{label}: logits rms {out['engine_rms']} > 2 x dense bf16 "
+                             f"{out['dense_bf16_rms']}")
+    if not out["one_row_late_rms"] > out["limit"]:
+        raise AssertionError(f"{label}: the control (logits one row late, rms "
+                             f"{out['one_row_late_rms']}) passed the limit {out['limit']}")
+    return out
+
+
+def p17_model():
+    import torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LlamaConfig.llama2_7b(dtype=torch.bfloat16)
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    return model
+
+
+def p17_engine(model, int8=False, **conf):
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    conf = {**P17_POOL, **conf}
+    if int8:
+        conf["kv_quant"] = {"enabled": True}
+    return InferenceEngineV2(model, conf, model.flat_params())
+
+
+def p17_free(engine):
+    import torch
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dense_gap(model, seq):
+    """Top-2 gap of the dense fp32 forward's logits after ``seq``."""
+    import torch
+    ids = torch.from_numpy(np.asarray(seq, np.int64)).cuda()[None]
+    top = torch.topk(model.forward_logits(ids, compute_dtype=torch.float32)[0, -1], 2).values
+    return float(top[0] - top[1])
+
+
+def stream_tie(label, model, prompts, got, ref, limit):
+    """``same_or_near_tie`` over generated streams (prompt stripped; equal
+    lengths compared)."""
+    n = min(min(len(g), len(r)) for g, r in zip(got, ref))
+    a = np.array([g[:n] for g in got])
+    b = np.array([r[:n] for r in ref])
+    same_or_near_tie(label, a, b, lambda i, step: dense_gap(
+        model, np.concatenate([prompts[i], b[i, :step]])), limit)
+
+
+def prefix_requests(V):
+    rng = np.random.RandomState(17)
+
+    def toks(n):
+        return rng.randint(0, V, n).astype(np.int32)
+
+    prefix = toks(P17_PREFIX)
+    first = np.concatenate([prefix, toks(P17_TAIL)])
+    shared = [np.concatenate([prefix, toks(P17_TAIL)]) for _ in range(P17_SHARED)]
+    seed = np.concatenate([prefix, toks(P17_SEED_TAIL)])
+    cow = np.concatenate([seed, toks(P17_COW_TAIL)])
+    return first, shared, seed, cow
+
+
+def serve_prefix(model, requests, cache, int8):
+    """One engine, cache on or off: ``generate`` (64 new tokens each) of the
+    first request, then the 7 sharing its prefix, the seed, the COW request;
+    then ``put`` of the first P17_DENSE shared prompts again (fully cached
+    but for their last page: a continuation pass), and the first request
+    again. With the cache on, the hits' logits are held to the dense
+    forward (:func:`rows_vs_dense`). Returns what phase 17 prints and
+    checks."""
+    import torch
+    engine = p17_engine(model, int8, prefix_cache={"enabled": cache})
+    first, shared, seed, cow = requests
+    cow_bytes = []
+    if cache:
+        kv, copy = engine.kv, engine.prefix_cache.cow_fn
+
+        def checked(src, dst):
+            copy(src, dst)
+            same = torch.equal(kv.kv[:, src], kv.kv[:, dst])
+            if kv.scales is not None:
+                same = same and torch.equal(kv.scales[:, src].view(torch.int32),
+                                            kv.scales[:, dst].view(torch.int32))
+            cow_bytes.append(bool(same))
+
+        engine.prefix_cache.cow_fn = checked
+    with put_timer(engine) as put_ms, noting_full(engine) as n_full:
+        streams = engine.generate([first], max_new_tokens=P17_NEW)
+        streams += engine.generate(shared, max_new_tokens=P17_NEW)
+        streams += engine.generate([seed], max_new_tokens=P17_NEW)
+        streams += engine.generate([cow], max_new_tokens=P17_NEW)
+    prompts = [first] + shared + [seed, cow]
+    for p, s in zip(prompts, streams):
+        if len(s) != len(p) + P17_NEW or list(s[:len(p)]) != list(p):
+            raise AssertionError("phase 17: generate() returned a malformed stream")
+    sched = engine.scheduler
+    out = {"streams": [s[len(p):] for p, s in zip(prompts, streams)],
+           "prefill_tokens": sched.prefill_tokens_completed, "put_ms_shared": put_ms[1],
+           "cow_bytes_equal": cow_bytes}
+    before = sched.prefill_tokens_completed
+    uids = [200 + i for i in range(P17_DENSE)]
+    out["hit_logits"] = engine.put(uids, shared[:P17_DENSE])
+    if cache:
+        # the hits' prefix pages are the first request's, whose
+        # prefill-from-zero pass (the first noted) attended its own rows at
+        # full precision; each hit's tail attends every row at pool values
+        nf = next(iter(n_full.values()))
+        out["hit_dense"] = rows_vs_dense(
+            f"phase 17 {'int8 KV' if int8 else 'bf16'} continuation after a hit", engine,
+            model, shared[:P17_DENSE], [len(p) - 1 for p in shared[:P17_DENSE]],
+            torch.from_numpy(out["hit_logits"]).cuda(), int8, [nf] * P17_DENSE)
+    engine.flush(uids)
+    again = sched.prefill_tokens_completed
+    out["refill_logits"] = engine.put([210], [first])
+    out["full_prompt_prefill"] = sched.prefill_tokens_completed - again
+    out["hit_prefill"] = again - before
+    engine.flush([210])
+    if cache:
+        st = engine.prefix_cache.stats
+        out.update(hit_rate=st.hit_rate, tokens_saved=st.tokens_saved,
+                   cow_copies=st.cow_copies, evictions=st.evictions)
+        engine.prefix_cache.evict(engine.allocator.total_blocks)
+    if engine.free_blocks != engine.allocator.total_blocks:
+        raise AssertionError(f"phase 17: free blocks {engine.free_blocks} != "
+                             f"{engine.allocator.total_blocks} after the prefix runs")
+    p17_free(engine)
+    return out
+
+
+def prefix_phase(model, int8, tie):
+    """The prefix cache on and off (bf16 or int8 pages): counters, the
+    shared requests' put() ms, streams equal or parting at a near-tie, the
+    COW page byte for byte, a fully cached prompt prefilling >= 1 token,
+    and the hits' continuation logits against the dense forward. Returns
+    the tie limit (bf16: 2x the dense bf16 forward's largest logit error
+    at those rows; the int8 pages' streams are held to the bf16 one)."""
+    label = "int8 KV" if int8 else "bf16"
+    requests = prefix_requests(model.config.vocab_size)
+    on = serve_prefix(model, requests, True, int8)
+    off = serve_prefix(model, requests, False, int8)
+    first, shared, seed, cow = requests
+    if not int8:
+        tie = 2 * on["hit_dense"]["dense_bf16_max"]
+    on_off = float(np.abs(on["hit_logits"] - off["hit_logits"]).max())
+    print("prefix-cache " + json.dumps({
+        "pool": label, "prefill_tokens": {"on": on["prefill_tokens"],
+                                          "off": off["prefill_tokens"]},
+        "hit_rate": on["hit_rate"], "tokens_saved": on["tokens_saved"],
+        "cow_copies": on["cow_copies"], "cow_bytes_equal": on["cow_bytes_equal"],
+        "evictions": on["evictions"],
+        "put_ms_7_shared": {"on": on["put_ms_shared"], "off": off["put_ms_shared"]},
+        "hit_prefill_tokens": {"on": on["hit_prefill"], "off": off["hit_prefill"]},
+        "fully_cached_prompt_prefill": on["full_prompt_prefill"],
+        "hit_logits_on_vs_off_max": on_off, "continuation_vs_dense": on["hit_dense"],
+        "tie_limit": tie, "nvidia_smi": smi_line()}), flush=True)
+    if on["cow_copies"] < 1 or on["cow_bytes_equal"] != [True] * on["cow_copies"]:
+        raise AssertionError(f"phase 17 {label}: COW copies {on['cow_bytes_equal']}")
+    if not 1 <= on["full_prompt_prefill"] <= P17_TAIL:
+        raise AssertionError(f"phase 17 {label}: a fully cached prompt prefilled "
+                             f"{on['full_prompt_prefill']} tokens")
+    if not on["prefill_tokens"] < off["prefill_tokens"] or on["tokens_saved"] <= 0:
+        raise AssertionError(f"phase 17 {label}: the cache saved no prefill")
+    prompts = [first] + shared + [seed, cow]
+    stream_tie(f"Llama-2-7B {label} prefix cache on vs off", model, prompts,
+               on["streams"], off["streams"], tie)
+    return tie
+
+
+def spec_prompts(V):
+    rng = np.random.RandomState(18)
+    rep = [np.tile(rng.randint(0, V, SPEC_SPAN), SPEC_REPEATS).astype(np.int32)
+           for _ in range(4)]
+    rand = [rng.randint(0, V, SPEC_SPAN * SPEC_REPEATS).astype(np.int32) for _ in range(4)]
+    return rep + rand
+
+
+def timed_generate(engine, prompts):
+    """``generate`` (SPEC_NEW new tokens) with its prefill timed apart and
+    the launch counts of its decode only. Returns (streams, decode s,
+    launches)."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES
+    torch.cuda.synchronize()
+    with put_timer(engine, reset=True) as put_ms:
+        t0 = time.perf_counter()
+        outs = engine.generate(prompts, max_new_tokens=SPEC_NEW)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    for p, o in zip(prompts, outs):
+        if len(o) != len(p) + SPEC_NEW or list(o[:len(p)]) != list(p):
+            raise AssertionError("phase 17: generate() returned a malformed stream")
+    return [o[len(p):] for p, o in zip(prompts, outs)], total - put_ms[0] / 1e3, launches
+
+
+def step_times(engine, model, prompts, streams, k, int8):
+    """The verify step at draft length ``k`` beside the plain decode step,
+    on the phase's 8 sequences, each drafting the next k tokens of its
+    plain stream in ``streams``: one verify call under
+    ``set_sync_debug_mode("error")``, its final logits (each row's last
+    accepted) held to the dense forward (:func:`rows_vs_dense`); then each
+    step's wall ms (host clock between syncs: median and least of 5 calls
+    after 2 warm-up calls) and device ms with the port's kernels' share
+    (``device_time``)."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.ragged.ragged_batch import to_device
+    n = len(prompts)
+    uids = list(range(300, 300 + n))
+    with noting_full(engine) as n_full:
+        engine.put(uids, prompts)
+    db = engine.scheduler.decode_batch(uids, k + 2, engine.scratch_block)
+    dev = engine.device
+    bt, pos = to_device(db.block_tables, dev), to_device(db.positions, dev)
+    ids = engine._sample_device_padded(uids, False, 1.0, 0)
+    rng = np.random.RandomState(k)
+    draft_h = rng.randint(0, engine.spec.vocab_size, (db.bucket, k)).astype(np.int32)
+    for i, row in enumerate(streams):
+        draft_h[i] = row[1:k + 1]
+    draft = to_device(draft_h, dev)
+    n_draft = to_device(np.full((db.bucket,), k, np.int32), dev)
+    fn = engine._verify_fn(k)
+
+    def verify():
+        return fn(engine.weights, engine.kv.kv, ids, draft, n_draft, pos, bt, pos + 1,
+                  kv_scales=engine.kv.scales)
+
+    def plain():
+        return engine._step_rungs[1](engine.weights, engine.kv.kv, ids, pos, bt, pos + 1,
+                                     engine.generator, False, 0, 1.0,
+                                     kv_scales=engine.kv.scales)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        accept_row, _, final_logits = verify()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if tuple(accept_row.shape) != (2, db.bucket):
+        raise AssertionError(f"phase 17: accept row {tuple(accept_row.shape)}")
+    accepted = accept_row[0, :n].cpu().numpy()
+    first = ids[:n].cpu().numpy()
+    seqs = [np.concatenate([p, first[i:i + 1], draft_h[i]]) for i, p in enumerate(prompts)]
+    check = rows_vs_dense(
+        f"phase 17 {'int8 KV' if int8 else 'bf16'} k={k} verify", engine, model, seqs,
+        [len(p) + int(a) for p, a in zip(prompts, accepted)], final_logits[:n].float(),
+        int8, [n_full.get(u, 0) for u in uids])
+    out = {"verify_vs_dense": {**check, "accepted": accepted.tolist()}}
+    for label, step in (("verify", verify), ("plain", plain)):
+        walls = []
+        for i in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            if i >= 2:                      # two warm-up calls
+                walls.append((time.perf_counter() - t0) * 1e3)
+        prof = device_time(step, P17_NAMES)
+        out[label] = {"wall_ms_median": float(np.median(walls)), "wall_ms_min": min(walls),
+                      "device_ms": prof["device_ms"],
+                      "port_kernels_ms": prof["port_kernels_ms"]}
+    v = out["verify"]
+    v["paged_chunk_share"] = v["port_kernels_ms"]["paged_chunk"] / v["device_ms"]
+    engine.flush(uids)
+    return out
+
+
+def gap_share(model, prompts, streams, rows, limit):
+    """The near-tie check's reach: over the plain streams of ``rows``, the
+    dense fp32 forward's top-2 gap at every generated position (median, and
+    the share under ``limit``, where two streams may part)."""
+    import torch
+    gaps = []
+    for i in rows:
+        seq = np.concatenate([prompts[i], np.asarray(streams[i], np.int32)])
+        ids = torch.from_numpy(seq.astype(np.int64)).cuda()[None]
+        lg = model.forward_logits(ids, compute_dtype=torch.float32)[0, len(prompts[i]) - 1:-1]
+        top = torch.topk(lg, 2, dim=-1).values
+        gaps.append((top[:, 0] - top[:, 1]).cpu().numpy())
+    gaps = np.concatenate(gaps)
+    return {"positions": int(gaps.size), "median_top2_gap": float(np.median(gaps)),
+            "share_under_limit": float((gaps < limit).mean()), "limit": limit}
+
+
+def spec_phase(model, int8, tie):
+    """Speculative decoding at k = 3 and 7 against the plain pipeline over
+    one pool type. Returns the k = 3 run's K5 launches (bf16)."""
+    import torch
+    label = "int8 KV" if int8 else "bf16"
+    prompts = spec_prompts(model.config.vocab_size)
+    n = len(prompts)
+    engine = p17_engine(model, int8)
+    plain, t_plain, _ = timed_generate(engine, prompts)
+    p17_free(engine)
+    if not int8:
+        print("near-tie reach " + json.dumps(
+            gap_share(model, prompts, plain, (0, n - 1), tie)), flush=True)
+    k5 = "paged_chunk_int8" if int8 else "paged_chunk"
+    verify_launches = None
+    for k in SPEC_KS:
+        engine = p17_engine(model, int8, spec_decode={"enabled": True, "k": k})
+        total = engine.allocator.total_blocks
+        engine.spec_stats.reset()
+        got, t_spec, launches = timed_generate(engine, prompts)
+        st = engine.spec_stats
+        gen_stats = {"steps": st.steps, "acceptance_rate": st.acceptance_rate,
+                     "tokens_per_step": st.tokens_per_step,
+                     "tokens_per_row_step": st.tokens / max(1, st.rows)}
+        if not launches.get(k5):
+            raise AssertionError(f"phase 17 k={k} {label}: no {k5} launch in the verify steps")
+        if engine.free_blocks != total:
+            raise AssertionError(f"phase 17 k={k} {label}: free blocks {engine.free_blocks} "
+                                 f"!= {total} after generate()")
+        stream_tie(f"Llama-2-7B {label} spec k={k} vs plain", model, prompts, got, plain, tie)
+        # the oracle replays the plain streams: every draft is accepted up
+        # to the first near-tie a row meets
+        uids = list(range(100, 100 + n))
+        engine.put(uids, prompts)
+        pipe = engine.decode_pipeline(uids)
+        pipe.proposer = OracleProposer(prompts, plain)
+        per_step = []
+        engine.spec_stats.reset()
+        steps = SPEC_NEW // (k + 1) - 1
+        oracle = pipe.run(steps, on_tokens=lambda j, u, toks: per_step.append(
+            [len(t) for t in toks]))
+        ost = {"steps": steps, "acceptance_rate": engine.spec_stats.acceptance_rate,
+               "tokens_per_step": engine.spec_stats.tokens_per_step}
+        full_until_tie = []
+        for i in range(n):
+            diff = np.flatnonzero(np.asarray(oracle[i]) != np.asarray(plain[i][:len(oracle[i])]))
+            cut = int(diff[0]) if diff.size else len(oracle[i])
+            done = 0
+            for j in range(steps):
+                # a step that emits the token before the first difference
+                # rejected the draft the difference replaced
+                if done + per_step[j][i] >= cut:
+                    break
+                if per_step[j][i] != k + 1:
+                    raise AssertionError(f"phase 17 k={k}: the oracle's row {i} accepted "
+                                         f"{per_step[j][i] - 1} of {k} at step {j} before any "
+                                         "difference from the plain stream")
+                done += per_step[j][i]
+            full_until_tie.append(cut)
+        stream_tie(f"Llama-2-7B {label} spec k={k} oracle vs plain", model, prompts,
+                   oracle, plain, tie)
+        for u in uids:
+            seq = engine.scheduler.seqs[u]
+            if len(seq.blocks) != -(-seq.seen_tokens // 128):
+                raise AssertionError(f"phase 17 k={k}: reserved pages not rolled back")
+        engine.flush(uids)
+        # the reject-heavy run: garbage drafts on every row at full k
+        engine.put(uids, prompts)
+        pipe = engine.decode_pipeline(uids)
+        pipe.proposer = type("Garbage", (), {"propose": lambda self, h, kk: np.arange(
+            1, kk + 1, dtype=np.int32)})()
+        pipe.run(8)
+        engine.flush(uids)
+        if engine.free_blocks != total:
+            raise AssertionError(f"phase 17 k={k}: free blocks {engine.free_blocks} != "
+                                 f"{total} after the reject-heavy run")
+        times = step_times(engine, model, prompts, plain, k, int8)
+        row = {"pool": label, "k": k, "generate": gen_stats,
+               "decode_tok_s": {"spec": n * SPEC_NEW / t_spec, "plain": n * SPEC_NEW / t_plain},
+               "oracle": {**ost, "tokens_equal_to_plain": full_until_tie},
+               "decode_launches": launches, "step_ms": times, "nvidia_smi": smi_line()}
+        print("spec-decode " + json.dumps(row), flush=True)
+        if k == 3 and not int8:
+            verify_launches = launches.get(k5, 0)
+        p17_free(engine)
+    return verify_launches
+
+
+def run_prefix_spec():
+    """Phase 17: the prefix cache and speculative decoding on Llama-2-7B at
+    full width and depth (random bf16 weights from seed 0), over bf16 and
+    int8 KV pages. Returns the K5 verify row's launch count."""
+    import torch
+    t0 = time.perf_counter()
+    model = p17_model()
+    tie = prefix_phase(model, False, None)
+    launches = spec_phase(model, False, tie)
+    prefix_phase(model, True, tie)
+    spec_phase(model, True, tie)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 ATTN_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "flash_fwd", "flash_bwd_dq",
               "flash_bwd_dkv")
 Q_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk", "splitk_merge",
@@ -5054,6 +5668,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run_gemma()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 17: the K5 verify row takes the k = 3 verify steps' count
+    launches["paged_chunk_verify"] = run_prefix_spec()
     # modules by full name: the package re-exports same-named functions
     from deepspeed_tpu_torch.ops.kernels import paged_chunk, paged_decode, paged_splitk
     from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import KERNELS as K9_KERNELS
@@ -5064,6 +5682,7 @@ def main() -> int:
     for mod in ("flash_packed", "paged_chunk", "paged_decode"):
         m = __import__(f"deepspeed_tpu_torch.ops.kernels.{mod}", fromlist=["x"])
         sources[mod] = (m.SOURCE, m.REPLACES)
+    sources["paged_chunk_verify"] = (paged_chunk.SOURCE, paged_chunk.REPLACES_VERIFY)
     sources.update(KERNELS)
     sources.update({
         qmm.GEMV: (qmm.SOURCE, qmm.REPLACES), qmm.MMA: (qmm.SOURCE, qmm.REPLACES),

@@ -74,7 +74,8 @@ class AttentionKernelSpec:
         """The build-time capability table, in the JAX package's order and
         words (its ``validate_engine_build``, then its engine's ALiBi
         refusal): int8 KV pages with ``tensor_parallel > 1`` and the int8
-        pool's alignment gate (``ValueError``), then ALiBi with
+        pool's alignment gate (``ValueError``), the prefix cache and spec
+        decode with a sliding-window model, then ALiBi with
         ``tensor_parallel > 1``. What is absent composes: int8 pages under a
         sliding window and under ALiBi. Then MoE with packed int4 weights
         (``NotImplementedError``: the grouped expert products take int8 or
@@ -92,6 +93,16 @@ class AttentionKernelSpec:
                     "scale-tile lane alignment; got head_dim="
                     f"{spec.head_dim}, num_kv_heads={spec.num_kv_heads}, "
                     f"block_size={cfg.kv_cache.block_size})")
+        if cfg.prefix_cache.enabled and spec.window is not None:
+            raise NotImplementedError(
+                "prefix_cache with a sliding-window model is not wired: "
+                "the page ring overwrites pages in place, which would rot "
+                "cached content under a live sharer")
+        if cfg.spec_decode.enabled and spec.window is not None:
+            raise NotImplementedError(
+                "spec_decode with a sliding-window model is not wired "
+                "(the page ring aliases the verify step's k+1-ahead "
+                "write span)")
         if spec.alibi and cfg.tensor_parallel > 1:
             # the JAX package's refusal (engine_v2.py:216-226)
             raise NotImplementedError(

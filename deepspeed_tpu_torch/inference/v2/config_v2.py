@@ -5,10 +5,11 @@ the state manager (tracked-sequence capacity, ragged token budget), KV pool
 sizing, and the feature sections, with the JAX package's validation
 messages. Carried: int8 and packed int4 weights (``quantization.weight_bits
 = 8`` or ``4``), int8 KV pages (``kv_quant``, under a sliding window and
-ALiBi too) and the flash-decoding split ladder (``attention.decode_splits``).
-Sections whose feature the port does not carry yet (``spec_decode``,
-``prefix_cache``, ``lora``, ``tensor_parallel > 1``, a non-empty
-``serving`` section) parse with their usual keys and raise
+ALiBi too), the flash-decoding split ladder (``attention.decode_splits``),
+the prefix cache (``prefix_cache``) and speculative decoding
+(``spec_decode``), each validated in the JAX package's words. Sections
+whose feature the port does not carry yet (``lora``, ``tensor_parallel >
+1``, a non-empty ``serving`` section) parse with their usual keys and raise
 ``NotImplementedError`` naming the feature when it is switched on.
 
 The ``compile`` section configures XLA's compile cache and AOT warmup in the
@@ -88,9 +89,23 @@ class KVQuantConfig:
 
 @dataclass
 class PrefixCacheConfig:
+    """Automatic prefix caching (``prefix_cache.py``): completed sequences'
+    KV pages stay in a radix tree keyed on token blocks, and new prompts
+    reuse every cached whole-block prefix. ``max_cached_blocks`` caps the
+    pages the tree may hold (None: bounded by the pool; idle cached pages
+    are evicted LRU when an allocation would fail); ``eviction`` must be
+    ``"lru"``."""
     enabled: bool = False
     max_cached_blocks: Optional[int] = None
     eviction: str = "lru"
+
+    def __post_init__(self):
+        if self.eviction != "lru":
+            raise ValueError(
+                f"prefix_cache.eviction must be 'lru', got {self.eviction!r}")
+        if self.max_cached_blocks is not None and self.max_cached_blocks < 1:
+            raise ValueError("prefix_cache.max_cached_blocks must be >= 1 "
+                             f"(or None), got {self.max_cached_blocks}")
 
 
 @dataclass
@@ -118,11 +133,33 @@ class CompileConfig:
 
 @dataclass
 class SpecDecodeConfig:
+    """Speculative decoding (``spec/``): ``engine.decode_pipeline`` returns
+    a ``SpecDecodePipeline`` for greedy requests, which drafts up to ``k``
+    tokens a sequence from its own history (n-gram matching of a suffix of
+    ``min_match`` to ``max_ngram`` tokens), verifies them in one ragged
+    forward (``ragged_model.build_verify_step``) and emits the accepted
+    prefix plus one greedy token. ``adaptive``: a reject drops a row's
+    draft budget to accepted + 1, a full accept doubles it back toward
+    ``k``. The JAX package also warns when ``k + 1`` is not a power of two
+    (its TPU kernel's q-block); the port's chunk kernel packs a slot's
+    (row, head) pairs into blocks of 64 whatever ``k`` is, so the port has
+    no such warning."""
     enabled: bool = False
     k: int = 3
     min_match: int = 2
     max_ngram: int = 4
     adaptive: bool = True
+
+    def __post_init__(self):
+        if self.k < 1:
+            raise ValueError(f"spec_decode.k must be >= 1, got {self.k}")
+        if self.min_match < 1:
+            raise ValueError("spec_decode.min_match must be >= 1, got "
+                             f"{self.min_match}")
+        if self.max_ngram < self.min_match:
+            raise ValueError(
+                f"spec_decode.max_ngram ({self.max_ngram}) must be >= "
+                f"min_match ({self.min_match})")
 
 
 @dataclass
@@ -191,10 +228,6 @@ class RaggedInferenceEngineConfig:
     def check_slice(self) -> None:
         """Refuse every feature the port does not carry yet, by name."""
         off = []
-        if self.spec_decode.enabled:
-            off.append("spec_decode")
-        if self.prefix_cache.enabled:
-            off.append("prefix_cache")
         if self.lora.enabled:
             off.append("lora")
         if self.tensor_parallel > 1:

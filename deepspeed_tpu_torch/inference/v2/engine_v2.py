@@ -47,6 +47,17 @@ GPT-NeoX, GPT-J, BLOOM). An ALiBi model (BLOOM) binds its bias into every paged
 kernel and never takes the packed prefill pass: its pure-prefill passes run
 the paged pass at the current rung, as in the JAX package.
 
+The prefix cache (``prefix_cache.enabled``, as in the JAX package) keeps
+completed sequences' pages in a radix tree (``prefix_cache.py``): a new
+prompt adopts every cached whole-block prefix, and its uncached tail runs
+as a continuation pass through the chunk kernel; a partial cached page is
+adopted copy-on-write (``BlockedKVCache.copy_page``). Speculative decoding
+(``spec_decode.enabled``) gives greedy requests the ``SpecDecodePipeline``
+(``spec/``), whose verify step (``ragged_model.build_verify_step``) scores
+n-gram drafts through the chunk kernel; one verify function is built per
+draft length of :attr:`InferenceEngineV2.spec_k_ladder`. Neither runs
+with a sliding window (refused at build, in the JAX package's words).
+
 Sliding-window serving (Mistral, ``LlamaConfig.sliding_window``) binds the
 window into every attention kernel, and the scheduler keeps each
 sequence's KV in a page ring of ``scheduler.ring_pages`` blocks, as in the
@@ -65,6 +76,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import warnings
+
 import numpy as np
 import torch
 
@@ -73,10 +86,11 @@ from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConf
 from deepspeed_tpu_torch.inference.v2.ragged.blocked_allocator import BlockedAllocator
 from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import BlockedKVCache, KVCacheConfig
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_batch import host_to_device, to_device
+from deepspeed_tpu_torch.inference.v2.prefix_cache import Event, RadixPrefixCache
 from deepspeed_tpu_torch.inference.v2.ragged_model import (
     PAGED_PASS_KEYS, PREFILL_PASS_KEYS, LandingParams, _sample_logits, adapt_model,
     build_decode_step, build_multistep_decode, build_prefill_forward, build_ragged_forward,
-    quantize_weight_int4, quantize_weight_int8)
+    build_verify_step, quantize_weight_int4, quantize_weight_int8)
 from deepspeed_tpu_torch.inference.v2.scheduler import DynamicSplitFuseScheduler
 from deepspeed_tpu_torch.ops.kernels.kv_quant import kv_scale_tiles_shape
 from deepspeed_tpu_torch.utils.caching import LRUCache, next_pow2
@@ -94,6 +108,67 @@ class AttnSplitStats:
 
     def reset(self) -> None:
         self.rungs.clear()
+
+
+@dataclass
+class SpecDecodeStats:
+    """Counters of one engine's speculative-decode pipelines (the JAX
+    package's ``monitor/serving.py`` :115; cumulative across runs,
+    ``reset()`` between measurement windows). Per verify step:
+    ``proposed`` draft tokens offered, ``accepted`` the ones the verify
+    forward confirmed, ``tokens`` those emitted (accepted + one bonus a live
+    row); ``draft_ms`` is host time in the proposer, ``verify_ms`` the
+    launch plus the blocking drain of the accept row."""
+
+    steps: int = 0
+    rows: int = 0                    # live rows scored across steps
+    proposed: int = 0
+    accepted: int = 0
+    tokens: int = 0                  # emitted (accepted + bonus) tokens
+    draft_ms: float = 0.0
+    verify_ms: float = 0.0
+    fetch_bytes: int = 0
+
+    def record_step(self, rows: int, proposed: int, accepted: int,
+                    tokens: int, draft_s: float, verify_s: float,
+                    fetch_bytes: int) -> None:
+        self.steps += 1
+        self.rows += rows
+        self.proposed += proposed
+        self.accepted += accepted
+        self.tokens += tokens
+        self.draft_ms += 1e3 * draft_s
+        self.verify_ms += 1e3 * verify_s
+        self.fetch_bytes += int(fetch_bytes)
+
+    def reset(self) -> None:
+        self.steps = self.rows = self.proposed = self.accepted = self.tokens = 0
+        self.draft_ms = self.verify_ms = 0.0
+        self.fetch_bytes = 0
+
+    @property
+    def acceptance_rate(self) -> float:
+        return self.accepted / self.proposed if self.proposed else 0.0
+
+    @property
+    def tokens_per_step(self) -> float:
+        return self.tokens / self.steps if self.steps else 0.0
+
+    def events(self, step: int = 0) -> List[Event]:
+        """``serve/spec/*`` monitor events ``(name, value, step)``."""
+        n = max(1, self.steps)
+        pre = "serve/spec"
+        return [
+            (f"{pre}/steps", float(self.steps), step),
+            (f"{pre}/proposed", float(self.proposed), step),
+            (f"{pre}/accepted", float(self.accepted), step),
+            (f"{pre}/tokens", float(self.tokens), step),
+            (f"{pre}/acceptance_rate", self.acceptance_rate, step),
+            (f"{pre}/tokens_per_step", self.tokens_per_step, step),
+            (f"{pre}/draft_ms_per_step", self.draft_ms / n, step),
+            (f"{pre}/verify_ms_per_step", self.verify_ms / n, step),
+            (f"{pre}/fetch_bytes_per_step", self.fetch_bytes / n, step),
+        ]
 
 
 class InferenceEngineV2:
@@ -155,10 +230,21 @@ class InferenceEngineV2:
         self.scratch_block = nb
         self.kv = BlockedKVCache(kv_cfg, self.device)
         self.allocator = BlockedAllocator(nb)
-        self.scheduler = DynamicSplitFuseScheduler(sm, self.kv, self.allocator)
+        # (a window with either feature was refused by validate_engine_build)
+        self.prefix_cache: Optional[RadixPrefixCache] = None
+        if cfg.prefix_cache.enabled:
+            self.prefix_cache = RadixPrefixCache(
+                self.allocator, kv_cfg.block_size,
+                max_cached_blocks=cfg.prefix_cache.max_cached_blocks,
+                cow_fn=self.kv.copy_page)
+        self.scheduler = DynamicSplitFuseScheduler(sm, self.kv, self.allocator,
+                                                   prefix_cache=self.prefix_cache)
         # sliding-window serving (Mistral): the scheduler ring-reuses each
         # sequence's pages beyond the window, so its KV stays bounded
         self.scheduler.window = self.spec.window
+        # the n-gram proposer drafts from each sequence's history: record
+        # it even without a prefix cache
+        self.scheduler.record_history_always = cfg.spec_decode.enabled
 
         # one paged pass and one decode step per rung of the split ladder
         self._pass_rungs = {r: build_ragged_forward(self.spec, n_splits=r)
@@ -174,6 +260,11 @@ class InferenceEngineV2:
         # pin the dispatched rung (None = picked from the live context)
         self.attn_rung_override: Optional[int] = None
         self.attn_stats = AttnSplitStats()
+        # speculative decoding: one verify function per draft length (the
+        # chunk kernel serves every split rung, so the rung is no key)
+        self._verify_fns: LRUCache = LRUCache(maxsize=16)
+        self.spec_stats = SpecDecodeStats()
+        self._spec_warned_sampling = False
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
         self._last_logits: Dict[int, np.ndarray] = {}
@@ -298,6 +389,27 @@ class InferenceEngineV2:
         step)."""
         return self._step_rungs[self._attn_rung()]
 
+    @property
+    def spec_k_ladder(self) -> List[int]:
+        """The draft lengths speculation dispatches over, as in the JAX
+        package: 1, 3, 7, ... (k + 1 a power of two) below
+        ``config.spec_decode.k``, then k itself. Each step runs the smallest
+        one covering its longest draft, so a mostly unrepetitive batch
+        verifies 2 rows a sequence, not k + 1."""
+        k = self.config.spec_decode.k
+        ks, v = [], 1
+        while v < k:
+            ks.append(v)
+            v = 2 * v + 1
+        ks.append(k)
+        return sorted(set(ks))
+
+    def _verify_fn(self, k: int):
+        """The verify step for draft length ``k``
+        (:func:`build_verify_step`), built once and cached."""
+        return self._verify_fns.get_or_create(int(k),
+                                              lambda: build_verify_step(self.spec, int(k)))
+
     # ------------------------------------------------------------------ #
     # decode support
     # ------------------------------------------------------------------ #
@@ -387,10 +499,35 @@ class InferenceEngineV2:
                         temperature: float = 1.0, top_k: int = 0):
         """The steady-state decode pipeline over ``uids`` (all in steady
         decode state): while the device runs step N, the host drains step
-        N-1's token row; the only per-step transfer is one int32 row."""
+        N-1's token row; the only per-step transfer is one int32 row.
+
+        With ``config.spec_decode.enabled``, greedy requests get the
+        ``spec.SpecDecodePipeline`` (draft and verify, a variable advance a
+        step; callers branch their ``on_tokens`` shape on ``pipe.spec``).
+        Speculation is greedy-only: ``do_sample`` bypasses it with a
+        one-time warning."""
         from deepspeed_tpu_torch.inference.v2.pipeline import DecodePipeline
+        if self.config.spec_decode.enabled:
+            if not do_sample:
+                from deepspeed_tpu_torch.inference.v2.spec import SpecDecodePipeline
+                return SpecDecodePipeline(self, uids)
+            if not self._spec_warned_sampling:
+                self._spec_warned_sampling = True
+                warnings.warn(
+                    "spec_decode is greedy-only for now: "
+                    "do_sample=True bypasses speculation and runs the "
+                    "plain DecodePipeline (warned once)", stacklevel=2)
         return DecodePipeline(self, uids, do_sample=do_sample,
                               temperature=temperature, top_k=top_k)
+
+    def write_monitor_events(self, monitor, step: int = 0) -> None:
+        """Write the serving counters to ``monitor`` (anything with
+        ``write_events(list of (name, value, step))``): the prefix cache's
+        when it is on, and the spec pipelines' once one has run."""
+        if self.prefix_cache is not None:
+            monitor.write_events(self.prefix_cache.stats.events(step))
+        if self.spec_stats.steps:
+            monitor.write_events(self.spec_stats.events(step))
 
     # ------------------------------------------------------------------ #
     # KV page fabric: pages to the host and back, and page handoffs
@@ -549,9 +686,13 @@ class InferenceEngineV2:
                  eos_token_id: Optional[int] = None) -> List[List[int]]:
         """Generate continuations for a batch of prompts with continuous
         batching: prefill through ``put`` passes, then ``decode_pipeline``
-        in runs of up to 32 steps, retiring EOS'd or budget-complete
-        sequences at each drained step and recycling their blocks. Returns
-        full token lists (prompt + generation)."""
+        in runs of up to 32 steps (32 // (k + 1) verify steps with spec
+        decode), retiring EOS'd or budget-complete sequences at each drained
+        step and recycling their blocks. Returns full token lists (prompt +
+        generation). With spec decode, a run is clamped to the rows'
+        ``max_context`` headroom (a verify step reserves k + 1 positions),
+        and once not one verify step fits the tail runs on the plain
+        pipeline, as in the JAX package."""
         uids: List[int] = []
         nxt = 0
         while len(uids) < len(prompts):
@@ -566,6 +707,7 @@ class InferenceEngineV2:
         self._put_nofetch(uids, [np.asarray(p, np.int32) for p in prompts])
         pipe = self.decode_pipeline(uids, do_sample=do_sample,
                                     temperature=temperature, top_k=top_k)
+        is_spec = getattr(pipe, "spec", False)
         live = set(uids)
         budget = {u: max_new_tokens for u in uids}
 
@@ -574,21 +716,44 @@ class InferenceEngineV2:
             for i, u in enumerate(run_uids):
                 if u not in live:
                     continue        # retired earlier this run: padding noise
-                t = int(row[i])
-                outs[idx_of[u]].append(t)
-                budget[u] -= 1
-                if budget[u] <= 0 or (eos_token_id is not None
-                                      and t == eos_token_id):
-                    live.discard(u)
-                    stop.append(u)
+                # a spec step emits a token batch a row, a plain step one
+                # token; tokens past the budget (a spec step's overshoot)
+                # are dropped, their KV past the flush below
+                for t in (row[i] if is_spec else row[i:i + 1]):
+                    t = int(t)
+                    outs[idx_of[u]].append(t)
+                    budget[u] -= 1
+                    if budget[u] <= 0 or (eos_token_id is not None
+                                          and t == eos_token_id):
+                        live.discard(u)
+                        stop.append(u)
+                        break
             return stop
 
         if max_new_tokens <= 0:
             self.flush(pipe.uids)
             return outs
         CHUNK = 32
+        K1 = self.config.spec_decode.k + 1
+        steps = max(1, CHUNK // K1) if is_spec else CHUNK
+        max_ctx = self.config.state_manager.max_context
         while pipe.uids:
-            n = min(CHUNK, max(budget[u] for u in pipe.uids))
+            if is_spec:
+                rem = max(budget[u] for u in pipe.uids)
+                cap = min((max_ctx - self.scheduler.seqs[u].seen_tokens - 1) // K1
+                          for u in pipe.uids)
+                n = min(steps, -(-rem // K1), cap)
+                if n < 1:
+                    # not one verify step fits under max_context: the tail
+                    # runs on the plain pipeline
+                    from deepspeed_tpu_torch.inference.v2.pipeline import DecodePipeline
+                    uids_left = list(pipe.uids)
+                    pipe.retire(uids_left)
+                    pipe = DecodePipeline(self, uids_left)
+                    is_spec = False
+                    continue
+            else:
+                n = min(steps, max(budget[u] for u in pipe.uids))
             before = set(pipe.uids)
             pipe.run(n, on_tokens=on_tokens)
             for u in before - set(pipe.uids):

@@ -9,6 +9,10 @@ kernels read pages through block tables.
 A quantized pool (``kv_quant``) holds int8 values in the same layout and
 one f32 scale per (token, kv head) row beside it, stored at rest in the
 kernels' tile layout ``[L, NB, R8, 128]`` (``ops/kernels/kv_quant.py``).
+
+:meth:`BlockedKVCache.copy_page` is the prefix cache's copy-on-write step:
+one page across all layers, K and V, and over an int8 pool its scale tile
+with it.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.inference.v2.ragged.ragged_batch import to_device
 from deepspeed_tpu_torch.ops.kernels.kv_quant import kv_scale_tiles_shape
 
 
@@ -61,6 +66,18 @@ class BlockedKVCache:
                 (config.num_layers,) + kv_scale_tiles_shape(
                     config.num_blocks, config.num_kv_heads, config.block_size),
                 dtype=torch.float32, device=device)
+
+    def copy_page(self, src_block: int, dst_block: int) -> None:
+        """Device copy of page ``src_block`` into ``dst_block``, all layers,
+        K and V (the prefix cache's copy-on-write adoption of a partial
+        page). Over an int8 pool the page's scale tile travels with it, so
+        the copy equals its source byte for byte. The JAX package does this
+        in XLA (``kv_cache.py`` :125-140); here it is ``index_copy_``."""
+        idx = to_device(np.array([src_block, dst_block], np.int32), self.kv.device).long()
+        src, dst = idx[:1], idx[1:]
+        self.kv.index_copy_(1, dst, self.kv.index_select(1, src))
+        if self.scales is not None:
+            self.scales.index_copy_(1, dst, self.scales.index_select(1, src))
 
     def flat_write_index(self, block_id, slot) -> np.ndarray:
         """Host-side flat destination ``block * block_size + slot``."""

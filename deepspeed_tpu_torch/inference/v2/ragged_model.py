@@ -947,6 +947,82 @@ def build_decode_step(spec: RaggedModelSpec, n_splits: int = 1,
     return fwd
 
 
+def build_verify_step(spec: RaggedModelSpec, k: int) -> Callable:
+    """Speculative decoding's verify step (the JAX package's
+    ``build_verify_step`` :1352-1503): score ``k`` draft tokens a sequence
+    in ONE ragged forward.
+
+    Each sequence contributes ``K1 = k + 1`` rows: its committed current
+    token (on the device, sampled by the previous step) and the draft.
+    Every layer writes all K1 rows' K/V into the pool first (quantized on
+    write over an int8 pool, so every row is attended at its pool value),
+    then attends through ``AttentionKernelSpec.chunk`` (the chunk kernel,
+    K5, at every rung): one slot a sequence, ``q_starts = positions0``,
+    ``ctx = ctx0 + k``, causal by absolute position, so row j sees the
+    frozen prefix plus rows 0..j. The decode step attends through another
+    kernel, so on the card the two agree to rounding, not to the bit.
+
+    The greedy accept mask runs on the device: draft token j+1 is accepted
+    iff it equals ``argmax(logits[:, j])`` and every earlier one was, and
+    ``n_draft`` bounds each row's proposals. No host sync: the caller
+    drains ``accept_row`` through the pipeline's one policed copy. Rejected
+    rows' K/V stay in the pool past the advanced context, never read (every
+    reader is ctx-bounded) and overwritten by the next write there.
+
+    Returns ``fwd(weights, kv, ids [S], draft [S, k], n_draft [S],
+    positions0 [S], block_tables [S, MB], ctx0 [S], kv_scales=None) ->
+    (accept_row [2, S] int32, next_ids [S] int32, final_logits [S, V])``:
+    row i emits ``accept_row[0, i] + 1`` tokens (the accepted drafts, then
+    ``accept_row[1, i] = next_ids[i]``, the greedy bonus token), and
+    ``final_logits`` are the logits ``next_ids`` was taken from. ``ctx0``
+    counts tokens INCLUDING the current one (``positions0 + 1``); the pool
+    is written in place."""
+    H, Hkv, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    K1 = k + 1
+    ak = AttentionKernelSpec(spec)
+
+    def fwd(weights, kv, ids, draft, n_draft, positions0, block_tables, ctx0,
+            kv_scales=None):
+        S, bs, MB = ids.shape[0], kv.shape[4], block_tables.shape[1]
+        steps = torch.arange(K1, dtype=positions0.dtype, device=ids.device)
+        tokens = torch.cat([ids[:, None], draft.to(ids.dtype)], dim=1)   # [S, K1]
+        positions = positions0[:, None] + steps[None]
+        pos_flat = positions.reshape(-1)
+        x = _embed_in(spec, weights, tokens.reshape(-1), pos_flat)
+        rope = _rope(spec, pos_flat)
+        # the run's reservation covers positions0 + k; the pad rows' all-
+        # scratch tables are clamped inside their width as in the JAX package
+        rows = token_write_rows(block_tables, positions.clamp_max(MB * bs - 1), Hkv, bs)
+        ctx = ctx0 + k
+
+        for l, w in enumerate(weights["layers"]):
+            kv_l = kv[l]
+            sc_l = None if kv_scales is None else kv_scales[l]
+
+            def attend(q, k_, v, kv_l=kv_l, sc_l=sc_l):
+                write_rows(kv_l, rows, k_, v, sc_l)
+                return ak.chunk(q.view(S, K1, H, D), kv_l, block_tables, positions0, ctx,
+                                kv_scales=sc_l).reshape(S * K1, H, D)
+
+            x = _transformer_layer(spec, w, x, rope, attend)
+
+        x = _norm(x, weights, "final_norm", spec)
+        logits = _unembed(spec, weights, x).view(S, K1, -1)
+        # the greedy sampler's argmax, so an accepted token is the token the
+        # decode step would emit from the same logits
+        pred = torch.argmax(logits, dim=-1).to(torch.int32)               # [S, K1]
+        match = (pred[:, :k] == draft.to(torch.int32)) & (
+            steps[None, :k] < n_draft.to(steps.dtype)[:, None])
+        accept = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)  # [S]
+        next_ids = pred.gather(1, accept[:, None].long())[:, 0]
+        final_logits = logits.gather(
+            1, accept.long()[:, None, None].expand(S, 1, logits.shape[-1]))[:, 0]
+        accept_row = torch.stack([accept.to(torch.int32), next_ids])
+        return accept_row, next_ids, final_logits
+
+    return fwd
+
+
 def _build_multistep_sidebuf(spec: RaggedModelSpec, n_steps: int, do_sample: bool,
                              top_k: int, n_splits: int = 1) -> Callable:
     """The side-buffer burst (the JAX package's ``_build_multistep_sidebuf``

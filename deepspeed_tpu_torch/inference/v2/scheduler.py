@@ -13,11 +13,20 @@ keep each sequence's KV in a PAGE RING, copied from the JAX package:
 logical page i beyond ``ring_pages`` reuses ``blocks[i - ring_pages]``, so
 the logical block list repeats physical ids (each freed once) and a
 sequence's footprint is bounded by the window however long it runs.
+
+With a prefix cache (``prefix_cache.RadixPrefixCache``), as in the JAX
+package: a new prompt adopts every cached whole-block prefix at admission
+(zero prefill for the matched span), a finished prompt's full pages are
+filed into the tree at once (eager insert), a flushed sequence's pages go
+back to the tree instead of the free list, and an allocation short of
+free pages evicts idle cached ones. Speculative decoding reserves KV for
+full acceptance and hands the unused pages back
+(:meth:`DynamicSplitFuseScheduler.rollback_reserved`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -28,14 +37,23 @@ from deepspeed_tpu_torch.inference.v2.ragged.ragged_batch import DecodeBatch, Ra
 from deepspeed_tpu_torch.inference.v2.ragged.sequence_descriptor import DSSequenceDescriptor
 from deepspeed_tpu_torch.utils.caching import next_pow2
 
+if TYPE_CHECKING:  # the prefix cache imports the allocator, not the scheduler
+    from deepspeed_tpu_torch.inference.v2.prefix_cache import RadixPrefixCache
+
 
 class DynamicSplitFuseScheduler:
 
     def __init__(self, config: DSStateManagerConfig, cache: BlockedKVCache,
-                 allocator: BlockedAllocator):
+                 allocator: BlockedAllocator,
+                 prefix_cache: "Optional[RadixPrefixCache]" = None):
         self.config = config
         self.cache = cache
         self.allocator = allocator
+        # radix-tree KV reuse; None = cache off. Never active under a
+        # window: the page ring overwrites pages in place
+        self.prefix_cache = prefix_cache
+        # prompt tokens actually prefilled (after the cache's savings)
+        self.prefill_tokens_completed = 0
         self.seqs: Dict[int, DSSequenceDescriptor] = {}
         bs = cache.config.block_size
         self.max_blocks = -(-config.max_context // bs)
@@ -43,6 +61,9 @@ class DynamicSplitFuseScheduler:
         # a window, per-sequence physical KV is a page ring of ring_pages
         # blocks: dead tokens are overwritten in place
         self.window: Optional[int] = None
+        # record token history without a prefix cache too (set by the engine
+        # for spec decode: the n-gram proposer drafts from it)
+        self.record_history_always = False
 
     @property
     def _pass_take_cap(self) -> int:
@@ -87,20 +108,55 @@ class DynamicSplitFuseScheduler:
         if total > self.config.max_context:
             raise ValueError(f"sequence {uid}: {total} tokens > max_context "
                              f"{self.config.max_context}")
-        if seq is None:
+        new_seq = seq is None
+        if new_seq:
             if len(self.seqs) >= self.config.max_tracked_sequences:
                 raise RuntimeError(
                     f"max_tracked_sequences={self.config.max_tracked_sequences} exceeded")
             seq = self.seqs[uid] = DSSequenceDescriptor(uid=uid)
+            if self.prefix_cache is not None:
+                seq.weight_version = self.prefix_cache.weight_version
+        if self._cache_active or self.record_history_always:
+            seq.record_history(tokens)
+        if self._cache_active and new_seq and len(tokens) > 1:
+            # adopt every cached whole-block prefix: matched pages join the
+            # block table with zero prefill; the uncached tail (always >= 1
+            # token, so the last token's logits are computed fresh) goes
+            # through SplitFuse as a continuation
+            m = self.prefix_cache.match(tokens)
+            if m.n_cached:
+                seq.blocks.extend(m.blocks)
+                seq.seen_tokens = m.n_cached
+                seq.cached_tokens = m.n_cached
+                tokens = tokens[m.n_cached:]
         seq.extend_pending(tokens)
+
+    @property
+    def _cache_active(self) -> bool:
+        return self.prefix_cache is not None and self.window is None
 
     def flush(self, uid: int) -> None:
         """Release a sequence's KV blocks (ring reuse repeats physical ids in
-        the logical list: each is freed once)."""
+        the logical list: each is settled once). With the prefix cache on,
+        the pages return to the radix tree, keyed by the sequence's valid
+        history, instead of the free list."""
         seq = self.seqs.pop(uid, None)
         if seq is None or not seq.blocks:
             return
-        self.allocator.free(list(dict.fromkeys(seq.blocks)))
+        uniq = list(dict.fromkeys(seq.blocks))
+        if self._cache_active and seq.weight_version == self.prefix_cache.weight_version:
+            self.prefix_cache.release(seq.history(self._cacheable_tokens(seq)), uniq)
+        else:
+            # no cache, or KV computed under weights the cache has since
+            # moved past: such pages are freed, never filed
+            self.allocator.free(uniq)
+
+    @staticmethod
+    def _cacheable_tokens(seq: DSSequenceDescriptor) -> int:
+        """Tokens whose (position -> token id) mapping is certain: the
+        contiguous recorded history, capped by what the KV holds."""
+        valid = seq.history_len if seq.history_valid is None else seq.history_valid
+        return min(valid, seq.seen_tokens)
 
     # ------------------------------------------------------------------ #
     # capacity queries
@@ -115,12 +171,28 @@ class DynamicSplitFuseScheduler:
             need = min(need, max(0, ring - len(seq.blocks)))
         return need
 
+    def _available_blocks(self) -> int:
+        """Blocks obtainable now: the free list plus cached pages only the
+        radix tree holds (evicted on demand by :meth:`_alloc`)."""
+        free = self.allocator.free_blocks
+        if self._cache_active:
+            free += self.prefix_cache.evictable_blocks
+        return free
+
+    def _alloc(self, num_blocks: int) -> np.ndarray:
+        """Allocate, evicting idle cached pages (LRU) to cover a shortfall."""
+        short = num_blocks - self.allocator.free_blocks
+        if short > 0 and self._cache_active:
+            self.prefix_cache.evict(short)
+        return self.allocator.allocate(num_blocks)
+
     def query(self, uid: int, max_request_tokens: int) -> Tuple[int, int]:
         """(max new tokens fundable by free blocks, available blocks).
-        Accounts for queued-but-unprocessed pending tokens."""
+        Accounts for queued-but-unprocessed pending tokens; idle cached
+        pages count as available (they evict on demand)."""
         seq = self.seqs.get(uid, DSSequenceDescriptor(uid=uid))
         bs = self.cache.config.block_size
-        avail = self.allocator.free_blocks
+        avail = self._available_blocks()
         if self.ring_pages is not None and len(seq.blocks) >= self.ring_pages:
             # ring complete: any request fits in place (up to max_context)
             return max_request_tokens, avail
@@ -133,7 +205,8 @@ class DynamicSplitFuseScheduler:
         for uid, n in zip(uids, lengths):
             seq = self.seqs.get(uid, DSSequenceDescriptor(uid=uid))
             needed += self._new_blocks_needed(seq, len(seq.pending) + n)
-        if needed > self.allocator.free_blocks:
+        # the free list first: counting evictable pages walks the tree
+        if needed > self.allocator.free_blocks and needed > self._available_blocks():
             return False
         new = sum(1 for u in uids if u not in self.seqs)
         return len(self.seqs) + new <= self.config.max_tracked_sequences
@@ -183,7 +256,8 @@ class DynamicSplitFuseScheduler:
                        n_blocks: int) -> List[int]:
         """Create a sequence whose KV was computed elsewhere (the import half
         of a page handoff, ``engine.import_kv``): allocate ``n_blocks`` fresh
-        pages in logical order and mark all ``tokens`` as seen; the caller
+        pages in logical order (evicting idle cached pages on a shortfall),
+        record the token history and mark all ``tokens`` as seen; the caller
         scatters the page content in (``engine.put_pages``) before the
         sequence decodes. Returns the allocated ids. JAX's checks, in its
         words."""
@@ -209,12 +283,14 @@ class DynamicSplitFuseScheduler:
             raise RuntimeError(
                 f"max_tracked_sequences={self.config.max_tracked_sequences} "
                 "exceeded")
-        if n_blocks > self.allocator.free_blocks:
+        if n_blocks > self.allocator.free_blocks and n_blocks > self._available_blocks():
             raise RuntimeError(
                 f"cannot adopt sequence {uid}: needs {n_blocks} KV blocks, "
-                f"{self.allocator.free_blocks} obtainable")
+                f"{self._available_blocks()} obtainable")
         seq = self.seqs[uid] = DSSequenceDescriptor(uid=uid)
-        ids = [int(b) for b in self.allocator.allocate(n_blocks)] if n_blocks else []
+        if self._cache_active or self.record_history_always:
+            seq.record_history(tokens)
+        ids = [int(b) for b in self._alloc(n_blocks)] if n_blocks else []
         seq.blocks.extend(ids)
         seq.seen_tokens = len(tokens)
         return ids
@@ -226,7 +302,36 @@ class DynamicSplitFuseScheduler:
         if len(seq.pending):
             raise RuntimeError(f"advance() of sequence {uid} with pending "
                                "host tokens")
+        if self._cache_active and seq.history_valid is None:
+            # the host never saw these tokens: history recorded after them
+            # is position-shifted, so seal the contiguous prefix here
+            seq.history_valid = seq.history_len
         seq.seen_tokens += n_tokens
+
+    def rollback_reserved(self, uid: int) -> List[int]:
+        """Free every reserved-but-unused trailing block (pages wholly past
+        ``seen_tokens``) and truncate the block table; returns the freed
+        ids. The speculative pipeline reserves KV for full acceptance and
+        rolls back what rejection left unused. Only a fresh suffix is ever
+        touched: shared prefix pages and copy-on-write tails hold tokens
+        within ``seen_tokens``, and the refcount guard enforces it."""
+        if self.window is not None:
+            # ring reuse repeats physical ids: no fresh suffix to roll back
+            # (spec decode refuses windowed models before reserving ahead)
+            return []
+        seq = self.seqs[uid]
+        need = -(-seq.seen_tokens // self.cache.config.block_size)
+        tail = [int(b) for b in seq.blocks[need:]]
+        if not tail:
+            return []
+        shared = [b for b in tail if self.allocator.ref_count(b) != 1]
+        if shared:
+            raise RuntimeError(
+                f"rollback of sequence {uid} would free shared block(s) "
+                f"{shared} (refcount != 1) — reserved tails must be fresh")
+        self.allocator.free(tail)
+        del seq.blocks[need:]
+        return tail
 
     # ------------------------------------------------------------------ #
     # pass construction
@@ -238,13 +343,13 @@ class DynamicSplitFuseScheduler:
         if ring is None:
             need = seq.kv_blocks_needed(new_tokens, bs)
             if need:
-                seq.blocks.extend(int(b) for b in self.allocator.allocate(need))
+                seq.blocks.extend(int(b) for b in self._alloc(need))
             return
         target = -(-(seq.seen_tokens + new_tokens) // bs)   # logical pages
         fresh = min(max(0, target - len(seq.blocks)),
                     max(0, ring - len(seq.blocks)))
         if fresh:
-            seq.blocks.extend(int(b) for b in self.allocator.allocate(fresh))
+            seq.blocks.extend(int(b) for b in self._alloc(fresh))
         while len(seq.blocks) < target:                      # ring reuse
             seq.blocks.append(seq.blocks[len(seq.blocks) - ring])
 
@@ -373,8 +478,11 @@ class DynamicSplitFuseScheduler:
             seq.seen_tokens += n
             seq.pending = seq.pending[n:]
             seq.in_flight_tokens = 0
+            self.prefill_tokens_completed += n
             if is_final:
                 finished.append(uid)
+                if self._cache_active:
+                    self._insert_full_pages(seq)
         for uid in batch.decode_uids:
             seq = self.seqs[uid]
             seq.seen_tokens += 1
@@ -382,3 +490,16 @@ class DynamicSplitFuseScheduler:
             seq.in_flight_tokens = 0
             finished.append(uid)
         return finished
+
+    def _insert_full_pages(self, seq: DSSequenceDescriptor) -> None:
+        """Eager insert: file a finished prompt's FULL pages into the radix
+        tree now (the tree takes its own references; the live sequence keeps
+        its), so later arrivals reuse them before this sequence flushes.
+        Partial tails are filed at flush only. ``filed_tokens`` skips the
+        walk when no new full page completed since the last insert."""
+        bs = self.cache.config.block_size
+        full = (self._cacheable_tokens(seq) // bs) * bs
+        if full > seq.filed_tokens and seq.weight_version == self.prefix_cache.weight_version:
+            self.prefix_cache.insert(seq.history(full), seq.blocks[:full // bs],
+                                     transfer_refs=False)
+            seq.filed_tokens = full

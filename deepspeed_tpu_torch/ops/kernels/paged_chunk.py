@@ -49,6 +49,9 @@ NAME_WINDOW = "paged_chunk_window"
 NAME_ALIBI = "paged_chunk_alibi"
 SOURCE = "deepspeed_tpu_torch/csrc/paged_chunk.cu"
 REPLACES = "deepspeed_tpu/ops/pallas/paged_attention.py:1534"
+REPLACES_VERIFY = ("deepspeed_tpu/ops/pallas/paged_attention.py:1534 at the verify step's "
+                   "shape (caller deepspeed_tpu/inference/v2/ragged_model.py:1469: S slots "
+                   "of k + 1 rows)")
 REPLACES_WINDOW = ("deepspeed_tpu/ops/pallas/paged_attention.py:1534 window= "
                    "(_chunk_kernel_batched :1443; window :1466-1478)")
 REPLACES_ALIBI = ("deepspeed_tpu/ops/pallas/paged_attention.py:1534 alibi=True "

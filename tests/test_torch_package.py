@@ -367,14 +367,24 @@ def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("section, value, feature", [
-    ("spec_decode", {"enabled": True}, "spec_decode"),
-    ("prefix_cache", {"enabled": True}, "prefix_cache"),
+    # spec decode and the prefix cache load since they were ported; each
+    # stays refused with a sliding-window model, in the JAX package's words
+    pytest.param("spec_decode", {"enabled": True}, "spec_decode",
+                 id="spec_decode-value0-spec_decode"),
+    pytest.param("prefix_cache", {"enabled": True}, "prefix_cache",
+                 id="prefix_cache-value1-prefix_cache"),
     ("lora", {"enabled": True}, "lora"),
     ("tensor_parallel", 2, "tensor_parallel"),
     # the id this case had while a fourth one preceded it
     pytest.param("serving", {"decode_slice": 4}, "serving", id="serving-value5-serving"),
 ])
 def test_unported_config_feature_raises(section, value, feature):
+    if section in ("spec_decode", "prefix_cache"):
+        cfg = RaggedInferenceEngineConfig.load({section: value})
+        AttentionKernelSpec.validate_engine_build(_spec(), cfg)
+        with pytest.raises(NotImplementedError, match=f"{feature} with a sliding-window"):
+            AttentionKernelSpec.validate_engine_build(_spec(window=64), cfg)
+        return
     with pytest.raises(NotImplementedError, match=feature):
         RaggedInferenceEngineConfig.load({section: value})
 
