@@ -294,6 +294,26 @@ decode kernel at Qwen2-7B's G = 7 and Gemma-7B's D = 256 on pages of 128.
    device ms with K5's share. Phase 3 holds K5 at the verify step's shapes
    (8 slots of 2, 4 and 8 rows, Hkv 32 and 8, bf16 and int8, one slot
    across a page edge; the ``k5-verify`` line times k = 3 beside k = 2).
+18. multi-tenant LoRA on Llama-2-7B at full width and depth (random bf16
+   weights from seed 0): all four targets, max_rank 16, a 48-page pool (96
+   MiB); six adapters of ranks 4, 8, 8, 16, 16, 16 (68 pages) whose delta
+   has a quarter of the base projection's rms; two mixed runs of 8 prompts
+   (256-1024 tokens, 64 new tokens), the second evicting idle adapters and
+   faulting the first back in. Checks: (a) every bound row's stream and
+   logits bit-equal to its run with every other row unbound; (b) a hit's
+   logits after every step within 2x the dense bf16 rms of a dense fp32
+   forward with the adapter's merged delta in the decode scope, the dense
+   forward without the delta and with another tenant's failing that
+   limit; (c) unbound rows bit-equal to a LoRA-off engine's; (d) an
+   evicted adapter's pages and stream back bit for bit; (e) spec decode
+   (k = 3, an oracle replaying run 1) equal to the plain LoRA streams or
+   apart at a near-tie, its final rows within (b)'s limit; (f) run 1's
+   pipeline under ``set_sync_debug_mode("error")``; (g) pool, pinned
+   buffers and KV pool at baseline after a drain; (h) int8 weights (K8)
+   under the deltas, (a) and (b) again. Printed on the ``lora`` line:
+   decode tok/s LoRA against LoRA-off, the LoRA and base steps' wall and
+   device ms and kernels, the delta's and the gather's device ms, every
+   fault-in and eviction (ms, bytes).
 
 The last two lines are the kernel table (58 rows, K5 at the verify step's
 shape among them) and ``{"ok": true,
@@ -5571,6 +5591,586 @@ def run_prefix_spec():
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 18: multi-tenant LoRA serving on Llama-2-7B
+# --------------------------------------------------------------------------- #
+
+# phase 17's pages of 128; 80 pages hold the 8 sequences (at most 1088 tokens
+# each: 9 pages) and a spec run's reservation ahead of them
+P18_POOL = {"kv_cache": {"block_size": 128, "num_blocks": 80}, "seed": 0}
+# all four targets at max_rank 16: one page is 32 layers x 4 x 8192 bf16 = 2
+# MiB, so 48 pages (96 MiB) hold 48 of the 68 the six adapters need
+P18_LORA = {"enabled": True, "targets": ("q", "k", "v", "o"), "max_rank": 16,
+            "pool_pages": 48, "swap_buffers": 64}
+P18_RANKS = (4, 8, 8, 16, 16, 16)
+P18_LENS = (256, 1024, 384, 896, 512, 768, 640, 320)
+P18_NEW = 64
+P18_DELTA_RMS = 0.25      # the delta's rms against the base projection's
+# run 1 binds t0-t3 (36 pages) and leaves rows 5 and 7 unbound; run 2 binds
+# t4 and t5 first (32 pages: t0, t2 and t3 are evicted LRU), then t0 again
+# (faulted back in from its pinned buffers) on run 1's row 0 and prompt
+P18_RUN1 = ("t0", "t0", "t1", "t2", "t3", None, "t1", None)
+P18_RUN2 = ("t0", None, "t4", "t5", None, "t4", None, "t5")
+P18_ORDER2 = (2, 3, 5, 7, 0)
+# rows held to the dense forward (b), each with another tenant for a control
+P18_DENSE = ((1, 0, "t1"), (1, 4, "t2"), (2, 2, "t5"))
+P18_INT8_NEW = 16
+P18_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "quantized_matmul_gemv",
+             "quantized_matmul_mma")
+
+
+def p18_sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def p18_adapters(engine, scale_rms=P18_DELTA_RMS):
+    """Six adapters t0..t5 of ranks P18_RANKS with per-layer random leaves
+    made from seed 18 on the engine's device: A ~ N(0, 1 / d_in), B ~ N(0,
+    (s * std_w)^2 d_in / r), so the delta (x A) B has about ``s`` times the
+    rms of the base projection x W (``std_w``: the layer-0 weight's std).
+    Loaded through ``load_lora_adapter``; returns the scales printed (B's
+    std is ``B_std_x_sqrt_r / sqrt(r)``) and the delta's measured rms
+    ratio."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.ragged_model import lora_target_dims
+    from deepspeed_tpu_torch.module_inject import load_lora_adapter
+    spec, dev = engine.spec, engine.device
+    L = spec.num_layers
+    g = torch.Generator(device=dev)
+    g.manual_seed(18)
+    keys = {"q": "wq", "k": "wk", "v": "wv", "o": "wo"}
+    w0 = engine.weights["layers"][0]
+    std = {t: float(_p18_dequant(w0[keys[t]]).std()) for t in keys}
+    targets = engine.config.lora.targets
+    scales = {"A_std": {t: lora_target_dims(spec, t)[0] ** -0.5 for t in targets},
+              "B_std_x_sqrt_r": {t: scale_rms * std[t] * lora_target_dims(spec, t)[0] ** 0.5
+                                 for t in targets}}
+    for i, r in enumerate(P18_RANKS):
+        state = {"alpha": float(r)}
+        for t in targets:
+            din, dout = lora_target_dims(spec, t)
+            state[t] = {"A": torch.randn(L, din, r, generator=g, device=dev) * scales["A_std"][t],
+                        "B": torch.randn(L, r, dout, generator=g, device=dev)
+                        * (scales["B_std_x_sqrt_r"][t] / r ** 0.5)}
+        load_lora_adapter(engine, f"t{i}", state)
+    # the delta's rms against the base projection's on random rows, layer 0
+    x = {t: torch.randn(64, lora_target_dims(spec, t)[0], generator=g, device=dev)
+         for t in targets}
+    delta = p18_delta(engine, f"t{len(P18_RANKS) - 1}")
+    scales["measured_ratio"] = {
+        t: float((x[t] @ delta(0, t)).pow(2).mean().sqrt()
+                 / (x[t] @ _p18_dequant(w0[keys[t]])).pow(2).mean().sqrt())
+        for t in targets}
+    return scales
+
+
+def _p18_dequant(w):
+    """A serving weight as f32: a plain tensor, or an int8 dict dequantized
+    (``w8 * scale``)."""
+    return w["w8"].float() * w["scale"] if isinstance(w, dict) else w.float()
+
+
+def p18_delta(engine, name):
+    """``delta(l, t) -> [d_in, d_out]`` f32: adapter ``name``'s merged
+    delta A @ B at layer l and target t, read back from the registry's
+    master pages (the bytes the engine serves, alpha / r folded in)."""
+    from deepspeed_tpu_torch.inference.v2.ragged_model import lora_target_dims
+    pool, spec = engine.lora.pool, engine.spec
+    targets = engine.config.lora.targets
+    ad = engine.lora._adapters[name]
+    m = ad.master.to(engine.device).float().view(ad.rank, spec.num_layers, len(targets),
+                                                 pool.in_max + pool.out_max)
+
+    def delta(l, t):
+        p = targets.index(t)
+        din, dout = lora_target_dims(spec, t)
+        return m[:, l, p, :din].t() @ m[:, l, p, pool.in_max:pool.in_max + dout]
+
+    return delta
+
+
+def p18_dense(engine, seq, start, dt, delta=None):
+    """Logits [len(seq) - start, V] (f32) at rows ``start..`` of a dense
+    causal forward over ``seq`` in ``dt``, on the engine's own weights
+    (int8 dequantized) with the adapter's merged delta (``delta(l, t)``,
+    :func:`p18_delta`) added to the targeted projections' weights only at
+    rows ``>= start``: the decode scope, where the prompt ran base-only."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.models.llama import apply_rope, rms_norm, rope_tables
+    spec, W, dev = engine.spec, engine.weights, engine.device
+    targets = engine.config.lora.targets if engine.lora is not None else ()
+    H, Hkv, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    ids = torch.as_tensor(np.asarray(seq, np.int64), device=dev)
+    T = ids.shape[0]
+    cos, sin = rope_tables(torch.arange(T, device=dev), D, spec.rope_theta)
+    causal = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+
+    def mm(x, w, l=None, t=None):
+        f = _p18_dequant(w)
+        if delta is None or t not in targets:
+            return x @ f.to(dt)
+        return torch.cat([x[:start] @ f.to(dt), x[start:] @ (f + delta(l, t)).to(dt)])
+
+    def attend(q, k, v):
+        k, v = (a.repeat_interleave(H // Hkv, dim=1) for a in (k, v))
+        s = torch.einsum("qhd,khd->hqk", q, k).float() * D ** -0.5
+        s.masked_fill_(~causal, torch.finfo(torch.float32).min)
+        p = torch.softmax(s, -1)
+        del s
+        return torch.einsum("hqk,khd->qhd", p.to(dt), v)
+
+    x = W["embed"][ids].to(dt)
+    for l, w in enumerate(W["layers"]):
+        h = rms_norm(x, w["ln1"], spec.eps, dt)
+        q = apply_rope(mm(h, w["wq"], l, "q").view(T, H, D), cos, sin)
+        k = apply_rope(mm(h, w["wk"], l, "k").view(T, Hkv, D), cos, sin)
+        v = mm(h, w["wv"], l, "v").view(T, Hkv, D)
+        x = x + mm(attend(q, k, v).reshape(T, H * D), w["wo"], l, "o")
+        h = rms_norm(x, w["ln2"], spec.eps, dt)
+        x = x + mm(F.silu(mm(h, w["w_gate"])) * mm(h, w["w_up"]), w["w_down"])
+    x = rms_norm(x[start:], W["final_norm"], spec.eps, dt)
+    return mm(x, W["lm_head"]).float()
+
+
+@contextlib.contextmanager
+def p18_logged(engine):
+    """Within the block, every decode and verify step the engine's
+    pipelines launch appends its (row-sliced later) logits to the yielded
+    list: the decode step's [bucket, V] logits, a verify step's final
+    logits. A copy on the device: nothing waits."""
+    log = []
+    step_fn, verify_fn = engine._decode_step_fn, engine._verify_fn
+
+    def logging(fn, pick):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            log.append(pick(out).clone())
+            return out
+        return call
+
+    engine._decode_step_fn = lambda rb=0: logging(step_fn(rb), lambda o: o[1])
+    engine._verify_fn = lambda k, rb=0: logging(verify_fn(k, rb), lambda o: o[2])
+    try:
+        yield log
+    finally:
+        del engine._decode_step_fn, engine._verify_fn
+
+
+def p18_run(engine, prompts, binds, n, order=None, sync_check=False, proposer=None,
+            logged=True):
+    """One run of ``prompts`` under ``binds`` (acquired in ``order``, row
+    order by default): prefill, a pipeline of ``n`` steps (the engine's
+    ``decode_pipeline``: spec decode with ``proposer`` when the engine has
+    it), flush, release. ``sync_check`` runs the pipeline under
+    ``torch.cuda.set_sync_debug_mode("error")``. Returns the streams, each
+    step's logits of the live rows [steps, S, V] (device; with
+    ``logged``), the tokens each step emitted (spec), the decode's wall
+    seconds, its kernel launches and those of the prefill."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    reset_launches()
+    S = len(prompts)
+    uids = list(range(100, 100 + S))
+    for i in (range(S) if order is None else order):
+        if binds[i] is not None:
+            engine.lora.acquire(uids[i], binds[i])
+    per_step = []
+    try:
+        engine._put_nofetch(uids, [np.asarray(p, np.int32) for p in prompts])
+        pipe = engine.decode_pipeline(uids)
+        if proposer is not None:
+            pipe.proposer = proposer
+        p18_sync(engine.device)
+        prefill = {k: v for k, v in LAUNCHES.items() if v}
+        reset_launches()
+        check = sync_check and engine.device.type == "cuda"
+        with (p18_logged(engine) if logged else contextlib.nullcontext([])) as log:
+            t0 = time.perf_counter()
+            if check:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = pipe.run(n, on_tokens=(lambda j, u, toks: per_step.append(
+                    [len(t) for t in toks])) if proposer is not None else None)
+            finally:
+                if check:
+                    torch.cuda.set_sync_debug_mode(0)
+            p18_sync(engine.device)
+            wall = time.perf_counter() - t0
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        engine.flush(uids)
+    finally:
+        for u, b in zip(uids, binds):
+            if b is not None:
+                engine.lora.release(u)
+    streams = [list(map(int, o)) for o in out]
+    return {"streams": streams, "logits": torch.stack([x[:S] for x in log]) if log else None,
+            "per_step": per_step, "wall_s": wall, "launches": launches,
+            "prefill_launches": prefill}
+
+
+def p18_bitwise(label, run, ref, rows):
+    """Rows ``rows`` of two runs: the same streams and the same logits at
+    every step, bit for bit."""
+    import torch
+    for i in rows:
+        if run["streams"][i] != ref["streams"][i]:
+            raise AssertionError(f"{label}: row {i}'s stream differs")
+        if not torch.equal(run["logits"][:, i], ref["logits"][:, i]):
+            d = float((run["logits"][:, i] - ref["logits"][:, i]).abs().max())
+            raise AssertionError(f"{label}: row {i}'s logits differ (max {d})")
+
+
+def p18_dense_check(label, engine, prompt, run, i, name, other):
+    """(b): row ``i`` of ``run`` (bound to ``name``) after each step, held
+    to the dense fp32 forward with ``name``'s delta in the decode scope:
+    each step's rms within 2x the dense bf16 forward's. Two controls, the
+    dense fp32 forward without the delta and with tenant ``other``'s, must
+    fail that limit (pooled over the steps). Returns the numbers to print
+    and the dense fp32 and bf16 logits (for the near-tie checks and spec's
+    final rows)."""
+    import torch
+    n = run["logits"].shape[0]
+    seq = np.concatenate([prompt, np.asarray(run["streams"][i][:n], np.int32)])
+    start = len(prompt)
+    delta = p18_delta(engine, name)
+    f32 = p18_dense(engine, seq, start, torch.float32, delta)
+    bf16 = p18_dense(engine, seq, start, torch.bfloat16, delta)
+    base = p18_dense(engine, seq, start, torch.float32)
+    wrong = p18_dense(engine, seq, start, torch.float32, p18_delta(engine, other))
+    eng = run["logits"][:, i].float()
+    if not bool(torch.isfinite(eng).all()):
+        raise AssertionError(f"{label}: logits are not finite")
+
+    def rms(d, dim=None):
+        return d.pow(2).mean(dim).sqrt() if dim is not None else float(d.pow(2).mean().sqrt())
+
+    step_eng, step_bf16 = rms(eng - f32, -1), rms(bf16 - f32, -1)
+    out = {"row": i, "adapter": name, "steps": n, "engine_rms": rms(eng - f32),
+           "dense_bf16_rms": rms(bf16 - f32), "dense_bf16_max": float((bf16 - f32).abs().max()),
+           "worst_step_ratio": float((step_eng / step_bf16).max()),
+           "no_delta_rms": rms(eng - base), "other_tenant_rms": rms(eng - wrong),
+           "other_tenant": other}
+    out["limit"] = 2 * out["dense_bf16_rms"]
+    if not bool((step_eng <= 2 * step_bf16).all()):
+        raise AssertionError(f"{label}: a step's logits rms exceeds 2x the dense bf16's "
+                             f"(worst ratio {out['worst_step_ratio']})")
+    for c in ("no_delta_rms", "other_tenant_rms"):
+        if not out[c] > out["limit"]:
+            raise AssertionError(f"{label}: the control {c} {out[c]} passed the limit "
+                                 f"{out['limit']}")
+    return out, (f32, bf16)
+
+
+def p18_profile(fn):
+    """``fn`` once under the CUDA profiler: device ms, kernel count and
+    (count, ms) by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA"):
+            c = by.setdefault(e.name(), [0, 0.0])
+            c[0] += 1
+            c[1] += e.duration_ns() / 1e6
+    return {"device_ms": sum(v[1] for v in by.values()),
+            "kernels": sum(v[0] for v in by.values()), "by_name": by}
+
+
+def p18_step_times(engine, prompts, binds):
+    """The LoRA decode step at rank bucket 16 beside the base step (rank
+    bucket 0) of the same engine, on the same 8 rows under ``binds``: wall
+    ms (host clock between syncs, median and least of 5 calls after 2
+    warm-up calls) and device ms and kernels (profiled once); the delta's
+    device ms, share and launches a step are the difference. The gather
+    (``lora_layer_operands`` over every layer, as a step runs it) is
+    profiled alone."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.ragged.ragged_batch import to_device
+    from deepspeed_tpu_torch.inference.v2.ragged_model import lora_layer_operands
+    uids = list(range(300, 300 + len(prompts)))
+    for u, b in zip(uids, binds):
+        if b is not None:
+            engine.lora.acquire(u, b)
+    engine.put(uids, prompts)
+    db = engine.scheduler.decode_batch(uids, 2, engine.scratch_block)
+    dev = engine.device
+    bt, pos = to_device(db.block_tables, dev), to_device(db.positions, dev)
+    ids = engine._sample_device_padded(uids, False, 1.0, 0)
+    rb = engine.lora_rank_bucket
+    lora = engine._lora_operands(uids, db.bucket, rb)
+    steps = {"lora": lambda: engine._decode_step_fn(rb)(
+                 engine.weights, engine.kv.kv, ids, pos, bt, pos + 1, kv_scales=engine.kv.scales,
+                 **lora),
+             "base": lambda: engine._decode_step_fn(0)(
+                 engine.weights, engine.kv.kv, ids, pos, bt, pos + 1,
+                 kv_scales=engine.kv.scales)}
+    out = {}
+    for label, step in steps.items():
+        walls = []
+        for i in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            if i >= 2:
+                walls.append((time.perf_counter() - t0) * 1e3)
+        prof = p18_profile(step)
+        out[label] = {"wall_ms_median": float(np.median(walls)), "wall_ms_min": min(walls),
+                      "device_ms": prof["device_ms"], "kernels": prof["kernels"],
+                      "by_name": prof["by_name"]}
+    lo, ba = out["lora"], out["base"]
+    added = {k: [v[0] - ba["by_name"].get(k, [0, 0.0])[0],
+                 v[1] - ba["by_name"].get(k, [0, 0.0])[1]] for k, v in lo["by_name"].items()}
+    targets = engine.config.lora.targets
+    gather = p18_profile(lambda: [lora_layer_operands(engine.spec, targets, lora["lora_pool"],
+                                                      lora["adapter_pt"], l)
+                                  for l in range(engine.spec.num_layers)])
+    delta_ms = lo["device_ms"] - ba["device_ms"]
+    res = {"rank_bucket": rb, "rows": len(uids), "bucket": db.bucket,
+           "lora_step": {k: v for k, v in lo.items() if k != "by_name"},
+           "base_step": {k: v for k, v in ba.items() if k != "by_name"},
+           "delta_device_ms": delta_ms, "delta_share_of_lora_step": delta_ms / lo["device_ms"],
+           "delta_launches_per_step": lo["kernels"] - ba["kernels"],
+           "gather_device_ms": gather["device_ms"], "gather_kernels": gather["kernels"],
+           "top_added_kernels_ms": sorted([[k[:120], v[0], v[1]] for k, v in added.items()],
+                                          key=lambda r: -r[2])[:8]}
+    engine.flush(uids)
+    for u, b in zip(uids, binds):
+        if b is not None:
+            engine.lora.release(u)
+    return res
+
+
+def p18_tok_s(engine, prompts, binds, n=32):
+    """Decode tok/s of one unlogged pipeline run of ``n`` steps."""
+    run = p18_run(engine, prompts, binds, n, logged=False)
+    return len(prompts) * n / run["wall_s"]
+
+
+@contextlib.contextmanager
+def p18_swaps(engine):
+    """Within the block, each fault-in and eviction the registry records is
+    appended to the yielded list: adapter, op, ms (a fault-in's includes
+    the evictions it caused) and bytes."""
+    st = engine.lora.stats
+    log = []
+    fault, evict = st.record_fault, st.record_evict
+
+    def rec(op, fn):
+        def call(name, nbytes, dt_s):
+            log.append({"adapter": name, "op": op, "ms": dt_s * 1e3, "bytes": int(nbytes)})
+            return fn(name, nbytes, dt_s)
+        return call
+
+    st.record_fault, st.record_evict = rec("fault-in", fault), rec("evict", evict)
+    try:
+        yield log
+    finally:
+        del st.record_fault, st.record_evict
+
+
+def p18_baseline(label, engine):
+    """(g): after a drain, no adapter is bound, every pool page is free or
+    held by a resident adapter, no pinned buffer is out, and the KV pool is
+    whole."""
+    reg = engine.lora
+    reg.drain_swap()
+    resident = sum(reg.rank(n) for n in reg.names if reg.is_resident(n))
+    state = {"refcounts": {n: reg.refcount(n) for n in reg.names},
+             "free_pages": reg.pool.free_pages, "resident_pages": resident,
+             "pinned_out": reg.swap.outstanding, "kv_free": engine.free_blocks}
+    if (any(state["refcounts"].values()) or reg.pool.free_pages + resident != reg.pool.num_pages
+            or reg.swap.outstanding or engine.free_blocks != engine.allocator.total_blocks):
+        raise AssertionError(f"{label}: not at baseline after the drain: {state}")
+    return state
+
+
+def p18_engine(model, **conf):
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    dev = model.embed_tokens.embedding.device
+    return InferenceEngineV2(model, {**P18_POOL, **conf}, model.flat_params(), device=dev)
+
+
+def run_lora(model=None, lens=P18_LENS, new=P18_NEW, int8_new=P18_INT8_NEW):
+    """Phase 18: multi-tenant LoRA serving on Llama-2-7B at full width and
+    depth (random bf16 weights from seed 0): six adapters over a 48-page
+    pool, two mixed runs of 8 sequences, checks (a)-(h). ``model`` and the
+    sizes default to the phase's."""
+    import torch
+    t_phase = time.perf_counter()
+    own = model is None
+    model = p17_model() if own else model
+    dev = model.embed_tokens.embedding.device
+    V = model.config.vocab_size
+    rng = np.random.RandomState(19)
+    prompts = [rng.randint(0, V, n).astype(np.int32) for n in lens]
+    S = len(prompts)
+    engine = p18_engine(model, lora=P18_LORA)
+    scales = p18_adapters(engine)
+    page_bytes = engine.lora.pool.page_nbytes
+    with p18_swaps(engine) as swaps:
+        # run 1, under set_sync_debug_mode("error") (f)
+        run1 = p18_run(engine, prompts, P18_RUN1, new, sync_check=True)
+        t0_pages = engine.lora.pool.fetch_pages(engine.lora._adapters["t0"].page_ids)
+        run2 = p18_run(engine, prompts, P18_RUN2, new, order=P18_ORDER2)
+        t0_back = engine.lora.pool.fetch_pages(engine.lora._adapters["t0"].page_ids)
+    st = engine.lora.stats.adapters
+    if not (st["t0"].evictions >= 1 and st["t0"].faults >= 2):
+        raise AssertionError(f"phase 18: t0 was not evicted and faulted back in "
+                             f"({st['t0'].evictions} evictions, {st['t0'].faults} faults)")
+    if not (run1["launches"].get("paged_decode") and run1["prefill_launches"].get("flash_packed")):
+        raise AssertionError(f"phase 18: run 1 launched {run1['launches']} in its decode, "
+                             f"{run1['prefill_launches']} in its prefill")
+    # (d) t0's pages and stream after its restore
+    if not torch.equal(t0_pages.view(torch.int16), t0_back.view(torch.int16)):
+        raise AssertionError("phase 18: t0's pages changed across evict and restore")
+    p18_bitwise("phase 18 (d) t0 after restore", run2, run1, [0])
+    # (a) each bound row against its run with every other row unbound
+    t_a = time.perf_counter()
+    for label, run, binds in (("run 1", run1, P18_RUN1), ("run 2", run2, P18_RUN2)):
+        for i, b in enumerate(binds):
+            if b is not None:
+                only = tuple(b if j == i else None for j in range(S))
+                p18_bitwise(f"phase 18 (a) {label} row {i}", p18_run(engine, prompts, only, new),
+                            run, [i])
+    t_a = time.perf_counter() - t_a
+    # (b) bound rows against the dense forward in the decode scope
+    dense, checks = {}, []
+    for r, i, other in P18_DENSE:
+        run, binds = (run1, P18_RUN1) if r == 1 else (run2, P18_RUN2)
+        out, dense[(r, i)] = p18_dense_check(f"phase 18 (b) run {r} row {i}", engine,
+                                             prompts[i], run, i, binds[i], other)
+        checks.append({"run": r, **out})
+    tie = 2 * max(c["dense_bf16_max"] for c in checks)
+    # (c) unbound rows against a LoRA-off engine's, same bucket
+    off = p18_engine(model)
+    run_off = p18_run(off, prompts, (None,) * S, new)
+    p18_bitwise("phase 18 (c) unbound rows vs LoRA off", run1, run_off,
+                [i for i, b in enumerate(P18_RUN1) if b is None])
+    # rates and step times: LoRA at rank bucket 16 against LoRA off
+    rates = {"lora_rb16": p18_tok_s(engine, prompts, P18_RUN1),
+             "lora_off": p18_tok_s(off, prompts, (None,) * S)}
+    steps = p18_step_times(engine, prompts, P18_RUN1) if dev.type == "cuda" else None
+    del off
+    gc.collect()
+    # (e) spec decode (k = 3) with adapters, an oracle replaying run 1
+    spec = p18_engine(model, lora=P18_LORA, spec_decode={"enabled": True, "k": 3})
+    p18_adapters(spec)
+    k_steps = new // 4 - 1
+    run_spec = p18_run(spec, prompts, P18_RUN1, k_steps,
+                       proposer=OracleProposer(prompts, run1["streams"]))
+    if not run_spec["launches"].get("paged_chunk"):
+        raise AssertionError(f"phase 18 (e): no K5 launch in the verify steps "
+                             f"({run_spec['launches']})")
+    spec_check = p18_spec_check(engine, prompts, run1, run_spec, dense, tie)
+    p18_baseline("phase 18 spec engine", spec)
+    del spec
+    gc.collect()
+    baseline = p18_baseline("phase 18", engine)
+    del engine
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # (h) int8 weights under the deltas: K8 runs the base products
+    int8 = p18_int8(model, prompts[:4], int8_new)
+    print("lora " + json.dumps({
+        "adapters": {f"t{i}": r for i, r in enumerate(P18_RANKS)},
+        "pool_pages": P18_LORA["pool_pages"],
+        "page_bytes": page_bytes,
+        "scales": scales, "run1_launches": {"prefill": run1["prefill_launches"],
+                                            "decode": run1["launches"]}, "dense": checks,
+        "tie_limit": tie, "rows_bit_equal_a_s": t_a, "spec": spec_check,
+        "decode_tok_s": rates, "step": steps, "swaps": swaps, "baseline": baseline,
+        "int8": int8, "nvidia_smi": smi_line() if dev.type == "cuda" else "cpu"}), flush=True)
+    if own:
+        del model
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def p18_spec_check(engine, prompts, run1, run_spec, dense, tie):
+    """(e): spec streams against run 1's (equal, or parting where the dense
+    fp32 LoRA forward's top-2 gap is under ``tie``), and every step's final
+    row of the rows (b) checked, while the spec stream still equals run 1's,
+    within 2x the dense bf16 rms at its position."""
+    import torch
+    gaps = {}
+
+    def gap_at(i, step):
+        if step == 0:
+            return float("nan")       # the bootstrap token: prefill, the same in both
+        if i not in gaps:
+            f32 = dense.get((1, i), (None,))[0]
+            if f32 is None:
+                seq = np.concatenate([prompts[i], np.asarray(run1["streams"][i], np.int32)])
+                b = P18_RUN1[i]
+                f32 = p18_dense(engine, seq, len(prompts[i]), torch.float32,
+                                None if b is None else p18_delta(engine, b))
+            gaps[i] = f32
+        top = torch.topk(gaps[i][step - 1], 2).values
+        return float(top[0] - top[1])
+
+    n = min(len(s) for s in run_spec["streams"])
+    same_or_near_tie("Llama-2-7B LoRA spec k=3 vs plain LoRA",
+                     np.array([s[:n] for s in run_spec["streams"]]),
+                     np.array([s[:n] for s in run1["streams"]]), gap_at, tie)
+    rows = {}
+    for (r, i), (f32, bf16) in dense.items():
+        if r != 1:
+            continue
+        done, worst, checked = 0, 0.0, 0
+        for j, counts in enumerate(run_spec["per_step"]):
+            done += counts[i]
+            if done > f32.shape[0] or run_spec["streams"][i][:done] != run1["streams"][i][:done]:
+                break
+            eng = run_spec["logits"][j, i].float()
+            e = float((eng - f32[done - 1]).pow(2).mean().sqrt())
+            lim = 2 * float((bf16[done - 1] - f32[done - 1]).pow(2).mean().sqrt())
+            if not e <= lim:
+                raise AssertionError(f"phase 18 (e) row {i} step {j}: final logits rms {e} > "
+                                     f"2x dense bf16 {lim / 2}")
+            worst, checked = max(worst, e / lim), checked + 1
+        if checked == 0:
+            raise AssertionError(f"phase 18 (e) row {i}: no verify step to check")
+        rows[i] = {"steps_checked": checked, "worst_rms_over_limit": worst}
+    counts = np.array(run_spec["per_step"])
+    return {"steps": len(run_spec["per_step"]), "tokens_per_row_step": float(counts.mean()),
+            "final_rows": rows, "launches": run_spec["launches"]}
+
+
+def p18_int8(model, prompts, n):
+    """(h): a short run on int8 weights (K8 under the deltas): (a) for its
+    bound rows and (b) for two of them against the dense forward over the
+    dequantized weights."""
+    import torch
+    engine = p18_engine(model, lora=P18_LORA, quantization={"weight_bits": 8})
+    p18_adapters(engine)
+    binds = ("t0", None, "t3", "t1")
+    run = p18_run(engine, prompts, binds, n)
+    if not run["launches"].get("quantized_matmul_gemv"):
+        raise AssertionError(f"phase 18 (h): no K8 gemv launch ({run['launches']})")
+    for i, b in enumerate(binds):
+        if b is not None:
+            only = tuple(b if j == i else None for j in range(len(binds)))
+            p18_bitwise(f"phase 18 (h) row {i}", p18_run(engine, prompts, only, n), run, [i])
+    checks = [p18_dense_check(f"phase 18 (h) row {i}", engine, prompts[i], run, i, binds[i],
+                              other)[0] for i, other in ((0, "t1"), (2, "t2"))]
+    state = p18_baseline("phase 18 (h)", engine)
+    del engine
+    gc.collect()
+    if model.embed_tokens.embedding.device.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": run["launches"], "dense": checks, "baseline": state}
+
+
 ATTN_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "flash_fwd", "flash_bwd_dq",
               "flash_bwd_dkv")
 Q_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk", "splitk_merge",
@@ -5672,6 +6272,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 17: the K5 verify row takes the k = 3 verify steps' count
     launches["paged_chunk_verify"] = run_prefix_spec()
+    # phase 18: multi-tenant LoRA; its kernels are the rows above, counted there
+    run_lora()
     # modules by full name: the package re-exports same-named functions
     from deepspeed_tpu_torch.ops.kernels import paged_chunk, paged_decode, paged_splitk
     from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import KERNELS as K9_KERNELS

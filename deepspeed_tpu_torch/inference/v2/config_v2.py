@@ -6,11 +6,12 @@ sizing, and the feature sections, with the JAX package's validation
 messages. Carried: int8 and packed int4 weights (``quantization.weight_bits
 = 8`` or ``4``), int8 KV pages (``kv_quant``, under a sliding window and
 ALiBi too), the flash-decoding split ladder (``attention.decode_splits``),
-the prefix cache (``prefix_cache``) and speculative decoding
-(``spec_decode``), each validated in the JAX package's words. Sections
-whose feature the port does not carry yet (``lora``, ``tensor_parallel >
-1``, a non-empty ``serving`` section) parse with their usual keys and raise
-``NotImplementedError`` naming the feature when it is switched on.
+the prefix cache (``prefix_cache``), speculative decoding
+(``spec_decode``) and multi-tenant LoRA (``lora``), each validated in the
+JAX package's words. Sections whose feature the port does not carry yet
+(``tensor_parallel > 1``, a non-empty ``serving`` section) parse with their
+usual keys and raise ``NotImplementedError`` naming the feature when it is
+switched on.
 
 The ``compile`` section configures XLA's compile cache and AOT warmup in the
 JAX package. PyTorch runs eagerly here, so it has no counterpart yet: it is
@@ -164,11 +165,44 @@ class SpecDecodeConfig:
 
 @dataclass
 class LoraConfig:
+    """Multi-tenant LoRA serving (``inference/v2/lora/``): one base model
+    plus per-tenant low-rank adapters, served from a paged adapter-weight
+    pool managed like the KV pool (one page a rank slice, refcounted per
+    in-flight request, LRU-evicted to pinned host buffers under pool
+    pressure and restored byte for byte).
+
+    ``pool_pages``: device pages in the adapter pool (a rank-r adapter takes
+    r); must hold one ``max_rank`` adapter. ``max_rank``: the largest rank
+    the engine accepts; decode and verify run at the rank bucket
+    ``next_pow2(max registered rank)``, smaller adapters padding their page
+    rows with the pool's zero page. ``targets``: the projections that carry
+    deltas, a subset of ``("q", "k", "v", "o")``; deltas apply in the decode
+    and verify steps only (prefill runs the base model). ``swap_buffers``
+    caps the pinned host buffers evicted adapters park in. Validated in the
+    JAX package's words."""
     enabled: bool = False
     pool_pages: int = 64
     max_rank: int = 16
     targets: Any = ("q", "v")
     swap_buffers: int = 16
+
+    def __post_init__(self):
+        self.targets = tuple(self.targets)
+        bad = [t for t in self.targets if t not in ("q", "k", "v", "o")]
+        if bad:
+            raise ValueError(f"lora.targets must be a subset of "
+                             f"('q', 'k', 'v', 'o'), got {self.targets!r}")
+        if not self.targets:
+            raise ValueError("lora.targets must name at least one projection")
+        if self.max_rank < 1:
+            raise ValueError(f"lora.max_rank must be >= 1, got {self.max_rank}")
+        if self.pool_pages < self.max_rank:
+            raise ValueError(
+                f"lora.pool_pages ({self.pool_pages}) must hold at least one "
+                f"max_rank ({self.max_rank}) adapter")
+        if self.swap_buffers < 1:
+            raise ValueError("lora.swap_buffers must be >= 1, got "
+                             f"{self.swap_buffers}")
 
 
 @dataclass
@@ -227,9 +261,13 @@ class RaggedInferenceEngineConfig:
 
     def check_slice(self) -> None:
         """Refuse every feature the port does not carry yet, by name."""
+        if self.lora.enabled and self.tensor_parallel > 1:
+            # the JAX engine's refusal (its engine_v2 :296-302)
+            raise NotImplementedError(
+                "multi-tenant LoRA with tensor_parallel > 1 is not wired "
+                "(adapter pages are unsharded whole-projection slices); "
+                "run lora at tp=1")
         off = []
-        if self.lora.enabled:
-            off.append("lora")
         if self.tensor_parallel > 1:
             off.append("tensor_parallel > 1")
         if self.serving:

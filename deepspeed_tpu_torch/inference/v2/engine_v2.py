@@ -58,6 +58,15 @@ n-gram drafts through the chunk kernel; one verify function is built per
 draft length of :attr:`InferenceEngineV2.spec_k_ladder`. Neither runs
 with a sliding window (refused at build, in the JAX package's words).
 
+Multi-tenant LoRA (``lora.enabled``, as in the JAX package): ``engine.lora``
+is the adapter registry (``lora/registry.py``) over a paged adapter-weight
+pool (``lora/pool.py``); ``module_inject.load_lora_adapter`` registers an
+adapter, ``engine.lora.acquire(uid, name)`` binds a request to it before
+its prompt is put and ``release(uid)`` unbinds it. Decode and verify steps
+then run at the rank bucket (``lora_rank_bucket``, fixed by the registered
+ranks) with each row's delta on the targeted projections; prefill is
+base-only, and ``decode_steps`` refuses bound rows.
+
 Sliding-window serving (Mistral, ``LlamaConfig.sliding_window``) binds the
 window into every attention kernel, and the scheduler keeps each
 sequence's KV in a page ring of ``scheduler.ring_pages`` blocks, as in the
@@ -171,6 +180,108 @@ class SpecDecodeStats:
         ]
 
 
+class _AdapterCounters:
+    """Per-adapter LoRA serving counters (one per registered adapter)."""
+
+    __slots__ = ("active", "resident", "evictions", "faults", "acquires",
+                 "hits", "swap_in_bytes", "swap_out_bytes")
+
+    def __init__(self):
+        self.active = 0            # gauge: in-flight requests bound to it
+        self.resident = 0          # gauge: 0/1 device residency
+        self.evictions = 0
+        self.faults = 0            # device fault-ins (from host or master)
+        self.acquires = 0
+        self.hits = 0              # acquires served without a fault
+        self.swap_in_bytes = 0     # host -> device (fault-in, restore)
+        self.swap_out_bytes = 0    # device -> host (evict)
+
+
+class LoraStats:
+    """Counters of one engine's LoRA adapter registry (the JAX package's
+    ``monitor/serving.py`` :582), the ``serve/lora/*`` monitor events.
+    ``fault_ms`` and ``swap_ms`` sum the fault-in and eviction wall times,
+    each from one ``perf_counter`` pair that ends after the device copy.
+    Mutated only on the registry's thread; ``events()`` snapshots the dict
+    before iterating."""
+
+    def __init__(self):
+        self.adapters: Dict[str, _AdapterCounters] = {}
+        self.fault_ms = 0.0
+        self.swap_ms = 0.0
+
+    def _c(self, name: str) -> _AdapterCounters:
+        return self.adapters.setdefault(name, _AdapterCounters())
+
+    def record_acquire(self, name: str, hit: bool) -> None:
+        c = self._c(name)
+        c.acquires += 1
+        c.hits += bool(hit)
+        c.active += 1
+
+    def record_release(self, name: str) -> None:
+        self._c(name).active -= 1
+
+    def record_fault(self, name: str, nbytes: int, dt_s: float) -> None:
+        c = self._c(name)
+        c.faults += 1
+        c.swap_in_bytes += int(nbytes)
+        c.resident = 1
+        self.fault_ms += 1e3 * dt_s
+
+    def record_evict(self, name: str, nbytes: int, dt_s: float) -> None:
+        c = self._c(name)
+        c.evictions += 1
+        c.swap_out_bytes += int(nbytes)
+        c.resident = 0
+        self.swap_ms += 1e3 * dt_s
+
+    def set_resident(self, name: str, resident: bool) -> None:
+        self._c(name).resident = int(bool(resident))
+
+    def drop(self, name: str) -> None:
+        """Forget an unregistered adapter's counters."""
+        self.adapters.pop(name, None)
+
+    @property
+    def hit_fraction(self) -> float:
+        acq = sum(c.acquires for c in self.adapters.values())
+        hits = sum(c.hits for c in self.adapters.values())
+        return hits / acq if acq else 0.0
+
+    def events(self, step: int = 0) -> List[Event]:
+        """``serve/lora/*`` monitor events ``(name, value, step)``: the
+        registry's totals, then each adapter's."""
+        adapters = dict(self.adapters)
+
+        def total(field_name):
+            return float(sum(getattr(c, field_name) for c in adapters.values()))
+
+        out: List[Event] = [
+            ("serve/lora/registered", float(len(adapters)), step),
+            ("serve/lora/resident", total("resident"), step),
+            ("serve/lora/active", total("active"), step),
+            ("serve/lora/faults", total("faults"), step),
+            ("serve/lora/evictions", total("evictions"), step),
+            ("serve/lora/swap_in_bytes", total("swap_in_bytes"), step),
+            ("serve/lora/swap_out_bytes", total("swap_out_bytes"), step),
+            ("serve/lora/hit_fraction", self.hit_fraction, step),
+            ("serve/lora/fault_ms", self.fault_ms, step),
+            ("serve/lora/swap_ms", self.swap_ms, step),
+        ]
+        for name, c in sorted(adapters.items()):
+            pre = f"serve/lora/{name}"
+            out += [
+                (f"{pre}/active", float(c.active), step),
+                (f"{pre}/resident", float(c.resident), step),
+                (f"{pre}/evictions", float(c.evictions), step),
+                (f"{pre}/faults", float(c.faults), step),
+                (f"{pre}/swap_bytes", float(c.swap_in_bytes + c.swap_out_bytes), step),
+                (f"{pre}/hit_fraction", c.hits / c.acquires if c.acquires else 0.0, step),
+            ]
+        return out
+
+
 class InferenceEngineV2:
 
     def __init__(self,
@@ -264,6 +375,16 @@ class InferenceEngineV2:
         # chunk kernel serves every split rung, so the rung is no key)
         self._verify_fns: LRUCache = LRUCache(maxsize=16)
         self.spec_stats = SpecDecodeStats()
+        # multi-tenant LoRA: the adapter registry over its paged weight pool
+        # (inference/v2/lora/); LoRA decode steps by (rung, rank bucket)
+        self.lora = None
+        self._lora_steps: LRUCache = LRUCache(maxsize=16)
+        if cfg.lora.enabled:
+            from deepspeed_tpu_torch.inference.v2.lora import (LoraAdapterRegistry,
+                                                               LoraPagePool)
+            self.lora = LoraAdapterRegistry(
+                LoraPagePool(self.spec, cfg.lora.targets, cfg.lora.pool_pages, self.device),
+                swap_buffers=cfg.lora.swap_buffers, max_rank=cfg.lora.max_rank)
         self._spec_warned_sampling = False
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
@@ -384,10 +505,43 @@ class InferenceEngineV2:
         self.attn_stats.record(rung)
         return rung
 
-    def _decode_step_fn(self):
+    def _decode_step_fn(self, rb: int = 0):
         """The decode step at this step's rung (the pipeline asks every
-        step)."""
-        return self._step_rungs[self._attn_rung()]
+        step); ``rb > 0``, a LoRA rank bucket, gives the LoRA step at that
+        bucket, built once per (rung, rb) and cached. Rank bucket 0 is
+        exactly the base step."""
+        rung = self._attn_rung()
+        if rb == 0:
+            return self._step_rungs[rung]
+        return self._lora_steps.get_or_create((rung, int(rb)), lambda: build_decode_step(
+            self.spec, n_splits=rung, window_ring_ok=self.scheduler.ring_covers(2),
+            lora_targets=self._lora_targets(rb)))
+
+    def _lora_targets(self, rb: int):
+        """The builders' ``lora_targets`` at rank bucket ``rb``: the
+        configured projections when rb > 0, None (the base step) at 0."""
+        if rb == 0:
+            return None
+        assert self.lora is not None, "rank-bucketed step without LoRA"
+        return self.config.lora.targets
+
+    @property
+    def lora_rank_bucket(self) -> int:
+        """The rank bucket decode runs at: the registry's ``rank_bucket``
+        (0 with LoRA off or only rank-0 adapters: the base steps)."""
+        return self.lora.rank_bucket if self.lora is not None else 0
+
+    def _lora_operands(self, uids: Sequence[int], bucket: int,
+                       rb: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """The keyword LoRA operands of a rank-bucketed step: the pool and
+        these rows' page table ``[bucket, rb]`` on the device, uploaded once
+        a run (bindings hold for the run, like block tables). Empty at rb =
+        0, so callers splat it unconditionally."""
+        rb = self.lora_rank_bucket if rb is None else rb
+        if rb == 0:
+            return {}
+        pt = self.lora.page_table(uids, bucket, rb)
+        return {"lora_pool": self.lora.pool.pool, "adapter_pt": to_device(pt, self.device)}
 
     @property
     def spec_k_ladder(self) -> List[int]:
@@ -404,11 +558,11 @@ class InferenceEngineV2:
         ks.append(k)
         return sorted(set(ks))
 
-    def _verify_fn(self, k: int):
-        """The verify step for draft length ``k``
+    def _verify_fn(self, k: int, rb: int = 0):
+        """The verify step for draft length ``k`` at LoRA rank bucket ``rb``
         (:func:`build_verify_step`), built once and cached."""
-        return self._verify_fns.get_or_create(int(k),
-                                              lambda: build_verify_step(self.spec, int(k)))
+        return self._verify_fns.get_or_create((int(k), int(rb)), lambda: build_verify_step(
+            self.spec, int(k), lora_targets=self._lora_targets(rb)))
 
     # ------------------------------------------------------------------ #
     # decode support
@@ -463,6 +617,16 @@ class InferenceEngineV2:
         S = len(uids)
         if n_steps < 1:
             raise ValueError(f"decode_steps needs n_steps >= 1, got {n_steps}")
+        if self.lora is not None:
+            bound = {u: self.lora.binding(u) for u in uids}
+            bound = {u: n for u, n in bound.items() if n is not None and self.lora.rank(n)}
+            if bound:
+                # the JAX package's bursts take no LoRA operands and would
+                # decode these rows as the base model
+                raise NotImplementedError(
+                    f"decode_steps runs the base model only: uids {sorted(bound)} are "
+                    f"bound to LoRA adapters {sorted(set(bound.values()))} — decode "
+                    "them through decode_pipeline")
         if self.scheduler.has_pending():
             raise RuntimeError("decode_steps requires a drained scheduler")
         db = self.scheduler.decode_batch(uids, n_steps + 1, self.scratch_block)
@@ -523,11 +687,14 @@ class InferenceEngineV2:
     def write_monitor_events(self, monitor, step: int = 0) -> None:
         """Write the serving counters to ``monitor`` (anything with
         ``write_events(list of (name, value, step))``): the prefix cache's
-        when it is on, and the spec pipelines' once one has run."""
+        when it is on, the spec pipelines' once one has run, and the LoRA
+        registry's once an adapter is registered."""
         if self.prefix_cache is not None:
             monitor.write_events(self.prefix_cache.stats.events(step))
         if self.spec_stats.steps:
             monitor.write_events(self.spec_stats.events(step))
+        if self.lora is not None and self.lora.stats.adapters:
+            monitor.write_events(self.lora.stats.events(step))
 
     # ------------------------------------------------------------------ #
     # KV page fabric: pages to the host and back, and page handoffs

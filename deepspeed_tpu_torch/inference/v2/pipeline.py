@@ -14,6 +14,10 @@
   buffer is refilled only after its previous row has been read out.
 - **The split rung is picked every step** (``engine._attn_rung``): the
   step runs at the engine's rung for the current live context.
+- **LoRA operands are fixed for the run**: with adapters registered the
+  step is the engine's LoRA step at its rank bucket, and the pool and the
+  rows' page table go to it unchanged every step (bindings cannot change
+  while a request is in flight).
 - **Descriptors are bucketed** (``DecodeBatch``) and KV blocks are
   pre-reserved for the whole run: block tables go to the device once per
   run, and step N+1's positions are the run's first positions plus N+1,
@@ -121,6 +125,10 @@ class DecodePipeline:
         # block tables are run-invariant (KV pre-reserved): upload ONCE
         block_tables = to_device(db.block_tables, e.device)
         positions0 = to_device(db.positions, e.device)
+        # so are the LoRA operands (a bound adapter's refcount keeps its
+        # pages in place); none at rank bucket 0, whose step is the base one
+        rb = e.lora_rank_bucket
+        lora = e._lora_operands(uids, db.bucket, rb)
         ids = e._sample_device_padded(uids, self.do_sample, self.temperature,
                                       self.top_k)
         drain = _RowDrain(db.bucket, e.device)
@@ -138,10 +146,10 @@ class DecodePipeline:
                 # device row `ids` (token j), writes its KV (and scales, for
                 # an int8 pool), samples token j+1
                 pos = positions0 + j
-                nxt, logits = e._decode_step_fn()(
+                nxt, logits = e._decode_step_fn(rb)(
                     e.weights, e.kv.kv, ids, pos, block_tables, pos + 1,
                     e.generator, self.do_sample, self.top_k, self.temperature,
-                    kv_scales=e.kv.scales)
+                    kv_scales=e.kv.scales, **lora)
                 drain.start((j + 1) % 2, nxt)
                 # drain token j's row (its copy was queued an iteration ago)
                 row = drain.wait(j % 2)

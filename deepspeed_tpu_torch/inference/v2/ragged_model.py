@@ -30,6 +30,12 @@ writes each step's row first where the slab does not fit.
 A sliding window (``spec.window``, Mistral) and ALiBi (``spec.alibi``,
 BLOOM) are bound into every attention dispatch (``AttentionKernelSpec``).
 
+Multi-tenant LoRA (``lora_targets`` on the decode, verify and burst
+builders): each row reads its adapter's rank-slice pages from the pool
+(:func:`lora_layer_operands`, one layer at a time) and adds ``(x @ A) @ B``
+to the targeted q/k/v/o projections (:func:`_lora_mm`), an f32 product
+pair in plain torch ops, as the JAX package leaves it to XLA.
+
 A Python loop over layers takes the place of the JAX package's ``lax.scan``,
 and each layer indexes its own pool view ``kv[l]`` (and, for an int8 pool,
 its scale tiles ``kv_scales[l]``), so no layer offset enters the block
@@ -490,6 +496,92 @@ def _mm(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
+# --------------------------------------------------------------------------- #
+# multi-tenant LoRA: paged adapter weights -> each row's grouped delta
+# (inference/v2/lora/)
+# --------------------------------------------------------------------------- #
+
+#: projections a LoRA adapter may target (attention only, as the JAX
+#: package's: the S-LoRA / Punica serving pattern)
+LORA_TARGETS = ("q", "k", "v", "o")
+
+
+def lora_target_dims(spec: RaggedModelSpec, target: str) -> Tuple[int, int]:
+    """``(d_in, d_out)`` of one LoRA-targeted base projection."""
+    H, Hkv, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    hid = spec.hidden_size
+    dims = {"q": (hid, H * D), "k": (hid, Hkv * D), "v": (hid, Hkv * D),
+            "o": (H * D, hid)}
+    if target not in dims:
+        raise ValueError(f"unknown LoRA target {target!r} "
+                         f"(supported: {LORA_TARGETS})")
+    return dims[target]
+
+
+def lora_page_layout(spec: RaggedModelSpec,
+                     targets: Tuple[str, ...]) -> Tuple[int, int, int]:
+    """``(elements, in_max, out_max)`` of ONE adapter-weight page, as the
+    JAX package's (:463): a page is one rank slice of a whole adapter, for
+    every layer and targeted projection column ``j`` of its A (padded to
+    ``in_max``) then row ``j`` of its B (alpha / rank folded in, padded to
+    ``out_max``), flattened ``[L, nproj, in_max + out_max]``. A rank-r
+    adapter owns r pages; the pool's zero page pads ranks below the
+    dispatch bucket and backs unbound rows."""
+    dims = [lora_target_dims(spec, t) for t in targets]
+    in_max = max(d[0] for d in dims)
+    out_max = max(d[1] for d in dims)
+    return spec.num_layers * len(targets) * (in_max + out_max), in_max, out_max
+
+
+def lora_layer_operands(spec: RaggedModelSpec, targets: Tuple[str, ...],
+                        lora_pool: torch.Tensor, adapter_pt: torch.Tensor,
+                        layer: int) -> torch.Tensor:
+    """Layer ``layer``'s slice of each row's adapter pages, gathered on the
+    device: ``lora_pool`` ``[P + 2, elements]``, ``adapter_pt`` ``[S, RB]``
+    page ids (rank padding and pad rows at the zero page) -> ``[S, RB,
+    nproj, in_max + out_max]``. The JAX package gathers all layers once a
+    run (:483, ``[L, S, RB, ...]`` riding its layer scan); here each layer
+    of each step gathers its own slice: the same bits, 1/L of the memory
+    (at Llama-2-7B, four targets and RB 16, a run's whole gather holds 32
+    MiB a sequence)."""
+    _, in_max, out_max = lora_page_layout(spec, targets)
+    pages = lora_pool.view(lora_pool.shape[0], spec.num_layers, len(targets),
+                           in_max + out_max)[:, layer]
+    return pages[adapter_pt.long()]
+
+
+def _lora_split(spec: RaggedModelSpec, targets: Tuple[str, ...],
+                lora_l: torch.Tensor) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """One layer's gathered slice ``[S, RB, nproj, io]`` -> ``{target: (A
+    [S, RB, d_in], B [S, RB, d_out])}`` for :func:`_lora_mm` (views)."""
+    _, in_max, _ = lora_page_layout(spec, targets)
+    out = {}
+    for p, t in enumerate(targets):
+        din, dout = lora_target_dims(spec, t)
+        out[t] = (lora_l[:, :, p, :din], lora_l[:, :, p, in_max:in_max + dout])
+    return out
+
+
+def _lora_mm(x: torch.Tensor, w, lora: Optional[Dict], name: str) -> torch.Tensor:
+    """``_mm(x, w)`` plus each row's grouped LoRA delta ``(x @ A) @ B`` (the
+    JAX package's ``_lora_mm`` :514): one batched product pair serves a
+    batch that mixes tenants. ``lora[name]`` holds ``(A [S, RB, d_in], B
+    [S, RB, d_out])`` for ``S`` row groups; the ``T = S * R`` rows of ``x``
+    run in groups of ``R`` consecutive rows on their group's pages (a
+    decode step: R = 1; a verify step: a sequence's k + 1 rows share its
+    adapter). The contraction is f32 over f32 casts of the operands, added
+    in ``y``'s dtype, so a row on the zero page adds an exact ``+0``."""
+    y = _mm(x, w)
+    if lora is None or name not in lora:
+        return y
+    a, b = lora[name]
+    S = a.shape[0]
+    xs = x.float().view(S, -1, x.shape[-1])                          # [S, R, d_in]
+    c = torch.bmm(xs, a.float().transpose(1, 2))                      # [S, R, RB]
+    d = torch.bmm(c, b.float())                                       # [S, R, d_out]
+    return y + d.view(y.shape).to(y.dtype)
+
+
 _QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 _QUANT_MLP_KEYS = ("w_gate", "w_up", "w_down")
 #: the serving keys whose tensors weight-only quantization replaces by
@@ -613,24 +705,27 @@ def _moe_ffn(x: torch.Tensor, w: Dict, top_k: int, dtype: torch.dtype) -> torch.
 
 
 def _transformer_layer(spec: RaggedModelSpec, w: Dict, x: torch.Tensor, rope,
-                       attend: Callable) -> torch.Tensor:
+                       attend: Callable, lora: Optional[Dict] = None) -> torch.Tensor:
     """One layer over ragged rows ``x`` [T, hidden], as the JAX package's
     ``_transformer_layer``: biased q/k/v/o, full or partial rotary (``rope``
     from :func:`_rope`, None without), sequential or parallel blocks, a
     gated (SwiGLU or GeGLU) or plain MLP with biases, or the routed experts
     of an MoE layer (:func:`_moe_ffn`). ``attend(q, k, v) -> [T, H, D]``
     writes the pass's K/V into the pool and attends, in the shape of its
-    pass."""
+    pass. ``lora`` (:func:`_lora_split`'s dict, or None) adds each row's
+    adapter delta to the targeted projections: q/k/v before their biases
+    and the rotary, o before its bias."""
     H, Hkv, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
     h1 = _norm(x, w, "ln1", spec)
-    q, k, v = _mm(h1, w["wq"]), _mm(h1, w["wk"]), _mm(h1, w["wv"])
+    q, k, v = (_lora_mm(h1, w["wq"], lora, "q"), _lora_mm(h1, w["wk"], lora, "k"),
+               _lora_mm(h1, w["wv"], lora, "v"))
     if "bq" in w:
         q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
     q, k, v = q.view(-1, H, D), k.view(-1, Hkv, D), v.view(-1, Hkv, D)
     if rope is not None:
         q = _rope_flat(q, rope, spec.rotary_dim)
         k = _rope_flat(k, rope, spec.rotary_dim)
-    attn_out = _mm(attend(q, k, v).reshape(-1, H * D), w["wo"])
+    attn_out = _lora_mm(attend(q, k, v).reshape(-1, H * D), w["wo"], lora, "o")
     if "bo" in w:
         attn_out = attn_out + w["bo"]
     if spec.parallel_block:
@@ -890,12 +985,15 @@ def _sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator],
 
 
 def _step_logits(spec: RaggedModelSpec, weights, kv, ids, positions, kv_scales,
-                 attend_layer: Callable) -> torch.Tensor:
+                 attend_layer: Callable,
+                 lora_layer: Optional[Callable[[int], Dict]] = None) -> torch.Tensor:
     """One decode step's forward over the rows ``ids`` at ``positions``:
     layer ``l`` attends through ``attend_layer(l, q, k, v, kv_l, sc_l)``
     (``kv_l``/``sc_l``: the layer's pool view and scale tiles), which also
     places the rows' K/V; with an int8 pool it gets the ``kv_write_dequant``
-    rows (f32), the values the pages store. Returns f32 logits [S, V]."""
+    rows (f32), the values the pages store. ``lora_layer(l)`` gives layer
+    ``l``'s adapter slices (:func:`_lora_split`), or is None. Returns f32
+    logits [S, V]."""
     x = _embed_in(spec, weights, ids, positions)
     rope = _rope(spec, positions)
     for l, w in enumerate(weights["layers"]):
@@ -907,13 +1005,33 @@ def _step_logits(spec: RaggedModelSpec, weights, kv, ids, positions, kv_scales,
                 k, v = kv_write_dequant(k), kv_write_dequant(v)
             return attend_layer(l, q, k, v, kv_l, sc_l)
 
-        x = _transformer_layer(spec, w, x, rope, attend)
+        x = _transformer_layer(spec, w, x, rope, attend,
+                               None if lora_layer is None else lora_layer(l))
     x = _norm(x, weights, "final_norm", spec)
     return _unembed(spec, weights, x)
 
 
+def _lora_layers(spec: RaggedModelSpec, lora_targets: Optional[Tuple[str, ...]],
+                 lora_pool: Optional[torch.Tensor],
+                 adapter_pt: Optional[torch.Tensor]) -> Optional[Callable[[int], Dict]]:
+    """The per-layer adapter slices of a LoRA-built step (``lora_targets``
+    set: both operands required), or None for a base step, which refuses
+    LoRA operands (the JAX package's assertion, :1423)."""
+    if lora_targets is None:
+        if lora_pool is not None or adapter_pt is not None:
+            raise ValueError("lora operands on a non-LoRA step (built with "
+                             "lora_targets=None)")
+        return None
+    if lora_pool is None or adapter_pt is None:
+        raise ValueError(f"a LoRA step (lora_targets={lora_targets}) needs both "
+                         "lora_pool and adapter_pt")
+    return lambda l: _lora_split(spec, lora_targets, lora_layer_operands(
+        spec, lora_targets, lora_pool, adapter_pt, l))
+
+
 def build_decode_step(spec: RaggedModelSpec, n_splits: int = 1,
-                      window_ring_ok: bool = False) -> Callable:
+                      window_ring_ok: bool = False,
+                      lora_targets: Optional[Tuple[str, ...]] = None) -> Callable:
     """One decode step for the pipelined serving loop: consume ``ids`` [S]
     (this step's tokens), attend and write their KV, and sample the NEXT
     token row on the device.
@@ -931,23 +1049,32 @@ def build_decode_step(spec: RaggedModelSpec, n_splits: int = 1,
     (next_ids [S] int32, logits [S, V] f32)``; ``ctx`` counts tokens
     INCLUDING the current one (>= 1 on every row). With an int8 pool the
     current token is attended at its pool value (``kv_write_dequant``, f32
-    side rows) and written quantized after."""
+    side rows) and written quantized after.
+
+    ``lora_targets`` (a subset of :data:`LORA_TARGETS`) builds the
+    multi-tenant LoRA step: ``fwd`` then needs the keyword operands
+    ``lora_pool`` ``[P + 2, elements]`` and ``adapter_pt`` ``[S, RB]``
+    (each row's page ids, :meth:`LoraAdapterRegistry.page_table`), and each
+    row's adapter delta rides the targeted projections (:func:`_lora_mm`)
+    on either schedule. None builds the base step, which takes neither."""
     ak = AttentionKernelSpec(spec, n_splits=n_splits)
     sidebuf = spec.window is None or window_ring_ok
     step = ak.decode_step if sidebuf else ak.decode_step_write
 
     def fwd(weights, kv, ids, positions, block_tables, ctx, generator=None,
             do_sample: bool = False, top_k: int = 0, temperature: float = 1.0,
-            kv_scales=None):
+            kv_scales=None, lora_pool=None, adapter_pt=None):
         logits = _step_logits(spec, weights, kv, ids, positions, kv_scales,
                               lambda l, q, k, v, kv_l, sc_l: step(
-                                  q, k, v, kv_l, block_tables, ctx, kv_scales=sc_l))
+                                  q, k, v, kv_l, block_tables, ctx, kv_scales=sc_l),
+                              _lora_layers(spec, lora_targets, lora_pool, adapter_pt))
         return _sample_logits(logits, generator, do_sample, top_k, temperature), logits
 
     return fwd
 
 
-def build_verify_step(spec: RaggedModelSpec, k: int) -> Callable:
+def build_verify_step(spec: RaggedModelSpec, k: int,
+                      lora_targets: Optional[Tuple[str, ...]] = None) -> Callable:
     """Speculative decoding's verify step (the JAX package's
     ``build_verify_step`` :1352-1503): score ``k`` draft tokens a sequence
     in ONE ragged forward.
@@ -976,13 +1103,20 @@ def build_verify_step(spec: RaggedModelSpec, k: int) -> Callable:
     ``accept_row[1, i] = next_ids[i]``, the greedy bonus token), and
     ``final_logits`` are the logits ``next_ids`` was taken from. ``ctx0``
     counts tokens INCLUDING the current one (``positions0 + 1``); the pool
-    is written in place."""
+    is written in place.
+
+    ``lora_targets`` builds the LoRA verify step, as
+    :func:`build_decode_step`'s: ``adapter_pt`` ``[S, RB]`` holds each
+    sequence's pages, which all its k + 1 rows use (the JAX package repeats
+    them to token rows, :1414-1421), so the verify step runs the decode
+    step's delta row for row."""
     H, Hkv, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
     K1 = k + 1
     ak = AttentionKernelSpec(spec)
 
     def fwd(weights, kv, ids, draft, n_draft, positions0, block_tables, ctx0,
-            kv_scales=None):
+            kv_scales=None, lora_pool=None, adapter_pt=None):
+        lora_layer = _lora_layers(spec, lora_targets, lora_pool, adapter_pt)
         S, bs, MB = ids.shape[0], kv.shape[4], block_tables.shape[1]
         steps = torch.arange(K1, dtype=positions0.dtype, device=ids.device)
         tokens = torch.cat([ids[:, None], draft.to(ids.dtype)], dim=1)   # [S, K1]
@@ -1004,7 +1138,8 @@ def build_verify_step(spec: RaggedModelSpec, k: int) -> Callable:
                 return ak.chunk(q.view(S, K1, H, D), kv_l, block_tables, positions0, ctx,
                                 kv_scales=sc_l).reshape(S * K1, H, D)
 
-            x = _transformer_layer(spec, w, x, rope, attend)
+            x = _transformer_layer(spec, w, x, rope, attend,
+                                   None if lora_layer is None else lora_layer(l))
 
         x = _norm(x, weights, "final_norm", spec)
         logits = _unembed(spec, weights, x).view(S, K1, -1)
@@ -1091,16 +1226,19 @@ def flush_side_slab(kv: torch.Tensor, side_k: torch.Tensor, side_v: torch.Tensor
 
 
 def _build_multistep_general(spec: RaggedModelSpec, n_steps: int, do_sample: bool,
-                             top_k: int, n_splits: int = 1) -> Callable:
+                             top_k: int, n_splits: int = 1,
+                             lora_targets: Optional[Tuple[str, ...]] = None) -> Callable:
     """The per-step-write burst (the JAX package's
     ``_build_multistep_general`` :1505): each layer of each step writes the
     current token's K/V into its page, then attends, through
     ``AttentionKernelSpec.decode_step_write`` (K4's order and its split-K
-    dispatcher)."""
+    dispatcher). ``lora_targets`` adds each row's adapter delta, as
+    :func:`build_decode_step`'s (the bindings hold for the whole burst)."""
     ak = AttentionKernelSpec(spec, n_splits=n_splits)
 
     def fwd(weights, kv, ids0, positions0, block_tables, ctx0, generator=None,
-            temperature: float = 1.0, kv_scales=None):
+            temperature: float = 1.0, kv_scales=None, lora_pool=None, adapter_pt=None):
+        lora_layer = _lora_layers(spec, lora_targets, lora_pool, adapter_pt)
         out_ids = torch.empty((n_steps, ids0.shape[0]), dtype=torch.int32,
                               device=ids0.device)
         ids, pos, ctx = ids0, positions0, ctx0
@@ -1108,7 +1246,8 @@ def _build_multistep_general(spec: RaggedModelSpec, n_steps: int, do_sample: boo
         for j in range(n_steps):
             logits = _step_logits(spec, weights, kv, ids, pos, kv_scales,
                                   lambda l, q, k, v, kv_l, sc_l: ak.decode_step_write(
-                                      q, k, v, kv_l, block_tables, ctx, kv_scales=sc_l))
+                                      q, k, v, kv_l, block_tables, ctx, kv_scales=sc_l),
+                                  lora_layer)
             out_ids[j] = ids
             ids = _sample_logits(logits, generator, do_sample, top_k, temperature)
             pos, ctx = pos + 1, ctx + 1
@@ -1142,7 +1281,8 @@ def multistep_schedule(spec: RaggedModelSpec, n_steps: int, n_rows: int,
 def build_multistep_decode(spec: RaggedModelSpec, n_steps: int, do_sample: bool = False,
                            top_k: int = 0, window_ring_ok: bool = False,
                            max_side_bytes: Optional[int] = None,
-                           n_splits: int = 1) -> Callable:
+                           n_splits: int = 1,
+                           lora_targets: Optional[Tuple[str, ...]] = None) -> Callable:
     """A burst of ``n_steps`` decode steps with on-device sampling between
     them (the JAX package's ``build_multistep_decode`` :1214): the
     sample -> embed -> forward -> sample loop runs on the device with no
@@ -1154,8 +1294,16 @@ def build_multistep_decode(spec: RaggedModelSpec, n_steps: int, do_sample: bool 
     [n_steps, S] int32, final_logits [S, V] f32)``, the pool written in
     place; ``ctx0`` counts tokens INCLUDING the first current token;
     ``out_ids[j]`` is the token *consumed* by step ``j`` (``ids0`` first),
-    and ``final_logits`` predict the token after the last one generated."""
-    general = _build_multistep_general(spec, n_steps, do_sample, top_k, n_splits)
+    and ``final_logits`` predict the token after the last one generated.
+
+    ``lora_targets`` builds the per-step-write loop only, with the LoRA
+    operands as :func:`build_decode_step`'s, as in the JAX package
+    (:1259-1265). The engine's ``decode_steps`` builds its bursts without
+    (adapter-bound rows are refused there)."""
+    general = _build_multistep_general(spec, n_steps, do_sample, top_k, n_splits,
+                                       lora_targets)
+    if lora_targets is not None:
+        return general
     sidebuf = _build_multistep_sidebuf(spec, n_steps, do_sample, top_k, n_splits)
 
     def fwd(weights, kv, ids0, *rest, **kw):

@@ -197,6 +197,11 @@ class SpecDecodePipeline:
         # longest draft; a step with no draft anywhere runs the plain
         # decode step
         ladder = e.spec_k_ladder
+        # run-invariant LoRA operands, as block_tables (none at rank bucket
+        # 0): the same [bucket, rb] page table feeds the verify and the
+        # plain step, a sequence's k + 1 verify rows sharing its pages
+        rb = e.lora_rank_bucket
+        lora = e._lora_operands(uids, db.bucket, rb)
         block_tables = to_device(db.block_tables, e.device)
         pos = to_device(db.positions, e.device)
         ids = e._sample_device_padded(uids, False, 1.0, 0)
@@ -225,15 +230,15 @@ class SpecDecodePipeline:
                 kmax = int(n_draft.max())
                 if kmax > 0:
                     k_step = next(k_ for k_ in ladder if k_ >= kmax)
-                    accept_row, nxt, final_logits = e._verify_fn(k_step)(
+                    accept_row, nxt, final_logits = e._verify_fn(k_step, rb)(
                         e.weights, e.kv.kv, ids, to_device(draft[:, :k_step], e.device),
                         to_device(n_draft, e.device), pos, block_tables, pos + 1,
-                        kv_scales=e.kv.scales)
+                        kv_scales=e.kv.scales, **lora)
                 else:
                     # nothing to verify anywhere: one plain greedy decode step
-                    nxt, final_logits = e._decode_step_fn()(
+                    nxt, final_logits = e._decode_step_fn(rb)(
                         e.weights, e.kv.kv, ids, pos, block_tables, pos + 1,
-                        e.generator, False, 0, 1.0, kv_scales=e.kv.scales)
+                        e.generator, False, 0, 1.0, kv_scales=e.kv.scales, **lora)
                     accept_row = torch.stack([torch.zeros_like(nxt), nxt])
                 drain.start(0, accept_row.reshape(-1))
                 t2 = perf()

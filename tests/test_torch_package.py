@@ -111,6 +111,43 @@ def test_burst_and_page_fabric_modules_import_without_jax():
                    env={**os.environ, "PYTHONPATH": str(ROOT)})
 
 
+LORA_MODULES = ("deepspeed_tpu_torch.inference.v2.lora",
+                "deepspeed_tpu_torch.inference.v2.lora.pool",
+                "deepspeed_tpu_torch.inference.v2.lora.registry",
+                "deepspeed_tpu_torch.module_inject", "deepspeed_tpu_torch.module_inject.lora",
+                "deepspeed_tpu_torch.runtime.swap_tensor",
+                "deepspeed_tpu_torch.runtime.swap_tensor.buffer_pool",
+                "deepspeed_tpu_torch.utils.fault_injection")
+
+
+def test_lora_modules_import_without_jax():
+    """The multi-tenant LoRA modules, each imported by its own name in a
+    fresh interpreter, load no JAX and nothing of the JAX package."""
+    code = ("import importlib, sys; "
+            f"[importlib.import_module(m) for m in {LORA_MODULES!r}]; "
+            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'deepspeed_tpu') "
+            "or m.startswith(('jax.', 'flax.', 'deepspeed_tpu.'))]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120,
+                   env={**os.environ, "PYTHONPATH": str(ROOT)})
+
+
+@pytest.mark.parametrize("module, names", [
+    ("deepspeed_tpu_torch.inference.v2.lora", ("LoraPagePool", "LoraAdapterRegistry",
+                                               "REGISTERED", "RESIDENT", "EVICTED")),
+    ("deepspeed_tpu_torch.module_inject", ("load_lora_adapter", "validate_lora_adapter",
+                                           "pack_lora_pages")),
+    ("deepspeed_tpu_torch.inference.v2.ragged_model", ("LORA_TARGETS", "lora_target_dims",
+                                                       "lora_page_layout",
+                                                       "lora_layer_operands")),
+    ("deepspeed_tpu_torch.inference.v2.engine_v2", ("LoraStats",)),
+])
+def test_lora_slice_exports(module, names):
+    import importlib
+    mod = importlib.import_module(module)
+    assert all(hasattr(mod, n) for n in names), [n for n in names if not hasattr(mod, n)]
+
+
 @pytest.mark.parametrize("module, names", [
     ("deepspeed_tpu_torch.inference.v2", ("InferenceEngineV2", "build_multistep_decode",
                                           "multistep_schedule")),
@@ -373,7 +410,9 @@ def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
                  id="spec_decode-value0-spec_decode"),
     pytest.param("prefix_cache", {"enabled": True}, "prefix_cache",
                  id="prefix_cache-value1-prefix_cache"),
-    ("lora", {"enabled": True}, "lora"),
+    # lora loads since it was ported; with tensor_parallel > 1 it is
+    # refused in the JAX engine's words
+    pytest.param("lora", {"enabled": True}, "lora", id="lora-value2-lora"),
     ("tensor_parallel", 2, "tensor_parallel"),
     # the id this case had while a fourth one preceded it
     pytest.param("serving", {"decode_slice": 4}, "serving", id="serving-value5-serving"),
@@ -384,6 +423,12 @@ def test_unported_config_feature_raises(section, value, feature):
         AttentionKernelSpec.validate_engine_build(_spec(), cfg)
         with pytest.raises(NotImplementedError, match=f"{feature} with a sliding-window"):
             AttentionKernelSpec.validate_engine_build(_spec(window=64), cfg)
+        return
+    if section == "lora":
+        assert RaggedInferenceEngineConfig.load({section: value}).lora.enabled
+        with pytest.raises(NotImplementedError,
+                           match="multi-tenant LoRA with tensor_parallel > 1 is not wired"):
+            RaggedInferenceEngineConfig.load({section: value, "tensor_parallel": 2})
         return
     with pytest.raises(NotImplementedError, match=feature):
         RaggedInferenceEngineConfig.load({section: value})
