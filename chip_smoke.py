@@ -314,6 +314,26 @@ decode kernel at Qwen2-7B's G = 7 and Gemma-7B's D = 256 on pages of 128.
    decode tok/s LoRA against LoRA-off, the LoRA and base steps' wall and
    device ms and kernels, the delta's and the gather's device ms, every
    fault-in and eviction (ms, bytes).
+19. checkpoint and resume on phase 5's model and config (GPT-2 small, bf16
+   with an fp32 master, seeded random weights) over 10 distinct global
+   batches of 16 x 1024 tokens, under a ``tempfile.mkdtemp()`` directory
+   (the free space checked first, removed at the end). Checks: (a) two
+   uninterrupted runs (A, and A' which saves at step 5 on the native
+   engine) print whether their losses and final masters are bitwise equal;
+   (b) a fresh engine from another seed loads ``global_step5`` with
+   ``verify=True`` and trains batches 6-10; (c) async writers with rolling
+   saves every 2 steps (keep 2, 1 pending) over the 10 batches, then after
+   ``destroy()`` exactly ``rolling_step8`` and ``rolling_step10`` with
+   ``latest`` at the second, and a fresh engine resumed with ``tag=None``;
+   (d) ``ds_to_universal`` of the step-5 tag into an engine with
+   ``load_universal``; (e) ``zero_to_fp32``'s ``.pt`` equal to the step-5
+   master; (f) 120 launches of each K1 kernel over (b)'s 5 steps. (b)-(d)
+   hold losses and masters within (a)'s own difference (zero when (a) is
+   bitwise). Printed on the ``checkpoint`` line: bytes a tag, the native
+   and async save ms (snapshot, write, commit), the load ms (read, verify,
+   host->device), the policed drain against a blocking copy a leaf, the
+   rolling run's snapshot and backpressure ms a save and its step ms
+   beside a run without rolling, and the phase's seconds.
 
 The last two lines are the kernel table (58 rows, K5 at the verify step's
 shape among them) and ``{"ok": true,
@@ -6171,6 +6191,262 @@ def p18_int8(model, prompts, n):
     return {"launches": run["launches"], "dense": checks, "baseline": state}
 
 
+# --------------------------------------------------------------------------- #
+# phase 19: checkpoint and resume at GPT-2 small's width
+# --------------------------------------------------------------------------- #
+
+P19_STEPS, P19_AT = 10, 5
+# the most the phase holds on disk at once: a tag (~1.5 GB), its universal
+# copy and the zero_to_fp32 file, then up to four rolling tags while the
+# committer lags (~6 GB)
+P19_DISK_BYTES = 8 * 10 ** 9
+P19_ROLLING = {"engine": "async", "writers": 2,
+               "rolling": {"every_n_steps": 2, "keep_last": 2, "max_pending": 1}}
+
+
+def p19_engine(cfg, dev, seed: int, config):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead
+    model = GPT2LMHead(cfg, device=dev, seed=seed)
+    return deepspeed_tpu_torch.initialize(model=model, config=config, device=dev)[0]
+
+
+def p19_sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def p19_train(engine, batches, dev):
+    """(losses as a float32 array, wall ms a step) of ``train_steps`` over
+    ``batches``; the clock ends in a device sync."""
+    p19_sync(dev)
+    t0 = time.perf_counter()
+    losses = engine.train_steps(len(batches), data_iter=iter(batches))
+    p19_sync(dev)
+    return losses, (time.perf_counter() - t0) * 1e3 / len(batches)
+
+
+def p19_master(engine) -> dict:
+    return {n: t.detach().clone() for n, t in engine.state["master"].items()}
+
+
+def p19_diff(losses, ref_losses, master, ref_master):
+    """(largest |loss - ref|, 0 without losses; largest |master - ref| over
+    every leaf)."""
+    loss = 0.0 if losses is None else float(
+        np.max(np.abs(losses.astype(np.float64) - ref_losses.astype(np.float64))))
+    return loss, max(float((master[n] - t).abs().max()) for n, t in ref_master.items())
+
+
+def p19_gate(label: str, got, ctrl) -> None:
+    """A resumed run against the uninterrupted one: within the control's
+    own difference, which is (0, 0) when the control is bitwise."""
+    print(f"phase 19 {label}: loss diff {got[0]}, master diff {got[1]} "
+          f"(control {ctrl[0]}, {ctrl[1]})", flush=True)
+    if got[0] > ctrl[0] or got[1] > ctrl[1]:
+        raise AssertionError(f"phase 19 {label}: {got} beyond the control's {ctrl}")
+
+
+def p19_counters(label: str, engine, steps: int, rows: int, gas: int) -> None:
+    got = (engine.global_steps, engine.global_samples, engine.micro_steps)
+    if got != (steps, steps * rows, steps * gas):
+        raise AssertionError(f"phase 19 {label}: counters {got} != "
+                             f"{(steps, steps * rows, steps * gas)}")
+
+
+def p19_drains(engine, dev) -> dict:
+    """ms of the snapshot's policed drain (fresh pinned buffers from the
+    caching host allocator, one sync; twice) against one blocking
+    ``.to("cpu")`` a leaf, on the same state."""
+    from deepspeed_tpu_torch.checkpoint.state import flatten_tree, snapshot_state_flats
+    out = {}
+    for name in ("policed_1", "policed_2"):
+        p19_sync(dev)
+        t0 = time.perf_counter()
+        flats = snapshot_state_flats(engine.state)
+        out[name] = (time.perf_counter() - t0) * 1e3
+        del flats
+    st = engine.state
+    leaves = flatten_tree({"master": st["master"], "opt": st["opt"], "step": st["step"],
+                           "scaler": st["scaler"], "skipped": st["skipped"]})
+    p19_sync(dev)
+    t0 = time.perf_counter()
+    host = {k: v.detach().to("cpu").clone() for k, v in leaves.items()}
+    out["per_leaf_blocking"] = (time.perf_counter() - t0) * 1e3
+    out["leaves"] = len(host)
+    return out
+
+
+def run_checkpoint(cfg=None, config=None, device="cuda"):
+    """Phase 19: checkpoint and resume on phase 5's model and config (GPT-2
+    small, bf16 with an fp32 master) over 10 distinct global batches.
+    Checks: (a) control, engines A and A' (seed 0) over the 10 batches; (b)
+    A' saves at step 5 (native engine) and keeps training, a fresh engine B
+    (seed 1) loads the tag with ``verify=True`` and trains batches 6-10;
+    (c) engine C over the 10 batches with async writers and rolling saves
+    every 2 steps (keep 2, max 1 pending), then its tags and ``latest``
+    after ``destroy()``, and a fresh engine resumed with ``tag=None``; (d)
+    ``ds_to_universal`` of the step-5 tag into an engine with
+    ``load_universal``; (e) ``zero_to_fp32``'s ``.pt`` against the step-5
+    master; (f) K1's launches over B's steps. (b)-(d) hold their losses and
+    masters within (a)'s difference, which is zero when (a) is bitwise.
+    ``cfg``, ``config`` and ``device`` default to phase 5's."""
+    import shutil
+    import tempfile
+
+    import torch
+    from deepspeed_tpu_torch.checkpoint import ds_to_universal
+    from deepspeed_tpu_torch.checkpoint.state import MODEL_FILE, OPTIM_FILE, read_latest_tag
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from deepspeed_tpu_torch.utils.zero_to_fp32 import convert_zero_checkpoint_to_fp32_state_dict
+
+    t_phase = time.perf_counter()
+    cfg = cfg or GPT2Config(dtype=torch.bfloat16)
+    config = config or TRAIN_CONFIG
+    dev = torch.device(device)
+    rows = config["train_batch_size"]
+    gas = rows // config["train_micro_batch_size_per_gpu"]
+    rng = np.random.default_rng(0)
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size, (rows, cfg.n_positions))
+                .astype(np.int32)} for _ in range(P19_STEPS)]
+    tail = batches[P19_AT:]
+    out = {"nvidia_smi": smi_line() if dev.type == "cuda" else "cpu"}
+
+    def free(*engines):
+        for e in engines:
+            e.destroy()
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_p19_")
+    try:
+        space = shutil.disk_usage(root).free
+        out["disk_free_bytes"] = space
+        if space < P19_DISK_BYTES:
+            raise RuntimeError(f"phase 19 holds up to {P19_DISK_BYTES} bytes on disk and "
+                               f"{root} has {space} free")
+        # (a) the control: two uninterrupted runs, A' saving at step 5
+        a = p19_engine(cfg, dev, 0, config)
+        loss_a, _ = p19_train(a, batches, dev)
+        master_a = p19_master(a)
+        free(a)
+        del a
+        a1 = p19_engine(cfg, dev, 0, config)
+        first, ms_1 = p19_train(a1, batches[:P19_AT], dev)
+        tags = os.path.join(root, "tags")
+        a1.save_checkpoint(tags)
+        st = a1.ckpt_stats
+        out["native_save_ms"] = {"snapshot": st.snapshot_ms, "write": st.write_ms,
+                                 "commit": st.commit_ms}
+        master_5 = p19_master(a1)
+        out["drain_ms"] = p19_drains(a1, dev)
+        second, ms_2 = p19_train(a1, tail, dev)
+        out["step_ms_without_rolling"] = (ms_1 + ms_2) / 2
+        loss_a1 = np.concatenate([first, second])
+        ctrl = p19_diff(loss_a1, loss_a, p19_master(a1), master_a)
+        out["control"] = {"losses_bitwise": loss_a1.tobytes() == loss_a.tobytes(),
+                          "loss_diff": ctrl[0], "master_diff": ctrl[1],
+                          "bitwise": ctrl == (0.0, 0.0)}
+        print("phase 19 (a) control " + json.dumps(out["control"]), flush=True)
+        free(a1)
+        del a1
+        tag_dir = os.path.join(tags, "global_step5")
+        out["tag_bytes"] = {f: os.path.getsize(os.path.join(tag_dir, f))
+                            for f in (MODEL_FILE, OPTIM_FILE)}
+        out["master_values"] = sum(t.numel() for t in master_5.values())
+
+        # (b) resume in a fresh engine; (f) K1 over its steps
+        b = p19_engine(cfg, dev, 1, config)
+        b.load_checkpoint(tags, tag="global_step5", verify=True)
+        st = b.ckpt_stats
+        out["load_ms"] = {"read": st.load_read_ms, "verify": st.load_verify_ms,
+                          "h2d": st.load_h2d_ms}
+        p19_counters("(b)", b, P19_AT, rows, gas)
+        p19_sync(dev)
+        reset_launches()
+        loss_b, _ = p19_train(b, tail, dev)
+        launches = {k: LAUNCHES[k] for k in K1_NAMES}
+        p19_gate("(b) resume", p19_diff(loss_b, loss_a[P19_AT:], p19_master(b), master_a),
+                 ctrl)
+        want = gas * cfg.n_layer * (P19_STEPS - P19_AT)   # one of each a layer and micro-batch
+        out["k1_launches"] = launches
+        if any(v != want for v in launches.values()):
+            raise AssertionError(f"phase 19 (f): K1 launches {launches}, expected {want} each")
+        free(b)
+        del b
+
+        # (d) universal
+        uni = os.path.join(root, "universal")
+        t0 = time.perf_counter()
+        ds_to_universal(tags, uni, tag="global_step5")
+        out["to_universal_ms"] = (time.perf_counter() - t0) * 1e3
+        d = p19_engine(cfg, dev, 1, dict(config, checkpoint={"load_universal": True}))
+        d.load_checkpoint(uni)
+        p19_counters("(d)", d, P19_AT, rows, gas)
+        loss_d, _ = p19_train(d, tail, dev)
+        p19_gate("(d) universal", p19_diff(loss_d, loss_a[P19_AT:], p19_master(d), master_a),
+                 ctrl)
+        free(d)
+        del d
+
+        # (e) zero_to_fp32
+        pt = convert_zero_checkpoint_to_fp32_state_dict(tags, os.path.join(root, "fp32.pt"),
+                                                        tag="global_step5")
+        sd = torch.load(pt)
+        if sorted(sd) != sorted(k.replace("/", ".") for k in master_5) or not all(
+                torch.equal(sd[k.replace("/", ".")], t.cpu()) for k, t in master_5.items()):
+            raise AssertionError("phase 19 (e): zero_to_fp32's .pt differs from the "
+                                 "step-5 master")
+        print(f"phase 19 (e) zero_to_fp32: {len(sd)} tensors equal the step-5 master",
+              flush=True)
+        del sd, master_5
+        for path in (tags, uni, pt):
+            shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+
+        # (c) async writers and rolling saves
+        rolling_dir = os.path.join(root, "rolling")
+        c_config = dict(config, checkpoint={
+            **P19_ROLLING, "rolling": dict(P19_ROLLING["rolling"], save_dir=rolling_dir)})
+        c = p19_engine(cfg, dev, 0, c_config)
+        loss_c, out["step_ms_with_rolling"] = p19_train(c, batches, dev)
+        master_c = p19_master(c)
+        c.destroy()
+        st = c.ckpt_stats
+        n = max(1, st.saves)
+        out["rolling_per_save_ms"] = {
+            "saves": st.saves, "snapshot": st.snapshot_ms / n, "write_submit": st.write_ms / n,
+            "backpressure": st.backpressure_ms / n, "commit": st.commit_ms / n,
+            "pruned": st.pruned}
+        free(c)
+        del c
+        p19_gate("(c) rolling", p19_diff(loss_c, loss_a, master_c, master_a), ctrl)
+        del master_c
+        kept = sorted(t for t in os.listdir(rolling_dir)
+                      if os.path.isdir(os.path.join(rolling_dir, t)))
+        latest = read_latest_tag(rolling_dir)
+        if kept != ["rolling_step10", "rolling_step8"] or latest != "rolling_step10":
+            raise AssertionError(f"phase 19 (c): tags {kept}, latest {latest}")
+        e = p19_engine(cfg, dev, 1, dict(config, checkpoint={"engine": "async"}))
+        e.load_checkpoint(rolling_dir, tag=None, verify=True)
+        p19_counters("(c) resume", e, P19_STEPS, rows, gas)
+        p19_gate("(c) resumed master", p19_diff(None, None, p19_master(e), master_a), ctrl)
+        # an async user save of the same state, timed like the native one
+        e.save_checkpoint(os.path.join(root, "async"))
+        st = e.ckpt_stats
+        out["async_save_ms"] = {"snapshot": st.snapshot_ms, "write_submit": st.write_ms,
+                                "commit": st.commit_ms}
+        free(e)
+        del e
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print("checkpoint " + json.dumps(out), flush=True)
+    print(f"phase 19: {out['seconds']:.1f} s", flush=True)
+
+
 ATTN_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "flash_fwd", "flash_bwd_dq",
               "flash_bwd_dkv")
 Q_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk", "splitk_merge",
@@ -6274,6 +6550,10 @@ def main() -> int:
     launches["paged_chunk_verify"] = run_prefix_spec()
     # phase 18: multi-tenant LoRA; its kernels are the rows above, counted there
     run_lora()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 19: checkpoint and resume; K1's rows keep phase 5's counts
+    run_checkpoint()
     # modules by full name: the package re-exports same-named functions
     from deepspeed_tpu_torch.ops.kernels import paged_chunk, paged_decode, paged_splitk
     from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import KERNELS as K9_KERNELS

@@ -900,7 +900,6 @@ class DeepSpeedTPUConfig(ConfigModel):
             ("compression_training", self.compression_training is not None),
             ("hybrid_engine", self.hybrid_engine.enabled),
             ("flops_profiler", self.flops_profiler.enabled),
-            ("checkpoint.rolling", self.checkpoint.rolling.every_n_steps > 0),
             ("train_pipeline.prefetch", self.train_pipeline.prefetch > 0),
         ] if on]
         off += [f"mesh.{a} = {getattr(self.mesh, a)}"

@@ -1,0 +1,95 @@
+"""Training observability: the checkpoint counters (the JAX package's
+``monitor/training.py`` ``CheckpointStats``) and the ``Event`` record
+they emit."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Tuple
+
+Event = Tuple[str, float, int]
+"""The event record every stats class emits (the JAX package's
+``monitor/monitor.py`` ``Event``): ``(name, value, step)``, the shape a
+monitor backend's ``write_events`` takes."""
+
+
+@dataclass
+class CheckpointStats:
+    """Checkpoint observability (``checkpoint/rolling.py`` +
+    ``save_checkpoint`` / ``load_checkpoint``; ``events()`` gives the
+    ``train/ckpt/*`` events).
+
+    Phase semantics (per save):
+
+    - ``snapshot``: device->host materialisation of the state flats (one
+      policed drain) — the ONLY phase on the step loop's critical path when
+      the async engine writes. Growing snapshot time means the state grew
+      or the transfer link is contended, not that the disk is slow.
+    - ``write``: handing the tag's files to the checkpoint engine: the full
+      npz writes for the native engine, their submission for the async one
+      (the JAX package counts this phase inside ``commit`` for a user save).
+    - ``commit``: writer drain + manifest + ``latest`` flip (+ retention
+      for rolling saves), on the background committer (rolling) or inline.
+    - ``backpressure``: host time the step loop blocked because
+      ``rolling.max_pending`` snapshots were still uncommitted — nonzero
+      means the disk/writers cannot keep up with the cadence (raise
+      ``every_n_steps``, add writers, or accept the stall).
+    - ``queue_depth``: checkpoint-engine writer queue occupancy sampled at
+      each save submit.
+    - ``retries``: cumulative bounded-retry count from the writer path
+      (``CheckpointEngine.retries``).
+    - ``pruned``: rolling tags deleted by retention.
+
+    Per load: ``read`` (the npz files into host arrays), ``verify`` (their
+    crc32s against the manifest) and ``h2d`` (the copies into the live
+    tensors, ended by a device sync).
+    """
+
+    saves: int = 0
+    snapshot_ms: float = 0.0
+    write_ms: float = 0.0
+    commit_ms: float = 0.0
+    backpressure_ms: float = 0.0
+    queue_depth_sum: int = 0
+    retries: int = 0
+    pruned: int = 0
+    loads: int = 0
+    load_read_ms: float = 0.0
+    load_verify_ms: float = 0.0
+    load_h2d_ms: float = 0.0
+
+    def record_save(self, snapshot_s: float, backpressure_s: float = 0.0,
+                    queue_depth: int = 0, write_s: float = 0.0) -> None:
+        self.saves += 1
+        self.snapshot_ms += 1e3 * snapshot_s
+        self.write_ms += 1e3 * write_s
+        self.backpressure_ms += 1e3 * backpressure_s
+        self.queue_depth_sum += int(queue_depth)
+
+    def record_commit(self, commit_s: float, pruned: int = 0) -> None:
+        self.commit_ms += 1e3 * commit_s
+        self.pruned += int(pruned)
+
+    def record_load(self, read_s: float, verify_s: float, h2d_s: float) -> None:
+        self.loads += 1
+        self.load_read_ms += 1e3 * read_s
+        self.load_verify_ms += 1e3 * verify_s
+        self.load_h2d_ms += 1e3 * h2d_s
+
+    def reset(self) -> None:
+        for name, default in type(self).__dataclass_fields__.items():
+            setattr(self, name, default.default)
+
+    def events(self, step: int = 0) -> List[Event]:
+        n = max(1, self.saves)
+        return [
+            ("train/ckpt/saves", float(self.saves), step),
+            ("train/ckpt/snapshot_ms_per_save", self.snapshot_ms / n, step),
+            ("train/ckpt/write_ms_per_save", self.write_ms / n, step),
+            ("train/ckpt/commit_ms_per_save", self.commit_ms / n, step),
+            ("train/ckpt/backpressure_ms_per_save",
+             self.backpressure_ms / n, step),
+            ("train/ckpt/writer_queue_depth", self.queue_depth_sum / n, step),
+            ("train/ckpt/retries", float(self.retries), step),
+            ("train/ckpt/pruned_tags", float(self.pruned), step),
+        ]

@@ -19,12 +19,32 @@ of a step stays on the device:
 - metrics are queued and read ONE STEP LATE, and only when they are printed;
   every device->host read goes through :func:`fetch_to_host`.
 
+Checkpoints follow JAX ``runtime/engine.py``'s ``save_checkpoint`` /
+``load_checkpoint`` / ``destroy`` over ``deepspeed_tpu_torch.checkpoint``,
+in the JAX package's file format (a tag moves both ways between the
+packages):
+
+- ``save_checkpoint`` drains the deferred metrics, snapshots the state in
+  one policed device->host drain and writes through the configured
+  checkpoint engine (``checkpoint.engine``: native, or async writer
+  threads); ``latest`` flips after the manifest;
+- ``load_checkpoint`` resumes from a tag (``tag=None``: the newest complete
+  one, torn tags skipped) or, with ``checkpoint.load_universal``, from a
+  universal directory, writing INTO the live tensors so the module's
+  parameters stay the same objects, then restores the counters
+  (``global_steps``, ``global_samples``, ``micro_steps``); the lr follows
+  from the restored ``step``;
+- ``checkpoint.rolling.every_n_steps > 0`` builds a ``RollingCheckpointer``
+  whose ``maybe_save`` runs at the end of every step, after the counters;
+- ``destroy`` closes the rolling committer, then the checkpoint engine,
+  and re-raises a surfaced writer or commit error after the full teardown.
+
 ZeRO stages 0-3 are accepted and are the identity here: on a world of one
 device there is nothing to partition, as in the JAX partitioner with
 fsdp = 1. A mesh, or a ``torch.distributed`` world of more than one rank,
 raises ``NotImplementedError``, as do the forward/backward/step facade,
-``training_data`` (the data pipeline), checkpoints and offload, which later
-slices port.
+``training_data`` (the data pipeline) and offload, which later slices
+port.
 """
 
 from __future__ import annotations
@@ -36,8 +56,13 @@ from typing import Any, Callable, Dict, Iterator, Mapping, Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.checkpoint import (RollingCheckpointer, build_checkpoint_engine,
+                                            load_engine_checkpoint,
+                                            load_universal_into_engine,
+                                            save_engine_checkpoint)
 from deepspeed_tpu_torch.checkpoint.convert import params_from_flat
 from deepspeed_tpu_torch.config import DeepSpeedTPUConfig
+from deepspeed_tpu_torch.monitor import CheckpointStats
 from deepspeed_tpu_torch.ops import TPUOptimizer, build_optimizer
 from deepspeed_tpu_torch.runtime.loss_scaler import (has_overflow, make_loss_scale_state,
                                                      update_loss_scale)
@@ -110,10 +135,21 @@ class DeepSpeedTPUEngine:
             self._lr_fn = build_lr_schedule(None, {}, base_lr)
 
         self.global_steps = 0
+        self.global_samples = 0
+        self.micro_steps = 0
         self._last_metrics: Dict[str, Any] = {}
         # deferred metric drain: (step, device metrics) entries
         self._pending_metrics: deque = deque()
         self._init_state(model_parameters)
+
+        self.ckpt_stats = CheckpointStats()
+        self._ckpt_engine = None
+        # rolling checkpoints: the engine owns the cadence so saves
+        # interleave correctly with the deferred metric drain
+        self._rolling = None
+        if self.config.checkpoint.rolling.every_n_steps > 0:
+            self._rolling = RollingCheckpointer(
+                self, self.config.checkpoint.rolling, stats=self.ckpt_stats)
 
     # ------------------------------------------------------------------ #
     # state
@@ -273,9 +309,15 @@ class DeepSpeedTPUEngine:
         """Counters and the metric ENQUEUE; the previous step's entry is
         drained now (``wall_clock_breakdown`` drains this one too)."""
         self.global_steps += 1
+        self.global_samples += self.train_batch_size_
+        self.micro_steps += self.gas_
         self._last_metrics = metrics
         self._pending_metrics.append((self.global_steps, metrics))
         self._drain_metric_queue(0 if self.config.wall_clock_breakdown else 1)
+        if self._rolling is not None:
+            # after the counters: a tag named rolling_step{N} holds the state
+            # AFTER step N; save() drains the metric queue first
+            self._rolling.maybe_save()
 
     def drain_metrics(self) -> None:
         """Flush every deferred metric entry (reading only those printed)."""
@@ -303,6 +345,97 @@ class DeepSpeedTPUEngine:
         raise _unported("the forward/backward/step facade (use train_batch)")
 
     backward = step = forward
+
+    # ------------------------------------------------------------------ #
+    # checkpoints (the JAX engine's save_checkpoint / load_checkpoint)
+    # ------------------------------------------------------------------ #
+
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[dict] = None, save_latest: bool = True):
+        """Save the state under ``save_dir/tag`` (default tag:
+        ``global_step<N>``) with the counters and ``client_state`` in its
+        ``client_state.json``; ``latest`` flips after the commit."""
+        self.drain_metrics()   # checkpoint boundary flushes deferred metrics
+        tag = tag or f"global_step{self.global_steps}"
+        client_state = dict(client_state or {})
+        client_state.update({
+            "global_steps": self.global_steps,
+            "global_samples": self.global_samples,
+            "micro_steps": self.micro_steps,
+            "skipped_steps": self.get_skipped_steps(),
+        })
+        save_engine_checkpoint(save_dir, tag, self.state, client_state,
+                               save_latest=save_latest,
+                               ckpt_engine=self._checkpoint_engine(),
+                               stats=self.ckpt_stats)
+        return True
+
+    def _checkpoint_engine(self):
+        """The configured checkpoint engine, built once."""
+        if self._ckpt_engine is None:
+            ck = self.config.checkpoint
+            self._ckpt_engine = build_checkpoint_engine(
+                ck.engine,
+                config_params={"writers": ck.writers,
+                               "writer_retries": ck.writer_retries,
+                               "writer_backoff_s": ck.writer_backoff_s})
+        return self._ckpt_engine
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_optimizer_states: bool = True,
+                        load_lr_scheduler_states: bool = True,
+                        load_module_only: bool = False,
+                        verify: Optional[bool] = None):
+        """``verify=True`` checksums every loaded file against the tag's
+        manifest (default: ``config.checkpoint.verify_load``). ``tag=None``
+        resumes from the newest COMPLETE tag, skipping torn ones.
+        ``load_lr_scheduler_states`` is accepted for DeepSpeed's signature
+        and ignored: the lr schedule has no state of its own, it is a
+        function of the restored ``step``. Returns
+        ``(load_dir, client_state)``."""
+        if verify is None:
+            verify = self.config.checkpoint.verify_load
+        self.drain_metrics()   # the pre-load stream's metrics land first
+        if self.config.checkpoint.load_universal:
+            if tag is not None:
+                logger.warning("load_universal: universal checkpoints are "
+                               f"untagged directories; ignoring tag={tag!r}")
+            client_state = load_universal_into_engine(
+                self, load_dir, load_optimizer_states=load_optimizer_states,
+                load_module_only=load_module_only)
+            return load_dir, client_state
+        _, client_state = load_engine_checkpoint(
+            load_dir, tag, self.state, load_optimizer_states=load_optimizer_states,
+            load_module_only=load_module_only, ckpt_engine=self._checkpoint_engine(),
+            verify=verify, stats=self.ckpt_stats)
+        self.global_steps = int(client_state.get("global_steps", 0))
+        self.global_samples = int(client_state.get("global_samples", 0))
+        self.micro_steps = int(client_state.get("micro_steps", 0))
+        return load_dir, client_state
+
+    def destroy(self):
+        """Release host-side resources: the deferred metrics, the rolling
+        committer, then the checkpoint engine's writers. A surfaced commit
+        or writer error re-raises only after the whole teardown ran.
+        Idempotent."""
+        self.drain_metrics()
+        err = None
+        if self._rolling is not None:
+            # BEFORE the checkpoint engine closes: queued rolling commits
+            # need live writer threads to drain against
+            try:
+                self._rolling.close()
+            except BaseException as e:
+                err = e
+        close = getattr(self._ckpt_engine, "close", None)
+        if close is not None:
+            try:
+                close()
+            except BaseException as e:
+                if err is None:
+                    err = e
+        if err is not None:
+            raise err
 
     # ------------------------------------------------------------------ #
     # getters

@@ -23,6 +23,11 @@ Sites in the port:
                           adapter fault-in, after its pages are allocated and
                           before the scatter lands (cancel-while-faulting
                           rolls refcounts, bindings and free pages back).
+``ckpt.writer``           ``checkpoint.engine._atomic_savez`` before the
+                          write (a writer crash).
+``ckpt.stall``            ``checkpoint.engine._atomic_savez`` after the temp
+                          file is written, before its rename (a slow writer
+                          or disk; pair with ``action=stall``).
 ========================  ===================================================
 
 The JAX package's flight recorder (a tracer dump before a fault surfaces)

@@ -132,6 +132,53 @@ def test_lora_modules_import_without_jax():
                    env={**os.environ, "PYTHONPATH": str(ROOT)})
 
 
+CHECKPOINT_MODULES = ("deepspeed_tpu_torch.checkpoint",
+                      "deepspeed_tpu_torch.checkpoint.state",
+                      "deepspeed_tpu_torch.checkpoint.engine",
+                      "deepspeed_tpu_torch.checkpoint.rolling",
+                      "deepspeed_tpu_torch.checkpoint.sharded",
+                      "deepspeed_tpu_torch.checkpoint.universal",
+                      "deepspeed_tpu_torch.monitor", "deepspeed_tpu_torch.monitor.training",
+                      "deepspeed_tpu_torch.utils.logging",
+                      "deepspeed_tpu_torch.utils.threads",
+                      "deepspeed_tpu_torch.utils.resilience",
+                      "deepspeed_tpu_torch.utils.zero_to_fp32")
+
+
+def test_checkpoint_modules_import_without_jax():
+    """The checkpoint slice's modules, each imported by its own name in a
+    fresh interpreter, load no JAX and nothing of the JAX package."""
+    code = ("import importlib, sys; "
+            f"[importlib.import_module(m) for m in {CHECKPOINT_MODULES!r}]; "
+            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'deepspeed_tpu') "
+            "or m.startswith(('jax.', 'flax.', 'deepspeed_tpu.'))]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120,
+                   env={**os.environ, "PYTHONPATH": str(ROOT)})
+
+
+def test_zero_to_fp32_cli_runs_without_jax(tmp_path):
+    """``python -m deepspeed_tpu_torch.utils.zero_to_fp32 <ckpt_dir> <out>``
+    consolidates a tag on a host with no JAX."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=GPT2LMHead(GPT2Config.tiny(n_layer=1), device="cpu"),
+        config={"train_batch_size": 2, "steps_per_print": 0}, device="cpu")
+    engine.save_checkpoint(str(tmp_path / "ck"))
+    code = ("import runpy, sys; sys.argv = ['zero_to_fp32', sys.argv[1], sys.argv[2]]; "
+            "runpy.run_module('deepspeed_tpu_torch.utils.zero_to_fp32', run_name='__main__'); "
+            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'deepspeed_tpu') "
+            "or m.startswith(('jax.', 'flax.', 'deepspeed_tpu.'))]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code, str(tmp_path / "ck"), str(tmp_path / "w.pt")],
+                   cwd=ROOT, check=True, timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    sd = torch.load(tmp_path / "w.pt")
+    want = engine.state["master"]
+    assert sorted(sd) == sorted(k.replace("/", ".") for k in want)
+    assert all(torch.equal(sd[k.replace("/", ".")], t) for k, t in want.items())
+
+
 @pytest.mark.parametrize("module, names", [
     ("deepspeed_tpu_torch.inference.v2.lora", ("LoraPagePool", "LoraAdapterRegistry",
                                                "REGISTERED", "RESIDENT", "EVICTED")),
