@@ -335,6 +335,33 @@ decode kernel at Qwen2-7B's G = 7 and Gemma-7B's D = 256 on pages of 128.
    rolling run's snapshot and backpressure ms a save and its step ms
    beside a run without rolling, and the phase's seconds.
 
+20. one-device training at Llama-2-7B's full width (vocab 32000, hidden
+   4096, FFN 11008, 32/32 heads, D 128; random bf16 weights from seed 0)
+   cut to 8 of its 32 layers (1.88 B parameters), T 4096, bf16 with an
+   fp32 master, FusedLamb and WarmupLR, micro-batch 1 x gas 4, remat on
+   (policy ``none``, a chunk a layer), ``training_data`` an
+   ``MMapIndexedDataset`` of seeded Zipf-ranked tokens written under a
+   ``tempfile.mkdtemp()`` directory, through the engine's loader at
+   ``train_pipeline.prefetch`` 2. (a) K1's three kernels at the path's
+   shape (B 1, T 4096, 32 heads, D 128, causal) against their plain
+   versions, each backward rerun bitwise, timed beside SDPA's flash
+   backend (the ``k1-d128`` line); the first micro-batch's loss and
+   gradient against an fp32 forward/backward with plain attention (phase
+   5's rule); 6 steps of the main path (losses finite, the last two
+   steps' mean below the first and none past 1.5x it; K1 launches 64 /
+   32 / 32 a step), step ms, tokens/s, peak GiB, host
+   enqueue against wall, a profiled step. (b) byte gates: prefetch 0 and
+   the forward/backward/step facade give the main path's first 4 losses
+   and its master bit for bit; at 2 layers, remat off, ``none`` and
+   ``attn_out_saveable`` give the same loss, gradients and step bit for
+   bit, with 8 / 16 / 8 K1 forward launches a step. (c) LAMB, Lion,
+   Adagrad and SGD with momentum on GPT-2 small at 2 layers: 3 steps, a
+   save, 3 more; a fresh engine resumed from the tag repeats the last 3
+   with the same losses, masters and optimizer states bit for bit. (d)
+   there, PLD at theta 1 bit-equal to PLD off, PLD's streams bit-equal at
+   prefetch 0 and 2, and a curriculum seqlen schedule 256 -> 1024 staging
+   256/512/768/1024 tokens and running K1 at each.
+
 The last two lines are the kernel table (58 rows, K5 at the verify step's
 shape among them) and ``{"ok": true,
 "device": ...}`` as JSON. Run from the repository root: ``python3 chip_smoke.py``.
@@ -2822,18 +2849,27 @@ def first_step_check(engine, cfg, micro):
         del model
     loss32, g32 = ref["fp32"]
     rms = lambda t: float(t.pow(2).mean().sqrt())
-    out = {"loss_fp32": loss32, "loss_engine": loss_e, "loss_bf16_plain": ref["bf16"][0],
+    first_step_verdict("first-step", loss32, loss_e, ref["bf16"][0], rms(g32),
+                       rms(g_e - g32), rms(ref["bf16"][1] - g32))
+
+
+def first_step_verdict(label, loss32, loss_e, loss_bf16, grad_rms32, grad_err_e,
+                       grad_err_bf16) -> dict:
+    """Print the first-step line and fail unless the engine's loss and
+    gradient errors are within 2x the bf16 plain pass's plus
+    FIRST_STEP_FLOOR of the fp32 yardstick's scale."""
+    out = {"loss_fp32": loss32, "loss_engine": loss_e, "loss_bf16_plain": loss_bf16,
            "loss_err_engine": abs(loss_e - loss32),
-           "loss_err_bf16_plain": abs(ref["bf16"][0] - loss32),
-           "grad_rms_fp32": rms(g32), "grad_rms_err_engine": rms(g_e - g32),
-           "grad_rms_err_bf16_plain": rms(ref["bf16"][1] - g32),
-           "floor_share": FIRST_STEP_FLOOR}
-    print("first-step " + json.dumps(out), flush=True)
-    for what, scale in (("loss", abs(loss32)), ("grad_rms", out["grad_rms_fp32"])):
+           "loss_err_bf16_plain": abs(loss_bf16 - loss32),
+           "grad_rms_fp32": grad_rms32, "grad_rms_err_engine": grad_err_e,
+           "grad_rms_err_bf16_plain": grad_err_bf16, "floor_share": FIRST_STEP_FLOOR}
+    print(f"{label} " + json.dumps(out), flush=True)
+    for what, scale in (("loss", abs(loss32)), ("grad_rms", grad_rms32)):
         limit = 2 * out[f"{what}_err_bf16_plain"] + FIRST_STEP_FLOOR * scale
         if not out[f"{what}_err_engine"] <= limit:
-            raise AssertionError(f"first step: engine {what} error "
+            raise AssertionError(f"{label}: engine {what} error "
                                  f"{out[f'{what}_err_engine']} > {limit}")
+    return out
 
 
 def run_training(steps: int = 10):
@@ -6447,6 +6483,574 @@ def run_checkpoint(cfg=None, config=None, device="cuda"):
     print(f"phase 19: {out['seconds']:.1f} s", flush=True)
 
 
+# --------------------------------------------------------------------------- #
+# phase 20: one-device training of Llama-2-7B's width
+# --------------------------------------------------------------------------- #
+
+P20_LAYERS = 8            # of Llama-2-7B's 32: 1.88 B parameters
+P20_T = 4096
+P20_SEQS = 16             # indexed-dataset rows: four global batches an epoch
+P20_GATE_STEPS = 4        # the byte gates' steps
+P20_TIMED_STEPS = 2       # further main-path steps, timed warm
+P20_ZIPF = 1.1            # token ranks drawn ~ rank^-1.1, as text's are
+P20_LOSS_TAIL = 2         # the main path's last steps whose mean must be below the first
+P20_LOSS_PEAK = 1.5       # no step's loss past this multiple of the first
+P20_CONFIG = {
+    "train_batch_size": 4, "train_micro_batch_size_per_gpu": 1,
+    "bf16": {"enabled": True}, "gradient_clipping": 1.0, "steps_per_print": 0,
+    "optimizer": {"type": "Lamb", "params": {"lr": 2e-3, "betas": [0.9, 0.95], "eps": 1e-8,
+                                             "weight_decay": 0.01}},
+    "scheduler": {"type": "WarmupLR", "params": {"warmup_min_lr": 0, "warmup_max_lr": 2e-3,
+                                                 "warmup_num_steps": 2}},
+    "train_pipeline": {"prefetch": 2},
+}
+# (c) and (d): GPT-2 small cut to 2 layers (GPT2Config keyword arguments)
+P20_SMALL = {"n_layer": 2}
+P20_SMALL_CONFIG = {
+    "train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+    "bf16": {"enabled": True}, "gradient_clipping": 1.0, "steps_per_print": 0,
+    "scheduler": {"type": "WarmupLR", "params": {"warmup_min_lr": 0, "warmup_max_lr": 1e-3,
+                                                 "warmup_num_steps": 3}},
+    "train_pipeline": {"prefetch": 0},
+}
+P20_OPTIMIZERS = {
+    "Lamb": {"lr": 1e-3, "weight_decay": 0.01, "max_grad_norm": 1.0},
+    "Lion": {"lr": 1e-4, "betas": [0.9, 0.99], "weight_decay": 0.1},
+    "Adagrad": {"lr": 1e-2},
+    "SGD": {"lr": 1e-2, "momentum": 0.9},
+}
+P20_CURRICULUM = {"enabled": True, "curriculum_type": "seqlen", "min_difficulty": 256,
+                  "max_difficulty": 1024, "schedule_type": "fixed_linear",
+                  "schedule_config": {"total_curriculum_step": 3, "difficulty_step": 256}}
+
+
+class TokenRows:
+    """An ``MMapIndexedDataset`` as training rows: ``{"input_ids": row}``."""
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        return {"input_ids": self.ds[i]}
+
+
+def p20_dataset(root: str, vocab: int, rows: int, T: int, seed: int = 0):
+    """``rows`` sequences of ``T`` seeded Zipf-ranked token ids written with
+    the port's indexed-dataset builder under ``root``, read back mmap."""
+    from deepspeed_tpu_torch.data import make_builder, make_dataset
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, vocab + 1) ** P20_ZIPF
+    ids = rng.choice(vocab, size=(rows, T), p=p / p.sum()).astype(np.int32)
+    prefix = os.path.join(root, "tokens")
+    b = make_builder(prefix, dtype=np.int32)
+    for row in ids:
+        b.add_item(row)
+        b.end_document()
+    b.finalize()
+    return make_dataset(prefix)
+
+
+@contextlib.contextmanager
+def plain_llama_attention():
+    """Route the Llama training forward's attention to the dense reference
+    (GQA heads repeated), the yardstick's path; restored on exit."""
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops.attention import reference_attention
+    kernel_path = llama.dot_product_attention
+
+    def dense(q, k, v, causal=False):
+        n_rep = q.shape[2] // k.shape[2]
+        return reference_attention(q, k.repeat_interleave(n_rep, 2),
+                                   v.repeat_interleave(n_rep, 2), causal=causal)
+
+    llama.dot_product_attention = dense
+    try:
+        yield
+    finally:
+        llama.dot_product_attention = kernel_path
+
+
+def p20_first_step(engine, cfg, micro, dev) -> dict:
+    """Phase 5's rule at Llama width: the engine's first micro-batch loss
+    and gradient (bf16, K1) against an fp32 forward/backward with plain
+    attention (TF32 off), beside a bf16 one with plain attention; fails
+    unless the engine's error is within 2x the bf16 one's plus
+    FIRST_STEP_FLOOR of the yardstick's scale. The gradients are compared
+    leaf by leaf (sums in f64), one reference model at a time."""
+    import dataclasses
+
+    import torch
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    loss_e, grads_e = engine._grad_fn(micro, one)
+    names = list(engine.state["master"])
+    grads_e = dict(zip(names, grads_e))
+    loss_e = float(loss_e)
+    g32, sums, losses = None, {}, {}
+    for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        model = LlamaForCausalLM(dataclasses.replace(cfg, dtype=dt), device=dev)
+        model.load_flat(engine.state["master"])
+        params = model.named_flat_parameters()
+        for p in params.values():
+            p.requires_grad_(True)
+        with plain_llama_attention():
+            loss = model(micro)
+            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        losses[name] = float(loss.detach())
+        del model, params, loss
+        if g32 is None:
+            g32 = {n: g.float() for n, g in grads.items()}
+            sums["ref"] = sum(float(g.double().pow(2).sum()) for g in g32.values())
+            sums["engine"] = sum(float((grads_e[n].double() - g32[n].double()).pow(2).sum())
+                                 for n in names)
+        else:
+            sums["bf16"] = sum(float((grads[n].double() - g32[n].double()).pow(2).sum())
+                               for n in names)
+        del grads
+    count = sum(g.numel() for g in g32.values())
+    del g32, grads_e
+    rms = lambda s: (s / count) ** 0.5
+    return first_step_verdict("phase 20 first-step", losses["fp32"], loss_e, losses["bf16"],
+                              rms(sums["ref"]), rms(sums["engine"]), rms(sums["bf16"]))
+
+
+def p20_master(engine, host: bool) -> dict:
+    """The fp32 master, cloned on the device or copied to the host."""
+    return {n: (t.detach().to("cpu", copy=True) if host else t.detach().clone())
+            for n, t in engine.state["master"].items()}
+
+
+def p20_same_master(label: str, got: dict, want: dict) -> None:
+    bad = [n for n, t in want.items()
+           if not torch_equal_bits(got[n], t.to(got[n].device))]
+    if bad:
+        raise AssertionError(f"phase 20 {label}: masters differ in {bad[:4]}")
+
+
+def torch_equal_bits(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(_bits(a), _bits(b)))
+
+
+def p20_gate(label: str, got, want) -> None:
+    """Two loss streams, bit for bit."""
+    same = np.asarray(got, np.float32).tobytes() == np.asarray(want, np.float32).tobytes()
+    print(f"phase 20 {label}: losses {list(map(float, got))} vs {list(map(float, want))}, "
+          f"bitwise {same}", flush=True)
+    if not same:
+        raise AssertionError(f"phase 20 {label}: loss streams differ")
+
+
+def p20_k1_shape(dev, out: dict) -> dict:
+    """K1's three kernels at the Llama main path's shape (B 1, T 4096, 32
+    heads, D 128, causal) against their plain versions (the backward fed
+    the kernel forward's o and lse; each backward rerun bitwise), timed
+    beside SDPA's flash backend (forward; backward alone on a retained
+    graph), with the bound of each."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from deepspeed_tpu_torch.ops.kernels import (
+        flash_attention_fwd, flash_attention_fwd_plain, flash_bwd_dkv, flash_bwd_dkv_plain,
+        flash_bwd_dq, flash_bwd_dq_plain, flash_delta)
+    g = torch.Generator(device=dev).manual_seed(20)
+    B, T, H, D = 1, P20_T, 32, 128
+    randn = lambda: torch.randn(B, T, H, D, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v, do = randn(), randn(), randn(), randn()
+    scale = D ** -0.5
+    o, lse = flash_attention_fwd(q, k, v, True, scale)
+    o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, True, scale)
+    delta = flash_delta(o, do)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, True, scale)
+    dq_ref = flash_bwd_dq_plain(q, k, v, do, lse, delta, True, scale)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, True, scale)
+    dk_ref, dv_ref = flash_bwd_dkv_plain(q, k, v, do, lse, delta, True, scale)
+    same = (torch_equal_bits(dq, flash_bwd_dq(q, k, v, do, lse, delta, True, scale))
+            and all(torch_equal_bits(a, b) for a, b in
+                    zip((dk, dv), flash_bwd_dkv(q, k, v, do, lse, delta, True, scale))))
+    if not same:
+        raise AssertionError("phase 20: K1's backward is not bitwise at D 128, T 4096")
+    errs = {"flash_fwd": err((o, o_ref), (lse[..., None], lse_ref[..., None])),
+            "flash_bwd_dq": err((dq, dq_ref)), "flash_bwd_dkv": err((dk, dk_ref), (dv, dv_ref))}
+    pairs = B * H * T * (T + 1) // 2
+    x = B * T * H * D * 2
+    stats = B * H * T * 4
+    bounds = {"flash_fwd": bound(4 * x + stats, 4 * D * pairs),
+              "flash_bwd_dq": bound(5 * x + 2 * stats, 6 * D * pairs),
+              "flash_bwd_dkv": bound(6 * x + 2 * stats, 8 * D * pairs)}
+    qs, ks, vs, dos = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (qs, ks, vs))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        lib_f = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True))
+        res = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        lib_b = time_ms(lambda: torch.autograd.grad(res, (qg, kg, vg), dos, retain_graph=True))
+    del res, qg, kg, vg
+    timed = {
+        "flash_fwd": (lambda: flash_attention_fwd(q, k, v, True, scale),
+                      lambda: flash_attention_fwd_plain(q, k, v, True, scale), lib_f),
+        "flash_bwd_dq": (lambda: flash_bwd_dq(q, k, v, do, lse, delta, True, scale),
+                         lambda: flash_bwd_dq_plain(q, k, v, do, lse, delta, True, scale), lib_b),
+        "flash_bwd_dkv": (lambda: flash_bwd_dkv(q, k, v, do, lse, delta, True, scale),
+                          lambda: flash_bwd_dkv_plain(q, k, v, do, lse, delta, True, scale),
+                          lib_b)}
+    rows = {}
+    for name, (fn, plain, lib) in timed.items():
+        e = errs[name]
+        if not e["ok"]:
+            raise AssertionError(f"phase 20: {name} at D 128, T 4096: error {e['max_abs_err']}")
+        b_ms, b_by = bounds[name]
+        rows[name] = {"max_abs_err": e["max_abs_err"], "ms": time_ms(fn),
+                      "plain_ms": time_ms(plain, 3, 1), "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": lib,
+                      "library_covers": "SDPA flash forward" if name == "flash_fwd"
+                      else "SDPA flash backward alone: dq, dk and dv together"}
+    out["k1_d128"] = rows
+    print("phase 20 k1-d128 " + json.dumps({"shape": "B 1, T 4096, H 32, D 128, causal",
+                                            "kernels": rows}), flush=True)
+    return rows
+
+
+def p20_remat_gates(dev, micro, batch) -> dict:
+    """(b) at 2 layers of Llama-2-7B's width: remat off, remat with policy
+    ``none`` and with ``attn_out_saveable`` give the same first micro-batch
+    loss and gradients and the same step, bit for bit; K1's forward
+    launches a step: 8 off, 16 under full recompute, 8 under
+    ``attn_out_saveable``."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    cases = {"off": (False, None), "none": (True, None),
+             "attn_out_saveable": (True, "attn_out_saveable")}
+    config = dict(P20_CONFIG, train_pipeline={"prefetch": 0})
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    ref, out = None, {}
+    for label, (remat, policy) in cases.items():
+        cfg = LlamaConfig.llama2_7b(num_hidden_layers=2, dtype=torch.bfloat16, remat=remat,
+                                    remat_policy=policy)
+        model = LlamaForCausalLM(cfg, device=dev, seed=0)
+        engine = deepspeed_tpu_torch.initialize(model=model, config=config, device=dev)[0]
+        loss, grads = engine._grad_fn(micro, one)
+        p19_sync(dev)
+        reset_launches()
+        step_loss = engine.train_batch(batch)
+        p19_sync(dev)
+        fwd = {k: LAUNCHES.get(k, 0) for k in K1_NAMES}
+        master = p20_master(engine, host=False)
+        engine.destroy()
+        del engine, model
+        got = (loss, grads, step_loss.detach(), master)
+        if ref is None:
+            ref = got
+        else:
+            same = (torch_equal_bits(got[0], ref[0])
+                    and all(torch_equal_bits(a, b) for a, b in zip(got[1], ref[1]))
+                    and torch_equal_bits(got[2], ref[2]))
+            if not same:
+                raise AssertionError(f"phase 20 (b): remat {label} differs from remat off")
+            p20_same_master(f"(b) remat {label}", got[3], ref[3])
+        out[label] = fwd
+        del got, grads, master
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    print("phase 20 (b) remat " + json.dumps({"k1_launches_a_step": out,
+                                             "bitwise_to_off": True}), flush=True)
+    want = {"off": 8, "none": 16, "attn_out_saveable": 8}
+    if dev.type == "cuda" and any(out[k]["flash_fwd"] != n for k, n in want.items()):
+        raise AssertionError(f"phase 20 (b): K1 forward launches {out}, expected {want}")
+    return out
+
+
+def p20_small_engine(dev, seed: int, config: dict, training_data=None):
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    model = GPT2LMHead(GPT2Config(**P20_SMALL, dtype=torch.bfloat16), device=dev, seed=seed)
+    return deepspeed_tpu_torch.initialize(model=model, config=config, device=dev,
+                                          training_data=training_data)[0]
+
+
+def p20_optimizer_resume(dev, root: str) -> dict:
+    """(c) each of LAMB, Lion, Adagrad and SGD with momentum on GPT-2 small
+    at 2 layers: 3 steps, ``save_checkpoint``, 3 more; a fresh engine from
+    another seed loads the tag (verified) and runs the same 3 steps: its
+    losses, masters and optimizer states bit-equal."""
+    import torch
+    from deepspeed_tpu_torch.checkpoint.state import flatten_tree
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+    small = GPT2Config(**P20_SMALL)
+    rng = np.random.default_rng(20)
+    batches = [{"input_ids": rng.integers(0, small.vocab_size, (4, small.n_positions))
+                .astype(np.int32)} for _ in range(6)]
+    out = {}
+    for opt, params in P20_OPTIMIZERS.items():
+        config = dict(P20_SMALL_CONFIG, optimizer={"type": opt, "params": params})
+        path = os.path.join(root, f"resume_{opt}")
+        leaves = lambda e: {k: v.detach().clone() for k, v in flatten_tree(
+            {"master": e.state["master"], "opt": e.state["opt"], "step": e.state["step"]}).items()}
+        a = p20_small_engine(dev, 0, config)
+        a.train_steps(3, data_iter=iter(batches[:3]))
+        a.save_checkpoint(path)
+        tail = a.train_steps(3, data_iter=iter(batches[3:]))
+        want = leaves(a)
+        a.destroy()
+        b = p20_small_engine(dev, 1, config)
+        b.load_checkpoint(path, verify=True)
+        got_tail = b.train_steps(3, data_iter=iter(batches[3:]))
+        got = leaves(b)
+        b.destroy()
+        slots = sorted({k.split("/")[1] for k in want if k.startswith("opt/")})
+        bad = [k for k in want if k not in got or not torch_equal_bits(got[k], want[k])]
+        out[opt] = {"losses_bitwise": got_tail.tobytes() == tail.tobytes(),
+                    "leaves": len(want), "optimizer_slots": slots, "differing": bad[:4]}
+        if bad or not out[opt]["losses_bitwise"] or not slots:
+            raise AssertionError(f"phase 20 (c) {opt}: resume differs: {out[opt]}")
+        del a, b, want, got
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    print("phase 20 (c) optimizer resume " + json.dumps(out), flush=True)
+    return out
+
+
+def p20_pld_curriculum(dev) -> dict:
+    """(d) on GPT-2 small at 2 layers over a 1024-token dataset through the
+    engine's loader: PLD at theta 1 bit-equal to PLD off; PLD (theta 0.5,
+    gamma 2) bit-equal at prefetch 0 and 2; a curriculum seqlen schedule
+    256 -> 1024 staging each width it reaches and running K1 at it."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES
+    small = GPT2Config(**P20_SMALL)
+    rng = np.random.default_rng(21)
+    data = [{"input_ids": rng.integers(0, small.vocab_size, small.n_positions).astype(np.int32)}
+            for _ in range(16)]
+
+    def run(prefetch, extra, steps=4, spy=None):
+        config = dict(P20_SMALL_CONFIG, train_pipeline={"prefetch": prefetch},
+                      optimizer={"type": "AdamW", "params": {"lr": 1e-3}}, **extra)
+        e = p20_small_engine(dev, 0, config, training_data=data)
+        if spy is not None:
+            spy(e)
+        losses, launches = [], []
+        for _ in range(steps):
+            before = dict(LAUNCHES)
+            losses.append(e.train_batch())
+            launches.append({k: LAUNCHES.get(k, 0) - before.get(k, 0) for k in K1_NAMES})
+        e.drain_metrics()
+        losses = np.array([float(x) for x in losses], np.float32)
+        difficulty = e.curriculum_scheduler.current_difficulty \
+            if e.curriculum_scheduler is not None else None
+        e.destroy()
+        return losses, launches, difficulty
+
+    out = {}
+    off = run(2, {})[0]
+    one = run(2, {"progressive_layer_drop": {"enabled": True, "theta": 1.0}})[0]
+    p20_gate("(d) PLD theta 1 vs off", one, off)
+    pld = {"progressive_layer_drop": {"enabled": True, "theta": 0.5, "gamma": 2.0}}
+    p0, p2 = run(0, pld)[0], run(2, pld)[0]
+    p20_gate("(d) PLD prefetch 0 vs 2", p0, p2)
+    out["pld_losses"] = [float(x) for x in p2]
+    widths = {}
+
+    def spy(engine):
+        orig = engine._prepare_batch
+
+        def prepare(batch, step):
+            staged = orig(batch, step)
+            widths[step] = int(staged.tree["input_ids"].shape[1])
+            return staged
+        engine._prepare_batch = prepare
+
+    losses, launches, difficulty = run(2, {"curriculum_learning": P20_CURRICULUM}, spy=spy)
+    seen = [widths[s] for s in range(4)]
+    out["curriculum"] = {"widths": seen, "k1_launches_a_step": launches,
+                         "difficulty": difficulty, "losses": [float(x) for x in losses]}
+    print("phase 20 (d) " + json.dumps(out), flush=True)
+    if seen != [256, 512, 768, 1024] or difficulty != 1024:
+        raise AssertionError(f"phase 20 (d): curriculum widths {seen}, difficulty {difficulty}")
+    if dev.type == "cuda" and not all(s["flash_fwd"] > 0 for s in launches):
+        raise AssertionError(f"phase 20 (d): a curriculum step ran no K1: {launches}")
+    return out
+
+
+def run_llama_training(layers: int = P20_LAYERS, T: int = P20_T, device="cuda", cfg=None):
+    """Phase 20: one-device training at Llama-2-7B's full width (vocab
+    32000, hidden 4096, FFN 11008, 32/32 heads, D 128, rope theta 1e4), cut
+    to ``layers`` of its 32, at T ``T``: bf16 with an fp32 master,
+    FusedLamb and WarmupLR, micro-batch 1 x gas 4, remat on (policy
+    ``none``, a chunk a layer), ``training_data`` an ``MMapIndexedDataset``
+    of seeded Zipf-ranked tokens written here, through the engine's loader
+    at ``train_pipeline.prefetch`` 2.
+
+    (a) K1 at this shape against its plain version and SDPA; the first
+    step held to fp32; the main path's steps (losses finite and falling, K1
+    launches a step), step ms, tokens/s, peak GiB, host enqueue against
+    wall, a profiled step. (b) byte gates: prefetch 0 and the
+    forward/backward/step facade against the main path's first 4 steps
+    (losses and masters); remat on and off at 2 layers. (c) optimizer
+    resume. (d) PLD and the curriculum."""
+    import shutil
+    import tempfile
+
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    out = {"nvidia_smi": smi_line() if cuda else "cpu"}
+    cfg = cfg or LlamaConfig.llama2_7b(num_hidden_layers=layers, dtype=torch.bfloat16,
+                                       remat=True)
+    if cuda:
+        p20_k1_shape(dev, out)
+        torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_p20_")
+    try:
+        ds = p20_dataset(root, cfg.vocab_size, P20_SEQS, T)
+        rows = TokenRows(ds)
+        gas = P20_CONFIG["train_batch_size"] // P20_CONFIG["train_micro_batch_size_per_gpu"]
+        tokens_a_step = P20_CONFIG["train_batch_size"] * T
+
+        def build(prefetch):
+            model = LlamaForCausalLM(cfg, device=dev, seed=0)
+            config = dict(P20_CONFIG, train_pipeline={"prefetch": prefetch})
+            return deepspeed_tpu_torch.initialize(model=model, training_data=rows,
+                                                  config=config, device=dev)
+
+        t0 = time.perf_counter()
+        engine, _, loader, _ = build(2)
+        p19_sync(dev)
+        n_params = sum(t.numel() for t in engine.state["master"].values())
+        out["model"] = {"layers": cfg.num_hidden_layers, "T": T, "params": n_params,
+                        "init_s": time.perf_counter() - t0}
+        print(f"phase 20 model: Llama-2-7B width (vocab {cfg.vocab_size}, hidden "
+              f"{cfg.hidden_size}, FFN {cfg.intermediate_size}, {cfg.num_attention_heads}/"
+              f"{cfg.num_key_value_heads} heads, D {cfg.head_dim}), {cfg.num_hidden_layers} "
+              f"layers, T {T}, {n_params} params, bf16 with fp32 master, FusedLamb, "
+              f"remat {cfg.remat}", flush=True)
+        first = next(iter(loader))
+        micro = {k: torch.from_numpy(v[:1]).to(dev) for k, v in first.items()}
+        out["first_step"] = p20_first_step(engine, cfg, micro, dev)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+        # ---- (a) the main path: steps from the engine's own pipeline ---- #
+        p19_sync(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        gate_losses = engine.train_steps(P20_GATE_STEPS)
+        p19_sync(dev)
+        t1 = time.perf_counter()
+        master_4 = p20_master(engine, host=cuda)
+        p19_sync(dev)
+        t2 = time.perf_counter()
+        warm_losses = engine.train_steps(P20_TIMED_STEPS)
+        p19_sync(dev)
+        t3 = time.perf_counter()
+        launches = {k: LAUNCHES.get(k, 0) for k in K1_NAMES}
+        steps = P20_GATE_STEPS + P20_TIMED_STEPS
+        losses = np.concatenate([gate_losses, warm_losses])
+        warm_ms = (t3 - t2) * 1e3 / P20_TIMED_STEPS
+        stats = engine.train_stats
+        out["main"] = {
+            "steps": steps, "losses": [float(x) for x in losses],
+            "first_steps_ms": (t1 - t0) * 1e3 / P20_GATE_STEPS, "step_ms": warm_ms,
+            "tokens_per_s": tokens_a_step / warm_ms * 1e3,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None,
+            "k1_launches": launches,
+            "k1_launches_a_step": {k: v / steps for k, v in launches.items()},
+            "prefetched_steps": stats.prefetched_steps,
+            "enqueue_wait_ms_a_step": stats.enqueue_wait_ms / max(1, stats.steps)}
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"phase 20: non-finite loss {losses}")
+        # falling, not diverging: the last steps' mean below the first loss
+        # and no step past P20_LOSS_PEAK times it
+        if not (losses[-P20_LOSS_TAIL:].mean() < losses[0]
+                and losses.max() <= P20_LOSS_PEAK * losses[0]):
+            raise AssertionError(f"phase 20: loss did not fall: {losses}")
+        want = {"flash_fwd": 2 * cfg.num_hidden_layers * gas * steps,
+                "flash_bwd_dq": cfg.num_hidden_layers * gas * steps,
+                "flash_bwd_dkv": cfg.num_hidden_layers * gas * steps}
+        if cuda and launches != want:
+            raise AssertionError(f"phase 20: K1 launches {launches}, expected {want}")
+        # one step timed in two parts: until train_batch returns (the host's
+        # enqueue) and until the device is done
+        p19_sync(dev)
+        t0 = time.perf_counter()
+        engine.train_batch()
+        t1 = time.perf_counter()
+        p19_sync(dev)
+        t2 = time.perf_counter()
+        out["main"]["host_enqueue_ms"] = (t1 - t0) * 1e3
+        out["main"]["wall_ms"] = (t2 - t0) * 1e3
+        print("phase 20 train " + json.dumps(out["main"]), flush=True)
+        if cuda:
+            out["profile"] = device_breakdown(
+                f"phase 20 llama train step ({P20_CONFIG['train_batch_size']} x {T} tokens, "
+                f"{gas} micro-batches, remat)", lambda: engine.train_batch())
+        engine.destroy()
+        del engine, loader
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # ---- (b) prefetch 0 and the facade against the main path's steps ---- #
+        engine = build(0)[0]
+        p20_gate("(b) prefetch 0 vs 2", engine.train_steps(P20_GATE_STEPS), gate_losses)
+        p20_same_master("(b) prefetch 0 vs 2", p20_master(engine, host=False), master_4)
+        engine.destroy()
+        del engine
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        engine = build(0)[0]
+        it = iter(RepeatingLoader(engine.training_dataloader))
+        facade = []
+        for _ in range(P20_GATE_STEPS):
+            batch = next(it)
+            micro_losses = []
+            for g in range(gas):
+                loss = engine({k: v[g:g + 1] for k, v in batch.items()})
+                engine.backward(loss)
+                engine.step()
+                micro_losses.append(loss.detach())
+            facade.append(torch.stack(micro_losses).mean())
+        p20_gate("(b) facade vs train_batch",
+                 np.array([float(x) for x in facade], np.float32), gate_losses)
+        p20_same_master("(b) facade vs train_batch", p20_master(engine, host=False), master_4)
+        engine.destroy()
+        del engine, master_4
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        batch = {k: v for k, v in first.items()}
+        out["remat"] = p20_remat_gates(dev, micro, batch)
+
+        # ---- (c) and (d) ---- #
+        out["resume"] = p20_optimizer_resume(dev, root)
+        out["pld_curriculum"] = p20_pld_curriculum(dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print("phase 20 " + json.dumps({k: out[k] for k in ("nvidia_smi", "model", "seconds")}),
+          flush=True)
+    print(f"phase 20: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 ATTN_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "flash_fwd", "flash_bwd_dq",
               "flash_bwd_dkv")
 Q_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk", "splitk_merge",
@@ -6554,6 +7158,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 19: checkpoint and resume; K1's rows keep phase 5's counts
     run_checkpoint()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 20: Llama-2-7B-width training; K1's rows keep phase 5's counts,
+    # its own launches and the D 128 timings are on its lines
+    run_llama_training()
     # modules by full name: the package re-exports same-named functions
     from deepspeed_tpu_torch.ops.kernels import paged_chunk, paged_decode, paged_splitk
     from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import KERNELS as K9_KERNELS

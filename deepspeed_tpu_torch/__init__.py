@@ -12,9 +12,13 @@ each with its attention in hand-written CUDA kernels for ``sm_90a``
   BLOOM with ALiBi) and GPT-2 (kernels K2, K5, the paged decode kernel and
   split-K);
 - training: :func:`initialize` -> ``engine.train_batch`` /
-  ``train_steps`` / ``eval_loss`` on one device, training GPT-2
-  (``models.gpt2.GPT2LMHead``) with AdamW, bf16 mixed precision and the
-  flash attention kernels K1 (forward, dq and dk/dv).
+  ``train_steps`` / ``eval_loss`` or the forward/backward/step facade on
+  one device, training GPT-2 (``models.gpt2.GPT2LMHead``) and the Llama
+  family (``models.llama.LlamaForCausalLM``) with the Adam family, LAMB,
+  Lion, Adagrad or SGD, bf16 mixed precision, activation checkpointing,
+  progressive layer drop, a curriculum seqlen schedule and a prefetching
+  data pipeline (``training_data``), with the flash attention kernels K1
+  (forward, dq and dk/dv).
 
 ``ops`` also carries two attention ops of their own, forward and backward:
 block-sparse self-attention (``sparse_self_attention``, kernels K9) and
@@ -35,17 +39,18 @@ __version__ = "0.1.0"
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, mesh_topology=None,
-               config=None, config_params=None, device=None):
+               collate_fn=None, config=None, config_params=None, device=None):
     """Build the training engine, as the JAX package's ``initialize``.
 
-    Returns ``(engine, engine.optimizer, None, engine.lr_scheduler)``; the
-    third slot (the engine's dataloader) stays None until the data pipeline
-    is ported. ``device=None`` means the CUDA device and raises where there
-    is none; pass ``device="cpu"`` to train on the CPU with the kernels'
-    plain versions."""
+    Returns ``(engine, engine.optimizer, engine.training_dataloader,
+    engine.lr_scheduler)``; the loader is None without ``training_data``.
+    ``device=None`` means the CUDA device and raises where there is none;
+    pass ``device="cpu"`` to train on the CPU with the kernels' plain
+    versions."""
     cfg = DeepSpeedTPUConfig.load(config if config is not None else config_params)
     engine = DeepSpeedTPUEngine(args=args, model=model, optimizer=optimizer,
                                 model_parameters=model_parameters,
                                 training_data=training_data, lr_scheduler=lr_scheduler,
-                                mesh_topology=mesh_topology, config=cfg, device=device)
-    return engine, engine.optimizer, None, engine.lr_scheduler
+                                mesh_topology=mesh_topology, config=cfg, device=device,
+                                collate_fn=collate_fn)
+    return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler

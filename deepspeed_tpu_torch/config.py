@@ -12,9 +12,8 @@ and deprecated-key migration, and central batch-size resolution
 
 Every section parses as in the JAX package. Those whose feature the port
 does not run yet raise ``NotImplementedError`` naming the section when they
-are switched on (:meth:`DeepSpeedTPUConfig.check_slice`); the port's one
-departure from the JAX defaults is ``train_pipeline.prefetch`` = 0, since the
-port has no prefetch loader yet.
+are switched on (:meth:`DeepSpeedTPUConfig.check_slice`); the defaults are
+the JAX package's.
 
 The ``mesh`` key keeps the JAX package's axis names; the port runs on a
 world of one device, so every axis must resolve to 1.
@@ -661,18 +660,14 @@ class ProgressiveLayerDropConfig(ConfigModel):
 
 @dataclass
 class TrainPipelineConfig(ConfigModel):
-    """Async training step loop: prefetch-to-device input staging + the
-    one-step-late metric drain. No reference analog — the reference's
-    DataLoader workers pipeline collate only; here the staged batches are
-    already device-resident and sharded. ``wall_clock_breakdown`` overrides
-    the drain back to fully synchronous regardless of these knobs."""
+    """The training step loop's input staging (``runtime/data_pipeline.py``):
+    ``prefetch`` global batches of the engine's own data pipeline
+    (``training_data``) are staged ahead by a producer thread (collate,
+    curriculum truncation, PLD, the host->device copy on a stream of its
+    own); 0 stages each batch on the caller's thread, with the same results.
+    The JAX package's default."""
 
-    # Global batches staged ahead by the PrefetchLoader producer thread
-    # (collate + curriculum/PLD + sharded device_put off the critical path).
-    # 2 = classic double buffering. 0 = synchronous staging (no thread) —
-    # identical math, every stage on the caller's thread. The port has no
-    # PrefetchLoader yet: its default is 0 and a positive value is refused.
-    prefetch: int = 0
+    prefetch: int = 2
 
 
 # --------------------------------------------------------------------------- #
@@ -880,7 +875,6 @@ class DeepSpeedTPUConfig(ConfigModel):
         """Refuse, by name, every switched-on section whose feature the port
         does not run yet."""
         z = self.zero_optimization
-        ac = self.activation_checkpointing
         off = [name for name, on in [
             ("zero_optimization.offload_optimizer",
              z.offload_optimizer is not None and z.offload_optimizer.device != OffloadDeviceEnum.none),
@@ -893,14 +887,11 @@ class DeepSpeedTPUConfig(ConfigModel):
             ("prometheus", self.prometheus.enabled),
             ("comms_logger", self.comms_logger.enabled),
             ("monitor.trace", self.monitor.trace.enabled or bool(self.monitor.trace.dir)),
-            ("activation_checkpointing",
-             ac != ActivationCheckpointingConfig()),
-            ("progressive_layer_drop", self.progressive_layer_drop.enabled),
-            ("curriculum_learning", self.curriculum_learning.enabled),
+            ("activation_checkpointing.cpu_checkpointing",
+             self.activation_checkpointing.cpu_checkpointing),
             ("compression_training", self.compression_training is not None),
             ("hybrid_engine", self.hybrid_engine.enabled),
             ("flops_profiler", self.flops_profiler.enabled),
-            ("train_pipeline.prefetch", self.train_pipeline.prefetch > 0),
         ] if on]
         off += [f"mesh.{a} = {getattr(self.mesh, a)}"
                 for a in ("pipe", "data", "fsdp", "fsdp_sub", "expert", "seq", "tensor")
@@ -908,4 +899,4 @@ class DeepSpeedTPUConfig(ConfigModel):
         if off:
             raise NotImplementedError(
                 f"{', '.join(off)}: not ported to deepspeed_tpu_torch yet (it trains "
-                "on one device, without offload, monitors or data pipeline)")
+                "on one device, without offload or monitors)")

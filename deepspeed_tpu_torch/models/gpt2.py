@@ -2,7 +2,11 @@
 
 Pre-LN transformer with learned positions (``arange(T)``), causal attention
 through ``ops.attention.dot_product_attention`` (the flash kernel K1), and a
-tied embedding head. Given a batch with ``input_ids`` the forward returns the
+tied embedding head. The layers run through
+``runtime.activation_checkpointing.apply_checkpointed_layers`` (``remat``,
+``remat_policy``), with progressive layer drop composed inside the
+checkpointed layer when the batch carries ``pld_theta``/``pld_rng``, as in
+the JAX model. Given a batch with ``input_ids`` the forward returns the
 mean next-token cross entropy (``labels`` default to the ids themselves),
 through ``chunked_causal_lm_loss``; given bare ids it returns the tied-head
 logits as f32.
@@ -31,6 +35,8 @@ from torch import nn
 
 from deepspeed_tpu_torch.models.llama import chunked_causal_lm_loss
 from deepspeed_tpu_torch.ops.attention import dot_product_attention
+from deepspeed_tpu_torch.runtime.activation_checkpointing import apply_checkpointed_layers
+from deepspeed_tpu_torch.runtime.progressive_layer_drop import batch_layer_plan, run_layer
 from deepspeed_tpu_torch.utils.device import resolve_device
 
 
@@ -45,20 +51,18 @@ class GPT2Config:
     dropout: float = 0.0     # no dropout layer reads it, as in the JAX model
     eps: float = 1e-5        # HF GPT-2 layer_norm_epsilon
     dtype: torch.dtype = torch.float32
-    # activation checkpointing and Ulysses sequence parallelism are not
-    # ported yet: switching them on raises
+    # activation checkpointing of the layers
     remat: bool = False
     remat_policy: Optional[str] = None
+    # Ulysses sequence parallelism is not ported yet: switching it on raises
     sequence_parallel: bool = False
     # rows per chunk of the fused projection + CE loss
     lm_loss_chunk: int = 4
 
     def __post_init__(self):
-        off = [n for n, on in [("remat", self.remat),
-                               ("sequence_parallel", self.sequence_parallel)] if on]
-        if off:
+        if self.sequence_parallel:
             raise NotImplementedError(
-                f"GPT2Config {', '.join(off)}: not ported to deepspeed_tpu_torch yet")
+                "GPT2Config sequence_parallel: not ported to deepspeed_tpu_torch yet")
 
     @classmethod
     def tiny(cls, **kw):
@@ -209,25 +213,26 @@ class GPT2LMHead(nn.Module):
 
     def forward(self, batch: Union[Mapping[str, torch.Tensor], torch.Tensor]) -> torch.Tensor:
         """``{"input_ids": [B, T], "labels"?: [B, T]}`` -> mean loss (0-d f32);
-        bare ``input_ids`` -> f32 logits [B, T, V]."""
+        bare ``input_ids`` -> f32 logits [B, T, V]. ``pld_theta``/``pld_rng``
+        in the batch switch on progressive layer drop."""
         cfg = self.config
         dt = cfg.dtype
+        plan = None
         if isinstance(batch, Mapping):
-            if "pld_theta" in batch:
-                raise NotImplementedError(
-                    "progressive layer drop (pld_theta): not ported to "
-                    "deepspeed_tpu_torch yet")
             input_ids, labels = batch["input_ids"], batch.get("labels")
             if labels is None:
                 labels = input_ids   # LM objective: next token of the same ids
+            plan = batch_layer_plan(batch, cfg.n_layer)
         else:
             input_ids, labels = batch, None
         input_ids = input_ids.long()
         T = input_ids.shape[1]
         pos = torch.arange(T, device=input_ids.device)
         x = self.wte.embedding[input_ids].to(dt) + self.wpe.embedding[pos].to(dt)[None]
-        for block in self.blocks:
-            x = block(x)
+        blocks = self.blocks
+        x = apply_checkpointed_layers(
+            self, x, lambda _, h, i: run_layer(blocks[i], h, i, cfg.n_layer, plan),
+            cfg.n_layer, cfg.remat, cfg.remat_policy)
         x = self.ln_f(x)
         if labels is None:
             # flax's Embed.attend: both sides in the compute dtype

@@ -1,9 +1,16 @@
-"""Llama-2 in PyTorch: the configuration the serving engine reads, and a plain
-dense forward used as the oracle the engine is held against.
+"""Llama-2 in PyTorch: the configuration the serving engine reads, a plain
+dense forward used as the oracle the engine is held against, and the
+training forward the training engine differentiates.
 
-Nothing on the serving path calls :class:`LlamaForCausalLM`'s forward: the
-engine reads its configuration and its parameters. The forward follows the
-JAX package's flax model step for step: RMSNorm computed in f32, rotary
+Nothing on the serving path calls :class:`LlamaForCausalLM`'s forwards: the
+engine reads its configuration and its parameters. The training forward
+(``model(batch)`` -> mean next-token loss, the JAX package's
+``LlamaForCausalLM.__call__``) sends attention through
+``ops.attention.dot_product_attention`` (the flash kernel K1), its layers
+through ``runtime.activation_checkpointing.apply_checkpointed_layers``
+(``config.remat``, ``remat_policy``) and progressive layer drop, and the
+untied head through :func:`chunked_causal_lm_loss` (``transpose=True``).
+The forwards follow the JAX package's flax model step for step: RMSNorm computed in f32, rotary
 embedding on INTERLEAVED pairs (``x[..., 0::2]``, ``x[..., 1::2]``, not the
 rotate-half convention), causal attention with f32 scores (restricted to the sliding window
 ``[q - window + 1, q]`` when the config has one), and a SwiGLU MLP. The
@@ -28,13 +35,16 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from deepspeed_tpu_torch.ops.attention import dot_product_attention
+from deepspeed_tpu_torch.runtime.activation_checkpointing import apply_checkpointed_layers
+from deepspeed_tpu_torch.runtime.progressive_layer_drop import batch_layer_plan, run_layer
 from deepspeed_tpu_torch.utils.device import resolve_device
 
 
@@ -55,7 +65,23 @@ class LlamaConfig:
     embed_scale_by_sqrt_dim: bool = False    # Gemma: x *= sqrt(hidden) after embedding
     norm_plus_one: bool = False              # Gemma: RMSNorm scales by (1 + weight)
     mlp_act: str = "silu"                    # "silu" | "gelu" (tanh) gate activation
+    # Ulysses sequence parallelism and ring-attention context parallelism
+    # are not ported yet: switching them on raises
+    sequence_parallel: bool = False
+    context_parallel: bool = False
+    # rows per chunk of the fused projection + CE loss
+    lm_loss_chunk: int = 4
     dtype: torch.dtype = torch.float32
+    # activation checkpointing of the training forward
+    remat: bool = False
+    remat_policy: Optional[str] = None
+
+    def __post_init__(self):
+        off = [n for n, on in [("sequence_parallel", self.sequence_parallel),
+                               ("context_parallel", self.context_parallel)] if on]
+        if off:
+            raise NotImplementedError(
+                f"LlamaConfig {', '.join(off)}: not ported to deepspeed_tpu_torch yet")
 
     @property
     def head_dim(self) -> int:
@@ -337,6 +363,65 @@ class LlamaForCausalLM(nn.Module):
         return (mlp_gate_act(self.config.mlp_act)(m.gate_proj(h, dt))
                 * m.up_proj(h, dt)) @ m.down_proj.kernel.to(dt)
 
+    def named_flat_parameters(self) -> Dict[str, nn.Parameter]:
+        """The parameters themselves, by their flax names (``/``-joined)."""
+        return {n.replace(".", "/"): p for n, p in self.named_parameters()}
+
+    def forward(self, batch) -> torch.Tensor:
+        """The training forward: ``{"input_ids": [B, T], "labels"?: [B, T]}``
+        (or bare ids, their own labels) -> mean next-token cross entropy
+        (0-d f32), in ``config.dtype``, differentiable in the parameters.
+        ``pld_theta``/``pld_rng`` in the batch switch on progressive layer
+        drop. A sliding window is refused at T > window (its banded
+        attention is not ported); at T <= window attention is plain causal."""
+        cfg = self.config
+        dt = cfg.dtype
+        if isinstance(batch, Mapping):
+            input_ids = batch["input_ids"]
+            labels = batch.get("labels", input_ids)
+            plan = batch_layer_plan(batch, cfg.num_hidden_layers)
+        else:
+            input_ids, labels, plan = batch, batch, None
+        input_ids = input_ids.long()
+        B, T = input_ids.shape
+        if cfg.sliding_window is not None and T > cfg.sliding_window:
+            raise NotImplementedError(
+                f"training at T = {T} past the sliding window ({cfg.sliding_window}): "
+                "not ported to deepspeed_tpu_torch yet")
+        positions = torch.arange(T, device=input_ids.device).expand(B, T)
+        cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        x = embed_scale(self.embed_tokens.embedding[input_ids].to(dt), cfg)
+        layers = self.layers
+        L = cfg.num_hidden_layers
+
+        def call_layer(_, h, i):
+            return run_layer(lambda y: self.train_layer(layers[i], y, cos, sin, dt), h, i, L,
+                             plan)
+
+        x = apply_checkpointed_layers(self, x, call_layer, L, cfg.remat, cfg.remat_policy)
+        x = rms_norm(x, self.norm.weight, cfg.rms_norm_eps, dt, cfg.norm_plus_one)
+        return chunked_causal_lm_loss(x, self.lm_head.kernel.to(dt), labels,
+                                      batch_chunk=cfg.lm_loss_chunk, transpose=True)
+
+    def train_layer(self, layer: nn.Module, x: torch.Tensor, cos: torch.Tensor,
+                    sin: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+        """One decoder layer of the training forward on ``x`` [B, T, hidden]:
+        attention through K1 (causal, GQA repeated in its wrapper), then the
+        gated MLP, each behind its RMSNorm with a residual."""
+        cfg = self.config
+        B, T, _ = x.shape
+        H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        eps, p1 = cfg.rms_norm_eps, cfg.norm_plus_one
+        a = layer.self_attn
+        h = rms_norm(x, layer.input_layernorm.weight, eps, dt, p1)
+        q = apply_rope(a.q_proj(h, dt).view(B, T, H, D), cos, sin)
+        k = apply_rope(a.k_proj(h, dt).view(B, T, Hkv, D), cos, sin)
+        v = a.v_proj(h, dt).view(B, T, Hkv, D)
+        o = dot_product_attention(q, k, v, causal=True)
+        x = x + a.o_proj(o.reshape(B, T, H * D), dt)
+        h = rms_norm(x, layer.post_attention_layernorm.weight, eps, dt, p1)
+        return x + self.ffn(layer, h, dt)
+
 
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token NLL with shift-by-one, in the logsumexp form
@@ -358,12 +443,14 @@ def _chunk_nll_sum(h: torch.Tensor, w: torch.Tensor, y: torch.Tensor) -> torch.T
 
 
 def chunked_causal_lm_loss(x: torch.Tensor, vocab_weight: torch.Tensor,
-                           labels: torch.Tensor, batch_chunk: int = 4) -> torch.Tensor:
+                           labels: torch.Tensor, batch_chunk: int = 4,
+                           transpose: bool = False) -> torch.Tensor:
     """Fused projection + cross entropy over batch chunks.
 
-    ``x`` [B, T, C] final hidden states; ``vocab_weight`` [V, C] (the tied
-    embedding; the JAX function's ``transpose`` and ``head_bias`` for untied
-    heads come with the first model that trains one). Each chunk's body
+    ``x`` [B, T, C] final hidden states; ``vocab_weight`` [V, C] (a tied
+    embedding), or an untied head's ``kernel`` [C, V] with ``transpose=True``
+    (the JAX function's ``head_bias`` comes with the first model that trains
+    a biased head). Each chunk's body
     runs under ``torch.utils.checkpoint`` (the counterpart of the JAX
     package's ``jax.checkpoint`` scan body), so only one chunk's
     [chunk, T-1, V] f32 logits live at a time, in the forward and again in
@@ -375,7 +462,7 @@ def chunked_causal_lm_loss(x: torch.Tensor, vocab_weight: torch.Tensor,
     while B % chunk:
         chunk -= 1
     mm_dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
-    w = vocab_weight.t().to(mm_dtype)
+    w = (vocab_weight if transpose else vocab_weight.t()).to(mm_dtype)
     y = labels[:, 1:].long()
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, B, chunk):

@@ -97,6 +97,10 @@ class MixtralForCausalLM(LlamaForCausalLM):
                 "deepspeed_tpu_torch yet; use dispatch_mode='dropless'")
         super().__init__(config, device=device, seed=seed)
 
+    def forward(self, batch) -> torch.Tensor:
+        raise NotImplementedError("MoE training (Mixtral's training forward and its "
+                                  "router loss): not ported to deepspeed_tpu_torch yet")
+
     def ffn(self, layer: nn.Module, h: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
         """Dropless top-k routing of ``h`` [B, T, hidden] through the
         layer's experts (the JAX package's ``dropless_moe``)."""

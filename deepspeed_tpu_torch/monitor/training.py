@@ -1,6 +1,6 @@
-"""Training observability: the checkpoint counters (the JAX package's
-``monitor/training.py`` ``CheckpointStats``) and the ``Event`` record
-they emit."""
+"""Training observability (the JAX package's ``monitor/training.py``): the
+step loop's counters (``TrainPipelineStats``), the checkpoint counters
+(``CheckpointStats``) and the ``Event`` record they emit."""
 
 from __future__ import annotations
 
@@ -11,6 +11,29 @@ Event = Tuple[str, float, int]
 """The event record every stats class emits (the JAX package's
 ``monitor/monitor.py`` ``Event``): ``(name, value, step)``, the shape a
 monitor backend's ``write_events`` takes."""
+
+
+@dataclass
+class TrainPipelineStats:
+    """One engine's step-loop counters (cumulative; ``reset()`` between
+    measurement windows): the steps, the host ms they spent blocked on the
+    prefetch queue (``enqueue_wait``: the healthy steady state when the
+    device sets the pace) and how many were fed by an already-staged
+    batch."""
+
+    steps: int = 0
+    enqueue_wait_ms: float = 0.0
+    prefetched_steps: int = 0
+
+    def record_step(self, wait_s: float, prefetched: bool = False) -> None:
+        self.steps += 1
+        self.enqueue_wait_ms += 1e3 * wait_s
+        self.prefetched_steps += int(bool(prefetched))
+
+    def reset(self) -> None:
+        self.steps = 0
+        self.enqueue_wait_ms = 0.0
+        self.prefetched_steps = 0
 
 
 @dataclass

@@ -5,11 +5,14 @@ attention dispatch (``ops.attention``), block-sparse self-attention
 AlphaFold attention modes) and the optimizer registry.
 
 ``build_optimizer`` reads the config's ``optimizer`` block as the JAX
-package's does. Only the Adam family is ported; every other registered name
-of the JAX package raises ``NotImplementedError`` naming it."""
+package's does: the Adam family, LAMB, Lion, Adagrad and SGD. The JAX
+package's host-offloaded variants (``cpuadam``, ``cpulion``,
+``cpuadagrad``) and its 1-bit optimizers raise ``NotImplementedError``
+naming them."""
 
 from typing import Any, Dict
 
+from deepspeed_tpu_torch.ops.adagrad import Adagrad
 from deepspeed_tpu_torch.ops.adam import FusedAdam
 from deepspeed_tpu_torch.ops.evoformer import (DS4Sci_EvoformerAttention, evoformer_attention,
                                                msa_row_attention_mask_bias,
@@ -19,16 +22,22 @@ from deepspeed_tpu_torch.ops.kernels.evoformer_attention import (
     triangle_attention_ending_node, triangle_attention_starting_node)
 from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import (
     block_sparse_attention, block_sparse_attention_bhsd)
+from deepspeed_tpu_torch.ops.lamb import FusedLamb
+from deepspeed_tpu_torch.ops.lion import FusedLion
 from deepspeed_tpu_torch.ops.optimizer import TPUOptimizer
+from deepspeed_tpu_torch.ops.sgd import SGD
 from deepspeed_tpu_torch.ops.sparse_attention import (
     BigBirdSparsityConfig, BSLongformerSparsityConfig, DenseSparsityConfig,
     FixedSparsityConfig, SparsityConfig, VariableSparsityConfig, layout_to_mask,
     sparse_self_attention, sparsity_ratio)
 
-OPTIMIZER_REGISTRY = {"adam": FusedAdam, "adamw": FusedAdam, "fusedadam": FusedAdam}
-# registered in the JAX package, not ported yet
-UNPORTED_OPTIMIZERS = ("cpuadam", "deepspeedcpuadam", "lamb", "fusedlamb", "lion",
-                       "fusedlion", "cpulion", "adagrad", "cpuadagrad", "sgd",
+OPTIMIZER_REGISTRY = {"adam": FusedAdam, "adamw": FusedAdam, "fusedadam": FusedAdam,
+                      "lamb": FusedLamb, "fusedlamb": FusedLamb,
+                      "lion": FusedLion, "fusedlion": FusedLion,
+                      "adagrad": Adagrad, "sgd": SGD}
+# registered in the JAX package, not ported yet: the host-offloaded
+# variants (the offload tier) and the 1-bit optimizers
+UNPORTED_OPTIMIZERS = ("cpuadam", "deepspeedcpuadam", "cpulion", "cpuadagrad",
                        "onebitadam", "onebitlamb", "zerooneadam")
 
 

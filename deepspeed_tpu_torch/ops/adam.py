@@ -39,11 +39,8 @@ class FusedAdam(TPUOptimizer):
         self.adam_w_mode = adam_w_mode
 
     def init(self, params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-        dev = next(iter(params.values())).device if params else None
-        zeros = lambda: {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                         for k, p in params.items()}
-        return {"step": torch.zeros((), dtype=torch.int32, device=dev),
-                "exp_avg": zeros(), "exp_avg_sq": zeros()}
+        return {"step": self._step0(params), "exp_avg": self._zeros(params),
+                "exp_avg_sq": self._zeros(params)}
 
     def update(self, grads: Mapping[str, torch.Tensor], state: Mapping[str, Any],
                params: Mapping[str, torch.Tensor],
@@ -51,8 +48,7 @@ class FusedAdam(TPUOptimizer):
                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
         names = list(params)
         step = state["step"] + 1
-        lr = torch.full((), self.lr, dtype=torch.float32, device=step.device) \
-            if lr is None else lr.to(torch.float32)
+        lr = self._lr_tensor(lr, step.device)
         b1, b2 = self.betas
         if self.bias_correction:
             bc1 = 1.0 - b1 ** step.to(torch.float32)

@@ -1,6 +1,6 @@
 """Training flash attention (K1): CUDA kernels ``csrc/flash_fwd.cu`` and
-``csrc/flash_bwd.cu``, their plain PyTorch versions, and the autograd
-function that joins them.
+``csrc/flash_bwd.cu``, their plain PyTorch versions, and the torch op that
+joins them (``dstorch::flash_attention_fwd`` with its autograd formula).
 
 Counterpart of the JAX package's ``ops/pallas/flash_attention.py``
 ``flash_attention`` (custom VJP ``_flash``): q [B, Tq, H, D], k/v [B, Tk,
@@ -185,21 +185,36 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool, scale: float):
 # public entry
 # --------------------------------------------------------------------------- #
 
-class _FlashAttention(torch.autograd.Function):
+@torch.library.custom_op("dstorch::flash_attention_fwd", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                       scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's forward as a torch op, (o, lse): the differentiable entry.
+    Being an op, a selective activation-checkpoint policy can save its
+    outputs (``attn_out_saveable``) so the backward does not run it again."""
+    return flash_attention_fwd(q, k, v, causal, scale)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
-        o, lse = flash_attention_fwd(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                         ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+@flash_attention_op.register_fake
+def _(q, k, v, causal, scale):
+    B, Tq, H, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, H, Tq), dtype=torch.float32)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal, scale = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.causal, ctx.scale = causal, scale
+
+
+def _backward(ctx, do, dlse):
+    # lse is not differentiated: its gradient is ignored
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(), ctx.causal, ctx.scale)
+    return dq, dk, dv, None, None
+
+
+flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -221,5 +236,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.is_cuda and Dp != D and D % 8 == 0:
         # zero dims add nothing to q.k, and v's zero dims are sliced off
         q, k, v = (F.pad(t, (0, Dp - D)) for t in (q, k, v))
-        return _FlashAttention.apply(q, k, v, causal, scale)[..., :D]
-    return _FlashAttention.apply(q, k, v, causal, scale)
+        return flash_attention_op(q, k, v, causal, scale)[0][..., :D]
+    return flash_attention_op(q, k, v, causal, scale)[0]

@@ -29,3 +29,18 @@ class TPUOptimizer:
                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
         """Return (new_params, new_state); ``lr`` overrides the static default."""
         raise NotImplementedError
+
+    def _lr_tensor(self, lr: Optional[torch.Tensor], device) -> torch.Tensor:
+        """``lr`` as an f32 0-d tensor (the static default when None)."""
+        return torch.full((), self.lr, dtype=torch.float32, device=device) \
+            if lr is None else lr.to(torch.float32)
+
+    @staticmethod
+    def _zeros(params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                for k, p in params.items()}
+
+    @staticmethod
+    def _step0(params: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        dev = next(iter(params.values())).device if params else None
+        return torch.zeros((), dtype=torch.int32, device=dev)

@@ -9,9 +9,20 @@ differentiates; in fp32 the module's parameters are ``master`` itself, as
 the JAX engine then uses ``master`` as its params. Every counter and scalar
 of a step stays on the device:
 
-- ``train_batch`` splits the global batch into ``gradient_accumulation_steps``
-  micro-batches (a Python loop where the JAX engine scans), accumulates their
-  gradients in ``grad_accum_dtype`` and divides by ``gas * loss_scale``;
+- ``train_batch`` takes a global batch (given, from a ``data_iter``, or from
+  the engine's own data pipeline over ``training_data``), stages it
+  (``_prepare_batch``: curriculum seqlen truncation, progressive layer drop's
+  inputs, the copy to the device; ahead of time on a producer thread under
+  ``train_pipeline.prefetch``), splits it into ``gradient_accumulation_steps``
+  micro-batches (a Python loop where the JAX engine scans), accumulates
+  their gradients in ``grad_accum_dtype`` and divides by ``gas *
+  loss_scale``;
+- the forward/backward/step facade does the same a micro-batch at a time:
+  ``forward`` returns the loss with its graph, ``backward(loss)`` runs
+  autograd and accumulates (as DeepSpeed's own engine does; the JAX engine
+  computes the gradient in ``forward``), ``step`` applies at the
+  accumulation boundary; ``gas`` facade micro-steps give the bits of one
+  ``train_batch``;
 - ``_apply_grads`` takes the global norm, clips, runs the optimizer on the
   fp32 master, keeps the old state where the fp16 scaler saw an overflow
   (``torch.where``: no host sync decides a skip), updates the scaler,
@@ -39,19 +50,25 @@ packages):
 - ``destroy`` closes the rolling committer, then the checkpoint engine,
   and re-raises a surfaced writer or commit error after the full teardown.
 
+The engine calls ``activation_checkpointing.configure`` with its config
+(``number_checkpoints``, the policy of ``partition_activations``) for the
+model's checkpointed layers, and runs progressive layer drop (its theta
+and per-row seeds, drawn from (``seed``, global step), go into each staged
+batch) and the curriculum seqlen schedule.
+
 ZeRO stages 0-3 are accepted and are the identity here: on a world of one
 device there is nothing to partition, as in the JAX partitioner with
 fsdp = 1. A mesh, or a ``torch.distributed`` world of more than one rank,
-raises ``NotImplementedError``, as do the forward/backward/step facade,
-``training_data`` (the data pipeline) and offload, which later slices
-port.
+raises ``NotImplementedError``, as do offload and a client optimizer that
+is not a ``TPUOptimizer``, which later slices port.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from collections import deque
-from typing import Any, Callable, Dict, Iterator, Mapping, Optional
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -62,11 +79,19 @@ from deepspeed_tpu_torch.checkpoint import (RollingCheckpointer, build_checkpoin
                                             save_engine_checkpoint)
 from deepspeed_tpu_torch.checkpoint.convert import params_from_flat
 from deepspeed_tpu_torch.config import DeepSpeedTPUConfig
-from deepspeed_tpu_torch.monitor import CheckpointStats
+from deepspeed_tpu_torch.data.curriculum_scheduler import CurriculumScheduler
+from deepspeed_tpu_torch.monitor import CheckpointStats, TrainPipelineStats
 from deepspeed_tpu_torch.ops import TPUOptimizer, build_optimizer
+from deepspeed_tpu_torch.runtime import activation_checkpointing
+from deepspeed_tpu_torch.runtime.activation_checkpointing import mix_seed
+from deepspeed_tpu_torch.runtime.data_pipeline import (PrefetchLoader, StagedBatch,
+                                                       as_host_tree, inject_pld,
+                                                       stage_tree, truncate_to_seqlen)
+from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedTPUDataLoader, RepeatingLoader
 from deepspeed_tpu_torch.runtime.loss_scaler import (has_overflow, make_loss_scale_state,
                                                      update_loss_scale)
 from deepspeed_tpu_torch.runtime.lr_schedules import build_lr_schedule
+from deepspeed_tpu_torch.runtime.progressive_layer_drop import ProgressiveLayerDrop
 from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.utils.tree import global_norm
 
@@ -96,20 +121,21 @@ class DeepSpeedTPUEngine:
     def __init__(self, args=None, model=None, optimizer: Optional[TPUOptimizer] = None,
                  model_parameters: Optional[Mapping[str, Any]] = None,
                  training_data=None, lr_scheduler: Optional[Callable] = None,
-                 mesh_topology=None, config=None, device=None):
+                 mesh_topology=None, config=None, device=None, collate_fn=None):
         self.config = DeepSpeedTPUConfig.load(config)
         if mesh_topology is not None:
             raise _unported("mesh_topology (a device mesh)")
         if torch.distributed.is_available() and torch.distributed.is_initialized() \
                 and torch.distributed.get_world_size() > 1:
             raise _unported(f"a world of {torch.distributed.get_world_size()} ranks")
-        if training_data is not None:
-            raise _unported("training_data (the engine's data pipeline)")
         if model is None:
             raise ValueError("initialize() requires a model")
         self.device = resolve_device(device)
         self.train_batch_size_, self.micro_batch_size_, self.gas_ = \
             self.config.resolve_batch(1)
+        # the remat policy and number_checkpoints of every model built
+        # under this engine
+        activation_checkpointing.configure(self.config)
         self.module = model
         self.compute_dtype = self.config.compute_dtype
         self.mixed_precision = self.compute_dtype != torch.float32
@@ -140,7 +166,36 @@ class DeepSpeedTPUEngine:
         self._last_metrics: Dict[str, Any] = {}
         # deferred metric drain: (step, device metrics) entries
         self._pending_metrics: deque = deque()
+        self.train_stats = TrainPipelineStats()
         self._init_state(model_parameters)
+
+        # progressive layer drop: its draws are seeded from (seed, step), so
+        # staging ahead of the step counter draws what the sync path would
+        self.progressive_layer_drop = None
+        if self.config.progressive_layer_drop.enabled:
+            self.progressive_layer_drop = ProgressiveLayerDrop(
+                theta=self.config.progressive_layer_drop.theta,
+                gamma=self.config.progressive_layer_drop.gamma)
+        self.curriculum_scheduler = None
+        # (scheduled seqlen, widest leaf, needs truncation) of the last
+        # staging: off bucket boundaries the tree walk is skipped
+        self._curr_seqlen_state = None
+        if self.config.curriculum_learning.enabled:
+            self.curriculum_scheduler = CurriculumScheduler(self.config.curriculum_learning)
+
+        # the data pipeline: the engine's loader over training_data, its
+        # iterator (behind a PrefetchLoader when prefetching) and the
+        # stream the host->device copies run on
+        self._copy_stream = torch.cuda.Stream(device=self.device) \
+            if self.device.type == "cuda" else None
+        self._data_iterator = None
+        self._prefetch_loader: Optional[PrefetchLoader] = None
+        self._warned_stale_staging = False
+        # the facade's accumulated gradients
+        self._grad_buffer: Optional[List[torch.Tensor]] = None
+        self.training_dataloader = None
+        if training_data is not None:
+            self.training_dataloader = self.deepspeed_io(training_data, collate_fn=collate_fn)
 
         self.ckpt_stats = CheckpointStats()
         self._ckpt_engine = None
@@ -196,38 +251,143 @@ class DeepSpeedTPUEngine:
     # the step
     # ------------------------------------------------------------------ #
 
-    def _to_device(self, batch) -> Dict[str, torch.Tensor]:
+    # ---- staging (the JAX engine's _prepare_batch) ---- #
+
+    def _scheduled_seqlen(self, step: int) -> Optional[int]:
+        """The curriculum seqlen of a global step: a pure read of the
+        schedule, safe from the producer thread staging ahead."""
+        if (self.curriculum_scheduler is None
+                or self.config.curriculum_learning.curriculum_type != "seqlen"):
+            return None
+        return int(self.curriculum_scheduler.get_difficulty(step))
+
+    def _staging_is_stale(self, staged_step: int) -> bool:
+        """Would a batch staged for ``staged_step`` differ from one staged
+        for the current step? PLD draws are per step; the curriculum only
+        where its schedule moved between the two."""
+        if self.progressive_layer_drop is not None:
+            return True
+        return self._scheduled_seqlen(staged_step) != self._scheduled_seqlen(self.global_steps)
+
+    def _apply_curriculum(self, batch, seqlen: int):
+        """The host batch truncated to ``seqlen`` (numpy views); the decision
+        is cached on (seqlen, widest rank >= 2 leaf)."""
+        width = max((int(np.shape(x)[1]) for x in batch.values() if np.ndim(x) >= 2),
+                    default=0)
+        if self._curr_seqlen_state == (seqlen, width, False):
+            return batch
+        need = width > seqlen
+        self._curr_seqlen_state = (seqlen, width, need)
+        return truncate_to_seqlen(batch, seqlen) if need else batch
+
+    def _inject_pld(self, batch, leading: int, step: Optional[int] = None,
+                    micro: Optional[int] = None):
+        """PLD's theta and per-row seeds put in the batch, drawn from
+        (seed, step[, micro]) so that prefetched and synchronous staging draw
+        the same layers."""
+        if self.progressive_layer_drop is None or not isinstance(batch, dict):
+            return batch
+        step = self.global_steps if step is None else step
+        parts = (self.config.seed, step) if micro is None else (self.config.seed, step, micro)
+        return inject_pld(batch, leading, self.progressive_layer_drop.theta_at(step),
+                          mix_seed(*parts))
+
+    def _stage(self, host: Mapping[str, np.ndarray]):
+        """(device tree, copy event): the copy runs on the engine's own
+        stream on the card."""
+        return stage_tree(host, self.device, self._copy_stream)
+
+    def _on_device(self, host: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """A host batch staged and ready on the current stream."""
+        tree, ready = self._stage(host)
+        return StagedBatch(tree, self.global_steps, ready=ready).wait()
+
+    @staticmethod
+    def _host_batch(batch) -> Dict[str, np.ndarray]:
         if not isinstance(batch, Mapping):
             raise TypeError(f"a batch is a dict of arrays (input_ids, ...), got {type(batch)}")
-        out = {}
-        for k, x in batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) \
-                else torch.as_tensor(x)
-            out[k] = t.to(self.device)
-        return out
+        return as_host_tree(batch)
+
+    def _prepare_batch(self, batch, step: int) -> StagedBatch:
+        """Stage a global batch for global step ``step``: curriculum
+        truncation, PLD injection, the copy to the device. Runs on the
+        caller's thread (prefetch 0, explicit batches) or on the
+        PrefetchLoader's producer; everything schedule-dependent is keyed by
+        ``step``, never read from the engine's counters."""
+        host = self._host_batch(batch)
+        for k, x in host.items():
+            if np.shape(x)[:1] != (self.train_batch_size_,):
+                raise ValueError(f"batch['{k}'] leading dim {np.shape(x)[:1]} != "
+                                 f"train_batch_size {self.train_batch_size_}")
+        seqlen = self._scheduled_seqlen(step)
+        if seqlen is not None:
+            host = self._apply_curriculum(host, seqlen)
+        host = self._inject_pld(host, self.train_batch_size_, step=step)
+        tree, ready = self._stage(host)
+        return StagedBatch(tree, step, raw=batch, ready=ready)
+
+    def _build_data_iterator(self):
+        """The iterator over the engine's own loader: a RepeatingLoader
+        (epochs bump and reshuffle), behind a PrefetchLoader staging on the
+        device when ``train_pipeline.prefetch > 0``."""
+        it = RepeatingLoader(self.training_dataloader)
+        depth = self.config.train_pipeline.prefetch
+        if depth > 0:
+            it = PrefetchLoader(it, prepare=self._prepare_batch, prefetch=depth,
+                                start_step=self.global_steps)
+            self._prefetch_loader = it
+        return iter(it)
+
+    def _reset_data_iterator(self) -> None:
+        """Drop the engine's iterator and stop its producer: staged batches
+        are keyed to the step counter, which a checkpoint load moves."""
+        if self._prefetch_loader is not None:
+            self._prefetch_loader.close()
+            self._prefetch_loader = None
+        self._data_iterator = None
+
+    # ---- gradients ---- #
 
     def _grad_fn(self, micro: Mapping[str, torch.Tensor], scale: torch.Tensor):
         """(loss, grads) of one micro-batch; grads of ``loss * scale``, in
         the parameters' order and dtype."""
+        loss = self.module(micro)
+        return loss.detach(), self._grads_of(loss * scale)
+
+    def _grads_of(self, scaled: torch.Tensor) -> List[torch.Tensor]:
+        """Gradients of ``scaled`` in the parameters' order; a parameter the
+        forward did not use (a layer progressive layer drop skipped) gets
+        zeros."""
         params = list(self._current_params().values())
-        scaled = self.module(micro) * scale
-        grads = torch.autograd.grad(scaled, params)
-        return scaled.detach() / scale, grads
+        grads = torch.autograd.grad(scaled, params, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+
+    def _accumulate(self, acc: Optional[List[torch.Tensor]], grads) -> List[torch.Tensor]:
+        """``acc + grads`` in ``grad_accum_dtype`` (the first micro-batch's
+        grads become the accumulator)."""
+        grads = [g.to(self.config.grad_accum_dtype) for g in grads]
+        if acc is None:
+            return grads
+        torch._foreach_add_(acc, grads)
+        return acc
+
+    def _mean_grads(self, acc: List[torch.Tensor], scale: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The accumulated grads as fp32, divided by ``gas * scale``."""
+        grads = [g.float() for g in acc]
+        torch._foreach_mul_(grads, 1.0 / (self.gas_ * scale))
+        return dict(zip(self._current_params(), grads))
 
     def _accumulate_grads(self, scale: torch.Tensor, batch: Mapping[str, torch.Tensor]):
         """Mean fp32 grads over the micro-batches (accumulated in
         ``grad_accum_dtype``) and the per-micro-batch losses."""
-        accum_dtype = self.config.grad_accum_dtype
         acc, losses = None, []
         for i in range(self.gas_):
             sl = slice(i * self.micro_batch_size_, (i + 1) * self.micro_batch_size_)
             loss, grads = self._grad_fn({k: v[sl] for k, v in batch.items()}, scale)
-            grads = [g.to(accum_dtype) for g in grads]
-            acc = grads if acc is None else torch._foreach_add(acc, grads)
+            acc = self._accumulate(acc, grads)
+            del grads
             losses.append(loss)
-        inv = 1.0 / (self.gas_ * scale)
-        grads = torch._foreach_mul([g.float() for g in acc], inv)
-        return dict(zip(self._current_params(), grads)), torch.stack(losses)
+        return self._mean_grads(acc, scale), torch.stack(losses)
 
     def _apply_grads(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Clip, check overflow, optimizer update on the fp32 master, cast
@@ -270,30 +430,52 @@ class DeepSpeedTPUEngine:
         return {"grad_norm": gnorm, "lr": lr, "overflow": overflowed,
                 "loss_scale": st["scaler"]["scale"]}
 
+    def _loss_scale(self) -> torch.Tensor:
+        return self.state["scaler"]["scale"] if self.config.fp16.enabled \
+            else torch.ones((), dtype=torch.float32, device=self.device)
+
     # ------------------------------------------------------------------ #
     # public API
     # ------------------------------------------------------------------ #
 
     def train_batch(self, batch=None, data_iter: Optional[Iterator] = None) -> torch.Tensor:
         """One training step over a global batch of ``train_batch_size``
-        rows (or the next batch of ``data_iter``). Returns the mean loss as
-        a 0-d DEVICE tensor; the previous step's metrics are drained while
-        this one runs."""
+        rows: ``batch``, else the next of ``data_iter`` (host batches or a
+        PrefetchLoader's staged ones), else the next of the engine's own
+        data pipeline. Returns the mean loss as a 0-d DEVICE tensor; the
+        previous step's metrics are drained while this one runs."""
+        t0 = time.perf_counter()
         if batch is None:
             if data_iter is None:
-                raise ValueError("train_batch() needs a batch or a data_iter")
+                if self.training_dataloader is None:
+                    raise ValueError("train_batch() needs a batch, a data_iter, or "
+                                     "training_data passed to initialize()")
+                if self._data_iterator is None:
+                    self._data_iterator = self._build_data_iterator()
+                data_iter = self._data_iterator
             batch = next(data_iter)
-        batch = self._to_device(batch)
-        for k, v in batch.items():
-            if v.shape[0] != self.train_batch_size_:
-                raise ValueError(f"batch['{k}'] leading dim {v.shape[0]} != "
-                                 f"train_batch_size {self.train_batch_size_}")
-        scale = self.state["scaler"]["scale"] if self.config.fp16.enabled \
-            else torch.ones((), dtype=torch.float32, device=self.device)
-        grads, losses = self._accumulate_grads(scale, batch)
+        prefetched = isinstance(batch, StagedBatch)
+        if prefetched and batch.step != self.global_steps \
+                and self._staging_is_stale(batch.step):
+            # the step counter moved outside the pipeline that staged this
+            # batch (an explicit train_batch(batch), the facade, another
+            # data_iter): restage its raw view for the current step
+            if not self._warned_stale_staging:
+                self._warned_stale_staging = True
+                logger.warning("prefetched batch staged for step %d consumed at step %d: "
+                               "restaging inline", batch.step, self.global_steps)
+            batch, prefetched = batch.raw, False
+        wait_s = time.perf_counter() - t0
+        if self.curriculum_scheduler is not None:
+            self.curriculum_scheduler.update_difficulty(self.global_steps)
+        staged = batch if prefetched else self._prepare_batch(batch, self.global_steps)
+        tree = staged.wait()
+        scale = self._loss_scale()
+        grads, losses = self._accumulate_grads(scale, tree)
         metrics = self._apply_grads(grads)
         metrics["loss"] = losses.mean()
         self._after_step(metrics)
+        self.train_stats.record_step(wait_s if prefetched else 0.0, prefetched)
         return metrics["loss"]
 
     def train_steps(self, n_steps: int, data_iter: Optional[Iterator] = None) -> np.ndarray:
@@ -305,12 +487,17 @@ class DeepSpeedTPUEngine:
             return np.zeros((0,), np.float32)
         return fetch_to_host(torch.stack(losses)).numpy().astype(np.float32)
 
-    def _after_step(self, metrics: Dict[str, torch.Tensor]) -> None:
-        """Counters and the metric ENQUEUE; the previous step's entry is
-        drained now (``wall_clock_breakdown`` drains this one too)."""
+    def _after_step(self, metrics: Dict[str, torch.Tensor],
+                    count_micro_steps: bool = True) -> None:
+        """Counters, PLD's theta and the metric ENQUEUE; the previous step's
+        entry is drained now (``wall_clock_breakdown`` drains this one
+        too). The facade counts its micro-steps in ``backward``."""
         self.global_steps += 1
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self.global_steps)
         self.global_samples += self.train_batch_size_
-        self.micro_steps += self.gas_
+        if count_micro_steps:
+            self.micro_steps += self.gas_
         self._last_metrics = metrics
         self._pending_metrics.append((self.global_steps, metrics))
         self._drain_metric_queue(0 if self.config.wall_clock_breakdown else 1)
@@ -333,18 +520,58 @@ class DeepSpeedTPUEngine:
         if not (every and step % every == 0):
             return
         vals = fetch_to_host(metrics)
-        logger.info("step=%d loss=%.4f lr=%.3e gnorm=%.3f", step, float(vals["loss"]),
+        # the facade's step metrics carry no loss
+        loss = float(vals["loss"]) if "loss" in vals else float("nan")
+        logger.info("step=%d loss=%.4f lr=%.3e gnorm=%.3f", step, loss,
                     float(vals["lr"]), float(vals["grad_norm"]))
 
     @torch.no_grad()
     def eval_loss(self, batch) -> float:
         """Forward-only loss on a global batch (no state change)."""
-        return float(fetch_to_host(self.module(self._to_device(batch))))
+        return float(fetch_to_host(self.module(self._on_device(self._host_batch(batch)))))
 
-    def forward(self, batch):
-        raise _unported("the forward/backward/step facade (use train_batch)")
+    # ---- the forward/backward/step facade (JAX engine.py :1451-1500) ---- #
 
-    backward = step = forward
+    def forward(self, batch) -> torch.Tensor:
+        """One micro-batch's loss, with its autograd graph (the micro-batch
+        is staged as ``train_batch`` stages its rows; PLD draws from (seed,
+        global step, micro step), as in the JAX facade)."""
+        host = self._host_batch(batch)
+        leading = int(np.shape(next(iter(host.values())))[0])
+        return self.module(self._on_device(
+            self._inject_pld(host, leading, micro=self.micro_steps)))
+
+    __call__ = forward
+
+    def backward(self, loss: torch.Tensor, **kwargs) -> torch.Tensor:
+        """Gradients of ``loss * loss_scale`` accumulated into the buffer
+        (in ``grad_accum_dtype``); one micro-step."""
+        grads = self._grads_of(loss * self._loss_scale())
+        self._grad_buffer = self._accumulate(self._grad_buffer, grads)
+        self.micro_steps += 1
+        return loss
+
+    def is_gradient_accumulation_boundary(self) -> bool:
+        return self.micro_steps % self.gas_ == 0
+
+    def step(self) -> None:
+        """Apply the accumulated gradients at an accumulation boundary
+        (a no-op elsewhere)."""
+        if not self.is_gradient_accumulation_boundary() or self._grad_buffer is None:
+            return
+        grads = self._mean_grads(self._grad_buffer, self._loss_scale())
+        self._grad_buffer = None
+        self._after_step(self._apply_grads(grads), count_micro_steps=False)
+
+    # ---- the data pipeline ---- #
+
+    def deepspeed_io(self, dataset, batch_size: Optional[int] = None, collate_fn=None,
+                     shuffle: bool = True, drop_last: bool = True) -> DeepSpeedTPUDataLoader:
+        """A loader of global batches over ``dataset`` (shuffled from the
+        config's ``seed``), as the JAX engine's."""
+        return DeepSpeedTPUDataLoader(dataset, batch_size=batch_size or self.train_batch_size_,
+                                      collate_fn=collate_fn, shuffle=shuffle,
+                                      seed=self.config.seed, drop_last=drop_last)
 
     # ------------------------------------------------------------------ #
     # checkpoints (the JAX engine's save_checkpoint / load_checkpoint)
@@ -396,6 +623,8 @@ class DeepSpeedTPUEngine:
         if verify is None:
             verify = self.config.checkpoint.verify_load
         self.drain_metrics()   # the pre-load stream's metrics land first
+        # staged batches are keyed to the step counter the load moves
+        self._reset_data_iterator()
         if self.config.checkpoint.load_universal:
             if tag is not None:
                 logger.warning("load_universal: universal checkpoints are "
@@ -418,6 +647,7 @@ class DeepSpeedTPUEngine:
         committer, then the checkpoint engine's writers. A surfaced commit
         or writer error re-raises only after the whole teardown ran.
         Idempotent."""
+        self._reset_data_iterator()
         self.drain_metrics()
         err = None
         if self._rolling is not None:

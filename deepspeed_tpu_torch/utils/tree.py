@@ -3,7 +3,7 @@ names), the port's counterpart of the JAX package's ``utils/tree.py``."""
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import torch
 
@@ -20,3 +20,14 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
 def tree_cast(tree: Mapping[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     """Floating leaves cast to ``dtype``; other leaves unchanged."""
     return {k: v.to(dtype) if v.is_floating_point() else v for k, v in tree.items()}
+
+
+def clip_by_global_norm(tree: Mapping[str, torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None):
+    """The tree scaled so its global norm is at most ``max_norm``, as the
+    JAX package's: ``x * min(1, max_norm / (norm + 1e-6))`` in each leaf's
+    dtype. Returns (tree, norm)."""
+    if norm is None:
+        norm = global_norm(tree)
+    scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+    return {k: (x * scale).to(x.dtype) for k, x in tree.items()}, norm

@@ -157,6 +157,32 @@ def test_checkpoint_modules_import_without_jax():
                    env={**os.environ, "PYTHONPATH": str(ROOT)})
 
 
+TRAINING_MODULES = ("deepspeed_tpu_torch.ops.lamb", "deepspeed_tpu_torch.ops.lion",
+                    "deepspeed_tpu_torch.ops.adagrad", "deepspeed_tpu_torch.ops.sgd",
+                    "deepspeed_tpu_torch.runtime.activation_checkpointing",
+                    "deepspeed_tpu_torch.runtime.progressive_layer_drop",
+                    "deepspeed_tpu_torch.runtime.dataloader",
+                    "deepspeed_tpu_torch.runtime.data_pipeline",
+                    "deepspeed_tpu_torch.data", "deepspeed_tpu_torch.data.indexed_dataset",
+                    "deepspeed_tpu_torch.data.data_sampler",
+                    "deepspeed_tpu_torch.data.curriculum_scheduler",
+                    "deepspeed_tpu_torch.runtime.engine", "deepspeed_tpu_torch.models.llama")
+
+
+def test_training_modules_import_without_jax():
+    """The modules of one-device training (optimizers, activation
+    checkpointing, layer drop, the data pipeline), each imported by its own
+    name in a fresh interpreter, load no JAX and nothing of the JAX
+    package."""
+    code = ("import importlib, sys; "
+            f"[importlib.import_module(m) for m in {TRAINING_MODULES!r}]; "
+            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'deepspeed_tpu') "
+            "or m.startswith(('jax.', 'flax.', 'deepspeed_tpu.'))]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120,
+                   env={**os.environ, "PYTHONPATH": str(ROOT)})
+
+
 def test_zero_to_fp32_cli_runs_without_jax(tmp_path):
     """``python -m deepspeed_tpu_torch.utils.zero_to_fp32 <ckpt_dir> <out>``
     consolidates a tag on a host with no JAX."""
