@@ -362,8 +362,52 @@ decode kernel at Qwen2-7B's G = 7 and Gemma-7B's D = 256 on pages of 128.
    prefetch 0 and 2, and a curriculum seqlen schedule 256 -> 1024 staging
    256/512/768/1024 tokens and running K1 at each.
 
+21. Llama-2-7B behind ``ServingFrontend`` at full width and depth (the
+   same model as phases 4 and 17-18; random bf16 weights from seed 0):
+   pages of 128, 48 of them (6144 tokens), the prefix cache on, the
+   default classes (interactive / standard / batch), offload preemption,
+   ``engine.warmup()`` first. Traffic: ``PoissonLoadGen`` at seed 0, 32
+   arrivals at 8 requests/s replayed against the running frontend
+   (interactive prompts 256-1024 tokens, 64-128 new; batch 1536-3072, 32-64
+   new; eight interactive prompts share one 1024-token prefix); then, by
+   ``step()``, a deterministic preemption, a request cancelled while
+   queued, one during its prefill and one mid-decode, one shed, one decode
+   slice under ``set_sync_debug_mode("error")`` (the pipeline's drain
+   excepted) and a profiled one. Fatal: every finished stream equal to its
+   prompt served alone by ``generate()`` or parting at a near tie (phase
+   17's rule); every preempted-then-restored request's private pages and
+   last-logits row bit-equal across the round trip, no prefix-shared page
+   offloaded, at least one preemption and restore; no step-cache entry
+   added after warmup; after ``close()`` the free pages, the scheduler,
+   the offload store and the pinned pool at baseline; K2, K5 and the
+   decode kernel launched. Printed on the ``frontend`` line: TTFT and TBT
+   p50/p99 and goodput per class, output tok/s, preemptions, restores,
+   offloaded bytes, each offload's and restore's ms, the profiled slice's
+   device against wall ms, peak GiB.
+22. ``ServingCluster`` + ``ServingRouter`` over two Llama-2-7B replicas on
+   the one card, sharing the model's bf16 tree: (a) cache-aware routing of
+   16 requests in two prefix groups (1024 + 128 tokens, 32 new each): hits
+   routed, each group's later requests on the replica holding its prefix;
+   (b) one ``prefill`` and one ``decode`` replica, 8 requests: each
+   handoff's exported pages read back from the decode engine's imported
+   blocks byte for byte, the logits row bit for bit, no prefill on the
+   decode engine; (c) a fault at r1's serving-loop site mid-stream:
+   without a health monitor ``drain()`` names ``replica 'r1'``; with one,
+   r1's requests migrate to r0, one failure and its migrations are
+   counted, every stream is 32 tokens long, then r1 rejoins by hand and
+   its warmup adds no step-cache entry. Every finished stream against
+   ``generate()`` alone, as in phase 21, and each migrated stream past its
+   seal against ``generate()`` of the prompt and the tokens streamed
+   before it. Both engines are warmed before the launch counts are
+   zeroed; K2 and the decode kernel must launch in each part's traffic
+   ((c)'s counts are read before the rejoin), K5 in the phase's. Printed
+   on the ``router`` line: route ms, handoff ms (export start to import
+   end; the byte check runs after the drain) and bytes a sequence,
+   migration ms, each part's launches.
+
 The last two lines are the kernel table (58 rows, K5 at the verify step's
-shape among them) and ``{"ok": true,
+shape among them; the rows of K2, K5, the decode kernel and K7 carry their
+launches in phases 21 and 22 as ``serving_launches``) and ``{"ok": true,
 "device": ...}`` as JSON. Run from the repository root: ``python3 chip_smoke.py``.
 """
 
@@ -7051,6 +7095,754 @@ def run_llama_training(layers: int = P20_LAYERS, T: int = P20_T, device="cuda", 
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phases 21-22: the serving frontend and the multi-replica router
+# --------------------------------------------------------------------------- #
+
+# 48 pages of 128 (6144 tokens, 3 GiB at 512 KiB a token): less than the
+# traffic asks for at once, so offload preemption has to fire
+P21_ENGINE = {"kv_cache": {"block_size": 128, "num_blocks": 48},
+              "prefix_cache": {"enabled": True}, "seed": 0,
+              "serving": {"decode_slice": 4, "preemption": "offload"}}
+P21_RATE, P21_N, P21_SEED = 8.0, 32, 0
+P21_MIX = (("interactive", 3.0, (256, 384, 512, 640, 768, 896, 1024), (64, 96, 128)),
+           ("batch", 1.0, (1536, 2048, 2560, 3072), (32, 48, 64)))
+P21_PREFIX, P21_SHARED, P21_SHARED_TAIL = 1024, 8, 128
+# part B's prompt lengths: a low-priority victim of 40 of the 48 pages, the
+# interactive request it makes room for, the cancelled and shed requests
+# (the prefill one longer than a pass's chunk budget) and the sync-checked
+# slice's two rows
+P21_B_LENS = {"victim": 5000, "interactive": 1024, "queued": 512, "prefill": 2000,
+              "decode": 512, "shed": 512, "slice": 256}
+P21_B_NEW = 32            # new tokens of the victim and the interactive request
+P21_DRAIN_S = 600.0
+P21_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk", "splitk_merge")
+P21_TIE_ROWS = 3          # prompts whose last row sets the near-tie limit
+# 80 pages of 128 a replica: (b)'s prefill replica takes its 8 prompts
+# (1152 tokens, 9 pages each) in one batch, and its worker admits a batch
+# prompt by prompt (ROADMAP Queue 3 item 3). Phase 22 holds routing,
+# handoffs and failover, not SLOs (phase 21 does): at a shed factor of
+# 1000 its default classes shed nothing, in the frontends or the router
+P22_SHED_FACTOR = 1000.0
+P22_ENGINE = {"kv_cache": {"block_size": 128, "num_blocks": 80},
+              "prefix_cache": {"enabled": True}, "seed": 0,
+              "serving": {"decode_slice": 4, "shed_factor": P22_SHED_FACTOR}}
+P22_PREFIX, P22_TAIL, P22_NEW = 1024, 128, 32
+P22_GROUP, P22_DISAGG, P22_FAILOVER = 8, 8, 8
+# balance 32: 1024 cached tokens outweigh the 7 later requests of a group
+P22_ROUTER = {"policy": "cache_aware", "shed_factor": P22_SHED_FACTOR}
+# (c) rejoins r1 by hand once the traffic has drained, so that the launch
+# counts read before it hold no launch of the rejoin's warmup
+P22_HEALTH = {"enabled": True, "interval_s": 0.05, "suspect_after_s": 5.0,
+              "down_after_s": 10.0, "fence_join_s": 5.0, "auto_rejoin": False}
+
+
+def p21_sync(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def p21_arrivals(V):
+    """Phase 21's traffic: ``PoissonLoadGen`` at seed 0, 32 arrivals at 8
+    requests/s of the two classes; the first eight interactive arrivals'
+    prompts become one shared 1024-token prefix followed by the first 128
+    tokens of their own."""
+    from deepspeed_tpu_torch.inference.v2.serving import PoissonLoadGen, WorkloadComponent
+    mix = [WorkloadComponent(c, w, list(p), list(g)) for c, w, p, g in P21_MIX]
+    arrivals = PoissonLoadGen(P21_RATE, mix, vocab=V, seed=P21_SEED).arrivals(n=P21_N)
+    prefix = np.random.RandomState(21).randint(0, V, P21_PREFIX).astype(np.int32)
+    shared = [a for a in arrivals if a.cls == "interactive"][:P21_SHARED]
+    for a in shared:
+        a.prompt = np.concatenate([prefix, a.prompt[:P21_SHARED_TAIL]])
+    return arrivals
+
+
+class OffloadAudit:
+    """Holds every offload of a frontend's ``KVOffloadManager`` to its
+    restore: before the offload, the victim's private pages (``fetch_pages``
+    on the card) and its last-logits row; after the restore, the same pages
+    read back and the row, each bit for bit. An offloaded page held by
+    anyone else (refcount > 1, or a radix-tree page) fails at once. Times
+    each offload and restore between two syncs."""
+
+    def __init__(self, fe, dev):
+        self.engine, self.dev = fe.engine, dev
+        self.pending, self.checked = {}, []
+        self.offload_ms, self.restore_ms, self.bytes = [], [], 0
+        mgr = fe.offload
+        self._offload, self._restore = mgr.offload, mgr.restore
+        mgr.offload, mgr.restore = self.offload, self.restore
+
+    def offload(self, uid, kept, tail):
+        e = self.engine
+        cached = ({n.block_id for n in e.prefix_cache._iter_nodes()}
+                  if e.prefix_cache is not None else set())
+        bad = [b for b in tail if e.allocator.ref_count(b) != 1 or b in cached]
+        if bad:
+            raise AssertionError(f"phase 21: uid {uid} offloads shared pages {bad}")
+        e._materialize([uid])
+        self.pending[uid] = (e.fetch_pages(tail) if tail else None,
+                             np.array(e._last_logits[uid], np.float32), kept)
+        p21_sync(self.dev)
+        t0 = time.perf_counter()
+        n = self._offload(uid, kept, tail)
+        p21_sync(self.dev)
+        self.offload_ms.append((time.perf_counter() - t0) * 1e3)
+        self.bytes += n
+        return n
+
+    def restore(self, uid):
+        e = self.engine
+        p21_sync(self.dev)
+        t0 = time.perf_counter()
+        n = self._restore(uid)
+        p21_sync(self.dev)
+        self.restore_ms.append((time.perf_counter() - t0) * 1e3)
+        pages, logits, kept = self.pending.pop(uid)
+        blocks = e.scheduler.seqs[uid].blocks[kept:]
+        got = e.fetch_pages(blocks) if blocks else None
+        same = (got is None and pages is None) or (
+            got is not None and pages is not None and got.shape == pages.shape
+            and np.array_equal(np.ascontiguousarray(got).view(np.uint8),
+                               np.ascontiguousarray(pages).view(np.uint8)))
+        row = np.asarray(e._last_logits[uid], np.float32)
+        if not same or not np.array_equal(row.view(np.uint32), logits.view(np.uint32)):
+            raise AssertionError(f"phase 21: uid {uid} restored pages equal {same}, "
+                                 "last-logits row bit-equal "
+                                 f"{np.array_equal(row.view(np.uint32), logits.view(np.uint32))}")
+        self.checked.append(uid)
+        return n
+
+
+def p21_tie(model, prompts):
+    """The near-tie limit, as phase 17 sets it: twice the dense bf16
+    forward's largest logit error against fp32, here at the last row of
+    the first ``P21_TIE_ROWS`` prompts."""
+    errs = []
+    for p in prompts[:P21_TIE_ROWS]:
+        a, b = dense_rows(None, model, p, [len(p) - 1], False)
+        errs.append(float((b - a).abs().max()))
+        del a, b
+    return 2 * max(errs)
+
+
+def p21_reference(label, engine, model, handles, tie):
+    """Every finished stream against its prompt served alone by
+    ``engine.generate()``: equal, or parting only at a near tie
+    (:func:`stream_tie`). Returns the counts of equal and parted streams."""
+    done = [h for h in handles if h.status == "finished"]
+    refs = []
+    for h in done:
+        out = engine.generate([h.prompt], max_new_tokens=len(h.tokens))[0]
+        refs.append([int(t) for t in out[len(h.prompt):]])
+    parted = []
+    for h, r in zip(done, refs):
+        if len(h.tokens) != len(r):
+            raise AssertionError(f"{label}: uid {h.uid} streamed {len(h.tokens)} tokens, "
+                                 f"the reference {len(r)}")
+        if h.tokens != r:
+            parted.append(h)
+    if parted:
+        stream_tie(label, model, [h.prompt for h in parted], [h.tokens for h in parted],
+                   [refs[done.index(h)] for h in parted], tie)
+    counts = {"streams": len(done), "equal": len(done) - len(parted), "parted": len(parted)}
+    print("stream-compare " + json.dumps({"case": label, **counts, "limit": tie}), flush=True)
+    return counts
+
+
+def p21_percentiles(handles):
+    """TTFT and TBT p50 / p99 (ms) of the finished handles of each class."""
+    out = {}
+    for cls in sorted({h.cls.name for h in handles}):
+        fin = [h for h in handles if h.cls.name == cls and h.status == "finished"]
+        ttft = [h.ttft_ms for h in fin if h.ttft_ms is not None]
+        tbt = [x for h in fin for x in h.tbt_ms]
+        q = lambda xs, p: float(np.percentile(xs, p)) if xs else None  # noqa: E731
+        out[cls] = {"ttft_p50_ms": q(ttft, 50), "ttft_p99_ms": q(ttft, 99),
+                    "tbt_p50_ms": q(tbt, 50), "tbt_p99_ms": q(tbt, 99)}
+    return out
+
+
+@contextlib.contextmanager
+def p21_sync_checked(dev):
+    """Within the block, ``torch.cuda.set_sync_debug_mode("error")``: any
+    operation that waits on the device raises, but the decode pipeline's
+    policed drain (``pipeline._RowDrain.wait``, the one event wait a step)
+    runs with the mode off. Yields the count of drains seen."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import pipeline
+    seen = {"drains": 0}
+    if torch.device(dev).type != "cuda":
+        yield seen
+        return
+    wait = pipeline._RowDrain.wait
+
+    def policed(self, slot):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return wait(self, slot)
+        finally:
+            seen["drains"] += 1
+            torch.cuda.set_sync_debug_mode("error")
+
+    pipeline._RowDrain.wait = policed
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield seen
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        pipeline._RowDrain.wait = wait
+
+
+def p21_step_until(fe, cond, label, n=2000):
+    for _ in range(n):
+        if cond():
+            return
+        fe.step()
+    if not cond():
+        raise AssertionError(f"phase 21: {label} not reached in {n} steps")
+
+
+def p21_part_b(engine, fe, rng, V, dev):
+    """The frontend driven by ``step()``: a deterministic preemption (a
+    5000-token batch request decoding when an interactive one arrives that
+    the pool cannot fund beside it), then a request cancelled while queued,
+    one during its prefill, one mid-decode, one shed (it waited past its
+    class's TTFT SLO before an admission round), and one decode slice
+    under the sync check. Returns its handles and what it measured."""
+    prompt = lambda n: rng.randint(0, V, n).astype(np.int32)  # noqa: E731
+    big = fe.submit(prompt(P21_B_LENS["victim"]), priority="batch", max_new_tokens=P21_B_NEW)
+    p21_step_until(fe, lambda: len(big.tokens) > 0, "the batch request's first token")
+    hi = fe.submit(prompt(P21_B_LENS["interactive"]), priority="interactive",
+                   max_new_tokens=P21_B_NEW)
+    p21_step_until(fe, lambda: big.status == "preempted", "the preemption", n=50)
+    p21_step_until(fe, lambda: big.finished and hi.finished, "the preempted request's finish")
+    out = {"preempted": big.preemptions}
+    # cancelled while queued
+    q = fe.submit(prompt(P21_B_LENS["queued"]), priority="standard", max_new_tokens=16)
+    q.cancel()
+    fe.step()
+    # cancelled during its prefill: after the first of its passes
+    pre = fe.submit(prompt(P21_B_LENS["prefill"]), priority="standard", max_new_tokens=16)
+    orig, passes = engine._run_pass, []
+
+    def cancelling():
+        orig()
+        if not passes:
+            pre.cancel()
+        passes.append(1)
+
+    engine._run_pass = cancelling
+    try:
+        fe.step()
+    finally:
+        del engine._run_pass
+    # cancelled mid-decode
+    mid = fe.submit(prompt(P21_B_LENS["decode"]), priority="standard", max_new_tokens=64)
+    p21_step_until(fe, lambda: len(mid.tokens) > 0, "the mid-decode request's first token")
+    mid.cancel()
+    fe.step()
+    # shed: it waited past the interactive class's 500 ms TTFT SLO
+    shed = fe.submit(prompt(P21_B_LENS["shed"]), priority="interactive", max_new_tokens=16)
+    time.sleep(1e-3 * fe.config.get_class("interactive").ttft_slo_ms + 0.1)
+    fe.step()
+    states = {"queued": q.status, "prefill": pre.status, "decode": mid.status,
+              "shed": shed.status, "prefill_passes_before_cancel": len(passes),
+              "decode_tokens_before_cancel": len(mid.tokens)}
+    if (q.status, pre.status, mid.status, shed.status) != (
+            "cancelled", "cancelled", "cancelled", "shed") or len(mid.tokens) >= 64:
+        raise AssertionError(f"phase 21: cancellation and shedding {states}")
+    out["cancel"] = states
+    # one decode slice under the sync check
+    live = [fe.submit(prompt(P21_B_LENS["slice"]), priority="standard", max_new_tokens=24) for _ in range(2)]
+    p21_step_until(fe, lambda: all(len(h.tokens) > 0 for h in live), "two decoding rows")
+    before = [len(h.tokens) for h in live]
+    with p21_sync_checked(dev) as seen:
+        fe.step()
+    if [len(h.tokens) for h in live] == before:
+        raise AssertionError("phase 21: the sync-checked step decoded nothing")
+    out["sync_free_slice"] = {"sync_debug_mode": "error", "policed_drains": seen["drains"],
+                              "raised": False}
+    prof = device_breakdown("phase 21 decode slice", fe.step, names=P21_NAMES) \
+        if torch_device_is_cuda(dev) else {"wall_ms": None, "device_ms": None}
+    out["profiled_slice"] = prof
+    p21_step_until(fe, lambda: all(h.finished for h in live), "the last rows' finish")
+    return [big, hi] + live, out
+
+
+def torch_device_is_cuda(dev) -> bool:
+    import torch
+    return torch.device(dev).type == "cuda"
+
+
+def run_frontend(model=None, dev="cuda"):
+    """Phase 21: Llama-2-7B behind ``ServingFrontend`` at full width and
+    depth (random bf16 weights from seed 0), pages of 128, 48 of them, the
+    prefix cache on, the default priority classes, offload preemption.
+    ``engine.warmup()``, then the Poisson traffic replayed against the
+    running frontend, then the ``step()``-driven part (preemption,
+    cancellation at each stage, a shed, the sync check, a profiled slice).
+    Fatal: every finished stream against its prompt served alone; every
+    offload's pages and logits row back bit for bit; no step-cache entry
+    added by the traffic; no leak after close; K2, K5 and the decode
+    kernel launched. Returns (model, launches)."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.v2.serving import goodput_report, replay
+    from deepspeed_tpu_torch.ops import kernels
+    t_phase = time.perf_counter()
+    model = model if model is not None else p17_model()
+    V = model.config.vocab_size
+    engine = InferenceEngineV2(model, P21_ENGINE, model.flat_params(), device=dev)
+    t0 = time.perf_counter()
+    warm_added = engine.warmup()
+    warm_s = time.perf_counter() - t0
+    entries0 = engine.step_cache_entries()
+    free0 = engine.allocator.free_blocks
+    arrivals = p21_arrivals(V)
+    if torch_device_is_cuda(dev):
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    fe = engine.serving_frontend()
+    audit = OffloadAudit(fe, dev)
+    fe.start()
+    t0 = time.perf_counter()
+    handles = replay(fe, arrivals)
+    if not fe.drain(timeout=P21_DRAIN_S):
+        raise AssertionError("phase 21: the traffic did not drain")
+    wall = time.perf_counter() - t0
+    fe.close()
+    traffic_entries = engine.step_cache_entries() - entries0
+    report = goodput_report(handles, wall)
+    fe_b = engine.serving_frontend()
+    audit_b = OffloadAudit(fe_b, dev)
+    b_handles, b = p21_part_b(engine, fe_b, np.random.RandomState(22), V, dev)
+    fe_b.close()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    entries = engine.step_cache_entries() - entries0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if torch_device_is_cuda(dev) else None
+    preempted = fe.stats.preemptions + fe_b.stats.preemptions
+    restored = fe.stats.restores + fe_b.stats.restores
+    checked = len(audit.checked) + len(audit_b.checked)
+    engine.prefix_cache.evict(engine.allocator.total_blocks)
+    leaks = {"free_blocks": engine.allocator.free_blocks, "free_blocks_before": free0,
+             "live_uids": sorted(engine.scheduler.seqs),
+             "offload_bytes_held": fe.offload.bytes_held + fe_b.offload.bytes_held,
+             "pinned_buffers_out": fe.offload.pool.outstanding + fe_b.offload.pool.outstanding}
+    if (leaks["free_blocks"] != free0 or leaks["live_uids"] or leaks["offload_bytes_held"]
+            or leaks["pinned_buffers_out"]):
+        raise AssertionError(f"phase 21: resources held after close: {leaks}")
+    if entries:
+        raise AssertionError(f"phase 21: the traffic added {entries} step-cache entries "
+                             "after warmup")
+    if preempted < 1 or restored < 1 or checked < 1 or audit.pending or audit_b.pending:
+        raise AssertionError(f"phase 21: preemptions {preempted}, restores {restored}, "
+                             f"offload round trips checked {checked}")
+    missing = [k for k in ("flash_packed", "paged_chunk", "paged_decode")
+               if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"phase 21: kernels not launched on the main path: {missing}")
+    offload_ms = audit.offload_ms + audit_b.offload_ms
+    restore_ms = audit.restore_ms + audit_b.restore_ms
+    tokens = sum(len(h.tokens) for h in handles)
+    tie = p21_tie(model, [a.prompt for a in arrivals if a.cls == "interactive"])
+    compare = p21_reference("phase 21 Llama-2-7B frontend vs generate() alone", engine,
+                            model, handles + b_handles, tie)
+    print("frontend " + json.dumps({
+        "phase": 21, "model": "Llama-2-7B", "pages": P21_ENGINE["kv_cache"],
+        "warmup": {"step_cache_entries_added": warm_added, "s": warm_s,
+                   "traffic_entries_added": traffic_entries},
+        "arrivals": len(arrivals), "rate_per_s": P21_RATE, "wall_s": wall,
+        "goodput": report, "latency": p21_percentiles(handles),
+        "output_tok_s": tokens / wall,
+        "preemptions": preempted, "restores": restored,
+        "recompute_preemptions": fe.stats.recompute_preemptions
+        + fe_b.stats.recompute_preemptions,
+        "offloaded_bytes": audit.bytes + audit_b.bytes, "round_trips_checked": checked,
+        "offload_ms": offload_ms, "restore_ms": restore_ms,
+        "launches": {k: launches.get(k, 0) for k in P21_NAMES},
+        "part_b": b, "streams": compare, "leaks_after_close": leaks,
+        "peak_gib": peak, "nvidia_smi": smi_line()}), flush=True)
+    del engine, fe, fe_b, audit, audit_b
+    gc.collect()
+    if torch_device_is_cuda(dev):
+        torch.cuda.empty_cache()
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return model, launches
+
+
+def p22_engines(model, n, dev, conf=P22_ENGINE):
+    """``n`` engines over the model's one bf16 tree (the engine keeps the
+    tensors it is given: no copy)."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    params = model.flat_params()
+    return [InferenceEngineV2(model, conf, params, device=dev) for _ in range(n)]
+
+
+def p22_placements(cluster):
+    """uid -> replica name of every request a replica's frontend accepts."""
+    where = {}
+    for r in cluster.frontends:
+        fe = r.frontend
+        submit = fe.submit
+
+        def placed(*a, _submit=submit, _name=r.name, **k):
+            h = _submit(*a, **k)
+            where[h.uid] = _name
+            return h
+
+        fe.submit = placed
+    return where
+
+
+def p22_requests(V, seed, n, groups=1, bs=None):
+    """``n`` prompts in ``groups`` prefix groups: a 1024-token prefix of the
+    group, then a 128-token tail of the request's own. With ``bs`` (two
+    groups), the second prefix is redrawn until its first page hashes to
+    the other replica than the first's: the router's cold-start affinity
+    (a page's worth of score) then sends the groups' first requests to
+    different replicas."""
+    rng = np.random.RandomState(seed)
+    prefixes = [rng.randint(0, V, P22_PREFIX).astype(np.int32) for _ in range(groups)]
+    while bs is not None and (hash(tuple(int(t) for t in prefixes[0][:bs])) % 2
+                              == hash(tuple(int(t) for t in prefixes[1][:bs])) % 2):
+        prefixes[1] = rng.randint(0, V, P22_PREFIX).astype(np.int32)
+    return [np.concatenate([prefixes[i % groups], rng.randint(0, V, P22_TAIL).astype(np.int32)])
+            for i in range(n)]
+
+
+def p22_route(engines, V):
+    """(a): two ``serve`` replicas behind a cache-aware router, two prefix
+    groups of 8. The first request of each group runs to its end, then the
+    other 14 go in: each group's later requests must land on the replica
+    holding its prefix."""
+    from deepspeed_tpu_torch.inference.v2.serving import ServingCluster, ServingRouter
+    shared = all(engines[0].weights["layers"][0][k].data_ptr()
+                 == engines[1].weights["layers"][0][k].data_ptr() for k in ("wq", "w_up"))
+    prompts = p22_requests(V, 221, 2 * P22_GROUP, groups=2,
+                           bs=engines[0].kv.config.block_size)
+    cluster = ServingCluster(engines, serving=P22_ENGINE["serving"])
+    where = p22_placements(cluster)
+    route_ms = []
+    with ServingRouter(cluster, P22_ROUTER) as rt:
+        hs = []
+        for p in prompts[:2]:
+            t0 = time.perf_counter()
+            hs.append(rt.submit(p, priority="standard", max_new_tokens=P22_NEW))
+            route_ms.append((time.perf_counter() - t0) * 1e3)
+        for h in hs:
+            h.result(timeout=300)
+        for p in prompts[2:]:
+            t0 = time.perf_counter()
+            hs.append(rt.submit(p, priority="standard", max_new_tokens=P22_NEW))
+            route_ms.append((time.perf_counter() - t0) * 1e3)
+        if not rt.drain(timeout=600):
+            raise AssertionError("phase 22 (a): the router did not drain")
+        hits = rt.stats.cache_hit_requests
+        routed = dict(rt.stats.routed)
+    home = {g: where[hs[g].uid] for g in (0, 1)}
+    strays = [i for i, h in enumerate(hs[2:], 2) if where[h.uid] != home[i % 2]]
+    if hits < 1 or strays or not shared or any(h.status != "finished" for h in hs):
+        raise AssertionError(f"phase 22 (a): cache-hit routes {hits}, requests off their "
+                             f"group's replica {strays}, statuses {[h.status for h in hs]}")
+    for e in engines:
+        e.prefix_cache.evict(e.allocator.total_blocks)
+    return hs, {"cache_hit_routes": hits, "routed": routed, "homes": home,
+                         "route_ms": route_ms, "shared_weight_tree": shared}
+
+
+def p22_disagg(engines, V, dev):
+    """(b): a ``prefill`` and a ``decode`` replica (the same two engines).
+    Each handoff's exported pages must read back from the decode engine's
+    imported blocks byte for byte, its logits row bit for bit; the decode
+    engine prefills nothing. A handoff's ms runs from the export's start to
+    the import's end; the imported blocks are copied on the card after
+    that, and held against the export once the router has drained."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.serving import ServingCluster, ServingRouter
+    pre, dec = engines
+    prompts = p22_requests(V, 222, P22_DISAGG, groups=P22_DISAGG)
+    exported, handoffs, held = {}, [], []
+    export, import_kv = pre.export_kv, dec.import_kv
+
+    def exporting(uid):
+        p21_sync(dev)
+        t0 = time.perf_counter()
+        pages, logits = export(uid)
+        exported[int(uid)] = (pages, logits, t0)
+        return pages, logits
+
+    def importing(uid, tokens, pages, logits):
+        ids = import_kv(uid, tokens, pages, logits)
+        p21_sync(dev)
+        t1 = time.perf_counter()
+        page_s, logits_s, t0 = exported.pop(int(uid))
+        # the imported blocks as they stand now, copied on the card
+        idx = torch.as_tensor(ids, dtype=torch.long, device=dec.kv.kv.device)
+        copy = dec.kv.kv.index_select(1, idx).transpose(0, 1)
+        row = np.array(dec._last_logits[int(uid)], np.float32)
+        p21_sync(dev)
+        held.append((copy, page_s, row, logits_s))
+        handoffs.append({"uid": int(uid), "pages": len(ids), "bytes": int(page_s.nbytes),
+                         "ms": (t1 - t0) * 1e3})
+        return ids
+
+    pre.export_kv, dec.import_kv = exporting, importing
+    prefill0 = dec.scheduler.prefill_tokens_completed
+    cluster = ServingCluster(engines, roles=["prefill", "decode"],
+                             serving=P22_ENGINE["serving"])
+    try:
+        with ServingRouter(cluster, {"topology": "disaggregated",
+                                     "shed_factor": P22_SHED_FACTOR}) as rt:
+            hs = [rt.submit(p, priority="standard", max_new_tokens=P22_NEW) for p in prompts]
+            if not rt.drain(timeout=600):
+                raise AssertionError("phase 22 (b): the router did not drain")
+            n_handoffs, nbytes = rt.stats.handoffs, rt.stats.handoff_bytes
+    finally:
+        del pre.export_kv, dec.import_kv
+    dec_prefill = dec.scheduler.prefill_tokens_completed - prefill0
+    for h, (copy, page_s, row, logits_s) in zip(handoffs, held):
+        h["pages_equal"] = bool(np.array_equal(
+            copy.contiguous().view(torch.uint8).cpu().numpy().reshape(-1),
+            np.ascontiguousarray(page_s).view(np.uint8).reshape(-1)))
+        h["logits_bit_equal"] = bool(np.array_equal(
+            row.view(np.uint32), np.asarray(logits_s, np.float32).view(np.uint32)))
+    del held
+    bad = [h for h in handoffs if not (h["pages_equal"] and h["logits_bit_equal"])]
+    if (bad or len(handoffs) != P22_DISAGG or n_handoffs != P22_DISAGG or dec_prefill
+            or any(h.status != "finished" for h in hs)):
+        raise AssertionError(f"phase 22 (b): handoffs {handoffs}, decode-engine prefill "
+                             f"tokens {dec_prefill}, statuses {[h.status for h in hs]}")
+    for e in engines:
+        e.prefix_cache.evict(e.allocator.total_blocks)
+    return hs, {"handoffs": n_handoffs, "handoff_bytes": nbytes,
+                "per_sequence": handoffs, "decode_engine_prefill_tokens": dec_prefill}
+
+
+def p22_wait_mid_stream(where, hs, name, n=1, timeout=300.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        mid = [h for h in hs if where.get(h.uid) == name and 0 < len(h.tokens) < h.max_new_tokens]
+        if len(mid) >= n:
+            return mid
+        time.sleep(0.005)
+    raise AssertionError(f"phase 22 (c): no request mid-stream on {name}")
+
+
+def p22_counts():
+    """The launch counts since the last reset, then a reset."""
+    from deepspeed_tpu_torch.ops import kernels
+    out = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    kernels.reset_launches()
+    return out
+
+
+def p22_failover(engines, V, dev):
+    """(c): two ``serve`` replicas; a fault at r1's serving-loop site while
+    r1 has requests mid-stream. Without a health monitor ``drain()`` names
+    r1; with one, r1's requests migrate to r0 and every stream completes,
+    one failure and its migrations are counted; then r1 rejoins and its
+    warmup adds no step-cache entry. Returns the handles, the tokens each
+    migrated handle had streamed when it was sealed (by handle id), the
+    launch counts of the traffic (read before the rejoin) and the record."""
+    from deepspeed_tpu_torch.inference.v2.serving import ServingCluster, ServingRouter
+    from deepspeed_tpu_torch.utils import fault_injection as fi
+    prompts = p22_requests(V, 223, P22_FAILOVER, groups=P22_FAILOVER)
+    # without health monitoring: the died loop surfaces, named
+    cluster = ServingCluster(engines, serving=P22_ENGINE["serving"])
+    where = p22_placements(cluster)
+    rt = ServingRouter(cluster, {"policy": "round_robin",
+                                 "shed_factor": P22_SHED_FACTOR}).start()
+    named = None
+    try:
+        hs0 = [rt.submit(p, priority="standard", max_new_tokens=P22_NEW) for p in prompts[:2]]
+        p22_wait_mid_stream(where, hs0, "r1")
+        fi.install(fi.parse_plan("serve.engine_step.r1:at=1:action=raise"))
+        try:
+            rt.drain(timeout=300)
+        except RuntimeError as exc:
+            named = str(exc)
+        finally:
+            fi.clear()
+    finally:
+        try:
+            rt.close()
+        except RuntimeError:
+            pass                     # the same died loop, raised once more
+    if named is None or "replica 'r1'" not in named:
+        raise AssertionError(f"phase 22 (c): drain() raised {named!r}")
+    for e in engines:
+        for uid in list(e.scheduler.seqs):
+            e.flush([uid])
+        e.prefix_cache.evict(e.allocator.total_blocks)
+    # with health monitoring: migration, then the rejoin
+    cluster = ServingCluster(engines, serving=P22_ENGINE["serving"])
+    where = p22_placements(cluster)
+    entries = engines[1].step_cache_entries()
+    rt = ServingRouter(cluster, {"policy": "round_robin", "health": P22_HEALTH,
+                                 "shed_factor": P22_SHED_FACTOR})
+    migrate_ms, seams = [], {}
+    migrate_one = rt.health._migrate_one
+
+    def timed(replica, fe, req, *a, **k):
+        seal = req._seal
+
+        def sealing():
+            history = seal()
+            seams[id(req)] = len(history) - len(req.prompt)
+            return history
+
+        req._seal = sealing
+        t0 = time.perf_counter()
+        try:
+            return migrate_one(replica, fe, req, *a, **k)
+        finally:
+            migrate_ms.append((time.perf_counter() - t0) * 1e3)
+            del req._seal
+
+    rt.health._migrate_one = timed
+    rt.start()
+    try:
+        hs = [rt.submit(p, priority="standard", max_new_tokens=P22_NEW) for p in prompts]
+        p22_wait_mid_stream(where, hs, "r1")
+        old_fe = rt.cluster.replica("r1").frontend
+        on_r1 = [h.uid for h in hs if where[h.uid] == "r1" and not h.finished]
+        fi.install(fi.parse_plan("serve.engine_step.r1:at=1:action=raise"))
+        try:
+            if not rt.drain(timeout=600):
+                raise AssertionError("phase 22 (c): the router did not drain")
+        finally:
+            fi.clear()
+        launches = p22_counts()
+        deadline = time.monotonic() + 120
+        while not rt.health.rejoin("r1"):
+            if time.monotonic() > deadline:
+                raise AssertionError("phase 22 (c): r1 did not rejoin")
+            time.sleep(0.05)
+        if not rt.health.wait_all_healthy(120):
+            raise AssertionError("phase 22 (c): r1 did not rejoin")
+        st = rt.health.stats
+        health = {"liveness_downs": st.liveness_downs, "stall_downs": st.stall_downs,
+                  "migrations": st.migrations, "salvaged": st.salvaged,
+                  "reprefilled": st.reprefilled, "migration_sheds": st.migration_sheds,
+                  "rejoins": st.rejoins, "rejoin_warmup_ms": st.rejoin_warmup_ms,
+                  "detect_ms": list(st.detect_ms), "handled": rt.health.handled_replicas()}
+        rejoined = rt.cluster.replica("r1").frontend
+        after = rt.submit(prompts[0], priority="standard", max_new_tokens=4)
+        if not rt.drain(timeout=300) or after.status != "finished":
+            raise AssertionError("phase 22 (c): the rejoined cluster does not serve")
+    finally:
+        rt.close()
+    added = engines[1].step_cache_entries() - entries
+    migrated = [h for h in hs if h.migrated]
+    short = [(h.uid, len(h.tokens)) for h in hs if len(h.tokens) != h.max_new_tokens]
+    if (health["liveness_downs"] != 1 or health["migrations"] < 1 or health["rejoins"] != 1
+            or added or any(h.status != "finished" for h in hs) or short
+            or rejoined is old_fe or health["migration_sheds"]
+            or any(id(h) not in seams for h in migrated)):
+        raise AssertionError(f"phase 22 (c): health {health}, step-cache entries added "
+                             f"{added}, statuses {[h.status for h in hs]}, streams not "
+                             f"{P22_NEW} tokens long {short}, migrated "
+                             f"{len(migrated)} of which sealed {len(seams)}")
+    return hs, seams, launches, {"drain_named": named, "on_r1_at_fault": len(on_r1),
+                "migrated_streams": len(migrated),
+                "streamed_at_seal": [seams[id(h)] for h in migrated], "health": health,
+                "migrate_ms": migrate_ms, "rejoin_step_cache_entries_added": added}
+
+
+def p22_continuations(label, engine, model, handles, seams, tie):
+    """Each migrated stream past its seam: the tokens streamed after the
+    seal against ``generate()`` of the prompt and the tokens streamed
+    before it, equal or parting only at a near tie (:func:`stream_tie`).
+    Returns the counts of equal and parted continuations."""
+    cases = []
+    for h in handles:
+        k = seams.get(id(h), 0)
+        if 0 < k < len(h.tokens):
+            prompt = np.concatenate([h.prompt, np.asarray(h.tokens[:k], np.int32)])
+            out = engine.generate([prompt], max_new_tokens=len(h.tokens) - k)[0]
+            cases.append((prompt, h.tokens[k:], [int(t) for t in out[len(prompt):]]))
+    for prompt, got, ref in cases:
+        if len(got) != len(ref):
+            raise AssertionError(f"{label}: a continuation of {len(got)} tokens, "
+                                 f"its reference {len(ref)}")
+    parted = [c for c in cases if c[1] != c[2]]
+    if parted:
+        stream_tie(label, model, *zip(*parted), tie)
+    counts = {"continuations": len(cases), "equal": len(cases) - len(parted),
+              "parted": len(parted)}
+    print("stream-compare " + json.dumps({"case": label, **counts, "limit": tie}), flush=True)
+    return counts
+
+
+def run_cluster(model=None, dev="cuda"):
+    """Phase 22: ``ServingCluster`` + ``ServingRouter`` over two Llama-2-7B
+    replicas on the one card, sharing the model's bf16 tree: (a)
+    cache-aware routing of two prefix groups, (b) disaggregated prefill and
+    decode with every handoff held byte for byte, (c) failover of a
+    crashed replica and its rejoin. Every finished stream is held against
+    its prompt served alone by ``generate()``, and every migrated stream
+    past its seam against the prompt and the tokens before it. Both
+    engines are warmed before the launch counts are zeroed; each part's
+    counts are read and gated on their own, (c)'s before the rejoin's
+    warmup. Returns the launches of the three parts' traffic."""
+    import torch
+    from deepspeed_tpu_torch.ops import kernels
+    t_phase = time.perf_counter()
+    model = model if model is not None else p17_model()
+    V = model.config.vocab_size
+    engines = p22_engines(model, 2, dev)
+    for e in engines:
+        e.warmup()
+    if torch_device_is_cuda(dev):
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    hs_a, a = p22_route(engines, V)
+    parts = {"a": p22_counts()}
+    hs_b, b = p22_disagg(engines, V, dev)
+    parts["b"] = p22_counts()
+    hs_c, seams, parts["c"], c = p22_failover(engines, V, dev)
+    launches = {k: sum(p.get(k, 0) for p in parts.values())
+                for k in set().union(*parts.values())}
+    missing = {part: [k for k in ("flash_packed", "paged_decode") if not n.get(k)]
+               for part, n in parts.items()}
+    missing = {part: ks for part, ks in missing.items() if ks}
+    if not launches.get("paged_chunk"):
+        missing["all"] = ["paged_chunk"]
+    if missing:
+        raise AssertionError(f"phase 22: kernels not launched by the traffic: {missing}")
+    tie = p21_tie(model, [h.prompt for h in hs_a])
+    ref = engines[0]
+    compare = {part: p21_reference(f"phase 22 ({part}) Llama-2-7B router vs generate() alone",
+                                   ref, model, hs, tie)
+               for part, hs in (("a", hs_a), ("b", hs_b), ("c", hs_c))}
+    compare["c_after_seal"] = p22_continuations(
+        "phase 22 (c) migrated streams past the seal vs generate() of prompt + streamed",
+        ref, model, hs_c, seams, tie)
+    per_seq = b.pop("per_sequence")
+    print("router " + json.dumps({
+        "phase": 22, "model": "Llama-2-7B", "replicas": 2,
+        "shared_weight_tree": a.pop("shared_weight_tree"), "route": a,
+        "disaggregated": {**b, "handoff_ms": [h["ms"] for h in per_seq],
+                          "handoff_bytes_per_sequence": [h["bytes"] for h in per_seq],
+                          "handoff_pages_per_sequence": [h["pages"] for h in per_seq]},
+        "failover": c, "streams": compare,
+        "launches": {k: launches.get(k, 0) for k in P21_NAMES},
+        "launches_by_part": {part: {k: n.get(k, 0) for k in P21_NAMES}
+                             for part, n in parts.items()},
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30
+        if torch_device_is_cuda(dev) else None,
+        "nvidia_smi": smi_line()}), flush=True)
+    del engines, ref
+    gc.collect()
+    if torch_device_is_cuda(dev):
+        torch.cuda.empty_cache()
+    print(f"phase 22: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 ATTN_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "flash_fwd", "flash_bwd_dq",
               "flash_bwd_dkv")
 Q_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk", "splitk_merge",
@@ -7163,6 +7955,15 @@ def main() -> int:
     # phase 20: Llama-2-7B-width training; K1's rows keep phase 5's counts,
     # its own launches and the D 128 timings are on its lines
     run_llama_training()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phases 21 and 22: the serving frontend and the router on Llama-2-7B;
+    # the kernel rows keep their counts and carry these phases' beside them
+    model, serving_launches = run_frontend()
+    cluster_launches = run_cluster(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     # modules by full name: the package re-exports same-named functions
     from deepspeed_tpu_torch.ops.kernels import paged_chunk, paged_decode, paged_splitk
     from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import KERNELS as K9_KERNELS
@@ -7250,7 +8051,12 @@ def main() -> int:
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                       "case": r["case"],
                       **({"library_covers": r["library_covers"]}
-                         if "library_covers" in r else {})})
+                         if "library_covers" in r else {}),
+                      **({"serving_launches": {
+                          "phase21": serving_launches.get(name, 0),
+                          "phase22": cluster_launches.get(name, 0)}}
+                         if serving_launches.get(name) or cluster_launches.get(name)
+                         else {})})
     print(f"chip_smoke.py: {time.perf_counter() - t0:.1f} s from the build on", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

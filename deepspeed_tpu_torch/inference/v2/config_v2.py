@@ -14,8 +14,10 @@ usual keys and raise ``NotImplementedError`` naming the feature when it is
 switched on.
 
 The ``compile`` section configures XLA's compile cache and AOT warmup in the
-JAX package. PyTorch runs eagerly here, so it has no counterpart yet: it is
-accepted, validated as in the JAX package, and has no effect.
+JAX package. PyTorch runs eagerly here: it is validated as in the JAX
+package, and ``compile.warmup`` runs ``engine.warmup()`` at build (over
+``warmup_buckets`` and ``warmup_decode_steps``), as the JAX engine does; the
+cache keys have no effect.
 """
 
 from __future__ import annotations
@@ -111,8 +113,10 @@ class PrefixCacheConfig:
 
 @dataclass
 class CompileConfig:
-    """XLA compile cache and AOT warmup in the JAX package; no effect here.
-    The values are validated and normalised as the JAX package does:
+    """XLA compile cache and AOT warmup in the JAX package. Here ``warmup``
+    runs ``engine.warmup(warmup_buckets, warmup_decode_steps)`` at build;
+    the cache keys have no effect. The values are validated and normalised
+    as the JAX package does:
     ``warmup_buckets`` must be ints >= 1 and is rounded up to the pow2 grid
     (sorted, without repeats), ``warmup_decode_steps`` must be ints >= 1."""
     cache_dir: Optional[str] = None
@@ -206,6 +210,271 @@ class LoraConfig:
 
 
 @dataclass
+class PriorityClassConfig:
+    """One tenant priority class for the serving frontend
+    (``inference/v2/serving/``): a strict-priority level plus the latency
+    SLOs admission plans against. ``priority`` is higher-wins; ``ttft_slo_ms``
+    bounds time-to-first-token (arrival -> first streamed token) and
+    ``tbt_slo_ms`` bounds time-between-tokens — the two numbers
+    goodput-under-SLO is gated on (docs/SERVING.md "Frontend")."""
+    name: str
+    priority: int
+    ttft_slo_ms: float = 2000.0
+    tbt_slo_ms: float = 250.0
+
+    def __post_init__(self):
+        if not self.name:
+            raise ValueError("priority class needs a non-empty name")
+        if self.ttft_slo_ms <= 0 or self.tbt_slo_ms <= 0:
+            raise ValueError(f"class {self.name!r}: SLO targets must be > 0")
+
+
+def _default_classes():
+    return [PriorityClassConfig("interactive", 2, 500.0, 100.0),
+            PriorityClassConfig("standard", 1, 2000.0, 250.0),
+            PriorityClassConfig("batch", 0, 30000.0, 2000.0)]
+
+
+@dataclass
+class ServingConfig:
+    """The SLO-aware serving frontend (``inference/v2/serving/frontend.py``).
+
+    ``classes``: the tenant priority classes (dicts or
+    :class:`PriorityClassConfig`), strict priority between classes, FIFO
+    within one.
+
+    ``decode_slice``: pipeline steps per ``DecodePipeline.run`` burst — the
+    iteration-level continuous-batching grain. Admission, retirement,
+    preemption and restore all happen at slice boundaries; a smaller slice
+    lowers admission latency, a larger one amortises per-run host work.
+
+    ``preemption`` picks what happens to low-priority victims under KV-pool
+    pressure:
+
+    - ``"offload"`` (default): the victim's *private* KV pages (allocator
+      refcount 1 — prefix-cache-shared pages are never touched) round-trip
+      through pinned host buffers (``runtime/swap_tensor/buffer_pool.py``)
+      and are restored byte-identically on readmit; falls back to recompute
+      per victim when ``max_offload_bytes`` is exhausted.
+    - ``"recompute"``: the victim is flushed and re-prefilled from its
+      prompt + generated-so-far tokens on readmit (vLLM's drop-and-recompute
+      baseline).
+    - ``"none"``: reject-only — no preemption; admission turns conservative
+      (a request is admitted only when its full prompt + ``max_new_tokens``
+      KV lifetime is fundable up front) and excess load is held, then shed.
+
+    ``shed_factor``: a queued request is shed once
+    ``elapsed_queue_delay + predicted_prefill + one_slice >
+    ttft_slo_ms * shed_factor`` — it can no longer meet its SLO, so
+    admitting it would burn prefill compute on a guaranteed miss.
+
+    ``max_offload_bytes``: host-buffer capacity for offloaded pages (None =
+    unbounded); ``offload_buffers`` caps the pinned-buffer pool's free list.
+    ``max_queue`` bounds the pending queue (beyond = immediate shed);
+    ``idle_wait_s`` is the engine thread's block interval when idle.
+
+    ``attribution``: record the per-request phase ledger
+    (``RequestHandle.timeline()`` — queued/admission/prefill/handoff_wait/
+    decode/preempted/restore/migration stints from the same perf stamps the
+    trace spans carry) and bucket SLO misses by dominant phase
+    (``serve/slo/*``; docs/OBSERVABILITY.md "SLO-miss attribution"). A few
+    list appends per phase TRANSITION — nothing per token; ``False``
+    disables both.
+
+    ``spec``: serve greedy requests through the engine's speculative
+    pipeline when ``spec_decode.enabled`` (default). ``False`` pins this
+    frontend to the plain ``DecodePipeline`` — a per-frontend A/B lever
+    (draft-miss overhead vs k-token amortization): spec-on and spec-off
+    greedy streams agree only up to cross-kernel float noise (the verify
+    step attends through the chunk kernel, the plain step through the
+    decode kernel), so a replay held bit-exactly against a plain reference
+    serves plain.
+
+    ``tenant_classes``: explicit tenant -> priority-class mapping (tenant
+    here = LoRA adapter name, the multi-tenant identity of docs/SERVING.md
+    "Multi-tenant LoRA"). Per-request ``priority=`` stays the override, but
+    a submit that names an adapter WITHOUT naming a class defaults to the
+    tenant's mapped class instead of ``"standard"`` — mixed benches stop
+    misclassifying traffic whose class lives in workload config rather
+    than on each request. Every value must name a configured class.
+    """
+    classes: Any = field(default_factory=_default_classes)
+    tenant_classes: Any = field(default_factory=dict)
+    decode_slice: int = 8
+    spec: bool = True
+    preemption: str = "offload"
+    max_offload_bytes: Optional[int] = None
+    offload_buffers: int = 16
+    shed_factor: float = 1.0
+    max_queue: int = 1024
+    idle_wait_s: float = 0.02
+    attribution: bool = True
+
+    def __post_init__(self):
+        self.classes = [PriorityClassConfig(**c) if isinstance(c, dict) else c
+                        for c in self.classes]
+        names = [c.name for c in self.classes]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate priority class names: {names}")
+        if not self.classes:
+            raise ValueError("serving.classes must name at least one class")
+        if self.preemption not in ("offload", "recompute", "none"):
+            raise ValueError("serving.preemption must be 'offload', "
+                             f"'recompute' or 'none', got {self.preemption!r}")
+        if self.decode_slice < 1:
+            raise ValueError("serving.decode_slice must be >= 1")
+        self.tenant_classes = dict(self.tenant_classes)
+        for tenant, cls_name in self.tenant_classes.items():
+            if cls_name not in names:
+                raise ValueError(
+                    f"serving.tenant_classes[{tenant!r}] = {cls_name!r} names "
+                    f"no configured priority class (configured: {names})")
+
+    def get_class(self, name: str) -> PriorityClassConfig:
+        for c in self.classes:
+            if c.name == name:
+                return c
+        raise KeyError(f"unknown priority class {name!r}; configured: "
+                       f"{[c.name for c in self.classes]}")
+
+    def class_for(self, priority: Optional[str],
+                  tenant: Optional[str] = None) -> PriorityClassConfig:
+        """Resolve a request's class: explicit ``priority`` wins, else the
+        tenant's ``tenant_classes`` mapping, else ``"standard"``."""
+        if priority is not None:
+            return self.get_class(priority)
+        if tenant is not None and tenant in self.tenant_classes:
+            return self.get_class(self.tenant_classes[tenant])
+        return self.get_class("standard")
+
+
+@dataclass
+class HealthConfig:
+    """Replica failure detection + self-healing for the multi-replica router
+    (``inference/v2/serving/health.py``; docs/SERVING.md "Failure
+    semantics"). Off by default: a router without health monitoring keeps
+    the unmonitored behavior — a dead replica surfaces NAMED at
+    ``drain()``/``close()`` instead of being failed over.
+
+    When ``enabled``, a ``dstpu-health`` thread polls every ``interval_s``:
+    engine-thread/prefill-worker LIVENESS (a died loop is ``down``
+    immediately) plus a PROGRESS heartbeat — the decode-step counter the
+    pipeline stats already track (and prefill tokens completed) — so a
+    *wedged* replica is detected, not just a dead one. A replica with work
+    in flight whose counters stop moving turns ``suspect`` after
+    ``suspect_after_s`` and ``down`` after ``down_after_s``; detection
+    fences the replica (its loop emits nothing further), migrates every
+    in-flight request to a survivor, and — with ``auto_rejoin`` — rebuilds
+    a frontend on the engine once its old thread has exited, re-warming the
+    pow2 program grids off the hot path (``rejoin_warmup``) before the
+    replica re-enters routing.
+
+    ``fence_join_s`` bounds how long failover waits for the failed engine
+    thread to exit before migrating anyway (streams stay exact either way:
+    migration seals each handle under its emit lock, and a fenced loop
+    drops every later emission)."""
+    enabled: bool = False
+    interval_s: float = 0.05
+    suspect_after_s: float = 1.0
+    down_after_s: float = 3.0
+    fence_join_s: float = 1.0
+    auto_rejoin: bool = True
+    rejoin_warmup: bool = True
+
+    def __post_init__(self):
+        for f in ("interval_s", "suspect_after_s", "down_after_s",
+                  "fence_join_s"):
+            if getattr(self, f) <= 0:
+                raise ValueError(f"health.{f} must be > 0, got "
+                                 f"{getattr(self, f)}")
+        if self.down_after_s < self.suspect_after_s:
+            raise ValueError(
+                f"health.down_after_s ({self.down_after_s}) must be >= "
+                f"suspect_after_s ({self.suspect_after_s})")
+
+
+@dataclass
+class RouterConfig:
+    """The multi-replica serving router (``inference/v2/serving/router.py``;
+    docs/SERVING.md "Multi-replica & disaggregation"). Cluster-level — it
+    configures a ``ServingRouter`` over N engines, not any single engine.
+
+    ``policy`` picks request placement:
+
+    - ``"cache_aware"`` (default): route to the replica whose radix prefix
+      cache holds the longest cached match for the prompt (the
+      SGLang-RadixAttention trick at cluster scope, read from a shared
+      chain-hash index fed by per-replica insert/evict deltas), scored
+      against load: ``score = cached_tokens - balance * outstanding``.
+    - ``"round_robin"``: placement ignores caches — the bench baseline.
+
+    ``balance`` is the stickiness/balance tradeoff knob: how many cached
+    prompt tokens one outstanding request on a replica outweighs. ``0`` is
+    pure stickiness (hotspot risk); large values degrade to least-loaded.
+
+    ``topology``:
+
+    - ``"colocated"`` (default): every replica runs prefill AND decode.
+    - ``"disaggregated"``: dedicated prefill replicas run SplitFuse passes
+      and hand finished KV to decode replicas over the page fabric
+      (``engine.export_kv``/``import_kv`` — the same bucketed page gather
+      preempt-offload rides), eliminating prefill interference on decode
+      TBT.
+
+    ``federation``: aggregate per-replica admission state (per-class
+    queue-delay EMAs + SLO cost models) into placement — a replica whose
+    predicted TTFT already busts the class SLO is skipped while a cold one
+    absorbs, and the router sheds up front when EVERY candidate is hot
+    (``shed_factor`` scales the SLO bound exactly like
+    ``ServingConfig.shed_factor``).
+
+    ``health``: replica failure detection + self-healing
+    (:class:`HealthConfig`; docs/SERVING.md "Failure semantics").
+
+    ``handoff_retries`` / ``handoff_timeout_s`` / ``handoff_backoff_s``:
+    bounded-retry budget for the disaggregated prefill->decode handoff
+    (``utils/resilience.retry_call`` semantics). Each attempt is
+    deadline-wrapped (``IOTimeout`` past ``handoff_timeout_s`` — a wedged
+    decode replica must not stall the prefill worker unboundedly) and
+    re-planned against a DIFFERENT decode replica; a request that exhausts
+    the budget is shed with the error NAMED on its handle
+    (``RequestHandle.error``), never swallowed."""
+    policy: str = "cache_aware"
+    balance: float = 32.0
+    topology: str = "colocated"
+    federation: bool = True
+    shed_factor: float = 1.0
+    health: Any = field(default_factory=HealthConfig)
+    handoff_retries: int = 3
+    handoff_timeout_s: Optional[float] = 30.0
+    handoff_backoff_s: float = 0.05
+
+    def __post_init__(self):
+        if isinstance(self.health, dict):
+            self.health = HealthConfig(**self.health)
+        if self.handoff_retries < 1:
+            raise ValueError("router.handoff_retries must be >= 1, got "
+                             f"{self.handoff_retries}")
+        if self.handoff_timeout_s is not None and self.handoff_timeout_s <= 0:
+            raise ValueError("router.handoff_timeout_s must be > 0 (or "
+                             f"None), got {self.handoff_timeout_s}")
+        if self.handoff_backoff_s < 0:
+            raise ValueError("router.handoff_backoff_s must be >= 0, got "
+                             f"{self.handoff_backoff_s}")
+        if self.policy not in ("cache_aware", "round_robin"):
+            raise ValueError("router.policy must be 'cache_aware' or "
+                             f"'round_robin', got {self.policy!r}")
+        if self.topology not in ("colocated", "disaggregated"):
+            raise ValueError("router.topology must be 'colocated' or "
+                             f"'disaggregated', got {self.topology!r}")
+        if self.balance < 0:
+            raise ValueError(f"router.balance must be >= 0, got {self.balance}")
+        if self.shed_factor <= 0:
+            raise ValueError("router.shed_factor must be > 0, got "
+                             f"{self.shed_factor}")
+
+
+@dataclass
 class AttentionConfig:
     """Flash-decoding split ladder: paged attention runs at a pow2 rung of
     ``[1, 2, ..., decode_splits]`` picked each step as
@@ -234,6 +503,7 @@ _SECTIONS = {
     "spec_decode": SpecDecodeConfig,
     "lora": LoraConfig,
     "attention": AttentionConfig,
+    "serving": ServingConfig,
 }
 
 
@@ -245,7 +515,7 @@ class RaggedInferenceEngineConfig:
     kv_quant: KVQuantConfig = field(default_factory=KVQuantConfig)
     prefix_cache: PrefixCacheConfig = field(default_factory=PrefixCacheConfig)
     compile: CompileConfig = field(default_factory=CompileConfig)
-    serving: Any = field(default_factory=dict)
+    serving: ServingConfig = field(default_factory=ServingConfig)
     spec_decode: SpecDecodeConfig = field(default_factory=SpecDecodeConfig)
     lora: LoraConfig = field(default_factory=LoraConfig)
     attention: AttentionConfig = field(default_factory=AttentionConfig)
@@ -267,14 +537,9 @@ class RaggedInferenceEngineConfig:
                 "multi-tenant LoRA with tensor_parallel > 1 is not wired "
                 "(adapter pages are unsharded whole-projection slices); "
                 "run lora at tp=1")
-        off = []
         if self.tensor_parallel > 1:
-            off.append("tensor_parallel > 1")
-        if self.serving:
-            off.append("serving (the serving frontend)")
-        if off:
             raise NotImplementedError(
-                f"{', '.join(off)}: not ported to deepspeed_tpu_torch yet")
+                "tensor_parallel > 1: not ported to deepspeed_tpu_torch yet")
 
     @classmethod
     def load(cls, config=None, **overrides) -> "RaggedInferenceEngineConfig":

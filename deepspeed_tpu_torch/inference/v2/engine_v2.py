@@ -74,6 +74,14 @@ JAX package. A ``max_context`` at or below the window drops it (full
 attention is then the same function). The split rung still follows the
 longest live context, not the window.
 
+``engine.warmup()`` runs every serving step once over scratch-page-only
+descriptors (the passes, the decode step at each bucket, rung and LoRA
+rank bucket, bursts, verify steps, the page movers) and returns how many
+entries it added to the step caches (:meth:`InferenceEngineV2.
+step_cache_entries`), the port's form of the JAX engine's compile count.
+``engine.serving_frontend()`` builds the serving frontend
+(``serving/frontend.py``) over the engine.
+
 The engine runs on the card unless the caller asks for the CPU:
 ``device=None`` means ``cuda``, and on a machine without CUDA the
 constructor raises. On the CPU every kernel wrapper runs its plain PyTorch
@@ -101,9 +109,12 @@ from deepspeed_tpu_torch.inference.v2.ragged_model import (
     build_decode_step, build_multistep_decode, build_prefill_forward, build_ragged_forward,
     build_verify_step, quantize_weight_int4, quantize_weight_int8)
 from deepspeed_tpu_torch.inference.v2.scheduler import DynamicSplitFuseScheduler
+from deepspeed_tpu_torch.monitor.serving import PipelineStats
+from deepspeed_tpu_torch.monitor.trace import install_from_env
 from deepspeed_tpu_torch.ops.kernels.kv_quant import kv_scale_tiles_shape
 from deepspeed_tpu_torch.utils.caching import LRUCache, next_pow2
 from deepspeed_tpu_torch.utils.device import resolve_device
+from deepspeed_tpu_torch.utils.fault_injection import maybe_fail
 
 
 @dataclass
@@ -137,6 +148,9 @@ class SpecDecodeStats:
     draft_ms: float = 0.0
     verify_ms: float = 0.0
     fetch_bytes: int = 0
+    #: replica label (set by ``serving/cluster.py``): event names become
+    #: ``serve/spec/<replica>/...`` so N replicas' rows stay distinct
+    replica: Optional[str] = None
 
     def record_step(self, rows: int, proposed: int, accepted: int,
                     tokens: int, draft_s: float, verify_s: float,
@@ -166,7 +180,7 @@ class SpecDecodeStats:
     def events(self, step: int = 0) -> List[Event]:
         """``serve/spec/*`` monitor events ``(name, value, step)``."""
         n = max(1, self.steps)
-        pre = "serve/spec"
+        pre = "serve/spec" if self.replica is None else f"serve/spec/{self.replica}"
         return [
             (f"{pre}/steps", float(self.steps), step),
             (f"{pre}/proposed", float(self.proposed), step),
@@ -386,11 +400,18 @@ class InferenceEngineV2:
                 LoraPagePool(self.spec, cfg.lora.targets, cfg.lora.pool_pages, self.device),
                 swap_buffers=cfg.lora.swap_buffers, max_rank=cfg.lora.max_rank)
         self._spec_warned_sampling = False
+        # decode steps drained and tokens recorded (the serving health
+        # monitor's progress heartbeat)
+        self.pipeline_stats = PipelineStats()
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
         self._last_logits: Dict[int, np.ndarray] = {}
         # device-resident logits refs: uid -> (tensor [P, V], row)
         self._last_ref: Dict[int, Tuple[torch.Tensor, int]] = {}
+        install_from_env()
+        if cfg.compile.warmup:
+            self.warmup(buckets=cfg.compile.warmup_buckets,
+                        burst_steps=cfg.compile.warmup_decode_steps)
 
     # ------------------------------------------------------------------ #
     # public API
@@ -510,7 +531,11 @@ class InferenceEngineV2:
         step); ``rb > 0``, a LoRA rank bucket, gives the LoRA step at that
         bucket, built once per (rung, rb) and cached. Rank bucket 0 is
         exactly the base step."""
-        rung = self._attn_rung()
+        return self._step_at(self._attn_rung(), rb)
+
+    def _step_at(self, rung: int, rb: int = 0):
+        """The decode step at split rung ``rung`` and LoRA rank bucket
+        ``rb`` (see :meth:`_decode_step_fn`)."""
         if rb == 0:
             return self._step_rungs[rung]
         return self._lora_steps.get_or_create((rung, int(rb)), lambda: build_decode_step(
@@ -697,6 +722,179 @@ class InferenceEngineV2:
             monitor.write_events(self.lora.stats.events(step))
 
     # ------------------------------------------------------------------ #
+    # warmup and the serving frontend
+    # ------------------------------------------------------------------ #
+
+    @property
+    def decode_buckets(self) -> List[int]:
+        """The reachable decode bucket grid: powers of two up to the
+        scheduler's decode-row capacity."""
+        top = next_pow2(self.config.state_manager.max_ragged_sequence_count)
+        return [1 << i for i in range(top.bit_length())]
+
+    @property
+    def page_buckets(self) -> List[int]:
+        """The page-op bucket grid: powers of two up to a whole sequence's
+        block-table length (the largest private tail)."""
+        top = next_pow2(self.scheduler.max_blocks)
+        return [1 << i for i in range(top.bit_length())]
+
+    def step_cache_entries(self) -> int:
+        """Entries in the engine's step caches (bursts, verify steps, LoRA
+        steps): the port's count of built serving programs. The base decode
+        step of every rung and the passes are built at construction."""
+        return len(self._multistep) + len(self._verify_fns) + len(self._lora_steps)
+
+    def warmup(self, buckets: Optional[Sequence[int]] = None,
+               burst_steps: Sequence[int] = (),
+               spec_ks: Optional[Sequence[int]] = None) -> int:
+        """Run every serving program once over scratch-page-only
+        descriptors, as the JAX package's warmup does: the paged pass at
+        every split rung and the packed prefill pass; the decode step at
+        every bucket of ``buckets`` (default :attr:`decode_buckets`, rounded
+        up to powers of two), rung and LoRA rank bucket; the bursts of each
+        ``burst_steps`` length; the verify step at every (bucket, k) of
+        ``spec_ks`` (default: :attr:`spec_k_ladder` when speculation is
+        on); and the page offload/restore pair at every page bucket. This
+        loads the kernels and warms cuBLAS and the caching allocator; no
+        CUDA graph is captured. Real KV, scheduler state and logits refs
+        are untouched.
+
+        Returns how many entries it added to the step caches
+        (:meth:`step_cache_entries`): the port's form of the JAX package's
+        compile count, so steady-state serving after a warmup adds none."""
+        before = self.step_cache_entries()
+        grid = sorted({next_pow2(int(b)) for b in buckets}) \
+            if buckets is not None else self.decode_buckets
+        if spec_ks is None:
+            spec_ks = self.spec_k_ladder if self.config.spec_decode.enabled else []
+        spec_ks = sorted({int(k) for k in spec_ks})
+        lora_rbs: List[int] = []
+        if self.lora is not None:
+            top = next_pow2(self.config.lora.max_rank)
+            lora_rbs = [1 << i for i in range(top.bit_length())]
+        rungs = self.attn_split_ladder
+        # the warmed set must FIT its caches, or warmup evicts what it built
+        self._lora_steps.maxsize = max(self._lora_steps.maxsize,
+                                       len(lora_rbs) * len(rungs) + 2)
+        self._multistep.maxsize = max(self._multistep.maxsize,
+                                      len(burst_steps) * len(grid) * len(rungs) + 2)
+        self._verify_fns.maxsize = max(self._verify_fns.maxsize,
+                                       (len(lora_rbs) + 1) * len(spec_ks) + 2)
+        self._warm_passes()
+        mb = self.scheduler.max_blocks
+        for rb in [0] + lora_rbs:
+            for sp in rungs:
+                step = self._step_at(sp, rb)
+                for b in grid:
+                    ids, pos, bt = self._scratch_step_args(b, mb)
+                    step(self.weights, self.kv.kv, ids, pos, bt, pos + 1, self.generator,
+                         False, 0, 1.0, kv_scales=self.kv.scales,
+                         **self._scratch_lora_args(b, rb))
+        for n_steps in burst_steps:
+            for sp in rungs:
+                for b in grid:
+                    fn = self._multistep.get_or_create(
+                        (int(n_steps), b, False, 0, sp),
+                        lambda n=int(n_steps), s=sp: self._build_multistep(n, False, 0, s))
+                    ids, pos, bt = self._scratch_step_args(b, mb)
+                    fn(self.weights, self.kv.kv, ids, pos, bt, pos + 1, self.generator, 1.0,
+                       kv_scales=self.kv.scales)
+        for k in spec_ks:
+            for rb in [0] + lora_rbs:
+                fn = self._verify_fn(k, rb)
+                for b in grid:
+                    ids, pos, bt = self._scratch_step_args(b, mb)
+                    zeros = torch.zeros((b, k), dtype=torch.int32, device=self.device)
+                    fn(self.weights, self.kv.kv, ids, zeros, zeros[:, 0], pos, bt, pos + 1,
+                       kv_scales=self.kv.scales, **self._scratch_lora_args(b, rb))
+        # the page round trip over its bucket grid: the scratch page's
+        # content goes out and comes back to itself
+        for b in self.page_buckets:
+            self.put_pages(self.fetch_pages([self.scratch_block] * b),
+                           [self.scratch_block] * b)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self.step_cache_entries() - before
+
+    def _scratch_step_args(self, bucket: int, max_blocks: int):
+        """All-pad-row decode inputs ``(ids, positions, block_tables)``:
+        every row is the inert scratch-page sequence ``DecodeBatch`` pads
+        with (position 0, context 1)."""
+        ids = torch.zeros((bucket,), dtype=torch.int32, device=self.device)
+        bt = to_device(np.full((bucket, max_blocks), self.scratch_block, np.int32),
+                       self.device)
+        return ids, ids.clone(), bt
+
+    def _scratch_lora_args(self, bucket: int, rb: int) -> Dict[str, torch.Tensor]:
+        """LoRA operands with every row on the pool's zero page (deltas of
+        exactly zero); none at rank bucket 0."""
+        if rb == 0:
+            return {}
+        pt = np.full((bucket, rb), self.lora.pool.zero_page, np.int32)
+        return {"lora_pool": self.lora.pool.pool, "adapter_pt": to_device(pt, self.device)}
+
+    def _warm_passes(self) -> None:
+        """Run the paged pass at every rung over one decode row on the
+        scratch page, and the packed prefill pass over a one-token prompt
+        prefilling into it."""
+        from deepspeed_tpu_torch.inference.v2.ragged.ragged_batch import RaggedBatch
+        sm = self.config.state_manager
+        NC, Cs = sm.num_chunk_slots, sm.chunk_slot_size
+        S, MB = sm.max_ragged_sequence_count, self.scheduler.max_blocks
+        bs = self.kv.config.block_size
+        sentinel = self.kv.oob_sentinel
+        dest0 = int(self.kv.flat_write_index(self.scratch_block, 0))
+
+        def scratch_batch():
+            b = RaggedBatch(num_slots=NC, slot_size=Cs, max_sequences=S, max_blocks=MB)
+            b.kv_dest = np.full((NC * Cs + S,), sentinel, np.int32)
+            b.kv_sentinel = sentinel
+            return b
+
+        b = scratch_batch()
+        b.decode_uids = [-1]
+        b.decode_block_tables[0] = self.scratch_block
+        b.decode_ctx_lens[0] = 1
+        b.kv_dest[NC * Cs] = dest0
+        arrays = b.device_arrays(self.device, PAGED_PASS_KEYS)
+        for fn in self._pass_rungs.values():
+            fn(self.weights, self.kv.kv, arrays, self.kv.scales)
+        if self._pass_prefill is None:
+            return      # ALiBi engines never take the packed prefill pass
+        b = scratch_batch()
+        b.chunk_uids, b.slot_uid, b.chunk_is_final = [-1], [-1], [True]
+        b.chunk_ntok[0] = 1
+        b.chunk_ctx_lens[0] = 1
+        b.chunk_block_tables[0] = self.scratch_block
+        b.row_seg[0] = 0
+        b.kv_dest[0] = dest0
+        PW = NC * Cs // bs + NC
+        b.page_ids = np.full((PW,), self.kv.config.num_blocks, np.int32)
+        b.page_rows = np.zeros((PW,), np.int32)
+        b.page_fill = np.zeros((PW,), np.int32)
+        b.page_ids[0], b.page_fill[0] = self.scratch_block, 1
+        b.pure_prefill = True
+        arrays = b.device_arrays(self.device, PREFILL_PASS_KEYS)
+        self._pass_prefill(self.weights, self.kv.kv, arrays, self.kv.scales)
+
+    def serving_frontend(self, config=None, uid_base: int = 1 << 20):
+        """The persistent SLO-aware serving frontend over this engine
+        (``serving/frontend.py``): ``submit() -> token stream``, priority
+        classes, KV offload-preemption. ``config`` overrides
+        ``self.config.serving``; ``uid_base`` keeps a cluster's frontends in
+        disjoint uid spaces."""
+        from deepspeed_tpu_torch.inference.v2.serving import ServingFrontend
+        return ServingFrontend(self, config=config, uid_base=uid_base)
+
+    def weight_bridge(self, train_engine, **kwargs):
+        """The colocated rollout's weight bridge is not ported yet: refused
+        by name."""
+        raise NotImplementedError(
+            "weight_bridge (the colocated rollout): not ported to "
+            "deepspeed_tpu_torch yet")
+
+    # ------------------------------------------------------------------ #
     # KV page fabric: pages to the host and back, and page handoffs
     # ------------------------------------------------------------------ #
 
@@ -714,17 +912,9 @@ class InferenceEngineV2:
         return ((cfg.num_layers, 2, cfg.num_kv_heads, cfg.block_size, cfg.head_dim),
                 _PAYLOAD_DTYPES[cfg.dtype])
 
-    def _pack_pages(self, vals: np.ndarray, scales: np.ndarray) -> np.ndarray:
-        """(int8 values [n, L, 2, Hkv, bs, D], f32 scale tiles [n, L, R8,
-        128]) -> packed [n, bytes_per_block] uint8 rows."""
-        n = vals.shape[0]
-        return np.concatenate(
-            [np.ascontiguousarray(vals).reshape(n, -1).view(np.uint8),
-             np.ascontiguousarray(scales).reshape(n, -1).view(np.uint8)], axis=1)
-
     def _unpack_pages(self, pages: np.ndarray):
-        """Inverse of :meth:`_pack_pages`: packed uint8 rows -> (int8 values,
-        f32 scale tiles)."""
+        """An int8 pool's packed uint8 payload rows (the int8 values, then
+        the f32 scale tiles) -> (int8 values, f32 scale tiles)."""
         cfg = self.kv.config
         n = pages.shape[0]
         L, Hkv, bs, D = cfg.num_layers, cfg.num_kv_heads, cfg.block_size, cfg.head_dim
@@ -741,43 +931,88 @@ class InferenceEngineV2:
         idx[:len(ids)] = ids
         return to_device(idx, self.device).long()
 
-    def fetch_pages(self, blocks: Sequence[int]) -> np.ndarray:
+    def fetch_pages(self, blocks: Sequence[int], out=None) -> Optional[np.ndarray]:
         """KV pages to the host in one bucketed gather (pad slots read the
         scratch page): ``[n, L, 2, Hkv, bs, D]`` for a plain pool (bf16 as
         uint16 bytes), packed ``[n, bytes_per_block]`` uint8 rows for an
-        int8 one (:attr:`page_payload_spec`)."""
+        int8 one (:attr:`page_payload_spec`). With ``out`` (one host uint8
+        buffer a page, pinned when the engine runs on the card) each page's
+        payload bytes are copied straight into its buffer, the copies are
+        waited for, and nothing is returned."""
+        maybe_fail("serve.kv_fetch")
         ids = [int(b) for b in blocks]
+        rows = self._page_rows(ids)
+        if out is None:
+            shape, dtype = self.page_payload_spec
+            return rows.cpu().numpy().view(dtype).reshape((len(ids),) + tuple(shape))
+        if len(out) != len(ids):
+            raise ValueError(f"{len(out)} host buffers for {len(ids)} pages")
+        cuda = self.device.type == "cuda"
+        for buf, row in zip(out, rows):
+            buf[:row.numel()].copy_(row, non_blocking=cuda)
+        if cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+        return None
+
+    def _page_rows(self, ids: List[int]) -> torch.Tensor:
+        """Pages ``ids`` as payload byte rows ``[n, bytes_per_block]`` on the
+        device, in one bucketed gather (an int8 pool's rows hold the int8
+        values, then the f32 scale tiles)."""
         n = len(ids)
         idx = self._page_index(ids)
-        vals = self.kv.kv.index_select(1, idx).transpose(0, 1)[:n]
+        rows = self.kv.kv.index_select(1, idx).transpose(0, 1)[:n].contiguous()
+        rows = rows.view(torch.uint8).reshape(n, -1)
         if self.kv.config.quantized:
-            scales = self.kv.scales.index_select(1, idx).transpose(0, 1)[:n]
-            return self._pack_pages(vals.cpu().numpy(), scales.cpu().numpy())
-        return _to_payload(vals)
+            scales = self.kv.scales.index_select(1, idx).transpose(0, 1)[:n].contiguous()
+            rows = torch.cat([rows, scales.view(torch.uint8).reshape(n, -1)], 1)
+        return rows
 
-    def put_pages(self, pages: np.ndarray, blocks: Sequence[int]) -> None:
+    def _put_rows(self, bufs, idx: torch.Tensor) -> None:
+        """Scatter host payload byte rows (one a page: pooled buffers as
+        ``fetch_pages(out=)`` fills them, or the rows of a ``[n, bytes]``
+        tensor) into the pool slots ``idx``: one copy a page to the device,
+        pad slots zeroed."""
+        cfg = self.kv.config
+        per, bucket = cfg.bytes_per_block(), int(idx.numel())
+        cuda = self.device.type == "cuda"
+        rows = torch.empty((bucket, per), dtype=torch.uint8, device=self.device)
+        for row, buf in zip(rows, bufs):
+            row.copy_(buf[:per], non_blocking=cuda)
+        rows[len(bufs):].zero_()
+        page = (cfg.num_layers, 2, cfg.num_kv_heads, cfg.block_size, cfg.head_dim)
+        if cfg.quantized:
+            vbytes = int(np.prod(page))
+            _, r8, lanes = kv_scale_tiles_shape(1, cfg.num_kv_heads, cfg.block_size)
+            vals = rows[:, :vbytes].contiguous().view(torch.int8).view(bucket, *page)
+            scales = rows[:, vbytes:].contiguous().view(torch.float32)
+            self.kv.kv.index_copy_(1, idx, vals.transpose(0, 1))
+            self.kv.scales.index_copy_(
+                1, idx, scales.view(bucket, cfg.num_layers, r8, lanes).transpose(0, 1))
+            return
+        vals = rows.view(self.kv.kv.dtype).view(bucket, *page)
+        self.kv.kv.index_copy_(1, idx, vals.transpose(0, 1))
+
+    def put_pages(self, pages, blocks: Sequence[int]) -> None:
         """Scatter host pages ``[n, ...]`` (:attr:`page_payload_spec`) into
         pool slots ``blocks`` in one bucketed dispatch, byte-exact with
-        :meth:`fetch_pages`; pad slots write zeros into the scratch page."""
+        :meth:`fetch_pages`; pad slots write zeros into the scratch page.
+        ``pages`` may also be a list of host byte buffers, one a page, as
+        ``fetch_pages(out=)`` fills them."""
+        maybe_fail("serve.kv_put")
         ids = [int(b) for b in blocks]
         if not ids:
             return
-        pages = self._payload_array(pages)
-        n, bucket = len(ids), next_pow2(len(ids))
-        if bucket != n:
-            pages = np.concatenate(
-                [pages, np.zeros((bucket - n,) + pages.shape[1:], pages.dtype)])
-        idx = self._page_index(ids)
-        if self.kv.config.quantized:
-            vals, scales = self._unpack_pages(pages)
-            self.kv.kv.index_copy_(1, idx, _from_host(vals, self.device).transpose(0, 1))
-            self.kv.scales.index_copy_(1, idx,
-                                       _from_host(scales, self.device).transpose(0, 1))
-            return
-        t = _from_host(pages, self.device)
-        if self.kv.kv.dtype == torch.bfloat16:
-            t = t.view(torch.bfloat16)
-        self.kv.kv.index_copy_(1, idx, t.transpose(0, 1))
+        if isinstance(pages, (list, tuple)):
+            if len(pages) != len(ids):
+                raise ValueError(f"{len(pages)} host buffers for {len(ids)} pages")
+        else:
+            a = np.ascontiguousarray(self._payload_array(pages))
+            a = a.reshape(len(a), -1).view(np.uint8)
+            if a.shape != (len(ids), self.kv.config.bytes_per_block()):
+                raise ValueError(f"page payload of {a.shape[1]} bytes a page for "
+                                 f"{len(ids)} pages of {self.kv.config.bytes_per_block()}")
+            pages = torch.from_numpy(a if a.flags.writeable else a.copy())
+        self._put_rows(pages, self._page_index(ids))
 
     def _payload_array(self, pages) -> np.ndarray:
         """A host payload as this pool's payload dtype; a bf16 pool takes
@@ -932,24 +1167,6 @@ class InferenceEngineV2:
 # a plain pool's page payload dtype on the host (numpy has no bfloat16)
 _PAYLOAD_DTYPES = {torch.float32: np.float32, torch.bfloat16: np.uint16,
                    torch.float16: np.float16}
-
-
-def _to_payload(t: torch.Tensor) -> np.ndarray:
-    """Pool values -> host payload array; bf16 as its uint16 bytes."""
-    if t.dtype == torch.bfloat16:
-        return t.contiguous().view(torch.int16).cpu().numpy().view(np.uint16)
-    return t.contiguous().cpu().numpy()
-
-
-def _from_host(a: np.ndarray, device) -> torch.Tensor:
-    """Host payload array -> tensor on ``device`` (uint16 bytes as int16,
-    which the caller views as bf16)."""
-    a = np.ascontiguousarray(a)
-    if a.dtype == np.uint16:
-        a = a.view(np.int16)
-    if not a.flags.writeable:
-        a = a.copy()
-    return host_to_device(torch.from_numpy(a), device)
 
 
 def _guess_family(model) -> str:

@@ -155,6 +155,7 @@ class DecodePipeline:
                 row = drain.wait(j % 2)
                 out[j] = row[:S]
                 steps_drained = j + 1
+                e.pipeline_stats.record_step(int(live.sum()))
                 if on_tokens is not None:
                     for u in on_tokens(j, uids, out[j]) or ():
                         i = row_of.get(int(u))

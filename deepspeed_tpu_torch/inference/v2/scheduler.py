@@ -214,6 +214,55 @@ class DynamicSplitFuseScheduler:
     def has_pending(self) -> bool:
         return any(len(s.pending) > 0 for s in self.seqs.values())
 
+    @property
+    def available_blocks(self) -> int:
+        """Blocks obtainable now (free list + evictable cached pages): the
+        capacity the serving frontend's admission plans with."""
+        return self._available_blocks()
+
+    def blocks_needed(self, uids: List[int], n_tokens: int) -> int:
+        """Fresh blocks a decode reservation of ``n_tokens`` more tokens for
+        every uid would take (``decode_batch``'s per-run ``reserve``): the
+        serving frontend's per-slice funding check."""
+        return sum(self._new_blocks_needed(self.seqs[u], n_tokens) for u in uids)
+
+    # ------------------------------------------------------------------ #
+    # preempt-offload support (the serving frontend)
+    # ------------------------------------------------------------------ #
+
+    def private_tail(self, uid: int) -> Tuple[int, List[int]]:
+        """``(kept, tail)``: the longest suffix of ``uid``'s block table
+        that nobody else holds (allocator refcount 1), the pages preemption
+        may offload. Shared pages (radix-tree references, co-holders) are
+        always a prefix: the tree files whole-block prefixes only, so the
+        sequence keeps its references across the preemption."""
+        if self.window is not None:
+            raise NotImplementedError(
+                "preemption with a sliding-window page ring is not wired "
+                "(the logical block list aliases physical pages)")
+        blocks = self.seqs[uid].blocks
+        k = len(blocks)
+        while k > 0 and self.allocator.ref_count(blocks[k - 1]) == 1:
+            k -= 1
+        return k, list(blocks[k:])
+
+    def drop_tail(self, uid: int, kept: int) -> None:
+        """Free the blocks beyond ``kept`` and truncate the block table: the
+        releasing half of a preempt-offload (the content is already copied
+        out)."""
+        seq = self.seqs[uid]
+        self.allocator.free(seq.blocks[kept:])
+        del seq.blocks[kept:]
+
+    def grow_tail(self, uid: int, n: int) -> List[int]:
+        """Append ``n`` fresh pages to ``uid``'s block table (evicting idle
+        cached pages on a shortfall) and return their ids in order: the
+        restore half, whose caller scatters the offloaded content in."""
+        seq = self.seqs[uid]
+        ids = [int(b) for b in self._alloc(n)] if n else []
+        seq.blocks.extend(ids)
+        return ids
+
     # ------------------------------------------------------------------ #
     # pipelined decode support
     # ------------------------------------------------------------------ #

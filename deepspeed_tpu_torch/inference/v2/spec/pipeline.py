@@ -281,6 +281,7 @@ class SpecDecodePipeline:
                     rows=int(live.sum()), proposed=proposed, accepted=accepted,
                     tokens=step_tokens, draft_s=t1 - t0, verify_s=t3 - t1,
                     fetch_bytes=row.nbytes)
+                e.pipeline_stats.record_step(step_tokens)
         except BaseException:
             for i, u in enumerate(uids):
                 e.scheduler.advance(u, int(recorded[i]))

@@ -42,6 +42,8 @@ import torch
 from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 from torch.utils.checkpoint import checkpoint as _torch_checkpoint
 
+from deepspeed_tpu_torch.utils.device import resolve_device
+
 logger = logging.getLogger("deepspeed_tpu_torch")
 
 #: the ``everything_saveable`` policy: run without a checkpoint
@@ -265,9 +267,12 @@ class RNGStatesTracker:
     """Named ``torch.Generator`` registry with a fork context (the JAX
     package's tracker over PRNG keys): ``fork(name)`` yields the named
     generator, whose state advances with each draw, so forks in turn draw
-    fresh numbers and the same seed replays the same stream."""
+    fresh numbers and the same seed replays the same stream. The generators
+    live on ``device``: ``None`` (the default) means the card, resolved
+    when a generator is made, so building a tracker (the module-level one
+    included) needs no CUDA."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device=None):
         self.device = device
         self.states_: Dict[str, torch.Generator] = {}
 
@@ -280,14 +285,15 @@ class RNGStatesTracker:
     def set_states(self, states: Dict[str, torch.Tensor]):
         self.states_ = {}
         for name, st in states.items():
-            g = torch.Generator(device=self.device)
+            g = torch.Generator(device=resolve_device(self.device))
             g.set_state(st)
             self.states_[name] = g
 
     def add(self, name: str, seed: int):
         if name in self.states_:
             raise ValueError(f"rng state {name} already present")
-        self.states_[name] = torch.Generator(device=self.device).manual_seed(int(seed))
+        self.states_[name] = torch.Generator(
+            device=resolve_device(self.device)).manual_seed(int(seed))
 
     @contextlib.contextmanager
     def fork(self, name: str = "model-parallel-rng"):
@@ -303,10 +309,12 @@ def get_cuda_rng_tracker() -> RNGStatesTracker:
     return _RNG_TRACKER
 
 
-def model_parallel_seed(base_seed: int, tp_rank: int, device="cpu") -> torch.Generator:
+def model_parallel_seed(base_seed: int, tp_rank: int, device=None) -> torch.Generator:
     """A generator decorrelated per tensor-parallel rank: seeded from
-    (base seed, rank), as the JAX package folds the rank into its key."""
-    return torch.Generator(device=device).manual_seed(mix_seed(base_seed, tp_rank))
+    (base seed, rank), as the JAX package folds the rank into its key. On
+    the card unless ``device`` says otherwise."""
+    return torch.Generator(device=resolve_device(device)).manual_seed(
+        mix_seed(base_seed, tp_rank))
 
 
 def mix_seed(*parts: int) -> int:

@@ -19,6 +19,22 @@ surface) wait for the port's callers of them.
 Sites in the port:
 
 ========================  ===================================================
+``serve.engine_step``     top of ``ServingFrontend.step()``: ``raise``
+                          crashes the replica's serving loop, ``stall``
+                          wedges it (the health monitor's stall case). The
+                          form ``serve.engine_step.<replica>`` (the name a
+                          ``ServingCluster`` gives) targets ONE replica.
+``serve.prefill_worker``  ``PrefillWorker`` batch loop (disaggregated
+                          prefill), also as
+                          ``serve.prefill_worker.<replica>``.
+``serve.handoff``         inside each deadline-wrapped prefill->decode
+                          handoff attempt (``raise`` spends the retry
+                          budget; ``stall`` past ``handoff_timeout_s``
+                          surfaces ``IOTimeout``).
+``serve.kv_fetch``        ``engine.fetch_pages`` (the page gather of
+                          preempt-offload and ``export_kv``).
+``serve.kv_put``          ``engine.put_pages`` (the page scatter of restore
+                          and ``import_kv``).
 ``serve.lora_fault``      ``LoraAdapterRegistry._ensure_resident``: inside an
                           adapter fault-in, after its pages are allocated and
                           before the scatter lands (cancel-while-faulting
@@ -30,8 +46,8 @@ Sites in the port:
                           or disk; pair with ``action=stall``).
 ========================  ===================================================
 
-The JAX package's flight recorder (a tracer dump before a fault surfaces)
-waits for the port's tracer.
+A ``raise`` or ``kill`` first dumps the span tracer's flight recorder
+(``monitor/trace.Tracer.crash_dump``; a no-op with tracing off).
 """
 
 from __future__ import annotations
@@ -162,6 +178,17 @@ def parse_plan(plan: str, seed: int = 0) -> FaultInjector:
     return FaultInjector(specs, seed=seed)
 
 
+def _flight_record(site: str, action: str) -> None:
+    """Dump the span tracer's flight recorder before a fault surfaces (a
+    kill skips atexit, so this is the only timeline it leaves). Never
+    raises: the fault must still fire."""
+    try:
+        from deepspeed_tpu_torch.monitor.trace import tracer
+        tracer.crash_dump(f"injected {action} at {site}")
+    except Exception:   # pragma: no cover - the fault must still fire
+        pass
+
+
 def _execute(spec: FaultSpec, site: str):
     if spec.action == "stall":
         logger.warning(f"fault injection: stalling {spec.delay_s}s at {site}")
@@ -169,9 +196,11 @@ def _execute(spec: FaultSpec, site: str):
         return None
     if spec.action == "kill":
         logger.warning(f"fault injection: killing process at {site}")
+        _flight_record(site, "kill")
         os._exit(KILL_EXIT_CODE)
     if spec.action == "errno":
         return -abs(spec.errno)
+    _flight_record(site, "raise")
     raise InjectedFault(spec.errno, f"injected fault at {site}")
 
 

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import threading
 
-__all__ = ["thread_role", "make_lock", "make_semaphore"]
+__all__ = ["thread_role", "make_lock", "make_rlock", "make_semaphore"]
 
 
 def thread_role(name: str):
@@ -41,3 +41,8 @@ def make_lock(name: str) -> threading.Lock:
 def make_semaphore(name: str, value: int = 1) -> threading.Semaphore:
     """A counting semaphore under a stable dotted name."""
     return threading.Semaphore(value)
+
+
+def make_rlock(name: str) -> threading.RLock:
+    """A ``threading.RLock`` under a stable dotted name."""
+    return threading.RLock()

@@ -163,20 +163,20 @@ def test_apply_remat_module_grads_match():
 
 
 def test_rng_tracker_fork_deterministic():
-    tr = ac.RNGStatesTracker()
+    tr = ac.RNGStatesTracker(device="cpu")
     tr.add("model-parallel-rng", 1234)
     with tr.fork() as g1:
         a = torch.randn(4, generator=g1)
     with tr.fork() as g2:
         b = torch.randn(4, generator=g2)
     assert not torch.allclose(a, b)  # the stream advances
-    tr2 = ac.RNGStatesTracker()
+    tr2 = ac.RNGStatesTracker(device="cpu")
     tr2.add("model-parallel-rng", 1234)
     with tr2.fork() as g3:
         c = torch.randn(4, generator=g3)
     assert torch.equal(a, c)  # same seed -> same stream
     states = tr.get_states()
-    tr3 = ac.RNGStatesTracker()
+    tr3 = ac.RNGStatesTracker(device="cpu")
     tr3.set_states(states)
     with tr.fork() as g4, tr3.fork() as g5:
         assert torch.equal(torch.randn(4, generator=g4), torch.randn(4, generator=g5))
@@ -188,10 +188,27 @@ def test_rng_tracker_fork_deterministic():
 
 
 def test_model_parallel_seed_decorrelates_ranks():
-    g0, g1 = ac.model_parallel_seed(7, tp_rank=0), ac.model_parallel_seed(7, tp_rank=1)
+    g0 = ac.model_parallel_seed(7, tp_rank=0, device="cpu")
+    g1 = ac.model_parallel_seed(7, tp_rank=1, device="cpu")
     assert not torch.equal(torch.rand(8, generator=g0), torch.rand(8, generator=g1))
-    assert torch.equal(torch.rand(8, generator=ac.model_parallel_seed(7, 1)),
-                       torch.rand(8, generator=ac.model_parallel_seed(7, 1)))
+    assert torch.equal(torch.rand(8, generator=ac.model_parallel_seed(7, 1, device="cpu")),
+                       torch.rand(8, generator=ac.model_parallel_seed(7, 1, device="cpu")))
+
+
+def test_rng_tracker_defaults_to_the_card(monkeypatch):
+    """A tracker built with no device (the module-level one included) makes
+    no CPU generator: it asks for CUDA when a state is added, and raises on
+    a machine without it, as every entry point of the port does."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tr = ac.RNGStatesTracker()
+    assert tr.device is None and ac.get_cuda_rng_tracker().device is None
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tr.add("model-parallel-rng", 1234)
+    assert tr.states_ == {}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tr.set_states({"x": torch.Generator().get_state()})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ac.model_parallel_seed(7, 0)
 
 
 def test_cpu_checkpointing_refused_by_name():

@@ -183,6 +183,65 @@ def test_training_modules_import_without_jax():
                    env={**os.environ, "PYTHONPATH": str(ROOT)})
 
 
+SERVING_MODULES = ("deepspeed_tpu_torch.inference.v2.serving",
+                   "deepspeed_tpu_torch.inference.v2.serving.admission",
+                   "deepspeed_tpu_torch.inference.v2.serving.kv_offload",
+                   "deepspeed_tpu_torch.inference.v2.serving.frontend",
+                   "deepspeed_tpu_torch.inference.v2.serving.loadgen",
+                   "deepspeed_tpu_torch.inference.v2.serving.cluster",
+                   "deepspeed_tpu_torch.inference.v2.serving.health",
+                   "deepspeed_tpu_torch.inference.v2.serving.router",
+                   "deepspeed_tpu_torch.monitor.trace", "deepspeed_tpu_torch.monitor.serving")
+
+
+def test_serving_modules_import_without_jax():
+    """The serving frontend and cluster modules, the tracer and the serving
+    counters, each imported by its own name in a fresh interpreter, load no
+    JAX and nothing of the JAX package."""
+    code = ("import importlib, sys; "
+            f"[importlib.import_module(m) for m in {SERVING_MODULES!r}]; "
+            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'deepspeed_tpu') "
+            "or m.startswith(('jax.', 'flax.', 'deepspeed_tpu.'))]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120,
+                   env={**os.environ, "PYTHONPATH": str(ROOT)})
+
+
+@pytest.mark.parametrize("module, names", [
+    ("deepspeed_tpu_torch.inference.v2.serving",
+     ("ServingFrontend", "RequestHandle", "AdmissionController", "KVOffloadManager",
+      "PoissonLoadGen", "replay", "goodput_report", "ServingCluster", "PrefillWorker",
+      "ServingRouter", "ClusterPrefixIndex", "HealthMonitor")),
+    ("deepspeed_tpu_torch.inference.v2.config_v2",
+     ("PriorityClassConfig", "ServingConfig", "HealthConfig", "RouterConfig")),
+    ("deepspeed_tpu_torch.monitor.serving",
+     ("FrontendStats", "HealthStats", "RouterStats", "PipelineStats")),
+    ("deepspeed_tpu_torch.monitor.trace", ("Tracer", "tracer", "install_from_env")),
+])
+def test_serving_slice_exports(module, names):
+    import importlib
+    mod = importlib.import_module(module)
+    assert all(hasattr(mod, n) for n in names), [n for n in names if not hasattr(mod, n)]
+
+
+def test_serving_frontend_defaults_to_the_card(monkeypatch):
+    """``engine.serving_frontend()`` serves on the engine's device, which
+    is the card unless the caller asked for the CPU; the colocated
+    rollout's weight swap is refused by name."""
+    model, econf = _tiny_engine_args()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceEngineV2(model, econf, model.flat_params()).serving_frontend()
+    e = InferenceEngineV2(model, econf, model.flat_params(), device="cpu")
+    fe = e.serving_frontend()
+    assert fe.engine.device.type == "cpu" and not fe.offload.pool.pin_memory
+    with pytest.raises(NotImplementedError, match="swap_weights"):
+        fe.swap_weights({})
+    with pytest.raises(NotImplementedError, match="weight_bridge"):
+        e.weight_bridge(None)
+    fe.close()
+
+
 def test_zero_to_fp32_cli_runs_without_jax(tmp_path):
     """``python -m deepspeed_tpu_torch.utils.zero_to_fp32 <ckpt_dir> <out>``
     consolidates a tag on a host with no JAX."""
@@ -501,6 +560,13 @@ def test_unported_config_feature_raises(section, value, feature):
         assert RaggedInferenceEngineConfig.load({section: value}).lora.enabled
         with pytest.raises(NotImplementedError,
                            match="multi-tenant LoRA with tensor_parallel > 1 is not wired"):
+            RaggedInferenceEngineConfig.load({section: value, "tensor_parallel": 2})
+        return
+    if section == "serving":
+        # the serving frontend loads since it was ported; tensor_parallel > 1
+        # is still refused beside it
+        assert RaggedInferenceEngineConfig.load({section: value}).serving.decode_slice == 4
+        with pytest.raises(NotImplementedError, match="tensor_parallel"):
             RaggedInferenceEngineConfig.load({section: value, "tensor_parallel": 2})
         return
     with pytest.raises(NotImplementedError, match=feature):

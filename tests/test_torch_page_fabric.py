@@ -142,6 +142,40 @@ def test_fetch_put_round_trip_is_byte_exact(pair):
         port.kv.scales.zero_()
 
 
+def test_pooled_buffers_round_trip_is_byte_exact(pair):
+    """``fetch_pages(out=)`` fills one host byte buffer a page with that
+    page's payload bytes; ``put_pages`` takes the buffers back into three
+    other slots byte for byte, the bucket's pad slot writing zeros into the
+    scratch page and no other page changing."""
+    kind, _, port = pair
+    g = torch.Generator().manual_seed(4)
+    kv = port.kv.kv
+    if kind == "int8":
+        kv.copy_(torch.randint(-127, 128, kv.shape, generator=g, dtype=torch.int8))
+        port.kv.scales.copy_(torch.rand(port.kv.scales.shape, generator=g))
+    else:
+        kv.copy_(torch.randn(kv.shape, generator=g).to(kv.dtype))
+    src, dst = [5, 2, 9], [1, 7, 3]
+    pages = port.fetch_pages(src)
+    per = port.kv.config.bytes_per_block()
+    bufs = [torch.full((per + 4096,), 0xAB, dtype=torch.uint8) for _ in src]
+    assert port.fetch_pages(src, out=bufs) is None
+    for buf, page in zip(bufs, pages):
+        assert np.array_equal(buf[:per].numpy(), _bytes(page).reshape(-1))
+        assert bool((buf[per:] == 0xAB).all())        # nothing past the page
+    before_kv = kv.clone()
+    port.put_pages(bufs, dst)
+    assert np.array_equal(_bytes(port.fetch_pages(dst)), _bytes(pages))
+    assert int(kv[:, port.scratch_block].abs().sum()) == 0
+    untouched = [b for b in range(kv.shape[1]) if b not in dst + [port.scratch_block]]
+    assert torch.equal(kv[:, untouched], before_kv[:, untouched])
+    with pytest.raises(ValueError, match="host buffers"):
+        port.put_pages(bufs[:2], dst)
+    kv.zero_()
+    if port.kv.scales is not None:
+        port.kv.scales.zero_()
+
+
 def test_jax_export_imports_into_port_and_decodes_its_continuation(pair):
     """A prompt prefilled by the JAX engine and exported (pages + last
     logits) imports into the port byte for byte; the port's greedy burst on
