@@ -294,9 +294,9 @@ decode kernel at Qwen2-7B's G = 7 and Gemma-7B's D = 256 on pages of 128.
    device ms with K5's share. Phase 3 holds K5 at the verify step's shapes
    (8 slots of 2, 4 and 8 rows, Hkv 32 and 8, bf16 and int8, one slot
    across a page edge; the ``k5-verify`` line times k = 3 beside k = 2).
-18. multi-tenant LoRA on Llama-2-7B at full width and depth (random bf16
-   weights from seed 0): all four targets, max_rank 16, a 48-page pool (96
-   MiB); six adapters of ranks 4, 8, 8, 16, 16, 16 (68 pages) whose delta
+18. multi-tenant LoRA on Llama-2-7B at full width, cut to 8 of its 32
+   layers (random bf16 weights from seed 0): all four targets, max_rank
+   16, a 48-page pool; six adapters of ranks 4, 8, 8, 16, 16, 16 (68 pages) whose delta
    has a quarter of the base projection's rms; two mixed runs of 8 prompts
    (256-1024 tokens, 64 new tokens), the second evicting idle adapters and
    faulting the first back in. Checks: (a) every bound row's stream and
@@ -405,14 +405,42 @@ decode kernel at Qwen2-7B's G = 7 and Gemma-7B's D = 256 on pages of 128.
    end; the byte check runs after the drain) and bytes a sequence,
    migration ms, each part's launches.
 
+23. one Llama-2-7B-width policy (8 of 32 layers, seeded random weights)
+   that trains and serves on the card: ``initialize`` with
+   ``hybrid_engine.enabled`` (bf16 with an fp32 master, AdamW lr 1e-5,
+   clipping 1.0, micro-batch 4 x gas 2) and a v2 engine over its master
+   (pages of 128, 64 of them, the prefix cache, warmup) behind its
+   frontend. (a) after 2 steps the WeightBridge's tree equals a fresh
+   engine's bit for bit, one layout build, a sync under the profiler and
+   ``set_sync_debug_mode("error")`` copies nothing across the host link, a
+   donating sync keeps every serving tensor and raises the peak by less
+   than the largest leaf; sync ms against the bound. (b) the swap adds no
+   step-cache entry; the prefix cache hits before it, misses on the first
+   request after it and hits on the second; a control's final-row logits
+   change and equal a fresh engine's; 8 greedy streams equal a fresh
+   engine's or part at a near tie. (c) 8 requests of 64 tokens decode on
+   the running frontend while ``bridge.sync_and_swap(fe)`` swaps in one
+   more step's weights: every live request is recompute-preempted and
+   finishes, its tokens before the swap on the old weights' streams and
+   after it on a fresh new-weights engine's. (d) ``RolloutLoop``: 3 rounds
+   of 8 rollouts (384-448 prompt tokens sharing 256, 64 new) collated to
+   [8, 512], one step each; its stats equal the tracer's spans; the hybrid
+   engine's ``generate`` ([4, 128], 32 new) follows 2 more steps and
+   equals a fresh ``InferenceEngine``'s, its prefill logits within 2x the
+   dense bf16 rms; then the loop's losses equal, bit for bit, a trainer
+   rebuilt from the seed replaying the same batches. K1, K2, K5 and the
+   decode kernel must launch on the main path (counted before the
+   replay, the comparison engines' launches taken out).
+
 The last two lines are the kernel table (58 rows, K5 at the verify step's
 shape among them; the rows of K2, K5, the decode kernel and K7 carry their
-launches in phases 21 and 22 as ``serving_launches``) and ``{"ok": true,
+launches in phases 21, 22 and 23 as ``serving_launches``) and ``{"ok": true,
 "device": ...}`` as JSON. Run from the repository root: ``python3 chip_smoke.py``.
 """
 
 from __future__ import annotations
 
+import collections
 import collections.abc
 import contextlib
 import functools
@@ -5305,12 +5333,12 @@ def rows_vs_dense(label, engine, model, seqs, rows, eng, int8, n_full):
     return out
 
 
-def p17_model():
+def p17_model(layers: int = 32):
     import torch
     from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = LlamaConfig.llama2_7b(dtype=torch.bfloat16)
+    cfg = LlamaConfig.llama2_7b(dtype=torch.bfloat16, num_hidden_layers=layers)
     model = LlamaForCausalLM(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
     return model
@@ -5697,6 +5725,9 @@ def run_prefix_spec():
 
 # phase 17's pages of 128; 80 pages hold the 8 sequences (at most 1088 tokens
 # each: 9 pages) and a spec run's reservation ahead of them
+# phase 18's depth: 8 of Llama-2-7B's 32 layers at full width (cut to make
+# room for phase 23 inside the script's time limit)
+P18_LAYERS = 8
 P18_POOL = {"kv_cache": {"block_size": 128, "num_blocks": 80}, "seed": 0}
 # all four targets at max_rank 16: one page is 32 layers x 4 x 8192 bf16 = 2
 # MiB, so 48 pages (96 MiB) hold 48 of the 68 the six adapters need
@@ -6098,14 +6129,14 @@ def p18_engine(model, **conf):
 
 
 def run_lora(model=None, lens=P18_LENS, new=P18_NEW, int8_new=P18_INT8_NEW):
-    """Phase 18: multi-tenant LoRA serving on Llama-2-7B at full width and
-    depth (random bf16 weights from seed 0): six adapters over a 48-page
-    pool, two mixed runs of 8 sequences, checks (a)-(h). ``model`` and the
-    sizes default to the phase's."""
+    """Phase 18: multi-tenant LoRA serving on Llama-2-7B at full width, cut
+    to ``P18_LAYERS`` layers (random bf16 weights from seed 0): six
+    adapters over a 48-page pool, two mixed runs of 8 sequences, checks
+    (a)-(h). ``model`` and the sizes default to the phase's."""
     import torch
     t_phase = time.perf_counter()
     own = model is None
-    model = p17_model() if own else model
+    model = p17_model(P18_LAYERS) if own else model
     dev = model.embed_tokens.embedding.device
     V = model.config.vocab_size
     rng = np.random.RandomState(19)
@@ -7843,6 +7874,621 @@ def run_cluster(model=None, dev="cuda"):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 23: the colocated rollout and the hybrid engine on one policy
+# --------------------------------------------------------------------------- #
+
+# phase 20's depth: 8 of Llama-2-7B's 32 layers at full width (1.88 B params)
+P23_LAYERS = P20_LAYERS
+P23_CONFIG = {
+    "train_batch_size": 8, "train_micro_batch_size_per_gpu": 4,
+    "bf16": {"enabled": True}, "gradient_clipping": 1.0, "steps_per_print": 0,
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-5, "betas": [0.9, 0.95],
+                                              "eps": 1e-8, "weight_decay": 0.0}},
+    "train_pipeline": {"prefetch": 0},
+    "hybrid_engine": {"enabled": True, "max_out_tokens": 64},
+}
+# 64 pages of 128 (1 GiB at 8 layers): the rollouts' 8 x 4 pages with room
+P23_ENGINE = {"kv_cache": {"block_size": 128, "num_blocks": 64},
+              "state_manager": {"max_context": 1024},
+              "prefix_cache": {"enabled": True}, "compile": {"warmup": True}, "seed": 0,
+              "serving": {"decode_slice": 4}}
+# the comparison engines: the same serving config with a smaller pool
+P23_FRESH = {"kv_cache": {"block_size": 128, "num_blocks": 40},
+             "state_manager": {"max_context": 1024}, "prefix_cache": {"enabled": True},
+             "seed": 0}
+P23_T = 512               # the collated rows: prompt + rollout, zero-padded
+P23_PREFIX = 256          # the rollout prompts' shared prefix
+P23_LENS = (384, 448)     # the rollout prompts' lengths (inclusive)
+P23_PROMPTS = 8
+P23_NEW = 64              # new tokens a rollout request
+P23_STREAM_NEW = 32       # new tokens of (b)'s greedy streams
+P23_ROUNDS = 3
+P23_V1 = (4, 128, 32)     # the hybrid generate: rows, prompt tokens, new tokens
+P23_SYNCS = 3             # timed syncs of each kind
+P23_NAMES = K1_NAMES + ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk",
+                        "splitk_merge")
+
+
+def p23_cuda(dev) -> bool:
+    import torch
+    return torch.device(dev).type == "cuda"
+
+
+def p23_sync(dev) -> None:
+    import torch
+    if p23_cuda(dev):
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def p23_uncounted():
+    """Kernel launches inside the block (the comparison engines' and the
+    reference runs') are taken back out of the counts."""
+    from deepspeed_tpu_torch.ops import kernels
+    saved = dict(kernels.LAUNCHES)
+    try:
+        yield
+    finally:
+        for k in list(kernels.LAUNCHES):
+            kernels.LAUNCHES[k] = saved.get(k, 0)
+
+
+def p23_batches(V, seed, n):
+    """``n`` global batches of 8 x ``P23_T`` seeded token ids."""
+    rng = np.random.default_rng(seed)
+    return [{"input_ids": rng.integers(0, V, (8, P23_T)).astype(np.int32)} for _ in range(n)]
+
+
+def p23_prompts(V, rnd):
+    """Round ``rnd``'s 8 rollout prompts: the shared ``P23_PREFIX`` tokens
+    (seed 23), then a seeded tail to a length in ``P23_LENS``."""
+    prefix = np.random.default_rng(23).integers(0, V, P23_PREFIX)
+    rng = np.random.default_rng(2300 + rnd)
+    lens = rng.integers(P23_LENS[0], P23_LENS[1] + 1, P23_PROMPTS)
+    return [np.concatenate([prefix, rng.integers(0, V, int(n) - P23_PREFIX)]).astype(np.int32)
+            for n in lens]
+
+
+def p23_collate(rollouts):
+    """Prompt + rollout tokens as one zero-padded row each: [8, ``P23_T``]."""
+    rows = np.zeros((len(rollouts), P23_T), np.int32)
+    for j, (p, t) in enumerate(rollouts):
+        seq = (list(p) + list(t))[:P23_T]
+        rows[j, :len(seq)] = seq
+    return {"input_ids": rows}
+
+
+def p23_dense(model, seq, rows, dt, dev):
+    """The trainer module's dense forward (its live bf16 weights) in
+    ``dt``: f32 logits at ``rows`` of token sequence ``seq``."""
+    import torch
+    ids = torch.from_numpy(np.asarray(seq, np.int64)).to(dev)[None]
+    return model.forward_logits(ids, compute_dtype=dt)[0, torch.as_tensor(rows, device=dev)]
+
+
+def p23_gap(model, seq, dev) -> float:
+    """Top-2 gap of the dense fp32 logits after ``seq``."""
+    import torch
+    top = torch.topk(p23_dense(model, seq, [len(seq) - 1], torch.float32, dev)[0], 2).values
+    return float(top[0] - top[1])
+
+
+def p23_tie(model, prompts, dev) -> float:
+    """The near-tie limit, as phases 17 and 21 set it: twice the dense bf16
+    forward's largest logit error against fp32, at the last row of the
+    first ``P21_TIE_ROWS`` prompts."""
+    import torch
+    errs = []
+    for p in prompts[:P21_TIE_ROWS]:
+        a = p23_dense(model, p, [len(p) - 1], torch.float32, dev)
+        b = p23_dense(model, p, [len(p) - 1], torch.bfloat16, dev)
+        errs.append(float((b - a).abs().max()))
+    return 2 * max(errs)
+
+
+def p23_streams(label, model, prompts, got, ref, tie, dev):
+    """``same_or_near_tie`` over generated streams (prompts stripped, equal
+    lengths), the gaps from the dense fp32 forward of the live weights."""
+    n = min(min(len(g), len(r)) for g, r in zip(got, ref))
+    a = np.array([list(g[:n]) for g in got])
+    b = np.array([list(r[:n]) for r in ref])
+    same_or_near_tie(label, a, b, lambda i, step: p23_gap(
+        model, np.concatenate([prompts[i], b[i, :step]]).astype(np.int32), dev), tie)
+    return {"streams": len(got), "equal": int((a == b).all(axis=1).sum())}
+
+
+def p23_trace_gaps(model, prompts, streams, dev):
+    """Per row, the dense fp32 top-2 gap at every step of its stream (one
+    forward over prompt + stream), for streams whose weights are gone by
+    the time they are compared."""
+    import torch
+    out = []
+    for p, s in zip(prompts, streams):
+        seq = np.concatenate([p, np.asarray(s, np.int32)])
+        lg = p23_dense(model, seq, list(range(len(p) - 1, len(seq) - 1)), torch.float32, dev)
+        top = torch.topk(lg, 2, dim=-1).values
+        out.append((top[:, 0] - top[:, 1]).cpu().numpy())
+        del lg
+    return out
+
+
+def p23_no_host_copy(bridge, dev) -> dict:
+    """One sync (its final wait outside) under ``set_sync_debug_mode("error")``
+    and the profiler: no host->device or device->host copy on the card's
+    side of the trace, and no ``cudaMemcpy*`` call on the host's (the
+    casts are kernels, one a serving tensor); the kernel launches and the
+    device events it holds are counted against the tree's leaves."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not p23_cuda(dev):
+        bridge.sync(wait=False)
+        return {"memcpy_htod_dtoh": 0, "device_events": None}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            bridge.sync(wait=False)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    copies, events, launches, kernels = [], 0, 0, collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if str(e.device_type()).endswith("CUDA"):
+            events += 1
+            kernels[name[:60]] += 1
+            if "Memcpy" in name and ("HtoD" in name or "DtoH" in name):
+                copies.append(name)
+        elif name.startswith("cudaMemcpy"):
+            copies.append(name)
+        elif name == "cudaLaunchKernel":
+            launches += 1
+    if copies or not events:
+        raise AssertionError(f"phase 23 (a): a sync moved bytes across the host link "
+                             f"({copies[:4]}) or left no device event ({events})")
+    return {"memcpy_htod_dtoh": 0, "cuda_memcpy_calls": 0, "device_events": events,
+            "kernel_launches": launches, "device_event_names": dict(kernels.most_common(4))}
+
+
+def p23_timed_syncs(bridge, dev) -> list:
+    """``P23_SYNCS`` syncs, each waited on, in ms (host clock)."""
+    out = []
+    for _ in range(P23_SYNCS):
+        p23_sync(dev)
+        t0 = time.perf_counter()
+        bridge.sync()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def p23_bridge(trainer, engine, V, dev) -> dict:
+    """(a) The bridge after 2 steps: byte-equal to a fresh engine built from
+    the master; one layout build; no host copy; a donating sync keeps every
+    serving tensor and needs no new memory; sync ms and GB/s against the
+    bound. Returns (the fresh engine, the non-donating bridge's tree,
+    the part's numbers)."""
+    import torch
+    from deepspeed_tpu_torch.checkpoint.state import flatten_tree
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    bridge = engine.weight_bridge(trainer, donate=False)
+    new_w = bridge.sync()
+    with p23_uncounted():
+        fresh = InferenceEngineV2(trainer.module, P23_FRESH, trainer.state["master"],
+                                  device=dev)
+    got, want = flatten_tree(new_w), flatten_tree(fresh.weights)
+    bad = [k for k in want if k not in got or not torch_equal_bits(got[k], want[k])]
+    if bad or set(got) != set(want):
+        raise AssertionError(f"phase 23 (a): the bridge's tree differs from a fresh build "
+                             f"at {bad[:4]}")
+    trace = p23_no_host_copy(bridge, dev)
+    fresh_ms = p23_timed_syncs(bridge, dev)
+    if bridge.compiles != 1:
+        raise AssertionError(f"phase 23 (a): {bridge.compiles} layout builds")
+    src = trainer.rollout_source_params()
+    read = sum(t.nbytes for t in src.values())
+    bound_ms = (read + bridge.nbytes) / HBM_BYTES_PER_S * 1e3
+    out = {"leaves": len(got), "bytes_equal_fresh_build": True, "no_host_copy": trace,
+           "compiles": bridge.compiles, "read_bytes": read, "write_bytes": bridge.nbytes,
+           "bound_ms": bound_ms, "fresh_tree_ms": fresh_ms}
+    return fresh, new_w, out
+
+
+def p23_donate(trainer, engine, dev) -> dict:
+    """(a) A donating sync on the idle engine: every serving tensor's
+    data_ptr kept, the peak's rise under the largest leaf, one build; then
+    timed."""
+    import torch
+    from deepspeed_tpu_torch.checkpoint.state import flatten_tree
+    from deepspeed_tpu_torch.runtime.colocated import WeightBridge
+    bridge = WeightBridge(trainer, engine, donate=True)
+    leaves = flatten_tree(engine.weights)
+    ptrs = {k: t.data_ptr() for k, t in leaves.items()}
+    largest = max(t.nbytes for t in leaves.values())
+    rise = None
+    if p23_cuda(dev):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    out_w = bridge.sync()
+    if p23_cuda(dev):
+        rise = torch.cuda.max_memory_allocated() - base
+        if not rise < largest:
+            raise AssertionError(f"phase 23 (a): a donating sync raised the peak by {rise} "
+                                 f"bytes, the largest leaf is {largest}")
+    moved = [k for k, t in flatten_tree(out_w).items() if t.data_ptr() != ptrs[k]]
+    if out_w is not engine.weights or moved:
+        raise AssertionError(f"phase 23 (a): a donating sync moved {moved[:4]}")
+    ms = p23_timed_syncs(bridge, dev)
+    if bridge.compiles != 1:
+        raise AssertionError(f"phase 23 (a): {bridge.compiles} layout builds (donating)")
+    return {"data_ptrs_kept": len(ptrs), "peak_rise_bytes": rise, "largest_leaf_bytes": largest,
+            "donate_ms": ms}
+
+
+def p23_prefix_hits(engine, prompts, n=4):
+    """Serve two prompts that share the 256-token prefix, one after the
+    other; returns the prefix cache's hit count after each."""
+    hits = []
+    for p in prompts[:2]:
+        engine.generate([p], max_new_tokens=n)
+        hits.append(engine.prefix_cache.stats.hits)
+    return hits
+
+
+def p23_swap(engine, fresh, model, new_w, pre, V, dev) -> dict:
+    """(b) The swap: no step-cache entry; the prefix cache misses on the
+    first request after the swap and hits on the second; a control
+    prompt's final-row logits differ from the pre-swap ones and equal the
+    fresh engine's (the same requests before them) bit for bit; 8 greedy
+    streams against the fresh engine's."""
+    entries0 = engine.step_cache_entries()
+    prompts = p23_prompts(V, 0)
+    t0 = time.perf_counter()
+    ver = engine.swap_weights(new_w)
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    if engine.prefix_cache.weight_version != engine.weight_version:
+        raise AssertionError("phase 23 (b): the prefix cache kept its old weight version")
+    h0 = engine.prefix_cache.stats.hits
+    hits = p23_prefix_hits(engine, prompts)
+    if not (hits[0] == h0 and hits[1] > hits[0]):
+        raise AssertionError(f"phase 23 (b): prefix hits {h0} -> {hits} across the swap "
+                             f"(before it: {pre['hits']})")
+    post = engine.put([7], [prompts[-1]])
+    engine.flush([7])
+    with p23_uncounted():
+        p23_prefix_hits(fresh, prompts)
+        ref = fresh.put([7], [prompts[-1]])
+        fresh.flush([7])
+    if np.array_equal(post, pre["logits"]) or not np.array_equal(post, ref):
+        raise AssertionError("phase 23 (b): the control logits did not follow the swap "
+                             f"(same as before: {np.array_equal(post, pre['logits'])}, same "
+                             f"as the fresh engine: {np.array_equal(post, ref)})")
+    tie = p23_tie(model, prompts, dev)
+    got = engine.generate(prompts, max_new_tokens=P23_STREAM_NEW)
+    with p23_uncounted():
+        want = fresh.generate(prompts, max_new_tokens=P23_STREAM_NEW)
+    streams = p23_streams("phase 23 (b) swapped engine vs a fresh engine", model, prompts,
+                          [g[len(p):] for g, p in zip(got, prompts)],
+                          [w[len(p):] for w, p in zip(want, prompts)], tie, dev)
+    if engine.step_cache_entries() != entries0:
+        raise AssertionError(f"phase 23 (b): the swap added "
+                             f"{engine.step_cache_entries() - entries0} step-cache entries")
+    return {"version": ver, "swap_ms": swap_ms, "control_logits_changed": True,
+            "control_bit_equal_fresh": True,
+            "prefix_hits": {"before": pre["hits"], "after": [h0] + hits},
+            "streams": streams, "tie": tie, "step_cache_entries": entries0}
+
+
+def p23_traffic(trainer, engine, fe, model, batch, V, dev) -> dict:
+    """(c) A swap under traffic: 8 requests of ``P23_NEW`` tokens decode on
+    the running frontend; one more train step, then
+    ``bridge.sync_and_swap(fe)`` while they decode. Every request live at
+    the swap is recompute-preempted and finishes with all its tokens;
+    tokens before the swap match the old weights' streams, tokens after
+    it a fresh new-weights engine fed prompt + tokens so far."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    prompts = p23_prompts(V, 1)
+    entries0 = engine.step_cache_entries()
+    with p23_uncounted():
+        old = [o[len(p):] for o, p in zip(engine.generate(prompts, max_new_tokens=P23_NEW),
+                                          prompts)]
+    gaps = p23_trace_gaps(model, prompts, old, dev)
+    tie = p23_tie(model, prompts, dev)
+    trainer.train_batch(batch)
+    bridge = engine.weight_bridge(trainer, donate=False)
+    split, live = {}, {}
+    preempt, apply = fe._preempt_for_swap, fe._apply_swap
+
+    def noting_preempt(req):
+        out = preempt(req)
+        split[req.uid] = len(req._resume_tokens) - len(req.prompt)
+        return out
+
+    def noting_apply(new_weights, version):
+        live["n"] = len(fe._live)
+        return apply(new_weights, version)
+
+    fe._preempt_for_swap, fe._apply_swap = noting_preempt, noting_apply
+    pre = (fe.stats.recompute_preemptions, fe.stats.forced_sheds)
+    try:
+        hs = [fe.submit(p, max_new_tokens=P23_NEW) for p in prompts]
+        deadline = time.perf_counter() + 120.0
+        while not all(h.status == "decoding" and len(h.tokens) >= 4 for h in hs):
+            if time.perf_counter() > deadline or any(h.finished for h in hs):
+                raise AssertionError("phase 23 (c): the requests did not all reach decode "
+                                     f"({[(h.status, len(h.tokens)) for h in hs]})")
+            time.sleep(0.001)
+        t0 = time.perf_counter()
+        ver = bridge.sync_and_swap(fe)
+        swap_ms = (time.perf_counter() - t0) * 1e3
+        outs = [h.result(timeout=600.0) for h in hs]
+    finally:
+        fe._preempt_for_swap, fe._apply_swap = preempt, apply
+    preempted = fe.stats.recompute_preemptions - pre[0]
+    shed = fe.stats.forced_sheds - pre[1]
+    if not (preempted == live.get("n") and preempted >= 1 and shed == 0
+            and all(h.status == "finished" and len(o) == P23_NEW for h, o in zip(hs, outs))):
+        raise AssertionError(f"phase 23 (c): {preempted} recompute preemptions of "
+                             f"{live.get('n')} live at the swap, {shed} shed, "
+                             f"{[(h.status, len(o)) for h, o in zip(hs, outs)]}")
+    # before the swap: the old weights' streams, or parting at a near tie
+    k = [split.get(h.uid, P23_NEW) for h in hs]
+    ties = []
+    for i, (o, n) in enumerate(zip(outs, k)):
+        diff = np.flatnonzero(np.asarray(o[:n]) != np.asarray(old[i][:n]))
+        if diff.size:
+            ties.append({"row": i, "step": int(diff[0]), "top2_gap": float(gaps[i][diff[0]])})
+            if not ties[-1]["top2_gap"] < tie:
+                raise AssertionError(f"phase 23 (c): row {i} leaves the old weights' stream "
+                                     f"at step {diff[0]} before the swap, top-2 gap "
+                                     f"{ties[-1]['top2_gap']} >= {tie}")
+    # after it: a fresh engine of the new weights, fed prompt + tokens so far
+    rows = [i for i, n in enumerate(k) if n < P23_NEW]
+    heads = [np.concatenate([prompts[i], np.asarray(outs[i][:k[i]], np.int32)]) for i in rows]
+    with p23_uncounted():
+        fresh = InferenceEngineV2(trainer.module, P23_FRESH, trainer.state["master"],
+                                  device=dev)
+        want = [fresh.generate([hd], max_new_tokens=P23_NEW - k[i])[0][len(hd):]
+                for hd, i in zip(heads, rows)]
+    after = p23_streams("phase 23 (c) tokens after the swap vs a fresh engine of the new "
+                        "weights", model, heads, [outs[i][k[i]:] for i in rows], want,
+                        tie, dev)
+    del fresh
+    if engine.step_cache_entries() != entries0:
+        raise AssertionError("phase 23 (c): the swap under traffic added step-cache entries")
+    return {"version": ver, "sync_and_swap_ms": swap_ms, "live_at_swap": live.get("n"),
+            "recompute_preemptions": preempted, "shed": shed, "tokens_at_swap": k,
+            "before": {"first_differences": ties}, "after": after, "tie": tie}
+
+
+def p23_loop(trainer, fe, V, dev) -> tuple:
+    """(d) ``RolloutLoop``: ``P23_ROUNDS`` rounds of 8 rollouts
+    (``P23_PROMPTS`` prompts sharing the prefix, ``P23_NEW`` new tokens)
+    collated to [8, ``P23_T``] and one ``train_steps(1)`` each, under the
+    tracer: the stats equal the spans. Returns (losses, the collated
+    batches, the part's numbers)."""
+    from deepspeed_tpu_torch.monitor.trace import tracer
+    from deepspeed_tpu_torch.runtime.colocated import RolloutLoop
+    collated, train_ms = [], []
+
+    def collate(rollouts):
+        batch = p23_collate(rollouts)
+        collated.append({k: v.copy() for k, v in batch.items()})
+        return batch
+
+    steps = trainer.train_steps
+
+    def timed_steps(n, data_iter=None):
+        t0 = time.perf_counter()
+        out = steps(n, data_iter=data_iter)      # reads the losses: synced
+        train_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    tracer.reset()
+    tracer.configure(enabled=True)
+    trainer.train_steps = timed_steps
+    loop = RolloutLoop(trainer, fe, prompt_fn=lambda r: p23_prompts(V, 10 + r),
+                       collate_fn=collate, steps_per_round=1, max_new_tokens=P23_NEW,
+                       request_timeout=600.0)
+    try:
+        losses = loop.run(P23_ROUNDS)
+        spans = tracer.summary()
+        recs = sorted((r for r in tracer.iter_records()
+                       if r[1].startswith("train/rollout/")), key=lambda r: r[2])
+    finally:
+        loop.close()
+        del trainer.train_steps
+        tracer.reset()
+    st = loop.stats
+    losses = [float(x) for l in losses for x in l]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"phase 23 (d): losses {losses}")
+    want = {"sync": (P23_ROUNDS + 1, st.sync_ms), "swap": (P23_ROUNDS + 1, st.swap_ms),
+            "generate": (P23_ROUNDS, st.generate_ms)}
+    for phase, (count, ms) in want.items():
+        n, s = spans.get(f"train/rollout/{phase}", (0, 0.0))
+        if n != count or abs(s * 1e3 - ms) > 1e-6:
+            raise AssertionError(f"phase 23 (d): {phase} spans ({n}, {s * 1e3} ms) against "
+                                 f"the stats ({count}, {ms} ms)")
+    per = {p: [(r[3] - r[2]) * 1e3 for r in recs if r[1] == f"train/rollout/{p}"]
+           for p in want}
+    rounds = [{"sync_ms": per["sync"][r + 1], "swap_ms": per["swap"][r + 1],
+               "generate_ms": per["generate"][r], "train_ms": train_ms[r],
+               "generate_tok_s": P23_PROMPTS * P23_NEW / (per["generate"][r] / 1e3)}
+              for r in range(P23_ROUNDS)]
+    ev = {n: v for n, v, _ in st.events(0)}
+    return losses, collated, {"losses": losses, "rounds": rounds, "align": {
+        "sync_ms": per["sync"][0], "swap_ms": per["swap"][0]}, "events": ev,
+        "preempted": st.preempted, "shed": st.shed, "tokens": st.tokens}
+
+
+def p23_hybrid(trainer, model, batches, V, dev) -> dict:
+    """(d) The hybrid engine: ``generate`` of [4, 128] prompts, 32 new
+    tokens, before and after 2 ``train_batch`` steps; the v1 params follow
+    training, the output equals a fresh ``InferenceEngine`` over the same
+    cast master, the v1 prefill's last-row logits are within 2x the dense
+    bf16 forward's rms error of the dense fp32 forward (a one-row-late
+    control fails that limit), and ``generate_count == 2``."""
+    import torch
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+    B, T, N = P23_V1
+    prompt = np.random.default_rng(231).integers(0, V, (B, T)).astype(np.int32)
+    trainer.generate(prompt, max_new_tokens=N)
+    infer = trainer._inference_engine()
+    name = "layers_0/self_attn/q_proj/kernel"
+    before = infer.params[name].float().clone()
+    for b in batches:
+        trainer.train_batch(b)
+    out = trainer.generate(prompt, max_new_tokens=N)
+    after = infer.params[name].float()
+    if torch.allclose(before, after) or trainer.generate_count != 2:
+        raise AssertionError(f"phase 23 (d): the v1 params did not follow training, or "
+                             f"generate_count {trainer.generate_count}")
+    gen_s = trainer.generate_time
+    fresh = InferenceEngine(trainer.module, {"dtype": "bfloat16", "max_out_tokens": 64},
+                            model_parameters=trainer.state["master"], device=dev)
+    want = fresh.generate(prompt, max_new_tokens=N)
+    del fresh
+    gc.collect()
+    tie = p23_tie(model, list(prompt), dev)
+    streams = p23_streams("phase 23 (d) hybrid generate vs a fresh InferenceEngine", model,
+                          list(prompt), [o[T:] for o in out], [w[T:] for w in want], tie, dev)
+    with torch.no_grad():
+        ids = torch.from_numpy(prompt.astype(np.int64)).to(dev)
+        lg = infer._net.decode(ids, infer._make_cache(B, T), 0)[0]
+        d32 = model.forward_logits(ids, compute_dtype=torch.float32)
+        d16 = model.forward_logits(ids, compute_dtype=torch.bfloat16)
+    rms = lambda x: float(x.pow(2).mean().sqrt())
+    v1_rms, bf16_rms = rms(lg[:, -1] - d32[:, -1]), rms(d16[:, -1] - d32[:, -1])
+    late_rms = rms(lg[:, -2] - d32[:, -1])
+    limit = 2 * bf16_rms
+    if not v1_rms <= limit or not late_rms > limit:
+        raise AssertionError(f"phase 23 (d): v1 logits rms {v1_rms}, one row late {late_rms}, "
+                             f"limit {limit}")
+    del lg, d32, d16
+    return {"generate_count": trainer.generate_count, "generate_s": gen_s,
+            "v1_tok_s": B * N / gen_s, "streams": streams,
+            "v1_logits_rms": v1_rms, "dense_bf16_rms": bf16_rms, "one_row_late_rms": late_rms}
+
+
+def p23_replay(cfg, batches, dev) -> list:
+    """A trainer rebuilt from the same seed, trained on ``batches`` (host
+    copies) one ``train_batch`` at a time: its loss stream."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    trainer, *_ = deepspeed_tpu_torch.initialize(model=model, config=P23_CONFIG, device=dev)
+    losses = [trainer.train_batch(b) for b in batches]
+    out = [float(x) for x in torch.stack(losses).cpu().numpy()]
+    del trainer, model, losses
+    return out
+
+
+def run_rollout(layers: int = P23_LAYERS, dev="cuda", cfg=None):
+    """Phase 23: one Llama-2-7B-width policy (8 of 32 layers, seeded random
+    weights) that trains and serves on the one card: ``initialize`` with
+    ``hybrid_engine.enabled`` gives the trainer (bf16 with an fp32 master,
+    AdamW, clipping 1.0, micro-batch 4 x gas 2), and a v2 engine (pages of
+    128, 64 of them, the prefix cache, warmup) serves it behind its
+    frontend. (a) the WeightBridge: bytes, no host copy, donation; (b) the
+    swap; (c) a swap under traffic; (d) ``RolloutLoop`` and the hybrid
+    engine, then the loop's losses against a replay. Returns the main
+    path's launches (read before the replay)."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.ops import kernels
+    t_phase = time.perf_counter()
+    cuda = p23_cuda(dev)
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg or LlamaConfig.llama2_7b(num_hidden_layers=layers, dtype=torch.bfloat16)
+    V = cfg.vocab_size
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    trainer, *_ = deepspeed_tpu_torch.initialize(model=model, config=P23_CONFIG, device=dev)
+    n_params = sum(t.numel() for t in trainer.state["master"].values())
+    engine = InferenceEngineV2(model, P23_ENGINE, trainer.state["master"], device=dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    print(f"phase 23 model: Llama-2-7B width (vocab {V}, hidden {cfg.hidden_size}, FFN "
+          f"{cfg.intermediate_size}, {cfg.num_attention_heads} heads, D {cfg.head_dim}), "
+          f"{cfg.num_hidden_layers} layers, {n_params} params; trainer "
+          f"{type(trainer).__name__}", flush=True)
+    # before any step: the control logits and the prefix cache's hits
+    prompts0 = p23_prompts(V, 0)
+    pre_logits = engine.put([7], [prompts0[-1]])
+    engine.flush([7])
+    pre = {"logits": pre_logits, "hits": p23_prefix_hits(engine, prompts0)}
+    if not pre["hits"][1] > pre["hits"][0]:
+        raise AssertionError(f"phase 23 (b): no prefix hit before the swap ({pre['hits']})")
+    batches = p23_batches(V, 23, 5)       # (a)'s 2, (c)'s 1, the hybrid's 2
+    t0 = time.perf_counter()
+    for b in batches[:2]:
+        trainer.train_batch(b)
+    p23_sync(dev)
+    a_train_s = time.perf_counter() - t0
+    fresh, new_w, a = p23_bridge(trainer, engine, V, dev)
+    b = p23_swap(engine, fresh, model, new_w, pre, V, dev)
+    del fresh, new_w
+    gc.collect()
+    peak_a = torch.cuda.max_memory_allocated() if cuda else 0
+    a.update(p23_donate(trainer, engine, dev))
+    a["swap_after_donate_version"] = engine.swap_weights(engine.weights)
+    print("rollout-bridge " + json.dumps({
+        **a, "train_2_steps_s": a_train_s, "nvidia_smi": smi_line() if cuda else "cpu"}),
+        flush=True)
+    print("rollout-swap " + json.dumps(b), flush=True)
+    fe = engine.serving_frontend()
+    fe.start()
+    c = p23_traffic(trainer, engine, fe, model, batches[2], V, dev)
+    print("rollout-traffic " + json.dumps(c), flush=True)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    entries0 = engine.step_cache_entries()
+    losses, collated, d = p23_loop(trainer, fe, V, dev)
+    fe.close()
+    if engine.step_cache_entries() != entries0:
+        raise AssertionError("phase 23 (d): the loop's swaps added step-cache entries")
+    del fe, engine
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    h = p23_hybrid(trainer, model, batches[3:5], V, dev)
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    missing = [k for k in ("flash_packed", "paged_chunk", "paged_decode") + K1_NAMES
+               if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"phase 23: kernels not launched on the main path: {missing}")
+    peak = max(peak_a, torch.cuda.max_memory_allocated()) / 2 ** 30 if cuda else None
+    # the replay: a trainer rebuilt from the seed over the same batches, the
+    # first trainer freed first
+    del trainer, model
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    replay = p23_replay(cfg, batches[:3] + collated, dev)[3:]
+    same = np.asarray(replay, np.float32).tobytes() == np.asarray(losses, np.float32).tobytes()
+    print(f"phase 23 (d) loop losses {losses} vs replay {replay}, bitwise {same}", flush=True)
+    if not same:
+        raise AssertionError("phase 23 (d): the loop's losses differ from the replay's")
+    print("rollout " + json.dumps({
+        "phase": 23, "model": "Llama-2-7B", "layers": cfg.num_hidden_layers,
+        "params": n_params, "loop": d, "hybrid": h, "replay_bitwise": same,
+        "launches": {k: launches.get(k, 0) for k in P23_NAMES}, "peak_gib": peak,
+        "nvidia_smi": smi_line() if cuda else "cpu"}), flush=True)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    print(f"phase 23: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 ATTN_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "flash_fwd", "flash_bwd_dq",
               "flash_bwd_dkv")
 Q_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk", "splitk_merge",
@@ -7964,6 +8610,10 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    # phase 23: the colocated rollout and the hybrid engine; likewise
+    rollout_launches = run_rollout()
+    gc.collect()
+    torch.cuda.empty_cache()
     # modules by full name: the package re-exports same-named functions
     from deepspeed_tpu_torch.ops.kernels import paged_chunk, paged_decode, paged_splitk
     from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import KERNELS as K9_KERNELS
@@ -8054,9 +8704,10 @@ def main() -> int:
                          if "library_covers" in r else {}),
                       **({"serving_launches": {
                           "phase21": serving_launches.get(name, 0),
-                          "phase22": cluster_launches.get(name, 0)}}
+                          "phase22": cluster_launches.get(name, 0),
+                          "phase23": rollout_launches.get(name, 0)}}
                          if serving_launches.get(name) or cluster_launches.get(name)
-                         else {})})
+                         or rollout_launches.get(name) else {})})
     print(f"chip_smoke.py: {time.perf_counter() - t0:.1f} s from the build on", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

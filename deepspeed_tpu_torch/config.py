@@ -890,7 +890,8 @@ class DeepSpeedTPUConfig(ConfigModel):
             ("activation_checkpointing.cpu_checkpointing",
              self.activation_checkpointing.cpu_checkpointing),
             ("compression_training", self.compression_training is not None),
-            ("hybrid_engine", self.hybrid_engine.enabled),
+            (f"hybrid_engine.inference_tp_size = {self.hybrid_engine.inference_tp_size}",
+             self.hybrid_engine.enabled and self.hybrid_engine.inference_tp_size > 1),
             ("flops_profiler", self.flops_profiler.enabled),
         ] if on]
         off += [f"mesh.{a} = {getattr(self.mesh, a)}"

@@ -82,6 +82,15 @@ step_cache_entries`), the port's form of the JAX engine's compile count.
 ``engine.serving_frontend()`` builds the serving frontend
 (``serving/frontend.py``) over the engine.
 
+Every step function takes the weight tree as an argument at each call
+(``fn(self.weights, self.kv.kv, ...)``), so ``swap_weights`` rebinds
+``self.weights`` to a tree of the same names, shapes, dtypes and device
+with no new step-cache entry: the colocated rollout's swap
+(``runtime/colocated.py``; ``weight_bridge`` builds its ``WeightBridge``).
+The engine must hold no live sequence (their KV is old-weight state), the
+weight version only rises, the prefix cache flushes by it, and the logits
+kept from pre-swap passes are dropped.
+
 The engine runs on the card unless the caller asks for the CPU:
 ``device=None`` means ``cuda``, and on a machine without CUDA the
 constructor raises. On the CPU every kernel wrapper runs its plain PyTorch
@@ -98,6 +107,7 @@ import warnings
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.checkpoint.state import flatten_tree
 from deepspeed_tpu_torch.inference.v2.attention import AttentionKernelSpec
 from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
 from deepspeed_tpu_torch.inference.v2.ragged.blocked_allocator import BlockedAllocator
@@ -408,6 +418,8 @@ class InferenceEngineV2:
         self._last_logits: Dict[int, np.ndarray] = {}
         # device-resident logits refs: uid -> (tensor [P, V], row)
         self._last_ref: Dict[int, Tuple[torch.Tensor, int]] = {}
+        # bumped by every swap_weights; the prefix cache keys staleness on it
+        self.weight_version = 0
         install_from_env()
         if cfg.compile.warmup:
             self.warmup(buckets=cfg.compile.warmup_buckets,
@@ -888,11 +900,77 @@ class InferenceEngineV2:
         return ServingFrontend(self, config=config, uid_base=uid_base)
 
     def weight_bridge(self, train_engine, **kwargs):
-        """The colocated rollout's weight bridge is not ported yet: refused
-        by name."""
-        raise NotImplementedError(
-            "weight_bridge (the colocated rollout): not ported to "
-            "deepspeed_tpu_torch yet")
+        """A :class:`~deepspeed_tpu_torch.runtime.colocated.WeightBridge`
+        from a colocated training engine into this engine's weight layout:
+        the trainer's master cast on the card, swapped in through
+        :meth:`swap_weights` with no new step-cache entry."""
+        from deepspeed_tpu_torch.runtime.colocated import WeightBridge
+        return WeightBridge(train_engine, self, **kwargs)
+
+    # ------------------------------------------------------------------ #
+    # in-place weight swap (the colocated rollout; runtime/colocated.py)
+    # ------------------------------------------------------------------ #
+
+    def swap_weights(self, new_weights: Any, version: Optional[int] = None) -> int:
+        """Rebind ``self.weights`` to ``new_weights``: the train->serve sync
+        point of the colocated rollout loop.
+
+        Every step function takes the weight tree at each call, so a tree
+        that matches the old one leaf for leaf in name, shape, dtype and
+        device reuses every built step (no step-cache entry is added);
+        anything else is refused before any state changes. The engine must
+        hold no live sequence (their KV was computed under the old
+        weights; the serving frontend's swap recompute-preempts them at a
+        run boundary, direct callers flush every uid). The prefix cache
+        flushes by weight version, and the logits kept from pre-swap
+        passes are dropped. Returns the new ``weight_version``."""
+        if self.scheduler.seqs:
+            raise RuntimeError(
+                f"swap_weights with {len(self.scheduler.seqs)} live "
+                "sequence(s) — their KV was computed under the old weights; "
+                "quiesce first (frontend swap preempts at a run boundary, "
+                "direct callers flush() every uid)")
+        old = flatten_tree(self.weights)
+        new = flatten_tree(new_weights)
+        if list(new) != list(old):
+            raise ValueError(
+                "swap_weights tree structure mismatch — the replacement tree must "
+                "come from the same family adapter layout (missing "
+                f"{sorted(set(old) - set(new))[:4]}, unexpected "
+                f"{sorted(set(new) - set(old))[:4]})")
+        for path, o in old.items():
+            n = new[path]
+            if not isinstance(n, torch.Tensor):
+                raise ValueError(f"swap_weights leaf {path}: a {type(n).__name__}, "
+                                 "not a tensor")
+            if n.shape != o.shape or n.dtype != o.dtype:
+                raise ValueError(
+                    f"swap_weights leaf {path}: expected {o.dtype}{list(o.shape)}, got "
+                    f"{n.dtype}{list(n.shape)} — the serving steps are built for the "
+                    "engine's layout")
+            if n.device != o.device:
+                raise ValueError(
+                    f"swap_weights leaf {path}: on {n.device}, the engine serves on "
+                    f"{o.device} — build the tree through WeightBridge "
+                    "(runtime/colocated.py), which casts on the engine's device")
+        if version is None:
+            version = self.weight_version + 1
+        elif version <= self.weight_version:
+            raise ValueError(
+                f"swap_weights version {version} is not newer than the current "
+                f"weight_version {self.weight_version} — versions are monotone "
+                "(the prefix cache keys staleness on them)")
+        self.weights = new_weights
+        self.weight_version = version
+        if self.prefix_cache is not None:
+            # flush by version: cached pages hold old-weight KV, so a
+            # post-swap match must miss and re-prefill
+            self.prefix_cache.set_weight_version(version)
+        # logits kept from pre-swap passes are old-weight state: dropped,
+        # never sampled from
+        self._last_logits.clear()
+        self._last_ref.clear()
+        return version
 
     # ------------------------------------------------------------------ #
     # KV page fabric: pages to the host and back, and page handoffs

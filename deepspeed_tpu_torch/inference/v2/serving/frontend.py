@@ -27,8 +27,10 @@ Request lifecycle spans (``serve/req/{queued,prefill,decode,preempted,
 restore}``) land on a per-request trace lane, and the aggregate counters in
 ``monitor/serving.FrontendStats`` (``serve/frontend/*``).
 
-Weight swaps between decode slices (``swap_weights``, the colocated
-rollout) are not ported yet and are refused by name.
+Weight swaps run between decode slices (``swap_weights``, the colocated
+rollout): on the engine thread, at the run boundary preemption owns, every
+holder of old-weight KV is turned into a recompute victim (adapter-bound
+requests shed) before the engine rebinds its weights.
 """
 
 from __future__ import annotations
@@ -454,11 +456,40 @@ class ServingFrontend:
 
     def swap_weights(self, new_weights, version: Optional[int] = None,
                      timeout: Optional[float] = None) -> int:
-        """Weight swaps at a run boundary (the colocated rollout) are not
-        ported yet: refused by name."""
-        raise NotImplementedError(
-            "swap_weights (the colocated rollout's weight swap): not ported "
-            "to deepspeed_tpu_torch yet")
+        """Swap the engine's weights in place at the next run boundary: the
+        serving half of the colocated rollout loop (``runtime/colocated.py``).
+
+        The swap runs ON the engine thread between decode slices, where
+        preemption runs: every live request is recompute-preempted (its KV
+        dropped, prompt + tokens so far kept; the restore re-prefills under
+        the NEW weights), offload-preempted victims and pending handoffs
+        become recompute victims too (their parked KV pages are old-weight
+        state), and the prefix cache flushes by weight version.
+        Adapter-bound live requests shed, as ``_preempt``'s host-capacity
+        fallback does (a base-only re-prefill of adapter-delta KV would
+        diverge). No stream is served across the boundary with stale KV.
+
+        Blocks until the swap is applied or refused; a refusal raises here
+        and the loop keeps serving the OLD weights (the engine validates
+        before it rebinds). Runs inline when no engine thread is running
+        (synchronous ``step()`` loops). Returns the new
+        ``weight_version``."""
+        if self._closed or self._fenced:
+            raise RuntimeError("frontend is closed"
+                               if self._closed else
+                               "frontend is fenced (replica down)")
+        if self._thread is None or not self._thread.is_alive():
+            return self._apply_swap(new_weights, version)
+        done = threading.Event()
+        box: Dict[str, object] = {}
+        self._ctl.put(("swap", (new_weights, version, done, box)))
+        if not done.wait(timeout if timeout is not None else 120.0):
+            raise TimeoutError(
+                "weight swap not applied within the timeout — the engine "
+                "thread is wedged or a decode slice is extremely long")
+        if "exc" in box:
+            raise box["exc"]
+        return box["version"]    # type: ignore[return-value]
 
     @property
     def outstanding(self) -> int:
@@ -695,6 +726,17 @@ class ServingFrontend:
             req.status = PREEMPTED
             req.preempt_t = req._phase_t0 = now
             self._preempted[req.uid] = req
+        elif kind == "swap":
+            # weight swap (colocated rollout): runs HERE, on the engine
+            # thread between decode slices; a refusal reports to the waiting
+            # caller and the loop keeps serving the old weights
+            new_weights, version, done, box = payload
+            try:
+                box["version"] = self._apply_swap(new_weights, version)
+            except BaseException as exc:
+                box["exc"] = exc
+            finally:
+                done.set()
         # cancellation rides the handle's event (no message): the sweeps /
         # on_tokens observe it within one iteration, and an idle loop ticks
         # every idle_wait_s — disconnects are never waited on indefinitely
@@ -1045,6 +1087,67 @@ class ServingFrontend:
         # binding drops across the preempted window (the request holds no
         # decode gathers); _restore re-acquires — faulting pages back in if
         # pressure evicted them meanwhile
+        self._lora_release(req)
+        req.status = PREEMPTED
+        req.preempt_t = req._phase_t0 = now
+        req.preemptions += 1
+        self._preempted[uid] = req
+        self.stats.preemptions += 1
+
+    def _apply_swap(self, new_weights, version: Optional[int]) -> int:
+        """Quiesce every holder of old-weight KV, then rebind the engine's
+        weights (engine thread, or a synchronous caller). The quiesce is not
+        rolled back if the engine refuses the tree: preempted requests
+        re-prefill under whichever weights are live when they restore,
+        which is right either way."""
+        for req in list(self._live.values()):
+            self._preempt_for_swap(req)
+        if self.offload is not None:
+            # offload-preempted victims parked old-weight KV pages on the
+            # host: a byte-exact restore would bring stale state back under
+            # the new weights, so they become recompute victims. Their
+            # sequences, which still hold the kept shared-prefix pages, are
+            # flushed too: the JAX frontend leaves them live, and its engine
+            # then refuses the swap
+            for uid, req in list(self._preempted.items()):
+                if uid in self.offload._recs:
+                    self.offload.drop(uid)
+                    self.engine.flush([uid])
+                    req._resume_tokens = np.concatenate(
+                        [req.prompt, np.asarray(req.tokens, np.int32)])
+                    self.stats.recompute_preemptions += 1
+        if self._handoffs:
+            # handoffs awaiting import hold another replica's old-weight KV
+            # in host buffers: each is adopted as a recompute victim instead
+            # (the shape the failover "resume" path uses)
+            now = time.perf_counter()
+            for req, _pages, _logits, history in self._handoffs:
+                req._resume_tokens = np.asarray(history, np.int32)
+                req.status = PREEMPTED
+                req.preempt_t = req._phase_t0 = now
+                self._preempted[req.uid] = req
+            self._handoffs = []
+        return self.engine.swap_weights(new_weights, version=version)
+
+    def _preempt_for_swap(self, req: RequestHandle) -> None:
+        """Preempt one live request for a weight swap: ALWAYS recompute
+        (never offload: parked KV would be stale-weight state on restore);
+        adapter-bound requests shed, the same rule as ``_preempt``'s
+        host-capacity fallback (decode-written KV carries the adapter's k/v
+        deltas, which a base-only re-prefill would lose)."""
+        uid = req.uid
+        now = time.perf_counter()
+        self._span(req, "decode", req._phase_t0, now)
+        self._pipe.retire([uid])
+        self._live.pop(uid, None)
+        if req.adapter is not None:
+            self.stats.forced_sheds += 1
+            self._teardown(req, SHED)
+            return
+        req._resume_tokens = np.concatenate(
+            [req.prompt, np.asarray(req.tokens, np.int32)])
+        self.engine.flush([uid])
+        self.stats.recompute_preemptions += 1
         self._lora_release(req)
         req.status = PREEMPTED
         req.preempt_t = req._phase_t0 = now

@@ -2,8 +2,12 @@
 dense forward used as the oracle the engine is held against, and the
 training forward the training engine differentiates.
 
-Nothing on the serving path calls :class:`LlamaForCausalLM`'s forwards: the
-engine reads its configuration and its parameters. The training forward
+Nothing on the v2 serving path calls :class:`LlamaForCausalLM`'s forwards:
+the engine reads its configuration and its parameters. The v1 inference
+engine (``inference/engine.py``) runs :meth:`LlamaForCausalLM.decode`, an
+incremental step over the dense KV cache of :func:`init_cache` (the JAX
+package's ``decode_layers``; plain torch, as the JAX package computes it in
+XLA with no Pallas kernel). The training forward
 (``model(batch)`` -> mean next-token loss, the JAX package's
 ``LlamaForCausalLM.__call__``) sends attention through
 ``ops.attention.dot_product_attention`` (the flash kernel K1), its layers
@@ -363,6 +367,53 @@ class LlamaForCausalLM(nn.Module):
         return (mlp_gate_act(self.config.mlp_act)(m.gate_proj(h, dt))
                 * m.up_proj(h, dt)) @ m.down_proj.kernel.to(dt)
 
+    @torch.no_grad()
+    def decode(self, input_ids: torch.Tensor, cache: Dict[str, torch.Tensor],
+               cache_index: int, positions: Optional[torch.Tensor] = None):
+        """One incremental step over the dense KV cache (prefill or
+        single-token decode), the JAX package's ``LlamaForCausalLM.decode``.
+
+        ``input_ids`` [B, T]; ``cache`` from :func:`init_cache` ({"k", "v"}
+        [L, B, S_max, Hkv, D]); ``cache_index`` the write offset. Writes
+        this step's K/V rows into the cache IN PLACE and returns (logits
+        [B, T, V] f32, cache). Computed in ``config.dtype``, as the flax
+        model's layers compute."""
+        return decode_layers(self, input_ids, cache, cache_index, positions)
+
+    def decode_layer(self, layer: nn.Module, x: torch.Tensor, positions: torch.Tensor,
+                     cos: torch.Tensor, sin: torch.Tensor, ck: torch.Tensor,
+                     cv: torch.Tensor, cache_index: int, dt: torch.dtype) -> torch.Tensor:
+        """One layer of :meth:`decode` (the JAX package's ``LlamaBlock.decode``
+        with the dense branch of ``LlamaAttention.decode``): the step's K/V
+        rows go into the layer's cache ``ck``/``cv`` [B, S_max, Hkv, D] at
+        ``cache_index``; each query attends the cache slots at or before its
+        position (and inside the sliding window, when there is one) with
+        f32 scores, as ``reference_attention`` under ``_window_bias``."""
+        cfg = self.config
+        B, T, _ = x.shape
+        H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        eps, p1 = cfg.rms_norm_eps, cfg.norm_plus_one
+        a = layer.self_attn
+        h = rms_norm(x, layer.input_layernorm.weight, eps, dt, p1)
+        q = apply_rope(a.q_proj(h, dt).view(B, T, H, D), cos, sin)
+        k = apply_rope(a.k_proj(h, dt).view(B, T, Hkv, D), cos, sin)
+        v = a.v_proj(h, dt).view(B, T, Hkv, D)
+        ck[:, cache_index:cache_index + T] = k.to(ck.dtype)
+        cv[:, cache_index:cache_index + T] = v.to(cv.dtype)
+        S = ck.shape[1]
+        kk = ck.repeat_interleave(H // Hkv, dim=2)
+        vv = cv.repeat_interleave(H // Hkv, dim=2)
+        k_pos = torch.arange(S, device=x.device).expand(B, S)
+        visible = window_mask(positions, k_pos, cfg.sliding_window)[:, None]
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() * D ** -0.5
+        s = s.masked_fill(~visible, torch.finfo(torch.float32).min)
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        del s
+        o = torch.einsum("bhqk,bkhd->bqhd", p, vv).reshape(B, T, H * D)
+        x = x + a.o_proj(o, dt)
+        h = rms_norm(x, layer.post_attention_layernorm.weight, eps, dt, p1)
+        return x + self.ffn(layer, h, dt)
+
     def named_flat_parameters(self) -> Dict[str, nn.Parameter]:
         """The parameters themselves, by their flax names (``/``-joined)."""
         return {n.replace(".", "/"): p for n, p in self.named_parameters()}
@@ -421,6 +472,51 @@ class LlamaForCausalLM(nn.Module):
         x = x + a.o_proj(o.reshape(B, T, H * D), dt)
         h = rms_norm(x, layer.post_attention_layernorm.weight, eps, dt, p1)
         return x + self.ffn(layer, h, dt)
+
+
+def decode_layers(model: LlamaForCausalLM, input_ids: torch.Tensor,
+                  cache: Dict[str, torch.Tensor], cache_index: int,
+                  positions: Optional[torch.Tensor] = None):
+    """The incremental-decode trunk (the JAX package's ``decode_layers``):
+    embedding, every layer's :meth:`LlamaForCausalLM.decode_layer` over its
+    slice of the dense cache, the final norm and the head. Positions
+    default to ``cache_index + arange(T)``. Returns (logits [B, T, V] f32,
+    cache)."""
+    if "k_scale" in cache:
+        raise NotImplementedError(
+            "the int8 dense KV cache tier (quantized_cache_append / "
+            "quantized_cache_attention): not ported to deepspeed_tpu_torch yet")
+    cfg = model.config
+    dt = cfg.dtype
+    input_ids = input_ids.long()
+    B, T = input_ids.shape
+    if positions is None:
+        positions = cache_index + torch.arange(T, device=input_ids.device).expand(B, T)
+    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    x = embed_scale(model.embed_tokens.embedding[input_ids].to(dt), cfg)
+    for i, layer in enumerate(model.layers):
+        x = model.decode_layer(layer, x, positions, cos, sin, cache["k"][i], cache["v"][i],
+                               int(cache_index), dt)
+    x = rms_norm(x, model.norm.weight, cfg.rms_norm_eps, dt, cfg.norm_plus_one)
+    return model.lm_head(x, dt).float(), cache
+
+
+def init_cache(config: LlamaConfig, batch_size: int, max_len: int, dtype=None,
+               kv_bits=None, device=None) -> Dict[str, torch.Tensor]:
+    """The dense per-sequence KV cache of the v1 inference engine (the JAX
+    package's ``init_cache``): {"k", "v"} zeros [L, B, max_len, Hkv, D] in
+    ``dtype`` (default ``config.dtype``) on ``device`` (default: the CUDA
+    device). ``kv_bits=8``, the int8 tier, is refused by name."""
+    if kv_bits == 8:
+        raise NotImplementedError(
+            "init_cache(kv_bits=8), the int8 dense KV cache tier: not ported to "
+            "deepspeed_tpu_torch yet")
+    if kv_bits is not None:
+        raise ValueError(f"kv_bits must be None or 8, got {kv_bits!r}")
+    shape = (config.num_hidden_layers, batch_size, max_len,
+             config.num_key_value_heads, config.head_dim)
+    kw = dict(dtype=dtype or config.dtype, device=resolve_device(device))
+    return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
 
 
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -101,6 +101,11 @@ class MixtralForCausalLM(LlamaForCausalLM):
         raise NotImplementedError("MoE training (Mixtral's training forward and its "
                                   "router loss): not ported to deepspeed_tpu_torch yet")
 
+    def decode(self, input_ids, cache, cache_index, positions=None):
+        raise NotImplementedError("Mixtral's decode over the dense KV cache (the v1 "
+                                  "inference engine's step): not ported to "
+                                  "deepspeed_tpu_torch yet")
+
     def ffn(self, layer: nn.Module, h: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
         """Dropless top-k routing of ``h`` [B, T, hidden] through the
         layer's experts (the JAX package's ``dropless_moe``)."""

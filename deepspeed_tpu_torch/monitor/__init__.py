@@ -1,12 +1,14 @@
 """Monitoring (the JAX package's ``monitor/``): the step loop's and the
 checkpoint counters (``training.TrainPipelineStats``,
-``training.CheckpointStats``), the serving counters (``serving.FrontendStats``,
+``training.CheckpointStats``), the colocated rollout's
+(``training.RolloutStats``), the serving counters (``serving.FrontendStats``,
 ``HealthStats``, ``RouterStats``, ``PipelineStats``), the span tracer
 (``trace.tracer``, armed by ``DSTPU_TRACE``) and the ``(name, value,
 step)`` event record they emit. The monitor writers (TensorBoard, W&B, CSV)
 wait for their slice; ``config.check_slice`` refuses their sections, and
 the training config's ``monitor.trace``, by name."""
 
-from deepspeed_tpu_torch.monitor.training import CheckpointStats, Event, TrainPipelineStats
+from deepspeed_tpu_torch.monitor.training import (CheckpointStats, Event, RolloutStats,
+                                                  TrainPipelineStats)
 
-__all__ = ["Event", "CheckpointStats", "TrainPipelineStats"]
+__all__ = ["Event", "CheckpointStats", "RolloutStats", "TrainPipelineStats"]

@@ -1,6 +1,7 @@
 """Training observability (the JAX package's ``monitor/training.py``): the
 step loop's counters (``TrainPipelineStats``), the checkpoint counters
-(``CheckpointStats``) and the ``Event`` record they emit."""
+(``CheckpointStats``), the colocated rollout's counters (``RolloutStats``)
+and the ``Event`` record they emit."""
 
 from __future__ import annotations
 
@@ -115,4 +116,75 @@ class CheckpointStats:
             ("train/ckpt/writer_queue_depth", self.queue_depth_sum / n, step),
             ("train/ckpt/retries", float(self.retries), step),
             ("train/ckpt/pruned_tags", float(self.pruned), step),
+        ]
+
+
+@dataclass
+class RolloutStats:
+    """The colocated rollout loop's counters (``runtime/colocated.py``),
+    aggregated from the SAME ``perf_counter`` stamp pairs that become the
+    ``train/rollout/{sync,swap,generate}`` tracer spans: one ``record_*``
+    call a span, so the sums equal the spans'.
+
+    Phase semantics (per rollout round):
+
+    - ``sync``: the WeightBridge's cast of the fp32 master into the serving
+      layout on the card, waited on; ``sync_bytes`` is the serving tree's
+      size, with no host round trip (the universal checkpoint's disk path,
+      ``ckpt/*``, is what it replaces).
+    - ``swap``: the rebind of the live serving engine's weights at a run
+      boundary: the quiesce of in-flight decode (recompute preemption, or
+      a shed for adapter-bound requests), the weight-version bump and the
+      prefix cache's flush. ``preempted`` and ``shed`` count the quiesce's
+      casualties; on an idle engine both are 0.
+    - ``generate``: the serving leg of the round, submitting prompts and
+      draining the rollouts that feed the next train batch.
+    """
+
+    rounds: int = 0
+    sync_ms: float = 0.0
+    swap_ms: float = 0.0
+    generate_ms: float = 0.0
+    sync_bytes: int = 0
+    preempted: int = 0
+    shed: int = 0
+    requests: int = 0
+    tokens: int = 0
+    weight_version: int = 0
+
+    def record_sync(self, seconds: float, *, nbytes: int = 0) -> None:
+        self.rounds += 1
+        self.sync_ms += 1e3 * seconds
+        self.sync_bytes = int(nbytes)
+
+    def record_swap(self, seconds: float, *, version: int = 0,
+                    preempted: int = 0, shed: int = 0) -> None:
+        self.swap_ms += 1e3 * seconds
+        self.weight_version = int(version)
+        self.preempted += int(preempted)
+        self.shed += int(shed)
+
+    def record_generate(self, seconds: float, *, requests: int = 0,
+                        tokens: int = 0) -> None:
+        self.generate_ms += 1e3 * seconds
+        self.requests += int(requests)
+        self.tokens += int(tokens)
+
+    def reset(self) -> None:
+        for name, default in type(self).__dataclass_fields__.items():
+            setattr(self, name, default.default)
+
+    def events(self, step: int = 0) -> List[Event]:
+        n = max(1, self.rounds)
+        return [
+            ("train/rollout/rounds", float(self.rounds), step),
+            ("train/rollout/sync_ms_per_round", self.sync_ms / n, step),
+            ("train/rollout/swap_ms_per_round", self.swap_ms / n, step),
+            ("train/rollout/generate_ms_per_round", self.generate_ms / n, step),
+            ("train/rollout/sync_bytes", float(self.sync_bytes), step),
+            ("train/rollout/preempted", float(self.preempted), step),
+            ("train/rollout/shed", float(self.shed), step),
+            ("train/rollout/requests", float(self.requests), step),
+            ("train/rollout/tokens", float(self.tokens), step),
+            ("train/rollout/weight_version", float(self.weight_version), step),
         ]

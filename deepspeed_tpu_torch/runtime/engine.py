@@ -167,6 +167,9 @@ class DeepSpeedTPUEngine:
         # deferred metric drain: (step, device metrics) entries
         self._pending_metrics: deque = deque()
         self.train_stats = TrainPipelineStats()
+        # ZeRO++ qwZ's int8 parameter storage is not ported: the params are
+        # always full width here (the flag keeps the JAX engine's name)
+        self.quantized_weights = False
         self._init_state(model_parameters)
 
         # progressive layer drop: its draws are seeded from (seed, step), so
@@ -246,6 +249,22 @@ class DeepSpeedTPUEngine:
 
     def _current_params(self) -> Dict[str, torch.Tensor]:
         return self.state["params"] if self.mixed_precision else self.state["master"]
+
+    def rollout_source_params(self) -> Dict[str, torch.Tensor]:
+        """The device-resident tree the colocated ``WeightBridge``
+        (``runtime/colocated.py``) casts from: ``state["master"]``, the fp32
+        master by flax name, exactly what ``ds_to_universal`` serialises
+        (so the bridge is the universal checkpoint's path without the
+        disk). Nothing is copied. Quantized weights are refused in the JAX
+        engine's words; its other branch, the merged params of a cpu-offload
+        engine, waits for offload's port (the config refuses offload by
+        name)."""
+        if self.quantized_weights:
+            raise NotImplementedError(
+                "colocated weight sync from a quantized-weight (ZeRO++ qwZ) "
+                "engine is not wired — the bridge would have to dequantize "
+                "per sync; train unquantized or sync via checkpoint")
+        return self.state["master"]
 
     # ------------------------------------------------------------------ #
     # the step
@@ -397,8 +416,11 @@ class DeepSpeedTPUEngine:
         gnorm = global_norm(grads)
         overflow = has_overflow(grads) if fp16.enabled else None
         if cfg.gradient_clipping > 0:
+            # in place: the step's grads are its own fresh tensors, and a
+            # second fp32 copy of them would sit under the optimizer's
+            # temporaries at the step's memory peak
             cscale = torch.clamp(cfg.gradient_clipping / (gnorm + 1e-6), max=1.0)
-            grads = dict(zip(grads, torch._foreach_mul(list(grads.values()), cscale)))
+            torch._foreach_mul_(list(grads.values()), cscale)
         lr = self._lr_fn(st["step"])
         names = list(st["master"])
         with torch.no_grad():

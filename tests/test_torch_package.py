@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.checkpoint.state import flatten_tree, unflatten_into
 from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
 from deepspeed_tpu_torch.inference.v2.attention import AttentionKernelSpec
 from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
@@ -157,6 +158,30 @@ def test_checkpoint_modules_import_without_jax():
                    env={**os.environ, "PYTHONPATH": str(ROOT)})
 
 
+ROLLOUT_MODULES = ("deepspeed_tpu_torch.runtime.colocated",
+                   "deepspeed_tpu_torch.runtime.hybrid_engine",
+                   "deepspeed_tpu_torch.inference.config", "deepspeed_tpu_torch.inference.engine",
+                   "deepspeed_tpu_torch.utils.timer", "deepspeed_tpu_torch.monitor.training")
+
+
+def test_rollout_modules_import_without_jax():
+    """The colocated rollout's and the hybrid engine's modules, each
+    imported by its own name in a fresh interpreter, load no JAX and
+    nothing of the JAX package, and the entry points are where a user
+    looks for them."""
+    code = ("import importlib, sys; "
+            f"mods = [importlib.import_module(m) for m in {ROLLOUT_MODULES!r}]; "
+            "assert hasattr(mods[0], 'WeightBridge') and hasattr(mods[0], 'RolloutLoop'); "
+            "assert hasattr(mods[1], 'DeepSpeedHybridEngine'); "
+            "assert hasattr(mods[5], 'RolloutStats'); "
+            "import deepspeed_tpu_torch; assert callable(deepspeed_tpu_torch.init_inference); "
+            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'deepspeed_tpu') "
+            "or m.startswith(('jax.', 'flax.', 'deepspeed_tpu.'))]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120,
+                   env={**os.environ, "PYTHONPATH": str(ROOT)})
+
+
 TRAINING_MODULES = ("deepspeed_tpu_torch.ops.lamb", "deepspeed_tpu_torch.ops.lion",
                     "deepspeed_tpu_torch.ops.adagrad", "deepspeed_tpu_torch.ops.sgd",
                     "deepspeed_tpu_torch.runtime.activation_checkpointing",
@@ -227,7 +252,8 @@ def test_serving_slice_exports(module, names):
 def test_serving_frontend_defaults_to_the_card(monkeypatch):
     """``engine.serving_frontend()`` serves on the engine's device, which
     is the card unless the caller asked for the CPU; the colocated
-    rollout's weight swap is refused by name."""
+    rollout's weight swap runs there (it was refused by name until it was
+    ported), and a tree on another device is refused."""
     model, econf = _tiny_engine_args()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -235,10 +261,14 @@ def test_serving_frontend_defaults_to_the_card(monkeypatch):
     e = InferenceEngineV2(model, econf, model.flat_params(), device="cpu")
     fe = e.serving_frontend()
     assert fe.engine.device.type == "cpu" and not fe.offload.pool.pin_memory
-    with pytest.raises(NotImplementedError, match="swap_weights"):
+    with pytest.raises(ValueError, match="structure"):
         fe.swap_weights({})
-    with pytest.raises(NotImplementedError, match="weight_bridge"):
-        e.weight_bridge(None)
+    moved = unflatten_into(e.weights, {k: t.to("meta")
+                                       for k, t in flatten_tree(e.weights).items()})
+    with pytest.raises(ValueError, match="on meta"):
+        fe.swap_weights(moved)
+    assert fe.swap_weights(unflatten_into(e.weights, flatten_tree(e.weights))) == 1
+    assert e.weight_version == 1
     fe.close()
 
 
