@@ -7155,6 +7155,7 @@ P21_TIE_ROWS = 3          # prompts whose last row sets the near-tie limit
 # handoffs and failover, not SLOs (phase 21 does): at a shed factor of
 # 1000 its default classes shed nothing, in the frontends or the router
 P22_SHED_FACTOR = 1000.0
+P22_LAYERS = 8            # of the 32 (phase 21 keeps 32; phase 24 took the time)
 P22_ENGINE = {"kv_cache": {"block_size": 128, "num_blocks": 80},
               "prefix_cache": {"enabled": True}, "seed": 0,
               "serving": {"decode_slice": 4, "shed_factor": P22_SHED_FACTOR}}
@@ -8489,6 +8490,598 @@ def run_rollout(layers: int = P23_LAYERS, dev="cuda", cfg=None):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 24: the offload tier (host and NVMe optimizer state, activation
+# offload) training all 32 layers of Llama-2-7B
+# --------------------------------------------------------------------------- #
+
+P24_LAYERS = 32
+P24_T = 4096
+P24_STEPS = 4             # (a): the first cold, the rest timed warm
+P24_HEADROOM = 1.25       # the host must hold the host state this many times over
+P24_POOL = 4              # host-kernel workers of (a)'s last, uncounted step
+P24_STAGING = 4 * 10 ** 9  # pinned staging and the process's own growth, bytes
+P24_DEVICE_FLOW_MAX = 20 * 10 ** 9   # device bytes of state the twin flow may add
+P24_CONFIG = {
+    "train_batch_size": 2, "train_micro_batch_size_per_gpu": 1,
+    "bf16": {"enabled": True}, "gradient_clipping": 1.0, "steps_per_print": 0,
+    "zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu"}},
+    "optimizer": {"type": "AdamW", "params": {"lr": 3e-4, "betas": [0.9, 0.95],
+                                              "eps": 1e-8, "weight_decay": 0.1}},
+    "scheduler": {"type": "WarmupLR", "params": {"warmup_min_lr": 0, "warmup_max_lr": 3e-4,
+                                                 "warmup_num_steps": 2}},
+}
+P24_NOOFFLOAD_GB = 121.0  # bf16 params + fp32 master + AdamW moments + fp32 grads, 7B
+P24_B_SMALL = {}          # GPT2Config overrides of (b)'s model (none: phase 5's)
+P24_B_STEPS = 6
+P24_B_RESUME_AT = 3
+P24_C_LAYERS = 2
+P24_D_PROMPTS = (700, 900)
+P24_D_NEW = 16
+P24_ENGINE = {"kv_cache": {"block_size": 128, "num_blocks": 24},
+              "state_manager": {"max_context": 2048}, "seed": 0}
+P24_DISK_PROBE = 1 << 30  # bytes written and read back to rate the NVMe directory
+P24_D_NAMES = ("flash_packed", "paged_decode")
+
+
+def p24_meminfo() -> dict:
+    """MemTotal and MemAvailable in bytes (``/proc/meminfo``), the memory
+    limit and usage of this process's cgroup where one is set (v2's
+    ``memory.max`` / ``memory.current``, v1's ``memory.limit_in_bytes`` /
+    ``memory.usage_in_bytes``), and ``avail``: the least of MemAvailable
+    and the cgroup's room."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, _, rest = line.partition(":")
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(rest.split()[0]) * 1024
+    out["avail"] = out.get("MemAvailable", 0)
+    try:
+        with open("/proc/self/cgroup") as f:
+            lines = [ln.strip().split(":", 2) for ln in f if ln.strip()]
+    except OSError:
+        lines = []
+    for _, ctrl, rel in lines:
+        if ctrl == "":
+            base, names = os.path.join("/sys/fs/cgroup", rel.lstrip("/")), \
+                ("memory.max", "memory.current")
+        elif "memory" in ctrl.split(","):
+            base, names = os.path.join("/sys/fs/cgroup/memory", rel.lstrip("/")), \
+                ("memory.limit_in_bytes", "memory.usage_in_bytes")
+        else:
+            continue
+        try:
+            with open(os.path.join(base, names[0])) as f:
+                limit = f.read().strip()
+            with open(os.path.join(base, names[1])) as f:
+                current = int(f.read().strip())
+        except (OSError, ValueError):
+            continue
+        if limit.isdigit() and int(limit) < out.get("MemTotal", 0):
+            out["cgroup_max"], out["cgroup_current"] = int(limit), current
+            out["avail"] = min(out["avail"], int(limit) - current)
+    return out
+
+
+def p24_fstype(path: str) -> str:
+    """The filesystem type of the mount holding ``path`` (``/proc/mounts``,
+    longest mount point that prefixes it)."""
+    path = os.path.realpath(path)
+    best, kind = "", "unknown"
+    with open("/proc/mounts") as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) < 3:
+                continue
+            mnt = parts[1]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) and len(mnt) > len(best):
+                best, kind = mnt, parts[2]
+    return kind
+
+
+def p24_nvme_dir() -> str:
+    """A temporary directory on a real disk: the system temp dir unless it
+    is memory-backed, else one in the checkout."""
+    import tempfile
+    for root in (tempfile.gettempdir(), os.path.dirname(os.path.abspath(__file__))):
+        if p24_fstype(root) not in ("tmpfs", "ramfs"):
+            return tempfile.mkdtemp(prefix="chip_smoke_p24_", dir=root)
+    return tempfile.mkdtemp(prefix="chip_smoke_p24_")
+
+
+def p24_disk_rates(root: str) -> dict:
+    """Write then read ``P24_DISK_PROBE`` bytes through the port's AIO
+    handle (O_DIRECT asked for, 1 MiB blocks) and report the rates, and
+    whether the directory takes O_DIRECT at all (the handle falls back to
+    buffered IO without a word where it does not). The read follows the
+    write, so it may come from the page cache: the rate is a warm one."""
+    from deepspeed_tpu_torch.ops.native import AsyncIOHandle, aligned_empty
+    path = os.path.join(root, "probe.bin")
+    direct = True
+    try:
+        fd = os.open(path, os.O_WRONLY | os.O_CREAT | getattr(os, "O_DIRECT", 0), 0o644)
+        os.close(fd)
+    except OSError:
+        direct = False
+    buf = aligned_empty(P24_DISK_PROBE, np.uint8)
+    buf[:] = 7
+    h = AsyncIOHandle(block_size=1 << 20, thread_count=8, use_o_direct=True)
+    t0 = time.perf_counter()
+    if h.async_pwrite(buf, path) != 0 or h.wait() != 1:
+        raise AssertionError("phase 24 (b): the disk probe's write failed")
+    os.sync()
+    t1 = time.perf_counter()
+    back = aligned_empty(P24_DISK_PROBE, np.uint8)
+    if h.async_pread(back, path) != 0 or h.wait() != 1:
+        raise AssertionError("phase 24 (b): the disk probe's read failed")
+    t2 = time.perf_counter()
+    h.close()
+    ok = bool((back == 7).all())
+    os.unlink(path)
+    if not ok:
+        raise AssertionError("phase 24 (b): the disk probe read back other bytes")
+    return {"o_direct": direct, "write_GBps": P24_DISK_PROBE / (t1 - t0) / 1e9,
+            "read_GBps_warm": P24_DISK_PROBE / (t2 - t1) / 1e9}
+
+
+def p24_host_line(nvme_root: str, cuda: bool) -> dict:
+    mem = p24_meminfo()
+    out = {**mem, "cpu_count": os.cpu_count(), "nvme_dir": nvme_root,
+           "nvme_fstype": p24_fstype(nvme_root),
+           "nvidia_smi": smi_line() if cuda else "cpu"}
+    print("phase 24 host " + json.dumps(out), flush=True)
+    return out
+
+
+def p24_placement(cfg, avail: int) -> tuple:
+    """(placement, layers, ratio, why): the first of (1) all layers with
+    every leaf's master and moments on the host, (2) all layers with the
+    twin flow's ``ratio`` < 1 so that the host share fits, (3) the deepest
+    depth that fits, that the host holds with ``P24_HEADROOM``."""
+    def params(layers):
+        h, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+        kv = cfg.num_key_value_heads * cfg.head_dim
+        per = 2 * h * h + 2 * h * kv + 3 * h * f + 2 * h
+        return 2 * v * h + h + layers * per
+
+    budget = avail / P24_HEADROOM - P24_STAGING
+    n = params(cfg.num_hidden_layers)
+    need = 12 * n    # fp32 master + AdamW's two moments
+    if need <= budget:
+        return 1, cfg.num_hidden_layers, 1.0, (
+            f"(host state {need / 1e9:.1f} GB + staging {P24_STAGING / 1e9:.1f} GB) x "
+            f"{P24_HEADROOM} fits the host's {avail / 1e9:.1f} GB")
+    ratio = max(0.0, budget / need)
+    if (1 - ratio) * need <= P24_DEVICE_FLOW_MAX:
+        return 2, cfg.num_hidden_layers, ratio, (
+            f"(host state {need / 1e9:.1f} GB + staging {P24_STAGING / 1e9:.1f} GB) x "
+            f"{P24_HEADROOM} exceeds the host's {avail / 1e9:.1f} GB; ratio {ratio:.4f} keeps "
+            f"{(1 - ratio) * need / 1e9:.1f} GB of state on the card")
+    layers = cfg.num_hidden_layers
+    while layers > 1 and 12 * params(layers) > budget:
+        layers -= 1
+    return 3, layers, 1.0, (
+        f"the twin flow would keep {(1 - ratio) * need / 1e9:.1f} GB on the card; "
+        f"{layers} layers' host state fits the host's {avail / 1e9:.1f} GB")
+
+
+def p24_train_main(dev, cuda: bool, host: dict, cfg=None, T: int = P24_T) -> tuple:
+    """(a): Llama-2-7B at full width on the placement the host allows,
+    AdamW's state on the host; returns (trainer, model, cfg, out)."""
+    import dataclasses
+
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    base = cfg or LlamaConfig.llama2_7b(num_hidden_layers=P24_LAYERS, dtype=torch.bfloat16,
+                                        remat=True, remat_policy="none")
+    placement, layers, ratio, why = p24_placement(base, host["avail"])
+    cfg = dataclasses.replace(base, num_hidden_layers=layers)
+    print(f"phase 24 (a) placement {placement}: {layers} layers, ratio {ratio:.4f} ({why})",
+          flush=True)
+    config = json.loads(json.dumps(P24_CONFIG))
+    config["zero_optimization"]["offload_optimizer"]["ratio"] = ratio
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    trainer, *_ = deepspeed_tpu_torch.initialize(model=model, config=config, device=dev)
+    p23_sync(dev)
+    init_s = time.perf_counter() - t0
+    off = trainer._offload
+    n_params = sum(p.numel() for p in trainer.state["params"].values())
+    n_host = sum(int(np.prod(s)) for meta in trainer._offload_group_meta for _, _, _, s in meta)
+    if off.kernel.backend != "openmp":
+        raise AssertionError(f"phase 24 (a): host kernel backend {off.kernel.backend}")
+    print(f"phase 24 (a) model: Llama-2-7B width (vocab {cfg.vocab_size}, hidden "
+          f"{cfg.hidden_size}, FFN {cfg.intermediate_size}, {cfg.num_attention_heads}/"
+          f"{cfg.num_key_value_heads} heads, D {cfg.head_dim}), {layers} layers, T {T}, "
+          f"{n_params} params ({n_host} on the host, {len(trainer._offload_groups)} groups), "
+          f"bf16 params on the card, AdamW on the host ({off.kernel.backend}, "
+          f"{off._workers} workers), init {init_s:.1f} s", flush=True)
+    V = cfg.vocab_size
+    rng = np.random.default_rng(24)
+    batch = {"input_ids": rng.integers(0, V, (P24_CONFIG["train_batch_size"], T))
+             .astype(np.int32)}
+    gas = P24_CONFIG["train_batch_size"] // P24_CONFIG["train_micro_batch_size_per_gpu"]
+    marks = []
+    real_step = trainer._offload_step
+
+    def marked(wires, metrics):
+        # the end of the step's device work, in the order the kernels queue
+        if cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+        return real_step(wires, metrics)
+
+    trainer._offload_step = marked
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, steps = [], []
+    for i in range(P24_STEPS + 1):
+        if i == P24_STEPS:
+            # the last step, uncounted: a pool of P24_POOL workers sharing
+            # the cores, against the default one worker with every core
+            launches = {k: LAUNCHES.get(k, 0) for k in K1_NAMES}
+            off._workers = P24_POOL
+        trainer.offload_stats.reset()
+        p23_sync(dev)
+        start = None
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        loss = trainer.train_batch(batch)
+        p23_sync(dev)
+        wall = time.perf_counter() - t0
+        st = trainer.offload_stats
+        kernel_s = st.kernel_ms / 1e3
+        row = {"step": i + 1, "workers": off._workers, "wall_ms": wall * 1e3,
+               "device_ms": start.elapsed_time(marks[-1]) if cuda else None,
+               "tokens_per_s": P24_CONFIG["train_batch_size"] * T / wall,
+               "fetch_ms": st.fetch_ms, "kernel_ms": st.kernel_ms, "upload_ms": st.upload_ms,
+               "groups": st.groups, "upload_depth": st.upload_depth_sum / max(1, st.groups),
+               "host_kernel_GBps": 28 * n_host / kernel_s / 1e9 if kernel_s else None}
+        if i < P24_STEPS:
+            losses.append(float(loss))
+        steps.append(row)
+        print("phase 24 (a) step " + json.dumps(row), flush=True)
+    trainer._offload_step = real_step
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None
+    want = {"flash_fwd": 2 * layers * gas * P24_STEPS,
+            "flash_bwd_dq": layers * gas * P24_STEPS, "flash_bwd_dkv": layers * gas * P24_STEPS}
+    out = {"placement": placement, "layers": layers, "ratio": ratio, "params": n_params,
+           "host_params": n_host, "losses": losses, "steps": steps,
+           "k1_launches_a_step": {k: v / P24_STEPS for k, v in launches.items()},
+           "peak_gib": peak, "no_offload_gb": P24_NOOFFLOAD_GB * n_params / 6.738e9,
+           "init_s": init_s}
+    print("phase 24 (a) " + json.dumps({k: v for k, v in out.items() if k != "steps"}),
+          flush=True)
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 24 (a): losses did not fall: {losses}")
+    if cuda and launches != want:
+        raise AssertionError(f"phase 24 (a): K1 launches {launches}, expected {want}")
+    if cuda and peak >= 79.0:
+        raise AssertionError(f"phase 24 (a): peak device memory {peak:.2f} GiB >= 79")
+    return trainer, model, cfg, out
+
+
+def p24_small(dev, offload, seed: int = 0):
+    """Phase 5's GPT-2 small under ``offload`` (None: the device step)."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    config = json.loads(json.dumps(TRAIN_CONFIG))
+    config["zero_optimization"] = {"stage": 1}
+    if offload is not None:
+        config["zero_optimization"]["offload_optimizer"] = offload
+    model = GPT2LMHead(GPT2Config(dtype=torch.bfloat16, **P24_B_SMALL), device=dev, seed=seed)
+    return deepspeed_tpu_torch.initialize(model=model, config=config, device=dev)[0]
+
+
+def p24_masters(engine) -> dict:
+    """The full fp32 master on the host: device flow and host flow."""
+    model_flat, _ = engine.checkpoint_flats()
+    return model_flat
+
+
+def p24_same(label: str, a, b) -> None:
+    same = np.asarray(a, np.float32).tobytes() == np.asarray(b, np.float32).tobytes()
+    print(f"phase 24 {label}: {list(map(float, a))} vs {list(map(float, b))}, bitwise {same}",
+          flush=True)
+    if not same:
+        raise AssertionError(f"phase 24 {label}: loss streams differ")
+
+
+def p24_same_masters(label: str, a: dict, b: dict) -> None:
+    bad = [k for k in a if a[k].tobytes() != b[k].tobytes()]
+    if bad or set(a) != set(b):
+        raise AssertionError(f"phase 24 {label}: masters differ in {bad[:4]}")
+
+
+def p24_close(label: str, a, b, rtol: float = 2e-3) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    err = float(np.max(np.abs(a - b) / np.abs(b)))
+    print(f"phase 24 {label}: max rel diff {err:.3e} (rtol {rtol})", flush=True)
+    if not err <= rtol:
+        raise AssertionError(f"phase 24 {label}: {a} vs {b}")
+    return err
+
+
+def p24_orchestrations(dev, cuda: bool, nvme_root: str) -> dict:
+    """(b): GPT-2 small (phase 5's model and batch), 6 steps under each
+    orchestration; byte gates between them, rtol 2e-3 against the device
+    step, two DPU runs bitwise, and offload tags resumed both ways."""
+    import gc
+    import shutil
+
+    import torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+    small = GPT2Config(**P24_B_SMALL)
+    batch = {"input_ids": np.random.default_rng(0).integers(
+        0, small.vocab_size, (TRAIN_CONFIG["train_batch_size"], small.n_positions))
+        .astype(np.int32)}
+    out = {}
+
+    def run(offload, steps=P24_B_STEPS, engine=None):
+        engine = engine or p24_small(dev, offload)
+        losses = [float(engine.train_batch(batch)) for _ in range(steps)]
+        return engine, losses
+
+    def free(*engines):
+        for e in engines:
+            e.destroy()
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    base, l_dev = run(None)
+    free(base)
+    serial_cfg = {"device": "cpu", "overlap_step": False}
+    pipe_cfg = {"device": "cpu", "host_workers": 4, "group_size": 4}
+    nvme_cfg = {"device": "nvme", "nvme_path": os.path.join(nvme_root, "swap"),
+                "pipeline_read": True, "pipeline_write": True}
+    e_s, l_s = run(serial_cfg)
+    m_s = p24_masters(e_s)
+    free(e_s)
+    e_p, l_p = run(pipe_cfg)
+    m_p = p24_masters(e_p)
+    free(e_p)
+    t0 = time.perf_counter()
+    e_n, l_n = run(nvme_cfg)
+    nvme_s = time.perf_counter() - t0
+    swap_ms = e_n.offload_stats.swap_ms / max(1, e_n.offload_stats.steps)
+    m_n = p24_masters(e_n)
+    free(e_n)
+    p24_same("(b) serial vs pipeline", l_p, l_s)
+    p24_same("(b) serial vs nvme", l_n, l_s)
+    p24_same_masters("(b) serial vs pipeline", m_p, m_s)
+    p24_same_masters("(b) serial vs nvme", m_n, m_s)
+    for label, got in (("serial", l_s), ("pipeline", l_p), ("nvme", l_n)):
+        out[f"rel_{label}"] = p24_close(f"(b) {label} vs the device step", got, l_dev)
+    dpu = []
+    for _ in range(2):
+        e, l = run({"device": "cpu", "delayed_param_update": True})
+        dpu.append((l, p24_masters(e)))
+        free(e)
+    p24_same("(b) DPU run 1 vs run 2", dpu[1][0], dpu[0][0])
+    p24_same_masters("(b) DPU run 1 vs run 2", dpu[1][1], dpu[0][1])
+    out["dpu_losses"] = dpu[0][0]
+    out["dpu_rel_last"] = abs(dpu[0][0][-1] - l_s[-1]) / l_s[-1]
+
+    # checkpoints: offload -> fresh offload (bitwise), offload <-> plain (rtol)
+    ck = os.path.join(nvme_root, "ckpt")
+    k = P24_B_RESUME_AT
+    a, _ = run(pipe_cfg, steps=k)
+    a.save_checkpoint(ck, tag="off")
+    _, tail_a = run(None, steps=P24_B_STEPS - k, engine=a)
+    free(a)
+    b = p24_small(dev, pipe_cfg, seed=1)
+    b.load_checkpoint(ck, tag="off")
+    _, tail_b = run(None, steps=P24_B_STEPS - k, engine=b)
+    free(b)
+    p24_same("(b) offload tag resumed in a fresh offload engine", tail_b, tail_a)
+    c = p24_small(dev, None, seed=1)
+    c.load_checkpoint(ck, tag="off")
+    _, tail_c = run(None, steps=P24_B_STEPS - k, engine=c)
+    out["rel_offload_tag_in_plain"] = p24_close("(b) offload tag in a plain engine", tail_c, tail_a)
+    c.save_checkpoint(ck, tag="plain")
+    free(c)
+    d = p24_small(dev, pipe_cfg, seed=1)
+    d.load_checkpoint(ck, tag="plain")
+    _, tail_d = run(None, steps=P24_B_STEPS - k, engine=d)
+    free(d)
+    e = p24_small(dev, None, seed=1)
+    e.load_checkpoint(ck, tag="plain")
+    _, tail_e = run(None, steps=P24_B_STEPS - k, engine=e)
+    free(e)
+    out["rel_plain_tag_in_offload"] = p24_close("(b) plain tag in an offload engine",
+                                               tail_d, tail_e)
+    shutil.rmtree(ck, ignore_errors=True)
+    out["disk"] = p24_disk_rates(nvme_root)
+    out["nvme"] = {"swap_ms_a_step": swap_ms, "run_s": nvme_s,
+                   "fstype": p24_fstype(nvme_root)}
+    out["losses"] = {"device": l_dev, "serial": l_s}
+    print("phase 24 (b) " + json.dumps(out), flush=True)
+    return out
+
+
+def p24_activation_offload(dev, cuda: bool, base_cfg=None, T: int = P24_T) -> dict:
+    """(c): two layers of Llama-2-7B width at T 4096, one micro-batch: each
+    host-offload policy's grads against its saving policy's, bit for bit,
+    with both peaks and the bytes sent to the host."""
+    import dataclasses
+    import gc
+
+    import torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.runtime import activation_checkpointing as ac
+    base = base_cfg or LlamaConfig.llama2_7b(dtype=torch.bfloat16)
+    base = dataclasses.replace(base, num_hidden_layers=P24_C_LAYERS, remat=True)
+    ids = torch.from_numpy(np.random.default_rng(5).integers(
+        0, base.vocab_size, (1, T)).astype(np.int64)).to(dev)
+
+    def grads(policy, cpu_checkpointing=False):
+        ac.configure(checkpoint_in_cpu=cpu_checkpointing)
+        model = LlamaForCausalLM(dataclasses.replace(base, remat_policy=policy), device=dev,
+                                 seed=0)
+        params = model.named_flat_parameters()
+        for p in params.values():
+            p.requires_grad_(True)
+        gc.collect()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+        ac.OFFLOAD_STATS.update(tensors=0, bytes=0)
+        loss = model({"input_ids": ids})
+        g = torch.autograd.grad(loss, list(params.values()))
+        p23_sync(dev)
+        peak = (torch.cuda.max_memory_allocated() - before) / 2 ** 30 if cuda else 0.0
+        moved = dict(ac.OFFLOAD_STATS)
+        out = [x.detach().clone() for x in g]
+        del model, params, loss, g
+        ac.reset()
+        return out, peak, moved
+
+    rows = {}
+    for off, saving, cpu_ck in (("offload_dots", "dots_with_no_batch_dims_saveable", False),
+                                ("offload_attn_out", "attn_out_saveable", False),
+                                (None, "offload_dots", True)):
+        g_off, peak_off, moved = grads(off, cpu_ck)
+        g_save, peak_save, _ = grads(saving)
+        same = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(g_off, g_save))
+        label = "cpu_checkpointing" if cpu_ck else off
+        rows[label] = {"against": saving, "bitwise": same, "peak_gib": peak_off,
+                       "peak_saving_gib": peak_save, "host_tensors": moved["tensors"],
+                       "host_bytes": moved["bytes"]}
+        print(f"phase 24 (c) {label} vs {saving}: " + json.dumps(rows[label]), flush=True)
+        if not same:
+            raise AssertionError(f"phase 24 (c): {label}'s grads differ from {saving}'s")
+        if moved["tensors"] == 0:
+            raise AssertionError(f"phase 24 (c): {label} moved nothing to the host")
+        # a policy against itself (cpu_checkpointing -> offload_dots) moves the
+        # same bytes; an offload policy against its saving one keeps at least
+        # half of one layer's saved bytes off the card at the peak
+        if cuda and not cpu_ck and not (peak_save - peak_off) * 2 ** 30 >= \
+                moved["bytes"] / (2 * P24_C_LAYERS):
+            raise AssertionError(f"phase 24 (c): {label}'s peak {peak_off:.3f} GiB is not "
+                                 f"below {saving}'s {peak_save:.3f} GiB by the saved bytes")
+        del g_off, g_save
+    return rows
+
+
+def p24_serve(trainer, model, cfg, dev, cuda: bool) -> dict:
+    """(d): the policy (a) trained, served: ``rollout_source_params()``
+    drains and returns the bf16 params; a v2 engine takes one
+    ``weight_bridge(trainer).sync()``; its tree against an engine built
+    from the drained params, bit for bit, and 2 prompts x 16 greedy tokens
+    through K2 and the decode kernel on both."""
+    import torch
+    from deepspeed_tpu_torch.checkpoint.state import flatten_tree
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.ops import kernels
+    src = trainer.rollout_source_params()
+    if any(t.dtype != cfg.dtype for t in src.values()):
+        raise AssertionError("phase 24 (d): the offload engine's source is not its params")
+    # the engines keep the tensors they are given: views without autograd
+    engine = InferenceEngineV2(model, P24_ENGINE, {k: t.detach() for k, t in src.items()},
+                               device=dev)
+    bridge = engine.weight_bridge(trainer, donate=False)
+    new_w = bridge.sync()
+    engine.swap_weights(new_w)
+    fresh = InferenceEngineV2(model, P24_ENGINE, {k: t.detach() for k, t in
+                                                  trainer.rollout_source_params().items()},
+                              device=dev)
+    a, b = flatten_tree(engine.weights), flatten_tree(fresh.weights)
+    bad = [k for k in b if k not in a or not torch_equal_bits(a[k], b[k])]
+    if bad or set(a) != set(b):
+        raise AssertionError(f"phase 24 (d): the bridged tree differs in {bad[:4]}")
+    rng = np.random.default_rng(24)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in P24_D_PROMPTS]
+    kernels.reset_launches()
+    got = engine.generate(prompts, max_new_tokens=P24_D_NEW)
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    with p23_uncounted():
+        want = fresh.generate(prompts, max_new_tokens=P24_D_NEW)
+    same = [list(x) == list(y) for x, y in zip(got, want)]
+    print(f"phase 24 (d) streams equal {same}; launches " + json.dumps(launches), flush=True)
+    if not all(same):
+        raise AssertionError("phase 24 (d): the bridged engine's streams differ")
+    missing = [k for k in P24_D_NAMES if cuda and not launches.get(k)]
+    if missing:
+        raise AssertionError(f"phase 24 (d): kernels not launched: {missing}")
+    del engine, fresh, new_w
+    return {"tree_bitwise": True, "streams_equal": True, "launches": launches}
+
+
+def run_offload(dev="cuda", cfg=None, T: int = P24_T):
+    """Phase 24: the offload tier on one card. (a) Llama-2-7B at full
+    width and depth (on the placement the host allows), bf16 params on the
+    card, the fp32 master and AdamW's moments on the host, stepped by the
+    native OpenMP kernels through the group pipeline; (b) the
+    orchestrations on GPT-2 small, byte for byte; (c) activation offload
+    against the saving policies; (d) the trained policy served through the
+    bridge. Returns the launches of (a) and (d)."""
+    import gc
+    import shutil
+
+    import torch
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.ops.native import builder
+    t_phase = time.perf_counter()
+    dev = torch.device(dev)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        gc.collect()
+        torch.cuda.empty_cache()
+        empty_host = getattr(torch._C, "_host_emptyCache", None)
+        if empty_host is not None:
+            empty_host()
+    builder.load_native()
+    print(f"phase 24 native build: {builder.last_build_seconds:.1f} s, flags "
+          f"{builder.built_flags}", flush=True)
+    nvme_root = p24_nvme_dir()
+    try:
+        host = p24_host_line(nvme_root, cuda)
+        trainer, model, tcfg, a = p24_train_main(dev, cuda, host, cfg, T)
+        launches = {k: kernels.LAUNCHES.get(k, 0) for k in K1_NAMES}
+        launches.update({k: v for k, v in zip(K1_NAMES, (
+            a["k1_launches_a_step"][k] * P24_STEPS for k in K1_NAMES))})
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        d = p24_serve(trainer, model, tcfg, dev, cuda)
+        # K5 runs the longer prompt's second chunk: its row shows the count too
+        launches.update({k: d["launches"].get(k, 0) for k in P24_D_NAMES + ("paged_chunk",)})
+        trainer.destroy()
+        del trainer, model
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        t_b = time.perf_counter()
+        b = p24_orchestrations(dev, cuda, nvme_root)
+        b_s = time.perf_counter() - t_b
+        t_c = time.perf_counter()
+        c = p24_activation_offload(dev, cuda, base_cfg=cfg, T=T)
+        c_s = time.perf_counter() - t_c
+    finally:
+        shutil.rmtree(nvme_root, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    print("offload " + json.dumps({
+        "phase": 24, "placement": a["placement"], "layers": a["layers"], "ratio": a["ratio"],
+        "peak_gib": a["peak_gib"], "b_s": b_s, "c_s": c_s, "seconds": seconds,
+        "launches": launches, "nvidia_smi": host["nvidia_smi"]}), flush=True)
+    print(f"phase 24: {seconds:.1f} s", flush=True)
+    return {k: int(v) for k, v in launches.items()}
+
+
 ATTN_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "flash_fwd", "flash_bwd_dq",
               "flash_bwd_dkv")
 Q_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk", "splitk_merge",
@@ -8606,12 +9199,20 @@ def main() -> int:
     # phases 21 and 22: the serving frontend and the router on Llama-2-7B;
     # the kernel rows keep their counts and carry these phases' beside them
     model, serving_launches = run_frontend()
-    cluster_launches = run_cluster(model)
+    # phase 22 at P22_LAYERS (8) of the 32: the script's time went to phase 24
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cluster_launches = run_cluster(p17_model(P22_LAYERS))
     gc.collect()
     torch.cuda.empty_cache()
     # phase 23: the colocated rollout and the hybrid engine; likewise
     rollout_launches = run_rollout()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 24: the offload tier; K1's D 128 rows and the K2 and decode rows
+    # carry its launches beside theirs
+    offload_launches = run_offload()
     gc.collect()
     torch.cuda.empty_cache()
     # modules by full name: the package re-exports same-named functions
@@ -8705,9 +9306,11 @@ def main() -> int:
                       **({"serving_launches": {
                           "phase21": serving_launches.get(name, 0),
                           "phase22": cluster_launches.get(name, 0),
-                          "phase23": rollout_launches.get(name, 0)}}
+                          "phase23": rollout_launches.get(name, 0),
+                          "phase24": offload_launches.get(name, 0)}}
                          if serving_launches.get(name) or cluster_launches.get(name)
-                         or rollout_launches.get(name) else {})})
+                         or rollout_launches.get(name) or offload_launches.get(name)
+                         else {})})
     print(f"chip_smoke.py: {time.perf_counter() - t0:.1f} s from the build on", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

@@ -9,7 +9,7 @@ save:
 - **snapshot** (caller's thread, the step loop): flush the deferred metric
   queue (a checkpoint boundary must not leave step k-1's metrics stranded)
   and materialise the state flats host-side in ONE policed drain
-  (``snapshot_state_flats``, shared with user saves).
+  (the engine's ``checkpoint_flats``, shared with user saves).
 - **write** (checkpoint-engine writer threads, async engine): the npz
   writes, queued.
 - **commit** (the single FIFO committer thread owned here): writer drain ->
@@ -38,7 +38,6 @@ from typing import List, Optional, TYPE_CHECKING
 
 from deepspeed_tpu_torch.checkpoint.state import (commit_checkpoint,
                                                   read_latest_tag,
-                                                  snapshot_state_flats,
                                                   write_checkpoint_files)
 from deepspeed_tpu_torch.utils.logging import logger
 from deepspeed_tpu_torch.utils.threads import make_semaphore, thread_role
@@ -100,7 +99,9 @@ class RollingCheckpointer:
         # the snapshot (same contract as save_checkpoint)
         engine.drain_metrics()
         t0 = perf()
-        model_flat, optim_flat = snapshot_state_flats(engine.state)
+        # (an offload engine's snapshot drains its host step and adds the
+        # host-flow master and moments under the same flat keys)
+        model_flat, optim_flat = engine.checkpoint_flats()
         t1 = perf()
         client_state = {
             "global_steps": engine.global_steps,

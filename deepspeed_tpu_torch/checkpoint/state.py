@@ -192,10 +192,11 @@ def load_into(state: Mapping[str, Any], plan: List[Tuple[torch.Tensor, torch.Ten
     with torch.no_grad():
         for dst, src in plan:
             dst.copy_(src)
-        if "params" in state:
+        if "params" in state and master:
+            # (an offload engine's master holds only its device-flow leaves)
             torch._foreach_copy_([state["params"][n] for n in master],
                                  [master[n] for n in master])
-    if next(iter(master.values())).is_cuda:
+    if state["step"].is_cuda:
         torch.cuda.current_stream().synchronize()
 
 
@@ -488,18 +489,22 @@ def commit_checkpoint(ckpt_engine, save_dir: str, tag: str,
 
 def save_engine_checkpoint(save_dir: str, tag: str, state: Dict[str, Any],
                            client_state: Dict[str, Any], save_latest: bool = True,
-                           ckpt_engine=None, stats=None) -> None:
+                           ckpt_engine=None, stats=None, snapshot=None) -> None:
     """``ckpt_engine``: a ``checkpoint.engine.CheckpointEngine``; the async
     engine queues the writes and makes them durable at ``commit`` — the
     ``latest`` tag only flips after commit succeeds. ``stats``: an optional
     ``monitor.CheckpointStats`` fed the snapshot/write/commit timings (the
-    engine's ``save_checkpoint`` passes its own)."""
+    engine's ``save_checkpoint`` passes its own). ``snapshot``: a callable
+    giving (model_flat, optim_flat) in place of
+    :func:`snapshot_state_flats` of ``state`` (an offload engine's, which
+    adds its host-side state)."""
     if ckpt_engine is None:
         from deepspeed_tpu_torch.checkpoint.engine import NativeCheckpointEngine
         ckpt_engine = NativeCheckpointEngine()
     perf = time.perf_counter
     t0 = perf()
-    model_flat, optim_flat = snapshot_state_flats(state)
+    model_flat, optim_flat = snapshot() if snapshot is not None \
+        else snapshot_state_flats(state)
     t1 = perf()
     files = write_checkpoint_files(ckpt_engine, save_dir, tag,
                                    model_flat, optim_flat, client_state)
@@ -559,11 +564,14 @@ def _load_verified(ckpt_engine, ckpt_dir: str, fname: str,
 def load_engine_checkpoint(load_dir: str, tag: Optional[str], state: Dict[str, Any],
                            load_optimizer_states: bool = True,
                            load_module_only: bool = False, ckpt_engine=None,
-                           verify: bool = False, stats=None
+                           verify: bool = False, stats=None, host_loader=None
                            ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Load a tag INTO ``state``'s live tensors (see the module docstring)
     and return ``(state, client_state)``. ``stats``: an optional
-    ``monitor.CheckpointStats`` fed the read/verify/host->device timings."""
+    ``monitor.CheckpointStats`` fed the read/verify/host->device timings.
+    ``host_loader(model_flat, optim_flat or None)``: an offload engine's
+    load of the leaves ``state`` does not hold (its host-flow master and
+    moments), run after the device leaves landed."""
     if ckpt_engine is None:
         from deepspeed_tpu_torch.checkpoint.engine import NativeCheckpointEngine
         ckpt_engine = NativeCheckpointEngine()
@@ -591,6 +599,8 @@ def load_engine_checkpoint(load_dir: str, tag: Optional[str], state: Dict[str, A
                           optim_flat)
     t0 = time.perf_counter()
     load_into(state, plan)
+    if host_loader is not None:
+        host_loader(model_flat, optim_flat if need_optim else None)
     h2d_s = time.perf_counter() - t0
 
     client_path = os.path.join(ckpt_dir, CLIENT_FILE)

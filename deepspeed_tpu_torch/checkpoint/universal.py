@@ -118,7 +118,8 @@ def load_universal_into_engine(engine, out_dir: str,
     """Load a universal checkpoint INTO a live engine's tensors: the master
     (and the compute-dtype params recast from it), the optimizer states the
     directory holds, ``step``, ``skipped``, the scaler's three leaves and the
-    counters; the lr follows from ``step``."""
+    counters; the lr follows from ``step``. An offload engine's host-flow
+    leaves go to its host optimizer."""
     master_flat, optim_flat, meta = load_universal(out_dir)
     state = engine.state
     plan = copy_plan(state["master"], master_flat)
@@ -135,6 +136,10 @@ def load_universal_into_engine(engine, out_dir: str,
         plan += copy_plan(named, {k: np.asarray(scalars[k], _np_dtype(t))
                                   for k, t in named.items()})
     load_into(state, plan)
+    if getattr(engine, "_offload", None) is not None:
+        # an offload engine's host-flow master and moments
+        need_optim = load_optimizer_states and not load_module_only
+        engine._offload_load_host(master_flat, optim_flat if need_optim else None)
     client = meta.get("client_state", {})
     if not load_module_only:
         engine.global_steps = int(client.get("global_steps", scalars.get("step", 0)))

@@ -253,8 +253,9 @@ class OffloadOptimizerConfig(ConfigModel):
     overlap_step: bool = True
     # Worker threads for the host optimizer kernel (leaves are chunked and
     # stepped concurrently; both the native OpenMP kernels via ctypes and
-    # numpy's vectorized inner loops release the GIL). 0 = auto
-    # (min(4, cpu_count())).
+    # numpy's vectorized inner loops release the GIL). 0 = auto: one worker
+    # with an OpenMP team of every core (the JAX package's auto is
+    # min(4, cpu_count()); the port's reason is in runtime/zero/offload.py).
     host_workers: int = 0
     # Leaves per pipeline group. 0 = buffer_count (the same sub-group sizing
     # the NVMe swapper uses, so grad fetches, kernel runs, and state swaps
@@ -876,8 +877,8 @@ class DeepSpeedTPUConfig(ConfigModel):
         does not run yet."""
         z = self.zero_optimization
         off = [name for name, on in [
-            ("zero_optimization.offload_optimizer",
-             z.offload_optimizer is not None and z.offload_optimizer.device != OffloadDeviceEnum.none),
+            # offload_param stays refused by name: the JAX engine accepts the
+            # section and reads it nowhere, and a silent no-op would hide that
             ("zero_optimization.offload_param",
              z.offload_param is not None and z.offload_param.device != OffloadDeviceEnum.none),
             ("zero_optimization.stage3_prefetch_depth", z.stage3_prefetch_depth is not None),
@@ -887,8 +888,6 @@ class DeepSpeedTPUConfig(ConfigModel):
             ("prometheus", self.prometheus.enabled),
             ("comms_logger", self.comms_logger.enabled),
             ("monitor.trace", self.monitor.trace.enabled or bool(self.monitor.trace.dir)),
-            ("activation_checkpointing.cpu_checkpointing",
-             self.activation_checkpointing.cpu_checkpointing),
             ("compression_training", self.compression_training is not None),
             (f"hybrid_engine.inference_tp_size = {self.hybrid_engine.inference_tp_size}",
              self.hybrid_engine.enabled and self.hybrid_engine.inference_tp_size > 1),
@@ -900,4 +899,4 @@ class DeepSpeedTPUConfig(ConfigModel):
         if off:
             raise NotImplementedError(
                 f"{', '.join(off)}: not ported to deepspeed_tpu_torch yet (it trains "
-                "on one device, without offload or monitors)")
+                "on one device, without parameter offload or monitors)")

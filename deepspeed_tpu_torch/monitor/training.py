@@ -1,7 +1,8 @@
 """Training observability (the JAX package's ``monitor/training.py``): the
 step loop's counters (``TrainPipelineStats``), the checkpoint counters
-(``CheckpointStats``), the colocated rollout's counters (``RolloutStats``)
-and the ``Event`` record they emit."""
+(``CheckpointStats``), the offloaded optimizer's (``OffloadPipelineStats``),
+the colocated rollout's counters (``RolloutStats``) and the ``Event`` record
+they emit."""
 
 from __future__ import annotations
 
@@ -116,6 +117,76 @@ class CheckpointStats:
             ("train/ckpt/writer_queue_depth", self.queue_depth_sum / n, step),
             ("train/ckpt/retries", float(self.retries), step),
             ("train/ckpt/pruned_tags", float(self.pruned), step),
+        ]
+
+
+@dataclass
+class OffloadPipelineStats:
+    """Phase counters for the offloaded optimizer's fetch/step/upload group
+    pipeline (``runtime/zero/offload.py`` ``step_groups`` and the engine's
+    upload lane).
+
+    Phase semantics (accumulated over every group of every step):
+
+    - ``fetch``: host time blocked draining a group's grads D2H. Small in
+      steady state — every group's transfer is queued up front, so group g's
+      drain overlaps group g-1's kernel. Growing fetch with upload near zero
+      means the link, not the host kernel, is the bottleneck.
+    - ``kernel``: host optimizer wall time (chunked across the worker pool).
+      The phase the other three exist to hide.
+    - ``upload``: upload-lane wall time (a finished group's master cast to
+      the compute dtype into a pinned buffer, and its copies into the device
+      params queued). Runs on its own worker, overlapping later groups'
+      kernels.
+    - ``swap``: NVMe-mode only — time the state swapper's ``run`` spent
+      outside the step function (read waits, write drains). The pure IO cost
+      of the nvme tier over the cpu tier.
+    - ``upload_depth``: pending uploads observed at each group completion;
+      persistently high means H2D (or the merge) is the bottleneck.
+    """
+
+    steps: int = 0
+    groups: int = 0
+    fetch_ms: float = 0.0
+    kernel_ms: float = 0.0
+    upload_ms: float = 0.0
+    swap_ms: float = 0.0
+    upload_depth_sum: int = 0
+
+    #: phase name -> attribute, the ``add(phase, seconds)`` contract shared
+    #: with ``HostOffloadOptimizer.step_groups``'s ``record`` callback
+    _PHASES = {"fetch": "fetch_ms", "kernel": "kernel_ms",
+               "upload": "upload_ms", "swap": "swap_ms"}
+
+    def add(self, phase: str, seconds: float) -> None:
+        attr = self._PHASES[phase]
+        setattr(self, attr, getattr(self, attr) + 1e3 * seconds)
+
+    def record_step(self, groups: int, depth_sum: int = 0) -> None:
+        self.steps += 1
+        self.groups += int(groups)
+        self.upload_depth_sum += int(depth_sum)
+
+    def reset(self) -> None:
+        self.steps = 0
+        self.groups = 0
+        self.fetch_ms = 0.0
+        self.kernel_ms = 0.0
+        self.upload_ms = 0.0
+        self.swap_ms = 0.0
+        self.upload_depth_sum = 0
+
+    def events(self, step: int = 0) -> List[Event]:
+        n = max(1, self.steps)
+        g = max(1, self.groups)
+        return [
+            ("train/offload/steps", float(self.steps), step),
+            ("train/offload/groups_per_step", self.groups / n, step),
+            ("train/offload/fetch_ms_per_group", self.fetch_ms / g, step),
+            ("train/offload/kernel_ms_per_group", self.kernel_ms / g, step),
+            ("train/offload/upload_ms_per_group", self.upload_ms / g, step),
+            ("train/offload/swap_ms_per_step", self.swap_ms / n, step),
+            ("train/offload/upload_depth", self.upload_depth_sum / g, step),
         ]
 
 

@@ -5,15 +5,15 @@ attention dispatch (``ops.attention``), block-sparse self-attention
 AlphaFold attention modes) and the optimizer registry.
 
 ``build_optimizer`` reads the config's ``optimizer`` block as the JAX
-package's does: the Adam family, LAMB, Lion, Adagrad and SGD. The JAX
-package's host-offloaded variants (``cpuadam``, ``cpulion``,
-``cpuadagrad``) and its 1-bit optimizers raise ``NotImplementedError``
-naming them."""
+package's does: the Adam family, LAMB, Lion, Adagrad, SGD and the
+host-offloaded names (``cpuadam``, ``cpulion``, ``cpuadagrad``; the offload
+tier steps them on the host). The JAX package's 1-bit optimizers raise
+``NotImplementedError`` naming them."""
 
 from typing import Any, Dict
 
-from deepspeed_tpu_torch.ops.adagrad import Adagrad
-from deepspeed_tpu_torch.ops.adam import FusedAdam
+from deepspeed_tpu_torch.ops.adagrad import Adagrad, DeepSpeedCPUAdagrad
+from deepspeed_tpu_torch.ops.adam import DeepSpeedCPUAdam, FusedAdam
 from deepspeed_tpu_torch.ops.evoformer import (DS4Sci_EvoformerAttention, evoformer_attention,
                                                msa_row_attention_mask_bias,
                                                triangle_pair_bias)
@@ -23,7 +23,7 @@ from deepspeed_tpu_torch.ops.kernels.evoformer_attention import (
 from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import (
     block_sparse_attention, block_sparse_attention_bhsd)
 from deepspeed_tpu_torch.ops.lamb import FusedLamb
-from deepspeed_tpu_torch.ops.lion import FusedLion
+from deepspeed_tpu_torch.ops.lion import DeepSpeedCPULion, FusedLion
 from deepspeed_tpu_torch.ops.optimizer import TPUOptimizer
 from deepspeed_tpu_torch.ops.sgd import SGD
 from deepspeed_tpu_torch.ops.sparse_attention import (
@@ -32,13 +32,12 @@ from deepspeed_tpu_torch.ops.sparse_attention import (
     sparse_self_attention, sparsity_ratio)
 
 OPTIMIZER_REGISTRY = {"adam": FusedAdam, "adamw": FusedAdam, "fusedadam": FusedAdam,
+                      "cpuadam": DeepSpeedCPUAdam, "deepspeedcpuadam": DeepSpeedCPUAdam,
                       "lamb": FusedLamb, "fusedlamb": FusedLamb,
-                      "lion": FusedLion, "fusedlion": FusedLion,
-                      "adagrad": Adagrad, "sgd": SGD}
-# registered in the JAX package, not ported yet: the host-offloaded
-# variants (the offload tier) and the 1-bit optimizers
-UNPORTED_OPTIMIZERS = ("cpuadam", "deepspeedcpuadam", "cpulion", "cpuadagrad",
-                       "onebitadam", "onebitlamb", "zerooneadam")
+                      "lion": FusedLion, "fusedlion": FusedLion, "cpulion": DeepSpeedCPULion,
+                      "adagrad": Adagrad, "cpuadagrad": DeepSpeedCPUAdagrad, "sgd": SGD}
+# registered in the JAX package, not ported yet: the 1-bit optimizers
+UNPORTED_OPTIMIZERS = ("onebitadam", "onebitlamb", "zerooneadam")
 
 
 def build_optimizer(opt_type: str, params: Dict[str, Any]) -> TPUOptimizer:

@@ -2,8 +2,10 @@
 ``Adagrad``.
 
 The JAX package derives it from the host-offloaded ``DeepSpeedCPUAdagrad``;
-the port gives it a device base of its own (the CPU variant comes with the
-offload tier). fp32 math over the master tree in the JAX formula's order::
+the port derives ``DeepSpeedCPUAdagrad`` (``cpuadagrad``) from it instead:
+the same math, which the offload tier steps with ``ops/native``'s
+``HostAdagrad``. fp32 math over the master tree in the JAX formula's
+order::
 
     g = g + wd*p           (wd > 0)
     ss = ss + g*g
@@ -47,3 +49,12 @@ class Adagrad(TPUOptimizer):
             torch._foreach_mul(g, lr), torch._foreach_add(torch._foreach_sqrt(ss), self.eps)))
         return (dict(zip(names, new_p)),
                 {"step": state["step"] + 1, "exp_avg_sq": dict(zip(names, ss))})
+
+
+class DeepSpeedCPUAdagrad(Adagrad):
+    """Host-offloaded Adagrad (the JAX package's ``ops/adagrad.py``
+    ``DeepSpeedCPUAdagrad``)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.host_offload = True

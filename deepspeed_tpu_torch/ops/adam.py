@@ -10,6 +10,12 @@ This is not ``torch.optim.AdamW``'s order, which decays before the step.
 The JAX package leaves this elementwise chain to XLA's fusion, so there is
 no kernel here: ``torch._foreach_*`` ops run it over all leaves at once, one
 op at a time, in that order.
+
+``DeepSpeedCPUAdam`` is the registry's host-offloaded name (``cpuadam``):
+the same math, which the engine steps on the host with
+``ops/native``'s ``HostAdam`` when ``zero_optimization.offload_optimizer``
+is on (``runtime/zero/offload.py``), and on the device otherwise, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -73,3 +79,15 @@ class FusedAdam(TPUOptimizer):
         return (dict(zip(names, new_p)),
                 {"step": step, "exp_avg": dict(zip(names, m)),
                  "exp_avg_sq": dict(zip(names, v))})
+
+
+class DeepSpeedCPUAdam(FusedAdam):
+    """Host-offloaded Adam (the JAX package's ``ops/adam.py``
+    ``DeepSpeedCPUAdam``): FusedAdam's math, AdamW by default
+    (``adamw_mode``); ``host_offload`` marks it for the offload tier."""
+
+    def __init__(self, *args, adamw_mode: bool = True, fp32_optimizer_states: bool = True,
+                 **kwargs):
+        kwargs.setdefault("adam_w_mode", adamw_mode)
+        super().__init__(*args, **kwargs)
+        self.host_offload = True

@@ -5,8 +5,9 @@ fp32 math over the master tree in the JAX formula's order::
     p = p*(1 - lr*wd) - lr*sign(b1*m + (1-b1)*g)
     m = b2*m + (1-b2)*g
 
-``torch._foreach_*`` ops, one at a time, as in ``ops/adam.py``. The
-host-offloaded ``DeepSpeedCPULion`` comes with the offload tier.
+``torch._foreach_*`` ops, one at a time, as in ``ops/adam.py``.
+``DeepSpeedCPULion`` (``cpulion``) is the same math under the host-offloaded
+name; the offload tier steps it with ``ops/native``'s ``HostLion``.
 """
 
 from __future__ import annotations
@@ -47,3 +48,12 @@ class FusedLion(TPUOptimizer):
         new_m = torch._foreach_add(torch._foreach_mul(m, b2), torch._foreach_mul(g, 1.0 - b2))
         return (dict(zip(names, new_p)),
                 {"step": state["step"] + 1, "exp_avg": dict(zip(names, new_m))})
+
+
+class DeepSpeedCPULion(FusedLion):
+    """Host-offloaded Lion (the JAX package's ``ops/lion.py``
+    ``DeepSpeedCPULion``)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.host_offload = True

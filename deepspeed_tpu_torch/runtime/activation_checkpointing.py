@@ -16,9 +16,19 @@ The JAX package's remat policies map to torch's:
   (``torch.ops.dstorch.flash_attention_fwd``: o and its logsumexp rows),
   so the backward does not run K1's forward again.
 
-The host-offload policies (``offload_dots``, ``offload_attn_out``) and
-``cpu_checkpointing`` belong to the offload tier and raise by name.
-``configure`` keeps the JAX package's module state: the engine calls it
+The host-offload policies save the same tensors and move them to host
+memory in the forward, bringing them back when the backward recomputes
+the region: ``offload_dots`` (the outputs of ``mm``/``addmm``, as JAX's
+``offload_dot_with_no_batch_dims``), ``offload_attn_out`` (K1's forward
+outputs) and ``named_saveable_policy(names, offload=True)``;
+``cpu_checkpointing`` selects ``offload_dots``, as in JAX. Non-reentrant
+checkpointing installs saved-tensor hooks of its own, so an outer
+``torch.autograd.graph.save_on_cpu`` would never see what a checkpointed
+region keeps: the offload happens inside the policy, in a pair of torch
+dispatch modes (``_OffloadSave`` copies each saved output into a pinned
+host buffer on the current stream; ``_OffloadReplay`` hands the recompute
+the copy brought back instead of running the op). ``OFFLOAD_STATS``
+counts the tensors and bytes sent to the host. ``configure`` keeps the JAX package's module state: the engine calls it
 with its config, and ``layer_chunks`` / ``apply_checkpointed_layers`` read
 ``number_checkpoints`` and the policy from it. The ZeRO-3 scheduled layer
 walk is not ported (it waits for the mesh and ZeRO).
@@ -35,12 +45,15 @@ from __future__ import annotations
 import contextlib
 import functools
 import logging
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from collections import defaultdict
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 from torch.utils.checkpoint import checkpoint as _torch_checkpoint
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_map
 
 from deepspeed_tpu_torch.utils.device import resolve_device
 
@@ -48,8 +61,14 @@ logger = logging.getLogger("deepspeed_tpu_torch")
 
 #: the ``everything_saveable`` policy: run without a checkpoint
 EVERYTHING = "everything_saveable"
-# host offload of saved activations: the offload tier
-_OFFLOAD_POLICIES = ("offload_dots", "offload_attn_out")
+
+#: tensors and bytes the host-offload policies moved to host memory
+OFFLOAD_STATS = {"tensors": 0, "bytes": 0}
+
+
+class OffloadOps(frozenset):
+    """A saving policy whose saved outputs live in host memory between the
+    forward and the backward (see the module docstring)."""
 
 
 def _dots(batch_dims: bool):
@@ -75,7 +94,24 @@ POLICIES: Dict[str, Callable[[], Any]] = {
     "dots_saveable": lambda: _dots(True),
     "dots_with_no_batch_dims_saveable": lambda: _dots(False),
     "attn_out_saveable": _attn_out,
+    # host-offload variants (cpu_checkpointing selects offload_dots)
+    "offload_dots": lambda: OffloadOps(_dots(False)),
+    "offload_attn_out": lambda: OffloadOps(_attn_out()),
 }
+
+#: activation names a model tags (the JAX models' ``checkpoint_name``) ->
+#: the ops whose outputs they are here
+_NAMED = {"attn_out": _attn_out}
+
+
+def named_saveable_policy(names: Sequence[str], offload: bool = False):
+    """Save (``offload``: save to host memory) only the named activations."""
+    try:
+        ops = frozenset().union(*(_NAMED[n]() for n in names))
+    except KeyError as e:
+        raise ValueError(f"unknown activation name {e.args[0]!r}; known: "
+                         f"{sorted(_NAMED)}") from None
+    return OffloadOps(ops) if offload else ops
 
 
 def resolve_policy(name_or_policy):
@@ -84,15 +120,11 @@ def resolve_policy(name_or_policy):
         return name_or_policy
     if name_or_policy == EVERYTHING:
         return EVERYTHING
-    if name_or_policy in _OFFLOAD_POLICIES:
-        raise NotImplementedError(
-            f"remat policy '{name_or_policy}' (host offload of saved activations): "
-            "not ported to deepspeed_tpu_torch yet")
     try:
         return POLICIES[name_or_policy]()
     except KeyError:
         raise ValueError(f"unknown remat policy {name_or_policy!r}; known: "
-                         f"{sorted(POLICIES) + list(_OFFLOAD_POLICIES)}") from None
+                         f"{sorted(POLICIES)}") from None
 
 
 # --------------------------------------------------------------------------- #
@@ -123,9 +155,10 @@ def configure(deepspeed_config=None,
               profile: Optional[bool] = None) -> None:
     """``deepspeed_config`` may be a ``DeepSpeedTPUConfig`` (its
     ``activation_checkpointing`` block is read) or that block; keyword
-    arguments override. ``partition_activations`` selects the
-    ``dots_with_no_batch_dims_saveable`` policy, as in JAX (on one device
-    there is nothing to partition); ``cpu_checkpointing`` raises."""
+    arguments override. ``cpu_checkpointing`` selects the
+    ``offload_dots`` policy and ``partition_activations`` the
+    ``dots_with_no_batch_dims_saveable`` one, as in JAX (on one device there
+    is nothing to partition)."""
     cfg = getattr(deepspeed_config, "activation_checkpointing", deepspeed_config)
     if cfg is not None:
         _STATE.partition_activations = getattr(cfg, "partition_activations", False)
@@ -148,15 +181,15 @@ def configure(deepspeed_config=None,
     if profile is not None:
         _STATE.profile = profile
     if _STATE.cpu_checkpointing:
-        _STATE.cpu_checkpointing = False
-        raise NotImplementedError(
-            "activation_checkpointing.cpu_checkpointing (host offload of saved "
-            "activations): not ported to deepspeed_tpu_torch yet")
-    _STATE.policy = POLICIES["dots_with_no_batch_dims_saveable"]() \
-        if _STATE.partition_activations else None
+        _STATE.policy = POLICIES["offload_dots"]()
+    elif _STATE.partition_activations:
+        _STATE.policy = POLICIES["dots_with_no_batch_dims_saveable"]()
+    else:
+        _STATE.policy = None
     _STATE.configured = True
-    logger.debug("activation checkpointing configured: partition=%s n=%s",
-                 _STATE.partition_activations, _STATE.number_checkpoints)
+    logger.debug("activation checkpointing configured: partition=%s cpu=%s n=%s",
+                 _STATE.partition_activations, _STATE.cpu_checkpointing,
+                 _STATE.number_checkpoints)
 
 
 def is_configured() -> bool:
@@ -180,13 +213,89 @@ def _policy_fn(saved: frozenset, ctx, op, *args, **kwargs):
     return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
 
 
+class _Host:
+    """A saved output's host copy and the device it came from (None: it
+    came from the CPU)."""
+
+    __slots__ = ("tensor", "device")
+
+    def __init__(self, tensor: torch.Tensor, device):
+        self.tensor, self.device = tensor, device
+
+
+def _to_host(x):
+    """A saved output's host copy: pinned and queued on the current stream
+    for a CUDA tensor (the backward's copy back runs on the same stream,
+    after it), a plain copy for a CPU one."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    OFFLOAD_STATS["tensors"] += 1
+    OFFLOAD_STATS["bytes"] += x.numel() * x.element_size()
+    if not x.is_cuda:
+        return _Host(x.detach().clone(), None)
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    return _Host(host, x.device)
+
+
+def _from_host(entry):
+    if not isinstance(entry, _Host):
+        return entry
+    return entry.tensor if entry.device is None \
+        else entry.tensor.to(entry.device, non_blocking=True)
+
+
+class _OffloadSave(TorchDispatchMode):
+    """The forward's mode: the outputs of ``ops`` go to host memory, in the
+    order the ops ran."""
+
+    def __init__(self, ops: frozenset, store: Dict):
+        super().__init__()
+        self.ops, self.store = ops, store
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in self.ops:
+            self.store[func].append(tree_map(_to_host, out))
+        return out
+
+
+class _OffloadReplay(TorchDispatchMode):
+    """The recompute's mode: each op of ``ops`` returns its saved output,
+    brought back to the device, instead of running; the rest recompute."""
+
+    def __init__(self, ops: frozenset, store: Dict):
+        super().__init__()
+        self.ops, self.store = ops, store
+        self.counter: Dict[Any, int] = defaultdict(int)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func not in self.ops:
+            return func(*args, **(kwargs or {}))
+        i = self.counter[func]
+        self.counter[func] += 1
+        entry, self.store[func][i] = self.store[func][i], None
+        if entry is None:
+            raise RuntimeError(f"{func}: saved output {i} was already consumed (a "
+                               "checkpointed region is recomputed once)")
+        return tree_map(_from_host, entry, is_leaf=lambda x: isinstance(x, _Host))
+
+
+def _offload_contexts(ops: frozenset):
+    store: Dict = defaultdict(list)
+    return _OffloadSave(ops, store), _OffloadReplay(ops, store)
+
+
 def _run(function: Callable, args: Tuple, kwargs: Dict, policy):
     if policy == EVERYTHING:
         return function(*args, **kwargs)
     if policy is None:
         return _torch_checkpoint(function, *args, use_reentrant=False, **kwargs)
-    ctx = functools.partial(create_selective_checkpoint_contexts,
-                            functools.partial(_policy_fn, policy))
+    if isinstance(policy, OffloadOps):
+        ctx = functools.partial(_offload_contexts, policy)
+    else:
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                functools.partial(_policy_fn, policy))
     return _torch_checkpoint(function, *args, use_reentrant=False, context_fn=ctx, **kwargs)
 
 

@@ -59,12 +59,38 @@ batch) and the curriculum seqlen schedule.
 ZeRO stages 0-3 are accepted and are the identity here: on a world of one
 device there is nothing to partition, as in the JAX partitioner with
 fsdp = 1. A mesh, or a ``torch.distributed`` world of more than one rank,
-raises ``NotImplementedError``, as do offload and a client optimizer that
-is not a ``TPUOptimizer``, which later slices port.
+raises ``NotImplementedError``, as does a client optimizer that is not a
+``TPUOptimizer``, which later slices port.
+
+ZeRO-Offload (``zero_optimization.offload_optimizer``, ``device: cpu`` or
+``nvme``) follows the JAX engine's offload state and step:
+
+- ``state["params"]`` holds every leaf in the compute dtype (the module's
+  parameters); ``state["master"]`` and ``state["opt"]`` hold only the
+  device-flow leaves (twin flow, ``ratio < 1``); the host-flow leaves' fp32
+  master and moments live in ``runtime/zero/offload.py``'s
+  ``HostOffloadOptimizer`` (host RAM, or files through the NVMe swapper);
+- the device step takes the norm, clips, updates the device-flow leaves
+  and writes each host group's grads as one flat array in the compute
+  dtype (the "wire"); each group's wire is copied into a pinned host
+  buffer on a copy stream, a group or two ahead of the host kernel, with
+  an event per group, so the host waits for that group only;
+- the upload lane (a worker thread) casts each finished group's master to
+  the compute dtype into a pinned buffer and copies it into the params on
+  an upload stream ordered after the step's own kernels; the next step's
+  kernels wait for it (``overlap_step: false`` runs fetch-all, step-all,
+  upload-all in turn: the same bytes);
+- ``delayed_param_update`` runs the host step on a worker thread while the
+  next device step runs; its update lands in the params after that step's
+  kernels, at the start of the step after it;
+- checkpoints, ``rollout_source_params`` and ``destroy`` drain a pending
+  host step first; tags hold the same flat keys as a plain engine's, so
+  offload and plain tags load into each other, between the packages too.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from collections import deque
@@ -78,9 +104,12 @@ from deepspeed_tpu_torch.checkpoint import (RollingCheckpointer, build_checkpoin
                                             load_universal_into_engine,
                                             save_engine_checkpoint)
 from deepspeed_tpu_torch.checkpoint.convert import params_from_flat
-from deepspeed_tpu_torch.config import DeepSpeedTPUConfig
+from deepspeed_tpu_torch.checkpoint.state import snapshot_state_flats
+from deepspeed_tpu_torch.config import ConfigError, DeepSpeedTPUConfig, OffloadDeviceEnum
 from deepspeed_tpu_torch.data.curriculum_scheduler import CurriculumScheduler
-from deepspeed_tpu_torch.monitor import CheckpointStats, TrainPipelineStats
+from deepspeed_tpu_torch.monitor import CheckpointStats, OffloadPipelineStats, TrainPipelineStats
+from deepspeed_tpu_torch.monitor.trace import tracer as _tracer
+from deepspeed_tpu_torch.ops.native import bf16_to_f32, f32_to_bf16
 from deepspeed_tpu_torch.ops import TPUOptimizer, build_optimizer
 from deepspeed_tpu_torch.runtime import activation_checkpointing
 from deepspeed_tpu_torch.runtime.activation_checkpointing import mix_seed
@@ -92,10 +121,16 @@ from deepspeed_tpu_torch.runtime.loss_scaler import (has_overflow, make_loss_sca
                                                      update_loss_scale)
 from deepspeed_tpu_torch.runtime.lr_schedules import build_lr_schedule
 from deepspeed_tpu_torch.runtime.progressive_layer_drop import ProgressiveLayerDrop
+from deepspeed_tpu_torch.runtime.zero.offload import HostOffloadOptimizer, partition_leaves
 from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.utils.tree import global_norm
 
 logger = logging.getLogger("deepspeed_tpu_torch")
+
+#: elements a group of the offload engine's device update holds at most
+_DEVICE_UPDATE_ELEMS = 1 << 27
+#: host groups whose grad copies are queued ahead of the host kernel
+_FETCH_AHEAD = 2
 
 
 def fetch_to_host(tree):
@@ -167,9 +202,30 @@ class DeepSpeedTPUEngine:
         # deferred metric drain: (step, device metrics) entries
         self._pending_metrics: deque = deque()
         self.train_stats = TrainPipelineStats()
+        self.offload_stats = OffloadPipelineStats()
         # ZeRO++ qwZ's int8 parameter storage is not ported: the params are
         # always full width here (the flag keeps the JAX engine's name)
         self.quantized_weights = False
+
+        # ZeRO-Offload/Infinity: the host/NVMe optimizer step (the JAX
+        # engine's checks, in its words)
+        off = self.config.zero_optimization.offload_optimizer
+        self._offload_cfg = None
+        self._offload: Optional[HostOffloadOptimizer] = None
+        self._offload_pending = None        # the in-flight delayed host step
+        self._offload_executor = None       # its worker (built lazily)
+        self._offload_upload_pool = None    # the upload lane (built lazily)
+        self._offload_streams = None        # (copy, upload) streams on the card
+        self._offload_nonfinite = False     # a loaded host master held NaN/inf
+        self._offload_f32 = None            # the pipeline's fp32 grad buffers
+        if off is not None and off.device != OffloadDeviceEnum.none:
+            self._offload_cfg = off
+            if self.zero_stage == 0:
+                logger.warning("offload_optimizer with zero stage 0: optimizer "
+                               "states go to host but grads stay replicated")
+            if self.config.zero_optimization.zero_quantized_weights:
+                raise ConfigError("zero_quantized_weights is not supported "
+                                  "together with offload_optimizer")
         self._init_state(model_parameters)
 
         # progressive layer drop: its draws are seeded from (seed, step), so
@@ -224,6 +280,8 @@ class DeepSpeedTPUEngine:
             raise KeyError(f"model_parameters names differ from the model's: missing "
                            f"{sorted(set(named) - set(src))[:4]}, unexpected "
                            f"{sorted(set(src) - set(named))[:4]}")
+        if self._offload_cfg is not None:
+            return self._init_state_offload(named, src)
         with torch.no_grad():
             master = {n: src[n].to(self.device, torch.float32).clone() for n in named}
             for n, p in named.items():
@@ -234,36 +292,102 @@ class DeepSpeedTPUEngine:
                 p.requires_grad_(True)
         if not self.mixed_precision:
             master = dict(named)
+        self.state: Dict[str, Any] = {
+            "master": master, "opt": self.optimizer.init(master),
+            "step": torch.zeros((), dtype=torch.int32, device=self.device),
+            "scaler": self._scaler_state(),
+            "skipped": torch.zeros((), dtype=torch.int32, device=self.device)}
+        if self.mixed_precision:
+            self.state["params"] = dict(named)
+
+    def _scaler_state(self) -> Dict[str, torch.Tensor]:
         fp16 = self.config.fp16
         scaler = make_loss_scale_state(fp16.enabled, fp16.loss_scale,
                                        fp16.initial_scale_power, fp16.hysteresis,
                                        device=self.device)
         self._scaler_dynamic = scaler.pop("dynamic")
-        self.state: Dict[str, Any] = {
-            "master": master, "opt": self.optimizer.init(master),
-            "step": torch.zeros((), dtype=torch.int32, device=self.device),
-            "scaler": scaler,
-            "skipped": torch.zeros((), dtype=torch.int32, device=self.device)}
-        if self.mixed_precision:
-            self.state["params"] = dict(named)
+        return scaler
 
     def _current_params(self) -> Dict[str, torch.Tensor]:
-        return self.state["params"] if self.mixed_precision else self.state["master"]
+        return self.state["params"] if "params" in self.state else self.state["master"]
+
+    # ---- ZeRO-Offload state (the JAX engine's _init_state_offload) ---- #
+
+    def _init_state_offload(self, named, src) -> None:
+        """The offload layout (see the module docstring): the module's
+        parameters become the compute-dtype params of every leaf; the
+        device-flow leaves keep an fp32 master (the params themselves in
+        fp32) and device optimizer state; the host-flow leaves' fp32 master
+        goes to the host optimizer. Host grads travel as one flat array a
+        pipeline group (``_offload_group_meta``: (name, offset, count,
+        shape) a leaf)."""
+        cfg = self._offload_cfg
+        shapes = {n: tuple(p.shape) for n, p in named.items()}
+        # zero-stride stand-ins: partition_leaves reads shapes only
+        host_names, dev_names = partition_leaves(
+            {n: np.broadcast_to(np.float32(0), s) for n, s in shapes.items()}, cfg.ratio)
+        self._offload_host_names, self._offload_dev_names = host_names, dev_names
+        host_master = {}
+        master = {}
+        src = dict(src)   # popped leaf by leaf: a replaced parameter frees as we go
+        with torch.no_grad():
+            for n, p in named.items():
+                v32 = src.pop(n).detach().to(self.device, torch.float32)
+                if n in host_names:
+                    host_master[n] = v32.to("cpu", copy=True).numpy()
+                elif self.mixed_precision:
+                    master[n] = v32.clone()
+                p.data = v32.to(self.compute_dtype) if self.mixed_precision else v32.clone()
+                p.requires_grad_(True)
+                del v32
+        if not self.mixed_precision:
+            master = {n: named[n] for n in dev_names}
+        self._offload = HostOffloadOptimizer(self.optimizer, host_master, cfg)
+        del host_master
+        self._offload_groups = self._offload.leaf_groups()
+        self._offload_group_meta = []
+        for names in self._offload_groups:
+            meta, off = [], 0
+            for k in names:
+                n = int(np.prod(shapes[k]))
+                meta.append((k, off, n, shapes[k]))
+                off += n
+            self._offload_group_meta.append(meta)
+        opt = self.optimizer.init(master)
+        # an empty device flow (ratio 1) still counts its steps on the device
+        opt["step"] = opt["step"].to(self.device)
+        self.state = {"params": dict(named), "master": master, "opt": opt,
+                      "step": torch.zeros((), dtype=torch.int32, device=self.device),
+                      "scaler": self._scaler_state(),
+                      "skipped": torch.zeros((), dtype=torch.int32, device=self.device)}
+        if self.device.type == "cuda":
+            self._offload_streams = (torch.cuda.Stream(device=self.device),
+                                     torch.cuda.Stream(device=self.device))
+        logger.info("offload_optimizer[%s]: %d host leaves, %d device leaves",
+                    cfg.device.value, len(host_names), len(dev_names))
 
     def rollout_source_params(self) -> Dict[str, torch.Tensor]:
         """The device-resident tree the colocated ``WeightBridge``
-        (``runtime/colocated.py``) casts from: ``state["master"]``, the fp32
-        master by flax name, exactly what ``ds_to_universal`` serialises
-        (so the bridge is the universal checkpoint's path without the
-        disk). Nothing is copied. Quantized weights are refused in the JAX
-        engine's words; its other branch, the merged params of a cpu-offload
-        engine, waits for offload's port (the config refuses offload by
-        name)."""
+        (``runtime/colocated.py``) casts from, by flax name; nothing is
+        copied:
+
+        - a standard engine's ``state["master"]``, the fp32 master, exactly
+          what ``ds_to_universal`` serialises (so the bridge is the
+          universal checkpoint's path without the disk);
+        - an offload engine's ``state["params"]`` (compute dtype), after an
+          in-flight delayed host step drained: its master is split between
+          the card and the host, and the params are the post-update view the
+          next step and a checkpoint read.
+
+        Quantized weights are refused in the JAX engine's words."""
         if self.quantized_weights:
             raise NotImplementedError(
                 "colocated weight sync from a quantized-weight (ZeRO++ qwZ) "
                 "engine is not wired — the bridge would have to dequantize "
                 "per sync; train unquantized or sync via checkpoint")
+        if self._offload is not None:
+            self._drain_offload()
+            return self.state["params"]
         return self.state["master"]
 
     # ------------------------------------------------------------------ #
@@ -383,12 +507,19 @@ class DeepSpeedTPUEngine:
 
     def _accumulate(self, acc: Optional[List[torch.Tensor]], grads) -> List[torch.Tensor]:
         """``acc + grads`` in ``grad_accum_dtype`` (the first micro-batch's
-        grads become the accumulator)."""
-        grads = [g.to(self.config.grad_accum_dtype) for g in grads]
-        if acc is None:
-            return grads
-        torch._foreach_add_(acc, grads)
-        return acc
+        grads become the accumulator), a leaf at a time: each grad is
+        dropped from ``grads`` once added, so no second full-width copy of
+        the grads exists at once (an add promotes the compute dtype exactly,
+        so the bits are those of adding the converted grads)."""
+        dtype = self.config.grad_accum_dtype
+        out = [] if acc is None else acc
+        for i, g in enumerate(grads):
+            if acc is None:
+                out.append(g.to(dtype))
+            else:
+                out[i].add_(g)
+            grads[i] = None
+        return out
 
     def _mean_grads(self, acc: List[torch.Tensor], scale: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The accumulated grads as fp32, divided by ``gas * scale``."""
@@ -410,7 +541,10 @@ class DeepSpeedTPUEngine:
 
     def _apply_grads(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Clip, check overflow, optimizer update on the fp32 master, cast
-        back. Returns the step's device metrics."""
+        back. Returns the step's device metrics. Under offload the
+        host-flow grads leave as the wire (popped from ``grads`` as it is
+        built, so their fp32 copies free before the device update) and the
+        host step follows."""
         cfg, st = self.config, self.state
         fp16 = cfg.fp16
         gnorm = global_norm(grads)
@@ -422,24 +556,12 @@ class DeepSpeedTPUEngine:
             cscale = torch.clamp(cfg.gradient_clipping / (gnorm + 1e-6), max=1.0)
             torch._foreach_mul_(list(grads.values()), cscale)
         lr = self._lr_fn(st["step"])
-        names = list(st["master"])
+        wires = self._offload_wires(grads) if self._offload is not None else None
         with torch.no_grad():
-            new_master, new_opt = self.optimizer.update(grads, st["opt"], st["master"],
-                                                        lr=lr)
-            if overflow is not None:
-                # a skipped step keeps the old master and optimizer state
-                keep = lambda old, new: torch.where(overflow, old, new)
-                new_master = {n: keep(st["master"][n], new_master[n]) for n in names}
-                new_opt = {"step": keep(st["opt"]["step"], new_opt["step"]),
-                           **{key: {n: keep(st["opt"][key][n], new_opt[key][n])
-                                    for n in names}
-                              for key in new_opt if key != "step"}}
-            torch._foreach_copy_([st["master"][n] for n in names],
-                                 [new_master[n] for n in names])
-            if self.mixed_precision:
-                torch._foreach_copy_([st["params"][n] for n in names],
-                                     [st["master"][n] for n in names])
-        st["opt"] = new_opt
+            step = None
+            for names in self._update_groups():
+                step = self._update_leaves(grads, names, lr, overflow)
+            st["opt"]["step"] = step
         overflowed = torch.zeros((), dtype=torch.bool, device=self.device) \
             if overflow is None else overflow
         scaler = update_loss_scale(
@@ -449,8 +571,316 @@ class DeepSpeedTPUEngine:
         st["scaler"] = {k: scaler[k] for k in ("scale", "growth_tracker", "hysteresis")}
         st["step"] = st["step"] + (~overflowed).to(torch.int32)
         st["skipped"] = st["skipped"] + overflowed.to(torch.int32)
-        return {"grad_norm": gnorm, "lr": lr, "overflow": overflowed,
-                "loss_scale": st["scaler"]["scale"]}
+        metrics = {"grad_norm": gnorm, "lr": lr, "overflow": overflowed,
+                   "loss_scale": st["scaler"]["scale"]}
+        if wires is not None:
+            self._offload_step(wires, metrics)
+        return metrics
+
+    def _update_groups(self) -> List[List[str]]:
+        """The leaf groups the device update runs over, one after another:
+        all of the master at once, or under offload groups of at most
+        ``_DEVICE_UPDATE_ELEMS`` elements (a larger leaf alone), so the
+        optimizer's temporaries stay one group's size. The update is
+        elementwise within a leaf, so the groups give the same bits."""
+        names = list(self.state["master"])
+        if self._offload is None:
+            return [names]
+        groups, cur, size = [], [], 0
+        for n in names:
+            k = self.state["master"][n].numel()
+            if cur and size + k > _DEVICE_UPDATE_ELEMS:
+                groups.append(cur)
+                cur, size = [], 0
+            cur.append(n)
+            size += k
+        groups.append(cur)
+        return groups
+
+    def _update_leaves(self, grads, names: List[str], lr, overflow) -> torch.Tensor:
+        """The optimizer update of the master leaves ``names``, written in
+        place (the old state kept where the fp16 scaler saw an overflow:
+        ``torch.where``, no host sync decides a skip) and cast into the
+        params. Returns the optimizer's new step counter."""
+        st = self.state
+        if not names:
+            # an empty device flow (offload ratio 1): only the counter steps
+            step = st["opt"]["step"] + 1
+            return step if overflow is None else torch.where(overflow, st["opt"]["step"], step)
+        old_opt = {key: ({n: val[n] for n in names} if isinstance(val, dict) else val)
+                   for key, val in st["opt"].items()}
+        master = {n: st["master"][n] for n in names}
+        new_master, new_opt = self.optimizer.update(grads, old_opt, master, lr=lr)
+        if overflow is not None:
+            # a skipped step keeps the old master and optimizer state
+            keep = lambda old, new: torch.where(overflow, old, new)
+            new_master = {n: keep(master[n], new_master[n]) for n in names}
+            new_opt = {"step": keep(old_opt["step"], new_opt["step"]),
+                       **{key: {n: keep(old_opt[key][n], new_opt[key][n]) for n in names}
+                          for key in new_opt if key != "step"}}
+        torch._foreach_copy_([master[n] for n in names], [new_master[n] for n in names])
+        if self.mixed_precision:
+            torch._foreach_copy_([st["params"][n] for n in names], [master[n] for n in names])
+        for key, val in new_opt.items():
+            if key != "step":
+                st["opt"][key] = {**st["opt"][key], **val}
+        return new_opt["step"]
+
+    # ---- ZeRO-Offload step (the JAX engine's _offload_* methods) ---- #
+
+    def _offload_wires(self, grads: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+        """The host-flow grads (already clipped) as one flat compute-dtype
+        array a pipeline group, each leaf popped from ``grads`` as it lands
+        (the JAX engine's "wire": half width under bf16; the host kernels
+        upcast to fp32)."""
+        wires = []
+        for meta in self._offload_group_meta:
+            flat = torch.empty((meta[-1][1] + meta[-1][2],), dtype=self.compute_dtype,
+                               device=self.device)
+            for k, off, n, _ in meta:
+                flat[off:off + n].copy_(grads.pop(k).reshape(-1))
+            wires.append(flat)
+        return wires
+
+    def _offload_step(self, wires: List[torch.Tensor], metrics) -> None:
+        """Hand the step's wires to the host: the scalars the host needs
+        (lr, grad norm, overflow) go down beside them. Synchronous, or under
+        ``delayed_param_update`` on the worker while the next step runs."""
+        scal = torch.stack([metrics["lr"].float().reshape(()), metrics["grad_norm"].float(),
+                            metrics["overflow"].float()])
+        job = {"wires": wires, "ready": None, "scalars": scal, "scalars_ready": None}
+        if self._offload_streams is not None:
+            copy_stream = self._offload_streams[0]
+            ready = torch.cuda.Event()
+            ready.record()
+            copy_stream.wait_event(ready)
+            with torch.cuda.stream(copy_stream):
+                host = torch.empty(scal.shape, dtype=scal.dtype, pin_memory=True)
+                host.copy_(scal, non_blocking=True)
+                scal.record_stream(copy_stream)
+                done = torch.cuda.Event()
+                done.record(copy_stream)
+            job.update(ready=ready, scalars=host, scalars_ready=done)
+        if not self._offload_cfg.delayed_param_update:
+            self._offload_host_step(job)
+            return
+        # Delayed Param Update: step N's host work runs while step N+1
+        # computes; step N-1's update lands now, after this step's kernels
+        self._drain_offload()
+        if self._offload_executor is None:
+            from concurrent.futures import ThreadPoolExecutor
+            self._offload_executor = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="dstorch-offload")
+        self._offload_pending = self._offload_executor.submit(self._offload_host_step, job)
+
+    def _offload_host_step(self, job):
+        """Run the host optimizer for one step. Pipelined (``overlap_step``,
+        the default): each group's grad copy is queued ``_FETCH_AHEAD``
+        groups ahead of its host kernel, and each finished group's master
+        goes up on the upload lane while later groups step (on disk, the
+        swapper double-buffers the state underneath). Serial
+        (``overlap_step: false``): fetch every group, step every leaf,
+        upload every group. The same bytes either way.
+
+        Returns None once the params hold the update, or under
+        ``delayed_param_update`` the staged (group, flat) uploads that
+        :meth:`_drain_offload` copies in."""
+        perf = time.perf_counter
+        if job["scalars_ready"] is not None:
+            job["scalars_ready"].synchronize()
+        lr, gnorm, overflow = (float(x) for x in job["scalars"].tolist())
+        if overflow:
+            return None
+        meta_groups = self._offload_group_meta
+        if not meta_groups:
+            return [] if self._offload_cfg.delayed_param_update else None
+        delayed = self._offload_cfg.delayed_param_update
+        canon_nan = not np.isfinite(gnorm) or self._offload_nonfinite
+        fetch = self._offload_fetcher(job)
+        stats = self.offload_stats
+
+        if not self._offload_cfg.overlap_step:
+            t0 = perf()
+            host = [fetch(gi) for gi in range(len(meta_groups))]
+            t1 = perf()
+            views = {k: host[gi][off:off + n] for gi, meta in enumerate(meta_groups)
+                     for k, off, n, _ in meta}
+            updated = self._offload.step(views, lr)
+            t2 = perf()
+            staged = [(gi, self._offload_stage(gi, updated, canon_nan))
+                      for gi in range(len(meta_groups))]
+            if not delayed:
+                for gi, flat in staged:
+                    self._offload_apply(gi, flat)
+            t3 = perf()
+            stats.add("fetch", t1 - t0)
+            stats.add("kernel", t2 - t1)
+            stats.add("upload", t3 - t2)
+            stats.record_step(groups=len(meta_groups), depth_sum=0)
+            if _tracer.enabled:
+                _tracer.add("train/offload/fetch", t0, t1, lane="train/offload")
+                _tracer.add("train/offload/kernel", t1, t2, lane="train/offload")
+                _tracer.add("train/offload/upload", t2, t3, lane="train/offload")
+            return staged if delayed else None
+
+        upload_stream = None if self._offload_streams is None else self._offload_streams[1]
+        uploads: list = [None] * len(meta_groups)
+        depth = {"sum": 0}
+
+        def grad_views_for(gi):
+            host = fetch(gi)
+            return {k: host[off:off + n] for k, off, n, _ in meta_groups[gi]}
+
+        def upload_group(gi, masters):
+            t0 = perf()
+            flat = self._offload_stage(gi, masters, canon_nan)
+            if not delayed:
+                if upload_stream is not None:
+                    upload_stream.wait_event(job["ready"])
+                self._offload_apply(gi, flat, upload_stream)
+            t1 = perf()
+            stats.add("upload", t1 - t0)
+            if _tracer.enabled:
+                _tracer.add("train/offload/upload", t0, t1, lane="train/offload/upload",
+                            group=gi)
+            # a copied group's pinned buffer goes back to the caching host
+            # allocator now: only a delayed update keeps its staged groups
+            return (gi, flat) if delayed else None
+
+        def on_group_done(gi, masters):
+            depth["sum"] += sum(1 for f in uploads if f is not None and not f.done())
+            uploads[gi] = self._offload_uploader().submit(upload_group, gi, masters)
+
+        self._offload.step_groups(grad_views_for, lr, on_group_done=on_group_done,
+                                  record=stats.add)
+        staged = [f.result() for f in uploads]
+        stats.record_step(groups=len(meta_groups), depth_sum=depth["sum"])
+        if delayed:
+            return staged
+        if upload_stream is not None:
+            # the next step's kernels read the params the lane wrote
+            torch.cuda.current_stream(self.device).wait_stream(upload_stream)
+        return None
+
+    def _offload_fetcher(self, job) -> Callable[[int], np.ndarray]:
+        """``fetch(g)``: group g's grads as a flat fp32 host array. On the
+        card each group's wire is copied into a pinned buffer on the copy
+        stream (after the step's ``ready`` event), ``_FETCH_AHEAD`` groups
+        ahead of the one asked for, with an event per group; ``fetch``
+        waits for its own group's event only, and a group's device wire is
+        released once its copy is queued."""
+        wires = job["wires"]
+        n_groups = len(wires)
+        # the pipeline steps one group at a time, so two fp32 buffers taken
+        # in turn hold every group's grads with no fresh pages a step (the
+        # serial path holds all groups at once and allocates)
+        bufs = self._offload_grad_buffers() if self._offload_cfg.overlap_step else None
+
+        def to_f32(gi, host):
+            return self._wire_to_f32(host, None if bufs is None else bufs[gi % 2])
+
+        if self._offload_streams is None:
+            return lambda gi: to_f32(gi, wires[gi])
+        copy_stream = self._offload_streams[0]
+        copy_stream.wait_event(job["ready"])
+        pending: Dict[int, tuple] = {}
+
+        def issue(gi):
+            if gi >= n_groups or gi in pending or wires[gi] is None:
+                return
+            wire = wires[gi]
+            with torch.cuda.stream(copy_stream):
+                host = torch.empty(wire.shape, dtype=wire.dtype, pin_memory=True)
+                host.copy_(wire, non_blocking=True)
+                wire.record_stream(copy_stream)
+                done = torch.cuda.Event()
+                done.record(copy_stream)
+            wires[gi] = None
+            pending[gi] = (host, done)
+
+        def fetch(gi):
+            for j in range(gi, gi + 1 + _FETCH_AHEAD):
+                issue(j)
+            host, done = pending.pop(gi)
+            done.synchronize()
+            return to_f32(gi, host)
+
+        return fetch
+
+    def _offload_grad_buffers(self) -> List[np.ndarray]:
+        """Two fp32 host buffers of the largest group's size, made once."""
+        if self._offload_f32 is None:
+            n = max(meta[-1][1] + meta[-1][2] for meta in self._offload_group_meta)
+            self._offload_f32 = [np.empty((n,), np.float32) for _ in range(2)]
+        return self._offload_f32
+
+    @staticmethod
+    def _wire_to_f32(host: torch.Tensor, buf: Optional[np.ndarray] = None) -> np.ndarray:
+        """A host wire as fp32 numpy (bf16 through the native conversion),
+        written into ``buf`` where one is given."""
+        if host.dtype == torch.float32:
+            return host.numpy()
+        out = None if buf is None else buf[:host.numel()]
+        if host.dtype == torch.bfloat16:
+            return bf16_to_f32(host.view(torch.int16).numpy().view(np.uint16), out)
+        if out is None:
+            return host.float().numpy()
+        torch.from_numpy(out).copy_(host)
+        return out
+
+    def _offload_stage(self, gi: int, masters: Mapping[str, np.ndarray],
+                       canon_nan: bool) -> torch.Tensor:
+        """Group ``gi``'s fp32 master cast to the compute dtype into one flat
+        host buffer (pinned on the card), the JAX engine's ``astype``: bf16
+        rounds to nearest even through the native conversion, and where a
+        NaN can be present (``canon_nan``: a non-finite grad norm this step,
+        or a loaded master that held one) NaNs become ml_dtypes' sign | 0x7FC0."""
+        meta = self._offload_group_meta[gi]
+        flat = torch.empty((meta[-1][1] + meta[-1][2],), dtype=self.compute_dtype,
+                           pin_memory=self._offload_streams is not None)
+        if self.compute_dtype == torch.bfloat16:
+            bits = flat.view(torch.int16).numpy().view(np.uint16)
+            for k, off, n, _ in meta:
+                f32_to_bf16(np.asarray(masters[k], np.float32).reshape(-1), bits[off:off + n])
+            if canon_nan:
+                t = flat.view(torch.int16)
+                nan = (t & 0x7FFF) > 0x7F80
+                if bool(nan.any()):
+                    t[nan] = (t[nan] & -0x8000) | 0x7FC0
+        else:
+            for k, off, n, _ in meta:
+                flat[off:off + n].copy_(torch.from_numpy(
+                    np.asarray(masters[k], np.float32).reshape(-1)))
+        return flat
+
+    def _offload_apply(self, gi: int, flat: torch.Tensor, stream=None) -> None:
+        """Copy a staged group into the params, in place, on ``stream`` (the
+        current stream by default)."""
+        params = self.state["params"]
+        with torch.no_grad(), torch.cuda.stream(stream) if stream is not None \
+                else contextlib.nullcontext():
+            for k, off, n, _ in self._offload_group_meta[gi]:
+                params[k].view(-1).copy_(flat[off:off + n], non_blocking=flat.is_pinned())
+
+    def _offload_uploader(self):
+        """The upload lane: one worker thread."""
+        if self._offload_upload_pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+            self._offload_upload_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="dstorch-offload-upload")
+        return self._offload_upload_pool
+
+    def _drain_offload(self) -> None:
+        """Wait for an in-flight delayed host step and copy its update into
+        the params on the current stream (after every kernel queued so far).
+        Called before the next step's host work, checkpoints, the bridge and
+        destroy(): anything that must see the post-update params."""
+        pending, self._offload_pending = self._offload_pending, None
+        if pending is None:
+            return
+        staged = pending.result()
+        for gi, flat in staged or ():
+            self._offload_apply(gi, flat)
 
     def _loss_scale(self) -> torch.Tensor:
         return self.state["scaler"]["scale"] if self.config.fp16.enabled \
@@ -616,8 +1046,46 @@ class DeepSpeedTPUEngine:
         save_engine_checkpoint(save_dir, tag, self.state, client_state,
                                save_latest=save_latest,
                                ckpt_engine=self._checkpoint_engine(),
-                               stats=self.ckpt_stats)
+                               stats=self.ckpt_stats, snapshot=self.checkpoint_flats)
         return True
+
+    def checkpoint_flats(self):
+        """(model_flat, optim_flat): fresh host copies of the state under
+        the checkpoint's flat keys. An offload engine drains its delayed
+        host step first and adds the host-flow master and moments, so its
+        tags hold the keys a plain engine's do (the JAX engine's
+        ``_offload_ckpt_state``)."""
+        model_flat, optim_flat = snapshot_state_flats(self.state)
+        if self._offload is None:
+            return model_flat, optim_flat
+        self._drain_offload()
+        host_master, moments = self._offload.state_leaves()
+        model_flat.update(host_master)
+        for key, leaves in moments.items():
+            optim_flat.update({f"opt/{key}/{k}": v for k, v in leaves.items()})
+        return model_flat, optim_flat
+
+    def _offload_load_host(self, model_flat, optim_flat=None) -> None:
+        """Load the host-flow leaves of a checkpoint (``optim_flat`` None:
+        the master only) and recast their params from it, as the step's
+        upload does (the JAX engine's ``_load_checkpoint_offload``)."""
+        from deepspeed_tpu_torch.runtime.zero.offload import _STATE_KEYS
+        host = self._offload_host_names
+        master = {k: np.asarray(model_flat[k], np.float32) for k in host}
+        moments, step_num = {}, None
+        if optim_flat is not None:
+            moments = {sk: {k: optim_flat[f"opt/{sk}/{k}"] for k in host}
+                       for sk in _STATE_KEYS[self._offload.kind]
+                       if all(f"opt/{sk}/{k}" in optim_flat for k in host)}
+            step_num = int(optim_flat.get("opt/step", optim_flat.get("step", 0)))
+        self._offload.load_master_leaves(master)
+        if optim_flat is not None:
+            self._offload.load_moment_leaves(moments, step_num=step_num)
+        self._offload_nonfinite = not all(np.isfinite(v).all() for v in master.values())
+        for gi in range(len(self._offload_group_meta)):
+            self._offload_apply(gi, self._offload_stage(gi, master, self._offload_nonfinite))
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _checkpoint_engine(self):
         """The configured checkpoint engine, built once."""
@@ -644,6 +1112,8 @@ class DeepSpeedTPUEngine:
         ``(load_dir, client_state)``."""
         if verify is None:
             verify = self.config.checkpoint.verify_load
+        # a pending delayed host step writes the state the load replaces
+        self._drain_offload()
         self.drain_metrics()   # the pre-load stream's metrics land first
         # staged batches are keyed to the step counter the load moves
         self._reset_data_iterator()
@@ -658,20 +1128,33 @@ class DeepSpeedTPUEngine:
         _, client_state = load_engine_checkpoint(
             load_dir, tag, self.state, load_optimizer_states=load_optimizer_states,
             load_module_only=load_module_only, ckpt_engine=self._checkpoint_engine(),
-            verify=verify, stats=self.ckpt_stats)
+            verify=verify, stats=self.ckpt_stats,
+            host_loader=self._offload_load_host if self._offload is not None else None)
         self.global_steps = int(client_state.get("global_steps", 0))
         self.global_samples = int(client_state.get("global_samples", 0))
         self.micro_steps = int(client_state.get("micro_steps", 0))
         return load_dir, client_state
 
     def destroy(self):
-        """Release host-side resources: the deferred metrics, the rolling
-        committer, then the checkpoint engine's writers. A surfaced commit
-        or writer error re-raises only after the whole teardown ran.
-        Idempotent."""
+        """Release host-side resources: the deferred metrics, an offload
+        engine's pending host step, its worker and upload lane and its host
+        optimizer (the kernel pool, the AIO handles), the rolling committer,
+        then the checkpoint engine's writers. A surfaced commit or writer
+        error re-raises only after the whole teardown ran. Idempotent."""
         self._reset_data_iterator()
         self.drain_metrics()
         err = None
+        try:
+            self._drain_offload()
+        except BaseException as e:
+            err = e
+        for attr in ("_offload_executor", "_offload_upload_pool"):
+            pool = getattr(self, attr)
+            setattr(self, attr, None)
+            if pool is not None:
+                pool.shutdown(wait=True)
+        if self._offload is not None:
+            self._offload.close()
         if self._rolling is not None:
             # BEFORE the checkpoint engine closes: queued rolling commits
             # need live writer threads to drain against

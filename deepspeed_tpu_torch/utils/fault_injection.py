@@ -12,9 +12,9 @@ or ``kill`` (``os._exit(KILL_EXIT_CODE)``).
 Nothing is installed by default and :func:`maybe_fail` is a no-op while
 inactive. A plan comes from :func:`parse_plan` (grammar
 ``site:key=val:key=val;site2:...``, e.g. ``"serve.lora_fault:at=1"``) and
-is armed with :func:`install`. The JAX package's environment arming
-(``DSTPU_FAULTS``) and its return-code sites (``maybe_rc``, the AIO
-surface) wait for the port's callers of them.
+is armed with :func:`install`. Return-code sites (the AIO surface) call
+:func:`maybe_rc`. The JAX package's environment arming (``DSTPU_FAULTS``)
+waits for a caller in the port.
 
 Sites in the port:
 
@@ -44,6 +44,9 @@ Sites in the port:
 ``ckpt.stall``            ``checkpoint.engine._atomic_savez`` after the temp
                           file is written, before its rename (a slow writer
                           or disk; pair with ``action=stall``).
+``aio.read``/``aio.write``  ``ops.native.aio.AsyncIOHandle`` submit (return
+                          code: a negative errno before the request queues).
+``aio.wait``              ``AsyncIOHandle.wait`` after the real drain.
 ========================  ===================================================
 
 A ``raise`` or ``kill`` first dumps the span tracer's flight recorder
@@ -215,3 +218,16 @@ def maybe_fail(site: str) -> None:
     rc = _execute(spec, site)
     if rc is not None:  # an errno spec on an exception-contract site
         raise InjectedFault(-rc, f"injected fault at {site}")
+
+
+def maybe_rc(site: str) -> int:
+    """Return-code sites (the AIO surface): a negative errno when firing
+    with ``action=errno``; a stall returns 0 after sleeping; ``raise`` and
+    ``kill`` behave as in :func:`maybe_fail`."""
+    if _active is None:
+        return 0
+    spec = _active.hit(site)
+    if spec is None:
+        return 0
+    rc = _execute(spec, site)
+    return rc if rc is not None else 0

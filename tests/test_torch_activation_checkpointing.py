@@ -138,12 +138,15 @@ def test_policy_registry_and_errors():
     assert torch.ops.aten.bmm.default in ac.resolve_policy("dots_saveable")
     assert torch.ops.aten.bmm.default not in ac.resolve_policy(
         "dots_with_no_batch_dims_saveable")
-    assert set(jac.POLICIES) - set(ac.POLICIES) == {"offload_dots", "offload_attn_out"}
+    # the host-offload policies resolve since the offload tier was ported:
+    # the saving policies' ops, their outputs kept in host memory
+    assert set(jac.POLICIES) == set(ac.POLICIES)
     with pytest.raises(ValueError):
         ac.resolve_policy("not-a-policy")
-    for name in ("offload_dots", "offload_attn_out"):
-        with pytest.raises(NotImplementedError, match=name):
-            ac.resolve_policy(name)
+    for name, saving in (("offload_dots", "dots_with_no_batch_dims_saveable"),
+                         ("offload_attn_out", "attn_out_saveable")):
+        pol = ac.resolve_policy(name)
+        assert isinstance(pol, ac.OffloadOps) and pol == ac.resolve_policy(saving)
 
 
 def test_apply_remat_module_grads_match():
@@ -212,11 +215,17 @@ def test_rng_tracker_defaults_to_the_card(monkeypatch):
 
 
 def test_cpu_checkpointing_refused_by_name():
-    with pytest.raises(NotImplementedError, match="cpu_checkpointing"):
-        ac.configure(checkpoint_in_cpu=True)
-    with pytest.raises(NotImplementedError, match="cpu_checkpointing"):
-        DeepSpeedTPUConfig.load({"train_batch_size": 8,
-                                 "activation_checkpointing": {"cpu_checkpointing": True}})
+    # cpu_checkpointing configures since the offload tier was ported: it
+    # selects offload_dots, as in the JAX package
+    ac.configure(checkpoint_in_cpu=True)
+    assert ac.current_policy() == ac.resolve_policy("offload_dots")
+    assert isinstance(ac.current_policy(), ac.OffloadOps)
+    cfg = DeepSpeedTPUConfig.load({"train_batch_size": 8,
+                                   "activation_checkpointing": {"cpu_checkpointing": True}})
+    ac.configure(cfg)
+    jac.configure(checkpoint_in_cpu=True)
+    assert ac.is_configured() and jac.is_configured()
+    assert isinstance(ac.current_policy(), ac.OffloadOps)
 
 
 # --------------------------------------------------------------------------- #
@@ -266,6 +275,69 @@ def test_model_remat_policies_are_bit_equal_and_count_k1(family, monkeypatch):
             continue
         assert torch.equal(loss, ref[0]), (remat, policy)
         assert all(torch.equal(a, b) for a, b in zip(grads, ref[1])), (remat, policy)
+
+
+@pytest.mark.parametrize("family", sorted(MODELS))
+@pytest.mark.parametrize("offload, saving", [
+    ("offload_dots", "dots_with_no_batch_dims_saveable"),
+    ("offload_attn_out", "attn_out_saveable")])
+def test_offload_policies_equal_the_saving_policies(family, offload, saving, monkeypatch):
+    """A host-offload policy gives its saving policy's loss and gradients
+    bit for bit, runs K1's forward as often, and its saved outputs left
+    the device's custody: each went through the host copy (here a CPU copy
+    without pinning), and those the recompute reads came back."""
+    calls = {"n": 0}
+    fwd = k1.flash_attention_fwd
+
+    def counted(*args):
+        calls["n"] += 1
+        return fwd(*args)
+
+    monkeypatch.setattr(k1, "flash_attention_fwd", counted)
+    ids = torch.from_numpy(np.random.default_rng(8).integers(0, 256, (2, 24)))
+    hops = {"to": 0, "back": 0}
+    to_host, from_host = ac._to_host, ac._from_host
+
+    def counting_to(x):
+        hops["to"] += isinstance(x, torch.Tensor)
+        return to_host(x)
+
+    def counting_back(e):
+        hops["back"] += isinstance(e, ac._Host)
+        return from_host(e)
+
+    monkeypatch.setattr(ac, "_to_host", counting_to)
+    monkeypatch.setattr(ac, "_from_host", counting_back)
+    ac.OFFLOAD_STATS.update(tensors=0, bytes=0)
+    loss, grads = _loss_grads(MODELS[family](remat=True, remat_policy=offload), ids)
+    n_off, moved = calls["n"], dict(ac.OFFLOAD_STATS)
+    calls["n"] = 0
+    ref_loss, ref_grads = _loss_grads(MODELS[family](remat=True, remat_policy=saving), ids)
+    assert calls["n"] == n_off
+    assert torch.equal(loss, ref_loss)
+    assert all(torch.equal(a, b) for a, b in zip(grads, ref_grads))
+    # the recompute stops once the backward has what it needs, so a
+    # region's last saved outputs may never come back
+    assert moved["tensors"] > 0 and hops["to"] == moved["tensors"]
+    assert 0 < hops["back"] <= hops["to"] and moved["bytes"] > 0
+
+
+def test_named_saveable_policy_and_cpu_checkpointing_in_a_model():
+    """``named_saveable_policy(["attn_out"], offload=True)`` is
+    ``offload_attn_out``; a model under ``cpu_checkpointing`` (no policy of
+    its own) offloads the dots and gives remat-off's bits."""
+    assert ac.named_saveable_policy(["attn_out"]) == ac.resolve_policy("attn_out_saveable")
+    pol = ac.named_saveable_policy(["attn_out"], offload=True)
+    assert isinstance(pol, ac.OffloadOps) and pol == ac.resolve_policy("offload_attn_out")
+    with pytest.raises(ValueError):
+        ac.named_saveable_policy(["not_a_tag"])
+    ids = torch.from_numpy(np.random.default_rng(9).integers(0, 256, (2, 24)))
+    ref = _loss_grads(MODELS["llama"](), ids)
+    ac.configure(checkpoint_in_cpu=True)
+    ac.OFFLOAD_STATS.update(tensors=0, bytes=0)
+    got = _loss_grads(MODELS["llama"](remat=True), ids)
+    assert ac.OFFLOAD_STATS["tensors"] > 0
+    assert torch.equal(got[0], ref[0]) and all(torch.equal(a, b) for a, b in zip(got[1], ref[1]))
 
 
 # --------------------------------------------------------------------------- #

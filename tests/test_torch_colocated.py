@@ -157,6 +157,29 @@ def test_reshard_matches_universal(tmp_path, donate):
     assert names == sorted(master)               # the universal checkpoint's names
 
 
+def test_reshard_matches_universal_offload(tmp_path):
+    """The JAX package's ``test_reshard_matches_universal_offload``: a
+    cpu-offload trainer syncs from its merged params (the post-update
+    view), byte-equal to a serving engine loaded from the universal
+    checkpoint of the same state."""
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=_model(), model_parameters=_numpy_params(),
+        config={**TRAIN, "zero_optimization": {"stage": 1,
+                                               "offload_optimizer": {"device": "cpu"}}},
+        device="cpu")
+    for i in range(2):
+        eng.train_batch(_batch(100 + i))
+    assert eng.rollout_source_params() is eng.state["params"]
+    serve = _serve_engine()
+    new_w = serve.weight_bridge(eng, donate=False).sync()
+    eng.save_checkpoint(str(tmp_path / "ck"), tag="t")
+    universal.ds_to_universal(str(tmp_path / "ck"), str(tmp_path / "uni"), tag="t")
+    master, _, _ = universal.load_universal(str(tmp_path / "uni"))
+    ref = _serve_engine(params_from_flat(master, device="cpu"))
+    assert _leaves_byte_equal(new_w, ref.weights)
+    eng.destroy()
+
+
 def _jax_key_to_port(key, layer):
     """A JAX serving-tree path (stacked layers) -> the port's path of
     layer ``layer`` (a list of per-layer dicts): ``ln1/scale`` -> ``ln1``,

@@ -158,6 +158,31 @@ def test_checkpoint_modules_import_without_jax():
                    env={**os.environ, "PYTHONPATH": str(ROOT)})
 
 
+OFFLOAD_MODULES = ("deepspeed_tpu_torch.ops.native", "deepspeed_tpu_torch.ops.native.builder",
+                   "deepspeed_tpu_torch.ops.native.cpu_optimizer",
+                   "deepspeed_tpu_torch.ops.native.aio",
+                   "deepspeed_tpu_torch.runtime.swap_tensor",
+                   "deepspeed_tpu_torch.runtime.swap_tensor.optimizer_swapper",
+                   "deepspeed_tpu_torch.runtime.zero", "deepspeed_tpu_torch.runtime.zero.offload",
+                   "deepspeed_tpu_torch.runtime.activation_checkpointing",
+                   "deepspeed_tpu_torch.runtime.engine")
+
+
+def test_offload_modules_import_without_jax():
+    """The offload tier's modules, each imported by its own name in a fresh
+    interpreter, load no JAX and nothing of the JAX package, and build
+    nothing at import: the native library is built at first use."""
+    code = ("import importlib, sys; "
+            f"mods = [importlib.import_module(m) for m in {OFFLOAD_MODULES!r}]; "
+            "assert mods[1]._lib is None; "
+            "assert hasattr(mods[7], 'HostOffloadOptimizer'); "
+            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'deepspeed_tpu') "
+            "or m.startswith(('jax.', 'flax.', 'deepspeed_tpu.'))]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120,
+                   env={**os.environ, "PYTHONPATH": str(ROOT)})
+
+
 ROLLOUT_MODULES = ("deepspeed_tpu_torch.runtime.colocated",
                    "deepspeed_tpu_torch.runtime.hybrid_engine",
                    "deepspeed_tpu_torch.inference.config", "deepspeed_tpu_torch.inference.engine",
