@@ -432,9 +432,30 @@ decode kernel at Qwen2-7B's G = 7 and Gemma-7B's D = 256 on pages of 128.
    decode kernel must launch on the main path (counted before the
    replay, the comparison engines' launches taken out).
 
+25. observability and resilience (``run_observability``). (a) phase 20's
+   trainer (8 of Llama-2-7B's 32 layers, T 4096, FusedLamb, micro-batch 1
+   x gas 4) twice from seed 0, 5 steps each: everything off, then the CSV
+   sink, the live Prometheus exporter (port 0), the tracer, the flops
+   profiler at step 1 and a print every step on. Losses and masters bit
+   for bit, K1's launches a step unchanged (the profiler's 5 forwards add
+   their own), the median device step wall of steps 2-5 (CUDA events)
+   within 5%, the CSV rows and ``GET /metrics`` against the returned
+   losses, the step stats against the ``train/step/*`` spans, the counted
+   forward flops against the closed form; then 2 facade steps under
+   ``wall_clock_breakdown`` print the fwd/bwd/step timers. (b) Llama-2-7B
+   at 32 layers, 8 prompts of 128-1024 tokens, 64 greedy tokens through
+   the decode pipeline untraced and traced (a ``TelemetryPump`` into an
+   exporter): byte-identical streams, 64 ``serve/decode/step`` spans, one
+   ``serve/attn/select`` a step, the drained row's bytes, every
+   ``inference/v2/pipeline/*`` field, the median step wall within 5%, and
+   a profiled run's busy share. (c) phase 19's GPT-2 small under the
+   lock-order sanitizer, traced, with rolling async saves: bit-equal
+   losses against a plain run, every ``ckpt/*`` span, no lock cycle. Each
+   part's trace passes ``scripts/trace_check.py``.
+
 The last two lines are the kernel table (58 rows, K5 at the verify step's
-shape among them; the rows of K2, K5, the decode kernel and K7 carry their
-launches in phases 21, 22 and 23 as ``serving_launches``) and ``{"ok": true,
+shape among them; the rows of K1, K2, K5, the decode kernel and K7 carry
+their launches in phases 21-25 as ``serving_launches``) and ``{"ok": true,
 "device": ...}`` as JSON. Run from the repository root: ``python3 chip_smoke.py``.
 """
 
@@ -8183,7 +8204,7 @@ def p23_swap(engine, fresh, model, new_w, pre, V, dev) -> dict:
 
 def p23_traffic(trainer, engine, fe, model, batch, V, dev) -> dict:
     """(c) A swap under traffic: 8 requests of ``P23_NEW`` tokens decode on
-    the running frontend; one more train step, then
+    the frontend ``fe``, started here; one more train step, then
     ``bridge.sync_and_swap(fe)`` while they decode. Every request live at
     the swap is recompute-preempted and finishes with all its tokens;
     tokens before the swap match the old weights' streams, tokens after
@@ -8194,6 +8215,9 @@ def p23_traffic(trainer, engine, fe, model, batch, V, dev) -> dict:
     with p23_uncounted():
         old = [o[len(p):] for o, p in zip(engine.generate(prompts, max_new_tokens=P23_NEW),
                                           prompts)]
+    # the frontend's thread runs whatever prefill is pending on its engine,
+    # so it starts only after the direct generate() above
+    fe.start()
     gaps = p23_trace_gaps(model, prompts, old, dev)
     tie = p23_tie(model, prompts, dev)
     trainer.train_batch(batch)
@@ -8445,7 +8469,6 @@ def run_rollout(layers: int = P23_LAYERS, dev="cuda", cfg=None):
         flush=True)
     print("rollout-swap " + json.dumps(b), flush=True)
     fe = engine.serving_frontend()
-    fe.start()
     c = p23_traffic(trainer, engine, fe, model, batches[2], V, dev)
     print("rollout-traffic " + json.dumps(c), flush=True)
     gc.collect()
@@ -9082,6 +9105,630 @@ def run_offload(dev="cuda", cfg=None, T: int = P24_T):
     return {k: int(v) for k, v in launches.items()}
 
 
+# --------------------------------------------------------------------------- #
+# phase 25: observability and resilience
+# --------------------------------------------------------------------------- #
+
+P25_STEPS = 5             # (a): a run's steps; the first is cold (and profiled)
+P25_WCB_STEPS = 2         # (a): facade steps under wall_clock_breakdown
+P25_OVERHEAD = 0.05       # traced / everything-on median step wall, at most +5%
+P25_PROFILE_FORWARDS = 5  # the profiler's forwards: hooked, counted, 3 timed
+P25_PROMPTS = 8
+P25_LENS = (128, 1024)    # (b): prompt lengths, inclusive
+P25_NEW = 64
+P25_BUSY_STEPS = 16       # (b): the profiled run that reads the busy share
+# decode_splits 2 so the engine chooses a rung each step (a one-rung ladder
+# chooses nothing and records no select, as in the JAX package); a split
+# needs 8192 tokens of context, more than any sequence here has, so every
+# choice is rung 1 and no split-K kernel runs
+P25_ENGINE = {**P17_POOL, "attention": {"decode_splits": 2, "min_ctx_per_split": 8192}}
+P25_C_STEPS = 6
+P25_C_ROLLING = {"engine": "async", "writers": 2,
+                 "rolling": {"every_n_steps": 2, "keep_last": 1, "max_pending": 1}}
+P25_PIPELINE_FIELDS = ("steps", "tokens", "dispatch_ms_per_step", "host_build_ms_per_step",
+                       "fetch_drain_ms_per_step", "bubble_ms_per_step", "fetch_bytes_per_step")
+
+
+class P25Sink:
+    """A monitor backend that keeps every event it is given."""
+
+    def __init__(self):
+        self.events = []
+
+    def write_events(self, events):
+        self.events.extend(events)
+
+
+class P25SyncProbe:
+    """Counts the synchronizing CUDA calls that
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports while it is entered,
+    by thread, split into those inside the training engine's policed drain
+    (``runtime.engine._to_host``) and the rest, with the rest's source
+    lines. A step that makes no sync outside the drain leaves the host free
+    to queue the next step while the device runs this one."""
+
+    def __init__(self):
+        import threading
+        self.drain = 0
+        self.other = 0              # on the thread that entered the probe
+        self.other_threads = 0
+        self.where = collections.Counter()
+        self._local = threading.local()
+        self._main = threading.get_ident()
+
+    def __enter__(self):
+        import threading
+        import warnings
+
+        import torch
+        from deepspeed_tpu_torch.runtime import engine as engine_mod
+        self._engine_mod, self._to_host = engine_mod, engine_mod._to_host
+        local = self._local
+
+        def to_host(tree):
+            local.depth = getattr(local, "depth", 0) + 1
+            try:
+                return self._to_host(tree)
+            finally:
+                local.depth -= 1
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if "synchronizing" not in str(message):
+                return self._show(message, category, filename, lineno, file, line)
+            if getattr(local, "depth", 0):
+                self.drain += 1
+                return
+            if threading.get_ident() == self._main:
+                self.other += 1
+            else:
+                self.other_threads += 1
+            self.where[f"{'/'.join(filename.split(os.sep)[-2:])}:{lineno}"] += 1
+
+        engine_mod._to_host = to_host
+        self._warnings = warnings.catch_warnings()
+        self._warnings.__enter__()
+        warnings.simplefilter("always")
+        self._show = warnings.showwarning
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.set_sync_debug_mode("default")
+        self._warnings.__exit__(*exc)
+        self._engine_mod._to_host = self._to_host
+        return False
+
+    def line(self) -> dict:
+        return {"drain": self.drain, "other": self.other,
+                "other_threads": self.other_threads, "where": dict(self.where)}
+
+
+def p25_trace_check(label: str, trace_dir: str, require) -> str:
+    """``scripts/trace_check.py`` over a part's trace directory, as a
+    subprocess; prints its output and fails unless it exits 0."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                          "trace_check.py")
+    r = subprocess.run([sys.executable, script, trace_dir, "--require", *require],
+                       capture_output=True, text=True, timeout=120)
+    text = (r.stdout + r.stderr).strip()
+    print(f"phase 25 {label} trace_check --require {' '.join(require)}: rc {r.returncode}: "
+          f"{text}", flush=True)
+    if r.returncode != 0:
+        raise AssertionError(f"phase 25 {label}: trace_check exited {r.returncode}")
+    return text
+
+
+def p25_span_ms(name: str) -> list:
+    """Durations (ms) of the tracer's retained ``name`` spans, from its
+    rings (the perf_counter stamps, not the exported microseconds)."""
+    from deepspeed_tpu_torch.monitor.trace import tracer
+    return [1e3 * (r[3] - r[2]) for r in tracer.iter_records()
+            if r[1] == name and r[3] is not None]
+
+
+def p25_median_gate(label: str, on: list, off: list, gate: bool = True) -> float:
+    ratio = float(np.median(on)) / float(np.median(off))
+    print(f"phase 25 {label}: median step wall {float(np.median(on)):.3f} ms on vs "
+          f"{float(np.median(off)):.3f} ms off, ratio {ratio:.4f} (limit "
+          f"{1 + P25_OVERHEAD})", flush=True)
+    if gate and ratio > 1 + P25_OVERHEAD:
+        raise AssertionError(f"phase 25 {label}: overhead {ratio - 1:.2%} past "
+                             f"{P25_OVERHEAD:.0%}")
+    return ratio
+
+
+def p25_llama_flops(cfg, B: int, T: int) -> int:
+    """The forward's closed form: 2 x every matmul's MACs (q, k, v, o, the
+    gated MLP, the head over the T - 1 labelled positions) plus K1's
+    4 * B * H * T * T * D a layer."""
+    hid, D, L = cfg.hidden_size, cfg.head_dim, cfg.num_hidden_layers
+    H, Hkv, ff = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.intermediate_size
+    layer = B * T * (2 * hid * H * D + 2 * hid * Hkv * D + 3 * hid * ff)
+    head = B * (T - 1) * cfg.vocab_size * hid
+    return 2 * (L * layer + head) + L * 4 * B * H * T * T * D
+
+
+def p25_train_run(cfg, rows, dev, extra: dict):
+    """One phase 20 trainer over ``rows`` (seed 0), ``P25_STEPS`` steps from
+    its own pipeline. Returns (engine, losses, device step walls of steps
+    2.., K1 launches, the sync probe's counts over steps 2..): a CUDA event
+    recorded after each ``train_batch`` returns marks where the stream
+    finished that step, so the walls need no extra host sync."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    cuda = dev.type == "cuda"
+    engine = deepspeed_tpu_torch.initialize(
+        model=LlamaForCausalLM(cfg, device=dev, seed=0), training_data=rows,
+        config={**P20_CONFIG, **extra}, device=dev)[0]
+    p19_sync(dev)
+    reset_launches()
+    losses, marks = [], []
+    probe = P25SyncProbe()
+
+    def step():
+        losses.append(engine.train_batch())
+        if cuda:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+
+    step()
+    if cuda:
+        with probe:
+            for _ in range(P25_STEPS - 1):
+                step()
+    else:
+        for _ in range(P25_STEPS - 1):
+            step()
+    engine.drain_metrics()
+    p19_sync(dev)
+    launches = {k: LAUNCHES.get(k, 0) for k in K1_NAMES}
+    walls = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    return (engine, np.array([float(x) for x in losses], np.float32), walls, launches,
+            probe.line())
+
+
+def p25_training(dev, cfg=None, T: int = P20_T) -> dict:
+    """(a): phase 20's trainer twice from seed 0, everything off and then
+    every sink on (CSV, the live exporter on port 0, the tracer, the flops
+    profiler at step 1, a print every step); then 2 facade steps under
+    ``wall_clock_breakdown``. Gates: bit-equal losses and masters, K1
+    launches a step unchanged, the median warm step within 5%, the CSV and
+    /metrics values against the losses, the stats against the spans, the
+    counted flops against the closed form, trace_check."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.monitor import PrometheusExporter
+    from deepspeed_tpu_torch.monitor.trace import tracer
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+    cuda = dev.type == "cuda"
+    cfg = cfg or LlamaConfig.llama2_7b(num_hidden_layers=P20_LAYERS, dtype=torch.bfloat16,
+                                       remat=True)
+    gas = P20_CONFIG["train_batch_size"] // P20_CONFIG["train_micro_batch_size_per_gpu"]
+    L = cfg.num_hidden_layers
+    out, launches25 = {}, collections.Counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_p25a_")
+    tracer.reset()
+    try:
+        rows = TokenRows(p20_dataset(root, cfg.vocab_size, P20_SEQS, T))
+        # ---- run 1: everything off ---- #
+        engine, off_losses, off_walls, off_k1, off_syncs = p25_train_run(cfg, rows, dev, {})
+        launches25.update(off_k1)
+        off_master = p20_master(engine, host=False)
+        engine.destroy()
+        del engine
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        # ---- run 2: every sink on ---- #
+        trace_dir = os.path.join(root, "trace")
+        on = {"steps_per_print": 1,
+              "csv_monitor": {"enabled": True, "output_path": root, "job_name": "p25"},
+              "prometheus": {"enabled": True, "port": 0},
+              "monitor": {"trace": {"dir": trace_dir}},
+              "flops_profiler": {"enabled": True, "profile_step": 1,
+                                 "output_file": os.path.join(root, "flops.txt")}}
+        engine, on_losses, on_walls, on_k1, on_syncs = p25_train_run(cfg, rows, dev, on)
+        launches25.update(on_k1)
+        same = on_losses.tobytes() == off_losses.tobytes()
+        print(f"phase 25 (a) losses on {on_losses.tolist()} vs off {off_losses.tolist()}, "
+              f"bitwise {same}", flush=True)
+        if not same:
+            raise AssertionError("phase 25 (a): the sinks changed the loss stream")
+        p20_same_master("phase 25 (a) on vs off", p20_master(engine, host=False), off_master)
+        del off_master
+        # K1: the same launches a step; the profiled forwards add theirs
+        want_off = {"flash_fwd": 2 * L * gas * P25_STEPS, "flash_bwd_dq": L * gas * P25_STEPS,
+                    "flash_bwd_dkv": L * gas * P25_STEPS}
+        want_on = dict(want_off, flash_fwd=want_off["flash_fwd"] + P25_PROFILE_FORWARDS * L)
+        print(f"phase 25 (a) K1 launches off {off_k1} on {on_k1} (the profiler's "
+              f"{P25_PROFILE_FORWARDS} forwards add {P25_PROFILE_FORWARDS * L} fwd)", flush=True)
+        if cuda and (off_k1 != want_off or on_k1 != want_on):
+            raise AssertionError(f"phase 25 (a): K1 launches off {off_k1} on {on_k1}, "
+                                 f"expected {want_off} and {want_on}")
+        if cuda:
+            out["overhead_ratio"] = p25_median_gate("(a) train", on_walls, off_walls)
+            out["step_ms"] = {"off": off_walls, "on": on_walls}
+            # the device walls hide host work while the launch queue is full:
+            # the probe shows the sinks add no sync outside the one-step-late
+            # drain, so the host stays a step ahead of the device
+            out["syncs"] = {"off": off_syncs, "on": on_syncs}
+            print(f"phase 25 (a) synchronizing calls over steps 2-{P25_STEPS} under "
+                  f"set_sync_debug_mode('warn'): off {json.dumps(off_syncs)}, on "
+                  f"{json.dumps(on_syncs)}", flush=True)
+            if on_syncs["drain"] == 0:
+                raise AssertionError("phase 25 (a): the probe saw no sync in the drain, so "
+                                     "it shows nothing")
+            if on_syncs["other"] > off_syncs["other"]:
+                raise AssertionError(f"phase 25 (a): the sinks added syncs outside the drain: "
+                                     f"{on_syncs['where']}")
+        # the live exporter, then the CSV files, against the losses
+        prom = engine.monitor.prom_monitor
+        if prom.url is not None:
+            with urllib.request.urlopen(prom.url, timeout=10) as resp:
+                body = resp.read().decode()
+            how = f"GET {prom.url}"
+        else:
+            # the bind failed (the exporter logged the OSError): the same
+            # gate on render() of an exporter fed the same events
+            bound = PrometheusExporter(type("Cfg", (), {"enabled": False})())
+            bound.enabled = True
+            bound.write_events([("Train/Samples/train_loss", float(on_losses[-1]),
+                                 engine.global_samples)])
+            body = bound.render()
+            how = "render() (the bind failed; see the warning above)"
+        line = next((l for l in body.splitlines()
+                     if l.startswith("dstpu_Train_Samples_train_loss ")), None)
+        print(f"phase 25 (a) exporter {how}: {line}", flush=True)
+        if line is None or float(line.split()[1]) != float(on_losses[-1]):
+            raise AssertionError(f"phase 25 (a): /metrics has no last loss ({line})")
+        # the stats against the spans, from the tracer's rings
+        st = engine.train_stats
+        n_step = len(p25_span_ms("train/step"))
+        disp, drain = sum(p25_span_ms("train/step/dispatch")), sum(p25_span_ms("train/step/drain"))
+        print(f"phase 25 (a) stats vs spans: steps {st.steps} / {n_step}; dispatch "
+              f"{st.dispatch_ms:.6f} / {disp:.6f} ms; drain {st.drain_ms:.6f} / {drain:.6f} ms",
+              flush=True)
+        if (st.steps != n_step or abs(disp - st.dispatch_ms) > 1e-3 * st.steps
+                or abs(drain - st.drain_ms) > 1e-3 * st.steps):
+            raise AssertionError("phase 25 (a): the step stats and spans differ")
+        out["phases_ms_a_step"] = {k: v for k, v in
+                                   ((n.rsplit("/", 1)[1], x) for n, x, _ in st.events())}
+        print("phase 25 (a) train/pipeline " + json.dumps(out["phases_ms_a_step"]), flush=True)
+        # the flops profile
+        prof = engine.flops_profiler
+        closed = p25_llama_flops(cfg, P20_CONFIG["train_micro_batch_size_per_gpu"], T)
+        tflops = prof.counted_flops / prof.latency_s / 1e12
+        out["flops"] = {"counted_tflop": prof.counted_flops / 1e12,
+                        "closed_form_tflop": closed / 1e12, "latency_ms": prof.latency_s * 1e3,
+                        "achieved_tflop_s": tflops, "peak_share": tflops * 1e12 / BF16_FLOPS_PER_S,
+                        "params": prof.total_params, "macs": prof.total_macs}
+        print("phase 25 (a) flops " + json.dumps(out["flops"]), flush=True)
+        if int(prof.counted_flops) != closed:
+            raise AssertionError(f"phase 25 (a): counted {prof.counted_flops} flops, closed "
+                                 f"form {closed}")
+        engine.destroy()     # drains, closes the sinks, exports the trace
+        samples = engine.train_batch_size_
+        del engine
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        with open(os.path.join(root, "p25", "Train_Samples_train_loss.csv")) as f:
+            csv_rows = [l.strip().split(",") for l in f][1:]
+        want_rows = [[str(samples * (i + 1)), float(x)] for i, x in enumerate(on_losses)]
+        got_rows = [[s, float(v)] for s, v in csv_rows]
+        print(f"phase 25 (a) CSV train_loss rows {len(got_rows)}: "
+              f"{got_rows == want_rows}", flush=True)
+        if got_rows != want_rows:
+            raise AssertionError(f"phase 25 (a): CSV rows {got_rows} vs losses {want_rows}")
+        out["csv_files"] = sorted(os.listdir(os.path.join(root, "p25")))
+        print(f"phase 25 (a) CSV files: {out['csv_files']}", flush=True)
+        out["trace_check"] = p25_trace_check(
+            "(a)", trace_dir, ("train/step", "train/drain", "train/prefetch"))
+        tracer.reset()
+        # ---- 2 facade steps under wall_clock_breakdown ---- #
+        engine = deepspeed_tpu_torch.initialize(
+            model=LlamaForCausalLM(cfg, device=dev, seed=0), training_data=rows,
+            config={**P20_CONFIG, "wall_clock_breakdown": True, "steps_per_print": 1},
+            device=dev)[0]
+        it = iter(RepeatingLoader(engine.training_dataloader))
+        reset_launches()
+        for _ in range(P25_WCB_STEPS):
+            batch = next(it)
+            for g in range(gas):
+                loss = engine({k: v[g:g + 1] for k, v in batch.items()})
+                engine.backward(loss)
+                engine.step()
+        engine.drain_metrics()
+        launches25.update({k: LAUNCHES.get(k, 0) for k in K1_NAMES})
+        out["timers_ms"] = engine.timers.get_mean(["fwd", "bwd", "step"])
+        print("phase 25 (a) wall_clock_breakdown fwd/bwd/step ms a call " +
+              json.dumps(out["timers_ms"]), flush=True)
+        engine.destroy()
+        del engine
+    finally:
+        tracer.reset()
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out, launches25
+
+
+def p25_serve(model, dev) -> tuple:
+    """(b): Llama-2-7B at all 32 layers behind a v2 engine (pages of 128,
+    80 of them), 8 seeded prompts of 128-1024 tokens, 64 greedy tokens
+    through the decode pipeline untraced, then again with the tracer on
+    and a ``TelemetryPump`` over the engine into a live exporter, then two
+    passes whose steps alternate traced and untraced. Gates:
+    byte-identical streams, 64 ``serve/decode/step`` spans = the stats'
+    steps, the drained row's bytes, one select a step, every
+    ``inference/v2/pipeline/*`` field, the traced steps' median wall within
+    5% of the untraced steps', trace_check; then a profiled run reads the
+    busy share."""
+    import shutil
+    import tempfile
+    import types
+
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.monitor import PrometheusExporter, TelemetryPump
+    from deepspeed_tpu_torch.monitor.trace import tracer
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.utils.caching import next_pow2
+    cuda = dev.type == "cuda"
+    V = model.config.vocab_size
+    engine = InferenceEngineV2(model, P25_ENGINE, model.flat_params(), device=dev)
+    rng = np.random.default_rng(25)
+    prompts = [rng.integers(0, V, int(n)).astype(np.int32)
+               for n in rng.integers(P25_LENS[0], P25_LENS[1] + 1, P25_PROMPTS)]
+    uids = list(range(P25_PROMPTS))
+    out = {"prompt_lens": [len(p) for p in prompts]}
+    launches25 = collections.Counter()
+
+    def serve(traced: bool, on_tokens=None):
+        tracer.configure(enabled=traced)
+        pump = TelemetryPump(exporter, [engine], interval_s=0.5).start() \
+            if traced or on_tokens is not None else None
+        kernels.reset_launches()
+        engine.attn_stats.reset()
+        engine.put(uids, prompts)
+        selects_put = engine.attn_stats.selects
+        engine.pipeline_stats.reset()
+        toks = engine.decode_pipeline(uids).run(P25_NEW, on_tokens=on_tokens)
+        p19_sync(dev)
+        launches25.update({k: v for k, v in kernels.LAUNCHES.items() if v})
+        st = engine.pipeline_stats
+        snap = {"steps": st.steps, "walls": list(st.step_wall_ms),
+                "fetch_bytes_per_step": st.fetch_bytes_per_step,
+                "selects": engine.attn_stats.selects - selects_put,
+                "events": {n.rsplit("/", 1)[1]: v for n, v, _ in st.events()},
+                "launches": {k: v for k, v in kernels.LAUNCHES.items() if v}}
+        engine.flush(uids)
+        if pump is not None:
+            pump.close()
+        return toks, snap
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_p25b_")
+    trace_dir = os.path.join(root, "trace")
+    tracer.reset()
+    exporter = PrometheusExporter(types.SimpleNamespace(
+        enabled=True, addr="127.0.0.1", port=0, prefix="dstpu", output_path="",
+        job_name=""))
+    try:
+        print(f"phase 25 (b) exporter: "
+              f"{exporter.url or 'bind failed (see the warning above): pump only'}", flush=True)
+        ref, off = serve(False)
+        # the traced passes: the tracer on and a TelemetryPump over the
+        # engine into the live exporter
+        tracer.configure(trace_dir=trace_dir, enabled=True)
+        got, on = serve(True)
+        summary = tracer.summary()
+        same = np.array_equal(got, ref)
+        print(f"phase 25 (b) streams traced vs untraced byte-identical: {same}", flush=True)
+        if not same:
+            raise AssertionError("phase 25 (b): tracing changed the token streams")
+        bucket = next_pow2(P25_PROMPTS)
+        n_step = summary.get("serve/decode/step", (0, 0.0))[0]
+        n_select = summary.get("serve/attn/select", (0, 0.0))[0]
+        sink = P25Sink()
+        engine.write_monitor_events(sink)
+        fields = {n for n, _, _ in sink.events}
+        print(f"phase 25 (b) serve/decode/step {n_step}, stats steps {on['steps']}, fetch "
+              f"bytes a step {on['fetch_bytes_per_step']} (4 x bucket {bucket}), selects "
+              f"{on['selects']} in the run ({n_select} spans with the passes'), drain spans "
+              f"{summary.get('serve/drain/fetch_to_host', (0, 0))[0]}, exporter "
+              f"{len(exporter._values)} names", flush=True)
+        missing = [f for f in P25_PIPELINE_FIELDS if f"inference/v2/pipeline/{f}" not in fields]
+        if (n_step != on["steps"] or on["steps"] != P25_NEW
+                or on["fetch_bytes_per_step"] != 4 * bucket or on["selects"] != P25_NEW
+                or n_select != engine.attn_stats.selects
+                or "serve/drain/fetch_to_host" not in summary or missing):
+            raise AssertionError(f"phase 25 (b): stats and spans differ (missing fields "
+                                 f"{missing})")
+        if cuda and on["launches"].get("paged_splitk"):
+            raise AssertionError("phase 25 (b): a split-K kernel ran at rung 1")
+        out["launches"] = on["launches"]
+        out["phases_ms_a_step"] = on["events"]
+        print("phase 25 (b) inference/v2/pipeline " + json.dumps(on["events"]), flush=True)
+        if cuda:
+            out["pass_ratio"] = p25_median_gate("(b) decode, pass 2 vs pass 1", on["walls"][1:],
+                                                off["walls"][1:], gate=False)
+            # host-bound steps spread between passes (the host's cores are
+            # shared), so the gate compares neighbouring steps: two passes
+            # whose steps alternate traced and untraced, one starting each
+            # way, with the pump on throughout
+            walls = {True: [], False: []}
+            for first in (True, False):
+                states = []
+
+                def flip(j, _uids, _row):
+                    # nothing is traced in a step after its callback: the
+                    # state set here holds over the next step
+                    states.append(tracer.enabled)
+                    tracer.configure(enabled=not tracer.enabled)
+
+                toks, snap = serve(first, on_tokens=flip)
+                if not np.array_equal(toks, ref):
+                    raise AssertionError("phase 25 (b): an alternating pass changed the "
+                                         "token streams")
+                for traced, w in list(zip(states, snap["walls"]))[1:]:
+                    walls[traced].append(w)
+            out["overhead_ratio"] = p25_median_gate(
+                f"(b) decode, alternating steps ({len(walls[True])} traced, "
+                f"{len(walls[False])} untraced)", walls[True], walls[False])
+        tracer.configure(enabled=True)
+        tracer.export()
+        out["trace_check"] = p25_trace_check("(b)", trace_dir,
+                                             ("serve/decode", "serve/drain", "serve/attn"))
+        tracer.reset()
+        if cuda:
+            engine.put(uids, prompts)
+            engine.pipeline_stats.reset()
+            out["profile"] = device_breakdown(
+                f"phase 25 (b) decode ({P25_PROMPTS} rows, {P25_BUSY_STEPS} steps, 32 layers)",
+                lambda: engine.decode_pipeline(uids).run(P25_BUSY_STEPS),
+                names=("paged_decode",))
+            out["profile"]["steps"] = engine.pipeline_stats.steps
+            engine.flush(uids)
+    finally:
+        exporter.close()
+        tracer.reset()
+        shutil.rmtree(root, ignore_errors=True)
+    del engine
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out, launches25
+
+
+def p25_checkpoint(dev, cfg=None, config=None) -> tuple:
+    """(c): phase 19's model and batches (GPT-2 small), the lock-order
+    sanitizer armed before the engine is built, the tracer on, rolling
+    async saves every 2 of 6 steps and one user save; then the same 6 steps
+    untraced and unarmed without saves. Gates: bit-equal losses, every
+    ``ckpt/*`` span, saves and commits against their spans, no lock cycle,
+    trace_check."""
+    import shutil
+    import tempfile
+
+    import torch
+    from deepspeed_tpu_torch.checkpoint import state as ckpt_state
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+    from deepspeed_tpu_torch.monitor.trace import tracer
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES, _loader, reset_launches
+    from deepspeed_tpu_torch.utils import locksan
+    cuda = dev.type == "cuda"
+    cfg = cfg or GPT2Config(dtype=torch.bfloat16)
+    config = config or TRAIN_CONFIG
+    rows = config["train_batch_size"]
+    rng = np.random.default_rng(0)
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size, (rows, cfg.n_positions))
+                .astype(np.int32)} for _ in range(P25_C_STEPS)]
+    out, launches25 = {}, collections.Counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_p25c_")
+    trace_dir = os.path.join(root, "trace")
+    tracer.reset()
+    locksan.arm()
+    try:
+        ck = {**P25_C_ROLLING, "rolling": {**P25_C_ROLLING["rolling"],
+                                           "save_dir": os.path.join(root, "rolling")}}
+        engine = p19_engine(cfg, dev, 0, {**config, "checkpoint": ck,
+                                          "monitor": {"trace": {"dir": trace_dir}}})
+        reset_launches()
+        losses, _ = p19_train(engine, batches, dev)
+        launches25.update({k: LAUNCHES.get(k, 0) for k in K1_NAMES})
+        engine._rolling.flush()
+        st = engine.ckpt_stats
+        summary = tracer.summary()
+        counts = {n: summary.get(n, (0, 0.0))[0] for n in
+                  ("ckpt/snapshot", "ckpt/backpressure", "ckpt/write", "ckpt/commit",
+                   "ckpt/prune")}
+        print(f"phase 25 (c) saves {st.saves} commits {st.commits}; spans {counts}",
+              flush=True)
+        if st.saves != counts["ckpt/snapshot"] or st.commits != counts["ckpt/commit"] \
+                or not all(counts.values()):
+            raise AssertionError("phase 25 (c): the checkpoint stats and spans differ")
+        engine.save_checkpoint(os.path.join(root, "user"))
+        if not tracer.summary().get("ckpt/save"):
+            raise AssertionError("phase 25 (c): no ckpt/save span")
+        engine.destroy()
+        del engine
+        rep = locksan.report()
+        plain = {"checkpoint.latest": not isinstance(ckpt_state._latest_lock, locksan.SanLock),
+                 "the kernel loader's": not isinstance(_loader._lib_lock, locksan.SanLock)}
+        out["locksan"] = {"edges": rep["edges"], "blocking": rep["blocking"],
+                          "cycles": rep["cycles"], "import_time_locks_plain": plain}
+        print("phase 25 (c) locksan " + json.dumps(out["locksan"]) + " (locks built at "
+              "import, before arm(), stay plain locks the sanitizer does not see)", flush=True)
+        if locksan.find_cycles() != []:
+            raise AssertionError(f"phase 25 (c): lock-order cycles {locksan.find_cycles()}")
+        out["trace_check"] = p25_trace_check("(c)", trace_dir, ("train/step", "ckpt"))
+    finally:
+        locksan.disarm()
+        tracer.reset()
+    try:
+        engine = p19_engine(cfg, dev, 0, config)
+        reset_launches()
+        plain_losses, _ = p19_train(engine, batches, dev)
+        launches25.update({k: LAUNCHES.get(k, 0) for k in K1_NAMES})
+        engine.destroy()
+        del engine
+        same = plain_losses.tobytes() == losses.tobytes()
+        print(f"phase 25 (c) losses armed+traced+saving {losses.tolist()} vs plain "
+              f"{plain_losses.tolist()}, bitwise {same}", flush=True)
+        if not same:
+            raise AssertionError("phase 25 (c): the sanitizer, tracer or saves changed the "
+                                 "losses")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out, launches25
+
+
+def run_observability(model=None, dev="cuda") -> dict:
+    """Phase 25: the monitor sinks, the live exporter, the flops profiler,
+    the step and decode phase timings, the spans and the lock-order
+    sanitizer on the main paths: (a) phase 20's Llama-2-7B-width trainer,
+    (b) Llama-2-7B serving at 32 layers (``model``: a ``p17_model()`` to
+    reuse), (c) phase 19's GPT-2 small with rolling saves. Returns the
+    kernels' launches over the phase."""
+    import torch
+    dev = torch.device(dev)
+    t_phase = time.perf_counter()
+    launches = collections.Counter()
+    t = time.perf_counter()
+    out_a, l_a = p25_training(dev)
+    launches.update(l_a)
+    print(f"phase 25 (a): {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    model = model if model is not None else p17_model()
+    out_b, l_b = p25_serve(model, dev)
+    del model
+    launches.update(l_b)
+    print(f"phase 25 (b): {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    out_c, l_c = p25_checkpoint(dev)
+    launches.update(l_c)
+    print(f"phase 25 (c): {time.perf_counter() - t:.1f} s", flush=True)
+    print("phase 25 " + json.dumps({"nvidia_smi": smi_line() if dev.type == "cuda" else "cpu",
+                                    "launches": dict(launches),
+                                    "seconds": time.perf_counter() - t_phase}), flush=True)
+    print(f"phase 25: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(launches)
+
+
 ATTN_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "flash_fwd", "flash_bwd_dq",
               "flash_bwd_dkv")
 Q_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk", "splitk_merge",
@@ -9215,6 +9862,11 @@ def main() -> int:
     offload_launches = run_offload()
     gc.collect()
     torch.cuda.empty_cache()
+    # phase 25: observability and resilience; K1's, K2's, K5's and the decode
+    # rows carry its launches beside theirs
+    observability_launches = run_observability()
+    gc.collect()
+    torch.cuda.empty_cache()
     # modules by full name: the package re-exports same-named functions
     from deepspeed_tpu_torch.ops.kernels import paged_chunk, paged_decode, paged_splitk
     from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import KERNELS as K9_KERNELS
@@ -9307,10 +9959,11 @@ def main() -> int:
                           "phase21": serving_launches.get(name, 0),
                           "phase22": cluster_launches.get(name, 0),
                           "phase23": rollout_launches.get(name, 0),
-                          "phase24": offload_launches.get(name, 0)}}
+                          "phase24": offload_launches.get(name, 0),
+                          "phase25": observability_launches.get(name, 0)}}
                          if serving_launches.get(name) or cluster_launches.get(name)
                          or rollout_launches.get(name) or offload_launches.get(name)
-                         else {})})
+                         or observability_launches.get(name) else {})})
     print(f"chip_smoke.py: {time.perf_counter() - t0:.1f} s from the build on", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

@@ -18,7 +18,9 @@ each with its attention in hand-written CUDA kernels for ``sm_90a``
   Lion, Adagrad or SGD, bf16 mixed precision, activation checkpointing,
   progressive layer drop, a curriculum seqlen schedule and a prefetching
   data pipeline (``training_data``), with the flash attention kernels K1
-  (forward, dq and dk/dv);
+  (forward, dq and dk/dv), monitor sinks (TensorBoard, W&B, CSV and a live
+  Prometheus exporter, ``monitor``), the flops profiler (``profiling``)
+  and the elastic agent (``elasticity``);
 - RLHF on one device: the colocated rollout (``runtime.colocated``:
   ``WeightBridge`` casts the trainer's master into a live v2 engine's
   weights on the card, ``swap_weights`` rebinds them between decode
@@ -53,7 +55,14 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     engine.lr_scheduler)``; the loader is None without ``training_data``.
     ``device=None`` means the CUDA device and raises where there is none;
     pass ``device="cpu"`` to train on the CPU with the kernels' plain
-    versions."""
+    versions.
+
+    A fault plan in ``DSTPU_FAULTS`` and span tracing into ``DSTPU_TRACE``
+    are armed here, before the config is read."""
+    from deepspeed_tpu_torch.monitor import trace as _trace
+    from deepspeed_tpu_torch.utils import fault_injection
+    fault_injection.install_from_env()
+    _trace.install_from_env()
     cfg = DeepSpeedTPUConfig.load(config if config is not None else config_params)
     engine_cls, extra = DeepSpeedTPUEngine, {}
     if cfg.hybrid_engine.enabled:

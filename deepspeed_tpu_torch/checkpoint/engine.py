@@ -26,6 +26,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from deepspeed_tpu_torch.monitor.trace import tracer as _tracer
 from deepspeed_tpu_torch.utils import fault_injection
 from deepspeed_tpu_torch.utils.logging import logger
 from deepspeed_tpu_torch.utils.resilience import retry_call
@@ -64,12 +65,15 @@ class CheckpointEngine:
             self.retries += 1
 
         from deepspeed_tpu_torch.checkpoint.state import checksum_flat
-        crc = checksum_flat(state_dict)
-        retry_call(lambda: _atomic_savez(path, state_dict),
-                   attempts=self.writer_attempts,
-                   backoff_s=self.writer_backoff_s,
-                   retry_on=(OSError,), describe=f"checkpoint write {path}",
-                   on_retry=bump)
+        # one span per file write on the WRITER's track (the 'ckpt-writer'
+        # threads of the async engine; the caller's otherwise)
+        with _tracer.span("ckpt/write", file=os.path.basename(path)):
+            crc = checksum_flat(state_dict)
+            retry_call(lambda: _atomic_savez(path, state_dict),
+                       attempts=self.writer_attempts,
+                       backoff_s=self.writer_backoff_s,
+                       retry_on=(OSError,), describe=f"checkpoint write {path}",
+                       on_retry=bump)
         with self._ck_lock:
             self._checksums[path] = crc
 

@@ -39,6 +39,7 @@ from typing import List, Optional, TYPE_CHECKING
 from deepspeed_tpu_torch.checkpoint.state import (commit_checkpoint,
                                                   read_latest_tag,
                                                   write_checkpoint_files)
+from deepspeed_tpu_torch.monitor.trace import tracer as _tracer
 from deepspeed_tpu_torch.utils.logging import logger
 from deepspeed_tpu_torch.utils.threads import make_semaphore, thread_role
 
@@ -141,6 +142,13 @@ class RollingCheckpointer:
                                    backpressure_s=t2 - t_acq,
                                    queue_depth=cke.queue_depth())
             self.stats.retries = cke.retries
+        if _tracer.enabled:
+            # the step loop's view of this save, from the same stamps as the
+            # stats: the snapshot (the only phase on the critical path under
+            # the async engine) and any committer backpressure
+            _tracer.add("ckpt/snapshot", t0, t1, lane="ckpt", tag=tag)
+            _tracer.add("ckpt/backpressure", t_acq, t2, lane="ckpt", tag=tag)
+            _tracer.counter("ckpt/writer_queue_depth", cke.queue_depth(), lane="ckpt")
         self.saves += 1
         return tag
 
@@ -174,13 +182,17 @@ class RollingCheckpointer:
                 # background commit must never roll the resume point back
                 commit_checkpoint(cke, self.cfg.save_dir, tag, files,
                                   save_latest=True, monotonic=True)
+                t_commit = time.perf_counter()
                 pruned = self._prune(committed=tag)
+                end = time.perf_counter()
                 if self.stats is not None:
                     # host-only IO timing: the committer never touches device
                     # tensors, so there is no device work to sync before the clock
-                    self.stats.record_commit(
-                        commit_s=time.perf_counter() - start, pruned=pruned)
+                    self.stats.record_commit(commit_s=end - start, pruned=pruned)
                     self.stats.retries = cke.retries
+                if _tracer.enabled:
+                    _tracer.add("ckpt/commit", start, t_commit, tag=tag)
+                    _tracer.add("ckpt/prune", t_commit, end, pruned=pruned)
             except BaseException as e:
                 logger.warning(f"rolling checkpoint '{tag}' commit failed: "
                                f"{type(e).__name__}: {e}")

@@ -882,16 +882,10 @@ class DeepSpeedTPUConfig(ConfigModel):
             ("zero_optimization.offload_param",
              z.offload_param is not None and z.offload_param.device != OffloadDeviceEnum.none),
             ("zero_optimization.stage3_prefetch_depth", z.stage3_prefetch_depth is not None),
-            ("tensorboard", self.tensorboard.enabled),
-            ("wandb", self.wandb.enabled),
-            ("csv_monitor", self.csv_monitor.enabled),
-            ("prometheus", self.prometheus.enabled),
             ("comms_logger", self.comms_logger.enabled),
-            ("monitor.trace", self.monitor.trace.enabled or bool(self.monitor.trace.dir)),
             ("compression_training", self.compression_training is not None),
             (f"hybrid_engine.inference_tp_size = {self.hybrid_engine.inference_tp_size}",
              self.hybrid_engine.enabled and self.hybrid_engine.inference_tp_size > 1),
-            ("flops_profiler", self.flops_profiler.enabled),
         ] if on]
         off += [f"mesh.{a} = {getattr(self.mesh, a)}"
                 for a in ("pipe", "data", "fsdp", "fsdp_sub", "expert", "seq", "tensor")
@@ -899,4 +893,4 @@ class DeepSpeedTPUConfig(ConfigModel):
         if off:
             raise NotImplementedError(
                 f"{', '.join(off)}: not ported to deepspeed_tpu_torch yet (it trains "
-                "on one device, without parameter offload or monitors)")
+                "on one device, without parameter offload)")

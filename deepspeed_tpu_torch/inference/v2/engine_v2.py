@@ -102,6 +102,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import time
 import warnings
 
 import numpy as np
@@ -121,6 +122,7 @@ from deepspeed_tpu_torch.inference.v2.ragged_model import (
 from deepspeed_tpu_torch.inference.v2.scheduler import DynamicSplitFuseScheduler
 from deepspeed_tpu_torch.monitor.serving import PipelineStats
 from deepspeed_tpu_torch.monitor.trace import install_from_env
+from deepspeed_tpu_torch.monitor.trace import tracer as _tracer
 from deepspeed_tpu_torch.ops.kernels.kv_quant import kv_scale_tiles_shape
 from deepspeed_tpu_torch.utils.caching import LRUCache, next_pow2
 from deepspeed_tpu_torch.utils.device import resolve_device
@@ -129,15 +131,61 @@ from deepspeed_tpu_torch.utils.fault_injection import maybe_fail
 
 @dataclass
 class AttnSplitStats:
-    """How many passes and decode steps each split rung served (``rungs``:
-    rung -> count), pinned choices (``attn_rung_override``) included."""
-    rungs: Dict[int, int] = field(default_factory=dict)
+    """Counters of the flash-decoding split ladder (``_attn_rung``; the JAX
+    package's ``monitor/serving.py`` ``AttnSplitStats``), over the SAME
+    ``perf_counter`` pairs the tracer records as ``serve/attn/select``
+    spans.
 
-    def record(self, rung: int) -> None:
+    Per selection: ``selects`` counts rung choices; ``splits`` sums the
+    chosen rung; ``merged_steps`` counts choices of a rung > 1 (split-K
+    partials plus a merge); ``max_live_ctx`` high-waters the live context
+    the rung is keyed on; ``select_ms`` is host time inside the choice.
+    ``rungs`` (rung -> count) also counts how many passes and decode steps
+    each rung served, pinned choices (``attn_rung_override``) included."""
+
+    selects: int = 0
+    splits: int = 0
+    merged_steps: int = 0
+    max_live_ctx: int = 0
+    select_ms: float = 0.0
+    rungs: Dict[int, int] = field(default_factory=dict)
+    #: replica label: when not None, event names become
+    #: ``serve/attn/<replica>/...`` (never cleared by reset())
+    replica: Optional[str] = None
+
+    def record(self, rung: int, live_ctx: int, select_s: float) -> None:
         self.rungs[rung] = self.rungs.get(rung, 0) + 1
+        self.selects += 1
+        self.splits += int(rung)
+        if rung > 1:
+            self.merged_steps += 1
+        self.max_live_ctx = max(self.max_live_ctx, int(live_ctx))
+        self.select_ms += 1e3 * select_s
 
     def reset(self) -> None:
         self.rungs.clear()
+        self.selects = 0
+        self.splits = 0
+        self.merged_steps = 0
+        self.max_live_ctx = 0
+        self.select_ms = 0.0
+
+    @property
+    def splits_per_select(self) -> float:
+        return self.splits / self.selects if self.selects else 0.0
+
+    def events(self, step: int = 0) -> List[Event]:
+        """``serve/attn/*`` monitor events; replica-labelled
+        (``serve/attn/<replica>/*``) under a cluster."""
+        n = max(1, self.selects)
+        pre = "serve/attn" if self.replica is None else f"serve/attn/{self.replica}"
+        return [
+            (f"{pre}/selects", float(self.selects), step),
+            (f"{pre}/splits_per_select", self.splits_per_select, step),
+            (f"{pre}/merged_steps", float(self.merged_steps), step),
+            (f"{pre}/max_live_ctx", float(self.max_live_ctx), step),
+            (f"{pre}/select_ms_per_step", self.select_ms / n, step),
+        ]
 
 
 @dataclass
@@ -525,17 +573,26 @@ class InferenceEngineV2:
         """The rung for THIS dispatch: the largest pow2 rung such that the
         longest live context keeps ``min_ctx_per_split`` tokens per split,
         clamped to the ladder; ``attn_rung_override`` pins it (clamped the
-        same way). Each choice is counted in ``attn_stats``."""
+        same way). One ``perf_counter`` pair around a computed choice feeds
+        both the ``serve/attn/select`` span and ``attn_stats``; a pinned
+        choice is counted in ``attn_stats.rungs`` only. A ladder of one rung
+        (``decode_splits`` 1) chooses nothing and records nothing."""
         top = self.config.attention.decode_splits
         if top <= 1:
             return 1
         if self.attn_rung_override is not None:
             rung = max(1, min(int(self.attn_rung_override), top))
-        else:
-            live = max((s.seen_tokens for s in self.scheduler.seqs.values()), default=0)
-            want = max(1, live // self.config.attention.min_ctx_per_split)
-            rung = min(top, 1 << (want.bit_length() - 1))
-        self.attn_stats.record(rung)
+            self.attn_stats.rungs[rung] = self.attn_stats.rungs.get(rung, 0) + 1
+            return rung
+        t0 = time.perf_counter()
+        live = max((s.seen_tokens for s in self.scheduler.seqs.values()), default=0)
+        want = max(1, live // self.config.attention.min_ctx_per_split)
+        rung = min(top, 1 << (want.bit_length() - 1))
+        t1 = time.perf_counter()
+        self.attn_stats.record(rung, live, t1 - t0)
+        if _tracer.enabled:
+            _tracer.add("serve/attn/select", t0, t1, lane="serve/attn",
+                        rung=rung, live_ctx=live)
         return rung
 
     def _decode_step_fn(self, rb: int = 0):
@@ -724,12 +781,19 @@ class InferenceEngineV2:
     def write_monitor_events(self, monitor, step: int = 0) -> None:
         """Write the serving counters to ``monitor`` (anything with
         ``write_events(list of (name, value, step))``): the prefix cache's
-        when it is on, the spec pipelines' once one has run, and the LoRA
-        registry's once an adapter is registered."""
+        when it is on, the decode pipeline's per-step breakdown (dispatch,
+        host build, fetch drain, bubble, fetch bytes) once one has run, the
+        spec pipelines' once one has run, the split ladder's once it has
+        chosen a rung, and the LoRA registry's once an adapter is
+        registered."""
         if self.prefix_cache is not None:
             monitor.write_events(self.prefix_cache.stats.events(step))
+        if self.pipeline_stats.steps:
+            monitor.write_events(self.pipeline_stats.events(step))
         if self.spec_stats.steps:
             monitor.write_events(self.spec_stats.events(step))
+        if self.attn_stats.selects:
+            monitor.write_events(self.attn_stats.events(step))
         if self.lora is not None and self.lora.stats.adapters:
             monitor.write_events(self.lora.stats.events(step))
 

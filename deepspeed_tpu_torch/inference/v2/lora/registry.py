@@ -22,13 +22,12 @@ backed. A fault-in under pool pressure evicts idle adapters LRU;
 ``maybe_fail("serve.lora_fault")`` sits inside it so a chaos plan can
 cancel mid-fault (rollback: pages freed, binding undone, refcounts at
 baseline). Each fault-in and eviction takes one pair of ``perf_counter``
-stamps into :class:`LoraStats`; the JAX package's ``serve/lora/{fault,
-swap}`` tracer spans wait for the port's tracer.
+stamps, which feed both :class:`LoraStats` and the ``serve/lora/fault``
+and ``serve/lora/swap`` tracer spans (lane ``serve/lora``).
 """
 
 from __future__ import annotations
 
-import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
@@ -38,9 +37,11 @@ import torch
 
 from deepspeed_tpu_torch.inference.v2.engine_v2 import LoraStats
 from deepspeed_tpu_torch.inference.v2.lora.pool import LoraPagePool
+from deepspeed_tpu_torch.monitor.trace import tracer as _tracer
 from deepspeed_tpu_torch.runtime.swap_tensor.buffer_pool import SwapBufferPool
 from deepspeed_tpu_torch.utils.caching import next_pow2
 from deepspeed_tpu_torch.utils.fault_injection import maybe_fail as _maybe_fail
+from deepspeed_tpu_torch.utils.threads import make_lock
 
 REGISTERED = "registered"
 RESIDENT = "resident"
@@ -78,7 +79,7 @@ class LoraAdapterRegistry:
         self.stats = stats if stats is not None else LoraStats()
         # guards the maps' shape and the adapters' metadata fields for
         # readers on other threads; device work and payload copies stay out
-        self._meta = threading.Lock()
+        self._meta = make_lock("serving.lora.registry")
         self._adapters: Dict[str, _Adapter] = {}
         self._bindings: Dict[int, str] = {}   # uid -> adapter name
         self._clock = 0
@@ -319,7 +320,12 @@ class LoraAdapterRegistry:
         # block_until_ready): fault-in runs between runs, never inside one
         self._sync()
         t1 = time.perf_counter()
-        self.stats.record_fault(ad.name, ad.rank * self.pool.page_nbytes, t1 - t0)
+        nbytes = ad.rank * self.pool.page_nbytes
+        # one stamp pair feeds the span AND the counters (stats == spans)
+        self.stats.record_fault(ad.name, nbytes, t1 - t0)
+        if _tracer.enabled:
+            _tracer.add("serve/lora/fault", t0, t1, lane="serve/lora",
+                        adapter=ad.name, pages=ad.rank, nbytes=nbytes)
 
     def _lru_victim(self, exclude: str) -> Optional[_Adapter]:
         best = None
@@ -356,7 +362,11 @@ class LoraAdapterRegistry:
             ad.bufs = bufs
             ad.state = EVICTED
         t1 = time.perf_counter()
-        self.stats.record_evict(name, ad.rank * self.pool.page_nbytes, t1 - t0)
+        nbytes = ad.rank * self.pool.page_nbytes
+        self.stats.record_evict(name, nbytes, t1 - t0)
+        if _tracer.enabled:
+            _tracer.add("serve/lora/swap", t0, t1, lane="serve/lora",
+                        adapter=name, pages=ad.rank, nbytes=nbytes)
 
     # -- decode dispatch --------------------------------------------------- #
 

@@ -23,6 +23,11 @@
   run, and step N+1's positions are the run's first positions plus N+1,
   computed on the device.
 
+Each step takes five ``perf_counter`` stamps (launch, drain, build, the
+callback, end) that feed both ``engine.pipeline_stats`` and, when tracing,
+the ``serve/decode/{dispatch,drain,build,callback,step}`` spans, so the
+counters and the timeline read one measurement.
+
 Consequence of the late drain: the host observes token j while the device
 computes token j+1, so a stop decision on token j lands after one extra
 token of device work; ``on_tokens`` retirement stops *recording*, not the
@@ -31,17 +36,25 @@ device.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_batch import to_device
+from deepspeed_tpu_torch.monitor.trace import tracer as _tracer
+from deepspeed_tpu_torch.utils import locksan as _locksan
 
 
 class _RowDrain:
     """Device token rows -> host, through two alternating pinned buffers
-    gated by events (plain synchronous copies on the CPU)."""
+    gated by events (plain synchronous copies on the CPU).
+
+    ``wait`` is the serving engine's policed device-to-host drain (the JAX
+    package's ``engine_v2.fetch_to_host``): under tracing it records a
+    ``serve/drain/fetch_to_host`` span, and with the lock-order sanitizer
+    armed it notes a blocking call made while sanitized locks are held."""
 
     def __init__(self, n: int, device: torch.device):
         self.cuda = device.type == "cuda"
@@ -56,9 +69,19 @@ class _RowDrain:
             self.events[slot].record()
 
     def wait(self, slot: int) -> np.ndarray:
+        if _locksan.enabled():
+            _locksan.note_blocking("fetch_to_host")
+        if not _tracer.enabled:
+            if self.cuda:
+                self.events[slot].synchronize()
+            return self.bufs[slot].numpy().copy()
+        t0 = time.perf_counter()
         if self.cuda:
             self.events[slot].synchronize()
-        return self.bufs[slot].numpy().copy()
+        row = self.bufs[slot].numpy().copy()
+        _tracer.add("serve/drain/fetch_to_host", t0, time.perf_counter(),
+                    lane="serve/drain")
+        return row
 
 
 class DecodePipeline:
@@ -140,8 +163,12 @@ class DecodePipeline:
         row_of = {u: i for i, u in enumerate(uids)}
         logits = None
         steps_drained = 0
+        perf = time.perf_counter
+        st = e.pipeline_stats
+        del st.step_wall_ms[:]   # per-run latencies (cumulative fields stay)
         try:
             for j in range(n_steps):
+                t0 = perf()
                 # launch step j at this step's split rung: consumes the
                 # device row `ids` (token j), writes its KV (and scales, for
                 # an int8 pool), samples token j+1
@@ -151,18 +178,51 @@ class DecodePipeline:
                     e.generator, self.do_sample, self.top_k, self.temperature,
                     kv_scales=e.kv.scales, **lora)
                 drain.start((j + 1) % 2, nxt)
+                t1 = perf()
                 # drain token j's row (its copy was queued an iteration ago)
                 row = drain.wait(j % 2)
+                t2 = perf()
                 out[j] = row[:S]
                 steps_drained = j + 1
-                e.pipeline_stats.record_step(int(live.sum()))
+                # rows retired THIS step still had token j drained
+                drained_tokens = int(live.sum())
+                cb_s = 0.0
+                tc = tc2 = t2
                 if on_tokens is not None:
-                    for u in on_tokens(j, uids, out[j]) or ():
+                    tc = perf()
+                    stop = on_tokens(j, uids, out[j])
+                    tc2 = perf()
+                    cb_s = tc2 - tc      # callback cost -> bubble, not build
+                    for u in stop or ():
                         i = row_of.get(int(u))
                         if i is not None and live[i]:
                             live[i] = False
                             recorded[i] = j + 1
                 ids = nxt
+                t3 = perf()
+                st.record_step(dispatch_s=t1 - t0, drain_s=t2 - t1,
+                               build_s=(t3 - t2) - cb_s, wall_s=t3 - t0,
+                               fetch_bytes=row.nbytes, live_tokens=drained_tokens)
+                if _tracer.enabled:
+                    # the same stamps as the stats; the build span leaves
+                    # out the callback window, which has a span of its own
+                    _tracer.add("serve/decode/dispatch", t0, t1,
+                                lane="serve/decode", step=j)
+                    _tracer.add("serve/decode/drain", t1, t2,
+                                lane="serve/decode", step=j)
+                    if on_tokens is not None:
+                        _tracer.add("serve/decode/build", t2, tc,
+                                    lane="serve/decode", step=j)
+                        _tracer.add("serve/decode/callback", tc, tc2,
+                                    lane="serve/decode", step=j)
+                        _tracer.add("serve/decode/build", tc2, t3,
+                                    lane="serve/decode", step=j)
+                    else:
+                        _tracer.add("serve/decode/build", t2, t3,
+                                    lane="serve/decode", step=j)
+                    _tracer.add("serve/decode/step", t0, t3,
+                                lane="serve/decode", step=j,
+                                live=drained_tokens)
         except BaseException:
             for i, u in enumerate(uids):
                 e.scheduler.advance(u, min(int(recorded[i]), steps_drained))

@@ -9,9 +9,11 @@ fronts:
 - builds one ``ServingFrontend`` per serving replica from ONE shared
   ``ServingConfig`` (uniform priority classes — federation compares
   like-for-like SLO state);
-- labels every replica's monitor surfaces (``FrontendStats.replica`` /
-  ``SpecDecodeStats.replica``) so N frontends fanning into one monitor
-  backend emit ``serve/frontend/<replica>/*`` rows instead of colliding;
+- labels every replica's monitor surfaces (``FrontendStats.replica``,
+  ``SpecDecodeStats.replica``, ``AttnSplitStats.replica``) so N frontends
+  fanning into one monitor backend emit ``serve/frontend/<replica>/*``
+  (``serve/spec/<replica>/*``, ``serve/attn/<replica>/*``) rows instead of
+  colliding;
 - validates the KV page fabric is uniform (block size + page layout), the
   precondition for byte-exact cross-engine handoffs
   (``engine.export_kv``/``import_kv``);
@@ -106,6 +108,7 @@ class ServingCluster:
                     config=serving, uid_base=self.alloc_uid_base())
                 frontend.stats.replica = name
             engine.spec_stats.replica = name
+            engine.attn_stats.replica = name
             self.replicas.append(Replica(name, engine, role, frontend))
 
     def alloc_uid_base(self) -> int:

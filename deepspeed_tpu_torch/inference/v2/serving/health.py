@@ -5,8 +5,9 @@ for the multi-replica serving router (the JAX package's
 **Detection.** A ``dstpu-health`` thread polls every replica on a fixed
 interval: engine-thread / prefill-worker LIVENESS (a died loop is ``down``
 at once) plus a PROGRESS heartbeat from counters the engine already keeps:
-the decode pipelines' step and token counters (``engine.pipeline_stats``)
-and the scheduler's prefill-token counter. A replica with work in flight
+the decode pipelines' step and token counters (``engine.pipeline_stats``,
+and ``engine.spec_stats`` for the speculative pipeline) and the
+scheduler's prefill-token counter. A replica with work in flight
 whose counters freeze is *wedged*, not idle: it turns ``suspect`` after
 ``HealthConfig.suspect_after_s`` and ``down`` after ``down_after_s``
 (states: ``healthy -> suspect -> down -> draining -> rejoining``). The
@@ -197,8 +198,8 @@ class HealthMonitor:
 
     def _progress(self, replica) -> Tuple[Tuple, bool]:
         """(progress snapshot, busy?). The snapshot folds the counters the
-        replica moves when it COMPLETES work — the decode pipeline's step /
-        token counters and prefill tokens completed — so forward motion
+        replica moves when it COMPLETES work — the decode and speculative
+        pipelines' step / token counters and prefill tokens completed — so forward motion
         resets the stall clock; ``busy`` gates the clock so an idle replica
         is never suspected. Deliberately NOT in the snapshot: the in-flight
         count — new arrivals landing on a wedged replica would reset its
@@ -211,6 +212,7 @@ class HealthMonitor:
                     w.queued > 0 or bool(w._owned))
         fe = replica.frontend
         snap = (e.pipeline_stats.steps, e.pipeline_stats.tokens,
+                e.spec_stats.steps, e.spec_stats.tokens,
                 e.scheduler.prefill_tokens_completed)
         return snap, fe._inflight > 0
 

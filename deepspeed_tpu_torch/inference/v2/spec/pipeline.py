@@ -41,6 +41,7 @@ import torch
 from deepspeed_tpu_torch.inference.v2.pipeline import _RowDrain
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_batch import to_device
 from deepspeed_tpu_torch.inference.v2.spec.proposer import DraftProposer, NGramProposer
+from deepspeed_tpu_torch.monitor.trace import tracer as _tracer
 
 
 class _TokenBuf:
@@ -266,8 +267,12 @@ class SpecDecodePipeline:
                     accepted += a
                     self._tune_k(u, int(n_draft[i]), a)
                 carry = row[1]
+                tc = tc2 = t3
                 if on_tokens is not None:
-                    for u in on_tokens(j, uids, toks) or ():
+                    tc = perf()
+                    stop = on_tokens(j, uids, toks)
+                    tc2 = perf()
+                    for u in stop or ():
                         i = row_of.get(int(u))
                         if i is not None and live[i]:
                             live[i] = False
@@ -277,11 +282,20 @@ class SpecDecodePipeline:
                 # and pad rows (always 1: no draft) included
                 pos = pos + accept_row[0] + 1
                 ids = nxt
+                t4 = perf()
                 self.stats.record_step(
                     rows=int(live.sum()), proposed=proposed, accepted=accepted,
                     tokens=step_tokens, draft_s=t1 - t0, verify_s=t3 - t1,
                     fetch_bytes=row.nbytes)
-                e.pipeline_stats.record_step(step_tokens)
+                if _tracer.enabled:
+                    _tracer.add("serve/spec/draft", t0, t1, lane="serve/spec", step=j)
+                    _tracer.add("serve/spec/dispatch", t1, t2, lane="serve/spec", step=j)
+                    _tracer.add("serve/spec/drain", t2, t3, lane="serve/spec", step=j)
+                    if on_tokens is not None:
+                        _tracer.add("serve/spec/callback", tc, tc2,
+                                    lane="serve/spec", step=j)
+                    _tracer.add("serve/spec/step", t0, t4, lane="serve/spec", step=j,
+                                tokens=step_tokens, accepted=accepted)
         except BaseException:
             for i, u in enumerate(uids):
                 e.scheduler.advance(u, int(recorded[i]))

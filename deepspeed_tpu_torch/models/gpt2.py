@@ -93,6 +93,10 @@ class Embed(nn.Module):
         super().__init__()
         self.embedding = _param((num, features), dtype, device)
 
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        """flax ``nn.Embed``'s lookup: the rows of ``ids``."""
+        return self.embedding[ids]
+
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm``: statistics in f32, output in ``dtype``."""
@@ -228,7 +232,7 @@ class GPT2LMHead(nn.Module):
         input_ids = input_ids.long()
         T = input_ids.shape[1]
         pos = torch.arange(T, device=input_ids.device)
-        x = self.wte.embedding[input_ids].to(dt) + self.wpe.embedding[pos].to(dt)[None]
+        x = self.wte(input_ids).to(dt) + self.wpe(pos).to(dt)[None]
         blocks = self.blocks
         x = apply_checkpointed_layers(
             self, x, lambda _, h, i: run_layer(blocks[i], h, i, cfg.n_layer, plan),

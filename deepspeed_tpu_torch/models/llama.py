@@ -153,11 +153,19 @@ class Embed(nn.Module):
         super().__init__()
         self.embedding = _param((vocab, hidden), dtype, device)
 
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        """flax ``nn.Embed``'s lookup: the rows of ``ids``."""
+        return self.embedding[ids]
+
 
 class RMSNorm(nn.Module):
     def __init__(self, hidden: int, dtype, device):
         super().__init__()
         self.weight = _param((hidden,), dtype, device)
+
+    def forward(self, x: torch.Tensor, eps: float, dt: torch.dtype,
+                plus_one: bool = False) -> torch.Tensor:
+        return rms_norm(x, self.weight, eps, dt, plus_one)
 
 
 class Attention(nn.Module):
@@ -166,28 +174,58 @@ class Attention(nn.Module):
         hid, D = cfg.hidden_size, cfg.head_dim
         H, Hkv = cfg.num_attention_heads, cfg.num_key_value_heads
         qb = cfg.qkv_bias
+        self.heads = (H, Hkv, D)
         self.q_proj = Dense(hid, H * D, cfg.dtype, device, qb)
         self.k_proj = Dense(hid, Hkv * D, cfg.dtype, device, qb)
         self.v_proj = Dense(hid, Hkv * D, cfg.dtype, device, qb)
         self.o_proj = Dense(H * D, hid, cfg.dtype, device)
+
+    def forward(self, h: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                dt: torch.dtype) -> torch.Tensor:
+        """The training attention on the normed ``h`` [B, T, hidden]: RoPE,
+        then K1 (causal, GQA repeated in its wrapper), then ``o_proj``."""
+        B, T, _ = h.shape
+        H, Hkv, D = self.heads
+        q = apply_rope(self.q_proj(h, dt).view(B, T, H, D), cos, sin)
+        k = apply_rope(self.k_proj(h, dt).view(B, T, Hkv, D), cos, sin)
+        v = self.v_proj(h, dt).view(B, T, Hkv, D)
+        o = dot_product_attention(q, k, v, causal=True)
+        return self.o_proj(o.reshape(B, T, H * D), dt)
 
 
 class MLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
         hid, ff = cfg.hidden_size, cfg.intermediate_size
+        self.act = cfg.mlp_act
         self.gate_proj = Dense(hid, ff, cfg.dtype, device)
         self.up_proj = Dense(hid, ff, cfg.dtype, device)
         self.down_proj = Dense(ff, hid, cfg.dtype, device)
+
+    def forward(self, h: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+        """The gated MLP on its normed input ``h`` in ``dt``."""
+        return self.down_proj(mlp_gate_act(self.act)(self.gate_proj(h, dt))
+                              * self.up_proj(h, dt), dt)
 
 
 class Block(nn.Module):
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
+        self.norm_args = (cfg.rms_norm_eps, cfg.norm_plus_one)
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.dtype, device)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.dtype, device)
         self.self_attn = Attention(cfg, device)
         self.mlp = MLP(cfg, device)
+
+    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                dt: torch.dtype) -> torch.Tensor:
+        """One decoder layer of the training forward on ``x`` [B, T, hidden]:
+        attention, then the gated MLP, each behind its RMSNorm with a
+        residual. Each part is a module call, as in the flax model, so
+        forward hooks (the flops profiler's) see the flax call tree."""
+        eps, p1 = self.norm_args
+        x = x + self.self_attn(self.input_layernorm(x, eps, dt, p1), cos, sin, dt)
+        return x + self.mlp(self.post_attention_layernorm(x, eps, dt, p1), dt)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
@@ -363,9 +401,7 @@ class LlamaForCausalLM(nn.Module):
 
     def ffn(self, layer: nn.Module, h: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
         """One layer's gated MLP on its normed input ``h`` in ``dt``."""
-        m = layer.mlp
-        return (mlp_gate_act(self.config.mlp_act)(m.gate_proj(h, dt))
-                * m.up_proj(h, dt)) @ m.down_proj.kernel.to(dt)
+        return layer.mlp(h, dt)
 
     @torch.no_grad()
     def decode(self, input_ids: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -441,37 +477,17 @@ class LlamaForCausalLM(nn.Module):
                 "not ported to deepspeed_tpu_torch yet")
         positions = torch.arange(T, device=input_ids.device).expand(B, T)
         cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-        x = embed_scale(self.embed_tokens.embedding[input_ids].to(dt), cfg)
+        x = embed_scale(self.embed_tokens(input_ids).to(dt), cfg)
         layers = self.layers
         L = cfg.num_hidden_layers
 
         def call_layer(_, h, i):
-            return run_layer(lambda y: self.train_layer(layers[i], y, cos, sin, dt), h, i, L,
-                             plan)
+            return run_layer(lambda y: layers[i](y, cos, sin, dt), h, i, L, plan)
 
         x = apply_checkpointed_layers(self, x, call_layer, L, cfg.remat, cfg.remat_policy)
-        x = rms_norm(x, self.norm.weight, cfg.rms_norm_eps, dt, cfg.norm_plus_one)
+        x = self.norm(x, cfg.rms_norm_eps, dt, cfg.norm_plus_one)
         return chunked_causal_lm_loss(x, self.lm_head.kernel.to(dt), labels,
                                       batch_chunk=cfg.lm_loss_chunk, transpose=True)
-
-    def train_layer(self, layer: nn.Module, x: torch.Tensor, cos: torch.Tensor,
-                    sin: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-        """One decoder layer of the training forward on ``x`` [B, T, hidden]:
-        attention through K1 (causal, GQA repeated in its wrapper), then the
-        gated MLP, each behind its RMSNorm with a residual."""
-        cfg = self.config
-        B, T, _ = x.shape
-        H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-        eps, p1 = cfg.rms_norm_eps, cfg.norm_plus_one
-        a = layer.self_attn
-        h = rms_norm(x, layer.input_layernorm.weight, eps, dt, p1)
-        q = apply_rope(a.q_proj(h, dt).view(B, T, H, D), cos, sin)
-        k = apply_rope(a.k_proj(h, dt).view(B, T, Hkv, D), cos, sin)
-        v = a.v_proj(h, dt).view(B, T, Hkv, D)
-        o = dot_product_attention(q, k, v, causal=True)
-        x = x + a.o_proj(o.reshape(B, T, H * D), dt)
-        h = rms_norm(x, layer.post_attention_layernorm.weight, eps, dt, p1)
-        return x + self.ffn(layer, h, dt)
 
 
 def decode_layers(model: LlamaForCausalLM, input_ids: torch.Tensor,

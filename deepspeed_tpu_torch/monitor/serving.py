@@ -1,14 +1,29 @@
 """Serving observability: the frontend's, health monitor's and router's
 counters (the JAX package's ``monitor/serving.py`` ``FrontendStats``,
 ``HealthStats`` and ``RouterStats``, copied), plus the decode pipelines'
-progress counters (``PipelineStats``).
+per-step counters (``PipelineStats``).
 
 Each class turns its totals into ``(name, value, step)`` monitor events
-(``serve/frontend/*``, ``serve/slo/*``, ``serve/health/*``,
-``serve/router/*``). The latency samples come from the same
-``perf_counter`` stamps the tracer records as ``serve/req/*``,
-``serve/health/*`` and ``serve/router/*`` spans (``monitor/trace.py``), so
-the counters and the timeline read one measurement.
+(``inference/v2/pipeline/*``, ``serve/frontend/*``, ``serve/slo/*``,
+``serve/health/*``, ``serve/router/*``). The timings come from the same
+``perf_counter`` stamps the tracer records as ``serve/decode/*``,
+``serve/req/*``, ``serve/health/*`` and ``serve/router/*`` spans
+(``monitor/trace.py``), so the counters and the timeline read one
+measurement.
+
+The double-buffered decode pipeline (``inference/v2/pipeline.py``) overlaps
+three things a step: the launch of step k's kernels, the host's drain of
+step k-1's token row, and the host-side build of step k+1's bookkeeping.
+Phase semantics (per step):
+
+- ``dispatch``: host time that launches the step (the Python of the decode
+  step and its kernels; NOT device execution time).
+- ``host_build``: host bookkeeping between steps (token-stream appends,
+  callbacks, the next step's inputs).
+- ``fetch_drain``: host time blocked on the previous step's token row
+  (the policed drain). On a device-bound step the host waits here.
+- ``bubble``: the rest of the step's wall time (``wall - dispatch - drain
+  - build``).
 
 The engine's speculative-decode, split-rung and LoRA counters live in
 ``inference/v2/engine_v2.py``.
@@ -17,7 +32,7 @@ The engine's speculative-decode, split-rung and LoRA counters live in
 from __future__ import annotations
 
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional
 
 from deepspeed_tpu_torch.monitor.training import Event
@@ -25,18 +40,68 @@ from deepspeed_tpu_torch.monitor.training import Event
 
 @dataclass
 class PipelineStats:
-    """Progress counters of one engine's decode pipelines (cumulative
-    across runs): decode steps drained and the live tokens they recorded,
-    the health monitor's progress heartbeat. The JAX package's per-step
-    phase timings (dispatch, drain, build, bubble) and their events are
-    not carried."""
+    """Aggregate counters for one engine's decode pipelines (cumulative
+    across runs; ``reset()`` between measurement windows). The health
+    monitor's progress heartbeat reads ``steps`` and ``tokens``."""
 
     steps: int = 0
     tokens: int = 0                  # live (recorded) tokens drained
+    dispatch_ms: float = 0.0
+    host_build_ms: float = 0.0
+    fetch_drain_ms: float = 0.0
+    bubble_ms: float = 0.0
+    fetch_bytes: int = 0
+    last_fetch_bytes: int = 0        # bytes of the most recent per-step drain
+    #: per-step wall times (ms) of the MOST RECENT run only;
+    #: DecodePipeline.run clears it at run start (the scalar fields above
+    #: stay cumulative)
+    step_wall_ms: List[float] = field(default_factory=list)
 
-    def record_step(self, live_tokens: int) -> None:
+    def record_step(self, dispatch_s: float, drain_s: float, build_s: float,
+                    wall_s: float, fetch_bytes: int, live_tokens: int) -> None:
         self.steps += 1
         self.tokens += int(live_tokens)
+        self.dispatch_ms += 1e3 * dispatch_s
+        self.fetch_drain_ms += 1e3 * drain_s
+        self.host_build_ms += 1e3 * build_s
+        self.bubble_ms += 1e3 * max(0.0, wall_s - dispatch_s - drain_s - build_s)
+        self.fetch_bytes += int(fetch_bytes)
+        self.last_fetch_bytes = int(fetch_bytes)
+        self.step_wall_ms.append(1e3 * wall_s)
+
+    def reset(self) -> None:
+        self.steps = 0
+        self.tokens = 0
+        self.dispatch_ms = 0.0
+        self.host_build_ms = 0.0
+        self.fetch_drain_ms = 0.0
+        self.bubble_ms = 0.0
+        self.fetch_bytes = 0
+        self.last_fetch_bytes = 0
+        self.step_wall_ms = []
+
+    @property
+    def fetch_bytes_per_step(self) -> float:
+        return self.fetch_bytes / self.steps if self.steps else 0.0
+
+    def events(self, step: int = 0) -> List[Event]:
+        """Monitor-ready ``(name, value, step)`` tuples; per-step averages so
+        dashboards stay comparable across runs of different lengths."""
+        n = max(1, self.steps)
+        return [
+            ("inference/v2/pipeline/steps", float(self.steps), step),
+            ("inference/v2/pipeline/tokens", float(self.tokens), step),
+            ("inference/v2/pipeline/dispatch_ms_per_step",
+             self.dispatch_ms / n, step),
+            ("inference/v2/pipeline/host_build_ms_per_step",
+             self.host_build_ms / n, step),
+            ("inference/v2/pipeline/fetch_drain_ms_per_step",
+             self.fetch_drain_ms / n, step),
+            ("inference/v2/pipeline/bubble_ms_per_step",
+             self.bubble_ms / n, step),
+            ("inference/v2/pipeline/fetch_bytes_per_step",
+             float(self.fetch_bytes_per_step), step),
+        ]
 
 
 SAMPLE_WINDOW = 4096

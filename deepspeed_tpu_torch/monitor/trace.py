@@ -524,7 +524,8 @@ tracer = Tracer()
 
 def install_from_env() -> Tracer:
     """Arm the tracer from ``$DSTPU_TRACE`` (a directory; no-op when unset).
-    Called by the v2 inference engine's constructor, so a process traces
+    Called by ``initialize`` and the v2 inference engine's constructor, so a
+    process traces
     without touching user code; idempotent — an already-configured tracer
     wins."""
     if tracer.enabled:

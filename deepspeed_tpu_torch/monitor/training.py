@@ -2,40 +2,106 @@
 step loop's counters (``TrainPipelineStats``), the checkpoint counters
 (``CheckpointStats``), the offloaded optimizer's (``OffloadPipelineStats``),
 the colocated rollout's counters (``RolloutStats``) and the ``Event`` record
-they emit."""
+they emit.
+
+Every stat class here aggregates the SAME measured intervals the span
+tracer records as timeline spans (``train/step/*``, ``train/offload/*``,
+``ckpt/*``; ``monitor/trace.py``): one set of ``perf_counter`` pairs per
+site feeds both the window aggregate and the Perfetto track, so a
+dashboard number always has a matching span to zoom into.
+
+Step phase semantics (per step):
+
+- ``enqueue_wait``: host time blocked on the prefetch queue. It is ALLOWED
+  to grow: it is where the host waits when the device sets the pace. It is
+  a problem only when ``queue_depth`` is 0 at the same time: then the
+  producer (collate + host-to-device copy), not the device, is what the
+  host waits for.
+- ``host_build``: synchronous staging on the caller's thread (collate,
+  curriculum truncation, PLD injection, the copy to the device). Near zero
+  when prefetching (the producer does it).
+- ``dispatch``: host time that launches the step's kernels (the Python of
+  forward, backward and the optimizer; it can block in the caching
+  allocator). NOT device execution time.
+- ``drain``: host time materialising the DEFERRED metrics (step k-1's
+  loss/lr/grad_norm, fetched one step late while step k runs). On a
+  device-bound step this is about a whole step: the host waits here for
+  the device. Under ``wall_clock_breakdown`` it is the step's full sync.
+- ``queue_depth``: prefetch queue occupancy at dequeue time.
+"""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import List, Tuple
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Deque, List, Tuple
 
 Event = Tuple[str, float, int]
 """The event record every stats class emits (the JAX package's
 ``monitor/monitor.py`` ``Event``): ``(name, value, step)``, the shape a
 monitor backend's ``write_events`` takes."""
 
+#: step_wall_ms window: bounded so a long-lived engine (record_step fires on
+#: every train_batch) cannot grow host memory without bound
+WALL_WINDOW = 512
+
 
 @dataclass
 class TrainPipelineStats:
-    """One engine's step-loop counters (cumulative; ``reset()`` between
-    measurement windows): the steps, the host ms they spent blocked on the
-    prefetch queue (``enqueue_wait``: the healthy steady state when the
-    device sets the pace) and how many were fed by an already-staged
-    batch."""
+    """Aggregate counters for one engine's training loop (cumulative;
+    ``reset()`` between measurement windows)."""
 
     steps: int = 0
     enqueue_wait_ms: float = 0.0
-    prefetched_steps: int = 0
+    host_build_ms: float = 0.0
+    dispatch_ms: float = 0.0
+    drain_ms: float = 0.0
+    queue_depth_sum: int = 0
+    prefetched_steps: int = 0        # steps fed by an already-staged batch
+    #: wall times (ms) of the most recent ``WALL_WINDOW`` steps: a bounded
+    #: p50/p99 latency window (``list(...)`` it for np.percentile)
+    step_wall_ms: Deque[float] = field(
+        default_factory=lambda: deque(maxlen=WALL_WINDOW))
 
-    def record_step(self, wait_s: float, prefetched: bool = False) -> None:
+    def record_step(self, wait_s: float, build_s: float = 0.0, dispatch_s: float = 0.0,
+                    drain_s: float = 0.0, wall_s: float = 0.0, queue_depth: int = 0,
+                    prefetched: bool = False) -> None:
         self.steps += 1
         self.enqueue_wait_ms += 1e3 * wait_s
+        self.host_build_ms += 1e3 * build_s
+        self.dispatch_ms += 1e3 * dispatch_s
+        self.drain_ms += 1e3 * drain_s
+        self.queue_depth_sum += int(queue_depth)
         self.prefetched_steps += int(bool(prefetched))
+        self.step_wall_ms.append(1e3 * wall_s)
 
     def reset(self) -> None:
         self.steps = 0
         self.enqueue_wait_ms = 0.0
+        self.host_build_ms = 0.0
+        self.dispatch_ms = 0.0
+        self.drain_ms = 0.0
+        self.queue_depth_sum = 0
         self.prefetched_steps = 0
+        self.step_wall_ms = deque(maxlen=WALL_WINDOW)
+
+    def events(self, step: int = 0) -> List[Event]:
+        """Monitor-ready ``(name, value, step)`` tuples; per-step averages so
+        dashboards stay comparable across runs of different lengths."""
+        n = max(1, self.steps)
+        return [
+            ("train/pipeline/steps", float(self.steps), step),
+            ("train/pipeline/enqueue_wait_ms_per_step",
+             self.enqueue_wait_ms / n, step),
+            ("train/pipeline/host_build_ms_per_step",
+             self.host_build_ms / n, step),
+            ("train/pipeline/dispatch_ms_per_step",
+             self.dispatch_ms / n, step),
+            ("train/pipeline/drain_ms_per_step", self.drain_ms / n, step),
+            ("train/pipeline/queue_depth", self.queue_depth_sum / n, step),
+            ("train/pipeline/prefetched_fraction",
+             self.prefetched_steps / n, step),
+        ]
 
 
 @dataclass
@@ -73,6 +139,7 @@ class CheckpointStats:
     saves: int = 0
     snapshot_ms: float = 0.0
     write_ms: float = 0.0
+    commits: int = 0
     commit_ms: float = 0.0
     backpressure_ms: float = 0.0
     queue_depth_sum: int = 0
@@ -92,6 +159,7 @@ class CheckpointStats:
         self.queue_depth_sum += int(queue_depth)
 
     def record_commit(self, commit_s: float, pruned: int = 0) -> None:
+        self.commits += 1
         self.commit_ms += 1e3 * commit_s
         self.pruned += int(pruned)
 

@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from deepspeed_tpu_torch.ops.kernels import _loader
 
@@ -215,6 +216,16 @@ def _backward(ctx, do, dlse):
 
 
 flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+@register_flop_formula(torch.ops.dstorch.flash_attention_fwd)
+def _flash_fwd_flops(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
+    """``FlopCounterMode``'s count of K1's forward, as torch counts its own
+    SDPA: the two matmuls, 2 * B * H * Tq * Tk * D each, with no halving for
+    the causal mask (the count the plain version's two einsums give)."""
+    B, Tq, H, D = q_shape
+    Tk = k_shape[1]
+    return 4 * B * H * Tq * Tk * D
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -28,6 +28,7 @@ from typing import Any, Callable, Dict, Iterable, Mapping, Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.monitor.trace import tracer as _tracer
 from deepspeed_tpu_torch.utils.threads import thread_role
 
 #: batch keys the model reads on the host (progressive layer drop's theta
@@ -237,7 +238,10 @@ class PrefetchLoader:
             for batch in self.loader:
                 if self._stop.is_set():
                     return
-                staged = self.prepare(batch, self._next_step)
+                # the producer's staging on its own timeline track (thread
+                # 'dstpu-prefetch'), beside the consumer's train/step spans
+                with _tracer.span("train/prefetch/stage", step=self._next_step):
+                    staged = self.prepare(batch, self._next_step)
                 self._next_step += 1
                 if not self._put(_Item(batch=staged)):
                     return

@@ -27,8 +27,20 @@ of a step stays on the device:
   fp32 master, keeps the old state where the fp16 scaler saw an overflow
   (``torch.where``: no host sync decides a skip), updates the scaler,
   advances the step counter unless it overflowed, and casts back;
-- metrics are queued and read ONE STEP LATE, and only when they are printed;
-  every device->host read goes through :func:`fetch_to_host`.
+- metrics are queued and read ONE STEP LATE, and only when they are printed
+  or a monitor sink is on; every device->host read goes through
+  :func:`fetch_to_host`.
+
+Observability follows the JAX engine: a ``MonitorMaster`` over the
+``tensorboard`` / ``wandb`` / ``csv_monitor`` / ``prometheus`` sections gets
+``Train/Samples/*`` every step and the pipeline, offload and checkpoint
+counters at print boundaries; ``train_batch`` takes five ``perf_counter``
+stamps a step that feed both ``train_stats`` and, when tracing
+(``monitor.trace`` or ``DSTPU_TRACE``), the ``train/step/*`` spans; the
+flops profiler runs at ``flops_profiler.profile_step``;
+``wall_clock_breakdown`` syncs the ``fwd`` / ``bwd`` / ``step`` timers and
+logs them; ``step.kill`` is the fault-injection site at the top of
+``train_batch``.
 
 Checkpoints follow JAX ``runtime/engine.py``'s ``save_checkpoint`` /
 ``load_checkpoint`` / ``destroy`` over ``deepspeed_tpu_torch.checkpoint``,
@@ -107,7 +119,8 @@ from deepspeed_tpu_torch.checkpoint.convert import params_from_flat
 from deepspeed_tpu_torch.checkpoint.state import snapshot_state_flats
 from deepspeed_tpu_torch.config import ConfigError, DeepSpeedTPUConfig, OffloadDeviceEnum
 from deepspeed_tpu_torch.data.curriculum_scheduler import CurriculumScheduler
-from deepspeed_tpu_torch.monitor import CheckpointStats, OffloadPipelineStats, TrainPipelineStats
+from deepspeed_tpu_torch.monitor import (CheckpointStats, MonitorMaster, OffloadPipelineStats,
+                                         TrainPipelineStats)
 from deepspeed_tpu_torch.monitor.trace import tracer as _tracer
 from deepspeed_tpu_torch.ops.native import bf16_to_f32, f32_to_bf16
 from deepspeed_tpu_torch.ops import TPUOptimizer, build_optimizer
@@ -122,7 +135,12 @@ from deepspeed_tpu_torch.runtime.loss_scaler import (has_overflow, make_loss_sca
 from deepspeed_tpu_torch.runtime.lr_schedules import build_lr_schedule
 from deepspeed_tpu_torch.runtime.progressive_layer_drop import ProgressiveLayerDrop
 from deepspeed_tpu_torch.runtime.zero.offload import HostOffloadOptimizer, partition_leaves
+from deepspeed_tpu_torch.utils import fault_injection
+from deepspeed_tpu_torch.utils import locksan as _locksan
 from deepspeed_tpu_torch.utils.device import resolve_device
+from deepspeed_tpu_torch.utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER,
+                                             STEP_GLOBAL_TIMER, SynchronizedWallClockTimer,
+                                             ThroughputTimer)
 from deepspeed_tpu_torch.utils.tree import global_norm
 
 logger = logging.getLogger("deepspeed_tpu_torch")
@@ -136,9 +154,22 @@ _FETCH_AHEAD = 2
 def fetch_to_host(tree):
     """THE device->host read of the training engine: a tensor, or a dict of
     them, copied to the host (this blocks on the device). Nothing else in
-    this module reads device values."""
+    this module reads device values. Under tracing the read records a
+    ``train/drain/fetch_to_host`` span, and with the lock-order sanitizer
+    armed it notes a blocking call made while sanitized locks are held."""
+    if _locksan.enabled():
+        _locksan.note_blocking("fetch_to_host")
+    if not _tracer.enabled:
+        return _to_host(tree)
+    t0 = time.perf_counter()
+    out = _to_host(tree)
+    _tracer.add("train/drain/fetch_to_host", t0, time.perf_counter(), lane="train/drain")
+    return out
+
+
+def _to_host(tree):
     if isinstance(tree, Mapping):
-        return {k: fetch_to_host(v) for k, v in tree.items()}
+        return {k: _to_host(v) for k, v in tree.items()}
     return tree.detach().to("cpu")
 
 
@@ -199,10 +230,25 @@ class DeepSpeedTPUEngine:
         self.global_samples = 0
         self.micro_steps = 0
         self._last_metrics: Dict[str, Any] = {}
-        # deferred metric drain: (step, device metrics) entries
+        # deferred metric drain: (step, samples, device metrics) entries
         self._pending_metrics: deque = deque()
+        self.monitor = MonitorMaster(self.config)
         self.train_stats = TrainPipelineStats()
         self.offload_stats = OffloadPipelineStats()
+        self.flops_profiler = None
+        # span tracing: the config's section reaches the tracer that
+        # DSTPU_TRACE arms in initialize()
+        tc = self.config.monitor.trace
+        if tc.enabled or tc.dir:
+            _tracer.configure(trace_dir=tc.dir, enabled=True, ring_size=tc.ring_size,
+                              req_lane_window=tc.req_lane_window)
+        # wall_clock_breakdown makes the timer group sync on the device, so
+        # its numbers measure execution; otherwise the timers measure launch
+        self.timers = SynchronizedWallClockTimer(sync=self.config.wall_clock_breakdown,
+                                                 device=self.device)
+        self.tput_timer = ThroughputTimer(batch_size=self.train_batch_size_,
+                                          steps_per_output=self.config.steps_per_print,
+                                          device=self.device)
         # ZeRO++ qwZ's int8 parameter storage is not ported: the params are
         # always full width here (the flag keeps the JAX engine's name)
         self.quantized_weights = False
@@ -896,7 +942,11 @@ class DeepSpeedTPUEngine:
         PrefetchLoader's staged ones), else the next of the engine's own
         data pipeline. Returns the mean loss as a 0-d DEVICE tensor; the
         previous step's metrics are drained while this one runs."""
-        t0 = time.perf_counter()
+        # mid-run preemption point: a DSTPU_FAULTS plan kills here
+        fault_injection.maybe_fail("step.kill")
+        perf = time.perf_counter
+        t0 = perf()
+        queue_depth = 0
         if batch is None:
             if data_iter is None:
                 if self.training_dataloader is None:
@@ -906,6 +956,8 @@ class DeepSpeedTPUEngine:
                     self._data_iterator = self._build_data_iterator()
                 data_iter = self._data_iterator
             batch = next(data_iter)
+            if self._prefetch_loader is not None and data_iter is self._data_iterator:
+                queue_depth = self._prefetch_loader.depth
         prefetched = isinstance(batch, StagedBatch)
         if prefetched and batch.step != self.global_steps \
                 and self._staging_is_stale(batch.step):
@@ -917,17 +969,51 @@ class DeepSpeedTPUEngine:
                 logger.warning("prefetched batch staged for step %d consumed at step %d: "
                                "restaging inline", batch.step, self.global_steps)
             batch, prefetched = batch.raw, False
-        wait_s = time.perf_counter() - t0
+        t1 = perf()
         if self.curriculum_scheduler is not None:
             self.curriculum_scheduler.update_difficulty(self.global_steps)
+        fp_cfg = self.config.flops_profiler
+        if fp_cfg.enabled and self.global_steps + 1 == fp_cfg.profile_step:
+            raw = batch.raw if prefetched else batch
+            if raw is not None:
+                self._run_flops_profile(raw)
+        self.tput_timer.start()
+        self.timers(STEP_GLOBAL_TIMER).start()
+        step_no = self.global_steps   # _after_step bumps it before t4
         staged = batch if prefetched else self._prepare_batch(batch, self.global_steps)
         tree = staged.wait()
+        t2 = perf()
         scale = self._loss_scale()
         grads, losses = self._accumulate_grads(scale, tree)
         metrics = self._apply_grads(grads)
         metrics["loss"] = losses.mean()
-        self._after_step(metrics)
-        self.train_stats.record_step(wait_s if prefetched else 0.0, prefetched)
+        t3 = perf()
+        # only wall_clock_breakdown syncs: otherwise the loop stays one step
+        # ahead of the device
+        sync = metrics["loss"] if self.config.wall_clock_breakdown else None
+        self.timers(STEP_GLOBAL_TIMER).stop(sync_obj=sync)
+        self.tput_timer.stop(sync_obj=sync)
+        self._after_step(metrics)   # enqueue + one-step-late drain
+        t4 = perf()
+        self.train_stats.record_step(
+            wait_s=(t1 - t0) if prefetched else 0.0,
+            build_s=(t2 - t1) + (0.0 if prefetched else (t1 - t0)),
+            dispatch_s=t3 - t2, drain_s=t4 - t3, wall_s=t4 - t0,
+            queue_depth=queue_depth, prefetched=prefetched)
+        if _tracer.enabled:
+            # the same stamps as the stats, as spans nested under one
+            # train/step span (inline staging counts t0..t1 into build)
+            if prefetched:
+                _tracer.add("train/step/dequeue_wait", t0, t1, lane="train/step",
+                            step=step_no)
+            _tracer.add("train/step/host_build", t1 if prefetched else t0, t2,
+                        lane="train/step", step=step_no)
+            _tracer.add("train/step/dispatch", t2, t3, lane="train/step", step=step_no)
+            _tracer.add("train/step/drain", t3, t4, lane="train/step", step=step_no)
+            _tracer.add("train/step", t0, t4, lane="train/step", step=step_no,
+                        prefetched=prefetched)
+            if queue_depth:
+                _tracer.counter("train/prefetch/queue_depth", queue_depth, lane="train/step")
         return metrics["loss"]
 
     def train_steps(self, n_steps: int, data_iter: Optional[Iterator] = None) -> np.ndarray:
@@ -951,7 +1037,7 @@ class DeepSpeedTPUEngine:
         if count_micro_steps:
             self.micro_steps += self.gas_
         self._last_metrics = metrics
-        self._pending_metrics.append((self.global_steps, metrics))
+        self._pending_metrics.append((self.global_steps, self.global_samples, metrics))
         self._drain_metric_queue(0 if self.config.wall_clock_breakdown else 1)
         if self._rolling is not None:
             # after the counters: a tag named rolling_step{N} holds the state
@@ -966,16 +1052,61 @@ class DeepSpeedTPUEngine:
         while len(self._pending_metrics) > leave:
             self._emit_metrics(*self._pending_metrics.popleft())
 
-    def _emit_metrics(self, step: int, metrics) -> None:
-        """Read one step's metrics on the host, only when printed."""
+    def _run_flops_profile(self, batch) -> None:
+        """Profile the model forward on the first micro-batch of ``batch``
+        at ``profile_step`` (parity: the flops profiler's engine hooks):
+        the per-module table, the counted flops and the latency, printed
+        and, with a monitor sink on, written as ``train/flops/*``."""
+        from deepspeed_tpu_torch.profiling import FlopsProfiler
+        fp_cfg = self.config.flops_profiler
+        prof = FlopsProfiler(fp_cfg)
+        host = self._host_batch(batch)
+        micro = self._on_device({k: v[:max(1, self.micro_batch_size_)]
+                                 for k, v in host.items()})
+        prof.start_profile(self.module, micro)
+        prof.measure(self.module, micro)
+        prof.print_model_profile(profile_step=fp_cfg.profile_step,
+                                 module_depth=fp_cfg.module_depth,
+                                 top_modules=fp_cfg.top_modules,
+                                 detailed=fp_cfg.detailed,
+                                 output_file=fp_cfg.output_file)
+        if self.monitor.enabled:
+            self.monitor.write_events(prof.events(step=self.global_samples,
+                                                  top_modules=max(1, fp_cfg.top_modules)))
+        self.flops_profiler = prof
+
+    def _emit_metrics(self, step: int, samples: int, metrics) -> None:
+        """Read one step's metrics on the host (one fetch through the drain
+        point) and route them to the monitor and the ``steps_per_print``
+        log; when neither reads them, the entry is dropped unread."""
         every = self.config.steps_per_print
-        if not (every and step % every == 0):
+        printing = bool(every and step % every == 0)
+        if not (printing or self.monitor.enabled):
             return
         vals = fetch_to_host(metrics)
-        # the facade's step metrics carry no loss
-        loss = float(vals["loss"]) if "loss" in vals else float("nan")
-        logger.info("step=%d loss=%.4f lr=%.3e gnorm=%.3f", step, loss,
-                    float(vals["lr"]), float(vals["grad_norm"]))
+        if self.monitor.enabled:
+            # the facade's step metrics carry no loss
+            events = [("Train/Samples/lr", float(vals["lr"]), samples),
+                      ("Train/Samples/grad_norm", float(vals["grad_norm"]), samples)]
+            if "loss" in vals:
+                events.insert(0, ("Train/Samples/train_loss", float(vals["loss"]), samples))
+            if self.config.fp16.enabled:
+                events.append(("Train/Samples/loss_scale", float(vals["loss_scale"]), samples))
+            self.monitor.write_events(events)
+            if printing:
+                self.monitor.write_events(self.train_stats.events(samples))
+                if self._offload is not None and self.offload_stats.steps:
+                    self.monitor.write_events(self.offload_stats.events(samples))
+                if self.ckpt_stats.saves:
+                    self.monitor.write_events(self.ckpt_stats.events(samples))
+        if printing:
+            # the facade's step metrics carry no loss
+            loss = float(vals["loss"]) if "loss" in vals else float("nan")
+            logger.info("step=%d loss=%.4f lr=%.3e gnorm=%.3f", step, loss,
+                        float(vals["lr"]), float(vals["grad_norm"]))
+            if self.config.wall_clock_breakdown:
+                self.timers.log([FORWARD_GLOBAL_TIMER, BACKWARD_GLOBAL_TIMER,
+                                 STEP_GLOBAL_TIMER])
 
     @torch.no_grad()
     def eval_loss(self, batch) -> float:
@@ -990,16 +1121,23 @@ class DeepSpeedTPUEngine:
         global step, micro step), as in the JAX facade)."""
         host = self._host_batch(batch)
         leading = int(np.shape(next(iter(host.values())))[0])
-        return self.module(self._on_device(
-            self._inject_pld(host, leading, micro=self.micro_steps)))
+        micro = self._on_device(self._inject_pld(host, leading, micro=self.micro_steps))
+        sync = self.config.wall_clock_breakdown
+        self.timers(FORWARD_GLOBAL_TIMER).start()
+        loss = self.module(micro)
+        self.timers(FORWARD_GLOBAL_TIMER).stop(sync_obj=loss if sync else None)
+        return loss
 
     __call__ = forward
 
     def backward(self, loss: torch.Tensor, **kwargs) -> torch.Tensor:
         """Gradients of ``loss * loss_scale`` accumulated into the buffer
-        (in ``grad_accum_dtype``); one micro-step."""
+        (in ``grad_accum_dtype``); one micro-step, timed as ``bwd`` (here
+        backward runs autograd, as in DeepSpeed's engine)."""
+        self.timers(BACKWARD_GLOBAL_TIMER).start()
         grads = self._grads_of(loss * self._loss_scale())
         self._grad_buffer = self._accumulate(self._grad_buffer, grads)
+        self.timers(BACKWARD_GLOBAL_TIMER).stop()
         self.micro_steps += 1
         return loss
 
@@ -1011,9 +1149,12 @@ class DeepSpeedTPUEngine:
         (a no-op elsewhere)."""
         if not self.is_gradient_accumulation_boundary() or self._grad_buffer is None:
             return
+        self.timers(STEP_GLOBAL_TIMER).start()
         grads = self._mean_grads(self._grad_buffer, self._loss_scale())
         self._grad_buffer = None
-        self._after_step(self._apply_grads(grads), count_micro_steps=False)
+        metrics = self._apply_grads(grads)
+        self.timers(STEP_GLOBAL_TIMER).stop()
+        self._after_step(metrics, count_micro_steps=False)
 
     # ---- the data pipeline ---- #
 
@@ -1043,10 +1184,11 @@ class DeepSpeedTPUEngine:
             "micro_steps": self.micro_steps,
             "skipped_steps": self.get_skipped_steps(),
         })
-        save_engine_checkpoint(save_dir, tag, self.state, client_state,
-                               save_latest=save_latest,
-                               ckpt_engine=self._checkpoint_engine(),
-                               stats=self.ckpt_stats, snapshot=self.checkpoint_flats)
+        with _tracer.span("ckpt/save", lane="ckpt", tag=tag):
+            save_engine_checkpoint(save_dir, tag, self.state, client_state,
+                                   save_latest=save_latest,
+                                   ckpt_engine=self._checkpoint_engine(),
+                                   stats=self.ckpt_stats, snapshot=self.checkpoint_flats)
         return True
 
     def checkpoint_flats(self):
@@ -1139,8 +1281,9 @@ class DeepSpeedTPUEngine:
         """Release host-side resources: the deferred metrics, an offload
         engine's pending host step, its worker and upload lane and its host
         optimizer (the kernel pool, the AIO handles), the rolling committer,
-        then the checkpoint engine's writers. A surfaced commit or writer
-        error re-raises only after the whole teardown ran. Idempotent."""
+        the checkpoint engine's writers, then the monitor sinks; the trace
+        exports last. A surfaced commit or writer error re-raises only after
+        the whole teardown ran (with a crash dump of the trace). Idempotent."""
         self._reset_data_iterator()
         self.drain_metrics()
         err = None
@@ -1169,8 +1312,13 @@ class DeepSpeedTPUEngine:
             except BaseException as e:
                 if err is None:
                     err = e
+        # after the last drain: the final step's events reach the sinks
+        self.monitor.close()
         if err is not None:
+            # the timeline that led to a surfaced teardown error
+            _tracer.crash_dump(f"engine destroy: {type(err).__name__}")
             raise err
+        _tracer.export()
 
     # ------------------------------------------------------------------ #
     # getters

@@ -12,9 +12,10 @@ recently used instead of holding them all.
 
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 from typing import Callable, Generic, Hashable, TypeVar
+
+from deepspeed_tpu_torch.utils.threads import make_lock
 
 V = TypeVar("V")
 
@@ -36,7 +37,7 @@ class LRUCache(Generic[V]):
         # The cache-wide lock only guards the dict; factories run under a
         # per-key lock so two threads racing the SAME cold key share one
         # build while hits and other keys never block behind it.
-        self._lock = threading.Lock()
+        self._lock = make_lock("utils.caching.lru")
         self._key_locks: dict = {}
 
     def get_or_create(self, key: Hashable, factory: Callable[[], V]) -> V:
@@ -45,7 +46,8 @@ class LRUCache(Generic[V]):
             if hit is not None:
                 self._d.move_to_end(key)
                 return hit
-            klock = self._key_locks.setdefault(key, threading.Lock())
+            klock = self._key_locks.setdefault(
+                key, make_lock("utils.caching.key"))
         with klock:
             with self._lock:  # a racer may have built it while we waited
                 hit = self._d.get(key)

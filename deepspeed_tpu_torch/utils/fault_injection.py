@@ -12,13 +12,16 @@ or ``kill`` (``os._exit(KILL_EXIT_CODE)``).
 Nothing is installed by default and :func:`maybe_fail` is a no-op while
 inactive. A plan comes from :func:`parse_plan` (grammar
 ``site:key=val:key=val;site2:...``, e.g. ``"serve.lora_fault:at=1"``) and
-is armed with :func:`install`. Return-code sites (the AIO surface) call
-:func:`maybe_rc`. The JAX package's environment arming (``DSTPU_FAULTS``)
-waits for a caller in the port.
+is armed with :func:`install`, or from the ``DSTPU_FAULTS`` environment
+variable by :func:`install_from_env`, which ``deepspeed_tpu_torch.initialize``
+calls. Return-code sites (the AIO surface) call :func:`maybe_rc`.
 
 Sites in the port:
 
 ========================  ===================================================
+``step.kill``             top of ``engine.train_batch`` (mid-run preemption;
+                          pair with ``action=kill``).
+``agent.run``             ``DSElasticAgent`` before each (re)start attempt.
 ``serve.engine_step``     top of ``ServingFrontend.step()``: ``raise``
                           crashes the replica's serving loop, ``stall``
                           wedges it (the health monitor's stall case). The
@@ -59,15 +62,18 @@ import errno as _errno
 import logging
 import os
 import random
-import threading
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
+
+from deepspeed_tpu_torch.utils.threads import make_lock
 
 logger = logging.getLogger("deepspeed_tpu_torch")
 
 #: exit status of an injected ``action=kill``, told apart from a crash
 KILL_EXIT_CODE = 17
+
+_ENV_VAR = "DSTPU_FAULTS"
 
 
 class InjectedFault(OSError):
@@ -115,7 +121,7 @@ class FaultInjector:
         for s in specs:
             self._specs.setdefault(s.site, []).append(s)
         self._hits: Dict[str, int] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("utils.fault.hits")
         #: (site, hit, action) of every firing, for assertions
         self.fired: List[tuple] = []
 
@@ -179,6 +185,22 @@ def parse_plan(plan: str, seed: int = 0) -> FaultInjector:
             raise ValueError(f"unknown fault action '{spec.action}'")
         specs.append(spec)
     return FaultInjector(specs, seed=seed)
+
+
+def install_from_env() -> Optional[FaultInjector]:
+    """Install a plan from ``DSTPU_FAULTS`` (no-op when unset). Called by
+    ``deepspeed_tpu_torch.initialize`` so a subprocess arms faults without
+    touching user code; idempotent: an already-installed injector wins.
+    ``DSTPU_SEED`` seeds the plan's probabilistic triggers."""
+    if _active is not None:
+        return _active
+    plan = os.environ.get(_ENV_VAR, "").strip()
+    if not plan:
+        return None
+    seed = int(os.environ.get("DSTPU_SEED", "0") or 0)
+    inj = install(parse_plan(plan, seed=seed))
+    logger.warning(f"fault injection ARMED from ${_ENV_VAR}: {plan!r}")
+    return inj
 
 
 def _flight_record(site: str, action: str) -> None:

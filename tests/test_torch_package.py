@@ -257,6 +257,56 @@ def test_serving_modules_import_without_jax():
                    env={**os.environ, "PYTHONPATH": str(ROOT)})
 
 
+OBSERVABILITY_MODULES = ("deepspeed_tpu_torch.monitor", "deepspeed_tpu_torch.monitor.monitor",
+                         "deepspeed_tpu_torch.monitor.export",
+                         "deepspeed_tpu_torch.profiling",
+                         "deepspeed_tpu_torch.profiling.flops_profiler",
+                         "deepspeed_tpu_torch.utils.locksan", "deepspeed_tpu_torch.utils.threads",
+                         "deepspeed_tpu_torch.utils.timer",
+                         "deepspeed_tpu_torch.utils.fault_injection",
+                         "deepspeed_tpu_torch.elasticity",
+                         "deepspeed_tpu_torch.elasticity.elasticity",
+                         "deepspeed_tpu_torch.elasticity.elastic_agent",
+                         "deepspeed_tpu_torch.elasticity.cli")
+
+
+def test_observability_modules_import_without_jax():
+    """The monitor sinks and exporter, the flops profiler, the lock-order
+    sanitizer, the timers and the elastic agent, each imported by its own
+    name in a fresh interpreter, load no JAX and nothing of the JAX
+    package."""
+    code = ("import importlib, sys; "
+            f"[importlib.import_module(m) for m in {OBSERVABILITY_MODULES!r}]; "
+            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'deepspeed_tpu') "
+            "or m.startswith(('jax.', 'flax.', 'deepspeed_tpu.'))]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120,
+                   env={**os.environ, "PYTHONPATH": str(ROOT)})
+
+
+@pytest.mark.parametrize("module, names", [
+    ("deepspeed_tpu_torch.monitor",
+     ("Event", "Monitor", "MonitorMaster", "TensorBoardMonitor", "WandbMonitor", "CsvMonitor",
+      "PrometheusExporter", "TelemetryPump", "sanitize_metric_name", "PipelineStats",
+      "TrainPipelineStats", "CheckpointStats")),
+    ("deepspeed_tpu_torch.profiling", ("FlopsProfiler", "ModuleProfile", "get_model_profile")),
+    ("deepspeed_tpu_torch.utils.locksan",
+     ("arm", "disarm", "SanLock", "SanSemaphore", "note_blocking", "find_cycles", "report",
+      "check_static")),
+    ("deepspeed_tpu_torch.utils.threads",
+     ("make_lock", "make_rlock", "make_semaphore", "make_condition", "thread_role")),
+    ("deepspeed_tpu_torch.utils.timer", ("Timer", "SynchronizedWallClockTimer", "ThroughputTimer")),
+    ("deepspeed_tpu_torch.utils.fault_injection", ("install_from_env", "KILL_EXIT_CODE")),
+    ("deepspeed_tpu_torch.elasticity",
+     ("ElasticityError", "compute_elastic_config", "validate_elastic_nodes")),
+    ("deepspeed_tpu_torch.elasticity.elastic_agent", ("DSElasticAgent", "RunRecord")),
+])
+def test_observability_slice_exports(module, names):
+    import importlib
+    mod = importlib.import_module(module)
+    assert all(hasattr(mod, n) for n in names), [n for n in names if not hasattr(mod, n)]
+
+
 @pytest.mark.parametrize("module, names", [
     ("deepspeed_tpu_torch.inference.v2.serving",
      ("ServingFrontend", "RequestHandle", "AdmissionController", "KVOffloadManager",

@@ -360,25 +360,27 @@ def test_initialize_defaults_to_cuda(monkeypatch):
 
 @pytest.mark.parametrize("section, value, feature", [
     # optimizer offload builds since the offload tier was ported
-    # (tests/test_torch_offload.py); prometheus, still refused, takes its id
-    pytest.param("prometheus", {"enabled": True}, "prometheus",
+    # (tests/test_torch_offload.py), and the monitor sections since the
+    # monitor layer was (tests/test_torch_monitor.py); mesh axes, still
+    # refused, take their ids
+    pytest.param("mesh", {"pipe": 2}, "mesh.pipe",
                  id="zero_optimization-value0-zero_optimization.offload_optimizer"),
     ("zero_optimization", {"stage": 3, "offload_param": {"device": "nvme"}},
      "zero_optimization.offload_param"),
-    ("tensorboard", {"enabled": True}, "tensorboard"),
-    ("monitor", {"trace": {"enabled": True}}, "monitor.trace"),
+    pytest.param("mesh", {"data": 2}, "mesh.data", id="tensorboard-value2-tensorboard"),
+    pytest.param("mesh", {"fsdp_sub": 2}, "mesh.fsdp_sub", id="monitor-value3-monitor.trace"),
     # activation checkpointing, progressive layer drop, curriculum learning
     # and train_pipeline.prefetch run since they were ported; four sections
     # that stay refused take their places
-    ("wandb", {"enabled": True}, "wandb"),
-    ("csv_monitor", {"enabled": True}, "csv_monitor"),
+    pytest.param("mesh", {"expert": 2}, "mesh.expert", id="wandb-value4-wandb"),
+    pytest.param("mesh", {"seq": 2}, "mesh.seq", id="csv_monitor-value5-csv_monitor"),
     ("comms_logger", {"enabled": True}, "comms_logger"),
     ("compression_training", {"weight_quantization": {}}, "compression_training"),
     # the hybrid engine runs since it was ported; its tensor-parallel
     # inference (more than one device) stays refused, under the case's id
     pytest.param("hybrid_engine", {"enabled": True, "inference_tp_size": 2},
                  "hybrid_engine.inference_tp_size", id="hybrid_engine-value8-hybrid_engine"),
-    ("flops_profiler", {"enabled": True}, "flops_profiler"),
+    pytest.param("mesh", {"tensor": 2}, "mesh.tensor", id="flops_profiler-value9-flops_profiler"),
     ("zero_optimization", {"stage": 3, "stage3_prefetch_depth": 1},
      "zero_optimization.stage3_prefetch_depth"),
     # the id this case had while checkpoint.rolling (ported since) preceded it
