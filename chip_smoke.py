@@ -272,8 +272,9 @@ the table's rows beside ``torch._grouped_mm`` over bf16 experts (the
 ``k8-grouped`` line: registers and spills; a spill fails); and K5 and the
 decode kernel at Qwen2-7B's G = 7 and Gemma-7B's D = 256 on pages of 128.
 
-17. the prefix cache and speculative decoding on Llama-2-7B at full width
-   and depth (random bf16 weights from seed 0), over bf16 and then int8 KV
+17. the prefix cache and speculative decoding on Llama-2-7B at full width,
+   cut to ``P17_LAYERS`` (8) of its 32 layers (random bf16 weights from
+   seed 0), over bf16 and then int8 KV
    pages, the engines built one after another. Prefix cache on and off:
    ``generate()`` (64 new tokens each) of a 1024-token prefix + 128-token
    tail, then 7 requests sharing the prefix, a request ending mid-page and
@@ -362,8 +363,8 @@ decode kernel at Qwen2-7B's G = 7 and Gemma-7B's D = 256 on pages of 128.
    prefetch 0 and 2, and a curriculum seqlen schedule 256 -> 1024 staging
    256/512/768/1024 tokens and running K1 at each.
 
-21. Llama-2-7B behind ``ServingFrontend`` at full width and depth (the
-   same model as phases 4 and 17-18; random bf16 weights from seed 0):
+21. Llama-2-7B behind ``ServingFrontend`` at full width, cut to
+   ``P21_LAYERS`` (8) of its 32 layers (random bf16 weights from seed 0):
    pages of 128, 48 of them (6144 tokens), the prefix cache on, the
    default classes (interactive / standard / batch), offload preemption,
    ``engine.warmup()`` first. Traffic: ``PoissonLoadGen`` at seed 0, 32
@@ -452,10 +453,31 @@ decode kernel at Qwen2-7B's G = 7 and Gemma-7B's D = 256 on pages of 128.
    lock-order sanitizer, traced, with rolling async saves: bit-equal
    losses against a plain run, every ``ckpt/*`` span, no lock cycle. Each
    part's trace passes ``scripts/trace_check.py``.
+26. the v1 engine's int8 tiers, the DecoderLM and Mixtral dense decodes
+   and ZeRO++ qwZ (``run_quantized_v1``), random weights from seed 0. (a)
+   Llama-2-7B at 32 layers through ``init_inference``, 4 prompts of 1024
+   tokens and 32 new: int8 weights (group 64) whose streams and step
+   logits are bit-equal to the bf16 engine over the engine's own
+   ``module_state_dict()`` (the bf16 engine on the original weights must
+   differ), then int8 weights + the int8 cache, whose step logits meet
+   phase 6's rule (RMS against a one-pass fp32 decode over the same int8
+   rounding within 2x a one-pass bf16 decode's) with a control whose
+   prompt scales are corrupted after the prefill failing it; parameter
+   and cache bytes, prefill ms, decode ms a step, peak GiB. (b) Falcon-7B
+   at 32 layers (71 heads over one KV head), ``DecoderLM.decode`` with a
+   bf16 cache (against ``forward_logits`` at fp32, the bf16 rule) and the
+   int8 cache. (c) Mixtral-8x7B at full width, 8 of 32 layers, bf16 and
+   int8 weights (bit-equal on ``module_state_dict()``, the control
+   differing, the stream against the dense fp32 forward's argmax up to a
+   near-tie). Streams equal or parting only at a near-tie. (d) qwZ on 8 of
+   Llama-2-7B's layers at T 1024, AdamW: step 1 bit-equal to the plain
+   engine on the quantized master's dequantization, 4 losses within rtol
+   0.1 / atol 0.15 of it and falling, int8 compute params, K1 launched; a
+   qwZ save and load resume bit for bit (GPT-2 small at 2 layers).
 
 The last two lines are the kernel table (58 rows, K5 at the verify step's
 shape among them; the rows of K1, K2, K5, the decode kernel and K7 carry
-their launches in phases 21-25 as ``serving_launches``) and ``{"ok": true,
+their launches in phases 21-26 as ``serving_launches``) and ``{"ok": true,
 "device": ...}`` as JSON. Run from the repository root: ``python3 chip_smoke.py``.
 """
 
@@ -5231,6 +5253,9 @@ def run_gemma():
 
 # phase 4's pages of 128 (they meet the int8 pool's alignment gate at Hkv 32);
 # 80 pages hold the cache-off engine's seven 1216-token sequences at once
+# phase 17's depth: 8 of Llama-2-7B's 32 layers at full width (cut to make
+# room for phase 26 inside the script's time limit)
+P17_LAYERS = 8
 P17_POOL = {"kv_cache": {"block_size": 128, "num_blocks": 80}, "seed": 0}
 P17_PREFIX, P17_TAIL, P17_NEW = 1024, 128, 64
 P17_SHARED = 7            # requests after the first that share its prefix
@@ -5724,11 +5749,12 @@ def spec_phase(model, int8, tie):
 
 def run_prefix_spec():
     """Phase 17: the prefix cache and speculative decoding on Llama-2-7B at
-    full width and depth (random bf16 weights from seed 0), over bf16 and
-    int8 KV pages. Returns the K5 verify row's launch count."""
+    full width and ``P17_LAYERS`` of its 32 layers (random bf16 weights
+    from seed 0), over bf16 and int8 KV pages. Returns the K5 verify row's
+    launch count."""
     import torch
     t0 = time.perf_counter()
-    model = p17_model()
+    model = p17_model(P17_LAYERS)
     tie = prefix_phase(model, False, None)
     launches = spec_phase(model, False, tie)
     prefix_phase(model, True, tie)
@@ -7153,6 +7179,9 @@ def run_llama_training(layers: int = P20_LAYERS, T: int = P20_T, device="cuda", 
 
 # 48 pages of 128 (6144 tokens, 3 GiB at 512 KiB a token): less than the
 # traffic asks for at once, so offload preemption has to fire
+# phase 21's depth: 8 of Llama-2-7B's 32 layers at full width (cut for
+# phase 26: with 21 at 32 layers the whole script read 1000.0 s)
+P21_LAYERS = 8
 P21_ENGINE = {"kv_cache": {"block_size": 128, "num_blocks": 48},
               "prefix_cache": {"enabled": True}, "seed": 0,
               "serving": {"decode_slice": 4, "preemption": "offload"}}
@@ -7176,7 +7205,7 @@ P21_TIE_ROWS = 3          # prompts whose last row sets the near-tie limit
 # handoffs and failover, not SLOs (phase 21 does): at a shed factor of
 # 1000 its default classes shed nothing, in the frontends or the router
 P22_SHED_FACTOR = 1000.0
-P22_LAYERS = 8            # of the 32 (phase 21 keeps 32; phase 24 took the time)
+P22_LAYERS = 8            # of the 32 (phase 24 took the time)
 P22_ENGINE = {"kv_cache": {"block_size": 128, "num_blocks": 80},
               "prefix_cache": {"enabled": True}, "seed": 0,
               "serving": {"decode_slice": 4, "shed_factor": P22_SHED_FACTOR}}
@@ -7432,7 +7461,8 @@ def torch_device_is_cuda(dev) -> bool:
 
 def run_frontend(model=None, dev="cuda"):
     """Phase 21: Llama-2-7B behind ``ServingFrontend`` at full width and
-    depth (random bf16 weights from seed 0), pages of 128, 48 of them, the
+    ``P21_LAYERS`` of its 32 layers (random bf16 weights from seed 0),
+    pages of 128, 48 of them, the
     prefix cache on, the default priority classes, offload preemption.
     ``engine.warmup()``, then the Poisson traffic replayed against the
     running frontend, then the ``step()``-driven part (preemption,
@@ -7446,7 +7476,7 @@ def run_frontend(model=None, dev="cuda"):
     from deepspeed_tpu_torch.inference.v2.serving import goodput_report, replay
     from deepspeed_tpu_torch.ops import kernels
     t_phase = time.perf_counter()
-    model = model if model is not None else p17_model()
+    model = model if model is not None else p17_model(P21_LAYERS)
     V = model.config.vocab_size
     engine = InferenceEngineV2(model, P21_ENGINE, model.flat_params(), device=dev)
     t0 = time.perf_counter()
@@ -9729,6 +9759,539 @@ def run_observability(model=None, dev="cuda") -> dict:
     return dict(launches)
 
 
+# --------------------------------------------------------------------------- #
+# phase 26: the v1 engine's int8 weights and int8 KV cache, the DecoderLM and
+# Mixtral dense decodes, and ZeRO++ qwZ at a world of one
+# --------------------------------------------------------------------------- #
+
+P26_A = (4, 1024, 32)     # (a) Llama-2-7B: prompts, prompt tokens, new tokens
+P26_B = (4, 512, 16)      # (b) Falcon-7B
+P26_C = (2, 512, 16)      # (c) Mixtral-8x7B
+P26_C_LAYERS = 8          # of Mixtral's 32: the v1 engine takes the whole bf16 tree
+                          # (93 GB at 32 layers) before it quantizes
+P26_QUANT = {"enabled": True, "bits": 8, "group_size": 64}
+P26_D_T = 1024            # (d) the qwZ trainer: T, steps, micro-batch 1
+P26_D_STEPS = 4
+P26_D_CONFIG = {
+    "train_batch_size": 1, "train_micro_batch_size_per_gpu": 1,
+    "bf16": {"enabled": True}, "gradient_clipping": 1.0, "steps_per_print": 0,
+    # no decay: AdamW's decoupled decay term adds a full fp32 tree of
+    # temporaries to an update that already peaks near phase 23's 66.6 GiB.
+    # lr: AdamW's first steps move every weight by ~lr at once; at 5e-4 and
+    # 3e-5 this phase's 4 losses climbed on the card (11.04 -> 15.77 and
+    # -> 11.96)
+    "optimizer": {"type": "AdamW", "params": {"lr": 3e-6, "betas": [0.9, 0.95],
+                                              "eps": 1e-8, "weight_decay": 0.0}},
+}
+P26_QWZ = {"stage": 3, "zero_quantized_weights": True}
+P26_RESUME_AT = 2         # (d) gate 3: save after this step, resume, rerun the rest
+P26_CORRUPT = 0.5         # (a) control: k/v scales of the prompt times U(1 - x, 1 + x)
+
+
+def p26_gib(dev) -> float:
+    import torch
+    return torch.cuda.memory_allocated(dev) / 2 ** 30 if dev.type == "cuda" else 0.0
+
+
+def p26_reset_peak(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def p26_peak_gib(dev) -> float:
+    import torch
+    return torch.cuda.max_memory_allocated(dev) / 2 ** 30 if dev.type == "cuda" else 0.0
+
+
+def p26_event(dev):
+    import torch
+    if dev.type != "cuda":
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def p26_ms(a, b) -> float:
+    if a is None:
+        return 0.0
+    b.synchronize()
+    return float(a.elapsed_time(b))
+
+
+def p26_steps(engine, prompts, new, feed=None, corrupt=None):
+    """The v1 engine's ``generate`` loop, step by step (the same decode calls
+    on the same cache): a prefill, then ``new - 1`` single-token steps,
+    greedy, or teacher-forced on ``feed`` [B, new]. ``corrupt(cache)`` runs
+    after the prefill. Returns the stream [B, new], each step's
+    last-position logits [new, B, V] f32, the prefill ms, the decode ms a
+    step (CUDA events), the cache bytes and the decode steps' peak GiB
+    above what was allocated when they began."""
+    import torch
+    dev = engine.device
+    B, T = prompts.shape
+    ids = torch.from_numpy(prompts.astype(np.int64)).to(dev)
+    cache = engine._make_cache(B, T + new)
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    decode = engine._net.decode
+    e0 = p26_event(dev)
+    logits, cache = decode(ids, cache, 0)
+    e1 = p26_event(dev)
+    if corrupt is not None:
+        corrupt(cache)
+    rows, toks = [logits[:, -1].float()], []
+    tok = rows[0].argmax(-1) if feed is None else torch.from_numpy(feed[:, 0]).to(dev)
+    toks.append(tok)
+    base = p26_gib(dev)
+    p26_reset_peak(dev)
+    e2 = p26_event(dev)
+    for i in range(new - 1):
+        logits, cache = decode(tok[:, None], cache, T + i)
+        rows.append(logits[:, -1].float())
+        tok = rows[-1].argmax(-1) if feed is None else \
+            torch.from_numpy(feed[:, i + 1]).to(dev)
+        toks.append(tok)
+    e3 = p26_event(dev)
+    out = {"stream": torch.stack(toks, 1).cpu().numpy(), "logits": torch.stack(rows),
+           "prefill_ms": p26_ms(e0, e1), "decode_ms_per_step": p26_ms(e2, e3) / (new - 1),
+           "cache_bytes": cache_bytes,
+           "decode_peak_above_gib": p26_peak_gib(dev) - base}
+    del cache
+    return out
+
+
+def p26_gap(ref, s, i) -> float:
+    """Top-2 gap of the reference logits ``ref`` [new, B, V] at step ``s``
+    of row ``i``."""
+    import torch
+    top = torch.topk(ref[s, i], 2).values
+    return float(top[0] - top[1])
+
+
+def p26_one_pass(engine, seq, dtype, kv_bits, T, new):
+    """A dense reference: the engine's module tree's decode over the whole
+    sequence ``seq``
+    [B, T + new - 1] in ONE prefill, computed in ``dtype`` (the module
+    tree's config copied with that dtype; its weights cast as each matmul
+    runs), over a fresh cache (``kv_bits=8``: every K/V row rounded
+    through the int8 tier's per-(token, head) quantization). Returns the
+    rows [T - 1, T + new - 1) of the logits, as [new, B, V] f32."""
+    import copy as copy_
+    import dataclasses
+    import torch
+    from deepspeed_tpu_torch.models.decoder import DecoderLM, init_decoder_cache
+    from deepspeed_tpu_torch.models.llama import init_cache
+    net = engine._net
+    ref = copy_.copy(net)
+    ref.config = dataclasses.replace(net.config, dtype=dtype)
+    make = init_decoder_cache if isinstance(net, DecoderLM) else init_cache
+    cache = make(ref.config, seq.shape[0], seq.shape[1], dtype=dtype, kv_bits=kv_bits,
+                 device=engine.device)
+    logits, _ = ref.decode(torch.from_numpy(seq.astype(np.int64)).to(engine.device), cache, 0)
+    out = logits[:, T - 1:T - 1 + new].float().transpose(0, 1).contiguous()
+    del cache, logits
+    return out
+
+
+def p26_rms(a, b) -> float:
+    return float((a - b).pow(2).mean().sqrt())
+
+
+def p26_kv_rule(label, got, ref32, ref16, control=None):
+    """Phase 6's int8-KV error rule: the engine's step logits against the
+    fp32 reference within twice the dense bf16 reference's rms error; a
+    control run must fall outside it."""
+    limit = 2 * p26_rms(ref16, ref32)
+    err = p26_rms(got, ref32)
+    out = {"rms": err, "max": float((got - ref32).abs().max()), "dense_bf16_rms": limit / 2,
+           "limit": limit}
+    if control is not None:
+        out["control_rms"] = p26_rms(control, ref32)
+    print(f"phase 26 {label} logits " + json.dumps(out), flush=True)
+    if not err <= limit:
+        raise AssertionError(f"phase 26 {label}: logits rms {err} > limit {limit}")
+    if control is not None and not out["control_rms"] > limit:
+        raise AssertionError(f"phase 26 {label}: the control ({out['control_rms']}) passes "
+                             f"the rule (limit {limit})")
+    return out
+
+
+def p26_tie_check(label, stream, ref_logits, limit):
+    """``same_or_near_tie`` of a greedy ``stream`` [B, new] against the
+    argmax of ``ref_logits`` [new, B, V] taken along the same stream: where
+    they first part, the reference's top-2 gap must be below ``limit``."""
+    ref = ref_logits.argmax(-1).t().cpu().numpy()
+    same_or_near_tie(label, stream, ref, lambda i, s: p26_gap(ref_logits, s, i), limit)
+
+
+def p26_same(label, a, b) -> None:
+    import torch
+    if not (np.array_equal(a["stream"], b["stream"]) and torch.equal(a["logits"], b["logits"])):
+        raise AssertionError(f"phase 26 {label}: streams or logits are not bit-equal")
+
+
+def p26_prompts(B, T, V, seed):
+    return np.random.RandomState(seed).randint(0, V, (B, T)).astype(np.int32)
+
+
+def p26_engine(model, conf, params, dev):
+    import deepspeed_tpu_torch
+    return deepspeed_tpu_torch.init_inference(model, config=conf, model_parameters=params,
+                                              device=dev)
+
+
+def p26_free(dev) -> None:
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def p26_generate(label, engine, prompts, new, run) -> None:
+    """``generate`` (the user's entry point) gives the stream of the
+    step-by-step loop ``run``."""
+    got = engine.generate(prompts, max_new_tokens=new)[:, prompts.shape[1]:]
+    if not np.array_equal(got, run["stream"]):
+        raise AssertionError(f"phase 26 {label}: generate() differs from its decode steps")
+
+
+def p26_llama(dev, cfg=None) -> dict:
+    """(a) Llama-2-7B at 32 layers through ``init_inference``: int8 weights
+    (group 64), then int8 weights + the int8 cache."""
+    import torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.runtime.zero.zeropp import tree_bytes
+    B, T, new = P26_A
+    cfg = cfg or LlamaConfig.llama2_7b(dtype=torch.bfloat16)
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    prompts = p26_prompts(B, T, cfg.vocab_size, 26)
+    conf = {"dtype": "bfloat16", "max_tokens": T + new, "max_out_tokens": new}
+    out = {}
+
+    def build(label, extra, params):
+        p26_free(dev)
+        p26_reset_peak(dev)
+        before = p26_gib(dev)
+        t0 = time.perf_counter()
+        eng = p26_engine(model, {**conf, **extra}, params, dev)
+        out[label] = {"build_s": time.perf_counter() - t0,
+                      "param_bytes": tree_bytes(eng.params),
+                      "build_peak_above_gib": p26_peak_gib(dev) - before}
+        return eng
+
+    def record(label, run):
+        out[label].update({k: run[k] for k in ("prefill_ms", "decode_ms_per_step",
+                                                "cache_bytes", "decode_peak_above_gib")})
+        out[label]["peak_gib"] = p26_peak_gib(dev)
+
+    q = build("quant", {"quant": P26_QUANT}, model.flat_params())
+    p26_reset_peak(dev)
+    rq = p26_steps(q, prompts, new)
+    record("quant", rq)
+    p26_generate("(a) quant", q, prompts, new, rq)
+    sd = q.module_state_dict()
+    b = build("bf16_on_state_dict", {}, sd)
+    del sd
+    p26_reset_peak(dev)
+    rb = p26_steps(b, prompts, new)
+    record("bf16_on_state_dict", rb)
+    p26_same("(a) quant vs the bf16 engine on its module_state_dict()", rq, rb)
+    del b, rb
+    c = build("bf16_original", {}, model.flat_params())
+    p26_reset_peak(dev)
+    rc = p26_steps(c, prompts, new, feed=rq["stream"])
+    record("bf16_original", rc)
+    if torch.equal(rc["logits"], rq["logits"]):
+        raise AssertionError("phase 26 (a) control: the bf16 engine on the original "
+                             "weights gives the quant engine's logits")
+    out["control_max_abs_diff"] = float((rc["logits"] - rq["logits"]).abs().max())
+    del c, rc
+    kq = build("quant_kv_quant", {"quant": P26_QUANT, "kv_quant": {"enabled": True}},
+               model.flat_params())
+    p26_reset_peak(dev)
+    rk = p26_steps(kq, prompts, new)
+    record("quant_kv_quant", rk)
+    p26_generate("(a) quant + kv_quant", kq, prompts, new, rk)
+    seq = np.concatenate([prompts, rk["stream"][:, :-1]], 1)
+    ref32 = p26_one_pass(kq, seq, torch.float32, 8, T, new)
+    ref16 = p26_one_pass(kq, seq, torch.bfloat16, 8, T, new)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(26)
+
+    def corrupt(cache):
+        for key in ("k_scale", "v_scale"):
+            s = cache[key][:, :, :T]
+            s.mul_(1 + P26_CORRUPT * (2 * torch.rand(s.shape, generator=gen, device=dev) - 1))
+
+    rx = p26_steps(kq, prompts, new, feed=rk["stream"], corrupt=corrupt)
+    out["kv_rule"] = p26_kv_rule("(a) quant + kv_quant", rk["logits"][1:], ref32[1:],
+                                 ref16[1:], control=rx["logits"][1:])
+    tie = 2 * float((ref16 - ref32).abs().max())
+    # the int8 cache's stream against the bf16 cache's (int8 weights both)
+    same_or_near_tie("(a) quant + kv_quant vs quant", rk["stream"], rq["stream"],
+                     lambda i, s: p26_gap(ref32, s, i), tie)
+    out["cache_ratio_int8_over_bf16"] = rk["cache_bytes"] / rq["cache_bytes"]
+    out["param_ratio_quant_over_bf16"] = out["quant"]["param_bytes"] / \
+        out["bf16_on_state_dict"]["param_bytes"]
+    del kq, rk, rx, ref32, ref16, q, rq, model
+    p26_free(dev)
+    return out
+
+
+def p26_falcon(dev, cfg=None) -> dict:
+    """(b) Falcon-7B (4544 wide, 71 heads over one KV head, D 64) at 32
+    layers: ``DecoderLM.decode`` through the v1 engine with a bf16 cache,
+    then the int8 cache."""
+    import torch
+    from deepspeed_tpu_torch.models.decoder import DecoderConfig, DecoderLM
+    B, T, new = P26_B
+    cfg = cfg or DecoderConfig.falcon_7b(dtype=torch.bfloat16)
+    model = DecoderLM(cfg, device=dev, seed=0)
+    prompts = p26_prompts(B, T, cfg.vocab_size, 27)
+    conf = {"dtype": "bfloat16", "max_tokens": T + new, "max_out_tokens": new}
+    out = {}
+    eng = p26_engine(model, conf, model.flat_params(), dev)
+    p26_reset_peak(dev)
+    r16 = p26_steps(eng, prompts, new)
+    p26_generate("(b) bf16 cache", eng, prompts, new, r16)
+    out["bf16_cache"] = {k: r16[k] for k in ("prefill_ms", "decode_ms_per_step", "cache_bytes",
+                                             "decode_peak_above_gib")}
+    out["bf16_cache"]["peak_gib"] = p26_peak_gib(dev)
+    del eng
+    p26_free(dev)
+    seq = np.concatenate([prompts, r16["stream"][:, :-1]], 1)
+    ids = torch.from_numpy(seq.astype(np.int64)).to(dev)
+    f32 = model.forward_logits(ids, compute_dtype=torch.float32)[:, T - 1:].transpose(0, 1)
+    f16 = model.forward_logits(ids, compute_dtype=torch.bfloat16)[:, T - 1:].transpose(0, 1)
+    out["bf16_rule"] = p26_kv_rule("(b) bf16 cache", r16["logits"], f32, f16)
+    tie = 2 * float((f16 - f32).abs().max())
+    p26_tie_check("(b) bf16 cache vs dense fp32", r16["stream"], f32, tie)
+    del f32, f16
+    p26_free(dev)
+    eng = p26_engine(model, {**conf, "kv_quant": {"enabled": True}}, model.flat_params(), dev)
+    p26_reset_peak(dev)
+    r8 = p26_steps(eng, prompts, new)
+    p26_generate("(b) int8 cache", eng, prompts, new, r8)
+    out["int8_cache"] = {k: r8[k] for k in ("prefill_ms", "decode_ms_per_step", "cache_bytes",
+                                            "decode_peak_above_gib")}
+    out["int8_cache"]["peak_gib"] = p26_peak_gib(dev)
+    seq = np.concatenate([prompts, r8["stream"][:, :-1]], 1)
+    ref32 = p26_one_pass(eng, seq, torch.float32, 8, T, new)
+    ref16 = p26_one_pass(eng, seq, torch.bfloat16, 8, T, new)
+    out["kv_rule"] = p26_kv_rule("(b) int8 cache", r8["logits"], ref32, ref16)
+    same_or_near_tie("(b) int8 cache vs bf16 cache", r8["stream"], r16["stream"],
+                     lambda i, s: p26_gap(ref32, s, i), tie)
+    out["cache_ratio_int8_over_bf16"] = r8["cache_bytes"] / r16["cache_bytes"]
+    del eng, model, ref32, ref16
+    p26_free(dev)
+    return out
+
+
+def p26_mixtral(dev, cfg=None) -> dict:
+    """(c) Mixtral-8x7B at full width (8 experts, top-2, dropless), 8 of its
+    32 layers: the v1 ``decode`` in bf16 and with int8 weights."""
+    import torch
+    from deepspeed_tpu_torch.models.mixtral import MixtralConfig, MixtralForCausalLM
+    from deepspeed_tpu_torch.runtime.zero.zeropp import tree_bytes
+    B, T, new = P26_C
+    cfg = cfg or MixtralConfig.mixtral_8x7b(num_hidden_layers=P26_C_LAYERS,
+                                            dtype=torch.bfloat16)
+    model = MixtralForCausalLM(cfg, device=dev, seed=0)
+    prompts = p26_prompts(B, T, cfg.vocab_size, 28)
+    conf = {"dtype": "bfloat16", "max_tokens": T + new, "max_out_tokens": new}
+    out = {}
+    p26_reset_peak(dev)
+    q = p26_engine(model, {**conf, "quant": P26_QUANT}, model.flat_params(), dev)
+    out["quant"] = {"param_bytes": tree_bytes(q.params)}
+    p26_reset_peak(dev)
+    rq = p26_steps(q, prompts, new)
+    p26_generate("(c) quant", q, prompts, new, rq)
+    out["quant"].update({k: rq[k] for k in ("prefill_ms", "decode_ms_per_step",
+                                            "decode_peak_above_gib")})
+    out["quant"]["peak_gib"] = p26_peak_gib(dev)
+    c = p26_engine(model, conf, model.flat_params(), dev)
+    out["bf16_original"] = {"param_bytes": tree_bytes(c.params)}
+    p26_reset_peak(dev)
+    rc = p26_steps(c, prompts, new, feed=rq["stream"])
+    out["bf16_original"].update({k: rc[k] for k in ("prefill_ms", "decode_ms_per_step",
+                                                    "decode_peak_above_gib")})
+    out["bf16_original"]["peak_gib"] = p26_peak_gib(dev)
+    if torch.equal(rc["logits"], rq["logits"]):
+        raise AssertionError("phase 26 (c) control: the bf16 engine on the original "
+                             "weights gives the quant engine's logits")
+    out["control_max_abs_diff"] = float((rc["logits"] - rq["logits"]).abs().max())
+    del c, rc
+    p26_free(dev)
+    # the model takes the quant engine's export; the bf16 engine serves it
+    sd = q.module_state_dict()
+    model.load_flat(sd)
+    del sd
+    p26_free(dev)
+    b = p26_engine(model, conf, model.flat_params(), dev)
+    rb = p26_steps(b, prompts, new)
+    p26_same("(c) quant vs the bf16 engine on its module_state_dict()", rq, rb)
+    del b, rb
+    p26_free(dev)
+    seq = np.concatenate([prompts, rq["stream"][:, :-1]], 1)
+    ids = torch.from_numpy(seq.astype(np.int64)).to(dev)
+    f32 = model.forward_logits(ids, compute_dtype=torch.float32)[:, T - 1:].transpose(0, 1)
+    f16 = model.forward_logits(ids, compute_dtype=torch.bfloat16)[:, T - 1:].transpose(0, 1)
+    tie = 2 * float((f16 - f32).abs().max())
+    out["logits_vs_fp32"] = {"rms": p26_rms(rq["logits"], f32),
+                             "dense_bf16_rms": p26_rms(f16, f32), "tie_limit": tie}
+    p26_tie_check("(c) quant vs dense fp32", rq["stream"], f32, tie)
+    del q, rq, model, f32, f16
+    p26_free(dev)
+    return out
+
+
+def p26_zipf_batches(V, n, T, seed):
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, V + 1) ** P20_ZIPF
+    return [{"input_ids": rng.choice(V, size=(1, T), p=p / p.sum()).astype(np.int32)}
+            for _ in range(n)]
+
+
+def p26_train(engine, batches, dev):
+    """Per step: (loss, grad norm) as floats and the warm step ms."""
+    out, times = [], []
+    for b in batches:
+        p19_sync(dev)
+        t0 = time.perf_counter()
+        loss = engine.train_batch(b)
+        p19_sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        out.append((float(loss), engine.get_global_grad_norm()))
+    return out, times
+
+
+def p26_qwz(dev, cfg=None, small=None) -> tuple:
+    """(d) ZeRO++ qwZ at a world of one: Llama-2-7B width at ``P20_LAYERS``
+    layers, T ``P26_D_T``, micro-batch 1, AdamW. Gate 1: step 1's loss and
+    grad norm bit-equal to the plain engine started from the quantized
+    master's dequantization; gate 2: the loss stream within JAX's
+    ``test_qwz_training_tracks_fp`` rule of that plain run; gate 3: a qwZ
+    save and load resume bit for bit (phase 20's GPT-2 small cut to 2
+    layers: a 7B-width tag is ~22 GB). Returns (results, K1 launches)."""
+    import shutil
+    import tempfile
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from deepspeed_tpu_torch.runtime.zero.zeropp import (dequantize_param_tree,
+                                                         quantize_param_tree, tree_bytes)
+    cfg = cfg or LlamaConfig.llama2_7b(num_hidden_layers=P20_LAYERS, dtype=torch.bfloat16)
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    master = {n: p.detach().float() for n, p in model.named_flat_parameters().items()}
+    batches = p26_zipf_batches(cfg.vocab_size, P26_D_STEPS, P26_D_T, 26)
+    out = {}
+    rt = dequantize_param_tree(quantize_param_tree(master, torch.bfloat16), torch.float32)
+    # AdamW over the whole master peaks near 67 GiB at this size: no second
+    # fp32 tree may stay beside it (the qwZ engine rebuilds the model from
+    # the same seed)
+    del master
+    p26_free(dev)
+    p26_reset_peak(dev)
+    plain = deepspeed_tpu_torch.initialize(model=model, model_parameters=rt,
+                                           config=P26_D_CONFIG, device=dev)[0]
+    del rt
+    base, base_ms = p26_train(plain, batches, dev)
+    out["plain"] = {"param_bytes": sum(t.numel() * t.element_size()
+                                       for t in plain.state["params"].values()),
+                    "step_ms": base_ms, "peak_gib": p26_peak_gib(dev)}
+    plain.destroy()
+    del plain, model
+    p26_free(dev)
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    p26_reset_peak(dev)
+    reset_launches()
+    qwz = deepspeed_tpu_torch.initialize(
+        model=model, device=dev, config=dict(P26_D_CONFIG, zero_optimization=P26_QWZ))[0]
+    got, q_ms = p26_train(qwz, batches, dev)
+    launches = {k: LAUNCHES.get(k, 0) for k in K1_NAMES}
+    params = qwz.state["params"]
+    n_q = sum(1 for v in params.values() if isinstance(v, dict))
+    out["qwz"] = {"param_bytes": tree_bytes(params), "quantized_leaves": n_q,
+                  "leaves": len(params), "step_ms": q_ms, "peak_gib": p26_peak_gib(dev),
+                  "k1_launches": launches}
+    out["losses"] = {"qwz": [x[0] for x in got], "plain": [x[0] for x in base]}
+    out["grad_norms"] = {"qwz": [x[1] for x in got], "plain": [x[1] for x in base]}
+    print("phase 26 (d) " + json.dumps(out), flush=True)
+    if got[0] != base[0]:
+        raise AssertionError(f"phase 26 (d) gate 1: step 1 {got[0]} != plain {base[0]}")
+    ql, pl = np.array(out["losses"]["qwz"]), np.array(out["losses"]["plain"])
+    if not (np.isfinite(ql).all() and ql[-1] < ql[0]):
+        raise AssertionError(f"phase 26 (d) gate 2: losses {ql} do not fall")
+    np.testing.assert_allclose(ql, pl, rtol=0.1, atol=0.15)
+    if not n_q or any(v["q"].dtype != torch.int8 for v in params.values()
+                      if isinstance(v, dict)):
+        raise AssertionError("phase 26 (d): the compute params are not int8")
+    if dev.type == "cuda" and not all(launches.values()):
+        raise AssertionError(f"phase 26 (d): K1 kernels never launched: {launches}")
+    qwz.destroy()
+    del qwz, model
+    p26_free(dev)
+    # gate 3: a qwZ save, then a load, resumes bit for bit
+    root = tempfile.mkdtemp(prefix="chip_smoke_p26_")
+    try:
+        config = dict(P20_SMALL_CONFIG, optimizer={"type": "AdamW", "params": {"lr": 1e-3}},
+                      zero_optimization=P26_QWZ)
+        small = small or dict(P20_SMALL)
+        gpt = GPT2LMHead(GPT2Config(**small, dtype=torch.bfloat16), device=dev, seed=0)
+        e = deepspeed_tpu_torch.initialize(model=gpt, config=config, device=dev)[0]
+        rows = p26_zipf_batches(gpt.config.vocab_size, 4 * (P26_RESUME_AT + 2),
+                                gpt.config.n_positions // 4, 29)
+        gb = [{"input_ids": np.concatenate([r["input_ids"] for r in rows[i:i + 4]])}
+              for i in range(0, len(rows), 4)]
+        for b in gb[:P26_RESUME_AT]:
+            e.train_batch(b)
+        e.save_checkpoint(root, tag="qwz")
+        first = [float(e.train_batch(b)) for b in gb[P26_RESUME_AT:]]
+        e.load_checkpoint(root, tag="qwz")
+        again = [float(e.train_batch(b)) for b in gb[P26_RESUME_AT:]]
+        out["resume"] = {"losses": first, "resumed": again}
+        print("phase 26 (d) resume " + json.dumps(out["resume"]), flush=True)
+        if first != again:
+            raise AssertionError(f"phase 26 (d) gate 3: resumed {again} != {first}")
+        e.destroy()
+        del e, gpt
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    p26_free(dev)
+    return out, launches
+
+
+def run_quantized_v1(dev="cuda") -> dict:
+    """Phase 26: (a) Llama-2-7B through ``init_inference`` with int8 weights
+    and the int8 cache, (b) Falcon-7B's ``DecoderLM.decode``, (c)
+    Mixtral-8x7B's decode at 8 layers, (d) ZeRO++ qwZ training. Returns K1's
+    launches in (d); (a)-(c) run no kernel of the port (the v1 engine is
+    plain torch, as the JAX engine is XLA)."""
+    import torch
+    dev = torch.device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    res = {"nvidia_smi": smi_line() if dev.type == "cuda" else "cpu"}
+    for part, fn in (("a", p26_llama), ("b", p26_falcon), ("c", p26_mixtral)):
+        t = time.perf_counter()
+        res[part] = fn(dev)
+        res[part]["seconds"] = time.perf_counter() - t
+        print(f"phase 26 ({part}) " + json.dumps(res[part]), flush=True)
+    t = time.perf_counter()
+    res["d"], launches = p26_qwz(dev)
+    res["d"]["seconds"] = time.perf_counter() - t
+    res["seconds"] = time.perf_counter() - t_phase
+    print("phase 26 " + json.dumps({"nvidia_smi": res["nvidia_smi"], "launches": launches,
+                                    "seconds": res["seconds"]}), flush=True)
+    print(f"phase 26: {res['seconds']:.1f} s", flush=True)
+    return launches
+
+
 ATTN_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "flash_fwd", "flash_bwd_dq",
               "flash_bwd_dkv")
 Q_NAMES = ("flash_packed", "paged_chunk", "paged_decode", "paged_splitk", "splitk_merge",
@@ -9867,6 +10430,11 @@ def main() -> int:
     observability_launches = run_observability()
     gc.collect()
     torch.cuda.empty_cache()
+    # phase 26: the v1 engine's int8 tiers, the DecoderLM and Mixtral
+    # decodes and qwZ training; K1's D 128 rows carry (d)'s launches
+    quant_launches = run_quantized_v1()
+    gc.collect()
+    torch.cuda.empty_cache()
     # modules by full name: the package re-exports same-named functions
     from deepspeed_tpu_torch.ops.kernels import paged_chunk, paged_decode, paged_splitk
     from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import KERNELS as K9_KERNELS
@@ -9960,10 +10528,12 @@ def main() -> int:
                           "phase22": cluster_launches.get(name, 0),
                           "phase23": rollout_launches.get(name, 0),
                           "phase24": offload_launches.get(name, 0),
-                          "phase25": observability_launches.get(name, 0)}}
+                          "phase25": observability_launches.get(name, 0),
+                          "phase26": quant_launches.get(name, 0)}}
                          if serving_launches.get(name) or cluster_launches.get(name)
                          or rollout_launches.get(name) or offload_launches.get(name)
-                         or observability_launches.get(name) else {})})
+                         or observability_launches.get(name) or quant_launches.get(name)
+                         else {})})
     print(f"chip_smoke.py: {time.perf_counter() - t0:.1f} s from the build on", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

@@ -50,6 +50,7 @@ from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.runtime.zero.zeropp import requantize_into
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.threads import make_lock
 
@@ -187,15 +188,15 @@ def load_into(state: Mapping[str, Any], plan: List[Tuple[torch.Tensor, torch.Ten
     """Write the host tensors INTO the live ones, so every reference to a
     tensor — the module's ``nn.Parameter`` s first — sees the loaded values;
     then recast the compute-dtype params from the fp32 master, in place, as
-    the training step does after its update, and wait for the device."""
+    the training step does after its update (a qwZ engine's ``{q, s}``
+    params are quantized anew), and wait for the device."""
     master = state["master"]
     with torch.no_grad():
         for dst, src in plan:
             dst.copy_(src)
         if "params" in state and master:
             # (an offload engine's master holds only its device-flow leaves)
-            torch._foreach_copy_([state["params"][n] for n in master],
-                                 [master[n] for n in master])
+            requantize_into(state["params"], master)
     if state["step"].is_cuda:
         torch.cuda.current_stream().synchronize()
 

@@ -2,11 +2,12 @@
 ``inference/config.py`` ``InferenceConfig``): every field of the JAX
 package's, on the port's dataclass config tree.
 
-The port's v1 engine runs on one device in plain PyTorch, so this slice
-refuses by name, at load, what it does not run: tensor parallelism
-(``tensor_parallel.tp_size > 1``), expert parallelism (``moe.ep_size >
-1``), int8 weights (``quant.enabled``) and the int8 KV cache tier
-(``kv_quant.enabled``). ``replace_with_kernel_inject`` and
+The port's v1 engine runs on one device in plain PyTorch, so it refuses
+by name, at load, what it does not run: tensor parallelism
+(``tensor_parallel.tp_size > 1``) and expert parallelism (``moe.ep_size >
+1``). Weight quantization (``quant``: ``bits`` in int8 storage over groups
+of ``group_size`` output columns) and the int8 KV cache tier
+(``kv_quant``) run. ``replace_with_kernel_inject`` and
 ``enable_cuda_graph`` are accepted and ignored, as in the JAX package.
 """
 
@@ -86,13 +87,11 @@ class InferenceConfig(ConfigModel):
             (f"tensor_parallel.tp_size = {self.tensor_parallel.tp_size}",
              self.tensor_parallel.enabled and self.tensor_parallel.tp_size > 1),
             (f"moe.ep_size = {self.moe.ep_size}", self.moe.enabled and self.moe.ep_size > 1),
-            ("quant.enabled (int8 weights)", self.quant.enabled),
-            ("kv_quant.enabled (the int8 KV cache tier)", self.kv_quant.enabled),
         ] if on]
         if off:
             raise NotImplementedError(
                 f"{', '.join(off)}: not ported to deepspeed_tpu_torch's v1 inference "
-                "engine yet (it serves on one device with a dense bf16/fp32 cache)")
+                "engine yet (it serves on one device)")
 
     @property
     def compute_dtype(self) -> torch.dtype:

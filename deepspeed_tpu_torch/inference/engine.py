@@ -1,6 +1,7 @@
 """The v1 inference engine on one device (the JAX package's
 ``inference/engine.py`` ``InferenceEngine``): a model's parameters cast to
-the serving dtype, a dense forward, and generation over a dense KV cache.
+the serving dtype (and, under ``quant``, quantized), a dense forward, and
+generation over a dense KV cache.
 
 - The parameters: ``model_parameters`` (a flax-named flat tree of tensors
   or numpy arrays), else the model-states file of
@@ -10,17 +11,29 @@ the serving dtype, a dense forward, and generation over a dense KV cache.
   the model's module tree whose parameters ARE those tensors,
   so writing into :attr:`params` in place (the hybrid engine's refresh)
   is all a weight update needs.
+- ``quant.enabled``: every matmul weight (two or more dims, no ``embed``
+  and no ``norm`` in its name: the JAX engine's ``_quantizable``) is held
+  as ``{"q": int8, "s": f32}`` at ``quant.bits`` over groups of
+  ``quant.group_size`` output columns (``runtime/zero/zeropp.py``'s
+  ``quantize_leaf`` of the cast weight), leaf by leaf as it lands. The
+  module tree reads it through a ``QuantizedWeight``, which dequantizes
+  the one weight it is asked for just before its matmul (the JAX engine
+  dequantizes the tree inside ``jit`` and leaves the expansion to XLA's
+  fusion). :meth:`module_state_dict` returns the dequantized tree.
 - ``forward(ids)``: the model's ``forward_logits``.
 - ``generate``: a prefill and single-token steps of the model's ``decode``
-  over the dense cache of ``models.llama.init_cache``, greedy or sampled
+  over the dense cache of ``models.llama.init_cache`` (Llama, Mixtral) or
+  ``models.decoder.init_decoder_cache`` (``DecoderLM``), in the int8 tier
+  under ``kv_quant`` (the factory gets ``kv_bits``; one without the tier
+  raises ``TypeError``, as in the JAX engine), greedy or sampled
   (temperature, top-k) from a ``torch.Generator`` seeded with
   ``config.seed``, under the JAX package's ``max_out_tokens``,
   ``max_tokens``, ``min_out_tokens`` and ``eos_token_id`` rules.
 
 The JAX engine computes this in XLA with no Pallas kernel, so the port's is
-plain PyTorch. Tensor and expert parallelism, int8 weights and the int8
-cache tier are refused by ``InferenceConfig``; models without a dense
-``decode`` (``DecoderLM``, Mixtral, GPT-2) are refused at ``generate``.
+plain PyTorch. Tensor and expert parallelism are refused by
+``InferenceConfig``; a model without a dense ``decode`` (GPT-2) fails at
+``generate``.
 """
 
 from __future__ import annotations
@@ -35,6 +48,9 @@ from torch import nn
 
 from deepspeed_tpu_torch.checkpoint.convert import params_from_flat
 from deepspeed_tpu_torch.inference.config import InferenceConfig
+from deepspeed_tpu_torch.runtime.zero.zeropp import (QuantizedWeight, _is_qleaf,
+                                                     dequantize_leaf, quantize_leaf,
+                                                     requantize_into)
 from deepspeed_tpu_torch.utils.device import resolve_device
 
 
@@ -42,13 +58,16 @@ class InferenceEngine:
     """See the module docstring."""
 
     def __init__(self, model: Any, config: Optional[InferenceConfig] = None,
-                 model_parameters: Optional[Mapping[str, Any]] = None, device=None):
+                 model_parameters: Optional[Mapping[str, Any]] = None, device=None,
+                 init_cache_fn=None):
         self.config = config if isinstance(config, InferenceConfig) \
             else InferenceConfig.load(config)
         self.module = model
         self.model_config = getattr(model, "config", None)
         self.device = resolve_device(device)
         self._dtype = self.config.compute_dtype
+        self._weights_quantized = bool(self.config.quant.enabled)
+        self._init_cache_fn = init_cache_fn
         params = model_parameters
         if params is None and self.config.checkpoint.checkpoint_dir:
             params = self._load_checkpoint_params(self.config.checkpoint.checkpoint_dir,
@@ -74,15 +93,28 @@ class InferenceEngine:
         with np.load(os.path.join(ckpt_dir, tag, MODEL_FILE)) as data:
             return {k: data[k] for k in data.files}
 
-    def _cast_params(self, params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    @staticmethod
+    def _quantizable(name: str, leaf) -> bool:
+        """Matmul weights only: the JAX engine's post-init quant skips
+        embeddings and norms."""
+        return leaf.dim() >= 2 and "embed" not in name and "norm" not in name.lower()
+
+    def _cast_params(self, params: Mapping[str, Any]) -> Dict[str, Any]:
         """Fresh device copies in the serving dtype (floating leaves), so no
-        caller's tensor is ever written through the engine."""
+        caller's tensor is ever written through the engine; under ``quant``
+        each matmul weight is quantized from its cast as it lands, so the
+        full-width copy of only one leaf exists at a time."""
         if any(isinstance(v, np.ndarray) for v in params.values()):
             params = params_from_flat(params, device=self.device)
+        bits, group = int(self.config.quant.bits), int(self.config.quant.group_size)
         out = {}
         for name, t in params.items():
             dt = self._dtype if t.is_floating_point() else t.dtype
-            out[name] = t.detach().to(device=self.device, dtype=dt, copy=True)
+            if self._weights_quantized and self._quantizable(name, t):
+                out[name] = quantize_leaf(t.detach().to(device=self.device, dtype=dt),
+                                          num_bits=bits, group_size=group)
+            else:
+                out[name] = t.detach().to(device=self.device, dtype=dt, copy=True)
         return out
 
     def _bind(self, model: nn.Module) -> nn.Module:
@@ -99,10 +131,15 @@ class InferenceEngine:
             net._parameters = {}
             for name, p in module._parameters.items():
                 t = self.params[prefix + name]
+                if _is_qleaf(t):
+                    t = QuantizedWeight(t["q"], t["s"], self._dtype)
                 if tuple(t.shape) != tuple(p.shape):
                     raise ValueError(f"{prefix + name}: shape {tuple(t.shape)} != "
                                      f"{tuple(p.shape)}")
-                net._parameters[name] = nn.Parameter(t, requires_grad=False)
+                if isinstance(t, QuantizedWeight):
+                    setattr(net, name, t)
+                else:
+                    net._parameters[name] = nn.Parameter(t, requires_grad=False)
             net._modules = {name: rebind(m, f"{prefix}{name}/")
                             for name, m in module._modules.items()}
             return net
@@ -110,14 +147,36 @@ class InferenceEngine:
         return rebind(model, "")
 
     def _make_cache(self, batch_size: int, max_len: int) -> Dict[str, torch.Tensor]:
-        from deepspeed_tpu_torch.models.decoder import DecoderLM
-        from deepspeed_tpu_torch.models.llama import init_cache
-        if isinstance(self.module, DecoderLM):
-            raise NotImplementedError(
-                "DecoderLM.decode over the dense KV cache (init_decoder_cache): "
-                "not ported to deepspeed_tpu_torch yet")
-        return init_cache(self.model_config, batch_size, max_len, dtype=self._dtype,
-                          device=self.device)
+        """The model's dense cache on the engine's device: the engine's
+        ``init_cache_fn``, else ``init_decoder_cache`` for a ``DecoderLM``
+        and ``init_cache`` for the Llama lineage. Under ``kv_quant`` the
+        factory gets ``kv_bits``; one that does not take it raises
+        ``TypeError`` (a factory without the int8 tier)."""
+        fn = self._init_cache_fn
+        if fn is None:
+            from deepspeed_tpu_torch.models.decoder import DecoderLM, init_decoder_cache
+            from deepspeed_tpu_torch.models.llama import init_cache
+            fn = init_decoder_cache if isinstance(self.module, DecoderLM) else init_cache
+        kw = {"kv_bits": self.config.kv_quant.bits} if self.config.kv_quant.enabled else {}
+        return fn(self.model_config, batch_size, max_len, dtype=self._dtype,
+                  device=self.device, **kw)
+
+    @torch.no_grad()
+    def refresh_params(self, live: Mapping[str, torch.Tensor]) -> None:
+        """Write the weights ``live`` (by flax name) into :attr:`params` in
+        place, cast to the serving dtype and, for a quantized leaf,
+        quantized anew (the JAX hybrid engine's cast + requantize)."""
+        cast = {n: (live[n].detach().to(self._dtype) if _is_qleaf(self.params[n])
+                    else live[n].detach()) for n in live}
+        requantize_into(self.params, cast, int(self.config.quant.bits),
+                        int(self.config.quant.group_size))
+
+    def module_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The weights by flax name, quantized leaves dequantized to the
+        serving dtype (the JAX engine's export: the same names and shapes
+        whether or not ``quant`` is on); fresh tensors."""
+        return {n: dequantize_leaf(v, self._dtype) if _is_qleaf(v) else v.clone()
+                for n, v in self.params.items()}
 
     # ------------------------------------------------------------------ #
     # forward / generate

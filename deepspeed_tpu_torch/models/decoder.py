@@ -27,8 +27,17 @@ The forward follows the JAX module's numerics: norms take f32 statistics
 scores are f32 with the ALiBi bias ``slope_h * (k_pos - q_pos)`` added
 (:func:`alibi_bias`); a 'local' layer's window mask takes the place of the
 ALiBi bias there, as in the JAX module; the tied head is ``x.f32 @
-embed.f32.T``. The training loss, ``remat``, ``sequence_parallel`` and the
-dense-cache ``decode`` of the v1 engine are not ported yet and raise by
+embed.f32.T``.
+
+:meth:`DecoderLM.decode` is the v1 engine's incremental step over the dense
+KV cache of :func:`init_decoder_cache` (the JAX package's
+``DecoderLM.decode``), in bf16/fp32 or in the int8 tier of
+``models/llama.py`` (``quantized_cache_append`` /
+``quantized_cache_attention``); the causal mask and BLOOM's ALiBi come in
+one shared bias, and a 'local' layer rebuilds its own window bias, as in
+the JAX module. A projection may be a ``QuantizedWeight`` there (every
+projection is read through ``w.to(dt)``, in :func:`_proj`). The training
+loss, ``remat`` and ``sequence_parallel`` are not ported yet and raise by
 name.
 """
 
@@ -42,7 +51,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deepspeed_tpu_torch.models.llama import window_mask
+from deepspeed_tpu_torch.models.llama import (dense_cache, quantized_cache_append,
+                                              quantized_cache_attention, window_bias,
+                                              window_mask)
 from deepspeed_tpu_torch.utils.device import resolve_device
 
 
@@ -409,23 +420,14 @@ class DecoderLM(nn.Module):
         H, Hkv, D = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
         if positions is None:
             positions = torch.arange(T, device=input_ids.device).expand(B, T)
-        x = self.embed.embedding.to(dt)[input_ids]
-        if cfg.learned_pos:
-            x = x + self.pos_embed.embedding.to(dt)[positions + cfg.pos_offset]
-        if cfg.embed_norm:
-            x = self.embed_norm.normalize(x, cfg.eps, dt)
+        x = self._embed_in(input_ids, positions, dt)
         causal = window_mask(positions, positions, None)[:, None]
         alibi = alibi_bias(positions, positions, H) if cfg.alibi else None
         kinds = cfg.attention_layers or ("global",) * cfg.num_hidden_layers
         scale = cfg.attn_scale if cfg.attn_scale is not None else D ** -0.5
         for layer, kind in zip(self.layers, kinds):
             h1 = layer.ln1.normalize(x, cfg.eps, dt)
-            q = _proj(h1, layer.wq, getattr(layer, "bq", None), dt).view(B, T, H, D)
-            k = _proj(h1, layer.wk, getattr(layer, "bk", None), dt).view(B, T, Hkv, D)
-            v = _proj(h1, layer.wv, getattr(layer, "bv", None), dt).view(B, T, Hkv, D)
-            if cfg.rope_theta is not None:
-                q = _partial_rope(q, positions, cfg.rope_theta, cfg.rotary_dim)
-                k = _partial_rope(k, positions, cfg.rope_theta, cfg.rotary_dim)
+            q, k, v = self._qkv(layer, h1, positions, dt)
             k = k.repeat_interleave(H // Hkv, dim=2)
             v = v.repeat_interleave(H // Hkv, dim=2)
             s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
@@ -439,14 +441,46 @@ class DecoderLM(nn.Module):
             s = s.masked_fill(~visible, torch.finfo(torch.float32).min)
             p = torch.softmax(s, dim=-1).to(dt)
             o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(B, T, H * D)
-            attn = _proj(o, layer.wo, getattr(layer, "bo", None), dt)
-            if cfg.parallel_block:
-                mlp_in = layer.ln2.normalize(x, cfg.eps, dt) if cfg.parallel_dual_norm else h1
-                x = x + attn + self._mlp(layer.mlp, mlp_in, dt)
-            else:
-                x = x + attn
-                x = x + self._mlp(layer.mlp, layer.ln2.normalize(x, cfg.eps, dt), dt)
+            x = self._combine(layer, x, h1, _proj(o, layer.wo, getattr(layer, "bo", None), dt),
+                              dt)
         return self.final_norm.normalize(x, cfg.eps, dt)
+
+    def _embed_in(self, input_ids: torch.Tensor, positions: torch.Tensor, dt) -> torch.Tensor:
+        """The token (and learned position) embedding in ``dt``, behind
+        BLOOM's embedding norm."""
+        cfg = self.config
+        x = self.embed.embedding.to(dt)[input_ids]
+        if cfg.learned_pos:
+            x = x + self.pos_embed.embedding.to(dt)[positions + cfg.pos_offset]
+        if cfg.embed_norm:
+            x = self.embed_norm.normalize(x, cfg.eps, dt)
+        return x
+
+    def _qkv(self, layer: DecoderBlock, h1: torch.Tensor, positions: torch.Tensor, dt):
+        """q [B, T, H, D] and k, v [B, T, Hkv, D] of the normed ``h1``, the
+        rotary part rotated."""
+        cfg = self.config
+        B, T, _ = h1.shape
+        H, Hkv, D = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
+        q = _proj(h1, layer.wq, getattr(layer, "bq", None), dt).view(B, T, H, D)
+        k = _proj(h1, layer.wk, getattr(layer, "bk", None), dt).view(B, T, Hkv, D)
+        v = _proj(h1, layer.wv, getattr(layer, "bv", None), dt).view(B, T, Hkv, D)
+        if cfg.rope_theta is not None:
+            q = _partial_rope(q, positions, cfg.rope_theta, cfg.rotary_dim)
+            k = _partial_rope(k, positions, cfg.rope_theta, cfg.rotary_dim)
+        return q, k, v
+
+    def _combine(self, layer: DecoderBlock, x: torch.Tensor, h1: torch.Tensor,
+                 attn: torch.Tensor, dt) -> torch.Tensor:
+        """The residual: a parallel block adds attention and the MLP (off
+        ``h1``, or off ln2 under ``parallel_dual_norm``) at once, a
+        sequential one in turn."""
+        cfg = self.config
+        if cfg.parallel_block:
+            mlp_in = layer.ln2.normalize(x, cfg.eps, dt) if cfg.parallel_dual_norm else h1
+            return x + attn + self._mlp(layer.mlp, mlp_in, dt)
+        x = x + attn
+        return x + self._mlp(layer.mlp, layer.ln2.normalize(x, cfg.eps, dt), dt)
 
     def _mlp(self, m: Mlp, x: torch.Tensor, dt) -> torch.Tensor:
         act = self.config.activation
@@ -481,7 +515,82 @@ class DecoderLM(nn.Module):
                                   "and the parameters; forward_logits is the dense "
                                   "oracle)")
 
-    def decode(self, input_ids, cache, cache_index, positions=None):
-        raise NotImplementedError("DecoderLM.decode (the v1 engine's dense KV cache): "
-                                  "not ported to deepspeed_tpu_torch yet; serve through "
-                                  "inference.v2.InferenceEngineV2")
+    @torch.no_grad()
+    def decode(self, input_ids: torch.Tensor, cache: Dict[str, torch.Tensor],
+               cache_index: int, positions: Optional[torch.Tensor] = None):
+        """One incremental step over the dense KV cache (prefill or
+        single-token decode), the JAX package's ``DecoderLM.decode``.
+
+        ``input_ids`` [B, T]; ``cache`` from :func:`init_decoder_cache`;
+        ``cache_index`` the write offset. Writes this step's K/V rows into
+        the cache IN PLACE and returns (logits [B, T, V] f32, cache).
+        Positions default to ``cache_index + arange(T)``. Computed in
+        ``config.dtype``."""
+        cfg = self.config
+        dt = cfg.dtype
+        input_ids = input_ids.long()
+        B, T = input_ids.shape
+        cache_index = int(cache_index)
+        if positions is None:
+            positions = cache_index + torch.arange(T, device=input_ids.device).expand(B, T)
+        x = self._embed_in(input_ids, positions, dt)
+        S = cache["k"].shape[2]
+        k_pos = torch.arange(S, device=input_ids.device).expand(B, S)
+        bias = window_bias(positions, k_pos, None)
+        if cfg.alibi:
+            bias = bias + alibi_bias(positions, k_pos, cfg.num_attention_heads)
+        kinds = cfg.attention_layers or ("global",) * cfg.num_hidden_layers
+        for i, (layer, kind) in enumerate(zip(self.layers, kinds)):
+            window = cfg.local_window if kind == "local" else None
+            x = self._decode_layer(layer, x, positions, k_pos,
+                                   {key: cache[key][i] for key in cache}, cache_index,
+                                   bias, window, dt)
+        return self.head(self.final_norm.normalize(x, cfg.eps, dt)), cache
+
+    def _decode_layer(self, layer: DecoderBlock, x: torch.Tensor, positions: torch.Tensor,
+                      k_pos: torch.Tensor, layer_cache: Dict[str, torch.Tensor],
+                      cache_index: int, bias: torch.Tensor, window: Optional[int],
+                      dt) -> torch.Tensor:
+        """One layer of :meth:`decode` (the JAX package's
+        ``DecoderBlock.decode``): the shared ``bias`` [B, 1|H, T, S] (causal
+        mask plus ALiBi), rebuilt as the window's own causal bias on a
+        'local' layer; the dense cache's attention as ``reference_attention``
+        (f32 scores, probabilities in q's dtype), the int8 cache's through
+        ``quantized_cache_attention``."""
+        cfg = self.config
+        B, T, _ = x.shape
+        H, Hkv, D = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
+        h1 = layer.ln1.normalize(x, cfg.eps, dt)
+        q, k, v = self._qkv(layer, h1, positions, dt)
+        if window is not None:
+            bias = window_bias(positions, k_pos, window)
+        if "k_scale" in layer_cache:
+            quantized_cache_append(layer_cache, k, v, cache_index)
+            o = quantized_cache_attention(q, layer_cache, bias, Hkv,
+                                          softmax_scale=cfg.attn_scale)
+        else:
+            ck, cv = layer_cache["k"], layer_cache["v"]
+            ck[:, cache_index:cache_index + T] = k.to(ck.dtype)
+            cv[:, cache_index:cache_index + T] = v.to(cv.dtype)
+            scale = cfg.attn_scale if cfg.attn_scale is not None else 1.0 / (D ** 0.5)
+            s = torch.einsum("bqhd,bkhd->bhqk", q,
+                             ck.repeat_interleave(H // Hkv, dim=2)).float() * scale
+            p = torch.softmax(s + bias, dim=-1).to(q.dtype)
+            del s
+            o = torch.einsum("bhqk,bkhd->bqhd", p, cv.repeat_interleave(H // Hkv, dim=2))
+        o = o.reshape(B, T, H * D)
+        return self._combine(layer, x, h1, _proj(o, layer.wo, getattr(layer, "bo", None), dt),
+                             dt)
+
+
+def init_decoder_cache(config: DecoderConfig, batch_size: int, max_len: int, dtype=None,
+                       kv_bits: Optional[int] = None, device=None) -> Dict[str, torch.Tensor]:
+    """The dense KV cache of the v1 engine for :class:`DecoderLM` (the JAX
+    package's ``init_decoder_cache``): {"k", "v"} zeros [L, B, max_len,
+    kv_heads, D] in ``dtype`` (default ``config.dtype``) on ``device``
+    (default: the CUDA device); ``kv_bits=8`` the int8 tier."""
+    if kv_bits is not None and kv_bits != 8:
+        raise ValueError(f"kv_bits must be 8, got {kv_bits!r}")
+    shape = (config.num_hidden_layers, batch_size, max_len, config.kv_heads,
+             config.head_dim)
+    return dense_cache(shape, dtype or config.dtype, kv_bits, resolve_device(device))

@@ -7,7 +7,11 @@ the engine reads its configuration and its parameters. The v1 inference
 engine (``inference/engine.py``) runs :meth:`LlamaForCausalLM.decode`, an
 incremental step over the dense KV cache of :func:`init_cache` (the JAX
 package's ``decode_layers``; plain torch, as the JAX package computes it in
-XLA with no Pallas kernel). The training forward
+XLA with no Pallas kernel), in bf16/fp32 or in the int8 tier
+(:func:`quantized_cache_append`, :func:`quantized_cache_attention`). A
+weight may be a ``runtime.zero.zeropp.QuantizedWeight`` there: every
+read of a weight goes through ``w.to(dt)`` (the :class:`Dense` call is
+the seam), which dequantizes it just before its matmul. The training forward
 (``model(batch)`` -> mean next-token loss, the JAX package's
 ``LlamaForCausalLM.__call__``) sends attention through
 ``ops.attention.dot_product_attention`` (the flash kernel K1), its layers
@@ -417,14 +421,17 @@ class LlamaForCausalLM(nn.Module):
         return decode_layers(self, input_ids, cache, cache_index, positions)
 
     def decode_layer(self, layer: nn.Module, x: torch.Tensor, positions: torch.Tensor,
-                     cos: torch.Tensor, sin: torch.Tensor, ck: torch.Tensor,
-                     cv: torch.Tensor, cache_index: int, dt: torch.dtype) -> torch.Tensor:
+                     cos: torch.Tensor, sin: torch.Tensor,
+                     layer_cache: Dict[str, torch.Tensor], cache_index: int,
+                     dt: torch.dtype) -> torch.Tensor:
         """One layer of :meth:`decode` (the JAX package's ``LlamaBlock.decode``
-        with the dense branch of ``LlamaAttention.decode``): the step's K/V
-        rows go into the layer's cache ``ck``/``cv`` [B, S_max, Hkv, D] at
+        with ``LlamaAttention.decode``): the step's K/V rows go into the
+        layer's cache (``{"k", "v"}`` [B, S_max, Hkv, D], and in the int8
+        tier ``{"k_scale", "v_scale"}`` [B, S_max, Hkv]) at
         ``cache_index``; each query attends the cache slots at or before its
         position (and inside the sliding window, when there is one) with
-        f32 scores, as ``reference_attention`` under ``_window_bias``."""
+        f32 scores, as ``reference_attention`` under ``_window_bias``, or
+        through :func:`quantized_cache_attention` over an int8 cache."""
         cfg = self.config
         B, T, _ = x.shape
         H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -434,18 +441,24 @@ class LlamaForCausalLM(nn.Module):
         q = apply_rope(a.q_proj(h, dt).view(B, T, H, D), cos, sin)
         k = apply_rope(a.k_proj(h, dt).view(B, T, Hkv, D), cos, sin)
         v = a.v_proj(h, dt).view(B, T, Hkv, D)
-        ck[:, cache_index:cache_index + T] = k.to(ck.dtype)
-        cv[:, cache_index:cache_index + T] = v.to(cv.dtype)
-        S = ck.shape[1]
-        kk = ck.repeat_interleave(H // Hkv, dim=2)
-        vv = cv.repeat_interleave(H // Hkv, dim=2)
+        S = layer_cache["k"].shape[1]
         k_pos = torch.arange(S, device=x.device).expand(B, S)
-        visible = window_mask(positions, k_pos, cfg.sliding_window)[:, None]
-        s = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() * D ** -0.5
-        s = s.masked_fill(~visible, torch.finfo(torch.float32).min)
-        p = torch.softmax(s, dim=-1).to(q.dtype)
-        del s
-        o = torch.einsum("bhqk,bkhd->bqhd", p, vv).reshape(B, T, H * D)
+        if "k_scale" in layer_cache:
+            quantized_cache_append(layer_cache, k, v, cache_index)
+            bias = window_bias(positions, k_pos, cfg.sliding_window)
+            o = quantized_cache_attention(q, layer_cache, bias, Hkv).reshape(B, T, H * D)
+        else:
+            ck, cv = layer_cache["k"], layer_cache["v"]
+            ck[:, cache_index:cache_index + T] = k.to(ck.dtype)
+            cv[:, cache_index:cache_index + T] = v.to(cv.dtype)
+            kk = ck.repeat_interleave(H // Hkv, dim=2)
+            vv = cv.repeat_interleave(H // Hkv, dim=2)
+            visible = window_mask(positions, k_pos, cfg.sliding_window)[:, None]
+            s = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() * D ** -0.5
+            s = s.masked_fill(~visible, torch.finfo(torch.float32).min)
+            p = torch.softmax(s, dim=-1).to(q.dtype)
+            del s
+            o = torch.einsum("bhqk,bkhd->bqhd", p, vv).reshape(B, T, H * D)
         x = x + a.o_proj(o, dt)
         h = rms_norm(x, layer.post_attention_layernorm.weight, eps, dt, p1)
         return x + self.ffn(layer, h, dt)
@@ -498,10 +511,6 @@ def decode_layers(model: LlamaForCausalLM, input_ids: torch.Tensor,
     slice of the dense cache, the final norm and the head. Positions
     default to ``cache_index + arange(T)``. Returns (logits [B, T, V] f32,
     cache)."""
-    if "k_scale" in cache:
-        raise NotImplementedError(
-            "the int8 dense KV cache tier (quantized_cache_append / "
-            "quantized_cache_attention): not ported to deepspeed_tpu_torch yet")
     cfg = model.config
     dt = cfg.dtype
     input_ids = input_ids.long()
@@ -511,10 +520,79 @@ def decode_layers(model: LlamaForCausalLM, input_ids: torch.Tensor,
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     x = embed_scale(model.embed_tokens.embedding[input_ids].to(dt), cfg)
     for i, layer in enumerate(model.layers):
-        x = model.decode_layer(layer, x, positions, cos, sin, cache["k"][i], cache["v"][i],
-                               int(cache_index), dt)
+        x = model.decode_layer(layer, x, positions, cos, sin,
+                               {key: cache[key][i] for key in cache}, int(cache_index), dt)
     x = rms_norm(x, model.norm.weight, cfg.rms_norm_eps, dt, cfg.norm_plus_one)
     return model.lm_head(x, dt).float(), cache
+
+
+def window_bias(q_positions: torch.Tensor, k_positions: torch.Tensor,
+                window: Optional[int]) -> torch.Tensor:
+    """The JAX package's ``_window_bias``: an additive f32 bias [B, 1, Tq,
+    Tk], 0 where :func:`window_mask` lets a key through and the f32 minimum
+    elsewhere."""
+    ok = window_mask(q_positions, k_positions, window)
+    zero = torch.zeros((), dtype=torch.float32, device=ok.device)
+    return torch.where(ok, zero, torch.finfo(torch.float32).min)[:, None]
+
+
+def quantized_cache_append(layer_cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                           v: torch.Tensor, cache_index: int) -> Dict[str, torch.Tensor]:
+    """Quantize this step's K/V rows [B, T, Hkv, D] (symmetric int8 a
+    (token, kv head): scale ``max(amax / 127, 1e-8)``, the quotient rounded
+    half to even and clipped to +-127) and write them, with their f32
+    scales, into the int8 cache at ``cache_index`` IN PLACE (the JAX
+    package's ``quantized_cache_append``). Returns the cache."""
+    T = k.shape[1]
+    for name, rows in (("k", k), ("v", v)):
+        r32 = rows.float()
+        scale = (r32.abs().amax(dim=-1) / 127.0).clamp_min_(1e-8)        # [B, T, Hkv]
+        q8 = (r32 / scale[..., None]).round_().clamp_(-127, 127).to(torch.int8)
+        layer_cache[name][:, cache_index:cache_index + T] = q8
+        layer_cache[f"{name}_scale"][:, cache_index:cache_index + T] = scale
+    return layer_cache
+
+
+def quantized_cache_attention(q: torch.Tensor, cache: Dict[str, torch.Tensor],
+                              bias: torch.Tensor, num_kv_heads: int,
+                              softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """Attention over an int8 dense cache with the dequantization folded
+    into the dots (the JAX package's ``quantized_cache_attention``): the
+    per-(token, kv head) scales multiply the score columns (K) and p (V), so
+    no dequantized [B, S, Hkv, D] cache and no ``repeat_kv`` to H heads is
+    made. Scores are f32 over the GQA fold [B, T, Hkv, G, S].
+
+    ``q`` [B, T, H, D]; ``cache`` {"k", "v" int8 [B, S, Hkv, D], "k_scale",
+    "v_scale" f32 [B, S, Hkv]}; ``bias`` additive f32 [B, 1|H, T, S] (the
+    window mask and/or ALiBi). Returns [B, T, H, D] in q's dtype."""
+    B, T, H, D = q.shape
+    S = cache["k"].shape[1]
+    Hkv = num_kv_heads
+    G = H // Hkv
+    scale = softmax_scale if softmax_scale is not None else 1.0 / (D ** 0.5)
+    qg = q.reshape(B, T, Hkv, G, D).float()
+    sc = torch.einsum("btkgd,bskd->btkgs", qg, cache["k"].float()) * scale
+    sc = sc * cache["k_scale"].float().permute(0, 2, 1)[:, None, :, None, :]
+    bias_b = bias.expand(B, H, T, S).reshape(B, Hkv, G, T, S).permute(0, 3, 1, 2, 4)
+    p = torch.softmax(sc + bias_b, dim=-1)
+    del sc
+    pv = p * cache["v_scale"].float().permute(0, 2, 1)[:, None, :, None, :]
+    out = torch.einsum("btkgs,bskd->btkgd", pv, cache["v"].float())
+    return out.reshape(B, T, H, D).to(q.dtype)
+
+
+def dense_cache(shape, dtype, kv_bits, device) -> Dict[str, torch.Tensor]:
+    """Zeros of a dense KV cache of ``shape`` [L, B, S, Hkv, D]: {"k", "v"}
+    in ``dtype``, or with ``kv_bits=8`` the int8 tier's int8 {"k", "v"}
+    and f32 {"k_scale", "v_scale"} [L, B, S, Hkv]."""
+    if kv_bits == 8:
+        sshape = shape[:-1]
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(sshape, dtype=torch.float32, device=device),
+                "v_scale": torch.zeros(sshape, dtype=torch.float32, device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def init_cache(config: LlamaConfig, batch_size: int, max_len: int, dtype=None,
@@ -522,17 +600,13 @@ def init_cache(config: LlamaConfig, batch_size: int, max_len: int, dtype=None,
     """The dense per-sequence KV cache of the v1 inference engine (the JAX
     package's ``init_cache``): {"k", "v"} zeros [L, B, max_len, Hkv, D] in
     ``dtype`` (default ``config.dtype``) on ``device`` (default: the CUDA
-    device). ``kv_bits=8``, the int8 tier, is refused by name."""
-    if kv_bits == 8:
-        raise NotImplementedError(
-            "init_cache(kv_bits=8), the int8 dense KV cache tier: not ported to "
-            "deepspeed_tpu_torch yet")
-    if kv_bits is not None:
+    device). ``kv_bits=8`` is the int8 tier (see :func:`dense_cache`): the
+    persistent cache is (D + 4) / (2 D) of the bf16 one."""
+    if kv_bits is not None and kv_bits != 8:
         raise ValueError(f"kv_bits must be None or 8, got {kv_bits!r}")
     shape = (config.num_hidden_layers, batch_size, max_len,
              config.num_key_value_heads, config.head_dim)
-    kw = dict(dtype=dtype or config.dtype, device=resolve_device(device))
-    return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+    return dense_cache(shape, dtype or config.dtype, kv_bits, resolve_device(device))
 
 
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

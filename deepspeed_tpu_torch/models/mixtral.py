@@ -11,6 +11,11 @@ renormalised to sum to 1, every (token, choice) through its expert's FFN
 the model dtype. The JAX package's default ``dispatch_mode="capacity"``
 (one-hot dispatch with a per-expert capacity that drops overflow tokens) is
 its training and expert-parallel routing; the port refuses it by name.
+The v1 engine's incremental decode over the dense KV cache (the JAX
+package's ``MixtralBlock.decode``) is the Llama trunk's
+:meth:`LlamaForCausalLM.decode` with this routed FFN in each layer; the
+expert stacks are read a slice at a time through ``w[e].to(dt)``, so a
+``QuantizedWeight`` stack dequantizes one expert just before its matmul.
 
 Parameters carry the flax names: ``layers_{i}/block_sparse_moe/gate/kernel``
 (the router, ``[hidden, E]``) and the expert stacks
@@ -100,11 +105,6 @@ class MixtralForCausalLM(LlamaForCausalLM):
     def forward(self, batch) -> torch.Tensor:
         raise NotImplementedError("MoE training (Mixtral's training forward and its "
                                   "router loss): not ported to deepspeed_tpu_torch yet")
-
-    def decode(self, input_ids, cache, cache_index, positions=None):
-        raise NotImplementedError("Mixtral's decode over the dense KV cache (the v1 "
-                                  "inference engine's step): not ported to "
-                                  "deepspeed_tpu_torch yet")
 
     def ffn(self, layer: nn.Module, h: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
         """Dropless top-k routing of ``h`` [B, T, hidden] through the

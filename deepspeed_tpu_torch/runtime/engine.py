@@ -70,8 +70,24 @@ batch) and the curriculum seqlen schedule.
 
 ZeRO stages 0-3 are accepted and are the identity here: on a world of one
 device there is nothing to partition, as in the JAX partitioner with
-fsdp = 1. A mesh, or a ``torch.distributed`` world of more than one rank,
-raises ``NotImplementedError``, as does a client optimizer that is not a
+fsdp = 1.
+
+ZeRO++ qwZ (``zero_optimization.zero_quantized_weights``) follows the JAX
+engine on a world of one: ``state["params"]`` is
+``runtime/zero/zeropp.py``'s ``quantize_param_tree`` of the fp32 master
+(every leaf of two or more dims and at least ``QWZ_MIN_SIZE`` elements as
+int8 ``{q, s}`` with a scale a row, the rest in the compute dtype). Between
+steps the module's parameters for the quantized leaves hold no values (a
+zero-stride stand-in of their shape); each step's forward first
+dequantizes them (``(q.float() * s).to(compute dtype)``, the JAX engine's
+``_current_params``) into the parameters autograd differentiates, the
+gradient taken through them updates the fp32 master, and the step
+requantizes the new master (the parameters are released before the
+optimizer runs). A load rebuilds the params from the loaded master the
+same way; tags hold the master, so a qwZ tag is the plain byte format.
+
+A mesh, or a ``torch.distributed`` world of more than one rank, raises
+``NotImplementedError``, as does a client optimizer that is not a
 ``TPUOptimizer``, which later slices port.
 
 ZeRO-Offload (``zero_optimization.offload_optimizer``, ``device: cpu`` or
@@ -135,6 +151,9 @@ from deepspeed_tpu_torch.runtime.loss_scaler import (has_overflow, make_loss_sca
 from deepspeed_tpu_torch.runtime.lr_schedules import build_lr_schedule
 from deepspeed_tpu_torch.runtime.progressive_layer_drop import ProgressiveLayerDrop
 from deepspeed_tpu_torch.runtime.zero.offload import HostOffloadOptimizer, partition_leaves
+from deepspeed_tpu_torch.runtime.zero.zeropp import (_is_qleaf, dequantize_leaf,
+                                                     dequantize_param_tree,
+                                                     quantize_param_tree, requantize_into)
 from deepspeed_tpu_torch.utils import fault_injection
 from deepspeed_tpu_torch.utils import locksan as _locksan
 from deepspeed_tpu_torch.utils.device import resolve_device
@@ -249,9 +268,10 @@ class DeepSpeedTPUEngine:
         self.tput_timer = ThroughputTimer(batch_size=self.train_batch_size_,
                                           steps_per_output=self.config.steps_per_print,
                                           device=self.device)
-        # ZeRO++ qwZ's int8 parameter storage is not ported: the params are
-        # always full width here (the flag keeps the JAX engine's name)
-        self.quantized_weights = False
+        # ZeRO++ qwZ: the compute params are stored as int8 {q, s}
+        self.quantized_weights = bool(self.config.zero_optimization.zero_quantized_weights)
+        self._qwz_names: List[str] = []     # the quantized leaves
+        self._qwz_live = False              # their parameters hold values now
 
         # ZeRO-Offload/Infinity: the host/NVMe optimizer step (the JAX
         # engine's checks, in its words)
@@ -326,8 +346,11 @@ class DeepSpeedTPUEngine:
             raise KeyError(f"model_parameters names differ from the model's: missing "
                            f"{sorted(set(named) - set(src))[:4]}, unexpected "
                            f"{sorted(set(src) - set(named))[:4]}")
+        self._module_params = dict(named)
         if self._offload_cfg is not None:
             return self._init_state_offload(named, src)
+        if self.quantized_weights:
+            return self._init_state_qwz(named, src)
         with torch.no_grad():
             master = {n: src[n].to(self.device, torch.float32).clone() for n in named}
             for n, p in named.items():
@@ -355,7 +378,70 @@ class DeepSpeedTPUEngine:
         return scaler
 
     def _current_params(self) -> Dict[str, torch.Tensor]:
+        """The weights the forward computes with, by flax name (under qwZ
+        fresh dequantized tensors, as the JAX engine's ``_current_params``)."""
+        if self.quantized_weights:
+            return dequantize_param_tree(self.state["params"], self.compute_dtype)
         return self.state["params"] if "params" in self.state else self.state["master"]
+
+    # ---- ZeRO++ qwZ state (the JAX engine's quantized params) ---- #
+
+    def _init_state_qwz(self, named, src) -> None:
+        """The qwZ layout (see the module docstring): an fp32 master of
+        every leaf, ``state["params"]`` its ``quantize_param_tree``; the
+        unquantized leaves' params are the module's parameters (in fp32 the
+        master itself), the quantized leaves' parameters hold a stand-in
+        until a forward dequantizes them."""
+        with torch.no_grad():
+            master = {n: src[n].to(self.device, torch.float32).clone() for n in named}
+            params = quantize_param_tree(master, self.compute_dtype)
+            self._qwz_names = [n for n in named if _is_qleaf(params[n])]
+            for n, p in named.items():
+                p.data = self._qwz_stand_in(p) if _is_qleaf(params[n]) else params[n]
+                p.requires_grad_(True)
+        self.state = {
+            "master": master, "opt": self.optimizer.init(master),
+            "step": torch.zeros((), dtype=torch.int32, device=self.device),
+            "scaler": self._scaler_state(),
+            "skipped": torch.zeros((), dtype=torch.int32, device=self.device),
+            "params": {n: params[n] if _is_qleaf(params[n]) else named[n] for n in named}}
+
+    def _qwz_stand_in(self, p: torch.Tensor) -> torch.Tensor:
+        """A zero-stride tensor of ``p``'s shape in the compute dtype: the
+        value a quantized leaf's parameter holds between forwards."""
+        return torch.zeros((), dtype=self.compute_dtype, device=self.device).expand(p.shape)
+
+    @torch.no_grad()
+    def _qwz_dequantize(self) -> None:
+        """Dequantize every quantized leaf into its module parameter (once
+        a step: the micro-batches and the facade's forwards share them)."""
+        if self._qwz_live or not self._qwz_names:
+            return
+        params = self.state["params"]
+        for n in self._qwz_names:
+            self._module_params[n].data = dequantize_leaf(params[n], self.compute_dtype)
+        self._qwz_live = True
+
+    def _qwz_release(self) -> None:
+        """Drop the dequantized values (the grads are taken)."""
+        if not self._qwz_live:
+            return
+        for n in self._qwz_names:
+            p = self._module_params[n]
+            p.data = self._qwz_stand_in(p)
+        self._qwz_live = False
+
+    @contextlib.contextmanager
+    def _qwz_weights(self):
+        """The quantized leaves' parameters hold values inside the block
+        (and keep holding them after it if they already did)."""
+        was = self._qwz_live
+        self._qwz_dequantize()
+        try:
+            yield
+        finally:
+            if not was:
+                self._qwz_release()
 
     # ---- ZeRO-Offload state (the JAX engine's _init_state_offload) ---- #
 
@@ -547,7 +633,7 @@ class DeepSpeedTPUEngine:
         """Gradients of ``scaled`` in the parameters' order; a parameter the
         forward did not use (a layer progressive layer drop skipped) gets
         zeros."""
-        params = list(self._current_params().values())
+        params = list(self._module_params.values())
         grads = torch.autograd.grad(scaled, params, allow_unused=True)
         return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
 
@@ -571,18 +657,20 @@ class DeepSpeedTPUEngine:
         """The accumulated grads as fp32, divided by ``gas * scale``."""
         grads = [g.float() for g in acc]
         torch._foreach_mul_(grads, 1.0 / (self.gas_ * scale))
-        return dict(zip(self._current_params(), grads))
+        return dict(zip(self._module_params, grads))
 
     def _accumulate_grads(self, scale: torch.Tensor, batch: Mapping[str, torch.Tensor]):
         """Mean fp32 grads over the micro-batches (accumulated in
         ``grad_accum_dtype``) and the per-micro-batch losses."""
         acc, losses = None, []
+        self._qwz_dequantize()
         for i in range(self.gas_):
             sl = slice(i * self.micro_batch_size_, (i + 1) * self.micro_batch_size_)
             loss, grads = self._grad_fn({k: v[sl] for k, v in batch.items()}, scale)
             acc = self._accumulate(acc, grads)
             del grads
             losses.append(loss)
+        self._qwz_release()
         return self._mean_grads(acc, scale), torch.stack(losses)
 
     def _apply_grads(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -665,7 +753,9 @@ class DeepSpeedTPUEngine:
                        **{key: {n: keep(old_opt[key][n], new_opt[key][n]) for n in names}
                           for key in new_opt if key != "step"}}
         torch._foreach_copy_([master[n] for n in names], [new_master[n] for n in names])
-        if self.mixed_precision:
+        if self.quantized_weights:
+            requantize_into(st["params"], master)
+        elif self.mixed_precision:
             torch._foreach_copy_([st["params"][n] for n in names], [master[n] for n in names])
         for key, val in new_opt.items():
             if key != "step":
@@ -1063,8 +1153,9 @@ class DeepSpeedTPUEngine:
         host = self._host_batch(batch)
         micro = self._on_device({k: v[:max(1, self.micro_batch_size_)]
                                  for k, v in host.items()})
-        prof.start_profile(self.module, micro)
-        prof.measure(self.module, micro)
+        with self._qwz_weights():
+            prof.start_profile(self.module, micro)
+            prof.measure(self.module, micro)
         prof.print_model_profile(profile_step=fp_cfg.profile_step,
                                  module_depth=fp_cfg.module_depth,
                                  top_modules=fp_cfg.top_modules,
@@ -1111,7 +1202,9 @@ class DeepSpeedTPUEngine:
     @torch.no_grad()
     def eval_loss(self, batch) -> float:
         """Forward-only loss on a global batch (no state change)."""
-        return float(fetch_to_host(self.module(self._on_device(self._host_batch(batch)))))
+        with self._qwz_weights():
+            loss = self.module(self._on_device(self._host_batch(batch)))
+        return float(fetch_to_host(loss))
 
     # ---- the forward/backward/step facade (JAX engine.py :1451-1500) ---- #
 
@@ -1124,6 +1217,7 @@ class DeepSpeedTPUEngine:
         micro = self._on_device(self._inject_pld(host, leading, micro=self.micro_steps))
         sync = self.config.wall_clock_breakdown
         self.timers(FORWARD_GLOBAL_TIMER).start()
+        self._qwz_dequantize()      # released by step()
         loss = self.module(micro)
         self.timers(FORWARD_GLOBAL_TIMER).stop(sync_obj=loss if sync else None)
         return loss
@@ -1152,6 +1246,7 @@ class DeepSpeedTPUEngine:
         self.timers(STEP_GLOBAL_TIMER).start()
         grads = self._mean_grads(self._grad_buffer, self._loss_scale())
         self._grad_buffer = None
+        self._qwz_release()
         metrics = self._apply_grads(grads)
         self.timers(STEP_GLOBAL_TIMER).stop()
         self._after_step(metrics, count_micro_steps=False)
@@ -1256,6 +1351,7 @@ class DeepSpeedTPUEngine:
             verify = self.config.checkpoint.verify_load
         # a pending delayed host step writes the state the load replaces
         self._drain_offload()
+        self._qwz_release()     # a facade forward's values are stale after it
         self.drain_metrics()   # the pre-load stream's metrics land first
         # staged batches are keyed to the step counter the load moves
         self._reset_data_iterator()

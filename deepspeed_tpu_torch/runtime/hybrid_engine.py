@@ -71,13 +71,13 @@ class DeepSpeedHybridEngine(DeepSpeedTPUEngine):
 
     @torch.no_grad()
     def refresh_inference_params(self) -> None:
-        """Cast the live training weights into the inference engine's
-        parameters, in place on the card (no new tensor, no host copy)."""
+        """Cast (and, under the inference ``quant``, requantize) the live
+        training weights into the inference engine's parameters, in place
+        on the card (no host copy)."""
         eng = self._inference_engine()
         if self._infer_params_fresh:
             return      # just built from the live weights
-        live = self._current_params()
-        torch._foreach_copy_([eng.params[n] for n in live], [live[n].detach() for n in live])
+        eng.refresh_params(self._current_params())
         self._infer_params_fresh = True
 
     def generate(self, input_ids, **kwargs):

@@ -538,16 +538,14 @@ def test_alibi_refusals_match_jax():
 
 
 def test_unported_decoder_pieces_raise_by_name():
-    """The training loss, remat, sequence_parallel and the v1 dense-cache
-    decode wait for later slices; an unknown MLP activation is refused
-    rather than served."""
+    """The training loss, remat and sequence_parallel wait for later
+    slices; an unknown MLP activation is refused rather than served. (The
+    v1 dense-cache decode runs: tests/test_torch_v1_quant.py.)"""
     for flag in ("remat", "sequence_parallel"):
         with pytest.raises(NotImplementedError, match=flag):
             DecoderConfig.tiny("bloom", **{flag: True})
     model = DecoderLM(DecoderConfig.tiny("bloom"), device="cpu")
     with pytest.raises(NotImplementedError, match="training loss"):
         model({"input_ids": torch.zeros(1, 4, dtype=torch.long)})
-    with pytest.raises(NotImplementedError, match="decode"):
-        model.decode(None, None, 0)
     with pytest.raises(ValueError, match="unknown MLP activation 'mish'"):
         prm._plain_act("mish")

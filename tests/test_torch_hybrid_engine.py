@@ -14,9 +14,11 @@ KV cache of models.llama).
   package's token for token on the same converted tiny Llama, without and
   with an EOS id; the engine's weights from a training checkpoint; the
   budget rules.
-- The refusals by name: tensor and expert parallelism, int8 weights and
-  the int8 cache tier, the hybrid engine's ``inference_tp_size``, models
-  by name and HuggingFace modules, the decoders without a dense decode.
+- The refusals by name: tensor and expert parallelism, the hybrid
+  engine's ``inference_tp_size``, models by name and HuggingFace modules,
+  a cache of another width than 8 bits, MoE training and the capacity
+  routing. (Int8 weights, the int8 cache tier and the DecoderLM and
+  Mixtral decodes run: tests/test_torch_v1_quant.py.)
 
 Params come from ``jax.eval_shape`` plus numpy (no flax ``init``)."""
 
@@ -210,8 +212,6 @@ def test_generate_budget_rules():
     ({"tensor_parallel": {"tp_size": 2}}, "tensor_parallel.tp_size"),
     ({"mp_size": 2}, "tensor_parallel.tp_size"),
     ({"moe": {"ep_size": 2}}, "moe.ep_size"),
-    ({"quant": {"enabled": True}}, "quant.enabled"),
-    ({"kv_quant": {"enabled": True}}, "kv_quant.enabled"),
 ])
 def test_inference_config_refuses_by_name(conf, name):
     with pytest.raises(NotImplementedError, match=name):
@@ -233,13 +233,11 @@ def test_unported_paths_refuse_by_name():
 
     with pytest.raises(NotImplementedError, match="HuggingFace"):
         deepspeed_tpu_torch.init_inference(HFModel())
-    with pytest.raises(NotImplementedError, match="kv_bits=8"):
-        init_cache(LlamaConfig.tiny(), 1, 8, kv_bits=8, device="cpu")
-    from deepspeed_tpu_torch.models.decoder import DecoderConfig, DecoderLM
+    with pytest.raises(ValueError, match="kv_bits must be None or 8"):
+        init_cache(LlamaConfig.tiny(), 1, 8, kv_bits=4, device="cpu")
     from deepspeed_tpu_torch.models.mixtral import MixtralConfig, MixtralForCausalLM
-    for m in (DecoderLM(DecoderConfig.tiny("opt"), device="cpu"),
-              MixtralForCausalLM(MixtralConfig.tiny(), device="cpu")):
-        eng = InferenceEngine(m, {"dtype": "float32"}, model_parameters=m.flat_params(),
-                              device="cpu")
-        with pytest.raises(NotImplementedError, match="decode"):
-            eng.generate(np.zeros((1, 4), np.int32), max_new_tokens=2)
+    with pytest.raises(NotImplementedError, match="dispatch_mode='capacity'"):
+        MixtralForCausalLM(MixtralConfig.tiny(dispatch_mode="capacity"), device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE training"):
+        MixtralForCausalLM(MixtralConfig.tiny(), device="cpu")(
+            {"input_ids": torch.zeros(1, 4, dtype=torch.long)})

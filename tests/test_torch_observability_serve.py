@@ -12,6 +12,7 @@ emits the JAX package's ``inference/v2/pipeline/*`` fields."""
 import os
 import subprocess
 import sys
+import threading
 from types import SimpleNamespace
 
 import jax
@@ -272,9 +273,22 @@ def _span_lanes(records):
     return {(r[1], r[4]) for r in records if r[3] is not None}
 
 
+def _own_records(tr):
+    """The records of the calling thread's ring only. A thread that an
+    earlier test in the same worker left running (a serving frontend's or
+    router's loop whose test failed before closing it) records into the
+    same tracer as soon as it is enabled; the engines under test record
+    their put and decode pipeline on the calling thread."""
+    me = threading.current_thread()
+    with tr._reg_lock:
+        rings = [r for r in tr._rings if r.thread is me]
+    return [rec for ring in rings for rec in ring.snapshot()]
+
+
 def test_span_names_and_lanes_match_jax_engine(weights):
     """The same config (split ladder on) and prompts traced through both
-    engines' put + decode pipeline: the same set of (span name, lane)."""
+    engines' put + decode pipeline on this thread: the same set of (span
+    name, lane)."""
     jax_model, flat, port = weights
     tree = {}
     for k, a in flat.items():
@@ -291,14 +305,14 @@ def test_span_names_and_lanes_match_jax_engine(weights):
         jax_tracer.configure(enabled=True)
         jeng.put(uids, PROMPTS[:2])
         jeng.decode_pipeline(uids).run(4)
-        jax_spans = _span_lanes(jax_tracer.iter_records())
+        jax_spans = _span_lanes(_own_records(jax_tracer))
     finally:
         jax_tracer.reset()
     e = _port(port, **LADDER)
     tracer.configure(enabled=True)
     e.put(uids, PROMPTS[:2])
     e.decode_pipeline(uids).run(4)
-    port_spans = _span_lanes(tracer.iter_records())
+    port_spans = _span_lanes(_own_records(tracer))
     assert ("serve/decode/step", "serve/decode") in port_spans
     assert ("serve/attn/select", "serve/attn") in port_spans
     assert port_spans == jax_spans
